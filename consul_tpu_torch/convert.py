@@ -1,0 +1,82 @@
+"""Carry simulator state across the two packages as dicts of numpy arrays.
+
+`d` is keyed by the JAX dataclass field names (a SwimState's fields, or
+for a ClusterState {"swim": ..., "coords": ..., "events": ...}), as a
+caller gets them with `np.asarray(getattr(state, name))`.  Dtypes are
+preserved exactly; the scalar ticks and the Vivaldi cursor become the
+port's host mirrors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from consul_tpu_torch.models import events, serf, swim, vivaldi
+from consul_tpu_torch.utils import devices
+
+
+def _tensor(v, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, copy=True, order="C")).to(device)
+
+
+def swim_state_from_numpy(d: dict, device=None) -> swim.SwimState:
+    device = devices.resolve(device)
+    fields = {name: _tensor(d[name], device) for name in swim.TENSOR_FIELDS}
+    return swim.SwimState(tick=int(np.asarray(d["tick"])),
+                          bulk_live=bool(np.asarray(d["bulk_member"]).any()),
+                          **fields)
+
+
+def swim_state_to_numpy(s: swim.SwimState) -> dict:
+    out = {name: getattr(s, name).cpu().numpy() for name in swim.TENSOR_FIELDS}
+    out["tick"] = np.int32(s.tick)
+    return out
+
+
+def vivaldi_state_from_numpy(d: dict, device=None) -> vivaldi.VivaldiState:
+    device = devices.resolve(device)
+    return vivaldi.VivaldiState(
+        coords=_tensor(d["coords"], device), height=_tensor(d["height"], device),
+        error=_tensor(d["error"], device),
+        adj_window=_tensor(d["adj_window"], device),
+        adj_index=int(np.asarray(d["adj_index"])),
+        adjustment=_tensor(d["adjustment"], device))
+
+
+def vivaldi_state_to_numpy(s: vivaldi.VivaldiState) -> dict:
+    return {"coords": s.coords.cpu().numpy(), "height": s.height.cpu().numpy(),
+            "error": s.error.cpu().numpy(),
+            "adj_window": s.adj_window.cpu().numpy(),
+            "adj_index": np.int32(s.adj_index),
+            "adjustment": s.adjustment.cpu().numpy()}
+
+
+def event_state_from_numpy(d: dict, device=None) -> events.EventState:
+    device = devices.resolve(device)
+    fields = {name: _tensor(d[name], device) for name in events.TENSOR_FIELDS}
+    return events.EventState(
+        tick=int(np.asarray(d["tick"])),
+        active_host=tuple(bool(a) for a in np.asarray(d["e_active"])),
+        start_host=tuple(int(t) for t in np.asarray(d["e_start"])),
+        **fields)
+
+
+def event_state_to_numpy(s: events.EventState) -> dict:
+    out = {name: getattr(s, name).cpu().numpy() for name in events.TENSOR_FIELDS}
+    out["tick"] = np.int32(s.tick)
+    return out
+
+
+def cluster_state_from_numpy(d: dict, device=None) -> serf.ClusterState:
+    device = devices.resolve(device)
+    return serf.ClusterState(
+        swim=swim_state_from_numpy(d["swim"], device),
+        coords=vivaldi_state_from_numpy(d["coords"], device),
+        events=event_state_from_numpy(d["events"], device))
+
+
+def cluster_state_to_numpy(s: serf.ClusterState) -> dict:
+    return {"swim": swim_state_to_numpy(s.swim),
+            "coords": vivaldi_state_to_numpy(s.coords),
+            "events": event_state_to_numpy(s.events)}

@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels into one shared library, at first use.
+
+Every `csrc/*.cu` compiles with its own `nvcc` process (all started
+together) for `sm_90a`, then one link step makes
+`_build/libconsul_kernels-<hash>.so`.  The hash covers every source and
+the flags, so an edited source rebuilds and an unchanged tree reuses the
+library.  Only the sources in this directory are built; a failed
+compile raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# seconds the last build() in this process spent compiling (0 on reuse)
+last_build_seconds = 0.0
+# ptxas register/spill report of the last compile, per source
+ptxas_report: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "consul_tpu_torch's kernels")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256()
+    for flag in ARCH + CFLAGS:
+        h.update(flag.encode())
+    for path in sources:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Path of the shared library, compiling it if the sources changed."""
+    global last_build_seconds
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    lib = BUILD_DIR / f"libconsul_kernels-{_digest(sources + headers)}.so"
+    if lib.exists():
+        last_build_seconds = 0.0
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    work = BUILD_DIR / f"tmp-{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    try:
+        procs = []
+        for src in sources:
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *ARCH, *CFLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            ptxas_report[src.name] = out
+            if proc.returncode != 0:
+                errors.append(f"{src.name} (rc={proc.returncode}):\n{out}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp_lib = work / lib.name
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
+               *[str(obj) for _, obj, _ in procs]]
+        link = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc={link.returncode}):\n"
+                               f"{link.stdout}")
+        os.replace(tmp_lib, lib)   # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    last_build_seconds = time.perf_counter() - t0
+    return lib

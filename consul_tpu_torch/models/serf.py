@@ -1,0 +1,100 @@
+"""The Serf layer: SWIM membership + Vivaldi coordinates + user events in
+one cluster step (the port of consul_tpu/models/serf.py:28-164).
+
+Each tick advances failure detection and dissemination (models/swim.py),
+feeds the round's direct probe acks to the coordinate solver on probe
+ticks (serf's update-on-probe-ack coupling), and advances user events
+with the tick's new up/member vectors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from consul_tpu_torch.config import GossipConfig, SimConfig
+from consul_tpu_torch.models import events, swim, vivaldi
+from consul_tpu_torch.utils import devices
+
+
+@dataclasses.dataclass(frozen=True)
+class SerfParams:
+    swim: swim.SwimParams
+    vivaldi: vivaldi.VivaldiParams
+    events: events.EventParams
+
+    @property
+    def n_nodes(self) -> int:
+        return self.swim.n_nodes
+
+
+def make_params(gossip: Optional[GossipConfig] = None,
+                sim: Optional[SimConfig] = None,
+                coord_dims: int = 8, event_slots: int = 32) -> SerfParams:
+    gossip = gossip or GossipConfig.lan()
+    sim = sim or SimConfig()
+    return SerfParams(
+        swim=swim.make_params(gossip, sim),
+        vivaldi=vivaldi.VivaldiParams(n_nodes=sim.n_nodes, dims=coord_dims,
+                                      seed=sim.seed),
+        events=events.make_params(gossip, sim, event_slots),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterState:
+    swim: swim.SwimState
+    coords: vivaldi.VivaldiState
+    events: events.EventState
+
+    def replace(self, **kw) -> "ClusterState":
+        return dataclasses.replace(self, **kw)
+
+
+def init_state(params: SerfParams, key=None, n_initial: int = 0,
+               device=None) -> ClusterState:
+    """Fresh pool on `device`: the card unless the caller names one."""
+    device = devices.resolve(device)
+    return ClusterState(
+        swim=swim.init_state(params.swim, key, n_initial=n_initial,
+                             device=device),
+        coords=vivaldi.init_state(params.vivaldi, device=device),
+        events=events.init_state(params.events, device=device))
+
+
+def step(params: SerfParams, s: ClusterState) -> ClusterState:
+    """One gossip tick of the full serf pool."""
+    sw, obs = swim.step_with_obs(params.swim, s.swim)
+    coords = s.coords
+    if obs is not None:
+        coords = vivaldi.observe_ring(params.vivaldi, coords, obs.shift,
+                                      obs.rtt_ms / 1000.0, obs.acked)
+    ev = events.step(params.events, s.events, up=sw.up, member=sw.member)
+    return ClusterState(swim=sw, coords=coords, events=ev)
+
+
+def run(params: SerfParams, s: ClusterState, n_ticks: int,
+        monitor_subject: Optional[int] = None):
+    """`n_ticks` steps; with a monitor subject, its believed-down fraction
+    after every tick in one [n_ticks] float32 device vector."""
+    fr = torch.zeros(n_ticks, dtype=torch.float32, device=s.swim.device)
+    for t in range(n_ticks):
+        s = step(params, s)
+        if monitor_subject is not None:
+            swim.believed_down_fraction(params.swim, s.swim, monitor_subject,
+                                        out=fr[t:t + 1])
+    return s, fr
+
+
+def metrics_vector(params: SerfParams, s: ClusterState) -> torch.Tensor:
+    """Device-side telemetry for the pool (swim.METRIC_NAMES order)."""
+    return swim.metrics_vector(params.swim, s.swim)
+
+
+def fire_event(params: SerfParams, s: ClusterState, origin: int,
+               event_id: int) -> ClusterState:
+    """Fire a user event (reference agent/user_event.go:23 UserEvent)."""
+    return s.replace(events=events.fire(params.events, s.events, origin,
+                                        event_id))

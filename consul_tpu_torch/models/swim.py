@@ -1,0 +1,962 @@
+"""SWIM failure detection + infection-style dissemination on PyTorch.
+
+The port of consul_tpu/models/swim.py's main path: the rumor-centric state
+(O(N) ground truth, a U-slot rumor table, the [N, U] knowledge matrix),
+the probe-tick detector pipeline (probe round, slot and dense suspicion
+expiry, refutation, coverage-guarded expiry), per-tick dissemination,
+the bulk death channel, the convergence monitor, the metrics vector and
+`kill`.  Each function computes what its JAX counterpart computes, with
+the same dtypes (wrapping int16 learn ticks, int8 budgets/kinds), so a
+converted JAX state advanced here and there stays bit-equal on its int
+and bool leaves.
+
+Control flow that JAX expresses inside `lax.scan`:
+
+  * the probe-tick `lax.cond` is decided on the host from the tick,
+    which the state mirrors as a host integer — no sync;
+  * `_originate`'s `lax.cond(demand > free, evict)` runs the eviction
+    masked by the device-side condition (an evicted-nothing release is
+    the identity), so no sync;
+  * `jnp.any(bulk_member)` is read back once per probe tick into the
+    `bulk_live` host flag (the bulk channel only gains members on probe
+    ticks); gossip-only ticks never sync.
+
+`believed_down_fraction` launches kernel K3 on CUDA tensors; the gossip
+pass goes through ops/gossip.py (K2) and every random draw through
+utils/prng.py (K1).  `params.chaos` (the nemesis build) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from consul_tpu_torch import kernels
+from consul_tpu_torch.config import GossipConfig, SimConfig
+from consul_tpu_torch.ops import gossip as gossip_ops
+from consul_tpu_torch.ops import rolls
+from consul_tpu_torch.utils import devices, prng
+
+ALIVE = 0
+SUSPECT = 1
+DEAD = 2
+LEFT = 3
+
+CTR_PROBES_SENT = 0
+CTR_PROBE_ACKS = 1
+CTR_PROBE_FAILS = 2
+CTR_SUSPICIONS = 3
+CTR_GOSSIP_DELIVERED = 4
+CTR_GOSSIP_SERVED = 5
+CTR_GOSSIP_LOST = 6
+CTR_N = 7
+
+I8, I16, I32, I64 = torch.int8, torch.int16, torch.int32, torch.int64
+F32 = torch.float32
+
+# host syncs taken by the tick (the probe-tick bulk-channel flag); the
+# bench reports them per tick
+host_syncs = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SwimParams:
+    """Static parameters of the detector (consul_tpu SwimParams)."""
+
+    n_nodes: int
+    rumor_slots: int
+    gossip_nodes: int
+    indirect_checks: int
+    probe_period_ticks: int
+    probe_timeout_ms: float
+    retransmit_limit: int
+    suspicion_min_ticks: int
+    suspicion_max_ticks: int
+    declare_lag_ticks: int
+    confirm_k: int
+    alloc_cap: int
+    expiry_gossip_ticks: int
+    expiry_suspect_ticks: int
+    p_loss: float
+    rtt_base_ms: float
+    packet_msgs: int
+    awareness_max: int
+    degraded_frac: float
+    degraded_loss: float
+    seed: int
+    chaos: bool = False
+    shard_blocks: int = 1
+
+
+def make_params(gossip: GossipConfig, sim: SimConfig) -> SwimParams:
+    n = sim.n_nodes
+    if sim.chaos:
+        raise NotImplementedError("the nemesis (chaos) build is not ported")
+    if sim.shard_blocks != 1:
+        raise NotImplementedError("node-axis sharding is not ported")
+    limit = min(gossip.retransmit_limit(n), 127)
+    spread = max(8, 4 * math.ceil(math.log2(n + 1)))
+    return SwimParams(
+        n_nodes=n,
+        rumor_slots=sim.rumor_slots,
+        gossip_nodes=gossip.gossip_nodes,
+        indirect_checks=gossip.indirect_checks,
+        probe_period_ticks=gossip.probe_period_ticks,
+        probe_timeout_ms=gossip.probe_timeout * 1000.0,
+        retransmit_limit=limit,
+        suspicion_min_ticks=gossip.suspicion_min_ticks(n),
+        suspicion_max_ticks=gossip.suspicion_max_ticks(n),
+        # memberlist declares suspect only after the full probe cycle
+        declare_lag_ticks=math.ceil(2 * gossip.probe_timeout
+                                    / gossip.gossip_interval),
+        confirm_k=gossip.confirm_k(),
+        alloc_cap=min(sim.alloc_cap, sim.n_nodes, sim.rumor_slots),
+        expiry_gossip_ticks=spread,
+        expiry_suspect_ticks=gossip.suspicion_max_ticks(n) + spread,
+        p_loss=sim.p_loss,
+        rtt_base_ms=sim.rtt_base_ms,
+        packet_msgs=gossip.packet_msgs(),
+        awareness_max=gossip.awareness_max_multiplier,
+        degraded_frac=sim.degraded_frac,
+        degraded_loss=sim.degraded_loss,
+        seed=sim.seed,
+        chaos=sim.chaos,
+        shard_blocks=sim.shard_blocks,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SwimState:
+    """Simulator state: tensors on one device, plus host mirrors of the
+    tick and of whether the bulk channel holds members."""
+
+    tick: int                      # host mirror of the int32 tick
+    up: torch.Tensor               # [N] bool
+    member: torch.Tensor           # [N] bool (a buffer distinct from up)
+    incarnation: torch.Tensor      # [N] int32
+    coords: torch.Tensor           # [N, 2] float32 latent coords (ms)
+    committed_dead: torch.Tensor   # [N] bool
+    committed_left: torch.Tensor   # [N] bool
+    committed_inc: torch.Tensor    # [N] int32
+    r_active: torch.Tensor         # [U] bool
+    r_kind: torch.Tensor           # [U] int8
+    r_subject: torch.Tensor        # [U] int32
+    r_inc: torch.Tensor            # [U] int32
+    r_start: torch.Tensor          # [U] int32
+    r_confirm: torch.Tensor        # [U] int8
+    r_coverage: torch.Tensor       # [U] float32
+    know: torch.Tensor             # [N, U] bool
+    learn_tick: torch.Tensor       # [N, U] int16 (wrapping; see _age)
+    sends_left: torch.Tensor       # [N, U] int8
+    sus_start: torch.Tensor        # [N] int32, -1 = none
+    sus_confirm: torch.Tensor      # [N] int8
+    bulk_member: torch.Tensor      # [N] bool
+    bulk_heard: torch.Tensor       # [N] float32
+    bulk_cov: torch.Tensor         # [N] float32
+    awareness: torch.Tensor        # [N] int8
+    sus_count: torch.Tensor        # [N] int32
+    chaos_grp: torch.Tensor        # [N] int16 (unused: no nemesis build)
+    chaos_ok: torch.Tensor         # [N] float32 (unused: no nemesis build)
+    ctr: torch.Tensor              # [CTR_N] float32
+    bulk_live: bool = False        # host mirror of any(bulk_member)
+
+    def replace(self, **kw) -> "SwimState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.up.device
+
+
+TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(SwimState)
+                      if f.name not in ("tick", "bulk_live"))
+
+
+def init_state(params: SwimParams, key=None, n_initial: int = 0,
+               device=None) -> SwimState:
+    """Fresh pool on `device` (the card unless the caller names one)."""
+    device = devices.resolve(device)
+    n, u = params.n_nodes, params.rumor_slots
+    if n_initial < 0 or n_initial > n:
+        raise ValueError(f"n_initial={n_initial} outside [0, {n}]")
+    if key is None:
+        key = prng.PRNGKey(params.seed ^ 0x5EEDF00D)
+    coords = prng.uniform(key, (n, 2), device) * 30.0
+    ar = torch.arange(n, device=device)
+    present = torch.ones(n, dtype=torch.bool, device=device) if not n_initial \
+        else ar < n_initial
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return SwimState(
+        tick=0, up=present, member=present.clone(),
+        incarnation=z(n, I32), coords=coords,
+        committed_dead=z(n, torch.bool), committed_left=z(n, torch.bool),
+        committed_inc=z(n, I32),
+        r_active=z(u, torch.bool), r_kind=z(u, I8), r_subject=z(u, I32),
+        r_inc=z(u, I32), r_start=z(u, I32), r_confirm=z(u, I8),
+        r_coverage=z(u, F32),
+        know=z((n, u), torch.bool), learn_tick=z((n, u), I16),
+        sends_left=z((n, u), I8),
+        sus_start=torch.full((n,), -1, dtype=I32, device=device),
+        sus_confirm=z(n, I8), bulk_member=z(n, torch.bool),
+        bulk_heard=z(n, F32), bulk_cov=z(n, F32), awareness=z(n, I8),
+        sus_count=z(n, I32), chaos_grp=z(n, I16),
+        chaos_ok=torch.ones(n, dtype=F32, device=device),
+        ctr=z(CTR_N, F32), bulk_live=False)
+
+
+# ---------------------------------------------------------------------------
+# small helpers: scatters with .at[]-semantics, int16 tick, timeout table
+# ---------------------------------------------------------------------------
+
+def _t16(tick: int) -> int:
+    """The host tick as the wrapping int16 the JAX state stamps."""
+    return ((int(tick) + 2 ** 15) % 2 ** 16) - 2 ** 15
+
+
+def _scatter(base: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+             reduce: str) -> torch.Tensor:
+    """base.at[idx].max/min(val) — out of place, include_self."""
+    if base.dtype == torch.bool:
+        out = base.to(I32).scatter_reduce(0, idx.to(I64), val.to(I32), reduce,
+                                          include_self=True)
+        return out.bool()
+    return base.scatter_reduce(0, idx.to(I64), val.to(base.dtype), reduce,
+                               include_self=True)
+
+
+def _set_drop(table: torch.Tensor, idx: torch.Tensor,
+              val: torch.Tensor) -> torch.Tensor:
+    """table.at[idx].set(val, mode="drop") for idx in [0, U] (U drops)."""
+    u = table.shape[0]
+    ext = torch.cat([table, table[:1]])
+    ext[idx.to(I64)] = val.to(table.dtype)
+    return ext[:u]
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """lax.top_k: the k largest, earlier index first among equals."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k].to(I32)
+
+
+@functools.lru_cache(maxsize=64)
+def timeout_table(params: SwimParams) -> Tuple[int, ...]:
+    """Lifeguard suspicion timeout for confirmations c = 0..64: the timer
+    decays from max to min as log(c+1)/log(k+1), floored at min, plus the
+    probe-cycle declare lag (swim.py:477-489).  Computed once on the host
+    in float32 so every device indexes the same integers: a device `log`
+    one ulp off could push `t` over an integer and add a whole tick."""
+    mn = np.float32(params.suspicion_min_ticks)
+    mx = np.float32(params.suspicion_max_ticks)
+    c = np.arange(65, dtype=np.float32)
+    frac = np.log(c + np.float32(1.0)) / np.float32(math.log(params.confirm_k + 1.0))
+    t = mx - (mx - mn) * np.clip(frac, np.float32(0.0), np.float32(1.0))
+    out = np.ceil(np.maximum(t, mn)).astype(np.int32) + params.declare_lag_ticks
+    return tuple(int(v) for v in out)
+
+
+_table_cache: dict = {}
+
+
+def _timeouts(params: SwimParams, confirm: torch.Tensor) -> torch.Tensor:
+    """[...] int32 timeout for int confirmation counts (0..64)."""
+    key = (params, confirm.device)
+    table = _table_cache.get(key)
+    if table is None:
+        table = torch.tensor(timeout_table(params), dtype=I32,
+                             device=confirm.device)
+        _table_cache[key] = table
+    return table[confirm.to(I64)]
+
+
+# ---------------------------------------------------------------------------
+# derived per-subject maps + small-table lookups
+# ---------------------------------------------------------------------------
+
+def _subject_map(params: SwimParams, s: SwimState, kind: int,
+                 values: torch.Tensor) -> torch.Tensor:
+    mask = s.r_active & (s.r_kind == kind)
+    subj = torch.where(mask, s.r_subject, 0)
+    val = torch.where(mask, values.to(I32), -1)
+    base = torch.full((params.n_nodes,), -1, dtype=I32, device=s.device)
+    return _scatter(base, subj, val, "amax")
+
+
+def _maps(params: SwimParams, s: SwimState):
+    u = params.rumor_slots
+    slots = torch.arange(u, dtype=I32, device=s.device)
+    suspect_of = _subject_map(params, s, SUSPECT, slots)
+    dead_of = _subject_map(params, s, DEAD, slots)
+    left_of = _subject_map(params, s, LEFT, slots)
+    alive_val = _subject_map(params, s, ALIVE, s.r_inc * u + slots)
+    return suspect_of, dead_of, left_of, alive_val
+
+
+def _map_add(map_n, subjects, slots, ok):
+    return _scatter(map_n, torch.where(ok, subjects, 0),
+                    torch.where(ok, slots, -1), "amax")
+
+
+def _maps_convert(maps, s: SwimState, convert: torch.Tensor):
+    suspect_of, dead_of, left_of, alive_val = maps
+    u = s.r_active.shape[0]
+    subj = torch.where(convert, s.r_subject, 0)
+    suspect_of = _scatter(suspect_of, subj,
+                          torch.where(convert, -1, 1 << 30), "amin")
+    dead_of = _scatter(dead_of, subj, torch.where(
+        convert, torch.arange(u, dtype=I32, device=s.device), -1), "amax")
+    return suspect_of, dead_of, left_of, alive_val
+
+
+def _onehot(cols: torch.Tensor, u: int) -> torch.Tensor:
+    return cols[:, None] == torch.arange(u, dtype=I32, device=cols.device)[None, :]
+
+
+def _row_gather(mat: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """mat[i, cols[i]], cols may be -1 (False/0 there); integer rows come
+    back as int32, as jnp.sum promotes them."""
+    onehot = _onehot(cols, mat.shape[1])
+    if mat.dtype == torch.bool:
+        return (mat & onehot).any(1)
+    return torch.where(onehot, mat, 0).sum(1, dtype=I32)
+
+
+def _table_lookup(vec_u: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    onehot = _onehot(cols, vec_u.shape[0])
+    return torch.where(onehot, vec_u[None, :], 0).sum(1, dtype=I32)
+
+
+# ---------------------------------------------------------------------------
+# belief queries
+# ---------------------------------------------------------------------------
+
+def _believes_down_shift(params: SwimParams, s: SwimState, maps,
+                         shift: torch.Tensor, tick: int) -> torch.Tensor:
+    """[N] bool: does node i believe its ring peer (i + shift) % N is down?"""
+    suspect_of, dead_of, left_of, alive_val = maps
+    u = params.rumor_slots
+    down = rolls.pull(s.committed_dead | s.committed_left, shift)
+    down = down | _row_gather(s.know, rolls.pull(dead_of, shift))
+    down = down | _row_gather(s.know, rolls.pull(left_of, shift))
+    ss = rolls.pull(suspect_of, shift)
+    know_s = _row_gather(s.know, ss)
+    learn = _row_gather(s.learn_tick, ss)                 # int32, as in JAX
+    conf = _table_lookup(s.r_confirm, ss)
+    age = _t16(tick) - learn
+    expired = know_s & (age >= _timeouts(params, conf).to(I16))
+    av = rolls.pull(alive_val, shift)
+    a_slot = torch.where(av >= 0, av % u, -1)
+    a_inc = torch.where(av >= 0, torch.div(av, u, rounding_mode="floor"), -1)
+    s_inc = _table_lookup(s.r_inc, ss)
+    refuted = (av >= 0) & (a_inc > s_inc) & _row_gather(s.know, a_slot)
+    refuted = refuted | (s_inc < rolls.pull(s.committed_inc, shift))
+    down = down | (expired & ~refuted)
+    return down | rolls.pull(s.bulk_member, shift)
+
+
+def _monitor_slots(params: SwimParams, s: SwimState, subject: int):
+    """The per-slot [U] vectors of the monitor for one subject."""
+    subj = s.r_active & (s.r_subject == subject)
+    is_dl = subj & ((s.r_kind == DEAD) | (s.r_kind == LEFT))
+    is_s = subj & (s.r_kind == SUSPECT)
+    is_a = subj & (s.r_kind == ALIVE)
+    timeout16 = _timeouts(params, s.r_confirm).to(I16)
+    return is_dl, is_s, is_a, timeout16
+
+
+def believed_down_fraction_plain(params: SwimParams, s: SwimState,
+                                 subject: int) -> torch.Tensor:
+    """The plain PyTorch version of K3 (swim.py:533-562), a 0-d float32."""
+    n = s.up.shape[0]
+    is_dl, is_s, is_a, timeout16 = _monitor_slots(params, s, subject)
+    down = s.committed_dead[subject] | s.committed_left[subject]
+    down_i = (s.know & is_dl[None, :]).any(1) | down
+    age_ok = (_t16(s.tick) - s.learn_tick) >= timeout16[None, :]
+    a_inc_known = torch.where(is_a[None, :] & s.know, s.r_inc[None, :],
+                              -1).amax(1)
+    refuted = (a_inc_known[:, None] > s.r_inc[None, :]) \
+        | (s.r_inc[None, :] < s.committed_inc[subject])
+    down_i = down_i | (s.know & is_s[None, :] & age_ok & ~refuted).any(1)
+    observer = s.up & s.member & (torch.arange(n, device=s.device) != subject)
+    frac = (down_i & observer).sum().to(F32) \
+        / observer.sum().clamp_min(1).to(F32)
+    bulk = torch.where(s.bulk_member[subject], s.bulk_cov[subject],
+                       torch.zeros((), dtype=F32, device=s.device))
+    return torch.maximum(frac, bulk)
+
+
+def believed_down_fraction(params: SwimParams, s: SwimState, subject: int,
+                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fraction of live members (excluding the subject) that believe
+    `subject` is down — the north-star convergence metric.  On CUDA
+    tensors it launches K3, writing into `out` (one float32, e.g. a slot
+    of a per-scan vector) when given."""
+    if not s.know.is_cuda:
+        frac = believed_down_fraction_plain(params, s, subject)
+        if out is not None:
+            out.copy_(frac.reshape(out.shape))
+            return out
+        return frac
+    is_dl, is_s, is_a, timeout16 = _monitor_slots(params, s, subject)
+    if out is None:
+        out = torch.empty(1, dtype=F32, device=s.device)
+    kernels.launch_believed_down(
+        s.know, s.learn_tick, s.up, s.member, is_dl, is_s, is_a, s.r_inc,
+        timeout16, s.committed_dead, s.committed_left, s.committed_inc,
+        s.bulk_member, s.bulk_cov, subject, _t16(s.tick), out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rumor allocation / origination
+# ---------------------------------------------------------------------------
+
+def _originate(params: SwimParams, s: SwimState, want_score: torch.Tensor,
+               kind: int, inc_of_subject: torch.Tensor,
+               row_subject: torch.Tensor):
+    """Allocate up to `alloc_cap` rumor slots for subjects with want > 0
+    (swim.py:605-672).  The pressure eviction that JAX gates with
+    lax.cond(demand > free) runs masked by that device-side condition."""
+    a = params.alloc_cap
+    u = params.rumor_slots
+    dev = s.device
+    demand = (want_score > 0).sum()
+    free = (~s.r_active).sum()
+    live = s.up & s.member
+    n_live = live.sum().clamp_min(1)
+    coverage = (s.know & live[:, None]).sum(0).to(F32) / n_live.to(F32)
+    evicting = demand > free
+    done = s.r_active & (coverage >= 0.995) & (s.r_kind != SUSPECT) & evicting
+    released = _release(s, done, coverage)
+    s = released.replace(r_coverage=torch.where(
+        evicting, released.r_coverage, s.r_coverage))
+
+    score, subjects = _top_k(want_score, a)
+    free_rank = torch.where(s.r_active, 0, 1).to(I32) \
+        * (u - torch.arange(u, dtype=I32, device=dev))
+    free_score, slots = _top_k(free_rank, a)
+    ok = (score > 0) & (free_score > 0)
+    oob = torch.where(ok, slots, u)
+
+    def full(v, dtype):
+        return torch.full((a,), v, dtype=dtype, device=dev)
+
+    r_active = _set_drop(s.r_active, oob, full(True, torch.bool))
+    r_kind = _set_drop(s.r_kind, oob, full(kind, I8))
+    r_subject = _set_drop(s.r_subject, oob, subjects)
+    r_inc = _set_drop(s.r_inc, oob, inc_of_subject[subjects.to(I64)])
+    r_start = _set_drop(s.r_start, oob, full(s.tick, I32))
+    r_confirm = _set_drop(s.r_confirm, oob, full(1, I8))
+
+    match_subj = torch.where(ok, subjects, -2)
+    match = row_subject[:, None] == match_subj[None, :]        # [N, A]
+    slot_row = torch.where(match, slots[None, :], -1).amax(1)  # [N]
+    cell = _onehot(slot_row, u) & (slot_row >= 0)[:, None]
+    know = s.know | cell
+    learn_tick = torch.where(cell, _t16(s.tick), s.learn_tick)
+    sends_left = torch.where(cell, params.retransmit_limit, s.sends_left)
+    s = s.replace(r_active=r_active, r_kind=r_kind, r_subject=r_subject,
+                  r_inc=r_inc, r_start=r_start, r_confirm=r_confirm,
+                  know=know, learn_tick=learn_tick, sends_left=sends_left)
+    return s, (subjects, slots, ok)
+
+
+# ---------------------------------------------------------------------------
+# step phases
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ProbeObs:
+    """Per-node probe measurements of one probe round: node i probed its
+    ring peer (i + shift) % N; direct acks carry an RTT sample."""
+
+    shift: torch.Tensor    # int32 scalar ring offset
+    rtt_ms: torch.Tensor   # [N] float32
+    acked: torch.Tensor    # [N] bool
+
+
+def _probe_round(params: SwimParams, s: SwimState, maps):
+    """One SWIM probe round: ring probe + k indirect probes + suspicion
+    (swim.py:698-897)."""
+    n = params.n_nodes
+    dev = s.device
+    tick = s.tick
+    kt = prng.tick_key(params.seed, tick, 1)
+    k_off, k_direct, k_leg, k_rtt, k_lha = prng.split(kt, 5)
+    offs = rolls.offsets(k_off, n, 1 + params.indirect_checks, dev)
+    d = offs[0]
+
+    live = s.up & s.member
+    if params.awareness_max > 0:
+        score = torch.clamp(s.awareness, 0, params.awareness_max - 1)
+        mult = (score + 1).to(F32)
+        lha_go = prng.uniform(k_lha, (n,), dev) * mult < 1.0
+    else:
+        mult = torch.ones(n, dtype=F32, device=dev)
+        lha_go = torch.ones(n, dtype=torch.bool, device=dev)
+    prober = live & lha_go
+    skip = _believes_down_shift(params, s, maps, d, tick)
+    t_up = rolls.pull(live, d)
+
+    if params.degraded_frac > 0.0:
+        h = (torch.arange(n, dtype=I64, device=dev) * 2654435761
+             + params.seed) & prng.M32
+        degraded = (h.to(F32) / np.float32(2 ** 32)) < params.degraded_frac
+        ok_node = torch.where(degraded, prng.f32(1.0 - params.degraded_loss),
+                              prng.f32(1.0 - params.p_loss))
+    else:
+        ok_node = torch.full((n,), 1.0 - params.p_loss, dtype=F32, device=dev)
+
+    diff = s.coords - rolls.pull(s.coords, d)
+    rtt = torch.sqrt((diff * diff).sum(-1)) + params.rtt_base_ms
+    rtt = rtt * (1.0 + prng.exponential(k_rtt, (n,), dev) * 0.1)
+    ok_t = rolls.pull(ok_node, d)
+    m_t = torch.minimum(ok_node, ok_t)
+    legs_ok = prng.uniform(k_direct, (n,), dev) < m_t * m_t
+    direct_ack = t_up & legs_ok & (2.0 * rtt < params.probe_timeout_ms * mult)
+
+    k = params.indirect_checks
+    if k > 0:
+        kA, kB, kC = prng.split(k_leg, 3)
+        shape = (n, k)
+        ok_r = torch.stack([rolls.pull(ok_node, offs[1 + j]) for j in range(k)],
+                           dim=-1)
+        uA = prng.uniform(kA, shape, dev)
+        uB = prng.uniform(kB, shape, dev)
+        uC = prng.uniform(kC, shape, dev)
+        l1 = uA < torch.minimum(ok_node[:, None], ok_r)
+        m_rt = torch.minimum(ok_r, ok_t[:, None])
+        l23 = uB < m_rt * m_rt
+        l4 = uC < torch.minimum(ok_r, ok_node[:, None])
+        relay_ok = torch.stack([rolls.pull(live, offs[1 + j]) for j in range(k)],
+                               dim=-1)
+        reach = t_up[:, None] & l23
+        ind_ack = relay_ok & l1 & reach & l4
+        nacked = relay_ok & l1 & ~reach & l4
+        ack = direct_ack | ind_ack.any(-1)
+    else:
+        nacked = torch.zeros((n, 0), dtype=torch.bool, device=dev)
+        ack = direct_ack
+
+    t_member = rolls.pull(s.member, d)
+    failed = prober & ~skip & ~ack & t_member
+    probed = prober & ~skip & t_member
+    if params.awareness_max > 0:
+        nack_count = nacked.sum(-1, dtype=I32)
+        delta_fail = (k - nack_count) if k > 0 else 0
+        zero = torch.zeros((), dtype=I32, device=dev)
+        delta = torch.where(probed & ack, -1,
+                            torch.where(failed, delta_fail, zero))
+        s = s.replace(awareness=torch.clamp(
+            s.awareness.to(I32) + delta, 0, params.awareness_max - 1).to(I8))
+    cnt = rolls.push(failed, d).to(I32)
+    suspect_of, dead_of, left_of, _ = maps
+
+    # (a) confirm existing suspicions; joiners start carrying the rumor
+    r_confirm = s.r_confirm.to(I32) + torch.where(
+        s.r_active & (s.r_kind == SUSPECT),
+        torch.clamp_max(cnt[s.r_subject.to(I64)], 8), 0)
+    r_confirm = torch.clamp_max(r_confirm, 64).to(I8)
+    es = rolls.pull(suspect_of, d)
+    joiner = failed & (es >= 0)
+    cell = _onehot(es, params.rumor_slots) & joiner[:, None]
+    fresh_cell = cell & ~s.know
+    s = s.replace(
+        r_confirm=r_confirm, know=s.know | cell,
+        learn_tick=torch.where(fresh_cell, _t16(tick), s.learn_tick),
+        sends_left=torch.where(fresh_cell, params.retransmit_limit,
+                               s.sends_left))
+
+    # (b) dense per-subject suspicion timers
+    suspected = cnt > 0
+    start_new = suspected & (s.sus_start < 0) \
+        & ~s.committed_dead & ~s.committed_left & s.member
+    sus_start = torch.where(start_new, tick, s.sus_start)
+    sus_confirm = torch.where(
+        start_new, 1,
+        torch.where(suspected & (s.sus_start >= 0),
+                    torch.clamp_max(s.sus_confirm.to(I32) + cnt, 64),
+                    s.sus_confirm.to(I32))).to(I8)
+    s = s.replace(sus_start=sus_start, sus_confirm=sus_confirm,
+                  sus_count=s.sus_count + start_new.to(I32))
+
+    zero = torch.zeros((), dtype=I64, device=dev)
+    incr = torch.stack([probed.sum(), (probed & ack).sum(), failed.sum(),
+                        start_new.sum(), zero, zero, zero]).to(F32)
+    s = s.replace(ctr=s.ctr + incr)
+
+    # (c) originate suspect rumors for subjects with no existing rumor
+    fresh = (cnt > 0) & (suspect_of < 0) & (dead_of < 0) & (left_of < 0) \
+        & ~s.committed_dead & ~s.committed_left
+    want = torch.where(fresh, cnt, 0)
+    target = ((torch.arange(n, dtype=I64, device=dev) + d) % n).to(I32)
+    row_subject = torch.where(failed, target, -1)
+    s, alloc = _originate(params, s, want, SUSPECT, s.incarnation, row_subject)
+    suspect_of = _map_add(suspect_of, *alloc)
+    maps = (suspect_of, dead_of, left_of, maps[3])
+    obs = ProbeObs(shift=d, rtt_ms=2.0 * rtt,
+                   acked=prober & ~skip & direct_ack)
+    return s, obs, maps
+
+
+def _suspicion_expiry(params: SwimParams, s: SwimState):
+    """Holders whose suspicion timer expired convert the suspect slot into
+    its dead rumor in place (swim.py:900-962).  Returns (state, convert)."""
+    u = params.rumor_slots
+    dev = s.device
+    tick = s.tick
+    is_suspect = s.r_active & (s.r_kind == SUSPECT)
+    timeout16 = _timeouts(params, s.r_confirm).to(I16)
+    age = _t16(tick) - s.learn_tick                               # int16
+    u_ids = torch.arange(u, dtype=I32, device=dev)
+    same = s.r_subject[:, None] == s.r_subject[None, :]           # [U, U]
+    is_alive = s.r_active & (s.r_kind == ALIVE)
+    av = torch.where(same & is_alive[None, :],
+                     s.r_inc[None, :] * u + u_ids[None, :], -1).amax(1)
+    a_slot = torch.where(av >= 0, av % u, 0)
+    a_inc = torch.where(av >= 0, torch.div(av, u, rounding_mode="floor"), -1)
+    refutable = (av >= 0) & (a_inc > s.r_inc)
+    know_alive = s.know.index_select(1, a_slot.to(I64))           # [N, U]
+    refuted = refutable[None, :] & know_alive
+    refuted = refuted | (s.r_inc < s.committed_inc[s.r_subject.to(I64)])[None, :]
+    observer = (s.up & s.member)[:, None]
+    expired = s.know & is_suspect[None, :] & (age >= timeout16[None, :]) \
+        & ~refuted & observer
+    any_exp = expired.any(0)
+    is_dead = s.r_active & (s.r_kind == DEAD)
+    dead_exists = (same & is_dead[None, :]).any(1)
+    convert = any_exp & ~dead_exists & ~s.committed_dead[s.r_subject.to(I64)]
+    limit = params.retransmit_limit
+    s = s.replace(
+        r_kind=torch.where(convert, DEAD, s.r_kind),
+        r_start=torch.where(convert, tick, s.r_start),
+        know=torch.where(convert[None, :], expired, s.know),
+        learn_tick=torch.where(convert[None, :] & expired, _t16(tick),
+                               s.learn_tick),
+        sends_left=torch.where(convert[None, :],
+                               torch.where(expired, limit, 0).to(I8),
+                               s.sends_left))
+    return s, convert
+
+
+def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
+                            shift: torch.Tensor, maps) -> SwimState:
+    """Expire dense per-subject suspicion timers into dead rumors, with
+    overflow into the bulk channel (swim.py:965-1083)."""
+    n = params.n_nodes
+    dev = s.device
+    tick = s.tick
+    active = s.sus_start >= 0
+    refute = active & s.up & s.member \
+        & (tick - s.sus_start >= params.probe_period_ticks)
+    timeout = _timeouts(params, s.sus_confirm)
+    expired = active & ~refute & (tick - s.sus_start >= timeout) & s.member
+    suspect_of, dead_of, left_of, _ = maps
+
+    subj = s.r_subject.to(I64)
+    is_suspect = s.r_active & (s.r_kind == SUSPECT)
+    exp_u = is_suspect & expired[subj] & (dead_of[subj] < 0) \
+        & ~s.committed_dead[subj]
+    sel = exp_u[None, :] & s.know
+    s = s.replace(
+        r_kind=torch.where(exp_u, DEAD, s.r_kind),
+        r_start=torch.where(exp_u, tick, s.r_start),
+        learn_tick=torch.where(sel, _t16(tick), s.learn_tick),
+        sends_left=torch.where(sel, params.retransmit_limit, s.sends_left))
+    suspect_of, dead_of, left_of, _ = _maps_convert(
+        (suspect_of, dead_of, left_of, None), s, exp_u)
+    prober_live = rolls.push(s.up & s.member, shift)
+    want = torch.where(expired & (dead_of < 0) & (left_of < 0)
+                       & (suspect_of < 0) & ~s.committed_dead
+                       & ~s.bulk_member & prober_live, 1, 0).to(I32)
+    target = ((torch.arange(n, dtype=I64, device=dev) + shift) % n).to(I32)
+    row_subject = torch.where(rolls.pull(want, shift) > 0, target, -1)
+    s, alloc = _originate(params, s, want, DEAD, s.incarnation, row_subject)
+    dead_of2 = _map_add(dead_of, *alloc)
+    left_of2 = left_of
+    overflow = (want > 0) & (dead_of2 < 0)
+    bulk_member = s.bulk_member | overflow
+    v_prev = s.bulk_member.sum().to(F32)
+    seeded = rolls.pull(overflow, shift)
+    bulk_heard = torch.minimum(
+        torch.minimum(s.bulk_heard, v_prev) + seeded.to(F32),
+        bulk_member.sum().to(F32))
+    n_live_f = (s.up & s.member).sum().clamp_min(1).to(F32)
+    bulk_cov = torch.where(overflow, 1.0 / n_live_f, s.bulk_cov)
+    s = s.replace(bulk_member=bulk_member, bulk_heard=bulk_heard,
+                  bulk_cov=bulk_cov)
+    done = refute | s.committed_dead | s.committed_left \
+        | (dead_of2 >= 0) | (left_of2 >= 0) | ~s.member | bulk_member
+    return s.replace(
+        sus_start=torch.where(done, -1, s.sus_start),
+        sus_confirm=torch.where(done, 0, s.sus_confirm).to(I8))
+
+
+def _refutation(params: SwimParams, s: SwimState) -> SwimState:
+    """A live subject that hears it is suspected (or declared dead) bumps
+    its incarnation and converts the slot to alive in place
+    (swim.py:1086-1149)."""
+    u = params.rumor_slots
+    n = params.n_nodes
+    dev = s.device
+    refutable = s.r_active & ((s.r_kind == SUSPECT) | (s.r_kind == DEAD))
+    subj = s.r_subject.to(I64)
+    subject_knows = s.know[subj, torch.arange(u, device=dev)]
+    need = refutable & subject_knows & s.up[subj] & s.member[subj] \
+        & (s.r_inc >= s.incarnation[subj])
+    idx = torch.where(need, s.r_subject, 0)
+    inc = _scatter(s.incarnation, idx, torch.where(need, s.r_inc + 1, -1),
+                   "amax")
+    awareness = s.awareness
+    if params.awareness_max > 0:
+        bumped = awareness.to(I32).scatter_add(0, idx.to(I64), need.to(I32))
+        awareness = torch.clamp(bumped.to(I8), 0, params.awareness_max - 1)
+    onehot_subj = torch.arange(n, device=dev)[:, None] == subj[None, :]
+    cell_new = need[None, :] & onehot_subj
+    return s.replace(
+        awareness=awareness,
+        incarnation=inc,
+        r_kind=torch.where(need, ALIVE, s.r_kind),
+        r_inc=torch.where(need, inc[subj], s.r_inc),
+        r_start=torch.where(need, s.tick, s.r_start),
+        know=torch.where(need[None, :], cell_new, s.know),
+        learn_tick=torch.where(cell_new, _t16(s.tick), s.learn_tick),
+        sends_left=torch.where(need[None, :],
+                               torch.where(cell_new, params.retransmit_limit,
+                                           0).to(I8),
+                               s.sends_left))
+
+
+def _disseminate(params: SwimParams, s: SwimState) -> SwimState:
+    """Piggyback gossip over the rumor table (swim.py:1152-1181): K2."""
+    n = params.n_nodes
+    tick = s.tick
+    offs = rolls.offsets(prng.tick_key(params.seed, tick, 2), n,
+                         params.gossip_nodes, s.device)
+    res = gossip_ops.disseminate(offs, s.know, s.sends_left,
+                                 sender_ok=s.up,
+                                 receiver_ok=s.up & s.member,
+                                 slot_active=s.r_active,
+                                 retransmit_limit=params.retransmit_limit,
+                                 p_loss=params.p_loss,
+                                 key=prng.tick_key(params.seed, tick, 5))
+    learn_tick = torch.where(res.newly, _t16(tick), s.learn_tick)
+    zero = torch.zeros((), dtype=F32, device=s.device)
+    incr = torch.stack([zero, zero, zero, zero, res.delivered, res.served,
+                        res.lost])
+    return s.replace(know=res.know, learn_tick=learn_tick,
+                     sends_left=res.sends_left, ctr=s.ctr + incr)
+
+
+def _bulk_disseminate(params: SwimParams, s: SwimState) -> SwimState:
+    """Advance the bulk death channel one gossip tick (swim.py:1184-1247)."""
+    n = params.n_nodes
+    dev = s.device
+    offs = rolls.offsets(prng.tick_key(params.seed, s.tick, 4), n,
+                         params.gossip_nodes, dev)
+    v = s.bulk_member.sum().to(F32).clamp_min(1.0)
+    cap = np.float32(params.packet_msgs)
+    p_ok = np.float32(1.0 - params.p_loss)
+    recv = s.up & s.member
+    heard = torch.minimum(s.bulk_heard, v)
+    supply_src = torch.where(s.up, heard, 0.0)
+    n_up = s.up.sum().clamp_min(1).to(F32)
+    mean_supply = supply_src.sum() / n_up
+    for view in rolls.pull_multi(supply_src, offs):
+        supply = torch.clamp_max(view, float(cap))
+        novelty = 1.0 - heard / v
+        heard = torch.where(recv,
+                            torch.minimum(heard + supply * novelty * float(p_ok), v),
+                            heard)
+    sel = torch.clamp_max(float(cap) / mean_supply.clamp_min(1.0), 1.0)
+    cov = s.bulk_cov
+    q = 1.0 - torch.clamp(cov * sel * float(p_ok), 0.0, 1.0)
+    q_pow = _integer_pow(q, params.gossip_nodes)
+    p_learn = 1.0 - q_pow
+    cov = torch.where(s.bulk_member,
+                      torch.clamp(cov + (1.0 - cov) * p_learn, 0.0, 1.0), 0.0)
+    return s.replace(bulk_heard=heard, bulk_cov=cov)
+
+
+def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
+    """x ** y by XLA's integer_pow: square-and-multiply, same rounding."""
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc if acc is not None else torch.ones_like(x)
+
+
+def _bulk_commit(params: SwimParams, s: SwimState) -> SwimState:
+    """Commit bulk subjects whose own coverage reached 99.5%."""
+    done = s.bulk_member & (s.bulk_cov >= 0.995)
+    removed = torch.where(done, s.bulk_cov, 0.0).sum()
+    v_new = (s.bulk_member & ~done).sum().to(F32)
+    heard = torch.minimum(torch.clamp_min(s.bulk_heard - removed, 0.0), v_new)
+    return s.replace(
+        committed_dead=s.committed_dead | done,
+        bulk_member=s.bulk_member & ~done,
+        bulk_heard=heard,
+        bulk_cov=torch.where(done, 0.0, s.bulk_cov))
+
+
+def _bulk_step(params: SwimParams, s: SwimState) -> SwimState:
+    """The bulk branch, applied only where the channel holds members (the
+    device-side form of JAX's lax.cond on any(bulk_member))."""
+    live = s.bulk_member.any()
+    t = _bulk_commit(params, _bulk_disseminate(params, s))
+    pick = lambda a, b: torch.where(live, a, b)  # noqa: E731
+    return s.replace(committed_dead=pick(t.committed_dead, s.committed_dead),
+                     bulk_member=pick(t.bulk_member, s.bulk_member),
+                     bulk_heard=pick(t.bulk_heard, s.bulk_heard),
+                     bulk_cov=pick(t.bulk_cov, s.bulk_cov))
+
+
+def _expire(params: SwimParams, s: SwimState) -> SwimState:
+    """Free slots whose dissemination window passed; commit dead/left
+    into the O(N) baseline, coverage-guarded (swim.py:1267-1287)."""
+    life = torch.where(s.r_kind == SUSPECT, params.expiry_suspect_ticks,
+                       params.expiry_gossip_ticks).to(I32)
+    age = s.tick - s.r_start
+    live = s.up & s.member
+    n_live = live.sum().clamp_min(1)
+    coverage = (s.know & live[:, None]).sum(0).to(F32) / n_live.to(F32)
+    done = s.r_active & (age >= life) \
+        & ((coverage >= 0.995) | (age >= 4 * life))
+    return _release(s, done, coverage)
+
+
+def _release(s: SwimState, done: torch.Tensor,
+             coverage: torch.Tensor) -> SwimState:
+    """Free the `done` slots, committing beliefs a majority heard."""
+    commit_ok = coverage >= 0.5
+    commit_dead = done & (s.r_kind == DEAD) & commit_ok
+    commit_left = done & (s.r_kind == LEFT) & commit_ok
+    commit_alive = done & (s.r_kind == ALIVE) & commit_ok
+    committed_dead = _scatter(s.committed_dead,
+                              torch.where(commit_dead, s.r_subject, 0),
+                              commit_dead, "amax")
+    committed_left = _scatter(s.committed_left,
+                              torch.where(commit_left, s.r_subject, 0),
+                              commit_left, "amax")
+    committed_inc = _scatter(s.committed_inc,
+                             torch.where(commit_alive, s.r_subject, 0),
+                             torch.where(commit_alive, s.r_inc, 0), "amax")
+    keep = ~done
+    return s.replace(
+        r_active=s.r_active & keep,
+        committed_dead=committed_dead,
+        committed_left=committed_left,
+        committed_inc=committed_inc,
+        know=s.know & keep[None, :],
+        sends_left=torch.where(keep[None, :], s.sends_left, 0).to(I8),
+        r_coverage=torch.where(keep, coverage, 0.0))
+
+
+def _bulk_flag(bulk_member: torch.Tensor) -> bool:
+    """The probe tick's one host sync: does the bulk channel hold members?"""
+    global host_syncs
+    host_syncs += 1
+    return bool(bulk_member.any().item())
+
+
+def step_with_obs(params: SwimParams, s: SwimState):
+    """Advance the whole cluster one gossip tick (swim.py:1320-1354).
+    Returns (state, obs); obs is None on ticks without a probe round."""
+    obs = None
+    if s.tick % params.probe_period_ticks == 0:
+        maps = _maps(params, s)
+        s, obs, maps = _probe_round(params, s, maps)
+        s, convert = _suspicion_expiry(params, s)
+        maps = _maps_convert(maps, s, convert)
+        s = _dense_suspicion_expiry(params, s, obs.shift, maps)
+        s = _refutation(params, s)
+        s = _expire(params, s)
+        s = s.replace(bulk_live=_bulk_flag(s.bulk_member))
+    s = _disseminate(params, s)
+    if s.bulk_live:
+        s = _bulk_step(params, s)
+    return s.replace(tick=s.tick + 1), obs
+
+
+def step(params: SwimParams, s: SwimState) -> SwimState:
+    return step_with_obs(params, s)[0]
+
+
+def run(params: SwimParams, s: SwimState, n_ticks: int,
+        monitor_subject: Optional[int] = None):
+    """Run `n_ticks` steps; with a monitor subject, the believed-down
+    fraction of that subject after every tick lands in one [n_ticks]
+    float32 device vector (read back once by the caller)."""
+    fr = torch.zeros(n_ticks, dtype=F32, device=s.device)
+    for t in range(n_ticks):
+        s = step(params, s)
+        if monitor_subject is not None:
+            believed_down_fraction(params, s, monitor_subject,
+                                   out=fr[t:t + 1])
+    return s, fr
+
+
+# ---------------------------------------------------------------------------
+# device-side metrics summary
+# ---------------------------------------------------------------------------
+
+METRIC_NAMES = (
+    "probe.sent", "probe.acked", "probe.failed", "suspicion.started",
+    "gossip.delivered", "gossip.served", "gossip.lost",
+    "queue.alive", "queue.suspect", "queue.dead", "queue.left",
+    "queue.depth", "slot.utilization", "convergence.fraction",
+    "members.alive", "members.failed_committed", "members.left_committed",
+    "bulk.pending", "bulk.coverage", "awareness.mean", "tick",
+)
+
+
+def metrics_vector(params: SwimParams, s: SwimState) -> torch.Tensor:
+    """One [len(METRIC_NAMES)] float32 vector of sim telemetry
+    (swim.py:1393-1435), read back only at sync checkpoints."""
+    live = s.up & s.member
+    n_live = live.sum().clamp_min(1).to(F32)
+    active = s.r_active
+    n_active = active.sum().clamp_min(1).to(F32)
+    live_cells = n_live * n_active
+    know_live = s.know & live[:, None] & active[None, :]
+    util = (know_live & (s.sends_left > 0)).sum().to(F32) / live_cells
+    conv = torch.where(active, s.r_coverage, 0.0).sum() / n_active
+    n_bulk = s.bulk_member.sum().to(F32)
+    bulk_cov = torch.where(s.bulk_member, s.bulk_cov, 0.0).sum() \
+        / n_bulk.clamp_min(1.0)
+    gauges = torch.stack([
+        (active & (s.r_kind == ALIVE)).sum().to(F32),
+        (active & (s.r_kind == SUSPECT)).sum().to(F32),
+        (active & (s.r_kind == DEAD)).sum().to(F32),
+        (active & (s.r_kind == LEFT)).sum().to(F32),
+        active.sum().to(F32),
+        util,
+        conv,
+        live.sum().to(F32),
+        s.committed_dead.sum().to(F32),
+        s.committed_left.sum().to(F32),
+        n_bulk,
+        bulk_cov,
+        torch.where(live, s.awareness.to(I32), 0).sum().to(F32) / n_live,
+        torch.full((), s.tick, dtype=F32, device=s.device),
+    ])
+    return torch.cat([s.ctr, gauges])
+
+
+def kill(s: SwimState, node: int) -> SwimState:
+    """Crash a node (fail-stop).  The detector must discover this."""
+    up = s.up.clone()
+    up[node] = False
+    return s.replace(up=up)

@@ -1,0 +1,122 @@
+"""Vivaldi network coordinates as vectorized spring relaxation (the port of
+consul_tpu/models/vivaldi.py's ring-probe path).
+
+Every probe ack yields one coordinate observation; a whole cluster's
+acks apply in one batched update against the ring peer (i + shift) % N.
+The algorithm follows the Vivaldi paper (Dabek et al., SIGCOMM'04) with
+serf's height vector, adaptive error, gravity and latency-adjustment
+window.  Units: seconds.
+
+The floats here pass through norms and the normal draw's erf_inv, whose
+rounding differs between XLA and PyTorch by a few ulp; nothing here
+feeds back into the SWIM state, so the tests hold these leaves to a
+stated tolerance rather than bit equality.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from consul_tpu_torch.ops import rolls
+from consul_tpu_torch.utils import devices, prng
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class VivaldiParams:
+    """serf coordinate tuning surface (documented defaults)."""
+
+    n_nodes: int
+    dims: int = 8
+    vivaldi_error_max: float = 1.5
+    vivaldi_ce: float = 0.25
+    vivaldi_cc: float = 0.25
+    adjustment_window: int = 20
+    height_min: float = 10.0e-6
+    gravity_rho: float = 150.0
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class VivaldiState:
+    coords: torch.Tensor      # [N, D] float32, seconds
+    height: torch.Tensor      # [N] float32
+    error: torch.Tensor       # [N] float32
+    adj_window: torch.Tensor  # [N, W] float32
+    adj_index: int            # host mirror of the int32 ring cursor
+    adjustment: torch.Tensor  # [N] float32
+
+    def replace(self, **kw) -> "VivaldiState":
+        return dataclasses.replace(self, **kw)
+
+
+def init_state(params: VivaldiParams, device=None) -> VivaldiState:
+    device = devices.resolve(device)
+    n, d = params.n_nodes, params.dims
+    return VivaldiState(
+        coords=torch.zeros((n, d), dtype=F32, device=device),
+        height=torch.full((n,), params.height_min, dtype=F32, device=device),
+        error=torch.full((n,), params.vivaldi_error_max, dtype=F32,
+                         device=device),
+        adj_window=torch.zeros((n, params.adjustment_window), dtype=F32,
+                               device=device),
+        adj_index=0,
+        adjustment=torch.zeros((n,), dtype=F32, device=device),
+    )
+
+
+def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    return torch.sqrt((x * x).sum(-1, keepdim=keepdim))
+
+
+def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
+                 rtt: torch.Tensor, mask: torch.Tensor) -> VivaldiState:
+    """Row-aligned observation where node i's peer is (i + shift) % N
+    (vivaldi.py:162-210)."""
+    rtt = torch.clamp_min(rtt, 1.0e-6)
+    ci, hi, ei = s.coords, s.height, s.error
+    cj = rolls.pull(s.coords, shift)
+    hj = rolls.pull(s.height, shift)
+    ej = rolls.pull(s.error, shift)
+
+    diff = ci - cj
+    norm = _norm(diff)
+    dist = norm + hi + hj
+
+    w = ei / torch.clamp_min(ei + ej, 1.0e-9)
+    err_sample = torch.abs(dist - rtt) / rtt
+    ce = params.vivaldi_ce
+    new_err = err_sample * ce * w + ei * (1.0 - ce * w)
+    new_err = torch.clamp(new_err, 1.0e-6, params.vivaldi_error_max)
+
+    key = prng.tick_key(params.seed, s.adj_index, 7)
+    rand_dir = prng.normal(key, tuple(ci.shape), ci.device)
+    unit = torch.where((norm > 1.0e-9)[:, None],
+                       diff / torch.clamp_min(norm, 1.0e-9)[:, None],
+                       rand_dir / _norm(rand_dir, keepdim=True))
+    force = params.vivaldi_cc * w * (rtt - dist)
+    new_ci = ci + unit * force[:, None]
+    new_hi = torch.clamp_min(hi + (hi / torch.clamp_min(dist, 1.0e-9)) * force,
+                             params.height_min)
+
+    m = mask
+    coords = torch.where(m[:, None], new_ci, s.coords)
+    height = torch.where(m, new_hi, s.height)
+    error = torch.where(m, new_err, s.error)
+
+    norms = _norm(coords, keepdim=True)
+    q = norms / params.gravity_rho
+    coords = coords * torch.clamp_min(1.0 - q * q, 0.0)
+
+    col = s.adj_index % params.adjustment_window
+    new_col = torch.where(m, (rtt - dist) / 2.0, s.adj_window[:, col])
+    adj_window = s.adj_window.clone()
+    adj_window[:, col] = new_col
+    adjustment = adj_window.mean(1)
+
+    return VivaldiState(coords=coords, height=height, error=error,
+                        adj_window=adj_window, adj_index=s.adj_index + 1,
+                        adjustment=adjustment)

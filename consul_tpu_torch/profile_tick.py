@@ -1,0 +1,129 @@
+"""Where a tick's time goes on the card: per-tick wall times (probe ticks
+and gossip-only ticks apart) and a torch.profiler window over the timed
+scan, summed by kernel name, with the device's busy and idle share.
+
+    python -m consul_tpu_torch.profile_tick [n_nodes] [ticks]
+
+Builds the bench configuration, runs the warm scan and the kill as the
+bench does, then times `ticks` fenced ticks, each pass of a probe tick
+alone, and a profiled window of `ticks` monitored ticks.  Prints one JSON
+line; needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from consul_tpu_torch import kernels
+from consul_tpu_torch.bench import CHUNK, VICTIM
+from consul_tpu_torch.config import GossipConfig, SimConfig
+from consul_tpu_torch.models import serf, swim, vivaldi
+
+
+def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_tick needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    params = serf.make_params(GossipConfig.lan(), SimConfig(
+        n_nodes=n_nodes, rumor_slots=32, alloc_cap=8, p_loss=0.01, seed=7))
+    s = serf.init_state(params, device=dev)
+    s, _ = serf.run(params, s, CHUNK, VICTIM)
+    s = s.replace(swim=swim.kill(s.swim, VICTIM))
+    torch.cuda.synchronize(dev)
+
+    # per-tick wall, each tick fenced (fencing removes the host/device
+    # overlap, so these are upper bounds on a tick's cost in the scan)
+    period = params.swim.probe_period_ticks
+    walls = {"probe": [], "gossip": []}
+    fr = torch.zeros(ticks, dtype=torch.float32, device=dev)
+    for t in range(ticks):
+        kind = "probe" if s.swim.tick % period == 0 else "gossip"
+        t0 = time.perf_counter()
+        s = serf.step(params, s)
+        swim.believed_down_fraction(params.swim, s.swim, VICTIM, out=fr[t:t + 1])
+        torch.cuda.synchronize(dev)
+        walls[kind].append(time.perf_counter() - t0)
+
+    passes = _pass_times(params, s, dev)
+
+    # unfenced window under the profiler: the scan as the bench runs it
+    launches0 = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s, fr = serf.run(params, s, ticks, VICTIM)
+        fr.cpu()
+        window = time.perf_counter() - t0
+    launches = {k: v - launches0[k] for k, v in kernels.LAUNCHES.items()}
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.key] = {"us": dt, "calls": ev.count}
+    busy_us = sum(v["us"] for v in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1]["us"])[:25]
+    out = {
+        "device": torch.cuda.get_device_name(dev),
+        "n_nodes": n_nodes, "ticks": ticks,
+        "fenced_tick_ms": {k: 1000.0 * sum(v) / max(len(v), 1)
+                           for k, v in walls.items()},
+        "window_s": window, "window_ms_per_tick": 1000.0 * window / ticks,
+        "device_busy_us": busy_us,
+        "device_idle_share": max(0.0, 1.0 - busy_us / (window * 1e6)),
+        "launches": launches,
+        "pass_ms": passes,
+        "top_device_time": [{"name": k[:120], **v} for k, v in top],
+    }
+    return out
+
+
+def _pass_times(params, s, dev, reps: int = 5) -> dict:
+    """Fenced wall ms (host dispatch + device) of each pass of a probe
+    tick, each run alone on the same probe-tick input state (median of
+    `reps`)."""
+    p, sw = params.swim, s.swim
+    while sw.tick % p.probe_period_ticks:
+        s = serf.step(params, s)
+        sw = s.swim
+    maps = swim._maps(p, sw)
+    _, obs, _ = swim._probe_round(p, sw, maps)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    fns = {
+        "maps": lambda: swim._maps(p, sw),
+        "probe_round": lambda: swim._probe_round(p, sw, maps),
+        "suspicion_expiry": lambda: swim._suspicion_expiry(p, sw),
+        "dense_suspicion_expiry": lambda: swim._dense_suspicion_expiry(
+            p, sw, obs.shift, maps),
+        "refutation": lambda: swim._refutation(p, sw),
+        "expire": lambda: swim._expire(p, sw),
+        "bulk_flag_sync": lambda: swim._bulk_flag(sw.bulk_member),
+        "disseminate": lambda: swim._disseminate(p, sw),
+        "vivaldi_observe_ring": lambda: vivaldi.observe_ring(
+            params.vivaldi, s.coords, obs.shift, obs.rtt_ms / 1000.0,
+            obs.acked),
+        "monitor": lambda: swim.believed_down_fraction(p, sw, VICTIM, out=out),
+    }
+    times = {}
+    for name, fn in fns.items():
+        walls = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            walls.append(1000.0 * (time.perf_counter() - t0))
+        times[name] = statistics.median(walls[1:])
+    return times
+
+
+if __name__ == "__main__":
+    args = [int(a) for a in sys.argv[1:]]
+    print(json.dumps(main(*args)))

@@ -1,0 +1,83 @@
+"""The port's ring exchange and gossip pass against the JAX package on
+the CPU: bit-equal views, outputs and counters; and on the CPU the gossip
+pass takes its plain twin, so no kernel launch is counted."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one intra-op thread)
+
+from consul_tpu.ops import gossip as jgossip
+from consul_tpu.ops import rolls as jrolls
+from consul_tpu.utils import prng as jprng
+from consul_tpu_torch import kernels
+from consul_tpu_torch.ops import gossip, rolls
+
+
+@pytest.mark.parametrize("shape", ((97,), (97, 16), (97, 2)))
+def test_pull_push_pull_multi_bit_equal(shape):
+    rng = np.random.default_rng(5)
+    mat = rng.integers(-1000, 1000, size=shape).astype(np.int32)
+    offs = np.array([1, 40, 96, 97 * 3 + 5], np.int32)
+    jm, tm = jnp.asarray(mat), torch.from_numpy(mat)
+    toffs = torch.from_numpy(offs)
+    for jv, tv in zip(jrolls.pull_multi(jm, jnp.asarray(offs)),
+                      rolls.pull_multi(tm, toffs)):
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    for d in offs:
+        np.testing.assert_array_equal(rolls.pull(tm, torch.tensor(d)).numpy(),
+                                      np.asarray(jrolls.pull(jm, int(d))))
+        np.testing.assert_array_equal(rolls.push(tm, torch.tensor(d)).numpy(),
+                                      np.asarray(jrolls.push(jm, int(d))))
+
+
+def test_offsets_bit_equal():
+    for tick in range(0, 50, 7):
+        k = jprng.tick_key(7, tick, 2)
+        kt = tuple(int(x) for x in np.asarray(k))
+        np.testing.assert_array_equal(
+            rolls.offsets(kt, 1_000_000, 3, "cpu").numpy(),
+            np.asarray(jrolls.offsets(k, 1_000_000, 3)))
+
+
+def test_sharded_path_is_not_ported():
+    with pytest.raises(NotImplementedError):
+        rolls.pull(torch.zeros(8), 1, blocks=2)
+
+
+@pytest.mark.parametrize("p_loss", (0.0, 0.05, 0.5))
+def test_disseminate_bit_equal(p_loss):
+    rng = np.random.default_rng(11)
+    n, s, g = 301, 32, 3
+    know = rng.random((n, s)) < 0.2
+    sends = rng.integers(0, 6, size=(n, s)).astype(np.int8)
+    sender_ok = rng.random(n) < 0.9
+    receiver_ok = rng.random(n) < 0.9
+    slot_active = rng.random(s) < 0.8
+    offs = np.array([17, 150, 299], np.int32)
+    key = jprng.tick_key(3, 21, 5)
+    kt = tuple(int(x) for x in np.asarray(key))
+    ref = jgossip.disseminate(jnp.asarray(offs), jnp.asarray(know),
+                              jnp.asarray(sends), jnp.asarray(sender_ok),
+                              jnp.asarray(receiver_ok),
+                              jnp.asarray(slot_active), 12, p_loss=p_loss,
+                              key=key)
+    kernels.reset_launches()
+    got = gossip.disseminate(torch.from_numpy(offs), torch.from_numpy(know),
+                             torch.from_numpy(sends),
+                             torch.from_numpy(sender_ok),
+                             torch.from_numpy(receiver_ok),
+                             torch.from_numpy(slot_active), 12,
+                             p_loss=p_loss, key=kt)
+    assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNELS}
+    for name in ("know", "sends_left", "newly"):
+        a, b = np.asarray(getattr(ref, name)), getattr(got, name).numpy()
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    for name in ("delivered", "served", "lost"):
+        assert float(getattr(got, name)) == float(getattr(ref, name)), name
+    assert float(got.delivered) > 0
+    if p_loss > 0:
+        assert float(got.lost) > 0
