@@ -14,12 +14,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
      converge with F1 1.0, no false commits, every kernel launched, and
      in the JAX package's tick count for the same seed (measured with
      reference_ticks.py, recorded below);
-  3. kernels: each kernel against its plain PyTorch twin on the card, at
-     the main path's shapes (N=1M, S=U=32, G=3) and on random inputs
-     (including a 40-slot table, which takes the second 32-slot pass),
-     bit-equal, with kernel and plain times (median of 20 CUDA-event-
-     timed runs) and the least time the card could take for the same
-     work.
+  3. host syncs per tick (sync debug mode) and device kernels per
+     gossip-only and per probe tick (torch.profiler, 10 ticks of each,
+     from the main path's final state);
+  4. kernels: each kernel against its plain PyTorch twin on the card,
+     bit-equal, at the main path's shapes (N=1M, S=U=32, G=3) at two
+     states of the 1M run — mid-convergence (the first tick whose
+     believed-down fraction passes 0.5, replayed from the seed) and the
+     final state — and on random inputs (including a 40-slot table,
+     which takes the 64-bit word path).  K2 is held for both callers:
+     swim (learn-tick stamp and counters fused) and events (`newly`,
+     after firing an event at the final state).  At both states it times
+     each kernel's device time per call (CUDA events with the host's
+     dispatch hidden behind a device-side sleep, inputs evicted from L2;
+     K2's two phases apart from torch.profiler's kernel records), each
+     wrapper call and each plain twin (median of 20 CUDA-event-timed
+     calls, host dispatch included), and the least time the card could
+     take for the same work.
 
 Prints, before the last line, one JSON object with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}.
@@ -36,10 +47,11 @@ import time
 import warnings
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from consul_tpu_torch import bench, kernels
+from consul_tpu_torch import bench, kernels, profile_tick
 from consul_tpu_torch.kernels import build
-from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.models import events, serf, swim
 from consul_tpu_torch.ops import gossip, rolls
 from consul_tpu_torch.utils import prng
 
@@ -51,10 +63,12 @@ REFERENCE_TICKS = 136
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of
 # HBM3; 67 TFLOP/s float32 outside the tensor cores counts an FMA as two
-# operations, i.e. 33.5e12 lane instructions/s, and the int32 pipes run
-# at half the float32 lane rate: 16.75e12 integer operations/s.
+# operations, i.e. 33.5e12 32-bit lane instructions/s.  Integer work is
+# held to that lane rate: the compiler issues integer adds as IMAD on the
+# FMA pipes beside the INT32 pipe, and K1 measured faster than the INT32
+# pipe's own 16.75e12/s allows, so that rate is no floor.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 16.75e12
+INT32_OPS_PER_S = 33.5e12
 # threefry2x32 per element: 20 rounds of add/rotate/xor (60), 5 key
 # injections (15), counter split, key schedule, xor fold and the uniform
 # mantissa trick (~10)
@@ -152,6 +166,75 @@ def count_syncs(params, state, ticks: int = 10) -> dict:
     return per_tick
 
 
+_FLUSH: list = []
+
+
+def _flush() -> torch.Tensor:
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(96 << 20, dtype=torch.uint8, device="cuda"))
+    return _FLUSH[0]
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """Median device ms of one call of fn with its host dispatch hidden:
+    the stream sleeps (~1 ms) while the host enqueues a 96 MB read that
+    evicts the inputs from the 50 MB L2 (as the tick's earlier passes do,
+    with no dirty lines left to write back) and the call between two CUDA
+    events."""
+    flush = _flush()
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        flush.max()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def device_ms(fn, names, reps: int = 20, tries: int = 3) -> dict:
+    """Mean device ms per launch of each named kernel over `reps` calls of
+    fn, from torch.profiler's kernel records: the kernel's own time,
+    without the host dispatch that a CUDA-event timing of one call also
+    holds when the call is host-bound, with the L2-evicting read of
+    kernel_ms before each call.  A profile whose records miss a named
+    kernel is taken again (up to `tries` profiles); the kernel ran either
+    way."""
+    flush = _flush()
+    for _ in range(3):
+        fn()
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.max()
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for name in names:
+                if name in ev.key:
+                    dt = getattr(ev, "device_time_total", None)
+                    if dt is None:
+                        dt = ev.cuda_time_total
+                    out[name] = dt / ev.count / 1000.0
+        if set(out) == set(names):
+            return out
+        log(f"profile {attempt + 1} of {tries} saw {sorted(out)} of {names}")
+    raise AssertionError(f"torch.profiler recorded none of {names} in "
+                         f"{tries} profiles")
+
+
 def check_threefry(dev, launches: int) -> dict:
     key = prng.tick_key(7, 12345, 5)
     shape = (N, 3)
@@ -160,7 +243,7 @@ def check_threefry(dev, launches: int) -> dict:
     want = prng.threefry_bits_plain(key, n, dev).reshape(shape)
     require(torch.equal(got, want), "threefry_bits (bits) != plain")
     u_got = prng.uniform(key, shape, dev)
-    u_want = torch.clamp_min(prng._unit_floats(want), 0.0)
+    u_want = torch.clamp_min(prng.unit_floats(want), 0.0)
     require(torch.equal(u_got.view(torch.int32), u_want.view(torch.int32)),
             "threefry_bits (uniform) != plain")
     big = (N, 8)                      # the Vivaldi normal draw of a probe tick
@@ -168,8 +251,9 @@ def check_threefry(dev, launches: int) -> dict:
                         prng.threefry_bits_plain(key, N * 8, dev).reshape(big)),
             "threefry_bits [N, 8] != plain")
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    ms = median_ms(lambda: kernels.launch_threefry(key, n, 1, out))
-    plain_ms = median_ms(lambda: prng._unit_floats(
+    call_ms = median_ms(lambda: kernels.launch_threefry(key, n, 1, out))
+    ms = kernel_ms(lambda: kernels.launch_threefry(key, n, 1, out))
+    plain_ms = median_ms(lambda: prng.unit_floats(
         prng.threefry_bits_plain(key, n, dev)))
     bytes_ = 4 * n
     ops = THREEFRY_OPS_PER_ELEMENT * n
@@ -179,63 +263,159 @@ def check_threefry(dev, launches: int) -> dict:
             "replaces": "consul_tpu/utils/prng.py:14",
             "launches": launches,
             "max_abs_err": float((u_got - u_want).abs().max()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
             "bound_by": "operations" if ops / INT32_OPS_PER_S
             > bytes_ / HBM_BYTES_PER_S else "bytes",
             "library_ms": None,
             "shape": list(shape), "mode": "uniform float32"}
 
 
-def _gossip_inputs(params, s, tick: int):
-    n = params.n_nodes
-    offs = rolls.offsets(prng.tick_key(params.seed, tick, 2), n,
-                         params.gossip_nodes, s.device)
-    ok = gossip.loss_mask(prng.tick_key(params.seed, tick, 5), params.p_loss,
-                          n, params.gossip_nodes, s.device)
-    return (offs, s.know, s.sends_left, s.up, s.up & s.member, s.r_active,
-            params.retransmit_limit, ok)
+def _swim_gossip_call(params, s) -> dict:
+    """The swim caller's K2 arguments at state s (stamp and counters)."""
+    return dict(
+        offs=rolls.offsets(prng.tick_key(params.seed, s.tick, 2),
+                           params.n_nodes, params.gossip_nodes, s.device),
+        know=s.know, sends_left=s.sends_left, sender_ok=s.up,
+        receiver_ok=s.up & s.member, slot_active=s.r_active,
+        retransmit_limit=params.retransmit_limit, p_loss=params.p_loss,
+        key=prng.tick_key(params.seed, s.tick, 5), learn_tick=s.learn_tick,
+        tick16=swim._t16(s.tick), ctr=s.ctr, want_newly=False)
 
 
-def _random_gossip_inputs(dev, n: int, slots: int, g: int):
+def _events_gossip_call(params, ev, up, member) -> dict:
+    """The events caller's K2 arguments (newly, no stamp)."""
+    p = params.events
+    return dict(
+        offs=rolls.offsets(prng.tick_key(p.seed, ev.tick, 3), p.n_nodes,
+                           p.gossip_nodes, ev.know.device),
+        know=ev.know, sends_left=ev.sends_left, sender_ok=up,
+        receiver_ok=up & member, slot_active=ev.e_active,
+        retransmit_limit=min(p.retransmit_limit, 127), p_loss=p.p_loss,
+        key=prng.tick_key(p.seed, ev.tick, 6))
+
+
+def _random_gossip_call(dev, n: int, slots: int) -> dict:
+    """Random rows with every optional output asked for."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
     know = rnd(n, slots) < 0.3
-    sends = (rnd(n, slots) * 8).to(torch.int8)
-    offs = torch.tensor([1, n // 3, n - 7], dtype=torch.int32, device=dev)
-    return (offs, know, sends, rnd(n) < 0.95, rnd(n) < 0.95,
-            rnd(slots) < 0.9, 12, rnd(n, g) < 0.99)
+    return dict(
+        offs=torch.tensor([1, n // 3, n - 7], dtype=torch.int32, device=dev),
+        know=know, sends_left=(rnd(n, slots) * 8).to(torch.int8),
+        sender_ok=rnd(n) < 0.95, receiver_ok=rnd(n) < 0.95,
+        slot_active=rnd(slots) < 0.9, retransmit_limit=12, p_loss=0.01,
+        key=(0x1234, 0xBEEF),
+        learn_tick=((rnd(n, slots) * 65536) - 32768).to(torch.int16),
+        tick16=-1234, ctr=rnd(5) * 1000, want_newly=True)
 
 
-def check_gossip(dev, params, s, launches: int) -> dict:
-    for args in (_gossip_inputs(params, s, s.tick),
-                 _random_gossip_inputs(dev, N, params.rumor_slots,
-                                       params.gossip_nodes),
-                 _random_gossip_inputs(dev, 100_003, 40, params.gossip_nodes)):
-        got = gossip.disseminate_kernel(*args)
-        want = gossip.disseminate_plain(*args)
-        for name in ("know", "sends_left", "newly"):
-            require(torch.equal(getattr(got, name), getattr(want, name)),
-                    f"gossip_disseminate {name} != plain")
-        for name in ("delivered", "served", "lost"):
-            require(float(getattr(got, name)) == float(getattr(want, name)),
-                    f"gossip_disseminate counter {name}: "
-                    f"{float(getattr(got, name))} != {float(getattr(want, name))}")
-    args = _gossip_inputs(params, s, s.tick)
-    ms = median_ms(lambda: gossip.disseminate_kernel(*args))
-    plain_ms = median_ms(lambda: gossip.disseminate_plain(*args))
-    n, slots = s.know.shape
-    g = params.gossip_nodes
-    bytes_ = (2 * n * slots + 4 * g + 2 * n + slots + n * g    # inputs
-              + 3 * n * slots + 12)                            # outputs
-    return {"name": "gossip_disseminate", "route": "cuda",
-            "source": "consul_tpu_torch/kernels/csrc/gossip.cu",
-            "replaces": "consul_tpu/ops/gossip.py:45",
-            "launches": launches, "max_abs_err": 0.0,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bytes_ / HBM_BYTES_PER_S * 1000.0,
-            "bound_by": "bytes", "library_ms": None,
-            "shape": [n, slots, g]}
+def _hold_gossip(call: dict, what: str) -> dict:
+    got = gossip.disseminate_kernel(**call)
+    want = gossip.disseminate_plain(**call)
+    for name in ("know", "sends_left", "newly", "learn_tick", "ctr"):
+        a, b = getattr(got, name), getattr(want, name)
+        require((a is None) == (b is None), f"gossip {what}: {name} presence")
+        if a is not None:
+            same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+                if a.dtype == torch.float32 else torch.equal(a, b)
+            require(same, f"gossip {what}: {name} != plain")
+    for name in ("delivered", "served", "lost"):
+        a, b = float(getattr(got, name)), float(getattr(want, name))
+        require(a == b, f"gossip {what}: counter {name} {a} != plain {b}")
+    return {"delivered": float(want.delivered), "served": float(want.served),
+            "lost": float(want.lost)}
+
+
+def _gossip_bounds(call: dict) -> dict:
+    """Least bytes and operations of K2 and its phases on these inputs."""
+    n, s = call["know"].shape
+    g = call["offs"].shape[0]
+    word = 4 if s <= 32 else 8
+    stamp = call.get("learn_tick") is not None
+    want_newly = call.get("want_newly", True)
+    row = 2 * s + (2 * s if stamp else 0)          # know, sends(, learn)
+    # contacts whose sender queues something: the loss draws needed
+    serve = call["know"] & (call["sends_left"] > 0) & call["sender_ok"][:, None]
+    cells = serve.sum(1)
+    contacts = sum(int((v > 0).sum()) for v in rolls.pull_multi(cells,
+                                                                call["offs"]))
+    draws = contacts if call.get("key") is not None and call["p_loss"] > 0 else 0
+    ops = THREEFRY_OPS_PER_ELEMENT * draws
+    out_newly = s if want_newly else 0
+    fn_bytes = n * (2 * row + out_newly) + 2 * n + 4 * g + s
+    pack_bytes = n * (2 * s + 1 + 2 * word)         # know, sends, flag; words
+    exch_bytes = n * (2 * word + 1 + (row - s) + row + out_newly) + 4 * g + s
+    def bound(b, o=0):
+        by_ops = o / INT32_OPS_PER_S > b / HBM_BYTES_PER_S
+        return (max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S) * 1000.0,
+                "operations" if by_ops else "bytes")
+    return {"function": bound(fn_bytes, ops), "pack": bound(pack_bytes),
+            "exchange": bound(exch_bytes, ops), "draws": draws,
+            "function_bytes": fn_bytes}
+
+
+def time_gossip(call: dict, delivered: float) -> dict:
+    """K2 at one state: both launches' device time (kernel_ms), each
+    phase's (profiler), the wrapper call (CUDA events, host dispatch
+    included), the plain twin, and the bounds."""
+    call_ms = median_ms(lambda: gossip.disseminate_kernel(**call))
+    phase = device_ms(lambda: gossip.disseminate_kernel(**call),
+                      ("gossip_pack_kernel", "gossip_exchange_kernel"))
+    plain_ms = median_ms(lambda: gossip.disseminate_plain(**call), reps=5)
+    b = _gossip_bounds(call)
+    return {"function_ms": kernel_ms(lambda: gossip.disseminate_kernel(**call)),
+            "call_ms": call_ms,
+            "pack_ms": phase["gossip_pack_kernel"],
+            "exchange_ms": phase["gossip_exchange_kernel"],
+            "plain_ms": plain_ms, "function_bound_ms": b["function"][0],
+            "function_bound_by": b["function"][1],
+            "pack_bound_ms": b["pack"][0], "exchange_bound_ms": b["exchange"][0],
+            "exchange_bound_by": b["exchange"][1], "loss_draws": b["draws"],
+            "delivered": delivered}
+
+
+def check_gossip(dev, params, states: dict, events_call: dict,
+                 launches: dict):
+    """K2 against its twin on every input set, timed at each state:
+    (the two phases' entries of the kernels line, every state's times)."""
+    sp = params.swim
+    held = {}
+    for name, s in states.items():
+        held[name] = _hold_gossip(_swim_gossip_call(sp, s), f"swim {name}")
+    held["events"] = _hold_gossip(events_call, "events")
+    for n, slots in ((N, sp.rumor_slots), (100_003, 40)):
+        _hold_gossip(_random_gossip_call(dev, n, slots), f"random {n}x{slots}")
+    log(f"gossip held bit-equal: {held} (+ random {N}x{sp.rumor_slots}, "
+        f"100003x40)")
+    timed = {name: time_gossip(_swim_gossip_call(sp, s), held[name]["delivered"])
+             for name, s in states.items()}
+    timed["events"] = time_gossip(events_call, held["events"]["delivered"])
+    for name, t in timed.items():
+        log(f"gossip {name}: " + json.dumps(t))
+    final, mid = timed["final"], timed["mid"]
+    n, slots = states["final"].know.shape
+
+    def entry(name, phase, bound_by):
+        def at(t):
+            return {"ms": t[f"{phase}_ms"], "bound_ms": t[f"{phase}_bound_ms"],
+                    "function_ms": t["function_ms"],
+                    "function_bound_ms": t["function_bound_ms"],
+                    "call_ms": t["call_ms"], "plain_ms": t["plain_ms"]}
+        return {"name": name, "route": "cuda",
+                "source": "consul_tpu_torch/kernels/csrc/gossip.cu",
+                "replaces": "consul_tpu/ops/gossip.py:45",
+                "launches": launches[name], "max_abs_err": 0.0,
+                "ms": final[f"{phase}_ms"], "plain_ms": final["plain_ms"],
+                "bound_ms": final[f"{phase}_bound_ms"], "bound_by": bound_by,
+                "library_ms": None, "function_ms": final["function_ms"],
+                "function_bound_ms": final["function_bound_ms"],
+                "call_ms": final["call_ms"],
+                "mid": at(mid), "shape": [n, slots, params.swim.gossip_nodes]}
+    return [entry("gossip_pack", "pack", "bytes"),
+            entry("gossip_exchange", "exchange", final["exchange_bound_by"])], \
+        timed
 
 
 def _random_swim_state(dev, s, subject: int, n: int, u: int):
@@ -260,34 +440,104 @@ def _random_swim_state(dev, s, subject: int, n: int, u: int):
         r_confirm=(rnd(u) * 65).to(torch.int8))
 
 
-def check_monitor(dev, params, s, subject: int, launches: int) -> dict:
+def _monitor_bound(params, s, subject: int) -> tuple:
+    """Least bytes of K3 at state s: up/member, the rumor table, and the
+    know rows and suspect learn ticks unless no row can change the answer."""
     n, u = s.know.shape
-    for state in (s, _random_swim_state(dev, s, subject, n, u),
-                  _random_swim_state(dev, s, subject, 200_003, 40)):
+    is_dl, is_s, _, _ = swim._monitor_slots(params, s, subject)
+    committed = bool(s.committed_dead[subject] | s.committed_left[subject])
+    rows = not committed and bool((is_dl | is_s).any())
+    suspect_cells = int((s.know & is_s[None, :]).sum()) if rows else 0
+    bytes_ = 2 * n + 11 * u + 2 * 65 + 4 + (n * u + 2 * suspect_cells
+                                              if rows else 0)
+    return bytes_ / HBM_BYTES_PER_S * 1000.0, rows, suspect_cells
+
+
+def check_monitor(dev, params, states: dict, subject: int,
+                  launches: int) -> dict:
+    n, u = states["final"].know.shape
+    inputs = dict(states)
+    inputs["random"] = _random_swim_state(dev, states["final"], subject, n, u)
+    inputs["random40"] = _random_swim_state(dev, states["final"], subject,
+                                            200_003, 40)
+    err = 0.0
+    for name, state in inputs.items():
         got = swim.believed_down_fraction(params, state, subject)
         want = swim.believed_down_fraction_plain(params, state, subject)
         require(torch.equal(got.reshape(()).view(torch.int32),
                             want.reshape(()).view(torch.int32)),
-                f"believed_down {float(got)} != plain {float(want)}")
+                f"believed_down {name}: {float(got)} != plain {float(want)}")
+        err = max(err, float((got - want).abs().max()))
     out = torch.empty(1, dtype=torch.float32, device=dev)
-    is_dl, is_s, is_a, timeout16 = swim._monitor_slots(params, s, subject)
-    ms = median_ms(lambda: kernels.launch_believed_down(
-        s.know, s.learn_tick, s.up, s.member, is_dl, is_s, is_a, s.r_inc,
-        timeout16, s.committed_dead, s.committed_left, s.committed_inc,
-        s.bulk_member, s.bulk_cov, subject, swim._t16(s.tick), out))
-    plain_ms = median_ms(lambda: swim.believed_down_fraction_plain(
-        params, s, subject))
-    suspect_cells = int((s.know & is_s[None, :]).sum())
-    bytes_ = n * u + 2 * n + 2 * suspect_cells + 9 * u + 4
+    timed = {}
+    for name, s in states.items():
+        bound, rows, cells = _monitor_bound(params, s, subject)
+        timed[name] = {
+            "ms": kernel_ms(lambda: swim.believed_down_fraction(
+                params, s, subject, out=out)),
+            "call_ms": median_ms(lambda: swim.believed_down_fraction(
+                params, s, subject, out=out)),
+            "plain_ms": median_ms(lambda: swim.believed_down_fraction_plain(
+                params, s, subject)),
+            "bound_ms": bound, "reads_rows": rows, "suspect_cells": cells,
+            "frac": float(swim.believed_down_fraction_plain(params, s, subject))}
+        log(f"believed_down {name}: " + json.dumps(timed[name]))
+    final, mid = timed["final"], timed["mid"]
     return {"name": "believed_down", "route": "cuda",
             "source": "consul_tpu_torch/kernels/csrc/monitor.cu",
             "replaces": "consul_tpu/models/swim.py:533",
-            "launches": launches,
-            "max_abs_err": float((got - want).abs().max()),
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bytes_ / HBM_BYTES_PER_S * 1000.0,
-            "bound_by": "bytes", "library_ms": None,
-            "shape": [n, u], "suspect_cells": suspect_cells}
+            "launches": launches, "max_abs_err": err,
+            "ms": final["ms"], "call_ms": final["call_ms"],
+            "plain_ms": final["plain_ms"],
+            "bound_ms": final["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shape": [n, u],
+            "mid": {k: mid[k] for k in ("ms", "call_ms", "plain_ms",
+                                        "bound_ms")}}
+
+
+def mid_state(r: dict):
+    """The 1M run's state at the first timed tick whose believed-down
+    fraction passes 0.5, replayed from the same seed, and checked against
+    the main path's fractions."""
+    fracs = r["fracs"]
+    k = next(i for i, f in enumerate(fracs) if f > 0.5)
+    params, s, _ = bench.prepare(device=torch.device("cuda", 0))
+    s, fr = serf.run(params, s, k + 1, bench.VICTIM)
+    fr = fr.cpu().tolist()
+    require(fr[-1] > 0.5 and all(f <= 0.5 for f in fr[:-1]),
+            f"replay crossed 0.5 elsewhere: {fr[-3:]}")
+    log(f"mid-convergence state: tick {s.swim.tick} ({k + 1} ticks after the "
+        f"kill), believed-down fraction {fr[-1]}; replay equals the main "
+        f"path's fractions: {fr == fracs[:k + 1]}")
+    return s
+
+
+def events_call_after_fire(params, s) -> dict:
+    """An event fired at the final state and spread 6 ticks (K2 on the
+    card), then the events caller's next K2 arguments."""
+    ev = events.fire(params.events, s.events, origin=5, event_id=1)
+    for _ in range(6):
+        ev = events.step(params.events, ev, up=s.swim.up, member=s.swim.member)
+    return _events_gossip_call(params, ev, s.swim.up, s.swim.member)
+
+
+def check_kernels_per_tick(params, state) -> dict:
+    """Device kernels per gossip-only and per probe tick (torch.profiler,
+    10 ticks of each), after the main path, as the bench scan runs them."""
+    _, per_tick = profile_tick.kernels_per_tick(params, state)
+    for kind in ("gossip", "probe"):
+        k = per_tick[kind]
+        log(f"kernels per {kind} tick: {k['kernels']} kernels, "
+            f"{k['device_ops']} device ops (torch.profiler, {k['ticks']} ticks)")
+    names = per_tick["gossip"]["names"]
+    log("gossip-only tick kernels: " + json.dumps(names))
+    draws = sum(v for k, v in names.items() if "threefry_bits_kernel" in k)
+    require(draws == 2, f"gossip-only tick draws {draws} threefry batches, "
+            f"want 2 (the offsets' randint; the loss draw is K2's)")
+    for kern in ("gossip_pack_kernel", "gossip_exchange_kernel",
+                 "believed_down_kernel"):
+        require(any(kern in k for k in names), f"{kern} not on a gossip tick")
+    return per_tick
 
 
 def main() -> int:
@@ -312,13 +562,16 @@ def main() -> int:
     r = main_path(dev)
 
     syncs = count_syncs(r["params"], r["state"])
-    params, s = r["params"].swim, r["state"].swim
+    per_tick = check_kernels_per_tick(r["params"], r["state"])
+    params = r["params"]
+    states = {"mid": mid_state(r).swim, "final": r["state"].swim}
     launches = r["all_launches"]
-    results = [
-        check_threefry(dev, launches["threefry_bits"]),
-        check_gossip(dev, params, s, launches["gossip_disseminate"]),
-        check_monitor(dev, params, s, bench.VICTIM, launches["believed_down"]),
-    ]
+    k2, k2_states = check_gossip(dev, params, states,
+                                 events_call_after_fire(params, r["state"]),
+                                 launches)
+    results = [check_threefry(dev, launches["threefry_bits"]), *k2,
+               check_monitor(dev, params.swim, states, bench.VICTIM,
+                             launches["believed_down"])]
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
@@ -326,6 +579,7 @@ def main() -> int:
             f"computes this function)")
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": results,
+              "kernels_per_tick": per_tick, "gossip_states": k2_states,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],
                             "timed_ticks_run": r["timed_ticks_run"],
                             "host_syncs": r["host_syncs"],

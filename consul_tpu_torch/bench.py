@@ -36,31 +36,41 @@ def _fence(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
-                    victim: int = VICTIM, max_ticks: int = 1200,
-                    seed: int = 7, device=None) -> dict:
-    """The north-star pipeline, parameterized by pool size."""
+def prepare(n_nodes: int = N, chunk: int = CHUNK, victim: int = VICTIM,
+            seed: int = 7, device=None):
+    """The bench pool after its warm scan and the kill, fenced:
+    (params, state, warm-scan seconds)."""
     device = devices.resolve(device)
     params = serf.make_params(GossipConfig.lan(),
                               SimConfig(n_nodes=n_nodes, rumor_slots=32,
                                         alloc_cap=8, p_loss=0.01, seed=seed))
     s = serf.init_state(params, device=device)
-
     t_warm = time.perf_counter()
     s, _ = serf.run(params, s, chunk, victim)
     _fence(device)
     warm_s = time.perf_counter() - t_warm
-
     s = s.replace(swim=swim.kill(s.swim, victim))
     _fence(device)
+    return params, s, warm_s
+
+
+def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
+                    victim: int = VICTIM, max_ticks: int = 1200,
+                    seed: int = 7, device=None) -> dict:
+    """The north-star pipeline, parameterized by pool size.  `fracs` holds
+    the victim's believed-down fraction after every timed tick."""
+    device = devices.resolve(device)
+    params, s, warm_s = prepare(n_nodes, chunk, victim, seed, device)
     launches0 = dict(kernels.LAUNCHES)
     syncs0 = swim.host_syncs
     t0 = time.time()
     ticks = 0
     frac = 0.0
+    fracs = []
     while ticks < max_ticks:
         s, fr = serf.run(params, s, chunk, victim)
         fr = fr.cpu().numpy()          # the single host readback per scan
+        fracs.extend(float(f) for f in fr)
         ticks += chunk
         if (fr > 0.999).any():
             extra = int(np.argmax(fr > 0.999)) + 1
@@ -88,6 +98,7 @@ def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
             "frac": frac, "ticks": ticks, "converged": ok, "f1": f1,
             "false_commits": false_commits, "sim_counters": sim_counters,
             "launches": launches, "timed_ticks_run": timed_ticks_run,
+            "fracs": fracs,
             "host_syncs": syncs,
             "device": {"type": device.type,
                        "name": torch.cuda.get_device_name(device)

@@ -13,23 +13,28 @@ twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from consul_tpu_torch.kernels import build
 
-KERNELS = ("threefry_bits", "gossip_disseminate", "believed_down")
+KERNELS = ("threefry_bits", "gossip_pack", "gossip_exchange",
+           "believed_down")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lib = None
-# per-device integer accumulators the kernels fold their counters into;
-# each launch's last block zeroes them again
+# per-(device, kernel) counter scratch: one u64 block count, then each
+# block's partial counters (the last block of a launch sums them and
+# resets the count)
 _scratch: dict = {}
+SCRATCH_BLOCKS = 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
 
 
 def reset_launches() -> None:
@@ -37,16 +42,26 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# ctypes argument types of each extern "C" entry point of csrc/*.cu, in
+# order (tests/test_torch_isolation.py holds them to the sources)
+SIGNATURES = {
+    "threefry_bits": [_U32, _U32, _I64, _I, _P, _P],
+    "gossip_pack": [_P, _P, _P, _I64, _I, _I, _P, _P, _P],
+    "gossip_exchange": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _I, _U32,
+                        _U32, _I, _F32, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _P, _I, _P],
+    "believed_down": [_P] * 15 + [_I64, _I, _I64, _I, _I, _P, _I, _P, _P],
+}
+
+
 def library():
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build.build()))
-        lib.threefry_bits.argtypes = [_U32, _U32, _I64, _I, _P, _P]
-        lib.gossip_disseminate.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P,
-                                           _I64, _I, _I, _P, _P, _P, _P, _P, _P]
-        lib.believed_down.argtypes = [_P] * 14 + [_I64, _I, _I64, _I, _P, _P, _P]
-        for fn in (lib.threefry_bits, lib.gossip_disseminate, lib.believed_down):
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -61,19 +76,29 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _require(t: torch.Tensor, name: str, dtype, device) -> None:
+def _require(t, name: str, dtype, device, shape=None) -> None:
+    if t is None:
+        raise ValueError(f"{name}: missing")
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
                          f"{device}, got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
+                         f"{tuple(shape)}")
 
 
-def _acc(device: torch.device) -> torch.Tensor:
-    buf = _scratch.get(device)
+def _counter_scratch(device: torch.device, kernel: str, k: int) -> torch.Tensor:
+    buf = _scratch.get((device, kernel))
     if buf is None:
-        buf = torch.zeros(8, dtype=torch.int64, device=device)
-        _scratch[device] = buf
+        buf = torch.zeros(1 + SCRATCH_BLOCKS * k, dtype=torch.int64,
+                          device=device)
+        _scratch[(device, kernel)] = buf
     return buf
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def launch_threefry(key, n: int, mode: int, out: torch.Tensor) -> None:
@@ -90,75 +115,138 @@ def launch_threefry(key, n: int, mode: int, out: torch.Tensor) -> None:
     LAUNCHES["threefry_bits"] += 1
 
 
+
+
 def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
-                  slot_active, ok, limit: int, new_know, new_sends, newly,
-                  counters) -> None:
+                  slot_active, limit: int, new_know, new_sends, kword, qword,
+                  counters, *, key=None, p_ok: float = 1.0, learn_tick=None,
+                  new_learn=None, tick16: int = 0, newly=None, ctr=None,
+                  ctr_out=None) -> None:
+    """K2: the pack launch, then the exchange launch, each counted.
+
+    know/sends_left [N, S] bool/int8 are read; new_know/new_sends (and
+    new_learn, newly when given) [N, S] are written whole; kword/qword [N]
+    (int32 for S <= 32, int64 for S <= 64) are the per-row know and
+    queued masks the pack writes and the exchange reads; counters [3]
+    float32 gets delivered, served, lost; ctr_out = ctr plus those in its
+    last three entries.  With `key` (two uint32 words) contact (i, g) is
+    delivered when the uniform float of element i*G + g of its threefry
+    stream is < p_ok."""
     dev = know.device
+    if know.dim() != 2 or offsets.dim() != 1:
+        raise ValueError("gossip: know must be [N, S] and offsets [G]")
     n, s = know.shape
     g = offsets.shape[0]
-    if s > 64 or not 1 <= g <= 16:
-        raise ValueError(f"gossip_disseminate takes at most 64 slots and 1-16 "
-                         f"contacts, got {s} slots and {g} contacts")
-    for t, name, dt in ((know, "know", torch.bool),
-                        (sends_left, "sends_left", torch.int8),
-                        (offsets, "offsets", torch.int32),
-                        (sender_ok, "sender_ok", torch.bool),
-                        (receiver_ok, "receiver_ok", torch.bool),
-                        (slot_active, "slot_active", torch.bool),
-                        (new_know, "new_know", torch.bool),
-                        (new_sends, "new_sends", torch.int8),
-                        (newly, "newly", torch.bool),
-                        (counters, "counters", torch.float32)):
-        _require(t, "gossip_disseminate " + name, dt, dev)
-    if ok is not None:
-        _require(ok, "gossip_disseminate ok", torch.bool, dev)
-        if tuple(ok.shape) != (n, g):
-            raise ValueError(f"gossip_disseminate: ok is {tuple(ok.shape)}, "
-                             f"want {(n, g)}")
-    if sends_left.shape != know.shape or sender_ok.shape[0] != n \
-            or receiver_ok.shape[0] != n or slot_active.shape[0] != s:
-        raise ValueError("gossip_disseminate: inconsistent shapes")
-    rc = library().gossip_disseminate(
-        know.data_ptr(), sends_left.data_ptr(), offsets.data_ptr(), g,
-        sender_ok.data_ptr(), receiver_ok.data_ptr(), slot_active.data_ptr(),
-        ok.data_ptr() if ok is not None else None, n, s, limit,
-        new_know.data_ptr(), new_sends.data_ptr(), newly.data_ptr(),
-        _acc(dev).data_ptr(), counters.data_ptr(), _stream(dev))
-    _check(rc, "gossip_disseminate")
-    LAUNCHES["gossip_disseminate"] += 1
+    if not 1 <= s <= 64 or not 1 <= g <= 16:
+        raise ValueError(f"gossip takes 1-64 slots and 1-16 contacts, got "
+                         f"{s} slots and {g} contacts")
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"gossip: N={n} outside [1, 2^31)")
+    if not 0 <= limit <= 127 or not -2 ** 15 <= tick16 < 2 ** 15:
+        raise ValueError(f"gossip: limit {limit} or tick16 {tick16} out of "
+                         f"range")
+    word = torch.int32 if s <= 32 else torch.int64
+    for t, name, dt, shape in (
+            (know, "know", torch.bool, (n, s)),
+            (sends_left, "sends_left", torch.int8, (n, s)),
+            (offsets, "offsets", torch.int32, (g,)),
+            (sender_ok, "sender_ok", torch.bool, (n,)),
+            (receiver_ok, "receiver_ok", torch.bool, (n,)),
+            (slot_active, "slot_active", torch.bool, (s,)),
+            (new_know, "new_know", torch.bool, (n, s)),
+            (new_sends, "new_sends", torch.int8, (n, s)),
+            (kword, "kword", word, (n,)),
+            (qword, "qword", word, (n,)),
+            (counters, "counters", torch.float32, (3,))):
+        _require(t, "gossip " + name, dt, dev, shape)
+    if (learn_tick is None) != (new_learn is None):
+        raise ValueError("gossip: learn_tick and new_learn come together")
+    if learn_tick is not None:
+        _require(learn_tick, "gossip learn_tick", torch.int16, dev, (n, s))
+        _require(new_learn, "gossip new_learn", torch.int16, dev, (n, s))
+    if newly is not None:
+        _require(newly, "gossip newly", torch.bool, dev, (n, s))
+    if (ctr is None) != (ctr_out is None):
+        raise ValueError("gossip: ctr and ctr_out come together")
+    c = 0
+    if ctr is not None:
+        c = ctr.numel()
+        _require(ctr, "gossip ctr", torch.float32, dev, (c,))
+        _require(ctr_out, "gossip ctr_out", torch.float32, dev, (c,))
+        if c < 3:
+            raise ValueError(f"gossip: ctr has {c} entries, want at least 3")
+    rows = [t for t in (know, sends_left, new_know, new_sends, learn_tick,
+                        new_learn, newly) if t is not None]
+    # lanes-per-row vectors for S = 16, 32, 64 on aligned rows, else a
+    # thread a row
+    vec = int(s in (16, 32, 64) and all(t.data_ptr() % 16 == 0 for t in rows))
+    lib = library()
+    stream = _stream(dev)
+    rc = lib.gossip_pack(know.data_ptr(), sends_left.data_ptr(),
+                         sender_ok.data_ptr(), n, s, vec, kword.data_ptr(),
+                         qword.data_ptr(), stream)
+    _check(rc, "gossip_pack")
+    LAUNCHES["gossip_pack"] += 1
+    k0, k1 = key if key is not None else (0, 0)
+    rc = lib.gossip_exchange(
+        kword.data_ptr(), qword.data_ptr(), offsets.data_ptr(), g,
+        receiver_ok.data_ptr(), slot_active.data_ptr(), sends_left.data_ptr(),
+        _ptr(learn_tick), n, s, vec, k0, k1, int(key is not None), p_ok,
+        limit, tick16, new_know.data_ptr(), new_sends.data_ptr(),
+        _ptr(new_learn), _ptr(newly),
+        _counter_scratch(dev, "gossip_exchange", 3).data_ptr(),
+        SCRATCH_BLOCKS, counters.data_ptr(), _ptr(ctr), _ptr(ctr_out), c,
+        stream)
+    _check(rc, "gossip_exchange")
+    LAUNCHES["gossip_exchange"] += 1
 
 
-def launch_believed_down(know, learn_tick, up, member, is_dl, is_s, is_a,
-                         r_inc, timeout16, committed_dead, committed_left,
-                         committed_inc, bulk_member, bulk_cov, subject: int,
-                         tick16: int, out) -> None:
+TIMEOUTS = 65   # Lifeguard timeout table entries: confirmations 0..64
+
+
+def launch_believed_down(know, learn_tick, up, member, r_active, r_kind,
+                         r_subject, r_inc, r_confirm, timeouts,
+                         committed_dead, committed_left, committed_inc,
+                         bulk_member, bulk_cov, subject: int, tick16: int,
+                         out) -> None:
+    """K3: the subject's believed-down fraction into out[0], from the raw
+    rumor-table leaves and the int16 timeout table [65]."""
     dev = know.device
+    if know.dim() != 2:
+        raise ValueError("believed_down: know must be [N, U]")
     n, u = know.shape
-    if u > 64:
-        raise ValueError(f"believed_down takes at most 64 slots, got {u}")
+    if not 1 <= u <= 64:
+        raise ValueError(f"believed_down takes 1-64 slots, got {u}")
     if not 0 <= subject < n:
         raise ValueError(f"believed_down: subject {subject} outside [0, {n})")
-    for t, name, dt in ((know, "know", torch.bool),
-                        (learn_tick, "learn_tick", torch.int16),
-                        (up, "up", torch.bool), (member, "member", torch.bool),
-                        (is_dl, "is_dl", torch.bool), (is_s, "is_s", torch.bool),
-                        (is_a, "is_a", torch.bool), (r_inc, "r_inc", torch.int32),
-                        (timeout16, "timeout16", torch.int16),
-                        (committed_dead, "committed_dead", torch.bool),
-                        (committed_left, "committed_left", torch.bool),
-                        (committed_inc, "committed_inc", torch.int32),
-                        (bulk_member, "bulk_member", torch.bool),
-                        (bulk_cov, "bulk_cov", torch.float32),
-                        (out, "out", torch.float32)):
-        _require(t, "believed_down " + name, dt, dev)
-    if out.numel() != 1:
-        raise ValueError("believed_down: out must hold one float32")
+    if not -2 ** 15 <= tick16 < 2 ** 15:
+        raise ValueError(f"believed_down: tick16 {tick16} out of range")
+    for t, name, dt, shape in (
+            (know, "know", torch.bool, (n, u)),
+            (learn_tick, "learn_tick", torch.int16, (n, u)),
+            (up, "up", torch.bool, (n,)), (member, "member", torch.bool, (n,)),
+            (r_active, "r_active", torch.bool, (u,)),
+            (r_kind, "r_kind", torch.int8, (u,)),
+            (r_subject, "r_subject", torch.int32, (u,)),
+            (r_inc, "r_inc", torch.int32, (u,)),
+            (r_confirm, "r_confirm", torch.int8, (u,)),
+            (timeouts, "timeout table", torch.int16, (TIMEOUTS,)),
+            (committed_dead, "committed_dead", torch.bool, (n,)),
+            (committed_left, "committed_left", torch.bool, (n,)),
+            (committed_inc, "committed_inc", torch.int32, (n,)),
+            (bulk_member, "bulk_member", torch.bool, (n,)),
+            (bulk_cov, "bulk_cov", torch.float32, (n,)),
+            (out, "out", torch.float32, (1,))):
+        _require(t, "believed_down " + name, dt, dev, shape)
     rc = library().believed_down(
         know.data_ptr(), learn_tick.data_ptr(), up.data_ptr(),
-        member.data_ptr(), is_dl.data_ptr(), is_s.data_ptr(), is_a.data_ptr(),
-        r_inc.data_ptr(), timeout16.data_ptr(), committed_dead.data_ptr(),
+        member.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
+        r_subject.data_ptr(), r_inc.data_ptr(), r_confirm.data_ptr(),
+        timeouts.data_ptr(), committed_dead.data_ptr(),
         committed_left.data_ptr(), committed_inc.data_ptr(),
         bulk_member.data_ptr(), bulk_cov.data_ptr(), subject, tick16, n, u,
-        _acc(dev).data_ptr() + 32, out.data_ptr(), _stream(dev))
+        int(u in (16, 32, 64) and know.data_ptr() % 16 == 0),
+        _counter_scratch(dev, "believed_down", 2).data_ptr(), SCRATCH_BLOCKS,
+        out.data_ptr(), _stream(dev))
     _check(rc, "believed_down")
     LAUNCHES["believed_down"] += 1

@@ -1,9 +1,18 @@
 // Shared helpers for the port's kernels.
 //
-// Counters: block-level sums of per-thread counters, folded into global
-// integer accumulators, with the last block of the grid publishing the
-// totals and resetting the accumulators for the next launch (so a launch
-// needs no separate memset or finalize kernel).
+// Grids: the kernels run a persistent grid (a few blocks per SM, as many
+// as the occupancy calculator fits) that walks the rows in a grid-stride
+// loop, so per-block set-up is paid once per block rather than once per
+// 256 rows.
+//
+// Counters: each block sums its threads' counters with warp shuffles and
+// writes one partial per counter into its own slot of a scratch array;
+// one atomic per block counts the blocks done.  The last block sums the
+// partials and publishes the totals, then resets the count, so a launch
+// needs no memset or finalize kernel and the integer totals are exact.
+//
+// Random bits: threefry2x32 with the xor fold of jax 0.9's partitionable
+// streams (K1 and K2's fused loss draw share it).
 //
 // Rows: a node's [S] row of bool/int8 slots is read as 16-byte vectors
 // where the row is 16-byte aligned (S a multiple of 16), byte by byte
@@ -18,53 +27,137 @@ namespace consul_kernels {
 
 using u64 = unsigned long long;
 
+// --- grids -----------------------------------------------------------------
+
+// Blocks of `threads` for a persistent grid of `kernel` over n rows: all
+// the blocks the SMs hold at once, no more than the rows need and no more
+// than `cap` (the per-block slots of the counter scratch).  The SM count
+// and the kernel's blocks per SM are asked once and kept in `per_card`
+// (the process drives one card).
+template <typename F>
+inline int persistent_blocks(F kernel, int threads, int64_t n, int cap,
+                             int& per_card) {
+  if (per_card == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    per_card = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  int64_t blocks = per_card;
+  const int64_t need = (n + threads - 1) / threads;
+  if (blocks > need) blocks = need;
+  if (blocks > cap) blocks = cap;
+  return blocks < 1 ? 1 : static_cast<int>(blocks);
+}
+
+// --- counters --------------------------------------------------------------
+
 __device__ __forceinline__ u64 warp_sum(u64 v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
-// Sums K per-thread counters over the block into acc[0..K-1] with one
-// atomicAdd each, then counts the block into acc[K].  Returns true in
-// thread 0 of the last block to finish; that thread may then read the
-// totals with take() (which also zeroes them).  blockDim.x must be a
-// multiple of 32 and at most 1024.
+// Block-wide sums of K per-thread counters into red[k][0] (every thread
+// must call it; blockDim.x a multiple of 32, at most 1024).
 template <int K>
-__device__ bool block_accumulate(const u64 (&v)[K], u64* acc) {
-  __shared__ u64 partial[K][32];
-  __shared__ bool last;
+__device__ void block_sum(const u64 (&v)[K], u64 (&red)[K][32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  __syncthreads();  // red may still be read from an earlier call
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    u64 s = warp_sum(v[k]);
-    if (lane == 0) partial[k][warp] = s;
+    const u64 s = warp_sum(v[k]);
+    if (lane == 0) red[k][warp] = s;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (warp == 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      u64 s = 0;
-      for (int w = 0; w < nwarps; ++w) s += partial[k][w];
-      if (s) atomicAdd(&acc[k], s);
+      const u64 s = warp_sum(lane < nwarps ? red[k][lane] : 0ull);
+      if (lane == 0) red[k][0] = s;
     }
-    __threadfence();
-    const u64 done = atomicAdd(&acc[K], 1ull);
-    last = (done == static_cast<u64>(gridDim.x) - 1);
   }
   __syncthreads();
-  return threadIdx.x == 0 && last;
 }
 
-__device__ __forceinline__ u64 take(u64* p) { return atomicExch(p, 0ull); }
+// Grid-wide sums of K per-thread counters.  scratch holds one u64 block
+// count followed by K partials per block (gridDim.x * K).  Returns true in
+// thread 0 of the last block to finish, with the grid totals in tot.
+template <int K>
+__device__ bool grid_sum(const u64 (&v)[K], u64* scratch, u64 (&tot)[K]) {
+  __shared__ u64 red[K][32];
+  __shared__ bool last;
+  u64* done = scratch;
+  u64* partials = scratch + 1;
+  block_sum<K>(v, red);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) partials[blockIdx.x * K + k] = red[k][0];
+    __threadfence();
+    last = atomicAdd(done, 1ull) == static_cast<u64>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!last) return false;  // block-uniform
+  __threadfence();
+  u64 mine[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) mine[k] = 0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) mine[k] += __ldcg(&partials[b * K + k]);
+  }
+  block_sum<K>(mine, red);
+  if (threadIdx.x != 0) return false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) tot[k] = red[k][0];
+  *done = 0;  // ready for the next launch
+  return true;
+}
+
+// --- random bits -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t v, int r) {
+  return (v << r) | (v >> (32 - r));
+}
+
+__device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1,
+                                                int r0, int r1, int r2, int r3) {
+  x0 += x1; x1 = rotl32(x1, r0); x1 ^= x0;
+  x0 += x1; x1 = rotl32(x1, r1); x1 ^= x0;
+  x0 += x1; x1 = rotl32(x1, r2); x1 ^= x0;
+  x0 += x1; x1 = rotl32(x1, r3); x1 ^= x0;
+}
+
+// x0 ^ x1 of threefry2x32(key, (i >> 32, i & 0xffffffff)): element i of a
+// jax.random draw (jax 0.9, jax_threefry_partitionable=True).
+__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
+                                                 uint64_t i) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
+  uint32_t x1 = static_cast<uint32_t>(i) + k1;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k1; x1 += k2 + 1u;
+  threefry_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += k2; x1 += k0 + 2u;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k0; x1 += k1 + 3u;
+  threefry_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += k1; x1 += k2 + 4u;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k2; x1 += k0 + 5u;
+  return x0 ^ x1;
+}
+
+// jax.random.uniform's float32 in [0, 1) from 32 random bits.
+__device__ __forceinline__ float unit_float(uint32_t b) {
+  return __fsub_rn(__uint_as_float((b >> 9) | 0x3f800000u), 1.0f);
+}
 
 // --- slot rows -------------------------------------------------------------
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-__device__ __forceinline__ uint4 ld16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
 }
 
 // Per byte of x: 0x80 where the byte is nonzero, else 0.
@@ -82,17 +175,8 @@ __device__ __forceinline__ unsigned flags4(unsigned f) {
   return (((f >> 7) * 0x01020408u) >> 24) & 0xfu;
 }
 
-// A 4-bit mask as four 0/1 bytes (bit j -> byte j).
-__device__ __forceinline__ unsigned bytes4(unsigned m) {
-  return ((m & 0xfu) * 0x00204081u) & 0x01010101u;
-}
-
 __device__ __forceinline__ unsigned flags16(uint4 f) {
   return flags4(f.x) | (flags4(f.y) << 4) | (flags4(f.z) << 8) | (flags4(f.w) << 12);
-}
-
-__device__ __forceinline__ uint4 bytes16(unsigned m) {
-  return make_uint4(bytes4(m), bytes4(m >> 4), bytes4(m >> 8), bytes4(m >> 12));
 }
 
 // Slots of a bool row that are set.
@@ -101,7 +185,7 @@ __device__ __forceinline__ uint64_t row_mask(const uint8_t* k, int S) {
   int u = 0;
   if (aligned16(k)) {
     for (; u + 16 <= S; u += 16) {
-      const uint4 w = ld16(k + u);
+      const uint4 w = __ldcs(reinterpret_cast<const uint4*>(k + u));
       const uint4 f = make_uint4(nonzero_bytes(w.x), nonzero_bytes(w.y),
                                  nonzero_bytes(w.z), nonzero_bytes(w.w));
       m |= static_cast<uint64_t>(flags16(f)) << u;
@@ -111,27 +195,13 @@ __device__ __forceinline__ uint64_t row_mask(const uint8_t* k, int S) {
   return m;
 }
 
-// Slots of a row that are known (k) with retransmit budget left (sl > 0);
-// the budget bytes are read only where a 16-slot block knows something.
-__device__ __forceinline__ uint64_t queued_mask(const uint8_t* k,
-                                                const int8_t* sl, int S) {
-  uint64_t m = 0;
-  int u = 0;
-  if (aligned16(k) && aligned16(sl)) {
-    for (; u + 16 <= S; u += 16) {
-      const uint4 w = ld16(k + u);
-      if ((w.x | w.y | w.z | w.w) == 0) continue;
-      const uint4 b = ld16(sl + u);
-      const uint4 f = make_uint4(
-          nonzero_bytes(w.x) & positive_bytes(b.x),
-          nonzero_bytes(w.y) & positive_bytes(b.y),
-          nonzero_bytes(w.z) & positive_bytes(b.z),
-          nonzero_bytes(w.w) & positive_bytes(b.w));
-      m |= static_cast<uint64_t>(flags16(f)) << u;
-    }
-  }
-  for (; u < S; ++u) if (k[u] && sl[u] > 0) m |= 1ull << u;
-  return m;
+// The [S] bool vector v as a slot mask, read by one full warp: lane = slot,
+// two ballots for S <= 64.  Every lane gets the mask.
+__device__ __forceinline__ uint64_t warp_slot_mask(const uint8_t* v, int S) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lo = __ballot_sync(0xffffffffu, lane < S && v[lane]);
+  const unsigned hi = __ballot_sync(0xffffffffu, lane + 32 < S && v[lane + 32]);
+  return static_cast<uint64_t>(lo) | (static_cast<uint64_t>(hi) << 32);
 }
 
 }  // namespace consul_kernels

@@ -1,27 +1,50 @@
-// K2 gossip_disseminate: one fanout round of infection-style gossip over the
-// [N, S] knowledge matrix, one thread per receiving row.
+// K2 gossip: one fanout round of infection-style gossip over the [N, S]
+// knowledge matrix, with the swim caller's learn-tick stamp and counter
+// update and the per-contact loss draw folded in.  Two launches:
+// gossip_pack, then gossip_exchange.
 //
 // Replaces: consul_tpu/ops/gossip.py disseminate (non-chaos path), which
 // XLA runs as G dynamic slices of a doubled [2N, S] buffer built by
 // ops/rolls.py pull_multi, fused with the mask algebra and three
-// reductions.
+// reductions; plus, for the swim caller, the learn-tick `where` and the
+// counter adds of consul_tpu/models/swim.py _disseminate, and the
+// jax.random.bernoulli [N, G] loss mask the pass consumes.
 //
-// Row i pulls the queued cells of its G ring peers (i + offsets[g]) % N in
-// place: no doubled buffer is built.  The offsets stay on the device (read
-// once per block), so the host never learns them and never syncs.
+// Bound on an H100: memory.  The function must read know, sends_left and
+// (swim caller) learn_tick once, write them once, and read the [N]
+// sender/receiver flags: 8 * N * S + 2 * N bytes for S = 32 with a stamp,
+// ~258 MB at N = 1M, 0.077 ms at 3.35 TB/s.  Row r is also the peer of
+// the rows r - offsets[g]; the offsets are random over [1, N), so reading
+// peer ROWS re-reads each row G more times from HBM (the 50 MB L2 cannot
+// hold the reuse distance).  The design:
 //
-// Bound on an H100: memory.  The minimum traffic is each row's own
-// know/sends_left (2S bytes), the loss mask (G bytes), sender/receiver
-// flags, and the three S-byte output rows; the G peer rows are other rows
-// of the same arrays, which L2 serves.  The design: every row is read and
-// written as 16-byte vectors (S a multiple of 16; byte by byte otherwise)
-// and carried as a 64-bit slot mask, a peer's budget bytes are read only
-// where it knows something, and the rows of a warp are neighbours, so the
-// 1M independent threads keep enough loads in flight to stream.  The
-// three counters are summed per block and folded into integer atomics
-// (exact at any N, where the JAX package sums in float32), the last block
-// converting them to float32.  Outputs go to fresh buffers because other
-// rows still read the old rows.
+//   pack:     reads know and sends_left once and writes two words per
+//             row, its know mask and its queued mask (know & sends > 0 &
+//             sender_ok): 4 bytes each for S <= 32, 8 for S <= 64, 8 MB
+//             together at N = 1M.
+//   exchange: row i ORs the G peers' queued words, which stay in L2,
+//             after dropping the contacts the loss draw loses, and writes
+//             its output rows in one pass: know from its own know word
+//             (the know bytes are not read again), sends_left read once
+//             (budget spent where queued, the full limit where learned),
+//             learn_tick read once and stamped where learned, newly when
+//             asked.  Delivered, served and lost are popcounts of the
+//             words; the last block publishes them and, for the swim
+//             caller, ctr + [.., delivered, served, lost] (its last three
+//             entries) as a fresh float32 vector.
+//
+// Both passes give a row S / 16 (pack) or S / 8 (exchange) lanes, one
+// 16- or 8-slot chunk each, so a warp's loads and stores cover contiguous
+// bytes, with evict-first hints on the row streams so the words stay in
+// L2; the lanes of a row share its words and split its G contacts, and
+// combine them with shuffles.  Other S (or unaligned rows) take one
+// thread per row, byte by byte.  Loss: contact (i, g) is delivered when
+// jax.random.uniform's float of element i*G + g of the threefry stream of
+// the tick's key is < 1 - p_loss, the exact bits of prng.bernoulli, drawn
+// only for contacts whose sender queues something.  Offsets are reduced
+// modulo N in 32-bit arithmetic (N < 2^31 is checked); rolls.offsets
+// draws them in [1, N).  Outputs go to fresh buffers: callers hold the
+// old state across ticks.
 
 #include "common.cuh"
 
@@ -30,135 +53,325 @@ using namespace consul_kernels;
 namespace {
 
 constexpr int kMaxFanout = 16;
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ unsigned set_byte(unsigned w, int j, int v) {
-  const int sh = 8 * j;
-  return (w & ~(0xffu << sh)) | ((static_cast<unsigned>(v) & 0xffu) << sh);
+__device__ __forceinline__ int popc(uint32_t w) { return __popc(w); }
+__device__ __forceinline__ int popc(uint64_t w) { return __popcll(w); }
+__device__ __forceinline__ uint32_t or_lanes(uint32_t w, int o) {
+  return w | __shfl_xor_sync(kFull, w, o);
+}
+__device__ __forceinline__ uint64_t or_lanes(uint64_t w, int o) {
+  return w | static_cast<uint64_t>(__shfl_xor_sync(kFull, static_cast<u64>(w), o));
 }
 
-// new sends_left of one slot: the full budget on learn, the budget less
-// one transmission per contact while queued, else unchanged
-__device__ __forceinline__ int next_budget(int sl, bool learned, bool served,
-                                           int limit, int G) {
-  if (learned) return limit;
-  if (served) return sl - G > 0 ? sl - G : 0;
-  return sl;
+__device__ __forceinline__ int log2_lanes(int lanes) {
+  return lanes == 1 ? 0 : lanes == 2 ? 1 : lanes == 4 ? 2 : 3;
 }
 
-__global__ void gossip_kernel(const uint8_t* __restrict__ know,
-                              const int8_t* __restrict__ sends,
-                              const int32_t* __restrict__ offsets, int G,
-                              const uint8_t* __restrict__ sender_ok,
-                              const uint8_t* __restrict__ receiver_ok,
-                              const uint8_t* __restrict__ slot_active,
-                              const uint8_t* __restrict__ ok,  // [N, G] or null
-                              int64_t N, int S, int limit,
-                              uint8_t* __restrict__ new_know,
-                              int8_t* __restrict__ new_sends,
-                              uint8_t* __restrict__ newly,
-                              u64* __restrict__ acc,  // [4]
-                              float* __restrict__ counters) {  // [3]
-  __shared__ int64_t s_off[kMaxFanout];
+// A 4-bit mask as 0xff in each set byte (bit j -> byte j).
+__device__ __forceinline__ unsigned byte_mask4(unsigned m) {
+  return (((m & 0xfu) * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+// The budget word b (four int8) after a round: max(b - G, 0) where queued
+// (qm), the full limit where learned (lm), else unchanged.
+__device__ __forceinline__ unsigned next_sends(unsigned b, unsigned qm,
+                                               unsigned lm, unsigned gsub,
+                                               unsigned lim4) {
+  const unsigned spent = __vmaxs4(__vsubss4(b, gsub), 0u);
+  const unsigned x = (spent & qm) | (b & ~qm);
+  return (lim4 & lm) | (x & ~lm);
+}
+
+// Two int16 learn ticks in w: tick16 in each half whose bit of m2 is set.
+__device__ __forceinline__ unsigned stamp2(unsigned w, unsigned m2,
+                                           unsigned t2) {
+  const unsigned m = ((m2 & 1u) ? 0x0000ffffu : 0u) | ((m2 & 2u) ? 0xffff0000u : 0u);
+  return (t2 & m) | (w & ~m);
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads) gossip_pack_kernel(
+    const uint8_t* __restrict__ know, const int8_t* __restrict__ sends,
+    const uint8_t* __restrict__ sender_ok, int64_t N, int S, int vec,
+    W* __restrict__ kword, W* __restrict__ qword) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (!vec) {
+    for (int64_t i = tid; i < N; i += stride) {
+      const bool snd = sender_ok[i] != 0;
+      u64 km = 0, qm = 0;
+      for (int u = 0; u < S; ++u) {
+        const bool k = know[i * S + u] != 0;
+        if (k) km |= 1ull << u;
+        if (k && snd && sends[i * S + u] > 0) qm |= 1ull << u;
+      }
+      kword[i] = static_cast<W>(km);
+      qword[i] = static_cast<W>(qm);
+    }
+    return;
+  }
+  const int lanes = S / 16, shift = log2_lanes(lanes);
+  const int64_t items = N << shift;  // (row, 16-slot chunk) pairs
+  const int lane = threadIdx.x & 31;
+  // warp-uniform trip count, so every lane reaches the shuffles
+  for (int64_t item0 = tid - lane; item0 < items; item0 += stride) {
+    const int64_t item = item0 + lane;
+    const int chunk = static_cast<int>(item & (lanes - 1));
+    W km = 0, qm = 0;
+    if (item < items) {
+      const int64_t row = item >> shift;
+      const int64_t off = row * S + 16 * chunk;
+      const uint4 k = __ldcs(reinterpret_cast<const uint4*>(know + off));
+      const uint4 b = __ldcs(reinterpret_cast<const uint4*>(sends + off));
+      const uint4 nz = make_uint4(nonzero_bytes(k.x), nonzero_bytes(k.y),
+                                  nonzero_bytes(k.z), nonzero_bytes(k.w));
+      km = static_cast<W>(flags16(nz)) << (16 * chunk);
+      if (sender_ok[row]) {
+        qm = static_cast<W>(flags16(make_uint4(
+                 nz.x & positive_bytes(b.x), nz.y & positive_bytes(b.y),
+                 nz.z & positive_bytes(b.z), nz.w & positive_bytes(b.w))))
+             << (16 * chunk);
+      }
+    }
+    for (int o = 1; o < lanes; o <<= 1) {
+      km = or_lanes(km, o);
+      qm = or_lanes(qm, o);
+    }
+    if (item < items && chunk == 0) {
+      kword[item >> shift] = km;
+      qword[item >> shift] = qm;
+    }
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
+    const W* __restrict__ kword, const W* __restrict__ qword,
+    const int32_t* __restrict__ offsets, int G,
+    const uint8_t* __restrict__ receiver_ok,
+    const uint8_t* __restrict__ slot_active, const int8_t* __restrict__ sends,
+    const int16_t* __restrict__ learn, int64_t N, int S, int vec,
+    uint32_t k0, uint32_t k1, int lossy, float p_ok, int limit, int tick16,
+    uint8_t* __restrict__ new_know, int8_t* __restrict__ new_sends,
+    int16_t* __restrict__ new_learn, uint8_t* __restrict__ newly,
+    u64* __restrict__ scratch, float* __restrict__ counters,
+    const float* __restrict__ ctr, float* __restrict__ ctr_out, int C) {
+  __shared__ int32_t s_off[kMaxFanout];
   __shared__ uint64_t s_active;
   if (threadIdx.x < G) {
-    int64_t off = static_cast<int64_t>(offsets[threadIdx.x]) % N;
-    s_off[threadIdx.x] = off < 0 ? off + N : off;
+    const int32_t n32 = static_cast<int32_t>(N);
+    const int32_t off = offsets[threadIdx.x] % n32;
+    s_off[threadIdx.x] = off < 0 ? off + n32 : off;
   }
-  if (threadIdx.x == 0) {
-    uint64_t m = 0;
-    for (int s = 0; s < S; ++s) if (slot_active[s]) m |= 1ull << s;
-    s_active = m;
+  if (threadIdx.x < 32) {
+    const uint64_t m = warp_slot_mask(slot_active, S);
+    if (threadIdx.x == 0) s_active = m;
   }
   __syncthreads();
+  const W active = static_cast<W>(s_active);
 
-  u64 v[3] = {0, 0, 0};  // delivered, own queued cells, lost cells
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < N) {
-    uint64_t got = 0;
-    for (int g = 0; g < G; ++g) {
+  u64 v[3] = {0, 0, 0};  // delivered cells, own queued cells, lost cells
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the peers' queued cells reaching row i over contacts g0, g0 + step, ..
+  auto gather = [&](int64_t i, int g0, int step) -> W {
+    W got = 0;
+    for (int g = g0; g < G; g += step) {
       int64_t src = i + s_off[g];
       if (src >= N) src -= N;
-      const uint64_t srv = sender_ok[src]
-          ? queued_mask(know + src * S, sends + src * S, S) : 0;
-      if (ok == nullptr || ok[i * G + g]) {
-        got |= srv;
+      const W w = qword[src];
+      if (w == 0) continue;  // nothing carried: the draw cannot matter
+      const bool ok = !lossy || unit_float(threefry_xor(
+          k0, k1, static_cast<uint64_t>(i) * G + g)) < p_ok;
+      if (ok) {
+        got |= w;
       } else {
-        v[2] += __popcll(srv);
+        v[2] += popc(w);
       }
     }
-    const uint8_t* k = know + i * S;
-    const int8_t* sl = sends + i * S;
-    const uint64_t own = row_mask(k, S);
-    const uint64_t serve = sender_ok[i] ? queued_mask(k, sl, S) : 0;
-    const uint64_t nw = receiver_ok[i] ? (got & s_active & ~own) : 0;
-    v[0] = __popcll(nw);
-    v[1] = __popcll(serve);
+    return got;
+  };
 
-    uint8_t* nk = new_know + i * S;
-    int8_t* ns = new_sends + i * S;
-    uint8_t* nl = newly + i * S;
-    int u = 0;
-    if (aligned16(k) && aligned16(nk) && aligned16(ns) && aligned16(nl)) {
-      for (; u + 16 <= S; u += 16) {
-        const unsigned learned16 = static_cast<unsigned>(nw >> u) & 0xffffu;
-        const unsigned served16 = static_cast<unsigned>(serve >> u) & 0xffffu;
-        *reinterpret_cast<uint4*>(nk + u) =
-            bytes16(static_cast<unsigned>((own | nw) >> u) & 0xffffu);
-        *reinterpret_cast<uint4*>(nl + u) = bytes16(learned16);
-        uint4 b = ld16(sl + u);
-        unsigned w[4] = {b.x, b.y, b.z, b.w};
-        for (unsigned touched = learned16 | served16; touched;
-             touched &= touched - 1) {
-          const int j = __ffs(touched) - 1;
-          const int cur = static_cast<int8_t>((w[j >> 2] >> (8 * (j & 3))) & 0xffu);
-          w[j >> 2] = set_byte(w[j >> 2], j & 3,
-                               next_budget(cur, (learned16 >> j) & 1u,
-                                           (served16 >> j) & 1u, limit, G));
+  if (!vec) {
+    for (int64_t i = tid; i < N; i += stride) {
+      const W got = gather(i, 0, 1);
+      const W kw = kword[i], qw = qword[i];
+      const W nw = receiver_ok[i] ? (got & active & ~kw) : W(0);
+      v[0] += popc(nw);
+      v[1] += popc(qw);
+      const int64_t base = i * S;
+      for (int u = 0; u < S; ++u) {
+        const bool learned = (nw >> u) & 1u;
+        const int b = sends[base + u];
+        new_know[base + u] = ((kw | nw) >> u) & 1u;
+        new_sends[base + u] = static_cast<int8_t>(
+            learned ? limit : ((qw >> u) & 1u) ? (b - G > 0 ? b - G : 0) : b);
+        if (new_learn != nullptr) {
+          new_learn[base + u] = learned ? static_cast<int16_t>(tick16) : learn[base + u];
         }
-        *reinterpret_cast<uint4*>(ns + u) = make_uint4(w[0], w[1], w[2], w[3]);
+        if (newly != nullptr) newly[base + u] = learned ? 1 : 0;
       }
     }
-    for (; u < S; ++u) {
-      const bool learned = (nw >> u) & 1ull;
-      nk[u] = ((own | nw) >> u) & 1ull;
-      nl[u] = learned ? 1 : 0;
-      ns[u] = static_cast<int8_t>(next_budget(sl[u], learned,
-                                              (serve >> u) & 1ull, limit, G));
+  } else {
+    const int lanes = S / 8, shift = log2_lanes(lanes);
+    const int64_t items = N << shift;  // (row, 8-slot chunk) pairs
+    const int lane = threadIdx.x & 31;
+    const unsigned gsub = 0x01010101u * static_cast<unsigned>(G);
+    const unsigned lim4 = 0x01010101u * static_cast<unsigned>(limit & 0xff);
+    const unsigned t2 = 0x00010001u * static_cast<unsigned>(tick16 & 0xffff);
+    for (int64_t item0 = tid - lane; item0 < items; item0 += stride) {
+      const int64_t item = item0 + lane;
+      const bool live = item < items;
+      const int64_t row = item >> shift;
+      const int chunk = static_cast<int>(item & (lanes - 1));
+      const int64_t off = row * S + 8 * chunk;
+      uint2 b = make_uint2(0u, 0u);
+      uint4 lt = make_uint4(0u, 0u, 0u, 0u);
+      W got = 0, kw = 0, qw = 0;
+      bool recv = false;
+      if (live) {  // the row streams first, so their loads overlap the gather
+        b = __ldcs(reinterpret_cast<const uint2*>(sends + off));
+        if (new_learn != nullptr) lt = __ldcs(reinterpret_cast<const uint4*>(learn + off));
+        kw = kword[row];
+        qw = qword[row];
+        recv = receiver_ok[row] != 0;
+        got = gather(row, chunk, lanes);
+      }
+      for (int o = 1; o < lanes; o <<= 1) got = or_lanes(got, o);
+      if (!live) continue;  // warp-uniform trips: only the shuffles need all lanes
+      const W nw = recv ? (got & active & ~kw) : W(0);
+      if (chunk == 0) {
+        v[0] += popc(nw);
+        v[1] += popc(qw);
+      }
+      const unsigned n8 = static_cast<unsigned>(nw >> (8 * chunk)) & 0xffu;
+      const unsigned k8 = static_cast<unsigned>(kw >> (8 * chunk)) & 0xffu;
+      const unsigned q8 = static_cast<unsigned>(qw >> (8 * chunk)) & 0xffu;
+      const unsigned kn = k8 | n8;
+      __stcs(reinterpret_cast<uint2*>(new_know + off),
+             make_uint2(byte_mask4(kn) & 0x01010101u,
+                        byte_mask4(kn >> 4) & 0x01010101u));
+      __stcs(reinterpret_cast<uint2*>(new_sends + off),
+             make_uint2(next_sends(b.x, byte_mask4(q8), byte_mask4(n8), gsub, lim4),
+                        next_sends(b.y, byte_mask4(q8 >> 4), byte_mask4(n8 >> 4),
+                                   gsub, lim4)));
+      if (new_learn != nullptr) {
+        __stcs(reinterpret_cast<uint4*>(new_learn + off),
+               make_uint4(stamp2(lt.x, n8, t2), stamp2(lt.y, n8 >> 2, t2),
+                          stamp2(lt.z, n8 >> 4, t2), stamp2(lt.w, n8 >> 6, t2)));
+      }
+      if (newly != nullptr) {
+        __stcs(reinterpret_cast<uint2*>(newly + off),
+               make_uint2(byte_mask4(n8) & 0x01010101u,
+                          byte_mask4(n8 >> 4) & 0x01010101u));
+      }
     }
   }
-  if (block_accumulate<3>(v, acc)) {
-    const u64 delivered = take(&acc[0]);
-    const u64 cells = take(&acc[1]);
-    const u64 lost = take(&acc[2]);
-    take(&acc[3]);
-    counters[0] = static_cast<float>(delivered);
-    counters[1] = static_cast<float>(cells) * static_cast<float>(G);
-    counters[2] = static_cast<float>(lost);
+  u64 tot[3];
+  if (grid_sum<3>(v, scratch, tot)) {
+    // float32 exactly as the plain twin rounds: each integer total
+    // converted once, served times G, each added to ctr once (no FMA)
+    const float out[3] = {__ull2float_rn(tot[0]),
+                          __fmul_rn(__ull2float_rn(tot[1]), static_cast<float>(G)),
+                          __ull2float_rn(tot[2])};
+    counters[0] = out[0];
+    counters[1] = out[1];
+    counters[2] = out[2];
+    if (ctr_out != nullptr) {
+      for (int k = 0; k < C; ++k) {
+        const int j = k - (C - 3);
+        ctr_out[k] = __fadd_rn(ctr[k], (j >= 0 && j < 3) ? out[j] : 0.0f);
+      }
+    }
   }
+}
+
+template <typename W>
+int pack(const void* know, const void* sends, const void* sender_ok,
+         int64_t N, int S, int vec, void* kword, void* qword,
+         cudaStream_t stream) {
+  static int per_card = 0;
+  const int blocks = persistent_blocks(gossip_pack_kernel<W>, kThreads,
+                                       vec ? N * (S / 16) : N, 1 << 20, per_card);
+  gossip_pack_kernel<W><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(know), static_cast<const int8_t*>(sends),
+      static_cast<const uint8_t*>(sender_ok), N, S, vec,
+      static_cast<W*>(kword), static_cast<W*>(qword));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename W>
+int exchange(const void* kword, const void* qword, const void* offsets, int G,
+             const void* receiver_ok, const void* slot_active,
+             const void* sends, const void* learn, int64_t N, int S, int vec,
+             uint32_t k0, uint32_t k1, int lossy, float p_ok, int limit,
+             int tick16, void* new_know, void* new_sends, void* new_learn,
+             void* newly, void* scratch, int scratch_blocks, void* counters,
+             const void* ctr, void* ctr_out, int C, cudaStream_t stream) {
+  static int per_card = 0;
+  const int blocks = persistent_blocks(gossip_exchange_kernel<W>, kThreads,
+                                       vec ? N * (S / 8) : N, scratch_blocks,
+                                       per_card);
+  gossip_exchange_kernel<W><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const W*>(kword), static_cast<const W*>(qword),
+      static_cast<const int32_t*>(offsets), G,
+      static_cast<const uint8_t*>(receiver_ok),
+      static_cast<const uint8_t*>(slot_active),
+      static_cast<const int8_t*>(sends), static_cast<const int16_t*>(learn), N,
+      S, vec, k0, k1, lossy, p_ok, limit, tick16,
+      static_cast<uint8_t*>(new_know), static_cast<int8_t*>(new_sends),
+      static_cast<int16_t*>(new_learn), static_cast<uint8_t*>(newly),
+      static_cast<u64*>(scratch), static_cast<float*>(counters),
+      static_cast<const float*>(ctr), static_cast<float*>(ctr_out), C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid(int64_t N, int S, int G) {
+  return N >= 1 && N < (int64_t{1} << 31) && S >= 1 && S <= 64 && G >= 1 &&
+         G <= kMaxFanout;
 }
 
 }  // namespace
 
-extern "C" int gossip_disseminate(const void* know, const void* sends,
-                                  const void* offsets, int G,
-                                  const void* sender_ok, const void* receiver_ok,
-                                  const void* slot_active, const void* ok,
-                                  int64_t N, int S, int limit, void* new_know,
-                                  void* new_sends, void* newly, void* acc,
-                                  void* counters, void* stream) {
-  if (G < 1 || G > kMaxFanout) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const int64_t blocks = (N + threads - 1) / threads;
-  gossip_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(know), static_cast<const int8_t*>(sends),
-      static_cast<const int32_t*>(offsets), G,
-      static_cast<const uint8_t*>(sender_ok),
-      static_cast<const uint8_t*>(receiver_ok),
-      static_cast<const uint8_t*>(slot_active),
-      static_cast<const uint8_t*>(ok), N, S, limit,
-      static_cast<uint8_t*>(new_know), static_cast<int8_t*>(new_sends),
-      static_cast<uint8_t*>(newly), static_cast<u64*>(acc),
-      static_cast<float*>(counters));
-  return static_cast<int>(cudaGetLastError());
+// Words are uint32 for S <= 32 and uint64 for S <= 64; vec != 0 takes the
+// lanes-per-row path (S = 16, 32 or 64, every row buffer 16-byte aligned).
+extern "C" int gossip_pack(const void* know, const void* sends,
+                           const void* sender_ok, int64_t N, int S, int vec,
+                           void* kword, void* qword, void* stream) {
+  if (!valid(N, S, 1) || (vec && S != 16 && S != 32 && S != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  return S <= 32 ? pack<uint32_t>(know, sends, sender_ok, N, S, vec, kword, qword, st)
+                 : pack<uint64_t>(know, sends, sender_ok, N, S, vec, kword, qword, st);
+}
+
+extern "C" int gossip_exchange(const void* kword, const void* qword,
+                               const void* offsets, int G,
+                               const void* receiver_ok,
+                               const void* slot_active, const void* sends,
+                               const void* learn, int64_t N, int S, int vec,
+                               uint32_t k0, uint32_t k1, int lossy,
+                               float p_ok, int limit, int tick16,
+                               void* new_know, void* new_sends,
+                               void* new_learn, void* newly, void* scratch,
+                               int scratch_blocks, void* counters,
+                               const void* ctr, void* ctr_out, int C,
+                               void* stream) {
+  if (!valid(N, S, G) || scratch_blocks < 1 ||
+      (vec && S != 16 && S != 32 && S != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  return S <= 32
+      ? exchange<uint32_t>(kword, qword, offsets, G, receiver_ok, slot_active,
+                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, limit,
+                           tick16, new_know, new_sends, new_learn, newly,
+                           scratch, scratch_blocks, counters, ctr, ctr_out, C, st)
+      : exchange<uint64_t>(kword, qword, offsets, G, receiver_ok, slot_active,
+                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, limit,
+                           tick16, new_know, new_sends, new_learn, newly,
+                           scratch, scratch_blocks, counters, ctr, ctr_out, C, st);
 }

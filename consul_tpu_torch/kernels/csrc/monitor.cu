@@ -2,25 +2,33 @@
 // members (excluding the subject) that believe one subject is down.
 //
 // Replaces: consul_tpu/models/swim.py believed_down_fraction, which XLA
-// runs inside the bench's timed scan as [N, U] mask algebra (dead/left
-// knowledge, expired unrefuted suspicion against the Lifeguard timeout,
-// the highest known alive incarnation) and two [N] reductions.
+// runs inside the bench's timed scan as [U] rumor-table masks, [N, U]
+// mask algebra (dead/left knowledge, expired unrefuted suspicion against
+// the Lifeguard timeout, the highest known alive incarnation) and two [N]
+// reductions.
 //
-// The per-slot vectors (is_dl/is_s/is_a, r_inc and the int16 timeout) are
-// tiny and come precomputed from torch; each block stages them in shared
-// memory as slot masks.  One thread evaluates one node row: the row's know
-// bytes become a 64-bit slot mask (16-byte loads), and only its few set
-// slots are visited.  Believers and observers are summed per block, folded
-// into integer atomics, and the last block writes count / max(observers,
-// 1), maxed with the subject's bulk-channel coverage, into one float32 of
-// the caller's per-scan output vector: the host reads the whole scan's
+// The kernel reads the rumor table's raw [U] leaves (r_active, r_kind,
+// r_subject, r_inc, r_confirm) and the int16 Lifeguard timeout table
+// (65 entries, built once per params): every block's first warp ballots
+// the subject's dead/left, suspect and alive slot masks (lane = slot, two
+// passes for U <= 64) and stages each slot's incarnation and timeout in
+// shared memory, so no per-tick slot prep runs before the launch.  A
+// persistent grid walks the rows, U / 16 lanes to a row for U = 16, 32,
+// 64 (one 16-byte know chunk each, ORed into the row's 64-bit slot mask
+// with shuffles; four 32-item groups per warp trip), one thread a row
+// otherwise; only a row's set slots are visited.  When the subject's death or leave is
+// committed, or no rumor names it as dead, left or suspect, no row's know
+// bytes can change the answer and none are read.  Believers and
+// observers are summed with warp shuffles, one partial pair per block and
+// one atomic per block; the last block writes count / max(observers, 1),
+// maxed with the subject's bulk-channel coverage, into one float32 of the
+// caller's per-scan output vector: the host reads the whole scan's
 // fractions back in one copy, never once per tick.
 //
-// Bound on an H100: memory.  The kernel must read know (U bytes a row)
-// and up/member; learn_tick (2U bytes a row) is read only in the cells a
-// suspect rumor about the subject occupies, so the bytes that bound it
-// are ~(U + 2) * N plus the learn_tick of those cells.  Once the subject's
-// death is committed no row needs its know bytes at all.
+// Bound on an H100: memory.  The kernel must read up/member (2 bytes a
+// row) and, unless the subject is committed, know (U bytes a row);
+// learn_tick (2U bytes a row) only in the cells a suspect rumor about the
+// subject occupies: ~(U + 2) * N bytes plus those learn ticks.
 
 #include "common.cuh"
 
@@ -28,71 +36,126 @@ using namespace consul_kernels;
 
 namespace {
 
-__global__ void believed_down_kernel(
+constexpr int kThreads = 256;
+constexpr int kAlive = 0, kSuspect = 1, kDead = 2, kLeft = 3;
+constexpr int kTimeouts = 65;  // confirmations 0..64
+
+__global__ void __launch_bounds__(kThreads) believed_down_kernel(
     const uint8_t* __restrict__ know, const int16_t* __restrict__ learn_tick,
     const uint8_t* __restrict__ up, const uint8_t* __restrict__ member,
-    const uint8_t* __restrict__ is_dl, const uint8_t* __restrict__ is_s,
-    const uint8_t* __restrict__ is_a, const int32_t* __restrict__ r_inc,
-    const int16_t* __restrict__ timeout16,
+    const uint8_t* __restrict__ r_active, const int8_t* __restrict__ r_kind,
+    const int32_t* __restrict__ r_subject, const int32_t* __restrict__ r_inc,
+    const int8_t* __restrict__ r_confirm,
+    const int16_t* __restrict__ timeouts,
     const uint8_t* __restrict__ committed_dead,
     const uint8_t* __restrict__ committed_left,
     const int32_t* __restrict__ committed_inc,
     const uint8_t* __restrict__ bulk_member, const float* __restrict__ bulk_cov,
-    int64_t subject, int tick16, int64_t N, int U,
-    u64* __restrict__ acc,  // [3]
-    float* __restrict__ out) {
+    int64_t subject, int tick16, int64_t N, int U, int vec,
+    u64* __restrict__ scratch, float* __restrict__ out) {
   __shared__ uint64_t s_dl, s_s, s_a;
   __shared__ int32_t s_inc[64];
   __shared__ int16_t s_to[64];
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
     uint64_t dl = 0, su = 0, al = 0;
-    for (int u = 0; u < U; ++u) {
-      if (is_dl[u]) dl |= 1ull << u;
-      if (is_s[u]) su |= 1ull << u;
-      if (is_a[u]) al |= 1ull << u;
+    for (int pass = 0; pass < 2; ++pass) {
+      const int u = lane + 32 * pass;
+      const bool mine = u < U && r_active[u] && r_subject[u] == subject;
+      const int kind = u < U ? r_kind[u] : -1;
+      const int sh = 32 * pass;
+      dl |= static_cast<uint64_t>(__ballot_sync(
+          0xffffffffu, mine && (kind == kDead || kind == kLeft))) << sh;
+      su |= static_cast<uint64_t>(__ballot_sync(0xffffffffu, mine && kind == kSuspect)) << sh;
+      al |= static_cast<uint64_t>(__ballot_sync(0xffffffffu, mine && kind == kAlive)) << sh;
+      if (u < U) {
+        int c = r_confirm[u];
+        c = c < 0 ? 0 : (c >= kTimeouts ? kTimeouts - 1 : c);
+        s_inc[u] = r_inc[u];
+        s_to[u] = timeouts[c];
+      }
     }
-    s_dl = dl;
-    s_s = su;
-    s_a = al;
-  }
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    s_inc[u] = r_inc[u];
-    s_to[u] = timeout16[u];
+    if (lane == 0) {
+      s_dl = dl;
+      s_s = su;
+      s_a = al;
+    }
   }
   __syncthreads();
+  const uint64_t m_dl = s_dl, m_s = s_s, m_a = s_a;
+  const bool committed = committed_dead[subject] || committed_left[subject];
+  const bool read_rows = !committed && (m_dl | m_s) != 0;
+  const int32_t cinc = committed_inc[subject];
 
   u64 v[2] = {0, 0};  // believers among observers, observers
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < N && up[i] && member[i] && i != subject) {
-    bool down = committed_dead[subject] || committed_left[subject];
-    if (!down) {
-      const uint64_t km = row_mask(know + i * U, U);
-      if (km & s_dl) {
-        down = true;
-      } else if (km & s_s) {
-        int32_t a_known = -1;
-        for (uint64_t m = km & s_a; m; m &= m - 1) {
-          const int32_t inc = s_inc[__ffsll(m) - 1];
-          if (inc > a_known) a_known = inc;
+  // does an observer whose know row has slot mask km believe it?
+  auto believes = [&](int64_t i, uint64_t km) -> bool {
+    if (km & m_dl) return true;
+    if (!(km & m_s)) return false;
+    int32_t a_known = -1;
+    for (uint64_t m = km & m_a; m; m &= m - 1) {
+      const int32_t inc = s_inc[__ffsll(m) - 1];
+      if (inc > a_known) a_known = inc;
+    }
+    for (uint64_t m = km & m_s; m; m &= m - 1) {
+      const int u = __ffsll(m) - 1;
+      const int16_t age = static_cast<int16_t>(tick16 - learn_tick[i * U + u]);
+      const bool refuted = a_known > s_inc[u] || s_inc[u] < cinc;
+      if (age >= s_to[u] && !refuted) return true;
+    }
+    return false;
+  };
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (read_rows && vec) {
+    // U / 16 lanes to a row, one 16-slot chunk each: a warp's know loads
+    // cover contiguous bytes.  Each warp takes four 32-item groups a trip,
+    // their loads issued together, to keep more bytes in flight.
+    const int lanes = U / 16, shift = lanes == 1 ? 0 : lanes == 2 ? 1 : 2;
+    const int64_t items = N << shift;
+    const int lane = threadIdx.x & 31;
+    const int chunk = lane & (lanes - 1);
+    constexpr int kGroups = 4;
+    for (int64_t base = (tid - lane) * kGroups; base < items;
+         base += stride * kGroups) {
+      u64 km[kGroups];
+      bool observer[kGroups];
+#pragma unroll
+      for (int r = 0; r < kGroups; ++r) {
+        const int64_t item = base + 32 * r + lane;
+        const int64_t row = item >> shift;
+        km[r] = 0;
+        observer[r] = false;
+        if (item < items) {
+          const uint4 w = __ldcs(reinterpret_cast<const uint4*>(know + row * U + 16 * chunk));
+          // both flags loaded unconditionally: no load waits on another
+          observer[r] = (up[row] & member[row]) && row != subject;
+          km[r] = static_cast<u64>(flags16(make_uint4(
+                      nonzero_bytes(w.x), nonzero_bytes(w.y), nonzero_bytes(w.z),
+                      nonzero_bytes(w.w)))) << (16 * chunk);
         }
-        const int32_t cinc = committed_inc[subject];
-        for (uint64_t m = km & s_s; m && !down; m &= m - 1) {
-          const int u = __ffsll(m) - 1;
-          const int16_t age = static_cast<int16_t>(tick16 - learn_tick[i * U + u]);
-          const bool refuted = (a_known > s_inc[u]) || (s_inc[u] < cinc);
-          if (age >= s_to[u] && !refuted) down = true;
+      }
+#pragma unroll
+      for (int r = 0; r < kGroups; ++r) {
+        for (int o = 1; o < lanes; o <<= 1) km[r] |= __shfl_xor_sync(0xffffffffu, km[r], o);
+        if (observer[r] && chunk == 0) {
+          v[0] += believes((base + 32 * r + lane) >> shift, km[r]) ? 1 : 0;
+          v[1] += 1;
         }
       }
     }
-    v[0] = down ? 1 : 0;
-    v[1] = 1;
+  } else {
+    for (int64_t i = tid; i < N; i += stride) {
+      if (!(up[i] && member[i]) || i == subject) continue;
+      const bool down = read_rows ? believes(i, row_mask(know + i * U, U)) : committed;
+      v[0] += down ? 1 : 0;
+      v[1] += 1;
+    }
   }
-  if (block_accumulate<2>(v, acc)) {
-    const u64 believers = take(&acc[0]);
-    u64 observers = take(&acc[1]);
-    take(&acc[2]);
-    if (observers < 1) observers = 1;
-    const float frac = static_cast<float>(believers) / static_cast<float>(observers);
+  u64 tot[2];
+  if (grid_sum<2>(v, scratch, tot)) {
+    const u64 observers = tot[1] < 1 ? 1 : tot[1];
+    const float frac = __fdiv_rn(__ull2float_rn(tot[0]), __ull2float_rn(observers));
     const float bulk = bulk_member[subject] ? bulk_cov[subject] : 0.0f;
     *out = frac > bulk ? frac : bulk;
   }
@@ -102,29 +165,39 @@ __global__ void believed_down_kernel(
 
 extern "C" int believed_down(const void* know, const void* learn_tick,
                              const void* up, const void* member,
-                             const void* is_dl, const void* is_s,
-                             const void* is_a, const void* r_inc,
-                             const void* timeout16, const void* committed_dead,
+                             const void* r_active, const void* r_kind,
+                             const void* r_subject, const void* r_inc,
+                             const void* r_confirm, const void* timeouts,
+                             const void* committed_dead,
                              const void* committed_left,
                              const void* committed_inc,
                              const void* bulk_member, const void* bulk_cov,
                              int64_t subject, int tick16, int64_t N, int U,
-                             void* acc, void* out, void* stream) {
-  const int threads = 256;
-  const int64_t blocks = (N + threads - 1) / threads;
-  believed_down_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                             int vec, void* scratch, int scratch_blocks,
+                             void* out, void* stream) {
+  if (N < 1 || U < 1 || U > 64 || subject < 0 || subject >= N ||
+      scratch_blocks < 1 || (vec && U != 16 && U != 32 && U != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static int per_card = 0;
+  const int blocks = persistent_blocks(believed_down_kernel, kThreads,
+                                       vec ? N * (U / 16) : N, scratch_blocks,
+                                       per_card);
+  believed_down_kernel<<<blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(know),
       static_cast<const int16_t*>(learn_tick),
       static_cast<const uint8_t*>(up), static_cast<const uint8_t*>(member),
-      static_cast<const uint8_t*>(is_dl), static_cast<const uint8_t*>(is_s),
-      static_cast<const uint8_t*>(is_a), static_cast<const int32_t*>(r_inc),
-      static_cast<const int16_t*>(timeout16),
+      static_cast<const uint8_t*>(r_active), static_cast<const int8_t*>(r_kind),
+      static_cast<const int32_t*>(r_subject),
+      static_cast<const int32_t*>(r_inc),
+      static_cast<const int8_t*>(r_confirm),
+      static_cast<const int16_t*>(timeouts),
       static_cast<const uint8_t*>(committed_dead),
       static_cast<const uint8_t*>(committed_left),
       static_cast<const int32_t*>(committed_inc),
       static_cast<const uint8_t*>(bulk_member),
-      static_cast<const float*>(bulk_cov), subject, tick16, N, U,
-      static_cast<u64*>(acc), static_cast<float*>(out));
+      static_cast<const float*>(bulk_cov), subject, tick16, N, U, vec,
+      static_cast<u64*>(scratch), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

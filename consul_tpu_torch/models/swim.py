@@ -22,7 +22,8 @@ Control flow that JAX expresses inside `lax.scan`:
     ticks); gossip-only ticks never sync.
 
 `believed_down_fraction` launches kernel K3 on CUDA tensors; the gossip
-pass goes through ops/gossip.py (K2) and every random draw through
+pass (with its learn-tick stamp, counter update and loss draw) goes
+through ops/gossip.py (K2) and every other random draw through
 utils/prng.py (K1).  `params.chaos` (the nemesis build) is not ported.
 """
 
@@ -53,7 +54,7 @@ CTR_PROBE_FAILS = 2
 CTR_SUSPICIONS = 3
 CTR_GOSSIP_DELIVERED = 4
 CTR_GOSSIP_SERVED = 5
-CTR_GOSSIP_LOST = 6
+CTR_GOSSIP_LOST = 6   # the gossip counters close the vector: K2 adds them
 CTR_N = 7
 
 I8, I16, I32, I64 = torch.int8, torch.int16, torch.int32, torch.int64
@@ -266,15 +267,20 @@ def timeout_table(params: SwimParams) -> Tuple[int, ...]:
 _table_cache: dict = {}
 
 
-def _timeouts(params: SwimParams, confirm: torch.Tensor) -> torch.Tensor:
-    """[...] int32 timeout for int confirmation counts (0..64)."""
-    key = (params, confirm.device)
+def _table(params: SwimParams, device, dtype) -> torch.Tensor:
+    """timeout_table on `device`, built once per (params, device, dtype):
+    no per-tick upload."""
+    key = (params, torch.device(device), dtype)
     table = _table_cache.get(key)
     if table is None:
-        table = torch.tensor(timeout_table(params), dtype=I32,
-                             device=confirm.device)
+        table = torch.tensor(timeout_table(params), dtype=dtype, device=device)
         _table_cache[key] = table
-    return table[confirm.to(I64)]
+    return table
+
+
+def _timeouts(params: SwimParams, confirm: torch.Tensor) -> torch.Tensor:
+    """[...] int32 timeout for int confirmation counts (0..64)."""
+    return _table(params, confirm.device, I32)[confirm.to(I64)]
 
 
 # ---------------------------------------------------------------------------
@@ -397,21 +403,22 @@ def believed_down_fraction(params: SwimParams, s: SwimState, subject: int,
                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fraction of live members (excluding the subject) that believe
     `subject` is down — the north-star convergence metric.  On CUDA
-    tensors it launches K3, writing into `out` (one float32, e.g. a slot
-    of a per-scan vector) when given."""
+    tensors it launches K3, which reads the raw rumor table and the cached
+    int16 timeout table itself, writing into `out` (one float32, e.g. a
+    slot of a per-scan vector) when given."""
     if not s.know.is_cuda:
         frac = believed_down_fraction_plain(params, s, subject)
         if out is not None:
             out.copy_(frac.reshape(out.shape))
             return out
         return frac
-    is_dl, is_s, is_a, timeout16 = _monitor_slots(params, s, subject)
     if out is None:
         out = torch.empty(1, dtype=F32, device=s.device)
     kernels.launch_believed_down(
-        s.know, s.learn_tick, s.up, s.member, is_dl, is_s, is_a, s.r_inc,
-        timeout16, s.committed_dead, s.committed_left, s.committed_inc,
-        s.bulk_member, s.bulk_cov, subject, _t16(s.tick), out)
+        s.know, s.learn_tick, s.up, s.member, s.r_active, s.r_kind,
+        s.r_subject, s.r_inc, s.r_confirm, _table(params, s.device, I16),
+        s.committed_dead, s.committed_left, s.committed_inc, s.bulk_member,
+        s.bulk_cov, subject, _t16(s.tick), out)
     return out
 
 
@@ -736,10 +743,10 @@ def _refutation(params: SwimParams, s: SwimState) -> SwimState:
 
 
 def _disseminate(params: SwimParams, s: SwimState) -> SwimState:
-    """Piggyback gossip over the rumor table (swim.py:1152-1181): K2."""
-    n = params.n_nodes
+    """Piggyback gossip over the rumor table (swim.py:1152-1181): K2, with
+    the learn-tick stamp and the gossip counters folded in."""
     tick = s.tick
-    offs = rolls.offsets(prng.tick_key(params.seed, tick, 2), n,
+    offs = rolls.offsets(prng.tick_key(params.seed, tick, 2), params.n_nodes,
                          params.gossip_nodes, s.device)
     res = gossip_ops.disseminate(offs, s.know, s.sends_left,
                                  sender_ok=s.up,
@@ -747,13 +754,11 @@ def _disseminate(params: SwimParams, s: SwimState) -> SwimState:
                                  slot_active=s.r_active,
                                  retransmit_limit=params.retransmit_limit,
                                  p_loss=params.p_loss,
-                                 key=prng.tick_key(params.seed, tick, 5))
-    learn_tick = torch.where(res.newly, _t16(tick), s.learn_tick)
-    zero = torch.zeros((), dtype=F32, device=s.device)
-    incr = torch.stack([zero, zero, zero, zero, res.delivered, res.served,
-                        res.lost])
-    return s.replace(know=res.know, learn_tick=learn_tick,
-                     sends_left=res.sends_left, ctr=s.ctr + incr)
+                                 key=prng.tick_key(params.seed, tick, 5),
+                                 learn_tick=s.learn_tick, tick16=_t16(tick),
+                                 ctr=s.ctr, want_newly=False)
+    return s.replace(know=res.know, learn_tick=res.learn_tick,
+                     sends_left=res.sends_left, ctr=res.ctr)
 
 
 def _bulk_disseminate(params: SwimParams, s: SwimState) -> SwimState:

@@ -6,8 +6,16 @@ ring peers at per-tick random offsets into its own [N, S] knowledge row
 pushes; receivers pull here, with the same spread rate, and the serving
 budget reproduces push's bounded per-node transmission count.
 
-`disseminate` launches kernel K2 (kernels/csrc/gossip.cu) on CUDA
-tensors and runs `disseminate_plain` on CPU tensors.
+The swim caller also stamps the learn tick of every newly learned cell
+and adds the three gossip counters to its counter vector
+(consul_tpu/models/swim.py:1152-1181); `disseminate` takes both steps on
+request, so on the card they run inside K2 with the per-contact loss
+draw, and `newly` is written only for a caller that asks for it (the
+events layer).
+
+`disseminate` launches kernel K2 (kernels/csrc/gossip.cu: a pack launch
+and an exchange launch) on CUDA tensors and runs `disseminate_plain` on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,30 +32,38 @@ from consul_tpu_torch.utils import prng
 class GossipResult(NamedTuple):
     know: torch.Tensor        # [N, S] bool
     sends_left: torch.Tensor  # [N, S] int8
-    newly: torch.Tensor       # [N, S] bool — learned this tick
+    newly: Optional[torch.Tensor]  # [N, S] bool — learned this tick
     # device-side tick counters (0-d float32): newly learned cells, cell
     # transmissions attempted, cell transmissions dropped to loss
     delivered: torch.Tensor
     served: torch.Tensor
     lost: torch.Tensor
+    learn_tick: Optional[torch.Tensor] = None  # [N, S] int16, stamped
+    ctr: Optional[torch.Tensor] = None         # the three counters added
 
 
 def loss_mask(key, p_loss: float, n: int, fanout: int, device):
     """[N, G] contact-delivered mask (one UDP packet per contact), or None
-    when there is no loss."""
+    when there is no loss: jax.random.bernoulli's bits, from the plain
+    threefry hash (the kernel draws them itself)."""
     if p_loss > 0.0 and key is not None:
-        return prng.bernoulli(key, 1.0 - p_loss, (n, fanout), device)
+        u = prng.unit_floats(prng.threefry_bits_plain(key, n * fanout, device))
+        return u.reshape(n, fanout) < prng.f32(1.0 - p_loss)
     return None
 
 
 def disseminate_plain(offs: torch.Tensor, know: torch.Tensor,
                       sends_left: torch.Tensor, sender_ok: torch.Tensor,
                       receiver_ok: torch.Tensor, slot_active: torch.Tensor,
-                      retransmit_limit: int,
-                      ok: Optional[torch.Tensor]) -> GossipResult:
-    """The plain PyTorch version of K2: G ring views of the serve mask,
-    loss per contact, the OR, and the budget update."""
+                      retransmit_limit: int, p_loss: float = 0.0, key=None,
+                      learn_tick: Optional[torch.Tensor] = None,
+                      tick16: int = 0, ctr: Optional[torch.Tensor] = None,
+                      want_newly: bool = True) -> GossipResult:
+    """The plain PyTorch version of K2: the loss mask, G ring views of the
+    serve mask, the OR, the budget update; then the stamp and the counter
+    add when asked."""
     fanout = offs.shape[0]
+    ok = loss_mask(key, p_loss, know.shape[0], fanout, know.device)
     serve = know & (sends_left > 0) & sender_ok[:, None]
     views = rolls.pull_multi(serve, offs)
     cells = serve.sum(1)                                       # [N] int64
@@ -66,44 +82,71 @@ def disseminate_plain(offs: torch.Tensor, know: torch.Tensor,
     budget = torch.clamp_min(sends_left - fanout, 0).to(torch.int8)
     new_sends = torch.where(newly, retransmit_limit,
                             torch.where(serve, budget, sends_left))
-    return GossipResult(know=new_know, sends_left=new_sends, newly=newly,
-                        delivered=newly.sum().to(torch.float32),
-                        served=served, lost=lost)
+    delivered = newly.sum().to(torch.float32)
+    new_learn = new_ctr = None
+    if learn_tick is not None:
+        new_learn = torch.where(newly, tick16, learn_tick)
+    if ctr is not None:
+        incr = torch.zeros_like(ctr)
+        incr[-3:] = torch.stack([delivered, served, lost])
+        new_ctr = ctr + incr
+    return GossipResult(know=new_know, sends_left=new_sends,
+                        newly=newly if want_newly else None,
+                        delivered=delivered, served=served, lost=lost,
+                        learn_tick=new_learn, ctr=new_ctr)
 
 
 def disseminate_kernel(offs: torch.Tensor, know: torch.Tensor,
                        sends_left: torch.Tensor, sender_ok: torch.Tensor,
                        receiver_ok: torch.Tensor, slot_active: torch.Tensor,
-                       retransmit_limit: int,
-                       ok: Optional[torch.Tensor]) -> GossipResult:
-    """K2 on the card: one launch, fresh output buffers."""
+                       retransmit_limit: int, p_loss: float = 0.0, key=None,
+                       learn_tick: Optional[torch.Tensor] = None,
+                       tick16: int = 0, ctr: Optional[torch.Tensor] = None,
+                       want_newly: bool = True) -> GossipResult:
+    """K2 on the card: the pack and exchange launches, fresh outputs."""
+    n, s = know.shape
+    word = torch.int32 if s <= 32 else torch.int64
     new_know = torch.empty_like(know)
     new_sends = torch.empty_like(sends_left)
-    newly = torch.empty_like(know)
+    new_learn = torch.empty_like(learn_tick) if learn_tick is not None else None
+    newly = torch.empty_like(know) if want_newly else None
+    new_ctr = torch.empty_like(ctr) if ctr is not None else None
     counters = torch.empty(3, dtype=torch.float32, device=know.device)
-    kernels.launch_gossip(know, sends_left, offs.to(torch.int32).contiguous(),
-                          sender_ok.contiguous(), receiver_ok.contiguous(),
-                          slot_active.contiguous(), ok, retransmit_limit,
-                          new_know, new_sends, newly, counters)
+    lossy = p_loss > 0.0 and key is not None
+    kernels.launch_gossip(
+        know, sends_left, offs, sender_ok, receiver_ok, slot_active,
+        retransmit_limit, new_know, new_sends,
+        torch.empty(n, dtype=word, device=know.device),
+        torch.empty(n, dtype=word, device=know.device), counters,
+        key=key if lossy else None, p_ok=prng.f32(1.0 - p_loss),
+        learn_tick=learn_tick, new_learn=new_learn, tick16=tick16,
+        newly=newly, ctr=ctr, ctr_out=new_ctr)
     return GossipResult(know=new_know, sends_left=new_sends, newly=newly,
                         delivered=counters[0], served=counters[1],
-                        lost=counters[2])
+                        lost=counters[2], learn_tick=new_learn, ctr=new_ctr)
 
 
 def disseminate(offs: torch.Tensor, know: torch.Tensor,
                 sends_left: torch.Tensor, sender_ok: torch.Tensor,
                 receiver_ok: torch.Tensor, slot_active: torch.Tensor,
                 retransmit_limit: int, p_loss: float = 0.0,
-                key=None, blocks: int = 1) -> GossipResult:
+                key=None, blocks: int = 1, *,
+                learn_tick: Optional[torch.Tensor] = None, tick16: int = 0,
+                ctr: Optional[torch.Tensor] = None,
+                want_newly: bool = True) -> GossipResult:
     """One fanout round.
 
     offs: [G] int32 ring offsets on the device (node i pulls from
     (i + offs[g]) % N); sender_ok/receiver_ok: [N] bool; slot_active: [S]
     bool.  `p_loss` (with `key`) drops whole contacts: all slots of one
-    peer's packet vanish together."""
+    peer's packet vanish together.  With `learn_tick` ([N, S] int16) the
+    result carries it stamped with `tick16` where a cell was newly
+    learned; with `ctr` ([C] float32, its last three entries the
+    delivered, served and lost totals) it carries ctr plus this round's.
+    `want_newly=False` leaves `newly` out (None)."""
     if blocks != 1:
         raise NotImplementedError("node-axis sharding is not ported yet")
-    ok = loss_mask(key, p_loss, know.shape[0], offs.shape[0], know.device)
     fn = disseminate_kernel if know.is_cuda else disseminate_plain
     return fn(offs, know, sends_left, sender_ok, receiver_ok, slot_active,
-              retransmit_limit, ok)
+              retransmit_limit, p_loss, key, learn_tick, tick16, ctr,
+              want_newly)

@@ -1,13 +1,20 @@
 """Where a tick's time goes on the card: per-tick wall times (probe ticks
-and gossip-only ticks apart) and a torch.profiler window over the timed
-scan, summed by kernel name, with the device's busy and idle share.
+and gossip-only ticks apart), device kernels per tick of each kind, and a
+torch.profiler window over the timed scan, summed by kernel name, with
+the device's busy and idle share.
 
     python -m consul_tpu_torch.profile_tick [n_nodes] [ticks]
+    python -m consul_tpu_torch.profile_tick kernels [n_nodes]
 
 Builds the bench configuration, runs the warm scan and the kill as the
-bench does, then times `ticks` fenced ticks, each pass of a probe tick
-alone, and a profiled window of `ticks` monitored ticks.  Prints one JSON
-line; needs a CUDA device.
+bench does, then times `ticks` fenced ticks, counts the device kernels of
+10 gossip-only and 10 probe ticks (each tick with its monitor call, as
+the bench scan runs it), times each pass of a probe tick alone, and
+profiles a window of `ticks` monitored ticks.  The `kernels` form runs
+the set-up and the kernel count only; it uses nothing but the serf/swim
+entry points, so it also counts an older tree's kernels when that tree's
+package comes first on PYTHONPATH.  Prints one JSON line; needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import serf, swim, vivaldi
 
 
-def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
+def _setup(n_nodes: int):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_tick needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -36,6 +43,53 @@ def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
     s, _ = serf.run(params, s, CHUNK, VICTIM)
     s = s.replace(swim=swim.kill(s.swim, VICTIM))
     torch.cuda.synchronize(dev)
+    return dev, params, s
+
+
+def _device_ops(prof) -> dict:
+    """{name: calls} of the device activities a profile recorded."""
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernels_per_tick(params, s, ticks: int = 10, subject: int = VICTIM):
+    """Device kernels of `ticks` gossip-only ticks and `ticks` probe ticks,
+    each tick (serf.step plus its monitor call) under its own profiler.
+    Returns (state, {kind: {"kernels": mean per tick, "device_ops": mean
+    per tick with copies and memsets, "names": {kernel: calls per tick}}})."""
+    dev = s.swim.device
+    period = params.swim.probe_period_ticks
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    seen = {"gossip": [], "probe": []}
+    while min(len(v) for v in seen.values()) < ticks:
+        kind = "probe" if s.swim.tick % period == 0 else "gossip"
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s = serf.step(params, s)
+            swim.believed_down_fraction(params.swim, s.swim, subject, out=out)
+            torch.cuda.synchronize(dev)
+        if len(seen[kind]) < ticks:
+            seen[kind].append(_device_ops(prof))
+    summary = {}
+    for kind, runs in seen.items():
+        totals: dict = {}
+        for ops in runs:
+            for name, calls in ops.items():
+                totals[name] = totals.get(name, 0) + calls
+        names = {name: calls / len(runs) for name, calls in totals.items()}
+        kern = {k: v for k, v in names.items()
+                if not k.startswith(("Memcpy", "Memset"))}
+        summary[kind] = {"kernels": sum(kern.values()),
+                         "device_ops": sum(names.values()),
+                         "ticks": len(runs),
+                         "names": dict(sorted(kern.items(),
+                                              key=lambda kv: -kv[1]))}
+    return s, summary
+
+
+def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
+    dev, params, s = _setup(n_nodes)
 
     # per-tick wall, each tick fenced (fencing removes the host/device
     # overlap, so these are upper bounds on a tick's cost in the scan)
@@ -51,6 +105,7 @@ def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
         walls[kind].append(time.perf_counter() - t0)
 
     passes = _pass_times(params, s, dev)
+    s, per_tick = kernels_per_tick(params, s)
 
     # unfenced window under the profiler: the scan as the bench runs it
     launches0 = dict(kernels.LAUNCHES)
@@ -80,6 +135,7 @@ def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_us / (window * 1e6)),
         "launches": launches,
         "pass_ms": passes,
+        "kernels_per_tick": per_tick,
         "top_device_time": [{"name": k[:120], **v} for k, v in top],
     }
     return out
@@ -124,6 +180,15 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     return times
 
 
+def count_main(n_nodes: int = 1_000_000) -> dict:
+    dev, params, s = _setup(n_nodes)
+    _, per_tick = kernels_per_tick(params, s)
+    return {"device": torch.cuda.get_device_name(dev), "n_nodes": n_nodes,
+            "kernels_per_tick": per_tick}
+
+
 if __name__ == "__main__":
-    args = [int(a) for a in sys.argv[1:]]
-    print(json.dumps(main(*args)))
+    if sys.argv[1:2] == ["kernels"]:
+        print(json.dumps(count_main(*[int(a) for a in sys.argv[2:]])))
+    else:
+        print(json.dumps(main(*[int(a) for a in sys.argv[1:]])))

@@ -116,7 +116,7 @@ def _u32(b: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int64) & M32
 
 
-def _unit_floats(b: torch.Tensor) -> torch.Tensor:
+def unit_floats(b: torch.Tensor) -> torch.Tensor:
     """jax's mantissa trick: (bits >> 9 | 0x3f800000) as float32, minus 1."""
     fb = (_u32(b) >> 9) | 0x3F800000
     return fb.to(torch.int32).view(torch.float32) - 1.0
@@ -131,7 +131,7 @@ def uniform(key, shape, device, minval: float = 0.0,
         kernels.launch_threefry(key, floats.numel(), 1, floats)
         floats = floats.reshape(shape)
     else:
-        floats = _unit_floats(bits(key, shape, device))
+        floats = unit_floats(bits(key, shape, device))
     if minval == 0.0 and maxval == 1.0:
         return floats           # u * 1 + 0, floored at 0, is u itself
     # bounds as float32 values held in Python floats: scalar operands, so no

@@ -2,6 +2,7 @@
 the CPU: bit-equal views, outputs and counters; and on the CPU the gossip
 pass takes its plain twin, so no kernel launch is counted."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,10 +48,11 @@ def test_sharded_path_is_not_ported():
         rolls.pull(torch.zeros(8), 1, blocks=2)
 
 
-@pytest.mark.parametrize("p_loss", (0.0, 0.05, 0.5))
-def test_disseminate_bit_equal(p_loss):
+@pytest.mark.parametrize("s", (32, 40))
+@pytest.mark.parametrize("p_loss", (0.0, 0.01, 0.05, 0.5))
+def test_disseminate_bit_equal(p_loss, s):
     rng = np.random.default_rng(11)
-    n, s, g = 301, 32, 3
+    n, g = 301, 3
     know = rng.random((n, s)) < 0.2
     sends = rng.integers(0, 6, size=(n, s)).astype(np.int8)
     sender_ok = rng.random(n) < 0.9
@@ -81,3 +83,39 @@ def test_disseminate_bit_equal(p_loss):
     assert float(got.delivered) > 0
     if p_loss > 0:
         assert float(got.lost) > 0
+
+
+def test_loss_mask_is_jax_bernoulli():
+    """The plain twin's loss mask (from the plain threefry hash, the bits
+    K2 draws itself) equals jax.random.bernoulli on the same key."""
+    key = jprng.tick_key(3, 21, 5)
+    kt = tuple(int(x) for x in np.asarray(key))
+    ref = np.asarray(jax.random.bernoulli(key, 1.0 - 0.3, (301, 3)))
+    np.testing.assert_array_equal(gossip.loss_mask(kt, 0.3, 301, 3, "cpu").numpy(),
+                                  ref)
+    assert gossip.loss_mask(kt, 0.0, 301, 3, "cpu") is None
+
+
+def test_disseminate_optional_outputs():
+    """newly only when asked; the stamp and the counter add match the
+    unfused steps on the same result."""
+    rng = np.random.default_rng(12)
+    n, s = 97, 16
+    know = torch.from_numpy(rng.random((n, s)) < 0.3)
+    sends = torch.from_numpy(rng.integers(0, 6, size=(n, s)).astype(np.int8))
+    ones = torch.ones(n, dtype=torch.bool)
+    args = (torch.tensor([5, 40, 90], dtype=torch.int32), know, sends, ones,
+            ones, torch.ones(s, dtype=torch.bool), 9)
+    learn = torch.from_numpy(rng.integers(-300, 300, size=(n, s)).astype(np.int16))
+    ctr = torch.arange(7, dtype=torch.float32)
+    full = gossip.disseminate(*args, p_loss=0.1, key=(1, 2))
+    fused = gossip.disseminate(*args, p_loss=0.1, key=(1, 2), learn_tick=learn,
+                               tick16=-7, ctr=ctr, want_newly=False)
+    assert fused.newly is None and full.learn_tick is None and full.ctr is None
+    assert torch.equal(fused.know, full.know)
+    assert torch.equal(fused.sends_left, full.sends_left)
+    assert torch.equal(fused.learn_tick, torch.where(full.newly, -7, learn))
+    want = ctr.clone()
+    want[4:] += torch.stack([full.delivered, full.served, full.lost])
+    assert torch.equal(fused.ctr, want)
+    assert float(full.delivered) > 0 and float(full.lost) > 0

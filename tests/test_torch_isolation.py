@@ -3,8 +3,10 @@ chip_smoke.py loads no JAX, no flax and nothing of the JAX package; its
 entry points never land on the CPU unasked; its kernel wrappers refuse
 bad tensors before anything is launched."""
 
+import ctypes
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -73,25 +75,149 @@ def test_entry_points_raise_without_a_card_or_a_device(monkeypatch):
     assert serf.init_state(params, device="cpu").swim.up.device.type == "cpu"
 
 
-def test_kernel_wrappers_reject_bad_tensors_before_launching():
-    before = dict(kernels.LAUNCHES)
-    n, s = 16, 8
+def _gossip_args(n=16, s=8, g=3):
     know = torch.zeros(n, s, dtype=torch.bool)
-    args = dict(know=know, sends_left=torch.zeros(n, s, dtype=torch.int16),
-                offsets=torch.tensor([1, 2, 3], dtype=torch.int32),
+    word = torch.int32 if s <= 32 else torch.int64
+    return dict(know=know, sends_left=torch.zeros(n, s, dtype=torch.int8),
+                offsets=torch.arange(1, g + 1, dtype=torch.int32),
                 sender_ok=torch.ones(n, dtype=torch.bool),
                 receiver_ok=torch.ones(n, dtype=torch.bool),
-                slot_active=torch.ones(s, dtype=torch.bool), ok=None,
-                limit=4, new_know=torch.empty_like(know),
+                slot_active=torch.ones(s, dtype=torch.bool), limit=4,
+                new_know=torch.empty_like(know),
                 new_sends=torch.empty(n, s, dtype=torch.int8),
-                newly=torch.empty_like(know),
-                counters=torch.empty(3, dtype=torch.float32))
+                kword=torch.empty(n, dtype=word),
+                qword=torch.empty(n, dtype=word),
+                counters=torch.empty(3, dtype=torch.float32),
+                key=(1, 2), p_ok=0.99,
+                learn_tick=torch.zeros(n, s, dtype=torch.int16),
+                new_learn=torch.empty(n, s, dtype=torch.int16), tick16=5,
+                newly=None, ctr=torch.zeros(7), ctr_out=torch.empty(7))
+
+
+def _monitor_args(n=16, u=8):
+    z = lambda *shape, dtype=torch.bool: torch.zeros(shape, dtype=dtype)  # noqa: E731
+    return dict(know=z(n, u), learn_tick=z(n, u, dtype=torch.int16),
+                up=z(n), member=z(n), r_active=z(u),
+                r_kind=z(u, dtype=torch.int8), r_subject=z(u, dtype=torch.int32),
+                r_inc=z(u, dtype=torch.int32), r_confirm=z(u, dtype=torch.int8),
+                timeouts=z(65, dtype=torch.int16), committed_dead=z(n),
+                committed_left=z(n), committed_inc=z(n, dtype=torch.int32),
+                bulk_member=z(n), bulk_cov=z(n, dtype=torch.float32),
+                subject=3, tick16=0, out=z(1, dtype=torch.float32))
+
+
+def test_kernel_wrappers_reject_bad_tensors_before_launching():
+    before = dict(kernels.LAUNCHES)
+    args = _gossip_args()
+    args["sends_left"] = torch.zeros(16, 8, dtype=torch.int16)
     with pytest.raises(ValueError, match="sends_left"):
         kernels.launch_gossip(**args)
-    args["sends_left"] = torch.zeros(n, s, dtype=torch.int8)
+    args = _gossip_args()
     args["offsets"] = torch.ones(17, dtype=torch.int32)
     with pytest.raises(ValueError, match="contacts"):
         kernels.launch_gossip(**args)
     with pytest.raises(ValueError, match="elements"):
         kernels.launch_threefry((0, 7), 10, 1, torch.empty(9))
     assert kernels.LAUNCHES == before      # a refused launch is not counted
+
+
+META = torch.device("meta")
+
+GOSSIP_BAD = {
+    # case: (the arguments' edit, the message it raises with)
+    "know dtype": (dict(know=torch.zeros(16, 8, dtype=torch.uint8)), "know"),
+    "offsets dtype": (dict(offsets=torch.arange(1, 4)), "offsets"),
+    "learn_tick dtype": (dict(learn_tick=torch.zeros(16, 8, dtype=torch.int32)),
+                         "learn_tick"),
+    "ctr dtype": (dict(ctr=torch.zeros(7, dtype=torch.float64)), "ctr"),
+    "receiver device": (dict(receiver_ok=torch.ones(16, dtype=torch.bool,
+                                                    device=META)), "receiver_ok"),
+    "new_sends device": (dict(new_sends=torch.empty(16, 8, dtype=torch.int8,
+                                                    device=META)), "new_sends"),
+    "sender shape": (dict(sender_ok=torch.ones(15, dtype=torch.bool)), "sender_ok"),
+    "slot_active shape": (dict(slot_active=torch.ones(9, dtype=torch.bool)),
+                          "slot_active"),
+    "newly shape": (dict(newly=torch.empty(16, 9, dtype=torch.bool)), "newly"),
+    "word width": (dict(kword=torch.empty(16, dtype=torch.int64)), "kword"),
+    "not contiguous": (dict(know=torch.zeros(8, 16, dtype=torch.bool).t()), "know"),
+    "learn without output": (dict(new_learn=None), "learn_tick"),
+    "ctr without output": (dict(ctr_out=None), "ctr"),
+    "ctr too short": (dict(ctr=torch.zeros(2), ctr_out=torch.empty(2)),
+                      "at least 3"),
+    "limit": (dict(limit=200), "limit"),
+    "G > 16": (dict(offsets=torch.ones(17, dtype=torch.int32)), "contacts"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GOSSIP_BAD))
+def test_gossip_wrapper_rejects(case):
+    edit, match = GOSSIP_BAD[case]
+    args = _gossip_args()
+    args.update(edit)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        kernels.launch_gossip(**args)
+    assert kernels.LAUNCHES == before
+
+
+def test_gossip_wrapper_rejects_more_than_64_slots():
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="slots"):
+        kernels.launch_gossip(**_gossip_args(s=65))
+    assert kernels.LAUNCHES == before
+
+
+MONITOR_BAD = {
+    "missing timeout table": (dict(timeouts=None), "timeout table"),
+    "timeout table dtype": (dict(timeouts=torch.zeros(65, dtype=torch.int32)),
+                            "timeout table"),
+    "timeout table length": (dict(timeouts=torch.zeros(64, dtype=torch.int16)),
+                             "timeout table"),
+    "r_kind dtype": (dict(r_kind=torch.zeros(8, dtype=torch.int32)), "r_kind"),
+    "r_confirm shape": (dict(r_confirm=torch.zeros(9, dtype=torch.int8)),
+                        "r_confirm"),
+    "learn_tick device": (dict(learn_tick=torch.zeros(16, 8, dtype=torch.int16,
+                                                      device=META)), "learn_tick"),
+    "bulk_cov dtype": (dict(bulk_cov=torch.zeros(16)[None].double()[0]),
+                       "bulk_cov"),
+    "out shape": (dict(out=torch.empty(2)), "out"),
+    "subject": (dict(subject=16), "subject"),
+    "U > 64": (dict(know=torch.zeros(16, 65, dtype=torch.bool)), "slots"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MONITOR_BAD))
+def test_monitor_wrapper_rejects(case):
+    edit, match = MONITOR_BAD[case]
+    args = _monitor_args()
+    args.update(edit)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        kernels.launch_believed_down(**args)
+    assert kernels.LAUNCHES == before
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "int64_t": ctypes.c_int64, "uint32_t": ctypes.c_uint32,
+            "float": ctypes.c_float}
+
+
+def _c_entry_points():
+    """{name: [ctypes type per argument]} of every extern "C" function in
+    the kernel sources."""
+    found = {}
+    for src in (Path(kernels.__file__).parent / "csrc").glob("*.cu"):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            types = []
+            for arg in m.group(2).split(","):
+                words = arg.replace("const ", "").replace("*", "* ").split()
+                types.append(_C_TYPES["".join(words[:-1])])
+            found[m.group(1)] = types
+    return found
+
+
+def test_ctypes_signatures_match_the_kernel_sources():
+    """Each bound entry point's ctypes argument list has the C function's
+    arity and, position by position, its pointer/integer/float kind."""
+    assert _c_entry_points() == kernels.SIGNATURES

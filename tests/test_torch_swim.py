@@ -9,6 +9,7 @@ mass kill drives the bulk death channel; a `swim.run` trajectory over
 200 ticks after a kill compares every 20 ticks.  Config and params parity close the file.
 """
 
+import dataclasses
 import functools
 import math
 
@@ -22,7 +23,7 @@ from torch_parity import assert_leaves, jax_dict
 
 from consul_tpu import config as jconfig
 from consul_tpu.models import swim as jswim
-from consul_tpu_torch import config, convert
+from consul_tpu_torch import config, convert, kernels
 from consul_tpu_torch.models import swim
 
 STATES = {
@@ -45,10 +46,11 @@ _run = jax.jit(jswim.run, static_argnums=(0, 2, 3))
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(name):
-    """(jax params, port params, jax state at the named tick)."""
+def _reference(name, u=16):
+    """(jax params, port params, jax state at the named tick) for a
+    u-slot rumor table."""
     p_loss, seed, tick = STATES[name]
-    jp, tp = _params(p_loss=p_loss, seed=seed)
+    jp, tp = _params(u=u, p_loss=p_loss, seed=seed)
     s = jswim.init_state(jp)
     s, _ = _run(jp, s, 10)
     s = jswim.kill(jswim.kill(s, 9), 77)
@@ -222,6 +224,123 @@ def test_refutation_expire_disseminate(name):
         swim.metrics_vector(tp, ts).numpy().view(np.int32),
         np.asarray(jswim.metrics_vector(jp, js)).view(np.int32))
     _assert_state(jswim.kill(js, 200), swim.kill(ts, 200), where="kill: ")
+
+
+@pytest.mark.parametrize("u", (16, 40))
+@pytest.mark.parametrize("p_loss", (0.0, 0.01, 0.5))
+@pytest.mark.parametrize("name", sorted(STATES))
+def test_disseminate_stamp_and_counters(name, p_loss, u):
+    """K2's plain path with the loss draw from (key, threshold), the
+    learn-tick stamp and the counter add: every leaf bit-equal to JAX
+    `_disseminate`, the float32 ctr included.  The reference states are
+    quiet by their tick (every budget spent), so half of each active
+    slot's holders forget it and the rest get a full budget back: the
+    pass then learns, serves and (with loss) loses cells."""
+    jp, tp, js = _reference(name, u)
+    jp = dataclasses.replace(jp, p_loss=p_loss)
+    tp = dataclasses.replace(tp, p_loss=p_loss)
+    d = jax_dict(js)
+    rng = np.random.default_rng(23)
+    know = d["know"] & (rng.random(d["know"].shape) < 0.5)
+    d["know"] = know
+    d["sends_left"] = np.where(know, jp.retransmit_limit, 0).astype(np.int8)
+    js = js.replace(know=jnp.asarray(know),
+                    sends_left=jnp.asarray(d["sends_left"]))
+    ts = convert.swim_state_from_numpy(d, device="cpu")
+    kernels.reset_launches()
+    ja, ta = jswim._disseminate(jp, js), swim._disseminate(tp, ts)
+    assert kernels.LAUNCHES == {k: 0 for k in kernels.KERNELS}
+    _assert_state(ja, ta, where=f"p_loss {p_loss}, {u} slots: ", rtol=0)
+    moved = (ta.ctr - ts.ctr).numpy()
+    delivered, served, lost = moved[swim.CTR_GOSSIP_DELIVERED:][:3]
+    assert delivered > 0 and served > 0
+    assert (lost > 0) == (p_loss > 0)
+    fresh = ta.learn_tick.numpy() != ts.learn_tick.numpy()
+    assert fresh.sum() == delivered
+    assert (ta.learn_tick.numpy()[fresh] == swim._t16(ts.tick)).all()
+
+
+# ---------------------------------------------------------------------------
+# the convergence monitor on crafted rumor tables
+# ---------------------------------------------------------------------------
+
+SUBJECT = 9
+
+
+def _crafted(case):
+    """A JAX state and its port twin with the rumor table about SUBJECT
+    rewritten for one monitor case (from the "suspect" reference)."""
+    jp, tp, js = _reference("suspect")
+    d = jax_dict(js)
+    n, u = d["know"].shape
+    rng = np.random.default_rng(17)
+    tick = int(d["tick"])
+    # no rumor names the subject unless the case adds one
+    d["r_subject"] = np.where(d["r_subject"] == SUBJECT, 200,
+                              d["r_subject"]).astype(np.int32)
+    d["committed_dead"] = d["committed_dead"].copy()
+    d["committed_inc"] = d["committed_inc"].copy()
+    d["bulk_member"] = d["bulk_member"].copy()
+    d["bulk_cov"] = d["bulk_cov"].copy()
+
+    def rumor(slot, kind, inc, holders, age):
+        d["r_active"][slot] = True
+        d["r_kind"][slot] = kind
+        d["r_subject"][slot] = SUBJECT
+        d["r_inc"][slot] = inc
+        d["r_confirm"][slot] = 1
+        d["know"][:, slot] = holders
+        d["learn_tick"][:, slot] = np.asarray(
+            swim._t16(tick) - age, np.int64).astype(np.int16)
+
+    for k in ("r_active", "r_kind", "r_inc", "r_confirm", "know",
+              "learn_tick"):
+        d[k] = d[k].copy()
+    half = rng.random(n) < 0.5
+    old = np.where(rng.random(n) < 0.5, 500, 3)   # expired / fresh suspicion
+    if case == "committed":
+        d["committed_dead"][SUBJECT] = True
+    elif case == "dead_rumor":
+        rumor(0, jswim.DEAD, 0, rng.random(n) < 0.3, 0)
+    elif case == "expired_unrefuted":
+        rumor(0, jswim.SUSPECT, 0, half, old)
+    elif case == "refuted_by_alive":
+        rumor(0, jswim.SUSPECT, 0, half, old)
+        rumor(1, jswim.ALIVE, 1, rng.random(n) < 0.5, 0)
+    elif case == "refuted_by_committed_inc":
+        rumor(0, jswim.SUSPECT, 0, half, old)
+        d["committed_inc"][SUBJECT] = 1
+    elif case == "bulk_floor":
+        d["bulk_member"][SUBJECT] = True
+        d["bulk_cov"][SUBJECT] = np.float32(0.7)
+    else:
+        raise ValueError(case)
+    js = js.replace(**{k: jnp.asarray(v) for k, v in d.items() if k != "tick"})
+    return jp, tp, js, convert.swim_state_from_numpy(d, device="cpu")
+
+
+@pytest.mark.parametrize("case", ("committed", "dead_rumor",
+                                  "expired_unrefuted", "refuted_by_alive",
+                                  "refuted_by_committed_inc", "bulk_floor"))
+def test_believed_down_crafted_tables(case):
+    """K3's plain twin, from the raw rumor-table leaves, bit-equal to JAX
+    `believed_down_fraction` on each case, with the case's effect."""
+    jp, tp, js, ts = _crafted(case)
+    a = np.asarray(jswim.believed_down_fraction(jp, js, SUBJECT))
+    kernels.reset_launches()
+    b = swim.believed_down_fraction(tp, ts, SUBJECT).numpy()
+    c = swim.believed_down_fraction_plain(tp, ts, SUBJECT).numpy()
+    assert kernels.LAUNCHES == {k: 0 for k in kernels.KERNELS}
+    assert a.dtype == b.dtype == c.dtype == np.float32
+    assert a.view(np.int32) == b.view(np.int32) == c.view(np.int32)
+    frac = float(b)
+    expect = {"committed": lambda f: f == 1.0,
+              "dead_rumor": lambda f: 0.2 < f < 0.4,
+              "expired_unrefuted": lambda f: 0.15 < f < 0.35,
+              "refuted_by_alive": lambda f: 0.05 < f < 0.2,
+              "refuted_by_committed_inc": lambda f: f == 0.0,
+              "bulk_floor": lambda f: f == float(np.float32(0.7))}[case]
+    assert expect(frac), (case, frac)
 
 
 @pytest.mark.parametrize("name", sorted(STATES))
