@@ -5,30 +5,39 @@
 
 Phases, each of which raises on failure (so the script exits non-zero):
 
-  1. build: the card's name and power limit, torch/CUDA versions, and
-     the kernels built from consul_tpu_torch/kernels/csrc (timed);
+  1. build: the card's name and power limit, torch/CUDA versions, the
+     kernels built from consul_tpu_torch/kernels/csrc (timed), and the
+     SASS census of K1: threefry.cu compiled once per mode and its
+     instructions counted (`cuobjdump -sass`), the operation count of
+     each mode's bound;
   2. main path: the north-star pipeline — a 1M-node serf pool, warm
      scan, kill, timed scans with the per-tick convergence monitor — run
      through `consul_tpu_torch.bench.run_convergence` with every kernel's
      launch count zeroed just before and read just after.  It must
-     converge with F1 1.0, no false commits, every kernel launched, and
+     converge with F1 1.0, no false commits, every kernel (and each of
+     K1's uniform, exponential, normal and randint modes) launched, and
      in the JAX package's tick count for the same seed (measured with
      reference_ticks.py, recorded below);
   3. host syncs per tick (sync debug mode) and device kernels per
      gossip-only and per probe tick (torch.profiler, 10 ticks of each,
-     from the main path's final state);
+     from the main path's final state): a gossip-only tick draws exactly
+     one K1 batch and runs no int64 elementwise kernel, a probe tick
+     draws exactly three;
   4. kernels: each kernel against its plain PyTorch twin on the card,
-     bit-equal, at the main path's shapes (N=1M, S=U=32, G=3) at two
-     states of the 1M run — mid-convergence (the first tick whose
-     believed-down fraction passes 0.5, replayed from the seed) and the
-     final state — and on random inputs (including a 40-slot table,
-     which takes the 64-bit word path).  K2 is held for both callers:
-     swim (learn-tick stamp and counters fused) and events (`newly`,
-     after firing an event at the final state).  At both states it times
-     each kernel's device time per call (CUDA events with the host's
+     bit-equal, at the main path's shapes (N=1M, S=U=32, G=3).  K1 mode
+     by mode ([N, 3] uniform and bits, [N] exponential, [N, 8] normal —
+     which must be one device kernel —, [3] and [4] randint) and the
+     probe round's seven draws in one launch, equal to each drawn alone.
+     K2 and K3 at two states of the 1M run — mid-convergence (the first
+     tick whose believed-down fraction passes 0.5, replayed from the
+     seed) and the final state — and on random inputs (including a
+     40-slot table, which takes the 64-bit word path).  K2 is held for
+     both callers: swim (learn-tick stamp and counters fused) and events
+     (`newly`, after firing an event at the final state).  It times each
+     kernel's device time per call (CUDA events with the host's
      dispatch hidden behind a device-side sleep, inputs evicted from L2;
      K2's two phases apart from torch.profiler's kernel records), each
-     wrapper call and each plain twin (median of 20 CUDA-event-timed
+     wrapper call and each plain twin (median of CUDA-event-timed
      calls, host dispatch included), and the least time the card could
      take for the same work.
 
@@ -40,7 +49,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -50,6 +58,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from consul_tpu_torch import bench, kernels, profile_tick
+from consul_tpu_torch.profile_tick import kernel_ms, median_ms
 from consul_tpu_torch.kernels import build
 from consul_tpu_torch.models import events, serf, swim
 from consul_tpu_torch.ops import gossip, rolls
@@ -69,30 +78,13 @@ REFERENCE_TICKS = 136
 # pipe's own 16.75e12/s allows, so that rate is no floor.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
-# threefry2x32 per element: 20 rounds of add/rotate/xor (60), 5 key
-# injections (15), counter split, key schedule, xor fold and the uniform
-# mantissa trick (~10)
-THREEFRY_OPS_PER_ELEMENT = 85
+# SASS instructions per element of each K1 mode, counted in this run
+# (draw_census); K2's loss draw costs what K1's uniform does
+SASS_PER_ELEMENT: dict = {}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
 
 
 def card_line() -> str:
@@ -113,6 +105,7 @@ def main_path(dev) -> dict:
     syncs0 = swim.host_syncs
     r = bench.run_convergence(n_nodes=N, device=dev)
     launches = dict(kernels.LAUNCHES)
+    draw_launches = dict(kernels.DRAW_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     ticks_run = r["state"].swim.tick
     log(f"main path: converged={r['converged']} ticks={r['ticks']} "
@@ -123,7 +116,8 @@ def main_path(dev) -> dict:
         f"{r['host_syncs'] / r['timed_ticks_run']} (all {ticks_run} ticks: "
         f"{(swim.host_syncs - syncs0) / ticks_run} flag syncs per tick) "
         f"peak_mem_bytes={peak}")
-    log(f"main path: launches={launches} (timed window: {r['launches']})")
+    log(f"main path: launches={launches} (timed window: {r['launches']}); "
+        f"K1 launches carrying each mode: {draw_launches}")
     log("main path: sim_counters=" + json.dumps(r["sim_counters"]))
     log(f"main path: JAX reference ticks={REFERENCE_TICKS} port ticks="
         f"{r['ticks']}")
@@ -134,7 +128,11 @@ def main_path(dev) -> dict:
     require(r["false_commits"] == 0, f"false commits {r['false_commits']}")
     for name in kernels.KERNELS:
         require(launches[name] > 0, f"{name} never launched on the main path")
+    for mode in ("uniform", "exponential", "normal", "randint"):
+        require(draw_launches[mode] > 0,
+                f"K1 {mode} never launched on the main path")
     r["all_launches"] = launches
+    r["draw_launches"] = draw_launches
     r["peak_mem_bytes"] = peak
     return r
 
@@ -166,39 +164,6 @@ def count_syncs(params, state, ticks: int = 10) -> dict:
     return per_tick
 
 
-_FLUSH: list = []
-
-
-def _flush() -> torch.Tensor:
-    if not _FLUSH:
-        _FLUSH.append(torch.zeros(96 << 20, dtype=torch.uint8, device="cuda"))
-    return _FLUSH[0]
-
-
-def kernel_ms(fn, reps: int = 20) -> float:
-    """Median device ms of one call of fn with its host dispatch hidden:
-    the stream sleeps (~1 ms) while the host enqueues a 96 MB read that
-    evicts the inputs from the 50 MB L2 (as the tick's earlier passes do,
-    with no dirty lines left to write back) and the call between two CUDA
-    events."""
-    flush = _flush()
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(2_000_000)
-        flush.max()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
 def device_ms(fn, names, reps: int = 20, tries: int = 3) -> dict:
     """Mean device ms per launch of each named kernel over `reps` calls of
     fn, from torch.profiler's kernel records: the kernel's own time,
@@ -207,7 +172,7 @@ def device_ms(fn, names, reps: int = 20, tries: int = 3) -> dict:
     kernel_ms before each call.  A profile whose records miss a named
     kernel is taken again (up to `tries` profiles); the kernel ran either
     way."""
-    flush = _flush()
+    flush = profile_tick._flush()
     for _ in range(3):
         fn()
     for attempt in range(tries):
@@ -235,40 +200,127 @@ def device_ms(fn, names, reps: int = 20, tries: int = 3) -> dict:
                          f"{tries} profiles")
 
 
-def check_threefry(dev, launches: int) -> dict:
-    key = prng.tick_key(7, 12345, 5)
-    shape = (N, 3)
-    n = N * 3
-    got = prng.bits(key, shape, dev)
-    want = prng.threefry_bits_plain(key, n, dev).reshape(shape)
-    require(torch.equal(got, want), "threefry_bits (bits) != plain")
-    u_got = prng.uniform(key, shape, dev)
-    u_want = torch.clamp_min(prng.unit_floats(want), 0.0)
-    require(torch.equal(u_got.view(torch.int32), u_want.view(torch.int32)),
-            "threefry_bits (uniform) != plain")
-    big = (N, 8)                      # the Vivaldi normal draw of a probe tick
-    require(torch.equal(prng.bits(key, big, dev),
-                        prng.threefry_bits_plain(key, N * 8, dev).reshape(big)),
-            "threefry_bits [N, 8] != plain")
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    call_ms = median_ms(lambda: kernels.launch_threefry(key, n, 1, out))
-    ms = kernel_ms(lambda: kernels.launch_threefry(key, n, 1, out))
-    plain_ms = median_ms(lambda: prng.unit_floats(
-        prng.threefry_bits_plain(key, n, dev)))
+# K1's draws on the main path at N = 1M: (mode, the draw, the JAX draw it
+# replaces).  randint [3] is every tick's gossip offsets, [4] the probe
+# round's; [N, 3] the probe round's relay legs; [N] its RTT jitter; [N, 8]
+# observe_ring's spring directions.
+K1_KEY = prng.tick_key(7, 12345, 5)
+K1_DRAWS = (
+    ("uniform", prng.Draw("uniform", K1_KEY, (N, 3)),
+     "consul_tpu/models/swim.py:776"),
+    ("exponential", prng.Draw("exponential", K1_KEY, (N,)),
+     "consul_tpu/models/swim.py:757"),
+    ("normal", prng.Draw("normal", K1_KEY, (N, 8)),
+     "consul_tpu/models/vivaldi.py:184"),
+    ("randint", prng.Draw("randint", K1_KEY, (3,), 1, N),
+     "consul_tpu/ops/rolls.py:27"),
+    ("randint", prng.Draw("randint", K1_KEY, (4,), 1, N),
+     "consul_tpu/ops/rolls.py:27"),
+    ("bits", prng.Draw("bits", K1_KEY, (N, 3)), "consul_tpu/utils/prng.py:14"),
+)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance between the int32 views of a and b: units in the
+    last place for float32 (of one sign), the difference for int32."""
+    ia = a.view(torch.int32).to(torch.int64)
+    ib = b.view(torch.int32).to(torch.int64)
+    return int((ia - ib).abs().max())
+
+
+def _draw_bound(draws, per_element: dict) -> tuple:
+    """Least ms of K1 for these draws: the larger of the bytes written
+    over the HBM rate and the SASS instructions over the lane rate."""
+    n = sum(int(torch.Size(d.shape).numel()) for d in draws)
+    ops = sum(per_element[d.kind] * torch.Size(d.shape).numel() for d in draws)
     bytes_ = 4 * n
-    ops = THREEFRY_OPS_PER_ELEMENT * n
-    bound = max(bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1000.0
-    return {"name": "threefry_bits", "route": "cuda",
-            "source": "consul_tpu_torch/kernels/csrc/threefry.cu",
-            "replaces": "consul_tpu/utils/prng.py:14",
-            "launches": launches,
-            "max_abs_err": float((u_got - u_want).abs().max()),
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "operations" if ops / INT32_OPS_PER_S
-            > bytes_ / HBM_BYTES_PER_S else "bytes",
-            "library_ms": None,
-            "shape": list(shape), "mode": "uniform float32"}
+    by_ops = ops / INT32_OPS_PER_S > bytes_ / HBM_BYTES_PER_S
+    return (max(bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1000.0,
+            "operations" if by_ops else "bytes")
+
+
+def check_draws(dev, params, tick: int, per_element: dict,
+                launches: dict) -> tuple:
+    """K1 against its plain twin on the card, mode by mode at the main
+    path's shapes and for the probe round's draws at `tick` (one launch);
+    times and bounds.  Returns (the kernels-line entries, the record)."""
+    timed = {}
+    for mode, d, _ in K1_DRAWS:
+        got = prng.draw([d], dev)[0]
+        want = prng.draw_plain([d], dev)[0]
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"K1 {mode} {d.shape}: {got.dtype} {tuple(got.shape)}")
+        ulp = _ulps(got, want)
+        require(ulp == 0, f"K1 {mode} {d.shape} != plain: {ulp} ulp apart")
+        err = float((got.double() - want.double()).abs().max())
+        segs = prng.draw_segments([d], dev)[1]
+        bound, by = _draw_bound([d], per_element)
+        t = {"max_ulp": ulp, "max_abs_err": err,
+             "ms": kernel_ms(lambda: kernels.launch_draws(segs)),
+             "profiler_ms": device_ms(lambda: kernels.launch_draws(segs),
+                                      ("threefry_draws_kernel",))[
+                                          "threefry_draws_kernel"],
+             "call_ms": median_ms(lambda: prng.draw([d], dev)),
+             "plain_ms": median_ms(lambda: prng.draw_plain([d], dev), reps=5),
+             "bound_ms": bound, "bound_by": by,
+             "sass_per_element": per_element[mode]}
+        t["share"] = t["bound_ms"] / t["ms"]
+        key = f"{mode} {list(d.shape)}"
+        timed[key] = t
+        log(f"K1 {key}: " + json.dumps(t))
+    # the probe round's draws: one launch equals the draws made alone
+    draws = list(swim._probe_draws(params, tick).values())
+    together = prng.draw(draws, dev)
+    for d, t in zip(draws, together):
+        alone = prng.draw([d], dev)[0]
+        plain = prng.draw_plain([d], dev)[0]
+        require(torch.equal(t.view(torch.int32), alone.view(torch.int32)),
+                f"K1 multi-segment {d.kind} {d.shape} != its draw alone")
+        require(torch.equal(t.view(torch.int32), plain.view(torch.int32)),
+                f"K1 multi-segment {d.kind} {d.shape} != plain")
+    segs = prng.draw_segments(draws, dev)[1]
+    alone = [prng.draw_segments([d], dev)[1] for d in draws]
+    bound, by = _draw_bound(draws, per_element)
+    multi = {"segments": len(draws), "elements": sum(
+        int(torch.Size(d.shape).numel()) for d in draws),
+        "ms": kernel_ms(lambda: kernels.launch_draws(segs)),
+        "separate_launches_ms": kernel_ms(
+            lambda: [kernels.launch_draws(s) for s in alone]),
+        "call_ms": median_ms(lambda: prng.draw(draws, dev)),
+        "plain_ms": median_ms(lambda: prng.draw_plain(draws, dev), reps=5),
+        "bound_ms": bound, "bound_by": by}
+    multi["share"] = multi["bound_ms"] / multi["ms"]
+    log("K1 probe-round draws, one launch: " + json.dumps(multi))
+    # observe_ring's normal is one K1 launch (the wrapper's count) and no
+    # other device kernel (the profiler's records)
+    normal = profile_tick.kernels_of(lambda: prng.normal(K1_KEY, (N, 8), dev))
+    k1_before = kernels.LAUNCHES["threefry_draws"]
+    prng.normal(K1_KEY, (N, 8), dev)
+    k1 = kernels.LAUNCHES["threefry_draws"] - k1_before
+    log(f"K1 normal [N, 8]: {k1} K1 launch, device kernels {normal}")
+    require(k1 == 1 and all("threefry_draws_kernel" in k for k in normal),
+            f"normal [N, 8] is not one K1 launch: {k1} launches, {normal}")
+    entries = []
+    for mode, d, replaces in K1_DRAWS:
+        if mode == "bits" or (mode == "randint" and d.shape != (3,)):
+            continue        # bits is not on the main path; randint [4] below
+        t = timed[f"{mode} {list(d.shape)}"]
+        e = {"name": f"threefry_draws.{mode}", "route": "cuda",
+             "source": "consul_tpu_torch/kernels/csrc/threefry.cu",
+             "replaces": replaces, "launches": launches[mode],
+             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": None,
+             "call_ms": t["call_ms"], "share": t["share"],
+             "profiler_ms": t["profiler_ms"],
+             "max_ulp": t["max_ulp"],
+             "sass_per_element": t["sass_per_element"],
+             "shape": list(d.shape)}
+        if mode == "randint":
+            e["shape_4"] = timed["randint [4]"]
+        entries.append(e)
+    return entries, {"draws": timed, "probe_round_one_launch": multi,
+                     "normal_kernels": normal}
 
 
 def _swim_gossip_call(params, s) -> dict:
@@ -342,7 +394,7 @@ def _gossip_bounds(call: dict) -> dict:
     contacts = sum(int((v > 0).sum()) for v in rolls.pull_multi(cells,
                                                                 call["offs"]))
     draws = contacts if call.get("key") is not None and call["p_loss"] > 0 else 0
-    ops = THREEFRY_OPS_PER_ELEMENT * draws
+    ops = SASS_PER_ELEMENT["uniform"] * draws
     out_newly = s if want_newly else 0
     fn_bytes = n * (2 * row + out_newly) + 2 * n + 4 * g + s
     pack_bytes = n * (2 * s + 1 + 2 * word)         # know, sends, flag; words
@@ -531,13 +583,36 @@ def check_kernels_per_tick(params, state) -> dict:
             f"{k['device_ops']} device ops (torch.profiler, {k['ticks']} ticks)")
     names = per_tick["gossip"]["names"]
     log("gossip-only tick kernels: " + json.dumps(names))
-    draws = sum(v for k, v in names.items() if "threefry_bits_kernel" in k)
-    require(draws == 2, f"gossip-only tick draws {draws} threefry batches, "
-            f"want 2 (the offsets' randint; the loss draw is K2's)")
+    draws = per_tick["gossip"]["launches"]["threefry_draws"]
+    require(draws == 1, f"gossip-only tick draws {draws} K1 batches, want 1 "
+            f"(the offsets' randint; the loss draw is K2's)")
+    int64_ops = [k for k in names if "elementwise" in k and "long" in k]
+    require(not int64_ops, f"int64 elementwise kernels on a gossip-only "
+            f"tick: {int64_ops}")
     for kern in ("gossip_pack_kernel", "gossip_exchange_kernel",
                  "believed_down_kernel"):
         require(any(kern in k for k in names), f"{kern} not on a gossip tick")
+    probe = per_tick["probe"]["launches"]["threefry_draws"]
+    log(f"K1 batches per tick (the wrapper's count): gossip-only {draws}, "
+        f"probe {probe}")
+    require(probe == 3, f"probe tick draws {probe} K1 batches, want 3 (the "
+            f"gossip offsets, _probe_round's draws, observe_ring's normal)")
     return per_tick
+
+
+def draw_census() -> dict:
+    """SASS instructions per element of each K1 mode: threefry.cu compiled
+    for the mode alone (build.sass_census), its body's instructions over
+    the elements a thread computes."""
+    t0 = time.perf_counter()
+    counts = build.sass_census("threefry.cu", "THREEFRY_CENSUS_MODE",
+                               range(len(kernels.DRAW_MODES)),
+                               "threefry_draws_kernel")
+    per = {mode: counts[i] / kernels.DRAW_ELEMENTS_PER_THREAD
+           for i, mode in enumerate(kernels.DRAW_MODES)}
+    log(f"K1 SASS census ({time.perf_counter() - t0:.1f} s): instructions "
+        f"per thread {counts}, per element {per}")
+    return per
 
 
 def main() -> int:
@@ -559,6 +634,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
 
+    SASS_PER_ELEMENT.update(draw_census())
     r = main_path(dev)
 
     syncs = count_syncs(r["params"], r["state"])
@@ -566,10 +642,12 @@ def main() -> int:
     params = r["params"]
     states = {"mid": mid_state(r).swim, "final": r["state"].swim}
     launches = r["all_launches"]
+    k1, k1_record = check_draws(dev, params.swim, r["state"].swim.tick,
+                                SASS_PER_ELEMENT, r["draw_launches"])
     k2, k2_states = check_gossip(dev, params, states,
                                  events_call_after_fire(params, r["state"]),
                                  launches)
-    results = [check_threefry(dev, launches["threefry_bits"]), *k2,
+    results = [*k1, *k2,
                check_monitor(dev, params.swim, states, bench.VICTIM,
                              launches["believed_down"])]
     for k in results:
@@ -580,12 +658,14 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": results,
               "kernels_per_tick": per_tick, "gossip_states": k2_states,
+              "k1": k1_record, "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],
                             "timed_ticks_run": r["timed_ticks_run"],
                             "host_syncs": r["host_syncs"],
                             "syncs_per_tick": syncs,
                             "peak_mem_bytes": r["peak_mem_bytes"],
                             "launches": r["all_launches"],
+                            "draw_launches": r["draw_launches"],
                             "sim_counters": r["sim_counters"]}}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

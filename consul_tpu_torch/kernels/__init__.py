@@ -13,15 +13,22 @@ twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 
 from consul_tpu_torch.kernels import build
 
-KERNELS = ("threefry_bits", "gossip_pack", "gossip_exchange",
+KERNELS = ("threefry_draws", "gossip_pack", "gossip_exchange",
            "believed_down")
 LAUNCHES = {name: 0 for name in KERNELS}
+# K1's modes, in the order of threefry.cu's Mode, and the launches of K1
+# that carried a segment of each
+DRAW_MODES = ("bits", "uniform", "exponential", "normal", "randint")
+DRAW_LAUNCHES = {mode: 0 for mode in DRAW_MODES}
+MAX_SEGMENTS = 8
+DRAW_ELEMENTS_PER_THREAD = 4      # threefry.cu's kPer
 
 _lib = None
 # per-(device, kernel) counter scratch: one u64 block count, then each
@@ -40,12 +47,14 @@ _F32 = ctypes.c_float
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for mode in DRAW_MODES:
+        DRAW_LAUNCHES[mode] = 0
 
 
 # ctypes argument types of each extern "C" entry point of csrc/*.cu, in
 # order (tests/test_torch_isolation.py holds them to the sources)
 SIGNATURES = {
-    "threefry_bits": [_U32, _U32, _I64, _I, _P, _P],
+    "threefry_draws": [_P, _I, _P],
     "gossip_pack": [_P, _P, _P, _I64, _I, _I, _P, _P, _P],
     "gossip_exchange": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _I, _U32,
                         _U32, _I, _F32, _I, _I, _P, _P, _P, _P, _P, _I, _P,
@@ -101,20 +110,81 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def launch_threefry(key, n: int, mode: int, out: torch.Tensor) -> None:
-    """out[i] = threefry2x32(key, (i>>32, i&M)) xor-folded (mode 0, int32
-    bit pattern), or jax's uniform float32 of those bits (mode 1)."""
-    want = torch.int32 if mode == 0 else torch.float32
-    _require(out, "threefry_bits out", want, out.device)
-    if out.numel() != n:
-        raise ValueError(f"threefry_bits: out has {out.numel()} elements, "
-                         f"want {n}")
-    rc = library().threefry_bits(key[0], key[1], n, mode, out.data_ptr(),
-                                 _stream(out.device))
-    _check(rc, "threefry_bits")
-    LAUNCHES["threefry_bits"] += 1
+class DrawSpec(ctypes.Structure):
+    """One segment of a K1 launch, laid out as threefry.cu's DrawSpec
+    (tests/test_torch_isolation.py holds the fields to the source)."""
+
+    _fields_ = [("out", _P), ("n", _I64), ("sched", _U32 * 16),
+                ("mode", ctypes.c_int32), ("lo", _F32), ("span", _F32),
+                ("minval", _U32), ("range", _U32), ("mult", _U32)]
 
 
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """One draw of a K1 launch: `mode` (a DRAW_MODES name) from `keys` (one
+    key, two for randint: split(key)'s pair) into the n elements of the
+    contiguous `out` (int32 for bits and randint, float32 otherwise).
+    uniform and normal scale the unit float as max(lo, u * span + lo);
+    randint adds minval to ((hi % range) * mult + lo % range) % range."""
+
+    mode: str
+    keys: tuple
+    out: torch.Tensor
+    n: int
+    lo: float = 0.0
+    span: float = 1.0
+    minval: int = 0
+    range: int = 1
+    mult: int = 0
+
+
+def _schedule(key) -> list:
+    """threefry2x32's key schedule of key (common.cuh:threefry_key)."""
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    return [(w + c) & 0xFFFFFFFF for w, c in
+            ((k0, 0), (k1, 0), (k2, 0), (k2, 1), (k0, 2), (k1, 3), (k2, 4),
+             (k0, 5))]
+
+
+def _spec(i: int, seg: Segment, device) -> DrawSpec:
+    name = f"threefry_draws segment {i}"
+    if seg.mode not in DRAW_MODES:
+        raise ValueError(f"{name}: mode {seg.mode!r}, want one of {DRAW_MODES}")
+    want = torch.int32 if seg.mode in ("bits", "randint") else torch.float32
+    _require(seg.out, f"{name} out", want, device)
+    if not 1 <= seg.n < 2 ** 40 or seg.out.numel() != seg.n:
+        raise ValueError(f"{name}: out has {seg.out.numel()} elements, want "
+                         f"n={seg.n} (at least 1)")
+    if len(seg.keys) != (2 if seg.mode == "randint" else 1):
+        raise ValueError(f"{name}: {seg.mode} takes "
+                         f"{2 if seg.mode == 'randint' else 1} keys, got "
+                         f"{len(seg.keys)}")
+    if seg.mode == "randint" and not 1 <= seg.range < 2 ** 32:
+        raise ValueError(f"{name}: randint range {seg.range} outside "
+                         f"[1, 2^32)")
+    sched = _schedule(seg.keys[0]) + (_schedule(seg.keys[1])
+                                      if len(seg.keys) == 2 else [0] * 8)
+    return DrawSpec(seg.out.data_ptr(), seg.n, (_U32 * 16)(*sched),
+                    DRAW_MODES.index(seg.mode), seg.lo, seg.span,
+                    seg.minval & 0xFFFFFFFF, seg.range, seg.mult & 0xFFFFFFFF)
+
+
+def launch_draws(segments) -> None:
+    """K1: one launch writes every segment's draw, finished (at most
+    MAX_SEGMENTS segments, all on one device)."""
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"threefry_draws takes 1-{MAX_SEGMENTS} segments, "
+                         f"got {len(segments)}")
+    dev = segments[0].out.device
+    specs = (DrawSpec * len(segments))(
+        *[_spec(i, seg, dev) for i, seg in enumerate(segments)])
+    rc = library().threefry_draws(ctypes.addressof(specs), len(segments),
+                                  _stream(dev))
+    _check(rc, "threefry_draws")
+    LAUNCHES["threefry_draws"] += 1
+    for mode in {seg.mode for seg in segments}:
+        DRAW_LAUNCHES[mode] += 1
 
 
 def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,

@@ -6,12 +6,17 @@ together) for `sm_90a`, then one link step makes
 the flags, so an edited source rebuilds and an unchanged tree reuses the
 library.  Only the sources in this directory are built; a failed
 compile raises with nvcc's output.
+
+`sass_census` compiles one source once per value of a macro into cubins
+and counts a kernel's SASS instructions in each (`cuobjdump -sass`): the
+operation counts behind K1's bounds.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,15 +33,19 @@ last_build_seconds = 0.0
 ptxas_report: dict = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = f"/usr/local/cuda/bin/{name}"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "consul_tpu_torch's kernels")
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to "
+                       f"build consul_tpu_torch's kernels")
+
+
+def _nvcc() -> str:
+    return _tool("nvcc")
 
 
 def _digest(sources) -> str:
@@ -92,3 +101,65 @@ def build() -> Path:
         shutil.rmtree(work, ignore_errors=True)
     last_build_seconds = time.perf_counter() - t0
     return lib
+
+
+_SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(.+?)\s*;")
+
+
+def count_sass(listing: str, kernel: str) -> int:
+    """Instructions of `kernel`'s body in a `cuobjdump -sass` listing: from
+    its first instruction to the last EXIT before the first RET (the
+    subroutines after the body, such as sqrtf's slow path, are not
+    counted), NOPs left out."""
+    ops, inside = [], False
+    for line in listing.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = _SASS_LINE.match(line) if inside else None
+        if m:
+            words = m.group(1).split()
+            if words[0].startswith("@"):        # predicate guard
+                words = words[1:]
+            ops.append(words[0])
+    if not ops:
+        raise ValueError(f"no SASS for {kernel} in the listing")
+    end = next((i for i, op in enumerate(ops) if op.startswith("RET")),
+               len(ops))
+    exits = [i for i, op in enumerate(ops[:end]) if op == "EXIT"]
+    if not exits:
+        raise ValueError(f"{kernel}: no EXIT in its body")
+    return sum(1 for op in ops[:exits[-1] + 1] if not op.startswith("NOP"))
+
+
+def sass_census(source: str, macro: str, values, kernel: str) -> dict:
+    """{value: SASS instructions of `kernel`'s body} with csrc/`source`
+    compiled once per value of `macro` (-D`macro`=value), as build()
+    compiles it; the compiles run together."""
+    nvcc, cuobjdump = _nvcc(), _tool("cuobjdump")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"census-{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    try:
+        procs = {}
+        for v in values:
+            cubin = work / f"{macro}-{v}.cubin"
+            cmd = [nvcc, *ARCH, *CFLAGS, f"-D{macro}={v}", "-cubin",
+                   str(CSRC / source), "-o", str(cubin)]
+            procs[v] = (cubin, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        counts = {}
+        for v, (cubin, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {source} with "
+                                   f"{macro}={v}:\n{out}")
+            sass = subprocess.run([cuobjdump, "-sass", str(cubin)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  check=True).stdout
+            counts[v] = count_sass(sass, kernel)
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)

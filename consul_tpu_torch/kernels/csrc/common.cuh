@@ -12,7 +12,8 @@
 // needs no memset or finalize kernel and the integer totals are exact.
 //
 // Random bits: threefry2x32 with the xor fold of jax 0.9's partitionable
-// streams (K1 and K2's fused loss draw share it).
+// streams, on L interleaved lanes (K1 runs four a thread, K2's fused loss
+// draw one).
 //
 // Rows: a node's [S] row of bool/int8 slots is read as 16-byte vectors
 // where the row is 16-byte aligned (S a multiple of 16), byte by byte
@@ -117,36 +118,82 @@ __device__ bool grid_sum(const u64 (&v)[K], u64* scratch, u64 (&tot)[K]) {
 
 // --- random bits -----------------------------------------------------------
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t v, int r) {
-  return (v << r) | (v >> (32 - r));
+// The key schedule of threefry2x32 for key (k0, k1), as the host also
+// builds it (kernels/__init__.py:_schedule): k0, k1, k2 = k0 ^ k1 ^
+// 0x1BD11BDA, then the x1 injections after each group of four rounds,
+// k2 + 1, k0 + 2, k1 + 3, k2 + 4, k0 + 5 (the x0 injections are k1, k2,
+// k0, k1, k2).
+struct ThreefryKey {
+  uint32_t k[8];
+};
+
+__device__ __forceinline__ ThreefryKey threefry_key(uint32_t k0, uint32_t k1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  return {{k0, k1, k2, k2 + 1u, k0 + 2u, k1 + 3u, k2 + 4u, k0 + 5u}};
 }
 
-__device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1,
-                                                int r0, int r1, int r2, int r3) {
-  x0 += x1; x1 = rotl32(x1, r0); x1 ^= x0;
-  x0 += x1; x1 = rotl32(x1, r1); x1 ^= x0;
-  x0 += x1; x1 = rotl32(x1, r2); x1 ^= x0;
-  x0 += x1; x1 = rotl32(x1, r3); x1 ^= x0;
+// One round on L independent chains, interleaved so the integer pipes
+// have L independent instructions between dependent ones; the rotation is
+// a compile-time funnel shift.
+template <int R, int L>
+__device__ __forceinline__ void threefry_mix(uint32_t (&x0)[L], uint32_t (&x1)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    x0[j] += x1[j];
+    x1[j] = __funnelshift_l(x1[j], x1[j], R) ^ x0[j];
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void threefry_inject(uint32_t (&x0)[L], uint32_t (&x1)[L],
+                                                uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    x0[j] += a;
+    x1[j] += b;
+  }
+}
+
+// x0 ^ x1 of threefry2x32(key, (hi, lo + j)) for j < L: elements hi * 2^32
+// + lo + j of a jax.random draw (jax 0.9, jax_threefry_partitionable=True;
+// lo + L - 1 must not carry into hi).
+template <int L>
+__device__ __forceinline__ void threefry_lanes(const ThreefryKey& key, uint32_t hi,
+                                               uint32_t lo, uint32_t (&out)[L]) {
+  const uint32_t* k = key.k;
+  uint32_t x0[L], x1[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    x0[j] = hi + k[0];
+    x1[j] = lo + static_cast<uint32_t>(j) + k[1];
+  }
+  threefry_mix<13>(x0, x1); threefry_mix<15>(x0, x1);
+  threefry_mix<26>(x0, x1); threefry_mix<6>(x0, x1);
+  threefry_inject(x0, x1, k[1], k[3]);
+  threefry_mix<17>(x0, x1); threefry_mix<29>(x0, x1);
+  threefry_mix<16>(x0, x1); threefry_mix<24>(x0, x1);
+  threefry_inject(x0, x1, k[2], k[4]);
+  threefry_mix<13>(x0, x1); threefry_mix<15>(x0, x1);
+  threefry_mix<26>(x0, x1); threefry_mix<6>(x0, x1);
+  threefry_inject(x0, x1, k[0], k[5]);
+  threefry_mix<17>(x0, x1); threefry_mix<29>(x0, x1);
+  threefry_mix<16>(x0, x1); threefry_mix<24>(x0, x1);
+  threefry_inject(x0, x1, k[1], k[6]);
+  threefry_mix<13>(x0, x1); threefry_mix<15>(x0, x1);
+  threefry_mix<26>(x0, x1); threefry_mix<6>(x0, x1);
+  threefry_inject(x0, x1, k[2], k[7]);
+#pragma unroll
+  for (int j = 0; j < L; ++j) out[j] = x0[j] ^ x1[j];
 }
 
 // x0 ^ x1 of threefry2x32(key, (i >> 32, i & 0xffffffff)): element i of a
-// jax.random draw (jax 0.9, jax_threefry_partitionable=True).
+// jax.random draw (K2's fused loss draw; K1 runs four lanes a thread).
 __device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
                                                  uint64_t i) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
-  uint32_t x1 = static_cast<uint32_t>(i) + k1;
-  threefry_rounds(x0, x1, 13, 15, 26, 6);
-  x0 += k1; x1 += k2 + 1u;
-  threefry_rounds(x0, x1, 17, 29, 16, 24);
-  x0 += k2; x1 += k0 + 2u;
-  threefry_rounds(x0, x1, 13, 15, 26, 6);
-  x0 += k0; x1 += k1 + 3u;
-  threefry_rounds(x0, x1, 17, 29, 16, 24);
-  x0 += k1; x1 += k2 + 4u;
-  threefry_rounds(x0, x1, 13, 15, 26, 6);
-  x0 += k2; x1 += k0 + 5u;
-  return x0 ^ x1;
+  uint32_t out[1];
+  threefry_lanes<1>(threefry_key(k0, k1), static_cast<uint32_t>(i >> 32),
+                    static_cast<uint32_t>(i), out);
+  return out[0];
 }
 
 // jax.random.uniform's float32 in [0, 1) from 32 random bits.

@@ -1,23 +1,45 @@
-// K1 threefry_bits: counter-based threefry2x32 random bits, one thread per
-// output element.
+// K1 threefry_draws: whole jax.random draws, finished in the kernel, up to
+// eight draws ("segments") in one launch.
 //
-// Replaces: the jax.random draws of the JAX package (consul_tpu/utils/
-// prng.py tick_key streams under rolls.offsets, _probe_round's uniform/
-// exponential draws and vivaldi.observe_ring's normal draw).  jax 0.9
-// with jax_threefry_partitionable=True draws element i of a shape as
-// threefry2x32(key, (i >> 32, i & 0xffffffff)) and returns x0 ^ x1; this
-// kernel computes exactly that (threefry_xor in common.cuh, which K2's
-// fused loss draw shares), so the port's streams equal the JAX ones bit
-// for bit.
+// Replaces: the jax.random draws of the JAX package on its main path —
+// rolls.offsets' randint (consul_tpu/ops/rolls.py:27), _probe_round's
+// uniform and exponential draws (consul_tpu/models/swim.py:725-778) and
+// vivaldi.observe_ring's normal (consul_tpu/models/vivaldi.py:184) — all
+// layered on the tick_key threefry streams (consul_tpu/utils/prng.py:14).
+// jax 0.9 with jax_threefry_partitionable=True draws element i of a shape
+// as x0 ^ x1 of threefry2x32(key, (i >> 32, i & 0xffffffff)); each mode
+// finishes those bits as jax.random does, bit for bit with the plain twins
+// of consul_tpu_torch/utils/prng.py:
 //
-// Bound on an H100: each element costs ~20 rounds of 32-bit add/rotate/
-// xor (~110 integer operations) against 4 bytes written, so at 1M-3M
-// elements the kernel is bound by the integer pipes, not by memory.  The
-// design keeps everything in registers: one 64-bit counter in, one word
-// out, a grid-stride loop so any n launches a fixed grid.
+//   BITS         the int32 bit pattern;
+//   UNIFORM      max(lo, u * span + lo), u = (bits >> 9 | 0x3f800000) - 1;
+//   EXPONENTIAL  -log1pf(-u);
+//   NORMAL       sqrt(2) * erf_inv(max(lo, u * span + lo)), XLA's float32
+//                erf_inv (both branches);
+//   RANDINT      two streams (the host passes split(key)'s two schedules):
+//                ((hi % span) * mult + lo % span) % span + minval in 32-bit
+//                wrapping arithmetic, mult = (2^16 % span)^2 mod 2^32 % span
+//                from the host (0 for spans above 2^16, as jax computes it).
 //
-// mode 0 writes the raw 32 bits; mode 1 writes jax.random.uniform's
-// float32 in [0, 1): (bits >> 9 | 0x3f800000) reinterpreted, minus 1.
+// Float steps are explicitly rounded (__fmul_rn, __fadd_rn), so nvcc does
+// not contract a multiply and an add into an FMA: the plain twin on the
+// card runs them as separate torch kernels.  log1pf and sqrtf are the
+// IEEE routines torch's CUDA log1p and sqrt call (no -use_fast_math).
+//
+// Bound on an H100: every element is ~20 dependent rounds of add/rotate/
+// xor against 4 bytes written, so the kernel is bound by the 32-bit lane
+// rate, not by memory.  The design: a thread computes 4 consecutive
+// elements with the four chains' rounds interleaved (common.cuh:
+// threefry_lanes), rotations are compile-time funnel shifts, each
+// segment's key schedule is computed once on the host, the 4 results go
+// out as one 16-byte store, and the grid is the total work: a segment
+// starts on a block's tile (1024 elements), so a block finds its segment
+// in the tile prefix of the table (a kernel parameter) and never straddles
+// two.  A 3-element randint is one block.
+//
+// THREEFRY_CENSUS_MODE=m (kernels/build.py:sass_census) compiles the
+// kernel for mode m alone and without the scalar tail, so its SASS counts
+// the instructions of that mode's elements.
 
 #include "common.cuh"
 
@@ -25,27 +47,147 @@ using namespace consul_kernels;
 
 namespace {
 
-__global__ void threefry_bits_kernel(uint32_t k0, uint32_t k1, int64_t n,
-                                     int mode, uint32_t* __restrict__ out) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    uint32_t b = threefry_xor(k0, k1, static_cast<uint64_t>(i));
-    if (mode == 1) b = __float_as_uint(unit_float(b));
-    out[i] = b;
+enum Mode : int32_t { kBits = 0, kUniform = 1, kExponential = 2, kNormal = 3,
+                      kRandint = 4, kModes = 5 };
+
+constexpr int kMaxSegments = 8;
+constexpr int kThreads = 256;
+constexpr int kPer = 4;                       // elements a thread
+constexpr int64_t kTile = kThreads * kPer;    // elements a block
+
+// One segment as the host fills it (kernels/__init__.py:DrawSpec).
+struct DrawSpec {
+  void* out;
+  int64_t n;
+  uint32_t sched[16];   // key schedules: the stream, then randint's second
+  int32_t mode;
+  float lo;
+  float span;
+  uint32_t minval;
+  uint32_t range;
+  uint32_t mult;
+};
+static_assert(sizeof(DrawSpec) == 104, "DrawSpec layout changed: update kernels/__init__.py");
+
+struct DrawTable {
+  int first_tile[kMaxSegments];   // unused entries hold the total tile count
+  DrawSpec seg[kMaxSegments];
+};
+
+// XLA's float32 erf_inv (Giles' single-precision polynomial in w =
+// -log1p(-x*x), branches w < 5 and w >= 5), the coefficients as the bit
+// patterns of prng.py's _ERFINV_LT5 / _ERFINV_GE5.
+__device__ __forceinline__ float erf_inv(float x) {
+  constexpr uint32_t kLt5[9] = {0x32f16588u, 0x34b84b36u, 0xb66c7357u,
+                                0xb6935ac1u, 0x396532dbu, 0xbaa45408u,
+                                0xbb88e4efu, 0x3e7c8f63u, 0x3fc02e2fu};
+  constexpr uint32_t kGe5[9] = {0xb951f09bu, 0x38d3b56bu, 0x3ab0dc72u,
+                                0xbb70bde7u, 0x3bbc127bu, 0xbbf9c5d7u,
+                                0x3c1aa57eu, 0x3f8036dbu, 0x40354f7eu};
+  float w = -log1pf(-__fmul_rn(x, x));
+  const bool lt = w < 5.0f;
+  w = lt ? __fadd_rn(w, -2.5f) : __fadd_rn(sqrtf(w), -3.0f);
+  float p = __uint_as_float(lt ? kLt5[0] : kGe5[0]);
+#pragma unroll
+  for (int c = 1; c < 9; ++c)
+    p = __fadd_rn(__uint_as_float(lt ? kLt5[c] : kGe5[c]), __fmul_rn(p, w));
+  return fabsf(x) == 1.0f ? __fmul_rn(x, __uint_as_float(0x7f800000u))
+                          : __fmul_rn(p, x);
+}
+
+__device__ __forceinline__ float scaled(float u, float lo, float span) {
+  return fmaxf(lo, __fadd_rn(__fmul_rn(u, span), lo));
+}
+
+// Element i .. i + 3 of segment d (i a multiple of 4, i < d.n), finished
+// and stored: one 16-byte store where the four fit and the output is
+// 16-byte aligned, else (kTail) element by element.
+template <int M, bool kTail>
+__device__ __forceinline__ void draw4(const DrawSpec& d, int64_t i) {
+  ThreefryKey key;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) key.k[j] = d.sched[j];
+  const uint32_t hi = static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32);
+  const uint32_t lo = static_cast<uint32_t>(i);
+  uint32_t b[kPer], v[kPer];
+  threefry_lanes<kPer>(key, hi, lo, b);
+  if (M == kRandint) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) key.k[j] = d.sched[8 + j];
+    uint32_t b2[kPer];
+    threefry_lanes<kPer>(key, hi, lo, b2);
+    const uint32_t span = d.range, mult = d.mult;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      v[j] = ((b[j] % span) * mult + b2[j] % span) % span + d.minval;
+  } else if (M == kBits) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) v[j] = b[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const float u = unit_float(b[j]);
+      float f;
+      if (M == kUniform) f = scaled(u, d.lo, d.span);
+      else if (M == kExponential) f = -log1pf(-u);
+      else f = __fmul_rn(__uint_as_float(0x3fb504f3u),   // float32(sqrt(2))
+                         erf_inv(scaled(u, d.lo, d.span)));
+      v[j] = __float_as_uint(f);
+    }
   }
+  uint32_t* out = static_cast<uint32_t*>(d.out) + i;
+  if (!kTail || (i + kPer <= d.n && aligned16(out))) {
+    *reinterpret_cast<uint4*>(out) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (i + j < d.n) out[j] = v[j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+threefry_draws_kernel(const __grid_constant__ DrawTable t) {
+  const int tile = static_cast<int>(blockIdx.x);
+  int s = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxSegments; ++j) s += tile >= t.first_tile[j];
+  const DrawSpec& d = t.seg[s];
+  const int64_t i = static_cast<int64_t>(tile - t.first_tile[s]) * kTile +
+                    threadIdx.x * kPer;
+  if (i >= d.n) return;
+#ifdef THREEFRY_CENSUS_MODE
+  draw4<THREEFRY_CENSUS_MODE, false>(d, i);
+#else
+  switch (d.mode) {   // block-uniform
+    case kBits: draw4<kBits, true>(d, i); break;
+    case kUniform: draw4<kUniform, true>(d, i); break;
+    case kExponential: draw4<kExponential, true>(d, i); break;
+    case kNormal: draw4<kNormal, true>(d, i); break;
+    default: draw4<kRandint, true>(d, i); break;
+  }
+#endif
 }
 
 }  // namespace
 
-extern "C" int threefry_bits(uint32_t k0, uint32_t k1, int64_t n, int mode,
-                             void* out, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  threefry_bits_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      k0, k1, n, mode, static_cast<uint32_t*>(out));
+// specs: `count` DrawSpecs in host memory (1 <= count <= 8), each with
+// n >= 1, a mode < 5 and, for RANDINT, range >= 1.
+extern "C" int threefry_draws(const void* specs, int count, void* stream) {
+  if (count < 1 || count > kMaxSegments) return static_cast<int>(cudaErrorInvalidValue);
+  DrawTable t = {};
+  int64_t tiles = 0;
+  for (int s = 0; s < count; ++s) {
+    const DrawSpec& d = static_cast<const DrawSpec*>(specs)[s];
+    if (d.n < 1 || d.mode < 0 || d.mode >= kModes ||
+        (d.mode == kRandint && d.range == 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    t.seg[s] = d;
+    t.first_tile[s] = static_cast<int>(tiles);
+    tiles += (d.n + kTile - 1) / kTile;
+    if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int s = count; s < kMaxSegments; ++s) t.first_tile[s] = static_cast<int>(tiles);
+  threefry_draws_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

@@ -490,22 +490,40 @@ class ProbeObs:
     acked: torch.Tensor    # [N] bool
 
 
+def _probe_draws(params: SwimParams, tick: int) -> dict:
+    """The random draws of the probe round at `tick`, by name, which
+    _probe_round makes in one K1 launch."""
+    n, k = params.n_nodes, params.indirect_checks
+    kt = prng.tick_key(params.seed, tick, 1)
+    k_off, k_direct, k_leg, k_rtt, k_lha = prng.split(kt, 5)
+    want = {"offs": rolls.offsets_draw(k_off, n, 1 + k),
+            "rtt": prng.Draw("exponential", k_rtt, (n,)),
+            "direct": prng.Draw("uniform", k_direct, (n,))}
+    if params.awareness_max > 0:
+        want["lha"] = prng.Draw("uniform", k_lha, (n,))
+    if k > 0:
+        for name, key in zip(("uA", "uB", "uC"), prng.split(k_leg, 3)):
+            want[name] = prng.Draw("uniform", key, (n, k))
+    return want
+
+
 def _probe_round(params: SwimParams, s: SwimState, maps):
     """One SWIM probe round: ring probe + k indirect probes + suspicion
     (swim.py:698-897)."""
     n = params.n_nodes
     dev = s.device
     tick = s.tick
-    kt = prng.tick_key(params.seed, tick, 1)
-    k_off, k_direct, k_leg, k_rtt, k_lha = prng.split(kt, 5)
-    offs = rolls.offsets(k_off, n, 1 + params.indirect_checks, dev)
+    k = params.indirect_checks
+    want = _probe_draws(params, tick)
+    drawn = dict(zip(want, prng.draw(list(want.values()), dev)))
+    offs = drawn["offs"]
     d = offs[0]
 
     live = s.up & s.member
     if params.awareness_max > 0:
         score = torch.clamp(s.awareness, 0, params.awareness_max - 1)
         mult = (score + 1).to(F32)
-        lha_go = prng.uniform(k_lha, (n,), dev) * mult < 1.0
+        lha_go = drawn["lha"] * mult < 1.0
     else:
         mult = torch.ones(n, dtype=F32, device=dev)
         lha_go = torch.ones(n, dtype=torch.bool, device=dev)
@@ -524,25 +542,19 @@ def _probe_round(params: SwimParams, s: SwimState, maps):
 
     diff = s.coords - rolls.pull(s.coords, d)
     rtt = torch.sqrt((diff * diff).sum(-1)) + params.rtt_base_ms
-    rtt = rtt * (1.0 + prng.exponential(k_rtt, (n,), dev) * 0.1)
+    rtt = rtt * (1.0 + drawn["rtt"] * 0.1)
     ok_t = rolls.pull(ok_node, d)
     m_t = torch.minimum(ok_node, ok_t)
-    legs_ok = prng.uniform(k_direct, (n,), dev) < m_t * m_t
+    legs_ok = drawn["direct"] < m_t * m_t
     direct_ack = t_up & legs_ok & (2.0 * rtt < params.probe_timeout_ms * mult)
 
-    k = params.indirect_checks
     if k > 0:
-        kA, kB, kC = prng.split(k_leg, 3)
-        shape = (n, k)
         ok_r = torch.stack([rolls.pull(ok_node, offs[1 + j]) for j in range(k)],
                            dim=-1)
-        uA = prng.uniform(kA, shape, dev)
-        uB = prng.uniform(kB, shape, dev)
-        uC = prng.uniform(kC, shape, dev)
-        l1 = uA < torch.minimum(ok_node[:, None], ok_r)
+        l1 = drawn["uA"] < torch.minimum(ok_node[:, None], ok_r)
         m_rt = torch.minimum(ok_r, ok_t[:, None])
-        l23 = uB < m_rt * m_rt
-        l4 = uC < torch.minimum(ok_r, ok_node[:, None])
+        l23 = drawn["uB"] < m_rt * m_rt
+        l4 = drawn["uC"] < torch.minimum(ok_r, ok_node[:, None])
         relay_ok = torch.stack([rolls.pull(live, offs[1 + j]) for j in range(k)],
                                dim=-1)
         reach = t_up[:, None] & l23

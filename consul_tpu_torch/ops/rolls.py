@@ -4,7 +4,7 @@ Every node exchanges with its ring neighbour at a per-tick random offset
 d, so the whole exchange is a rotation of the node axis (memberlist walks
 a shuffled ring for probe targets; the shift keeps that one-prober-per-
 subject-per-round structure).  The offsets are drawn on the device
-(`offsets`) and stay there: views are built by index arithmetic on the
+(`offsets`: one K1 launch) and stay there: views are built by index arithmetic on the
 device-side offset, `(arange(N) + d) % N`, because `torch.roll` needs a
 host integer and reading one back would sync the device every tick.
 
@@ -25,9 +25,14 @@ def _single_device(blocks: int) -> None:
                                   "ported yet")
 
 
+def offsets_draw(key, n: int, k: int) -> prng.Draw:
+    """The draw of `offsets`, for a caller that makes it beside others."""
+    return prng.Draw("randint", key, (k,), 1, n)
+
+
 def offsets(key, n: int, k: int, device) -> torch.Tensor:
     """k nonzero ring offsets shared by all nodes this tick ([k] int32)."""
-    return prng.randint(key, (k,), 1, n, device)
+    return prng.draw([offsets_draw(key, n, k)], device)[0]
 
 
 def _rows(n: int, d, device) -> torch.Tensor:

@@ -5,6 +5,7 @@ the device's busy and idle share.
 
     python -m consul_tpu_torch.profile_tick [n_nodes] [ticks]
     python -m consul_tpu_torch.profile_tick kernels [n_nodes]
+    python -m consul_tpu_torch.profile_tick draws [n_nodes]
 
 Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
@@ -13,8 +14,10 @@ the bench scan runs it), times each pass of a probe tick alone, and
 profiles a window of `ticks` monitored ticks.  The `kernels` form runs
 the set-up and the kernel count only; it uses nothing but the serf/swim
 entry points, so it also counts an older tree's kernels when that tree's
-package comes first on PYTHONPATH.  Prints one JSON line; needs a CUDA
-device.
+package comes first on PYTHONPATH.  The `draws` form times each random
+draw of the main path at its shape through the public `utils/prng.py`
+functions (device ms, call ms, device kernels per call), which an older
+tree has too.  Prints one JSON line; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from consul_tpu_torch import kernels
 from consul_tpu_torch.bench import CHUNK, VICTIM
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import serf, swim, vivaldi
+from consul_tpu_torch.utils import prng
 
 
 def _setup(n_nodes: int):
@@ -46,6 +50,70 @@ def _setup(n_nodes: int):
     return dev, params, s
 
 
+def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of `reps` CUDA-event timings of one call of fn, host
+    dispatch included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+_FLUSH: list = []
+
+
+def _flush() -> torch.Tensor:
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(96 << 20, dtype=torch.uint8, device="cuda"))
+    return _FLUSH[0]
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """Median device ms of one call of fn with its host dispatch hidden:
+    the stream sleeps (~1 ms) while the host enqueues a 96 MB read that
+    evicts the inputs from the 50 MB L2 (as the tick's earlier passes do,
+    with no dirty lines left to write back) and the call between two CUDA
+    events."""
+    flush = _flush()
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        flush.max()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def kernels_of(fn) -> dict:
+    """{kernel: launches} of one call of fn (torch.profiler; copies and
+    memsets left out)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {k: v for k, v in _device_ops(prof).items()
+            if not k.startswith(("Memcpy", "Memset"))}
+
+
 def _device_ops(prof) -> dict:
     """{name: calls} of the device activities a profile recorded."""
     return {ev.key: ev.count for ev in prof.key_averages()
@@ -56,13 +124,18 @@ def kernels_per_tick(params, s, ticks: int = 10, subject: int = VICTIM):
     """Device kernels of `ticks` gossip-only ticks and `ticks` probe ticks,
     each tick (serf.step plus its monitor call) under its own profiler.
     Returns (state, {kind: {"kernels": mean per tick, "device_ops": mean
-    per tick with copies and memsets, "names": {kernel: calls per tick}}})."""
+    per tick with copies and memsets, "names": {kernel: calls per tick},
+    "launches": {port kernel: launches per tick}}}).  The launches come
+    from the wrappers' own counts (kernels.LAUNCHES), which no profiler
+    record that goes missing can change."""
     dev = s.swim.device
     period = params.swim.probe_period_ticks
     out = torch.empty(1, dtype=torch.float32, device=dev)
     seen = {"gossip": [], "probe": []}
+    launched = {"gossip": [], "probe": []}
     while min(len(v) for v in seen.values()) < ticks:
         kind = "probe" if s.swim.tick % period == 0 else "gossip"
+        before = dict(kernels.LAUNCHES)
         torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -71,6 +144,8 @@ def kernels_per_tick(params, s, ticks: int = 10, subject: int = VICTIM):
             torch.cuda.synchronize(dev)
         if len(seen[kind]) < ticks:
             seen[kind].append(_device_ops(prof))
+            launched[kind].append({k: v - before[k]
+                                   for k, v in kernels.LAUNCHES.items()})
     summary = {}
     for kind, runs in seen.items():
         totals: dict = {}
@@ -84,7 +159,9 @@ def kernels_per_tick(params, s, ticks: int = 10, subject: int = VICTIM):
                          "device_ops": sum(names.values()),
                          "ticks": len(runs),
                          "names": dict(sorted(kern.items(),
-                                              key=lambda kv: -kv[1]))}
+                                              key=lambda kv: -kv[1])),
+                         "launches": {k: sum(r[k] for r in launched[kind])
+                                      / len(runs) for k in kernels.LAUNCHES}}
     return s, summary
 
 
@@ -180,6 +257,31 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     return times
 
 
+def draw_times(n_nodes: int = 1_000_000) -> dict:
+    """Each random draw of the main path at its shape, through the public
+    prng functions: device ms (kernel_ms), call ms (median_ms) and the
+    device kernels of one call."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_tick needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    n = n_nodes
+    key = prng.tick_key(7, 12345, 5)
+    calls = {
+        "uniform [N, 3]": lambda: prng.uniform(key, (n, 3), dev),
+        "exponential [N]": lambda: prng.exponential(key, (n,), dev),
+        "normal [N, 8]": lambda: prng.normal(key, (n, 8), dev),
+        "randint [3]": lambda: prng.randint(key, (3,), 1, n, dev),
+        "randint [4]": lambda: prng.randint(key, (4,), 1, n, dev),
+    }
+    out = {}
+    for name, fn in calls.items():
+        kern = kernels_of(fn)
+        out[name] = {"device_ms": kernel_ms(fn), "call_ms": median_ms(fn),
+                     "kernels": sum(kern.values())}
+    return {"device": torch.cuda.get_device_name(dev), "n_nodes": n,
+            "draws": out}
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -190,5 +292,7 @@ def count_main(n_nodes: int = 1_000_000) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["kernels"]:
         print(json.dumps(count_main(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["draws"]:
+        print(json.dumps(draw_times(*[int(a) for a in sys.argv[2:]])))
     else:
         print(json.dumps(main(*[int(a) for a in sys.argv[1:]])))

@@ -9,9 +9,12 @@ the reference tick by tick.
 Keys are pairs of Python ints (two uint32 words).  Key derivation
 (`PRNGKey`, `fold_in`, `split`, `tick_key`) is scalar work done on the
 host, so deriving a tick's keys never touches the device or syncs it.
-Draws (`bits` and the transforms on top of it) make device tensors: on
-a CUDA device `bits` launches kernel K1 (kernels/csrc/threefry.cu); on
-the CPU it runs `threefry_bits_plain`, the same hash in int64 torch ops.
+Draws make device tensors: on a CUDA device each of `bits`, `uniform`,
+`exponential`, `normal` and `randint` is one launch of kernel K1
+(kernels/csrc/threefry.cu) that writes the finished draw, and `draw`
+makes several draws (a call site's whole tick) in one launch; on the CPU
+each runs its plain twin (`*_plain`), the same hash in int64 torch ops
+and the same transforms in float32 torch ops.
 
 Layout (jax/_src/prng.py:1184-1200): element i of a draw of `shape`
 (row-major flat index) is x0 ^ x1 of threefry2x32(key, (i >> 32,
@@ -21,6 +24,7 @@ i & 0xffffffff)).  `split(key, k)[j]` is threefry2x32(key, (0, j)) and
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -74,7 +78,7 @@ def tick_key(seed: int, tick: int, stream: int):
 
 
 # ---------------------------------------------------------------------------
-# bits: kernel K1 and its plain twin
+# the threefry hash in torch ops (the plain twin of K1's bits)
 # ---------------------------------------------------------------------------
 
 def threefry_bits_plain(key, n: int, device) -> torch.Tensor:
@@ -99,19 +103,6 @@ def _numel(shape) -> int:
     return int(math.prod(shape))
 
 
-def bits(key, shape, device) -> torch.Tensor:
-    """Random uint32 words (as int32 bit patterns) of `shape`: K1 on a CUDA
-    device, the plain twin on the CPU."""
-    device = torch.device(device)
-    n = _numel(shape)
-    if device.type == "cuda":
-        out = torch.empty(n, dtype=torch.int32, device=device)
-        kernels.launch_threefry(key, n, 0, out)
-    else:
-        out = threefry_bits_plain(key, n, device)
-    return out.reshape(shape)
-
-
 def _u32(b: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int64) & M32
 
@@ -122,53 +113,30 @@ def unit_floats(b: torch.Tensor) -> torch.Tensor:
     return fb.to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key, shape, device, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """jax.random.uniform float32 (random.py:435-477)."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        floats = torch.empty(_numel(shape), dtype=torch.float32, device=device)
-        kernels.launch_threefry(key, floats.numel(), 1, floats)
-        floats = floats.reshape(shape)
-    else:
-        floats = unit_floats(bits(key, shape, device))
-    if minval == 0.0 and maxval == 1.0:
-        return floats           # u * 1 + 0, floored at 0, is u itself
-    # bounds as float32 values held in Python floats: scalar operands, so no
-    # host-to-device copy (which would synchronize the stream)
-    lo, hi = f32(minval), f32(maxval)
-    span = f32(np.float32(hi) - np.float32(lo))
-    return torch.clamp_min(floats * span + lo, lo)
-
-
 def f32(x: float) -> float:
     """The float32 nearest x, as a Python float (exact in either width)."""
     return float(np.float32(x))
 
 
-def bernoulli(key, p: float, shape, device) -> torch.Tensor:
-    """jax.random.bernoulli (random.py:1075): uniform < p in float32."""
-    return uniform(key, shape, device) < f32(p)
+def _uniform_bounds(minval: float, maxval: float):
+    """jax.random.uniform's float32 minval and span (maxval - minval), as
+    Python floats: scalar operands, so no host-to-device copy (which would
+    synchronize the stream)."""
+    lo = f32(minval)
+    return lo, f32(np.float32(f32(maxval)) - np.float32(lo))
 
 
-def exponential(key, shape, device) -> torch.Tensor:
-    """jax.random.exponential (random.py:1291): -log1p(-u)."""
-    return -torch.log1p(-uniform(key, shape, device))
-
-
-def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
-    """jax.random.randint int32 for host-int bounds (random.py:581-646):
-    two 32-bit draws from split(key), folded with the multiplier
-    (2^16 mod span)^2 mod 2^32 mod span — which wraps to 0 for spans
-    above 2^16, exactly as the reference does."""
-    k1, k2 = split(key, 2)
-    hi = _u32(bits(k1, shape, device))
-    lo = _u32(bits(k2, shape, device))
+def _randint_span(minval: int, maxval: int):
+    """jax.random.randint's span and multiplier for host-int bounds: the
+    multiplier (2^16 mod span)^2 mod 2^32 mod span wraps to 0 for spans
+    above 2^16, exactly as the reference computes it."""
     span = (maxval - minval) & M32 if maxval > minval else 1
     mult = (2 ** 16) % span
-    mult = ((mult * mult) & M32) % span
-    off = (((hi % span) * mult + lo % span) & M32) % span
-    return (off + minval).to(torch.int32)
+    return span, ((mult * mult) & M32) % span
+
+
+# jax.random.normal's uniform lower bound, nextafter(-1, 0) in float32
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
 # erf_inv as XLA expands it for float32 (chlo.erf_inv: Giles' single-
@@ -192,9 +160,146 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), out)
 
 
-def normal(key, shape, device) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# plain twins of K1's modes (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def bits_plain(key, shape, device) -> torch.Tensor:
+    return threefry_bits_plain(key, _numel(shape), device).reshape(shape)
+
+
+def uniform_plain(key, shape, device, minval: float = 0.0,
+                  maxval: float = 1.0) -> torch.Tensor:
+    """jax.random.uniform float32 (random.py:435-477)."""
+    floats = unit_floats(bits_plain(key, shape, device))
+    if minval == 0.0 and maxval == 1.0:
+        return floats           # u * 1 + 0, floored at 0, is u itself
+    lo, span = _uniform_bounds(minval, maxval)
+    return torch.clamp_min(floats * span + lo, lo)
+
+
+def exponential_plain(key, shape, device) -> torch.Tensor:
+    """jax.random.exponential (random.py:1291): -log1p(-u)."""
+    return -torch.log1p(-uniform_plain(key, shape, device))
+
+
+def normal_plain(key, shape, device) -> torch.Tensor:
     """jax.random.normal float32 (random.py:867): sqrt(2) * erf_inv(u) with
     u uniform on (nextafter(-1, 0), 1)."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, device, lo, 1.0)
+    u = uniform_plain(key, shape, device, _NORMAL_LO, 1.0)
     return f32(np.sqrt(2)) * erf_inv(u)
+
+
+def randint_plain(key, shape, minval: int, maxval: int,
+                  device) -> torch.Tensor:
+    """jax.random.randint int32 for host-int bounds (random.py:581-646):
+    two 32-bit draws from split(key), folded with the multiplier."""
+    k1, k2 = split(key, 2)
+    hi = _u32(bits_plain(k1, shape, device))
+    lo = _u32(bits_plain(k2, shape, device))
+    span, mult = _randint_span(minval, maxval)
+    off = (((hi % span) * mult + lo % span) & M32) % span
+    return (off + minval).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# draws: K1 on a CUDA device, the plain twins on the CPU
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """One jax.random draw of `shape` from `key`: kind "bits" (int32 bit
+    patterns), "uniform" (float32 on [minval, maxval)), "exponential",
+    "normal", or "randint" (int32 on [minval, maxval), host-int bounds)."""
+
+    kind: str
+    key: tuple
+    shape: tuple
+    minval: float = 0.0
+    maxval: float = 1.0
+
+
+def draw_plain(draws, device) -> list:
+    """The plain twin of `draw`: each Draw's tensor from its mode's twin."""
+    twins = {"bits": lambda d: bits_plain(d.key, d.shape, device),
+             "uniform": lambda d: uniform_plain(d.key, d.shape, device,
+                                                d.minval, d.maxval),
+             "exponential": lambda d: exponential_plain(d.key, d.shape, device),
+             "normal": lambda d: normal_plain(d.key, d.shape, device),
+             "randint": lambda d: randint_plain(d.key, d.shape, d.minval,
+                                                d.maxval, device)}
+    for d in draws:
+        if d.kind not in twins:
+            raise ValueError(f"unknown draw kind {d.kind!r}")
+    return [twins[d.kind](d) for d in draws]
+
+
+def _segment(d: Draw, out: torch.Tensor) -> kernels.Segment:
+    if d.kind == "randint":
+        span, mult = _randint_span(d.minval, d.maxval)
+        return kernels.Segment("randint", tuple(split(d.key, 2)), out,
+                               out.numel(), minval=int(d.minval), range=span,
+                               mult=mult)
+    lo, span = 0.0, 1.0
+    if d.kind == "uniform":
+        lo, span = _uniform_bounds(d.minval, d.maxval)
+    elif d.kind == "normal":
+        lo, span = _uniform_bounds(_NORMAL_LO, 1.0)
+    return kernels.Segment(d.kind, (d.key,), out, out.numel(), lo=lo,
+                           span=span)
+
+
+def draw_segments(draws, device):
+    """K1's inputs for these draws on a CUDA device: each draw's output,
+    allocated, and the kernels.Segment of each non-empty one."""
+    outs = [torch.empty(d.shape, device=device, dtype=torch.int32
+                        if d.kind in ("bits", "randint") else torch.float32)
+            for d in draws]
+    return outs, [_segment(d, out) for d, out in zip(draws, outs)
+                  if out.numel()]
+
+
+def draw(draws, device) -> list:
+    """Each Draw's tensor.  On a CUDA device K1 writes them all finished,
+    one launch for up to kernels.MAX_SEGMENTS draws (empty draws launch
+    nothing); on the CPU each runs its plain twin."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return draw_plain(draws, device)
+    outs, segs = draw_segments(draws, device)
+    for i in range(0, len(segs), kernels.MAX_SEGMENTS):
+        kernels.launch_draws(segs[i:i + kernels.MAX_SEGMENTS])
+    return outs
+
+
+def bits(key, shape, device) -> torch.Tensor:
+    """Random uint32 words (as int32 bit patterns) of `shape`."""
+    return draw([Draw("bits", key, tuple(shape))], device)[0]
+
+
+def uniform(key, shape, device, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """jax.random.uniform float32 (random.py:435-477)."""
+    return draw([Draw("uniform", key, tuple(shape), minval, maxval)],
+                device)[0]
+
+
+def bernoulli(key, p: float, shape, device) -> torch.Tensor:
+    """jax.random.bernoulli (random.py:1075): uniform < p in float32."""
+    return uniform(key, shape, device) < f32(p)
+
+
+def exponential(key, shape, device) -> torch.Tensor:
+    """jax.random.exponential (random.py:1291): -log1p(-u)."""
+    return draw([Draw("exponential", key, tuple(shape))], device)[0]
+
+
+def normal(key, shape, device) -> torch.Tensor:
+    """jax.random.normal float32 (random.py:867)."""
+    return draw([Draw("normal", key, tuple(shape))], device)[0]
+
+
+def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
+    """jax.random.randint int32 for host-int bounds (random.py:581-646)."""
+    return draw([Draw("randint", key, tuple(shape), minval, maxval)],
+                device)[0]

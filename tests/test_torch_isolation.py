@@ -117,7 +117,8 @@ def test_kernel_wrappers_reject_bad_tensors_before_launching():
     with pytest.raises(ValueError, match="contacts"):
         kernels.launch_gossip(**args)
     with pytest.raises(ValueError, match="elements"):
-        kernels.launch_threefry((0, 7), 10, 1, torch.empty(9))
+        kernels.launch_draws([kernels.Segment("uniform", ((0, 7),),
+                                              torch.empty(9), 10)])
     assert kernels.LAUNCHES == before      # a refused launch is not counted
 
 
@@ -195,6 +196,90 @@ def test_monitor_wrapper_rejects(case):
     with pytest.raises(ValueError, match=match):
         kernels.launch_believed_down(**args)
     assert kernels.LAUNCHES == before
+
+
+def _segment(mode="uniform", n=8, **edit):
+    int_out = mode in ("bits", "randint")
+    args = dict(mode=mode, keys=((1, 2), (3, 4)) if mode == "randint"
+                else ((1, 2),),
+                out=torch.empty(n, dtype=torch.int32 if int_out
+                                else torch.float32), n=n)
+    if mode == "randint":
+        args.update(minval=1, range=n, mult=0)
+    args.update(edit)
+    return kernels.Segment(**args)
+
+
+DRAWS_BAD = {
+    # case: (the segment table, the message it raises with)
+    "no segments": (lambda: [], "segments"),
+    "too many segments": (lambda: [_segment() for _ in range(9)], "segments"),
+    "unknown mode": (lambda: [_segment(mode="gamma")], "mode"),
+    "uniform out dtype": (lambda: [_segment(out=torch.empty(8, dtype=torch.int32))],
+                          "out"),
+    "randint out dtype": (lambda: [_segment("randint", out=torch.empty(8))],
+                          "out"),
+    "bits out dtype": (lambda: [_segment("bits", out=torch.empty(8))], "out"),
+    "out too small": (lambda: [_segment(out=torch.empty(7))], "elements"),
+    "out too large": (lambda: [_segment("normal"), _segment(out=torch.empty(9))],
+                      "elements"),
+    "empty segment": (lambda: [_segment(n=0, out=torch.empty(0))], "elements"),
+    "out not contiguous": (lambda: [_segment(n=8, out=torch.empty(4, 2).t())],
+                           "out"),
+    "out on another device": (lambda: [_segment(), _segment(
+        "exponential", out=torch.empty(8, device=META))], "out"),
+    "randint with one key": (lambda: [_segment("randint", keys=((1, 2),))],
+                             "keys"),
+    "uniform with two keys": (lambda: [_segment(keys=((1, 2), (3, 4)))], "keys"),
+    "randint range 0": (lambda: [_segment("randint", range=0)], "range"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DRAWS_BAD))
+def test_draws_wrapper_rejects(case):
+    table, match = DRAWS_BAD[case]
+    before = dict(kernels.LAUNCHES), dict(kernels.DRAW_LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        kernels.launch_draws(table())
+    assert (kernels.LAUNCHES, kernels.DRAW_LAUNCHES) == before
+
+
+def test_draw_spec_matches_the_kernel_source():
+    """kernels.DrawSpec has threefry.cu's DrawSpec fields, in order, with
+    their C types and the size the source asserts; the segment limit,
+    elements per thread and mode numbers are the source's; the key
+    schedule is the one common.cuh's threefry_key builds."""
+    text = (Path(kernels.__file__).parent / "csrc" / "threefry.cu").read_text()
+    body = re.search(r"struct DrawSpec \{(.*?)\};", text, re.S).group(1)
+    c_types = {"void*": ctypes.c_void_p, "int64_t": ctypes.c_int64,
+               "int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32,
+               "float": ctypes.c_float}
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        words = decl.replace("*", "* ").split()
+        if not words:
+            continue
+        name, size = re.fullmatch(r"(\w+)(?:\[(\d+)\])?", words[-1]).groups()
+        t = c_types["".join(words[:-1])]
+        fields.append((name, t * int(size) if size else t))
+    assert [(n, ctypes.sizeof(t), getattr(t, "_type_", t))
+            for n, t in fields] == \
+        [(n, ctypes.sizeof(t), getattr(t, "_type_", t))
+         for n, t in kernels.DrawSpec._fields_]
+    size = int(re.search(r"sizeof\(DrawSpec\) == (\d+)", text).group(1))
+    assert ctypes.sizeof(kernels.DrawSpec) == size
+    assert int(re.search(r"kMaxSegments = (\d+);", text).group(1)) == \
+        kernels.MAX_SEGMENTS
+    assert int(re.search(r"kPer = (\d+);", text).group(1)) == \
+        kernels.DRAW_ELEMENTS_PER_THREAD
+    modes = re.search(r"enum Mode[^{]*\{(.*?)\};", text, re.S).group(1)
+    assert re.findall(r"k(\w+) = (\d+)", modes)[:5] == \
+        [(m.capitalize(), str(i)) for i, m in enumerate(kernels.DRAW_MODES)]
+    k0, k1 = 0x12345678, 0x9ABCDEF0
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    assert kernels._schedule((k0, k1)) == [
+        k0, k1, k2, (k2 + 1) & 0xFFFFFFFF, (k0 + 2) & 0xFFFFFFFF,
+        (k1 + 3) & 0xFFFFFFFF, (k2 + 4) & 0xFFFFFFFF, (k0 + 5) & 0xFFFFFFFF]
 
 
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,

@@ -1,7 +1,9 @@
 """The port's threefry streams against jax.random (jax 0.9,
 jax_threefry_partitionable=True — the reference streams depend on both).
 
-Keys, raw bits, uniform, bernoulli and randint are bit-equal.  Two
+Every draw goes through the port's API (`prng.bits`, ..., `prng.draw`),
+which on the CPU runs the plain twins of kernel K1's modes.  Keys, raw
+bits, uniform, bernoulli and randint are bit-equal.  Two
 transforms go through a float function whose rounding differs between
 XLA-CPU and PyTorch-CPU by one ulp on some inputs:
 
@@ -14,10 +16,14 @@ Neither feeds the detector's int/bool state: exponential scales probe
 RTTs far inside the probe timeout, normal only orients Vivaldi springs.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_parity import ulps
 
@@ -89,3 +95,68 @@ def test_normal_within_three_ulp():
     jn = np.asarray(jax.random.normal(k, shape))
     tn = prng.normal(_key(k), shape, "cpu").numpy()
     assert ulps(jn, tn).max() <= 3
+
+
+@pytest.mark.parametrize("span", (2 ** 16 - 3, 2 ** 16 + 1))
+def test_randint_bit_equal_at_the_multiplier_wrap(span):
+    """randint's multiplier (2^16 mod span)^2 mod 2^32 mod span wraps to 0
+    for spans above 2^16 (2^32 mod 2^32), and is not 0 just below."""
+    assert (prng._randint_span(-5, span - 5)[1] == 0) == (span > 2 ** 16)
+    for tick in (0, 77):
+        k = jprng.tick_key(3, tick, 4)
+        shape = (513, 3)
+        jr = np.asarray(jax.random.randint(k, shape, -5, span - 5,
+                                           dtype=jnp.int32))
+        tr = prng.randint(_key(k), shape, -5, span - 5, "cpu").numpy()
+        np.testing.assert_array_equal(tr, jr)
+
+
+def _probe_draws(n: int, k: int = 3):
+    """The draws of one probe round, as swim._probe_round makes them."""
+    kt = prng.tick_key(7, 40, 1)
+    k_off, k_direct, k_leg, k_rtt, k_lha = prng.split(kt, 5)
+    return [prng.Draw("randint", k_off, (1 + k,), 1, n),
+            prng.Draw("exponential", k_rtt, (n,)),
+            prng.Draw("uniform", k_direct, (n,)),
+            prng.Draw("uniform", k_lha, (n,)),
+            *[prng.Draw("uniform", key, (n, k)) for key in prng.split(k_leg, 3)],
+            prng.Draw("normal", k_rtt, (n, 8)),
+            prng.Draw("bits", k_lha, (n, 2)),
+            prng.Draw("uniform", k_off, (n,), -2.0, 3.5)]
+
+
+def test_draw_equals_the_same_draws_one_by_one():
+    """prng.draw (one K1 launch per 8 draws on a card) gives each draw's
+    tensor exactly as the single-draw functions do."""
+    draws = _probe_draws(1000)
+    single = {"bits": lambda d: prng.bits(d.key, d.shape, "cpu"),
+              "uniform": lambda d: prng.uniform(d.key, d.shape, "cpu",
+                                                d.minval, d.maxval),
+              "exponential": lambda d: prng.exponential(d.key, d.shape, "cpu"),
+              "normal": lambda d: prng.normal(d.key, d.shape, "cpu"),
+              "randint": lambda d: prng.randint(d.key, d.shape, d.minval,
+                                                d.maxval, "cpu")}
+    got = prng.draw(draws, "cpu")
+    assert len(got) == len(draws) > 8
+    for d, t in zip(draws, got):
+        want = single[d.kind](d)
+        assert t.dtype == want.dtype and tuple(t.shape) == d.shape, d
+        assert torch.equal(t.view(torch.int32), want.view(torch.int32)), d
+
+
+def test_draw_rejects_an_unknown_kind():
+    with pytest.raises(ValueError, match="kind"):
+        prng.draw([prng.Draw("gamma", (0, 1), (3,))], "cpu")
+
+
+def test_kernel_constants_are_the_plain_twins():
+    """threefry.cu's erf_inv coefficients and sqrt(2) are the float32 bit
+    patterns of the plain twin's constants."""
+    text = (Path(prng.__file__).parents[1] / "kernels" / "csrc"
+            / "threefry.cu").read_text()
+    bits32 = lambda x: int(np.float32(x).view(np.uint32))  # noqa: E731
+    for name, coefs in (("kLt5", prng._ERFINV_LT5), ("kGe5", prng._ERFINV_GE5)):
+        body = re.search(name + r"\[9\] = \{(.*?)\};", text, re.S).group(1)
+        assert [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body)] == \
+            [bits32(c) for c in coefs], name
+    assert f"__uint_as_float(0x{bits32(np.sqrt(2)):08x}u)" in text
