@@ -39,7 +39,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
      K2's two phases apart from torch.profiler's kernel records), each
      wrapper call and each plain twin (median of CUDA-event-timed
      calls, host dispatch included), and the least time the card could
-     take for the same work.
+     take for the same work;
+  5. oracle: the port's GossipOracle at full width (N=1M, U=32, 999,000
+     joined), driven as a user would with every launch count zeroed just
+     before: warmup, advance, the summary, a baseline delta and flap
+     journal, three kills advanced until each reads failed, the delta and
+     journal naming exactly those three, a page at offset 500,000,
+     spawn, leave and a rejoin after a committed death with their
+     statuses, coordinate, rtt, sort_by_rtt over 1,000 names and
+     publish_sim_metrics; K4's three launches must have run.  Then K4
+     against its plain twins on the card, bit-equal, on the oracle's
+     state and on random states (U = 32 and 64, k = 8, 256, 4096 and N,
+     changed counts below and above k), each launch timed against its
+     bound, its twin and the library call that computes the same, and
+     the median wall time of each oracle read.
 
 Prints, before the last line, one JSON object with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}.
@@ -47,7 +60,9 @@ numbers, and as the last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,10 +72,12 @@ import warnings
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from consul_tpu_torch import bench, kernels, profile_tick
+from consul_tpu_torch import bench, host, kernels, profile_tick
+from consul_tpu_torch.config import GossipConfig, SimConfig
+from consul_tpu_torch.oracle import GossipOracle
 from consul_tpu_torch.profile_tick import kernel_ms, median_ms
 from consul_tpu_torch.kernels import build
-from consul_tpu_torch.models import events, serf, swim
+from consul_tpu_torch.models import events, serf, swim, vivaldi
 from consul_tpu_torch.ops import gossip, rolls
 from consul_tpu_torch.utils import prng
 
@@ -126,7 +143,7 @@ def main_path(dev) -> dict:
             f"tick count {r['ticks']} != JAX {REFERENCE_TICKS}")
     require(r["f1"] == 1.0, f"f1 {r['f1']}")
     require(r["false_commits"] == 0, f"false commits {r['false_commits']}")
-    for name in kernels.KERNELS:
+    for name in kernels.MAIN_PATH:
         require(launches[name] > 0, f"{name} never launched on the main path")
     for mode in ("uniform", "exponential", "normal", "randint"):
         require(draw_launches[mode] > 0,
@@ -615,6 +632,354 @@ def draw_census() -> dict:
     return per
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the oracle at full width, and K4
+# ---------------------------------------------------------------------------
+
+ORACLE_SIM = SimConfig(n_nodes=N, rumor_slots=32, alloc_cap=8, p_loss=0.01,
+                       seed=7, n_initial=N - 1000)
+ORACLE_VICTIMS = ("node1000", f"node{N // 2}", f"node{N - 1001}")
+
+
+class Recorder:
+    """The oracle phase's host services: what the oracle emits, the times
+    it observes and the gauges it publishes."""
+
+    def __init__(self):
+        self.events, self.observed, self.gauges = [], {}, {}
+
+    def hooks(self) -> host.Hooks:
+        return host.Hooks(emit=self._emit, observe=self._observe,
+                          span=self._span, registry=lambda: self)
+
+    def _emit(self, name, labels=None, **kw):
+        self.events.append((name, dict(labels or {}), kw))
+
+    def _observe(self, name, seconds):
+        self.observed.setdefault(name, []).append(seconds)
+
+    @contextlib.contextmanager
+    def _span(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._observe(name, time.perf_counter() - t0)
+
+    def set_gauge(self, name, value, labels=None):
+        self.gauges[(name, tuple(sorted((labels or {}).items())))] = value
+
+
+def _advance_until(o, cond, what: str, step: int = 25,
+                   limit: int = 1000) -> int:
+    ticks = 0
+    while not cond():
+        require(ticks < limit, f"oracle: {what} not reached in {limit} ticks")
+        o.advance(step)
+        ticks += step
+    return ticks
+
+
+def wall_ms(fn, reps: int = 20) -> float:
+    """Median host wall ms of one call of fn, ended by a synchronize."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    return sorted(times)[len(times) // 2]
+
+
+def oracle_path(dev) -> tuple:
+    """The oracle driven as a user drives it, K4's counts zeroed just
+    before.  Returns (the oracle, the phase's record)."""
+    rec = Recorder()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    o = GossipOracle(GossipConfig.lan(), ORACLE_SIM, device=dev,
+                     hooks=rec.hooks())
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o.warmup()
+    warmup_s = time.perf_counter() - t0
+    o.advance(1)
+    joined = ORACLE_SIM.n_initial
+    summary = o.members_summary()
+    require(summary == {"alive": joined, "failed": 0, "left": 0,
+                        "total": joined}, f"oracle: fresh summary {summary}")
+    require(o.journal_flaps() == 0, "oracle: the first journal_flaps "
+            "journaled rows")
+    first = o.members_delta()
+    require(first["count"] == joined and first["truncated"]
+            and len(first["changed"]) == 256,
+            f"oracle: first delta count {first['count']}")
+    for v in ORACLE_VICTIMS:
+        o.kill(v)
+    ticks = _advance_until(
+        o, lambda: all(o.status(v) == "failed" for v in ORACLE_VICTIMS),
+        "the victims' failure")
+    ids = sorted(o.node_id(v) for v in ORACLE_VICTIMS)
+    delta = o.members_delta()
+    require(delta == {"count": 3, "changed": [(i, "failed") for i in ids],
+                      "truncated": False}, f"oracle: delta {delta}")
+    n_ev = len(rec.events)
+    require(o.journal_flaps() == 3, "oracle: journal_flaps != 3")
+    flaps = rec.events[n_ev:]
+    require(sorted(e[1]["node"] for e in flaps) == sorted(ORACLE_VICTIMS)
+            and all(e[0] == "serf.member.flap" and e[1]["status"] == "failed"
+                    and e[2] == {"trace_id": ""} for e in flaps),
+            f"oracle: flap journal {flaps}")
+    page = o.members(limit=100, offset=N // 2)
+    require([r["id"] for r in page] == list(range(N // 2, N // 2 + 100))
+            and page[0]["status"] == "failed" and not page[0]["actually_up"]
+            and all(r["status"] == "alive" for r in page[1:]),
+            "oracle: page at offset N / 2")
+    spawned = o.spawn()
+    require(spawned == f"node{joined}" and o.status(spawned) == "alive"
+            and o.members_summary()["total"] == joined + 1,
+            f"oracle: spawn gave {spawned}")
+    o.leave("node2000")
+    require(o.status("node2000") == "left", "oracle: leave")
+    vid = o.node_id(ORACLE_VICTIMS[0])
+    ticks += _advance_until(
+        o, lambda: bool(o._state.swim.committed_dead[vid]),
+        f"the commit of {ORACLE_VICTIMS[0]}'s death")
+    require(o.status(ORACLE_VICTIMS[0]) == "failed", "oracle: committed death")
+    o.revive(ORACLE_VICTIMS[0])
+    require(o.status(ORACLE_VICTIMS[0]) == "alive", "oracle: rejoin")
+    o.advance(5)
+    ticks += 5
+    summary = o.members_summary()
+    require(summary == {"alive": joined - 2, "failed": 2, "left": 1,
+                        "total": joined + 1}, f"oracle: summary {summary}")
+    coord = o.coordinate("node5")
+    require(len(coord["vec"]) == 8 and all(
+        math.isfinite(x) for x in coord["vec"] + [coord["error"],
+                                                  coord["height"]]),
+        f"oracle: coordinate {coord}")
+    rtt = o.rtt("node5", "node6")
+    require(math.isfinite(rtt) and rtt > 0.0, f"oracle: rtt {rtt}")
+    names = [f"node{i}" for i in range(0, joined, joined // 1000)][:1000]
+    order = o.sort_by_rtt("node5", names)
+    at = torch.tensor([o.node_id(n) for n in order], dtype=torch.int32,
+                      device=dev)
+    est = vivaldi.estimate_rtt(o._state.coords, torch.full_like(at, 5), at)
+    require(sorted(order) == sorted(names) and len(names) == 1000
+            and bool((est[1:] >= est[:-1]).all()),
+            "oracle: sort_by_rtt is not ascending in estimated RTT")
+    m = o.publish_sim_metrics()
+    alive_gauge = rec.gauges.get((("serf", "members", "alive"), ()))
+    require(alive_gauge == m["members.alive"] and m["members.alive"] > 0,
+            f"oracle: published members.alive {alive_gauge}")
+    launches = dict(kernels.LAUNCHES)
+    log(f"oracle path: init_s={init_s} warmup_s={warmup_s} ticks={o.tick} "
+        f"({ticks} after the kills) summary={summary} launches={launches}")
+    for name in kernels.MEMBERS:
+        require(launches[name] > 0, f"{name} never launched by the oracle")
+    calls = {
+        "members_summary": wall_ms(o.members_summary),
+        "members_delta(256)": wall_ms(lambda: o.members_delta(256)),
+        "members(limit=100)": wall_ms(lambda: o.members(limit=100,
+                                                        offset=N // 2)),
+        "sort_by_rtt(1000)": wall_ms(lambda: o.sort_by_rtt("node5", names)),
+        "status": wall_ms(lambda: o.status(ORACLE_VICTIMS[1])),
+        "advance(1)": wall_ms(lambda: o.advance(1)),
+    }
+    log("oracle calls, median wall ms: " + json.dumps(calls))
+    return o, {"init_s": init_s, "warmup_s": warmup_s, "ticks": o.tick,
+               "summary": summary, "launches": launches, "calls_ms": calls,
+               "observed": {k: len(v) for k, v in rec.observed.items()}}
+
+
+def _random_members(dev, base, u: int, seed: int):
+    """Random member leaves of [N] and a [u] rumor table on `base`'s rows,
+    with a random provisioned mask, ids for a page and incarnations."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    n = base.member.shape[0]
+    s = base.replace(
+        member=rnd(n) < 0.97, committed_dead=rnd(n) < 0.02,
+        committed_left=rnd(n) < 0.01, up=rnd(n) < 0.95,
+        incarnation=(rnd(n) * 5).to(torch.int32),
+        r_active=rnd(u) < 0.8, r_kind=(rnd(u) * 4).to(torch.int8),
+        r_subject=(rnd(u) * n).to(torch.int32))
+    return s, rnd(n) < 0.99
+
+
+def _prev(st: torch.Tensor, flips: int, seed: int) -> torch.Tensor:
+    """st with `flips` random entries moved to another status."""
+    gen = torch.Generator(device=st.device)
+    gen.manual_seed(seed)
+    at = torch.randint(0, st.shape[0], (flips,), generator=gen,
+                       device=st.device)
+    prev = st.clone()
+    prev[at] = ((prev[at].to(torch.int32) + 1) % 3).to(torch.int8)
+    return prev
+
+
+def _same(a, b, what: str) -> None:
+    require(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+            f"K4 {what} != plain")
+
+
+def check_members(dev, o) -> tuple:
+    """K4 against its plain twins, bit-equal, on the oracle's state and on
+    random states; each launch timed.  Returns (the kernels-line entries,
+    the record)."""
+    params = o.params.swim
+    sw, prov = o._state.swim, o._prov_dev
+    ids = torch.cat([torch.randint(0, N, (4093,), device=dev,
+                                   generator=torch.Generator(device=dev)
+                                   .manual_seed(5)).to(torch.int32),
+                     torch.tensor([-1, N + 7, -N - 3], dtype=torch.int32,
+                                  device=dev)])
+    cases = {"oracle": (sw, prov)}
+    for u in (32, 64):
+        cases[f"random U={u}"] = _random_members(dev, sw, u, 40 + u)
+    held = []
+    for name, (s, pv) in cases.items():
+        st = swim.status_vector(params, s)
+        _same(st, swim.status_vector_plain(params, s), f"{name} status")
+        _same(swim.membership_counts(params, s, pv),
+              swim.membership_counts_plain(params, s, pv), f"{name} counts")
+        for a, b, what in zip(swim.membership_page(params, s, ids),
+                              swim.membership_page_plain(params, s, ids),
+                              ("status", "incarnation", "up")):
+            _same(a, b, f"{name} page {what}")
+        prevs = {"first": torch.full_like(st, -1)}
+        if name == "oracle":
+            prevs["checkpoint"] = o._status_ckpt
+        else:
+            prevs.update({"100 flips": _prev(st, 100, 1),
+                          "50000 flips": _prev(st, 50_000, 2)})
+        for pname, prev in prevs.items():
+            for k in (8, 256, 4096, N):
+                got = swim.membership_delta(params, s, prev, pv, k)
+                want = swim.membership_delta_plain(params, s, prev, pv, k)
+                for a, b, what in zip(got, want, ("status", "n_changed", "idx",
+                                                  "state")):
+                    _same(a, b, f"{name} {pname} k={k} delta {what}")
+                held.append((name, pname, k, int(want[1])))
+    below = sum(1 for h in held if h[3] < h[2])
+    above = sum(1 for h in held if h[3] > h[2])
+    log(f"K4 bit-equal to its plain twins: {len(held)} deltas ({below} with "
+        f"n_changed below k, {above} above), status, counts and a "
+        f"{ids.shape[0]}-id page on {list(cases)}")
+    require(below > 0 and above > 0, "K4: n_changed never both below and "
+            "above k")
+    return held
+
+
+def time_members(dev, o, launches: dict) -> list:
+    """Each K4 launch at the oracle's state: device ms (kernel_ms), the
+    plain twin's and the library call's ms, and the bound."""
+    params = o.params.swim
+    s, prov = o._state.swim, o._prov_dev
+    n, u = s.member.shape[0], s.r_active.shape[0]
+    tiles = kernels.member_tiles(n)
+    table = (s.r_active, s.r_kind, s.r_subject)
+    nodes = (s.member, s.committed_dead, s.committed_left)
+    counts = torch.zeros(kernels.MEMBER_COUNTS, dtype=torch.int32, device=dev)
+    st = torch.empty(n, dtype=torch.int8, device=dev)
+    blocks = torch.empty(tiles, dtype=torch.int32, device=dev)
+    prev = _prev(swim.status_vector(params, s), 100, 3)
+    k = 256
+    idx = torch.empty(k, dtype=torch.int32, device=dev)
+    state = torch.empty(k, dtype=torch.int8, device=dev)
+    kernels.launch_members_scan(*nodes, *table, prov, prev, st, counts, blocks)
+    changed = (st != prev) & prov
+    n_changed = int(changed.sum())
+    tiles_read = int((blocks > 0).sum())      # every rank < k here
+    page_ids = torch.arange(N // 2, N // 2 + 128, dtype=torch.int32,
+                            device=dev)
+    pk = page_ids.shape[0]
+    st_o = torch.empty(pk, dtype=torch.int8, device=dev)
+    inc_o = torch.empty(pk, dtype=torch.int32, device=dev)
+    up_o = torch.empty(pk, dtype=torch.bool, device=dev)
+
+    def bound(bytes_):
+        return bytes_ / HBM_BYTES_PER_S * 1000.0
+
+    table_bytes = 6 * u
+    rows = {
+        "members_scan": dict(
+            fn=lambda: kernels.launch_members_scan(*nodes, *table, prov, None,
+                                                   None, counts, None),
+            plain=lambda: swim.membership_counts_plain(params, s, prov),
+            library=lambda: torch.bincount(st[prov].to(torch.int64),
+                                           minlength=3),
+            bytes=4 * n + table_bytes + 4 * kernels.MEMBER_COUNTS,
+            replaces="consul_tpu/models/swim.py:1502"),
+        "members_scan (delta)": dict(
+            fn=lambda: kernels.launch_members_scan(*nodes, *table, prov, prev,
+                                                   st, counts, blocks),
+            plain=lambda: swim.status_vector_plain(params, s),
+            library=None,
+            bytes=5 * n + n + table_bytes + 4 * tiles + 4 * kernels.MEMBER_COUNTS,
+            replaces="consul_tpu/models/swim.py:1487"),
+        "members_emit": dict(
+            fn=lambda: kernels.launch_members_emit(st, prev, prov, blocks, k,
+                                                   idx, state),
+            plain=lambda: swim._top_k(changed.to(torch.int32), k),
+            library=lambda: torch.nonzero(changed)[:k],
+            bytes=4 * tiles + 3 * kernels.MEMBER_TILE * tiles_read + 5 * k,
+            replaces="consul_tpu/models/swim.py:1525"),
+        "members_page": dict(
+            fn=lambda: kernels.launch_members_page(
+                page_ids, *nodes, *table, s.incarnation, s.up, st_o, inc_o,
+                up_o),
+            plain=lambda: swim.membership_page_plain(params, s, page_ids),
+            library=None,
+            bytes=pk * (4 + 3 + 4 + 1) + table_bytes + pk * (1 + 4 + 1),
+            replaces="consul_tpu/models/swim.py:1517"),
+    }
+    timed = {}
+    for name, r in rows.items():
+        t = {"ms": kernel_ms(r["fn"]), "plain_ms": median_ms(r["plain"]),
+             "library_ms": median_ms(r["library"]) if r["library"] else None,
+             "bound_ms": bound(r["bytes"]), "bound_bytes": r["bytes"]}
+        timed[name] = t
+        log(f"K4 {name}: " + json.dumps(t))
+    timed["members_emit"].update(n_changed=n_changed, k=k,
+                                 tiles_read=tiles_read)
+    timed["members_page"]["ids"] = pk
+    # the plain delta whole (status + sort) against scan + emit
+    timed["delta_plain_ms"] = median_ms(
+        lambda: swim.membership_delta_plain(params, s, prev, prov, k))
+    timed["delta_kernel_call_ms"] = median_ms(
+        lambda: swim.membership_delta(params, s, prev, prov, k))
+    log(f"K4 delta at k={k}, {n_changed} changed: plain "
+        f"{timed['delta_plain_ms']} ms, scan + emit call "
+        f"{timed['delta_kernel_call_ms']} ms")
+    entries = []
+    for name in ("members_scan", "members_emit", "members_page"):
+        t = timed[name]
+        e = {"name": name, "route": "cuda",
+             "source": "consul_tpu_torch/kernels/csrc/members.cu",
+             "replaces": rows[name]["replaces"], "launches": launches[name],
+             "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": "bytes",
+             "library_ms": t["library_ms"], "shape": [n, u]}
+        if name == "members_scan":
+            e["delta"] = timed["members_scan (delta)"]
+        entries.append(e)
+    return entries, timed
+
+
+def oracle_phase(dev) -> tuple:
+    """Phase 5: (K4's kernels-line entries, the phase's record)."""
+    o, path = oracle_path(dev)
+    held = check_members(dev, o)
+    entries, timed = time_members(dev, o, path["launches"])
+    o.stop()
+    return entries, {"path": path, "k4_held": held, "k4": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -650,13 +1015,15 @@ def main() -> int:
     results = [*k1, *k2,
                check_monitor(dev, params.swim, states, bench.VICTIM,
                              launches["believed_down"])]
+    k4, oracle_record = oracle_phase(dev)
+    results += k4
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
-            f"{k['launches']} library_ms=none (no single PyTorch call "
-            f"computes this function)")
+            f"{k['launches']} library_ms={k['library_ms']}")
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": results,
+              "oracle": oracle_record,
               "kernels_per_tick": per_tick, "gossip_states": k2_states,
               "k1": k1_record, "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],

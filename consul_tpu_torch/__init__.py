@@ -2,9 +2,10 @@
 
 The north-star path (the serf pool's crash-to-convergence run) on an
 NVIDIA Hopper card: threefry streams, ring exchange, gossip
-dissemination, the SWIM detector passes, Vivaldi and user events.  The
-hot device programs run hand-written CUDA kernels (`kernels/`); every
-kernel has a plain PyTorch twin that CPU tensors take.
+dissemination, the SWIM detector passes, Vivaldi and user events, and
+the host handle on the pool (`oracle.py`, `segments.py`).  The hot
+device programs run hand-written CUDA kernels (`kernels/`); every kernel
+has a plain PyTorch twin that CPU tensors take.
 """
 
 from consul_tpu_torch.config import GossipConfig, SimConfig

@@ -100,7 +100,8 @@ class SimConfig:
     rtt_spread_ms: float = 30.0    # scale of the coordinate space (ms)
     coord_dims: int = 2            # ground-truth latency-space dims
     seed: int = 0
-    # node-axis shard count; the port runs one device, so only 1 is taken
+    # node-axis shard count: the per-shard gauges' blocks; the port runs
+    # every block on one device (ops/rolls.py)
     shard_blocks: int = 1
     # nemesis hooks; the port's first slice runs without them
     chaos: bool = False

@@ -4,7 +4,7 @@
 for a ClusterState {"swim": ..., "coords": ..., "events": ...}), as a
 caller gets them with `np.asarray(getattr(state, name))`.  Dtypes are
 preserved exactly; the scalar ticks and the Vivaldi cursor become the
-port's host mirrors.
+port's host mirrors.  `oracle_from_numpy` carries a whole oracle's pool.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from consul_tpu_torch import oracle
 from consul_tpu_torch.models import events, serf, swim, vivaldi
 from consul_tpu_torch.utils import devices
 
@@ -80,3 +81,20 @@ def cluster_state_to_numpy(s: serf.ClusterState) -> dict:
     return {"swim": swim_state_to_numpy(s.swim),
             "coords": vivaldi_state_to_numpy(s.coords),
             "events": event_state_to_numpy(s.events)}
+
+
+def oracle_from_numpy(gossip, sim, state: dict, provisioned, device=None,
+                      hooks=None):
+    """A port GossipOracle for (gossip, sim) that holds the ClusterState
+    `state` (a cluster_state dict as above) and the provisioned mask
+    `provisioned` ([N] bool): a JAX oracle's pool carried across
+    mid-run, so both can be asked the same reads."""
+    o = oracle.GossipOracle(gossip, sim, device=device, hooks=hooks)
+    prov = np.array(provisioned, dtype=bool, copy=True)
+    if prov.shape != (sim.n_nodes,):
+        raise ValueError(f"provisioned has shape {prov.shape}, want "
+                         f"({sim.n_nodes},)")
+    o._state = cluster_state_from_numpy(state, o.device)
+    o._provisioned = prov
+    o._prov_dev = torch.tensor(prov, device=o.device)
+    return o

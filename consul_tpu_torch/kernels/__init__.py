@@ -7,7 +7,7 @@ CUDA error, and counts the launch in `LAUNCHES` — the only place the
 count moves, so a run can show that its path went through the kernel.
 The public wrappers that choose between a kernel and its plain PyTorch
 twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
-`models/swim.py` (K3).  They take the twin only for CPU tensors.
+`models/swim.py` (K3, K4).  They take the twin only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,8 +20,11 @@ import torch
 
 from consul_tpu_torch.kernels import build
 
-KERNELS = ("threefry_draws", "gossip_pack", "gossip_exchange",
-           "believed_down")
+# the main path's kernels (K1-K3), then the oracle's membership reads (K4)
+MAIN_PATH = ("threefry_draws", "gossip_pack", "gossip_exchange",
+             "believed_down")
+MEMBERS = ("members_scan", "members_emit", "members_page")
+KERNELS = MAIN_PATH + MEMBERS
 LAUNCHES = {name: 0 for name in KERNELS}
 # K1's modes, in the order of threefry.cu's Mode, and the launches of K1
 # that carried a segment of each
@@ -60,6 +63,10 @@ SIGNATURES = {
                         _U32, _I, _F32, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                         _P, _P, _I, _P],
     "believed_down": [_P] * 15 + [_I64, _I, _I64, _I, _I, _P, _I, _P, _P],
+    "members_scan": [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P, _P],
+    "members_emit": [_P] * 4 + [_I64, _I64, _P, _P, _P],
+    "members_page": [_P, _I64] + [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P,
+                                             _P],
 }
 
 
@@ -320,3 +327,124 @@ def launch_believed_down(know, learn_tick, up, member, r_active, r_kind,
         out.data_ptr(), _stream(dev))
     _check(rc, "believed_down")
     LAUNCHES["believed_down"] += 1
+
+
+# members.cu's tile: the nodes of one block of members_scan and
+# members_emit (kThreads * kPer), the unit of the per-block changed counts
+MEMBER_TILE = 1024
+MEMBER_COUNTS = 5    # alive, failed, left, provisioned, changed
+
+
+def member_tiles(n: int) -> int:
+    return -(-n // MEMBER_TILE)
+
+
+def _rumor_table(r_active, r_kind, r_subject, dev, name: str) -> int:
+    u = r_active.shape[0] if r_active is not None and r_active.dim() == 1 else -1
+    if not 1 <= u <= 64:
+        raise ValueError(f"{name} takes 1-64 slots, got {u}")
+    for t, what, dt in ((r_active, "r_active", torch.bool),
+                        (r_kind, "r_kind", torch.int8),
+                        (r_subject, "r_subject", torch.int32)):
+        _require(t, f"{name} {what}", dt, dev, (u,))
+    return u
+
+
+def _node_vectors(name: str, dev, n: int, *named) -> None:
+    for t, what, dt in named:
+        _require(t, f"{name} {what}", dt, dev, (n,))
+
+
+def launch_members_scan(member, committed_dead, committed_left, r_active,
+                        r_kind, r_subject, provisioned, prev, status,
+                        counts, block_changed) -> None:
+    """K4's scan: status [N] int8 (when given), counts [5] int32 += alive,
+    failed, left, provisioned and changed-against-prev over provisioned
+    nodes (all nodes when provisioned is None; counts must start at 0),
+    block_changed [member_tiles(N)] int32 = each tile's changed count.
+    With prev, status and block_changed are required."""
+    dev = member.device
+    n = member.shape[0] if member.dim() == 1 else -1
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"members_scan: member must be [N], 1 <= N < 2^31")
+    u = _rumor_table(r_active, r_kind, r_subject, dev, "members_scan")
+    _node_vectors("members_scan", dev, n, (member, "member", torch.bool),
+                  (committed_dead, "committed_dead", torch.bool),
+                  (committed_left, "committed_left", torch.bool))
+    _require(counts, "members_scan counts", torch.int32, dev,
+             (MEMBER_COUNTS,))
+    if provisioned is not None:
+        _require(provisioned, "members_scan provisioned", torch.bool, dev,
+                 (n,))
+    if status is not None:
+        _require(status, "members_scan status", torch.int8, dev, (n,))
+    if prev is not None:
+        if status is None or block_changed is None:
+            raise ValueError("members_scan: prev needs status and "
+                             "block_changed")
+        _require(prev, "members_scan prev", torch.int8, dev, (n,))
+    if block_changed is not None:
+        _require(block_changed, "members_scan block_changed", torch.int32,
+                 dev, (member_tiles(n),))
+    rc = library().members_scan(
+        member.data_ptr(), committed_dead.data_ptr(),
+        committed_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
+        r_subject.data_ptr(), u, _ptr(provisioned), _ptr(prev), n,
+        _ptr(status), counts.data_ptr(), _ptr(block_changed), _stream(dev))
+    _check(rc, "members_scan")
+    LAUNCHES["members_scan"] += 1
+
+
+def launch_members_emit(status, prev, provisioned, block_changed, k: int,
+                        idx, state) -> None:
+    """K4's emit: idx [k] int32 and state [k] int8 = the ascending first k
+    provisioned nodes whose status differs from prev, then -1 and
+    status[0] (block_changed is members_scan's, from the same status)."""
+    dev = status.device
+    n = status.shape[0] if status.dim() == 1 else -1
+    if not 1 <= n < 2 ** 31 or not 1 <= k < 2 ** 31:
+        raise ValueError(f"members_emit: N={n} and k={k} must lie in "
+                         f"[1, 2^31)")
+    _node_vectors("members_emit", dev, n, (status, "status", torch.int8),
+                  (prev, "prev", torch.int8),
+                  (provisioned, "provisioned", torch.bool))
+    _require(block_changed, "members_emit block_changed", torch.int32, dev,
+             (member_tiles(n),))
+    _require(idx, "members_emit idx", torch.int32, dev, (k,))
+    _require(state, "members_emit state", torch.int8, dev, (k,))
+    rc = library().members_emit(status.data_ptr(), prev.data_ptr(),
+                                provisioned.data_ptr(),
+                                block_changed.data_ptr(), n, k,
+                                idx.data_ptr(), state.data_ptr(), _stream(dev))
+    _check(rc, "members_emit")
+    LAUNCHES["members_emit"] += 1
+
+
+def launch_members_page(ids, member, committed_dead, committed_left,
+                        r_active, r_kind, r_subject, incarnation, up,
+                        st_out, inc_out, up_out) -> None:
+    """K4's page: for the [K] int32 ids (negative ones wrapped once, then
+    clamped into [0, N)), status, incarnation and up."""
+    dev = member.device
+    n = member.shape[0] if member.dim() == 1 else -1
+    kk = ids.shape[0] if ids.dim() == 1 else 0
+    if not 1 <= n < 2 ** 31 or kk < 1:
+        raise ValueError(f"members_page: N={n} must lie in [1, 2^31) and "
+                         f"ids must be [K], K >= 1")
+    u = _rumor_table(r_active, r_kind, r_subject, dev, "members_page")
+    _node_vectors("members_page", dev, n, (member, "member", torch.bool),
+                  (committed_dead, "committed_dead", torch.bool),
+                  (committed_left, "committed_left", torch.bool),
+                  (incarnation, "incarnation", torch.int32),
+                  (up, "up", torch.bool))
+    _require(ids, "members_page ids", torch.int32, dev, (kk,))
+    _require(st_out, "members_page st_out", torch.int8, dev, (kk,))
+    _require(inc_out, "members_page inc_out", torch.int32, dev, (kk,))
+    _require(up_out, "members_page up_out", torch.bool, dev, (kk,))
+    rc = library().members_page(
+        ids.data_ptr(), kk, member.data_ptr(), committed_dead.data_ptr(),
+        committed_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
+        r_subject.data_ptr(), u, incarnation.data_ptr(), up.data_ptr(), n,
+        st_out.data_ptr(), inc_out.data_ptr(), up_out.data_ptr(), _stream(dev))
+    _check(rc, "members_page")
+    LAUNCHES["members_page"] += 1

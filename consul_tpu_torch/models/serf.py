@@ -4,7 +4,9 @@ one cluster step (the port of consul_tpu/models/serf.py:28-164).
 Each tick advances failure detection and dissemination (models/swim.py),
 feeds the round's direct probe acks to the coordinate solver on probe
 ticks (serf's update-on-probe-ack coupling), and advances user events
-with the tick's new up/member vectors.
+with the tick's new up/member vectors.  The oracle's reads over the pool
+(status, counts, page, delta, per-shard gauges, RTT order) close the
+module.
 """
 
 from __future__ import annotations
@@ -91,6 +93,51 @@ def run(params: SerfParams, s: ClusterState, n_ticks: int,
 def metrics_vector(params: SerfParams, s: ClusterState) -> torch.Tensor:
     """Device-side telemetry for the pool (swim.METRIC_NAMES order)."""
     return swim.metrics_vector(params.swim, s.swim)
+
+
+def status_vector(params: SerfParams, s: ClusterState) -> torch.Tensor:
+    """[N] int8 member status (swim.STATUS_*), on the device."""
+    return swim.status_vector(params.swim, s.swim)
+
+
+def shard_metrics(params: SerfParams, s: ClusterState,
+                  n_blocks: int) -> torch.Tensor:
+    """[B, 4] per-shard gauges (swim.SHARD_METRIC_NAMES order)."""
+    return swim.shard_metrics(params.swim, s.swim, n_blocks)
+
+
+def membership_counts(params: SerfParams, s: ClusterState,
+                      provisioned: torch.Tensor) -> torch.Tensor:
+    return swim.membership_counts(params.swim, s.swim, provisioned)
+
+
+def membership_page(params: SerfParams, s: ClusterState, ids: torch.Tensor):
+    return swim.membership_page(params.swim, s.swim, ids)
+
+
+def membership_delta(params: SerfParams, s: ClusterState,
+                     prev_status: torch.Tensor, provisioned: torch.Tensor,
+                     k: int):
+    return swim.membership_delta(params.swim, s.swim, prev_status,
+                                 provisioned, k)
+
+
+def rtt_order(params: SerfParams, s: ClusterState, origin,
+              ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """?near= ordering (agent/consul/rtt.go:196, lib/rtt.go:13-43): the
+    estimated RTT from `origin` to each of the [K] `ids`, padding rows
+    (`valid` False) at +inf, and the stable argsort of those [K] distances
+    as int32 (serf.py:120-145).  The JAX package computes the distance of
+    every node so a node-sharded mesh never gathers a row; one device
+    computes the K query rows alone, with the same arithmetic per row."""
+    c = s.coords
+    o = torch.as_tensor(origin, dtype=torch.int64, device=c.coords.device)
+    at = ids.to(torch.int64)
+    d = vivaldi._norm(c.coords[at] - c.coords[o]) + c.height[at] + c.height[o]
+    adjusted = d + c.adjustment[at] + c.adjustment[o]
+    dist = torch.where(adjusted > 0.0, adjusted, d)
+    dist = torch.where(valid, dist, torch.inf)
+    return torch.sort(dist, stable=True).indices.to(torch.int32)
 
 
 def fire_event(params: SerfParams, s: ClusterState, origin: int,

@@ -4,8 +4,9 @@ The port of consul_tpu/models/swim.py's main path: the rumor-centric state
 (O(N) ground truth, a U-slot rumor table, the [N, U] knowledge matrix),
 the probe-tick detector pipeline (probe round, slot and dense suspicion
 expiry, refutation, coverage-guarded expiry), per-tick dissemination,
-the bulk death channel, the convergence monitor, the metrics vector and
-`kill`.  Each function computes what its JAX counterpart computes, with
+the bulk death channel, the convergence monitor, the metrics vectors,
+the oracle's membership reads and the commands `kill`, `rejoin` and
+`leave`.  Each function computes what its JAX counterpart computes, with
 the same dtypes (wrapping int16 learn ticks, int8 budgets/kinds), so a
 converted JAX state advanced here and there stays bit-equal on its int
 and bool leaves.
@@ -21,10 +22,11 @@ Control flow that JAX expresses inside `lax.scan`:
     `bulk_live` host flag (the bulk channel only gains members on probe
     ticks); gossip-only ticks never sync.
 
-`believed_down_fraction` launches kernel K3 on CUDA tensors; the gossip
-pass (with its learn-tick stamp, counter update and loss draw) goes
-through ops/gossip.py (K2) and every other random draw through
-utils/prng.py (K1).  `params.chaos` (the nemesis build) is not ported.
+`believed_down_fraction` launches kernel K3 on CUDA tensors, and the
+membership reads (`status_vector`, `membership_counts`/`page`/`delta`)
+kernel K4; the gossip pass (with its learn-tick stamp, counter update
+and loss draw) goes through ops/gossip.py (K2) and every other random
+draw through utils/prng.py (K1).  `params.chaos` (the nemesis build) is not ported.
 """
 
 from __future__ import annotations
@@ -98,8 +100,9 @@ def make_params(gossip: GossipConfig, sim: SimConfig) -> SwimParams:
     n = sim.n_nodes
     if sim.chaos:
         raise NotImplementedError("the nemesis (chaos) build is not ported")
-    if sim.shard_blocks != 1:
-        raise NotImplementedError("node-axis sharding is not ported")
+    if sim.shard_blocks > 1 and n % sim.shard_blocks:
+        raise ValueError(f"shard_blocks={sim.shard_blocks} must divide "
+                         f"n_nodes={n}")
     limit = min(gossip.retransmit_limit(n), 127)
     spread = max(8, 4 * math.ceil(math.log2(n + 1)))
     return SwimParams(
@@ -243,7 +246,9 @@ def _set_drop(table: torch.Tensor, idx: torch.Tensor,
 
 
 def _top_k(x: torch.Tensor, k: int):
-    """lax.top_k: the k largest, earlier index first among equals."""
+    """lax.top_k: the k largest, earlier index first among equals.  The JAX
+    package's `_top_k_sharded` returns exactly this for any shard count
+    (swim.py:569-602), so one device needs no block argument."""
     vals, idx = torch.sort(x, descending=True, stable=True)
     return vals[:k], idx[:k].to(I32)
 
@@ -977,3 +982,214 @@ def kill(s: SwimState, node: int) -> SwimState:
     up = s.up.clone()
     up[node] = False
     return s.replace(up=up)
+
+
+# Per-shard split of the pool gauges: the node axis cut into `n_blocks`
+# contiguous blocks (SimConfig.shard_blocks), each gauge reduced per block.
+SHARD_METRIC_NAMES = (
+    "members.alive", "members.failed_committed",
+    "members.left_committed", "awareness.mean",
+)
+
+
+def shard_metrics(params: SwimParams, s: SwimState,
+                  n_blocks: int) -> torch.Tensor:
+    """[n_blocks, len(SHARD_METRIC_NAMES)] float32 per-shard gauges
+    (swim.py:1449-1469)."""
+    def blk(x):
+        return x.reshape(n_blocks, -1)
+
+    live = s.up & s.member
+    alive = blk(live).sum(1).to(F32)
+    n_live = alive.clamp_min(1.0)
+    failed = blk(s.committed_dead).sum(1).to(F32)
+    left = blk(s.committed_left).sum(1).to(F32)
+    aware = blk(torch.where(live, s.awareness.to(I32), 0)).sum(1).to(F32) \
+        / n_live
+    return torch.stack([alive, failed, left, aware], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# oracle reads: the membership status and its reductions (K4)
+# ---------------------------------------------------------------------------
+
+STATUS_ALIVE = 0
+STATUS_FAILED = 1
+STATUS_LEFT = 2
+
+
+def status_vector_plain(params: SwimParams, s: SwimState) -> torch.Tensor:
+    """[N] int8 member status (swim.py:1482-1495): failed = committed dead
+    or an active dead rumor, left = committed left or not a member; left
+    wins.  The dead rumors scatter to their subjects, masked slots to
+    index 0 with False."""
+    is_dead = s.r_active & (s.r_kind == DEAD)
+    dead_rumor = _scatter(torch.zeros_like(s.committed_dead),
+                          torch.where(is_dead, s.r_subject, 0), is_dead,
+                          "amax")
+    failed = s.committed_dead | dead_rumor
+    left = s.committed_left | ~s.member
+    return torch.where(left, STATUS_LEFT,
+                       torch.where(failed, STATUS_FAILED,
+                                   STATUS_ALIVE)).to(I8)
+
+
+def _clamped(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """ids as a JAX gather takes them: negative ones wrapped once, then
+    clamped into [0, n)."""
+    ids = ids.to(I64)
+    return torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+
+
+def membership_counts_plain(params: SwimParams, s: SwimState,
+                            provisioned: torch.Tensor) -> torch.Tensor:
+    st = status_vector_plain(params, s)
+    return torch.stack([(provisioned & (st == STATUS_ALIVE)).sum(),
+                        (provisioned & (st == STATUS_FAILED)).sum(),
+                        (provisioned & (st == STATUS_LEFT)).sum(),
+                        provisioned.sum()]).to(I32)
+
+
+def membership_page_plain(params: SwimParams, s: SwimState,
+                          ids: torch.Tensor):
+    st = status_vector_plain(params, s)
+    at = _clamped(ids, st.shape[0])
+    return st[at], s.incarnation[at], s.up[at]
+
+
+def membership_delta_plain(params: SwimParams, s: SwimState,
+                           prev_status: torch.Tensor,
+                           provisioned: torch.Tensor, k: int):
+    """The plain version of K4's delta (swim.py:1525-1559): the first k
+    changed indices by a stable top-k of the 0/1 changed mask."""
+    st = status_vector_plain(params, s)
+    changed = (st != prev_status) & provisioned
+    n = changed.shape[0]
+    kk = min(k, n)
+    vals, idx = _top_k(changed.to(I32), kk)
+    idx = torch.where(vals > 0, idx, -1)
+    if kk < k:
+        idx = torch.cat([idx, torch.full((k - kk,), -1, dtype=I32,
+                                         device=idx.device)])
+    return st, changed.sum().to(I32), idx, st[idx.clamp_min(0).to(I64)]
+
+
+def _scan(s: SwimState, provisioned=None, prev=None, want_status=False):
+    """K4's scan: (status or None, counts [5] int32, per-tile changed
+    counts or None)."""
+    n, dev = s.member.shape[0], s.device
+    status = torch.empty(n, dtype=I8, device=dev) \
+        if want_status or prev is not None else None
+    counts = torch.zeros(kernels.MEMBER_COUNTS, dtype=I32, device=dev)
+    tiles = torch.empty(kernels.member_tiles(n), dtype=I32, device=dev) \
+        if prev is not None else None
+    kernels.launch_members_scan(s.member, s.committed_dead, s.committed_left,
+                                s.r_active, s.r_kind, s.r_subject, provisioned,
+                                prev, status, counts, tiles)
+    return status, counts, tiles
+
+
+def status_vector(params: SwimParams, s: SwimState) -> torch.Tensor:
+    """[N] int8 member status (STATUS_*), staying on the device: K4's scan
+    on CUDA tensors."""
+    if not s.member.is_cuda:
+        return status_vector_plain(params, s)
+    return _scan(s, want_status=True)[0]
+
+
+def membership_counts(params: SwimParams, s: SwimState,
+                      provisioned: torch.Tensor) -> torch.Tensor:
+    """[4] int32 (alive, failed, left, total) over provisioned nodes:
+    16 bytes to read back whatever N is (K4's scan on CUDA tensors)."""
+    if not s.member.is_cuda:
+        return membership_counts_plain(params, s, provisioned)
+    return _scan(s, provisioned=provisioned)[1][:4]
+
+
+def membership_page(params: SwimParams, s: SwimState, ids: torch.Tensor):
+    """(status [K] int8, incarnation [K] int32, up [K] bool) at the [K]
+    int32 ids (K4's page on CUDA tensors: no [N] status is built)."""
+    if not s.member.is_cuda:
+        return membership_page_plain(params, s, ids)
+    k, dev = ids.shape[0], s.device
+    st = torch.empty(k, dtype=I8, device=dev)
+    inc = torch.empty(k, dtype=I32, device=dev)
+    up = torch.empty(k, dtype=torch.bool, device=dev)
+    kernels.launch_members_page(ids, s.member, s.committed_dead,
+                                s.committed_left, s.r_active, s.r_kind,
+                                s.r_subject, s.incarnation, s.up, st, inc, up)
+    return st, inc, up
+
+
+def membership_delta(params: SwimParams, s: SwimState,
+                     prev_status: torch.Tensor, provisioned: torch.Tensor,
+                     k: int):
+    """Changed provisioned members since a status checkpoint: (new status
+    [N] int8, n_changed 0-d int32, idx [k] int32 ascending then -1, state
+    [k] int8 = status at max(idx, 0)).  On CUDA tensors, K4's scan then its
+    emit: no sort of [N]."""
+    if not s.member.is_cuda:
+        return membership_delta_plain(params, s, prev_status, provisioned, k)
+    st, counts, tiles = _scan(s, provisioned=provisioned, prev=prev_status)
+    dev = s.device
+    idx = torch.empty(k, dtype=I32, device=dev)
+    state = torch.empty(k, dtype=I8, device=dev)
+    kernels.launch_members_emit(st, prev_status, provisioned, tiles, k, idx,
+                                state)
+    return st, counts[4], idx, state
+
+
+# ---------------------------------------------------------------------------
+# membership commands (ground-truth edits and rumor origination)
+# ---------------------------------------------------------------------------
+
+def _one(n: int, node: int, device) -> torch.Tensor:
+    """want_score of _originate for one subject: 1 at node, else 0."""
+    want = torch.zeros(n, dtype=I32, device=device)
+    want[node] = 1
+    return want
+
+
+def _own_row(n: int, node: int, device) -> torch.Tensor:
+    """row_subject of _originate seeding the subject's own row."""
+    return torch.where(torch.arange(n, device=device) == node, node,
+                       -1).to(I32)
+
+
+def _set(x: torch.Tensor, node: int, value) -> torch.Tensor:
+    out = x.clone()
+    out[node] = value
+    return out
+
+
+def rejoin(params: SwimParams, s: SwimState, node: int) -> SwimState:
+    """Restart + rejoin after a committed death (swim.py:1656-1687): a
+    bumped incarnation, committed dead/left cleared, the node's stale
+    dead/left/suspect rumors withdrawn with their knowledge cells, and an
+    alive rumor originated from the node itself."""
+    n, dev = params.n_nodes, s.device
+    inc = s.incarnation.clone()
+    inc[node] += 1
+    stale = s.r_active & (s.r_subject == node) & (
+        (s.r_kind == DEAD) | (s.r_kind == LEFT) | (s.r_kind == SUSPECT))
+    s = s.replace(
+        up=_set(s.up, node, True), member=_set(s.member, node, True),
+        committed_dead=_set(s.committed_dead, node, False),
+        committed_left=_set(s.committed_left, node, False),
+        incarnation=inc,
+        r_active=s.r_active & ~stale,
+        know=s.know & ~stale[None, :],
+        sends_left=torch.where(stale[None, :], 0, s.sends_left).to(I8),
+        bulk_member=_set(s.bulk_member, node, False),
+        bulk_cov=_set(s.bulk_cov, node, 0.0))
+    return _originate(params, s, _one(n, node, dev), ALIVE, inc,
+                      _own_row(n, node, dev))[0]
+
+
+def leave(params: SwimParams, s: SwimState, node: int) -> SwimState:
+    """Graceful leave (swim.py:1689-1695): the node originates its `left`
+    rumor, then stops being a member."""
+    n, dev = params.n_nodes, s.device
+    s, _ = _originate(params, s, _one(n, node, dev), LEFT, s.incarnation,
+                      _own_row(n, node, dev))
+    return s.replace(member=_set(s.member, node, False))

@@ -1,5 +1,5 @@
 """Vivaldi network coordinates as vectorized spring relaxation (the port of
-consul_tpu/models/vivaldi.py's ring-probe path).
+consul_tpu/models/vivaldi.py's ring-probe path and its RTT estimate).
 
 Every probe ack yields one coordinate observation; a whole cluster's
 acks apply in one batched update against the ring peer (i + shift) % N.
@@ -120,3 +120,22 @@ def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
     return VivaldiState(coords=coords, height=height, error=error,
                         adj_window=adj_window, adj_index=s.adj_index + 1,
                         adjustment=adjustment)
+
+
+def raw_distance(s: VivaldiState, src: torch.Tensor,
+                 dst: torch.Tensor) -> torch.Tensor:
+    """Euclidean + height distance between node rows src and dst ([K]
+    ids; vivaldi.py:73-76), with observe_ring's norm."""
+    src, dst = src.to(torch.int64), dst.to(torch.int64)
+    return _norm(s.coords[src] - s.coords[dst]) + s.height[src] \
+        + s.height[dst]
+
+
+def estimate_rtt(s: VivaldiState, src: torch.Tensor,
+                 dst: torch.Tensor) -> torch.Tensor:
+    """Predicted RTT with the adjustment terms, floored like the reference
+    (lib/rtt.go:13-43; vivaldi.py:79-84)."""
+    d = raw_distance(s, src, dst)
+    src, dst = src.to(torch.int64), dst.to(torch.int64)
+    adjusted = d + s.adjustment[src] + s.adjustment[dst]
+    return torch.where(adjusted > 0.0, adjusted, d)

@@ -143,9 +143,8 @@ def disseminate(offs: torch.Tensor, know: torch.Tensor,
     result carries it stamped with `tick16` where a cell was newly
     learned; with `ctr` ([C] float32, its last three entries the
     delivered, served and lost totals) it carries ctr plus this round's.
-    `want_newly=False` leaves `newly` out (None)."""
-    if blocks != 1:
-        raise NotImplementedError("node-axis sharding is not ported yet")
+    `want_newly=False` leaves `newly` out (None).  `blocks`, the JAX
+    package's shard-count lowering hint, changes nothing on one device."""
     fn = disseminate_kernel if know.is_cuda else disseminate_plain
     return fn(offs, know, sends_left, sender_ok, receiver_ok, slot_active,
               retransmit_limit, p_loss, key, learn_tick, tick16, ctr,

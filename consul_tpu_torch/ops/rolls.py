@@ -8,8 +8,11 @@ subject-per-round structure).  The offsets are drawn on the device
 device-side offset, `(arange(N) + d) % N`, because `torch.roll` needs a
 host integer and reading one back would sync the device every tick.
 
-Only the single-device path exists (`blocks == 1`); sharding the node
-axis over several cards is a later slice.
+`blocks` is the node-axis shard count (`SimConfig.shard_blocks`).  The
+JAX package uses it only to lower a rotation to collective permutes
+across a mesh; the result is the same permutation for any value.  The
+port runs one device, so every `blocks` gives the `blocks == 1` views;
+sharding the node axis over several cards is a later slice.
 """
 
 from __future__ import annotations
@@ -17,12 +20,6 @@ from __future__ import annotations
 import torch
 
 from consul_tpu_torch.utils import prng
-
-
-def _single_device(blocks: int) -> None:
-    if blocks != 1:
-        raise NotImplementedError("node-axis sharding (blocks > 1) is not "
-                                  "ported yet")
 
 
 def offsets_draw(key, n: int, k: int) -> prng.Draw:
@@ -41,8 +38,8 @@ def _rows(n: int, d, device) -> torch.Tensor:
 
 
 def pull_multi(mat: torch.Tensor, offs, blocks: int = 1) -> list:
-    """k ring views: out[g][i] = mat[(i + offs[g]) % N]."""
-    _single_device(blocks)
+    """k ring views: out[g][i] = mat[(i + offs[g]) % N] (for any `blocks`:
+    one device holds every block)."""
     n = mat.shape[0]
     return [mat.index_select(0, _rows(n, offs[g], mat.device))
             for g in range(len(offs))]

@@ -44,8 +44,15 @@ def test_offsets_bit_equal():
 
 
 def test_sharded_path_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        rolls.pull(torch.zeros(8), 1, blocks=2)
+    """Node-axis sharding across cards is not ported; a shard count on one
+    device gives the one-block result, as the JAX block rotation does."""
+    x = torch.arange(16) * 3
+    for blocks in (2, 4):
+        assert torch.equal(rolls.pull(x, 5, blocks=blocks), rolls.pull(x, 5))
+        assert torch.equal(rolls.push(x, 5, blocks=blocks), rolls.push(x, 5))
+        views = rolls.pull_multi(x, [1, 7], blocks=blocks)
+        assert [v.tolist() for v in views] == \
+            [rolls.pull(x, d).tolist() for d in (1, 7)]
 
 
 @pytest.mark.parametrize("s", (32, 40))

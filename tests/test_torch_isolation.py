@@ -306,3 +306,119 @@ def test_ctypes_signatures_match_the_kernel_sources():
     """Each bound entry point's ctypes argument list has the C function's
     arity and, position by position, its pointer/integer/float kind."""
     assert _c_entry_points() == kernels.SIGNATURES
+
+
+def _members_args(n=16, u=8, k=8):
+    z = lambda *shape, dtype=torch.bool: torch.zeros(shape, dtype=dtype)  # noqa: E731
+    table = dict(r_active=z(u), r_kind=z(u, dtype=torch.int8),
+                 r_subject=z(u, dtype=torch.int32))
+    nodes = dict(member=z(n), committed_dead=z(n), committed_left=z(n))
+    tiles = kernels.member_tiles(n)
+    return {
+        "scan": dict(**nodes, **table, provisioned=z(n),
+                     prev=z(n, dtype=torch.int8),
+                     status=z(n, dtype=torch.int8),
+                     counts=z(kernels.MEMBER_COUNTS, dtype=torch.int32),
+                     block_changed=z(tiles, dtype=torch.int32)),
+        "emit": dict(status=z(n, dtype=torch.int8), prev=z(n, dtype=torch.int8),
+                     provisioned=z(n), block_changed=z(tiles, dtype=torch.int32),
+                     k=k, idx=z(k, dtype=torch.int32),
+                     state=z(k, dtype=torch.int8)),
+        "page": dict(ids=z(k, dtype=torch.int32), **nodes, **table,
+                     incarnation=z(n, dtype=torch.int32), up=z(n),
+                     st_out=z(k, dtype=torch.int8),
+                     inc_out=z(k, dtype=torch.int32), up_out=z(k)),
+    }
+
+
+MEMBERS_BAD = {
+    # case: (launch, the arguments' edit, the message it raises with)
+    "scan member dtype": ("scan", dict(member=torch.zeros(16, dtype=torch.int8)),
+                          "member"),
+    "scan prev dtype": ("scan", dict(prev=torch.zeros(16, dtype=torch.int32)),
+                        "prev"),
+    "scan counts length": ("scan", dict(counts=torch.zeros(4, dtype=torch.int32)),
+                           "counts"),
+    "scan provisioned device": ("scan", dict(provisioned=torch.zeros(
+        16, dtype=torch.bool, device=META)), "provisioned"),
+    "scan r_subject device": ("scan", dict(r_subject=torch.zeros(
+        8, dtype=torch.int32, device=META)), "r_subject"),
+    "scan prev without tiles": ("scan", dict(block_changed=None), "prev"),
+    "scan tiles length": ("scan", dict(block_changed=torch.zeros(
+        2, dtype=torch.int32)), "block_changed"),
+    "scan U > 64": ("scan", dict(r_active=torch.zeros(65, dtype=torch.bool),
+                                 r_kind=torch.zeros(65, dtype=torch.int8),
+                                 r_subject=torch.zeros(65, dtype=torch.int32)),
+                    "slots"),
+    "emit status dtype": ("emit", dict(status=torch.zeros(16, dtype=torch.uint8)),
+                          "status"),
+    "emit idx dtype": ("emit", dict(idx=torch.zeros(8, dtype=torch.int64)), "idx"),
+    "emit state length": ("emit", dict(state=torch.zeros(9, dtype=torch.int8)),
+                          "state"),
+    "emit k = 0": ("emit", dict(k=0, idx=torch.zeros(0, dtype=torch.int32),
+                                state=torch.zeros(0, dtype=torch.int8)), "k=0"),
+    "emit prev device": ("emit", dict(prev=torch.zeros(16, dtype=torch.int8,
+                                                       device=META)), "prev"),
+    "page ids dtype": ("page", dict(ids=torch.zeros(8, dtype=torch.int64)), "ids"),
+    "page incarnation dtype": ("page", dict(incarnation=torch.zeros(
+        16, dtype=torch.int64)), "incarnation"),
+    "page up device": ("page", dict(up=torch.zeros(16, dtype=torch.bool,
+                                                   device=META)), "up"),
+    "page out length": ("page", dict(inc_out=torch.zeros(7, dtype=torch.int32)),
+                        "inc_out"),
+    "page U > 64": ("page", dict(r_active=torch.zeros(65, dtype=torch.bool),
+                                 r_kind=torch.zeros(65, dtype=torch.int8),
+                                 r_subject=torch.zeros(65, dtype=torch.int32)),
+                    "slots"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MEMBERS_BAD))
+def test_members_wrappers_reject(case):
+    launch, edit, match = MEMBERS_BAD[case]
+    args = _members_args()[launch]
+    args.update(edit)
+    fn = {"scan": kernels.launch_members_scan,
+          "emit": kernels.launch_members_emit,
+          "page": kernels.launch_members_page}[launch]
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        fn(**args)
+    assert kernels.LAUNCHES == before
+
+
+def test_members_tile_matches_the_kernel_source():
+    """kernels.MEMBER_TILE and MEMBER_COUNTS are members.cu's kTile
+    (kThreads * kPer) and kCounts: the per-tile counts the scan writes
+    and the emit reads are sized from them."""
+    text = (Path(kernels.__file__).parent / "csrc" / "members.cu").read_text()
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    assert const["kThreads"] * const["kPer"] == kernels.MEMBER_TILE
+    assert const["kCounts"] == kernels.MEMBER_COUNTS
+    assert kernels.member_tiles(1) == 1
+    assert kernels.member_tiles(kernels.MEMBER_TILE + 1) == 2
+    assert set(kernels.MEMBERS) <= set(kernels.SIGNATURES)
+
+
+def test_membership_reads_on_a_card_tensor_never_take_the_plain_twin(
+        monkeypatch):
+    """On a CUDA tensor the K4 wrappers launch or raise: with the launch
+    refused, the read raises instead of answering from the plain twin."""
+    from consul_tpu_torch.models import swim as pswim
+    params = pswim.make_params(config.GossipConfig.lan(),
+                               config.SimConfig(n_nodes=16, rumor_slots=8))
+    s = pswim.init_state(params, device="cpu")
+    monkeypatch.setattr(type(s.member), "is_cuda", property(lambda t: True))
+    called = []
+
+    def refuse(*a, **k):
+        called.append(1)
+        raise RuntimeError("members_scan launch failed: CUDA error 1")
+
+    monkeypatch.setattr(kernels, "launch_members_scan", refuse)
+    monkeypatch.setattr(pswim, "status_vector_plain",
+                        lambda *a: pytest.fail("took the plain twin"))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pswim.status_vector(params, s)
+    assert called

@@ -47,3 +47,17 @@ def assert_leaves(ref: dict, got: dict, rtol: float = 1e-6,
 
 def int_leaves(d: dict) -> list:
     return [k for k, v in d.items() if np.asarray(v).dtype.kind != "f"]
+
+
+def consul_hooks():
+    """The port oracle's host hooks wired to the JAX package's flight
+    recorder, tick profiler and telemetry registry, as an agent of the
+    host package would wire them."""
+    from consul_tpu import flight, telemetry
+    from consul_tpu.profiler import default_profiler
+    from consul_tpu_torch import host
+    return host.Hooks(
+        emit=flight.emit,
+        observe=lambda name, seconds: default_profiler().observe(name, seconds),
+        span=lambda name: default_profiler().span(name),
+        registry=telemetry.default_registry)
