@@ -52,7 +52,21 @@ Phases, each of which raises on failure (so the script exits non-zero):
      state and on random states (U = 32 and 64, k = 8, 256, 4096 and N,
      changed counts below and above k), each launch timed against its
      bound, its twin and the library call that computes the same, and
-     the median wall time of each oracle read.
+     the median wall time of each oracle read;
+  6. nemesis: the chaos build through consul_tpu_torch.chaos's
+     SwimChaosHarness — asym_degradation, loss_burst and crash_restart at
+     N=1M (launch counts zeroed before each; crash_restart must
+     re-converge and never commit a revived node; K2's chaos mode once
+     per tick, the non-chaos exchange never), all four scenarios at N=256
+     on the card and on the CPU with equal digests and flight rows (the
+     JAX scenarios' size; partition_heal runs there only), and K2's chaos
+     mode held bit-equal to its twin and timed (chaos_phase);
+  7. correlated failures: consul_tpu_torch.correlated at N=1M, 1% killed
+     (recall >= 0.999, no false positive, K5 once per tick, the bulk
+     channel run), K5 held bit-equal at the replayed mid-drain and
+     drain-end states and on random states and timed, host syncs per bulk tick, and the bench
+     at N=4096 on the card and the CPU with equal curves
+     (correlated_phase).
 
 Prints, before the last line, one JSON object with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}.
@@ -72,7 +86,8 @@ import warnings
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from consul_tpu_torch import bench, host, kernels, profile_tick
+from consul_tpu_torch import (bench, chaos, correlated, host, kernels,
+                              profile_tick)
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.oracle import GossipOracle
 from consul_tpu_torch.profile_tick import kernel_ms, median_ms
@@ -145,6 +160,8 @@ def main_path(dev) -> dict:
     require(r["false_commits"] == 0, f"false commits {r['false_commits']}")
     for name in kernels.MAIN_PATH:
         require(launches[name] > 0, f"{name} never launched on the main path")
+    require(launches["gossip_exchange_chaos"] == 0,
+            "the main path ran K2's chaos mode")
     for mode in ("uniform", "exponential", "normal", "randint"):
         require(draw_launches[mode] > 0,
                 f"K1 {mode} never launched on the main path")
@@ -154,30 +171,44 @@ def main_path(dev) -> dict:
     return r
 
 
-def count_syncs(params, state, ticks: int = 10) -> dict:
-    """Host syncs per tick, as torch's sync debug mode sees them: every
-    synchronizing CUDA call warns.  A gossip-only tick must take none."""
+def count_syncs(tick, state, tick_of, period: int, ticks: int = 10) -> dict:
+    """Host syncs per probe and per gossip-only tick, as torch's sync debug
+    mode sees them: every synchronizing CUDA call warns.  `tick(state, t)`
+    runs tick t (the step and its per-tick monitor) and returns the state;
+    `tick_of(state)` is the state's tick number."""
     counts = {"probe": [0, 0], "gossip": [0, 0]}     # syncs, ticks
-    out = torch.empty(1, dtype=torch.float32, device=state.swim.device)
     torch.cuda.set_sync_debug_mode("warn")
     try:
-        for _ in range(ticks):
-            kind = ("probe" if state.swim.tick % params.swim.probe_period_ticks
-                    == 0 else "gossip")
+        for t in range(ticks):
+            kind = "probe" if tick_of(state) % period == 0 else "gossip"
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                state = serf.step(params, state)
-                swim.believed_down_fraction(params.swim, state.swim,
-                                            bench.VICTIM, out=out)
+                state = tick(state, t)
             counts[kind][0] += sum("synchroniz" in str(w.message)
                                    for w in caught)
             counts[kind][1] += 1
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    per_tick = {k: v[0] / max(v[1], 1) for k, v in counts.items()}
+    require(counts["gossip"][1] > 0, f"no gossip-only tick counted: {counts}")
+    return {k: v[0] / max(v[1], 1) for k, v in counts.items()}
+
+
+def main_path_syncs(params, state, ticks: int = 10) -> dict:
+    """Host syncs per main-path tick: serf.step, then K3 into a device
+    slot.  A gossip-only tick must take none."""
+    out = torch.empty(1, dtype=torch.float32, device=state.swim.device)
+
+    def tick(st, _):
+        st = serf.step(params, st)
+        swim.believed_down_fraction(params.swim, st.swim, bench.VICTIM,
+                                    out=out)
+        return st
+
+    per_tick = count_syncs(tick, state, lambda st: st.swim.tick,
+                           params.swim.probe_period_ticks, ticks)
     log(f"host syncs per tick (sync debug mode, {ticks} ticks): {per_tick}")
-    require(counts["gossip"][1] > 0 and counts["gossip"][0] == 0,
-            f"gossip-only ticks synchronized: {counts}")
+    require(per_tick["gossip"] == 0, f"gossip-only ticks synchronized: "
+            f"{per_tick}")
     return per_tick
 
 
@@ -398,24 +429,40 @@ def _hold_gossip(call: dict, what: str) -> dict:
 
 
 def _gossip_bounds(call: dict) -> dict:
-    """Least bytes and operations of K2 and its phases on these inputs."""
+    """Least bytes and operations of K2 and its phases on these inputs
+    (in the chaos mode also the [N] group and delivery rate, 6 bytes a
+    row, and a draw for every same-group contact whose sender queues)."""
     n, s = call["know"].shape
     g = call["offs"].shape[0]
     word = 4 if s <= 32 else 8
     stamp = call.get("learn_tick") is not None
     want_newly = call.get("want_newly", True)
+    group, node_ok = call.get("group"), call.get("node_ok")
+    chaotic = (group is not None or node_ok is not None) \
+        and call.get("key") is not None
     row = 2 * s + (2 * s if stamp else 0)          # know, sends(, learn)
     # contacts whose sender queues something: the loss draws needed
     serve = call["know"] & (call["sends_left"] > 0) & call["sender_ok"][:, None]
     cells = serve.sum(1)
-    contacts = sum(int((v > 0).sum()) for v in rolls.pull_multi(cells,
-                                                                call["offs"]))
-    draws = contacts if call.get("key") is not None and call["p_loss"] > 0 else 0
+    views = rolls.pull_multi(cells, call["offs"])
+    if chaotic and group is not None:
+        gviews = rolls.pull_multi(group, call["offs"])
+        contacts = sum(int(((v > 0) & (gv == group)).sum())
+                       for v, gv in zip(views, gviews))
+    else:
+        contacts = sum(int((v > 0).sum()) for v in views)
+    lossy = chaotic or (call.get("key") is not None and call["p_loss"] > 0)
+    draws = contacts if lossy else 0
     ops = SASS_PER_ELEMENT["uniform"] * draws
     out_newly = s if want_newly else 0
-    fn_bytes = n * (2 * row + out_newly) + 2 * n + 4 * g + s
+    extra = 0
+    if chaotic:
+        extra = (2 if group is not None else 0) + (4 if node_ok is not None
+                                                   else 0)
+    fn_bytes = n * (2 * row + out_newly + extra) + 2 * n + 4 * g + s
     pack_bytes = n * (2 * s + 1 + 2 * word)         # know, sends, flag; words
-    exch_bytes = n * (2 * word + 1 + (row - s) + row + out_newly) + 4 * g + s
+    exch_bytes = n * (2 * word + 1 + (row - s) + row + out_newly + extra) \
+        + 4 * g + s
     def bound(b, o=0):
         by_ops = o / INT32_OPS_PER_S > b / HBM_BYTES_PER_S
         return (max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S) * 1000.0,
@@ -980,6 +1027,397 @@ def oracle_phase(dev) -> tuple:
     return entries, {"path": path, "k4_held": held, "k4": timed}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 6: the nemesis build at full width, and K2's chaos mode
+# ---------------------------------------------------------------------------
+
+CHAOS_SEED = 7
+CHAOS_SLOTS = 32
+# the JAX scenarios' soak size: partition_heal runs here only (see
+# chaos_phase) and every scenario is held card against CPU here
+SCENARIO_N = 256
+
+
+def _chaos_scenario(name: str, dev, n: int, slots: int, **kw) -> dict:
+    """One scenario's SWIM half with every launch count zeroed just before:
+    its violations, detail, flight rows, launches and wall."""
+    rec = Recorder()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    violations, detail = chaos.SCENARIOS[name](CHAOS_SEED, n=n, slots=slots,
+                                               device=dev, hooks=rec.hooks(),
+                                               **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"violations": violations, "detail": detail,
+            "rows": [(e[0], e[1], e[2].get("ts")) for e in rec.events],
+            "launches": dict(kernels.LAUNCHES),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _chaos_gates(name: str, r: dict) -> None:
+    """A chaos run gossips through K2's chaos mode once per tick and never
+    through the non-chaos exchange."""
+    ticks, launches = r["detail"]["tick"], r["launches"]
+    require(launches["gossip_exchange_chaos"] == ticks,
+            f"chaos {name}: {launches['gossip_exchange_chaos']} chaos "
+            f"exchanges in {ticks} ticks")
+    require(launches["gossip_exchange"] == 0 and
+            launches["gossip_pack"] == ticks,
+            f"chaos {name}: launches {launches}")
+
+
+def _partitioned(s, seed: int):
+    """s with a seeded 25% of the nodes in partition group 1 (its degraded
+    set kept)."""
+    gen = torch.Generator(device=s.device)
+    gen.manual_seed(seed)
+    grp = (torch.rand(s.up.shape[0], generator=gen, device=s.device) < 0.25)
+    return s.replace(chaos_grp=grp.to(torch.int16))
+
+
+def _chaos_gossip_call(params, s) -> dict:
+    call = _swim_gossip_call(params, s)
+    call.update(group=s.chaos_grp, node_ok=s.chaos_ok)
+    return call
+
+
+def _random_chaos_call(dev, n: int, slots: int) -> dict:
+    call = _random_gossip_call(dev, n, slots)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    rnd = torch.rand(n, generator=gen, device=dev)
+    call.update(group=(rnd < 0.3).to(torch.int16),
+                node_ok=torch.where(rnd > 0.8, 0.55, 1.0).to(torch.float32))
+    return call
+
+
+def fenced_ms_per_tick(params, s, ticks: int = 50) -> float:
+    """Host wall ms per tick of `ticks` swim ticks from s, fenced."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chaos.compiled_swim_run(params, ticks)(s)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / ticks
+
+
+def check_chaos_gossip(dev, params, states: dict, launches: int,
+                       plain_exchange_ms: float) -> tuple:
+    """K2's chaos mode against its twin, bit-equal, on 1M states and random
+    inputs; timed as the other K2 rows are, beside the non-chaos exchange
+    on the same state.  Returns (the kernels-line entry, the record)."""
+    held = {}
+    for name, s in states.items():
+        held[name] = _hold_gossip(_chaos_gossip_call(params, s),
+                                  f"chaos {name}")
+    for n, slots in ((N, CHAOS_SLOTS), (100_003, 40)):
+        _hold_gossip(_random_chaos_call(dev, n, slots),
+                     f"chaos random {n}x{slots}")
+    log(f"K2 chaos mode held bit-equal: {held} (+ random {N}x{CHAOS_SLOTS}, "
+        f"100003x40)")
+    timed = {}
+    for name, s in states.items():
+        call = _chaos_gossip_call(params, s)
+        t = time_gossip(call, held[name]["delivered"])
+        t["lost"] = held[name]["lost"]
+        plain = _swim_gossip_call(params, s)
+        t["non_chaos_exchange_ms"] = device_ms(
+            lambda: gossip.disseminate_kernel(**plain),
+            ("gossip_exchange_kernel",))["gossip_exchange_kernel"]
+        timed[name] = t
+        log(f"K2 chaos {name}: " + json.dumps(t))
+    t = timed["degradation"]
+    n, slots = states["degradation"].know.shape
+    entry = {"name": "gossip_exchange_chaos", "route": "cuda",
+             "source": "consul_tpu_torch/kernels/csrc/gossip.cu",
+             "replaces": "consul_tpu/ops/gossip.py:82",
+             "launches": launches, "max_abs_err": 0.0,
+             "ms": t["exchange_ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["exchange_bound_ms"],
+             "bound_by": t["exchange_bound_by"], "library_ms": None,
+             "function_ms": t["function_ms"],
+             "function_bound_ms": t["function_bound_ms"],
+             "call_ms": t["call_ms"],
+             "non_chaos_exchange_ms": t["non_chaos_exchange_ms"],
+             "main_path_exchange_ms": plain_exchange_ms,
+             "partitioned": {k: timed["partitioned"][k] for k in
+                             ("exchange_ms", "exchange_bound_ms",
+                              "non_chaos_exchange_ms", "plain_ms")},
+             "shape": [n, slots, params.gossip_nodes]}
+    return entry, {"held": held, "timed": timed}
+
+
+def chaos_phase(dev, main_exchange_ms: float) -> tuple:
+    """Phase 6, the nemesis build (`SimConfig(chaos=True)`, LAN gossip,
+    U = 32, 1% loss, seed 7, 50-tick chunks) through the port's
+    SwimChaosHarness:
+
+      * asym_degradation's and loss_burst's SWIM halves and crash_restart's
+        at N = 1M, each with every launch count zeroed just before;
+        crash_restart must re-converge (recall >= 0.999, no live member
+        believed down) and never commit a flap-revived node; the
+        degradation and loss runs' committed deaths and violations are
+        printed, not gated (the JAX package never ran its nemesis above
+        256 nodes, so a 1M count has no reference);
+      * partition_heal's SWIM half at the JAX scenario's soak size, N =
+        256, only: this path's one cut.  Under chaos the bulk overflow is
+        off, so the 25% minority must be committed node by node through
+        the slot table, at most alloc_cap = 8 per probe round: 250,000
+        commits at N = 1M;
+      * all four SWIM halves at N = 256 on the card and on the CPU: the
+        same detail, flight rows and no violations;
+      * K2's chaos mode against its twin, bit-equal, on the degradation
+        run's state at the end of its fault window and on that state with
+        a 25% partition applied by hand, and on random inputs (U = 32 at
+        N = 1M, a 40-slot table at N = 100,003); timed beside its bound
+        and the non-chaos exchange.
+    Returns (the kernels-line entry, the record)."""
+    captured = {}
+    runs = {}
+    for name in ("asym_degradation", "loss_burst", "crash_restart"):
+        kw = {"observe": lambda sw: captured.update(degradation=sw.state)} \
+            if name == "asym_degradation" else {}
+        r = _chaos_scenario(name, dev, N, CHAOS_SLOTS, **kw)
+        _chaos_gates(name, r)
+        d = r["detail"]
+        log(f"chaos {name} at N={N}: wall_s={r['wall_s']} ticks={d['tick']} "
+            f"ms_per_tick={1000.0 * r['wall_s'] / d['tick']} committed_dead="
+            f"{len(d['committed_dead'])} incarnation_sum="
+            f"{d['incarnation_sum']} violations={r['violations']} "
+            f"flight_rows={len(r['rows'])} launches={r['launches']}")
+        runs[name] = {k: r[k] for k in ("violations", "wall_s", "launches")}
+        runs[name]["detail"] = {k: (len(v) if k == "committed_dead" else v)
+                                for k, v in d.items()}
+    d = runs["crash_restart"]["detail"]
+    require(d["recall"] >= 0.999 and d["false_positives"] == 0,
+            f"chaos crash_restart at 1M did not re-converge: {d}")
+    require(not any("flap-revived" in v
+                    for v in runs["crash_restart"]["violations"]),
+            f"chaos crash_restart: {runs['crash_restart']['violations']}")
+    chaos_launches = sum(r["launches"]["gossip_exchange_chaos"]
+                         for r in runs.values())
+
+    scenarios = {}
+    for name in sorted(chaos.SCENARIOS):
+        card = _chaos_scenario(name, dev, SCENARIO_N, None)
+        _chaos_gates(name, card)
+        cpu = _chaos_scenario(name, torch.device("cpu"), SCENARIO_N, None)
+        log(f"chaos {name} at N={SCENARIO_N}: card {card['detail']} "
+            f"({card['wall_s']} s), cpu {cpu['detail']} ({cpu['wall_s']} s), "
+            f"violations {card['violations']} / {cpu['violations']}")
+        require(card["detail"] == cpu["detail"],
+                f"chaos {name}: card detail != cpu detail")
+        require(card["rows"] == cpu["rows"] and card["rows"],
+                f"chaos {name}: flight rows differ")
+        require(not card["violations"] and not cpu["violations"],
+                f"chaos {name} at N={SCENARIO_N}: {card['violations']}")
+        scenarios[name] = {"detail": card["detail"], "card_wall_s":
+                           card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+                           "flight_rows": len(card["rows"])}
+
+    params = swim.make_params(GossipConfig.lan(), SimConfig(
+        n_nodes=N, rumor_slots=CHAOS_SLOTS, p_loss=0.01, seed=CHAOS_SEED,
+        chaos=True))
+    states = {"degradation": captured["degradation"],
+              "partitioned": _partitioned(captured["degradation"], 5)}
+    entry, k2 = check_chaos_gossip(dev, params, states, chaos_launches,
+                                   main_exchange_ms)
+    per_tick = {name: fenced_ms_per_tick(params, s)
+                for name, s in states.items()}
+    log(f"1M chaos ticks, fenced ms per tick over 50: {per_tick}")
+    return entry, {"runs_1m": runs, "scenarios_256": scenarios, "k2": k2,
+                   "fenced_ms_per_tick": per_tick}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the correlated-failure bench at full width, and K5
+# ---------------------------------------------------------------------------
+
+CORRELATED = dict(fractions=[0.01], rumor_slots=[32], max_ticks=4096,
+                  chunk=256, seed=7)
+# tools/correlated_failures.py's row at N = 1M, 1%, 32 slots in the JAX
+# package's BENCH_correlated.json (predates that package's last fixes)
+JAX_CONV_TICKS_99 = 634
+
+
+def _random_mass_state(dev, base, n: int, u: int, seed: int,
+                       victims: bool = True):
+    """Random K5 inputs of [n, u]: every subject of the rumor table drawn
+    from 8 nodes (duplicates across slots), a third of the slots dead or
+    left, columns known by 98.5-100% of the rows (around the 0.99 bar),
+    a bulk channel with coverage around 0.99; ~1% victims, or none."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    subjects = (rnd(8) * n).to(torch.int32)
+    col_p = 0.985 + 0.015 * rnd(u)
+    bulk = rnd(n) < 0.01
+    s = base.replace(
+        know=rnd(n, u) < col_p[None, :],
+        up=rnd(n) < 0.99, member=rnd(n) < 0.995,
+        committed_dead=rnd(n) < 0.001, committed_left=rnd(n) < 0.0005,
+        bulk_member=bulk,
+        bulk_cov=torch.where(bulk, 0.985 + 0.01 * rnd(n), 0.0),
+        r_active=rnd(u) < 0.9, r_kind=(rnd(u) * 4).to(torch.int8),
+        r_subject=subjects[(rnd(u) * 8).to(torch.int64)])
+    mask = (rnd(n) < 0.01) if victims else torch.zeros(n, dtype=torch.bool,
+                                                       device=dev)
+    return s, mask
+
+
+def _hold_mass(params, s, mask, what: str) -> tuple:
+    got = swim.mass_detection_stats(params, s, mask)
+    want = swim.mass_detection_stats_plain(params, s, mask)
+    require(torch.equal(got[0].reshape(()).view(torch.int32),
+                        want[0].reshape(()).view(torch.int32))
+            and int(got[1]) == int(want[1]),
+            f"mass_detect {what}: ({float(got[0])}, {int(got[1])}) != plain "
+            f"({float(want[0])}, {int(want[1])})")
+    return float(want[0]), int(want[1])
+
+
+def _near_bar(s) -> int:
+    """Active dead/left slots whose live coverage is within [0.9, 0.995)."""
+    live = s.up & s.member
+    cov = (s.know & live[:, None]).sum(0).float() / live.sum().clamp_min(1)
+    dl = s.r_active & ((s.r_kind == swim.DEAD) | (s.r_kind == swim.LEFT))
+    return int((dl & (cov >= 0.9) & (cov < 0.995)).sum())
+
+
+def correlated_phase(dev) -> tuple:
+    """Phase 7, the correlated-failure bench at N = 1M, 1% (10,000
+    victims), 32 slots, seed 7, 256-tick chunks, at most 4096 ticks (the
+    JAX tool's row) through `consul_tpu_torch.correlated`, every launch
+    count zeroed just before: recall >= 0.999 and no false positive, K5
+    once per tick, the bulk channel run; K5 against its twin on the 1M
+    states mid-drain (a dead/left slot near the bar) and at the drain's
+    end, and on random states, timed; the bench at N = 4096 on
+    the card and on the CPU with the same curves.  Returns (the
+    kernels-line entry, the record)."""
+    kernels.reset_launches()
+    row = correlated.run(nodes=N, device=dev, **CORRELATED)[0]
+    launches = dict(kernels.LAUNCHES)
+    brief = {k: v for k, v in row.items() if not k.endswith("_curve")}
+    log(f"correlated at N={N}: " + json.dumps(brief))
+    log(f"correlated conv_ticks_99: port {row['conv_ticks_99']}, the JAX "
+        f"package's BENCH_correlated.json {JAX_CONV_TICKS_99} (not a gate)")
+    log(f"correlated launches: {launches}")
+    require(row["recall_final"] >= 0.999,
+            f"correlated recall {row['recall_final']}")
+    require(row["false_positives_max"] == 0,
+            f"correlated false positives {row['false_positives_max']}")
+    require(launches["mass_detect"] == row["ticks_run"],
+            f"K5 launched {launches['mass_detect']} times in "
+            f"{row['ticks_run']} ticks")
+    require(row["bulk_ticks"] > 0, "the bulk channel never ran")
+
+    # the bench replayed from the seed, tick by tick, to the first tick
+    # whose recall reaches 0.5 (the end of the drain: the bulk commits land
+    # together, so recall jumps from near 0 to ~0.98 there), keeping the
+    # first state whose bulk channel is busy while a dead/left slot sits
+    # near the 0.99 bar (mid-drain); the replay must give the bench's
+    # recall curve
+    params = swim.make_params(GossipConfig.lan(), SimConfig(
+        n_nodes=N, rumor_slots=32, p_loss=0.01, seed=7))
+    end = next(i for i, r in enumerate(row["recall_curve"]) if r >= 0.5) + 1
+    s, mask = correlated.start(params, CORRELATED["fractions"][0],
+                               CORRELATED["seed"], dev)
+    curve, at_bar = [], None
+    for _ in range(end):
+        s, rec, _ = correlated.run_chunk(params, s, 1, mask)
+        curve.append(float(rec[0]))
+        if at_bar is None and bool(s.bulk_member.any()) and _near_bar(s) > 0:
+            at_bar = s
+    require(curve == row["recall_curve"][:end],
+            "the replay left the bench's recall curve")
+    require(at_bar is not None, "no replayed tick had a busy bulk channel "
+            "and a dead/left slot near the bar")
+    require(bool(s.bulk_member.any()), "the bulk channel is empty at the "
+            "drain's end")
+    states = {"near_bar": {"tick": at_bar.tick, "near_bar_slots":
+                           _near_bar(at_bar), "bulk_members":
+                           int(at_bar.bulk_member.sum())},
+              "drain_end": {"tick": s.tick, "near_bar_slots": _near_bar(s),
+                            "bulk_members": int(s.bulk_member.sum())}}
+    held = {"near_bar": _hold_mass(params, at_bar, mask, "near the bar"),
+            "drain_end": _hold_mass(params, s, mask, "at the drain's end")}
+    for name, n, u, victims in (("random U=32", N, 32, True),
+                                ("random no victims", N, 32, False),
+                                ("random U=64", N, 64, True),
+                                ("random 100003x40", 100_003, 40, True)):
+        cut = s if n == N else s.replace(
+            **{f: getattr(s, f)[:n] for f in swim.TENSOR_FIELDS
+               if getattr(s, f).shape[:1] == (N,)})
+        rs, rm = _random_mass_state(dev, cut, n, u, seed=len(held),
+                                    victims=victims)
+        held[name] = _hold_mass(params, rs, rm, name)
+    require(held["random no victims"][0] == 0.0,
+            f"K5 with no victims read recall {held['random no victims'][0]}")
+    log(f"K5 held bit-equal: {held}; replayed states: {states}")
+
+    # least bytes at the drain's end: the live rows' know, the six [N]
+    # bool leaves, the [U] table, the outputs, and bulk_cov only where a
+    # bulk subject is not committed yet, as the 32-byte sectors holding one
+    live = s.up & s.member
+    n_live = int(live.sum())
+    u = s.know.shape[1]
+    need = s.bulk_member & ~s.committed_dead & ~s.committed_left
+    cov_sectors = int(torch.unique(need.nonzero().flatten() // 8).numel())
+    bytes_ = n_live * u + 6 * N + 32 * cov_sectors + 6 * u + 8
+    out = (torch.empty(1, dtype=torch.float32, device=dev),
+           torch.empty(1, dtype=torch.int32, device=dev))
+    call = lambda: swim.mass_detection_stats(params, s, mask, out=out)  # noqa: E731
+    t = {"call_ms": kernel_ms(call),
+         "ms": device_ms(call, ("mass_detect_kernel",))["mass_detect_kernel"],
+         "wrapper_ms": median_ms(call),
+         "plain_ms": median_ms(lambda: swim.mass_detection_stats_plain(
+             params, s, mask)),
+         "bound_ms": bytes_ / HBM_BYTES_PER_S * 1000.0, "bound_bytes": bytes_,
+         "bulk_cov_sectors": cov_sectors}
+    log("K5 mass_detect: " + json.dumps(t))
+    rec = torch.empty(10, dtype=torch.float32, device=dev)
+    fps = torch.empty(10, dtype=torch.int32, device=dev)
+
+    def bulk_tick(st, i):
+        st = swim.step(params, st)
+        swim.mass_detection_stats(params, st, mask,
+                                  out=(rec[i:i + 1], fps[i:i + 1]))
+        return st
+
+    syncs = count_syncs(bulk_tick, s, lambda st: st.tick,
+                        params.probe_period_ticks)
+    log(f"bulk path host syncs per tick (sync debug mode, 10 ticks): {syncs}")
+    bulk_ms = fenced_ms_per_tick(params, s)
+    log(f"1M tick with the bulk channel active: {bulk_ms} ms (fenced, 50 "
+        f"ticks from the drain's end)")
+
+    small = dict(CORRELATED, max_ticks=1024)
+    card = correlated.run(nodes=4096, device=dev, **small)[0]
+    cpu = correlated.run(nodes=4096, device="cpu", **small)[0]
+    log(f"correlated at N=4096: card conv {card['conv_ticks_99']} recall "
+        f"{card['recall_final']}, cpu conv {cpu['conv_ticks_99']} recall "
+        f"{cpu['recall_final']}, {card['ticks_run']} ticks")
+    require(card["recall_curve"] == cpu["recall_curve"]
+            and card["fp_curve"] == cpu["fp_curve"]
+            and card["conv_ticks_99"] == cpu["conv_ticks_99"],
+            "correlated at N=4096: card and cpu curves differ")
+
+    entry = {"name": "mass_detect", "route": "cuda",
+             "source": "consul_tpu_torch/kernels/csrc/detect.cu",
+             "replaces": "consul_tpu/models/swim.py:1578",
+             "launches": launches["mass_detect"], "max_abs_err": 0.0,
+             "ms": t["ms"], "call_ms": t["call_ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": "bytes", "library_ms": None,
+             "shape": [N, u]}
+    return entry, {"row": brief, "launches": launches, "k5_held": held,
+                   "k5": t, "k5_states": states, "bulk_syncs": syncs,
+                   "bulk_tick_ms": bulk_ms,
+                   "n4096": {"conv_ticks_99": card["conv_ticks_99"],
+                             "ticks_run": card["ticks_run"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1002,7 +1440,7 @@ def main() -> int:
     SASS_PER_ELEMENT.update(draw_census())
     r = main_path(dev)
 
-    syncs = count_syncs(r["params"], r["state"])
+    syncs = main_path_syncs(r["params"], r["state"])
     per_tick = check_kernels_per_tick(r["params"], r["state"])
     params = r["params"]
     states = {"mid": mid_state(r).swim, "final": r["state"].swim}
@@ -1017,13 +1455,18 @@ def main() -> int:
                              launches["believed_down"])]
     k4, oracle_record = oracle_phase(dev)
     results += k4
+    k2_chaos, chaos_record = chaos_phase(
+        dev, k2_states["final"]["exchange_ms"])
+    k5, correlated_record = correlated_phase(dev)
+    results += [k2_chaos, k5]
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
             f"{k['launches']} library_ms={k['library_ms']}")
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": results,
-              "oracle": oracle_record,
+              "oracle": oracle_record, "chaos": chaos_record,
+              "correlated": correlated_record,
               "kernels_per_tick": per_tick, "gossip_states": k2_states,
               "k1": k1_record, "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],

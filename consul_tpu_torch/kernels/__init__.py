@@ -7,7 +7,7 @@ CUDA error, and counts the launch in `LAUNCHES` — the only place the
 count moves, so a run can show that its path went through the kernel.
 The public wrappers that choose between a kernel and its plain PyTorch
 twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
-`models/swim.py` (K3, K4).  They take the twin only for CPU tensors.
+`models/swim.py` (K3, K4, K5).  They take the twin only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +24,10 @@ from consul_tpu_torch.kernels import build
 MAIN_PATH = ("threefry_draws", "gossip_pack", "gossip_exchange",
              "believed_down")
 MEMBERS = ("members_scan", "members_emit", "members_page")
-KERNELS = MAIN_PATH + MEMBERS
+# the nemesis build and the mass-event path: K2's exchange in its chaos
+# mode (counted apart from the non-chaos exchange) and K5
+CHAOS = ("gossip_exchange_chaos", "mass_detect")
+KERNELS = MAIN_PATH + MEMBERS + CHAOS
 LAUNCHES = {name: 0 for name in KERNELS}
 # K1's modes, in the order of threefry.cu's Mode, and the launches of K1
 # that carried a segment of each
@@ -60,13 +63,14 @@ SIGNATURES = {
     "threefry_draws": [_P, _I, _P],
     "gossip_pack": [_P, _P, _P, _I64, _I, _I, _P, _P, _P],
     "gossip_exchange": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _I, _U32,
-                        _U32, _I, _F32, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-                        _P, _P, _I, _P],
+                        _U32, _I, _F32, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                        _I, _P, _P, _P, _I, _P],
     "believed_down": [_P] * 15 + [_I64, _I, _I64, _I, _I, _P, _I, _P, _P],
     "members_scan": [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P, _P],
     "members_emit": [_P] * 4 + [_I64, _I64, _P, _P, _P],
     "members_page": [_P, _I64] + [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P,
                                              _P],
+    "mass_detect": [_P] * 11 + [_I64, _I, _P, _P, _P, _P],
 }
 
 
@@ -198,7 +202,7 @@ def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
                   slot_active, limit: int, new_know, new_sends, kword, qword,
                   counters, *, key=None, p_ok: float = 1.0, learn_tick=None,
                   new_learn=None, tick16: int = 0, newly=None, ctr=None,
-                  ctr_out=None) -> None:
+                  ctr_out=None, group=None, node_ok=None) -> None:
     """K2: the pack launch, then the exchange launch, each counted.
 
     know/sends_left [N, S] bool/int8 are read; new_know/new_sends (and
@@ -208,7 +212,10 @@ def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
     float32 gets delivered, served, lost; ctr_out = ctr plus those in its
     last three entries.  With `key` (two uint32 words) contact (i, g) is
     delivered when the uniform float of element i*G + g of its threefry
-    stream is < p_ok."""
+    stream is < p_ok.  Chaos mode (with `key`): `group` [N] int16 and/or
+    `node_ok` [N] float32 make contact (i, g), sender j, exist only where
+    group[i] == group[j] and deliver below (p_ok * node_ok[i]) *
+    node_ok[j]; its exchange counts as `gossip_exchange_chaos`."""
     dev = know.device
     if know.dim() != 2 or offsets.dim() != 1:
         raise ValueError("gossip: know must be [N, S] and offsets [G]")
@@ -252,6 +259,13 @@ def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
         _require(ctr_out, "gossip ctr_out", torch.float32, dev, (c,))
         if c < 3:
             raise ValueError(f"gossip: ctr has {c} entries, want at least 3")
+    chaos = group is not None or node_ok is not None
+    if chaos and key is None:
+        raise ValueError("gossip: the chaos mode (group/node_ok) needs a key")
+    if group is not None:
+        _require(group, "gossip group", torch.int16, dev, (n,))
+    if node_ok is not None:
+        _require(node_ok, "gossip node_ok", torch.float32, dev, (n,))
     rows = [t for t in (know, sends_left, new_know, new_sends, learn_tick,
                         new_learn, newly) if t is not None]
     # lanes-per-row vectors for S = 16, 32, 64 on aligned rows, else a
@@ -269,13 +283,14 @@ def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
         kword.data_ptr(), qword.data_ptr(), offsets.data_ptr(), g,
         receiver_ok.data_ptr(), slot_active.data_ptr(), sends_left.data_ptr(),
         _ptr(learn_tick), n, s, vec, k0, k1, int(key is not None), p_ok,
-        limit, tick16, new_know.data_ptr(), new_sends.data_ptr(),
+        _ptr(group), _ptr(node_ok), limit, tick16, new_know.data_ptr(),
+        new_sends.data_ptr(),
         _ptr(new_learn), _ptr(newly),
         _counter_scratch(dev, "gossip_exchange", 3).data_ptr(),
         SCRATCH_BLOCKS, counters.data_ptr(), _ptr(ctr), _ptr(ctr_out), c,
         stream)
     _check(rc, "gossip_exchange")
-    LAUNCHES["gossip_exchange"] += 1
+    LAUNCHES["gossip_exchange_chaos" if chaos else "gossip_exchange"] += 1
 
 
 TIMEOUTS = 65   # Lifeguard timeout table entries: confirmations 0..64
@@ -448,3 +463,48 @@ def launch_members_page(ids, member, committed_dead, committed_left,
         st_out.data_ptr(), inc_out.data_ptr(), up_out.data_ptr(), _stream(dev))
     _check(rc, "members_page")
     LAUNCHES["members_page"] += 1
+
+
+MASS_COUNTERS = 4    # detect.cu's kCounters: live, victims, and the base
+#                      believed-down counts over victims and over live rows
+
+
+def launch_mass_detect(know, up, member, committed_dead, committed_left,
+                       bulk_member, bulk_cov, victim, r_active, r_kind,
+                       r_subject, recall_out, fp_out) -> None:
+    """K5: recall (float32) into recall_out[0] and false positives (int32)
+    into fp_out[0] of a correlated-failure experiment, from the [N, U]
+    knowledge matrix, the [N] leaves and the raw [U] rumor table, in one
+    launch (its scratch allocated here, per call)."""
+    dev = know.device
+    if know.dim() != 2:
+        raise ValueError("mass_detect: know must be [N, U]")
+    n, u = know.shape
+    if not 1 <= u <= 64:
+        raise ValueError(f"mass_detect takes 1-64 slots, got {u}")
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"mass_detect: N={n} outside [1, 2^31)")
+    _require(know, "mass_detect know", torch.bool, dev, (n, u))
+    _node_vectors("mass_detect", dev, n, (up, "up", torch.bool),
+                  (member, "member", torch.bool),
+                  (committed_dead, "committed_dead", torch.bool),
+                  (committed_left, "committed_left", torch.bool),
+                  (bulk_member, "bulk_member", torch.bool),
+                  (bulk_cov, "bulk_cov", torch.float32),
+                  (victim, "victim", torch.bool))
+    if _rumor_table(r_active, r_kind, r_subject, dev, "mass_detect") != u:
+        raise ValueError(f"mass_detect: the rumor table has "
+                         f"{r_active.shape[0]} slots, know {u}")
+    _require(recall_out, "mass_detect recall_out", torch.float32, dev, (1,))
+    _require(fp_out, "mass_detect fp_out", torch.int32, dev, (1,))
+    scratch = torch.zeros(1 + MASS_COUNTERS + u, dtype=torch.int64,
+                          device=dev)
+    rc = library().mass_detect(
+        know.data_ptr(), up.data_ptr(), member.data_ptr(),
+        committed_dead.data_ptr(), committed_left.data_ptr(),
+        bulk_member.data_ptr(), bulk_cov.data_ptr(), victim.data_ptr(),
+        r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(), n, u,
+        scratch.data_ptr(), recall_out.data_ptr(), fp_out.data_ptr(),
+        _stream(dev))
+    _check(rc, "mass_detect")
+    LAUNCHES["mass_detect"] += 1

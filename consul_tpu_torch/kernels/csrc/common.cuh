@@ -242,6 +242,22 @@ __device__ __forceinline__ uint64_t row_mask(const uint8_t* k, int S) {
   return m;
 }
 
+// Column counts of [N, S] bool rows over a warp: each lane passes its
+// row's slot mask m (0 for a row that does not count) and lane l adds,
+// for slots l and l + 32, how many of the warp's 32 masks hold the slot.
+// One ballot a slot; a warp whose masks are all 0 adds nothing.  Every
+// lane of the warp must call it.  (The [N, U] -> [U] live-coverage
+// reduction of mass_detection_stats, _expire and _originate.)
+__device__ __forceinline__ void warp_column_counts(uint64_t m, int S,
+                                                   uint32_t (&cnt)[2]) {
+  if (!__any_sync(0xffffffffu, m != 0)) return;
+  const int lane = threadIdx.x & 31;
+  for (int u = 0; u < S; ++u) {
+    const unsigned b = __ballot_sync(0xffffffffu, (m >> u) & 1u);
+    if ((u & 31) == lane) cnt[u >> 5] += __popc(b);
+  }
+}
+
 // The [S] bool vector v as a slot mask, read by one full warp: lane = slot,
 // two ballots for S <= 64.  Every lane gets the mask.
 __device__ __forceinline__ uint64_t warp_slot_mask(const uint8_t* v, int S) {

@@ -3,7 +3,7 @@
 // update and the per-contact loss draw folded in.  Two launches:
 // gossip_pack, then gossip_exchange.
 //
-// Replaces: consul_tpu/ops/gossip.py disseminate (non-chaos path), which
+// Replaces: consul_tpu/ops/gossip.py disseminate (both paths), which
 // XLA runs as G dynamic slices of a doubled [2N, S] buffer built by
 // ops/rolls.py pull_multi, fused with the mask algebra and three
 // reductions; plus, for the swim caller, the learn-tick `where` and the
@@ -45,6 +45,16 @@
 // modulo N in 32-bit arithmetic (N < 2^31 is checked); rolls.offsets
 // draws them in [1, N).  Outputs go to fresh buffers: callers hold the
 // old state across ticks.
+//
+// Chaos mode (the nemesis build, consul_tpu/ops/gossip.py:82-100): with a
+// partition group [N] int16 and/or a per-node delivery rate [N] float32,
+// contact (i, g) with sender j = (i + off_g) % N exists only where
+// group[i] == group[j] (a severed link neither delivers nor counts as
+// lost), and delivers when the same uniform float is < (p_ok * ok[i]) *
+// ok[j], rounded step by step as the plain twin multiplies.  The draw is
+// the non-chaos stream's; only its threshold becomes per contact.  The
+// extra reads are 6 bytes a row plus the peers' values through L2; with
+// both pointers null the exchange is the non-chaos one, bit for bit.
 
 #include "common.cuh"
 
@@ -153,7 +163,9 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
     const uint8_t* __restrict__ receiver_ok,
     const uint8_t* __restrict__ slot_active, const int8_t* __restrict__ sends,
     const int16_t* __restrict__ learn, int64_t N, int S, int vec,
-    uint32_t k0, uint32_t k1, int lossy, float p_ok, int limit, int tick16,
+    uint32_t k0, uint32_t k1, int lossy, float p_ok,
+    const int16_t* __restrict__ group, const float* __restrict__ node_ok,
+    int limit, int tick16,
     uint8_t* __restrict__ new_know, int8_t* __restrict__ new_sends,
     int16_t* __restrict__ new_learn, uint8_t* __restrict__ newly,
     u64* __restrict__ scratch, float* __restrict__ counters,
@@ -183,8 +195,11 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
       if (src >= N) src -= N;
       const W w = qword[src];
       if (w == 0) continue;  // nothing carried: the draw cannot matter
+      if (group != nullptr && group[i] != group[src]) continue;  // severed
+      float p = p_ok;
+      if (node_ok != nullptr) p = __fmul_rn(__fmul_rn(p_ok, node_ok[i]), node_ok[src]);
       const bool ok = !lossy || unit_float(threefry_xor(
-          k0, k1, static_cast<uint64_t>(i) * G + g)) < p_ok;
+          k0, k1, static_cast<uint64_t>(i) * G + g)) < p;
       if (ok) {
         got |= w;
       } else {
@@ -306,7 +321,8 @@ template <typename W>
 int exchange(const void* kword, const void* qword, const void* offsets, int G,
              const void* receiver_ok, const void* slot_active,
              const void* sends, const void* learn, int64_t N, int S, int vec,
-             uint32_t k0, uint32_t k1, int lossy, float p_ok, int limit,
+             uint32_t k0, uint32_t k1, int lossy, float p_ok,
+             const void* group, const void* node_ok, int limit,
              int tick16, void* new_know, void* new_sends, void* new_learn,
              void* newly, void* scratch, int scratch_blocks, void* counters,
              const void* ctr, void* ctr_out, int C, cudaStream_t stream) {
@@ -320,7 +336,8 @@ int exchange(const void* kword, const void* qword, const void* offsets, int G,
       static_cast<const uint8_t*>(receiver_ok),
       static_cast<const uint8_t*>(slot_active),
       static_cast<const int8_t*>(sends), static_cast<const int16_t*>(learn), N,
-      S, vec, k0, k1, lossy, p_ok, limit, tick16,
+      S, vec, k0, k1, lossy, p_ok, static_cast<const int16_t*>(group),
+      static_cast<const float*>(node_ok), limit, tick16,
       static_cast<uint8_t*>(new_know), static_cast<int8_t*>(new_sends),
       static_cast<int16_t*>(new_learn), static_cast<uint8_t*>(newly),
       static_cast<u64*>(scratch), static_cast<float*>(counters),
@@ -354,7 +371,8 @@ extern "C" int gossip_exchange(const void* kword, const void* qword,
                                const void* slot_active, const void* sends,
                                const void* learn, int64_t N, int S, int vec,
                                uint32_t k0, uint32_t k1, int lossy,
-                               float p_ok, int limit, int tick16,
+                               float p_ok, const void* group,
+                               const void* node_ok, int limit, int tick16,
                                void* new_know, void* new_sends,
                                void* new_learn, void* newly, void* scratch,
                                int scratch_blocks, void* counters,
@@ -367,11 +385,13 @@ extern "C" int gossip_exchange(const void* kword, const void* qword,
   auto st = static_cast<cudaStream_t>(stream);
   return S <= 32
       ? exchange<uint32_t>(kword, qword, offsets, G, receiver_ok, slot_active,
-                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, limit,
+                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, group,
+                           node_ok, limit,
                            tick16, new_know, new_sends, new_learn, newly,
                            scratch, scratch_blocks, counters, ctr, ctr_out, C, st)
       : exchange<uint64_t>(kword, qword, offsets, G, receiver_ok, slot_active,
-                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, limit,
+                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, group,
+                           node_ok, limit,
                            tick16, new_know, new_sends, new_learn, newly,
                            scratch, scratch_blocks, counters, ctr, ctr_out, C, st);
 }

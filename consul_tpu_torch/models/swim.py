@@ -5,11 +5,15 @@ The port of consul_tpu/models/swim.py's main path: the rumor-centric state
 the probe-tick detector pipeline (probe round, slot and dense suspicion
 expiry, refutation, coverage-guarded expiry), per-tick dissemination,
 the bulk death channel, the convergence monitor, the metrics vectors,
-the oracle's membership reads and the commands `kill`, `rejoin` and
-`leave`.  Each function computes what its JAX counterpart computes, with
-the same dtypes (wrapping int16 learn ticks, int8 budgets/kinds), so a
-converted JAX state advanced here and there stays bit-equal on its int
-and bool leaves.
+the oracle's membership reads, the commands `kill`, `rejoin` and `leave`,
+the nemesis build (`params.chaos`: per-node partition groups `chaos_grp`
+and delivery rates `chaos_ok` gate every probe leg, gossip contact and
+bulk-channel view, and the bulk overflow is off) and the mass-event
+helpers (`kill_mask`, `revive_mask`, `revive`, `inject_suspicion`,
+`mass_detection_stats`).  Each function computes what its JAX
+counterpart computes, with the same dtypes (wrapping int16 learn ticks,
+int8 budgets/kinds), so a converted JAX state advanced here and there
+stays bit-equal on its int and bool leaves.
 
 Control flow that JAX expresses inside `lax.scan`:
 
@@ -22,11 +26,12 @@ Control flow that JAX expresses inside `lax.scan`:
     `bulk_live` host flag (the bulk channel only gains members on probe
     ticks); gossip-only ticks never sync.
 
-`believed_down_fraction` launches kernel K3 on CUDA tensors, and the
+`believed_down_fraction` launches kernel K3 on CUDA tensors, the
 membership reads (`status_vector`, `membership_counts`/`page`/`delta`)
-kernel K4; the gossip pass (with its learn-tick stamp, counter update
-and loss draw) goes through ops/gossip.py (K2) and every other random
-draw through utils/prng.py (K1).  `params.chaos` (the nemesis build) is not ported.
+kernel K4 and `mass_detection_stats` kernel K5; the gossip pass (with its
+learn-tick stamp, counter update and loss draw, and under chaos its
+partition gate and per-contact rate) goes through ops/gossip.py (K2) and
+every other random draw through utils/prng.py (K1).
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ F32 = torch.float32
 # host syncs taken by the tick (the probe-tick bulk-channel flag); the
 # bench reports them per tick
 host_syncs = 0
+# ticks that ran the bulk channel's passes (_bulk_disseminate, _bulk_commit)
+bulk_steps = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +105,6 @@ class SwimParams:
 
 def make_params(gossip: GossipConfig, sim: SimConfig) -> SwimParams:
     n = sim.n_nodes
-    if sim.chaos:
-        raise NotImplementedError("the nemesis (chaos) build is not ported")
     if sim.shard_blocks > 1 and n % sim.shard_blocks:
         raise ValueError(f"shard_blocks={sim.shard_blocks} must divide "
                          f"n_nodes={n}")
@@ -164,8 +169,8 @@ class SwimState:
     bulk_cov: torch.Tensor         # [N] float32
     awareness: torch.Tensor        # [N] int8
     sus_count: torch.Tensor        # [N] int32
-    chaos_grp: torch.Tensor        # [N] int16 (unused: no nemesis build)
-    chaos_ok: torch.Tensor         # [N] float32 (unused: no nemesis build)
+    chaos_grp: torch.Tensor        # [N] int16 partition group (chaos only)
+    chaos_ok: torch.Tensor         # [N] float32 delivery rate (chaos only)
     ctr: torch.Tensor              # [CTR_N] float32
     bulk_live: bool = False        # host mirror of any(bulk_member)
 
@@ -544,6 +549,12 @@ def _probe_round(params: SwimParams, s: SwimState, maps):
                               prng.f32(1.0 - params.p_loss))
     else:
         ok_node = torch.full((n,), 1.0 - params.p_loss, dtype=F32, device=dev)
+    if params.chaos:
+        # the nemesis: a per-node delivery rate folds into every leg, and
+        # a leg exists only between same-group endpoints
+        ok_node = ok_node * s.chaos_ok
+        grp = s.chaos_grp
+        same_t = grp == rolls.pull(grp, d)
 
     diff = s.coords - rolls.pull(s.coords, d)
     rtt = torch.sqrt((diff * diff).sum(-1)) + params.rtt_base_ms
@@ -551,6 +562,8 @@ def _probe_round(params: SwimParams, s: SwimState, maps):
     ok_t = rolls.pull(ok_node, d)
     m_t = torch.minimum(ok_node, ok_t)
     legs_ok = drawn["direct"] < m_t * m_t
+    if params.chaos:
+        legs_ok = legs_ok & same_t
     direct_ack = t_up & legs_ok & (2.0 * rtt < params.probe_timeout_ms * mult)
 
     if k > 0:
@@ -560,6 +573,14 @@ def _probe_round(params: SwimParams, s: SwimState, maps):
         m_rt = torch.minimum(ok_r, ok_t[:, None])
         l23 = drawn["uB"] < m_rt * m_rt
         l4 = drawn["uC"] < torch.minimum(ok_r, ok_node[:, None])
+        if params.chaos:
+            rgrp = torch.stack([rolls.pull(grp, offs[1 + j])
+                                for j in range(k)], dim=-1)
+            same_r = rgrp == grp[:, None]
+            same_rt = rgrp == rolls.pull(grp, d)[:, None]
+            l1 = l1 & same_r
+            l4 = l4 & same_r
+            l23 = l23 & same_rt
         relay_ok = torch.stack([rolls.pull(live, offs[1 + j]) for j in range(k)],
                                dim=-1)
         reach = t_up[:, None] & l23
@@ -707,6 +728,10 @@ def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
     dead_of2 = _map_add(dead_of, *alloc)
     left_of2 = left_of
     overflow = (want > 0) & (dead_of2 < 0)
+    if params.chaos:
+        # the bulk channel's mean-field coverage is not partition-aware:
+        # the nemesis build turns the overflow off (swim.py:1049-1060)
+        overflow = torch.zeros_like(overflow)
     bulk_member = s.bulk_member | overflow
     v_prev = s.bulk_member.sum().to(F32)
     seeded = rolls.pull(overflow, shift)
@@ -773,7 +798,9 @@ def _disseminate(params: SwimParams, s: SwimState) -> SwimState:
                                  p_loss=params.p_loss,
                                  key=prng.tick_key(params.seed, tick, 5),
                                  learn_tick=s.learn_tick, tick16=_t16(tick),
-                                 ctr=s.ctr, want_newly=False)
+                                 ctr=s.ctr, want_newly=False,
+                                 group=s.chaos_grp if params.chaos else None,
+                                 node_ok=s.chaos_ok if params.chaos else None)
     return s.replace(know=res.know, learn_tick=res.learn_tick,
                      sends_left=res.sends_left, ctr=res.ctr)
 
@@ -792,7 +819,15 @@ def _bulk_disseminate(params: SwimParams, s: SwimState) -> SwimState:
     supply_src = torch.where(s.up, heard, 0.0)
     n_up = s.up.sum().clamp_min(1).to(F32)
     mean_supply = supply_src.sum() / n_up
-    for view in rolls.pull_multi(supply_src, offs):
+    views = rolls.pull_multi(supply_src, offs)
+    if params.chaos:
+        # cross-group contacts carry nothing; degraded endpoints scale the
+        # transfer by the pairwise rate, (v * ok_sender) * ok_receiver
+        views = [torch.where(gv == s.chaos_grp, (v * ov) * s.chaos_ok, 0.0)
+                 for v, gv, ov in zip(views,
+                                      rolls.pull_multi(s.chaos_grp, offs),
+                                      rolls.pull_multi(s.chaos_ok, offs))]
+    for view in views:
         supply = torch.clamp_max(view, float(cap))
         novelty = 1.0 - heard / v
         heard = torch.where(recv,
@@ -836,6 +871,8 @@ def _bulk_commit(params: SwimParams, s: SwimState) -> SwimState:
 def _bulk_step(params: SwimParams, s: SwimState) -> SwimState:
     """The bulk branch, applied only where the channel holds members (the
     device-side form of JAX's lax.cond on any(bulk_member))."""
+    global bulk_steps
+    bulk_steps += 1
     live = s.bulk_member.any()
     t = _bulk_commit(params, _bulk_disseminate(params, s))
     pick = lambda a, b: torch.where(live, a, b)  # noqa: E731
@@ -982,6 +1019,64 @@ def kill(s: SwimState, node: int) -> SwimState:
     up = s.up.clone()
     up[node] = False
     return s.replace(up=up)
+
+
+def kill_mask(s: SwimState, mask: torch.Tensor) -> SwimState:
+    """Correlated failure: every node in `mask` ([N] bool) crashes in the
+    same tick (swim.py:1570-1575)."""
+    return s.replace(up=s.up & ~mask)
+
+
+# ---------------------------------------------------------------------------
+# mass-event detection stats (K5)
+# ---------------------------------------------------------------------------
+
+def mass_detection_stats_plain(params: SwimParams, s: SwimState,
+                               victim_mask: torch.Tensor):
+    """The plain PyTorch version of K5 (swim.py:1578-1604): (recall 0-d
+    float32, false positives 0-d int32).  A subject is cluster-detected
+    when its death or leave is committed, an active dead/left rumor about
+    it reached >= 99% of live members, or it is a bulk-channel subject
+    whose own coverage reached 99%."""
+    live = s.up & s.member
+    n_live = live.sum().clamp_min(1)
+    coverage = (s.know & live[:, None]).sum(0).to(F32) / n_live.to(F32)
+    dead_sl = s.r_active & ((s.r_kind == DEAD) | (s.r_kind == LEFT)) \
+        & (coverage >= 0.99)
+    rumor_detected = _scatter(torch.zeros_like(s.up),
+                              torch.where(dead_sl, s.r_subject, 0), dead_sl,
+                              "amax")
+    believed_down = s.committed_dead | s.committed_left | rumor_detected \
+        | (s.bulk_member & (s.bulk_cov >= 0.99))
+    victims = victim_mask & s.member
+    recall = (believed_down & victims).sum().to(F32) \
+        / victims.sum().clamp_min(1).to(F32)
+    return recall, (believed_down & live).sum().to(I32)
+
+
+def mass_detection_stats(params: SwimParams, s: SwimState,
+                         victim_mask: torch.Tensor, out=None):
+    """(recall, false_positives) of a correlated-failure experiment: the
+    fraction of victims (members of `victim_mask`) the cluster detected,
+    and the live members it believes down.  On CUDA tensors one K5 launch
+    writes them into `out`, a pair of device slots (a float32 [1] view
+    and an int32 [1] view, e.g. of per-chunk vectors), when given, so a
+    per-tick caller reads nothing back; else into fresh [1] tensors."""
+    if not s.know.is_cuda:
+        recall, fp = mass_detection_stats_plain(params, s, victim_mask)
+        if out is None:
+            return recall, fp
+        out[0].copy_(recall.reshape(out[0].shape))
+        out[1].copy_(fp.reshape(out[1].shape))
+        return out
+    if out is None:
+        out = (torch.empty(1, dtype=F32, device=s.device),
+               torch.empty(1, dtype=I32, device=s.device))
+    kernels.launch_mass_detect(
+        s.know, s.up, s.member, s.committed_dead, s.committed_left,
+        s.bulk_member, s.bulk_cov, victim_mask, s.r_active, s.r_kind,
+        s.r_subject, out[0], out[1])
+    return out
 
 
 # Per-shard split of the pool gauges: the node axis cut into `n_blocks`
@@ -1184,6 +1279,47 @@ def rejoin(params: SwimParams, s: SwimState, node: int) -> SwimState:
         bulk_cov=_set(s.bulk_cov, node, 0.0))
     return _originate(params, s, _one(n, node, dev), ALIVE, inc,
                       _own_row(n, node, dev))[0]
+
+
+def revive_mask(s: SwimState, mask: torch.Tensor) -> SwimState:
+    """Flap restart (swim.py:1611-1645): every node in `mask` ([N] bool)
+    comes back up; its stale suspect/dead rumors are withdrawn with their
+    knowledge cells and budgets, its incarnation rises above every stale
+    rumor's (a scatter-max of r_inc + 1, masked slots writing 0 to node
+    0), and its dense timer and bulk-channel entry reset.  A committed
+    death needs `rejoin`."""
+    mask = mask.to(torch.bool)
+    stale = s.r_active & mask[s.r_subject.to(I64)] \
+        & ((s.r_kind == SUSPECT) | (s.r_kind == DEAD))
+    bump = _scatter(torch.zeros_like(s.incarnation),
+                    torch.where(stale, s.r_subject, 0),
+                    torch.where(stale, s.r_inc + 1, 0), "amax")
+    return s.replace(
+        up=s.up | mask,
+        incarnation=torch.maximum(s.incarnation, bump),
+        r_active=s.r_active & ~stale,
+        know=s.know & ~stale[None, :],
+        sends_left=torch.where(stale[None, :], 0, s.sends_left).to(I8),
+        sus_start=torch.where(mask, -1, s.sus_start),
+        sus_confirm=torch.where(mask, 0, s.sus_confirm).to(I8),
+        bulk_member=s.bulk_member & ~mask,
+        bulk_cov=torch.where(mask, 0.0, s.bulk_cov))
+
+
+def revive(s: SwimState, node: int) -> SwimState:
+    """Bring one node back up after a flap (revive_mask of one node)."""
+    n = s.up.shape[0]
+    return revive_mask(s, torch.arange(n, device=s.device) == node)
+
+
+def inject_suspicion(params: SwimParams, s: SwimState, subject: int,
+                     origin: int) -> SwimState:
+    """Testing hook (swim.py:1698-1704): `origin` suspects `subject` now."""
+    n, dev = params.n_nodes, s.device
+    row_subject = torch.where(torch.arange(n, device=dev) == origin, subject,
+                              -1).to(I32)
+    return _originate(params, s, _one(n, subject, dev), SUSPECT,
+                      s.incarnation, row_subject)[0]
 
 
 def leave(params: SwimParams, s: SwimState, node: int) -> SwimState:

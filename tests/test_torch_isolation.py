@@ -147,6 +147,17 @@ GOSSIP_BAD = {
                       "at least 3"),
     "limit": (dict(limit=200), "limit"),
     "G > 16": (dict(offsets=torch.ones(17, dtype=torch.int32)), "contacts"),
+    "chaos group dtype": (dict(group=torch.zeros(16, dtype=torch.int32)),
+                          "group"),
+    "chaos group shape": (dict(group=torch.zeros(15, dtype=torch.int16)),
+                          "group"),
+    "chaos node_ok dtype": (dict(node_ok=torch.ones(16, dtype=torch.float64)),
+                            "node_ok"),
+    "chaos node_ok device": (dict(node_ok=torch.ones(16, device=META)),
+                             "node_ok"),
+    "chaos without a key": (dict(key=None,
+                                 group=torch.zeros(16, dtype=torch.int16)),
+                            "needs a key"),
 }
 
 
@@ -422,3 +433,100 @@ def test_membership_reads_on_a_card_tensor_never_take_the_plain_twin(
     with pytest.raises(RuntimeError, match="launch failed"):
         pswim.status_vector(params, s)
     assert called
+
+
+def _mass_args(n=16, u=8):
+    z = lambda *shape, dtype=torch.bool: torch.zeros(shape, dtype=dtype)  # noqa: E731
+    return dict(know=z(n, u), up=z(n), member=z(n), committed_dead=z(n),
+                committed_left=z(n), bulk_member=z(n),
+                bulk_cov=z(n, dtype=torch.float32), victim=z(n),
+                r_active=z(u), r_kind=z(u, dtype=torch.int8),
+                r_subject=z(u, dtype=torch.int32),
+                recall_out=z(1, dtype=torch.float32),
+                fp_out=z(1, dtype=torch.int32))
+
+
+MASS_BAD = {
+    "know dtype": (dict(know=torch.zeros(16, 8, dtype=torch.uint8)), "know"),
+    "know not [N, U]": (dict(know=torch.zeros(16, dtype=torch.bool)), "know"),
+    "U > 64": (dict(know=torch.zeros(16, 65, dtype=torch.bool)), "slots"),
+    "victim dtype": (dict(victim=torch.zeros(16, dtype=torch.int32)), "victim"),
+    "victim shape": (dict(victim=torch.zeros(17, dtype=torch.bool)), "victim"),
+    "bulk_cov dtype": (dict(bulk_cov=torch.zeros(16, dtype=torch.float64)),
+                       "bulk_cov"),
+    "up device": (dict(up=torch.zeros(16, dtype=torch.bool, device=META)),
+                  "up"),
+    "r_subject dtype": (dict(r_subject=torch.zeros(8, dtype=torch.int64)),
+                        "r_subject"),
+    "table shorter than know": (dict(r_active=torch.zeros(4, dtype=torch.bool),
+                                     r_kind=torch.zeros(4, dtype=torch.int8),
+                                     r_subject=torch.zeros(4, dtype=torch.int32)),
+                                "slots"),
+    "recall_out dtype": (dict(recall_out=torch.zeros(1, dtype=torch.float64)),
+                         "recall_out"),
+    "fp_out dtype": (dict(fp_out=torch.zeros(1, dtype=torch.int64)), "fp_out"),
+    "fp_out shape": (dict(fp_out=torch.zeros(2, dtype=torch.int32)), "fp_out"),
+    "know not contiguous": (dict(know=torch.zeros(8, 16, dtype=torch.bool).t()),
+                            "know"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASS_BAD))
+def test_mass_detect_wrapper_rejects(case):
+    edit, match = MASS_BAD[case]
+    args = _mass_args()
+    args.update(edit)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        kernels.launch_mass_detect(**args)
+    assert kernels.LAUNCHES == before
+
+
+def _cuda_flagged_state(monkeypatch, chaos=False):
+    from consul_tpu_torch.models import swim as pswim
+    params = pswim.make_params(config.GossipConfig.lan(),
+                               config.SimConfig(n_nodes=16, rumor_slots=8,
+                                                chaos=chaos))
+    s = pswim.init_state(params, device="cpu")
+    monkeypatch.setattr(type(s.know), "is_cuda", property(lambda t: True))
+    return pswim, params, s
+
+
+def test_mass_detection_on_a_card_tensor_never_takes_the_plain_twin(
+        monkeypatch):
+    """On a CUDA tensor K5's wrapper launches or raises: with the launch
+    refused, mass_detection_stats raises instead of answering from the
+    plain twin."""
+    pswim, params, s = _cuda_flagged_state(monkeypatch)
+    called = []
+
+    def refuse(*a, **k):
+        called.append(1)
+        raise RuntimeError("mass_detect launch failed: CUDA error 1")
+
+    monkeypatch.setattr(kernels, "launch_mass_detect", refuse)
+    monkeypatch.setattr(pswim, "mass_detection_stats_plain",
+                        lambda *a: pytest.fail("took the plain twin"))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pswim.mass_detection_stats(params, s, torch.zeros(16, dtype=torch.bool))
+    assert called
+
+
+def test_chaos_gossip_on_a_card_tensor_launches_the_chaos_mode(monkeypatch):
+    """The chaos build's gossip pass on a CUDA tensor goes to K2 with the
+    state's partition groups and delivery rates, never the plain twin."""
+    from consul_tpu_torch.ops import gossip as pgossip
+    pswim, params, s = _cuda_flagged_state(monkeypatch, chaos=True)
+    seen = {}
+
+    def refuse(*a, **k):
+        seen.update(k)
+        raise RuntimeError("gossip_exchange launch failed: CUDA error 1")
+
+    monkeypatch.setattr(kernels, "launch_gossip", refuse)
+    monkeypatch.setattr(pgossip, "disseminate_plain",
+                        lambda *a, **k: pytest.fail("took the plain twin"))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pswim._disseminate(params, s)
+    assert seen["group"] is s.chaos_grp and seen["node_ok"] is s.chaos_ok
+    assert seen["key"] is not None

@@ -117,12 +117,6 @@ def test_timeout_table_matches_reference(n, u):
     assert swim.timeout_table(tp) == tuple(int(v) for v in ref)
 
 
-def test_chaos_build_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        swim.make_params(config.GossipConfig.lan(),
-                         config.SimConfig(n_nodes=64, chaos=True))
-
-
 # ---------------------------------------------------------------------------
 # per pass
 # ---------------------------------------------------------------------------
