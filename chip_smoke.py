@@ -66,7 +66,33 @@ Phases, each of which raises on failure (so the script exits non-zero):
      channel run), K5 held bit-equal at the replayed mid-drain and
      drain-end states and on random states and timed, host syncs per bulk tick, and the bench
      at N=4096 on the card and the CPU with equal curves
-     (correlated_phase).
+     (correlated_phase);
+  8. federation: consul_tpu_torch.models.wan at 3 DCs x 50,000 nodes x 5
+     servers, 16 rumor and event slots, driven as tools/scale_sweep.py's
+     _dc_point drives it (scenarios.wan_point): an event fired at a
+     non-server member of DC 0 covers every DC within 250 ticks, then DC
+     2 crashed in the WAN pool reads unreachable and is committed dead
+     within 1,000 ticks; the DC distance matrix is symmetric; host syncs
+     per tick (none on an idle gossip-only tick), fenced ms and device
+     kernels per gossip-only and probe tick; the DC series 2, 4, 8 x 128
+     x 3 on the card and the CPU with equal coverage ticks.  K1, K2 and
+     the top-k are held to their twins at the WAN pool's small shapes
+     first (wan_phase);
+  9. anti-entropy and K6: consul_tpu_torch.models.antientropy at 1M
+     services over 100,000 agents (scenarios.ae_churn: one registration,
+     the full push, 660 churn ticks with 1,000 agents down for 300 of
+     them, a final step): in_sync_fraction 1.0, the catalog's live count
+     the desired live count, K6 twice a step and once an in_sync read,
+     its twins never; K6 bit-equal to its twins on the replayed states
+     and on random tables (M != K, all or none pushed, all INVALID, every
+     pushed id in the catalog, overflow, 2^21 rows), timed; the workload
+     at 4,096 services on the card and the CPU with the same digest
+     (ae_phase);
+ 10. Vivaldi: the standalone solver at 100,000 nodes, 8 dimensions, 400
+     ticks (scenarios.vivaldi_converge): the median relative error under
+     0.15 and under a third of the initial; the error curve, ms a tick,
+     sort_by_distance's wall; at n = 4,096 the card's and the CPU's
+     curves within VIVALDI_CURVE_RTOL (vivaldi_phase).
 
 Prints, before the last line, one JSON object with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}.
@@ -83,17 +109,19 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from consul_tpu_torch import (bench, chaos, correlated, host, kernels,
-                              profile_tick)
+                              profile_tick, scenarios as workloads)
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.oracle import GossipOracle
 from consul_tpu_torch.profile_tick import kernel_ms, median_ms
 from consul_tpu_torch.kernels import build
-from consul_tpu_torch.models import events, serf, swim, vivaldi
-from consul_tpu_torch.ops import gossip, rolls
+from consul_tpu_torch.models import (antientropy, events, serf, swim,
+                                     vivaldi, wan)
+from consul_tpu_torch.ops import gossip, reconcile, rolls
 from consul_tpu_torch.utils import prng
 
 N = 1_000_000
@@ -395,14 +423,20 @@ def _events_gossip_call(params, ev, up, member) -> dict:
         key=prng.tick_key(p.seed, ev.tick, 6))
 
 
-def _random_gossip_call(dev, n: int, slots: int) -> dict:
-    """Random rows with every optional output asked for."""
+def _random_gossip_call(dev, n: int, slots: int, fanout=None,
+                        seed: int = 1234) -> dict:
+    """Random rows with every optional output asked for; offsets 1, N/3
+    and N - 7, or with `fanout` that many drawn as a tick draws them (the
+    fixed ones do not fit a pool of a few rows)."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
+    gen.manual_seed(seed)
     rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
     know = rnd(n, slots) < 0.3
+    offs = torch.tensor([1, n // 3, n - 7], dtype=torch.int32, device=dev) \
+        if fanout is None else rolls.offsets(prng.tick_key(seed, 3, 2), n,
+                                             fanout, dev)
     return dict(
-        offs=torch.tensor([1, n // 3, n - 7], dtype=torch.int32, device=dev),
+        offs=offs,
         know=know, sends_left=(rnd(n, slots) * 8).to(torch.int8),
         sender_ok=rnd(n) < 0.95, receiver_ok=rnd(n) < 0.95,
         slot_active=rnd(slots) < 0.9, retransmit_limit=12, p_loss=0.01,
@@ -869,9 +903,9 @@ def _prev(st: torch.Tensor, flips: int, seed: int) -> torch.Tensor:
     return prev
 
 
-def _same(a, b, what: str) -> None:
+def _same(a, b, what: str, kernel: str = "K4") -> None:
     require(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
-            f"K4 {what} != plain")
+            f"{kernel} {what} != plain")
 
 
 def check_members(dev, o) -> tuple:
@@ -1418,6 +1452,481 @@ def correlated_phase(dev) -> tuple:
                              "ticks_run": card["ticks_run"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: federation at 3 DCs x 50k, and the WAN pool's small shapes
+# ---------------------------------------------------------------------------
+
+WAN_SHAPE = (3, 50_000, 5)          # DCs, nodes per DC, servers per DC
+# tools/scale_sweep.py's DC series at 128 nodes x 3 servers, beside the
+# coverage ticks the JAX package's WANSCALE_r01.json holds for it (a 2-D
+# mesh run on the CPU: printed, not gated)
+WAN_SERIES = ((2, 10), (4, 15), (8, 15))
+
+
+def check_small_shapes(dev) -> dict:
+    """K1, K2 and swim._top_k against their twins at the federation's
+    shapes, before anything is timed: K1's randint at spans of n - 1 <= 23
+    (the WAN pools' gossip offsets and other_nodes), K2 at U = 16 and 8 on
+    pools of 6, 15, 128 and 50,000 rows (fewer rows than a warp in the
+    first two) with fanouts 3 and 4, and the top-k at N < k."""
+    draws = 0
+    for n in (2, 6, 9, 15, 24):
+        for shape in ((3,), (4,), (n,), (n, 3)):
+            for lo in (0, 1):
+                d = prng.Draw("randint", prng.tick_key(7, n, 2), shape, lo, n)
+                got = prng.draw([d], dev)[0]
+                require(torch.equal(got, prng.draw_plain([d], dev)[0]),
+                        f"K1 randint [{lo}, {n}) {shape} != plain")
+                draws += 1
+        got = prng.other_nodes(prng.tick_key(7, n, 8), n, (n,), dev)
+        want = prng.other_nodes(prng.tick_key(7, n, 8), n, (n,), "cpu")
+        require(torch.equal(got.cpu(), want), f"other_nodes n={n}")
+    gossip_held = {}
+    for n, slots, fanout in ((6, 8, 4), (6, 16, 4), (15, 16, 4), (15, 8, 4),
+                             (24, 16, 4), (128, 8, 3), (50_000, 16, 3)):
+        call = _random_gossip_call(dev, n, slots, fanout, seed=n + slots)
+        gossip_held[f"N={n} U={slots} G={fanout}"] = _hold_gossip(
+            call, f"N={n} U={slots}")
+    top = 0
+    for n, k in ((6, 8), (15, 16), (15, 8), (9, 9)):
+        x = torch.randint(0, 3, (n,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(n + k))
+        got = swim._top_k(x.to(dev), k)
+        want = swim._top_k(x, k)
+        require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+                f"_top_k N={n} k={k}: card != cpu")
+        top += 1
+    log(f"small shapes held: K1 randint {draws} draws, K2 {gossip_held}, "
+        f"top-k {top}")
+    return {"k1_randint_draws": draws, "k2": gossip_held, "top_k": top}
+
+
+def _tick_profile(step, s, kind_of, ticks: int = 10):
+    """Fenced host ms and device kernels (torch.profiler, a tick each) per
+    tick kind, over `ticks` ticks of each kind from s."""
+    ms = {"gossip": [], "probe": []}
+    st = s
+    while min(len(v) for v in ms.values()) < ticks:
+        kind = kind_of(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = step(st)
+        torch.cuda.synchronize()
+        ms[kind].append((time.perf_counter() - t0) * 1000.0)
+    seen = {"gossip": [], "probe": []}
+    st = s
+    while min(len(v) for v in seen.values()) < ticks:
+        kind = kind_of(st)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st = step(st)
+            torch.cuda.synchronize()
+        ops = profile_tick._device_ops(prof)
+        seen[kind].append(sum(v for k, v in ops.items()
+                              if not k.startswith(("Memcpy", "Memset"))))
+    return {kind: {"fenced_ms_median": sorted(ms[kind])[len(ms[kind]) // 2],
+                   "fenced_ms": ms[kind][:ticks],
+                   "kernels_per_tick": sum(seen[kind][:ticks]) / ticks}
+            for kind in ms}
+
+
+def wan_phase(dev) -> dict:
+    """Phase 8, federation (models/wan.py) at BASELINE.json's 3 DCs x 50k
+    nodes, 5 servers a DC, 16 rumor and event slots, 1% loss, seed 7, as
+    tools/scale_sweep.py:_dc_point drives it, every launch count zeroed
+    just before: event 7 fired at node 49,999 of DC 0 (no server) must
+    cover every DC within 250 ticks; DC 2 crashed in the WAN pool must
+    read unreachable and be committed dead within 1,000 ticks; the DC
+    distance matrix is symmetric.  Then host syncs per tick (none on a
+    gossip-only tick with every event table idle; the bridge's one read a
+    tick with an event in flight), fenced ms and device kernels per
+    gossip-only and probe tick, and the DC series 2, 4, 8 x 128 x 3 on the
+    card and the CPU with equal coverage ticks.  K1, K2 and the top-k are
+    held first at the WAN pool's small shapes."""
+    small = check_small_shapes(dev)
+    d, n, sp = WAN_SHAPE
+    kernels.reset_launches()
+    reads0, syncs0 = wan.host_syncs, swim.host_syncs
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, s, row = workloads.wan_point(d, n, sp, dev)
+    cover_s = time.perf_counter() - t0
+    s, part = workloads.wan_partition(params, s, 2)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    reads = wan.host_syncs - reads0
+    log(f"federation {d} x {n} x {sp}: coverage {row}; partition {part}; "
+        f"bridge reads {reads}, probe-flag reads {swim.host_syncs - syncs0}; "
+        f"peak_mem_bytes={peak}; launches {launches}; setup+warm+coverage "
+        f"wall {cover_s} s")
+    require(row["convergence_ticks"] > 0,
+            f"federation: event 7 did not cover every DC in 250 ticks: {row}")
+    require(part["reachable_ticks"] >= 0 and part["committed_ticks"] >= 0,
+            f"federation: DC 2's partition not detected in 1000 ticks: {part}")
+    for name in ("threefry_draws", "gossip_pack", "gossip_exchange"):
+        require(launches[name] > 0, f"{name} never launched on the WAN path")
+    require(reads > 0, "the bridge never read its tables")
+    dist = wan.dc_distance_matrix(params, s)
+    require(bool(torch.isfinite(dist).all())
+            and torch.allclose(dist, dist.T, rtol=1e-4, atol=0),
+            f"dc_distance_matrix not symmetric: {dist.tolist()}")
+    log(f"dc_distance_matrix (s): {dist.tolist()}")
+
+    require(not any(any(c.events.active_host) for c in (*s.lan, s.wan)),
+            "an event slot is still active after the partition")
+    period = params.lan.swim.probe_period_ticks
+    tick_of = lambda st: st.lan[0].swim.tick  # noqa: E731
+    step = lambda st, _=None: wan.step(params, st)  # noqa: E731
+    idle = count_syncs(step, s, tick_of, period)
+    require(idle["gossip"] == 0, f"federation: idle gossip-only ticks "
+            f"synchronized: {idle}")
+    per_tick = _tick_profile(step, s, lambda st: "probe" if tick_of(st)
+                             % period == 0 else "gossip")
+    flying = wan.fire_event(params, s, 1, n - 2, 8)
+    in_flight = count_syncs(step, flying, tick_of, period)
+    log(f"federation host syncs per tick (sync debug mode, 10 ticks): idle "
+        f"{idle}, event in flight {in_flight}; per tick {per_tick}")
+
+    series = []
+    for dcs, jax_ticks in WAN_SERIES:
+        card = workloads.wan_point(dcs, 128, 3, dev)[2]
+        cpu = workloads.wan_point(dcs, 128, 3, torch.device("cpu"))[2]
+        log(f"federation {dcs} x 128 x 3: card {card['convergence_ticks']} "
+            f"ticks ({card['converge_wall_s']} s), cpu "
+            f"{cpu['convergence_ticks']} ({cpu['converge_wall_s']} s); the "
+            f"JAX package's WANSCALE_r01.json {jax_ticks} (not a gate)")
+        require(card["convergence_ticks"] == cpu["convergence_ticks"] > 0,
+                f"federation {dcs} x 128: card {card} != cpu {cpu}")
+        series.append({"n_dcs": dcs, "card": card["convergence_ticks"],
+                       "cpu": cpu["convergence_ticks"], "jax_file": jax_ticks,
+                       "card_wall_s": card["converge_wall_s"],
+                       "cpu_wall_s": cpu["converge_wall_s"]})
+    return {"coverage": row, "partition": part, "launches": launches,
+            "bridge_reads": reads, "peak_mem_bytes": peak,
+            "dc_distance_s": dist.tolist(), "syncs_idle": idle,
+            "syncs_event_in_flight": in_flight, "per_tick": per_tick,
+            "series_128": series, "small_shapes": small}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: anti-entropy at 1M services, and K6
+# ---------------------------------------------------------------------------
+
+# 100,000 agents with 10 services each in a 2^20-row table; the
+# reference's 1-minute full sync at a tick a second, scaled x11 for 100k
+# agents (660 ticks); 1,000 re-registrations and 100 deregistrations a
+# tick; agents 0-999 down for ticks 100-399
+AE_CHURN = workloads.Churn(n_agents=100_000, capacity=1_048_576,
+                           services=1_000_000)
+# the card-against-CPU run: 4,096 services over 256 agents (120 ticks)
+AE_SMALL = workloads.Churn(n_agents=256, capacity=4608, services=4096,
+                           reregister=8, deregister=1, down_agents=3,
+                           down_from=20, down_to=80)
+AE_HELD_TICKS = {"mid_churn": 50, "agents_down": 200}
+
+
+@contextlib.contextmanager
+def _twin_calls():
+    """Counts calls of K6's plain twins while the block runs."""
+    calls = {"diff_sorted_plain": 0, "merge_plain": 0}
+    saved = {name: getattr(reconcile, name) for name in calls}
+
+    def counting(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return saved[name](*a, **k)
+        return fn
+
+    for name in calls:
+        setattr(reconcile, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(reconcile, name, fn)
+
+
+def _hold_k6(d_ids, d_ver, d_node, a_ids, a_ver, a_node, push, drop,
+             what: str) -> dict:
+    """K6 against its twin on one table pair, every output leaf and row:
+    the diff, the merge in step's form (node columns, drop) and in
+    apply_push's (neither)."""
+    dk = reconcile.diff_sorted_kernel(d_ids, d_ver, a_ids, a_ver)
+    dp = reconcile.diff_sorted_plain(d_ids, d_ver, a_ids, a_ver)
+    _same(dk.push, dp.push, f"diff push ({what})", "K6")
+    _same(dk.drop, dp.drop, f"diff drop ({what})", "K6")
+    for form, args in (("step", (d_node, a_node, drop)),
+                       ("apply_push", (None, None, None))):
+        dn, an, dr = args
+        mk = reconcile.merge_kernel(d_ids, d_ver, dn, a_ids, a_ver, an, push,
+                                    dr)
+        mp = reconcile.merge_plain(d_ids, d_ver, dn, a_ids, a_ver, an, push,
+                                   dr)
+        for leaf in ("ids", "ver", "node"):
+            g, w = getattr(mk, leaf), getattr(mp, leaf)
+            require((g is None) == (w is None), f"K6 merge {leaf} presence")
+            if g is not None:
+                _same(g, w, f"merge {form} {leaf} ({what})", "K6")
+    inv = reconcile.INVALID_ID
+    return {"m": d_ids.numel(), "k": a_ids.numel(),
+            "valid_desired": int((d_ids != inv).sum()),
+            "valid_catalog": int((a_ids != inv).sum()),
+            "pushed": int((push & (d_ids != inv)).sum()),
+            "dropped": int(drop.sum()) if drop is not None else 0,
+            "diff_push": int(dp.push.sum()), "diff_drop": int(dp.drop.sum())}
+
+
+def _k6_tables(dev, m, k, vd, va, shared, p_push, p_drop, seed):
+    """Random sorted tables: vd valid desired ids, va catalog ids of which
+    a `shared` part are desired ids, INVALID tails, random payloads on
+    every row (tails included), random masks."""
+    rng = np.random.default_rng(seed)
+    d_valid = np.sort(rng.choice(2 ** 30, vd, replace=False)) if vd else \
+        np.empty(0, np.int64)
+    n_shared = min(int(shared * min(vd, va)), va)
+    take = rng.choice(d_valid, n_shared, replace=False) if n_shared else \
+        np.empty(0, np.int64)
+    fresh = np.setdiff1d(rng.choice(2 ** 30, 2 * (va - n_shared) + 16,
+                                    replace=False), d_valid)
+    a_valid = np.sort(np.concatenate([take, rng.permutation(fresh)[:va - n_shared]]))
+
+    def table(rows, valid):
+        ids = np.full(rows, reconcile.INVALID_ID, np.int32)
+        ids[:len(valid)] = valid
+        return [torch.from_numpy(x).to(dev) for x in (
+            ids, rng.integers(0, 9, rows).astype(np.int32),
+            rng.integers(0, 100_000, rows).astype(np.int32))]
+
+    d, a = table(m, d_valid), table(k, a_valid)
+    push = torch.from_numpy(rng.random(m) < p_push).to(dev)
+    drop = torch.from_numpy(rng.random(k) < p_drop).to(dev)
+    return d, a, push, drop
+
+
+M20, M21 = 1 << 20, 1 << 21
+# (M, K, valid desired, valid catalog, shared part, push rate, drop rate)
+K6_RANDOM = {
+    "M != K": (700_001, M20, 600_000, 900_000, 0.5, 0.5, 0.3),
+    "every row pushed": (M20, M20, 900_000, 800_000, 0.5, 1.0, 0.0),
+    "none pushed": (M20, M20, 900_000, 800_000, 0.5, 0.0, 0.3),
+    "all INVALID": (M20, M20, 0, 0, 0.0, 0.5, 0.5),
+    "every pushed id in the catalog": (M20, M20, 500_000, 500_000, 1.0, 1.0,
+                                       0.0),
+    "overflow (valid rows > K)": (M20, M20 // 2, 1_000_000, 500_000, 0.1,
+                                  1.0, 0.0),
+    "2^21 rows": (M21, M21, 1_900_000, 1_800_000, 0.7, 0.5, 0.1),
+}
+
+
+def _diff_bytes(d_ids, d_ver, a_ids, a_ver) -> int:
+    """Least bytes of the diff on these tables: every id, the versions of
+    the ids present in both tables, the two masks."""
+    inv = reconcile.INVALID_ID
+    hits = int((torch.isin(d_ids, a_ids) & (d_ids != inv)).sum())
+    m, k = d_ids.numel(), a_ids.numel()
+    return 4 * (m + k) + 8 * hits + (m + k)
+
+
+def _merge_bytes(m: int, k: int) -> int:
+    """Least bytes of the merge in step's form: every id and mask, the
+    version and node of the K rows that land in the output, the output."""
+    return 5 * (m + k) + 8 * k + 12 * k
+
+
+def time_k6(params, s, up) -> tuple:
+    """Both K6 launches at one replayed state: device ms (kernel_ms; the
+    merge's three kernels apart from torch.profiler), wrapper call ms,
+    twin ms, library ms and bounds."""
+    push, drop = antientropy.sync_masks(params, s, up)[2:]
+    cols = (s.d_ids, s.d_ver, s.a_ids, s.a_ver)
+    diff = lambda: reconcile.diff_sorted_kernel(*cols)  # noqa: E731
+    merge = lambda: reconcile.merge_kernel(  # noqa: E731
+        s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver, s.a_node, push, drop)
+    m, k = s.d_ids.numel(), s.a_ids.numel()
+    db, mb = _diff_bytes(*cols), _merge_bytes(m, k)
+    t_diff = {"ms": kernel_ms(diff),
+              "kernel_ms": device_ms(diff, ("diff_kernel",))["diff_kernel"],
+              "call_ms": median_ms(diff),
+              "plain_ms": median_ms(lambda: reconcile.diff_sorted_plain(*cols),
+                                    reps=5),
+              "library_ms": median_ms(lambda: torch.searchsorted(s.a_ids,
+                                                                 s.d_ids)),
+              "bound_ms": db / HBM_BYTES_PER_S * 1000.0, "bound_bytes": db}
+    phases = ("merge_count_kernel", "merge_scan_kernel",
+              "merge_scatter_kernel")
+    t_merge = {"ms": kernel_ms(merge), "phase_ms": device_ms(merge, phases),
+               "call_ms": median_ms(merge),
+               "plain_ms": median_ms(lambda: reconcile.merge_plain(
+                   s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver, s.a_node,
+                   push, drop), reps=5),
+               "library_ms": median_ms(lambda: torch.sort(
+                   torch.cat([s.d_ids, s.a_ids]), stable=True)),
+               "bound_ms": mb / HBM_BYTES_PER_S * 1000.0, "bound_bytes": mb}
+    return t_diff, t_merge
+
+
+def _spread(xs) -> dict:
+    xs = sorted(xs)
+    q = lambda f: xs[min(len(xs) - 1, int(f * len(xs)))]  # noqa: E731
+    return {"median": q(0.5), "p10": q(0.1), "p90": q(0.9), "min": xs[0],
+            "max": xs[-1], "n": len(xs)}
+
+
+def ae_phase(dev) -> tuple:
+    """Phase 9, anti-entropy (models/antientropy.py) at BASELINE.json's
+    1M services: AEParams(n_agents=100_000, capacity=1_048_576,
+    sync_interval_ticks=60, seed=7), every service registered in one
+    command in random order, one step pushing them all, 660 churn ticks
+    (one scaled interval) with agents 0-999 down for ticks 100-399, a
+    final step with everyone up; every launch count zeroed just before
+    and the twins' calls counted: in_sync_fraction 1.0, the catalog's
+    live count the desired live count, K6 twice a step and once an
+    in_sync_fraction, the twins never.  Then K6 against its twin,
+    bit-equal, on the replayed first-push, mid-churn and agents-down
+    states and on random tables; both launches timed at the mid-churn
+    state; the workload at 4,096 services on the card and the CPU with
+    the same digest.  Returns (the two kernels-line entries, the
+    record)."""
+    params = AE_CHURN.params
+    held_states = {}
+    wanted = {v: name for name, v in AE_HELD_TICKS.items()}
+
+    def keep(label, s, up):
+        if label == "first_push" or label in wanted:
+            held_states[wanted.get(label, label)] = (s, up)
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with _twin_calls() as twins:
+        r = workloads.ae_churn(AE_CHURN, dev, keep=keep)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    brief = {k: v for k, v in r.items()
+             if k not in ("state", "step_ms", "register_ms", "deregister_ms")}
+    times = {"step_ms": _spread(r["step_ms"][1:-1]),
+             "first_push_step_ms": r["step_ms"][0],
+             "final_step_ms": r["step_ms"][-1],
+             "register_1m_ms": r["register_ms"][0],
+             "register_ms": _spread(r["register_ms"][1:]),
+             "deregister_ms": _spread(r["deregister_ms"])}
+    log(f"anti-entropy at {AE_CHURN.services} services: {brief}; wall {wall} "
+        f"s; launches {launches}; twin calls {twins}; peak_mem_bytes={peak}")
+    log("anti-entropy fenced ms: " + json.dumps(times))
+    require(r["in_sync"] == 1.0, f"anti-entropy in_sync {r['in_sync']}")
+    require(r["catalog_live"] == r["desired_live"] == r["desired_rows"],
+            f"anti-entropy: catalog {r['catalog_live']} rows, desired "
+            f"{r['desired_live']} live ({r['desired_rows']} rows)")
+    require(launches["reconcile_diff"] == r["steps"] + r["in_sync_calls"]
+            and launches["reconcile_merge"] == r["steps"],
+            f"K6 launches {launches} for {r['steps']} steps")
+    require(twins == {"diff_sorted_plain": 0, "merge_plain": 0},
+            f"K6's twins ran on the card: {twins}")
+    require(launches["threefry_draws"] == r["steps"] + 1,
+            f"K1 launches {launches['threefry_draws']}: want one a step and "
+            f"the stagger")
+
+    held = {name: _hold_k6(s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver,
+                           s.a_node, *antientropy.sync_masks(params, s, up)[2:],
+                           f"replayed {name}")
+            for name, (s, up) in held_states.items()}
+    for i, (name, shape) in enumerate(sorted(K6_RANDOM.items())):
+        d, a, push, drop = _k6_tables(dev, *shape, seed=100 + i)
+        held[name] = _hold_k6(*d, *a, push, drop, name)
+        if name == "M != K":      # the step's own masks on these tables
+            diff = reconcile.diff_sorted_plain(d[0], d[1], a[0], a[1])
+            held["M != K, the diff's masks"] = _hold_k6(
+                *d, *a, diff.push, diff.drop, "M != K, the diff's masks")
+    log(f"K6 held bit-equal: {json.dumps(held)}")
+
+    s, up = held_states["mid_churn"]
+    t_diff, t_merge = time_k6(params, s, up)
+    log(f"K6 reconcile_diff: {json.dumps(t_diff)}")
+    log(f"K6 reconcile_merge: {json.dumps(t_merge)}")
+
+    card = workloads.ae_churn(AE_SMALL, dev, digest=True)
+    cpu = workloads.ae_churn(AE_SMALL, torch.device("cpu"), digest=True)
+    log(f"anti-entropy at {AE_SMALL.services} services: card {card['digest']} "
+        f"in_sync {card['in_sync']}, cpu {cpu['digest']} in_sync "
+        f"{cpu['in_sync']}, {card['steps']} steps")
+    require(card["digest"] == cpu["digest"] and card["in_sync"] == 1.0,
+            "anti-entropy at 4096 services: card and cpu digests differ")
+
+    entries = []
+    for name, t, replaces in (
+            ("reconcile_diff", t_diff, "consul_tpu/ops/reconcile.py:28"),
+            ("reconcile_merge", t_merge,
+             "consul_tpu/models/antientropy.py:157")):
+        entries.append({"name": name, "route": "cuda",
+                        "source": "consul_tpu_torch/kernels/csrc/reconcile.cu",
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": 0.0, "ms": t["ms"],
+                        "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                        "library_ms": t["library_ms"],
+                        "shape": [s.d_ids.numel(), s.a_ids.numel()]})
+    return entries, {"run": brief, "wall_s": wall, "launches": launches,
+                     "twin_calls": twins, "peak_mem_bytes": peak,
+                     "times": times, "k6_held": held, "k6_diff": t_diff,
+                     "k6_merge": t_merge,
+                     "small": {"digest": card["digest"],
+                               "steps": card["steps"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the standalone Vivaldi solver at 100k nodes
+# ---------------------------------------------------------------------------
+
+VIVALDI_N = 100_000
+# card against CPU at n = 4,096: the error curves agree within this
+# relative gap.  The port and the JAX package, two float implementations,
+# stay within 1e-5 of scale of each other tick by tick on the CPU
+# (tests/test_torch_vivaldi.py), the spring relaxation contracts such
+# gaps rather than growing them, and the median reads many pairs.
+VIVALDI_CURVE_RTOL = 1e-3
+
+
+def vivaldi_phase(dev) -> dict:
+    """Phase 10, the standalone Vivaldi solver (VivaldiParams(n_nodes=
+    100_000, dims=8, seed=7), true coordinates uniform(PRNGKey(7)) x 60
+    ms, 400 sim_step ticks, as tests/test_vivaldi.py:_converge builds
+    them), every launch count zeroed just before: the median relative
+    error under 0.15 and under a third of the initial; K1 once for the
+    true coordinates, three times a tick and twice an error read.  The error every 50 ticks, fenced ms a
+    tick and sort_by_distance(0)'s wall are recorded; at n = 4,096 the
+    card's and the CPU's curves agree within VIVALDI_CURVE_RTOL."""
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = workloads.vivaldi_converge(VIVALDI_N, device=dev)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    sort_ms = wall_ms(lambda: vivaldi.sort_by_distance(r["state"], 0))
+    ms_tick = 1000.0 * r["wall_s"] / r["ticks"]
+    reads = 1 + len(r["curve"])
+    log(f"vivaldi at n={VIVALDI_N}: err0 {r['err0']} curve {r['curve']} "
+        f"fenced ms per tick {ms_tick} sort_by_distance(0) {sort_ms} ms "
+        f"launches {launches} peak_mem_bytes={peak}")
+    require(r["err"] < 0.15 and r["err"] < r["err0"] / 3,
+            f"vivaldi: error {r['err']} (initial {r['err0']})")
+    require(launches["threefry_draws"] == 1 + 3 * r["ticks"] + 2 * reads,
+            f"vivaldi: K1 launches {launches['threefry_draws']}")
+    card = workloads.vivaldi_converge(4096, device=dev)
+    cpu = workloads.vivaldi_converge(4096, device=torch.device("cpu"))
+    gap = max(abs(a[1] - b[1]) / b[1] for a, b in zip(card["curve"],
+                                                      cpu["curve"]))
+    log(f"vivaldi at n=4096: card {card['curve']}, cpu {cpu['curve']}, "
+        f"largest relative gap {gap}")
+    require(card["err0"] == cpu["err0"] and gap <= VIVALDI_CURVE_RTOL,
+            f"vivaldi at n=4096: card and cpu curves differ by {gap}")
+    return {"err0": r["err0"], "curve": r["curve"], "ms_per_tick": ms_tick,
+            "wall_s": r["wall_s"], "sort_by_distance_ms": sort_ms,
+            "launches": launches, "peak_mem_bytes": peak,
+            "n4096": {"card": card["curve"], "cpu": cpu["curve"],
+                      "gap": gap}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1459,6 +1968,10 @@ def main() -> int:
         dev, k2_states["final"]["exchange_ms"])
     k5, correlated_record = correlated_phase(dev)
     results += [k2_chaos, k5]
+    wan_record = wan_phase(dev)
+    k6, ae_record = ae_phase(dev)
+    results += k6
+    vivaldi_record = vivaldi_phase(dev)
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
@@ -1466,7 +1979,8 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": results,
               "oracle": oracle_record, "chaos": chaos_record,
-              "correlated": correlated_record,
+              "correlated": correlated_record, "federation": wan_record,
+              "antientropy": ae_record, "vivaldi": vivaldi_record,
               "kernels_per_tick": per_tick, "gossip_states": k2_states,
               "k1": k1_record, "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],

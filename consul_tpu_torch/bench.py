@@ -31,7 +31,8 @@ CHUNK = 200
 VICTIM = 123_456
 
 
-def _fence(device: torch.device) -> None:
+def fence(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -47,10 +48,10 @@ def prepare(n_nodes: int = N, chunk: int = CHUNK, victim: int = VICTIM,
     s = serf.init_state(params, device=device)
     t_warm = time.perf_counter()
     s, _ = serf.run(params, s, chunk, victim)
-    _fence(device)
+    fence(device)
     warm_s = time.perf_counter() - t_warm
     s = s.replace(swim=swim.kill(s.swim, victim))
-    _fence(device)
+    fence(device)
     return params, s, warm_s
 
 

@@ -5,6 +5,9 @@ for a ClusterState {"swim": ..., "coords": ..., "events": ...}), as a
 caller gets them with `np.asarray(getattr(state, name))`.  Dtypes are
 preserved exactly; the scalar ticks and the Vivaldi cursor become the
 port's host mirrors.  `oracle_from_numpy` carries a whole oracle's pool.
+A WanState's JAX dict holds its batched LAN pool as one ClusterState
+dict whose leaves lead with the DC axis [D, ...]; the port keeps D pools
+and the bridge ring on the host.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from consul_tpu_torch import oracle
-from consul_tpu_torch.models import events, serf, swim, vivaldi
+from consul_tpu_torch.models import antientropy, events, serf, swim, vivaldi, wan
 from consul_tpu_torch.utils import devices
 
 
@@ -81,6 +84,54 @@ def cluster_state_to_numpy(s: serf.ClusterState) -> dict:
     return {"swim": swim_state_to_numpy(s.swim),
             "coords": vivaldi_state_to_numpy(s.coords),
             "events": event_state_to_numpy(s.events)}
+
+
+def ae_state_from_numpy(d: dict, device=None) -> antientropy.AEState:
+    device = devices.resolve(device)
+    fields = {name: _tensor(d[name], device)
+              for name in antientropy.TENSOR_FIELDS}
+    return antientropy.AEState(tick=int(np.asarray(d["tick"])), **fields)
+
+
+def ae_state_to_numpy(s: antientropy.AEState) -> dict:
+    out = {name: getattr(s, name).cpu().numpy()
+           for name in antientropy.TENSOR_FIELDS}
+    out["tick"] = np.int32(s.tick)
+    return out
+
+
+def _dc(d, i):
+    """DC i's slice of a batched state dict (nested dicts of [D, ...])."""
+    if isinstance(d, dict):
+        return {k: _dc(v, i) for k, v in d.items()}
+    return np.asarray(d)[i]
+
+
+def _stack(dicts):
+    if isinstance(dicts[0], dict):
+        return {k: _stack([x[k] for x in dicts]) for k in dicts[0]}
+    return np.stack([np.asarray(x) for x in dicts])
+
+
+def wan_state_from_numpy(d: dict, device=None) -> wan.WanState:
+    """d: {"lan": a ClusterState dict with [D, ...] leaves, "wan": a
+    ClusterState dict, "bridged": [D, B] int32, "bridged_ptr": [D]
+    int32}."""
+    device = devices.resolve(device)
+    bridged = np.asarray(d["bridged"])
+    return wan.WanState(
+        lan=tuple(cluster_state_from_numpy(_dc(d["lan"], i), device)
+                  for i in range(bridged.shape[0])),
+        wan=cluster_state_from_numpy(d["wan"], device),
+        bridged=tuple(tuple(int(v) for v in row) for row in bridged),
+        bridged_ptr=tuple(int(p) for p in np.asarray(d["bridged_ptr"])))
+
+
+def wan_state_to_numpy(s: wan.WanState) -> dict:
+    return {"lan": _stack([cluster_state_to_numpy(c) for c in s.lan]),
+            "wan": cluster_state_to_numpy(s.wan),
+            "bridged": np.array(s.bridged, dtype=np.int32),
+            "bridged_ptr": np.array(s.bridged_ptr, dtype=np.int32)}
 
 
 def oracle_from_numpy(gossip, sim, state: dict, provisioned, device=None,

@@ -7,7 +7,8 @@ CUDA error, and counts the launch in `LAUNCHES` — the only place the
 count moves, so a run can show that its path went through the kernel.
 The public wrappers that choose between a kernel and its plain PyTorch
 twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
-`models/swim.py` (K3, K4, K5).  They take the twin only for CPU tensors.
+`models/swim.py` (K3, K4, K5), `ops/reconcile.py` (K6).  They take the
+twin only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +28,10 @@ MEMBERS = ("members_scan", "members_emit", "members_page")
 # the nemesis build and the mass-event path: K2's exchange in its chaos
 # mode (counted apart from the non-chaos exchange) and K5
 CHAOS = ("gossip_exchange_chaos", "mass_detect")
-KERNELS = MAIN_PATH + MEMBERS + CHAOS
+# anti-entropy's set reconciliation (K6): the diff, and the compaction +
+# merge (three device kernels behind one entry point, counted once)
+RECONCILE = ("reconcile_diff", "reconcile_merge")
+KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE
 LAUNCHES = {name: 0 for name in KERNELS}
 # K1's modes, in the order of threefry.cu's Mode, and the launches of K1
 # that carried a segment of each
@@ -71,6 +75,8 @@ SIGNATURES = {
     "members_page": [_P, _I64] + [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P,
                                              _P],
     "mass_detect": [_P] * 11 + [_I64, _I, _P, _P, _P, _P],
+    "reconcile_diff": [_P] * 4 + [_I64, _I64, _P, _P, _P],
+    "reconcile_merge": [_P] * 8 + [_I64, _I64, _P, _I64, _P, _P, _P, _P],
 }
 
 
@@ -508,3 +514,84 @@ def launch_mass_detect(know, up, member, committed_dead, committed_left,
         _stream(dev))
     _check(rc, "mass_detect")
     LAUNCHES["mass_detect"] += 1
+
+
+RECONCILE_TILE = 256    # reconcile.cu's kTile: rows a block
+_I32_MAX = 2 ** 31 - 1
+
+
+def merge_scratch_bytes(m: int, k: int) -> int:
+    """reconcile_merge's scratch for M desired and K catalog rows: per-row
+    ranks and per-tile totals and offsets (int32), the totals, and a flag
+    byte per desired row (reconcile.cu: reconcile_merge)."""
+    bm, bk = -(-m // RECONCILE_TILE), -(-k // RECONCILE_TILE)
+    return 4 * (m + k + 3 * bm + 2 * bk + 4) + m
+
+
+def _tables(name: str, src_ids, dst_ids) -> tuple:
+    m = src_ids.shape[0] if src_ids is not None and src_ids.dim() == 1 else 0
+    k = dst_ids.shape[0] if dst_ids is not None and dst_ids.dim() == 1 else 0
+    if not 1 <= m <= _I32_MAX or not 1 <= k <= _I32_MAX:
+        raise ValueError(f"{name}: both tables must be [rows] with 1 to "
+                         f"2^31 - 1 rows, got {m} and {k}")
+    return m, k
+
+
+def launch_reconcile_diff(src_ids, src_ver, dst_ids, dst_ver, push,
+                          drop) -> None:
+    """K6's diff: push [M] bool and drop [K] bool of diff_sorted from the
+    id-sorted int32 tables (src_ids, src_ver) [M] and (dst_ids, dst_ver)
+    [K]."""
+    dev = src_ids.device if src_ids is not None else None
+    m, k = _tables("reconcile_diff", src_ids, dst_ids)
+    for t, what, dt, n in ((src_ids, "src_ids", torch.int32, m),
+                           (src_ver, "src_ver", torch.int32, m),
+                           (dst_ids, "dst_ids", torch.int32, k),
+                           (dst_ver, "dst_ver", torch.int32, k),
+                           (push, "push", torch.bool, m),
+                           (drop, "drop", torch.bool, k)):
+        _require(t, "reconcile_diff " + what, dt, dev, (n,))
+    rc = library().reconcile_diff(src_ids.data_ptr(), src_ver.data_ptr(),
+                                  dst_ids.data_ptr(), dst_ver.data_ptr(), m,
+                                  k, push.data_ptr(), drop.data_ptr(),
+                                  _stream(dev))
+    _check(rc, "reconcile_diff")
+    LAUNCHES["reconcile_diff"] += 1
+
+
+def launch_reconcile_merge(d_ids, d_ver, d_node, push, a_ids, a_ver, a_node,
+                           drop, out_ids, out_ver, out_node) -> None:
+    """K6's merge: the catalog (a_ids, a_ver, a_node) [K] with the rows
+    under `drop` [K] compacted out (drop may be None), merged with the
+    desired rows (d_ids, d_ver, d_node) [M] under `push` [M], into
+    out_ids/out_ver/out_node [K]; the node columns come together or are
+    all None.  int32 columns, bool masks; its scratch is allocated here,
+    per call."""
+    dev = d_ids.device if d_ids is not None else None
+    m, k = _tables("reconcile_merge", d_ids, a_ids)
+    nodes = (d_node, a_node, out_node)
+    if any(t is None for t in nodes) and any(t is not None for t in nodes):
+        raise ValueError("reconcile_merge: d_node, a_node and out_node come "
+                         "together")
+    named = [(d_ids, "d_ids", torch.int32, m), (d_ver, "d_ver", torch.int32, m),
+             (push, "push", torch.bool, m), (a_ids, "a_ids", torch.int32, k),
+             (a_ver, "a_ver", torch.int32, k),
+             (out_ids, "out_ids", torch.int32, k),
+             (out_ver, "out_ver", torch.int32, k)]
+    if d_node is not None:
+        named += [(d_node, "d_node", torch.int32, m),
+                  (a_node, "a_node", torch.int32, k),
+                  (out_node, "out_node", torch.int32, k)]
+    if drop is not None:
+        named.append((drop, "drop", torch.bool, k))
+    for t, what, dt, n in named:
+        _require(t, "reconcile_merge " + what, dt, dev, (n,))
+    size = merge_scratch_bytes(m, k)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    rc = library().reconcile_merge(
+        d_ids.data_ptr(), d_ver.data_ptr(), _ptr(d_node), push.data_ptr(),
+        a_ids.data_ptr(), a_ver.data_ptr(), _ptr(a_node), _ptr(drop), m, k,
+        scratch.data_ptr(), size, out_ids.data_ptr(), out_ver.data_ptr(),
+        _ptr(out_node), _stream(dev))
+    _check(rc, "reconcile_merge")
+    LAUNCHES["reconcile_merge"] += 1

@@ -90,6 +90,15 @@ def init_state(params: EventParams, device=None) -> EventState:
         active_host=(False,) * e, start_host=(0,) * e)
 
 
+def fire_slot(s: EventState) -> int:
+    """The slot `fire` takes, from the host mirrors: the lowest free one,
+    else the first with the largest start tick."""
+    if not all(s.active_host):
+        return s.active_host.index(False)
+    return max(range(len(s.active_host)),
+               key=lambda j: (s.start_host[j], -j))
+
+
 def fire(params: EventParams, s: EventState, origin: int,
          event_id: int) -> EventState:
     """Fire a user event from `origin` (agent/user_event.go:23): the
@@ -97,10 +106,7 @@ def fire(params: EventParams, s: EventState, origin: int,
     with the largest start tick among the active ones)."""
     e = params.event_slots
     dev = s.know.device
-    if not all(s.active_host):
-        slot = s.active_host.index(False)
-    else:
-        slot = max(range(e), key=lambda j: (s.start_host[j], -j))
+    slot = fire_slot(s)
     lamport = s.lamport.clone()
     ltime = lamport[origin] + 1
     lamport[origin] = ltime

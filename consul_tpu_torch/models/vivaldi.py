@@ -1,11 +1,15 @@
 """Vivaldi network coordinates as vectorized spring relaxation (the port of
-consul_tpu/models/vivaldi.py's ring-probe path and its RTT estimate).
+consul_tpu/models/vivaldi.py).
 
 Every probe ack yields one coordinate observation; a whole cluster's
-acks apply in one batched update against the ring peer (i + shift) % N.
+acks apply in one batched update, against the ring peer (i + shift) % N
+on the serf tick (`observe_ring`) or against any peers (`observe`, which
+the standalone solver `sim_step` drives over a synthetic RTT matrix).
 The algorithm follows the Vivaldi paper (Dabek et al., SIGCOMM'04) with
 serf's height vector, adaptive error, gravity and latency-adjustment
-window.  Units: seconds.
+window.  Units: seconds.  These are gathers and elementwise work in plain
+torch; their one random draw, the spring direction of colocated nodes,
+is a K1 normal.
 
 The floats here pass through norms and the normal draw's erf_inv, whose
 rounding differs between XLA and PyTorch by a few ulp; nothing here
@@ -16,6 +20,7 @@ stated tolerance rather than bit equality.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -70,6 +75,73 @@ def init_state(params: VivaldiParams, device=None) -> VivaldiState:
 
 def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return torch.sqrt((x * x).sum(-1, keepdim=keepdim))
+
+
+def observe(params: VivaldiParams, s: VivaldiState,
+            src: Optional[torch.Tensor], dst: torch.Tensor, rtt: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> VivaldiState:
+    """One RTT observation per source row, batched (vivaldi.py:87-159).
+
+    src: [K] int32 node ids (distinct), or None for the row-aligned path
+    (node i observes dst[i]); dst: [K] int32; rtt: [K] float32 seconds;
+    mask: [K] bool (False rows are no-ops)."""
+    aligned = src is None
+    dev = s.coords.device
+    if aligned:
+        src = torch.arange(s.coords.shape[0], dtype=torch.int32, device=dev)
+    if mask is None:
+        mask = torch.ones(src.shape, dtype=torch.bool, device=dev)
+    rtt = torch.clamp_min(rtt, 1.0e-6)
+    si, di = src.to(torch.int64), dst.to(torch.int64)
+    ci = s.coords if aligned else s.coords[si]
+    hi = s.height if aligned else s.height[si]
+    ei = s.error if aligned else s.error[si]
+    cj, hj, ej = s.coords[di], s.height[di], s.error[di]
+
+    diff = ci - cj
+    norm = _norm(diff)
+    dist = norm + hi + hj
+
+    w = ei / torch.clamp_min(ei + ej, 1.0e-9)
+    err_sample = torch.abs(dist - rtt) / rtt
+    ce = params.vivaldi_ce
+    new_err = err_sample * ce * w + ei * (1.0 - ce * w)
+    new_err = torch.clamp(new_err, 1.0e-6, params.vivaldi_error_max)
+
+    key = prng.tick_key(params.seed, s.adj_index, 7)
+    rand_dir = prng.normal(key, tuple(ci.shape), dev)
+    unit = torch.where((norm > 1.0e-9)[:, None],
+                       diff / torch.clamp_min(norm, 1.0e-9)[:, None],
+                       rand_dir / _norm(rand_dir, keepdim=True))
+    force = params.vivaldi_cc * w * (rtt - dist)
+    new_ci = ci + unit * force[:, None]
+    new_hi = torch.clamp_min(hi + (hi / torch.clamp_min(dist, 1.0e-9)) * force,
+                             params.height_min)
+
+    m = mask
+    col = s.adj_index % params.adjustment_window
+    sample = (rtt - dist) / 2.0
+    if aligned:
+        coords = torch.where(m[:, None], new_ci, s.coords)
+        height = torch.where(m, new_hi, s.height)
+        error = torch.where(m, new_err, s.error)
+        new_col = torch.where(m, sample, s.adj_window[:, col])
+    else:
+        coords = s.coords.index_put((si,), torch.where(m[:, None], new_ci, ci))
+        height = s.height.index_put((si,), torch.where(m, new_hi, hi))
+        error = s.error.index_put((si,), torch.where(m, new_err, ei))
+        old_col = s.adj_window[:, col]
+        new_col = old_col.index_put((si,), torch.where(m, sample, old_col[si]))
+
+    norms = _norm(coords, keepdim=True)
+    q = norms / params.gravity_rho
+    coords = coords * torch.clamp_min(1.0 - q * q, 0.0)
+
+    adj_window = s.adj_window.clone()
+    adj_window[:, col] = new_col
+    return VivaldiState(coords=coords, height=height, error=error,
+                        adj_window=adj_window, adj_index=s.adj_index + 1,
+                        adjustment=adj_window.mean(1))
 
 
 def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
@@ -139,3 +211,66 @@ def estimate_rtt(s: VivaldiState, src: torch.Tensor,
     src, dst = src.to(torch.int64), dst.to(torch.int64)
     adjusted = d + s.adjustment[src] + s.adjustment[dst]
     return torch.where(adjusted > 0.0, adjusted, d)
+
+
+def sort_by_distance(s: VivaldiState, origin: int) -> torch.Tensor:
+    """Node ids ([N] int32) in stable order of estimated RTT from `origin`
+    — the `?near=` query path (vivaldi.py:213-219)."""
+    n = s.coords.shape[0]
+    dev = s.coords.device
+    d = estimate_rtt(s, torch.full((n,), origin, dtype=torch.int32,
+                                   device=dev),
+                     torch.arange(n, dtype=torch.int32, device=dev))
+    return torch.sort(d, stable=True).indices.to(torch.int32)
+
+
+def median(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """jnp.median along `dim` of finite values: with an even count the two
+    middle values are averaged as (lo + hi) * 0.5 in float32 (its
+    "midpoint" quantile; torch.median would return the lower one)."""
+    v = torch.sort(x, dim=dim).values
+    n = x.shape[dim]
+    lo = v.narrow(dim, (n - 1) // 2, 1).squeeze(dim)
+    hi = v.narrow(dim, n // 2, 1).squeeze(dim)
+    return (lo + hi) * 0.5
+
+
+# ---------------------------------------------------------------------------
+# the standalone convergence sim (vivaldi.py:222-256)
+# ---------------------------------------------------------------------------
+
+def synthetic_rtt(true_coords: torch.Tensor, src: torch.Tensor,
+                  dst: torch.Tensor, key, jitter: float = 0.02) -> torch.Tensor:
+    """Ground-truth RTT (seconds) from latent coordinates, times
+    1 + jitter * a K1 normal."""
+    base = _norm(true_coords[src.to(torch.int64)]
+                 - true_coords[dst.to(torch.int64)])
+    noise = 1.0 + jitter * prng.normal(key, tuple(base.shape), base.device)
+    return torch.clamp_min(base * noise, 1.0e-6)
+
+
+def _pairs(params: VivaldiParams, tick: int, stream: int, device):
+    """Every node and one random other node, from tick_key(seed, tick,
+    stream)'s split, and the second half of the split for the RTT draw."""
+    n = params.n_nodes
+    k1, k2 = prng.split(prng.tick_key(params.seed, tick, stream))
+    src = torch.arange(n, dtype=torch.int32, device=device)
+    return src, prng.other_nodes(k1, n, (n,), device), k2
+
+
+def sim_step(params: VivaldiParams, true_coords: torch.Tensor,
+             s: VivaldiState, tick: int) -> VivaldiState:
+    """One relaxation tick: every node measures one random peer."""
+    src, dst, k2 = _pairs(params, tick, 8, s.coords.device)
+    return observe(params, s, src, dst, synthetic_rtt(true_coords, src, dst,
+                                                      k2))
+
+
+def relative_error(params: VivaldiParams, true_coords: torch.Tensor,
+                   s: VivaldiState, tick: int) -> torch.Tensor:
+    """Median |predicted - true| / true RTT over one random pair per node
+    (0-d float32, on the device)."""
+    src, dst, k2 = _pairs(params, tick, 9, s.coords.device)
+    true_rtt = synthetic_rtt(true_coords, src, dst, k2, jitter=0.0)
+    est = estimate_rtt(s, src, dst)
+    return median(torch.abs(est - true_rtt) / true_rtt)

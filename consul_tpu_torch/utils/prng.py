@@ -303,3 +303,11 @@ def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
     """jax.random.randint int32 for host-int bounds (random.py:581-646)."""
     return draw([Draw("randint", key, tuple(shape), minval, maxval)],
                 device)[0]
+
+
+def other_nodes(key, n: int, shape, device) -> torch.Tensor:
+    """Uniform node ids excluding the row's own id (utils/prng.py:23-31):
+    int32 of `shape`, shape[0] == n, row i never draws i."""
+    d = randint(key, shape, 0, n - 1, device)
+    rows = torch.arange(n, dtype=torch.int32, device=d.device)
+    return (rows.reshape((n,) + (1,) * (len(shape) - 1)) + 1 + d) % n

@@ -530,3 +530,114 @@ def test_chaos_gossip_on_a_card_tensor_launches_the_chaos_mode(monkeypatch):
         pswim._disseminate(params, s)
     assert seen["group"] is s.chaos_grp and seen["node_ok"] is s.chaos_ok
     assert seen["key"] is not None
+
+
+def _reconcile_args(m=12, k=10, nodes=True):
+    z = lambda n, dtype=torch.int32: torch.zeros(n, dtype=dtype)  # noqa: E731
+    merge = dict(d_ids=z(m), d_ver=z(m), d_node=z(m) if nodes else None,
+                 push=z(m, torch.bool), a_ids=z(k), a_ver=z(k),
+                 a_node=z(k) if nodes else None, drop=z(k, torch.bool),
+                 out_ids=z(k), out_ver=z(k), out_node=z(k) if nodes else None)
+    diff = dict(src_ids=z(m), src_ver=z(m), dst_ids=z(k), dst_ver=z(k),
+                push=z(m, torch.bool), drop=z(k, torch.bool))
+    return {"diff": diff, "merge": merge}
+
+
+RECONCILE_BAD = {
+    # case: (the launch, the arguments' edit, the message it raises with)
+    "diff src_ids dtype": ("diff", dict(src_ids=torch.zeros(12, dtype=torch.int64)),
+                           "src_ids"),
+    "diff dst_ver shape": ("diff", dict(dst_ver=torch.zeros(11, dtype=torch.int32)),
+                           "dst_ver"),
+    "diff push dtype": ("diff", dict(push=torch.zeros(12, dtype=torch.uint8)),
+                        "push"),
+    "diff drop device": ("diff", dict(drop=torch.zeros(10, dtype=torch.bool,
+                                                       device=META)), "drop"),
+    "diff empty table": ("diff", dict(dst_ids=torch.zeros(0, dtype=torch.int32)),
+                         "rows"),
+    "diff table not 1-d": ("diff", dict(src_ids=torch.zeros(3, 4, dtype=torch.int32)),
+                           "rows"),
+    "merge d_ver dtype": ("merge", dict(d_ver=torch.zeros(12)), "d_ver"),
+    "merge push shape": ("merge", dict(push=torch.zeros(10, dtype=torch.bool)),
+                         "push"),
+    "merge out_ids shape": ("merge", dict(out_ids=torch.zeros(12, dtype=torch.int32)),
+                            "out_ids"),
+    "merge a_ids not contiguous": ("merge", dict(
+        a_ids=torch.zeros(20, dtype=torch.int32)[::2]), "a_ids"),
+    "merge drop dtype": ("merge", dict(drop=torch.zeros(10, dtype=torch.int32)),
+                         "drop"),
+    "merge node without output": ("merge", dict(out_node=None), "together"),
+    "merge a_node device": ("merge", dict(a_node=torch.zeros(10, dtype=torch.int32,
+                                                             device=META)), "a_node"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RECONCILE_BAD))
+def test_reconcile_wrappers_reject(case):
+    launch, edit, match = RECONCILE_BAD[case]
+    args = _reconcile_args()[launch]
+    args.update(edit)
+    fn = {"diff": kernels.launch_reconcile_diff,
+          "merge": kernels.launch_reconcile_merge}[launch]
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        fn(**args)
+    assert kernels.LAUNCHES == before
+
+
+def test_reconcile_tile_matches_the_kernel_source():
+    """kernels.RECONCILE_TILE is reconcile.cu's kTile, the unit of the
+    scratch layout kernels.merge_scratch_bytes sizes; both entry points
+    are bound."""
+    text = (Path(kernels.__file__).parent / "csrc" / "reconcile.cu").read_text()
+    assert int(re.search(r"constexpr int kTile = (\d+);", text).group(1)) == \
+        kernels.RECONCILE_TILE
+    assert re.search(r"4 \* words \+ M", text)
+    m, k = 1000, 3000
+    bm, bk = -(-m // 256), -(-k // 256)
+    assert kernels.merge_scratch_bytes(m, k) == 4 * (m + k + 3 * bm + 2 * bk
+                                                     + 4) + m
+    assert set(kernels.RECONCILE) <= set(kernels.SIGNATURES)
+
+
+def test_reconcile_on_a_card_tensor_never_takes_the_plain_twin(monkeypatch):
+    """On a CUDA tensor the reconcile ops and antientropy.step go to K6 or
+    raise: with the launches refused, each raises instead of answering
+    from the plain twins, and the merge is handed the step's columns."""
+    from consul_tpu_torch.models import antientropy as pae
+    from consul_tpu_torch.ops import reconcile as prec
+    params = pae.AEParams(n_agents=8, capacity=16, sync_interval_ticks=5)
+    s = pae.init_state(params, device="cpu")
+    s = pae.register_desired(s, [3, 1, 2], [0, 1, 2], [1, 1, 1])
+    monkeypatch.setattr(type(s.d_ids), "is_cuda", property(lambda t: True))
+    seen = []
+
+    def refuse(name):
+        def launch(*a, **k):
+            seen.append(name)
+            raise RuntimeError(f"reconcile_{name} launch failed: CUDA "
+                               f"error 1")
+        return launch
+
+    for name in ("diff", "merge"):
+        monkeypatch.setattr(kernels, f"launch_reconcile_{name}",
+                            refuse(name))
+    for twin in ("diff_sorted_plain", "merge_plain"):
+        monkeypatch.setattr(prec, twin,
+                            lambda *a, **k: pytest.fail("took the plain twin"))
+    with pytest.raises(RuntimeError, match="reconcile_diff launch failed"):
+        prec.diff_sorted(s.d_ids, s.d_ver, s.a_ids, s.a_ver)
+    with pytest.raises(RuntimeError, match="reconcile_merge launch failed"):
+        prec.apply_push(s.d_ids, s.d_ver, s.a_ids, s.a_ver,
+                        torch.ones(16, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="reconcile_diff launch failed"):
+        pae.step(params, s, torch.ones(8, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="reconcile_diff launch failed"):
+        pae.in_sync_fraction(s)
+    # with the diff answered, step's merge is the kernel's
+    monkeypatch.setattr(prec, "diff_sorted_kernel", lambda *a: prec.DiffResult(
+        push=torch.ones(16, dtype=torch.bool),
+        drop=torch.zeros(16, dtype=torch.bool)))
+    with pytest.raises(RuntimeError, match="reconcile_merge launch failed"):
+        pae.step(params, s, torch.ones(8, dtype=torch.bool))
+    assert seen == ["diff", "merge", "diff", "diff", "merge"]
