@@ -17,12 +17,16 @@ Phases, each of which raises on failure (so the script exits non-zero):
      converge with F1 1.0, no false commits, every kernel (and each of
      K1's uniform, exponential, normal and randint modes) launched, and
      in the JAX package's tick count for the same seed (measured with
-     reference_ticks.py, recorded below);
+     reference_ticks.py, recorded below).  Phases 2-10 run while
+     swim_twin_calls() counts K7's and K8's plain twins on CUDA states:
+     none may run;
   3. host syncs per tick (sync debug mode) and device kernels per
      gossip-only and per probe tick (torch.profiler, 10 ticks of each,
      from the main path's final state): a gossip-only tick draws exactly
      one K1 batch and runs no int64 elementwise kernel, a probe tick
-     draws exactly three;
+     draws exactly three, launches K7 once and K8 at least twice (the
+     probe round's and the dense expiry's origination) and runs at most
+     PARENT_PROBE_KERNELS - PROBE_KERNELS_DROP device kernels;
   4. kernels: each kernel against its plain PyTorch twin on the card,
      bit-equal, at the main path's shapes (N=1M, S=U=32, G=3).  K1 mode
      by mode ([N, 3] uniform and bits, [N] exponential, [N, 8] normal —
@@ -92,7 +96,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
      ticks (scenarios.vivaldi_converge): the median relative error under
      0.15 and under a third of the initial; the error curve, ms a tick,
      sort_by_distance's wall; at n = 4,096 the card's and the CPU's
-     curves within VIVALDI_CURVE_RTOL (vivaldi_phase).
+     curves within VIVALDI_CURVE_RTOL (vivaldi_phase);
+ 11. the probe round and rumor origination: K7 and K8 against their
+     twins, every leaf bit-equal (rtt_ms included), on the main path's
+     states, the 1M chaos and correlated states phases 6-7 leave, the
+     federation's WAN pool, small pools on the card and random 1M
+     states (evicting calls and joiner cells must occur), then timed
+     beside their bounds, the twins and torch.topk of the wants; the
+     main path's fenced probe and gossip-only ticks (probe_phase).
 
 Prints, before the last line, one JSON object with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}.
@@ -101,6 +112,7 @@ numbers, and as the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -186,7 +198,7 @@ def main_path(dev) -> dict:
             f"tick count {r['ticks']} != JAX {REFERENCE_TICKS}")
     require(r["f1"] == 1.0, f"f1 {r['f1']}")
     require(r["false_commits"] == 0, f"false commits {r['false_commits']}")
-    for name in kernels.MAIN_PATH:
+    for name in kernels.MAIN_PATH + kernels.PROBE:
         require(launches[name] > 0, f"{name} never launched on the main path")
     require(launches["gossip_exchange_chaos"] == 0,
             "the main path ran K2's chaos mode")
@@ -695,6 +707,17 @@ def check_kernels_per_tick(params, state) -> dict:
         f"probe {probe}")
     require(probe == 3, f"probe tick draws {probe} K1 batches, want 3 (the "
             f"gossip offsets, _probe_round's draws, observe_ring's normal)")
+    launched = per_tick["probe"]["launches"]
+    require(launched["probe_round"] == 1 and launched["originate"] >= 2,
+            f"probe tick: K7 {launched['probe_round']} and K8 "
+            f"{launched['originate']} launches, want 1 and 2 or more (the "
+            f"probe round's and the dense expiry's)")
+    count = per_tick["probe"]["kernels"]
+    log(f"kernels per probe tick: {count}, before K7/K8 "
+        f"{PARENT_PROBE_KERNELS} (fall {PARENT_PROBE_KERNELS - count})")
+    require(count <= PARENT_PROBE_KERNELS - PROBE_KERNELS_DROP,
+            f"a probe tick runs {count} device kernels, want at most "
+            f"{PARENT_PROBE_KERNELS - PROBE_KERNELS_DROP}")
     return per_tick
 
 
@@ -904,8 +927,15 @@ def _prev(st: torch.Tensor, flips: int, seed: int) -> torch.Tensor:
 
 
 def _same(a, b, what: str, kernel: str = "K4") -> None:
-    require(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
-            f"{kernel} {what} != plain")
+    """a and b bit-equal: dtype, shape and every element (floats by their
+    bits, so -0.0 and NaN payloads count)."""
+    require(a.dtype == b.dtype and a.shape == b.shape,
+            f"{kernel} {what}: {a.dtype} {tuple(a.shape)} vs plain "
+            f"{b.dtype} {tuple(b.shape)}")
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    require(torch.equal(a, b), f"{kernel} {what} != plain: "
+            f"{int((a != b).sum())} elements differ")
 
 
 def check_members(dev, o) -> tuple:
@@ -1182,7 +1212,7 @@ def check_chaos_gossip(dev, params, states: dict, launches: int,
     return entry, {"held": held, "timed": timed}
 
 
-def chaos_phase(dev, main_exchange_ms: float) -> tuple:
+def chaos_phase(dev, main_exchange_ms: float, for_phase_11: dict) -> tuple:
     """Phase 6, the nemesis build (`SimConfig(chaos=True)`, LAN gossip,
     U = 32, 1% loss, seed 7, 50-tick chunks) through the port's
     SwimChaosHarness:
@@ -1255,6 +1285,8 @@ def chaos_phase(dev, main_exchange_ms: float) -> tuple:
         chaos=True))
     states = {"degradation": captured["degradation"],
               "partitioned": _partitioned(captured["degradation"], 5)}
+    for_phase_11.update({f"chaos {name}": (params, st)
+                         for name, st in states.items()})
     entry, k2 = check_chaos_gossip(dev, params, states, chaos_launches,
                                    main_exchange_ms)
     per_tick = {name: fenced_ms_per_tick(params, s)
@@ -1319,7 +1351,7 @@ def _near_bar(s) -> int:
     return int((dl & (cov >= 0.9) & (cov < 0.995)).sum())
 
 
-def correlated_phase(dev) -> tuple:
+def correlated_phase(dev, for_phase_11: dict) -> tuple:
     """Phase 7, the correlated-failure bench at N = 1M, 1% (10,000
     victims), 32 slots, seed 7, 256-tick chunks, at most 4096 ticks (the
     JAX tool's row) through `consul_tpu_torch.correlated`, every launch
@@ -1374,6 +1406,8 @@ def correlated_phase(dev) -> tuple:
                            int(at_bar.bulk_member.sum())},
               "drain_end": {"tick": s.tick, "near_bar_slots": _near_bar(s),
                             "bulk_members": int(s.bulk_member.sum())}}
+    for_phase_11.update({"correlated near_bar": (params, at_bar),
+                         "correlated drain_end": (params, s)})
     held = {"near_bar": _hold_mass(params, at_bar, mask, "near the bar"),
             "drain_end": _hold_mass(params, s, mask, "at the drain's end")}
     for name, n, u, victims in (("random U=32", N, 32, True),
@@ -1531,7 +1565,7 @@ def _tick_profile(step, s, kind_of, ticks: int = 10):
             for kind in ms}
 
 
-def wan_phase(dev) -> dict:
+def wan_phase(dev, for_phase_11: dict) -> dict:
     """Phase 8, federation (models/wan.py) at BASELINE.json's 3 DCs x 50k
     nodes, 5 servers a DC, 16 rumor and event slots, 1% loss, seed 7, as
     tools/scale_sweep.py:_dc_point drives it, every launch count zeroed
@@ -1567,6 +1601,7 @@ def wan_phase(dev) -> dict:
     for name in ("threefry_draws", "gossip_pack", "gossip_exchange"):
         require(launches[name] > 0, f"{name} never launched on the WAN path")
     require(reads > 0, "the bridge never read its tables")
+    for_phase_11["wan pool"] = (params.wan.swim, s.wan.swim)
     dist = wan.dc_distance_matrix(params, s)
     require(bool(torch.isfinite(dist).all())
             and torch.allclose(dist, dist.T, rtol=1e-4, atol=0),
@@ -1927,6 +1962,406 @@ def vivaldi_phase(dev) -> dict:
                       "gap": gap}}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the probe round (K7) and rumor origination (K8)
+# ---------------------------------------------------------------------------
+
+# device kernels a main-path probe tick ran before K7 and K8 existed
+# (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W), and the
+# fall the two kernels must show
+PARENT_PROBE_KERNELS = 1005
+PROBE_KERNELS_DROP = 400
+SWIM_TWINS = ("_probe_pass_plain", "_probe_round_plain", "_originate_plain")
+
+
+@contextlib.contextmanager
+def swim_twin_calls():
+    """Counts calls of K7's and K8's plain twins on CUDA states while the
+    block runs (CPU states, as the card-against-CPU runs make, take them
+    by design)."""
+    calls = dict.fromkeys(SWIM_TWINS, 0)
+    saved = {name: getattr(swim, name) for name in SWIM_TWINS}
+
+    def counting(name):
+        def fn(params, s, *a, **k):
+            calls[name] += int(s.know.is_cuda)
+            return saved[name](params, s, *a, **k)
+        return fn
+
+    for name in SWIM_TWINS:
+        setattr(swim, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(swim, name, fn)
+
+
+@contextlib.contextmanager
+def plain_originate():
+    """swim._originate is its twin while the block runs: the plain side of
+    a hold of a K8 caller (_dense_suspicion_expiry, rejoin, leave)."""
+    saved = swim._originate
+    swim._originate = swim._originate_plain
+    try:
+        yield
+    finally:
+        swim._originate = saved
+
+
+def _state(x, y, kernel: str, what: str) -> None:
+    """Two swim states bit-equal, leaf by leaf and host mirror by mirror."""
+    require(x.tick == y.tick and x.bulk_live == y.bulk_live,
+            f"{kernel} {what}: host mirrors differ")
+    for f in swim.TENSOR_FIELDS:
+        _same(getattr(x, f), getattr(y, f), f"{what} {f}", kernel)
+
+
+def _eviction(s, want) -> tuple:
+    """(evicting, slots it releases) of _originate on s and want."""
+    live = s.up & s.member
+    cov = (s.know & live[:, None]).sum(0).float() \
+        / live.sum().clamp_min(1).float()
+    evicting = bool((want > 0).sum() > (~s.r_active).sum())
+    done = s.r_active & (cov >= 0.995) & (s.r_kind != swim.SUSPECT)
+    return evicting, int(done.sum()) if evicting else 0
+
+
+def hold_originate(params, s, want, kind: int, row_subject, what: str):
+    """K8 against its twin on one call: every state leaf and the
+    (subjects, slots, ok) of the allocation bit-equal, padding rows of the
+    top-A included.  Returns (evicting, slots released)."""
+    got = swim._originate(params, s, want, kind, s.incarnation, row_subject)
+    ref = swim._originate_plain(params, s, want, kind, s.incarnation,
+                                row_subject)
+    _state(got[0], ref[0], "K8", what)
+    for a, b, name in zip(got[1], ref[1], ("subjects", "slots", "ok")):
+        _same(a, b, f"{what} {name}", "K8")
+    return _eviction(s, want)
+
+
+def _random_want(n: int, dev, seed: int, p: float):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    hit = torch.rand(n, generator=gen, device=dev) < p
+    val = torch.randint(1, 3, (n,), generator=gen, device=dev)
+    return torch.where(hit, val, 0).to(torch.int32)
+
+
+def hold_probe(params, s, what: str, callers: bool = False) -> dict:
+    """K7 and K8 against their twins on one state, every leaf bit-equal
+    (rtt_ms too: both take torch's IEEE sqrt on the card): the probe pass
+    alone; K8 on its wants as a suspect round and as a dead one, on random
+    wants of 1 and 2 (ties, more wanters than slots), on a single wanter
+    and on none; the whole round.  With `callers`, also the dense expiry
+    and rejoin/leave of the probe round's first target (K8's other
+    callers) against the same calls with the twin."""
+    maps = swim._maps(params, s)
+    drawn = swim._probe_inputs(params, s)
+    got = swim._probe_pass(params, s, maps, drawn)
+    ref = swim._probe_pass_plain(params, s, maps, drawn)
+    _state(got[0], ref[0], "K7", what)
+    _same(got[1], ref[1], f"{what} want", "K7")
+    _same(got[2], ref[2], f"{what} row_subject", "K7")
+    _same(got[3].rtt_ms, ref[3].rtt_ms, f"{what} rtt_ms", "K7")
+    _same(got[3].acked, ref[3].acked, f"{what} acked", "K7")
+    require(int(got[3].shift) == int(ref[3].shift), f"K7 {what} shift")
+    s1, want, rows = ref[0], ref[1], ref[2]
+    n = params.n_nodes
+    dev = s.device
+    one = torch.zeros(n, dtype=torch.int32, device=dev)
+    one[n // 3] = 1
+    evictions = [
+        hold_originate(params, s1, want, swim.SUSPECT, rows, f"{what} suspect"),
+        hold_originate(params, s1, want, swim.DEAD, rows, f"{what} dead"),
+        hold_originate(params, s1, _random_want(n, dev, n, 0.01), swim.ALIVE,
+                       rows, f"{what} random wants"),
+        hold_originate(params, s1, one, swim.LEFT, rows, f"{what} one wanter"),
+        hold_originate(params, s1, torch.zeros_like(want), swim.SUSPECT, rows,
+                       f"{what} no wanter")]
+    a = swim._probe_round(params, s, maps)
+    b = swim._probe_round_plain(params, s, maps)
+    _state(a[0], b[0], "K7+K8", what)
+    for x, y, name in zip(a[2], b[2], ("suspect_of", "dead_of", "left_of",
+                                       "alive_val")):
+        _same(x, y, f"{what} {name}", "K7+K8")
+    _same(a[1].rtt_ms, b[1].rtt_ms, f"{what} rtt_ms", "K7+K8")
+    _same(a[1].acked, b[1].acked, f"{what} acked", "K7+K8")
+    if callers:
+        node = int(drawn["offs"][0]) % n
+        kd = swim._dense_suspicion_expiry(params, s1, got[3].shift, maps)
+        kr = swim.rejoin(params, s, node)
+        kl = swim.leave(params, s, node)
+        with plain_originate():
+            pd = swim._dense_suspicion_expiry(params, s1, got[3].shift, maps)
+            pr = swim.rejoin(params, s, node)
+            pl = swim.leave(params, s, node)
+        _state(kd, pd, "K8", f"{what} dense expiry")
+        _state(kr, pr, "K8", f"{what} rejoin({node})")
+        _state(kl, pl, "K8", f"{what} leave({node})")
+    return {"tick": s.tick, "n": n, "u": params.rumor_slots,
+            "failed": int((rows >= 0).sum()), "wanted": int((want > 0).sum()),
+            "joined": int((ref[0].know & ~s.know).sum()),
+            "evicting_calls": sum(e[0] for e in evictions),
+            "released_slots": sum(e[1] for e in evictions)}
+
+
+def _random_probe_state(dev, params, s, seed: int):
+    """Random leaves for K7/K8 of s's shape: rumors of every kind about a
+    few subjects (duplicates across slots), knowledge, learn ticks around
+    the timeouts, running timers, committed nodes, bulk members, LHA
+    scores, and the chaos leaves."""
+    n, u = s.know.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    ints = lambda lo, hi, *shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev)
+    tick = 40_000 + 5 * seed
+    up, member = rnd(n) < 0.97, rnd(n) < 0.98
+    # suspicions about crashed members, whose probes fail: joiner cells
+    subjects = (~up & member).nonzero().flatten()[:12].to(torch.int32)
+    amax = max(params.awareness_max, 1)
+    return s.replace(
+        tick=tick, up=up, member=member,
+        incarnation=ints(0, 4, n).to(torch.int32),
+        coords=rnd(n, 2) * 30.0,
+        committed_dead=rnd(n) < 0.01, committed_left=rnd(n) < 0.005,
+        committed_inc=ints(0, 3, n).to(torch.int32),
+        r_active=rnd(u) < 0.8, r_kind=ints(0, 4, u).to(torch.int8),
+        r_subject=subjects[ints(0, 12, u)], r_inc=ints(0, 4, u).to(torch.int32),
+        r_start=(tick - ints(0, 200, u)).to(torch.int32),
+        r_confirm=ints(0, 65, u).to(torch.int8),
+        r_coverage=rnd(u),
+        know=rnd(n, u) < torch.where(rnd(u) < 0.3, 0.998, 0.3)[None, :],
+        learn_tick=(swim._t16(tick) - ints(0, 80, n, u)).to(torch.int16),
+        sends_left=ints(0, params.retransmit_limit + 1, n, u).to(torch.int8),
+        sus_start=torch.where(rnd(n) < 0.05, tick - ints(0, 60, n),
+                              -1).to(torch.int32),
+        sus_confirm=ints(0, 65, n).to(torch.int8),
+        sus_count=ints(0, 3, n).to(torch.int32),
+        bulk_member=rnd(n) < 0.01, awareness=ints(0, amax, n).to(torch.int8),
+        chaos_grp=(rnd(n) < 0.3).to(torch.int16),
+        chaos_ok=torch.where(rnd(n) < 0.1, 0.6, 1.0).to(torch.float32),
+        ctr=rnd(swim.CTR_N) * 1000.0)
+
+
+def _pool_states(dev, gossip, sim, kills, ticks: int, every: int = 3):
+    """Probe-tick states of a small pool run on the card (K7 and K8 inside)
+    with `kills` crashed at tick 5."""
+    params = swim.make_params(gossip, sim)
+    s = swim.init_state(params, device=dev)
+    out = []
+    for t in range(ticks):
+        if t == 5:
+            for v in kills:
+                s = swim.kill(s, v)
+        if t > 5 and s.tick % params.probe_period_ticks == 0:
+            out.append(s)
+        s = swim.step(params, s)
+    return params, out[::every]
+
+
+def _probe_bytes(params, s, maps) -> int:
+    """Least bytes of K7 on s, written in place: per prober its know row,
+    the 32-byte learn_tick sector of the target's suspect slot where there
+    is one, its draws, coords, the [N] leaves read at the target and the
+    per-node outputs; the joiner cells.  The fresh-output row copy is
+    counted apart (_copy_bytes)."""
+    n, u = s.know.shape
+    k = params.indirect_checks
+    draws = 4 * (2 + (params.awareness_max > 0) + 3 * k)
+    leaves = 5 + 4 + 16 + 9 + (params.awareness_max > 0) \
+        + (6 if params.chaos else 0)
+    outs = 22 + (params.awareness_max > 0)
+    sectors = int((rolls.pull(maps[0], swim._probe_inputs(params, s)["offs"][0])
+                   >= 0).sum())
+    return n * (u + draws + 8 + leaves + outs) + 32 * sectors
+
+
+def _copy_bytes(s) -> int:
+    """The fresh-output copy of know, learn_tick and sends_left: 4U bytes
+    a row read and 4U written."""
+    n, u = s.know.shape
+    return 2 * 4 * n * u
+
+
+def _originate_bytes(s, want, row_subject, evicting: bool) -> int:
+    """Least bytes of K8: want and row_subject, the seeded cells (4 bytes)
+    and the [U] table; with an eviction also know and up/member."""
+    n, u = s.know.shape
+    seeded = int((row_subject >= 0).sum())
+    return 8 * n + 4 * seeded + 40 * u + ((u + 2) * n if evicting else 0)
+
+
+def time_probe(params, s, what: str) -> dict:
+    """K7 and K8 timed at one state: device ms (torch.profiler's kernel
+    records, L2 evicted), the wrapper call, the twins, the bounds, and
+    torch.topk of the wants beside K8's select."""
+    maps = swim._maps(params, s)
+    drawn = swim._probe_inputs(params, s)
+    s1, want, rows, _ = swim._probe_pass_plain(params, s, maps, drawn)
+    k7 = device_ms(lambda: swim._probe_pass(params, s, maps, drawn),
+                   ("probe_round_kernel",))["probe_round_kernel"]
+    phases = ("originate_select_kernel", "originate_commit_kernel",
+              "originate_seed_kernel")
+    k8 = device_ms(lambda: swim._originate(params, s1, want, swim.SUSPECT,
+                                           s1.incarnation, rows), phases)
+    evicting, released = _eviction(s1, want)
+    b7, b8 = _probe_bytes(params, s, maps), _originate_bytes(s1, want, rows,
+                                                            evicting)
+    copy = _copy_bytes(s)
+    t = {"k7_ms": k7,
+         "k7_call_ms": median_ms(lambda: swim._probe_pass(params, s, maps,
+                                                          drawn)),
+         "k7_plain_ms": median_ms(lambda: swim._probe_pass_plain(
+             params, s, maps, drawn), reps=5),
+         "k7_bound_ms": b7 / HBM_BYTES_PER_S * 1000.0, "k7_bound_bytes": b7,
+         "k8_ms": sum(k8.values()),
+         "k8_phase_ms": {k.split("_")[1]: v for k, v in k8.items()},
+         "k8_call_ms": median_ms(lambda: swim._originate(
+             params, s1, want, swim.SUSPECT, s1.incarnation, rows)),
+         "k8_plain_ms": median_ms(lambda: swim._originate_plain(
+             params, s1, want, swim.SUSPECT, s1.incarnation, rows), reps=5),
+         "k8_bound_ms": b8 / HBM_BYTES_PER_S * 1000.0, "k8_bound_bytes": b8,
+         "k8_evicting": evicting, "k8_released": released,
+         "row_copy_bytes": copy,
+         "row_copy_ms_at_hbm": copy / HBM_BYTES_PER_S * 1000.0,
+         "topk_ms": kernel_ms(lambda: torch.topk(want, params.alloc_cap)),
+         "topk_call_ms": median_ms(lambda: torch.topk(want, params.alloc_cap))}
+    log(f"K7/K8 timed at {what}: " + json.dumps(t))
+    return t
+
+
+def fenced_main_ticks(params, s, ticks: int = 50) -> dict:
+    """Fenced host ms per probe and gossip-only tick of the main path
+    (serf.step and its monitor call) from s."""
+    out = torch.empty(1, dtype=torch.float32, device=s.swim.device)
+    period = params.swim.probe_period_ticks
+    walls = {"probe": [], "gossip": []}
+    for _ in range(ticks):
+        kind = "probe" if s.swim.tick % period == 0 else "gossip"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = serf.step(params, s)
+        swim.believed_down_fraction(params.swim, s.swim, bench.VICTIM,
+                                    out=out)
+        torch.cuda.synchronize()
+        walls[kind].append((time.perf_counter() - t0) * 1000.0)
+    return {k: {"median": sorted(v)[len(v) // 2], "mean": sum(v) / len(v),
+                "ticks": len(v)} for k, v in walls.items()}
+
+
+def probe_phase(dev, main: dict, states: dict) -> tuple:
+    """Phase 11: K7 and K8 against their twins on the card, then timed.
+    The holds: the main path at the kill, at the first probe round with a
+    suspect rumor, mid-convergence and at its end (with the dense expiry,
+    rejoin and leave as K8 callers); the 1M chaos states of phase 6 (a
+    degraded set, a 25% partition); the correlated run's 1M states of
+    phase 7 (evicting: more wanters than free slots, covered dead slots
+    released); the federation's WAN pool (15 nodes, U = 16); small pools
+    on the card at the WAN config (N = 15, U = 16 and N = 6, U = 8); pools
+    in the modes no phase reaches (the deterministic degraded set, no LHA
+    and no relays, U = 64 with 40 slots a round); random 1M states in the
+    main, degraded and chaos configs.  K7 and K8 are timed at the main
+    path's first-suspicion and final states and at the evicting state.
+    Returns (the kernels-line entries, the record)."""
+    params = main["params"]
+    p = params.swim
+    held = {}
+    t0 = time.perf_counter()
+    # the main path replayed from the seed to its first suspect rumor
+    _, s, _ = bench.prepare(device=dev)
+    at_kill = s.swim
+    first = None
+    for _ in range(200):
+        s = serf.step(params, s)
+        sw = s.swim
+        if sw.tick % p.probe_period_ticks == 0 and bool(
+                (sw.r_active & (sw.r_kind == swim.SUSPECT)).any()):
+            first = sw
+            break
+    require(first is not None, "no suspect rumor in 200 ticks after the kill")
+    main_states = {"at_kill": at_kill, "first_suspicion": first,
+                   "mid": states["mid"][1], "final": states["final"][1]}
+    for name, st in main_states.items():
+        held[f"main {name}"] = hold_probe(p, st, f"main {name}", callers=True)
+    for name in ("chaos degradation", "chaos partitioned",
+                 "correlated near_bar", "correlated drain_end", "wan pool"):
+        hp, st = states[name]
+        held[name] = hold_probe(hp, st, name, callers=name.startswith("wan"))
+    for name, gossip, sim, kills in (
+            ("wan 15x16", GossipConfig.wan(),
+             SimConfig(n_nodes=15, rumor_slots=16, p_loss=0.01, seed=3), (4,)),
+            ("wan 6x8", GossipConfig.wan(),
+             SimConfig(n_nodes=6, rumor_slots=8, p_loss=0.01, seed=4), (2,)),
+            ("degraded 4096", GossipConfig.lan(),
+             SimConfig(n_nodes=4096, rumor_slots=32, p_loss=0.01, seed=5,
+                       degraded_frac=0.1, degraded_loss=0.3), (9, 77, 500)),
+            ("no LHA, no relays 4096", dataclasses.replace(
+                GossipConfig.lan(), awareness_max_multiplier=0,
+                indirect_checks=0),
+             SimConfig(n_nodes=4096, rumor_slots=32, p_loss=0.05, seed=6),
+             (9, 77)),
+            ("U=64 A=40 4096", GossipConfig.lan(),
+             SimConfig(n_nodes=4096, rumor_slots=64, alloc_cap=40,
+                       p_loss=0.01, seed=8), tuple(range(0, 4096, 41)))):
+        hp, sts = _pool_states(dev, gossip, sim, kills, 120)
+        for i, st in enumerate(sts):
+            held[f"{name} #{i}"] = hold_probe(hp, st, f"{name} #{i}",
+                                              callers=i % 3 == 0)
+    for name, hp in (("main", p),
+                     ("degraded", dataclasses.replace(
+                         p, degraded_frac=0.1, degraded_loss=0.3)),
+                     ("chaos", dataclasses.replace(p, chaos=True))):
+        st = _random_probe_state(dev, hp, at_kill, seed=len(held))
+        held[f"random 1M {name}"] = hold_probe(hp, st, f"random 1M {name}",
+                                               callers=True)
+    evicting = sum(h["evicting_calls"] for h in held.values())
+    released = sum(h["released_slots"] for h in held.values())
+    log(f"K7/K8 held bit-equal on {len(held)} states in "
+        f"{time.perf_counter() - t0:.1f} s; K8 calls that evicted "
+        f"{evicting}, slots released {released}")
+    for name, h in held.items():
+        log(f"  {name}: {json.dumps(h)}")
+    require(held["correlated near_bar"]["evicting_calls"] > 0,
+            "no K8 hold on the correlated state evicted")
+    require(released > 0, "no K8 hold released a slot")
+    require(sum(h["joined"] for h in held.values()) > 0,
+            "no K7 hold seeded a joiner cell")
+
+    timed = {"first_suspicion": time_probe(p, first, "first_suspicion"),
+             "final": time_probe(p, main_states["final"], "final"),
+             "evicting": time_probe(*states["correlated near_bar"],
+                                    "correlated near_bar")}
+    ticks = fenced_main_ticks(params, main["state"])
+    log(f"main path fenced ms per tick (50 ticks from the final state): "
+        f"{json.dumps(ticks)}")
+    t = timed["first_suspicion"]
+    launches = main["all_launches"]
+    shape = [p.n_nodes, p.rumor_slots, p.indirect_checks]
+    entries = [
+        {"name": "probe_round", "route": "cuda",
+         "source": "consul_tpu_torch/kernels/csrc/probe.cu",
+         "replaces": "consul_tpu/models/swim.py:698",
+         "launches": launches["probe_round"], "max_abs_err": 0.0,
+         "ms": t["k7_ms"], "call_ms": t["k7_call_ms"],
+         "plain_ms": t["k7_plain_ms"], "bound_ms": t["k7_bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "row_copy_ms_at_hbm": t["row_copy_ms_at_hbm"], "shape": shape},
+        {"name": "originate", "route": "cuda",
+         "source": "consul_tpu_torch/kernels/csrc/originate.cu",
+         "replaces": "consul_tpu/models/swim.py:605",
+         "launches": launches["originate"], "max_abs_err": 0.0,
+         "ms": t["k8_ms"], "call_ms": t["k8_call_ms"],
+         "plain_ms": t["k8_plain_ms"], "bound_ms": t["k8_bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "topk_ms": t["topk_ms"], "evicting_ms": timed["evicting"]["k8_ms"],
+         "row_copy_ms_at_hbm": t["row_copy_ms_at_hbm"],
+         "shape": [p.n_nodes, p.rumor_slots, p.alloc_cap]}]
+    return entries, {"held": held, "timed": timed, "fenced_main_ticks": ticks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1947,42 +2382,23 @@ def main() -> int:
                 log(f"ptxas {src}: {line.strip()}")
 
     SASS_PER_ELEMENT.update(draw_census())
-    r = main_path(dev)
-
-    syncs = main_path_syncs(r["params"], r["state"])
-    per_tick = check_kernels_per_tick(r["params"], r["state"])
-    params = r["params"]
-    states = {"mid": mid_state(r).swim, "final": r["state"].swim}
-    launches = r["all_launches"]
-    k1, k1_record = check_draws(dev, params.swim, r["state"].swim.tick,
-                                SASS_PER_ELEMENT, r["draw_launches"])
-    k2, k2_states = check_gossip(dev, params, states,
-                                 events_call_after_fire(params, r["state"]),
-                                 launches)
-    results = [*k1, *k2,
-               check_monitor(dev, params.swim, states, bench.VICTIM,
-                             launches["believed_down"])]
-    k4, oracle_record = oracle_phase(dev)
-    results += k4
-    k2_chaos, chaos_record = chaos_phase(
-        dev, k2_states["final"]["exchange_ms"])
-    k5, correlated_record = correlated_phase(dev)
-    results += [k2_chaos, k5]
-    wan_record = wan_phase(dev)
-    k6, ae_record = ae_phase(dev)
-    results += k6
-    vivaldi_record = vivaldi_phase(dev)
+    states = {}
+    with swim_twin_calls() as twins:
+        results, records, r, per_tick, syncs = phases_2_to_10(dev, states)
+    log(f"K7/K8 twins called on card states in phases 2-10: {twins}")
+    require(not any(twins.values()), f"a K7/K8 twin ran on the card outside "
+            f"the holds: {twins}")
+    k78, probe_record = probe_phase(dev, r, states)
+    results += k78
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
             f"{k['launches']} library_ms={k['library_ms']}")
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "kernels": results,
-              "oracle": oracle_record, "chaos": chaos_record,
-              "correlated": correlated_record, "federation": wan_record,
-              "antientropy": ae_record, "vivaldi": vivaldi_record,
-              "kernels_per_tick": per_tick, "gossip_states": k2_states,
-              "k1": k1_record, "sass_per_element": SASS_PER_ELEMENT,
+              "cuda": torch.version.cuda, "kernels": results, **records,
+              "probe": probe_record, "twin_calls": twins,
+              "kernels_per_tick": per_tick,
+              "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],
                             "timed_ticks_run": r["timed_ticks_run"],
                             "host_syncs": r["host_syncs"],
@@ -1999,6 +2415,45 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phases_2_to_10(dev, for_phase_11: dict) -> tuple:
+    """Phases 2-10, leaving (params, state) pairs for phase 11's holds in
+    for_phase_11.
+    Returns (the kernels-line entries, the phases' records, the main
+    path's result, kernels per tick, host syncs per tick)."""
+    r = main_path(dev)
+
+    syncs = main_path_syncs(r["params"], r["state"])
+    per_tick = check_kernels_per_tick(r["params"], r["state"])
+    params = r["params"]
+    states = {"mid": mid_state(r).swim, "final": r["state"].swim}
+    for_phase_11.update({name: (params.swim, st)
+                         for name, st in states.items()})
+    launches = r["all_launches"]
+    k1, k1_record = check_draws(dev, params.swim, r["state"].swim.tick,
+                                SASS_PER_ELEMENT, r["draw_launches"])
+    k2, k2_states = check_gossip(dev, params, states,
+                                 events_call_after_fire(params, r["state"]),
+                                 launches)
+    results = [*k1, *k2,
+               check_monitor(dev, params.swim, states, bench.VICTIM,
+                             launches["believed_down"])]
+    k4, oracle_record = oracle_phase(dev)
+    results += k4
+    k2_chaos, chaos_record = chaos_phase(
+        dev, k2_states["final"]["exchange_ms"], for_phase_11)
+    k5, correlated_record = correlated_phase(dev, for_phase_11)
+    results += [k2_chaos, k5]
+    wan_record = wan_phase(dev, for_phase_11)
+    k6, ae_record = ae_phase(dev)
+    results += k6
+    vivaldi_record = vivaldi_phase(dev)
+    records = {"oracle": oracle_record, "chaos": chaos_record,
+               "correlated": correlated_record, "federation": wan_record,
+               "antientropy": ae_record, "vivaldi": vivaldi_record,
+               "gossip_states": k2_states, "k1": k1_record}
+    return results, records, r, per_tick, syncs
 
 
 if __name__ == "__main__":

@@ -247,7 +247,7 @@ __device__ __forceinline__ uint64_t row_mask(const uint8_t* k, int S) {
 // for slots l and l + 32, how many of the warp's 32 masks hold the slot.
 // One ballot a slot; a warp whose masks are all 0 adds nothing.  Every
 // lane of the warp must call it.  (The [N, U] -> [U] live-coverage
-// reduction of mass_detection_stats, _expire and _originate.)
+// reduction of mass_detection_stats, _expire and _originate: K5, K8.)
 __device__ __forceinline__ void warp_column_counts(uint64_t m, int S,
                                                    uint32_t (&cnt)[2]) {
   if (!__any_sync(0xffffffffu, m != 0)) return;
@@ -256,6 +256,24 @@ __device__ __forceinline__ void warp_column_counts(uint64_t m, int S,
     const unsigned b = __ballot_sync(0xffffffffu, (m >> u) & 1u);
     if ((u & 31) == lane) cnt[u >> 5] += __popc(b);
   }
+}
+
+// Bytes [0, bytes) of src copied into dst by the 32 lanes of a warp:
+// 16-byte vectors where both are aligned, bytes for the rest.  (K7's and
+// K8's fresh-output row copies: a warp's 32 contiguous rows at a time.)
+__device__ __forceinline__ void warp_copy(void* dst, const void* src,
+                                          int64_t bytes, int lane) {
+  uint8_t* d = static_cast<uint8_t*>(dst);
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  int64_t done = 0;
+  if (aligned16(d) && aligned16(s)) {
+    const int64_t vecs = bytes >> 4;
+    for (int64_t v = lane; v < vecs; v += 32) {
+      reinterpret_cast<uint4*>(d)[v] = __ldcs(reinterpret_cast<const uint4*>(s) + v);
+    }
+    done = vecs << 4;
+  }
+  for (int64_t x = done + lane; x < bytes; x += 32) d[x] = s[x];
 }
 
 // The [S] bool vector v as a slot mask, read by one full warp: lane = slot,

@@ -28,7 +28,10 @@ Control flow that JAX expresses inside `lax.scan`:
 
 `believed_down_fraction` launches kernel K3 on CUDA tensors, the
 membership reads (`status_vector`, `membership_counts`/`page`/`delta`)
-kernel K4 and `mass_detection_stats` kernel K5; the gossip pass (with its
+kernel K4, `mass_detection_stats` kernel K5, the probe round kernel K7
+and every rumor origination (probe round, dense expiry, rejoin, leave,
+inject_suspicion) kernel K8, each beside its plain twin
+(`_probe_pass_plain`, `_originate_plain`); the gossip pass (with its
 learn-tick stamp, counter update and loss draw, and under chaos its
 partition gate and per-contact rate) goes through ops/gossip.py (K2) and
 every other random draw through utils/prng.py (K1).
@@ -436,12 +439,13 @@ def believed_down_fraction(params: SwimParams, s: SwimState, subject: int,
 # rumor allocation / origination
 # ---------------------------------------------------------------------------
 
-def _originate(params: SwimParams, s: SwimState, want_score: torch.Tensor,
-               kind: int, inc_of_subject: torch.Tensor,
-               row_subject: torch.Tensor):
-    """Allocate up to `alloc_cap` rumor slots for subjects with want > 0
-    (swim.py:605-672).  The pressure eviction that JAX gates with
-    lax.cond(demand > free) runs masked by that device-side condition."""
+def _originate_plain(params: SwimParams, s: SwimState,
+                     want_score: torch.Tensor, kind: int,
+                     inc_of_subject: torch.Tensor, row_subject: torch.Tensor):
+    """The plain PyTorch version of K8 (swim.py:605-672): allocate up to
+    `alloc_cap` rumor slots for subjects with want > 0.  The pressure
+    eviction that JAX gates with lax.cond(demand > free) runs masked by
+    that device-side condition."""
     a = params.alloc_cap
     u = params.rumor_slots
     dev = s.device
@@ -486,6 +490,54 @@ def _originate(params: SwimParams, s: SwimState, want_score: torch.Tensor,
     return s, (subjects, slots, ok)
 
 
+def _originate(params: SwimParams, s: SwimState, want_score: torch.Tensor,
+               kind: int, inc_of_subject: torch.Tensor,
+               row_subject: torch.Tensor):
+    """Allocate up to `alloc_cap` rumor slots of `kind` for the subjects
+    with want_score [N] int32 > 0, seeding the rows whose row_subject [N]
+    int32 names one.  Returns (state, (subjects, slots, ok)): the
+    allocated pairs and their validity, which the callers fold into their
+    subject maps with _map_add.  On CUDA tensors it launches K8 (the
+    eviction, the table and the seeding, into fresh tensors)."""
+    if not s.know.is_cuda:
+        return _originate_plain(params, s, want_score, kind, inc_of_subject,
+                                row_subject)
+    a, dev = params.alloc_cap, s.device
+    e = torch.empty_like
+    out = dict(know_out=e(s.know), learn_out=e(s.learn_tick),
+               sends_out=e(s.sends_left),
+               committed_dead_out=e(s.committed_dead),
+               committed_left_out=e(s.committed_left),
+               committed_inc_out=e(s.committed_inc),
+               r_active_out=e(s.r_active), r_kind_out=e(s.r_kind),
+               r_subject_out=e(s.r_subject), r_inc_out=e(s.r_inc),
+               r_start_out=e(s.r_start), r_confirm_out=e(s.r_confirm),
+               r_coverage_out=e(s.r_coverage),
+               subjects_out=torch.empty(a, dtype=I32, device=dev),
+               slots_out=torch.empty(a, dtype=I32, device=dev),
+               ok_out=torch.empty(a, dtype=torch.bool, device=dev))
+    kernels.launch_originate(
+        want=want_score, row_subject=row_subject,
+        inc_of_subject=inc_of_subject, up=s.up, member=s.member,
+        know=s.know, learn_tick=s.learn_tick, sends_left=s.sends_left,
+        committed_dead=s.committed_dead, committed_left=s.committed_left,
+        committed_inc=s.committed_inc, r_active=s.r_active, r_kind=s.r_kind,
+        r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start,
+        r_confirm=s.r_confirm, r_coverage=s.r_coverage, alloc=a, kind=kind,
+        tick=s.tick, tick16=_t16(s.tick), limit=params.retransmit_limit,
+        **out)
+    s = s.replace(know=out["know_out"], learn_tick=out["learn_out"],
+                  sends_left=out["sends_out"],
+                  committed_dead=out["committed_dead_out"],
+                  committed_left=out["committed_left_out"],
+                  committed_inc=out["committed_inc_out"],
+                  r_active=out["r_active_out"], r_kind=out["r_kind_out"],
+                  r_subject=out["r_subject_out"], r_inc=out["r_inc_out"],
+                  r_start=out["r_start_out"], r_confirm=out["r_confirm_out"],
+                  r_coverage=out["r_coverage_out"])
+    return s, (out["subjects_out"], out["slots_out"], out["ok_out"])
+
+
 # ---------------------------------------------------------------------------
 # step phases
 # ---------------------------------------------------------------------------
@@ -502,7 +554,7 @@ class ProbeObs:
 
 def _probe_draws(params: SwimParams, tick: int) -> dict:
     """The random draws of the probe round at `tick`, by name, which
-    _probe_round makes in one K1 launch."""
+    _probe_inputs makes in one K1 launch."""
     n, k = params.n_nodes, params.indirect_checks
     kt = prng.tick_key(params.seed, tick, 1)
     k_off, k_direct, k_leg, k_rtt, k_lha = prng.split(kt, 5)
@@ -517,15 +569,21 @@ def _probe_draws(params: SwimParams, tick: int) -> dict:
     return want
 
 
-def _probe_round(params: SwimParams, s: SwimState, maps):
-    """One SWIM probe round: ring probe + k indirect probes + suspicion
-    (swim.py:698-897)."""
+def _probe_inputs(params: SwimParams, s: SwimState) -> dict:
+    """The probe round's draws at the state's tick, by name: one K1 batch
+    on the card."""
+    want = _probe_draws(params, s.tick)
+    return dict(zip(want, prng.draw(list(want.values()), s.device)))
+
+
+def _probe_pass_plain(params: SwimParams, s: SwimState, maps, drawn: dict):
+    """The plain PyTorch version of K7: one SWIM probe round up to its
+    rumor origination (swim.py:698-884), on the round's draws.  Returns
+    (state, want [N] int32, row_subject [N] int32, ProbeObs)."""
     n = params.n_nodes
     dev = s.device
     tick = s.tick
     k = params.indirect_checks
-    want = _probe_draws(params, tick)
-    drawn = dict(zip(want, prng.draw(list(want.values()), dev)))
     offs = drawn["offs"]
     d = offs[0]
 
@@ -644,12 +702,82 @@ def _probe_round(params: SwimParams, s: SwimState, maps):
     want = torch.where(fresh, cnt, 0)
     target = ((torch.arange(n, dtype=I64, device=dev) + d) % n).to(I32)
     row_subject = torch.where(failed, target, -1)
-    s, alloc = _originate(params, s, want, SUSPECT, s.incarnation, row_subject)
-    suspect_of = _map_add(suspect_of, *alloc)
-    maps = (suspect_of, dead_of, left_of, maps[3])
     obs = ProbeObs(shift=d, rtt_ms=2.0 * rtt,
                    acked=prober & ~skip & direct_ack)
-    return s, obs, maps
+    return s, want, row_subject, obs
+
+
+def _probe_pass(params: SwimParams, s: SwimState, maps, drawn: dict):
+    """_probe_pass_plain's result; on CUDA tensors one K7 launch writes it
+    into fresh tensors."""
+    if not s.know.is_cuda:
+        return _probe_pass_plain(params, s, maps, drawn)
+    suspect_of, dead_of, left_of, alive_val = maps
+    amax = params.awareness_max
+    e = torch.empty_like
+    out = dict(know_out=e(s.know), learn_out=e(s.learn_tick),
+               sends_out=e(s.sends_left),
+               awareness_out=e(s.awareness) if amax > 0 else None,
+               r_confirm_out=e(s.r_confirm), sus_start_out=e(s.sus_start),
+               sus_confirm_out=e(s.sus_confirm), sus_count_out=e(s.sus_count),
+               ctr_out=e(s.ctr), want_out=e(s.sus_start),
+               row_subject_out=e(s.sus_start), rtt_out=e(s.bulk_cov),
+               acked_out=e(s.up))
+    kernels.launch_probe_round(
+        up=s.up, member=s.member, awareness=s.awareness, coords=s.coords,
+        committed_dead=s.committed_dead, committed_left=s.committed_left,
+        committed_inc=s.committed_inc, bulk_member=s.bulk_member,
+        know=s.know, learn_tick=s.learn_tick, sends_left=s.sends_left,
+        sus_start=s.sus_start, sus_confirm=s.sus_confirm,
+        sus_count=s.sus_count,
+        chaos_grp=s.chaos_grp if params.chaos else None,
+        chaos_ok=s.chaos_ok if params.chaos else None,
+        r_active=s.r_active, r_kind=s.r_kind, r_subject=s.r_subject,
+        r_inc=s.r_inc, r_confirm=s.r_confirm,
+        timeouts=_table(params, s.device, I16), suspect_of=suspect_of,
+        dead_of=dead_of, left_of=left_of, alive_val=alive_val, ctr=s.ctr,
+        offs=drawn["offs"], rtt_draw=drawn["rtt"], direct=drawn["direct"],
+        lha=drawn.get("lha"), leg_a=drawn.get("uA"), leg_b=drawn.get("uB"),
+        leg_c=drawn.get("uC"), awareness_max=amax,
+        degraded=params.degraded_frac > 0.0, seed=params.seed,
+        ok_good=prng.f32(1.0 - params.p_loss),
+        ok_bad=prng.f32(1.0 - params.degraded_loss),
+        degraded_frac=params.degraded_frac,
+        probe_timeout_ms=params.probe_timeout_ms,
+        rtt_base_ms=params.rtt_base_ms, tick=s.tick, tick16=_t16(s.tick),
+        limit=params.retransmit_limit, **out)
+    s = s.replace(know=out["know_out"], learn_tick=out["learn_out"],
+                  sends_left=out["sends_out"], r_confirm=out["r_confirm_out"],
+                  sus_start=out["sus_start_out"],
+                  sus_confirm=out["sus_confirm_out"],
+                  sus_count=out["sus_count_out"], ctr=out["ctr_out"])
+    if amax > 0:
+        s = s.replace(awareness=out["awareness_out"])
+    obs = ProbeObs(shift=drawn["offs"][0], rtt_ms=out["rtt_out"],
+                   acked=out["acked_out"])
+    return s, out["want_out"], out["row_subject_out"], obs
+
+
+def _probe_round_plain(params: SwimParams, s: SwimState, maps):
+    """The plain twin of _probe_round: _probe_pass_plain, then
+    _originate_plain, on the same draws."""
+    s, want, row_subject, obs = _probe_pass_plain(params, s, maps,
+                                                  _probe_inputs(params, s))
+    s, alloc = _originate_plain(params, s, want, SUSPECT, s.incarnation,
+                                row_subject)
+    return s, obs, (_map_add(maps[0], *alloc), *maps[1:])
+
+
+def _probe_round(params: SwimParams, s: SwimState, maps):
+    """One SWIM probe round: ring probe + k indirect probes + suspicion
+    (swim.py:698-897).  Its draws are one K1 batch; on CUDA tensors the
+    round is K7 and its suspect rumors K8.  Returns (state, ProbeObs,
+    maps with the new suspect rumors)."""
+    s, want, row_subject, obs = _probe_pass(params, s, maps,
+                                            _probe_inputs(params, s))
+    s, alloc = _originate(params, s, want, SUSPECT, s.incarnation,
+                          row_subject)
+    return s, obs, (_map_add(maps[0], *alloc), *maps[1:])
 
 
 def _suspicion_expiry(params: SwimParams, s: SwimState):

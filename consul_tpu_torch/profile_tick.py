@@ -11,7 +11,9 @@ Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
 10 gossip-only and 10 probe ticks (each tick with its monitor call, as
 the bench scan runs it), times each pass of a probe tick alone, and
-profiles a window of `ticks` monitored ticks.  The `kernels` form runs
+profiles a window of `ticks` monitored ticks.  Each pass's entry gives
+its fenced wall, its device time (the sum of its CUDA kernels' times
+from torch.profiler) and its device kernels per call.  The `kernels` form runs
 the set-up and the kernel count only; it uses nothing but the serf/swim
 entry points, so it also counts an older tree's kernels when that tree's
 package comes first on PYTHONPATH.  The `draws` form times each random
@@ -116,8 +118,19 @@ def kernels_of(fn) -> dict:
 
 def _device_ops(prof) -> dict:
     """{name: calls} of the device activities a profile recorded."""
-    return {ev.key: ev.count for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA}
+    return {k: calls for k, (_, calls) in _device_times(prof).items()}
+
+
+def _device_times(prof) -> dict:
+    """{name: (device us, calls)} of the device activities a profile
+    recorded."""
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dt = getattr(ev, "device_time_total", None)
+            out[ev.key] = (dt if dt is not None else ev.cuda_time_total,
+                           ev.count)
+    return out
 
 
 def kernels_per_tick(params, s, ticks: int = 10, subject: int = VICTIM):
@@ -193,13 +206,8 @@ def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
         fr.cpu()
         window = time.perf_counter() - t0
     launches = {k: v - launches0[k] for k, v in kernels.LAUNCHES.items()}
-    by_kernel = {}
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "cuda_time_total", 0.0)
-        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.key] = {"us": dt, "calls": ev.count}
+    by_kernel = {k: {"us": us, "calls": calls}
+                 for k, (us, calls) in _device_times(prof).items() if us}
     busy_us = sum(v["us"] for v in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1]["us"])[:25]
     out = {
@@ -219,9 +227,12 @@ def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
 
 
 def _pass_times(params, s, dev, reps: int = 5) -> dict:
-    """Fenced wall ms (host dispatch + device) of each pass of a probe
-    tick, each run alone on the same probe-tick input state (median of
-    `reps`)."""
+    """Each pass of a probe tick, run alone on the same probe-tick input
+    state: {pass: {"wall_ms": fenced wall ms (host dispatch + device,
+    median of `reps`), "device_ms": the sum of its CUDA kernels' device
+    times per call, "kernels": its device kernels per call}} (the last
+    two from one torch.profiler capture of `reps` calls; copies and
+    memsets left out of both)."""
     p, sw = params.swim, s.swim
     while sw.tick % p.probe_period_ticks:
         s = serf.step(params, s)
@@ -253,7 +264,16 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
             fn()
             torch.cuda.synchronize(dev)
             walls.append(1000.0 * (time.perf_counter() - t0))
-        times[name] = statistics.median(walls[1:])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(dev)
+        kern = [v for k, v in _device_times(prof).items()
+                if not k.startswith(("Memcpy", "Memset"))]
+        times[name] = {"wall_ms": statistics.median(walls[1:]),
+                       "device_ms": sum(us for us, _ in kern) / 1000.0 / reps,
+                       "kernels": sum(c for _, c in kern) / reps}
     return times
 
 
