@@ -18,15 +18,16 @@ Phases, each of which raises on failure (so the script exits non-zero):
      K1's uniform, exponential, normal and randint modes) launched, and
      in the JAX package's tick count for the same seed (measured with
      reference_ticks.py, recorded below).  Phases 2-10 run while
-     swim_twin_calls() counts K7's and K8's plain twins on CUDA states:
-     none may run;
+     swim_twin_calls() counts K7-K12's plain twins on CUDA states: none
+     may run;
   3. host syncs per tick (sync debug mode) and device kernels per
      gossip-only and per probe tick (torch.profiler, 10 ticks of each,
      from the main path's final state): a gossip-only tick draws exactly
      one K1 batch and runs no int64 elementwise kernel, a probe tick
-     draws exactly three, launches K7 once and K8 at least twice (the
-     probe round's and the dense expiry's origination) and runs at most
-     PARENT_PROBE_KERNELS - PROBE_KERNELS_DROP device kernels;
+     draws exactly three, launches K7 once, K8 at least twice (the
+     probe round's and the dense expiry's origination) and every K9-K12
+     entry point, and runs at most PROBE_KERNEL_CAP device kernels (the
+     tree before K9-K12 ran PARENT_PROBE_KERNELS);
   4. kernels: each kernel against its plain PyTorch twin on the card,
      bit-equal, at the main path's shapes (N=1M, S=U=32, G=3).  K1 mode
      by mode ([N, 3] uniform and bits, [N] exponential, [N, 8] normal —
@@ -103,7 +104,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
      federation's WAN pool, small pools on the card and random 1M
      states (evicting calls and joiner cells must occur), then timed
      beside their bounds, the twins and torch.topk of the wants; the
-     main path's fenced probe and gossip-only ticks (probe_phase).
+     main path's fenced probe and gossip-only ticks (probe_phase);
+ 12. the rest of the probe tick's detector passes: K9 (the subject maps,
+     map_add, maps_convert), K10 (suspicion expiry), K11 (the dense
+     expiry around K8) and K12 (refutation, expire) against their twins,
+     every leaf bit-equal, along whole probe ticks from the main path's
+     states (the kill, mid-convergence, the end, and the first ticks of
+     its replay that converted a slot, refuted and freed one), the
+     correlated run's overflow tick and evicting state (stale maps), the
+     1M chaos states, the WAN pool and small pools on the card and random
+     1M states (dead rumors refuted, two slots of one subject refuting,
+     no LHA, wrapped int16 ages), then timed beside their bounds, the
+     twins and, for K9, one scatter_reduce (detector_phase).
 
 Prints, before the last line, one JSON object with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}.
@@ -198,7 +210,7 @@ def main_path(dev) -> dict:
             f"tick count {r['ticks']} != JAX {REFERENCE_TICKS}")
     require(r["f1"] == 1.0, f"f1 {r['f1']}")
     require(r["false_commits"] == 0, f"false commits {r['false_commits']}")
-    for name in kernels.MAIN_PATH + kernels.PROBE:
+    for name in kernels.MAIN_PATH + kernels.PROBE + kernels.DETECTOR:
         require(launches[name] > 0, f"{name} never launched on the main path")
     require(launches["gossip_exchange_chaos"] == 0,
             "the main path ran K2's chaos mode")
@@ -712,12 +724,16 @@ def check_kernels_per_tick(params, state) -> dict:
             f"probe tick: K7 {launched['probe_round']} and K8 "
             f"{launched['originate']} launches, want 1 and 2 or more (the "
             f"probe round's and the dense expiry's)")
+    missing = [k for k in kernels.DETECTOR if launched[k] < 1]
+    require(not missing, f"probe tick: K9-K12 entry points not launched: "
+            f"{missing} ({ {k: launched[k] for k in kernels.DETECTOR} })")
     count = per_tick["probe"]["kernels"]
-    log(f"kernels per probe tick: {count}, before K7/K8 "
-        f"{PARENT_PROBE_KERNELS} (fall {PARENT_PROBE_KERNELS - count})")
-    require(count <= PARENT_PROBE_KERNELS - PROBE_KERNELS_DROP,
+    log(f"kernels per probe tick: {count}, before K9-K12 "
+        f"{PARENT_PROBE_KERNELS} (fall {PARENT_PROBE_KERNELS - count}); "
+        f"K9-K12 launches {json.dumps({k: launched[k] for k in kernels.DETECTOR})}")
+    require(count <= PROBE_KERNEL_CAP,
             f"a probe tick runs {count} device kernels, want at most "
-            f"{PARENT_PROBE_KERNELS - PROBE_KERNELS_DROP}")
+            f"{PROBE_KERNEL_CAP}")
     return per_tick
 
 
@@ -1966,26 +1982,41 @@ def vivaldi_phase(dev) -> dict:
 # phase 11: the probe round (K7) and rumor origination (K8)
 # ---------------------------------------------------------------------------
 
-# device kernels a main-path probe tick ran before K7 and K8 existed
+# device kernels a main-path probe tick ran before K9-K12 existed
 # (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W), and the
-# fall the two kernels must show
-PARENT_PROBE_KERNELS = 1005
-PROBE_KERNELS_DROP = 400
-SWIM_TWINS = ("_probe_pass_plain", "_probe_round_plain", "_originate_plain")
+# most a probe tick may run now
+PARENT_PROBE_KERNELS = 447
+PROBE_KERNEL_CAP = 200
+# the plain twins of K7-K12 in models/swim.py
+SWIM_TWINS = ("_probe_pass_plain", "_probe_round_plain", "_originate_plain",
+              "_maps_plain", "_map_add_plain", "_maps_convert_plain",
+              "_suspicion_expiry_plain", "_dense_suspicion_expiry_plain",
+              "_refutation_plain", "_expire_plain")
+
+
+def _on_card(args) -> bool:
+    """Whether a twin's call carries CUDA tensors: its first state or
+    tensor argument decides."""
+    for x in args:
+        if isinstance(x, swim.SwimState):
+            return x.know.is_cuda
+        if isinstance(x, torch.Tensor):
+            return x.is_cuda
+    return False
 
 
 @contextlib.contextmanager
 def swim_twin_calls():
-    """Counts calls of K7's and K8's plain twins on CUDA states while the
-    block runs (CPU states, as the card-against-CPU runs make, take them
-    by design)."""
+    """Counts calls of K7-K12's plain twins on CUDA states while the block
+    runs (CPU states, as the card-against-CPU runs make, take them by
+    design)."""
     calls = dict.fromkeys(SWIM_TWINS, 0)
     saved = {name: getattr(swim, name) for name in SWIM_TWINS}
 
     def counting(name):
-        def fn(params, s, *a, **k):
-            calls[name] += int(s.know.is_cuda)
-            return saved[name](params, s, *a, **k)
+        def fn(*a, **k):
+            calls[name] += int(_on_card(a))
+            return saved[name](*a, **k)
         return fn
 
     for name in SWIM_TWINS:
@@ -2179,11 +2210,13 @@ def _probe_bytes(params, s, maps) -> int:
     return n * (u + draws + 8 + leaves + outs) + 32 * sectors
 
 
-def _copy_bytes(s) -> int:
-    """The fresh-output copy of know, learn_tick and sends_left: 4U bytes
-    a row read and 4U written."""
+def _copy_bytes(s, cell_bytes: int = 4) -> int:
+    """The fresh-output copy of [N, U] rows, `cell_bytes` a cell read and
+    as many written: know, learn_tick and sends_left are 4 (K7, K8, K10,
+    the refutation), learn_tick and sends_left 3 (K11), know and
+    sends_left 2 (expire)."""
     n, u = s.know.shape
-    return 2 * 4 * n * u
+    return 2 * cell_bytes * n * u
 
 
 def _originate_bytes(s, want, row_subject, evicting: bool) -> int:
@@ -2362,6 +2395,483 @@ def probe_phase(dev, main: dict, states: dict) -> tuple:
     return entries, {"held": held, "timed": timed, "fenced_main_ticks": ticks}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the probe tick's detector passes (K9-K12)
+# ---------------------------------------------------------------------------
+
+MAP_NAMES = ("suspect_of", "dead_of", "left_of", "alive_val")
+# kernels-line entry: (device kernels, source, the JAX function it replaces)
+DETECTOR_ENTRIES = {
+    "subject_maps": (("subject_maps_kernel",), "maps.cu",
+                     "consul_tpu/models/swim.py:392"),
+    "map_add": (("map_add_kernel",), "maps.cu",
+                "consul_tpu/models/swim.py:414"),
+    "maps_convert": (("maps_convert_kernel",), "maps.cu",
+                     "consul_tpu/models/swim.py:422"),
+    "suspicion_expiry": (("expiry_scan_kernel", "expiry_apply_kernel"),
+                         "expiry.cu", "consul_tpu/models/swim.py:900"),
+    "dense_expiry": (("dense_pre_kernel", "dense_post_kernel"), "dense.cu",
+                     "consul_tpu/models/swim.py:965"),
+    "refutation": (("refutation_kernel",), "refute.cu",
+                   "consul_tpu/models/swim.py:1086"),
+    "expire": (("expire_count_kernel", "expire_apply_kernel"), "refute.cu",
+               "consul_tpu/models/swim.py:1267"),
+}
+
+
+def _maps_same(got, ref, what: str) -> None:
+    for x, y, name in zip(got, ref, MAP_NAMES):
+        if y is not None:
+            _same(x, y, f"{what} {name}", "K9")
+
+
+def _refuting(before, after) -> tuple:
+    """(slots refuted, of them dead rumors, subjects with two or more) of
+    a _refutation from `before` to `after`."""
+    need = before.r_active & (after.r_kind == swim.ALIVE) \
+        & (before.r_kind != swim.ALIVE)
+    subj = before.r_subject[need]
+    twice = int((torch.bincount(subj.long()) >= 2).sum()) if subj.numel() else 0
+    return (int(need.sum()), int((need & (before.r_kind == swim.DEAD)).sum()),
+            twice)
+
+
+def hold_detector(params, s, what: str) -> dict:
+    """K9-K12 against their twins along the probe tick from s (a probe-tick
+    state), every output leaf bit-equal, each pass on the twin's input of
+    the tick: the maps (K9's build), the probe round's map_add of K8's
+    allocation, the slot expiry (K10), maps_convert of its conversions,
+    the dense expiry (K11 around K8; its twin with K8's twin), the
+    refutation and expire (K12); K12 also on s itself.  Returns what the
+    tick exercised: among it the slots the probe round's origination
+    evicted and how many map entries differ from maps rebuilt from the
+    table (stale by design after an eviction)."""
+    ref = swim._maps_plain(params, s)
+    maps = swim._maps(params, s)
+    _maps_same(maps, ref, f"{what} maps")
+    drawn = swim._probe_inputs(params, s)
+    s0, want, rows, obs = swim._probe_pass(params, s, maps, drawn)
+    s1, alloc = swim._originate(params, s0, want, swim.SUSPECT,
+                                s0.incarnation, rows)
+    evicted = int((s0.r_active & ((s1.r_subject != s0.r_subject)
+                                  | (s1.r_kind != s0.r_kind)
+                                  | ~s1.r_active)).sum())
+    added = swim._map_add(ref[0], *alloc)
+    _same(added, swim._map_add_plain(ref[0], *alloc), f"{what} map_add",
+          "K9")
+    maps1 = (added, *ref[1:])
+    s2, conv = swim._suspicion_expiry(params, s1)
+    p2, pconv = swim._suspicion_expiry_plain(params, s1)
+    _state(s2, p2, "K10", what)
+    _same(conv, pconv, f"{what} convert", "K10")
+    maps2 = swim._maps_convert(maps1, s2, conv)
+    _maps_same(maps2, swim._maps_convert_plain(maps1, s2, conv),
+               f"{what} maps_convert")
+    stale = sum(int((x != y).sum())
+                for x, y in zip(maps2, swim._maps_plain(params, s2)))
+    s3 = swim._dense_suspicion_expiry(params, s2, obs.shift, maps2)
+    with plain_originate():
+        p3 = swim._dense_suspicion_expiry_plain(params, s2, obs.shift, maps2)
+    _state(s3, p3, "K11", what)
+    s4 = swim._refutation(params, s3)
+    _state(s4, swim._refutation_plain(params, s3), "K12 refutation", what)
+    s5 = swim._expire(params, s4)
+    _state(s5, swim._expire_plain(params, s4), "K12 expire", what)
+    for base, name in ((s, "raw"), (s2, "after K10")):
+        _state(swim._refutation(params, base), swim._refutation_plain(
+            params, base), "K12 refutation", f"{what} {name}")
+        _state(swim._expire(params, base), swim._expire_plain(params, base),
+               "K12 expire", f"{what} {name}")
+    refuted, dead_refuted, twice = _refuting(s3, s4)
+    return {"tick": s.tick, "n": params.n_nodes, "u": params.rumor_slots,
+            "chaos": params.chaos, "converted": int(conv.sum()),
+            "dense_dead": int((s2.r_active & (s2.r_kind == swim.SUSPECT)
+                               & (s3.r_kind == swim.DEAD)).sum()),
+            "dense_originated": int((s3.r_active & ~s2.r_active).sum()),
+            "overflow": int((s3.bulk_member & ~s2.bulk_member).sum()),
+            "refuted": refuted, "dead_refuted": dead_refuted,
+            "refuted_twice": twice,
+            "freed": int((s4.r_active & ~s5.r_active).sum()),
+            "committed": int((s5.committed_dead != s4.committed_dead).sum()
+                             + (s5.committed_left != s4.committed_left).sum()
+                             + (s5.committed_inc != s4.committed_inc).sum()),
+            "evicted": evicted, "stale_map_entries": stale}
+
+
+def _random_detector_state(dev, params, s, seed: int):
+    """_random_probe_state's leaves (of s's shape), with what K9-K12 branch
+    on: crashed subjects whose dense timers expired long ago (dead
+    conversions, and wants that overflow the A slots), live subjects that
+    know their own suspect and dead rumors (refutations; slots 0 and 1 are
+    a suspect and a dead rumor of one live subject, both refuting), slots
+    past their windows at full coverage (frees and commits), and learn
+    ticks 0-300 ticks old (the Lifeguard timeouts at 1M are 125-725), 1% of
+    them 33,000-60,000 ticks old, an age the int16 difference wraps to a
+    negative one."""
+    r = _random_probe_state(dev, params, s, seed)
+    n, u = r.know.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    ints = lambda lo, hi, *shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev)
+    tick = r.tick
+    live = r.up & r.member
+    crashed = (~r.up & r.member).nonzero().flatten()[:8].to(torch.int32)
+    alive = live.nonzero().flatten()[:8].to(torch.int32)
+    subjects = torch.cat([crashed, alive])
+    r_subject = subjects[ints(0, subjects.numel(), u)]
+    r_subject[0] = r_subject[1] = alive[0]
+    r_kind = r.r_kind.clone()
+    r_kind[0], r_kind[1] = swim.SUSPECT, swim.DEAD
+    r_active = r.r_active.clone()
+    r_active[:2] = True
+    incarnation = r.incarnation.clone()
+    r_inc = r.r_inc.clone()
+    r_inc[:2] = incarnation[alive[0].long()] + torch.tensor(
+        [1, 0], dtype=torch.int32, device=dev)
+    know = r.know.clone()
+    know[alive.long()[:, None], torch.arange(u, device=dev)[None, :]] = True
+    sus_start = r.sus_start.clone()
+    sus_start[crashed.long()] = tick - 5000
+    sus_start = torch.where((rnd(n) < 0.03) & (sus_start < 0),
+                            tick - ints(0, 400, n), sus_start).to(torch.int32)
+    age = torch.where(rnd(n, u) < 0.01, ints(33_000, 60_000, n, u),
+                      ints(0, 300, n, u))
+    learn = (swim._t16(tick) - age) % 65536
+    learn = torch.where(learn >= 32768, learn - 65536, learn).to(torch.int16)
+    return r.replace(r_subject=r_subject.to(torch.int32), r_kind=r_kind,
+                     r_active=r_active, r_inc=r_inc.to(torch.int32),
+                     know=know, sus_start=sus_start, learn_tick=learn,
+                     bulk_heard=rnd(n) * 100.0, bulk_cov=rnd(n))
+
+
+def _replay_events(params, s, ticks: int) -> dict:
+    """The main path's probe-tick states from s for `ticks` ticks, keeping
+    the first one whose tick converted a suspect slot (K10), converted one
+    through the dense timers (K11), refuted (K12) and freed a slot: the
+    passes are spied on through their wrappers (a host read each, outside
+    any timed window)."""
+    p = params.swim
+    seen: dict = {}
+    events = {}
+    saved = {name: getattr(swim, name) for name in (
+        "_suspicion_expiry", "_dense_suspicion_expiry", "_refutation",
+        "_expire")}
+
+    def spy_expiry(pp, st):
+        out = saved["_suspicion_expiry"](pp, st)
+        seen["convert"] = bool(out[1].any())
+        return out
+
+    def spy_dense(pp, st, shift, maps):
+        out = saved["_dense_suspicion_expiry"](pp, st, shift, maps)
+        seen["dense"] = bool((st.r_active & (st.r_kind == swim.SUSPECT)
+                              & (out.r_kind == swim.DEAD)).any())
+        return out
+
+    def spy_refute(pp, st):
+        out = saved["_refutation"](pp, st)
+        seen["refute"] = bool((out.r_kind != st.r_kind).any())
+        return out
+
+    def spy_expire(pp, st):
+        out = saved["_expire"](pp, st)
+        seen["free"] = bool((st.r_active & ~out.r_active).any())
+        return out
+
+    spies = {"_suspicion_expiry": spy_expiry,
+             "_dense_suspicion_expiry": spy_dense, "_refutation": spy_refute,
+             "_expire": spy_expire}
+    try:
+        for name, fn in spies.items():
+            setattr(swim, name, fn)
+        for _ in range(ticks):
+            before = s
+            seen.clear()
+            s = serf.step(params, s)
+            for event, hit in seen.items():
+                if hit and event not in events:
+                    events[event] = before.swim
+    finally:
+        for name, fn in saved.items():
+            setattr(swim, name, fn)
+    return events
+
+
+def _sector_bytes(changed: torch.Tensor, elem: int) -> int:
+    """32 bytes for each 32-byte sector, of a tensor of `elem`-byte
+    elements laid out row-major, that holds a True of `changed`."""
+    flat = changed.reshape(-1)
+    per = 32 // elem
+    pad = (-flat.numel()) % per
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return 32 * int(flat.view(-1, per).any(1).sum())
+
+
+def _written(*pairs) -> int:
+    """Bytes an update in place writes: the sectors where each output
+    differs from its input."""
+    return sum(_sector_bytes(new != old, old.element_size())
+               for old, new in pairs)
+
+
+TABLE_BYTES = 14   # a slot's active, kind, subject, inc and start
+
+
+def _dense_stamps(params, s, maps) -> tuple:
+    """The slots K11 converts on s and the known cells of their columns
+    (the twin's exp_u and sel)."""
+    active = s.sus_start >= 0
+    age = s.tick - s.sus_start
+    refute = active & s.up & s.member & (age >= params.probe_period_ticks)
+    expired = active & ~refute & (age >= swim._timeouts(params, s.sus_confirm)) \
+        & s.member
+    subj = s.r_subject.long()
+    exp_u = s.r_active & (s.r_kind == swim.SUSPECT) & expired[subj] \
+        & (maps[1][subj] < 0) & ~s.committed_dead[subj]
+    return exp_u, exp_u[None, :] & s.know
+
+
+def _detector_bytes(params, s, which: str, out, *extra) -> int:
+    """Least bytes of each K9-K12 entry on s, given its result `out`: each
+    input the result depends on read once, whole (a [U] gather: one
+    32-byte sector a gathered subject), outputs written in place (only
+    the 32-byte sectors whose values change, by _written), nothing
+    between launches.  subject_maps builds its four maps, written whole.
+    map_add reads its ok pairs and the map at their subjects;
+    maps_convert the converting slots and both maps at their subjects.
+    suspicion_expiry reads know, up/member and the learn_tick sector of
+    each live row that knows a suspect slot, and gathers committed_inc.
+    dense_expiry (its pre and post launches; K8 apart) reads the timers,
+    up/member, committed dead/left, bulk_member, bulk_heard and the three
+    maps (26 bytes a node), and know where a slot converts.  refutation
+    gathers know, up, member, incarnation and awareness at the refutable
+    slots' subjects.  expire reads know and up/member and gathers the
+    committed leaves at the freed slots' subjects.  The fresh [N, U] row
+    copies are counted apart (_copy_bytes)."""
+    n, u = s.know.shape
+    table = TABLE_BYTES * u
+    if which == "subject_maps":
+        return 16 * n + table
+    if which == "map_add":
+        base, (_, _, ok) = extra
+        return 9 * ok.numel() + 32 * int(ok.sum()) + _written((base, out))
+    if which == "maps_convert":
+        maps, conv = extra
+        return 5 * u + 64 * int(conv.sum()) \
+            + _written((maps[0], out[0]), (maps[1], out[1]))
+    if which == "suspicion_expiry":
+        live = s.up & s.member
+        suspect = s.r_active & (s.r_kind == swim.SUSPECT)
+        rows = int(((s.know & suspect[None, :]).any(1) & live).sum())
+        o = out[0]
+        return (u + 2) * n + 32 * rows + table + 32 * int(suspect.sum()) \
+            + u + _written((s.know, o.know), (s.learn_tick, o.learn_tick),
+                           (s.sends_left, o.sends_left), (s.r_kind, o.r_kind),
+                           (s.r_start, o.r_start))
+    if which == "dense_expiry":
+        exp_u, sel = _dense_stamps(params, s, extra[0])
+        stamped = _sector_bytes(sel & (s.learn_tick != swim._t16(s.tick)), 2) \
+            + _sector_bytes(sel & (s.sends_left != params.retransmit_limit), 1)
+        return 26 * n + (u * n if bool(exp_u.any()) else 0) + table + u \
+            + stamped + _written(
+                (s.sus_start, out.sus_start), (s.sus_confirm, out.sus_confirm),
+                (s.bulk_member, out.bulk_member),
+                (s.bulk_heard, out.bulk_heard), (s.bulk_cov, out.bulk_cov))
+    if which == "refutation":
+        refutable = s.r_active & ((s.r_kind == swim.SUSPECT)
+                                  | (s.r_kind == swim.DEAD))
+        return table + 5 * 32 * int(refutable.sum()) + _written(
+            (s.incarnation, out.incarnation), (s.awareness, out.awareness),
+            (s.know, out.know), (s.learn_tick, out.learn_tick),
+            (s.sends_left, out.sends_left), (s.r_kind, out.r_kind),
+            (s.r_inc, out.r_inc), (s.r_start, out.r_start))
+    if which == "expire":
+        freed = int((s.r_active & ~out.r_active).sum())
+        return (u + 2) * n + table + 3 * 32 * freed + _written(
+            (s.know, out.know), (s.sends_left, out.sends_left),
+            (s.committed_dead, out.committed_dead),
+            (s.committed_left, out.committed_left),
+            (s.committed_inc, out.committed_inc),
+            (s.r_active, out.r_active), (s.r_coverage, out.r_coverage))
+    raise ValueError(which)
+
+
+# bytes a cell of the [N, U] rows each entry copies into fresh outputs
+ROW_COPY_CELL_BYTES = {"suspicion_expiry": 4, "refutation": 4,
+                       "dense_expiry": 3, "expire": 2}
+
+
+def time_detector(params, s) -> dict:
+    """K9-K12 timed at one state: device ms (torch.profiler's kernel
+    records, L2 evicted; multi-kernel entries summed), the wrapper call
+    and the twin (CUDA events, dispatch included), the bound, and for
+    subject_maps and map_add one torch scatter_reduce: building one map,
+    and adding the origination's pairs to one."""
+    maps = swim._maps(params, s)
+    drawn = swim._probe_inputs(params, s)
+    s1, want, rows, obs = swim._probe_pass(params, s, maps, drawn)
+    s1, alloc = swim._originate(params, s1, want, swim.SUSPECT,
+                                s1.incarnation, rows)
+    s2, conv = swim._suspicion_expiry(params, s1)
+    maps2 = swim._maps_convert(maps, s2, conv)
+    s3 = swim._dense_suspicion_expiry(params, s2, obs.shift, maps2)
+    calls = {
+        "subject_maps": (lambda: swim._maps(params, s),
+                         lambda: swim._maps_plain(params, s), s, ()),
+        "map_add": (lambda: swim._map_add(maps[0], *alloc),
+                    lambda: swim._map_add_plain(maps[0], *alloc), s,
+                    (maps[0], alloc)),
+        "maps_convert": (lambda: swim._maps_convert(maps, s2, conv),
+                         lambda: swim._maps_convert_plain(maps, s2, conv),
+                         s2, (maps, conv)),
+        "suspicion_expiry": (lambda: swim._suspicion_expiry(params, s1),
+                             lambda: swim._suspicion_expiry_plain(params, s1),
+                             s1, ()),
+        "dense_expiry": (lambda: swim._dense_suspicion_expiry(
+            params, s2, obs.shift, maps2), lambda: swim.
+            _dense_suspicion_expiry_plain(params, s2, obs.shift, maps2), s2,
+            (maps2,)),
+        "refutation": (lambda: swim._refutation(params, s3),
+                       lambda: swim._refutation_plain(params, s3), s3, ()),
+        "expire": (lambda: swim._expire(params, s3),
+                   lambda: swim._expire_plain(params, s3), s3, ())}
+    mask = s.r_active & (s.r_kind == swim.DEAD)
+    subj = torch.where(mask, s.r_subject, 0).long()
+    val = torch.where(mask, torch.arange(params.rumor_slots, dtype=torch.int32,
+                                         device=s.device), -1)
+    base = torch.full((params.n_nodes,), -1, dtype=torch.int32,
+                      device=s.device)
+    subjects, slots, ok = alloc
+    pair_subj = torch.where(ok, subjects, 0).long()
+    pair_val = torch.where(ok, slots, -1)
+    library = {
+        "subject_maps": lambda: base.scatter_reduce(0, subj, val, "amax"),
+        "map_add": lambda: maps[0].scatter_reduce(0, pair_subj, pair_val,
+                                                  "amax", include_self=True)}
+    _same(library["map_add"](), swim._map_add(maps[0], *alloc),
+          "map_add library call", "K9")
+    out = {}
+    for name, (call, plain, at, extra) in calls.items():
+        names = DETECTOR_ENTRIES[name][0]
+        phases = device_ms(call, names)
+        b = _detector_bytes(params, at, name, call(), *extra)
+        copy = _copy_bytes(at, ROW_COPY_CELL_BYTES.get(name, 0))
+        out[name] = {
+            "ms": sum(phases.values()),
+            "phase_ms": phases if len(phases) > 1 else None,
+            "call_ms": median_ms(call), "plain_ms": median_ms(plain, reps=5),
+            "bound_ms": b / HBM_BYTES_PER_S * 1000.0, "bound_bytes": b,
+            "row_copy_bytes": copy,
+            "row_copy_ms_at_hbm": copy / HBM_BYTES_PER_S * 1000.0,
+            "library_ms": kernel_ms(library[name]) if name in library
+            else None}
+        log(f"{name} timed at tick {s.tick}: " + json.dumps(out[name]))
+    return out
+
+
+def _correlated_overflow_state(dev) -> tuple:
+    """The correlated bench (1M, 1%, seed 7) replayed from the seed to the
+    last probe tick before its bulk channel gains members: that tick's
+    dense expiry seeds the overflow."""
+    params = swim.make_params(GossipConfig.lan(), SimConfig(
+        n_nodes=N, rumor_slots=32, p_loss=0.01, seed=7))
+    s, mask = correlated.start(params, CORRELATED["fractions"][0],
+                               CORRELATED["seed"], dev)
+    last = None
+    for _ in range(2000):
+        if s.tick % params.probe_period_ticks == 0:
+            last = s
+        s, _, _ = correlated.run_chunk(params, s, 1, mask)
+        if bool(s.bulk_member.any()):
+            return params, last
+    raise AssertionError("the correlated replay never seeded the bulk channel")
+
+
+def detector_phase(dev, main: dict, states: dict) -> tuple:
+    """Phase 12: K9-K12 against their twins on the card along whole probe
+    ticks, then timed.  The holds: the main path at the kill, mid-
+    convergence and its end, and the first probe ticks of its replay that
+    converted a suspect slot (K10), converted one through the dense timers
+    (K11), refuted a false suspicion and freed a slot; the correlated run
+    at the tick whose dense expiry seeds the bulk channel and at the
+    evicting mid-drain state (stale maps); the 1M chaos states (overflow
+    off); the federation's WAN pool and small pools on the card (N = 15,
+    U = 16 and N = 6, U = 8); random 1M states in the main, chaos and
+    no-LHA configs (dead rumors refuted, two slots of one subject, wrapped
+    int16 ages).  Returns (the kernels-line entries, the record)."""
+    params = main["params"]
+    p = params.swim
+    held = {}
+    t0 = time.perf_counter()
+    _, s, _ = bench.prepare(device=dev)
+    at_kill = s.swim
+    events = _replay_events(params, s, 300)
+    log(f"main path replay: first probe ticks with each event: "
+        f"{ {k: v.tick for k, v in events.items()} }")
+    for name in ("convert", "refute", "free"):
+        require(name in events, f"the main path replay never saw {name}")
+    for name, st in (("at_kill", at_kill), ("mid", states["mid"][1]),
+                     ("final", states["final"][1]),
+                     *[(f"first {k}", v) for k, v in events.items()]):
+        held[f"main {name}"] = hold_detector(p, st, f"main {name}")
+    cp, overflow = _correlated_overflow_state(dev)
+    held["correlated overflow"] = hold_detector(cp, overflow,
+                                                "correlated overflow")
+    for name in ("correlated near_bar", "correlated drain_end",
+                 "chaos degradation", "chaos partitioned", "wan pool"):
+        hp, st = states[name]
+        held[name] = hold_detector(hp, st, name)
+    for name, gossip, sim, kills in (
+            ("wan 15x16", GossipConfig.wan(),
+             SimConfig(n_nodes=15, rumor_slots=16, p_loss=0.01, seed=3), (4,)),
+            ("wan 6x8", GossipConfig.wan(),
+             SimConfig(n_nodes=6, rumor_slots=8, p_loss=0.01, seed=4), (2,))):
+        hp, sts = _pool_states(dev, gossip, sim, kills, 150)
+        for i, st in enumerate(sts):
+            held[f"{name} #{i}"] = hold_detector(hp, st, f"{name} #{i}")
+    for name, hp in (("main", p), ("chaos", dataclasses.replace(p, chaos=True)),
+                     ("no LHA", dataclasses.replace(p, awareness_max=0))):
+        st = _random_detector_state(dev, hp, at_kill, seed=len(held))
+        held[f"random 1M {name}"] = hold_detector(hp, st, f"random 1M {name}")
+    totals = {k: sum(h[k] for h in held.values()) for k in (
+        "converted", "dense_dead", "dense_originated", "overflow", "refuted",
+        "dead_refuted", "refuted_twice", "freed", "committed",
+        "stale_map_entries")}
+    log(f"K9-K12 held bit-equal on {len(held)} states in "
+        f"{time.perf_counter() - t0:.1f} s; totals {json.dumps(totals)}")
+    for name, h in held.items():
+        log(f"  {name}: {json.dumps(h)}")
+    for k, v in totals.items():
+        require(v > 0, f"no K9-K12 hold exercised {k}")
+    require(held["correlated overflow"]["overflow"] > 0,
+            "the correlated overflow state seeded no bulk member")
+    require(any(h["evicted"] and h["stale_map_entries"]
+                for h in held.values()),
+            "no hold ran K10-K12 behind maps an eviction left stale")
+    require(all(h["overflow"] == 0 for h in held.values() if h["chaos"]),
+            "a chaos hold seeded the bulk channel")
+
+    timed = time_detector(p, states["mid"][1])
+    launches = main["all_launches"]
+    entries = []
+    for name, (_, src, replaces) in DETECTOR_ENTRIES.items():
+        t = timed[name]
+        count = launches[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"consul_tpu_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": count, "max_abs_err": 0.0,
+            "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+            "row_copy_ms_at_hbm": t["row_copy_ms_at_hbm"],
+            "shape": [p.n_nodes, p.rumor_slots]})
+    return entries, {"held": held, "totals": totals, "timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2385,18 +2895,20 @@ def main() -> int:
     states = {}
     with swim_twin_calls() as twins:
         results, records, r, per_tick, syncs = phases_2_to_10(dev, states)
-    log(f"K7/K8 twins called on card states in phases 2-10: {twins}")
-    require(not any(twins.values()), f"a K7/K8 twin ran on the card outside "
-            f"the holds: {twins}")
+    log(f"K7-K12 twins called on card states in phases 2-10: {twins}")
+    require(not any(twins.values()), f"a K7-K12 twin ran on the card "
+            f"outside the holds: {twins}")
     k78, probe_record = probe_phase(dev, r, states)
-    results += k78
+    k912, detector_record = detector_phase(dev, r, states)
+    results += k78 + k912
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
             f"{k['launches']} library_ms={k['library_ms']}")
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": results, **records,
-              "probe": probe_record, "twin_calls": twins,
+              "probe": probe_record, "detector": detector_record,
+              "twin_calls": twins,
               "kernels_per_tick": per_tick,
               "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],

@@ -7,7 +7,7 @@ CUDA error, and counts the launch in `LAUNCHES` — the only place the
 count moves, so a run can show that its path went through the kernel.
 The public wrappers that choose between a kernel and its plain PyTorch
 twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
-`models/swim.py` (K3, K4, K5, K7, K8), `ops/reconcile.py` (K6).  They
+`models/swim.py` (K3, K4, K5, K7-K12), `ops/reconcile.py` (K6).  They
 take the twin only for CPU tensors.
 """
 
@@ -34,7 +34,14 @@ RECONCILE = ("reconcile_diff", "reconcile_merge")
 # the probe round (K7) and rumor origination (K8: three device kernels
 # behind one entry point, counted once)
 PROBE = ("probe_round", "originate")
-KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE + PROBE
+# the rest of the probe tick's detector passes: the subject maps and their
+# updates (K9), suspicion expiry (K10: scan + apply behind one entry
+# point, counted once), the dense expiry's launches before and after its
+# origination (K11), refutation and expire (K12; expire's count + apply
+# counted once)
+DETECTOR = ("subject_maps", "map_add", "maps_convert", "suspicion_expiry",
+            "dense_expiry", "dense_expiry_post", "refutation", "expire")
+KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE + PROBE + DETECTOR
 LAUNCHES = {name: 0 for name in KERNELS}
 # K1's modes, in the order of threefry.cu's Mode, and the launches of K1
 # that carried a segment of each
@@ -83,6 +90,14 @@ SIGNATURES = {
     "probe_round": [_P] * 34 + [_I64] + [_I] * 7 + [_U32] + [_F32] * 5
     + [_I] * 3 + [_P, _I] + [_P] * 14,
     "originate": [_P] * 18 + [_I64] + [_I] * 6 + [_P, _I] + [_P] * 17,
+    "subject_maps": [_P] * 4 + [_I64, _I] + [_P] * 5,
+    "map_add": [_P] * 4 + [_I64, _I] + [_P] * 2,
+    "maps_convert": [_P] * 4 + [_I64, _I] + [_P] * 3,
+    "suspicion_expiry": [_P] * 14 + [_I64] + [_I] * 4 + [_P] * 8,
+    "dense_expiry": [_P] * 18 + [_I64] + [_I] * 5 + [_P, _I] + [_P] * 9,
+    "dense_expiry_post": [_P] * 19 + [_I64] + [_I] * 5 + [_P] * 6,
+    "refutation": [_P] * 12 + [_I64] + [_I] * 5 + [_P] * 9,
+    "expire": [_P] * 12 + [_I64] + [_I] * 4 + [_P] * 9,
 }
 
 
@@ -120,14 +135,20 @@ def _require(t, name: str, dtype, device, shape=None) -> None:
                          f"{tuple(shape)}")
 
 
-def _counter_scratch(device: torch.device, kernel: str, k: int,
-                     extra: int = 0) -> torch.Tensor:
+def _scratch_words(device: torch.device, kernel: str,
+                   words: int) -> torch.Tensor:
+    """The kernel's zeroed int64 scratch on the device, made once (each
+    launch leaves it as it found it)."""
     buf = _scratch.get((device, kernel))
     if buf is None:
-        buf = torch.zeros(1 + extra + SCRATCH_BLOCKS * k, dtype=torch.int64,
-                          device=device)
+        buf = torch.zeros(words, dtype=torch.int64, device=device)
         _scratch[(device, kernel)] = buf
     return buf
+
+
+def _counter_scratch(device: torch.device, kernel: str, k: int,
+                     extra: int = 0) -> torch.Tensor:
+    return _scratch_words(device, kernel, 1 + extra + SCRATCH_BLOCKS * k)
 
 
 def _ptr(t) -> Optional[int]:
@@ -791,11 +812,8 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
             (ok_out, "ok_out", _BOOL, (alloc,))):
         _require(t, "originate " + what, dt, dev, shape)
     _slot_rows("originate out", know_out, learn_out, sends_out, dev)
-    scratch = _scratch.get((dev, "originate"))
-    if scratch is None:
-        scratch = torch.zeros(ORIGINATE_PLAN + 64 * ORIGINATE_LIST_BLOCKS,
-                              dtype=torch.int64, device=dev)
-        _scratch[(dev, "originate")] = scratch
+    scratch = _scratch_words(dev, "originate",
+                             ORIGINATE_PLAN + 64 * ORIGINATE_LIST_BLOCKS)
     rc = library().originate(
         want.data_ptr(), row_subject.data_ptr(), inc_of_subject.data_ptr(),
         up.data_ptr(), member.data_ptr(), know.data_ptr(),
@@ -814,3 +832,347 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
         slots_out.data_ptr(), ok_out.data_ptr(), _stream(dev))
     _check(rc, "originate")
     LAUNCHES["originate"] += 1
+
+
+# expiry.cu's and refute.cu's scratch words (the done count, then what the
+# last block hands the apply launch)
+EXPIRY_SCRATCH = 3
+EXPIRE_SCRATCH = 70
+DENSE_COUNTS = 3        # dense.cu's sums: bulk members, live rows, wants
+
+
+def _node_count(name: str, t) -> int:
+    n = t.shape[0] if t is not None and t.dim() == 1 else 0
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"{name}: the [N] maps must have 1 <= N < 2^31")
+    return n
+
+
+def _ticks(name: str, tick: int, tick16: int = 0, limit: int = 0) -> None:
+    if not 0 <= tick < 2 ** 31 or not -2 ** 15 <= tick16 < 2 ** 15 \
+            or not 0 <= limit <= 127:
+        raise ValueError(f"{name}: tick {tick}, tick16 {tick16} or limit "
+                         f"{limit} out of range")
+
+
+def launch_subject_maps(r_active, r_kind, r_subject, r_inc, suspect_of,
+                        dead_of, left_of, alive_val) -> None:
+    """K9's build: the four [N] int32 subject maps of the [U] rumor table
+    (the largest slot of each kind whose subject is the node, the alive
+    map's value r_inc * U + slot; -1 where none)."""
+    dev = suspect_of.device if suspect_of is not None else None
+    n = _node_count("subject_maps", suspect_of)
+    u = _rumor_table(r_active, r_kind, r_subject, dev, "subject_maps")
+    _node_vectors("subject_maps", dev, u, (r_inc, "r_inc", _I32))
+    _node_vectors("subject_maps", dev, n, (suspect_of, "suspect_of", _I32),
+                  (dead_of, "dead_of", _I32), (left_of, "left_of", _I32),
+                  (alive_val, "alive_val", _I32))
+    rc = library().subject_maps(
+        r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(),
+        r_inc.data_ptr(), n, u, suspect_of.data_ptr(), dead_of.data_ptr(),
+        left_of.data_ptr(), alive_val.data_ptr(), _stream(dev))
+    _check(rc, "subject_maps")
+    LAUNCHES["subject_maps"] += 1
+
+
+def launch_map_add(map_n, subjects, slots, ok, out) -> None:
+    """K9's map_add: out [N] int32 = map_n with the [A] (subject, slot)
+    pairs under `ok` scatter-maxed in (the others -1 into index 0)."""
+    dev = map_n.device if map_n is not None else None
+    n = _node_count("map_add", map_n)
+    a = subjects.shape[0] if subjects is not None and subjects.dim() == 1 \
+        else 0
+    if not 1 <= a <= 64:
+        raise ValueError(f"map_add takes 1-64 pairs, got {a}")
+    _node_vectors("map_add", dev, n, (map_n, "map", _I32), (out, "out", _I32))
+    _node_vectors("map_add", dev, a, (subjects, "subjects", _I32),
+                (slots, "slots", _I32), (ok, "ok", _BOOL))
+    rc = library().map_add(map_n.data_ptr(), subjects.data_ptr(),
+                           slots.data_ptr(), ok.data_ptr(), n, a,
+                           out.data_ptr(), _stream(dev))
+    _check(rc, "map_add")
+    LAUNCHES["map_add"] += 1
+
+
+def launch_maps_convert(suspect_of, dead_of, convert, r_subject, suspect_out,
+                        dead_out) -> None:
+    """K9's maps_convert: the converting [U] slots' subjects leave
+    suspect_of (a min with -1) and enter dead_of (a max with the slot)."""
+    dev = suspect_of.device if suspect_of is not None else None
+    n = _node_count("maps_convert", suspect_of)
+    u = convert.shape[0] if convert is not None and convert.dim() == 1 else 0
+    if not 1 <= u <= 64:
+        raise ValueError(f"maps_convert takes 1-64 slots, got {u}")
+    _node_vectors("maps_convert", dev, n, (suspect_of, "suspect_of", _I32),
+                  (dead_of, "dead_of", _I32),
+                  (suspect_out, "suspect_out", _I32),
+                  (dead_out, "dead_out", _I32))
+    _node_vectors("maps_convert", dev, u, (convert, "convert", _BOOL),
+                (r_subject, "r_subject", _I32))
+    rc = library().maps_convert(suspect_of.data_ptr(), dead_of.data_ptr(),
+                                convert.data_ptr(), r_subject.data_ptr(), n,
+                                u, suspect_out.data_ptr(), dead_out.data_ptr(),
+                                _stream(dev))
+    _check(rc, "maps_convert")
+    LAUNCHES["maps_convert"] += 1
+
+
+def launch_suspicion_expiry(*, know, learn_tick, sends_left, up, member,
+                            committed_dead, committed_inc, r_active, r_kind,
+                            r_subject, r_inc, r_start, r_confirm, timeouts,
+                            tick: int, tick16: int, limit: int, know_out,
+                            learn_out, sends_out, r_kind_out, r_start_out,
+                            convert_out) -> None:
+    """K10: the slot suspicion expiry of the pool (scan, then apply), from
+    the int16 timeout table [65]; writes every *_out whole."""
+    dev = know.device if know is not None else None
+    n, u = _slot_rows("suspicion_expiry", know, learn_tick, sends_left, dev)
+    _ticks("suspicion_expiry", tick, tick16, limit)
+    _node_vectors("suspicion_expiry", dev, n, (up, "up", _BOOL),
+                  (member, "member", _BOOL),
+                  (committed_dead, "committed_dead", _BOOL),
+                  (committed_inc, "committed_inc", _I32))
+    if _rumor_table(r_active, r_kind, r_subject, dev, "suspicion_expiry") != u:
+        raise ValueError(f"suspicion_expiry: the rumor table has "
+                         f"{r_active.shape[0]} slots, know {u}")
+    _node_vectors("suspicion_expiry", dev, u, (r_inc, "r_inc", _I32),
+                (r_start, "r_start", _I32), (r_confirm, "r_confirm", _I8),
+                (r_kind_out, "r_kind_out", _I8),
+                (r_start_out, "r_start_out", _I32),
+                (convert_out, "convert_out", _BOOL))
+    _require(timeouts, "suspicion_expiry timeout table", _I16, dev,
+             (TIMEOUTS,))
+    _slot_rows("suspicion_expiry out", know_out, learn_out, sends_out, dev)
+    scratch = _scratch_words(dev, "suspicion_expiry", EXPIRY_SCRATCH)
+    rc = library().suspicion_expiry(
+        know.data_ptr(), learn_tick.data_ptr(), sends_left.data_ptr(),
+        up.data_ptr(), member.data_ptr(), committed_dead.data_ptr(),
+        committed_inc.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
+        r_subject.data_ptr(), r_inc.data_ptr(), r_start.data_ptr(),
+        r_confirm.data_ptr(), timeouts.data_ptr(), n, u, tick, tick16, limit,
+        scratch.data_ptr(), know_out.data_ptr(), learn_out.data_ptr(),
+        sends_out.data_ptr(), r_kind_out.data_ptr(), r_start_out.data_ptr(),
+        convert_out.data_ptr(), _stream(dev))
+    _check(rc, "suspicion_expiry")
+    LAUNCHES["suspicion_expiry"] += 1
+
+
+def _shift(name: str, shift, dev) -> None:
+    if shift is None or shift.numel() != 1:
+        raise ValueError(f"{name}: shift must be one int32 on the device")
+    _require(shift, f"{name} shift", _I32, dev)
+
+
+def launch_dense_expiry(*, sus_start, sus_confirm, up, member, committed_dead,
+                        bulk_member, suspect_of, dead_of, left_of, know,
+                        learn_tick, sends_left, r_active, r_kind, r_subject,
+                        r_start, timeouts, shift, tick: int, tick16: int,
+                        limit: int, period: int, learn_out, sends_out,
+                        r_kind_out, r_start_out, exp_out, want_out,
+                        row_subject_out, counts_out) -> None:
+    """K11's pre launch: the expiring suspect slots (exp_out [U] bool), the
+    [U] kind and start, the stamped learn_tick / sends_left, the wants at
+    each prober's ring target (i + shift) % N and the probers' row
+    subjects, and the sums [3] int64 (bulk members, live rows, wants) of
+    the post launch; the int32 timeout table [65]; `shift` one int32 read
+    on the device."""
+    dev = know.device if know is not None else None
+    n, u = _slot_rows("dense_expiry", know, learn_tick, sends_left, dev)
+    _ticks("dense_expiry", tick, tick16, limit)
+    if not 1 <= period < 2 ** 31:
+        raise ValueError(f"dense_expiry: probe period {period} out of range")
+    _node_vectors("dense_expiry", dev, n, (sus_start, "sus_start", _I32),
+                  (sus_confirm, "sus_confirm", _I8), (up, "up", _BOOL),
+                  (member, "member", _BOOL),
+                  (committed_dead, "committed_dead", _BOOL),
+                  (bulk_member, "bulk_member", _BOOL),
+                  (suspect_of, "suspect_of", _I32), (dead_of, "dead_of", _I32),
+                  (left_of, "left_of", _I32), (want_out, "want_out", _I32),
+                  (row_subject_out, "row_subject_out", _I32))
+    if _rumor_table(r_active, r_kind, r_subject, dev, "dense_expiry") != u:
+        raise ValueError(f"dense_expiry: the rumor table has "
+                         f"{r_active.shape[0]} slots, know {u}")
+    _node_vectors("dense_expiry", dev, u, (r_start, "r_start", _I32),
+                (r_kind_out, "r_kind_out", _I8),
+                (r_start_out, "r_start_out", _I32),
+                (exp_out, "exp_out", _BOOL))
+    _require(timeouts, "dense_expiry timeout table", _I32, dev, (TIMEOUTS,))
+    _require(counts_out, "dense_expiry counts_out", torch.int64, dev,
+             (DENSE_COUNTS,))
+    _shift("dense_expiry", shift, dev)
+    _require(learn_out, "dense_expiry learn_out", _I16, dev, (n, u))
+    _require(sends_out, "dense_expiry sends_out", _I8, dev, (n, u))
+    scratch = _counter_scratch(dev, "dense_expiry", DENSE_COUNTS)
+    rc = library().dense_expiry(
+        sus_start.data_ptr(), sus_confirm.data_ptr(), up.data_ptr(),
+        member.data_ptr(), committed_dead.data_ptr(), bulk_member.data_ptr(),
+        suspect_of.data_ptr(), dead_of.data_ptr(), left_of.data_ptr(),
+        know.data_ptr(), learn_tick.data_ptr(), sends_left.data_ptr(),
+        r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(),
+        r_start.data_ptr(), timeouts.data_ptr(), shift.data_ptr(), n, u,
+        tick, tick16, limit, period, scratch.data_ptr(), SCRATCH_BLOCKS,
+        learn_out.data_ptr(), sends_out.data_ptr(), r_kind_out.data_ptr(),
+        r_start_out.data_ptr(), exp_out.data_ptr(), want_out.data_ptr(),
+        row_subject_out.data_ptr(), counts_out.data_ptr(), _stream(dev))
+    _check(rc, "dense_expiry")
+    LAUNCHES["dense_expiry"] += 1
+
+
+def launch_dense_expiry_post(*, want, dead_of, left_of, exp, r_subject,
+                             subjects, slots, ok, sus_start, sus_confirm, up,
+                             member, committed_dead, committed_left,
+                             bulk_member, bulk_heard, bulk_cov, counts, shift,
+                             tick: int, period: int, chaos: bool,
+                             bulk_member_out, bulk_heard_out, bulk_cov_out,
+                             sus_start_out, sus_confirm_out) -> None:
+    """K11's post launch, after the dead origination: the bulk overflow
+    (off when `chaos`) and the timer clears, into every *_out whole.
+    dead_of is the map the pre launch read; the kernel adds the pre
+    launch's converted slots (`exp` [U] over `r_subject`, the table before
+    the origination) and the origination's ok (subjects, slots) [A] pairs
+    per node; `counts` holds the pre launch's sums."""
+    dev = want.device if want is not None else None
+    n = _node_count("dense_expiry_post", want)
+    a = ok.shape[0] if ok is not None and ok.dim() == 1 else 0
+    if not 1 <= a <= 64:
+        raise ValueError(f"dense_expiry_post takes 1-64 pairs, got {a}")
+    u = exp.shape[0] if exp is not None and exp.dim() == 1 else 0
+    if not 1 <= u <= 64:
+        raise ValueError(f"dense_expiry_post takes 1-64 slots, got {u}")
+    _ticks("dense_expiry_post", tick)
+    if not 1 <= period < 2 ** 31:
+        raise ValueError(f"dense_expiry_post: probe period {period} out of "
+                         f"range")
+    _node_vectors("dense_expiry_post", dev, n, (want, "want", _I32),
+                  (dead_of, "dead_of", _I32), (left_of, "left_of", _I32),
+                  (sus_start, "sus_start", _I32),
+                  (sus_confirm, "sus_confirm", _I8), (up, "up", _BOOL),
+                  (member, "member", _BOOL),
+                  (committed_dead, "committed_dead", _BOOL),
+                  (committed_left, "committed_left", _BOOL),
+                  (bulk_member, "bulk_member", _BOOL),
+                  (bulk_heard, "bulk_heard", _F), (bulk_cov, "bulk_cov", _F),
+                  (bulk_member_out, "bulk_member_out", _BOOL),
+                  (bulk_heard_out, "bulk_heard_out", _F),
+                  (bulk_cov_out, "bulk_cov_out", _F),
+                  (sus_start_out, "sus_start_out", _I32),
+                  (sus_confirm_out, "sus_confirm_out", _I8))
+    _node_vectors("dense_expiry_post", dev, u, (exp, "exp", _BOOL),
+                  (r_subject, "r_subject", _I32))
+    _node_vectors("dense_expiry_post", dev, a, (subjects, "subjects", _I32),
+                  (slots, "slots", _I32), (ok, "ok", _BOOL))
+    _require(counts, "dense_expiry_post counts", torch.int64, dev,
+             (DENSE_COUNTS,))
+    _shift("dense_expiry_post", shift, dev)
+    rc = library().dense_expiry_post(
+        want.data_ptr(), dead_of.data_ptr(), left_of.data_ptr(),
+        exp.data_ptr(), r_subject.data_ptr(), subjects.data_ptr(),
+        slots.data_ptr(), ok.data_ptr(), sus_start.data_ptr(),
+        sus_confirm.data_ptr(), up.data_ptr(), member.data_ptr(),
+        committed_dead.data_ptr(), committed_left.data_ptr(),
+        bulk_member.data_ptr(), bulk_heard.data_ptr(), bulk_cov.data_ptr(),
+        counts.data_ptr(), shift.data_ptr(), n, u, a, tick, period,
+        int(chaos), bulk_member_out.data_ptr(), bulk_heard_out.data_ptr(),
+        bulk_cov_out.data_ptr(), sus_start_out.data_ptr(),
+        sus_confirm_out.data_ptr(), _stream(dev))
+    _check(rc, "dense_expiry_post")
+    LAUNCHES["dense_expiry_post"] += 1
+
+
+def launch_refutation(*, incarnation, awareness, up, member, know, learn_tick,
+                      sends_left, r_active, r_kind, r_subject, r_inc, r_start,
+                      awareness_max: int, tick: int, tick16: int, limit: int,
+                      incarnation_out, awareness_out, know_out, learn_out,
+                      sends_out, r_kind_out, r_inc_out, r_start_out) -> None:
+    """K12's refutation: live subjects that know they are suspected or
+    declared dead refute, into every *_out whole (awareness_out None when
+    awareness_max is 0: the score is then left as it is)."""
+    dev = know.device if know is not None else None
+    n, u = _slot_rows("refutation", know, learn_tick, sends_left, dev)
+    _ticks("refutation", tick, tick16, limit)
+    if not 0 <= awareness_max <= 127:
+        raise ValueError(f"refutation: awareness_max {awareness_max} outside "
+                         f"[0, 127]")
+    _node_vectors("refutation", dev, n, (incarnation, "incarnation", _I32),
+                  (awareness, "awareness", _I8), (up, "up", _BOOL),
+                  (member, "member", _BOOL),
+                  (incarnation_out, "incarnation_out", _I32))
+    if (awareness_max > 0) != (awareness_out is not None):
+        raise ValueError("refutation: awareness_out comes with "
+                         "awareness_max > 0, and only then")
+    if awareness_out is not None:
+        _require(awareness_out, "refutation awareness_out", _I8, dev, (n,))
+    if _rumor_table(r_active, r_kind, r_subject, dev, "refutation") != u:
+        raise ValueError(f"refutation: the rumor table has "
+                         f"{r_active.shape[0]} slots, know {u}")
+    _node_vectors("refutation", dev, u, (r_inc, "r_inc", _I32),
+                (r_start, "r_start", _I32), (r_kind_out, "r_kind_out", _I8),
+                (r_inc_out, "r_inc_out", _I32),
+                (r_start_out, "r_start_out", _I32))
+    _slot_rows("refutation out", know_out, learn_out, sends_out, dev)
+    rc = library().refutation(
+        incarnation.data_ptr(), awareness.data_ptr(), up.data_ptr(),
+        member.data_ptr(), know.data_ptr(), learn_tick.data_ptr(),
+        sends_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
+        r_subject.data_ptr(), r_inc.data_ptr(), r_start.data_ptr(), n, u,
+        awareness_max, tick, tick16, limit, incarnation_out.data_ptr(),
+        _ptr(awareness_out), know_out.data_ptr(), learn_out.data_ptr(),
+        sends_out.data_ptr(), r_kind_out.data_ptr(), r_inc_out.data_ptr(),
+        r_start_out.data_ptr(), _stream(dev))
+    _check(rc, "refutation")
+    LAUNCHES["refutation"] += 1
+
+
+def launch_expire(*, know, sends_left, up, member, committed_dead,
+                  committed_left, committed_inc, r_active, r_kind, r_subject,
+                  r_inc, r_start, tick: int, life_gossip: int,
+                  life_suspect: int, know_out, sends_out, committed_dead_out,
+                  committed_left_out, committed_inc_out, r_active_out,
+                  r_coverage_out) -> None:
+    """K12's expire (count, then apply): slots past their dissemination
+    window (`life_suspect` ticks for suspect rumors, `life_gossip` for the
+    others) free at 99.5% live coverage or four windows, committing their
+    belief at 50%; writes every *_out whole."""
+    dev = know.device if know is not None else None
+    if know is None or know.dim() != 2:
+        raise ValueError("expire: know must be [N, U]")
+    n, u = know.shape
+    if not 1 <= n < 2 ** 31 or not 1 <= u <= 64:
+        raise ValueError(f"expire: N={n} must lie in [1, 2^31) and U={u} in "
+                         f"[1, 64]")
+    _ticks("expire", tick)
+    if not 0 <= life_gossip < 2 ** 29 or not 0 <= life_suspect < 2 ** 29:
+        raise ValueError(f"expire: windows {life_gossip}, {life_suspect} out "
+                         f"of range")
+    for t, what, dt in ((know, "know", _BOOL), (sends_left, "sends_left", _I8),
+                        (know_out, "know_out", _BOOL),
+                        (sends_out, "sends_out", _I8)):
+        _require(t, "expire " + what, dt, dev, (n, u))
+    _node_vectors("expire", dev, n, (up, "up", _BOOL),
+                  (member, "member", _BOOL),
+                  (committed_dead, "committed_dead", _BOOL),
+                  (committed_left, "committed_left", _BOOL),
+                  (committed_inc, "committed_inc", _I32),
+                  (committed_dead_out, "committed_dead_out", _BOOL),
+                  (committed_left_out, "committed_left_out", _BOOL),
+                  (committed_inc_out, "committed_inc_out", _I32))
+    if _rumor_table(r_active, r_kind, r_subject, dev, "expire") != u:
+        raise ValueError(f"expire: the rumor table has {r_active.shape[0]} "
+                         f"slots, know {u}")
+    _node_vectors("expire", dev, u, (r_inc, "r_inc", _I32),
+                (r_start, "r_start", _I32),
+                (r_active_out, "r_active_out", _BOOL),
+                (r_coverage_out, "r_coverage_out", _F))
+    scratch = _scratch_words(dev, "expire", EXPIRE_SCRATCH)
+    rc = library().expire(
+        know.data_ptr(), sends_left.data_ptr(), up.data_ptr(),
+        member.data_ptr(), committed_dead.data_ptr(),
+        committed_left.data_ptr(), committed_inc.data_ptr(),
+        r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(),
+        r_inc.data_ptr(), r_start.data_ptr(), n, u, tick, life_gossip,
+        life_suspect, scratch.data_ptr(), know_out.data_ptr(),
+        sends_out.data_ptr(), committed_dead_out.data_ptr(),
+        committed_left_out.data_ptr(), committed_inc_out.data_ptr(),
+        r_active_out.data_ptr(), r_coverage_out.data_ptr(), _stream(dev))
+    _check(rc, "expire")
+    LAUNCHES["expire"] += 1

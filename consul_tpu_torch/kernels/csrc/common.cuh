@@ -285,4 +285,111 @@ __device__ __forceinline__ uint64_t warp_slot_mask(const uint8_t* v, int S) {
   return static_cast<uint64_t>(lo) | (static_cast<uint64_t>(hi) << 32);
 }
 
+// The 64-bit masks of a warp's lanes or-ed together; every lane gets it.
+__device__ __forceinline__ u64 warp_or(u64 m) {
+  for (int off = 16; off > 0; off >>= 1) m |= __shfl_xor_sync(0xffffffffu, m, off);
+  return m;
+}
+
+// The mask of slots 0..S-1.
+__device__ __forceinline__ uint64_t all_slots(int S) {
+  return S >= 64 ? ~0ull : (1ull << S) - 1;
+}
+
+// --- _release: freeing done slots, committing what a majority heard --------
+// (swim.py _release; K8's pressure eviction and K12's expire)
+
+// A slot's live coverage, count / max(n_live, 1) in IEEE division: the
+// counts are exact integers and the quotient sits exactly at the 0.995
+// and 0.5 bars, so no approximate division may replace it.
+__device__ __forceinline__ float live_coverage(u64 count, u64 n_live) {
+  return __fdiv_rn(__ull2float_rn(count), __ull2float_rn(n_live < 1 ? 1 : n_live));
+}
+
+// _release's commit masks of one slot: a done slot whose coverage reached
+// 0.5 commits its dead, left or alive belief (kinds 2, 3, 0).
+struct Commits {
+  bool dead, left, alive;
+};
+
+__device__ __forceinline__ Commits release_commits(bool done, float cov, int kind) {
+  const bool commit = done && cov >= 0.5f;
+  return {commit && kind == 2, commit && kind == 3, commit && kind == 0};
+}
+
+// _release's committed scatters read at node i: committed_dead and
+// committed_left take an or over the committing slots whose subject is i,
+// committed_inc a max of their r_inc; the slots outside the alive commit
+// scatter-max 0 into index 0 (jnp's .at[where(mask, subject, 0)]).
+// subj/inc are the [U] table (shared memory), the masks over its slots.
+__device__ __forceinline__ void release_node(int64_t i, uint64_t c_dead, uint64_t c_left,
+                                             uint64_t c_alive, uint64_t slots,
+                                             const int32_t* subj, const int32_t* inc,
+                                             bool& cd, bool& cl, int32_t& ci) {
+  for (uint64_t m = c_dead; m; m &= m - 1) cd = cd || subj[__ffsll(m) - 1] == i;
+  for (uint64_t m = c_left; m; m &= m - 1) cl = cl || subj[__ffsll(m) - 1] == i;
+  for (uint64_t m = c_alive; m; m &= m - 1) {
+    const int u = __ffsll(m) - 1;
+    if (subj[u] == i && inc[u] > ci) ci = inc[u];
+  }
+  if (i == 0 && (c_alive & slots) != slots && ci < 0) ci = 0;
+}
+
+// Four slot bits as four byte masks (bit j -> 0xff in byte j).
+__device__ __forceinline__ uint32_t byte_masks(uint32_t bits4) {
+  return ((bits4 * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+// Whole [rows, U] byte rows, from a row boundary, copied by the 32 lanes
+// of a warp with the slots outside `keep` zeroed (know & keep, and
+// _release's budget clears): 16-byte vectors where both are aligned and
+// a vector stays inside a row, bytes for the rest.  keep = every slot is
+// a plain copy.
+__device__ __forceinline__ void warp_copy_rows(void* dst, const void* src,
+                                               int64_t bytes, int U,
+                                               uint64_t keep, int lane) {
+  uint8_t* d = static_cast<uint8_t*>(dst);
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  int64_t done = 0;
+  if (aligned16(d) && aligned16(s) && U % 16 == 0) {
+    const int64_t vecs = bytes >> 4;
+    for (int64_t v = lane; v < vecs; v += 32) {
+      uint4 w = __ldcs(reinterpret_cast<const uint4*>(s) + v);
+      const uint32_t k16 = static_cast<uint32_t>(keep >> ((v << 4) % U)) & 0xffffu;
+      w.x &= byte_masks(k16 & 0xfu);
+      w.y &= byte_masks((k16 >> 4) & 0xfu);
+      w.z &= byte_masks((k16 >> 8) & 0xfu);
+      w.w &= byte_masks(k16 >> 12);
+      reinterpret_cast<uint4*>(d)[v] = w;
+    }
+    done = vecs << 4;
+  }
+  for (int64_t x = done + lane; x < bytes; x += 32) {
+    d[x] = ((keep >> (x % U)) & 1ull) ? s[x] : 0;
+  }
+}
+
+// --- the SWIM detector's per-slot values ------------------------------------
+
+// lax's int32 product and sum, wrapping: r_inc * U + slot (the alive map's
+// value) and inc + 1 (a refutation's incarnation).
+__device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t wrap_mul(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+
+// The int32 difference a - b of a tick and a stamp, wrapping as torch's
+// and XLA's int32 subtraction does.
+__device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+
+// A Lifeguard confirmation count as an index of the [65] timeout table.
+__device__ __forceinline__ int timeout_index(int c) {
+  return c < 0 ? 0 : (c > 64 ? 64 : c);
+}
+
 }  // namespace consul_kernels

@@ -32,7 +32,7 @@
 //   3. seed, a persistent grid over N: each warp copies its 32 rows of
 //      know / learn_tick / sends_left into the fresh outputs with 16-byte
 //      vectors (_release's column clears, when a slot was evicted, as a
-//      byte mask on each vector) and each thread
+//      byte mask on each vector: common.cuh:warp_copy_rows) and each thread
 //      seeds its row's cell (row_subject[i] matched against the A
 //      allocated subjects) and writes committed dead / left / inc with the
 //      commit scatters at its index.
@@ -56,7 +56,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSuspect = 1, kDead = 2, kLeft = 3, kAlive = 0;
+constexpr int kSuspect = 1;
 constexpr unsigned kFull = 0xffffffffu;
 
 // scratch layout, in u64 words
@@ -165,40 +165,6 @@ __device__ void block_top(WarpTop& t, int A, u64* lists, int lane, int warp) {
       top_offer(t, lists[w * 64 + lane], A, lane);
       top_offer(t, lists[w * 64 + 32 + lane], A, lane);
     }
-  }
-}
-
-// Four slot bits as four byte masks (bit j -> 0xff in byte j).
-__device__ __forceinline__ uint32_t byte_masks(uint32_t bits4) {
-  return ((bits4 * 0x00204081u) & 0x01010101u) * 0xffu;
-}
-
-// Whole [rows, U] byte rows, from a row boundary, copied by the 32 lanes
-// of a warp with the slots outside `keep` zeroed (know & keep, and
-// _release's budget clears): 16-byte vectors where both are aligned and
-// a vector stays inside a row, bytes for the rest.  keep = every slot is
-// a plain copy.
-__device__ __forceinline__ void warp_copy_rows(void* dst, const void* src,
-                                               int64_t bytes, int U,
-                                               uint64_t keep, int lane) {
-  uint8_t* d = static_cast<uint8_t*>(dst);
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  int64_t done = 0;
-  if (aligned16(d) && aligned16(s) && U % 16 == 0) {
-    const int64_t vecs = bytes >> 4;
-    for (int64_t v = lane; v < vecs; v += 32) {
-      uint4 w = __ldcs(reinterpret_cast<const uint4*>(s) + v);
-      const uint32_t k16 = static_cast<uint32_t>(keep >> ((v << 4) % U)) & 0xffffu;
-      w.x &= byte_masks(k16 & 0xfu);
-      w.y &= byte_masks((k16 >> 4) & 0xfu);
-      w.z &= byte_masks((k16 >> 8) & 0xfu);
-      w.w &= byte_masks(k16 >> 12);
-      reinterpret_cast<uint4*>(d)[v] = w;
-    }
-    done = vecs << 4;
-  }
-  for (int64_t x = done + lane; x < bytes; x += 32) {
-    d[x] = ((keep >> (x % U)) & 1ull) ? s[x] : 0;
   }
 }
 
@@ -311,14 +277,12 @@ originate_commit_kernel(const __grid_constant__ OriginateArgs a) {
       const int kind = a.r_kind[u];
       float cov_out = a.r_coverage[u];
       if (evicting) {
-        const u64 n_live = __ldcg(&sc[kLive]);
-        const float cov = __fdiv_rn(__ull2float_rn(__ldcg(&sc[kCols + u])),
-                                    __ull2float_rn(n_live < 1 ? 1 : n_live));
+        const float cov = live_coverage(__ldcg(&sc[kCols + u]), __ldcg(&sc[kLive]));
         done = active && cov >= 0.995f && kind != kSuspect;
-        const bool commit = done && cov >= 0.5f;
-        c_dead = commit && kind == kDead;
-        c_left = commit && kind == kLeft;
-        c_alive = commit && kind == kAlive;
+        const Commits c = release_commits(done, cov, kind);
+        c_dead = c.dead;
+        c_left = c.left;
+        c_alive = c.alive;
         cov_out = done ? 0.0f : cov;
       }
       a.r_coverage_out[u] = cov_out;
@@ -421,7 +385,7 @@ originate_seed_kernel(const __grid_constant__ OriginateArgs a) {
     s_rinc[u] = a.r_inc[u];
   }
   __syncthreads();
-  const uint64_t slots = U == 64 ? ~0ull : (1ull << U) - 1;
+  const uint64_t slots = all_slots(U);
   const uint64_t keep = sc[kKeep] & slots;
   const uint64_t c_dead = sc[kCommitDead], c_left = sc[kCommitLeft],
                  c_alive = sc[kCommitAlive];
@@ -441,14 +405,7 @@ originate_seed_kernel(const __grid_constant__ OriginateArgs a) {
       // _release's committed scatters, at this index
       bool cd = a.committed_dead[i], cl = a.committed_left[i];
       int32_t ci = a.committed_inc[i];
-      for (uint64_t m = c_dead; m; m &= m - 1) cd = cd || s_rsubj[__ffsll(m) - 1] == i;
-      for (uint64_t m = c_left; m; m &= m - 1) cl = cl || s_rsubj[__ffsll(m) - 1] == i;
-      for (uint64_t m = c_alive; m; m &= m - 1) {
-        const int u = __ffsll(m) - 1;
-        if (s_rsubj[u] == i && s_rinc[u] > ci) ci = s_rinc[u];
-      }
-      // slots outside the alive commit scatter-max 0 into index 0
-      if (i == 0 && (c_alive & slots) != slots && ci < 0) ci = 0;
+      release_node(i, c_dead, c_left, c_alive, slots, s_rsubj, s_rinc, cd, cl, ci);
       a.committed_dead_out[i] = cd;
       a.committed_left_out[i] = cl;
       a.committed_inc_out[i] = ci;

@@ -28,10 +28,14 @@ Control flow that JAX expresses inside `lax.scan`:
 
 `believed_down_fraction` launches kernel K3 on CUDA tensors, the
 membership reads (`status_vector`, `membership_counts`/`page`/`delta`)
-kernel K4, `mass_detection_stats` kernel K5, the probe round kernel K7
-and every rumor origination (probe round, dense expiry, rejoin, leave,
-inject_suspicion) kernel K8, each beside its plain twin
-(`_probe_pass_plain`, `_originate_plain`); the gossip pass (with its
+kernel K4, `mass_detection_stats` kernel K5, the probe round kernel K7,
+every rumor origination (probe round, dense expiry, rejoin, leave,
+inject_suspicion) kernel K8, the subject maps and their updates (`_maps`,
+`_map_add`, `_maps_convert`) kernel K9, `_suspicion_expiry` kernel K10,
+`_dense_suspicion_expiry` kernel K11 around its K8 call, and
+`_refutation` and `_expire` kernel K12, each beside its plain twin
+(`_probe_pass_plain`, `_originate_plain`, `_maps_plain`, ...,
+`_expire_plain`); the gossip pass (with its
 learn-tick stamp, counter update and loss draw, and under chaos its
 partition gate and per-contact rate) goes through ops/gossip.py (K2) and
 every other random draw through utils/prng.py (K1).
@@ -309,7 +313,8 @@ def _subject_map(params: SwimParams, s: SwimState, kind: int,
     return _scatter(base, subj, val, "amax")
 
 
-def _maps(params: SwimParams, s: SwimState):
+def _maps_plain(params: SwimParams, s: SwimState):
+    """The plain PyTorch version of K9's build (swim.py:392-412)."""
     u = params.rumor_slots
     slots = torch.arange(u, dtype=I32, device=s.device)
     suspect_of = _subject_map(params, s, SUSPECT, slots)
@@ -319,12 +324,37 @@ def _maps(params: SwimParams, s: SwimState):
     return suspect_of, dead_of, left_of, alive_val
 
 
-def _map_add(map_n, subjects, slots, ok):
+def _maps(params: SwimParams, s: SwimState):
+    """The four [N] int32 subject maps (suspect_of, dead_of, left_of,
+    alive_val), built once a probe tick; on CUDA tensors one K9 launch."""
+    if not s.know.is_cuda:
+        return _maps_plain(params, s)
+    maps = tuple(torch.empty(params.n_nodes, dtype=I32, device=s.device)
+                 for _ in range(4))
+    kernels.launch_subject_maps(s.r_active, s.r_kind, s.r_subject, s.r_inc,
+                                *maps)
+    return maps
+
+
+def _map_add_plain(map_n, subjects, slots, ok):
+    """The plain PyTorch version of K9's map_add (swim.py:414-420)."""
     return _scatter(map_n, torch.where(ok, subjects, 0),
                     torch.where(ok, slots, -1), "amax")
 
 
-def _maps_convert(maps, s: SwimState, convert: torch.Tensor):
+def _map_add(map_n, subjects, slots, ok):
+    """map_n with an origination's (subject, slot) pairs under `ok` added
+    (not rebuilt from the table: after an eviction the maps stay stale by
+    design); on CUDA tensors one K9 launch."""
+    if not map_n.is_cuda:
+        return _map_add_plain(map_n, subjects, slots, ok)
+    out = torch.empty_like(map_n)
+    kernels.launch_map_add(map_n, subjects, slots, ok, out)
+    return out
+
+
+def _maps_convert_plain(maps, s: SwimState, convert: torch.Tensor):
+    """The plain PyTorch version of K9's maps_convert (swim.py:422-435)."""
     suspect_of, dead_of, left_of, alive_val = maps
     u = s.r_active.shape[0]
     subj = torch.where(convert, s.r_subject, 0)
@@ -333,6 +363,19 @@ def _maps_convert(maps, s: SwimState, convert: torch.Tensor):
     dead_of = _scatter(dead_of, subj, torch.where(
         convert, torch.arange(u, dtype=I32, device=s.device), -1), "amax")
     return suspect_of, dead_of, left_of, alive_val
+
+
+def _maps_convert(maps, s: SwimState, convert: torch.Tensor):
+    """The maps with the converting [U] slots' subjects moved from
+    suspect_of to dead_of; on CUDA tensors one K9 launch (left_of and
+    alive_val pass through)."""
+    if not s.know.is_cuda:
+        return _maps_convert_plain(maps, s, convert)
+    suspect_of, dead_of, left_of, alive_val = maps
+    sus, dead = torch.empty_like(suspect_of), torch.empty_like(dead_of)
+    kernels.launch_maps_convert(suspect_of, dead_of, convert, s.r_subject,
+                                sus, dead)
+    return sus, dead, left_of, alive_val
 
 
 def _onehot(cols: torch.Tensor, u: int) -> torch.Tensor:
@@ -497,7 +540,7 @@ def _originate(params: SwimParams, s: SwimState, want_score: torch.Tensor,
     with want_score [N] int32 > 0, seeding the rows whose row_subject [N]
     int32 names one.  Returns (state, (subjects, slots, ok)): the
     allocated pairs and their validity, which the callers fold into their
-    subject maps with _map_add.  On CUDA tensors it launches K8 (the
+    subject maps (_map_add; K11's post launch reads them per node).  On CUDA tensors it launches K8 (the
     eviction, the table and the seeding, into fresh tensors)."""
     if not s.know.is_cuda:
         return _originate_plain(params, s, want_score, kind, inc_of_subject,
@@ -760,19 +803,19 @@ def _probe_pass(params: SwimParams, s: SwimState, maps, drawn: dict):
 
 def _probe_round_plain(params: SwimParams, s: SwimState, maps):
     """The plain twin of _probe_round: _probe_pass_plain, then
-    _originate_plain, on the same draws."""
+    _originate_plain and _map_add_plain, on the same draws."""
     s, want, row_subject, obs = _probe_pass_plain(params, s, maps,
                                                   _probe_inputs(params, s))
     s, alloc = _originate_plain(params, s, want, SUSPECT, s.incarnation,
                                 row_subject)
-    return s, obs, (_map_add(maps[0], *alloc), *maps[1:])
+    return s, obs, (_map_add_plain(maps[0], *alloc), *maps[1:])
 
 
 def _probe_round(params: SwimParams, s: SwimState, maps):
     """One SWIM probe round: ring probe + k indirect probes + suspicion
     (swim.py:698-897).  Its draws are one K1 batch; on CUDA tensors the
-    round is K7 and its suspect rumors K8.  Returns (state, ProbeObs,
-    maps with the new suspect rumors)."""
+    round is K7, its suspect rumors K8 and their map update K9.  Returns
+    (state, ProbeObs, maps with the new suspect rumors)."""
     s, want, row_subject, obs = _probe_pass(params, s, maps,
                                             _probe_inputs(params, s))
     s, alloc = _originate(params, s, want, SUSPECT, s.incarnation,
@@ -780,9 +823,10 @@ def _probe_round(params: SwimParams, s: SwimState, maps):
     return s, obs, (_map_add(maps[0], *alloc), *maps[1:])
 
 
-def _suspicion_expiry(params: SwimParams, s: SwimState):
-    """Holders whose suspicion timer expired convert the suspect slot into
-    its dead rumor in place (swim.py:900-962).  Returns (state, convert)."""
+def _suspicion_expiry_plain(params: SwimParams, s: SwimState):
+    """The plain PyTorch version of K10: holders whose suspicion timer
+    expired convert the suspect slot into its dead rumor in place
+    (swim.py:900-962).  Returns (state, convert)."""
     u = params.rumor_slots
     dev = s.device
     tick = s.tick
@@ -820,10 +864,36 @@ def _suspicion_expiry(params: SwimParams, s: SwimState):
     return s, convert
 
 
-def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
-                            shift: torch.Tensor, maps) -> SwimState:
-    """Expire dense per-subject suspicion timers into dead rumors, with
-    overflow into the bulk channel (swim.py:965-1083)."""
+def _suspicion_expiry(params: SwimParams, s: SwimState):
+    """_suspicion_expiry_plain's result; on CUDA tensors K10 (a scan, then
+    an apply) writes it into fresh tensors.  Returns (state, convert [U]
+    bool)."""
+    if not s.know.is_cuda:
+        return _suspicion_expiry_plain(params, s)
+    e = torch.empty_like
+    out = dict(know_out=e(s.know), learn_out=e(s.learn_tick),
+               sends_out=e(s.sends_left), r_kind_out=e(s.r_kind),
+               r_start_out=e(s.r_start), convert_out=e(s.r_active))
+    kernels.launch_suspicion_expiry(
+        know=s.know, learn_tick=s.learn_tick, sends_left=s.sends_left,
+        up=s.up, member=s.member, committed_dead=s.committed_dead,
+        committed_inc=s.committed_inc, r_active=s.r_active, r_kind=s.r_kind,
+        r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start,
+        r_confirm=s.r_confirm, timeouts=_table(params, s.device, I16),
+        tick=s.tick, tick16=_t16(s.tick), limit=params.retransmit_limit,
+        **out)
+    s = s.replace(know=out["know_out"], learn_tick=out["learn_out"],
+                  sends_left=out["sends_out"], r_kind=out["r_kind_out"],
+                  r_start=out["r_start_out"])
+    return s, out["convert_out"]
+
+
+def _dense_suspicion_expiry_plain(params: SwimParams, s: SwimState,
+                                  shift: torch.Tensor, maps) -> SwimState:
+    """The plain PyTorch version of K11 around its origination (_originate,
+    which is K8 on CUDA tensors): expire dense per-subject suspicion timers
+    into dead rumors, with overflow into the bulk channel
+    (swim.py:965-1083)."""
     n = params.n_nodes
     dev = s.device
     tick = s.tick
@@ -844,7 +914,7 @@ def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
         r_start=torch.where(exp_u, tick, s.r_start),
         learn_tick=torch.where(sel, _t16(tick), s.learn_tick),
         sends_left=torch.where(sel, params.retransmit_limit, s.sends_left))
-    suspect_of, dead_of, left_of, _ = _maps_convert(
+    suspect_of, dead_of, left_of, _ = _maps_convert_plain(
         (suspect_of, dead_of, left_of, None), s, exp_u)
     prober_live = rolls.push(s.up & s.member, shift)
     want = torch.where(expired & (dead_of < 0) & (left_of < 0)
@@ -853,7 +923,7 @@ def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
     target = ((torch.arange(n, dtype=I64, device=dev) + shift) % n).to(I32)
     row_subject = torch.where(rolls.pull(want, shift) > 0, target, -1)
     s, alloc = _originate(params, s, want, DEAD, s.incarnation, row_subject)
-    dead_of2 = _map_add(dead_of, *alloc)
+    dead_of2 = _map_add_plain(dead_of, *alloc)
     left_of2 = left_of
     overflow = (want > 0) & (dead_of2 < 0)
     if params.chaos:
@@ -877,10 +947,66 @@ def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
         sus_confirm=torch.where(done, 0, s.sus_confirm).to(I8))
 
 
-def _refutation(params: SwimParams, s: SwimState) -> SwimState:
-    """A live subject that hears it is suspected (or declared dead) bumps
-    its incarnation and converts the slot to alive in place
-    (swim.py:1086-1149)."""
+def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
+                            shift: torch.Tensor, maps) -> SwimState:
+    """Expire dense per-subject suspicion timers into dead rumors, with
+    overflow into the bulk channel (swim.py:965-1083).  On CUDA tensors
+    K11's pre launch (the slot conversions, the wants at each prober's
+    target, the sums), K8's dead origination and K11's post launch (the
+    dead map after the conversions and the origination read per node, the
+    overflow, the timer clears); `shift` stays a device tensor."""
+    if not s.know.is_cuda:
+        return _dense_suspicion_expiry_plain(params, s, shift, maps)
+    dev = s.device
+    shift = torch.as_tensor(shift, dtype=I32, device=dev)
+    suspect_of, dead_of, left_of, _ = maps
+    e = torch.empty_like
+    pre = dict(learn_out=e(s.learn_tick), sends_out=e(s.sends_left),
+               r_kind_out=e(s.r_kind), r_start_out=e(s.r_start),
+               exp_out=e(s.r_active), want_out=e(s.sus_start),
+               row_subject_out=e(s.sus_start),
+               counts_out=torch.empty(kernels.DENSE_COUNTS, dtype=I64,
+                                      device=dev))
+    kernels.launch_dense_expiry(
+        sus_start=s.sus_start, sus_confirm=s.sus_confirm, up=s.up,
+        member=s.member, committed_dead=s.committed_dead,
+        bulk_member=s.bulk_member, suspect_of=suspect_of, dead_of=dead_of,
+        left_of=left_of, know=s.know, learn_tick=s.learn_tick,
+        sends_left=s.sends_left, r_active=s.r_active, r_kind=s.r_kind,
+        r_subject=s.r_subject, r_start=s.r_start,
+        timeouts=_table(params, dev, I32), shift=shift, tick=s.tick,
+        tick16=_t16(s.tick), limit=params.retransmit_limit,
+        period=params.probe_period_ticks, **pre)
+    r_subject = s.r_subject
+    s = s.replace(r_kind=pre["r_kind_out"], r_start=pre["r_start_out"],
+                  learn_tick=pre["learn_out"], sends_left=pre["sends_out"])
+    want = pre["want_out"]
+    s, (subjects, slots, ok) = _originate(params, s, want, DEAD,
+                                          s.incarnation,
+                                          pre["row_subject_out"])
+    post = dict(bulk_member_out=e(s.bulk_member),
+                bulk_heard_out=e(s.bulk_heard), bulk_cov_out=e(s.bulk_cov),
+                sus_start_out=e(s.sus_start), sus_confirm_out=e(s.sus_confirm))
+    kernels.launch_dense_expiry_post(
+        want=want, dead_of=dead_of, left_of=left_of, exp=pre["exp_out"],
+        r_subject=r_subject, subjects=subjects, slots=slots, ok=ok,
+        sus_start=s.sus_start, sus_confirm=s.sus_confirm, up=s.up,
+        member=s.member, committed_dead=s.committed_dead,
+        committed_left=s.committed_left, bulk_member=s.bulk_member,
+        bulk_heard=s.bulk_heard, bulk_cov=s.bulk_cov, counts=pre["counts_out"],
+        shift=shift, tick=s.tick, period=params.probe_period_ticks,
+        chaos=params.chaos, **post)
+    return s.replace(bulk_member=post["bulk_member_out"],
+                     bulk_heard=post["bulk_heard_out"],
+                     bulk_cov=post["bulk_cov_out"],
+                     sus_start=post["sus_start_out"],
+                     sus_confirm=post["sus_confirm_out"])
+
+
+def _refutation_plain(params: SwimParams, s: SwimState) -> SwimState:
+    """The plain PyTorch version of K12's refutation: a live subject that
+    hears it is suspected (or declared dead) bumps its incarnation and
+    converts the slot to alive in place (swim.py:1086-1149)."""
     u = params.rumor_slots
     n = params.n_nodes
     dev = s.device
@@ -910,6 +1036,34 @@ def _refutation(params: SwimParams, s: SwimState) -> SwimState:
                                torch.where(cell_new, params.retransmit_limit,
                                            0).to(I8),
                                s.sends_left))
+
+
+def _refutation(params: SwimParams, s: SwimState) -> SwimState:
+    """_refutation_plain's result; on CUDA tensors one K12 launch writes it
+    into fresh tensors."""
+    if not s.know.is_cuda:
+        return _refutation_plain(params, s)
+    amax = params.awareness_max
+    e = torch.empty_like
+    out = dict(incarnation_out=e(s.incarnation),
+               awareness_out=e(s.awareness) if amax > 0 else None,
+               know_out=e(s.know), learn_out=e(s.learn_tick),
+               sends_out=e(s.sends_left), r_kind_out=e(s.r_kind),
+               r_inc_out=e(s.r_inc), r_start_out=e(s.r_start))
+    kernels.launch_refutation(
+        incarnation=s.incarnation, awareness=s.awareness, up=s.up,
+        member=s.member, know=s.know, learn_tick=s.learn_tick,
+        sends_left=s.sends_left, r_active=s.r_active, r_kind=s.r_kind,
+        r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start,
+        awareness_max=amax, tick=s.tick, tick16=_t16(s.tick),
+        limit=params.retransmit_limit, **out)
+    s = s.replace(incarnation=out["incarnation_out"], know=out["know_out"],
+                  learn_tick=out["learn_out"], sends_left=out["sends_out"],
+                  r_kind=out["r_kind_out"], r_inc=out["r_inc_out"],
+                  r_start=out["r_start_out"])
+    if amax > 0:
+        s = s.replace(awareness=out["awareness_out"])
+    return s
 
 
 def _disseminate(params: SwimParams, s: SwimState) -> SwimState:
@@ -1010,9 +1164,10 @@ def _bulk_step(params: SwimParams, s: SwimState) -> SwimState:
                      bulk_cov=pick(t.bulk_cov, s.bulk_cov))
 
 
-def _expire(params: SwimParams, s: SwimState) -> SwimState:
-    """Free slots whose dissemination window passed; commit dead/left
-    into the O(N) baseline, coverage-guarded (swim.py:1267-1287)."""
+def _expire_plain(params: SwimParams, s: SwimState) -> SwimState:
+    """The plain PyTorch version of K12's expire: free slots whose
+    dissemination window passed; commit dead/left into the O(N) baseline,
+    coverage-guarded (swim.py:1267-1287)."""
     life = torch.where(s.r_kind == SUSPECT, params.expiry_suspect_ticks,
                        params.expiry_gossip_ticks).to(I32)
     age = s.tick - s.r_start
@@ -1022,6 +1177,33 @@ def _expire(params: SwimParams, s: SwimState) -> SwimState:
     done = s.r_active & (age >= life) \
         & ((coverage >= 0.995) | (age >= 4 * life))
     return _release(s, done, coverage)
+
+
+def _expire(params: SwimParams, s: SwimState) -> SwimState:
+    """_expire_plain's result; on CUDA tensors K12's expire (a count, then
+    an apply) writes it into fresh tensors (learn_tick is left as it
+    is)."""
+    if not s.know.is_cuda:
+        return _expire_plain(params, s)
+    e = torch.empty_like
+    out = dict(know_out=e(s.know), sends_out=e(s.sends_left),
+               committed_dead_out=e(s.committed_dead),
+               committed_left_out=e(s.committed_left),
+               committed_inc_out=e(s.committed_inc),
+               r_active_out=e(s.r_active), r_coverage_out=e(s.r_coverage))
+    kernels.launch_expire(
+        know=s.know, sends_left=s.sends_left, up=s.up, member=s.member,
+        committed_dead=s.committed_dead, committed_left=s.committed_left,
+        committed_inc=s.committed_inc, r_active=s.r_active, r_kind=s.r_kind,
+        r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start, tick=s.tick,
+        life_gossip=params.expiry_gossip_ticks,
+        life_suspect=params.expiry_suspect_ticks, **out)
+    return s.replace(know=out["know_out"], sends_left=out["sends_out"],
+                     committed_dead=out["committed_dead_out"],
+                     committed_left=out["committed_left_out"],
+                     committed_inc=out["committed_inc_out"],
+                     r_active=out["r_active_out"],
+                     r_coverage=out["r_coverage_out"])
 
 
 def _release(s: SwimState, done: torch.Tensor,

@@ -228,7 +228,10 @@ def main(n_nodes: int = 1_000_000, ticks: int = 50) -> dict:
 
 def _pass_times(params, s, dev, reps: int = 5) -> dict:
     """Each pass of a probe tick, run alone on the same probe-tick input
-    state: {pass: {"wall_ms": fenced wall ms (host dispatch + device,
+    state (`probe_round` with its map_add, which `map_add` also times
+    alone; `maps_convert` on the state's own conversions; the dense
+    expiry with its origination): {pass: {"wall_ms":
+    fenced wall ms (host dispatch + device,
     median of `reps`), "device_ms": the sum of its CUDA kernels' device
     times per call, "kernels": its device kernels per call}} (the last
     two from one torch.profiler capture of `reps` calls; copies and
@@ -239,11 +242,18 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
         sw = s.swim
     maps = swim._maps(p, sw)
     _, obs, _ = swim._probe_round(p, sw, maps)
+    s1, want, rows, _ = swim._probe_pass(p, sw, maps,
+                                         swim._probe_inputs(p, sw))
+    _, alloc = swim._originate(p, s1, want, swim.SUSPECT, s1.incarnation,
+                               rows)
+    _, convert = swim._suspicion_expiry(p, sw)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fns = {
         "maps": lambda: swim._maps(p, sw),
         "probe_round": lambda: swim._probe_round(p, sw, maps),
+        "map_add": lambda: swim._map_add(maps[0], *alloc),
         "suspicion_expiry": lambda: swim._suspicion_expiry(p, sw),
+        "maps_convert": lambda: swim._maps_convert(maps, sw, convert),
         "dense_suspicion_expiry": lambda: swim._dense_suspicion_expiry(
             p, sw, obs.shift, maps),
         "refutation": lambda: swim._refutation(p, sw),
