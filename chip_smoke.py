@@ -15,19 +15,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
      through `consul_tpu_torch.bench.run_convergence` with every kernel's
      launch count zeroed just before and read just after.  It must
      converge with F1 1.0, no false commits, every kernel (and each of
-     K1's uniform, exponential, normal and randint modes) launched, and
-     in the JAX package's tick count for the same seed (measured with
+     K1's uniform, exponential and randint modes, but no normal: K13
+     draws observe_ring's) launched, K13 once a probe tick, and in the
+     JAX package's tick count for the same seed (measured with
      reference_ticks.py, recorded below).  Phases 2-10 run while
-     swim_twin_calls() counts K7-K12's plain twins on CUDA states: none
+     swim_twin_calls() counts K7-K14's plain twins on CUDA states: none
      may run;
   3. host syncs per tick (sync debug mode) and device kernels per
      gossip-only and per probe tick (torch.profiler, 10 ticks of each,
      from the main path's final state): a gossip-only tick draws exactly
      one K1 batch and runs no int64 elementwise kernel, a probe tick
-     draws exactly three, launches K7 once, K8 at least twice (the
+     draws exactly two, launches K7 and K13 once, K8 at least twice (the
      probe round's and the dense expiry's origination) and every K9-K12
      entry point, and runs at most PROBE_KERNEL_CAP device kernels (the
-     tree before K9-K12 ran PARENT_PROBE_KERNELS);
+     tree before K13 ran PARENT_PROBE_KERNELS);
   4. kernels: each kernel against its plain PyTorch twin on the card,
      bit-equal, at the main path's shapes (N=1M, S=U=32, G=3).  K1 mode
      by mode ([N, 3] uniform and bits, [N] exponential, [N, 8] normal —
@@ -68,8 +69,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
      mode held bit-equal to its twin and timed (chaos_phase);
   7. correlated failures: consul_tpu_torch.correlated at N=1M, 1% killed
      (recall >= 0.999, no false positive, K5 once per tick, the bulk
-     channel run), K5 held bit-equal at the replayed mid-drain and
-     drain-end states and on random states and timed, host syncs per bulk tick, and the bench
+     channel run, K14 once per bulk tick), K5 held bit-equal at the
+     replayed mid-drain and drain-end states and on random states and timed, host syncs per bulk tick, and the bench
      at N=4096 on the card and the CPU with equal curves
      (correlated_phase);
   8. federation: consul_tpu_torch.models.wan at 3 DCs x 50,000 nodes x 5
@@ -115,7 +116,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
      1M chaos states, the WAN pool and small pools on the card and random
      1M states (dead rumors refuted, two slots of one subject refuting,
      no LHA, wrapped int16 ages), then timed beside their bounds, the
-     twins and, for K9, one scatter_reduce (detector_phase).
+     twins and, for K9, one scatter_reduce (detector_phase);
+ 13. the Vivaldi ring observation and the bulk channel: K13 against
+     observe_ring_plain, every leaf within K13_ULP_BOUND (0) ulp, on the
+     main path's first probe tick (every row colocated, so the 0-ulp
+     coordinates hold its fused normal draws to prng.normal's), at the
+     kill, mid-convergence, its end and on random 1M states; K14
+     against _bulk_step_plain (bool leaves equal, float leaves within
+     BULK_RTOL of scale, two launches bit-equal) on the correlated run's
+     overflow tick and the empty channel it starts from, mid-drain, the
+     first committing tick after it, the drain's end and random 1M states
+     in the main and chaos builds (revive clamps, an empty channel); then
+     both timed beside their bounds, twins and wrapper calls
+     (vivaldi_bulk_phase).
 
 Prints, before the last line, one JSON object with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}.
@@ -210,13 +223,23 @@ def main_path(dev) -> dict:
             f"tick count {r['ticks']} != JAX {REFERENCE_TICKS}")
     require(r["f1"] == 1.0, f"f1 {r['f1']}")
     require(r["false_commits"] == 0, f"false commits {r['false_commits']}")
-    for name in kernels.MAIN_PATH + kernels.PROBE + kernels.DETECTOR:
+    for name in kernels.MAIN_PATH + kernels.PROBE + kernels.DETECTOR \
+            + ("vivaldi_ring",):
         require(launches[name] > 0, f"{name} never launched on the main path")
     require(launches["gossip_exchange_chaos"] == 0,
             "the main path ran K2's chaos mode")
-    for mode in ("uniform", "exponential", "normal", "randint"):
+    # K13 once a probe tick (K7's count: one a probe tick, phase 3), its
+    # spring directions drawn inside it, so no K1 normal on the main path
+    require(launches["vivaldi_ring"] == launches["probe_round"],
+            f"K13 launched {launches['vivaldi_ring']} times in "
+            f"{launches['probe_round']} probe ticks")
+    require(launches["bulk_step"] == 0, "the main path ran the bulk channel")
+    for mode in ("uniform", "exponential", "randint"):
         require(draw_launches[mode] > 0,
                 f"K1 {mode} never launched on the main path")
+    require(draw_launches["normal"] == 0,
+            f"the main path drew {draw_launches['normal']} K1 normals (K13 "
+            f"draws observe_ring's)")
     r["all_launches"] = launches
     r["draw_launches"] = draw_launches
     r["peak_mem_bytes"] = peak
@@ -300,10 +323,10 @@ def device_ms(fn, names, reps: int = 20, tries: int = 3) -> dict:
                          f"{tries} profiles")
 
 
-# K1's draws on the main path at N = 1M: (mode, the draw, the JAX draw it
-# replaces).  randint [3] is every tick's gossip offsets, [4] the probe
-# round's; [N, 3] the probe round's relay legs; [N] its RTT jitter; [N, 8]
-# observe_ring's spring directions.
+# K1's draws at N = 1M: (mode, the draw, the JAX draw it replaces).
+# randint [3] is every tick's gossip offsets, [4] the probe round's; [N, 3]
+# the probe round's relay legs; [N] its RTT jitter; [N, 8] the normal of
+# the Vivaldi solver's observe (phase 10; observe_ring's is K13's).
 K1_KEY = prng.tick_key(7, 12345, 5)
 K1_DRAWS = (
     ("uniform", prng.Draw("uniform", K1_KEY, (N, 3)),
@@ -311,7 +334,7 @@ K1_DRAWS = (
     ("exponential", prng.Draw("exponential", K1_KEY, (N,)),
      "consul_tpu/models/swim.py:757"),
     ("normal", prng.Draw("normal", K1_KEY, (N, 8)),
-     "consul_tpu/models/vivaldi.py:184"),
+     "consul_tpu/models/vivaldi.py:121"),
     ("randint", prng.Draw("randint", K1_KEY, (3,), 1, N),
      "consul_tpu/ops/rolls.py:27"),
     ("randint", prng.Draw("randint", K1_KEY, (4,), 1, N),
@@ -391,8 +414,8 @@ def check_draws(dev, params, tick: int, per_element: dict,
         "bound_ms": bound, "bound_by": by}
     multi["share"] = multi["bound_ms"] / multi["ms"]
     log("K1 probe-round draws, one launch: " + json.dumps(multi))
-    # observe_ring's normal is one K1 launch (the wrapper's count) and no
-    # other device kernel (the profiler's records)
+    # a normal [N, 8] is one K1 launch (the wrapper's count) and no other
+    # device kernel (the profiler's records)
     normal = profile_tick.kernels_of(lambda: prng.normal(K1_KEY, (N, 8), dev))
     k1_before = kernels.LAUNCHES["threefry_draws"]
     prng.normal(K1_KEY, (N, 8), dev)
@@ -717,9 +740,14 @@ def check_kernels_per_tick(params, state) -> dict:
     probe = per_tick["probe"]["launches"]["threefry_draws"]
     log(f"K1 batches per tick (the wrapper's count): gossip-only {draws}, "
         f"probe {probe}")
-    require(probe == 3, f"probe tick draws {probe} K1 batches, want 3 (the "
-            f"gossip offsets, _probe_round's draws, observe_ring's normal)")
+    require(probe == 2, f"probe tick draws {probe} K1 batches, want 2 (the "
+            f"gossip offsets, _probe_round's draws; K13 draws observe_ring's "
+            f"normals)")
     launched = per_tick["probe"]["launches"]
+    require(launched["vivaldi_ring"] == 1 and
+            per_tick["gossip"]["launches"]["vivaldi_ring"] == 0,
+            f"K13 launched {launched['vivaldi_ring']} times a probe tick, want "
+            f"1 (and none on a gossip-only tick)")
     require(launched["probe_round"] == 1 and launched["originate"] >= 2,
             f"probe tick: K7 {launched['probe_round']} and K8 "
             f"{launched['originate']} launches, want 1 and 2 or more (the "
@@ -728,7 +756,7 @@ def check_kernels_per_tick(params, state) -> dict:
     require(not missing, f"probe tick: K9-K12 entry points not launched: "
             f"{missing} ({ {k: launched[k] for k in kernels.DETECTOR} })")
     count = per_tick["probe"]["kernels"]
-    log(f"kernels per probe tick: {count}, before K9-K12 "
+    log(f"kernels per probe tick: {count}, before K13 "
         f"{PARENT_PROBE_KERNELS} (fall {PARENT_PROBE_KERNELS - count}); "
         f"K9-K12 launches {json.dumps({k: launched[k] for k in kernels.DETECTOR})}")
     require(count <= PROBE_KERNEL_CAP,
@@ -1393,6 +1421,10 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
             f"K5 launched {launches['mass_detect']} times in "
             f"{row['ticks_run']} ticks")
     require(row["bulk_ticks"] > 0, "the bulk channel never ran")
+    require(launches["bulk_step"] == row["bulk_ticks"]
+            == row["bulk_step_launches"],
+            f"K14 launched {launches['bulk_step']} times in "
+            f"{row['bulk_ticks']} bulk ticks")
 
     # the bench replayed from the seed, tick by tick, to the first tick
     # whose recall reaches 0.5 (the end of the drain: the bulk commits land
@@ -1400,8 +1432,7 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
     # first state whose bulk channel is busy while a dead/left slot sits
     # near the 0.99 bar (mid-drain); the replay must give the bench's
     # recall curve
-    params = swim.make_params(GossipConfig.lan(), SimConfig(
-        n_nodes=N, rumor_slots=32, p_loss=0.01, seed=7))
+    params = correlated.bench_params(N, seed=CORRELATED["seed"])
     end = next(i for i, r in enumerate(row["recall_curve"]) if r >= 0.5) + 1
     s, mask = correlated.start(params, CORRELATED["fractions"][0],
                                CORRELATED["seed"], dev)
@@ -1952,6 +1983,7 @@ def vivaldi_phase(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     r = workloads.vivaldi_converge(VIVALDI_N, device=dev)
     launches = dict(kernels.LAUNCHES)
+    draw_launches = dict(kernels.DRAW_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     sort_ms = wall_ms(lambda: vivaldi.sort_by_distance(r["state"], 0))
     ms_tick = 1000.0 * r["wall_s"] / r["ticks"]
@@ -1973,7 +2005,8 @@ def vivaldi_phase(dev) -> dict:
             f"vivaldi at n=4096: card and cpu curves differ by {gap}")
     return {"err0": r["err0"], "curve": r["curve"], "ms_per_tick": ms_tick,
             "wall_s": r["wall_s"], "sort_by_distance_ms": sort_ms,
-            "launches": launches, "peak_mem_bytes": peak,
+            "launches": launches, "draw_launches": draw_launches,
+            "peak_mem_bytes": peak,
             "n4096": {"card": card["curve"], "cpu": cpu["curve"],
                       "gap": gap}}
 
@@ -1982,16 +2015,18 @@ def vivaldi_phase(dev) -> dict:
 # phase 11: the probe round (K7) and rumor origination (K8)
 # ---------------------------------------------------------------------------
 
-# device kernels a main-path probe tick ran before K9-K12 existed
-# (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W), and the
-# most a probe tick may run now
-PARENT_PROBE_KERNELS = 447
-PROBE_KERNEL_CAP = 200
-# the plain twins of K7-K12 in models/swim.py
+# device kernels a main-path probe tick ran before K13 existed
+# (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W: observe_ring
+# was 74 of them), and the most a probe tick may run now
+PARENT_PROBE_KERNELS = 98
+PROBE_KERNEL_CAP = 40
+# the plain twins of K7-K12 and K14 in models/swim.py, and K13's in
+# models/vivaldi.py
 SWIM_TWINS = ("_probe_pass_plain", "_probe_round_plain", "_originate_plain",
               "_maps_plain", "_map_add_plain", "_maps_convert_plain",
               "_suspicion_expiry_plain", "_dense_suspicion_expiry_plain",
-              "_refutation_plain", "_expire_plain")
+              "_refutation_plain", "_expire_plain", "_bulk_step_plain")
+VIVALDI_TWINS = ("observe_ring_plain",)
 
 
 def _on_card(args) -> bool:
@@ -2000,6 +2035,8 @@ def _on_card(args) -> bool:
     for x in args:
         if isinstance(x, swim.SwimState):
             return x.know.is_cuda
+        if isinstance(x, vivaldi.VivaldiState):
+            return x.coords.is_cuda
         if isinstance(x, torch.Tensor):
             return x.is_cuda
     return False
@@ -2007,25 +2044,27 @@ def _on_card(args) -> bool:
 
 @contextlib.contextmanager
 def swim_twin_calls():
-    """Counts calls of K7-K12's plain twins on CUDA states while the block
+    """Counts calls of K7-K14's plain twins on CUDA states while the block
     runs (CPU states, as the card-against-CPU runs make, take them by
     design)."""
-    calls = dict.fromkeys(SWIM_TWINS, 0)
-    saved = {name: getattr(swim, name) for name in SWIM_TWINS}
+    twins = [(swim, name) for name in SWIM_TWINS] \
+        + [(vivaldi, name) for name in VIVALDI_TWINS]
+    calls = {name: 0 for _, name in twins}
+    saved = {name: (mod, getattr(mod, name)) for mod, name in twins}
 
     def counting(name):
         def fn(*a, **k):
             calls[name] += int(_on_card(a))
-            return saved[name](*a, **k)
+            return saved[name][1](*a, **k)
         return fn
 
-    for name in SWIM_TWINS:
-        setattr(swim, name, counting(name))
+    for mod, name in twins:
+        setattr(mod, name, counting(name))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(swim, name, fn)
+        for name, (mod, fn) in saved.items():
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -2776,8 +2815,7 @@ def _correlated_overflow_state(dev) -> tuple:
     """The correlated bench (1M, 1%, seed 7) replayed from the seed to the
     last probe tick before its bulk channel gains members: that tick's
     dense expiry seeds the overflow."""
-    params = swim.make_params(GossipConfig.lan(), SimConfig(
-        n_nodes=N, rumor_slots=32, p_loss=0.01, seed=7))
+    params = correlated.bench_params(N, seed=CORRELATED["seed"])
     s, mask = correlated.start(params, CORRELATED["fractions"][0],
                                CORRELATED["seed"], dev)
     last = None
@@ -2872,6 +2910,380 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
     return entries, {"held": held, "totals": totals, "timed": timed}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the Vivaldi ring observation (K13) and the bulk channel (K14)
+# ---------------------------------------------------------------------------
+
+VIVALDI_FIELDS = ("coords", "height", "error", "adj_window", "adjustment")
+# K13 against its twin: every leaf within this many ulp.  Its elementwise
+# steps are explicitly rounded in the twin's order, and its two reductions
+# (the squared norm over D = 8, the window sum over W = 20) follow torch's
+# CUDA inner-reduction order at these widths (shuffle offsets bw/2 .. 1,
+# as torch 2.11 on an NVIDIA H100 80GB HBM3 reduces them), so the bound is
+# 0: bit-equal.
+K13_ULP_BOUND = 0
+# K14's float leaves against its twin: max|kernel - twin| <= BULK_RTOL *
+# max|twin| (the two float sums are summed in the kernel's own order; an
+# ulp of `removed` is an absolute error on every heard count)
+BULK_RTOL = 1e-5
+K13_KERNELS = ("vivaldi_ring_kernel",)
+K14_KERNELS = ("bulk_count_kernel", "bulk_supply_kernel",
+               "bulk_advance_kernel", "bulk_commit_kernel")
+BULK_FLOATS = ("bulk_heard", "bulk_cov")
+BULK_BOOLS = ("bulk_member", "committed_dead")
+
+
+def _probe_obs(params, s) -> tuple:
+    """(s, obs): the serf state at the first probe tick from s on, and
+    that tick's probe observations."""
+    while True:
+        _, obs = swim.step_with_obs(params.swim, s.swim)
+        if obs is not None:
+            return s, obs
+        s = serf.step(params, s)
+
+
+def _colocated(c, shift) -> torch.Tensor:
+    """Rows whose ring peer sits at their coordinates (the twin's test)."""
+    return ~(vivaldi._norm(c.coords - rolls.pull(c.coords, shift)) > 1.0e-9)
+
+
+def hold_ring(vp, c, shift, rtt_ms, acked, what: str,
+              all_colocated: bool = False) -> dict:
+    """K13 against observe_ring_plain on one observation, every leaf
+    within K13_ULP_BOUND ulp.  The twin's colocated rows take their spring
+    directions from prng.normal's [N, D] draw of the same key, and K13
+    draws them inside itself: with `all_colocated` (a fresh pool's first
+    probe tick, every coordinate 0) every acked row's new coordinates are
+    its draw times a force over its norm, so their 0-ulp hold on every row
+    that moved holds the fused draws to prng.normal's."""
+    got = vivaldi.observe_ring(vp, c, shift, rtt_ms, acked)
+    ref = vivaldi.observe_ring_plain(vp, c, shift, rtt_ms, acked)
+    require(got.adj_index == ref.adj_index == c.adj_index + 1,
+            f"K13 {what}: adj_index {got.adj_index}")
+    ulps = {f: _ulps(getattr(got, f), getattr(ref, f)) for f in VIVALDI_FIELDS}
+    require(max(ulps.values()) <= K13_ULP_BOUND,
+            f"K13 {what}: {ulps} ulp from its twin (bound {K13_ULP_BOUND})")
+    colocated = _colocated(c, shift)
+    n = int(colocated.sum())
+    moved = int(((got.coords != c.coords).any(1) & colocated).sum())
+    if all_colocated:
+        require(n == c.coords.shape[0], f"K13 {what}: {n} rows colocated")
+        require(ulps["coords"] == 0 and moved > 0,
+                f"K13 {what}: the drawn directions moved {moved} rows, "
+                f"{ulps['coords']} ulp from prng.normal's")
+    return {"adj_index": c.adj_index, "ulps": ulps, "colocated": n,
+            "colocated_moved": moved, "acked": int(acked.sum()),
+            "max_abs_err": max(float((getattr(got, f) - getattr(ref, f))
+                                     .abs().max()) for f in VIVALDI_FIELDS)}
+
+
+def _random_ring(dev, seed: int, n: int = N, d: int = 8, w: int = 20,
+                 adj_index: int = 47):
+    """Random K13 inputs: coords of tens of ms with 1% of the rows
+    colocated with their ring peer, heights, errors and a window as a run
+    leaves them, RTTs with zeros (floored), 80% acked, a wrapping column."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    shift = 1 + int(rnd(1) * (n - 1))
+    coords = torch.randn(n, d, generator=gen, device=dev) * 0.02
+    rows = (rnd(n) < 0.01).nonzero().flatten()
+    coords[(rows + shift) % n] = coords[rows]
+    c = vivaldi.VivaldiState(
+        coords=coords, height=rnd(n) * 1e-3 + 1e-5,
+        error=rnd(n) * 1.4 + 0.05,
+        adj_window=torch.randn(n, w, generator=gen, device=dev) * 1e-4,
+        adj_index=adj_index, adjustment=torch.zeros(n, device=dev))
+    rtt_ms = torch.where(rnd(n) < 0.05, 0.0, rnd(n) * 50)
+    return (c, torch.tensor(shift, dtype=torch.int32, device=dev), rtt_ms,
+            rnd(n) < 0.8)
+
+
+def _bulk_tick(params, s) -> tuple:
+    """(the state the tick from s hands the bulk step, None when the
+    channel is idle; the state after the tick)."""
+    seen = []
+    real = swim._bulk_step
+    swim._bulk_step = lambda p, st: (seen.append(st), real(p, st))[1]
+    try:
+        nxt = swim.step(params, s)
+    finally:
+        swim._bulk_step = real
+    return (seen[0] if seen else None), nxt
+
+
+def _near_commit_bar(ref) -> int:
+    """Members of the twin's output whose coverage lies within 2 ulp of
+    the 0.995 bar (where a sum's last ulp can flip a commit)."""
+    bar = torch.tensor(0.995, dtype=torch.float32, device=ref.bulk_cov.device)
+    d = (ref.bulk_cov.view(torch.int32) - bar.view(torch.int32)).abs()
+    return int((d <= 2).sum())
+
+
+def hold_bulk(params, s, what: str) -> dict:
+    """K14 against _bulk_step_plain on s: the bool leaves equal, the float
+    leaves within BULK_RTOL of scale, a second launch bit-equal to the
+    first, no other leaf touched."""
+    got = swim._bulk_step(params, s)
+    again = swim._bulk_step(params, s)
+    ref = swim._bulk_step_plain(params, s)
+    for f in BULK_BOOLS:
+        diff = int((getattr(got, f) != getattr(ref, f)).sum())
+        require(diff == 0, f"K14 {what}: {f} differs from its twin at {diff} "
+                f"nodes ({_near_commit_bar(ref)} covers within 2 ulp of "
+                f"0.995; tick {s.tick})")
+    errs, ulps = {}, {}
+    for f in BULK_FLOATS:
+        a, b = getattr(got, f), getattr(ref, f)
+        errs[f] = float((a - b).abs().max())
+        ulps[f] = _ulps(a, b)
+        scale = float(b.abs().max())
+        require(errs[f] <= BULK_RTOL * max(scale, 1e-30),
+                f"K14 {what}: {f} {errs[f]} from its twin at scale {scale}")
+        require(torch.equal(a.view(torch.int32), getattr(again, f)
+                            .view(torch.int32)),
+                f"K14 {what}: two launches disagree on {f}")
+    for f in swim.TENSOR_FIELDS:
+        if f not in BULK_FLOATS + BULK_BOOLS:
+            require(getattr(got, f) is getattr(s, f), f"K14 {what}: {f} moved")
+    v = int(s.bulk_member.sum())
+    return {"tick": s.tick, "chaos": params.chaos, "members": v,
+            "commits": int((ref.committed_dead & ~s.committed_dead).sum()),
+            "heard_over_v": int((s.bulk_heard > max(v, 1)).sum()),
+            "ulps": ulps, "max_abs_err": max(errs.values()),
+            "near_bar": _near_commit_bar(ref)}
+
+
+def _random_bulk(dev, base, seed: int, members: float = 0.01,
+                 heard_over: float = 1.0, chaos: bool = False):
+    """Random K14 inputs of base's shape: `members` of the nodes in the
+    channel (mostly down), heard counts up to heard_over * V, coverage
+    with a third of the members within 0.005 under the commit bar, the
+    nemesis build's groups and rates."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = base.up.shape[0]
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    bm = rnd(n) < members
+    v = max(int(bm.sum()), 1)
+    cov = torch.where(rnd(n) < 0.33, 0.99 + 0.0049 * rnd(n), rnd(n))
+    s = base.replace(
+        up=(rnd(n) < 0.99) & ~(bm & (rnd(n) < 0.9)),
+        member=rnd(n) < 0.995, committed_dead=rnd(n) < 0.001,
+        bulk_member=bm, bulk_heard=rnd(n) * v * heard_over,
+        bulk_cov=torch.where(bm, cov, 0.0), bulk_live=True)
+    if chaos:
+        s = s.replace(chaos_grp=(rnd(n) < 0.25).to(torch.int16),
+                      chaos_ok=torch.where(rnd(n) < 0.1, 0.55, 1.0))
+    return s
+
+
+def _ring_bytes(c, n_colocated: int) -> tuple:
+    """K13's least bytes (inputs read once, outputs written once, one
+    window column written in place), the same with the fresh window, and
+    its operations: the normal draws of the colocated rows at K1's SASS
+    count per element."""
+    n, d = c.coords.shape
+    w = c.adj_window.shape[1]
+    reads = 4 * n * d + 4 * 3 * n + n + 4 * n * w
+    writes = 4 * n * d + 4 * 3 * n + 4 * n
+    ops = n_colocated * d * SASS_PER_ELEMENT["normal"]
+    return reads + writes, reads + writes + 4 * n * (w - 1), ops
+
+
+def _bulk_bytes(params, s, out) -> tuple:
+    """K14's least bytes on s, given its result `out`: bulk_member, up,
+    member and bulk_heard read once, whole (the nemesis build's groups and
+    rates too), bulk_cov only in the sectors of members (cov' is 0
+    elsewhere), committed_dead not at all (an OR with done), the offsets;
+    the four outputs written in place (only the 32-byte sectors that
+    change, by _written).  And the same with the fresh copies: six leaves
+    read and four written whole, 22 bytes a node."""
+    n = s.up.shape[0]
+    chaos = 6 * n if params.chaos else 0
+    offs = 4 * params.gossip_nodes
+    least = 7 * n + _sector_bytes(s.bulk_member, 4) + chaos + offs \
+        + _written(*((getattr(s, f), getattr(out, f))
+                     for f in BULK_FLOATS + BULK_BOOLS))
+    return least, 12 * n + chaos + 10 * n + offs
+
+
+def time_ring(vp, c, shift, rtt_ms, acked) -> dict:
+    """K13 timed at one observation: device ms (torch.profiler, L2
+    evicted), the CUDA-event time with dispatch hidden, the wrapper call
+    and the twin (dispatch included), the bound."""
+    call = lambda: vivaldi.observe_ring(vp, c, shift, rtt_ms, acked)  # noqa: E731
+    n_col = int(_colocated(c, shift).sum())
+    b, b_copy, ops = _ring_bytes(c, n_col)
+    by_bytes = b / HBM_BYTES_PER_S * 1000.0
+    by_ops = ops / INT32_OPS_PER_S * 1000.0
+    t = {"ms": device_ms(call, K13_KERNELS)[K13_KERNELS[0]],
+         "event_ms": kernel_ms(call), "call_ms": median_ms(call),
+         "plain_ms": median_ms(lambda: vivaldi.observe_ring_plain(
+             vp, c, shift, rtt_ms, acked), reps=5),
+         "bound_ms": max(by_bytes, by_ops),
+         "bound_by": "operations" if by_ops > by_bytes else "bytes",
+         "bound_bytes": b, "bound_ops": ops,
+         "bound_with_copy_ms": max(b_copy / HBM_BYTES_PER_S * 1000.0, by_ops),
+         "colocated": n_col}
+    t["share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
+def time_bulk(params, s) -> dict:
+    """K14 timed at one state: the four kernels' device ms (summed, and
+    each), the wrapper call (with K1's offsets draw) and the twin, the
+    bound."""
+    call = lambda: swim._bulk_step(params, s)  # noqa: E731
+    phases = device_ms(call, K14_KERNELS)
+    b, b_copy = _bulk_bytes(params, s, call())
+    t = {"ms": sum(phases.values()), "phase_ms": phases,
+         "event_ms": kernel_ms(call), "call_ms": median_ms(call),
+         "plain_ms": median_ms(lambda: swim._bulk_step_plain(params, s),
+                               reps=5),
+         "bound_ms": b / HBM_BYTES_PER_S * 1000.0, "bound_bytes": b,
+         "bound_with_copy_ms": b_copy / HBM_BYTES_PER_S * 1000.0,
+         "bound_with_copy_bytes": b_copy}
+    t["share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
+def vivaldi_bulk_phase(dev, main: dict, states: dict,
+                       k14_launches: int) -> tuple:
+    """Phase 13: K13 and K14 against their twins on the card, then timed.
+    K13's holds: the main path's first probe tick from init_state (every
+    row colocated: the fused draws held through the coordinates), at
+    the kill, mid-convergence and its end, random 1M states, and random
+    100k states at other widths (D = 3, W = 7; D = 16, W = 32).  K14's:
+    the correlated run's overflow tick (the bulk step's input on the tick
+    whose dense expiry seeds the channel, and that tick's starting state,
+    whose channel is empty), mid-drain, its first committing tick after
+    that and the drain's end, and random 1M states in the main and chaos
+    builds (a revive clamp, an empty channel).  Returns (the kernels-line
+    entries, the record)."""
+    params = main["params"]
+    vp = params.vivaldi
+    t0 = time.perf_counter()
+    ring = {}
+    fresh = serf.init_state(params, device=dev)
+    _, kill_state, _ = bench.prepare(device=dev)
+    timing_obs = None
+    for name, st in (("first probe tick", fresh), ("at_kill", kill_state),
+                     ("mid", states["serf mid"][1]),
+                     ("final", states["serf final"][1])):
+        st, obs = _probe_obs(params, st)
+        ring[f"main {name}"] = hold_ring(
+            vp, st.coords, obs.shift, obs.rtt_ms, obs.acked, f"main {name}",
+            all_colocated=name == "first probe tick")
+        if name == "mid":
+            timing_obs = (st.coords, obs.shift, obs.rtt_ms, obs.acked)
+        if name == "first probe tick":
+            colocated_obs = (st.coords, obs.shift, obs.rtt_ms, obs.acked)
+    for seed, adj in ((1, 47), (2, 0), (3, 999)):
+        c, shift, rtt_ms, acked = _random_ring(dev, seed, adj_index=adj)
+        ring[f"random 1M #{seed}"] = hold_ring(vp, c, shift, rtt_ms, acked,
+                                               f"random 1M #{seed}")
+    # other widths take K13's form that reads them from its arguments
+    for d, w in ((3, 7), (16, 32)):
+        name = f"random 100k D={d} W={w}"
+        wp = vivaldi.VivaldiParams(n_nodes=100_000, dims=d,
+                                   adjustment_window=w, seed=7)
+        ring[name] = hold_ring(wp, *_random_ring(dev, d, 100_000, d, w), name)
+    log(f"K13 held on {len(ring)} states in {time.perf_counter() - t0:.1f} s")
+    for name, h in ring.items():
+        log(f"  {name}: {json.dumps(h)}")
+
+    t0 = time.perf_counter()
+    bulk = {}
+    # the probe tick whose dense expiry seeds the channel runs its first
+    # bulk step; the state it starts from has an empty channel
+    cp, before = _correlated_overflow_state(dev)
+    bulk["overflow tick's input (empty)"] = hold_bulk(cp, before,
+                                                      "empty channel")
+    inp, _ = _bulk_tick(cp, before)
+    require(inp is not None, "the overflow tick ran no bulk step")
+    bulk["overflow tick"] = hold_bulk(cp, inp, "overflow tick")
+    near_bar = states["correlated near_bar"][1]
+    inp, s = _bulk_tick(cp, near_bar)
+    require(inp is not None, "mid-drain ran no bulk step")
+    bulk["mid-drain"] = hold_bulk(cp, inp, "mid-drain")
+    for _ in range(4096):
+        inp, nxt = _bulk_tick(cp, s)
+        if inp is not None and bool((inp.bulk_member & ~nxt.bulk_member).any()):
+            break
+        s = nxt
+    require(inp is not None, "no committing bulk tick after mid-drain")
+    bulk["first committing tick"] = hold_bulk(cp, inp, "first committing tick")
+    # the state profile_tick times the bulk pass at
+    timed_state = correlated.mid_drain(cp, dev)
+    bulk["mid-drain (coverage 0.5)"] = hold_bulk(cp, timed_state,
+                                                 "mid-drain (coverage 0.5)")
+    inp, _ = _bulk_tick(cp, states["correlated drain_end"][1])
+    require(inp is not None, "the drain's end ran no bulk step")
+    bulk["drain end"] = hold_bulk(cp, inp, "drain end")
+    chaos_p = dataclasses.replace(cp, chaos=True)
+    for name, bp, kw in (
+            ("random 1M", cp, {}),
+            ("random 1M commits", cp, dict(members=0.05)),
+            ("random 1M revive clamp", cp, dict(heard_over=1.5)),
+            ("random 1M empty", cp, dict(members=0.0)),
+            ("random 1M chaos", chaos_p, dict(chaos=True)),
+            ("random 1M chaos revive clamp", chaos_p,
+             dict(chaos=True, heard_over=1.5))):
+        rs = _random_bulk(dev, near_bar, seed=len(bulk), **kw)
+        bulk[name] = hold_bulk(bp, rs, name)
+    log(f"K14 held on {len(bulk)} states in {time.perf_counter() - t0:.1f} s")
+    for name, h in bulk.items():
+        log(f"  {name}: {json.dumps(h)}")
+    require(bulk["first committing tick"]["commits"] > 0,
+            "the committing tick's hold committed nothing")
+    require(bulk["overflow tick's input (empty)"]["members"] == 0
+            and bulk["random 1M empty"]["members"] == 0,
+            "no hold had an empty channel")
+    require(any(h["heard_over_v"] for h in bulk.values()),
+            "no hold clamped a heard count above V")
+    require(any(h["chaos"] and h["commits"] for h in bulk.values()),
+            "no chaos hold committed")
+
+    timed = {"vivaldi_ring": time_ring(vp, *timing_obs),
+             "vivaldi_ring all colocated": time_ring(vp, *colocated_obs),
+             "bulk_step": time_bulk(cp, timed_state),
+             "bulk_step chaos": time_bulk(chaos_p, _random_bulk(
+                 dev, near_bar, seed=99, chaos=True))}
+    for name, t in timed.items():
+        log(f"{name} timed: " + json.dumps(t))
+    t13, t14 = timed["vivaldi_ring"], timed["bulk_step"]
+    entries = [
+        {"name": "vivaldi_ring", "route": "cuda",
+         "source": "consul_tpu_torch/kernels/csrc/vivaldi.cu",
+         "replaces": "consul_tpu/models/vivaldi.py:162",
+         "launches": main["all_launches"]["vivaldi_ring"],
+         "max_abs_err": max(h["max_abs_err"] for h in ring.values()),
+         "ms": t13["ms"], "call_ms": t13["call_ms"],
+         "plain_ms": t13["plain_ms"], "bound_ms": t13["bound_ms"],
+         "bound_by": t13["bound_by"], "library_ms": None,
+         "bound_with_copy_ms": t13["bound_with_copy_ms"],
+         "max_ulp": max(max(h["ulps"].values()) for h in ring.values()),
+         "ms_all_colocated": timed["vivaldi_ring all colocated"]["ms"],
+         "shape": list(timing_obs[0].coords.shape)
+         + [timing_obs[0].adj_window.shape[1]]},
+        {"name": "bulk_step", "route": "cuda",
+         "source": "consul_tpu_torch/kernels/csrc/bulk.cu",
+         "replaces": "consul_tpu/models/swim.py:1184",
+         "launches": k14_launches,
+         "launches_path": "correlated (phase 7)",
+         "max_abs_err": max(h["max_abs_err"] for h in bulk.values()),
+         "ms": t14["ms"], "call_ms": t14["call_ms"],
+         "plain_ms": t14["plain_ms"], "bound_ms": t14["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "bound_with_copy_ms": t14["bound_with_copy_ms"],
+         "phase_ms": t14["phase_ms"],
+         "chaos_ms": timed["bulk_step chaos"]["ms"],
+         "shape": [N, cp.gossip_nodes]}]
+    return entries, {"ring_held": ring, "bulk_held": bulk, "timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2895,12 +3307,14 @@ def main() -> int:
     states = {}
     with swim_twin_calls() as twins:
         results, records, r, per_tick, syncs = phases_2_to_10(dev, states)
-    log(f"K7-K12 twins called on card states in phases 2-10: {twins}")
-    require(not any(twins.values()), f"a K7-K12 twin ran on the card "
+    log(f"K7-K14 twins called on card states in phases 2-10: {twins}")
+    require(not any(twins.values()), f"a K7-K14 twin ran on the card "
             f"outside the holds: {twins}")
     k78, probe_record = probe_phase(dev, r, states)
     k912, detector_record = detector_phase(dev, r, states)
-    results += k78 + k912
+    k1314, ring_bulk_record = vivaldi_bulk_phase(
+        dev, r, states, records["correlated"]["launches"]["bulk_step"])
+    results += k78 + k912 + k1314
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
@@ -2908,6 +3322,7 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": results, **records,
               "probe": probe_record, "detector": detector_record,
+              "vivaldi_bulk": ring_bulk_record,
               "twin_calls": twins,
               "kernels_per_tick": per_tick,
               "sass_per_element": SASS_PER_ELEMENT,
@@ -2939,9 +3354,12 @@ def phases_2_to_10(dev, for_phase_11: dict) -> tuple:
     syncs = main_path_syncs(r["params"], r["state"])
     per_tick = check_kernels_per_tick(r["params"], r["state"])
     params = r["params"]
-    states = {"mid": mid_state(r).swim, "final": r["state"].swim}
+    mid = mid_state(r)
+    states = {"mid": mid.swim, "final": r["state"].swim}
     for_phase_11.update({name: (params.swim, st)
                          for name, st in states.items()})
+    for_phase_11.update({"serf mid": (params, mid),
+                         "serf final": (params, r["state"])})
     launches = r["all_launches"]
     k1, k1_record = check_draws(dev, params.swim, r["state"].swim.tick,
                                 SASS_PER_ELEMENT, r["draw_launches"])
@@ -2961,6 +3379,11 @@ def phases_2_to_10(dev, for_phase_11: dict) -> tuple:
     k6, ae_record = ae_phase(dev)
     results += k6
     vivaldi_record = vivaldi_phase(dev)
+    # K1's normal mode runs on the Vivaldi solver's path, not the main one
+    for e in k1:
+        if e["name"] == "threefry_draws.normal":
+            e["launches"] = vivaldi_record["draw_launches"]["normal"]
+            e["launches_path"] = "vivaldi (phase 10)"
     records = {"oracle": oracle_record, "chaos": chaos_record,
                "correlated": correlated_record, "federation": wan_record,
                "antientropy": ae_record, "vivaldi": vivaldi_record,

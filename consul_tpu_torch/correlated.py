@@ -6,7 +6,7 @@ recall (the fraction of victims whose death is committed or reached
 >= 99% of live members, K5) and false positives every tick, until recall
 reaches 0.999 or the tick budget runs out.  At N = 1M and 1% the kills
 overflow the U-slot rumor table, so this is the workload that drives the
-bulk death channel (`_bulk_disseminate`, `_bulk_commit`) at full width.
+bulk death channel (`_bulk_step`: kernel K14 on a card) at full width.
 
     python -m consul_tpu_torch.correlated                  # 1M, 0.1% + 1%
     python -m consul_tpu_torch.correlated --nodes 65536 --fractions 0.01
@@ -30,9 +30,21 @@ from typing import Optional
 import numpy as np
 import torch
 
+from consul_tpu_torch import kernels
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import swim
 from consul_tpu_torch.utils import devices
+
+
+SEED = 7
+# the row whose kills overflow the rumor table at 1M (10,000 victims)
+FRACTION = 0.01
+
+
+def bench_params(nodes: int, slots: int = 32, seed: int = SEED):
+    """The bench's SWIM parameters: LAN gossip, 1% packet loss."""
+    return swim.make_params(GossipConfig.lan(), SimConfig(
+        n_nodes=nodes, rumor_slots=slots, p_loss=0.01, seed=seed))
 
 
 def card(device: torch.device) -> str:
@@ -72,6 +84,20 @@ def start(params, frac: float, seed: int, device):
     return swim.kill_mask(s, mask_d), mask_d
 
 
+def mid_drain(params, device, frac: float = FRACTION, seed: int = SEED,
+              every: int = 16):
+    """The row replayed from its kill to mid-drain, the first `every`-tick
+    boundary at which the bulk channel's members average a coverage of
+    0.5 or more: that state, the next bulk step's input."""
+    s, mask = start(params, frac, seed, device)
+    for _ in range(0, 4096, every):
+        s, _, _ = run_chunk(params, s, every, mask)
+        members = s.bulk_member
+        if bool(members.any()) and float(s.bulk_cov[members].mean()) >= 0.5:
+            return s
+    raise RuntimeError("the correlated replay never reached mid-drain")
+
+
 def run_row(params, frac: float, max_ticks: int, chunk: int, seed: int,
             device, gossip: GossipConfig) -> dict:
     """One (slots, fraction) row: chunks from the kill until recall >=
@@ -82,6 +108,7 @@ def run_row(params, frac: float, max_ticks: int, chunk: int, seed: int,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     syncs0, bulk0 = swim.host_syncs, swim.bulk_steps
+    k14_0 = kernels.LAUNCHES["bulk_step"]
     t0 = time.perf_counter()
     ticks = 0
     rec_curve, fp_curve = [], []
@@ -110,8 +137,10 @@ def run_row(params, frac: float, max_ticks: int, chunk: int, seed: int,
         # flag reads (the probe tick's one sync) plus one readback per chunk
         "host_syncs_per_tick":
             (swim.host_syncs - syncs0 + 2 * (ticks // chunk)) / ticks,
-        # ticks that ran the bulk channel (_bulk_disseminate, _bulk_commit)
+        # ticks that ran the bulk channel, and K14's launches among them
+        # (every one on a card, none on the CPU)
         "bulk_ticks": swim.bulk_steps - bulk0,
+        "bulk_step_launches": kernels.LAUNCHES["bulk_step"] - k14_0,
         "committed_victims": int(s.committed_dead[mask_d].sum()),
         "bulk_pending": int(s.bulk_member.sum()),
         "recall_curve": rec_curve, "fp_curve": fp_curve,
@@ -119,15 +148,14 @@ def run_row(params, frac: float, max_ticks: int, chunk: int, seed: int,
 
 
 def run(nodes: int = 1_000_000, fractions=(0.001, 0.01), rumor_slots=(32,),
-        max_ticks: int = 4096, chunk: int = 256, seed: int = 7,
+        max_ticks: int = 4096, chunk: int = 256, seed: int = SEED,
         device=None) -> list:
     """Every (slots, fraction) row, on the card unless a device is named."""
     device = devices.resolve(device)
     gossip = GossipConfig.lan()
     rows = []
     for slots in rumor_slots:
-        params = swim.make_params(gossip, SimConfig(
-            n_nodes=nodes, rumor_slots=slots, p_loss=0.01, seed=seed))
+        params = bench_params(nodes, slots, seed)
         for frac in fractions:
             rows.append(run_row(params, frac, max_ticks, chunk, seed, device,
                                 gossip))
@@ -138,12 +166,12 @@ def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=1_000_000)
     ap.add_argument("--fractions", type=float, nargs="+",
-                    default=[0.001, 0.01])
+                    default=[0.001, FRACTION])
     ap.add_argument("--rumor-slots", type=int, nargs="+", default=[32])
     ap.add_argument("--max-ticks", type=int, default=4096)
     ap.add_argument("--chunk", type=int, default=256,
                     help="ticks between host readbacks")
-    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.add_argument("--out", default=os.path.join("chiprun_out",

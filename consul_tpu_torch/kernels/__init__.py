@@ -7,8 +7,8 @@ CUDA error, and counts the launch in `LAUNCHES` — the only place the
 count moves, so a run can show that its path went through the kernel.
 The public wrappers that choose between a kernel and its plain PyTorch
 twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
-`models/swim.py` (K3, K4, K5, K7-K12), `ops/reconcile.py` (K6).  They
-take the twin only for CPU tensors.
+`models/swim.py` (K3, K4, K5, K7-K12, K14), `ops/reconcile.py` (K6),
+`models/vivaldi.py` (K13).  They take the twin only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -41,7 +41,12 @@ PROBE = ("probe_round", "originate")
 # counted once)
 DETECTOR = ("subject_maps", "map_add", "maps_convert", "suspicion_expiry",
             "dense_expiry", "dense_expiry_post", "refutation", "expire")
-KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE + PROBE + DETECTOR
+# the Vivaldi ring observation of every probe tick (K13), and the bulk
+# death channel of a mass event (K14: four device kernels behind one entry
+# point, counted once)
+VIVALDI_BULK = ("vivaldi_ring", "bulk_step")
+KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE + PROBE + DETECTOR \
+    + VIVALDI_BULK
 LAUNCHES = {name: 0 for name in KERNELS}
 # K1's modes, in the order of threefry.cu's Mode, and the launches of K1
 # that carried a segment of each
@@ -98,6 +103,9 @@ SIGNATURES = {
     "dense_expiry_post": [_P] * 19 + [_I64] + [_I] * 5 + [_P] * 6,
     "refutation": [_P] * 12 + [_I64] + [_I] * 5 + [_P] * 9,
     "expire": [_P] * 12 + [_I64] + [_I] * 4 + [_P] * 9,
+    "vivaldi_ring": [_P] * 7 + [_I64, _I, _I, _I, _U32, _U32] + [_F32] * 8
+    + [_P] * 6,
+    "bulk_step": [_P] * 9 + [_I64, _I, _F32, _F32, _P, _I] + [_P] * 5,
 }
 
 
@@ -1176,3 +1184,102 @@ def launch_expire(*, know, sends_left, up, member, committed_dead,
         r_active_out.data_ptr(), r_coverage_out.data_ptr(), _stream(dev))
     _check(rc, "expire")
     LAUNCHES["expire"] += 1
+
+
+VIVALDI_MAX_DIMS = 16      # vivaldi.cu's kMaxD
+VIVALDI_MAX_WINDOW = 32    # vivaldi.cu's kMaxW
+BULK_MAX_VIEWS = 16        # bulk.cu's kMaxViews
+BULK_RESULTS = 5           # bulk.cu's kResults: the sums handed on
+
+
+def launch_vivaldi_ring(*, coords, height, error, window, rtt_ms, acked,
+                        shift, col: int, key, normal_lo: float,
+                        normal_span: float, ce: float, cc: float,
+                        error_max: float, height_min: float, inv_rho: float,
+                        mean_factor: float, coords_out, height_out,
+                        error_out, window_out, adjustment_out) -> None:
+    """K13: one observe_ring of the pool against the ring peers (i +
+    shift) % N, `shift` one int32 read on the device, rtt_ms [N] float32
+    milliseconds, acked [N] bool; the colocated rows' spring directions
+    are normal draws of `key` (two uint32 words), scaled from (lo, span);
+    gravity multiplies |c| by inv_rho, the mean the window sum by
+    mean_factor.  Writes every *_out whole."""
+    dev = coords.device if coords is not None else None
+    if coords is None or coords.dim() != 2 or window is None \
+            or window.dim() != 2:
+        raise ValueError("vivaldi_ring: coords must be [N, D] and the "
+                         "window [N, W]")
+    n, d = coords.shape
+    w = window.shape[1]
+    if not 1 <= n < 2 ** 31 or not 1 <= d <= VIVALDI_MAX_DIMS \
+            or not 1 <= w <= VIVALDI_MAX_WINDOW:
+        raise ValueError(f"vivaldi_ring: N={n}, D={d} and W={w} must lie in "
+                         f"[1, 2^31), [1, {VIVALDI_MAX_DIMS}] and [1, "
+                         f"{VIVALDI_MAX_WINDOW}]")
+    if not 0 <= col < w:
+        raise ValueError(f"vivaldi_ring: column {col} outside [0, {w})")
+    for t, what, shape in ((coords, "coords", (n, d)),
+                           (coords_out, "coords_out", (n, d)),
+                           (window, "window", (n, w)),
+                           (window_out, "window_out", (n, w))):
+        _require(t, "vivaldi_ring " + what, _F, dev, shape)
+    _node_vectors("vivaldi_ring", dev, n, (height, "height", _F),
+                  (error, "error", _F), (rtt_ms, "rtt_ms", _F),
+                  (acked, "acked", _BOOL), (height_out, "height_out", _F),
+                  (error_out, "error_out", _F),
+                  (adjustment_out, "adjustment_out", _F))
+    _shift("vivaldi_ring", shift, dev)
+    k0, k1 = (int(x) & 0xFFFFFFFF for x in key)
+    rc = library().vivaldi_ring(
+        coords.data_ptr(), height.data_ptr(), error.data_ptr(),
+        window.data_ptr(), rtt_ms.data_ptr(), acked.data_ptr(),
+        shift.data_ptr(), n, d, w, col, k0, k1, normal_lo, normal_span, ce,
+        cc, error_max, height_min, inv_rho, mean_factor,
+        coords_out.data_ptr(), height_out.data_ptr(), error_out.data_ptr(),
+        window_out.data_ptr(), adjustment_out.data_ptr(), _stream(dev))
+    _check(rc, "vivaldi_ring")
+    LAUNCHES["vivaldi_ring"] += 1
+
+
+def launch_bulk_step(*, bulk_member, bulk_heard, bulk_cov, up, member,
+                     committed_dead, offs, group=None, node_ok=None,
+                     cap: float, p_ok: float, bulk_member_out,
+                     bulk_heard_out, bulk_cov_out,
+                     committed_dead_out) -> None:
+    """K14 (four device kernels, one count): the bulk death channel one
+    gossip tick along the [G] int32 ring offsets `offs` (on the device),
+    then its commit, into the four *_out [N] leaves, whole; with no bulk
+    member every output is its input.  The nemesis build passes group [N]
+    int16 and node_ok [N] float32 together.  The launches hand their sums
+    on in a per-device scratch, so two streams must not run it at once."""
+    dev = bulk_member.device if bulk_member is not None else None
+    n = _node_count("bulk_step", bulk_member)
+    g = offs.shape[0] if offs is not None and offs.dim() == 1 else 0
+    if not 1 <= g <= BULK_MAX_VIEWS:
+        raise ValueError(f"bulk_step takes 1-{BULK_MAX_VIEWS} ring offsets, "
+                         f"got {g}")
+    _node_vectors("bulk_step", dev, n, (bulk_member, "bulk_member", _BOOL),
+                  (bulk_heard, "bulk_heard", _F), (bulk_cov, "bulk_cov", _F),
+                  (up, "up", _BOOL), (member, "member", _BOOL),
+                  (committed_dead, "committed_dead", _BOOL),
+                  (bulk_member_out, "bulk_member_out", _BOOL),
+                  (bulk_heard_out, "bulk_heard_out", _F),
+                  (bulk_cov_out, "bulk_cov_out", _F),
+                  (committed_dead_out, "committed_dead_out", _BOOL))
+    _require(offs, "bulk_step offs", _I32, dev, (g,))
+    if (group is None) != (node_ok is None):
+        raise ValueError("bulk_step: group and node_ok come together")
+    if group is not None:
+        _node_vectors("bulk_step", dev, n, (group, "group", _I16),
+                      (node_ok, "node_ok", _F))
+    scratch = _scratch_words(dev, "bulk_step",
+                             BULK_RESULTS + 1 + 2 * SCRATCH_BLOCKS)
+    rc = library().bulk_step(
+        bulk_member.data_ptr(), bulk_heard.data_ptr(), bulk_cov.data_ptr(),
+        up.data_ptr(), member.data_ptr(), committed_dead.data_ptr(),
+        offs.data_ptr(), _ptr(group), _ptr(node_ok), n, g, cap, p_ok,
+        scratch.data_ptr(), SCRATCH_BLOCKS, bulk_member_out.data_ptr(),
+        bulk_heard_out.data_ptr(), bulk_cov_out.data_ptr(),
+        committed_dead_out.data_ptr(), _stream(dev))
+    _check(rc, "bulk_step")
+    LAUNCHES["bulk_step"] += 1

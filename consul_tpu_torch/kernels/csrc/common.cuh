@@ -54,28 +54,30 @@ inline int persistent_blocks(F kernel, int threads, int64_t n, int cap,
 
 // --- counters --------------------------------------------------------------
 
-__device__ __forceinline__ u64 warp_sum(u64 v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
 // Block-wide sums of K per-thread counters into red[k][0] (every thread
-// must call it; blockDim.x a multiple of 32, at most 1024).
-template <int K>
-__device__ void block_sum(const u64 (&v)[K], u64 (&red)[K][32]) {
+// must call it; blockDim.x a multiple of 32, at most 1024).  T is u64 for
+// exact counts or double (K14's float sums, in a fixed order).
+template <int K, typename T>
+__device__ void block_sum(const T (&v)[K], T (&red)[K][32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   __syncthreads();  // red may still be read from an earlier call
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const u64 s = warp_sum(v[k]);
+    const T s = warp_sum(v[k]);
     if (lane == 0) red[k][warp] = s;
   }
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const u64 s = warp_sum(lane < nwarps ? red[k][lane] : 0ull);
+      const T s = warp_sum(lane < nwarps ? red[k][lane] : T(0));
       if (lane == 0) red[k][0] = s;
     }
   }
@@ -83,14 +85,18 @@ __device__ void block_sum(const u64 (&v)[K], u64 (&red)[K][32]) {
 }
 
 // Grid-wide sums of K per-thread counters.  scratch holds one u64 block
-// count followed by K partials per block (gridDim.x * K).  Returns true in
-// thread 0 of the last block to finish, with the grid totals in tot.
-template <int K>
-__device__ bool grid_sum(const u64 (&v)[K], u64* scratch, u64 (&tot)[K]) {
-  __shared__ u64 red[K][32];
+// count followed by K partials per block (gridDim.x * K, 8-byte T).
+// Returns true in thread 0 of the last block to finish, with the grid
+// totals in tot.  Each block's partial has its own slot and the last
+// block adds them in block order, so a float total is the same on every
+// run of the same grid.
+template <int K, typename T>
+__device__ bool grid_sum(const T (&v)[K], u64* scratch, T (&tot)[K]) {
+  static_assert(sizeof(T) == sizeof(u64), "grid_sum partials are 8 bytes");
+  __shared__ T red[K][32];
   __shared__ bool last;
   u64* done = scratch;
-  u64* partials = scratch + 1;
+  T* partials = reinterpret_cast<T*>(scratch + 1);
   block_sum<K>(v, red);
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -101,7 +107,7 @@ __device__ bool grid_sum(const u64 (&v)[K], u64* scratch, u64 (&tot)[K]) {
   __syncthreads();
   if (!last) return false;  // block-uniform
   __threadfence();
-  u64 mine[K];
+  T mine[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) mine[k] = 0;
   for (unsigned b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
@@ -199,6 +205,40 @@ __device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
 // jax.random.uniform's float32 in [0, 1) from 32 random bits.
 __device__ __forceinline__ float unit_float(uint32_t b) {
   return __fsub_rn(__uint_as_float((b >> 9) | 0x3f800000u), 1.0f);
+}
+
+// XLA's float32 erf_inv (Giles' single-precision polynomial in w =
+// -log1p(-x*x), branches w < 5 and w >= 5), the coefficients as the bit
+// patterns of prng.py's _ERFINV_LT5 / _ERFINV_GE5.
+__device__ __forceinline__ float erf_inv(float x) {
+  constexpr uint32_t kLt5[9] = {0x32f16588u, 0x34b84b36u, 0xb66c7357u,
+                                0xb6935ac1u, 0x396532dbu, 0xbaa45408u,
+                                0xbb88e4efu, 0x3e7c8f63u, 0x3fc02e2fu};
+  constexpr uint32_t kGe5[9] = {0xb951f09bu, 0x38d3b56bu, 0x3ab0dc72u,
+                                0xbb70bde7u, 0x3bbc127bu, 0xbbf9c5d7u,
+                                0x3c1aa57eu, 0x3f8036dbu, 0x40354f7eu};
+  float w = -log1pf(-__fmul_rn(x, x));
+  const bool lt = w < 5.0f;
+  w = lt ? __fadd_rn(w, -2.5f) : __fadd_rn(sqrtf(w), -3.0f);
+  float p = __uint_as_float(lt ? kLt5[0] : kGe5[0]);
+#pragma unroll
+  for (int c = 1; c < 9; ++c)
+    p = __fadd_rn(__uint_as_float(lt ? kLt5[c] : kGe5[c]), __fmul_rn(p, w));
+  return fabsf(x) == 1.0f ? __fmul_rn(x, __uint_as_float(0x7f800000u))
+                          : __fmul_rn(p, x);
+}
+
+__device__ __forceinline__ float scaled(float u, float lo, float span) {
+  return fmaxf(lo, __fadd_rn(__fmul_rn(u, span), lo));
+}
+
+// jax.random.normal's float32 from the unit float u of its bits: sqrt(2) *
+// erf_inv(max(lo, u * span + lo)) with lo = nextafter(-1, 0) and span =
+// 1 - lo (the host passes both; prng.py:_segment).  K1's NORMAL mode and
+// K13's fused spring directions.
+__device__ __forceinline__ float normal_float(float u, float lo, float span) {
+  return __fmul_rn(__uint_as_float(0x3fb504f3u),   // float32(sqrt(2))
+                   erf_inv(scaled(u, lo, span)));
 }
 
 // --- slot rows -------------------------------------------------------------

@@ -15,7 +15,8 @@
 //   UNIFORM      max(lo, u * span + lo), u = (bits >> 9 | 0x3f800000) - 1;
 //   EXPONENTIAL  -log1pf(-u);
 //   NORMAL       sqrt(2) * erf_inv(max(lo, u * span + lo)), XLA's float32
-//                erf_inv (both branches);
+//                erf_inv (both branches; common.cuh:normal_float, which
+//                K13 shares for observe_ring's spring directions);
 //   RANDINT      two streams (the host passes split(key)'s two schedules):
 //                ((hi % span) * mult + lo % span) % span + minval in 32-bit
 //                wrapping arithmetic, mult = (2^16 % span)^2 mod 2^32 % span
@@ -74,31 +75,6 @@ struct DrawTable {
   DrawSpec seg[kMaxSegments];
 };
 
-// XLA's float32 erf_inv (Giles' single-precision polynomial in w =
-// -log1p(-x*x), branches w < 5 and w >= 5), the coefficients as the bit
-// patterns of prng.py's _ERFINV_LT5 / _ERFINV_GE5.
-__device__ __forceinline__ float erf_inv(float x) {
-  constexpr uint32_t kLt5[9] = {0x32f16588u, 0x34b84b36u, 0xb66c7357u,
-                                0xb6935ac1u, 0x396532dbu, 0xbaa45408u,
-                                0xbb88e4efu, 0x3e7c8f63u, 0x3fc02e2fu};
-  constexpr uint32_t kGe5[9] = {0xb951f09bu, 0x38d3b56bu, 0x3ab0dc72u,
-                                0xbb70bde7u, 0x3bbc127bu, 0xbbf9c5d7u,
-                                0x3c1aa57eu, 0x3f8036dbu, 0x40354f7eu};
-  float w = -log1pf(-__fmul_rn(x, x));
-  const bool lt = w < 5.0f;
-  w = lt ? __fadd_rn(w, -2.5f) : __fadd_rn(sqrtf(w), -3.0f);
-  float p = __uint_as_float(lt ? kLt5[0] : kGe5[0]);
-#pragma unroll
-  for (int c = 1; c < 9; ++c)
-    p = __fadd_rn(__uint_as_float(lt ? kLt5[c] : kGe5[c]), __fmul_rn(p, w));
-  return fabsf(x) == 1.0f ? __fmul_rn(x, __uint_as_float(0x7f800000u))
-                          : __fmul_rn(p, x);
-}
-
-__device__ __forceinline__ float scaled(float u, float lo, float span) {
-  return fmaxf(lo, __fadd_rn(__fmul_rn(u, span), lo));
-}
-
 // Element i .. i + 3 of segment d (i a multiple of 4, i < d.n), finished
 // and stored: one 16-byte store where the four fit and the output is
 // 16-byte aligned, else (kTail) element by element.
@@ -130,8 +106,7 @@ __device__ __forceinline__ void draw4(const DrawSpec& d, int64_t i) {
       float f;
       if (M == kUniform) f = scaled(u, d.lo, d.span);
       else if (M == kExponential) f = -log1pf(-u);
-      else f = __fmul_rn(__uint_as_float(0x3fb504f3u),   // float32(sqrt(2))
-                         erf_inv(scaled(u, d.lo, d.span)));
+      else f = normal_float(u, d.lo, d.span);
       v[j] = __float_as_uint(f);
     }
   }

@@ -72,7 +72,7 @@ def step(params: SerfParams, s: ClusterState) -> ClusterState:
     coords = s.coords
     if obs is not None:
         coords = vivaldi.observe_ring(params.vivaldi, coords, obs.shift,
-                                      obs.rtt_ms / 1000.0, obs.acked)
+                                      obs.rtt_ms, obs.acked)
     ev = events.step(params.events, s.events, up=sw.up, member=sw.member)
     return ClusterState(swim=sw, coords=coords, events=ev)
 

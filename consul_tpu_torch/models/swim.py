@@ -32,10 +32,11 @@ kernel K4, `mass_detection_stats` kernel K5, the probe round kernel K7,
 every rumor origination (probe round, dense expiry, rejoin, leave,
 inject_suspicion) kernel K8, the subject maps and their updates (`_maps`,
 `_map_add`, `_maps_convert`) kernel K9, `_suspicion_expiry` kernel K10,
-`_dense_suspicion_expiry` kernel K11 around its K8 call, and
-`_refutation` and `_expire` kernel K12, each beside its plain twin
+`_dense_suspicion_expiry` kernel K11 around its K8 call,
+`_refutation` and `_expire` kernel K12, and the bulk channel's tick
+(`_bulk_step`) kernel K14, each beside its plain twin
 (`_probe_pass_plain`, `_originate_plain`, `_maps_plain`, ...,
-`_expire_plain`); the gossip pass (with its
+`_expire_plain`, `_bulk_step_plain`); the gossip pass (with its
 learn-tick stamp, counter update and loss draw, and under chaos its
 partition gate and per-contact rate) goes through ops/gossip.py (K2) and
 every other random draw through utils/prng.py (K1).
@@ -77,7 +78,7 @@ F32 = torch.float32
 # host syncs taken by the tick (the probe-tick bulk-channel flag); the
 # bench reports them per tick
 host_syncs = 0
-# ticks that ran the bulk channel's passes (_bulk_disseminate, _bulk_commit)
+# ticks that ran the bulk channel's step (_bulk_step)
 bulk_steps = 0
 
 
@@ -1150,11 +1151,10 @@ def _bulk_commit(params: SwimParams, s: SwimState) -> SwimState:
         bulk_cov=torch.where(done, 0.0, s.bulk_cov))
 
 
-def _bulk_step(params: SwimParams, s: SwimState) -> SwimState:
-    """The bulk branch, applied only where the channel holds members (the
-    device-side form of JAX's lax.cond on any(bulk_member))."""
-    global bulk_steps
-    bulk_steps += 1
+def _bulk_step_plain(params: SwimParams, s: SwimState) -> SwimState:
+    """The plain PyTorch version of K14: the bulk branch, applied only where
+    the channel holds members (the device-side form of JAX's lax.cond on
+    any(bulk_member), swim.py:1350-1354)."""
     live = s.bulk_member.any()
     t = _bulk_commit(params, _bulk_disseminate(params, s))
     pick = lambda a, b: torch.where(live, a, b)  # noqa: E731
@@ -1162,6 +1162,35 @@ def _bulk_step(params: SwimParams, s: SwimState) -> SwimState:
                      bulk_member=pick(t.bulk_member, s.bulk_member),
                      bulk_heard=pick(t.bulk_heard, s.bulk_heard),
                      bulk_cov=pick(t.bulk_cov, s.bulk_cov))
+
+
+def _bulk_step(params: SwimParams, s: SwimState) -> SwimState:
+    """_bulk_step_plain's result; on CUDA tensors K14 (after K1's draw of
+    the ring offsets) writes it into fresh tensors with no host sync, its
+    float sums in an order of its own (bulk_heard and bulk_cov within
+    ulps of the twin's)."""
+    global bulk_steps
+    bulk_steps += 1
+    if not s.know.is_cuda:
+        return _bulk_step_plain(params, s)
+    offs = rolls.offsets(prng.tick_key(params.seed, s.tick, 4),
+                         params.n_nodes, params.gossip_nodes, s.device)
+    e = torch.empty_like
+    out = dict(bulk_member_out=e(s.bulk_member),
+               bulk_heard_out=e(s.bulk_heard), bulk_cov_out=e(s.bulk_cov),
+               committed_dead_out=e(s.committed_dead))
+    kernels.launch_bulk_step(
+        bulk_member=s.bulk_member, bulk_heard=s.bulk_heard,
+        bulk_cov=s.bulk_cov, up=s.up, member=s.member,
+        committed_dead=s.committed_dead, offs=offs,
+        group=s.chaos_grp if params.chaos else None,
+        node_ok=s.chaos_ok if params.chaos else None,
+        cap=float(np.float32(params.packet_msgs)),
+        p_ok=float(np.float32(1.0 - params.p_loss)), **out)
+    return s.replace(committed_dead=out["committed_dead_out"],
+                     bulk_member=out["bulk_member_out"],
+                     bulk_heard=out["bulk_heard_out"],
+                     bulk_cov=out["bulk_cov_out"])
 
 
 def _expire_plain(params: SwimParams, s: SwimState) -> SwimState:

@@ -7,9 +7,11 @@ on the serf tick (`observe_ring`) or against any peers (`observe`, which
 the standalone solver `sim_step` drives over a synthetic RTT matrix).
 The algorithm follows the Vivaldi paper (Dabek et al., SIGCOMM'04) with
 serf's height vector, adaptive error, gravity and latency-adjustment
-window.  Units: seconds.  These are gathers and elementwise work in plain
-torch; their one random draw, the spring direction of colocated nodes,
-is a K1 normal.
+window.  Units: seconds.  On a CUDA device `observe_ring` is one launch
+of kernel K13 (kernels/csrc/vivaldi.cu), which draws the spring
+directions of colocated nodes itself; on the CPU it runs its plain twin
+`observe_ring_plain`.  `observe` and the standalone solver are gathers
+and elementwise work in plain torch, their normal draws K1's.
 
 The floats here pass through norms and the normal draw's erf_inv, whose
 rounding differs between XLA and PyTorch by a few ulp; nothing here
@@ -22,8 +24,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from consul_tpu_torch import kernels
 from consul_tpu_torch.ops import rolls
 from consul_tpu_torch.utils import devices, prng
 
@@ -144,11 +148,15 @@ def observe(params: VivaldiParams, s: VivaldiState,
                         adjustment=adj_window.mean(1))
 
 
-def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
-                 rtt: torch.Tensor, mask: torch.Tensor) -> VivaldiState:
-    """Row-aligned observation where node i's peer is (i + shift) % N
-    (vivaldi.py:162-210)."""
-    rtt = torch.clamp_min(rtt, 1.0e-6)
+def observe_ring_plain(params: VivaldiParams, s: VivaldiState,
+                       shift: torch.Tensor, rtt_ms: torch.Tensor,
+                       mask: torch.Tensor) -> VivaldiState:
+    """The plain PyTorch version of K13: the row-aligned observation where
+    node i's peer is (i + shift) % N (vivaldi.py:162-210), from the probe
+    round's RTTs in milliseconds (serf.py:74's / 1000, an IEEE division on
+    every device: a CUDA tensor over a host scalar would multiply by its
+    reciprocal)."""
+    rtt = torch.clamp_min(rtt_ms / torch.full_like(rtt_ms, 1000.0), 1.0e-6)
     ci, hi, ei = s.coords, s.height, s.error
     cj = rolls.pull(s.coords, shift)
     hj = rolls.pull(s.height, shift)
@@ -164,8 +172,7 @@ def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
     new_err = err_sample * ce * w + ei * (1.0 - ce * w)
     new_err = torch.clamp(new_err, 1.0e-6, params.vivaldi_error_max)
 
-    key = prng.tick_key(params.seed, s.adj_index, 7)
-    rand_dir = prng.normal(key, tuple(ci.shape), ci.device)
+    rand_dir = prng.normal(_ring_key(params, s), tuple(ci.shape), ci.device)
     unit = torch.where((norm > 1.0e-9)[:, None],
                        diff / torch.clamp_min(norm, 1.0e-9)[:, None],
                        rand_dir / _norm(rand_dir, keepdim=True))
@@ -192,6 +199,43 @@ def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
     return VivaldiState(coords=coords, height=height, error=error,
                         adj_window=adj_window, adj_index=s.adj_index + 1,
                         adjustment=adjustment)
+
+
+def _ring_key(params: VivaldiParams, s: VivaldiState):
+    """The key of the colocated rows' spring directions (stream 7)."""
+    return prng.tick_key(params.seed, s.adj_index, 7)
+
+
+def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
+                 rtt_ms: torch.Tensor, mask: torch.Tensor) -> VivaldiState:
+    """observe_ring_plain's result; on CUDA tensors K13 writes it into
+    fresh tensors in one launch (`shift` a 0-d int32 on the device), the
+    colocated rows' normal draws made inside it."""
+    if not s.coords.is_cuda:
+        return observe_ring_plain(params, s, shift, rtt_ms, mask)
+    n = s.coords.shape[0]
+    w = s.adj_window.shape[1]
+    lo, span = prng.normal_bounds()
+    e = torch.empty_like
+    out = dict(coords_out=e(s.coords), height_out=e(s.height),
+               error_out=e(s.error), window_out=e(s.adj_window),
+               adjustment_out=e(s.adjustment))
+    kernels.launch_vivaldi_ring(
+        coords=s.coords, height=s.height, error=s.error, window=s.adj_window,
+        rtt_ms=rtt_ms, acked=mask, shift=shift,
+        col=s.adj_index % params.adjustment_window,
+        key=_ring_key(params, s), normal_lo=lo, normal_span=span,
+        ce=params.vivaldi_ce, cc=params.vivaldi_cc,
+        error_max=params.vivaldi_error_max, height_min=params.height_min,
+        # the twin's q = |c| / rho on a CUDA tensor: |c| * float32(1 / rho)
+        inv_rho=prng.f32(np.float32(1.0) / np.float32(params.gravity_rho)),
+        # torch's CUDA mean: the sum times float32(N) / float32(N * W)
+        mean_factor=prng.f32(np.float32(n) / np.float32(n * w)),
+        **out)
+    return VivaldiState(coords=out["coords_out"], height=out["height_out"],
+                        error=out["error_out"], adj_window=out["window_out"],
+                        adj_index=s.adj_index + 1,
+                        adjustment=out["adjustment_out"])
 
 
 def raw_distance(s: VivaldiState, src: torch.Tensor,

@@ -11,7 +11,9 @@ Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
 10 gossip-only and 10 probe ticks (each tick with its monitor call, as
 the bench scan runs it), times each pass of a probe tick alone, and
-profiles a window of `ticks` monitored ticks.  Each pass's entry gives
+profiles a window of `ticks` monitored ticks; the bulk channel's step
+(K14) is timed apart, at the correlated bench's mid-drain state at the
+same N.  Each pass's entry gives
 its fenced wall, its device time (the sum of its CUDA kernels' times
 from torch.profiler) and its device kernels per call.  The `kernels` form runs
 the set-up and the kernel count only; it uses nothing but the serf/swim
@@ -32,7 +34,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from consul_tpu_torch import kernels
+from consul_tpu_torch import correlated, kernels
 from consul_tpu_torch.bench import CHUNK, VICTIM
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import serf, swim, vivaldi
@@ -230,7 +232,8 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     """Each pass of a probe tick, run alone on the same probe-tick input
     state (`probe_round` with its map_add, which `map_add` also times
     alone; `maps_convert` on the state's own conversions; the dense
-    expiry with its origination): {pass: {"wall_ms":
+    expiry with its origination), and the bulk channel's step at the
+    correlated bench's mid-drain state: {pass: {"wall_ms":
     fenced wall ms (host dispatch + device,
     median of `reps`), "device_ms": the sum of its CUDA kernels' device
     times per call, "kernels": its device kernels per call}} (the last
@@ -261,10 +264,18 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
         "bulk_flag_sync": lambda: swim._bulk_flag(sw.bulk_member),
         "disseminate": lambda: swim._disseminate(p, sw),
         "vivaldi_observe_ring": lambda: vivaldi.observe_ring(
-            params.vivaldi, s.coords, obs.shift, obs.rtt_ms / 1000.0,
-            obs.acked),
+            params.vivaldi, s.coords, obs.shift, obs.rtt_ms, obs.acked),
         "monitor": lambda: swim.believed_down_fraction(p, sw, VICTIM, out=out),
     }
+    bp = correlated.bench_params(p.n_nodes)
+    bs = correlated.mid_drain(bp, dev)
+    fns["bulk_step"] = lambda: swim._bulk_step(bp, bs)
+    return _time_passes(fns, dev, reps)
+
+
+def _time_passes(fns: dict, dev, reps: int) -> dict:
+    """{name: {"wall_ms", "device_ms", "kernels"}} of each call (see
+    _pass_times)."""
     times = {}
     for name, fn in fns.items():
         walls = []

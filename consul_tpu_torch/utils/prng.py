@@ -234,6 +234,11 @@ def draw_plain(draws, device) -> list:
     return [twins[d.kind](d) for d in draws]
 
 
+def normal_bounds():
+    """(lo, span) of jax.random.normal's uniform, as K1 and K13 scale it."""
+    return _uniform_bounds(_NORMAL_LO, 1.0)
+
+
 def _segment(d: Draw, out: torch.Tensor) -> kernels.Segment:
     if d.kind == "randint":
         span, mult = _randint_span(d.minval, d.maxval)
@@ -244,7 +249,7 @@ def _segment(d: Draw, out: torch.Tensor) -> kernels.Segment:
     if d.kind == "uniform":
         lo, span = _uniform_bounds(d.minval, d.maxval)
     elif d.kind == "normal":
-        lo, span = _uniform_bounds(_NORMAL_LO, 1.0)
+        lo, span = normal_bounds()
     return kernels.Segment(d.kind, (d.key,), out, out.numel(), lo=lo,
                            span=span)
 

@@ -150,10 +150,11 @@ def test_draw_rejects_an_unknown_kind():
 
 
 def test_kernel_constants_are_the_plain_twins():
-    """threefry.cu's erf_inv coefficients and sqrt(2) are the float32 bit
+    """The erf_inv coefficients and sqrt(2) of K1's normal finish
+    (common.cuh, shared by threefry.cu and vivaldi.cu) are the float32 bit
     patterns of the plain twin's constants."""
     text = (Path(prng.__file__).parents[1] / "kernels" / "csrc"
-            / "threefry.cu").read_text()
+            / "common.cuh").read_text()
     bits32 = lambda x: int(np.float32(x).view(np.uint32))  # noqa: E731
     for name, coefs in (("kLt5", prng._ERFINV_LT5), ("kGe5", prng._ERFINV_GE5)):
         body = re.search(name + r"\[9\] = \{(.*?)\};", text, re.S).group(1)
