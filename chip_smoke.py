@@ -28,7 +28,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
      draws exactly two, launches K7 and K13 once, K8 at least twice (the
      probe round's and the dense expiry's origination) and every K9-K12
      entry point, and runs at most PROBE_KERNEL_CAP device kernels (the
-     tree before K13 ran PARENT_PROBE_KERNELS);
+     tree before K8 was one launch ran PARENT_PROBE_KERNELS);
   4. kernels: each kernel against its plain PyTorch twin on the card,
      bit-equal, at the main path's shapes (N=1M, S=U=32, G=3).  K1 mode
      by mode ([N, 3] uniform and bits, [N] exponential, [N, 8] normal —
@@ -48,7 +48,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
      take for the same work;
   5. oracle: the port's GossipOracle at full width (N=1M, U=32, 999,000
      joined), driven as a user would with every launch count zeroed just
-     before: warmup, advance, the summary, a baseline delta and flap
+     before: warmup (which must leave every leaf of the pool's state
+     as it was), advance, the summary, a baseline delta and flap
      journal, three kills advanced until each reads failed, the delta and
      journal naming exactly those three, a page at offset 500,000,
      spawn, leave and a rejoin after a committed death with their
@@ -99,13 +100,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
      0.15 and under a third of the initial; the error curve, ms a tick,
      sort_by_distance's wall; at n = 4,096 the card's and the CPU's
      curves within VIVALDI_CURVE_RTOL (vivaldi_phase);
- 11. the probe round and rumor origination: K7 and K8 against their
-     twins, every leaf bit-equal (rtt_ms included), on the main path's
-     states, the 1M chaos and correlated states phases 6-7 leave, the
-     federation's WAN pool, small pools on the card and random 1M
-     states (evicting calls and joiner cells must occur), then timed
-     beside their bounds, the twins and torch.topk of the wants; the
-     main path's fenced probe and gossip-only ticks (probe_phase);
+ 11. the probe round and rumor origination: K7 and K8, which update
+     the state they are given in place, against their twins, every leaf
+     bit-equal (rtt_ms included), each kernel call on a clone of its
+     input, on the main path's states, the 1M chaos and correlated states
+     phases 6-7 leave, the federation's WAN pool, small pools on the card
+     and random 1M states (evicting calls and joiner cells must occur);
+     the leaves they write are the input's own tensors, and neither
+     allocates an [N, U] block; then timed beside their bounds, the twins
+     and torch.topk of the wants, K8's phases from its instrumented
+     build; the main path's fenced probe and gossip-only ticks
+     (probe_phase).  Every state the script reads again after a step, a
+     command or a kernel that consumes it is a clone (_clone);
  12. the rest of the probe tick's detector passes: K9 (the subject maps,
      map_add, maps_convert), K10 (suspicion expiry), K11 (the dense
      expiry around K8) and K12 (refutation, expire) against their twins,
@@ -137,6 +143,7 @@ numbers, and as the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -196,6 +203,17 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _clone(x):
+    """A copy of a swim, serf or federation state with tensors of its own.
+    On the card a probe tick or a command consumes its state (K7 and K8
+    update it in place), so every state this script reads again after
+    handing it to a step, a command or a kernel is cloned first."""
+    if isinstance(x, wan.WanState):
+        return x.replace(lan=tuple(c.clone() for c in x.lan),
+                         wan=x.wan.clone())
+    return x.clone()
+
+
 def main_path(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
@@ -252,6 +270,7 @@ def count_syncs(tick, state, tick_of, period: int, ticks: int = 10) -> dict:
     runs tick t (the step and its per-tick monitor) and returns the state;
     `tick_of(state)` is the state's tick number."""
     counts = {"probe": [0, 0], "gossip": [0, 0]}     # syncs, ticks
+    state = _clone(state)
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for t in range(ticks):
@@ -287,24 +306,28 @@ def main_path_syncs(params, state, ticks: int = 10) -> dict:
     return per_tick
 
 
-def device_ms(fn, names, reps: int = 20, tries: int = 3) -> dict:
+def device_ms(fn, names, reps: int = 20, tries: int = 3,
+              make=None) -> dict:
     """Mean device ms per launch of each named kernel over `reps` calls of
     fn, from torch.profiler's kernel records: the kernel's own time,
     without the host dispatch that a CUDA-event timing of one call also
     holds when the call is host-bound, with the L2-evicting read of
-    kernel_ms before each call.  A profile whose records miss a named
-    kernel is taken again (up to `tries` profiles); the kernel ran either
-    way."""
+    kernel_ms before each call.  With `make`, fn takes an input make()
+    builds before the capture (a clone of a state fn consumes).  A
+    profile whose records miss a named kernel is taken again (up to
+    `tries` profiles); the kernel ran either way."""
     flush = profile_tick._flush()
+    call, make = profile_tick._calls(fn, make)
     for _ in range(3):
-        fn()
+        call(make())
     for attempt in range(tries):
+        inputs = [make() for _ in range(reps)]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for x in inputs:
                 flush.max()
-                fn()
+                call(x)
             torch.cuda.synchronize()
         out = {}
         for ev in prof.key_averages():
@@ -721,7 +744,7 @@ def events_call_after_fire(params, s) -> dict:
 def check_kernels_per_tick(params, state) -> dict:
     """Device kernels per gossip-only and per probe tick (torch.profiler,
     10 ticks of each), after the main path, as the bench scan runs them."""
-    _, per_tick = profile_tick.kernels_per_tick(params, state)
+    _, per_tick = profile_tick.kernels_per_tick(params, _clone(state))
     for kind in ("gossip", "probe"):
         k = per_tick[kind]
         log(f"kernels per {kind} tick: {k['kernels']} kernels, "
@@ -756,7 +779,7 @@ def check_kernels_per_tick(params, state) -> dict:
     require(not missing, f"probe tick: K9-K12 entry points not launched: "
             f"{missing} ({ {k: launched[k] for k in kernels.DETECTOR} })")
     count = per_tick["probe"]["kernels"]
-    log(f"kernels per probe tick: {count}, before K13 "
+    log(f"kernels per probe tick: {count}, with K8 in three launches "
         f"{PARENT_PROBE_KERNELS} (fall {PARENT_PROBE_KERNELS - count}); "
         f"K9-K12 launches {json.dumps({k: launched[k] for k in kernels.DETECTOR})}")
     require(count <= PROBE_KERNEL_CAP,
@@ -818,6 +841,26 @@ class Recorder:
         self.gauges[(name, tuple(sorted((labels or {}).items())))] = value
 
 
+def _leaves_equal(a, b):
+    """True when two serf states hold the same host mirrors and the same
+    bytes in every tensor leaf; else the names of the leaves that
+    differ."""
+    diff = []
+    for part in ("swim", "coords", "events"):
+        x, y = getattr(a, part), getattr(b, part)
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, torch.Tensor):
+                same = u.shape == v.shape and u.dtype == v.dtype and \
+                    torch.equal(u.reshape(-1).view(torch.uint8),
+                                v.reshape(-1).view(torch.uint8))
+            else:
+                same = u == v
+            if not same:
+                diff.append(f"{part}.{f.name}")
+    return diff or True
+
+
 def _advance_until(o, cond, what: str, step: int = 25,
                    limit: int = 1000) -> int:
     ticks = 0
@@ -851,9 +894,15 @@ def oracle_path(dev) -> tuple:
     o = GossipOracle(GossipConfig.lan(), ORACLE_SIM, device=dev,
                      hooks=rec.hooks())
     init_s = time.perf_counter() - t0
+    kept = o._state.clone()
     t0 = time.perf_counter()
     o.warmup()
     warmup_s = time.perf_counter() - t0
+    unchanged = _leaves_equal(kept, o._state)
+    log(f"oracle: warmup left every leaf of the pool's state unchanged: "
+        f"{unchanged}")
+    require(unchanged is True,
+            f"oracle: warmup changed the pool's state: {unchanged}")
     o.advance(1)
     joined = ORACLE_SIM.n_initial
     summary = o.members_summary()
@@ -1203,6 +1252,7 @@ def _random_chaos_call(dev, n: int, slots: int) -> dict:
 
 def fenced_ms_per_tick(params, s, ticks: int = 50) -> float:
     """Host wall ms per tick of `ticks` swim ticks from s, fenced."""
+    s = _clone(s)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     chaos.compiled_swim_run(params, ticks)(s)
@@ -1284,7 +1334,8 @@ def chaos_phase(dev, main_exchange_ms: float, for_phase_11: dict) -> tuple:
     captured = {}
     runs = {}
     for name in ("asym_degradation", "loss_burst", "crash_restart"):
-        kw = {"observe": lambda sw: captured.update(degradation=sw.state)} \
+        kw = {"observe": lambda sw: captured.update(
+            degradation=sw.state.clone())} \
             if name == "asym_degradation" else {}
         r = _chaos_scenario(name, dev, N, CHAOS_SLOTS, **kw)
         _chaos_gates(name, r)
@@ -1441,7 +1492,7 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
         s, rec, _ = correlated.run_chunk(params, s, 1, mask)
         curve.append(float(rec[0]))
         if at_bar is None and bool(s.bulk_member.any()) and _near_bar(s) > 0:
-            at_bar = s
+            at_bar = s.clone()
     require(curve == row["recall_curve"][:end],
             "the replay left the bench's recall curve")
     require(at_bar is not None, "no replayed tick had a busy bulk channel "
@@ -1586,7 +1637,7 @@ def _tick_profile(step, s, kind_of, ticks: int = 10):
     """Fenced host ms and device kernels (torch.profiler, a tick each) per
     tick kind, over `ticks` ticks of each kind from s."""
     ms = {"gossip": [], "probe": []}
-    st = s
+    st = _clone(s)
     while min(len(v) for v in ms.values()) < ticks:
         kind = kind_of(st)
         torch.cuda.synchronize()
@@ -1595,7 +1646,7 @@ def _tick_profile(step, s, kind_of, ticks: int = 10):
         torch.cuda.synchronize()
         ms[kind].append((time.perf_counter() - t0) * 1000.0)
     seen = {"gossip": [], "probe": []}
-    st = s
+    st = _clone(s)
     while min(len(v) for v in seen.values()) < ticks:
         kind = kind_of(st)
         torch.cuda.synchronize()
@@ -1648,7 +1699,7 @@ def wan_phase(dev, for_phase_11: dict) -> dict:
     for name in ("threefry_draws", "gossip_pack", "gossip_exchange"):
         require(launches[name] > 0, f"{name} never launched on the WAN path")
     require(reads > 0, "the bridge never read its tables")
-    for_phase_11["wan pool"] = (params.wan.swim, s.wan.swim)
+    for_phase_11["wan pool"] = (params.wan.swim, s.wan.swim.clone())
     dist = wan.dc_distance_matrix(params, s)
     require(bool(torch.isfinite(dist).all())
             and torch.allclose(dist, dist.T, rtol=1e-4, atol=0),
@@ -2015,11 +2066,11 @@ def vivaldi_phase(dev) -> dict:
 # phase 11: the probe round (K7) and rumor origination (K8)
 # ---------------------------------------------------------------------------
 
-# device kernels a main-path probe tick ran before K13 existed
-# (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W: observe_ring
-# was 74 of them), and the most a probe tick may run now
-PARENT_PROBE_KERNELS = 98
-PROBE_KERNEL_CAP = 40
+# device kernels a main-path probe tick ran while K8 was three launches
+# (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W), and the
+# most a probe tick may run now (each of its two K8 calls one launch)
+PARENT_PROBE_KERNELS = 25
+PROBE_KERNEL_CAP = 21
 # the plain twins of K7-K12 and K14 in models/swim.py, and K13's in
 # models/vivaldi.py
 SWIM_TWINS = ("_probe_pass_plain", "_probe_round_plain", "_originate_plain",
@@ -2097,14 +2148,24 @@ def _eviction(s, want) -> tuple:
     return evicting, int(done.sum()) if evicting else 0
 
 
+def _same_storage(x, y, fields, kernel: str, what: str) -> None:
+    """The in-place proof: each leaf of y is x's own tensor."""
+    for f in fields:
+        require(getattr(y, f).data_ptr() == getattr(x, f).data_ptr(),
+                f"{kernel} {what}: {f} is not the input's tensor (in place)")
+
+
 def hold_originate(params, s, want, kind: int, row_subject, what: str):
-    """K8 against its twin on one call: every state leaf and the
-    (subjects, slots, ok) of the allocation bit-equal, padding rows of the
-    top-A included.  Returns (evicting, slots released)."""
-    got = swim._originate(params, s, want, kind, s.incarnation, row_subject)
+    """K8 against its twin on one call, K8 on a clone of s: every state
+    leaf and the (subjects, slots, ok) of the allocation bit-equal,
+    padding rows of the top-A included, and the rows, committed leaves and
+    table the clone's own tensors.  Returns (evicting, slots released)."""
+    x = s.clone()
+    got = swim._originate(params, x, want, kind, x.incarnation, row_subject)
     ref = swim._originate_plain(params, s, want, kind, s.incarnation,
                                 row_subject)
     _state(got[0], ref[0], "K8", what)
+    _same_storage(x, got[0], swim.ORIGINATE_INPLACE, "K8", what)
     for a, b, name in zip(got[1], ref[1], ("subjects", "slots", "ok")):
         _same(a, b, f"{what} {name}", "K8")
     return _eviction(s, want)
@@ -2120,17 +2181,21 @@ def _random_want(n: int, dev, seed: int, p: float):
 
 def hold_probe(params, s, what: str, callers: bool = False) -> dict:
     """K7 and K8 against their twins on one state, every leaf bit-equal
-    (rtt_ms too: both take torch's IEEE sqrt on the card): the probe pass
-    alone; K8 on its wants as a suspect round and as a dead one, on random
-    wants of 1 and 2 (ties, more wanters than slots), on a single wanter
-    and on none; the whole round.  With `callers`, also the dense expiry
-    and rejoin/leave of the probe round's first target (K8's other
+    (rtt_ms too: both take torch's IEEE sqrt on the card), each kernel
+    call on a clone of its input (the kernels update it in place; the
+    twins are pure): the probe pass alone, its in-place leaves the clone's
+    own tensors; K8 on its wants as a suspect round and as a dead one, on
+    random wants of 1 and 2 (ties, more wanters than slots), on a single
+    wanter and on none; the whole round.  With `callers`, also the dense
+    expiry and rejoin/leave of the probe round's first target (K8's other
     callers) against the same calls with the twin."""
     maps = swim._maps(params, s)
     drawn = swim._probe_inputs(params, s)
-    got = swim._probe_pass(params, s, maps, drawn)
+    x = s.clone()
+    got = swim._probe_pass(params, x, maps, drawn)
     ref = swim._probe_pass_plain(params, s, maps, drawn)
     _state(got[0], ref[0], "K7", what)
+    _same_storage(x, got[0], swim.PROBE_INPLACE, "K7", what)
     _same(got[1], ref[1], f"{what} want", "K7")
     _same(got[2], ref[2], f"{what} row_subject", "K7")
     _same(got[3].rtt_ms, ref[3].rtt_ms, f"{what} rtt_ms", "K7")
@@ -2149,7 +2214,7 @@ def hold_probe(params, s, what: str, callers: bool = False) -> dict:
         hold_originate(params, s1, one, swim.LEFT, rows, f"{what} one wanter"),
         hold_originate(params, s1, torch.zeros_like(want), swim.SUSPECT, rows,
                        f"{what} no wanter")]
-    a = swim._probe_round(params, s, maps)
+    a = swim._probe_round(params, s.clone(), maps)
     b = swim._probe_round_plain(params, s, maps)
     _state(a[0], b[0], "K7+K8", what)
     for x, y, name in zip(a[2], b[2], ("suspect_of", "dead_of", "left_of",
@@ -2159,9 +2224,10 @@ def hold_probe(params, s, what: str, callers: bool = False) -> dict:
     _same(a[1].acked, b[1].acked, f"{what} acked", "K7+K8")
     if callers:
         node = int(drawn["offs"][0]) % n
-        kd = swim._dense_suspicion_expiry(params, s1, got[3].shift, maps)
-        kr = swim.rejoin(params, s, node)
-        kl = swim.leave(params, s, node)
+        kd = swim._dense_suspicion_expiry(params, s1.clone(), got[3].shift,
+                                          maps)
+        kr = swim.rejoin(params, s.clone(), node)
+        kl = swim.leave(params, s.clone(), node)
         with plain_originate():
             pd = swim._dense_suspicion_expiry(params, s1, got[3].shift, maps)
             pr = swim.rejoin(params, s, node)
@@ -2174,6 +2240,43 @@ def hold_probe(params, s, what: str, callers: bool = False) -> dict:
             "joined": int((ref[0].know & ~s.know).sum()),
             "evicting_calls": sum(e[0] for e in evictions),
             "released_slots": sum(e[1] for e in evictions)}
+
+
+def no_row_allocation(params, s, what: str) -> dict:
+    """K7 then K8 on a clone of s on the card, as a probe round runs them:
+    the leaves they write are the clone's own tensors, and neither call
+    allocates an [N, U] block (the peak of torch.cuda.memory_allocated
+    across each call grows by less than N * U bytes, the smallest [N, U]
+    leaf: their fresh outputs are [N] and [A])."""
+    x = s.clone()
+    maps = swim._maps(params, x)
+    drawn = swim._probe_inputs(params, x)
+    rows_bytes = x.know.numel()
+    grown = {}
+
+    def peak(name, fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        grown[name] = torch.cuda.max_memory_allocated() - base
+        return out
+
+    ptrs = {f: getattr(x, f).data_ptr() for f in swim.TENSOR_FIELDS}
+    s1, want, rows, _ = peak("K7", lambda: swim._probe_pass(params, x, maps,
+                                                            drawn))
+    s2, _ = peak("K8", lambda: swim._originate(
+        params, s1, want, swim.SUSPECT, s1.incarnation, rows))
+    for f in swim.TENSOR_FIELDS:
+        require(getattr(s2, f).data_ptr() == ptrs[f],
+                f"{what}: {f} left its tensor across K7 and K8")
+    log(f"{what}: bytes allocated at the peak of each call {grown} "
+        f"(an [N, U] bool is {rows_bytes})")
+    for name, b in grown.items():
+        require(b < rows_bytes, f"{what}: {name} allocated {b} bytes, an "
+                f"[N, U] block is {rows_bytes}")
+    return {"peak_growth_bytes": grown, "nu_bytes": rows_bytes}
 
 
 def _random_probe_state(dev, params, s, seed: int):
@@ -2227,78 +2330,137 @@ def _pool_states(dev, gossip, sim, kills, ticks: int, every: int = 3):
             for v in kills:
                 s = swim.kill(s, v)
         if t > 5 and s.tick % params.probe_period_ticks == 0:
-            out.append(s)
+            out.append(s.clone())
         s = swim.step(params, s)
     return params, out[::every]
 
 
-def _probe_bytes(params, s, maps) -> int:
-    """Least bytes of K7 on s, written in place: per prober its know row,
-    the 32-byte learn_tick sector of the target's suspect slot where there
-    is one, its draws, coords, the [N] leaves read at the target and the
-    per-node outputs; the joiner cells.  The fresh-output row copy is
-    counted apart (_copy_bytes)."""
+def _probe_bytes(params, s, maps, ref) -> int:
+    """Least bytes of K7 on s, written in place, given the twin's result
+    `ref` (state, want, row_subject, obs): per prober its know row, the
+    32-byte learn_tick sector of the target's suspect slot where it knows
+    the slot, its draws, coords, the [N] leaves read at the target and the
+    fresh [N] outputs (want, row_subject, rtt, acked: 13 bytes); the
+    sectors of the timers, awareness and joiner cells that change."""
     n, u = s.know.shape
     k = params.indirect_checks
     draws = 4 * (2 + (params.awareness_max > 0) + 3 * k)
     leaves = 5 + 4 + 16 + 9 + (params.awareness_max > 0) \
         + (6 if params.chaos else 0)
-    outs = 22 + (params.awareness_max > 0)
-    sectors = int((rolls.pull(maps[0], swim._probe_inputs(params, s)["offs"][0])
-                   >= 0).sum())
-    return n * (u + draws + 8 + leaves + outs) + 32 * sectors
+    ss = rolls.pull(maps[0], ref[3].shift)
+    known = (ss >= 0) & swim._row_gather(s.know, torch.where(ss < u, ss, -1))
+    out = ref[0]
+    changed = _written(*[(getattr(s, f), getattr(out, f))
+                         for f in swim.PROBE_INPLACE if f != "ctr"])
+    return n * (u + draws + 8 + leaves + 13) + 32 * int(known.sum()) + changed
+
+
+def _originate_bytes(s, want, row_subject, evicting: bool, ref) -> int:
+    """Least bytes of K8 given the twin's state `ref`: want and
+    row_subject, the [U] table, with an eviction know and up/member; the
+    sectors of the rows and committed leaves it changes."""
+    n, u = s.know.shape
+    changed = _written(*[(getattr(s, f), getattr(ref, f))
+                         for f in swim.ORIGINATE_INPLACE[:6]])
+    return 8 * n + 40 * u + ((u + 2) * n if evicting else 0) + changed
 
 
 def _copy_bytes(s, cell_bytes: int = 4) -> int:
     """The fresh-output copy of [N, U] rows, `cell_bytes` a cell read and
-    as many written: know, learn_tick and sends_left are 4 (K7, K8, K10,
-    the refutation), learn_tick and sends_left 3 (K11), know and
-    sends_left 2 (expire)."""
+    as many written: know, learn_tick and sends_left are 4 (K10, the
+    refutation), learn_tick and sends_left 3 (K11), know and sends_left 2
+    (expire)."""
     n, u = s.know.shape
     return 2 * cell_bytes * n * u
 
 
-def _originate_bytes(s, want, row_subject, evicting: bool) -> int:
-    """Least bytes of K8: want and row_subject, the seeded cells (4 bytes)
-    and the [U] table; with an eviction also know and up/member."""
-    n, u = s.know.shape
-    seeded = int((row_subject >= 0).sum())
-    return 8 * n + 4 * seeded + 40 * u + ((u + 2) * n if evicting else 0)
+# originate.cu's kStamps: the phase stamps of its instrumented build
+K8_STAMPS = 192
+K8_PHASES = ("select", "merge_decide", "barrier", "evict", "seed")
+
+
+@contextlib.contextmanager
+def _k8_instrumented():
+    """K8's entry point taken from originate.cu built alone with
+    -DORIGINATE_PHASE_TIMES while the block runs (the wrapper, its checks
+    and its count unchanged)."""
+    lib = ctypes.CDLL(str(build.variant("originate.cu",
+                                        "ORIGINATE_PHASE_TIMES")))
+    fn = lib.originate
+    fn.argtypes = kernels.SIGNATURES["originate"]
+    fn.restype = ctypes.c_int
+    base = kernels.library()
+
+    class Swap:
+        originate = fn
+
+        def __getattr__(self, name):
+            return getattr(base, name)
+
+    kernels._lib = Swap()
+    try:
+        yield
+    finally:
+        kernels._lib = base
+
+
+def k8_phase_ms(call, make, reps: int = 10) -> dict:
+    """Median ms of each phase of K8 on make()'s input (clones), from its
+    instrumented build's %globaltimer stamps: the select until its
+    slowest block, the global merge and decision in the last block, the
+    grid barrier, the eviction's coverage count, decision and barrier (0
+    without one), the seed until its slowest block."""
+    dev = torch.device("cuda", 0)
+    runs = []
+    with _k8_instrumented():
+        for _ in range(reps + 1):
+            x = make()
+            call(x)                     # the scratch exists after one call
+            sc = kernels._scratch[(dev, "originate")]
+            x = make()
+            n = len(K8_PHASES)
+            sc[K8_STAMPS:K8_STAMPS + n + 1].zero_()
+            torch.cuda.synchronize()
+            call(x)
+            torch.cuda.synchronize()
+            t = sc[K8_STAMPS:K8_STAMPS + n + 1].tolist()
+            runs.append([(t[k + 1] - t[k]) / 1e6 for k in range(n)])
+    runs = runs[1:]
+    return {name: sorted(r[k] for r in runs)[len(runs) // 2]
+            for k, name in enumerate(K8_PHASES)}
 
 
 def time_probe(params, s, what: str) -> dict:
     """K7 and K8 timed at one state: device ms (torch.profiler's kernel
     records, L2 evicted), the wrapper call, the twins, the bounds, and
-    torch.topk of the wants beside K8's select."""
+    torch.topk of the wants beside K8's select.  Each kernel call gets a
+    clone of its input, made outside the timed window."""
     maps = swim._maps(params, s)
     drawn = swim._probe_inputs(params, s)
-    s1, want, rows, _ = swim._probe_pass_plain(params, s, maps, drawn)
-    k7 = device_ms(lambda: swim._probe_pass(params, s, maps, drawn),
-                   ("probe_round_kernel",))["probe_round_kernel"]
-    phases = ("originate_select_kernel", "originate_commit_kernel",
-              "originate_seed_kernel")
-    k8 = device_ms(lambda: swim._originate(params, s1, want, swim.SUSPECT,
-                                           s1.incarnation, rows), phases)
+    ref7 = swim._probe_pass_plain(params, s, maps, drawn)
+    s1, want, rows, _ = ref7
+    ref8 = swim._originate_plain(params, s1, want, swim.SUSPECT,
+                                 s1.incarnation, rows)[0]
+    k7 = lambda x: swim._probe_pass(params, x, maps, drawn)  # noqa: E731
+    k8 = lambda x: swim._originate(params, x, want, swim.SUSPECT,  # noqa: E731
+                                   x.incarnation, rows)
     evicting, released = _eviction(s1, want)
-    b7, b8 = _probe_bytes(params, s, maps), _originate_bytes(s1, want, rows,
-                                                            evicting)
-    copy = _copy_bytes(s)
-    t = {"k7_ms": k7,
-         "k7_call_ms": median_ms(lambda: swim._probe_pass(params, s, maps,
-                                                          drawn)),
+    b7 = _probe_bytes(params, s, maps, ref7)
+    b8 = _originate_bytes(s1, want, rows, evicting, ref8)
+    t = {"k7_ms": device_ms(k7, ("probe_round_kernel",),
+                            make=s.clone)["probe_round_kernel"],
+         "k7_call_ms": median_ms(k7, make=s.clone),
          "k7_plain_ms": median_ms(lambda: swim._probe_pass_plain(
              params, s, maps, drawn), reps=5),
          "k7_bound_ms": b7 / HBM_BYTES_PER_S * 1000.0, "k7_bound_bytes": b7,
-         "k8_ms": sum(k8.values()),
-         "k8_phase_ms": {k.split("_")[1]: v for k, v in k8.items()},
-         "k8_call_ms": median_ms(lambda: swim._originate(
-             params, s1, want, swim.SUSPECT, s1.incarnation, rows)),
+         "k8_ms": device_ms(k8, ("originate_kernel",),
+                            make=s1.clone)["originate_kernel"],
+         "k8_call_ms": median_ms(k8, make=s1.clone),
          "k8_plain_ms": median_ms(lambda: swim._originate_plain(
              params, s1, want, swim.SUSPECT, s1.incarnation, rows), reps=5),
          "k8_bound_ms": b8 / HBM_BYTES_PER_S * 1000.0, "k8_bound_bytes": b8,
+         "k8_phase_ms": k8_phase_ms(k8, s1.clone),
          "k8_evicting": evicting, "k8_released": released,
-         "row_copy_bytes": copy,
-         "row_copy_ms_at_hbm": copy / HBM_BYTES_PER_S * 1000.0,
          "topk_ms": kernel_ms(lambda: torch.topk(want, params.alloc_cap)),
          "topk_call_ms": median_ms(lambda: torch.topk(want, params.alloc_cap))}
     log(f"K7/K8 timed at {what}: " + json.dumps(t))
@@ -2311,6 +2473,7 @@ def fenced_main_ticks(params, s, ticks: int = 50) -> dict:
     out = torch.empty(1, dtype=torch.float32, device=s.swim.device)
     period = params.swim.probe_period_ticks
     walls = {"probe": [], "gossip": []}
+    s = _clone(s)
     for _ in range(ticks):
         kind = "probe" if s.swim.tick % period == 0 else "gossip"
         torch.cuda.synchronize()
@@ -2344,7 +2507,7 @@ def probe_phase(dev, main: dict, states: dict) -> tuple:
     t0 = time.perf_counter()
     # the main path replayed from the seed to its first suspect rumor
     _, s, _ = bench.prepare(device=dev)
-    at_kill = s.swim
+    at_kill = s.swim.clone()
     first = None
     for _ in range(200):
         s = serf.step(params, s)
@@ -2401,6 +2564,10 @@ def probe_phase(dev, main: dict, states: dict) -> tuple:
     require(released > 0, "no K8 hold released a slot")
     require(sum(h["joined"] for h in held.values()) > 0,
             "no K7 hold seeded a joiner cell")
+    in_place = {"first_suspicion": no_row_allocation(p, first,
+                                                     "first_suspicion"),
+                "evicting": no_row_allocation(*states["correlated near_bar"],
+                                              "correlated near_bar")}
 
     timed = {"first_suspicion": time_probe(p, first, "first_suspicion"),
              "final": time_probe(p, main_states["final"], "final"),
@@ -2419,8 +2586,7 @@ def probe_phase(dev, main: dict, states: dict) -> tuple:
          "launches": launches["probe_round"], "max_abs_err": 0.0,
          "ms": t["k7_ms"], "call_ms": t["k7_call_ms"],
          "plain_ms": t["k7_plain_ms"], "bound_ms": t["k7_bound_ms"],
-         "bound_by": "bytes", "library_ms": None,
-         "row_copy_ms_at_hbm": t["row_copy_ms_at_hbm"], "shape": shape},
+         "bound_by": "bytes", "library_ms": None, "shape": shape},
         {"name": "originate", "route": "cuda",
          "source": "consul_tpu_torch/kernels/csrc/originate.cu",
          "replaces": "consul_tpu/models/swim.py:605",
@@ -2429,9 +2595,10 @@ def probe_phase(dev, main: dict, states: dict) -> tuple:
          "plain_ms": t["k8_plain_ms"], "bound_ms": t["k8_bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "topk_ms": t["topk_ms"], "evicting_ms": timed["evicting"]["k8_ms"],
-         "row_copy_ms_at_hbm": t["row_copy_ms_at_hbm"],
+         "evicting_bound_ms": timed["evicting"]["k8_bound_ms"],
          "shape": [p.n_nodes, p.rumor_slots, p.alloc_cap]}]
-    return entries, {"held": held, "timed": timed, "fenced_main_ticks": ticks}
+    return entries, {"held": held, "timed": timed, "fenced_main_ticks": ticks,
+                     "in_place": in_place}
 
 
 # ---------------------------------------------------------------------------
@@ -2489,8 +2656,8 @@ def hold_detector(params, s, what: str) -> dict:
     maps = swim._maps(params, s)
     _maps_same(maps, ref, f"{what} maps")
     drawn = swim._probe_inputs(params, s)
-    s0, want, rows, obs = swim._probe_pass(params, s, maps, drawn)
-    s1, alloc = swim._originate(params, s0, want, swim.SUSPECT,
+    s0, want, rows, obs = swim._probe_pass(params, s.clone(), maps, drawn)
+    s1, alloc = swim._originate(params, s0.clone(), want, swim.SUSPECT,
                                 s0.incarnation, rows)
     evicted = int((s0.r_active & ((s1.r_subject != s0.r_subject)
                                   | (s1.r_kind != s0.r_kind)
@@ -2508,7 +2675,7 @@ def hold_detector(params, s, what: str) -> dict:
                f"{what} maps_convert")
     stale = sum(int((x != y).sum())
                 for x, y in zip(maps2, swim._maps_plain(params, s2)))
-    s3 = swim._dense_suspicion_expiry(params, s2, obs.shift, maps2)
+    s3 = swim._dense_suspicion_expiry(params, s2.clone(), obs.shift, maps2)
     with plain_originate():
         p3 = swim._dense_suspicion_expiry_plain(params, s2, obs.shift, maps2)
     _state(s3, p3, "K11", what)
@@ -2604,9 +2771,9 @@ def _replay_events(params, s, ticks: int) -> dict:
         return out
 
     def spy_dense(pp, st, shift, maps):
+        suspect = st.r_active & (st.r_kind == swim.SUSPECT)   # before K8
         out = saved["_dense_suspicion_expiry"](pp, st, shift, maps)
-        seen["dense"] = bool((st.r_active & (st.r_kind == swim.SUSPECT)
-                              & (out.r_kind == swim.DEAD)).any())
+        seen["dense"] = bool((suspect & (out.r_kind == swim.DEAD)).any())
         return out
 
     def spy_refute(pp, st):
@@ -2626,7 +2793,7 @@ def _replay_events(params, s, ticks: int) -> dict:
         for name, fn in spies.items():
             setattr(swim, name, fn)
         for _ in range(ticks):
-            before = s
+            before = s.clone()
             seen.clear()
             s = serf.step(params, s)
             for event, hit in seen.items():
@@ -2751,12 +2918,12 @@ def time_detector(params, s) -> dict:
     and adding the origination's pairs to one."""
     maps = swim._maps(params, s)
     drawn = swim._probe_inputs(params, s)
-    s1, want, rows, obs = swim._probe_pass(params, s, maps, drawn)
+    s1, want, rows, obs = swim._probe_pass(params, s.clone(), maps, drawn)
     s1, alloc = swim._originate(params, s1, want, swim.SUSPECT,
                                 s1.incarnation, rows)
     s2, conv = swim._suspicion_expiry(params, s1)
     maps2 = swim._maps_convert(maps, s2, conv)
-    s3 = swim._dense_suspicion_expiry(params, s2, obs.shift, maps2)
+    s3 = swim._dense_suspicion_expiry(params, s2.clone(), obs.shift, maps2)
     calls = {
         "subject_maps": (lambda: swim._maps(params, s),
                          lambda: swim._maps_plain(params, s), s, ()),
@@ -2769,10 +2936,11 @@ def time_detector(params, s) -> dict:
         "suspicion_expiry": (lambda: swim._suspicion_expiry(params, s1),
                              lambda: swim._suspicion_expiry_plain(params, s1),
                              s1, ()),
-        "dense_expiry": (lambda: swim._dense_suspicion_expiry(
-            params, s2, obs.shift, maps2), lambda: swim.
+        # K8 inside updates its input in place: a clone a call
+        "dense_expiry": (lambda st: swim._dense_suspicion_expiry(
+            params, st, obs.shift, maps2), lambda: swim.
             _dense_suspicion_expiry_plain(params, s2, obs.shift, maps2), s2,
-            (maps2,)),
+            (maps2,), s2.clone),
         "refutation": (lambda: swim._refutation(params, s3),
                        lambda: swim._refutation_plain(params, s3), s3, ()),
         "expire": (lambda: swim._expire(params, s3),
@@ -2793,15 +2961,18 @@ def time_detector(params, s) -> dict:
     _same(library["map_add"](), swim._map_add(maps[0], *alloc),
           "map_add library call", "K9")
     out = {}
-    for name, (call, plain, at, extra) in calls.items():
+    for name, (call, plain, at, extra, *make) in calls.items():
+        make = make[0] if make else None
         names = DETECTOR_ENTRIES[name][0]
-        phases = device_ms(call, names)
-        b = _detector_bytes(params, at, name, call(), *extra)
+        phases = device_ms(call, names, make=make)
+        b = _detector_bytes(params, at, name,
+                            call(make()) if make else call(), *extra)
         copy = _copy_bytes(at, ROW_COPY_CELL_BYTES.get(name, 0))
         out[name] = {
             "ms": sum(phases.values()),
             "phase_ms": phases if len(phases) > 1 else None,
-            "call_ms": median_ms(call), "plain_ms": median_ms(plain, reps=5),
+            "call_ms": median_ms(call, make=make),
+            "plain_ms": median_ms(plain, reps=5),
             "bound_ms": b / HBM_BYTES_PER_S * 1000.0, "bound_bytes": b,
             "row_copy_bytes": copy,
             "row_copy_ms_at_hbm": copy / HBM_BYTES_PER_S * 1000.0,
@@ -2821,7 +2992,7 @@ def _correlated_overflow_state(dev) -> tuple:
     last = None
     for _ in range(2000):
         if s.tick % params.probe_period_ticks == 0:
-            last = s
+            last = s.clone()
         s, _, _ = correlated.run_chunk(params, s, 1, mask)
         if bool(s.bulk_member.any()):
             return params, last
@@ -2845,7 +3016,7 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
     held = {}
     t0 = time.perf_counter()
     _, s, _ = bench.prepare(device=dev)
-    at_kill = s.swim
+    at_kill = s.swim.clone()
     events = _replay_events(params, s, 300)
     log(f"main path replay: first probe ticks with each event: "
         f"{ {k: v.tick for k, v in events.items()} }")
@@ -2937,7 +3108,7 @@ def _probe_obs(params, s) -> tuple:
     """(s, obs): the serf state at the first probe tick from s on, and
     that tick's probe observations."""
     while True:
-        _, obs = swim.step_with_obs(params.swim, s.swim)
+        _, obs = swim.step_with_obs(params.swim, s.swim.clone())
         if obs is not None:
             return s, obs
         s = serf.step(params, s)
@@ -3007,7 +3178,7 @@ def _bulk_tick(params, s) -> tuple:
     real = swim._bulk_step
     swim._bulk_step = lambda p, st: (seen.append(st), real(p, st))[1]
     try:
-        nxt = swim.step(params, s)
+        nxt = swim.step(params, s.clone())
     finally:
         swim._bulk_step = real
     return (seen[0] if seen else None), nxt

@@ -31,8 +31,8 @@ CHAOS = ("gossip_exchange_chaos", "mass_detect")
 # anti-entropy's set reconciliation (K6): the diff, and the compaction +
 # merge (three device kernels behind one entry point, counted once)
 RECONCILE = ("reconcile_diff", "reconcile_merge")
-# the probe round (K7) and rumor origination (K8: three device kernels
-# behind one entry point, counted once)
+# the probe round (K7) and rumor origination (K8: one cooperative launch),
+# both writing the state they are given in place
 PROBE = ("probe_round", "originate")
 # the rest of the probe tick's detector passes: the subject maps and their
 # updates (K9), suspicion expiry (K10: scan + apply behind one entry
@@ -92,9 +92,9 @@ SIGNATURES = {
     "mass_detect": [_P] * 11 + [_I64, _I, _P, _P, _P, _P],
     "reconcile_diff": [_P] * 4 + [_I64, _I64, _P, _P, _P],
     "reconcile_merge": [_P] * 8 + [_I64, _I64, _P, _I64, _P, _P, _P, _P],
-    "probe_round": [_P] * 34 + [_I64] + [_I] * 7 + [_U32] + [_F32] * 5
-    + [_I] * 3 + [_P, _I] + [_P] * 14,
-    "originate": [_P] * 18 + [_I64] + [_I] * 6 + [_P, _I] + [_P] * 17,
+    "probe_round": [_P] * 34 + [_I64] + [_I] * 6 + [_U32] + [_F32] * 5
+    + [_I] * 3 + [_P, _I] + [_P] * 5,
+    "originate": [_P] * 18 + [_I64] + [_I] * 6 + [_P, _I] + [_P] * 4,
     "subject_maps": [_P] * 4 + [_I64, _I] + [_P] * 5,
     "map_add": [_P] * 4 + [_I64, _I] + [_P] * 2,
     "maps_convert": [_P] * 4 + [_I64, _I] + [_P] * 3,
@@ -636,8 +636,8 @@ def launch_reconcile_merge(d_ids, d_ver, d_node, push, a_ids, a_ver, a_node,
 PROBE_COUNTERS = 4      # probe.cu's kCounters: probed, acked, failed, started
 PROBE_MAX_RELAYS = 16   # probe.cu's kMaxRelays
 # originate.cu's scratch: the plan words before the per-block lists, and
-# the select launch's most blocks (each writes A <= 64 keys)
-ORIGINATE_PLAN = 201
+# the select phase's most blocks (each writes A <= 64 keys)
+ORIGINATE_PLAN = 198
 ORIGINATE_LIST_BLOCKS = 1024
 _BOOL, _I8, _I16, _I32, _F = (torch.bool, torch.int8, torch.int16,
                               torch.int32, torch.float32)
@@ -666,16 +666,16 @@ def launch_probe_round(*, up, member, awareness, coords, committed_dead,
                        degraded: bool, seed: int, ok_good: float,
                        ok_bad: float, degraded_frac: float,
                        probe_timeout_ms: float, rtt_base_ms: float, tick: int,
-                       tick16: int, limit: int, know_out, learn_out,
-                       sends_out, awareness_out, r_confirm_out, sus_start_out,
-                       sus_confirm_out, sus_count_out, ctr_out, want_out,
-                       row_subject_out, rtt_out, acked_out) -> None:
+                       tick16: int, limit: int, want_out, row_subject_out,
+                       rtt_out, acked_out) -> None:
     """K7: one probe round of the pool.  Reads the state's leaves, the [N]
     subject maps, the int16 timeout table [65] and the round's draws (offs
     [1 + k] int32, rtt/direct/lha [N] and the relay legs [N, k] float32;
     lha None when awareness_max is 0, the legs None when k is 0; chaos_grp
-    and chaos_ok None outside the chaos build); writes every *_out whole
-    (awareness_out None when awareness_max is 0)."""
+    and chaos_ok None outside the chaos build).  Updates know, learn_tick,
+    sends_left, awareness (when awareness_max > 0), sus_start,
+    sus_confirm, sus_count, r_confirm and ctr in place, where they change;
+    writes want_out, row_subject_out, rtt_out and acked_out whole."""
     dev = know.device if know is not None else None
     n, u = _slot_rows("probe_round", know, learn_tick, sends_left, dev)
     k = offs.shape[0] - 1 if offs is not None and offs.dim() == 1 else -1
@@ -705,36 +705,31 @@ def launch_probe_round(*, up, member, awareness, coords, committed_dead,
                   (suspect_of, "suspect_of", _I32), (dead_of, "dead_of", _I32),
                   (left_of, "left_of", _I32), (alive_val, "alive_val", _I32),
                   (rtt_draw, "rtt_draw", _F), (direct, "direct", _F),
-                  (sus_start_out, "sus_start_out", _I32),
-                  (sus_confirm_out, "sus_confirm_out", _I8),
-                  (sus_count_out, "sus_count_out", _I32),
                   (want_out, "want_out", _I32),
                   (row_subject_out, "row_subject_out", _I32),
                   (rtt_out, "rtt_out", _F), (acked_out, "acked_out", _BOOL))
     _require(coords, "probe_round coords", _F, dev, (n, 2))
+    if coords.data_ptr() % 8:
+        raise ValueError("probe_round: coords must be 8-byte aligned (a "
+                         "float2 a row)")
     if _rumor_table(r_active, r_kind, r_subject, dev, "probe_round") != u:
         raise ValueError(f"probe_round: the rumor table has "
                          f"{r_active.shape[0]} slots, know {u}")
     for t, what, dt, shape in (
             (r_inc, "r_inc", _I32, (u,)), (r_confirm, "r_confirm", _I8, (u,)),
-            (r_confirm_out, "r_confirm_out", _I8, (u,)),
             (timeouts, "timeout table", _I16, (TIMEOUTS,)),
-            (offs, "offs", _I32, (k + 1,)), (ctr, "ctr", _F, (c,)),
-            (ctr_out, "ctr_out", _F, (c,))):
+            (offs, "offs", _I32, (k + 1,)), (ctr, "ctr", _F, (c,))):
         _require(t, "probe_round " + what, dt, dev, shape)
-    _slot_rows("probe_round out", know_out, learn_out, sends_out, dev)
     if (chaos_grp is None) != (chaos_ok is None):
         raise ValueError("probe_round: chaos_grp and chaos_ok come together")
     if chaos_grp is not None:
         _node_vectors("probe_round", dev, n, (chaos_grp, "chaos_grp", _I16),
                       (chaos_ok, "chaos_ok", _F))
-    if (awareness_max > 0) != (lha is not None) or \
-            (awareness_max > 0) != (awareness_out is not None):
-        raise ValueError("probe_round: lha and awareness_out come with "
-                         "awareness_max > 0, and only then")
+    if (awareness_max > 0) != (lha is not None):
+        raise ValueError("probe_round: lha comes with awareness_max > 0, "
+                         "and only then")
     if awareness_max > 0:
-        _node_vectors("probe_round", dev, n, (lha, "lha", _F),
-                      (awareness_out, "awareness_out", _I8))
+        _node_vectors("probe_round", dev, n, (lha, "lha", _F))
     legs = (leg_a, leg_b, leg_c)
     if any((t is None) != (k == 0) for t in legs):
         raise ValueError("probe_round: the three relay legs come with k > 0, "
@@ -755,15 +750,12 @@ def launch_probe_round(*, up, member, awareness, coords, committed_dead,
         suspect_of.data_ptr(), dead_of.data_ptr(), left_of.data_ptr(),
         alive_val.data_ptr(), ctr.data_ptr(), offs.data_ptr(),
         rtt_draw.data_ptr(), direct.data_ptr(), _ptr(lha), _ptr(leg_a),
-        _ptr(leg_b), _ptr(leg_c), n, u, 2, k, awareness_max,
+        _ptr(leg_b), _ptr(leg_c), n, u, k, awareness_max,
         int(chaos_grp is not None), int(degraded), c, seed & 0xFFFFFFFF,
         ok_good, ok_bad, degraded_frac, probe_timeout_ms, rtt_base_ms, tick,
-        tick16, limit, scratch.data_ptr(), SCRATCH_BLOCKS, know_out.data_ptr(),
-        learn_out.data_ptr(), sends_out.data_ptr(), _ptr(awareness_out),
-        r_confirm_out.data_ptr(), sus_start_out.data_ptr(),
-        sus_confirm_out.data_ptr(), sus_count_out.data_ptr(),
-        ctr_out.data_ptr(), want_out.data_ptr(), row_subject_out.data_ptr(),
-        rtt_out.data_ptr(), acked_out.data_ptr(), _stream(dev))
+        tick16, limit, scratch.data_ptr(), SCRATCH_BLOCKS,
+        want_out.data_ptr(), row_subject_out.data_ptr(), rtt_out.data_ptr(),
+        acked_out.data_ptr(), _stream(dev))
     _check(rc, "probe_round")
     LAUNCHES["probe_round"] += 1
 
@@ -772,17 +764,14 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
                      learn_tick, sends_left, committed_dead, committed_left,
                      committed_inc, r_active, r_kind, r_subject, r_inc,
                      r_start, r_confirm, r_coverage, alloc: int, kind: int,
-                     tick: int, tick16: int, limit: int, know_out, learn_out,
-                     sends_out, committed_dead_out, committed_left_out,
-                     committed_inc_out, r_active_out, r_kind_out,
-                     r_subject_out, r_inc_out, r_start_out, r_confirm_out,
-                     r_coverage_out, subjects_out, slots_out, ok_out) -> None:
+                     tick: int, tick16: int, limit: int, subjects_out,
+                     slots_out, ok_out) -> None:
     """K8: allocate up to `alloc` rumor slots of `kind` for the subjects
     with want [N] int32 > 0, evicting fully disseminated non-suspect slots
     when demand exceeds the free slots, and seed the rows whose
-    row_subject names an allocated subject.  Writes every *_out whole:
-    the [N, U] rows, the committed [N] leaves, the [U] table and the
-    (subjects, slots, ok) [alloc] of the allocation."""
+    row_subject names an allocated subject.  Updates the [N, U] rows, the
+    committed [N] leaves and the [U] table in place, where they change;
+    writes the (subjects, slots, ok) [alloc] of the allocation whole."""
     dev = know.device if know is not None else None
     n, u = _slot_rows("originate", know, learn_tick, sends_left, dev)
     if not 1 <= alloc <= min(u, n):
@@ -797,10 +786,7 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
                   (up, "up", _BOOL), (member, "member", _BOOL),
                   (committed_dead, "committed_dead", _BOOL),
                   (committed_left, "committed_left", _BOOL),
-                  (committed_inc, "committed_inc", _I32),
-                  (committed_dead_out, "committed_dead_out", _BOOL),
-                  (committed_left_out, "committed_left_out", _BOOL),
-                  (committed_inc_out, "committed_inc_out", _I32))
+                  (committed_inc, "committed_inc", _I32))
     if _rumor_table(r_active, r_kind, r_subject, dev, "originate") != u:
         raise ValueError(f"originate: the rumor table has "
                          f"{r_active.shape[0]} slots, know {u}")
@@ -808,18 +794,10 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
             (r_inc, "r_inc", _I32, (u,)), (r_start, "r_start", _I32, (u,)),
             (r_confirm, "r_confirm", _I8, (u,)),
             (r_coverage, "r_coverage", _F, (u,)),
-            (r_active_out, "r_active_out", _BOOL, (u,)),
-            (r_kind_out, "r_kind_out", _I8, (u,)),
-            (r_subject_out, "r_subject_out", _I32, (u,)),
-            (r_inc_out, "r_inc_out", _I32, (u,)),
-            (r_start_out, "r_start_out", _I32, (u,)),
-            (r_confirm_out, "r_confirm_out", _I8, (u,)),
-            (r_coverage_out, "r_coverage_out", _F, (u,)),
             (subjects_out, "subjects_out", _I32, (alloc,)),
             (slots_out, "slots_out", _I32, (alloc,)),
             (ok_out, "ok_out", _BOOL, (alloc,))):
         _require(t, "originate " + what, dt, dev, shape)
-    _slot_rows("originate out", know_out, learn_out, sends_out, dev)
     scratch = _scratch_words(dev, "originate",
                              ORIGINATE_PLAN + 64 * ORIGINATE_LIST_BLOCKS)
     rc = library().originate(
@@ -831,13 +809,8 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
         r_subject.data_ptr(), r_inc.data_ptr(), r_start.data_ptr(),
         r_confirm.data_ptr(), r_coverage.data_ptr(), n, u, alloc, kind, tick,
         tick16, limit, scratch.data_ptr(), ORIGINATE_LIST_BLOCKS,
-        know_out.data_ptr(), learn_out.data_ptr(), sends_out.data_ptr(),
-        committed_dead_out.data_ptr(), committed_left_out.data_ptr(),
-        committed_inc_out.data_ptr(), r_active_out.data_ptr(),
-        r_kind_out.data_ptr(), r_subject_out.data_ptr(), r_inc_out.data_ptr(),
-        r_start_out.data_ptr(), r_confirm_out.data_ptr(),
-        r_coverage_out.data_ptr(), subjects_out.data_ptr(),
-        slots_out.data_ptr(), ok_out.data_ptr(), _stream(dev))
+        subjects_out.data_ptr(), slots_out.data_ptr(), ok_out.data_ptr(),
+        _stream(dev))
     _check(rc, "originate")
     LAUNCHES["originate"] += 1
 

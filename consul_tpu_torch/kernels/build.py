@@ -103,6 +103,29 @@ def build() -> Path:
     return lib
 
 
+def variant(source: str, macro: str, value: int = 1) -> Path:
+    """A shared library of csrc/`source` alone, compiled as build()
+    compiles it with -D`macro`=value (an instrumented form of one kernel,
+    for a measurement), reused while the source and flags are unchanged."""
+    src = CSRC / source
+    h = hashlib.sha256(f"{macro}={value}".encode())
+    h.update(_digest([src, *sorted(CSRC.glob("*.cuh"))]).encode())
+    lib = BUILD_DIR / f"{src.stem}-{macro}-{h.hexdigest()[:12]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH, *CFLAGS, f"-D{macro}={value}", "-shared",
+           str(src), "-o", str(tmp)]
+    out = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source} with {macro}={value}:"
+                           f"\n{out.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
 _SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(.+?)\s*;")
 
 

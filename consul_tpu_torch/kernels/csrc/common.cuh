@@ -282,25 +282,38 @@ __device__ __forceinline__ uint64_t row_mask(const uint8_t* k, int S) {
   return m;
 }
 
+// The 32 x 32 bit matrix whose row r is lane r's x, transposed: lane l
+// gets column l (bit r = bit l of lane r's x).  Five shuffle stages, each
+// swapping the off-diagonal blocks of the next smaller size.
+__device__ __forceinline__ uint32_t warp_transpose(uint32_t x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const uint32_t m = j == 16 ? 0x0000ffffu : j == 8 ? 0x00ff00ffu
+                     : j == 4 ? 0x0f0f0f0fu : j == 2 ? 0x33333333u : 0x55555555u;
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? (x & ~m) | ((y & ~m) >> j) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
 // Column counts of [N, S] bool rows over a warp: each lane passes its
 // row's slot mask m (0 for a row that does not count) and lane l adds,
-// for slots l and l + 32, how many of the warp's 32 masks hold the slot.
-// One ballot a slot; a warp whose masks are all 0 adds nothing.  Every
-// lane of the warp must call it.  (The [N, U] -> [U] live-coverage
-// reduction of mass_detection_stats, _expire and _originate: K5, K8.)
+// for slots l and l + 32, how many of the warp's 32 masks hold the slot:
+// the popcount of column l of the masks' bit matrix, one transpose a
+// 32-slot half; a warp whose masks are all 0 adds nothing.  Every lane of
+// the warp must call it.  (The [N, U] -> [U] live-coverage reduction of
+// mass_detection_stats, _expire and _originate: K5, K12, K8.)
 __device__ __forceinline__ void warp_column_counts(uint64_t m, int S,
                                                    uint32_t (&cnt)[2]) {
   if (!__any_sync(0xffffffffu, m != 0)) return;
-  const int lane = threadIdx.x & 31;
-  for (int u = 0; u < S; ++u) {
-    const unsigned b = __ballot_sync(0xffffffffu, (m >> u) & 1u);
-    if ((u & 31) == lane) cnt[u >> 5] += __popc(b);
-  }
+  cnt[0] += __popc(warp_transpose(static_cast<uint32_t>(m)));
+  if (S > 32) cnt[1] += __popc(warp_transpose(static_cast<uint32_t>(m >> 32)));
 }
 
 // Bytes [0, bytes) of src copied into dst by the 32 lanes of a warp:
-// 16-byte vectors where both are aligned, bytes for the rest.  (K7's and
-// K8's fresh-output row copies: a warp's 32 contiguous rows at a time.)
+// 16-byte vectors where both are aligned, bytes for the rest.  (K10-K12's
+// fresh-output row copies: a warp's 32 contiguous rows at a time.)
 __device__ __forceinline__ void warp_copy(void* dst, const void* src,
                                           int64_t bytes, int lane) {
   uint8_t* d = static_cast<uint8_t*>(dst);

@@ -22,7 +22,8 @@
 //     down among victims and among live rows;
 //   * a live row's know bytes become its slot mask (16-byte loads where
 //     the row is aligned), and common.cuh:warp_column_counts turns 32
-//     rows' masks into per-slot counts with one ballot a slot;
+//     rows' masks into per-slot counts (a warp bit transpose and a
+//     popcount a slot);
 //   * each block sums its counters (shuffles) and its slot counts (shared
 //     atomics) and adds them to a per-call scratch, one global atomic a
 //     counter; then the last block to finish (a fence and a done count)
@@ -71,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) mass_detect_kernel(
   const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  // warp-uniform trip count: every lane reaches the column ballots
+  // warp-uniform trip count: every lane reaches the column counts
   for (int64_t i0 = tid - lane; i0 < N; i0 += stride) {
     const int64_t i = i0 + lane;
     uint64_t m = 0;

@@ -9,48 +9,66 @@
 // the [N] wants, lax.top_k over the [U] free slots, six [U] table scatters
 // and an [N, A] subject match that seeds the originating rows.
 //
-// Three launches behind one entry point:
-//   1. select, a persistent grid over N: each warp keeps the top A of
-//      (want, index) as a sorted list spread over its lanes (a 64-bit key:
-//      the order-preserving want above the complemented index, so "larger
-//      key" is lax.top_k's order, earlier index first among equals); a
-//      batch of 32 keys is filtered against the list's last entry with one
-//      ballot and only the survivors are inserted (two ballots and three
-//      shuffles each).  The block merges its warps' lists and writes its
-//      top A; it adds its count of wants > 0 to the demand.  The last
-//      block to finish merges every block's list into the global top A and
-//      sets the device flag evicting = demand > free slots;
-//   2. commit, a persistent grid over N that reads the flag: when evicting
-//      it counts live rows and, per slot, the live rows that know it
-//      (common.cuh:warp_column_counts); otherwise its blocks only count
-//      themselves done.  The last block computes coverage = count /
-//      max(n_live, 1) in IEEE division (the 0.995 and 0.5 bars), the done
-//      mask and the three commit masks, r_coverage = evicting ? (done ? 0 :
-//      coverage) : r_coverage, the free-slot top A (free slots ascending,
-//      then the rest), ok = want > 0 and a free slot, and writes the [U]
-//      table, the (subject, slot, ok) outputs and the plan of launch 3;
-//   3. seed, a persistent grid over N: each warp copies its 32 rows of
-//      know / learn_tick / sends_left into the fresh outputs with 16-byte
-//      vectors (_release's column clears, when a slot was evicted, as a
-//      byte mask on each vector: common.cuh:warp_copy_rows) and each thread
-//      seeds its row's cell (row_subject[i] matched against the A
-//      allocated subjects) and writes committed dead / left / inc with the
-//      commit scatters at its index.
-// The scratch (counts, the plan, the block lists) is reset by the kernels
-// that consume it, so a call needs no memset.
+// In place: the kernel updates the state's know / learn_tick / sends_left
+// rows, its committed dead / left / inc and its [U] rumor table where
+// their values change, and writes nothing else of the state.  The
+// (subject, slot, ok) outputs are fresh tensors.
 //
-// Bound on an H100: memory.  The function must read want (4 bytes a row)
-// and write the seeded cells and the [U] table; with an eviction, also
-// know and up/member (U + 2 bytes a row) and the committed leaves of the
-// committed subjects: ~4 MB without eviction at N = 1M, ~38 MB with one
-// (~0.0013 and ~0.011 ms at 3.35 TB/s).  The fresh-output row copy this
-// kernel also makes (4U bytes read and written a row, 128 MB each way at
-// U = 32, plus the committed leaves' 6 MB) is the price of never writing
-// a tensor it was given.
+// One cooperative launch (cudaLaunchCooperativeKernel: the persistent
+// grid of common.cuh:persistent_blocks is co-resident) in up to three
+// phases:
+//   1. select, over N: each warp keeps the top A of (want, index) as a
+//      sorted list spread over its lanes (a 64-bit key: the
+//      order-preserving want above the complemented index, so "larger
+//      key" is lax.top_k's order, earlier index first among equals); it
+//      loads kBatches batches of 32 keys together, then offers them in row
+//      order: a batch is filtered against the list's last entry with one
+//      ballot and only the survivors are inserted (two ballots and three
+//      shuffles each), filtered again after each insert.  The block
+//      merges its warps' lists in a three-level tree and writes its top
+//      A; it adds its count of wants > 0 to the demand.  The last block to
+//      finish merges every block's list into the global top A (kBatches
+//      batches loaded together) and compares the demand with the free
+//      slots.  Without an eviction it decides the call (below) at once;
+//   2. only when evicting (a flag every block reads after the first grid
+//      barrier): count the live rows and, per slot, the live rows that
+//      know it (common.cuh:warp_column_counts); the last block to finish
+//      decides with coverage = count / max(n_live, 1) in IEEE division
+//      (the 0.995 and 0.5 bars), then a second grid barrier;
+//   3. seed (after the last barrier): each thread matches rows'
+//      row_subject against the A allocated subjects and writes the matched
+//      cell (know = 1, learn_tick = tick16, sends_left = limit).  Without
+//      an eviction the rows are the ones phase 1 found naming a subject
+//      (up to kSeedRows a block, kept in shared memory); with one, or past
+//      that many, a warp walks 32 rows a step over N, first clearing the
+//      evicted columns' know and sends_left cells (16-byte vectors,
+//      written back only where a byte was set).
+// The decision, by one block: the done mask and the three commit masks,
+// r_coverage = evicting ? (done ? 0 : coverage) : r_coverage, the
+// free-slot top A (free slots ascending, then the rest), ok = want > 0 and
+// a free slot, the plan of phase 3 in the scratch, the (subject, slot,
+// ok) outputs.  Its thread 0 applies _release's committed scatters at the
+// committing slots' subjects (an or for dead and left, a max of r_inc for
+// inc, and the scatter-max of 0 into node 0 that the slots outside the
+// alive commit make) from the old table, before the block's threads write
+// the new table: the release reads the table the allocation then
+// overwrites, and both happen in the deciding block, in that order, so no
+// copy of the old table is kept.
+// The scratch counters are reset by the block that consumed them, so a
+// call needs no memset.
+//
+// Bound on an H100: memory.  The function must read want and row_subject
+// (8 bytes a row) and write the seeded cells and the [U] table; with an
+// eviction, also read know and up/member (U + 2 bytes a row) and clear
+// the evicted columns' set cells: ~8 MB without eviction at N = 1M (~0.0024
+// ms at 3.35 TB/s), ~42 MB with one.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 using namespace consul_kernels;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -58,15 +76,35 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSuspect = 1;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBatches = 4;  // 32-row steps whose loads a warp issues together
+constexpr int kSeedRows = 512;  // rows with a row_subject a block keeps
 
 // scratch layout, in u64 words
-constexpr int kSelectDone = 0, kCommitDone = 1, kDemand = 2, kLive = 3;
+constexpr int kSelectDone = 0, kCoverDone = 1, kDemand = 2, kLive = 3;
 constexpr int kCols = 4;      // 64 per-slot live coverage counts
-constexpr int kEvicting = 68, kKeep = 69, kCommitDead = 70,
-              kCommitLeft = 71, kCommitAlive = 72;
-constexpr int kPairs = 73;    // 64 (match subject, slot) pairs
-constexpr int kTop = 137;     // 64 global top keys
-constexpr int kLists = 201;   // A keys a block of launch 1
+constexpr int kEvicting = 68, kKeep = 69;
+constexpr int kPairs = 70;    // 64 (match subject, slot) pairs
+constexpr int kTop = 134;     // 64 global top keys
+constexpr int kLists = 198;   // A keys a block of phase 1
+
+// Built with -DORIGINATE_PHASE_TIMES (build.variant; chip_smoke.py's
+// phase split), the kernel stamps %globaltimer into scratch words
+// kStamps.. (free while A <= 58; the caller zeroes them): 0 block 0's
+// start, then the latest block at 1 the end of its select, 2 the global
+// merge and decision, 3 the barrier after them, 4 the start of the seed
+// (after the eviction's count, decision and barrier), 5 its end.
+constexpr int kStamps = 192;
+#ifdef ORIGINATE_PHASE_TIMES
+__device__ __forceinline__ void stamp(u64* sc, int k) {
+  if (threadIdx.x == 0) {
+    u64 t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    atomicMax(&sc[kStamps + k], t);
+  }
+}
+#else
+__device__ __forceinline__ void stamp(u64*, int) {}
+#endif
 
 struct OriginateArgs {
   const int32_t* want;
@@ -74,35 +112,24 @@ struct OriginateArgs {
   const int32_t* inc_of_subject;
   const uint8_t* up;
   const uint8_t* member;
-  const uint8_t* know;
-  const int16_t* learn_tick;
-  const int8_t* sends_left;
-  const uint8_t* committed_dead;
-  const uint8_t* committed_left;
-  const int32_t* committed_inc;
-  const uint8_t* r_active;
-  const int8_t* r_kind;
-  const int32_t* r_subject;
-  const int32_t* r_inc;
-  const int32_t* r_start;
-  const int8_t* r_confirm;
-  const float* r_coverage;
+  // the state's leaves, updated in place
+  uint8_t* know;
+  int16_t* learn_tick;
+  int8_t* sends_left;
+  uint8_t* committed_dead;
+  uint8_t* committed_left;
+  int32_t* committed_inc;
+  uint8_t* r_active;
+  int8_t* r_kind;
+  int32_t* r_subject;
+  int32_t* r_inc;
+  int32_t* r_start;
+  int8_t* r_confirm;
+  float* r_coverage;
   int64_t N;
   int U, A, kind, tick, tick16, limit;
   u64* scratch;
-  uint8_t* know_out;
-  int16_t* learn_out;
-  int8_t* sends_out;
-  uint8_t* committed_dead_out;
-  uint8_t* committed_left_out;
-  int32_t* committed_inc_out;
-  uint8_t* r_active_out;
-  int8_t* r_kind_out;
-  int32_t* r_subject_out;
-  int32_t* r_inc_out;
-  int32_t* r_start_out;
-  int8_t* r_confirm_out;
-  float* r_coverage_out;
+  // the allocation, fresh outputs
   int32_t* subjects_out;
   int32_t* slots_out;
   uint8_t* ok_out;
@@ -142,151 +169,170 @@ __device__ __forceinline__ void top_insert(WarpTop& t, u64 x, int A, int lane) {
   t.hi = e_hi < A ? hi : 0;
 }
 
+// The list's last entry (A - 1), every lane.
+__device__ __forceinline__ u64 top_bar(const WarpTop& t, int A) {
+  return A <= 32 ? __shfl_sync(kFull, t.lo, A - 1) : __shfl_sync(kFull, t.hi, A - 33);
+}
+
 // Offer one key a lane (0 for none): the ones above the list's last
-// entry are inserted, in lane order.
+// entry are inserted, in lane order; after each insert the pending keys
+// are filtered again against the new last entry (a key at or below it
+// would not be inserted), so a batch that fills the list stops early.
 __device__ __forceinline__ void top_offer(WarpTop& t, u64 key, int A, int lane) {
-  const u64 bar = A <= 32 ? __shfl_sync(kFull, t.lo, A - 1) : __shfl_sync(kFull, t.hi, A - 33);
-  unsigned pending = __ballot_sync(kFull, key > bar);
+  unsigned pending = __ballot_sync(kFull, key > top_bar(t, A));
   while (pending) {
     const int src = __ffs(pending) - 1;
     pending &= pending - 1;
     top_insert(t, __shfl_sync(kFull, key, src), A, lane);
+    if (pending) pending &= __ballot_sync(kFull, key > top_bar(t, A));
   }
 }
 
-// The block's warps' lists merged into warp 0's (every thread calls it).
+// The block's warps' lists merged into warp 0's in a tree: at each level
+// warp w takes warp w + step's list (lo half, then hi half), for w a
+// multiple of 2 step (every thread calls it).
 __device__ void block_top(WarpTop& t, int A, u64* lists, int lane, int warp) {
-  __syncthreads();
-  lists[warp * 64 + lane] = t.lo;
-  lists[warp * 64 + 32 + lane] = t.hi;
-  __syncthreads();
-  if (warp == 0) {
-    for (int w = 1; w < kWarps; ++w) {
+  for (int step = 1; step < kWarps; step <<= 1) {
+    __syncthreads();
+    if ((warp & (2 * step - 1)) == step) {
+      lists[warp * 64 + lane] = t.lo;
+      lists[warp * 64 + 32 + lane] = t.hi;
+    }
+    __syncthreads();
+    if ((warp & (2 * step - 1)) == 0) {
+      const int w = warp + step;
       top_offer(t, lists[w * 64 + lane], A, lane);
       top_offer(t, lists[w * 64 + 32 + lane], A, lane);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-originate_select_kernel(const __grid_constant__ OriginateArgs a) {
-  __shared__ u64 lists[kWarps * 64];
-  __shared__ u64 red[1][32];
-  __shared__ bool last;
+// Phase 1's last block: every block's list merged into the global top A
+// (kept in the scratch); returns the eviction flag (block-uniform).
+__device__ bool select_finish(const OriginateArgs& a, u64* lists, int lane, int warp) {
+  __shared__ bool s_evicting;
   u64* sc = a.scratch;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  WarpTop t;
-  u64 demand[1] = {0};
-  for (int64_t i0 = gwarp * 32; i0 < a.N; i0 += warps * 32) {
-    const int64_t i = i0 + lane;
-    u64 key = 0;
-    if (i < a.N) {
-      const int32_t w = a.want[i];
-      demand[0] += w > 0;
-      key = make_key(w, i);
-    }
-    top_offer(t, key, a.A, lane);
-  }
-  block_top(t, a.A, lists, lane, warp);
-  if (warp == 0) {
-    u64* mine = sc + kLists + static_cast<int64_t>(blockIdx.x) * a.A;
-    if (lane < a.A) mine[lane] = t.lo;
-    if (lane + 32 < a.A) mine[lane + 32] = t.hi;
-  }
-  block_sum<1>(demand, red);
-  if (threadIdx.x == 0 && red[0][0]) atomicAdd(&sc[kDemand], red[0][0]);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&sc[kSelectDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  // the free slots, loaded before the merge so the load overlaps it
+  const uint64_t active = warp == 0 ? warp_slot_mask(a.r_active, a.U) : 0;
   WarpTop g;
   const int64_t total = static_cast<int64_t>(gridDim.x) * a.A;
-  for (int64_t c0 = static_cast<int64_t>(warp) * 32; c0 < total; c0 += kWarps * 32) {
-    const int64_t c = c0 + lane;
-    top_offer(g, c < total ? __ldcg(&sc[kLists + c]) : 0ull, a.A, lane);
+  const int64_t step = kWarps * 32 * kBatches;
+  auto load = [&](u64 (&keys)[kBatches], int64_t c0) {
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) {
+      const int64_t c = c0 + r * kWarps * 32 + lane;
+      keys[r] = c < total ? __ldcg(&sc[kLists + c]) : 0ull;
+    }
+  };
+  u64 next[kBatches];  // the next group's keys load while this one is offered
+  load(next, static_cast<int64_t>(warp) * 32);
+  for (int64_t c0 = static_cast<int64_t>(warp) * 32; c0 < total; c0 += step) {
+    u64 keys[kBatches];
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) keys[r] = next[r];
+    if (c0 + step < total) load(next, c0 + step);
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) top_offer(g, keys[r], a.A, lane);
   }
   block_top(g, a.A, lists, lane, warp);
   if (warp == 0) {
     if (lane < a.A) sc[kTop + lane] = g.lo;
     if (lane + 32 < a.A) sc[kTop + 32 + lane] = g.hi;
-    const uint64_t active = warp_slot_mask(a.r_active, a.U);
     if (lane == 0) {
       const u64 free_slots = static_cast<u64>(a.U - __popcll(active));
-      sc[kEvicting] = __ldcg(&sc[kDemand]) > free_slots ? 1 : 0;
+      s_evicting = __ldcg(&sc[kDemand]) > free_slots;
+      sc[kEvicting] = s_evicting ? 1 : 0;
       sc[kDemand] = 0;
       sc[kSelectDone] = 0;
     }
   }
+  __syncthreads();
+  return s_evicting;
 }
 
-__global__ void __launch_bounds__(kThreads)
-originate_commit_kernel(const __grid_constant__ OriginateArgs a) {
-  __shared__ uint32_t s_col[64];
-  __shared__ u64 red[1][32];
-  __shared__ bool last;
+// The call's decision, by every thread of one block, once per call (see
+// the header), with `row` the table row of slot threadIdx.x as the block
+// loaded it (before the global merge when there is no eviction, so the
+// load overlaps it).  Without an eviction, done and the commits are empty
+// and r_coverage stays.  The table, the top keys and their subjects'
+// incarnations are kept in shared memory; every later read is of those
+// copies, so each table leaf is written only where its new value differs
+// from the copy.
+struct SlotRow {  // slot t's row of the table, as a thread t < U loads it
+  bool active;
+  int8_t kind, confirm;
+  int32_t subject, inc, start;
+  float cov;
+};
+
+__device__ __forceinline__ SlotRow load_row(const OriginateArgs& a, int t) {
+  SlotRow r{};
+  if (t < a.U) {
+    r.active = a.r_active[t];
+    r.kind = a.r_kind[t];
+    r.confirm = a.r_confirm[t];
+    r.subject = a.r_subject[t];
+    r.inc = a.r_inc[t];
+    r.start = a.r_start[t];
+    r.cov = a.r_coverage[t];
+  }
+  return r;
+}
+
+__device__ void decide(const OriginateArgs& a, bool evicting, const SlotRow& row) {
   __shared__ uint32_t s_masks[2][5];  // per half: done, dead, left, alive, active after
-  __shared__ int32_t s_slot[64], s_fscore[64], s_score[64], s_subj[64];
+  __shared__ int32_t s_slot[64], s_fscore[64], s_subj[64], s_score[64], s_newinc[64];
   __shared__ bool s_ok[64];
+  __shared__ bool s_active[64];
+  __shared__ int8_t s_kind[64], s_confirm[64];
+  __shared__ int32_t s_subject[64], s_inc[64], s_start[64];
+  __shared__ float s_cov[64];
+  __shared__ u64 s_count[64], s_live;
+  __shared__ int32_t s_ci0;
   u64* sc = a.scratch;
   const int U = a.U, A = a.A;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool evicting = __ldcg(&sc[kEvicting]) != 0;  // block-uniform
-  if (threadIdx.x < 64) s_col[threadIdx.x] = 0;
-  __syncthreads();
-  u64 live[1] = {0};
-  if (evicting) {
-    uint32_t cnt[2] = {0, 0};
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    for (int64_t i0 = tid - lane; i0 < a.N; i0 += stride) {
-      const int64_t i = i0 + lane;
-      uint64_t m = 0;
-      if (i < a.N && a.up[i] && a.member[i]) {
-        live[0] += 1;
-        m = row_mask(a.know + i * U, U);
-      }
-      warp_column_counts(m, U, cnt);
-    }
-    atomicAdd(&s_col[lane], cnt[0]);
-    if (U > 32) atomicAdd(&s_col[lane + 32], cnt[1]);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+
+  if (t < U) {
+    s_active[t] = row.active;
+    s_kind[t] = row.kind;
+    s_subject[t] = row.subject;
+    s_inc[t] = row.inc;
+    s_start[t] = row.start;
+    s_confirm[t] = row.confirm;
+    s_cov[t] = row.cov;
+    if (evicting) s_count[t] = __ldcg(&sc[kCols + t]);
   }
-  block_sum<1>(live, red);  // its syncs also publish s_col
-  if (evicting) {
-    if (threadIdx.x == 0) atomicAdd(&sc[kLive], red[0][0]);
-    if (threadIdx.x < U && s_col[threadIdx.x]) {
-      atomicAdd(&sc[kCols + threadIdx.x], static_cast<u64>(s_col[threadIdx.x]));
-    }
+  if (t >= 64 && t < 64 + A) {
+    const u64 key = __ldcg(&sc[kTop + t - 64]);
+    s_subj[t - 64] = key_index(key);
+    s_score[t - 64] = key_value(key);
   }
-  __threadfence();
+  if (t == 128) {
+    s_ci0 = a.committed_inc[0];
+    s_live = evicting ? __ldcg(&sc[kLive]) : 0;
+  }
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&sc[kCommitDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (t >= 64 && t < 64 + A) s_newinc[t - 64] = a.inc_of_subject[s_subj[t - 64]];
 
   // per slot (warps 0 and 1): coverage, done, the commit masks
   if (warp < 2) {
-    const int u = threadIdx.x;
+    const int u = t;
     bool active = false, done = false, c_dead = false, c_left = false, c_alive = false;
     if (u < U) {
-      active = a.r_active[u];
-      const int kind = a.r_kind[u];
-      float cov_out = a.r_coverage[u];
+      active = s_active[u];
       if (evicting) {
-        const float cov = live_coverage(__ldcg(&sc[kCols + u]), __ldcg(&sc[kLive]));
+        const float cov = live_coverage(s_count[u], s_live);
+        const int kind = s_kind[u];
         done = active && cov >= 0.995f && kind != kSuspect;
         const Commits c = release_commits(done, cov, kind);
         c_dead = c.dead;
         c_left = c.left;
         c_alive = c.alive;
-        cov_out = done ? 0.0f : cov;
+        const float cov_out = done ? 0.0f : cov;
+        if (__float_as_uint(cov_out) != __float_as_uint(s_cov[u])) a.r_coverage[u] = cov_out;
+        sc[kCols + u] = 0;
       }
-      a.r_coverage_out[u] = cov_out;
-      sc[kCols + u] = 0;
     }
     const uint32_t m_done = __ballot_sync(kFull, done);
     const uint32_t m_dead = __ballot_sync(kFull, c_dead);
@@ -306,37 +352,52 @@ originate_commit_kernel(const __grid_constant__ OriginateArgs a) {
     return static_cast<uint64_t>(s_masks[0][w]) | (static_cast<uint64_t>(s_masks[1][w]) << 32);
   };
   const uint64_t after = mask(4);
-  if (threadIdx.x == 0) {
-    // lax.top_k of (active ? 0 : 1) * (U - slot): the free slots
-    // ascending, then the others ascending (score 0)
-    int n = 0;
-    for (int u = 0; u < U && n < A; ++u) {
-      if (!((after >> u) & 1ull)) {
-        s_slot[n] = u;
-        s_fscore[n++] = U - u;
+  if (t == 0) {
+    // _release's committed scatters, from the table before this call
+    const uint64_t slots = all_slots(U);
+    for (uint64_t m = mask(1); m; m &= m - 1) {
+      const int32_t x = s_subject[__ffsll(m) - 1];
+      if (x >= 0 && x < a.N && !a.committed_dead[x]) a.committed_dead[x] = 1;
+    }
+    for (uint64_t m = mask(2); m; m &= m - 1) {
+      const int32_t x = s_subject[__ffsll(m) - 1];
+      if (x >= 0 && x < a.N && !a.committed_left[x]) a.committed_left[x] = 1;
+    }
+    const uint64_t c_alive = mask(3);
+    int32_t ci0 = s_ci0;  // node 0's committed inc as the scatters leave it
+    for (uint64_t m = c_alive; m; m &= m - 1) {
+      const int u = __ffsll(m) - 1;
+      const int32_t x = s_subject[u];
+      if (x < 0 || x >= a.N) continue;
+      const int32_t old = x == 0 ? ci0 : a.committed_inc[x];
+      if (s_inc[u] > old) {
+        a.committed_inc[x] = s_inc[u];
+        if (x == 0) ci0 = s_inc[u];
       }
     }
-    for (int u = 0; u < U && n < A; ++u) {
-      if ((after >> u) & 1ull) {
-        s_slot[n] = u;
-        s_fscore[n++] = 0;
-      }
-    }
-    for (int k = 0; k < A; ++k) {
-      const u64 key = __ldcg(&sc[kTop + k]);
-      s_score[k] = key_value(key);
-      s_subj[k] = key_index(key);
-      s_ok[k] = s_score[k] > 0 && s_fscore[k] > 0;
-    }
+    if ((c_alive & slots) != slots && ci0 < 0) a.committed_inc[0] = 0;
     sc[kKeep] = ~mask(0);
-    sc[kCommitDead] = mask(1);
-    sc[kCommitLeft] = mask(2);
-    sc[kCommitAlive] = mask(3);
     sc[kLive] = 0;
-    sc[kCommitDone] = 0;
+    sc[kCoverDone] = 0;
+  }
+  if (t >= 64 && t < 64 + U) {
+    // lax.top_k of (active ? 0 : 1) * (U - slot): the free slots
+    // ascending, then the others ascending (score 0); slot u's rank
+    const int u = t - 64;
+    const uint64_t below = (1ull << u) - 1;
+    const uint64_t open = ~after & all_slots(U);
+    const bool is_free = (open >> u) & 1ull;
+    const int rank = is_free ? __popcll(open & below)
+                             : __popcll(open) + __popcll(after & below);
+    if (rank < A) {
+      s_slot[rank] = u;
+      s_fscore[rank] = is_free ? U - u : 0;
+    }
   }
   __syncthreads();
-  const int t = threadIdx.x;
+  if (t < A) s_ok[t] = s_score[t] > 0 && s_fscore[t] > 0;
+  __syncthreads();
+
   if (t < A) {
     a.subjects_out[t] = s_subj[t];
     a.slots_out[t] = s_slot[t];
@@ -346,114 +407,250 @@ originate_commit_kernel(const __grid_constant__ OriginateArgs a) {
                      static_cast<uint32_t>(s_slot[t]);
   }
   if (t < U) {
+    // slot t's row of the new table, written where it changes
     bool active = (after >> t) & 1ull;
-    int kind = a.r_kind[t];
-    int32_t subject = a.r_subject[t], inc = a.r_inc[t], start = a.r_start[t];
-    int confirm = a.r_confirm[t];
+    int k_new = -1;
     for (int k = 0; k < A; ++k) {
-      if (s_ok[k] && s_slot[k] == t) {
-        active = true;
-        kind = a.kind;
-        subject = s_subj[k];
-        inc = a.inc_of_subject[subject];
-        start = a.tick;
-        confirm = 1;
-      }
+      if (s_ok[k] && s_slot[k] == t) k_new = k;
     }
-    a.r_active_out[t] = active;
-    a.r_kind_out[t] = static_cast<int8_t>(kind);
-    a.r_subject_out[t] = subject;
-    a.r_inc_out[t] = inc;
-    a.r_start_out[t] = start;
-    a.r_confirm_out[t] = static_cast<int8_t>(confirm);
+    if (k_new >= 0) {
+      active = true;
+      const int32_t subject = s_subj[k_new], inc = s_newinc[k_new];
+      if (s_kind[t] != a.kind) a.r_kind[t] = static_cast<int8_t>(a.kind);
+      if (s_subject[t] != subject) a.r_subject[t] = subject;
+      if (s_inc[t] != inc) a.r_inc[t] = inc;
+      if (s_start[t] != a.tick) a.r_start[t] = a.tick;
+      if (s_confirm[t] != 1) a.r_confirm[t] = 1;
+    }
+    if (active != s_active[t]) a.r_active[t] = active;
+  }
+  __threadfence();
+}
+
+// The [rows, U] byte rows from a row boundary, with the slots in `clear`
+// set to 0 where they are not, by the 32 lanes of a warp: 16-byte vectors
+// read once and written back only when one of their bytes changes (both
+// aligned, U a multiple of 16), bytes otherwise.  (K8's in-place column
+// clears of _release.)
+__device__ __forceinline__ void warp_clear_rows(uint8_t* d, int64_t bytes, int U,
+                                                uint64_t clear, int lane) {
+  int64_t done = 0;
+  if (aligned16(d) && U % 16 == 0) {
+    const int64_t vecs = bytes >> 4;
+    for (int64_t v = lane; v < vecs; v += 32) {
+      const uint32_t c16 = static_cast<uint32_t>(clear >> ((v << 4) % U)) & 0xffffu;
+      if (!c16) continue;
+      uint4* p = reinterpret_cast<uint4*>(d) + v;
+      const uint4 w = *p;
+      uint4 k = w;
+      k.x &= ~byte_masks(c16 & 0xfu);
+      k.y &= ~byte_masks((c16 >> 4) & 0xfu);
+      k.z &= ~byte_masks((c16 >> 8) & 0xfu);
+      k.w &= ~byte_masks(c16 >> 12);
+      if (k.x != w.x || k.y != w.y || k.z != w.z || k.w != w.w) *p = k;
+    }
+    done = vecs << 4;
+  }
+  for (int64_t x = done + lane; x < bytes; x += 32) {
+    if (((clear >> (x % U)) & 1ull) && d[x]) d[x] = 0;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-originate_seed_kernel(const __grid_constant__ OriginateArgs a) {
-  __shared__ int32_t s_match[64], s_slot[64], s_rsubj[64], s_rinc[64];
-  const u64* sc = a.scratch;
+originate_kernel(const __grid_constant__ OriginateArgs a) {
+  __shared__ u64 lists[kWarps * 64];
+  __shared__ u64 red[1][32];
+  __shared__ bool last;
+  __shared__ int32_t s_match[64], s_slot[64];
+  // the block's rows of phase 1 that name a row_subject (a seed can take
+  // no other row), kept for phase 3 unless there are more than kSeedRows
+  __shared__ int32_t s_row[kSeedRows], s_rsubj[kSeedRows];
+  __shared__ int s_nrows;
+  cg::grid_group grid = cg::this_grid();
+  u64* sc = a.scratch;
   const int U = a.U, A = a.A;
   const int64_t N = a.N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (blockIdx.x == 0) stamp(sc, 0);
+
+  if (threadIdx.x == 0) s_nrows = 0;
+  __syncthreads();
+
+  // 1. select
+  {
+    const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+    const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+    WarpTop t;
+    u64 demand[1] = {0};
+    for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32 * kBatches) {
+      u64 keys[kBatches];  // the warp's next batches, offered in row order
+      int32_t rs[kBatches];
+#pragma unroll
+      for (int r = 0; r < kBatches; ++r) {
+        const int64_t i = i0 + r * warps * 32 + lane;
+        keys[r] = 0;
+        rs[r] = -1;
+        if (i < N) {
+          const int32_t w = a.want[i];
+          rs[r] = a.row_subject[i];
+          demand[0] += w > 0;
+          keys[r] = make_key(w, i);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kBatches; ++r) {
+        top_offer(t, keys[r], A, lane);
+        if (rs[r] >= 0) {
+          const int at = atomicAdd(&s_nrows, 1);
+          if (at < kSeedRows) {
+            s_row[at] = static_cast<int32_t>(i0 + r * warps * 32 + lane);
+            s_rsubj[at] = rs[r];
+          }
+        }
+      }
+    }
+    block_top(t, A, lists, lane, warp);
+    if (warp == 0) {
+      u64* mine = sc + kLists + static_cast<int64_t>(blockIdx.x) * A;
+      if (lane < A) mine[lane] = t.lo;
+      if (lane + 32 < A) mine[lane + 32] = t.hi;
+    }
+    block_sum<1>(demand, red);
+    if (threadIdx.x == 0 && red[0][0]) atomicAdd(&sc[kDemand], red[0][0]);
+    stamp(sc, 1);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&sc[kSelectDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      const SlotRow row = load_row(a, threadIdx.x);
+      if (!select_finish(a, lists, lane, warp)) decide(a, false, row);
+      stamp(sc, 2);
+    }
+  }
+  __threadfence();
+  grid.sync();
+  stamp(sc, 3);
+
+  // 2. the live coverage, only when evicting
+  const bool evicting = __ldcg(&sc[kEvicting]) != 0;  // grid-uniform
+  if (evicting) {
+    __shared__ uint32_t s_col[64];
+    if (threadIdx.x < 64) s_col[threadIdx.x] = 0;
+    __syncthreads();
+    u64 live[1] = {0};
+    uint32_t cnt[2] = {0, 0};
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    for (int64_t i0 = tid - lane; i0 < N; i0 += stride * kBatches) {
+      uint64_t m[kBatches];  // the rows' loads issued together
+#pragma unroll
+      for (int r = 0; r < kBatches; ++r) {
+        const int64_t i = i0 + r * stride + lane;
+        bool is_live = false;
+        uint64_t k = 0;
+        if (i < N) {
+          is_live = (a.up[i] != 0) & (a.member[i] != 0);
+          k = row_mask(a.know + i * U, U);
+        }
+        live[0] += is_live;
+        m[r] = is_live ? k : 0;
+      }
+#pragma unroll
+      for (int r = 0; r < kBatches; ++r) warp_column_counts(m[r], U, cnt);
+    }
+    atomicAdd(&s_col[lane], cnt[0]);
+    if (U > 32) atomicAdd(&s_col[lane + 32], cnt[1]);
+    block_sum<1>(live, red);  // its syncs also publish s_col
+    if (threadIdx.x == 0) atomicAdd(&sc[kLive], red[0][0]);
+    if (threadIdx.x < U && s_col[threadIdx.x]) {
+      atomicAdd(&sc[kCols + threadIdx.x], static_cast<u64>(s_col[threadIdx.x]));
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&sc[kCoverDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      decide(a, true, load_row(a, threadIdx.x));
+    }
+    __threadfence();
+    grid.sync();
+  }
+
+  // 3. seed: a warp takes 32 consecutive rows a step, kBatches steps'
+  // row_subject loaded together
+  stamp(sc, 4);
   for (int k = threadIdx.x; k < A; k += blockDim.x) {
-    const u64 p = sc[kPairs + k];
+    const u64 p = __ldcg(&sc[kPairs + k]);
     s_match[k] = static_cast<int32_t>(p >> 32);
     s_slot[k] = static_cast<int32_t>(static_cast<uint32_t>(p));
   }
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    s_rsubj[u] = a.r_subject[u];
-    s_rinc[u] = a.r_inc[u];
+  __syncthreads();
+  const uint64_t evicted = evicting ? ~__ldcg(&sc[kKeep]) & all_slots(U) : 0;
+  auto seed = [&](int64_t row, int32_t rs) {
+    int slot = -1;
+    for (int k = 0; k < A; ++k) {
+      if (s_match[k] == rs && s_slot[k] > slot) slot = s_slot[k];
+    }
+    if (slot >= 0) {
+      const int64_t cell = row * U + slot;
+      a.know[cell] = 1;
+      a.learn_tick[cell] = static_cast<int16_t>(a.tick16);
+      a.sends_left[cell] = static_cast<int8_t>(a.limit);
+    }
+  };
+  if (!evicted && s_nrows <= kSeedRows) {
+    // no column to clear: the rows phase 1 kept are all a seed can take
+    for (int e = threadIdx.x; e < s_nrows; e += blockDim.x) seed(s_row[e], s_rsubj[e]);
+    __syncthreads();
+    stamp(sc, 5);
+    return;
+  }
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32 * kBatches) {
+    int32_t rs[kBatches];
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) {
+      const int64_t i = i0 + r * warps * 32 + lane;
+      rs[r] = i < N ? a.row_subject[i] : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) {
+      const int64_t b0 = i0 + r * warps * 32;  // warp-uniform
+      if (b0 >= N) break;
+      if (evicted) {
+        // _release's column clears (know & keep, the freed slots' budgets)
+        const int64_t bytes = (N - b0 < 32 ? N - b0 : 32) * U;
+        warp_clear_rows(a.know + b0 * U, bytes, U, evicted, lane);
+        warp_clear_rows(reinterpret_cast<uint8_t*>(a.sends_left) + b0 * U, bytes, U,
+                        evicted, lane);
+        __syncwarp();  // a cleared cell a lane's seed may take again
+      }
+      seed(b0 + lane, rs[r]);
+    }
   }
   __syncthreads();
-  const uint64_t slots = all_slots(U);
-  const uint64_t keep = sc[kKeep] & slots;
-  const uint64_t c_dead = sc[kCommitDead], c_left = sc[kCommitLeft],
-                 c_alive = sc[kCommitAlive];
-  const bool keep_all = keep == slots;
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  const int64_t gwarp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t rb = U;
-  for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32) {
-    const int64_t i = i0 + lane;
-    int slot = -1;
-    if (i < N) {
-      const int32_t rs = a.row_subject[i];
-      for (int k = 0; k < A; ++k) {
-        if (s_match[k] == rs && s_slot[k] > slot) slot = s_slot[k];
-      }
-      // _release's committed scatters, at this index
-      bool cd = a.committed_dead[i], cl = a.committed_left[i];
-      int32_t ci = a.committed_inc[i];
-      release_node(i, c_dead, c_left, c_alive, slots, s_rsubj, s_rinc, cd, cl, ci);
-      a.committed_dead_out[i] = cd;
-      a.committed_left_out[i] = cl;
-      a.committed_inc_out[i] = ci;
-    }
-    const int64_t rows = N - i0 < 32 ? N - i0 : 32;
-    warp_copy(a.learn_out + i0 * rb, a.learn_tick + i0 * rb, rows * 2 * rb, lane);
-    if (keep_all) {
-      warp_copy(a.know_out + i0 * rb, a.know + i0 * rb, rows * rb, lane);
-      warp_copy(a.sends_out + i0 * rb, a.sends_left + i0 * rb, rows * rb, lane);
-    } else {
-      // an evicted slot: know & keep, its budgets cleared
-      warp_copy_rows(a.know_out + i0 * rb, a.know + i0 * rb, rows * rb, U, keep, lane);
-      warp_copy_rows(a.sends_out + i0 * rb, a.sends_left + i0 * rb, rows * rb, U, keep, lane);
-    }
-    __syncwarp();
-    if (slot >= 0) {
-      a.know_out[i * rb + slot] = 1;
-      a.learn_out[i * rb + slot] = static_cast<int16_t>(a.tick16);
-      a.sends_out[i * rb + slot] = static_cast<int8_t>(a.limit);
-    }
-    __syncwarp();
-  }
+  stamp(sc, 5);
 }
 
 }  // namespace
 
-// scratch: kLists + A * list_blocks u64, zeroed once (each kernel resets
+// scratch: kLists + A * list_blocks u64, zeroed once (each phase resets
 // what it consumed).
 extern "C" int originate(const void* want, const void* row_subject,
                          const void* inc_of_subject, const void* up,
-                         const void* member, const void* know,
-                         const void* learn_tick, const void* sends_left,
-                         const void* committed_dead,
-                         const void* committed_left,
-                         const void* committed_inc, const void* r_active,
-                         const void* r_kind, const void* r_subject,
-                         const void* r_inc, const void* r_start,
-                         const void* r_confirm, const void* r_coverage,
-                         int64_t N, int U, int A, int kind, int tick,
-                         int tick16, int limit, void* scratch, int list_blocks,
-                         void* know_out, void* learn_out, void* sends_out,
-                         void* committed_dead_out, void* committed_left_out,
-                         void* committed_inc_out, void* r_active_out,
-                         void* r_kind_out, void* r_subject_out,
-                         void* r_inc_out, void* r_start_out,
-                         void* r_confirm_out, void* r_coverage_out,
-                         void* subjects_out, void* slots_out, void* ok_out,
-                         void* stream) {
+                         const void* member, void* know, void* learn_tick,
+                         void* sends_left, void* committed_dead,
+                         void* committed_left, void* committed_inc,
+                         void* r_active, void* r_kind, void* r_subject,
+                         void* r_inc, void* r_start, void* r_confirm,
+                         void* r_coverage, int64_t N, int U, int A, int kind,
+                         int tick, int tick16, int limit, void* scratch,
+                         int list_blocks, void* subjects_out, void* slots_out,
+                         void* ok_out, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || A < 1 ||
       A > U || A > N || list_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -464,19 +661,19 @@ extern "C" int originate(const void* want, const void* row_subject,
   a.inc_of_subject = static_cast<const int32_t*>(inc_of_subject);
   a.up = static_cast<const uint8_t*>(up);
   a.member = static_cast<const uint8_t*>(member);
-  a.know = static_cast<const uint8_t*>(know);
-  a.learn_tick = static_cast<const int16_t*>(learn_tick);
-  a.sends_left = static_cast<const int8_t*>(sends_left);
-  a.committed_dead = static_cast<const uint8_t*>(committed_dead);
-  a.committed_left = static_cast<const uint8_t*>(committed_left);
-  a.committed_inc = static_cast<const int32_t*>(committed_inc);
-  a.r_active = static_cast<const uint8_t*>(r_active);
-  a.r_kind = static_cast<const int8_t*>(r_kind);
-  a.r_subject = static_cast<const int32_t*>(r_subject);
-  a.r_inc = static_cast<const int32_t*>(r_inc);
-  a.r_start = static_cast<const int32_t*>(r_start);
-  a.r_confirm = static_cast<const int8_t*>(r_confirm);
-  a.r_coverage = static_cast<const float*>(r_coverage);
+  a.know = static_cast<uint8_t*>(know);
+  a.learn_tick = static_cast<int16_t*>(learn_tick);
+  a.sends_left = static_cast<int8_t*>(sends_left);
+  a.committed_dead = static_cast<uint8_t*>(committed_dead);
+  a.committed_left = static_cast<uint8_t*>(committed_left);
+  a.committed_inc = static_cast<int32_t*>(committed_inc);
+  a.r_active = static_cast<uint8_t*>(r_active);
+  a.r_kind = static_cast<int8_t*>(r_kind);
+  a.r_subject = static_cast<int32_t*>(r_subject);
+  a.r_inc = static_cast<int32_t*>(r_inc);
+  a.r_start = static_cast<int32_t*>(r_start);
+  a.r_confirm = static_cast<int8_t*>(r_confirm);
+  a.r_coverage = static_cast<float*>(r_coverage);
   a.N = N;
   a.U = U;
   a.A = A;
@@ -485,32 +682,14 @@ extern "C" int originate(const void* want, const void* row_subject,
   a.tick16 = tick16;
   a.limit = limit;
   a.scratch = static_cast<u64*>(scratch);
-  a.know_out = static_cast<uint8_t*>(know_out);
-  a.learn_out = static_cast<int16_t*>(learn_out);
-  a.sends_out = static_cast<int8_t*>(sends_out);
-  a.committed_dead_out = static_cast<uint8_t*>(committed_dead_out);
-  a.committed_left_out = static_cast<uint8_t*>(committed_left_out);
-  a.committed_inc_out = static_cast<int32_t*>(committed_inc_out);
-  a.r_active_out = static_cast<uint8_t*>(r_active_out);
-  a.r_kind_out = static_cast<int8_t*>(r_kind_out);
-  a.r_subject_out = static_cast<int32_t*>(r_subject_out);
-  a.r_inc_out = static_cast<int32_t*>(r_inc_out);
-  a.r_start_out = static_cast<int32_t*>(r_start_out);
-  a.r_confirm_out = static_cast<int8_t*>(r_confirm_out);
-  a.r_coverage_out = static_cast<float*>(r_coverage_out);
   a.subjects_out = static_cast<int32_t*>(subjects_out);
   a.slots_out = static_cast<int32_t*>(slots_out);
   a.ok_out = static_cast<uint8_t*>(ok_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static int per_card[3] = {0, 0, 0};
-  const int b1 = persistent_blocks(originate_select_kernel, kThreads, N,
-                                   list_blocks, per_card[0]);
-  originate_select_kernel<<<b1, kThreads, 0, s>>>(a);
-  const int b2 = persistent_blocks(originate_commit_kernel, kThreads, N,
-                                   1 << 20, per_card[1]);
-  originate_commit_kernel<<<b2, kThreads, 0, s>>>(a);
-  const int b3 = persistent_blocks(originate_seed_kernel, kThreads, N,
-                                   1 << 20, per_card[2]);
-  originate_seed_kernel<<<b3, kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  static int per_card = 0;
+  const int blocks = persistent_blocks(originate_kernel, kThreads, N, list_blocks,
+                                       per_card);
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(originate_kernel), dim3(blocks), dim3(kThreads),
+      args, 0, static_cast<cudaStream_t>(stream)));
 }

@@ -12,23 +12,33 @@
 // suspicion timers, the [U] confirmation update, the counters and the
 // wants handed to _originate.
 //
-// One launch, a persistent grid of warps, each taking 32 consecutive
-// probers i a trip:
+// In place: the kernel updates the state's know / learn_tick /
+// sends_left rows, awareness, the dense timers (sus_start, sus_confirm,
+// sus_count), r_confirm and the counter vector where their values change;
+// want, row_subject, the RTT and the direct-ack mask are fresh outputs.
+//
+// One launch, a persistent grid of threads, each taking probers i in a
+// grid-stride loop:
 //   * thread i probes j = (i + d) % N; i -> j is a bijection, so thread i
 //     writes every per-subject output at j (the timers, `want`) with no
 //     atomics, and its reads at j are shifted but coalesced;
-//   * the rumor table's suspect slots and confirmations, the incarnations
-//     and the int16 timeout table are staged in shared memory;
-//   * the warp copies its 32 know / learn_tick / sends_left rows into the
-//     fresh outputs (16-byte loads where aligned), then each thread
-//     patches its own joiner cell: the outputs are new tensors and no
-//     input is written;
+//   * the rumor table's suspect slots, subjects, incarnations and
+//     confirmations, the int16 timeout table and the ring offsets (taken
+//     mod N once) are staged in shared memory by every block at its start;
+//   * a failed prober that knows nothing of an existing suspicion about
+//     its target joins it: thread i writes that one cell of its own row;
 //   * a failed prober whose target is the subject of an active suspect
 //     slot marks the slot in the scratch (one thread owns each subject);
 //     each block writes its four counters (probed, acked, failed, newly
 //     suspected) into its own partial slot, and the last block to finish
 //     adds them to the counter vector as exact integers cast to float32
 //     once, applies the [U] confirmation update and clears the marks.
+// Why writing in place is race-free: thread i reads and writes only row i
+// of know / learn_tick / sends_left and only awareness[i]; it reads and
+// writes the [N] timers only at j, and i -> j is a bijection; r_confirm
+// and the counters are written by the last block, after every block has
+// counted itself done, and every block staged r_confirm into shared
+// memory before that (the counters are read by the last block alone).
 // Float steps are explicitly rounded (__fmul_rn, __fadd_rn, __fsqrt_rn)
 // so no FMA contraction changes a bit; constants arrive as float32 from
 // the host, rounded as torch rounds a Python scalar.  The suspicion age
@@ -36,15 +46,14 @@
 // the int16 cell with jnp.sum, which promotes): no int16 wrap.
 //
 // Bound on an H100: memory.  The function must read, per prober, its
-// know / learn_tick / sends_left rows (4U bytes, copied into the fresh
-// outputs, which it writes: 4U more), its draws (rtt, direct, lha and 3k
-// relay legs: 4(3 + 3k) bytes), coords at i (8 bytes; at j they are the
-// same array shifted), the [N] leaves at j (up, member, committed
-// dead/left/inc, bulk, the four subject maps, the three timers: ~31
-// bytes) and writes the per-node outputs (awareness, row_subject, rtt,
-// acked, the timers, want: ~23 bytes): ~0.14 KB a node plus the row
-// copy, ~0.26 GB at N = 1M, U = 32, k = 3 (~0.08 ms at 3.35 TB/s, the row
-// copy ~0.06 ms of it).
+// know row (U bytes), its draws (rtt, direct, lha and 3k relay legs: 4(3
+// + 3k) bytes), coords at i (8 bytes; at j they are the same array
+// shifted), awareness and the [N] leaves at j (up, member, committed
+// dead/left/inc, bulk, the four subject maps, the three timers: ~35
+// bytes) and write the fresh per-node outputs (row_subject, rtt, acked,
+// want: 13 bytes) and the timers, awareness and joiner cells that change:
+// ~0.14 KB a node, ~0.136 GB at N = 1M, U = 32, k = 3 (~0.041 ms at 3.35
+// TB/s; chip_smoke.py:_probe_bytes counts it from the run's data).
 
 #include "common.cuh"
 
@@ -60,35 +69,35 @@ constexpr int kMaxRelays = 16;
 constexpr int kCtrMax = 16;
 
 struct ProbeArgs {
-  // the state's leaves
+  // the state's leaves (know ... ctr updated in place)
   const uint8_t* up;
   const uint8_t* member;
-  const int8_t* awareness;
-  const float* coords;  // [N, D]
+  int8_t* awareness;
+  const float2* coords;      // [N, 2]
   const uint8_t* committed_dead;
   const uint8_t* committed_left;
   const int32_t* committed_inc;
   const uint8_t* bulk_member;
-  const uint8_t* know;       // [N, U]
-  const int16_t* learn_tick; // [N, U]
-  const int8_t* sends_left;  // [N, U]
-  const int32_t* sus_start;
-  const int8_t* sus_confirm;
-  const int32_t* sus_count;
+  uint8_t* know;             // [N, U]
+  int16_t* learn_tick;       // [N, U]
+  int8_t* sends_left;        // [N, U]
+  int32_t* sus_start;
+  int8_t* sus_confirm;
+  int32_t* sus_count;
   const int16_t* chaos_grp;  // null unless chaos
   const float* chaos_ok;     // null unless chaos
   const uint8_t* r_active;
   const int8_t* r_kind;
   const int32_t* r_subject;
   const int32_t* r_inc;
-  const int8_t* r_confirm;
+  int8_t* r_confirm;
   const int16_t* timeouts;   // [65]
   // the subject maps
   const int32_t* suspect_of;
   const int32_t* dead_of;
   const int32_t* left_of;
   const int32_t* alive_val;
-  const float* ctr;          // [C]
+  float* ctr;                // [C]
   // the probe round's draws
   const int32_t* offs;       // [1 + k]
   const float* rtt_draw;     // [N]
@@ -98,21 +107,12 @@ struct ProbeArgs {
   const float* leg_b;
   const float* leg_c;
   int64_t N;
-  int U, D, k, amax, chaos, degraded, C;
+  int U, k, amax, chaos, degraded, C;
   uint32_t seed32;
   float ok_good, ok_bad, degraded_frac, probe_timeout_ms, rtt_base_ms;
   int tick, tick16, limit;
   u64* scratch;  // done count, U slot marks, then kCounters per block
-  // outputs
-  uint8_t* know_out;
-  int16_t* learn_out;
-  int8_t* sends_out;
-  int8_t* awareness_out;     // null when awareness_max == 0
-  int8_t* r_confirm_out;
-  int32_t* sus_start_out;
-  int8_t* sus_confirm_out;
-  int32_t* sus_count_out;
-  float* ctr_out;
+  // fresh outputs
   int32_t* want_out;
   int32_t* row_subject_out;
   float* rtt_out;
@@ -124,32 +124,18 @@ __device__ __forceinline__ int64_t ring(int64_t i, int64_t d, int64_t N) {
   return x >= N ? x - N : x;
 }
 
-// Slots of a bool row that are set (common.cuh:row_mask with plain
-// loads: the warp's row copy reads the same lines next).
-__device__ __forceinline__ uint64_t know_bits(const uint8_t* k, int U) {
-  uint64_t m = 0;
-  int u = 0;
-  if (aligned16(k)) {
-    for (; u + 16 <= U; u += 16) {
-      const uint4 w = *reinterpret_cast<const uint4*>(k + u);
-      const uint4 f = make_uint4(nonzero_bytes(w.x), nonzero_bytes(w.y),
-                                 nonzero_bytes(w.z), nonzero_bytes(w.w));
-      m |= static_cast<uint64_t>(flags16(f)) << u;
-    }
-  }
-  for (; u < U; ++u) m |= static_cast<uint64_t>(k[u] != 0) << u;
-  return m;
-}
-
 __device__ __forceinline__ bool bit(uint64_t m, int u) {
   return u >= 0 && u < 64 && ((m >> u) & 1ull);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// at most 64 registers, so four blocks of 256 share an SM (latency hiding
+// for a thread's ~30 independent row and target loads)
+__global__ void __launch_bounds__(kThreads, 4)
 probe_round_kernel(const __grid_constant__ ProbeArgs a) {
   __shared__ int32_t s_subject[64], s_inc[64];
   __shared__ int8_t s_confirm[64];
   __shared__ int16_t s_timeout[kTimeouts];
+  __shared__ int32_t s_offs[1 + kMaxRelays];  // ring offsets mod N
   __shared__ uint64_t s_suspect;  // active suspect slots
   __shared__ u64 red[kCounters][32];
   __shared__ bool last;
@@ -161,6 +147,10 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
     s_confirm[u] = a.r_confirm[u];
   }
   for (int c = threadIdx.x; c < kTimeouts; c += blockDim.x) s_timeout[c] = a.timeouts[c];
+  if (threadIdx.x <= a.k) {
+    const int64_t o = static_cast<int64_t>(a.offs[threadIdx.x]) % N;
+    s_offs[threadIdx.x] = static_cast<int32_t>(o < 0 ? o + N : o);
+  }
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     uint64_t m = 0;
@@ -175,13 +165,7 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
   const uint64_t suspect_slots = s_suspect;
   u64* marks = a.scratch + 1;
   u64* partials = a.scratch + 1 + 64;
-
-  int64_t offs[1 + kMaxRelays];
-  for (int m = 0; m <= a.k; ++m) {
-    const int64_t o = static_cast<int64_t>(a.offs[m]) % N;
-    offs[m] = o < 0 ? o + N : o;
-  }
-  const int64_t d = offs[0];
+  const int64_t d = s_offs[0];
 
   // the per-node delivery rate: 1 - p_loss, or 1 - degraded_loss for the
   // deterministic degraded set, times the chaos rate
@@ -196,144 +180,124 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
   };
 
   u64 v[kCounters] = {0, 0, 0, 0};
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t rb = U, lb = 2 * static_cast<int64_t>(U);
-  for (int64_t i0 = warp * 32; i0 < N; i0 += warps * 32) {
-    const int64_t i = i0 + lane;
-    const bool valid = i < N;
-    int cell = -1;           // the joiner cell's slot
-    bool fresh_cell = false;
-    if (valid) {
-      const int64_t j = ring(i, d, N);
-      const bool live_i = a.up[i] && a.member[i];
-      float mult = 1.0f;
-      bool lha_go = true;
-      int aw = 0;
-      if (a.amax > 0) {
-        aw = a.awareness[i];
-        const int score = aw < 0 ? 0 : (aw > a.amax - 1 ? a.amax - 1 : aw);
-        mult = static_cast<float>(score + 1);
-        lha_go = __fmul_rn(a.lha[i], mult) < 1.0f;
-      }
-      const bool prober = live_i && lha_go;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
+       i += stride) {
+    const int64_t j = ring(i, d, N);
+    const int64_t row = i * U;
+    const bool live_i = a.up[i] && a.member[i];
+    float mult = 1.0f;
+    bool lha_go = true;
+    int aw = 0;
+    if (a.amax > 0) {
+      aw = a.awareness[i];
+      const int score = aw < 0 ? 0 : (aw > a.amax - 1 ? a.amax - 1 : aw);
+      mult = static_cast<float>(score + 1);
+      lha_go = __fmul_rn(a.lha[i], mult) < 1.0f;
+    }
+    const bool prober = live_i && lha_go;
 
-      // does prober i already believe its target j is down?
-      const uint64_t km = know_bits(a.know + i * rb, U);
-      const bool cd_j = a.committed_dead[j], cl_j = a.committed_left[j];
-      const int32_t dj = a.dead_of[j], lj = a.left_of[j], ss = a.suspect_of[j];
-      bool down = cd_j || cl_j || bit(km, dj) || bit(km, lj);
-      const bool in_s = ss >= 0 && ss < U;
-      const bool know_s = in_s && bit(km, ss);
-      const int32_t learn = in_s ? a.learn_tick[i * rb + ss] : 0;
-      int conf = in_s ? s_confirm[ss] : 0;
-      conf = conf < 0 ? 0 : (conf >= kTimeouts ? kTimeouts - 1 : conf);
-      const bool expired = know_s && (a.tick16 - learn) >= s_timeout[conf];
-      const int32_t av = a.alive_val[j];
-      const int32_t inc_s = in_s ? s_inc[ss] : 0;
-      bool refuted = av >= 0 && av / U > inc_s && bit(km, av % U);
-      refuted = refuted || inc_s < a.committed_inc[j];
-      down = down || (expired && !refuted) || a.bulk_member[j];
-      const bool skip = down;
+    // does prober i already believe its target j is down?
+    const uint64_t km = row_mask(a.know + row, U);
+    const bool cd_j = a.committed_dead[j], cl_j = a.committed_left[j];
+    const int32_t dj = a.dead_of[j], lj = a.left_of[j], ss = a.suspect_of[j];
+    bool down = cd_j || cl_j || bit(km, dj) || bit(km, lj);
+    const bool in_s = ss >= 0 && ss < U;
+    const bool know_s = in_s && bit(km, ss);
+    const int32_t learn = know_s ? a.learn_tick[row + ss] : 0;
+    int conf = in_s ? s_confirm[ss] : 0;
+    conf = conf < 0 ? 0 : (conf >= kTimeouts ? kTimeouts - 1 : conf);
+    const bool expired = know_s && (a.tick16 - learn) >= s_timeout[conf];
+    const int32_t av = a.alive_val[j];
+    const int32_t inc_s = in_s ? s_inc[ss] : 0;
+    bool refuted = av >= 0 && av / U > inc_s && bit(km, av % U);
+    refuted = refuted || inc_s < a.committed_inc[j];
+    down = down || (expired && !refuted) || a.bulk_member[j];
+    const bool skip = down;
 
-      // the direct leg
-      const bool t_member = a.member[j];
-      const bool t_up = a.up[j] && t_member;
-      const float ok_i = ok_of(i), ok_t = ok_of(j);
-      int g_i = 0, g_j = 0;
+    // the direct leg
+    const bool t_member = a.member[j];
+    const bool t_up = a.up[j] && t_member;
+    const float ok_i = ok_of(i), ok_t = ok_of(j);
+    int g_i = 0, g_j = 0;
+    if (a.chaos) {
+      g_i = a.chaos_grp[i];
+      g_j = a.chaos_grp[j];
+    }
+    const float2 ci = a.coords[i], cj = a.coords[j];
+    const float dx = __fsub_rn(ci.x, cj.x), dy = __fsub_rn(ci.y, cj.y);
+    const float sq = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    float rtt = __fadd_rn(__fsqrt_rn(sq), a.rtt_base_ms);
+    rtt = __fmul_rn(rtt, __fadd_rn(1.0f, __fmul_rn(a.rtt_draw[i], 0.1f)));
+    const float m_t = fminf(ok_i, ok_t);
+    const bool legs_ok = a.direct[i] < __fmul_rn(m_t, m_t) && (!a.chaos || g_i == g_j);
+    const bool direct_ack = t_up && legs_ok &&
+                            __fmul_rn(2.0f, rtt) < __fmul_rn(a.probe_timeout_ms, mult);
+
+    // the k indirect probes through relays (i + offs[1 + m]) % N
+    bool ind_ack = false;
+    int nacks = 0;
+    for (int m = 0; m < a.k; ++m) {
+      const int64_t r = ring(i, s_offs[1 + m], N);
+      const float ok_r = ok_of(r);
+      const int64_t at = i * a.k + m;
+      bool l1 = a.leg_a[at] < fminf(ok_i, ok_r);
+      const float m_rt = fminf(ok_r, ok_t);
+      bool l23 = a.leg_b[at] < __fmul_rn(m_rt, m_rt);
+      bool l4 = a.leg_c[at] < fminf(ok_r, ok_i);
       if (a.chaos) {
-        g_i = a.chaos_grp[i];
-        g_j = a.chaos_grp[j];
+        const int g_r = a.chaos_grp[r];
+        l1 = l1 && g_r == g_i;
+        l4 = l4 && g_r == g_i;
+        l23 = l23 && g_r == g_j;
       }
-      float sq = 0.0f;
-      for (int c = 0; c < a.D; ++c) {
-        const float df = __fsub_rn(a.coords[i * a.D + c], a.coords[j * a.D + c]);
-        const float p = __fmul_rn(df, df);
-        sq = c == 0 ? p : __fadd_rn(sq, p);
-      }
-      float rtt = __fadd_rn(__fsqrt_rn(sq), a.rtt_base_ms);
-      rtt = __fmul_rn(rtt, __fadd_rn(1.0f, __fmul_rn(a.rtt_draw[i], 0.1f)));
-      const float m_t = fminf(ok_i, ok_t);
-      const bool legs_ok = a.direct[i] < __fmul_rn(m_t, m_t) && (!a.chaos || g_i == g_j);
-      const bool direct_ack = t_up && legs_ok &&
-                              __fmul_rn(2.0f, rtt) < __fmul_rn(a.probe_timeout_ms, mult);
+      const bool relay_ok = a.up[r] && a.member[r];
+      const bool reach = t_up && l23;
+      ind_ack = ind_ack || (relay_ok && l1 && reach && l4);
+      nacks += relay_ok && l1 && !reach && l4;
+    }
+    const bool ack = direct_ack || ind_ack;
+    const bool failed = prober && !skip && !ack && t_member;
+    const bool probed = prober && !skip && t_member;
+    if (a.amax > 0) {
+      const int delta = probed && ack ? -1 : (failed ? a.k - nacks : 0);
+      int next = aw + delta;
+      next = next < 0 ? 0 : (next > a.amax - 1 ? a.amax - 1 : next);
+      if (next != aw) a.awareness[i] = static_cast<int8_t>(next);
+    }
 
-      // the k indirect probes through relays (i + offs[1 + m]) % N
-      bool ind_ack = false;
-      int nacks = 0;
-      for (int m = 0; m < a.k; ++m) {
-        const int64_t r = ring(i, offs[1 + m], N);
-        const float ok_r = ok_of(r);
-        const int64_t at = i * a.k + m;
-        bool l1 = a.leg_a[at] < fminf(ok_i, ok_r);
-        const float m_rt = fminf(ok_r, ok_t);
-        bool l23 = a.leg_b[at] < __fmul_rn(m_rt, m_rt);
-        bool l4 = a.leg_c[at] < fminf(ok_r, ok_i);
-        if (a.chaos) {
-          const int g_r = a.chaos_grp[r];
-          l1 = l1 && g_r == g_i;
-          l4 = l4 && g_r == g_i;
-          l23 = l23 && g_r == g_j;
-        }
-        const bool relay_ok = a.up[r] && a.member[r];
-        const bool reach = t_up && l23;
-        ind_ack = ind_ack || (relay_ok && l1 && reach && l4);
-        nacks += relay_ok && l1 && !reach && l4;
-      }
-      const bool ack = direct_ack || ind_ack;
-      const bool failed = prober && !skip && !ack && t_member;
-      const bool probed = prober && !skip && t_member;
-      if (a.amax > 0) {
-        const int delta = probed && ack ? -1 : (failed ? a.k - nacks : 0);
-        int next = aw + delta;
-        next = next < 0 ? 0 : (next > a.amax - 1 ? a.amax - 1 : next);
-        a.awareness_out[i] = static_cast<int8_t>(next);
-      }
-
-      // a failed prober that knows nothing of an existing suspicion about
-      // its target joins it; the subject's timers and want
-      if (failed && in_s) {
-        cell = ss;
-        fresh_cell = !know_s;
-      }
+    // a failed prober that knows nothing of an existing suspicion about
+    // its target joins it (one that knows it changes nothing)
+    if (failed && in_s && !know_s) {
+      a.know[row + ss] = 1;
+      a.learn_tick[row + ss] = static_cast<int16_t>(a.tick16);
+      a.sends_left[row + ss] = static_cast<int8_t>(a.limit);
+    }
+    // the subject's timers, written where they change, and its want
+    if (failed) {
       const int32_t start = a.sus_start[j];
+      const bool start_new = start < 0 && !cd_j && !cl_j;
+      if (start_new) {
+        a.sus_start[j] = a.tick;
+        a.sus_count[j] = a.sus_count[j] + 1;
+      }
       const int sc = a.sus_confirm[j];
-      const bool start_new = failed && start < 0 && !cd_j && !cl_j && t_member;
-      a.sus_start_out[j] = start_new ? a.tick : start;
-      const int sc_next = failed && start >= 0 ? (sc + 1 > 64 ? 64 : sc + 1) : sc;
-      a.sus_confirm_out[j] = static_cast<int8_t>(start_new ? 1 : sc_next);
-      a.sus_count_out[j] = a.sus_count[j] + (start_new ? 1 : 0);
-      const bool want = failed && ss < 0 && dj < 0 && lj < 0 && !cd_j && !cl_j;
-      a.want_out[j] = want ? 1 : 0;
-      a.row_subject_out[i] = failed ? static_cast<int32_t>(j) : -1;
-      a.rtt_out[i] = __fmul_rn(2.0f, rtt);
-      a.acked_out[i] = prober && !skip && direct_ack;
-      if (failed) {
-        for (uint64_t m = suspect_slots; m; m &= m - 1) {
-          const int u = __ffsll(m) - 1;
-          if (s_subject[u] == j) marks[u] = 1;
-        }
-      }
-      v[0] += probed;
-      v[1] += probed && ack;
-      v[2] += failed;
+      const int next = start_new ? 1 : (start >= 0 ? (sc + 1 > 64 ? 64 : sc + 1) : sc);
+      if (next != sc) a.sus_confirm[j] = static_cast<int8_t>(next);
       v[3] += start_new;
-    }
-    // the warp's rows into the fresh outputs, then each thread's cell
-    const int64_t rows = N - i0 < 32 ? N - i0 : 32;
-    warp_copy(a.know_out + i0 * rb, a.know + i0 * rb, rows * rb, lane);
-    warp_copy(a.learn_out + i0 * U, a.learn_tick + i0 * U, rows * lb, lane);
-    warp_copy(a.sends_out + i0 * rb, a.sends_left + i0 * rb, rows * rb, lane);
-    __syncwarp();
-    if (cell >= 0) {
-      a.know_out[i * rb + cell] = 1;
-      if (fresh_cell) {
-        a.learn_out[i * rb + cell] = static_cast<int16_t>(a.tick16);
-        a.sends_out[i * rb + cell] = static_cast<int8_t>(a.limit);
+      for (uint64_t m = suspect_slots; m; m &= m - 1) {
+        const int u = __ffsll(m) - 1;
+        if (s_subject[u] == j) marks[u] = 1;
       }
     }
-    __syncwarp();
+    const bool want = failed && ss < 0 && dj < 0 && lj < 0 && !cd_j && !cl_j;
+    a.want_out[j] = want ? 1 : 0;
+    a.row_subject_out[i] = failed ? static_cast<int32_t>(j) : -1;
+    a.rtt_out[i] = __fmul_rn(2.0f, rtt);
+    a.acked_out[i] = prober && !skip && direct_ack;
+    v[0] += probed;
+    v[1] += probed && ack;
+    v[2] += failed;
   }
 
   block_sum<kCounters>(v, red);
@@ -356,18 +320,19 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
   }
   block_sum<kCounters>(mine, red);
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    int c = s_confirm[u];
     if ((suspect_slots >> u) & 1ull) {
       const u64 cnt = __ldcg(&marks[u]);
-      c += static_cast<int>(cnt > 8 ? 8 : cnt);
+      int c = s_confirm[u] + static_cast<int>(cnt > 8 ? 8 : cnt);
       c = c > 64 ? 64 : c;
+      if (c != s_confirm[u]) a.r_confirm[u] = static_cast<int8_t>(c);
+      marks[u] = 0;
     }
-    a.r_confirm_out[u] = static_cast<int8_t>(c);
-    marks[u] = 0;
   }
   for (int c = threadIdx.x; c < a.C; c += blockDim.x) {
+    const float old = a.ctr[c];
     const float add = c < kCounters ? __ull2float_rn(red[c][0]) : 0.0f;
-    a.ctr_out[c] = __fadd_rn(a.ctr[c], add);
+    const float now = __fadd_rn(old, add);
+    if (__float_as_uint(now) != __float_as_uint(old)) a.ctr[c] = now;
   }
   if (threadIdx.x == 0) *a.scratch = 0;  // ready for the next launch
 }
@@ -377,60 +342,57 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
 // scratch: 1 + 64 + kCounters * scratch_blocks u64, zeroed once (the last
 // block clears the count and the marks it used).
 extern "C" int probe_round(
-    const void* up, const void* member, const void* awareness,
-    const void* coords, const void* committed_dead,
-    const void* committed_left, const void* committed_inc,
-    const void* bulk_member, const void* know, const void* learn_tick,
-    const void* sends_left, const void* sus_start, const void* sus_confirm,
-    const void* sus_count, const void* chaos_grp, const void* chaos_ok,
+    const void* up, const void* member, void* awareness, const void* coords,
+    const void* committed_dead, const void* committed_left,
+    const void* committed_inc, const void* bulk_member, void* know,
+    void* learn_tick, void* sends_left, void* sus_start, void* sus_confirm,
+    void* sus_count, const void* chaos_grp, const void* chaos_ok,
     const void* r_active, const void* r_kind, const void* r_subject,
-    const void* r_inc, const void* r_confirm, const void* timeouts,
+    const void* r_inc, void* r_confirm, const void* timeouts,
     const void* suspect_of, const void* dead_of, const void* left_of,
-    const void* alive_val, const void* ctr, const void* offs,
-    const void* rtt_draw, const void* direct, const void* lha,
-    const void* leg_a, const void* leg_b, const void* leg_c, int64_t N,
-    int U, int D, int k, int amax, int chaos, int degraded, int C,
-    uint32_t seed32, float ok_good, float ok_bad, float degraded_frac,
-    float probe_timeout_ms, float rtt_base_ms, int tick, int tick16,
-    int limit, void* scratch, int scratch_blocks, void* know_out,
-    void* learn_out, void* sends_out, void* awareness_out,
-    void* r_confirm_out, void* sus_start_out, void* sus_confirm_out,
-    void* sus_count_out, void* ctr_out, void* want_out,
-    void* row_subject_out, void* rtt_out, void* acked_out, void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || D < 1 ||
-      k < 0 || k > kMaxRelays || amax < 0 || amax > 127 || C < kCounters ||
-      C > kCtrMax || scratch_blocks < 1 || (amax > 0 && (!lha || !awareness_out)) ||
-      (k > 0 && (!leg_a || !leg_b || !leg_c)) || (chaos && (!chaos_grp || !chaos_ok))) {
+    const void* alive_val, void* ctr, const void* offs, const void* rtt_draw,
+    const void* direct, const void* lha, const void* leg_a,
+    const void* leg_b, const void* leg_c, int64_t N, int U, int k, int amax,
+    int chaos, int degraded, int C, uint32_t seed32, float ok_good,
+    float ok_bad, float degraded_frac, float probe_timeout_ms,
+    float rtt_base_ms, int tick, int tick16, int limit, void* scratch,
+    int scratch_blocks, void* want_out, void* row_subject_out, void* rtt_out,
+    void* acked_out, void* stream) {
+  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || k < 0 ||
+      k > kMaxRelays || amax < 0 || amax > 127 || C < kCounters ||
+      C > kCtrMax || scratch_blocks < 1 || (amax > 0 && !lha) ||
+      (k > 0 && (!leg_a || !leg_b || !leg_c)) || (chaos && (!chaos_grp || !chaos_ok)) ||
+      (reinterpret_cast<uintptr_t>(coords) & 7u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ProbeArgs a;
   a.up = static_cast<const uint8_t*>(up);
   a.member = static_cast<const uint8_t*>(member);
-  a.awareness = static_cast<const int8_t*>(awareness);
-  a.coords = static_cast<const float*>(coords);
+  a.awareness = static_cast<int8_t*>(awareness);
+  a.coords = static_cast<const float2*>(coords);
   a.committed_dead = static_cast<const uint8_t*>(committed_dead);
   a.committed_left = static_cast<const uint8_t*>(committed_left);
   a.committed_inc = static_cast<const int32_t*>(committed_inc);
   a.bulk_member = static_cast<const uint8_t*>(bulk_member);
-  a.know = static_cast<const uint8_t*>(know);
-  a.learn_tick = static_cast<const int16_t*>(learn_tick);
-  a.sends_left = static_cast<const int8_t*>(sends_left);
-  a.sus_start = static_cast<const int32_t*>(sus_start);
-  a.sus_confirm = static_cast<const int8_t*>(sus_confirm);
-  a.sus_count = static_cast<const int32_t*>(sus_count);
+  a.know = static_cast<uint8_t*>(know);
+  a.learn_tick = static_cast<int16_t*>(learn_tick);
+  a.sends_left = static_cast<int8_t*>(sends_left);
+  a.sus_start = static_cast<int32_t*>(sus_start);
+  a.sus_confirm = static_cast<int8_t*>(sus_confirm);
+  a.sus_count = static_cast<int32_t*>(sus_count);
   a.chaos_grp = static_cast<const int16_t*>(chaos_grp);
   a.chaos_ok = static_cast<const float*>(chaos_ok);
   a.r_active = static_cast<const uint8_t*>(r_active);
   a.r_kind = static_cast<const int8_t*>(r_kind);
   a.r_subject = static_cast<const int32_t*>(r_subject);
   a.r_inc = static_cast<const int32_t*>(r_inc);
-  a.r_confirm = static_cast<const int8_t*>(r_confirm);
+  a.r_confirm = static_cast<int8_t*>(r_confirm);
   a.timeouts = static_cast<const int16_t*>(timeouts);
   a.suspect_of = static_cast<const int32_t*>(suspect_of);
   a.dead_of = static_cast<const int32_t*>(dead_of);
   a.left_of = static_cast<const int32_t*>(left_of);
   a.alive_val = static_cast<const int32_t*>(alive_val);
-  a.ctr = static_cast<const float*>(ctr);
+  a.ctr = static_cast<float*>(ctr);
   a.offs = static_cast<const int32_t*>(offs);
   a.rtt_draw = static_cast<const float*>(rtt_draw);
   a.direct = static_cast<const float*>(direct);
@@ -440,7 +402,6 @@ extern "C" int probe_round(
   a.leg_c = static_cast<const float*>(leg_c);
   a.N = N;
   a.U = U;
-  a.D = D;
   a.k = k;
   a.amax = amax;
   a.chaos = chaos;
@@ -456,15 +417,6 @@ extern "C" int probe_round(
   a.tick16 = tick16;
   a.limit = limit;
   a.scratch = static_cast<u64*>(scratch);
-  a.know_out = static_cast<uint8_t*>(know_out);
-  a.learn_out = static_cast<int16_t*>(learn_out);
-  a.sends_out = static_cast<int8_t*>(sends_out);
-  a.awareness_out = static_cast<int8_t*>(awareness_out);
-  a.r_confirm_out = static_cast<int8_t*>(r_confirm_out);
-  a.sus_start_out = static_cast<int32_t*>(sus_start_out);
-  a.sus_confirm_out = static_cast<int8_t*>(sus_confirm_out);
-  a.sus_count_out = static_cast<int32_t*>(sus_count_out);
-  a.ctr_out = static_cast<float*>(ctr_out);
   a.want_out = static_cast<int32_t*>(want_out);
   a.row_subject_out = static_cast<int32_t*>(row_subject_out);
   a.rtt_out = static_cast<float*>(rtt_out);

@@ -54,6 +54,19 @@ class ClusterState:
     def replace(self, **kw) -> "ClusterState":
         return dataclasses.replace(self, **kw)
 
+    def clone(self) -> "ClusterState":
+        """A copy whose every tensor is its own (step and run consume the
+        state they are given on the card)."""
+        return ClusterState(swim=self.swim.clone(),
+                            coords=_cloned(self.coords),
+                            events=_cloned(self.events))
+
+
+def _cloned(x):
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
+
 
 def init_state(params: SerfParams, key=None, n_initial: int = 0,
                device=None) -> ClusterState:
@@ -67,7 +80,8 @@ def init_state(params: SerfParams, key=None, n_initial: int = 0,
 
 
 def step(params: SerfParams, s: ClusterState) -> ClusterState:
-    """One gossip tick of the full serf pool."""
+    """One gossip tick of the full serf pool.  On the card a probe tick
+    consumes s (swim.step_with_obs): keep s.clone() to read it again."""
     sw, obs = swim.step_with_obs(params.swim, s.swim)
     coords = s.coords
     if obs is not None:
@@ -80,7 +94,8 @@ def step(params: SerfParams, s: ClusterState) -> ClusterState:
 def run(params: SerfParams, s: ClusterState, n_ticks: int,
         monitor_subject: Optional[int] = None):
     """`n_ticks` steps; with a monitor subject, its believed-down fraction
-    after every tick in one [n_ticks] float32 device vector."""
+    after every tick in one [n_ticks] float32 device vector.  On the card
+    it consumes s (step)."""
     fr = torch.zeros(n_ticks, dtype=torch.float32, device=s.swim.device)
     for t in range(n_ticks):
         s = step(params, s)

@@ -185,6 +185,13 @@ class SwimState:
     def replace(self, **kw) -> "SwimState":
         return dataclasses.replace(self, **kw)
 
+    def clone(self) -> "SwimState":
+        """A copy whose every tensor is its own: what a caller keeps of a
+        state it passes on to a step or a command on the card, which
+        consume it (see step_with_obs)."""
+        return self.replace(**{f: getattr(self, f).clone()
+                               for f in TENSOR_FIELDS})
+
     @property
     def device(self) -> torch.device:
         return self.up.device
@@ -192,6 +199,31 @@ class SwimState:
 
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(SwimState)
                       if f.name not in ("tick", "bulk_live"))
+
+# the leaves K7 and K8 update in place on the card (K7 writes awareness
+# only with Lifeguard's awareness_max > 0)
+PROBE_INPLACE = ("know", "learn_tick", "sends_left", "awareness", "sus_start",
+                 "sus_confirm", "sus_count", "r_confirm", "ctr")
+ORIGINATE_INPLACE = ("know", "learn_tick", "sends_left", "committed_dead",
+                     "committed_left", "committed_inc", "r_active", "r_kind",
+                     "r_subject", "r_inc", "r_start", "r_confirm",
+                     "r_coverage")
+
+
+def _writable(s: SwimState, fields, what: str) -> None:
+    """Raise unless each leaf a kernel writes in place is contiguous and
+    shares no storage with another leaf it writes."""
+    seen = {}
+    for f in fields:
+        t = getattr(s, f)
+        if not t.is_contiguous():
+            raise ValueError(f"{what} writes {f} in place: it must be "
+                             f"contiguous")
+        at = t.untyped_storage().data_ptr()
+        if at in seen:
+            raise ValueError(f"{what} writes {f} and {seen[at]} in place: "
+                             f"they share storage")
+        seen[at] = f
 
 
 def init_state(params: SwimParams, key=None, n_initial: int = 0,
@@ -541,23 +573,16 @@ def _originate(params: SwimParams, s: SwimState, want_score: torch.Tensor,
     with want_score [N] int32 > 0, seeding the rows whose row_subject [N]
     int32 names one.  Returns (state, (subjects, slots, ok)): the
     allocated pairs and their validity, which the callers fold into their
-    subject maps (_map_add; K11's post launch reads them per node).  On CUDA tensors it launches K8 (the
-    eviction, the table and the seeding, into fresh tensors)."""
+    subject maps (_map_add; K11's post launch reads them per node).  On
+    CUDA tensors it launches K8, which updates s's rows, committed leaves
+    and rumor table in place: the state returned holds s's tensors, and
+    (subjects, slots, ok) are fresh."""
     if not s.know.is_cuda:
         return _originate_plain(params, s, want_score, kind, inc_of_subject,
                                 row_subject)
+    _writable(s, ORIGINATE_INPLACE, "K8")
     a, dev = params.alloc_cap, s.device
-    e = torch.empty_like
-    out = dict(know_out=e(s.know), learn_out=e(s.learn_tick),
-               sends_out=e(s.sends_left),
-               committed_dead_out=e(s.committed_dead),
-               committed_left_out=e(s.committed_left),
-               committed_inc_out=e(s.committed_inc),
-               r_active_out=e(s.r_active), r_kind_out=e(s.r_kind),
-               r_subject_out=e(s.r_subject), r_inc_out=e(s.r_inc),
-               r_start_out=e(s.r_start), r_confirm_out=e(s.r_confirm),
-               r_coverage_out=e(s.r_coverage),
-               subjects_out=torch.empty(a, dtype=I32, device=dev),
+    out = dict(subjects_out=torch.empty(a, dtype=I32, device=dev),
                slots_out=torch.empty(a, dtype=I32, device=dev),
                ok_out=torch.empty(a, dtype=torch.bool, device=dev))
     kernels.launch_originate(
@@ -570,15 +595,6 @@ def _originate(params: SwimParams, s: SwimState, want_score: torch.Tensor,
         r_confirm=s.r_confirm, r_coverage=s.r_coverage, alloc=a, kind=kind,
         tick=s.tick, tick16=_t16(s.tick), limit=params.retransmit_limit,
         **out)
-    s = s.replace(know=out["know_out"], learn_tick=out["learn_out"],
-                  sends_left=out["sends_out"],
-                  committed_dead=out["committed_dead_out"],
-                  committed_left=out["committed_left_out"],
-                  committed_inc=out["committed_inc_out"],
-                  r_active=out["r_active_out"], r_kind=out["r_kind_out"],
-                  r_subject=out["r_subject_out"], r_inc=out["r_inc_out"],
-                  r_start=out["r_start_out"], r_confirm=out["r_confirm_out"],
-                  r_coverage=out["r_coverage_out"])
     return s, (out["subjects_out"], out["slots_out"], out["ok_out"])
 
 
@@ -752,21 +768,19 @@ def _probe_pass_plain(params: SwimParams, s: SwimState, maps, drawn: dict):
 
 
 def _probe_pass(params: SwimParams, s: SwimState, maps, drawn: dict):
-    """_probe_pass_plain's result; on CUDA tensors one K7 launch writes it
-    into fresh tensors."""
+    """_probe_pass_plain's result; on CUDA tensors one K7 launch, which
+    updates s's rows, awareness, timers, r_confirm and counters in place
+    (the state returned holds s's tensors) and writes want, row_subject
+    and the ProbeObs into fresh tensors."""
     if not s.know.is_cuda:
         return _probe_pass_plain(params, s, maps, drawn)
     suspect_of, dead_of, left_of, alive_val = maps
     amax = params.awareness_max
+    _writable(s, PROBE_INPLACE if amax > 0 else
+              tuple(f for f in PROBE_INPLACE if f != "awareness"), "K7")
     e = torch.empty_like
-    out = dict(know_out=e(s.know), learn_out=e(s.learn_tick),
-               sends_out=e(s.sends_left),
-               awareness_out=e(s.awareness) if amax > 0 else None,
-               r_confirm_out=e(s.r_confirm), sus_start_out=e(s.sus_start),
-               sus_confirm_out=e(s.sus_confirm), sus_count_out=e(s.sus_count),
-               ctr_out=e(s.ctr), want_out=e(s.sus_start),
-               row_subject_out=e(s.sus_start), rtt_out=e(s.bulk_cov),
-               acked_out=e(s.up))
+    out = dict(want_out=e(s.sus_start), row_subject_out=e(s.sus_start),
+               rtt_out=e(s.bulk_cov), acked_out=e(s.up))
     kernels.launch_probe_round(
         up=s.up, member=s.member, awareness=s.awareness, coords=s.coords,
         committed_dead=s.committed_dead, committed_left=s.committed_left,
@@ -790,13 +804,6 @@ def _probe_pass(params: SwimParams, s: SwimState, maps, drawn: dict):
         probe_timeout_ms=params.probe_timeout_ms,
         rtt_base_ms=params.rtt_base_ms, tick=s.tick, tick16=_t16(s.tick),
         limit=params.retransmit_limit, **out)
-    s = s.replace(know=out["know_out"], learn_tick=out["learn_out"],
-                  sends_left=out["sends_out"], r_confirm=out["r_confirm_out"],
-                  sus_start=out["sus_start_out"],
-                  sus_confirm=out["sus_confirm_out"],
-                  sus_count=out["sus_count_out"], ctr=out["ctr_out"])
-    if amax > 0:
-        s = s.replace(awareness=out["awareness_out"])
     obs = ProbeObs(shift=drawn["offs"][0], rtt_ms=out["rtt_out"],
                    acked=out["acked_out"])
     return s, out["want_out"], out["row_subject_out"], obs
@@ -978,7 +985,7 @@ def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
         timeouts=_table(params, dev, I32), shift=shift, tick=s.tick,
         tick16=_t16(s.tick), limit=params.retransmit_limit,
         period=params.probe_period_ticks, **pre)
-    r_subject = s.r_subject
+    r_subject = s.r_subject.clone()     # K8 rewrites the table in place
     s = s.replace(r_kind=pre["r_kind_out"], r_start=pre["r_start_out"],
                   learn_tick=pre["learn_out"], sends_left=pre["sends_out"])
     want = pre["want_out"]
@@ -1271,7 +1278,9 @@ def _bulk_flag(bulk_member: torch.Tensor) -> bool:
 
 def step_with_obs(params: SwimParams, s: SwimState):
     """Advance the whole cluster one gossip tick (swim.py:1320-1354).
-    Returns (state, obs); obs is None on ticks without a probe round."""
+    Returns (state, obs); obs is None on ticks without a probe round.
+    On the card a probe tick consumes s: K7 and K8 update its tensors in
+    place, so a caller that reads s again steps s.clone()."""
     obs = None
     if s.tick % params.probe_period_ticks == 0:
         maps = _maps(params, s)
@@ -1289,6 +1298,7 @@ def step_with_obs(params: SwimParams, s: SwimState):
 
 
 def step(params: SwimParams, s: SwimState) -> SwimState:
+    """step_with_obs's state (on the card it consumes s on a probe tick)."""
     return step_with_obs(params, s)[0]
 
 
@@ -1296,7 +1306,8 @@ def run(params: SwimParams, s: SwimState, n_ticks: int,
         monitor_subject: Optional[int] = None):
     """Run `n_ticks` steps; with a monitor subject, the believed-down
     fraction of that subject after every tick lands in one [n_ticks]
-    float32 device vector (read back once by the caller)."""
+    float32 device vector (read back once by the caller).  On the card it
+    consumes s (step_with_obs)."""
     fr = torch.zeros(n_ticks, dtype=F32, device=s.device)
     for t in range(n_ticks):
         s = step(params, s)
@@ -1600,7 +1611,8 @@ def rejoin(params: SwimParams, s: SwimState, node: int) -> SwimState:
     """Restart + rejoin after a committed death (swim.py:1656-1687): a
     bumped incarnation, committed dead/left cleared, the node's stale
     dead/left/suspect rumors withdrawn with their knowledge cells, and an
-    alive rumor originated from the node itself."""
+    alive rumor originated from the node itself.  On the card it consumes
+    s (K8 updates tensors it shares in place)."""
     n, dev = params.n_nodes, s.device
     inc = s.incarnation.clone()
     inc[node] += 1
@@ -1653,7 +1665,8 @@ def revive(s: SwimState, node: int) -> SwimState:
 
 def inject_suspicion(params: SwimParams, s: SwimState, subject: int,
                      origin: int) -> SwimState:
-    """Testing hook (swim.py:1698-1704): `origin` suspects `subject` now."""
+    """Testing hook (swim.py:1698-1704): `origin` suspects `subject` now.
+    On the card it consumes s (K8 updates its tensors in place)."""
     n, dev = params.n_nodes, s.device
     row_subject = torch.where(torch.arange(n, device=dev) == origin, subject,
                               -1).to(I32)
@@ -1663,7 +1676,8 @@ def inject_suspicion(params: SwimParams, s: SwimState, subject: int,
 
 def leave(params: SwimParams, s: SwimState, node: int) -> SwimState:
     """Graceful leave (swim.py:1689-1695): the node originates its `left`
-    rumor, then stops being a member."""
+    rumor, then stops being a member.  On the card it consumes s (K8
+    updates its tensors in place)."""
     n, dev = params.n_nodes, s.device
     s, _ = _originate(params, s, _one(n, node, dev), LEFT, s.incarnation,
                       _own_row(n, node, dev))

@@ -124,7 +124,8 @@ def _ring_push(row, ptr: int, value: int):
 def step(params: WanParams, s: WanState) -> WanState:
     """One gossip tick of the whole federation: every LAN pool and the WAN
     pool step (the WAN config's 10-tick probe period against the LAN's
-    5 keeps the relative cadence), then the event bridge."""
+    5 keeps the relative cadence), then the event bridge.  On the card it
+    consumes s (serf.step)."""
     s = s.replace(lan=tuple(serf.step(params.lan, c) for c in s.lan),
                   wan=serf.step(params.wan, s.wan))
     return _bridge_events(params, s)
@@ -218,6 +219,7 @@ def _bridge_events(params: WanParams, s: WanState) -> WanState:
 
 
 def run(params: WanParams, s: WanState, n_ticks: int) -> WanState:
+    """`n_ticks` steps (on the card it consumes s)."""
     for _ in range(n_ticks):
         s = step(params, s)
     return s

@@ -81,9 +81,10 @@ class GossipOracle:
         self._state = serf.init_state(self.params,
                                       n_initial=self.sim.n_initial,
                                       device=self.device)
-        # Readers hold references to self._state across advance() calls
-        # from other threads, so no command or tick writes a tensor of a
-        # state in place: each builds fresh tensors.
+        # Readers take the lock and read the current self._state.  On the
+        # card a probe tick or a command updates the state's tensors in
+        # place (K7, K8), so nothing keeps a state past the lock unless it
+        # clones it.
         self._lock = threading.RLock()
         self._node_prefix = node_prefix
         self._names: Dict[int, str] = {
@@ -161,16 +162,17 @@ class GossipOracle:
         """Build the kernels and run the mutating commands, a tick and the
         metrics read once at the current pool shape, discarding results,
         so a delegate client's first request never pays the kernels' first
-        build (nvcc, tens of seconds) inside its timeout."""
+        build (nvcc, tens of seconds) inside its timeout.  They run on a
+        clone: on the card a command or a step consumes its state."""
         if self.device.type == "cuda":
             kernels.library()
         with self._lock:
-            s = self._state
-            swim.rejoin(self.params.swim, s.swim, 0)
-            swim.leave(self.params.swim, s.swim, 0)
+            s = self._state.clone()
+            swim.rejoin(self.params.swim, s.swim.clone(), 0)
+            swim.leave(self.params.swim, s.swim.clone(), 0)
             swim.kill(s.swim, 0)
-            serf.step(self.params, s)
             serf.metrics_vector(self.params, s)
+            serf.step(self.params, s)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # the paged read and the summary are every client's first reads

@@ -54,18 +54,29 @@ def _setup(n_nodes: int):
     return dev, params, s
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def _calls(fn, make):
+    """(call, make): fn as a call of one input, and the maker of its
+    input (with no `make`, fn takes none)."""
+    if make is None:
+        return (lambda _: fn()), (lambda: None)
+    return fn, make
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3, make=None) -> float:
     """Median of `reps` CUDA-event timings of one call of fn, host
-    dispatch included."""
+    dispatch included.  With `make`, fn takes an input make() builds
+    before the call's events (a clone of a state fn consumes)."""
+    call, make = _calls(fn, make)
     for _ in range(warmup):
-        fn()
+        call(make())
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        x = make()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        call(x)
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
@@ -81,24 +92,26 @@ def _flush() -> torch.Tensor:
     return _FLUSH[0]
 
 
-def kernel_ms(fn, reps: int = 20) -> float:
+def kernel_ms(fn, reps: int = 20, make=None) -> float:
     """Median device ms of one call of fn with its host dispatch hidden:
     the stream sleeps (~1 ms) while the host enqueues a 96 MB read that
     evicts the inputs from the 50 MB L2 (as the tick's earlier passes do,
     with no dirty lines left to write back) and the call between two CUDA
-    events."""
+    events.  With `make`, fn takes an input make() builds first."""
+    call, make = _calls(fn, make)
     flush = _flush()
     for _ in range(3):
-        fn()
+        call(make())
     times = []
     for _ in range(reps):
+        x = make()
         torch.cuda.synchronize()
         torch.cuda._sleep(2_000_000)
         flush.max()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        call(x)
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
@@ -238,14 +251,17 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     median of `reps`), "device_ms": the sum of its CUDA kernels' device
     times per call, "kernels": its device kernels per call}} (the last
     two from one torch.profiler capture of `reps` calls; copies and
-    memsets left out of both)."""
+    memsets left out of both).  The passes that update the state in place
+    on the card (K7 and K8 in `probe_round`, K8 in the dense expiry) get
+    a clone of it a call, made before the fenced window and outside the
+    profiler's capture."""
     p, sw = params.swim, s.swim
     while sw.tick % p.probe_period_ticks:
         s = serf.step(params, s)
         sw = s.swim
     maps = swim._maps(p, sw)
-    _, obs, _ = swim._probe_round(p, sw, maps)
-    s1, want, rows, _ = swim._probe_pass(p, sw, maps,
+    _, obs, _ = swim._probe_round(p, sw.clone(), maps)
+    s1, want, rows, _ = swim._probe_pass(p, sw.clone(), maps,
                                          swim._probe_inputs(p, sw))
     _, alloc = swim._originate(p, s1, want, swim.SUSPECT, s1.incarnation,
                                rows)
@@ -253,12 +269,12 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fns = {
         "maps": lambda: swim._maps(p, sw),
-        "probe_round": lambda: swim._probe_round(p, sw, maps),
+        "probe_round": (sw.clone, lambda st: swim._probe_round(p, st, maps)),
         "map_add": lambda: swim._map_add(maps[0], *alloc),
         "suspicion_expiry": lambda: swim._suspicion_expiry(p, sw),
         "maps_convert": lambda: swim._maps_convert(maps, sw, convert),
-        "dense_suspicion_expiry": lambda: swim._dense_suspicion_expiry(
-            p, sw, obs.shift, maps),
+        "dense_suspicion_expiry": (sw.clone, lambda st: (
+            swim._dense_suspicion_expiry(p, st, obs.shift, maps))),
         "refutation": lambda: swim._refutation(p, sw),
         "expire": lambda: swim._expire(p, sw),
         "bulk_flag_sync": lambda: swim._bulk_flag(sw.bulk_member),
@@ -275,20 +291,27 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
 
 def _time_passes(fns: dict, dev, reps: int) -> dict:
     """{name: {"wall_ms", "device_ms", "kernels"}} of each call (see
-    _pass_times)."""
+    _pass_times).  An entry is a call, or a pair (make, call) whose call
+    takes an input make() builds before the call's fenced window and
+    before the profiler's capture."""
     times = {}
-    for name, fn in fns.items():
+    for name, entry in fns.items():
+        call, make = (entry[1], entry[0]) if isinstance(entry, tuple) \
+            else _calls(entry, None)
         walls = []
         for _ in range(reps + 1):
+            x = make()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            fn()
+            call(x)
             torch.cuda.synchronize(dev)
             walls.append(1000.0 * (time.perf_counter() - t0))
+        inputs = [make() for _ in range(reps)]
+        torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            for x in inputs:
+                call(x)
             torch.cuda.synchronize(dev)
         kern = [v for k, v in _device_times(prof).items()
                 if not k.startswith(("Memcpy", "Memset"))]

@@ -910,7 +910,10 @@ def test_k11_ctypes_order(monkeypatch, chaos):
     assert post["exp"] == got["exp_out"]
     assert post["dead_of"] == maps[1].data_ptr()
     assert post["left_of"] == maps[2].data_ptr()
-    assert post["r_subject"] == s.r_subject.data_ptr()
+    # the table's subjects before K8, which rewrites the table in place:
+    # a copy, not K8's own r_subject
+    assert orig["r_subject"] == s.r_subject.data_ptr()
+    assert post["r_subject"] not in (None, orig["r_subject"])
     for k in ("subjects", "slots", "ok"):
         assert post[k] == orig[k + "_out"], k
     for k in ("bulk_member", "bulk_heard", "bulk_cov", "sus_start",

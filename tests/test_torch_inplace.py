@@ -1,0 +1,245 @@
+"""The in-place contract of K7 and K8, held on the CPU.
+
+On the card `swim._probe_pass` (K7) and `swim._originate` (K8) update the
+state they are given in place, so every step or command that reaches
+them consumes its state.  The CPU runs their pure twins, which cannot
+show a caller that reads a state again after passing it on.  The
+`consuming` fixture makes the CPU behave as the card's worst case: after
+each call of the two wrappers it overwrites the input state's in-place
+leaves with a sentinel, except a leaf the output still holds.  Each
+caller the port ships must give the same results under it as without it;
+a caller that reads a consumed state again (as `GossipOracle.warmup` did
+when it ran its commands on the live pool) gives other results.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one intra-op thread)
+
+from consul_tpu_torch import (bench, chaos, config, correlated, f1,
+                              leave_propagation, scenarios)
+from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.oracle import GossipOracle
+
+SENTINEL = {torch.bool: True, torch.int8: -77, torch.int16: -7777,
+            torch.int32: -777777, torch.float32: float("nan")}
+
+
+def _storages(state) -> set:
+    return {getattr(state, f).untyped_storage().data_ptr()
+            for f in swim.TENSOR_FIELDS}
+
+
+def _consume(before, after, fields) -> None:
+    """What the card leaves of `before` once a kernel has written `after`
+    in place: every leaf in `fields` that `after` does not hold becomes
+    garbage."""
+    kept = _storages(after)
+    for f in fields:
+        t = getattr(before, f)
+        if t.untyped_storage().data_ptr() not in kept:
+            t.fill_(SENTINEL[t.dtype])
+
+
+@pytest.fixture
+def consuming(monkeypatch):
+    real_pass, real_originate = swim._probe_pass, swim._originate
+    calls = {"probe_pass": 0, "originate": 0}
+
+    def probe_pass(params, s, maps, drawn):
+        out = real_pass(params, s, maps, drawn)
+        _consume(s, out[0], swim.PROBE_INPLACE)
+        calls["probe_pass"] += 1
+        return out
+
+    def originate(params, s, *args):
+        out = real_originate(params, s, *args)
+        _consume(s, out[0], swim.ORIGINATE_INPLACE)
+        calls["originate"] += 1
+        return out
+
+    monkeypatch.setattr(swim, "_probe_pass", probe_pass)
+    monkeypatch.setattr(swim, "_originate", originate)
+    return calls
+
+
+def _leaves(state) -> dict:
+    """Every tensor leaf and host mirror of a swim or serf state, as numpy
+    and plain values."""
+    parts = ({"swim": state} if isinstance(state, swim.SwimState) else
+             {"swim": state.swim, "coords": state.coords,
+              "events": state.events})
+    out = {}
+    for part, x in parts.items():
+        for f in dataclasses.fields(x):
+            v = getattr(x, f.name)
+            out[f"{part}.{f.name}"] = v.numpy().copy() \
+                if isinstance(v, torch.Tensor) else v
+    return out
+
+
+def _same(a, b) -> None:
+    assert type(a) is type(b)
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b)
+    elif isinstance(a, float) and np.isnan(a):
+        assert np.isnan(b)
+    else:
+        assert a == b
+
+
+def _convergence():
+    r = bench.run_convergence(n_nodes=1024, victim=341, device="cpu")
+    keep = ("ticks", "frac", "converged", "f1", "false_commits",
+            "sim_counters", "fracs", "timed_ticks_run")
+    return dict({k: r[k] for k in keep}, state=_leaves(r["state"]))
+
+
+def _correlated():
+    row = correlated.run(nodes=4096, fractions=[0.01], max_ticks=512,
+                         chunk=128, seed=7, device="cpu")[0]
+    return {k: v for k, v in row.items() if k != "wall_seconds"}
+
+
+def _scenario(name):
+    def run():
+        violations, detail = chaos.SCENARIOS[name](7, n=128, device="cpu")
+        return violations, detail
+    return run
+
+
+def _wan():
+    params, s, row = scenarios.wan_point(2, 128, 3, "cpu")
+    row = {k: v for k, v in row.items() if k != "converge_wall_s"}
+    return row, [_leaves(c) for c in (*s.lan, s.wan)]
+
+
+def _leave():
+    return leave_propagation.run(nodes=2048, device="cpu")
+
+
+def _f1():
+    return f1.run_one(n=512, kills=4, ticks=300, p_loss=0.02, seed=5,
+                      device="cpu")
+
+
+def _oracle_sim():
+    return config.SimConfig(n_nodes=256, n_initial=240, rumor_slots=16,
+                            p_loss=0.01, seed=31)
+
+
+def _oracle():
+    o = GossipOracle(config.GossipConfig.lan(), _oracle_sim(), device="cpu")
+    o.warmup()
+    o.advance(12)
+    o.kill("node7")
+    o.leave("node9")
+    o.advance(40)
+    o.revive("node7")
+    o.spawn()
+    o.advance(30)
+    return {"summary": o.members_summary(), "members": o.members(limit=300),
+            "delta": o.members_delta(), "status": [o.status(f"node{i}")
+                                                   for i in (3, 7, 9, 240)],
+            "state": _leaves(o._state)}
+
+
+CALLERS = {
+    "bench.run_convergence": _convergence,
+    "correlated.run": _correlated,
+    **{f"chaos {name}": _scenario(name) for name in sorted(chaos.SCENARIOS)},
+    "wan.run": _wan,
+    "leave_propagation": _leave,
+    "f1": _f1,
+    "GossipOracle": _oracle,
+}
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_caller_never_reads_a_consumed_state(caller, request):
+    """The caller gives the same results whether or not the states it
+    passes to K7 and K8 are consumed; the fixture was exercised."""
+    ref = CALLERS[caller]()
+    calls = request.getfixturevalue("consuming")
+    got = CALLERS[caller]()
+    assert calls["originate"] > 0
+    if caller != "GossipOracle":
+        assert calls["probe_pass"] > 0
+    _same(got, ref)
+
+
+def test_the_fixture_sees_a_caller_that_rereads_its_state(consuming):
+    """The warmup as it stood before it cloned (the commands and the tick
+    run on the live pool, their results dropped) leaves the oracle's pool
+    changed under the fixture; the warmup as it stands leaves it as it
+    was."""
+    o = GossipOracle(config.GossipConfig.lan(), _oracle_sim(), device="cpu")
+    o.advance(5)
+    kept = _leaves(o._state)
+    o.warmup()
+    _same(_leaves(o._state), kept)
+    s = o._state
+    try:
+        swim.rejoin(o.params.swim, s.swim, 0)
+        swim.leave(o.params.swim, s.swim, 0)   # reads what rejoin consumed
+        swim.kill(s.swim, 0)
+        serf.step(o.params, s)
+    except IndexError:
+        pass    # a sentinel subject indexed out of the pool: seen too
+    changed = [k for k, v in _leaves(o._state).items()
+               if isinstance(v, np.ndarray) and not np.array_equal(
+                   v, kept[k], equal_nan=v.dtype.kind == "f")]
+    assert changed, "the fixture left a reread state intact"
+    assert set(changed) <= {f"swim.{f}" for f in
+                            swim.ORIGINATE_INPLACE + swim.PROBE_INPLACE}
+
+
+def test_writable_rejects_shared_or_strided_leaves():
+    """The wrappers' check before an in-place launch: every leaf a kernel
+    writes is contiguous and has a storage of its own."""
+    params = swim.make_params(config.GossipConfig.lan(),
+                              config.SimConfig(n_nodes=40, rumor_slots=8))
+    s = swim.init_state(params, device="cpu")
+    swim._writable(s, swim.PROBE_INPLACE, "K7")
+    swim._writable(s, swim.ORIGINATE_INPLACE, "K8")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(s.replace(sends_left=s.know.view(torch.int8)),
+                       swim.PROBE_INPLACE, "K7")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(s.replace(r_inc=s.r_subject), swim.ORIGINATE_INPLACE,
+                       "K8")
+    with pytest.raises(ValueError, match="contiguous"):
+        swim._writable(s.replace(know=s.know.t().contiguous().t()),
+                       swim.ORIGINATE_INPLACE, "K8")
+    # a leaf K7 only reads may share storage with another
+    swim._writable(s.replace(committed_left=s.committed_dead),
+                   swim.PROBE_INPLACE, "K7")
+
+
+def test_clone_owns_every_tensor():
+    params = serf.make_params(config.GossipConfig.lan(),
+                              config.SimConfig(n_nodes=32, rumor_slots=8))
+    s = serf.init_state(params, device="cpu")
+    c = s.clone()
+    assert _storages(c.swim).isdisjoint(_storages(s.swim))
+    for part in ("coords", "events"):
+        for f in dataclasses.fields(getattr(s, part)):
+            v = getattr(getattr(s, part), f.name)
+            w = getattr(getattr(c, part), f.name)
+            if isinstance(v, torch.Tensor):
+                assert w.data_ptr() != v.data_ptr() and torch.equal(v, w)
+            else:
+                assert w == v
+    _same(_leaves(c), _leaves(s))

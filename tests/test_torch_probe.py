@@ -248,30 +248,38 @@ def _key(v, i):
 
 def _offer(lst, keys, a):
     """top_offer: the keys of one warp step above the list's A-th entry
-    are inserted in lane order; top_insert drops a key that no longer
+    are inserted in lane order, the rest filtered again against the new
+    A-th entry after each insert; top_insert drops a key that no longer
     beats A entries."""
-    bar = lst[a - 1]
-    for x in [k for k in keys if k > bar]:
+    pending = [k for k in keys if k > lst[a - 1]]
+    while pending:
+        x = pending.pop(0)
         p = sum(e > x for e in lst)
         if p < a:
             lst[:] = (lst[:p] + [x] + lst[p:])[:a]
+        pending = [k for k in pending if k > lst[a - 1]]
 
 
 def _block_merge(lists, a):
-    """block_top: warp 0's list takes the other warps' entries, warp by
-    warp, lo half (entries 0-31) then hi half (32-63)."""
-    head = lists[0]
-    for other in lists[1:]:
-        padded = other + [0] * (64 - a)
-        _offer(head, padded[:32], a)
-        _offer(head, padded[32:], a)
-    return head
+    """block_top: a tree over the warps' lists; at each level warp w takes
+    warp w + step's entries, lo half (entries 0-31) then hi half (32-63),
+    for w a multiple of 2 step; warp 0's list is the block's."""
+    lists = [list(x) for x in lists]
+    step = 1
+    while step < WARPS:
+        for w in range(0, WARPS, 2 * step):
+            padded = lists[w + step] + [0] * (64 - a)
+            _offer(lists[w], padded[:32], a)
+            _offer(lists[w], padded[32:], a)
+        step *= 2
+    return lists[0]
 
 
 def select_transcription(want: np.ndarray, a: int, blocks: int):
-    """originate_select_kernel's result for a grid of `blocks` blocks:
-    each warp walks rows gwarp * 32 + t * (blocks * WARPS * 32); the last
-    block's warps walk the [blocks * A] lists in 32-key steps."""
+    """originate_kernel's select for a grid of `blocks` blocks: each warp
+    walks rows gwarp * 32 + t * (blocks * WARPS * 32) (kBatches of them
+    loaded together, offered in this order); the last block's warps walk
+    the [blocks * A] lists in 32-key steps."""
     n = want.shape[0]
     stride = blocks * WARPS * 32
     block_lists = []
@@ -333,6 +341,122 @@ def test_k8_free_slot_order_matches_top_k(u, a):
         assert slots.tolist() == order[:a]
         assert score.tolist() == [u - s if not active[s] else 0
                                   for s in order[:a]]
+
+
+def originate_in_place(st: dict, want, kind, inc_of_subject, row_subject,
+                       a, tick, tick16, limit):
+    """originate.cu's writes, in its order, on the numpy leaves `st`
+    (updated in place); returns (subjects, slots, ok).  The deciding
+    block: coverage and the done and commit masks (with an eviction),
+    r_coverage; thread 0's committed scatters at the committing slots'
+    subjects, read from the table before this call; then the table's rows
+    for the slots the allocation takes.  The seed phase, row by row: the
+    evicted columns' know and sends_left cleared, then the matched cell."""
+    u = st["r_active"].shape[0]
+    n = want.shape[0]
+    keys = sorted(((int(w), -i) for i, w in enumerate(want)), reverse=True)[:a]
+    score = np.array([k[0] for k in keys], np.int32)
+    subjects = np.array([-k[1] for k in keys], np.int32)
+    evicting = int((want > 0).sum()) > u - int(st["r_active"].sum())
+    done = np.zeros(u, bool)
+    commit = {k: np.zeros(u, bool) for k in ("dead", "left", "alive")}
+    if evicting:
+        live = st["up"] & st["member"]
+        cov = (st["know"][live].sum(0).astype(np.float32)
+               / np.float32(max(int(live.sum()), 1)))
+        done = st["r_active"] & (cov >= np.float32(0.995)) \
+            & (st["r_kind"] != swim.SUSPECT)
+        ok50 = done & (cov >= np.float32(0.5))
+        for name, k in (("dead", swim.DEAD), ("left", swim.LEFT),
+                        ("alive", swim.ALIVE)):
+            commit[name] = ok50 & (st["r_kind"] == k)
+        st["r_coverage"][:] = np.where(done, np.float32(0.0), cov)
+    # thread 0, from the table before this call
+    for x in st["r_subject"][commit["dead"]]:
+        st["committed_dead"][x] = True
+    for x in st["r_subject"][commit["left"]]:
+        st["committed_left"][x] = True
+    for slot in np.flatnonzero(commit["alive"]):
+        x = st["r_subject"][slot]
+        st["committed_inc"][x] = max(st["committed_inc"][x],
+                                     st["r_inc"][slot])
+    if not commit["alive"].all():
+        st["committed_inc"][0] = max(st["committed_inc"][0], 0)
+    after = st["r_active"] & ~done
+    order = [x for x in range(u) if not after[x]] + \
+        [x for x in range(u) if after[x]]
+    slots = np.array(order[:a], np.int32)
+    ok = (score > 0) & ~after[slots]
+    st["r_active"][:] = after
+    for k in np.flatnonzero(ok):
+        t, x = slots[k], subjects[k]
+        st["r_active"][t] = True
+        st["r_kind"][t] = kind
+        st["r_subject"][t] = x
+        st["r_inc"][t] = inc_of_subject[x]
+        st["r_start"][t] = tick
+        st["r_confirm"][t] = 1
+    match = np.where(ok, subjects, -2)
+    for i in range(n):
+        st["know"][i, done] = False
+        st["sends_left"][i, done] = 0
+        hit = slots[match == row_subject[i]]
+        if hit.size:
+            st["know"][i, hit.max()] = True
+            st["learn_tick"][i, hit.max()] = tick16
+            st["sends_left"][i, hit.max()] = limit
+    return subjects, slots, ok
+
+
+@settings(max_examples=40, deadline=None)
+@given(n=st.integers(2, 90), u=st.sampled_from((8, 16)),
+       a_req=st.integers(1, 16), seed=st.integers(0, 2 ** 16),
+       wanters=st.sampled_from((0.0, 0.05, 0.3, 1.0)),
+       kind=st.integers(0, 3))
+def test_k8_in_place_order_matches_the_twin(n, u, a_req, seed, wanters, kind):
+    """The transcription of K8's in-place writes gives _originate_plain's
+    state and allocation on random tables, evicting ones among them: fully
+    known dead, left and alive slots (committed at the 0.5 bar, freed at
+    0.995), suspect slots (never freed), duplicate subjects, subject 0,
+    negative committed incarnations (the scatter-max of 0 into node 0)."""
+    a = min(a_req, u, n)
+    rng = np.random.default_rng(seed)
+    params = dataclasses.replace(swim.make_params(
+        config.GossipConfig.lan(), config.SimConfig(n_nodes=n, rumor_slots=u)),
+        alloc_cap=a)
+    dense = rng.random(u) < 0.5
+    st = dict(
+        up=rng.random(n) < 0.9, member=rng.random(n) < 0.95,
+        incarnation=rng.integers(0, 5, n).astype(np.int32),
+        committed_dead=rng.random(n) < 0.1,
+        committed_left=rng.random(n) < 0.1,
+        committed_inc=rng.integers(-2, 4, n).astype(np.int32),
+        r_active=rng.random(u) < 0.85,
+        r_kind=rng.integers(0, 4, u).astype(np.int8),
+        r_subject=rng.integers(0, min(n, 6), u).astype(np.int32),
+        r_inc=rng.integers(0, 6, u).astype(np.int32),
+        r_start=rng.integers(0, 100, u).astype(np.int32),
+        r_confirm=rng.integers(0, 9, u).astype(np.int8),
+        r_coverage=rng.random(u).astype(np.float32),
+        know=(rng.random((n, u)) < np.where(dense, 1.0, 0.4)[None, :]),
+        learn_tick=rng.integers(-50, 50, (n, u)).astype(np.int16),
+        sends_left=rng.integers(0, 12, (n, u)).astype(np.int8))
+    want = np.where(rng.random(n) < wanters, rng.integers(1, 3, n),
+                    0).astype(np.int32)
+    row_subject = np.where(rng.random(n) < 0.4, rng.integers(0, n, n),
+                           -1).astype(np.int32)
+    s = swim.init_state(params, device="cpu").replace(
+        tick=123, **{k: torch.from_numpy(v.copy()) for k, v in st.items()})
+    ref, alloc = swim._originate_plain(
+        params, s, torch.from_numpy(want), kind, s.incarnation,
+        torch.from_numpy(row_subject))
+    got = originate_in_place(st, want, kind, st["incarnation"], row_subject,
+                             a, 123, swim._t16(123), params.retransmit_limit)
+    for name, v in st.items():
+        np.testing.assert_array_equal(v, getattr(ref, name).numpy(),
+                                      err_msg=name)
+    for x, y in zip(got, alloc):
+        np.testing.assert_array_equal(x, y.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -411,13 +535,7 @@ def _probe_args(n=40, u=16, k=3, amax=8, chaos=True):
         awareness_max=amax, degraded=True, seed=2 ** 40 + 7, ok_good=0.99,
         ok_bad=0.7, degraded_frac=0.1, probe_timeout_ms=500.0,
         rtt_base_ms=0.5, tick=41, tick16=41, limit=12,
-        know_out=z(n, u), learn_out=z(n, u, dtype=torch.int16),
-        sends_out=z(n, u, dtype=torch.int8),
-        awareness_out=z(n, dtype=torch.int8) if amax else None,
-        r_confirm_out=z(u, dtype=torch.int8), sus_start_out=z(n, dtype=i32),
-        sus_confirm_out=z(n, dtype=torch.int8), sus_count_out=z(n, dtype=i32),
-        ctr_out=z(7, dtype=torch.float32), want_out=z(n, dtype=i32),
-        row_subject_out=z(n, dtype=i32),
+        want_out=z(n, dtype=i32), row_subject_out=z(n, dtype=i32),
         rtt_out=z(n, dtype=torch.float32), acked_out=z(n))
 
 
@@ -434,14 +552,8 @@ def _originate_args(n=40, u=16, a=8):
         r_inc=z(u, dtype=i32), r_start=z(u, dtype=i32),
         r_confirm=z(u, dtype=torch.int8), r_coverage=z(u, dtype=torch.float32),
         alloc=a, kind=swim.SUSPECT, tick=70000, tick16=swim._t16(70000),
-        limit=12, know_out=z(n, u), learn_out=z(n, u, dtype=torch.int16),
-        sends_out=z(n, u, dtype=torch.int8), committed_dead_out=z(n),
-        committed_left_out=z(n), committed_inc_out=z(n, dtype=i32),
-        r_active_out=z(u), r_kind_out=z(u, dtype=torch.int8),
-        r_subject_out=z(u, dtype=i32), r_inc_out=z(u, dtype=i32),
-        r_start_out=z(u, dtype=i32), r_confirm_out=z(u, dtype=torch.int8),
-        r_coverage_out=z(u, dtype=torch.float32), subjects_out=z(a, dtype=i32),
-        slots_out=z(a, dtype=i32), ok_out=z(a))
+        limit=12, subjects_out=z(a, dtype=i32), slots_out=z(a, dtype=i32),
+        ok_out=z(a))
 
 
 def _check_call(args, names, kwargs, scalars):
@@ -472,7 +584,7 @@ def test_probe_round_ctypes_order(monkeypatch, amax, k, chaos):
     assert kernels.LAUNCHES["probe_round"] == before + 1
     names = _c_params("probe.cu", "probe_round")
     assert len(names) == len(kernels.SIGNATURES["probe_round"])
-    scalars = dict(N=40, U=16, D=2, k=k, amax=amax, chaos=int(chaos),
+    scalars = dict(N=40, U=16, k=k, amax=amax, chaos=int(chaos),
                    degraded=1, C=7, seed32=7, ok_good=0.99, ok_bad=0.7,
                    degraded_frac=0.1, probe_timeout_ms=500.0, rtt_base_ms=0.5,
                    tick=41, tick16=41, limit=12,
@@ -514,7 +626,7 @@ PROBE_BAD = {
     "up dtype": (dict(up=torch.zeros(40, dtype=torch.int8)), "up"),
     "maps dtype": (dict(suspect_of=torch.zeros(40, dtype=torch.int64)),
                    "suspect_of"),
-    "ctr short": (dict(ctr=torch.zeros(3), ctr_out=torch.zeros(3)), "ctr"),
+    "ctr short": (dict(ctr=torch.zeros(3)), "ctr"),
     "relays > 16": (dict(offs=torch.zeros(18, dtype=torch.int32)), "relays"),
     "legs missing": (dict(leg_b=None), "relay legs"),
     "lha without LHA": (dict(awareness_max=0), "lha"),
@@ -557,10 +669,10 @@ ORIGINATE_BAD = {
     "r_coverage dtype": (dict(r_coverage=torch.zeros(16, dtype=torch.int32)),
                          "r_coverage"),
     "ok_out dtype": (dict(ok_out=torch.zeros(8, dtype=torch.int8)), "ok_out"),
-    "sends_out shape": (dict(sends_out=torch.zeros(40, 8, dtype=torch.int8)),
-                        "sends_left"),
-    "committed_inc_out dtype": (dict(committed_inc_out=torch.zeros(
-        40, dtype=torch.int64)), "committed_inc_out"),
+    "sends_left shape": (dict(sends_left=torch.zeros(40, 8, dtype=torch.int8)),
+                         "sends_left"),
+    "committed_inc dtype": (dict(committed_inc=torch.zeros(
+        40, dtype=torch.int64)), "committed_inc"),
 }
 
 
@@ -588,8 +700,9 @@ def _card_flagged(monkeypatch):
 
 
 def test_probe_pass_on_a_card_tensor_launches_k7(monkeypatch):
-    """On a CUDA tensor _probe_pass goes to K7 with fresh outputs, never
-    the twin; a refused launch raises."""
+    """On a CUDA tensor _probe_pass goes to K7, never the twin, with the
+    state's own leaves to update in place and fresh tensors for want,
+    row_subject and the observation; a refused launch raises."""
     params, s, maps, drawn = _card_flagged(monkeypatch)
     seen = {}
 
@@ -603,11 +716,14 @@ def test_probe_pass_on_a_card_tensor_launches_k7(monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         swim._probe_round(params, s, maps)
     assert seen["know"] is s.know and seen["offs"].shape == (4,)
-    for name in ("know_out", "learn_out", "sends_out", "ctr_out"):
-        assert seen[name].data_ptr() not in (s.know.data_ptr(),
-                                             s.learn_tick.data_ptr(),
-                                             s.sends_left.data_ptr(),
-                                             s.ctr.data_ptr())
+    for name in swim.PROBE_INPLACE:
+        assert seen[name] is getattr(s, name), name
+    assert not any(name.endswith("_out") and name[:-4] in swim.PROBE_INPLACE
+                   for name in seen)
+    for name in ("want_out", "row_subject_out", "rtt_out", "acked_out"):
+        assert seen[name].data_ptr() not in {
+            getattr(s, f).untyped_storage().data_ptr()
+            for f in swim.TENSOR_FIELDS}, name
     assert seen["chaos_grp"] is None
     assert torch.equal(seen["lha"], drawn["lha"])     # the same K1 batch
 
@@ -637,4 +753,7 @@ def test_originate_on_a_card_tensor_launches_k8(monkeypatch, caller):
         call()
     assert seen["alloc"] == params.alloc_cap and seen["want"].dtype == \
         torch.int32
-    assert seen["know_out"].data_ptr() != seen["know"].data_ptr()
+    assert "know_out" not in seen and seen["know"].shape == s.know.shape
+    if caller in ("leave", "inject_suspicion"):
+        for name in swim.ORIGINATE_INPLACE:   # s itself, updated in place
+            assert seen[name] is getattr(s, name), name
