@@ -28,7 +28,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
      draws exactly two, launches K7 and K13 once, K8 at least twice (the
      probe round's and the dense expiry's origination) and every K9-K12
      entry point, and runs at most PROBE_KERNEL_CAP device kernels (the
-     tree before K8 was one launch ran PARENT_PROBE_KERNELS);
+     tree before K10 was one launch ran PARENT_PROBE_KERNELS);
   4. kernels: each kernel against its plain PyTorch twin on the card,
      bit-equal, at the main path's shapes (N=1M, S=U=32, G=3).  K1 mode
      by mode ([N, 3] uniform and bits, [N] exponential, [N, 8] normal —
@@ -113,16 +113,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
      (probe_phase).  Every state the script reads again after a step, a
      command or a kernel that consumes it is a clone (_clone);
  12. the rest of the probe tick's detector passes: K9 (the subject maps,
-     map_add, maps_convert), K10 (suspicion expiry), K11 (the dense
-     expiry around K8) and K12 (refutation, expire) against their twins,
-     every leaf bit-equal, along whole probe ticks from the main path's
-     states (the kill, mid-convergence, the end, and the first ticks of
-     its replay that converted a slot, refuted and freed one), the
-     correlated run's overflow tick and evicting state (stale maps), the
-     1M chaos states, the WAN pool and small pools on the card and random
-     1M states (dead rumors refuted, two slots of one subject refuting,
-     no LHA, wrapped int16 ages), then timed beside their bounds, the
-     twins and, for K9, one scatter_reduce (detector_phase);
+     map_add, maps_convert), K10 (suspicion expiry) and K11 (the dense
+     expiry around K8), which update the state they are given in place,
+     and K12 (refutation, expire) against their twins, every leaf
+     bit-equal, each K10 and K11 call on a clone of its input, along
+     whole probe ticks from the main path's states (the kill,
+     mid-convergence, the end, and the first ticks of its replay that
+     converted a slot, refuted and freed one), the correlated run's
+     overflow tick and evicting state (stale maps), the 1M chaos states,
+     the WAN pool and small pools on the card and random 1M states (dead
+     rumors refuted, two slots of one subject refuting, no LHA, wrapped
+     int16 ages); the leaves K10 and K11 write are the input's own
+     tensors, and neither allocates an [N, U] block; then timed beside
+     their bounds, the twins and, for K9, one scatter_reduce
+     (detector_phase);
  13. the Vivaldi ring observation and the bulk channel: K13 against
      observe_ring_plain, every leaf within K13_ULP_BOUND (0) ulp, on the
      main path's first probe tick (every row colocated, so the 0-ulp
@@ -779,7 +783,7 @@ def check_kernels_per_tick(params, state) -> dict:
     require(not missing, f"probe tick: K9-K12 entry points not launched: "
             f"{missing} ({ {k: launched[k] for k in kernels.DETECTOR} })")
     count = per_tick["probe"]["kernels"]
-    log(f"kernels per probe tick: {count}, with K8 in three launches "
+    log(f"kernels per probe tick: {count}, with K10 in two launches "
         f"{PARENT_PROBE_KERNELS} (fall {PARENT_PROBE_KERNELS - count}); "
         f"K9-K12 launches {json.dumps({k: launched[k] for k in kernels.DETECTOR})}")
     require(count <= PROBE_KERNEL_CAP,
@@ -2066,11 +2070,11 @@ def vivaldi_phase(dev) -> dict:
 # phase 11: the probe round (K7) and rumor origination (K8)
 # ---------------------------------------------------------------------------
 
-# device kernels a main-path probe tick ran while K8 was three launches
+# device kernels a main-path probe tick ran while K10 was two launches
 # (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W), and the
-# most a probe tick may run now (each of its two K8 calls one launch)
-PARENT_PROBE_KERNELS = 25
-PROBE_KERNEL_CAP = 21
+# most a probe tick may run now (K10 one cooperative launch)
+PARENT_PROBE_KERNELS = 21
+PROBE_KERNEL_CAP = 20
 # the plain twins of K7-K12 and K14 in models/swim.py, and K13's in
 # models/vivaldi.py
 SWIM_TWINS = ("_probe_pass_plain", "_probe_round_plain", "_originate_plain",
@@ -2229,7 +2233,10 @@ def hold_probe(params, s, what: str, callers: bool = False) -> dict:
         kr = swim.rejoin(params, s.clone(), node)
         kl = swim.leave(params, s.clone(), node)
         with plain_originate():
-            pd = swim._dense_suspicion_expiry(params, s1, got[3].shift, maps)
+            # K11's launches still update s1 in place, and the twin's s1
+            # shares its unchanged leaves with s
+            pd = swim._dense_suspicion_expiry(params, s1.clone(), got[3].shift,
+                                              maps)
             pr = swim.rejoin(params, s, node)
             pl = swim.leave(params, s, node)
         _state(kd, pd, "K8", f"{what} dense expiry")
@@ -2242,6 +2249,33 @@ def hold_probe(params, s, what: str, callers: bool = False) -> dict:
             "released_slots": sum(e[1] for e in evictions)}
 
 
+def _peak_growth(grown: dict, name: str, fn):
+    """fn(), with grown[name] = how far the peak of
+    torch.cuda.memory_allocated rose above its level before the call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    grown[name] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def _no_block(x, ptrs: dict, grown: dict, what: str, which: str) -> dict:
+    """Every leaf of x still the tensor of `ptrs`, and no call in `grown`
+    allocated an [N, U] block (N * U bytes, the smallest [N, U] leaf)."""
+    rows_bytes = x.know.numel()
+    for f in swim.TENSOR_FIELDS:
+        require(getattr(x, f).data_ptr() == ptrs[f],
+                f"{what}: {f} left its tensor across {which}")
+    log(f"{what}: bytes allocated at the peak of each call {grown} "
+        f"(an [N, U] bool is {rows_bytes})")
+    for name, b in grown.items():
+        require(b < rows_bytes, f"{what}: {name} allocated {b} bytes, an "
+                f"[N, U] block is {rows_bytes}")
+    return {"peak_growth_bytes": grown, "nu_bytes": rows_bytes}
+
+
 def no_row_allocation(params, s, what: str) -> dict:
     """K7 then K8 on a clone of s on the card, as a probe round runs them:
     the leaves they write are the clone's own tensors, and neither call
@@ -2251,32 +2285,13 @@ def no_row_allocation(params, s, what: str) -> dict:
     x = s.clone()
     maps = swim._maps(params, x)
     drawn = swim._probe_inputs(params, x)
-    rows_bytes = x.know.numel()
     grown = {}
-
-    def peak(name, fn):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        grown[name] = torch.cuda.max_memory_allocated() - base
-        return out
-
     ptrs = {f: getattr(x, f).data_ptr() for f in swim.TENSOR_FIELDS}
-    s1, want, rows, _ = peak("K7", lambda: swim._probe_pass(params, x, maps,
-                                                            drawn))
-    s2, _ = peak("K8", lambda: swim._originate(
+    s1, want, rows, _ = _peak_growth(grown, "K7", lambda: swim._probe_pass(
+        params, x, maps, drawn))
+    s2, _ = _peak_growth(grown, "K8", lambda: swim._originate(
         params, s1, want, swim.SUSPECT, s1.incarnation, rows))
-    for f in swim.TENSOR_FIELDS:
-        require(getattr(s2, f).data_ptr() == ptrs[f],
-                f"{what}: {f} left its tensor across K7 and K8")
-    log(f"{what}: bytes allocated at the peak of each call {grown} "
-        f"(an [N, U] bool is {rows_bytes})")
-    for name, b in grown.items():
-        require(b < rows_bytes, f"{what}: {name} allocated {b} bytes, an "
-                f"[N, U] block is {rows_bytes}")
-    return {"peak_growth_bytes": grown, "nu_bytes": rows_bytes}
+    return _no_block(s2, ptrs, grown, what, "K7 and K8")
 
 
 def _random_probe_state(dev, params, s, seed: int):
@@ -2367,9 +2382,8 @@ def _originate_bytes(s, want, row_subject, evicting: bool, ref) -> int:
 
 def _copy_bytes(s, cell_bytes: int = 4) -> int:
     """The fresh-output copy of [N, U] rows, `cell_bytes` a cell read and
-    as many written: know, learn_tick and sends_left are 4 (K10, the
-    refutation), learn_tick and sends_left 3 (K11), know and sends_left 2
-    (expire)."""
+    as many written: know, learn_tick and sends_left are 4 (the
+    refutation), know and sends_left 2 (expire)."""
     n, u = s.know.shape
     return 2 * cell_bytes * n * u
 
@@ -2614,8 +2628,8 @@ DETECTOR_ENTRIES = {
                 "consul_tpu/models/swim.py:414"),
     "maps_convert": (("maps_convert_kernel",), "maps.cu",
                      "consul_tpu/models/swim.py:422"),
-    "suspicion_expiry": (("expiry_scan_kernel", "expiry_apply_kernel"),
-                         "expiry.cu", "consul_tpu/models/swim.py:900"),
+    "suspicion_expiry": (("expiry_kernel",), "expiry.cu",
+                         "consul_tpu/models/swim.py:900"),
     "dense_expiry": (("dense_pre_kernel", "dense_post_kernel"), "dense.cu",
                      "consul_tpu/models/swim.py:965"),
     "refutation": (("refutation_kernel",), "refute.cu",
@@ -2648,7 +2662,9 @@ def hold_detector(params, s, what: str) -> dict:
     the tick: the maps (K9's build), the probe round's map_add of K8's
     allocation, the slot expiry (K10), maps_convert of its conversions,
     the dense expiry (K11 around K8; its twin with K8's twin), the
-    refutation and expire (K12); K12 also on s itself.  Returns what the
+    refutation and expire (K12); K12 also on s itself.  K10 and K11 run
+    on a clone of their input, whose leaves they must write in place (the
+    state returned holds the clone's tensors).  Returns what the
     tick exercised: among it the slots the probe round's origination
     evicted and how many map entries differ from maps rebuilt from the
     table (stale by design after an eviction)."""
@@ -2666,19 +2682,24 @@ def hold_detector(params, s, what: str) -> dict:
     _same(added, swim._map_add_plain(ref[0], *alloc), f"{what} map_add",
           "K9")
     maps1 = (added, *ref[1:])
-    s2, conv = swim._suspicion_expiry(params, s1)
+    x10 = s1.clone()
+    s2, conv = swim._suspicion_expiry(params, x10)
     p2, pconv = swim._suspicion_expiry_plain(params, s1)
     _state(s2, p2, "K10", what)
+    _same_storage(x10, s2, swim.EXPIRY_INPLACE, "K10", what)
     _same(conv, pconv, f"{what} convert", "K10")
     maps2 = swim._maps_convert(maps1, s2, conv)
     _maps_same(maps2, swim._maps_convert_plain(maps1, s2, conv),
                f"{what} maps_convert")
     stale = sum(int((x != y).sum())
                 for x, y in zip(maps2, swim._maps_plain(params, s2)))
-    s3 = swim._dense_suspicion_expiry(params, s2.clone(), obs.shift, maps2)
+    x11 = s2.clone()
+    s3 = swim._dense_suspicion_expiry(params, x11, obs.shift, maps2)
     with plain_originate():
         p3 = swim._dense_suspicion_expiry_plain(params, s2, obs.shift, maps2)
     _state(s3, p3, "K11", what)
+    _same_storage(x11, s3, swim.DENSE_INPLACE + swim.ORIGINATE_INPLACE,
+                  "K11", what)
     s4 = swim._refutation(params, s3)
     _state(s4, swim._refutation_plain(params, s3), "K12 refutation", what)
     s5 = swim._expire(params, s4)
@@ -2702,6 +2723,24 @@ def hold_detector(params, s, what: str) -> dict:
                              + (s5.committed_left != s4.committed_left).sum()
                              + (s5.committed_inc != s4.committed_inc).sum()),
             "evicted": evicted, "stale_map_entries": stale}
+
+
+def no_expiry_allocation(params, s, what: str) -> dict:
+    """The probe round, then K10 and the dense expiry (K11 around K8) on a
+    clone of s on the card, as a probe tick runs them: the leaves they
+    write are the clone's own tensors, and neither K10 nor the dense
+    expiry allocates an [N, U] block (their fresh outputs are [U], [2, N],
+    [3] and K8's [A])."""
+    x = s.clone()
+    x, obs, maps = swim._probe_round(params, x, swim._maps(params, x))
+    grown = {}
+    ptrs = {f: getattr(x, f).data_ptr() for f in swim.TENSOR_FIELDS}
+    x, conv = _peak_growth(grown, "K10", lambda: swim._suspicion_expiry(
+        params, x))
+    maps = swim._maps_convert(maps, x, conv)
+    x = _peak_growth(grown, "K11+K8", lambda: swim._dense_suspicion_expiry(
+        params, x, obs.shift, maps))
+    return _no_block(x, ptrs, grown, what, "K10 and K11")
 
 
 def _random_detector_state(dev, params, s, seed: int):
@@ -2906,8 +2945,8 @@ def _detector_bytes(params, s, which: str, out, *extra) -> int:
 
 
 # bytes a cell of the [N, U] rows each entry copies into fresh outputs
-ROW_COPY_CELL_BYTES = {"suspicion_expiry": 4, "refutation": 4,
-                       "dense_expiry": 3, "expire": 2}
+# (K10 and K11 write in place and copy nothing)
+ROW_COPY_CELL_BYTES = {"refutation": 4, "expire": 2}
 
 
 def time_detector(params, s) -> dict:
@@ -2921,7 +2960,7 @@ def time_detector(params, s) -> dict:
     s1, want, rows, obs = swim._probe_pass(params, s.clone(), maps, drawn)
     s1, alloc = swim._originate(params, s1, want, swim.SUSPECT,
                                 s1.incarnation, rows)
-    s2, conv = swim._suspicion_expiry(params, s1)
+    s2, conv = swim._suspicion_expiry(params, s1.clone())
     maps2 = swim._maps_convert(maps, s2, conv)
     s3 = swim._dense_suspicion_expiry(params, s2.clone(), obs.shift, maps2)
     calls = {
@@ -2933,10 +2972,11 @@ def time_detector(params, s) -> dict:
         "maps_convert": (lambda: swim._maps_convert(maps, s2, conv),
                          lambda: swim._maps_convert_plain(maps, s2, conv),
                          s2, (maps, conv)),
-        "suspicion_expiry": (lambda: swim._suspicion_expiry(params, s1),
+        # K10 and K11 (with K8 inside) update their input in place: a
+        # clone a call
+        "suspicion_expiry": (lambda st: swim._suspicion_expiry(params, st),
                              lambda: swim._suspicion_expiry_plain(params, s1),
-                             s1, ()),
-        # K8 inside updates its input in place: a clone a call
+                             s1, (), s1.clone),
         "dense_expiry": (lambda st: swim._dense_suspicion_expiry(
             params, st, obs.shift, maps2), lambda: swim.
             _dense_suspicion_expiry_plain(params, s2, obs.shift, maps2), s2,
@@ -3062,6 +3102,10 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
             "no hold ran K10-K12 behind maps an eviction left stale")
     require(all(h["overflow"] == 0 for h in held.values() if h["chaos"]),
             "a chaos hold seeded the bulk channel")
+    in_place = {name: no_expiry_allocation(hp, st, name) for name, hp, st in (
+        ("main mid", p, states["mid"][1]),
+        ("main first convert", p, events["convert"]),
+        ("correlated overflow", cp, overflow))}
 
     timed = time_detector(p, states["mid"][1])
     launches = main["all_launches"]
@@ -3078,7 +3122,8 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
             "library_ms": t["library_ms"],
             "row_copy_ms_at_hbm": t["row_copy_ms_at_hbm"],
             "shape": [p.n_nodes, p.rumor_slots]})
-    return entries, {"held": held, "totals": totals, "timed": timed}
+    return entries, {"held": held, "totals": totals, "timed": timed,
+                     "in_place": in_place}
 
 
 # ---------------------------------------------------------------------------

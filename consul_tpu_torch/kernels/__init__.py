@@ -35,10 +35,10 @@ RECONCILE = ("reconcile_diff", "reconcile_merge")
 # both writing the state they are given in place
 PROBE = ("probe_round", "originate")
 # the rest of the probe tick's detector passes: the subject maps and their
-# updates (K9), suspicion expiry (K10: scan + apply behind one entry
-# point, counted once), the dense expiry's launches before and after its
-# origination (K11), refutation and expire (K12; expire's count + apply
-# counted once)
+# updates (K9), suspicion expiry (K10: one cooperative launch), the dense
+# expiry's launches before and after its origination (K11), K10 and K11
+# writing the state they are given in place, refutation and expire (K12;
+# expire's count + apply counted once)
 DETECTOR = ("subject_maps", "map_add", "maps_convert", "suspicion_expiry",
             "dense_expiry", "dense_expiry_post", "refutation", "expire")
 # the Vivaldi ring observation of every probe tick (K13), and the bulk
@@ -98,9 +98,9 @@ SIGNATURES = {
     "subject_maps": [_P] * 4 + [_I64, _I] + [_P] * 5,
     "map_add": [_P] * 4 + [_I64, _I] + [_P] * 2,
     "maps_convert": [_P] * 4 + [_I64, _I] + [_P] * 3,
-    "suspicion_expiry": [_P] * 14 + [_I64] + [_I] * 4 + [_P] * 8,
-    "dense_expiry": [_P] * 18 + [_I64] + [_I] * 5 + [_P, _I] + [_P] * 9,
-    "dense_expiry_post": [_P] * 19 + [_I64] + [_I] * 5 + [_P] * 6,
+    "suspicion_expiry": [_P] * 14 + [_I64] + [_I] * 4 + [_P] * 3,
+    "dense_expiry": [_P] * 18 + [_I64] + [_I] * 5 + [_P, _I] + [_P] * 5,
+    "dense_expiry_post": [_P] * 14 + [_I64] + [_I] * 5 + [_P] * 6,
     "refutation": [_P] * 12 + [_I64] + [_I] * 5 + [_P] * 9,
     "expire": [_P] * 12 + [_I64] + [_I] * 4 + [_P] * 9,
     "vivaldi_ring": [_P] * 7 + [_I64, _I, _I, _I, _U32, _U32] + [_F32] * 8
@@ -815,9 +815,10 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
     LAUNCHES["originate"] += 1
 
 
-# expiry.cu's and refute.cu's scratch words (the done count, then what the
-# last block hands the apply launch)
-EXPIRY_SCRATCH = 3
+# expiry.cu's scratch words (the grid's expired slots, its readers) and
+# refute.cu's (the done count, then what the last block hands the apply
+# launch)
+EXPIRY_SCRATCH = 2
 EXPIRE_SCRATCH = 70
 DENSE_COUNTS = 3        # dense.cu's sums: bulk members, live rows, wants
 
@@ -901,11 +902,13 @@ def launch_maps_convert(suspect_of, dead_of, convert, r_subject, suspect_out,
 def launch_suspicion_expiry(*, know, learn_tick, sends_left, up, member,
                             committed_dead, committed_inc, r_active, r_kind,
                             r_subject, r_inc, r_start, r_confirm, timeouts,
-                            tick: int, tick16: int, limit: int, know_out,
-                            learn_out, sends_out, r_kind_out, r_start_out,
+                            tick: int, tick16: int, limit: int,
                             convert_out) -> None:
-    """K10: the slot suspicion expiry of the pool (scan, then apply), from
-    the int16 timeout table [65]; writes every *_out whole."""
+    """K10: the slot suspicion expiry of the pool (one cooperative launch:
+    scan, grid barrier, decision, apply), from the int16 timeout table
+    [65].  Updates know / learn_tick / sends_left in the converted columns
+    and r_kind / r_start at the converted slots in place, where they
+    change; writes convert_out [U] bool whole."""
     dev = know.device if know is not None else None
     n, u = _slot_rows("suspicion_expiry", know, learn_tick, sends_left, dev)
     _ticks("suspicion_expiry", tick, tick16, limit)
@@ -917,13 +920,10 @@ def launch_suspicion_expiry(*, know, learn_tick, sends_left, up, member,
         raise ValueError(f"suspicion_expiry: the rumor table has "
                          f"{r_active.shape[0]} slots, know {u}")
     _node_vectors("suspicion_expiry", dev, u, (r_inc, "r_inc", _I32),
-                (r_start, "r_start", _I32), (r_confirm, "r_confirm", _I8),
-                (r_kind_out, "r_kind_out", _I8),
-                (r_start_out, "r_start_out", _I32),
-                (convert_out, "convert_out", _BOOL))
+                  (r_start, "r_start", _I32), (r_confirm, "r_confirm", _I8),
+                  (convert_out, "convert_out", _BOOL))
     _require(timeouts, "suspicion_expiry timeout table", _I16, dev,
              (TIMEOUTS,))
-    _slot_rows("suspicion_expiry out", know_out, learn_out, sends_out, dev)
     scratch = _scratch_words(dev, "suspicion_expiry", EXPIRY_SCRATCH)
     rc = library().suspicion_expiry(
         know.data_ptr(), learn_tick.data_ptr(), sends_left.data_ptr(),
@@ -931,9 +931,7 @@ def launch_suspicion_expiry(*, know, learn_tick, sends_left, up, member,
         committed_inc.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
         r_subject.data_ptr(), r_inc.data_ptr(), r_start.data_ptr(),
         r_confirm.data_ptr(), timeouts.data_ptr(), n, u, tick, tick16, limit,
-        scratch.data_ptr(), know_out.data_ptr(), learn_out.data_ptr(),
-        sends_out.data_ptr(), r_kind_out.data_ptr(), r_start_out.data_ptr(),
-        convert_out.data_ptr(), _stream(dev))
+        scratch.data_ptr(), convert_out.data_ptr(), _stream(dev))
     _check(rc, "suspicion_expiry")
     LAUNCHES["suspicion_expiry"] += 1
 
@@ -948,15 +946,15 @@ def launch_dense_expiry(*, sus_start, sus_confirm, up, member, committed_dead,
                         bulk_member, suspect_of, dead_of, left_of, know,
                         learn_tick, sends_left, r_active, r_kind, r_subject,
                         r_start, timeouts, shift, tick: int, tick16: int,
-                        limit: int, period: int, learn_out, sends_out,
-                        r_kind_out, r_start_out, exp_out, want_out,
+                        limit: int, period: int, exp_out, want_out,
                         row_subject_out, counts_out) -> None:
     """K11's pre launch: the expiring suspect slots (exp_out [U] bool), the
-    [U] kind and start, the stamped learn_tick / sends_left, the wants at
-    each prober's ring target (i + shift) % N and the probers' row
-    subjects, and the sums [3] int64 (bulk members, live rows, wants) of
-    the post launch; the int32 timeout table [65]; `shift` one int32 read
-    on the device."""
+    wants at each prober's ring target (i + shift) % N and the probers'
+    row subjects, and the sums [3] int64 (bulk members, live rows, wants)
+    of the post launch, all written whole; the learn_tick / sends_left
+    stamps of the known cells of the expiring columns and the [U] kind and
+    start, in place where they change.  The int32 timeout table [65];
+    `shift` one int32 read on the device."""
     dev = know.device if know is not None else None
     n, u = _slot_rows("dense_expiry", know, learn_tick, sends_left, dev)
     _ticks("dense_expiry", tick, tick16, limit)
@@ -974,15 +972,11 @@ def launch_dense_expiry(*, sus_start, sus_confirm, up, member, committed_dead,
         raise ValueError(f"dense_expiry: the rumor table has "
                          f"{r_active.shape[0]} slots, know {u}")
     _node_vectors("dense_expiry", dev, u, (r_start, "r_start", _I32),
-                (r_kind_out, "r_kind_out", _I8),
-                (r_start_out, "r_start_out", _I32),
-                (exp_out, "exp_out", _BOOL))
+                  (exp_out, "exp_out", _BOOL))
     _require(timeouts, "dense_expiry timeout table", _I32, dev, (TIMEOUTS,))
     _require(counts_out, "dense_expiry counts_out", torch.int64, dev,
              (DENSE_COUNTS,))
     _shift("dense_expiry", shift, dev)
-    _require(learn_out, "dense_expiry learn_out", _I16, dev, (n, u))
-    _require(sends_out, "dense_expiry sends_out", _I8, dev, (n, u))
     scratch = _counter_scratch(dev, "dense_expiry", DENSE_COUNTS)
     rc = library().dense_expiry(
         sus_start.data_ptr(), sus_confirm.data_ptr(), up.data_ptr(),
@@ -992,26 +986,25 @@ def launch_dense_expiry(*, sus_start, sus_confirm, up, member, committed_dead,
         r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(),
         r_start.data_ptr(), timeouts.data_ptr(), shift.data_ptr(), n, u,
         tick, tick16, limit, period, scratch.data_ptr(), SCRATCH_BLOCKS,
-        learn_out.data_ptr(), sends_out.data_ptr(), r_kind_out.data_ptr(),
-        r_start_out.data_ptr(), exp_out.data_ptr(), want_out.data_ptr(),
-        row_subject_out.data_ptr(), counts_out.data_ptr(), _stream(dev))
+        exp_out.data_ptr(), want_out.data_ptr(), row_subject_out.data_ptr(),
+        counts_out.data_ptr(), _stream(dev))
     _check(rc, "dense_expiry")
     LAUNCHES["dense_expiry"] += 1
 
 
 def launch_dense_expiry_post(*, want, dead_of, left_of, exp, r_subject,
-                             subjects, slots, ok, sus_start, sus_confirm, up,
-                             member, committed_dead, committed_left,
-                             bulk_member, bulk_heard, bulk_cov, counts, shift,
-                             tick: int, period: int, chaos: bool,
-                             bulk_member_out, bulk_heard_out, bulk_cov_out,
-                             sus_start_out, sus_confirm_out) -> None:
+                             subjects, slots, ok, up, member, committed_dead,
+                             committed_left, counts, shift, tick: int,
+                             period: int, chaos: bool, bulk_member,
+                             bulk_heard, bulk_cov, sus_start,
+                             sus_confirm) -> None:
     """K11's post launch, after the dead origination: the bulk overflow
-    (off when `chaos`) and the timer clears, into every *_out whole.
-    dead_of is the map the pre launch read; the kernel adds the pre
-    launch's converted slots (`exp` [U] over `r_subject`, the table before
-    the origination) and the origination's ok (subjects, slots) [A] pairs
-    per node; `counts` holds the pre launch's sums."""
+    (off when `chaos`) and the timer clears, into bulk_member /
+    bulk_heard / bulk_cov / sus_start / sus_confirm in place, where they
+    change.  dead_of is the map the pre launch read; the kernel adds the
+    pre launch's converted slots (`exp` [U] over `r_subject`, the table
+    before the origination) and the origination's ok (subjects, slots)
+    [A] pairs per node; `counts` holds the pre launch's sums."""
     dev = want.device if want is not None else None
     n = _node_count("dense_expiry_post", want)
     a = ok.shape[0] if ok is not None and ok.dim() == 1 else 0
@@ -1026,18 +1019,13 @@ def launch_dense_expiry_post(*, want, dead_of, left_of, exp, r_subject,
                          f"range")
     _node_vectors("dense_expiry_post", dev, n, (want, "want", _I32),
                   (dead_of, "dead_of", _I32), (left_of, "left_of", _I32),
-                  (sus_start, "sus_start", _I32),
-                  (sus_confirm, "sus_confirm", _I8), (up, "up", _BOOL),
-                  (member, "member", _BOOL),
+                  (up, "up", _BOOL), (member, "member", _BOOL),
                   (committed_dead, "committed_dead", _BOOL),
                   (committed_left, "committed_left", _BOOL),
                   (bulk_member, "bulk_member", _BOOL),
                   (bulk_heard, "bulk_heard", _F), (bulk_cov, "bulk_cov", _F),
-                  (bulk_member_out, "bulk_member_out", _BOOL),
-                  (bulk_heard_out, "bulk_heard_out", _F),
-                  (bulk_cov_out, "bulk_cov_out", _F),
-                  (sus_start_out, "sus_start_out", _I32),
-                  (sus_confirm_out, "sus_confirm_out", _I8))
+                  (sus_start, "sus_start", _I32),
+                  (sus_confirm, "sus_confirm", _I8))
     _node_vectors("dense_expiry_post", dev, u, (exp, "exp", _BOOL),
                   (r_subject, "r_subject", _I32))
     _node_vectors("dense_expiry_post", dev, a, (subjects, "subjects", _I32),
@@ -1048,14 +1036,12 @@ def launch_dense_expiry_post(*, want, dead_of, left_of, exp, r_subject,
     rc = library().dense_expiry_post(
         want.data_ptr(), dead_of.data_ptr(), left_of.data_ptr(),
         exp.data_ptr(), r_subject.data_ptr(), subjects.data_ptr(),
-        slots.data_ptr(), ok.data_ptr(), sus_start.data_ptr(),
-        sus_confirm.data_ptr(), up.data_ptr(), member.data_ptr(),
+        slots.data_ptr(), ok.data_ptr(), up.data_ptr(), member.data_ptr(),
         committed_dead.data_ptr(), committed_left.data_ptr(),
-        bulk_member.data_ptr(), bulk_heard.data_ptr(), bulk_cov.data_ptr(),
         counts.data_ptr(), shift.data_ptr(), n, u, a, tick, period,
-        int(chaos), bulk_member_out.data_ptr(), bulk_heard_out.data_ptr(),
-        bulk_cov_out.data_ptr(), sus_start_out.data_ptr(),
-        sus_confirm_out.data_ptr(), _stream(dev))
+        int(chaos), bulk_member.data_ptr(), bulk_heard.data_ptr(),
+        bulk_cov.data_ptr(), sus_start.data_ptr(), sus_confirm.data_ptr(),
+        _stream(dev))
     _check(rc, "dense_expiry_post")
     LAUNCHES["dense_expiry_post"] += 1
 

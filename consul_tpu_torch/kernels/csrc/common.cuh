@@ -312,7 +312,7 @@ __device__ __forceinline__ void warp_column_counts(uint64_t m, int S,
 }
 
 // Bytes [0, bytes) of src copied into dst by the 32 lanes of a warp:
-// 16-byte vectors where both are aligned, bytes for the rest.  (K10-K12's
+// 16-byte vectors where both are aligned, bytes for the rest.  (K12's
 // fresh-output row copies: a warp's 32 contiguous rows at a time.)
 __device__ __forceinline__ void warp_copy(void* dst, const void* src,
                                           int64_t bytes, int lane) {
@@ -419,6 +419,65 @@ __device__ __forceinline__ void warp_copy_rows(void* dst, const void* src,
   }
   for (int64_t x = done + lane; x < bytes; x += 32) {
     d[x] = ((keep >> (x % U)) & 1ull) ? s[x] : 0;
+  }
+}
+
+// The lanes of a 32-bit word of E-byte elements (E = 1 or 2) that the low
+// 4 / E bits of `bits` select, as a byte mask.
+template <int E>
+__device__ __forceinline__ uint32_t lane_mask(uint32_t bits) {
+  if (E == 1) return byte_masks(bits & 0xfu);
+  return ((bits & 1u) ? 0x0000ffffu : 0u) | ((bits & 2u) ? 0xffff0000u : 0u);
+}
+
+// One thread's in-place write of its [U] row r of 1- or 2-byte elements:
+// each slot of `sel` becomes v where `hi` holds it, else 0 (hi within
+// sel).  Where the row is 16-byte aligned and U elements are whole 16-byte
+// vectors, it goes four vectors (64 bytes) at a time: every vector of the
+// four that the slots touch is loaded before any is stored, and a vector
+// is written back only when one of its bytes changes; element by element
+// otherwise, each written only where it changes.  (K10's apply and K11's
+// stamps of the converted columns.)
+template <typename T>
+__device__ __forceinline__ void row_write(T* r, int U, uint64_t sel, uint64_t hi, T v) {
+  constexpr int E = sizeof(T);
+  constexpr int kPer = 16 / E;      // slots a vector
+  constexpr int kVecs = 64 / kPer;  // vectors of a 64-slot row
+  constexpr int kWord = 4 / E;      // slots a 32-bit word
+  static_assert(E == 1 || E == 2, "row_write takes 1- and 2-byte rows");
+  if (!sel) return;
+  if (!aligned16(r) || U % kPer) {
+    for (uint64_t m = sel; m; m &= m - 1) {
+      const int u = __ffsll(m) - 1;
+      const T want = ((hi >> u) & 1ull) ? v : T(0);
+      if (r[u] != want) r[u] = want;
+    }
+    return;
+  }
+  const uint32_t fill = E == 1 ? static_cast<uint32_t>(static_cast<uint8_t>(v)) * 0x01010101u
+                               : static_cast<uint32_t>(static_cast<uint16_t>(v)) * 0x00010001u;
+  uint4* vec = reinterpret_cast<uint4*>(r);
+#pragma unroll
+  for (int c0 = 0; c0 < kVecs; c0 += 4) {
+    if (!((sel >> (c0 * kPer)) & (~0ull >> (64 - 4 * kPer)))) continue;
+    uint4 w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = make_uint4(0, 0, 0, 0);
+      if ((sel >> ((c0 + k) * kPer)) & ((1ull << kPer) - 1)) w[k] = vec[c0 + k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t s = static_cast<uint32_t>(sel >> ((c0 + k) * kPer)) & ((1u << kPer) - 1);
+      if (!s) continue;
+      const uint32_t h = static_cast<uint32_t>(hi >> ((c0 + k) * kPer)) & s;
+      uint4 n;
+      n.x = (w[k].x & ~lane_mask<E>(s)) | (lane_mask<E>(h) & fill);
+      n.y = (w[k].y & ~lane_mask<E>(s >> kWord)) | (lane_mask<E>(h >> kWord) & fill);
+      n.z = (w[k].z & ~lane_mask<E>(s >> 2 * kWord)) | (lane_mask<E>(h >> 2 * kWord) & fill);
+      n.w = (w[k].w & ~lane_mask<E>(s >> 3 * kWord)) | (lane_mask<E>(h >> 3 * kWord) & fill);
+      if (n.x != w[k].x || n.y != w[k].y || n.z != w[k].z || n.w != w[k].w) vec[c0 + k] = n;
+    }
   }
 }
 

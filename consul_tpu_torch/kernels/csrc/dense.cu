@@ -9,23 +9,31 @@
 // peer (a push and a pull by the probe offset), the overflow into the bulk
 // channel with its sums and float steps, and the timer clears.
 //
+// In place: the pre launch updates the state's learn_tick / sends_left
+// rows and r_kind / r_start, the post launch its bulk_member, bulk_heard,
+// bulk_cov, sus_start and sus_confirm, each only where a value changes.
+// exp [U], want and row_subject [N] and the sums [3] are fresh outputs,
+// handed to K8 and to the post launch.
+//
 // Two launches around K8's origination:
 //   1. pre, a persistent grid over N.  Each block first computes exp_u[u]
-//      for the <= 64 slots: an active suspect slot whose subject's dense
-//      timer expired (int32 tick - sus_start against the int32 timeout
-//      table at sus_confirm), whose subject has no dead rumor in dead_of
-//      (the maps after K10's conversion) and is not committed dead.  Thread
-//      i then works for its target j = (i + shift) % N, the bijection K7
-//      uses: want[j] = expired[j] & no dead, left or suspect rumor in the
-//      maps converted by exp_u (maps_convert's min/max applied per node,
-//      masked entries into index 0 too) & ~committed_dead[j] &
-//      ~bulk_member[j] & (up & member)[i], and row_subject[i] = want[j] ?
-//      j : -1.  Each warp copies its 32 rows of learn_tick / sends_left
-//      into the fresh outputs and stamps the known cells of the exp_u
-//      columns (t16(tick), the budget); block 0 writes the [U] kind, start
-//      and exp_u.  The grid's exact sums of bulk_member, live rows and
-//      wants go to `counts` (common.cuh:grid_sum).  `shift` is read on the
-//      device;
+//      for the <= 64 slots (a lane a slot): an active suspect slot whose
+//      subject's dense timer expired (int32 tick - sus_start against the
+//      int32 timeout table at sus_confirm, staged in shared memory), whose
+//      subject has no dead rumor in dead_of (the maps after K10's
+//      conversion) and is not committed dead.  Thread i then works for its
+//      target j = (i + shift) % N, the bijection K7 uses, every load of
+//      the row issued before any test: want[j] = expired[j] & no dead,
+//      left or suspect rumor in the maps converted by exp_u (maps_convert's
+//      min/max applied per node, masked entries into index 0 too) &
+//      ~committed_dead[j] & ~bulk_member[j] & (up & member)[i], and
+//      row_subject[i] = want[j] ? j : -1.  Where a slot converts, thread i
+//      stamps the known cells of the exp_u columns of row i (t16(tick), the
+//      budget), a 16-byte vector at a time and only the vectors whose bytes
+//      change (common.cuh:row_write).  The grid's exact sums of bulk_member,
+//      live rows and wants go to `counts` (common.cuh:grid_sum), and the
+//      last block to finish writes exp, and r_kind = DEAD and r_start =
+//      tick at the exp_u slots.  `shift` is read on the device;
 //   2. post, a grid over N, after the origination.  Each block holds the
 //      converted slots' subjects and K8's ok (subject, slot) pairs in
 //      shared memory, and node j's dead rumor after both map updates is
@@ -34,13 +42,23 @@
 //      overflow[j] = want[j] > 0 & no dead rumor at j (off under the
 //      nemesis build), bulk_member |= overflow, bulk_heard[i] =
 //      min(min(bulk_heard[i], v_prev) + overflow[(i + shift) % N], v_new),
-//      bulk_cov = 1 / max(n_live, 1) (IEEE division) where overflow, and
-//      the timers cleared where done.  v_new = v_prev + the overflow
-//      count, and the overflow count is the wants less the origination's
-//      ok pairs: a want names a subject with no dead rumor, and the pairs
-//      give exactly the ok subjects one (K8's subjects are distinct and
-//      each ok one has want > 0).  So the sum needs no grid reduction of
-//      its own.
+//      bulk_cov = 1 / max(n_live, 1) (IEEE division) where overflow (read
+//      nowhere), and the timers cleared where done.  v_new = v_prev + the
+//      overflow count, and the overflow count is the wants less the
+//      origination's ok pairs: a want names a subject with no dead rumor,
+//      and the pairs give exactly the ok subjects one (K8's subjects are
+//      distinct and each ok one has want > 0).  So the sum needs no grid
+//      reduction of its own.
+// Why the writes in place are race-free.  Pre: every block reads the [U]
+// table (r_active, r_kind, r_subject) at its start, before it counts
+// itself done in grid_sum; the table is written only by the last block to
+// count itself done, so after every read of it, and by one thread.
+// Thread i reads and writes only row i of learn_tick / sends_left (and
+// reads know row i); the [N] leaves it reads are not written by the
+// launch.  Post: thread i writes only index i of the five leaves, and
+// reads them only at i; at (i + shift) % N it reads want and dead_of,
+// which the launch does not write, and the converted slots and pairs come
+// from shared memory.  So neither launch needs an atomic on the state.
 //
 // Bound on an H100: memory.  The function must read the timers, up /
 // member, the committed and bulk leaves the result depends on and the
@@ -49,10 +67,8 @@
 // sectors whose values change (the cleared timers, the overflow's bulk
 // leaves, bulk_heard where it moves, the stamped cells); want and
 // row_subject pass between the launches and are not part of it, nor is
-// reading an input twice.  This design moves ~62 MB besides the
-// fresh-output copy of learn_tick / sends_left (3U bytes read and written
-// a row, 96 MB each way at U = 32, ~0.057 ms), the price of never writing
-// a tensor it was given.
+// reading an input twice (chip_smoke.py:_detector_bytes counts it from the
+// run's data).  It copies no row.
 
 #include "common.cuh"
 
@@ -61,11 +77,13 @@ using namespace consul_kernels;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSuspect = 1, kDead = 2;
+constexpr int kTimeouts = 65;  // confirmations 0..64
 constexpr int32_t kBig = 1 << 30;
 
 struct DenseArgs {
+  // the state's leaves (learn_tick, sends_left, r_kind and r_start
+  // updated in place)
   const int32_t* sus_start;
   const int8_t* sus_confirm;
   const uint8_t* up;
@@ -76,21 +94,18 @@ struct DenseArgs {
   const int32_t* dead_of;
   const int32_t* left_of;
   const uint8_t* know;
-  const int16_t* learn_tick;
-  const int8_t* sends_left;
+  int16_t* learn_tick;
+  int8_t* sends_left;
   const uint8_t* r_active;
-  const int8_t* r_kind;
+  int8_t* r_kind;
   const int32_t* r_subject;
-  const int32_t* r_start;
+  int32_t* r_start;
   const int32_t* timeouts;  // [65] int32
   const int32_t* shift;     // one int32, on the device
   int64_t N;
   int U, tick, tick16, limit, period;
   u64* scratch;
-  int16_t* learn_out;
-  int8_t* sends_out;
-  int8_t* r_kind_out;
-  int32_t* r_start_out;
+  // fresh outputs
   uint8_t* exp_out;
   int32_t* want_out;
   int32_t* row_subject_out;
@@ -113,29 +128,33 @@ __device__ __forceinline__ bool timer_refuted(int32_t start, bool live, int tick
   return start >= 0 && live && wrap_sub(tick, start) >= period;
 }
 
-__device__ __forceinline__ bool timer_expired(const DenseArgs& a, int64_t j) {
-  const int32_t start = a.sus_start[j];
-  const bool member = a.member[j];
-  if (start < 0 || !member || timer_refuted(start, a.up[j] && member, a.tick, a.period)) {
-    return false;
-  }
-  return wrap_sub(a.tick, start) >= a.timeouts[timeout_index(a.sus_confirm[j])];
+__device__ __forceinline__ bool timer_expired(int32_t start, int8_t confirm, bool up,
+                                              bool member, const int32_t* timeouts,
+                                              int tick, int period) {
+  if (start < 0 || !member || timer_refuted(start, up && member, tick, period)) return false;
+  return wrap_sub(tick, start) >= timeouts[timeout_index(confirm)];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// At least six blocks an SM (at most 40 registers): the stamps' vectors
+// must not cost the common tick, which converts no slot, its occupancy.
+__global__ void __launch_bounds__(kThreads, 6)
 dense_pre_kernel(const __grid_constant__ DenseArgs a) {
   __shared__ int32_t s_subj[64];
+  __shared__ int32_t s_timeout[kTimeouts];
   __shared__ unsigned s_words[2];
   const int U = a.U;
   const int64_t N = a.N;
   for (int u = threadIdx.x; u < U; u += blockDim.x) s_subj[u] = a.r_subject[u];
+  for (int t = threadIdx.x; t < kTimeouts; t += blockDim.x) s_timeout[t] = a.timeouts[t];
   if (threadIdx.x < 64) {  // warps 0 and 1, whole: a lane a slot
     const int u = threadIdx.x;
     bool e = false;
     if (u < U && a.r_active[u] && a.r_kind[u] == kSuspect) {
       const int32_t subj = a.r_subject[u];
-      e = subj >= 0 && subj < N && timer_expired(a, subj) && a.dead_of[subj] < 0 &&
-          !a.committed_dead[subj];
+      e = subj >= 0 && subj < N &&
+          timer_expired(a.sus_start[subj], a.sus_confirm[subj], a.up[subj], a.member[subj],
+                        a.timeouts, a.tick, a.period) &&
+          a.dead_of[subj] < 0 && !a.committed_dead[subj];
     }
     const unsigned w = __ballot_sync(0xffffffffu, e);
     if ((u & 31) == 0) s_words[u >> 5] = w;
@@ -143,63 +162,56 @@ dense_pre_kernel(const __grid_constant__ DenseArgs a) {
   __syncthreads();
   const u64 exp = static_cast<u64>(s_words[0]) | (static_cast<u64>(s_words[1]) << 32);
   const bool masked = exp != all_slots(U);
-  if (blockIdx.x == 0) {
-    for (int u = threadIdx.x; u < U; u += blockDim.x) {
-      const bool e = (exp >> u) & 1ull;
-      a.r_kind_out[u] = e ? static_cast<int8_t>(kDead) : a.r_kind[u];
-      a.r_start_out[u] = e ? a.tick : a.r_start[u];
-      a.exp_out[u] = e;
-    }
-  }
   const int64_t d = ring_shift(a.shift, N);
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  const int64_t gwarp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t rb = U;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   u64 v[3] = {0, 0, 0};  // bulk members, live rows, wants
-  for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32) {
-    const int64_t i = i0 + lane;
-    if (i < N) {
-      const int64_t j = ring(i, d, N);
-      const bool live = a.up[i] && a.member[i];
-      bool want = false;
-      if (live && !a.committed_dead[j] && !a.bulk_member[j] && a.left_of[j] < 0 &&
-          timer_expired(a, j)) {
-        int32_t sus = a.suspect_of[j], dead = a.dead_of[j];
-        for (u64 m = exp; m; m &= m - 1) {
-          const int u = __ffsll(m) - 1;
-          if (s_subj[u] != j) continue;
-          sus = sus < -1 ? sus : -1;
-          dead = dead > u ? dead : u;
-        }
-        if (j == 0 && masked) {
-          sus = sus < kBig ? sus : kBig;
-          dead = dead > -1 ? dead : -1;
-        }
-        want = sus < 0 && dead < 0;
-      }
-      a.want_out[j] = want ? 1 : 0;
-      a.row_subject_out[i] = want ? static_cast<int32_t>(j) : -1;
-      v[0] += a.bulk_member[i];
-      v[1] += live;
-      v[2] += want;
-    }
-    const int64_t rows = N - i0 < 32 ? N - i0 : 32;
-    warp_copy(a.learn_out + i0 * rb, a.learn_tick + i0 * rb, rows * 2 * rb, lane);
-    warp_copy(a.sends_out + i0 * rb, a.sends_left + i0 * rb, rows * rb, lane);
-    __syncwarp();
-    if (exp && i < N) {
-      for (u64 m = row_mask(a.know + i * rb, U) & exp; m; m &= m - 1) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
+       i += stride) {
+    const int64_t j = ring(i, d, N);
+    const bool live = (a.up[i] != 0) & (a.member[i] != 0);
+    const bool bulk_i = a.bulk_member[i];
+    const bool cd_j = a.committed_dead[j], bulk_j = a.bulk_member[j];
+    const bool up_j = a.up[j], member_j = a.member[j];
+    const int32_t left = a.left_of[j], start = a.sus_start[j];
+    const int8_t confirm = a.sus_confirm[j];
+    int32_t sus = a.suspect_of[j], dead = a.dead_of[j];
+    bool want = false;
+    if (live && !cd_j && !bulk_j && left < 0 &&
+        timer_expired(start, confirm, up_j, member_j, s_timeout, a.tick, a.period)) {
+      for (u64 m = exp; m; m &= m - 1) {
         const int u = __ffsll(m) - 1;
-        a.learn_out[i * rb + u] = static_cast<int16_t>(a.tick16);
-        a.sends_out[i * rb + u] = static_cast<int8_t>(a.limit);
+        if (s_subj[u] != j) continue;
+        sus = sus < -1 ? sus : -1;
+        dead = dead > u ? dead : u;
       }
+      if (j == 0 && masked) {
+        sus = sus < kBig ? sus : kBig;
+        dead = dead > -1 ? dead : -1;
+      }
+      want = sus < 0 && dead < 0;
     }
-    __syncwarp();
+    a.want_out[j] = want ? 1 : 0;
+    a.row_subject_out[i] = want ? static_cast<int32_t>(j) : -1;
+    v[0] += bulk_i;
+    v[1] += live;
+    v[2] += want;
+    if (exp) {  // block-uniform: the known cells of the converted columns
+      const uint64_t m = row_mask(a.know + i * U, U) & exp;
+      row_write<int16_t>(a.learn_tick + i * U, U, m, m, static_cast<int16_t>(a.tick16));
+      row_write<int8_t>(a.sends_left + i * U, U, m, m, static_cast<int8_t>(a.limit));
+    }
   }
   u64 tot[3];
-  if (grid_sum<3>(v, a.scratch, tot)) {
+  if (grid_sum<3>(v, a.scratch, tot)) {  // thread 0 of the last block
     for (int k = 0; k < 3; ++k) a.counts_out[k] = static_cast<int64_t>(tot[k]);
+    for (int u = 0; u < U; ++u) {
+      const bool e = (exp >> u) & 1ull;
+      a.exp_out[u] = e;
+      if (e) {
+        a.r_kind[u] = static_cast<int8_t>(kDead);
+        a.r_start[u] = a.tick;
+      }
+    }
   }
 }
 
@@ -212,24 +224,20 @@ struct PostArgs {
   const int32_t* subjects;   // [A] the origination's pairs
   const int32_t* slots;
   const uint8_t* ok;
-  const int32_t* sus_start;
-  const int8_t* sus_confirm;
   const uint8_t* up;
   const uint8_t* member;
   const uint8_t* committed_dead;
   const uint8_t* committed_left;
-  const uint8_t* bulk_member;
-  const float* bulk_heard;
-  const float* bulk_cov;
   const int64_t* counts;
   const int32_t* shift;
   int64_t N;
   int U, A, tick, period, chaos;
-  uint8_t* bulk_member_out;
-  float* bulk_heard_out;
-  float* bulk_cov_out;
-  int32_t* sus_start_out;
-  int8_t* sus_confirm_out;
+  // the state's leaves, updated in place
+  uint8_t* bulk_member;
+  float* bulk_heard;
+  float* bulk_cov;
+  int32_t* sus_start;
+  int8_t* sus_confirm;
 };
 
 // The slots the pre launch converted and the origination's ok pairs, with
@@ -298,21 +306,27 @@ dense_post_kernel(const __grid_constant__ PostArgs a) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
        i += stride) {
+    const bool was = a.bulk_member[i];
+    const float heard = a.bulk_heard[i];
+    const int32_t start = a.sus_start[i];
+    const int8_t confirm = a.sus_confirm[i];
+    const bool member = a.member[i];
+    const bool live = (a.up[i] != 0) & member;
+    const bool committed = (a.committed_dead[i] != 0) | (a.committed_left[i] != 0);
+    const bool left = a.left_of[i] >= 0;
     const int32_t dead = dead_after(a, d, i);
     const bool over = !a.chaos && a.want[i] > 0 && dead < 0;
-    const bool bulk = a.bulk_member[i] || over;
+    const bool bulk = was || over;
     const bool seeded = overflow_at(a, d, ring(i, shift, N));
-    a.bulk_member_out[i] = bulk;
-    a.bulk_heard_out[i] =
-        fminf(__fadd_rn(fminf(a.bulk_heard[i], v_prev_f), seeded ? 1.0f : 0.0f), v_new_f);
-    a.bulk_cov_out[i] = over ? share : a.bulk_cov[i];
-    const int32_t start = a.sus_start[i];
-    const bool member = a.member[i];
-    const bool done = timer_refuted(start, a.up[i] && member, a.tick, a.period) ||
-                      a.committed_dead[i] || a.committed_left[i] || dead >= 0 ||
-                      a.left_of[i] >= 0 || !member || bulk;
-    a.sus_start_out[i] = done ? -1 : start;
-    a.sus_confirm_out[i] = done ? 0 : a.sus_confirm[i];
+    if (bulk && !was) a.bulk_member[i] = 1;
+    const float h =
+        fminf(__fadd_rn(fminf(heard, v_prev_f), seeded ? 1.0f : 0.0f), v_new_f);
+    if (__float_as_uint(h) != __float_as_uint(heard)) a.bulk_heard[i] = h;
+    if (over) a.bulk_cov[i] = share;
+    const bool done = timer_refuted(start, live, a.tick, a.period) || committed ||
+                      dead >= 0 || left || !member || bulk;
+    if (done && start != -1) a.sus_start[i] = -1;
+    if (done && confirm != 0) a.sus_confirm[i] = 0;
   }
 }
 
@@ -323,14 +337,12 @@ extern "C" int dense_expiry(const void* sus_start, const void* sus_confirm, cons
                             const void* member, const void* committed_dead,
                             const void* bulk_member, const void* suspect_of,
                             const void* dead_of, const void* left_of, const void* know,
-                            const void* learn_tick, const void* sends_left,
-                            const void* r_active, const void* r_kind, const void* r_subject,
-                            const void* r_start, const void* timeouts, const void* shift,
-                            int64_t N, int U, int tick, int tick16, int limit, int period,
-                            void* scratch, int scratch_blocks, void* learn_out,
-                            void* sends_out, void* r_kind_out, void* r_start_out,
-                            void* exp_out, void* want_out, void* row_subject_out,
-                            void* counts_out, void* stream) {
+                            void* learn_tick, void* sends_left, const void* r_active,
+                            void* r_kind, const void* r_subject, void* r_start,
+                            const void* timeouts, const void* shift, int64_t N, int U,
+                            int tick, int tick16, int limit, int period, void* scratch,
+                            int scratch_blocks, void* exp_out, void* want_out,
+                            void* row_subject_out, void* counts_out, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || scratch_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -345,12 +357,12 @@ extern "C" int dense_expiry(const void* sus_start, const void* sus_confirm, cons
   a.dead_of = static_cast<const int32_t*>(dead_of);
   a.left_of = static_cast<const int32_t*>(left_of);
   a.know = static_cast<const uint8_t*>(know);
-  a.learn_tick = static_cast<const int16_t*>(learn_tick);
-  a.sends_left = static_cast<const int8_t*>(sends_left);
+  a.learn_tick = static_cast<int16_t*>(learn_tick);
+  a.sends_left = static_cast<int8_t*>(sends_left);
   a.r_active = static_cast<const uint8_t*>(r_active);
-  a.r_kind = static_cast<const int8_t*>(r_kind);
+  a.r_kind = static_cast<int8_t*>(r_kind);
   a.r_subject = static_cast<const int32_t*>(r_subject);
-  a.r_start = static_cast<const int32_t*>(r_start);
+  a.r_start = static_cast<int32_t*>(r_start);
   a.timeouts = static_cast<const int32_t*>(timeouts);
   a.shift = static_cast<const int32_t*>(shift);
   a.N = N;
@@ -360,10 +372,6 @@ extern "C" int dense_expiry(const void* sus_start, const void* sus_confirm, cons
   a.limit = limit;
   a.period = period;
   a.scratch = static_cast<u64*>(scratch);
-  a.learn_out = static_cast<int16_t*>(learn_out);
-  a.sends_out = static_cast<int8_t*>(sends_out);
-  a.r_kind_out = static_cast<int8_t*>(r_kind_out);
-  a.r_start_out = static_cast<int32_t*>(r_start_out);
   a.exp_out = static_cast<uint8_t*>(exp_out);
   a.want_out = static_cast<int32_t*>(want_out);
   a.row_subject_out = static_cast<int32_t*>(row_subject_out);
@@ -377,15 +385,12 @@ extern "C" int dense_expiry(const void* sus_start, const void* sus_confirm, cons
 extern "C" int dense_expiry_post(const void* want, const void* dead_of, const void* left_of,
                                  const void* exp, const void* r_subject,
                                  const void* subjects, const void* slots, const void* ok,
-                                 const void* sus_start, const void* sus_confirm,
                                  const void* up, const void* member,
                                  const void* committed_dead, const void* committed_left,
-                                 const void* bulk_member, const void* bulk_heard,
-                                 const void* bulk_cov, const void* counts, const void* shift,
-                                 int64_t N, int U, int A, int tick, int period, int chaos,
-                                 void* bulk_member_out, void* bulk_heard_out,
-                                 void* bulk_cov_out, void* sus_start_out,
-                                 void* sus_confirm_out, void* stream) {
+                                 const void* counts, const void* shift, int64_t N, int U,
+                                 int A, int tick, int period, int chaos, void* bulk_member,
+                                 void* bulk_heard, void* bulk_cov, void* sus_start,
+                                 void* sus_confirm, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || A < 1 || A > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -398,15 +403,10 @@ extern "C" int dense_expiry_post(const void* want, const void* dead_of, const vo
   a.subjects = static_cast<const int32_t*>(subjects);
   a.slots = static_cast<const int32_t*>(slots);
   a.ok = static_cast<const uint8_t*>(ok);
-  a.sus_start = static_cast<const int32_t*>(sus_start);
-  a.sus_confirm = static_cast<const int8_t*>(sus_confirm);
   a.up = static_cast<const uint8_t*>(up);
   a.member = static_cast<const uint8_t*>(member);
   a.committed_dead = static_cast<const uint8_t*>(committed_dead);
   a.committed_left = static_cast<const uint8_t*>(committed_left);
-  a.bulk_member = static_cast<const uint8_t*>(bulk_member);
-  a.bulk_heard = static_cast<const float*>(bulk_heard);
-  a.bulk_cov = static_cast<const float*>(bulk_cov);
   a.counts = static_cast<const int64_t*>(counts);
   a.shift = static_cast<const int32_t*>(shift);
   a.N = N;
@@ -415,11 +415,11 @@ extern "C" int dense_expiry_post(const void* want, const void* dead_of, const vo
   a.tick = tick;
   a.period = period;
   a.chaos = chaos;
-  a.bulk_member_out = static_cast<uint8_t*>(bulk_member_out);
-  a.bulk_heard_out = static_cast<float*>(bulk_heard_out);
-  a.bulk_cov_out = static_cast<float*>(bulk_cov_out);
-  a.sus_start_out = static_cast<int32_t*>(sus_start_out);
-  a.sus_confirm_out = static_cast<int8_t*>(sus_confirm_out);
+  a.bulk_member = static_cast<uint8_t*>(bulk_member);
+  a.bulk_heard = static_cast<float*>(bulk_heard);
+  a.bulk_cov = static_cast<float*>(bulk_cov);
+  a.sus_start = static_cast<int32_t*>(sus_start);
+  a.sus_confirm = static_cast<int8_t*>(sus_confirm);
   const int64_t need = (N + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(need < 2048 ? need : 2048);
   dense_post_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);

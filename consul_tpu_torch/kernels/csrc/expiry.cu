@@ -8,72 +8,91 @@
 // staleness test, an [N, U] -> [U] any, and three [N, U] selects that
 // rewrite the converted columns.
 //
-// Two launches behind one entry point, each block first computing the [U]
-// prelude from the table in shared memory: is_suspect, the same-subject
-// alive max av = max(r_inc * U + slot) with a_slot, a_inc and refutable,
-// the per-column staleness r_inc < committed_inc[r_subject], dead_exists,
-// the int16 timeout of each slot (the int16 timeout table at r_confirm):
-//   1. scan, a persistent grid over N: a live row that knows a suspect
-//      slot reads the learn ticks of those slots only (2 bytes each) and
-//      sets expired[u] = age >= timeout & ~refuted, refuted = refutable &
-//      know[i, a_slot] | stale; the age is the int16 difference t16(tick)
-//      - learn_tick, which wraps.  The warps or their rows' masks together
-//      (shuffles), blocks or theirs into the scratch, and the last block
-//      to finish writes convert = any_exp & ~dead_exists &
-//      ~committed_dead[r_subject], the [U] kind and start, and the convert
-//      word for launch 2;
-//   2. apply, a persistent grid over N: each warp copies its 32 rows of
-//      know / learn_tick / sends_left into the fresh outputs, then, where a
-//      slot converted, each thread recomputes its row's expired bits of
-//      the converted columns from the same inputs (no per-row state is
-//      kept between the launches) and rewrites them: know = expired,
-//      learn_tick = t16(tick) where expired, sends_left = expired ? limit :
-//      0.
+// In place: the kernel updates the state's know / learn_tick / sends_left
+// rows in the converted columns, only where a value changes, and r_kind /
+// r_start at the converted slots; convert [U] is a fresh output.
 //
-// Bound on an H100: memory.  The function must read know (U bytes a row),
-// up and member, and the 32-byte learn_tick sector of each known suspect
-// cell, and write in place the 32-byte sectors of the converted columns
-// whose values change (~34 MB at N = 1M, U = 32 with no suspicion: ~0.010
-// ms at 3.35 TB/s).  The fresh-output row copy (4U bytes
-// read and written a row, 128 MB each way at U = 32, ~0.076 ms) is the
-// price of never writing a tensor it was given.
+// One cooperative launch (cudaLaunchCooperativeKernel on the co-resident
+// grid of common.cuh:persistent_blocks), in three steps:
+//   1. prelude, in every block: the [U] table into shared memory and, by a
+//      lane a slot of warps 0-1, is_suspect, the same-subject alive max
+//      av = max(r_inc * U + slot) with a_slot and refutable (a_inc >
+//      r_inc), the staleness r_inc < committed_inc[r_subject], the
+//      same-subject dead rumor, committed_dead[r_subject] and the int16
+//      timeout of each slot (the int16 timeout table at r_confirm), as
+//      slot words.  This is the only read of the table in the launch.
+//   2. scan, a grid-stride walk over N, a warp taking 32 rows a step and
+//      kBatches steps' up / member loaded together: a live row reads its
+//      know row; where it knows a suspect slot it reads the learn ticks of
+//      those cells only (2 bytes each) and sets expired[u] = age >=
+//      timeout & ~refuted, refuted = refutable & know[i, a_slot] | stale;
+//      the age is the int16 difference t16(tick) - learn_tick, which
+//      wraps.  The warps or their rows' masks together (shuffles), the
+//      blocks theirs into the scratch word; then one grid barrier.
+//   3. decision and apply: every block reads the word and computes
+//      convert = any_exp & ~dead_exists & ~committed_dead[r_subject] from
+//      its own shared prelude, so no block reads the table from global
+//      memory after the barrier; block 0 writes convert, and r_kind = DEAD
+//      and r_start = tick at the converted slots.  When no slot converts
+//      (nearly every probe tick) the launch ends there, with nothing read
+//      over N after the scan.  Otherwise each thread recomputes its row's
+//      expired bits of the converted columns from the same inputs and
+//      writes, a 16-byte vector at a time and only the vectors whose
+//      bytes change (common.cuh:row_write): know = expired, learn_tick =
+//      t16(tick) where expired, sends_left = expired ? limit : 0.
+// Why the writes in place are race-free: the table is read in step 1 and
+// written in step 3, after the grid barrier, by block 0 alone; the
+// decision reads only the scratch word and shared memory.  Thread i reads
+// and writes only row i in step 3, and every row read in step 2 happens
+// before the barrier.  The scratch word is reset by the last block to read
+// it (a count of readers, each read fenced before its count), so the next
+// launch finds it zero without a memset.
+//
+// Bound on an H100: memory.  The function must read know for the live rows
+// (U bytes a row), up and member, the 32-byte learn_tick sector of each
+// live row that knows a suspect slot and the table with its committed
+// gathers, and write in place the 32-byte sectors of the converted columns
+// whose values change: ~34 MB at N = 1M, U = 32 with no conversion (~0.010
+// ms at 3.35 TB/s; chip_smoke.py:_detector_bytes counts it from the run's
+// data).  It copies no row.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 using namespace consul_kernels;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kBatches = 4;  // 32-row steps whose loads a warp issues together
 constexpr int kAlive = 0, kSuspect = 1, kDead = 2;
-// scratch layout, in u64 words
-constexpr int kDone = 0, kAny = 1, kConvert = 2;
+// scratch layout, in u64 words: the grid's expired slots, its readers
+constexpr int kAny = 0, kRead = 1;
 
 struct ExpiryArgs {
-  const uint8_t* know;
-  const int16_t* learn_tick;
-  const int8_t* sends_left;
+  // the state's leaves (know, learn_tick, sends_left, r_kind and r_start
+  // updated in place)
+  uint8_t* know;
+  int16_t* learn_tick;
+  int8_t* sends_left;
   const uint8_t* up;
   const uint8_t* member;
   const uint8_t* committed_dead;
   const int32_t* committed_inc;
   const uint8_t* r_active;
-  const int8_t* r_kind;
+  int8_t* r_kind;
   const int32_t* r_subject;
   const int32_t* r_inc;
-  const int32_t* r_start;
+  int32_t* r_start;
   const int8_t* r_confirm;
   const int16_t* timeouts;  // [65]
   int64_t N;
   int U, tick, tick16, limit;
   u64* scratch;
-  uint8_t* know_out;
-  int16_t* learn_out;
-  int8_t* sends_out;
-  int8_t* r_kind_out;
-  int32_t* r_start_out;
-  uint8_t* convert_out;
+  uint8_t* convert_out;  // fresh
 };
 
 // The [U] prelude, in shared memory (every thread calls it).
@@ -146,8 +165,8 @@ __device__ void prelude(const ExpiryArgs& a, Prelude& p) {
   __syncthreads();
 }
 
-// The slots of `cand` whose timer expired, unrefuted, at live row i with
-// know mask m.
+// The slots of `cand` (known suspect slots) whose timer expired,
+// unrefuted, at live row i with know mask m.
 __device__ __forceinline__ uint64_t expired_bits(const ExpiryArgs& a, const Prelude& p,
                                                  int64_t i, uint64_t m, uint64_t cand) {
   uint64_t exp = 0;
@@ -163,23 +182,37 @@ __device__ __forceinline__ uint64_t expired_bits(const ExpiryArgs& a, const Prel
 }
 
 __global__ void __launch_bounds__(kThreads)
-expiry_scan_kernel(const __grid_constant__ ExpiryArgs a) {
+expiry_kernel(const __grid_constant__ ExpiryArgs a) {
   __shared__ Prelude p;
-  __shared__ u64 s_any;
-  __shared__ bool last;
+  __shared__ u64 s_any, s_convert;
+  cg::grid_group grid = cg::this_grid();
+  const int U = a.U;
+  const int64_t N = a.N;
+  const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) s_any = 0;
   prelude(a, p);
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  const int64_t gwarp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+
+  // 2. scan
   uint64_t any = 0;
-  if (p.suspect) {
-    for (int64_t i0 = gwarp * 32; i0 < a.N; i0 += warps * 32) {
-      const int64_t i = i0 + lane;
-      if (i < a.N && a.up[i] && a.member[i]) {
-        const uint64_t m = row_mask(a.know + i * a.U, a.U);
-        const uint64_t cand = m & p.suspect;
-        if (cand) any |= expired_bits(a, p, i, m, cand);
+  if (p.suspect) {  // block-uniform
+    const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+    const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+    for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32 * kBatches) {
+      bool live[kBatches];
+#pragma unroll
+      for (int r = 0; r < kBatches; ++r) {
+        const int64_t i = i0 + r * warps * 32 + lane;
+        live[r] = i < N && ((a.up[i] != 0) & (a.member[i] != 0));
+      }
+      uint64_t m[kBatches];
+#pragma unroll
+      for (int r = 0; r < kBatches; ++r) {
+        m[r] = live[r] ? row_mask(a.know + (i0 + r * warps * 32 + lane) * U, U) : 0;
+      }
+#pragma unroll
+      for (int r = 0; r < kBatches; ++r) {
+        const uint64_t cand = m[r] & p.suspect;
+        if (cand) any |= expired_bits(a, p, i0 + r * warps * 32 + lane, m[r], cand);
       }
     }
   }
@@ -188,94 +221,73 @@ expiry_scan_kernel(const __grid_constant__ ExpiryArgs a) {
   __syncthreads();
   if (threadIdx.x == 0 && s_any) atomicOr(&a.scratch[kAny], s_any);
   __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(&a.scratch[kDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const uint64_t any_exp = __ldcg(&a.scratch[kAny]);
-  const uint64_t convert = any_exp & ~p.dead_exists & ~p.committed;
-  for (int u = threadIdx.x; u < a.U; u += blockDim.x) {
-    const bool c = (convert >> u) & 1ull;
-    a.r_kind_out[u] = c ? static_cast<int8_t>(kDead) : a.r_kind[u];
-    a.r_start_out[u] = c ? a.tick : a.r_start[u];
-    a.convert_out[u] = c;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    a.scratch[kConvert] = convert;
-    a.scratch[kAny] = 0;
-    a.scratch[kDone] = 0;  // ready for the next launch
-  }
-}
+  grid.sync();
 
-__global__ void __launch_bounds__(kThreads)
-expiry_apply_kernel(const __grid_constant__ ExpiryArgs a) {
-  __shared__ Prelude p;
-  prelude(a, p);
-  const uint64_t convert = a.scratch[kConvert];  // block-uniform
-  const int U = a.U;
-  const int64_t N = a.N;
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  const int64_t gwarp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t rb = U;
-  for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32) {
-    const int64_t rows = N - i0 < 32 ? N - i0 : 32;
-    warp_copy(a.know_out + i0 * rb, a.know + i0 * rb, rows * rb, lane);
-    warp_copy(a.learn_out + i0 * rb, a.learn_tick + i0 * rb, rows * 2 * rb, lane);
-    warp_copy(a.sends_out + i0 * rb, a.sends_left + i0 * rb, rows * rb, lane);
-    __syncwarp();
-    const int64_t i = i0 + lane;
-    if (convert && i < N) {
-      uint64_t exp = 0;
-      if (a.up[i] && a.member[i]) {
-        const uint64_t m = row_mask(a.know + i * rb, U);
-        exp = expired_bits(a, p, i, m, m & convert);
-      }
-      for (uint64_t c = convert; c; c &= c - 1) {
-        const int u = __ffsll(c) - 1;
-        const bool e = (exp >> u) & 1ull;
-        a.know_out[i * rb + u] = e;
-        a.sends_out[i * rb + u] = e ? static_cast<int8_t>(a.limit) : 0;
-        if (e) a.learn_out[i * rb + u] = static_cast<int16_t>(a.tick16);
+  // 3. decision, from the scratch word and this block's prelude
+  if (threadIdx.x == 0) {
+    s_convert = __ldcg(&a.scratch[kAny]) & ~p.dead_exists & ~p.committed;
+    __threadfence();  // the read before the count that lets it be reset
+    if (atomicAdd(&a.scratch[kRead], 1ull) == static_cast<u64>(gridDim.x) - 1) {
+      a.scratch[kAny] = 0;
+      a.scratch[kRead] = 0;  // ready for the next launch
+    }
+  }
+  __syncthreads();
+  const uint64_t convert = s_convert;  // grid-uniform
+  if (blockIdx.x == 0) {
+    for (int u = threadIdx.x; u < U; u += blockDim.x) {
+      const bool c = (convert >> u) & 1ull;
+      a.convert_out[u] = c;
+      if (c) {
+        a.r_kind[u] = static_cast<int8_t>(kDead);
+        a.r_start[u] = a.tick;
       }
     }
-    __syncwarp();
+  }
+  if (!convert) return;
+
+  // apply: thread i rewrites the converted columns of row i
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
+       i += stride) {
+    const uint64_t m = row_mask(a.know + i * U, U);
+    const bool live = (a.up[i] != 0) & (a.member[i] != 0);
+    const uint64_t e = live ? expired_bits(a, p, i, m, m & convert) : 0;
+    // know = e, sends_left = e ? limit : 0 in the converted columns (only
+    // a known cell's know can change), learn_tick = t16(tick) where e
+    row_write<uint8_t>(a.know + i * U, U, m & convert, e, 1);
+    row_write<int8_t>(a.sends_left + i * U, U, convert, e, static_cast<int8_t>(a.limit));
+    row_write<int16_t>(a.learn_tick + i * U, U, e, e, static_cast<int16_t>(a.tick16));
   }
 }
 
 }  // namespace
 
-// scratch: 3 u64, zeroed once (the scan's last block resets what it used).
-extern "C" int suspicion_expiry(const void* know, const void* learn_tick,
-                                const void* sends_left, const void* up, const void* member,
+// scratch: 2 u64, zeroed once (the launch's last reader resets them).
+extern "C" int suspicion_expiry(void* know, void* learn_tick, void* sends_left,
+                                const void* up, const void* member,
                                 const void* committed_dead, const void* committed_inc,
-                                const void* r_active, const void* r_kind,
-                                const void* r_subject, const void* r_inc,
-                                const void* r_start, const void* r_confirm,
+                                const void* r_active, void* r_kind, const void* r_subject,
+                                const void* r_inc, void* r_start, const void* r_confirm,
                                 const void* timeouts, int64_t N, int U, int tick,
-                                int tick16, int limit, void* scratch, void* know_out,
-                                void* learn_out, void* sends_out, void* r_kind_out,
-                                void* r_start_out, void* convert_out, void* stream) {
+                                int tick16, int limit, void* scratch, void* convert_out,
+                                void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ExpiryArgs a;
-  a.know = static_cast<const uint8_t*>(know);
-  a.learn_tick = static_cast<const int16_t*>(learn_tick);
-  a.sends_left = static_cast<const int8_t*>(sends_left);
+  a.know = static_cast<uint8_t*>(know);
+  a.learn_tick = static_cast<int16_t*>(learn_tick);
+  a.sends_left = static_cast<int8_t*>(sends_left);
   a.up = static_cast<const uint8_t*>(up);
   a.member = static_cast<const uint8_t*>(member);
   a.committed_dead = static_cast<const uint8_t*>(committed_dead);
   a.committed_inc = static_cast<const int32_t*>(committed_inc);
   a.r_active = static_cast<const uint8_t*>(r_active);
-  a.r_kind = static_cast<const int8_t*>(r_kind);
+  a.r_kind = static_cast<int8_t*>(r_kind);
   a.r_subject = static_cast<const int32_t*>(r_subject);
   a.r_inc = static_cast<const int32_t*>(r_inc);
-  a.r_start = static_cast<const int32_t*>(r_start);
+  a.r_start = static_cast<int32_t*>(r_start);
   a.r_confirm = static_cast<const int8_t*>(r_confirm);
   a.timeouts = static_cast<const int16_t*>(timeouts);
   a.N = N;
@@ -284,17 +296,11 @@ extern "C" int suspicion_expiry(const void* know, const void* learn_tick,
   a.tick16 = tick16;
   a.limit = limit;
   a.scratch = static_cast<u64*>(scratch);
-  a.know_out = static_cast<uint8_t*>(know_out);
-  a.learn_out = static_cast<int16_t*>(learn_out);
-  a.sends_out = static_cast<int8_t*>(sends_out);
-  a.r_kind_out = static_cast<int8_t*>(r_kind_out);
-  a.r_start_out = static_cast<int32_t*>(r_start_out);
   a.convert_out = static_cast<uint8_t*>(convert_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static int per_card[2] = {0, 0};
-  const int b1 = persistent_blocks(expiry_scan_kernel, kThreads, N, 1 << 20, per_card[0]);
-  expiry_scan_kernel<<<b1, kThreads, 0, s>>>(a);
-  const int b2 = persistent_blocks(expiry_apply_kernel, kThreads, N, 1 << 20, per_card[1]);
-  expiry_apply_kernel<<<b2, kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  static int per_card = 0;
+  const int blocks = persistent_blocks(expiry_kernel, kThreads, N, 1 << 20, per_card);
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(expiry_kernel), dim3(blocks), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -200,14 +200,19 @@ class SwimState:
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(SwimState)
                       if f.name not in ("tick", "bulk_live"))
 
-# the leaves K7 and K8 update in place on the card (K7 writes awareness
-# only with Lifeguard's awareness_max > 0)
+# the leaves K7, K8, K10 and K11 update in place on the card (K7 writes
+# awareness only with Lifeguard's awareness_max > 0; the dense expiry's K8
+# call writes ORIGINATE_INPLACE besides K11's own leaves)
 PROBE_INPLACE = ("know", "learn_tick", "sends_left", "awareness", "sus_start",
                  "sus_confirm", "sus_count", "r_confirm", "ctr")
 ORIGINATE_INPLACE = ("know", "learn_tick", "sends_left", "committed_dead",
                      "committed_left", "committed_inc", "r_active", "r_kind",
                      "r_subject", "r_inc", "r_start", "r_confirm",
                      "r_coverage")
+EXPIRY_INPLACE = ("know", "learn_tick", "sends_left", "r_kind", "r_start")
+DENSE_INPLACE = ("learn_tick", "sends_left", "r_kind", "r_start",
+                 "bulk_member", "bulk_heard", "bulk_cov", "sus_start",
+                 "sus_confirm")
 
 
 def _writable(s: SwimState, fields, what: str) -> None:
@@ -873,15 +878,15 @@ def _suspicion_expiry_plain(params: SwimParams, s: SwimState):
 
 
 def _suspicion_expiry(params: SwimParams, s: SwimState):
-    """_suspicion_expiry_plain's result; on CUDA tensors K10 (a scan, then
-    an apply) writes it into fresh tensors.  Returns (state, convert [U]
-    bool)."""
+    """_suspicion_expiry_plain's result.  On CUDA tensors one K10 launch
+    consumes s: it updates the converted columns of s's rows and the
+    converted slots of its table in place (the state returned holds s's
+    tensors) and writes convert into a fresh tensor.  Returns (state,
+    convert [U] bool)."""
     if not s.know.is_cuda:
         return _suspicion_expiry_plain(params, s)
-    e = torch.empty_like
-    out = dict(know_out=e(s.know), learn_out=e(s.learn_tick),
-               sends_out=e(s.sends_left), r_kind_out=e(s.r_kind),
-               r_start_out=e(s.r_start), convert_out=e(s.r_active))
+    _writable(s, EXPIRY_INPLACE, "K10")
+    convert = torch.empty_like(s.r_active)
     kernels.launch_suspicion_expiry(
         know=s.know, learn_tick=s.learn_tick, sends_left=s.sends_left,
         up=s.up, member=s.member, committed_dead=s.committed_dead,
@@ -889,11 +894,8 @@ def _suspicion_expiry(params: SwimParams, s: SwimState):
         r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start,
         r_confirm=s.r_confirm, timeouts=_table(params, s.device, I16),
         tick=s.tick, tick16=_t16(s.tick), limit=params.retransmit_limit,
-        **out)
-    s = s.replace(know=out["know_out"], learn_tick=out["learn_out"],
-                  sends_left=out["sends_out"], r_kind=out["r_kind_out"],
-                  r_start=out["r_start_out"])
-    return s, out["convert_out"]
+        convert_out=convert)
+    return s, convert
 
 
 def _dense_suspicion_expiry_plain(params: SwimParams, s: SwimState,
@@ -962,19 +964,20 @@ def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
     K11's pre launch (the slot conversions, the wants at each prober's
     target, the sums), K8's dead origination and K11's post launch (the
     dead map after the conversions and the origination read per node, the
-    overflow, the timer clears); `shift` stays a device tensor."""
+    overflow, the timer clears); `shift` stays a device tensor.  On the
+    card it consumes s: the three launches update DENSE_INPLACE and
+    ORIGINATE_INPLACE in place, and the state returned holds s's
+    tensors."""
     if not s.know.is_cuda:
         return _dense_suspicion_expiry_plain(params, s, shift, maps)
+    _writable(s, DENSE_INPLACE, "K11")
     dev = s.device
     shift = torch.as_tensor(shift, dtype=I32, device=dev)
     suspect_of, dead_of, left_of, _ = maps
-    e = torch.empty_like
-    pre = dict(learn_out=e(s.learn_tick), sends_out=e(s.sends_left),
-               r_kind_out=e(s.r_kind), r_start_out=e(s.r_start),
-               exp_out=e(s.r_active), want_out=e(s.sus_start),
-               row_subject_out=e(s.sus_start),
-               counts_out=torch.empty(kernels.DENSE_COUNTS, dtype=I64,
-                                      device=dev))
+    wants = torch.empty((2, params.n_nodes), dtype=I32, device=dev)
+    want, row_subject = wants[0], wants[1]
+    exp = torch.empty_like(s.r_active)
+    counts = torch.empty(kernels.DENSE_COUNTS, dtype=I64, device=dev)
     kernels.launch_dense_expiry(
         sus_start=s.sus_start, sus_confirm=s.sus_confirm, up=s.up,
         member=s.member, committed_dead=s.committed_dead,
@@ -984,31 +987,21 @@ def _dense_suspicion_expiry(params: SwimParams, s: SwimState,
         r_subject=s.r_subject, r_start=s.r_start,
         timeouts=_table(params, dev, I32), shift=shift, tick=s.tick,
         tick16=_t16(s.tick), limit=params.retransmit_limit,
-        period=params.probe_period_ticks, **pre)
+        period=params.probe_period_ticks, exp_out=exp, want_out=want,
+        row_subject_out=row_subject, counts_out=counts)
     r_subject = s.r_subject.clone()     # K8 rewrites the table in place
-    s = s.replace(r_kind=pre["r_kind_out"], r_start=pre["r_start_out"],
-                  learn_tick=pre["learn_out"], sends_left=pre["sends_out"])
-    want = pre["want_out"]
     s, (subjects, slots, ok) = _originate(params, s, want, DEAD,
-                                          s.incarnation,
-                                          pre["row_subject_out"])
-    post = dict(bulk_member_out=e(s.bulk_member),
-                bulk_heard_out=e(s.bulk_heard), bulk_cov_out=e(s.bulk_cov),
-                sus_start_out=e(s.sus_start), sus_confirm_out=e(s.sus_confirm))
+                                          s.incarnation, row_subject)
     kernels.launch_dense_expiry_post(
-        want=want, dead_of=dead_of, left_of=left_of, exp=pre["exp_out"],
-        r_subject=r_subject, subjects=subjects, slots=slots, ok=ok,
-        sus_start=s.sus_start, sus_confirm=s.sus_confirm, up=s.up,
+        want=want, dead_of=dead_of, left_of=left_of, exp=exp,
+        r_subject=r_subject, subjects=subjects, slots=slots, ok=ok, up=s.up,
         member=s.member, committed_dead=s.committed_dead,
-        committed_left=s.committed_left, bulk_member=s.bulk_member,
-        bulk_heard=s.bulk_heard, bulk_cov=s.bulk_cov, counts=pre["counts_out"],
-        shift=shift, tick=s.tick, period=params.probe_period_ticks,
-        chaos=params.chaos, **post)
-    return s.replace(bulk_member=post["bulk_member_out"],
-                     bulk_heard=post["bulk_heard_out"],
-                     bulk_cov=post["bulk_cov_out"],
-                     sus_start=post["sus_start_out"],
-                     sus_confirm=post["sus_confirm_out"])
+        committed_left=s.committed_left, counts=counts, shift=shift,
+        tick=s.tick, period=params.probe_period_ticks, chaos=params.chaos,
+        bulk_member=s.bulk_member, bulk_heard=s.bulk_heard,
+        bulk_cov=s.bulk_cov, sus_start=s.sus_start,
+        sus_confirm=s.sus_confirm)
+    return s
 
 
 def _refutation_plain(params: SwimParams, s: SwimState) -> SwimState:
@@ -1279,8 +1272,8 @@ def _bulk_flag(bulk_member: torch.Tensor) -> bool:
 def step_with_obs(params: SwimParams, s: SwimState):
     """Advance the whole cluster one gossip tick (swim.py:1320-1354).
     Returns (state, obs); obs is None on ticks without a probe round.
-    On the card a probe tick consumes s: K7 and K8 update its tensors in
-    place, so a caller that reads s again steps s.clone()."""
+    On the card a probe tick consumes s: K7, K8, K10 and K11 update its
+    tensors in place, so a caller that reads s again steps s.clone()."""
     obs = None
     if s.tick % params.probe_period_ticks == 0:
         maps = _maps(params, s)

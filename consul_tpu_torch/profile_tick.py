@@ -252,9 +252,9 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     times per call, "kernels": its device kernels per call}} (the last
     two from one torch.profiler capture of `reps` calls; copies and
     memsets left out of both).  The passes that update the state in place
-    on the card (K7 and K8 in `probe_round`, K8 in the dense expiry) get
-    a clone of it a call, made before the fenced window and outside the
-    profiler's capture."""
+    on the card (K7 and K8 in `probe_round`, K10, K11 and K8 in the dense
+    expiry) get a clone of it a call, made before the fenced window and
+    outside the profiler's capture."""
     p, sw = params.swim, s.swim
     while sw.tick % p.probe_period_ticks:
         s = serf.step(params, s)
@@ -265,13 +265,14 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
                                          swim._probe_inputs(p, sw))
     _, alloc = swim._originate(p, s1, want, swim.SUSPECT, s1.incarnation,
                                rows)
-    _, convert = swim._suspicion_expiry(p, sw)
+    _, convert = swim._suspicion_expiry(p, sw.clone())
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fns = {
         "maps": lambda: swim._maps(p, sw),
         "probe_round": (sw.clone, lambda st: swim._probe_round(p, st, maps)),
         "map_add": lambda: swim._map_add(maps[0], *alloc),
-        "suspicion_expiry": lambda: swim._suspicion_expiry(p, sw),
+        "suspicion_expiry": (sw.clone,
+                             lambda st: swim._suspicion_expiry(p, st)),
         "maps_convert": lambda: swim._maps_convert(maps, sw, convert),
         "dense_suspicion_expiry": (sw.clone, lambda st: (
             swim._dense_suspicion_expiry(p, st, obs.shift, maps))),

@@ -461,33 +461,58 @@ def _expired_bits(d, pre, i, t16, cols):
     return bits
 
 
+class _InPlace(dict):
+    """The leaves a kernel updates in place (copies of d's), written only
+    where a value changes."""
+
+    def __init__(self, d, fields):
+        super().__init__({f: d[f].copy() for f in fields})
+
+    def write(self, leaf, at, value):
+        assert self[leaf][at] != value, (leaf, at)   # only where it changes
+        self[leaf][at] = value
+
+
 def expiry_transcription(d, p, n, u):
-    """expiry.cu: the scan ors each live row's expired bits into any_exp,
-    the last block converts; the apply copies the rows and recomputes the
-    converted columns' bits."""
+    """expiry.cu, one cooperative launch writing in place: the prelude
+    reads the [U] table (its only read of it); the scan ors each live
+    row's expired bits into the grid's word; after the grid barrier every
+    block decides from its own prelude, block 0 writes r_kind / r_start
+    at the converted slots, and thread i rewrites the converted columns of
+    row i where a value changes.  A prelude run after the table write
+    would lose the converted slots' suspect bits, the race the barrier
+    closes."""
+    st = _InPlace(d, ("know", "learn_tick", "sends_left", "r_kind",
+                      "r_start"))
     pre = _expiry_prelude(d, p, n, u)
     t16 = swim._t16(int(d["tick"]))
     suspect = [k for k in range(u) if pre[k]["suspect"]]
     any_exp = set()
     for i in range(n):
         if d["up"][i] and d["member"][i]:
-            any_exp |= _expired_bits(d, pre, i, t16, suspect)
+            any_exp |= _expired_bits(st, pre, i, t16, suspect)
     conv = np.array([k in any_exp and not pre[k]["dead"]
                      and not pre[k]["committed"] for k in range(u)])
-    know, learn, sends = (d["know"].copy(), d["learn_tick"].copy(),
-                          d["sends_left"].copy())
     cols = [k for k in range(u) if conv[k]]
+    for k in cols:
+        st.write("r_kind", k, swim.DEAD)
+        if st["r_start"][k] != int(d["tick"]):
+            st.write("r_start", k, int(d["tick"]))
+    late = _expiry_prelude(dict(d, r_kind=st["r_kind"]), p, n, u)
+    assert not any(late[k]["suspect"] for k in cols)
     for i in range(n):
-        e = _expired_bits(d, pre, i, t16, cols) \
+        e = _expired_bits(st, pre, i, t16, cols) \
             if d["up"][i] and d["member"][i] else set()
         for k in cols:
-            know[i, k] = k in e
-            sends[i, k] = p.retransmit_limit if k in e else 0
-            if k in e:
-                learn[i, k] = t16
-    kind = np.where(conv, swim.DEAD, d["r_kind"]).astype(np.int8)
-    start = np.where(conv, int(d["tick"]), d["r_start"]).astype(np.int32)
-    return conv, know, learn, sends, kind, start
+            if st["know"][i, k] and k not in e:
+                st.write("know", (i, k), False)
+            sends = p.retransmit_limit if k in e else 0
+            if st["sends_left"][i, k] != sends:
+                st.write("sends_left", (i, k), sends)
+            if k in e and st["learn_tick"][i, k] != t16:
+                st.write("learn_tick", (i, k), t16)
+    return (conv, st["know"], st["learn_tick"], st["sends_left"],
+            st["r_kind"], st["r_start"])
 
 
 @settings(max_examples=40, deadline=None)
@@ -507,14 +532,18 @@ def test_k10_column_or_then_apply_matches_the_twin(seed, n, u):
 
 
 def dense_pre_transcription(d, p, maps, shift):
-    """dense.cu's pre launch: exp_u of the suspect slots, then thread i
-    writes want at j = (i + shift) % N and its own row subject, with the
-    maps converted by exp_u in place; the learn/sends stamps; the sums."""
+    """dense.cu's pre launch, in place: exp_u of the suspect slots from the
+    table every block reads first, then thread i writes want at j = (i +
+    shift) % N and its own row subject, with the maps converted by exp_u
+    in place, and stamps the known cells of the exp_u columns of row i
+    where they differ; the sums; last, the last block writes the table.
+    Returns (exp, want, rows, the in-place leaves, the sums)."""
     n = len(d["up"])
     u = len(d["r_active"])
     tick = int(d["tick"])
     table = swim.timeout_table(p)
     sus_of, dead_of, left_of = (m.numpy() for m in maps[:3])
+    st = _InPlace(d, ("learn_tick", "sends_left", "r_kind", "r_start"))
 
     def expired(j):
         start = int(d["sus_start"][j])
@@ -533,6 +562,7 @@ def dense_pre_transcription(d, p, maps, shift):
     dd = shift % n
     want = np.full(n, -99, np.int32)
     rows = np.full(n, -99, np.int32)
+    t16 = swim._t16(tick)
     for i in range(n):
         j = i + dd - n if i + dd >= n else i + dd
         w = False
@@ -548,13 +578,60 @@ def dense_pre_transcription(d, p, maps, shift):
         assert want[j] == -99          # one writer a target
         want[j] = int(w)
         rows[i] = j if w else -1
-    learn, sends = d["learn_tick"].copy(), d["sends_left"].copy()
-    sel = exp[None, :] & d["know"]
-    learn[sel] = swim._t16(tick)
-    sends[sel] = p.retransmit_limit
+        for k in range(u):
+            if exp[k] and d["know"][i, k]:
+                if st["learn_tick"][i, k] != t16:
+                    st.write("learn_tick", (i, k), t16)
+                if st["sends_left"][i, k] != p.retransmit_limit:
+                    st.write("sends_left", (i, k), p.retransmit_limit)
+    for k in range(u):          # the last block, after every block read it
+        if exp[k]:
+            st.write("r_kind", k, swim.DEAD)
+            if st["r_start"][k] != tick:
+                st.write("r_start", k, tick)
     sums = (int(d["bulk_member"].sum()), int((d["up"] & d["member"]).sum()),
             int(want.sum()))
-    return exp, want, rows, learn, sends, sums
+    return exp, want, rows, st, sums
+
+
+def dense_post_transcription(d, p, want, dead, left_of, shift, v_prev, v_new,
+                             n_live):
+    """dense.cu's post launch, in place: thread i reads want and the dead
+    rumor (dead_after) at i and at (i + shift) % N, and reads and writes
+    only index i of the five leaves, where a value changes."""
+    n = len(want)
+    st = _InPlace(d, ("bulk_member", "bulk_heard", "bulk_cov", "sus_start",
+                      "sus_confirm"))
+    share = np.float32(1.0) / np.float32(max(n_live, 1))
+    dd = shift % n
+
+    def over_at(j):
+        return not p.chaos and want[j] > 0 and dead[j] < 0
+
+    for i in range(n):
+        was = bool(st["bulk_member"][i])
+        over = over_at(i)
+        bulk = was or over
+        if bulk and not was:
+            st.write("bulk_member", i, True)
+        seeded = over_at(i + dd - n if i + dd >= n else i + dd)
+        heard = st["bulk_heard"][i]
+        h = np.minimum(np.minimum(heard, np.float32(v_prev))
+                       + np.float32(seeded), np.float32(v_new))
+        if h.view(np.uint32) != heard.view(np.uint32):
+            st.write("bulk_heard", i, h)
+        if over:
+            st["bulk_cov"][i] = share
+        start = int(st["sus_start"][i])
+        refuted = start >= 0 and d["up"][i] and d["member"][i] \
+            and int(d["tick"]) - start >= p.probe_period_ticks
+        done = refuted or d["committed_dead"][i] or d["committed_left"][i] \
+            or dead[i] >= 0 or left_of[i] >= 0 or not d["member"][i] or bulk
+        if done and start != -1:
+            st.write("sus_start", i, -1)
+        if done and st["sus_confirm"][i] != 0:
+            st.write("sus_confirm", i, 0)
+    return st
 
 
 def dense_post_dead_transcription(dead_of, exp, r_subject, subjects, slots,
@@ -584,9 +661,9 @@ def dense_post_dead_transcription(dead_of, exp, r_subject, subjects, slots,
        alloc=st.integers(1, 8), chaos=st.booleans())
 def test_k11_writes_at_the_target_and_counts_the_overflow(seed, n, u, shift,
                                                           alloc, chaos):
-    """The pre launch's wants and row subjects, and the post launch's
-    per-node dead rumor and bulk step from v_new = v_prev + wants - ok
-    pairs, against
+    """The pre launch's wants, row subjects and stamps, and the post
+    launch's per-node dead rumor and bulk step from v_new = v_prev + wants
+    - ok pairs, each written in place only where a value changes, against
     _dense_suspicion_expiry_plain (every leaf) and against the overflow it
     seeds."""
     s = _random_state(seed, n, u)
@@ -594,14 +671,9 @@ def test_k11_writes_at_the_target_and_counts_the_overflow(seed, n, u, shift,
     maps = swim._maps_plain(p, s)
     ref = swim._dense_suspicion_expiry_plain(p, s, torch.tensor(shift), maps)
     d = _np(s)
-    exp, want, rows, learn, sends, (v_prev, n_live, wants) = \
+    exp, want, rows, pre, (v_prev, n_live, wants) = \
         dense_pre_transcription(d, p, maps, shift)
-    kind = np.where(exp, swim.DEAD, d["r_kind"]).astype(np.int8)
-    s1 = s.replace(r_kind=torch.from_numpy(kind),
-                   r_start=torch.from_numpy(np.where(exp, s.tick, d["r_start"])
-                                            .astype(np.int32)),
-                   learn_tick=torch.from_numpy(learn),
-                   sends_left=torch.from_numpy(sends))
+    s1 = s.replace(**{f: torch.from_numpy(v) for f, v in pre.items()})
     maps1 = swim._maps_convert_plain(maps, s1, torch.from_numpy(exp))
     s2, alloc_out = swim._originate_plain(p, s1, torch.from_numpy(want),
                                           swim.DEAD, s1.incarnation,
@@ -614,27 +686,14 @@ def test_k11_writes_at_the_target_and_counts_the_overflow(seed, n, u, shift,
     n_ok = int(alloc_out[2].sum())
     v_new = v_prev + (0 if chaos else wants - n_ok)
     assert v_new == int((d["bulk_member"] | over).sum())
-    dd = shift % n
-    seeded = np.roll(over, -dd)
-    heard = np.minimum(np.minimum(d["bulk_heard"], np.float32(v_prev))
-                       + seeded.astype(np.float32), np.float32(v_new))
-    cov = np.where(over, np.float32(1.0) / np.float32(max(n_live, 1)),
-                   d["bulk_cov"])
-    bulk = d["bulk_member"] | over
-    start = d["sus_start"]
-    refute = (start >= 0) & d["up"] & d["member"] \
-        & (s.tick - start >= p.probe_period_ticks)
-    done = refute | s2.committed_dead.numpy() | s2.committed_left.numpy() \
-        | (dead2 >= 0) | (maps1[2].numpy() >= 0) | ~d["member"] | bulk
-    for a, b in ((bulk, ref.bulk_member), (heard, ref.bulk_heard),
-                 (cov, ref.bulk_cov),
-                 (np.where(done, -1, start), ref.sus_start),
-                 (np.where(done, 0, d["sus_confirm"]), ref.sus_confirm),
-                 (s2.know.numpy(), ref.know), (s2.learn_tick.numpy(),
-                                               ref.learn_tick),
-                 (s2.r_kind.numpy(), ref.r_kind)):
-        np.testing.assert_array_equal(np.asarray(a, b.numpy().dtype),
-                                      b.numpy())
+    post = dense_post_transcription(_np(s2), p, want, dead2,
+                                    maps1[2].numpy(), shift, v_prev, v_new,
+                                    n_live)
+    for f, v in post.items():
+        np.testing.assert_array_equal(v, getattr(ref, f).numpy())
+    for f in ("know", "learn_tick", "r_kind", "r_start"):
+        np.testing.assert_array_equal(getattr(s2, f).numpy(),
+                                      getattr(ref, f).numpy())
 
 
 def refutation_transcription(d, p, n, u):
@@ -850,17 +909,19 @@ def test_k9_ctypes_order(monkeypatch):
 
 
 def test_k10_ctypes_order(monkeypatch):
+    """One launch on the state's own leaves (in place); convert is
+    fresh."""
     params, s, _, rec = _card_state(monkeypatch)
+    leaves = _leaves(s)
     out, conv = swim._suspicion_expiry(params, s)
     _assert_pointers(rec, "suspicion_expiry", dict(
-        _leaves(s), timeouts=swim._table(params, s.device, torch.int16),
-        know_out=out.know, learn_out=out.learn_tick,
-        sends_out=out.sends_left, r_kind_out=out.r_kind,
-        r_start_out=out.r_start, convert_out=conv),
+        leaves, timeouts=swim._table(params, s.device, torch.int16),
+        convert_out=conv),
         dict(N=40, U=16, tick=s.tick, tick16=swim._t16(s.tick),
              limit=params.retransmit_limit, stream=12345))
-    for t in (out.know, out.learn_tick, out.sends_left, out.r_kind):
-        assert t.data_ptr() not in {v.data_ptr() for v in _leaves(s).values()}
+    for f in swim.EXPIRY_INPLACE:
+        assert getattr(out, f) is leaves[f], f
+    assert conv.data_ptr() not in {v.data_ptr() for v in leaves.values()}
 
 
 @pytest.mark.parametrize("chaos", (False, True))
@@ -870,6 +931,7 @@ def test_k11_ctypes_order(monkeypatch, chaos):
     the pre launch read, its converted slots and K8's pairs, and no map
     is written between them."""
     params, s, maps, rec = _card_state(monkeypatch, chaos=chaos)
+    leaves = _leaves(s)
     order = []
     for name in ("dense_expiry", "maps_convert", "originate", "map_add",
                  "dense_expiry_post"):
@@ -889,14 +951,13 @@ def test_k11_ctypes_order(monkeypatch, chaos):
         dict(N=40, U=16, tick=s.tick, tick16=swim._t16(s.tick),
              limit=params.retransmit_limit, period=params.probe_period_ticks,
              scratch_blocks=kernels.SCRATCH_BLOCKS, stream=12345),
-        unchecked=("learn_out", "sends_out", "r_kind_out", "r_start_out",
-                   "exp_out", "want_out", "row_subject_out", "counts_out"))
-    # K8 originates from the pre launch's rows, table and wants
+        unchecked=("exp_out", "want_out", "row_subject_out", "counts_out"))
+    # K8 originates from the rows and table the pre launch updated in
+    # place, and from its wants
     orig = dict(zip(_c_params("originate"), rec.calls["originate"]))
-    for pre_name, k8_name in (("learn_out", "learn_tick"),
-                              ("sends_out", "sends_left"),
-                              ("r_kind_out", "r_kind"),
-                              ("r_start_out", "r_start"),
+    for pre_name, k8_name in (("learn_tick", "learn_tick"),
+                              ("sends_left", "sends_left"),
+                              ("r_kind", "r_kind"), ("r_start", "r_start"),
                               ("want_out", "want"),
                               ("row_subject_out", "row_subject")):
         assert got[pre_name] == orig[k8_name], pre_name
@@ -916,10 +977,12 @@ def test_k11_ctypes_order(monkeypatch, chaos):
     assert post["r_subject"] not in (None, orig["r_subject"])
     for k in ("subjects", "slots", "ok"):
         assert post[k] == orig[k + "_out"], k
+    # the post launch writes the state's own leaves, which the result holds
     for k in ("bulk_member", "bulk_heard", "bulk_cov", "sus_start",
               "sus_confirm"):
-        assert post[k + "_out"] == getattr(out, k).data_ptr()
-    assert post["sus_start"] == s.sus_start.data_ptr()
+        assert post[k] == leaves[k].data_ptr()
+    for f in swim.DENSE_INPLACE + swim.ORIGINATE_INPLACE:
+        assert getattr(out, f) is getattr(s, f), f
 
 
 @pytest.mark.parametrize("amax", (8, 0))
@@ -1001,9 +1064,7 @@ def _args(n=40, u=16, a=8):
             committed_inc=z(n, dtype=i32), r_inc=z(u, dtype=i32),
             r_start=z(u, dtype=i32), r_confirm=z(u, dtype=i8),
             timeouts=z(65, dtype=i16), tick=100, tick16=100, limit=12,
-            know_out=z(n, u), learn_out=z(n, u, dtype=i16),
-            sends_out=z(n, u, dtype=i8), r_kind_out=z(u, dtype=i8),
-            r_start_out=z(u, dtype=i32), convert_out=z(u))),
+            convert_out=z(u))),
         "dense_expiry": (kernels.launch_dense_expiry, dict(
             **rows, **table, sus_start=z(n, dtype=i32),
             sus_confirm=z(n, dtype=i8), up=z(n), member=z(n),
@@ -1011,25 +1072,19 @@ def _args(n=40, u=16, a=8):
             dead_of=z(n, dtype=i32), left_of=z(n, dtype=i32),
             r_start=z(u, dtype=i32), timeouts=z(65, dtype=i32),
             shift=z(1, dtype=i32), tick=100, tick16=100, limit=12, period=5,
-            learn_out=z(n, u, dtype=i16), sends_out=z(n, u, dtype=i8),
-            r_kind_out=z(u, dtype=i8), r_start_out=z(u, dtype=i32),
             exp_out=z(u), want_out=z(n, dtype=i32),
             row_subject_out=z(n, dtype=i32),
             counts_out=z(3, dtype=torch.int64))),
         "dense_expiry_post": (kernels.launch_dense_expiry_post, dict(
             want=z(n, dtype=i32), dead_of=z(n, dtype=i32),
             left_of=z(n, dtype=i32), exp=z(u), r_subject=z(u, dtype=i32),
-            subjects=z(a, dtype=i32), slots=z(a, dtype=i32),
-            sus_start=z(n, dtype=i32),
-            sus_confirm=z(n, dtype=i8), up=z(n), member=z(n),
-            committed_dead=z(n), committed_left=z(n), bulk_member=z(n),
-            bulk_heard=z(n, dtype=torch.float32),
-            bulk_cov=z(n, dtype=torch.float32), ok=z(a),
+            subjects=z(a, dtype=i32), slots=z(a, dtype=i32), ok=z(a),
+            up=z(n), member=z(n), committed_dead=z(n), committed_left=z(n),
             counts=z(3, dtype=torch.int64), shift=z(1, dtype=i32), tick=100,
-            period=5, chaos=False, bulk_member_out=z(n),
-            bulk_heard_out=z(n, dtype=torch.float32),
-            bulk_cov_out=z(n, dtype=torch.float32),
-            sus_start_out=z(n, dtype=i32), sus_confirm_out=z(n, dtype=i8))),
+            period=5, chaos=False, bulk_member=z(n),
+            bulk_heard=z(n, dtype=torch.float32),
+            bulk_cov=z(n, dtype=torch.float32), sus_start=z(n, dtype=i32),
+            sus_confirm=z(n, dtype=i8))),
         "refutation": (kernels.launch_refutation, dict(
             **rows, **table, incarnation=z(n, dtype=i32),
             awareness=z(n, dtype=i8), up=z(n), member=z(n),
@@ -1105,6 +1160,41 @@ BAD = {
 }
 
 
+# case: (wrapper, the state's edit, what the check names); the in-place
+# wrappers refuse a leaf they write that is strided or shares storage
+UNWRITABLE = {
+    "K10 sends_left shares know": (
+        "suspicion_expiry",
+        lambda s: dict(sends_left=s.know.view(torch.int8)), "share storage"),
+    "K10 learn_tick strided": (
+        "suspicion_expiry",
+        lambda s: dict(learn_tick=s.learn_tick.t().contiguous().t()),
+        "contiguous"),
+    "K11 bulk_cov shares bulk_heard": (
+        "dense", lambda s: dict(bulk_cov=s.bulk_heard), "share storage"),
+    "K11 sus_start strided": (
+        "dense", lambda s: dict(sus_start=torch.stack(
+            [s.sus_start, s.sus_start], 1)[:, 0]), "contiguous"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNWRITABLE))
+def test_inplace_wrappers_reject_unwritable_leaves(monkeypatch, case):
+    """On the card K10's and K11's wrappers check every leaf they write
+    before launching: a strided or shared one raises, with no launch and
+    no twin."""
+    params, s, maps, rec = _card_state(monkeypatch)
+    which, edit, match = UNWRITABLE[case]
+    s = s.replace(**edit(s))
+    calls = {"suspicion_expiry": lambda: swim._suspicion_expiry(params, s),
+             "dense": lambda: swim._dense_suspicion_expiry(
+                 params, s, torch.tensor(3, dtype=torch.int32), maps)}
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        calls[which]()
+    assert not rec.calls and kernels.LAUNCHES == before
+
+
 @pytest.mark.parametrize("case", sorted(BAD))
 def test_detector_wrappers_reject(monkeypatch, case):
     monkeypatch.setattr(kernels, "library",
@@ -1120,8 +1210,8 @@ def test_detector_wrappers_reject(monkeypatch, case):
 
 def test_kernel_constants_match_the_sources():
     expiry = (CSRC / "expiry.cu").read_text()
-    assert "kDone = 0, kAny = 1, kConvert = 2;" in expiry
-    assert kernels.EXPIRY_SCRATCH == 3
+    assert "kAny = 0, kRead = 1;" in expiry
+    assert kernels.EXPIRY_SCRATCH == 2
     refute = (CSRC / "refute.cu").read_text()
     assert "kCommitAlive = 69;" in refute and kernels.EXPIRE_SCRATCH == 70
     dense = (CSRC / "dense.cu").read_text()

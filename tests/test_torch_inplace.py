@@ -1,15 +1,17 @@
-"""The in-place contract of K7 and K8, held on the CPU.
+"""The in-place contract of K7, K8, K10 and K11, held on the CPU.
 
-On the card `swim._probe_pass` (K7) and `swim._originate` (K8) update the
-state they are given in place, so every step or command that reaches
-them consumes its state.  The CPU runs their pure twins, which cannot
-show a caller that reads a state again after passing it on.  The
-`consuming` fixture makes the CPU behave as the card's worst case: after
-each call of the two wrappers it overwrites the input state's in-place
-leaves with a sentinel, except a leaf the output still holds.  Each
-caller the port ships must give the same results under it as without it;
-a caller that reads a consumed state again (as `GossipOracle.warmup` did
-when it ran its commands on the live pool) gives other results.
+On the card `swim._probe_pass` (K7), `swim._originate` (K8),
+`swim._suspicion_expiry` (K10) and `swim._dense_suspicion_expiry` (K11
+around K8) update the state they are given in place, so every step or
+command that reaches them consumes its state.  The CPU runs their pure
+twins, which cannot show a caller that reads a state again after passing
+it on.  The `consuming` fixture makes the CPU behave as the card's worst
+case: after each call of the four wrappers it overwrites the input
+state's in-place leaves with a sentinel, except a leaf the output still
+holds.  Each caller the port ships must give the same results under it
+as without it; a caller that reads a consumed state again (as
+`GossipOracle.warmup` did when it ran its commands on the live pool)
+gives other results.
 """
 
 import dataclasses
@@ -45,25 +47,31 @@ def _consume(before, after, fields) -> None:
             t.fill_(SENTINEL[t.dtype])
 
 
+# each in-place wrapper: (the leaves it writes, where its output state is)
+CONSUMERS = {
+    "_probe_pass": (swim.PROBE_INPLACE, lambda out: out[0]),
+    "_originate": (swim.ORIGINATE_INPLACE, lambda out: out[0]),
+    "_suspicion_expiry": (swim.EXPIRY_INPLACE, lambda out: out[0]),
+    "_dense_suspicion_expiry": (swim.DENSE_INPLACE + swim.ORIGINATE_INPLACE,
+                                lambda out: out),
+}
+
+
 @pytest.fixture
 def consuming(monkeypatch):
-    real_pass, real_originate = swim._probe_pass, swim._originate
-    calls = {"probe_pass": 0, "originate": 0}
+    calls = {name: 0 for name in CONSUMERS}
 
-    def probe_pass(params, s, maps, drawn):
-        out = real_pass(params, s, maps, drawn)
-        _consume(s, out[0], swim.PROBE_INPLACE)
-        calls["probe_pass"] += 1
-        return out
+    def wrap(name, real, fields, state_of):
+        def fn(params, s, *args):
+            out = real(params, s, *args)
+            _consume(s, state_of(out), fields)
+            calls[name] += 1
+            return out
+        return fn
 
-    def originate(params, s, *args):
-        out = real_originate(params, s, *args)
-        _consume(s, out[0], swim.ORIGINATE_INPLACE)
-        calls["originate"] += 1
-        return out
-
-    monkeypatch.setattr(swim, "_probe_pass", probe_pass)
-    monkeypatch.setattr(swim, "_originate", originate)
+    for name, (fields, state_of) in CONSUMERS.items():
+        monkeypatch.setattr(swim, name, wrap(name, getattr(swim, name),
+                                             fields, state_of))
     return calls
 
 
@@ -170,13 +178,16 @@ CALLERS = {
 @pytest.mark.parametrize("caller", sorted(CALLERS))
 def test_caller_never_reads_a_consumed_state(caller, request):
     """The caller gives the same results whether or not the states it
-    passes to K7 and K8 are consumed; the fixture was exercised."""
+    passes to K7, K8, K10 and K11 are consumed; the fixture was
+    exercised, a probe tick's K10 and K11 among it."""
     ref = CALLERS[caller]()
     calls = request.getfixturevalue("consuming")
     got = CALLERS[caller]()
-    assert calls["originate"] > 0
+    assert calls["_originate"] > 0
+    assert calls["_suspicion_expiry"] > 0
+    assert calls["_dense_suspicion_expiry"] > 0
     if caller != "GossipOracle":
-        assert calls["probe_pass"] > 0
+        assert calls["_probe_pass"] > 0
     _same(got, ref)
 
 
@@ -203,7 +214,8 @@ def test_the_fixture_sees_a_caller_that_rereads_its_state(consuming):
                    v, kept[k], equal_nan=v.dtype.kind == "f")]
     assert changed, "the fixture left a reread state intact"
     assert set(changed) <= {f"swim.{f}" for f in
-                            swim.ORIGINATE_INPLACE + swim.PROBE_INPLACE}
+                            swim.ORIGINATE_INPLACE + swim.PROBE_INPLACE
+                            + swim.EXPIRY_INPLACE + swim.DENSE_INPLACE}
 
 
 def test_writable_rejects_shared_or_strided_leaves():
@@ -214,12 +226,20 @@ def test_writable_rejects_shared_or_strided_leaves():
     s = swim.init_state(params, device="cpu")
     swim._writable(s, swim.PROBE_INPLACE, "K7")
     swim._writable(s, swim.ORIGINATE_INPLACE, "K8")
+    swim._writable(s, swim.EXPIRY_INPLACE, "K10")
+    swim._writable(s, swim.DENSE_INPLACE, "K11")
     with pytest.raises(ValueError, match="share storage"):
         swim._writable(s.replace(sends_left=s.know.view(torch.int8)),
                        swim.PROBE_INPLACE, "K7")
     with pytest.raises(ValueError, match="share storage"):
         swim._writable(s.replace(r_inc=s.r_subject), swim.ORIGINATE_INPLACE,
                        "K8")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(s.replace(r_kind=s.know.view(torch.int8)[0]),
+                       swim.EXPIRY_INPLACE, "K10")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(s.replace(bulk_cov=s.bulk_heard), swim.DENSE_INPLACE,
+                       "K11")
     with pytest.raises(ValueError, match="contiguous"):
         swim._writable(s.replace(know=s.know.t().contiguous().t()),
                        swim.ORIGINATE_INPLACE, "K8")
