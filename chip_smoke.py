@@ -28,7 +28,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
      draws exactly two, launches K7 and K13 once, K8 at least twice (the
      probe round's and the dense expiry's origination) and every K9-K12
      entry point, and runs at most PROBE_KERNEL_CAP device kernels (the
-     tree before K10 was one launch ran PARENT_PROBE_KERNELS);
+     tree before K12's expire was one launch ran PARENT_PROBE_KERNELS);
   4. kernels: each kernel against its plain PyTorch twin on the card,
      bit-equal, at the main path's shapes (N=1M, S=U=32, G=3).  K1 mode
      by mode ([N, 3] uniform and bits, [N] exponential, [N, 8] normal —
@@ -115,18 +115,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
  12. the rest of the probe tick's detector passes: K9 (the subject maps,
      map_add, maps_convert), K10 (suspicion expiry) and K11 (the dense
      expiry around K8), which update the state they are given in place,
-     and K12 (refutation, expire) against their twins, every leaf
-     bit-equal, each K10 and K11 call on a clone of its input, along
-     whole probe ticks from the main path's states (the kill,
-     mid-convergence, the end, and the first ticks of its replay that
-     converted a slot, refuted and freed one), the correlated run's
-     overflow tick and evicting state (stale maps), the 1M chaos states,
-     the WAN pool and small pools on the card and random 1M states (dead
-     rumors refuted, two slots of one subject refuting, no LHA, wrapped
-     int16 ages); the leaves K10 and K11 write are the input's own
-     tensors, and neither allocates an [N, U] block; then timed beside
-     their bounds, the twins and, for K9, one scatter_reduce
-     (detector_phase);
+     and K12 (refutation, expire), all updating the state they are given
+     in place, against their twins, every leaf bit-equal, each kernel
+     call on a clone of its input, along whole probe ticks from the main
+     path's states (the kill, mid-convergence, the end, and the first
+     ticks of its replay that converted a slot, refuted and freed one),
+     the correlated run's overflow tick and evicting state (stale maps),
+     the 1M chaos states, the WAN pool and small pools on the card (U =
+     64 among them) and random 1M states (dead rumors refuted, two slots
+     of one subject refuting, no LHA, wrapped int16 ages); the leaves
+     K10-K12 write are the input's own tensors, and none allocates an [N,
+     U] block; K12's expire captured in a CUDA graph and replayed; then
+     timed beside their bounds, the twins and, for K9, one
+     scatter_reduce, K12 also at the first probe ticks that refuted and
+     freed a slot (detector_phase);
  13. the Vivaldi ring observation and the bulk channel: K13 against
      observe_ring_plain, every leaf within K13_ULP_BOUND (0) ulp, on the
      main path's first probe tick (every row colocated, so the 0-ulp
@@ -783,8 +785,9 @@ def check_kernels_per_tick(params, state) -> dict:
     require(not missing, f"probe tick: K9-K12 entry points not launched: "
             f"{missing} ({ {k: launched[k] for k in kernels.DETECTOR} })")
     count = per_tick["probe"]["kernels"]
-    log(f"kernels per probe tick: {count}, with K10 in two launches "
-        f"{PARENT_PROBE_KERNELS} (fall {PARENT_PROBE_KERNELS - count}); "
+    log(f"kernels per probe tick: {count}, with K12's expire in two "
+        f"launches {PARENT_PROBE_KERNELS} (fall "
+        f"{PARENT_PROBE_KERNELS - count}); "
         f"K9-K12 launches {json.dumps({k: launched[k] for k in kernels.DETECTOR})}")
     require(count <= PROBE_KERNEL_CAP,
             f"a probe tick runs {count} device kernels, want at most "
@@ -2073,8 +2076,8 @@ def vivaldi_phase(dev) -> dict:
 # device kernels a main-path probe tick ran while K10 was two launches
 # (profile_tick's count on an NVIDIA H100 80GB HBM3 at 700 W), and the
 # most a probe tick may run now (K10 one cooperative launch)
-PARENT_PROBE_KERNELS = 21
-PROBE_KERNEL_CAP = 20
+PARENT_PROBE_KERNELS = 20
+PROBE_KERNEL_CAP = 19
 # the plain twins of K7-K12 and K14 in models/swim.py, and K13's in
 # models/vivaldi.py
 SWIM_TWINS = ("_probe_pass_plain", "_probe_round_plain", "_originate_plain",
@@ -2380,14 +2383,6 @@ def _originate_bytes(s, want, row_subject, evicting: bool, ref) -> int:
     return 8 * n + 40 * u + ((u + 2) * n if evicting else 0) + changed
 
 
-def _copy_bytes(s, cell_bytes: int = 4) -> int:
-    """The fresh-output copy of [N, U] rows, `cell_bytes` a cell read and
-    as many written: know, learn_tick and sends_left are 4 (the
-    refutation), know and sends_left 2 (expire)."""
-    n, u = s.know.shape
-    return 2 * cell_bytes * n * u
-
-
 # originate.cu's kStamps: the phase stamps of its instrumented build
 K8_STAMPS = 192
 K8_PHASES = ("select", "merge_decide", "barrier", "evict", "seed")
@@ -2634,7 +2629,7 @@ DETECTOR_ENTRIES = {
                      "consul_tpu/models/swim.py:965"),
     "refutation": (("refutation_kernel",), "refute.cu",
                    "consul_tpu/models/swim.py:1086"),
-    "expire": (("expire_count_kernel", "expire_apply_kernel"), "refute.cu",
+    "expire": (("expire_kernel",), "refute.cu",
                "consul_tpu/models/swim.py:1267"),
 }
 
@@ -2656,13 +2651,37 @@ def _refuting(before, after) -> tuple:
             twice)
 
 
+def hold_refutation(params, s, what: str):
+    """K12's refutation against its twin on s, the kernel on a clone of s:
+    every leaf bit-equal, and the leaves it writes the clone's own
+    tensors.  Returns the twin's result."""
+    x = s.clone()
+    got = swim._refutation(params, x)
+    ref = swim._refutation_plain(params, s)
+    _state(got, ref, "K12 refutation", what)
+    _same_storage(x, got, swim.REFUTE_INPLACE, "K12 refutation", what)
+    return ref
+
+
+def hold_expire(params, s, what: str):
+    """K12's expire against its twin on s, the kernel on a clone of s:
+    every leaf bit-equal, and the leaves it writes the clone's own
+    tensors.  Returns the twin's result."""
+    x = s.clone()
+    got = swim._expire(params, x)
+    ref = swim._expire_plain(params, s)
+    _state(got, ref, "K12 expire", what)
+    _same_storage(x, got, swim.FREE_INPLACE, "K12 expire", what)
+    return ref
+
+
 def hold_detector(params, s, what: str) -> dict:
     """K9-K12 against their twins along the probe tick from s (a probe-tick
     state), every output leaf bit-equal, each pass on the twin's input of
     the tick: the maps (K9's build), the probe round's map_add of K8's
     allocation, the slot expiry (K10), maps_convert of its conversions,
     the dense expiry (K11 around K8; its twin with K8's twin), the
-    refutation and expire (K12); K12 also on s itself.  K10 and K11 run
+    refutation and expire (K12); K12 also on s itself.  K10-K12 run
     on a clone of their input, whose leaves they must write in place (the
     state returned holds the clone's tensors).  Returns what the
     tick exercised: among it the slots the probe round's origination
@@ -2700,15 +2719,11 @@ def hold_detector(params, s, what: str) -> dict:
     _state(s3, p3, "K11", what)
     _same_storage(x11, s3, swim.DENSE_INPLACE + swim.ORIGINATE_INPLACE,
                   "K11", what)
-    s4 = swim._refutation(params, s3)
-    _state(s4, swim._refutation_plain(params, s3), "K12 refutation", what)
-    s5 = swim._expire(params, s4)
-    _state(s5, swim._expire_plain(params, s4), "K12 expire", what)
+    s4 = hold_refutation(params, s3, what)
+    s5 = hold_expire(params, s4, what)
     for base, name in ((s, "raw"), (s2, "after K10")):
-        _state(swim._refutation(params, base), swim._refutation_plain(
-            params, base), "K12 refutation", f"{what} {name}")
-        _state(swim._expire(params, base), swim._expire_plain(params, base),
-               "K12 expire", f"{what} {name}")
+        hold_expire(params, hold_refutation(params, base, f"{what} {name}"),
+                    f"{what} {name}")
     refuted, dead_refuted, twice = _refuting(s3, s4)
     return {"tick": s.tick, "n": params.n_nodes, "u": params.rumor_slots,
             "chaos": params.chaos, "converted": int(conv.sum()),
@@ -2726,11 +2741,11 @@ def hold_detector(params, s, what: str) -> dict:
 
 
 def no_expiry_allocation(params, s, what: str) -> dict:
-    """The probe round, then K10 and the dense expiry (K11 around K8) on a
-    clone of s on the card, as a probe tick runs them: the leaves they
-    write are the clone's own tensors, and neither K10 nor the dense
-    expiry allocates an [N, U] block (their fresh outputs are [U], [2, N],
-    [3] and K8's [A])."""
+    """The probe round, then K10, the dense expiry (K11 around K8), K12's
+    refutation and its expire on a clone of s on the card, as a probe tick
+    runs them: the leaves they write are the clone's own tensors, and none
+    of them allocates an [N, U] block (their fresh outputs are [U], [2, N],
+    [3] and K8's [A]; K12 allocates nothing)."""
     x = s.clone()
     x, obs, maps = swim._probe_round(params, x, swim._maps(params, x))
     grown = {}
@@ -2740,7 +2755,30 @@ def no_expiry_allocation(params, s, what: str) -> dict:
     maps = swim._maps_convert(maps, x, conv)
     x = _peak_growth(grown, "K11+K8", lambda: swim._dense_suspicion_expiry(
         params, x, obs.shift, maps))
-    return _no_block(x, ptrs, grown, what, "K10 and K11")
+    x = _peak_growth(grown, "K12 refutation", lambda: swim._refutation(
+        params, x))
+    x = _peak_growth(grown, "K12 expire", lambda: swim._expire(params, x))
+    return _no_block(x, ptrs, grown, what, "K10-K12")
+
+
+def capture_expire(params, s) -> dict:
+    """K12's expire (one cooperative launch) captured in a CUDA graph on a
+    clone of s, then replayed: the capture must take the cooperative
+    launch, and the replay's state is bit-equal to the twin's (a captured
+    probe tick needs its cooperative launches, ROADMAP queue B)."""
+    swim._expire(params, s.clone())   # its scratch is made before capture
+    x = s.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        swim._expire(params, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = swim._expire_plain(params, s)
+    _state(x, ref, "K12 expire", "graph replay")
+    freed = int((s.r_active & ~ref.r_active).sum())
+    log(f"K12 expire captured in a CUDA graph and replayed at tick "
+        f"{s.tick}: bit-equal to its twin, {freed} slots freed")
+    return {"tick": s.tick, "freed": freed}
 
 
 def _random_detector_state(dev, params, s, seed: int):
@@ -2816,13 +2854,15 @@ def _replay_events(params, s, ticks: int) -> dict:
         return out
 
     def spy_refute(pp, st):
+        kind = st.r_kind.clone()    # K12 rewrites the table in place
         out = saved["_refutation"](pp, st)
-        seen["refute"] = bool((out.r_kind != st.r_kind).any())
+        seen["refute"] = bool((out.r_kind != kind).any())
         return out
 
     def spy_expire(pp, st):
+        active = st.r_active.clone()
         out = saved["_expire"](pp, st)
-        seen["free"] = bool((st.r_active & ~out.r_active).any())
+        seen["free"] = bool((active & ~out.r_active).any())
         return out
 
     spies = {"_suspicion_expiry": spy_expiry,
@@ -2893,9 +2933,10 @@ def _detector_bytes(params, s, which: str, out, *extra) -> int:
     up/member, committed dead/left, bulk_member, bulk_heard and the three
     maps (26 bytes a node), and know where a slot converts.  refutation
     gathers know, up, member, incarnation and awareness at the refutable
-    slots' subjects.  expire reads know and up/member and gathers the
-    committed leaves at the freed slots' subjects.  The fresh [N, U] row
-    copies are counted apart (_copy_bytes)."""
+    slots' subjects and reads every node's score (with Lifeguard's
+    awareness_max > 0: the clamp covers every node).  expire reads know
+    and up/member and gathers the committed leaves at the freed slots'
+    subjects."""
     n, u = s.know.shape
     table = TABLE_BYTES * u
     if which == "subject_maps":
@@ -2928,7 +2969,8 @@ def _detector_bytes(params, s, which: str, out, *extra) -> int:
     if which == "refutation":
         refutable = s.r_active & ((s.r_kind == swim.SUSPECT)
                                   | (s.r_kind == swim.DEAD))
-        return table + 5 * 32 * int(refutable.sum()) + _written(
+        scores = n if params.awareness_max > 0 else 0
+        return table + 5 * 32 * int(refutable.sum()) + scores + _written(
             (s.incarnation, out.incarnation), (s.awareness, out.awareness),
             (s.know, out.know), (s.learn_tick, out.learn_tick),
             (s.sends_left, out.sends_left), (s.r_kind, out.r_kind),
@@ -2944,17 +2986,15 @@ def _detector_bytes(params, s, which: str, out, *extra) -> int:
     raise ValueError(which)
 
 
-# bytes a cell of the [N, U] rows each entry copies into fresh outputs
-# (K10 and K11 write in place and copy nothing)
-ROW_COPY_CELL_BYTES = {"refutation": 4, "expire": 2}
-
-
-def time_detector(params, s) -> dict:
-    """K9-K12 timed at one state: device ms (torch.profiler's kernel
-    records, L2 evicted; multi-kernel entries summed), the wrapper call
-    and the twin (CUDA events, dispatch included), the bound, and for
-    subject_maps and map_add one torch scatter_reduce: building one map,
-    and adding the origination's pairs to one."""
+def time_detector(params, s, only=None) -> dict:
+    """K9-K12 (or the entries named in `only`) timed at one state, each
+    pass on its input of the probe tick from s (expire after the twin's
+    refutation): device ms (torch.profiler's kernel records, L2 evicted;
+    multi-kernel entries summed), the wrapper call and the twin (CUDA
+    events, dispatch included), the bound, and for subject_maps and
+    map_add one torch scatter_reduce: building one map, and adding the
+    origination's pairs to one.  K12's entries also give the slots that
+    refute and that are freed."""
     maps = swim._maps(params, s)
     drawn = swim._probe_inputs(params, s)
     s1, want, rows, obs = swim._probe_pass(params, s.clone(), maps, drawn)
@@ -2963,6 +3003,7 @@ def time_detector(params, s) -> dict:
     s2, conv = swim._suspicion_expiry(params, s1.clone())
     maps2 = swim._maps_convert(maps, s2, conv)
     s3 = swim._dense_suspicion_expiry(params, s2.clone(), obs.shift, maps2)
+    s4 = swim._refutation_plain(params, s3)
     calls = {
         "subject_maps": (lambda: swim._maps(params, s),
                          lambda: swim._maps_plain(params, s), s, ()),
@@ -2981,10 +3022,14 @@ def time_detector(params, s) -> dict:
             params, st, obs.shift, maps2), lambda: swim.
             _dense_suspicion_expiry_plain(params, s2, obs.shift, maps2), s2,
             (maps2,), s2.clone),
-        "refutation": (lambda: swim._refutation(params, s3),
-                       lambda: swim._refutation_plain(params, s3), s3, ()),
-        "expire": (lambda: swim._expire(params, s3),
-                   lambda: swim._expire_plain(params, s3), s3, ())}
+        "refutation": (lambda st: swim._refutation(params, st),
+                       lambda: swim._refutation_plain(params, s3), s3, (),
+                       s3.clone),
+        "expire": (lambda st: swim._expire(params, st),
+                   lambda: swim._expire_plain(params, s4), s4, (),
+                   s4.clone)}
+    if only is not None:
+        calls = {k: v for k, v in calls.items() if k in only}
     mask = s.r_active & (s.r_kind == swim.DEAD)
     subj = torch.where(mask, s.r_subject, 0).long()
     val = torch.where(mask, torch.arange(params.rumor_slots, dtype=torch.int32,
@@ -3007,17 +3052,20 @@ def time_detector(params, s) -> dict:
         phases = device_ms(call, names, make=make)
         b = _detector_bytes(params, at, name,
                             call(make()) if make else call(), *extra)
-        copy = _copy_bytes(at, ROW_COPY_CELL_BYTES.get(name, 0))
         out[name] = {
             "ms": sum(phases.values()),
             "phase_ms": phases if len(phases) > 1 else None,
             "call_ms": median_ms(call, make=make),
             "plain_ms": median_ms(plain, reps=5),
             "bound_ms": b / HBM_BYTES_PER_S * 1000.0, "bound_bytes": b,
-            "row_copy_bytes": copy,
-            "row_copy_ms_at_hbm": copy / HBM_BYTES_PER_S * 1000.0,
             "library_ms": kernel_ms(library[name]) if name in library
             else None}
+        if name == "refutation":
+            out[name]["refuted"] = _refuting(s3, s4)[0]
+        if name == "expire":
+            out[name]["freed"] = int((s4.r_active
+                                      & ~swim._expire_plain(params, s4)
+                                      .r_active).sum())
         log(f"{name} timed at tick {s.tick}: " + json.dumps(out[name]))
     return out
 
@@ -3048,7 +3096,8 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
     at the tick whose dense expiry seeds the bulk channel and at the
     evicting mid-drain state (stale maps); the 1M chaos states (overflow
     off); the federation's WAN pool and small pools on the card (N = 15,
-    U = 16 and N = 6, U = 8); random 1M states in the main, chaos and
+    U = 16, N = 6, U = 8 and a lossy 4,096-node pool at U = 64, the
+    64-bit slot words); random 1M states in the main, chaos and
     no-LHA configs (dead rumors refuted, two slots of one subject, wrapped
     int16 ages).  Returns (the kernels-line entries, the record)."""
     params = main["params"]
@@ -3085,6 +3134,13 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
                      ("no LHA", dataclasses.replace(p, awareness_max=0))):
         st = _random_detector_state(dev, hp, at_kill, seed=len(held))
         held[f"random 1M {name}"] = hold_detector(hp, st, f"random 1M {name}")
+    # a lossy pool at U = 64 (the 64-bit slot words), after the random
+    # states, whose seeds count the holds before them
+    hp, sts = _pool_states(dev, GossipConfig.lan(), SimConfig(
+        n_nodes=4096, rumor_slots=64, p_loss=0.05, seed=5), (7, 9, 11), 150)
+    for i, st in enumerate(sts):
+        name = f"lan 4096x64 #{i}"
+        held[name] = hold_detector(hp, st, name)
     totals = {k: sum(h[k] for h in held.values()) for k in (
         "converted", "dense_dead", "dense_originated", "overflow", "refuted",
         "dead_refuted", "refuted_twice", "freed", "committed",
@@ -3105,9 +3161,22 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
     in_place = {name: no_expiry_allocation(hp, st, name) for name, hp, st in (
         ("main mid", p, states["mid"][1]),
         ("main first convert", p, events["convert"]),
+        ("main first refute", p, events["refute"]),
+        ("main first free", p, events["free"]),
         ("correlated overflow", cp, overflow))}
+    captured = capture_expire(p, events["free"])
 
     timed = time_detector(p, states["mid"][1])
+    # K12 where it refutes and where it frees: the main path's first
+    # probe ticks with each event
+    k12 = ("refutation", "expire")
+    at_event = {"refuting": time_detector(p, events["refute"], only=k12),
+                "freeing": time_detector(p, events["free"], only=k12)}
+    require(at_event["refuting"]["refutation"]["refuted"] > 0
+            and at_event["freeing"]["expire"]["freed"] > 0,
+            f"the timed event states refuted "
+            f"{at_event['refuting']['refutation']['refuted']} and freed "
+            f"{at_event['freeing']['expire']['freed']} slots")
     launches = main["all_launches"]
     entries = []
     for name, (_, src, replaces) in DETECTOR_ENTRIES.items():
@@ -3120,10 +3189,15 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
             "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": t["library_ms"],
-            "row_copy_ms_at_hbm": t["row_copy_ms_at_hbm"],
             "shape": [p.n_nodes, p.rumor_slots]})
+        for event, at in at_event.items():
+            if name in at:
+                entries[-1][event] = {k: at[name][k] for k in (
+                    "ms", "call_ms", "bound_ms", "refuted", "freed")
+                    if k in at[name]}
     return entries, {"held": held, "totals": totals, "timed": timed,
-                     "in_place": in_place}
+                     "timed_at_events": at_event, "in_place": in_place,
+                     "expire_graph_capture": captured}
 
 
 # ---------------------------------------------------------------------------
@@ -3142,7 +3216,9 @@ K13_ULP_BOUND = 0
 # max|twin| (the two float sums are summed in the kernel's own order; an
 # ulp of `removed` is an absolute error on every heard count)
 BULK_RTOL = 1e-5
-K13_KERNELS = ("vivaldi_ring_kernel",)
+# K13's tiled form (the serf pool's D = 8, W = 20; other widths run
+# vivaldi_ring_kernel)
+K13_KERNELS = ("vivaldi_tile_kernel",)
 K14_KERNELS = ("bulk_count_kernel", "bulk_supply_kernel",
                "bulk_advance_kernel", "bulk_commit_kernel")
 BULK_FLOATS = ("bulk_heard", "bulk_cov")
@@ -3172,9 +3248,26 @@ def hold_ring(vp, c, shift, rtt_ms, acked, what: str,
     draws them inside itself: with `all_colocated` (a fresh pool's first
     probe tick, every coordinate 0) every acked row's new coordinates are
     its draw times a force over its norm, so their 0-ulp hold on every row
-    that moved holds the fused draws to prng.normal's."""
-    got = vivaldi.observe_ring(vp, c, shift, rtt_ms, acked)
+    that moved holds the fused draws to prng.normal's.  K13 runs on a
+    clone of c, whose window and adjustment it must write in place; the
+    peak allocation across the call stays below an [N, W] block (its
+    fresh outputs are the [N, D] coordinates and the [N] height and error;
+    in a pool so small that those, rounded up to the allocator's 512-byte
+    granules, reach an [N, W] block, it stays within them)."""
+    x = c.clone()
+    grown = {}
+    got = _peak_growth(grown, "K13", lambda: vivaldi.observe_ring(
+        vp, x, shift, rtt_ms, acked))
     ref = vivaldi.observe_ring_plain(vp, c, shift, rtt_ms, acked)
+    for f in vivaldi.RING_INPLACE:
+        require(getattr(got, f).data_ptr() == getattr(x, f).data_ptr(),
+                f"K13 {what}: {f} is not the input's tensor (in place)")
+    window_bytes = c.adj_window.numel() * 4
+    fresh = sum(-(-t.numel() * 4 // 512) * 512
+                for t in (got.coords, got.height, got.error))
+    require(grown["K13"] < window_bytes or grown["K13"] <= fresh,
+            f"K13 {what}: allocated {grown['K13']} bytes, an [N, W] block is "
+            f"{window_bytes} (its fresh outputs {fresh})")
     require(got.adj_index == ref.adj_index == c.adj_index + 1,
             f"K13 {what}: adj_index {got.adj_index}")
     ulps = {f: _ulps(getattr(got, f), getattr(ref, f)) for f in VIVALDI_FIELDS}
@@ -3190,6 +3283,8 @@ def hold_ring(vp, c, shift, rtt_ms, acked, what: str,
                 f"{ulps['coords']} ulp from prng.normal's")
     return {"adj_index": c.adj_index, "ulps": ulps, "colocated": n,
             "colocated_moved": moved, "acked": int(acked.sum()),
+            "peak_growth_bytes": grown["K13"], "fresh_bytes": fresh,
+            "window_bytes": window_bytes,
             "max_abs_err": max(float((getattr(got, f) - getattr(ref, f))
                                      .abs().max()) for f in VIVALDI_FIELDS)}
 
@@ -3295,17 +3390,18 @@ def _random_bulk(dev, base, seed: int, members: float = 0.01,
     return s
 
 
-def _ring_bytes(c, n_colocated: int) -> tuple:
-    """K13's least bytes (inputs read once, outputs written once, one
-    window column written in place), the same with the fresh window, and
-    its operations: the normal draws of the colocated rows at K1's SASS
-    count per element."""
+def _ring_bytes(c, ref, n_colocated: int) -> tuple:
+    """K13's least bytes given the twin's result `ref` (inputs read once,
+    the coordinates, height, error and adjustment written once, whole;
+    the window in place: the 32-byte sectors whose values change, by
+    _written) and its operations: the normal draws of the colocated rows
+    at K1's SASS count per element."""
     n, d = c.coords.shape
     w = c.adj_window.shape[1]
     reads = 4 * n * d + 4 * 3 * n + n + 4 * n * w
-    writes = 4 * n * d + 4 * 3 * n + 4 * n
+    writes = 4 * n * d + 4 * 3 * n + _written((c.adj_window, ref.adj_window))
     ops = n_colocated * d * SASS_PER_ELEMENT["normal"]
-    return reads + writes, reads + writes + 4 * n * (w - 1), ops
+    return reads + writes, ops
 
 
 def _bulk_bytes(params, s, out) -> tuple:
@@ -3328,21 +3424,23 @@ def _bulk_bytes(params, s, out) -> tuple:
 def time_ring(vp, c, shift, rtt_ms, acked) -> dict:
     """K13 timed at one observation: device ms (torch.profiler, L2
     evicted), the CUDA-event time with dispatch hidden, the wrapper call
-    and the twin (dispatch included), the bound."""
-    call = lambda: vivaldi.observe_ring(vp, c, shift, rtt_ms, acked)  # noqa: E731
+    and the twin (dispatch included), the bound.  Each kernel call gets
+    a clone of c (it writes the window in place), made outside the
+    timed window."""
+    call = lambda x: vivaldi.observe_ring(vp, x, shift, rtt_ms, acked)  # noqa: E731
     n_col = int(_colocated(c, shift).sum())
-    b, b_copy, ops = _ring_bytes(c, n_col)
+    plain = lambda: vivaldi.observe_ring_plain(  # noqa: E731
+        vp, c, shift, rtt_ms, acked)
+    b, ops = _ring_bytes(c, plain(), n_col)
     by_bytes = b / HBM_BYTES_PER_S * 1000.0
     by_ops = ops / INT32_OPS_PER_S * 1000.0
-    t = {"ms": device_ms(call, K13_KERNELS)[K13_KERNELS[0]],
-         "event_ms": kernel_ms(call), "call_ms": median_ms(call),
-         "plain_ms": median_ms(lambda: vivaldi.observe_ring_plain(
-             vp, c, shift, rtt_ms, acked), reps=5),
+    t = {"ms": device_ms(call, K13_KERNELS, make=c.clone)[K13_KERNELS[0]],
+         "event_ms": kernel_ms(call, make=c.clone),
+         "call_ms": median_ms(call, make=c.clone),
+         "plain_ms": median_ms(plain, reps=5),
          "bound_ms": max(by_bytes, by_ops),
          "bound_by": "operations" if by_ops > by_bytes else "bytes",
-         "bound_bytes": b, "bound_ops": ops,
-         "bound_with_copy_ms": max(b_copy / HBM_BYTES_PER_S * 1000.0, by_ops),
-         "colocated": n_col}
+         "bound_bytes": b, "bound_ops": ops, "colocated": n_col}
     t["share"] = t["bound_ms"] / t["ms"]
     return t
 
@@ -3370,8 +3468,10 @@ def vivaldi_bulk_phase(dev, main: dict, states: dict,
     """Phase 13: K13 and K14 against their twins on the card, then timed.
     K13's holds: the main path's first probe tick from init_state (every
     row colocated: the fused draws held through the coordinates), at
-    the kill, mid-convergence and its end, random 1M states, and random
-    100k states at other widths (D = 3, W = 7; D = 16, W = 32).  K14's:
+    the kill, mid-convergence and its end, random 1M states, random 100k
+    states at other widths (D = 3, W = 7; D = 16, W = 32), a 15-node pool
+    (fewer rows than a tile) and a ragged last tile (N = 1,000,129).
+    K14's:
     the correlated run's overflow tick (the bulk step's input on the tick
     whose dense expiry seeds the channel, and that tick's starting state,
     whose channel is empty), mid-drain, its first committing tick after
@@ -3400,12 +3500,15 @@ def vivaldi_bulk_phase(dev, main: dict, states: dict,
         c, shift, rtt_ms, acked = _random_ring(dev, seed, adj_index=adj)
         ring[f"random 1M #{seed}"] = hold_ring(vp, c, shift, rtt_ms, acked,
                                                f"random 1M #{seed}")
-    # other widths take K13's form that reads them from its arguments
-    for d, w in ((3, 7), (16, 32)):
-        name = f"random 100k D={d} W={w}"
-        wp = vivaldi.VivaldiParams(n_nodes=100_000, dims=d,
-                                   adjustment_window=w, seed=7)
-        ring[name] = hold_ring(wp, *_random_ring(dev, d, 100_000, d, w), name)
+    # other widths take K13's plain form, which reads them from its
+    # arguments; pools of fewer rows than a tile (the WAN pool's 15) and a
+    # ragged last tile take the tiled form
+    for seed, n, d, w in ((3, 100_000, 3, 7), (16, 100_000, 16, 32),
+                          (15, 15, 8, 20), (129, 1_000_129, 8, 20)):
+        name = f"random {n} D={d} W={w}"
+        wp = vivaldi.VivaldiParams(n_nodes=n, dims=d, adjustment_window=w,
+                                   seed=7)
+        ring[name] = hold_ring(wp, *_random_ring(dev, seed, n, d, w), name)
     log(f"K13 held on {len(ring)} states in {time.perf_counter() - t0:.1f} s")
     for name, h in ring.items():
         log(f"  {name}: {json.dumps(h)}")
@@ -3479,7 +3582,6 @@ def vivaldi_bulk_phase(dev, main: dict, states: dict,
          "ms": t13["ms"], "call_ms": t13["call_ms"],
          "plain_ms": t13["plain_ms"], "bound_ms": t13["bound_ms"],
          "bound_by": t13["bound_by"], "library_ms": None,
-         "bound_with_copy_ms": t13["bound_with_copy_ms"],
          "max_ulp": max(max(h["ulps"].values()) for h in ring.values()),
          "ms_all_colocated": timed["vivaldi_ring all colocated"]["ms"],
          "shape": list(timing_obs[0].coords.shape)

@@ -37,13 +37,13 @@ PROBE = ("probe_round", "originate")
 # the rest of the probe tick's detector passes: the subject maps and their
 # updates (K9), suspicion expiry (K10: one cooperative launch), the dense
 # expiry's launches before and after its origination (K11), K10 and K11
-# writing the state they are given in place, refutation and expire (K12;
-# expire's count + apply counted once)
+# writing the state they are given in place, refutation and expire (K12,
+# in place; expire one cooperative launch)
 DETECTOR = ("subject_maps", "map_add", "maps_convert", "suspicion_expiry",
             "dense_expiry", "dense_expiry_post", "refutation", "expire")
-# the Vivaldi ring observation of every probe tick (K13), and the bulk
-# death channel of a mass event (K14: four device kernels behind one entry
-# point, counted once)
+# the Vivaldi ring observation of every probe tick (K13, its window in
+# place), and the bulk death channel of a mass event (K14: four device
+# kernels behind one entry point, counted once)
 VIVALDI_BULK = ("vivaldi_ring", "bulk_step")
 KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE + PROBE + DETECTOR \
     + VIVALDI_BULK
@@ -101,10 +101,10 @@ SIGNATURES = {
     "suspicion_expiry": [_P] * 14 + [_I64] + [_I] * 4 + [_P] * 3,
     "dense_expiry": [_P] * 18 + [_I64] + [_I] * 5 + [_P, _I] + [_P] * 5,
     "dense_expiry_post": [_P] * 14 + [_I64] + [_I] * 5 + [_P] * 6,
-    "refutation": [_P] * 12 + [_I64] + [_I] * 5 + [_P] * 9,
-    "expire": [_P] * 12 + [_I64] + [_I] * 4 + [_P] * 9,
+    "refutation": [_P] * 12 + [_I64] + [_I] * 5 + [_P] * 2,
+    "expire": [_P] * 13 + [_I64] + [_I] * 4 + [_P] * 2,
     "vivaldi_ring": [_P] * 7 + [_I64, _I, _I, _I, _U32, _U32] + [_F32] * 8
-    + [_P] * 6,
+    + [_P] * 5,
     "bulk_step": [_P] * 9 + [_I64, _I, _F32, _F32, _P, _I] + [_P] * 5,
 }
 
@@ -816,10 +816,11 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
 
 
 # expiry.cu's scratch words (the grid's expired slots, its readers) and
-# refute.cu's (the done count, then what the last block hands the apply
-# launch)
+# refute.cu's (refutation: the blocks done deciding; expire: the live
+# rows, 64 per-slot counts, the blocks that read them)
 EXPIRY_SCRATCH = 2
-EXPIRE_SCRATCH = 70
+REFUTE_SCRATCH = 1
+EXPIRE_SCRATCH = 66
 DENSE_COUNTS = 3        # dense.cu's sums: bulk members, live rows, wants
 
 
@@ -1048,12 +1049,13 @@ def launch_dense_expiry_post(*, want, dead_of, left_of, exp, r_subject,
 
 def launch_refutation(*, incarnation, awareness, up, member, know, learn_tick,
                       sends_left, r_active, r_kind, r_subject, r_inc, r_start,
-                      awareness_max: int, tick: int, tick16: int, limit: int,
-                      incarnation_out, awareness_out, know_out, learn_out,
-                      sends_out, r_kind_out, r_inc_out, r_start_out) -> None:
+                      awareness_max: int, tick: int, tick16: int,
+                      limit: int) -> None:
     """K12's refutation: live subjects that know they are suspected or
-    declared dead refute, into every *_out whole (awareness_out None when
-    awareness_max is 0: the score is then left as it is)."""
+    declared dead refute, in place: incarnation, awareness (clamped for
+    every node; left as it is when awareness_max is 0), the needing
+    columns of know / learn_tick / sends_left and r_kind / r_inc / r_start
+    at the needing slots, each only where a value changes."""
     dev = know.device if know is not None else None
     n, u = _slot_rows("refutation", know, learn_tick, sends_left, dev)
     _ticks("refutation", tick, tick16, limit)
@@ -1062,44 +1064,34 @@ def launch_refutation(*, incarnation, awareness, up, member, know, learn_tick,
                          f"[0, 127]")
     _node_vectors("refutation", dev, n, (incarnation, "incarnation", _I32),
                   (awareness, "awareness", _I8), (up, "up", _BOOL),
-                  (member, "member", _BOOL),
-                  (incarnation_out, "incarnation_out", _I32))
-    if (awareness_max > 0) != (awareness_out is not None):
-        raise ValueError("refutation: awareness_out comes with "
-                         "awareness_max > 0, and only then")
-    if awareness_out is not None:
-        _require(awareness_out, "refutation awareness_out", _I8, dev, (n,))
+                  (member, "member", _BOOL))
     if _rumor_table(r_active, r_kind, r_subject, dev, "refutation") != u:
         raise ValueError(f"refutation: the rumor table has "
                          f"{r_active.shape[0]} slots, know {u}")
     _node_vectors("refutation", dev, u, (r_inc, "r_inc", _I32),
-                (r_start, "r_start", _I32), (r_kind_out, "r_kind_out", _I8),
-                (r_inc_out, "r_inc_out", _I32),
-                (r_start_out, "r_start_out", _I32))
-    _slot_rows("refutation out", know_out, learn_out, sends_out, dev)
+                  (r_start, "r_start", _I32))
+    scratch = _scratch_words(dev, "refutation", REFUTE_SCRATCH)
     rc = library().refutation(
         incarnation.data_ptr(), awareness.data_ptr(), up.data_ptr(),
         member.data_ptr(), know.data_ptr(), learn_tick.data_ptr(),
         sends_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
         r_subject.data_ptr(), r_inc.data_ptr(), r_start.data_ptr(), n, u,
-        awareness_max, tick, tick16, limit, incarnation_out.data_ptr(),
-        _ptr(awareness_out), know_out.data_ptr(), learn_out.data_ptr(),
-        sends_out.data_ptr(), r_kind_out.data_ptr(), r_inc_out.data_ptr(),
-        r_start_out.data_ptr(), _stream(dev))
+        awareness_max, tick, tick16, limit, scratch.data_ptr(), _stream(dev))
     _check(rc, "refutation")
     LAUNCHES["refutation"] += 1
 
 
 def launch_expire(*, know, sends_left, up, member, committed_dead,
                   committed_left, committed_inc, r_active, r_kind, r_subject,
-                  r_inc, r_start, tick: int, life_gossip: int,
-                  life_suspect: int, know_out, sends_out, committed_dead_out,
-                  committed_left_out, committed_inc_out, r_active_out,
-                  r_coverage_out) -> None:
-    """K12's expire (count, then apply): slots past their dissemination
-    window (`life_suspect` ticks for suspect rumors, `life_gossip` for the
-    others) free at 99.5% live coverage or four windows, committing their
-    belief at 50%; writes every *_out whole."""
+                  r_inc, r_start, r_coverage, tick: int, life_gossip: int,
+                  life_suspect: int) -> None:
+    """K12's expire (one cooperative launch: count, grid barrier, decision,
+    apply): slots past their dissemination window (`life_suspect` ticks
+    for suspect rumors, `life_gossip` for the others) free at 99.5% live
+    coverage or four windows, committing their belief at 50%.  Updates
+    know / sends_left in the done columns, the committed leaves at the
+    committing subjects (and node 0), r_active and r_coverage in place,
+    each only where a value changes."""
     dev = know.device if know is not None else None
     if know is None or know.dim() != 2:
         raise ValueError("expire: know must be [N, U]")
@@ -1111,36 +1103,28 @@ def launch_expire(*, know, sends_left, up, member, committed_dead,
     if not 0 <= life_gossip < 2 ** 29 or not 0 <= life_suspect < 2 ** 29:
         raise ValueError(f"expire: windows {life_gossip}, {life_suspect} out "
                          f"of range")
-    for t, what, dt in ((know, "know", _BOOL), (sends_left, "sends_left", _I8),
-                        (know_out, "know_out", _BOOL),
-                        (sends_out, "sends_out", _I8)):
+    for t, what, dt in ((know, "know", _BOOL),
+                        (sends_left, "sends_left", _I8)):
         _require(t, "expire " + what, dt, dev, (n, u))
     _node_vectors("expire", dev, n, (up, "up", _BOOL),
                   (member, "member", _BOOL),
                   (committed_dead, "committed_dead", _BOOL),
                   (committed_left, "committed_left", _BOOL),
-                  (committed_inc, "committed_inc", _I32),
-                  (committed_dead_out, "committed_dead_out", _BOOL),
-                  (committed_left_out, "committed_left_out", _BOOL),
-                  (committed_inc_out, "committed_inc_out", _I32))
+                  (committed_inc, "committed_inc", _I32))
     if _rumor_table(r_active, r_kind, r_subject, dev, "expire") != u:
         raise ValueError(f"expire: the rumor table has {r_active.shape[0]} "
                          f"slots, know {u}")
     _node_vectors("expire", dev, u, (r_inc, "r_inc", _I32),
-                (r_start, "r_start", _I32),
-                (r_active_out, "r_active_out", _BOOL),
-                (r_coverage_out, "r_coverage_out", _F))
+                  (r_start, "r_start", _I32),
+                  (r_coverage, "r_coverage", _F))
     scratch = _scratch_words(dev, "expire", EXPIRE_SCRATCH)
     rc = library().expire(
         know.data_ptr(), sends_left.data_ptr(), up.data_ptr(),
         member.data_ptr(), committed_dead.data_ptr(),
         committed_left.data_ptr(), committed_inc.data_ptr(),
         r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(),
-        r_inc.data_ptr(), r_start.data_ptr(), n, u, tick, life_gossip,
-        life_suspect, scratch.data_ptr(), know_out.data_ptr(),
-        sends_out.data_ptr(), committed_dead_out.data_ptr(),
-        committed_left_out.data_ptr(), committed_inc_out.data_ptr(),
-        r_active_out.data_ptr(), r_coverage_out.data_ptr(), _stream(dev))
+        r_inc.data_ptr(), r_start.data_ptr(), r_coverage.data_ptr(), n, u,
+        tick, life_gossip, life_suspect, scratch.data_ptr(), _stream(dev))
     _check(rc, "expire")
     LAUNCHES["expire"] += 1
 
@@ -1156,13 +1140,14 @@ def launch_vivaldi_ring(*, coords, height, error, window, rtt_ms, acked,
                         normal_span: float, ce: float, cc: float,
                         error_max: float, height_min: float, inv_rho: float,
                         mean_factor: float, coords_out, height_out,
-                        error_out, window_out, adjustment_out) -> None:
+                        error_out, adjustment) -> None:
     """K13: one observe_ring of the pool against the ring peers (i +
     shift) % N, `shift` one int32 read on the device, rtt_ms [N] float32
     milliseconds, acked [N] bool; the colocated rows' spring directions
     are normal draws of `key` (two uint32 words), scaled from (lo, span);
     gravity multiplies |c| by inv_rho, the mean the window sum by
-    mean_factor.  Writes every *_out whole."""
+    mean_factor.  Writes coords_out, height_out, error_out and adjustment
+    [N] whole and the window's column `col` in place on acked rows."""
     dev = coords.device if coords is not None else None
     if coords is None or coords.dim() != 2 or window is None \
             or window.dim() != 2:
@@ -1179,14 +1164,13 @@ def launch_vivaldi_ring(*, coords, height, error, window, rtt_ms, acked,
         raise ValueError(f"vivaldi_ring: column {col} outside [0, {w})")
     for t, what, shape in ((coords, "coords", (n, d)),
                            (coords_out, "coords_out", (n, d)),
-                           (window, "window", (n, w)),
-                           (window_out, "window_out", (n, w))):
+                           (window, "window", (n, w))):
         _require(t, "vivaldi_ring " + what, _F, dev, shape)
     _node_vectors("vivaldi_ring", dev, n, (height, "height", _F),
                   (error, "error", _F), (rtt_ms, "rtt_ms", _F),
                   (acked, "acked", _BOOL), (height_out, "height_out", _F),
                   (error_out, "error_out", _F),
-                  (adjustment_out, "adjustment_out", _F))
+                  (adjustment, "adjustment", _F))
     _shift("vivaldi_ring", shift, dev)
     k0, k1 = (int(x) & 0xFFFFFFFF for x in key)
     rc = library().vivaldi_ring(
@@ -1195,7 +1179,7 @@ def launch_vivaldi_ring(*, coords, height, error, window, rtt_ms, acked,
         shift.data_ptr(), n, d, w, col, k0, k1, normal_lo, normal_span, ce,
         cc, error_max, height_min, inv_rho, mean_factor,
         coords_out.data_ptr(), height_out.data_ptr(), error_out.data_ptr(),
-        window_out.data_ptr(), adjustment_out.data_ptr(), _stream(dev))
+        adjustment.data_ptr(), _stream(dev))
     _check(rc, "vivaldi_ring")
     LAUNCHES["vivaldi_ring"] += 1
 

@@ -31,18 +31,19 @@ using u64 = unsigned long long;
 // --- grids -----------------------------------------------------------------
 
 // Blocks of `threads` for a persistent grid of `kernel` over n rows: all
-// the blocks the SMs hold at once, no more than the rows need and no more
-// than `cap` (the per-block slots of the counter scratch).  The SM count
-// and the kernel's blocks per SM are asked once and kept in `per_card`
-// (the process drives one card).
+// the blocks the SMs hold at once (with `smem` bytes of dynamic shared
+// memory each), no more than the rows need and no more than `cap` (the
+// per-block slots of the counter scratch).  The SM count and the kernel's
+// blocks per SM are asked once and kept in `per_card` (the process drives
+// one card).
 template <typename F>
 inline int persistent_blocks(F kernel, int threads, int64_t n, int cap,
-                             int& per_card) {
+                             int& per_card, size_t smem = 0) {
   if (per_card == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     per_card = sms * (per_sm > 0 ? per_sm : 1);
   }
   int64_t blocks = per_card;
@@ -311,24 +312,6 @@ __device__ __forceinline__ void warp_column_counts(uint64_t m, int S,
   if (S > 32) cnt[1] += __popc(warp_transpose(static_cast<uint32_t>(m >> 32)));
 }
 
-// Bytes [0, bytes) of src copied into dst by the 32 lanes of a warp:
-// 16-byte vectors where both are aligned, bytes for the rest.  (K12's
-// fresh-output row copies: a warp's 32 contiguous rows at a time.)
-__device__ __forceinline__ void warp_copy(void* dst, const void* src,
-                                          int64_t bytes, int lane) {
-  uint8_t* d = static_cast<uint8_t*>(dst);
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  int64_t done = 0;
-  if (aligned16(d) && aligned16(s)) {
-    const int64_t vecs = bytes >> 4;
-    for (int64_t v = lane; v < vecs; v += 32) {
-      reinterpret_cast<uint4*>(d)[v] = __ldcs(reinterpret_cast<const uint4*>(s) + v);
-    }
-    done = vecs << 4;
-  }
-  for (int64_t x = done + lane; x < bytes; x += 32) d[x] = s[x];
-}
-
 // The [S] bool vector v as a slot mask, read by one full warp: lane = slot,
 // two ballots for S <= 64.  Every lane gets the mask.
 __device__ __forceinline__ uint64_t warp_slot_mask(const uint8_t* v, int S) {
@@ -393,35 +376,6 @@ __device__ __forceinline__ uint32_t byte_masks(uint32_t bits4) {
   return ((bits4 * 0x00204081u) & 0x01010101u) * 0xffu;
 }
 
-// Whole [rows, U] byte rows, from a row boundary, copied by the 32 lanes
-// of a warp with the slots outside `keep` zeroed (know & keep, and
-// _release's budget clears): 16-byte vectors where both are aligned and
-// a vector stays inside a row, bytes for the rest.  keep = every slot is
-// a plain copy.
-__device__ __forceinline__ void warp_copy_rows(void* dst, const void* src,
-                                               int64_t bytes, int U,
-                                               uint64_t keep, int lane) {
-  uint8_t* d = static_cast<uint8_t*>(dst);
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  int64_t done = 0;
-  if (aligned16(d) && aligned16(s) && U % 16 == 0) {
-    const int64_t vecs = bytes >> 4;
-    for (int64_t v = lane; v < vecs; v += 32) {
-      uint4 w = __ldcs(reinterpret_cast<const uint4*>(s) + v);
-      const uint32_t k16 = static_cast<uint32_t>(keep >> ((v << 4) % U)) & 0xffffu;
-      w.x &= byte_masks(k16 & 0xfu);
-      w.y &= byte_masks((k16 >> 4) & 0xfu);
-      w.z &= byte_masks((k16 >> 8) & 0xfu);
-      w.w &= byte_masks(k16 >> 12);
-      reinterpret_cast<uint4*>(d)[v] = w;
-    }
-    done = vecs << 4;
-  }
-  for (int64_t x = done + lane; x < bytes; x += 32) {
-    d[x] = ((keep >> (x % U)) & 1ull) ? s[x] : 0;
-  }
-}
-
 // The lanes of a 32-bit word of E-byte elements (E = 1 or 2) that the low
 // 4 / E bits of `bits` select, as a byte mask.
 template <int E>
@@ -436,8 +390,8 @@ __device__ __forceinline__ uint32_t lane_mask(uint32_t bits) {
 // vectors, it goes four vectors (64 bytes) at a time: every vector of the
 // four that the slots touch is loaded before any is stored, and a vector
 // is written back only when one of its bytes changes; element by element
-// otherwise, each written only where it changes.  (K10's apply and K11's
-// stamps of the converted columns.)
+// otherwise, each written only where it changes.  (K10's apply, K11's
+// stamps of the converted columns, K12's refuted and freed columns.)
 template <typename T>
 __device__ __forceinline__ void row_write(T* r, int U, uint64_t sel, uint64_t hi, T v) {
   constexpr int E = sizeof(T);

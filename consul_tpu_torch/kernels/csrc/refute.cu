@@ -10,83 +10,121 @@
 // reduction, the [U] done and commit masks, three [U] -> [N] scatters into
 // the committed leaves and two [N, U] column clears.
 //
-// refutation, one launch: each block computes need[u] = an active suspect
-// or dead slot whose subject knows it, is up and a member, and whose
-// r_inc >= the subject's incarnation (<= 64 gathers, redundantly per
-// block).  Thread i writes its fresh incarnation (the max of r_inc + 1 over
-// the needing slots whose subject is i) and Lifeguard score (plus their
-// count, cast to int8, clamped to [0, awareness_max - 1]); each warp
-// copies its 32 rows of know / learn_tick / sends_left and every thread
-// rewrites its row's needing columns: one-hot at the subject, t16(tick)
-// and the budget there, 0 elsewhere.  Block 0 writes the [U] table: ALIVE,
-// r_inc = the subject's new incarnation, r_start = tick.  Two needing
-// slots of one subject both refute: the score rises by two and both take
-// the larger incarnation, as the scatter-add and scatter-max give.
+// In place: refutation updates the state's incarnation, awareness, know,
+// learn_tick, sends_left, r_kind, r_inc and r_start; expire its know,
+// sends_left, committed_dead / left / inc, r_active and r_coverage.  Each
+// writes a value only where it changes (a row's 16-byte vectors only when
+// one of their bytes changes, common.cuh:row_write), and neither copies a
+// row.
 //
-// expire, two launches behind one entry point:
-//   1. count, a persistent grid over N: live rows and, per slot, the live
-//      rows that know it (common.cuh:warp_column_counts); the last block
-//      to finish computes coverage = count / max(n_live, 1) (IEEE
-//      division: the 0.995 and 0.5 bars), life (the suspect or the gossip
-//      window by kind), age = tick - r_start, done = active & age >= life &
-//      (coverage >= 0.995 | age >= 4 life), _release's commit masks
-//      (common.cuh:release_commits), r_active and r_coverage, and the keep
-//      and commit words of launch 2;
-//   2. apply, a persistent grid over N: the warp's rows of know and
-//      sends_left copied with the done columns cleared
-//      (common.cuh:warp_copy_rows) and committed dead / left / inc read as
-//      per-node lookups of the committing slots (common.cuh:release_node).
-//      learn_tick is not an output: expire leaves it as it was.
+// refutation, one launch over a persistent grid:
+//   1. every block computes need[u] = an active suspect or dead slot whose
+//      subject knows it, is up and a member, and whose r_inc >= the
+//      subject's incarnation (<= 64 gathers, a lane a slot, redundantly
+//      per block), then counts itself done deciding (one atomic);
+//   2. the Lifeguard score of every node (when awareness_max > 0): int8(a
+//      + the needing slots whose subject is the node), clamped to [0,
+//      awareness_max - 1], 16 nodes a thread (__vadd4 wraps a byte as the
+//      int8 cast does, __vmaxs4 / __vmins4 clamp), a vector written only
+//      when it changes.  _refutation clamps every node, not only the
+//      subjects, so this pass runs on every call (1 MB at N = 1M);
+//   3. only when some slot needs: thread i rewrites the needing columns of
+//      row i: know = one-hot at the subject, sends_left = the budget there
+//      and 0 elsewhere, learn_tick = t16(tick) at the subject;
+//   4. the last block to count itself done writes the [U] table (ALIVE,
+//      r_inc = the subject's new incarnation, r_start = tick) and the
+//      subjects' incarnations: the max of r_inc + 1 over the needing slots
+//      whose subject is the node, and node 0's max with -1 when a slot does
+//      not need (the masked scatter-max sends -1 into index 0), written
+//      only where it changes.  It resets the count.  Two needing slots of
+//      one subject both refute: the score rises by two and both take the
+//      larger incarnation, as the scatter-add and scatter-max give.
+// Why the writes in place are race-free: the decision reads r_active,
+// r_kind, r_inc, r_subject, the subjects' incarnation, up and member and
+// know[subject, u].  The table and the incarnations are written in step 4
+// alone, by the last block, after every block has counted itself done,
+// and so after every block's decision read them.  Steps 2 and 3 run
+// while other blocks still decide, and neither touches a cell the
+// decision reads: the score is not read, and a needing column's rewrite
+// leaves know[subject, u] set (the subject's own cell is the one-hot 1),
+// the only cell of those columns that the test reads; the columns of the
+// slots that do not need are not written.  Thread i writes only row i.
+//
+// expire, one cooperative launch (cudaLaunchCooperativeKernel on the
+// co-resident grid of common.cuh:persistent_blocks):
+//   1. every block reads the [U] table into shared memory, then counts,
+//      over a grid-stride walk of N, the live rows and, per slot, the live
+//      rows that know it (common.cuh:warp_column_counts) into the scratch;
+//      one grid barrier;
+//   2. every block computes, from the grid totals and its own copy of the
+//      table, coverage = count / max(n_live, 1) (IEEE division: the 0.995
+//      and 0.5 bars), life (the suspect or the gossip window by kind), age
+//      = tick - r_start, done = active & age >= life & (coverage >= 0.995
+//      | age >= 4 life) and _release's commit masks
+//      (common.cuh:release_commits).  Block 0 writes r_active and
+//      r_coverage and the committed leaves at the committing slots'
+//      subjects (or for dead / left, max for inc) and node 0's rule
+//      (common.cuh:release_node), reading every node it writes before it
+//      writes any.  The last block to read the totals resets the scratch;
+//   3. only when some slot is done: thread i clears the done columns of
+//      row i of know and sends_left.  learn_tick is not an output: expire
+//      leaves it as it was.
+// Why the writes in place are race-free: the table is read before the
+// grid barrier and written after it, by block 0 alone; every block
+// decides from its own shared copy and the totals, which nothing writes
+// after the barrier until their last reader resets them.  The count reads
+// know before the barrier and the clears write it after.  The committed
+// leaves are read nowhere else in the launch.
 //
 // Bound on an H100: memory.  refutation needs the [U] table, a 32-byte
 // sector of know, up, member, incarnation and the score at each refutable
-// slot's subject, and, writing in place, the sectors that change: the
-// subjects' incarnations and scores and the needing columns' cells (a few
-// KB with no refutation; the columns' know sectors, up to U bytes a row,
-// when one refutes).  expire must read know and up/member (U + 2 bytes a
-// row, ~34 MB at N = 1M, U = 32, ~0.010 ms at 3.35 TB/s), the committed
-// leaves at the freed slots' subjects, and write in place the sectors of
-// the done columns and committed leaves that change.  The fresh-output row
-// copies (refutation 4U bytes read and written a row, 128 MB each way;
-// expire 2U and the committed leaves, 70 MB each way) are the price of
-// never writing a tensor it was given.
+// slot's subject, the score of every node (N bytes, when awareness_max >
+// 0) and, in place, the 32-byte sectors that change: the subjects'
+// incarnations and scores and, when a slot refutes, the needing columns'
+// cells of know and sends_left that change and the subjects' learn ticks.
+// At the main path's mid-convergence state no slot refutes: ~1 MB,
+// ~0.0003 ms at 3.35 TB/s, so its time is a launch and the prelude's
+// dependent gathers.  expire must read know and up/member (U + 2 bytes a
+// row, ~34 MB at N = 1M, U = 32, ~0.010 ms), gather the committed leaves
+// at the freed slots' subjects and write in place the sectors of the done
+// columns and committed leaves that change.  chip_smoke.py:_detector_bytes
+// counts both from the run's data.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 using namespace consul_kernels;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kAlive = 0, kSuspect = 1, kDead = 2;
-// expire's scratch layout, in u64 words
-constexpr int kDone = 0, kLive = 1, kCols = 2;  // 64 per-slot counts
-constexpr int kKeep = 66, kCommitDead = 67, kCommitLeft = 68, kCommitAlive = 69;
+// refutation's scratch: the blocks done deciding
+constexpr int kDecided = 0;
+// expire's scratch layout, in u64 words: live rows, 64 per-slot counts,
+// the blocks that read them
+constexpr int kLive = 0, kCols = 1, kRead = 65;
 
 struct RefuteArgs {
-  const int32_t* incarnation;
-  const int8_t* awareness;
+  // the state's leaves (incarnation, awareness, know, learn_tick,
+  // sends_left, r_kind, r_inc and r_start updated in place)
+  int32_t* incarnation;
+  int8_t* awareness;  // null when awareness_max == 0
   const uint8_t* up;
   const uint8_t* member;
-  const uint8_t* know;
-  const int16_t* learn_tick;
-  const int8_t* sends_left;
+  uint8_t* know;
+  int16_t* learn_tick;
+  int8_t* sends_left;
   const uint8_t* r_active;
-  const int8_t* r_kind;
+  int8_t* r_kind;
   const int32_t* r_subject;
-  const int32_t* r_inc;
-  const int32_t* r_start;
+  int32_t* r_inc;
+  int32_t* r_start;
   int64_t N;
   int U, amax, tick, tick16, limit;
-  int32_t* incarnation_out;
-  int8_t* awareness_out;  // null when awareness_max == 0
-  uint8_t* know_out;
-  int16_t* learn_out;
-  int8_t* sends_out;
-  int8_t* r_kind_out;
-  int32_t* r_inc_out;
-  int32_t* r_start_out;
+  u64* scratch;
 };
 
 // node i's incarnation after the refutations: the scatter-max of r_inc + 1
@@ -103,16 +141,31 @@ __device__ __forceinline__ int32_t refuted_inc(int64_t i, int32_t inc, u64 need,
   return inc;
 }
 
+// The scores of nodes v0 .. v0 + 3 (a 32-bit word of awareness): each
+// byte plus the needing slots whose subject it is, wrapped to int8, then
+// clamped to [0, hi].
+__device__ __forceinline__ uint32_t score_word(uint32_t w, int64_t v0, u64 need,
+                                               const int32_t* subj, uint32_t hi4) {
+  uint32_t add = 0;
+  for (u64 m = need; m; m &= m - 1) {
+    const int64_t off = subj[__ffsll(m) - 1] - v0;
+    if (off >= 0 && off < 4) add += 1u << (8 * off);
+  }
+  return __vmins4(__vmaxs4(__vadd4(w, add), 0u), hi4);
+}
+
 __global__ void __launch_bounds__(kThreads)
 refutation_kernel(const __grid_constant__ RefuteArgs a) {
   __shared__ int32_t s_subj[64], s_inc[64];
   __shared__ unsigned s_words[2];
+  __shared__ bool last;
   const int U = a.U;
   const int64_t N = a.N;
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
     s_subj[u] = a.r_subject[u];
     s_inc[u] = a.r_inc[u];
   }
+  // 1. the decision, from the old table
   if (threadIdx.x < 64) {  // warps 0 and 1, whole: a lane a slot
     const int u = threadIdx.x;
     bool need = false;
@@ -125,99 +178,130 @@ refutation_kernel(const __grid_constant__ RefuteArgs a) {
     if ((u & 31) == 0) s_words[u >> 5] = w;
   }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's reads of the table come before its count
+    last = atomicAdd(&a.scratch[kDecided], 1ull) == static_cast<u64>(gridDim.x) - 1;
+  }
   const u64 need = static_cast<u64>(s_words[0]) | (static_cast<u64>(s_words[1]) << 32);
   const bool masked = need != all_slots(U);
-  if (blockIdx.x == 0) {
-    for (int u = threadIdx.x; u < U; u += blockDim.x) {
-      const bool n = (need >> u) & 1ull;
-      int32_t inc = a.r_inc[u];
-      if (n) {
-        const int32_t subj = s_subj[u];
-        inc = refuted_inc(subj, a.incarnation[subj], need, masked, s_subj, s_inc);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+
+  // 2. every node's score
+  if (a.amax > 0) {
+    const uint32_t hi4 = static_cast<uint32_t>(a.amax - 1) * 0x01010101u;
+    int64_t done = 0;
+    if (aligned16(a.awareness)) {
+      uint4* vec = reinterpret_cast<uint4*>(a.awareness);
+      const int64_t vecs = N >> 4;
+      for (int64_t v = tid; v < vecs; v += stride) {
+        const uint4 w = vec[v];
+        const int64_t v0 = v << 4;
+        const uint4 n = make_uint4(score_word(w.x, v0, need, s_subj, hi4),
+                                   score_word(w.y, v0 + 4, need, s_subj, hi4),
+                                   score_word(w.z, v0 + 8, need, s_subj, hi4),
+                                   score_word(w.w, v0 + 12, need, s_subj, hi4));
+        if (n.x != w.x || n.y != w.y || n.z != w.z || n.w != w.w) vec[v] = n;
       }
-      a.r_kind_out[u] = n ? static_cast<int8_t>(kAlive) : a.r_kind[u];
-      a.r_inc_out[u] = inc;
-      a.r_start_out[u] = n ? a.tick : a.r_start[u];
+      done = vecs << 4;
+    }
+    for (int64_t i = done + tid; i < N; i += stride) {
+      const uint32_t w = static_cast<uint8_t>(a.awareness[i]);
+      const uint32_t n = score_word(w, i, need, s_subj, hi4) & 0xffu;
+      if (n != w) a.awareness[i] = static_cast<int8_t>(n);
     }
   }
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  const int64_t gwarp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t rb = U;
-  for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32) {
-    const int64_t i = i0 + lane;
-    if (i < N) {
-      a.incarnation_out[i] = refuted_inc(i, a.incarnation[i], need, masked, s_subj, s_inc);
-      if (a.amax > 0) {
-        int bumped = a.awareness[i];
-        for (u64 m = need; m; m &= m - 1) bumped += s_subj[__ffsll(m) - 1] == i;
-        int c = static_cast<int8_t>(bumped);
-        c = c < 0 ? 0 : (c > a.amax - 1 ? a.amax - 1 : c);
-        a.awareness_out[i] = static_cast<int8_t>(c);
-      }
-    }
-    const int64_t rows = N - i0 < 32 ? N - i0 : 32;
-    warp_copy(a.know_out + i0 * rb, a.know + i0 * rb, rows * rb, lane);
-    warp_copy(a.learn_out + i0 * rb, a.learn_tick + i0 * rb, rows * 2 * rb, lane);
-    warp_copy(a.sends_out + i0 * rb, a.sends_left + i0 * rb, rows * rb, lane);
-    __syncwarp();
-    if (need && i < N) {
+
+  // 3. the needing columns of row i
+  if (need) {
+    for (int64_t i = tid; i < N; i += stride) {
+      u64 at = 0;
       for (u64 m = need; m; m &= m - 1) {
         const int u = __ffsll(m) - 1;
-        const bool at = s_subj[u] == i;
-        a.know_out[i * rb + u] = at;
-        a.sends_out[i * rb + u] = at ? static_cast<int8_t>(a.limit) : 0;
-        if (at) a.learn_out[i * rb + u] = static_cast<int16_t>(a.tick16);
+        if (s_subj[u] == i) at |= 1ull << u;
       }
+      row_write<uint8_t>(a.know + i * U, U, need, at, 1);
+      row_write<int8_t>(a.sends_left + i * U, U, need, at, static_cast<int8_t>(a.limit));
+      row_write<int16_t>(a.learn_tick + i * U, U, at, at, static_cast<int16_t>(a.tick16));
     }
-    __syncwarp();
   }
+
+  // 4. the last block: every block has decided
+  __syncthreads();
+  if (!last) return;  // block-uniform
+  __threadfence();
+  int32_t old = 0, inc = 0;
+  int64_t node = -1;
+  const int t = threadIdx.x;
+  if (t < U && ((need >> t) & 1ull)) node = s_subj[t];  // a lane a needing slot
+  else if (t == 64 && masked) node = 0;                 // node 0's masked rule
+  if (node >= 0) {
+    old = a.incarnation[node];
+    inc = refuted_inc(node, old, need, masked, s_subj, s_inc);
+  }
+  __syncthreads();  // every old incarnation read before any is written
+  if (node >= 0 && inc != old) a.incarnation[node] = inc;
+  if (t < U && ((need >> t) & 1ull)) {
+    a.r_kind[t] = static_cast<int8_t>(kAlive);
+    a.r_inc[t] = inc;
+    a.r_start[t] = a.tick;
+  }
+  if (threadIdx.x == 0) a.scratch[kDecided] = 0;  // ready for the next launch
 }
 
 struct ExpireArgs {
-  const uint8_t* know;
-  const int8_t* sends_left;
+  // the state's leaves (know, sends_left, the committed leaves, r_active
+  // and r_coverage updated in place)
+  uint8_t* know;
+  int8_t* sends_left;
   const uint8_t* up;
   const uint8_t* member;
-  const uint8_t* committed_dead;
-  const uint8_t* committed_left;
-  const int32_t* committed_inc;
-  const uint8_t* r_active;
+  uint8_t* committed_dead;
+  uint8_t* committed_left;
+  int32_t* committed_inc;
+  uint8_t* r_active;
   const int8_t* r_kind;
   const int32_t* r_subject;
   const int32_t* r_inc;
   const int32_t* r_start;
+  float* r_coverage;
   int64_t N;
   int U, tick, life_gossip, life_suspect;
   u64* scratch;
-  uint8_t* know_out;
-  int8_t* sends_out;
-  uint8_t* committed_dead_out;
-  uint8_t* committed_left_out;
-  int32_t* committed_inc_out;
-  uint8_t* r_active_out;
-  float* r_coverage_out;
 };
 
 __global__ void __launch_bounds__(kThreads)
-expire_count_kernel(const __grid_constant__ ExpireArgs a) {
+expire_kernel(const __grid_constant__ ExpireArgs a) {
+  __shared__ int32_t s_subj[64], s_inc[64], s_start[64];
+  __shared__ int8_t s_kind[64];
+  __shared__ bool s_active[64];
   __shared__ uint32_t s_col[64];
   __shared__ u64 red[1][32];
-  __shared__ bool last;
-  __shared__ uint32_t s_masks[2][5];  // per half: done, dead, left, alive, keep
+  __shared__ uint32_t s_masks[2][4];  // per half: done, dead, left, alive
+  cg::grid_group grid = cg::this_grid();
   u64* sc = a.scratch;
   const int U = a.U;
+  const int64_t N = a.N;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // 1. the table, then the count
+  for (int u = threadIdx.x; u < U; u += blockDim.x) {
+    s_subj[u] = a.r_subject[u];
+    s_inc[u] = a.r_inc[u];
+    s_start[u] = a.r_start[u];
+    s_kind[u] = a.r_kind[u];
+    s_active[u] = a.r_active[u];
+  }
   if (threadIdx.x < 64) s_col[threadIdx.x] = 0;
   __syncthreads();
   u64 live[1] = {0};
   uint32_t cnt[2] = {0, 0};
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int64_t i0 = tid - lane; i0 < a.N; i0 += stride) {
+  for (int64_t i0 = tid - lane; i0 < N; i0 += stride) {
     const int64_t i = i0 + lane;
     uint64_t m = 0;
-    if (i < a.N && a.up[i] && a.member[i]) {
+    if (i < N && a.up[i] && a.member[i]) {
       live[0] += 1;
       m = row_mask(a.know + i * U, U);
     }
@@ -231,184 +315,155 @@ expire_count_kernel(const __grid_constant__ ExpireArgs a) {
     atomicAdd(&sc[kCols + threadIdx.x], static_cast<u64>(s_col[threadIdx.x]));
   }
   __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&sc[kDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  grid.sync();
 
-  // per slot (warps 0 and 1): coverage, done, the commit masks
+  // 2. per slot (warps 0 and 1): coverage, done, the commit masks
   if (warp < 2) {
     const int u = threadIdx.x;
-    bool done = false, keep = false;
+    bool done = false;
     Commits c = {false, false, false};
     if (u < U) {
-      const bool active = a.r_active[u];
-      const int kind = a.r_kind[u];
+      const bool active = s_active[u];
+      const int kind = s_kind[u];
       const float cov = live_coverage(__ldcg(&sc[kCols + u]), __ldcg(&sc[kLive]));
       const int32_t life = kind == kSuspect ? a.life_suspect : a.life_gossip;
-      const int32_t age = wrap_sub(a.tick, a.r_start[u]);
+      const int32_t age = wrap_sub(a.tick, s_start[u]);
       done = active && age >= life && (cov >= 0.995f || age >= wrap_mul(4, life));
       c = release_commits(done, cov, kind);
-      keep = !done;
-      a.r_active_out[u] = active && !done;
-      a.r_coverage_out[u] = done ? 0.0f : cov;
-      sc[kCols + u] = 0;
+      if (blockIdx.x == 0) {
+        if (done) a.r_active[u] = 0;
+        a.r_coverage[u] = done ? 0.0f : cov;
+      }
     }
     const uint32_t m_done = __ballot_sync(0xffffffffu, done);
     const uint32_t m_dead = __ballot_sync(0xffffffffu, c.dead);
     const uint32_t m_left = __ballot_sync(0xffffffffu, c.left);
     const uint32_t m_alive = __ballot_sync(0xffffffffu, c.alive);
-    const uint32_t m_keep = __ballot_sync(0xffffffffu, keep);
     if (lane == 0) {
       s_masks[warp][0] = m_done;
       s_masks[warp][1] = m_dead;
       s_masks[warp][2] = m_left;
       s_masks[warp][3] = m_alive;
-      s_masks[warp][4] = m_keep;
     }
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    auto mask = [&](int w) -> u64 {
-      return static_cast<u64>(s_masks[0][w]) | (static_cast<u64>(s_masks[1][w]) << 32);
-    };
-    sc[kKeep] = mask(4);
-    sc[kCommitDead] = mask(1);
-    sc[kCommitLeft] = mask(2);
-    sc[kCommitAlive] = mask(3);
-    sc[kLive] = 0;
-    sc[kDone] = 0;  // ready for the next launch
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-expire_apply_kernel(const __grid_constant__ ExpireArgs a) {
-  __shared__ int32_t s_subj[64], s_inc[64];
-  const u64* sc = a.scratch;
-  const int U = a.U;
-  const int64_t N = a.N;
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    s_subj[u] = a.r_subject[u];
-    s_inc[u] = a.r_inc[u];
-  }
-  __syncthreads();
-  const uint64_t slots = all_slots(U);
-  const uint64_t keep = sc[kKeep] & slots;
-  const uint64_t c_dead = sc[kCommitDead], c_left = sc[kCommitLeft],
-                 c_alive = sc[kCommitAlive];
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  const int64_t gwarp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t rb = U;
-  for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32) {
-    const int64_t i = i0 + lane;
-    if (i < N) {
-      bool cd = a.committed_dead[i], cl = a.committed_left[i];
-      int32_t ci = a.committed_inc[i];
-      release_node(i, c_dead, c_left, c_alive, slots, s_subj, s_inc, cd, cl, ci);
-      a.committed_dead_out[i] = cd;
-      a.committed_left_out[i] = cl;
-      a.committed_inc_out[i] = ci;
+    __threadfence();  // the totals read before the count that lets them be reset
+    if (atomicAdd(&sc[kRead], 1ull) == static_cast<u64>(gridDim.x) - 1) {
+      for (int k = 0; k < kRead; ++k) sc[k] = 0;
+      sc[kRead] = 0;  // ready for the next launch
     }
-    const int64_t rows = N - i0 < 32 ? N - i0 : 32;
-    warp_copy_rows(a.know_out + i0 * rb, a.know + i0 * rb, rows * rb, U, keep, lane);
-    warp_copy_rows(a.sends_out + i0 * rb, a.sends_left + i0 * rb, rows * rb, U, keep, lane);
+  }
+  auto mask = [&](int w) -> u64 {
+    return static_cast<u64>(s_masks[0][w]) | (static_cast<u64>(s_masks[1][w]) << 32);
+  };
+  const u64 slots = all_slots(U);
+  const u64 done = mask(0), c_dead = mask(1), c_left = mask(2), c_alive = mask(3);
+
+  // block 0: the committed leaves at the committing subjects and node 0
+  if (blockIdx.x == 0) {
+    int64_t node = -1;
+    bool cd = false, cl = false, cd0 = false, cl0 = false;
+    int32_t ci = 0, ci0 = 0;
+    const int t = threadIdx.x;
+    if (t < U && (((c_dead | c_left | c_alive) >> t) & 1ull)) node = s_subj[t];
+    else if (t == 64) node = 0;  // node 0's rule (a max with 0)
+    if (node >= N) node = -1;
+    if (node >= 0) {
+      cd0 = cd = a.committed_dead[node];
+      cl0 = cl = a.committed_left[node];
+      ci0 = ci = a.committed_inc[node];
+      release_node(node, c_dead, c_left, c_alive, slots, s_subj, s_inc, cd, cl, ci);
+    }
+    __syncthreads();  // every node read before any is written
+    if (node >= 0) {
+      if (cd != cd0) a.committed_dead[node] = cd;
+      if (cl != cl0) a.committed_left[node] = cl;
+      if (ci != ci0) a.committed_inc[node] = ci;
+    }
+  }
+  if (!done) return;  // grid-uniform
+
+  // 3. the done columns of row i cleared
+  for (int64_t i = tid; i < N; i += stride) {
+    row_write<uint8_t>(a.know + i * U, U, done, 0, 0);
+    row_write<int8_t>(a.sends_left + i * U, U, done, 0, 0);
   }
 }
 
 }  // namespace
 
-extern "C" int refutation(const void* incarnation, const void* awareness, const void* up,
-                          const void* member, const void* know, const void* learn_tick,
-                          const void* sends_left, const void* r_active, const void* r_kind,
-                          const void* r_subject, const void* r_inc, const void* r_start,
+// scratch: 1 u64, zeroed once (the last block resets it).
+extern "C" int refutation(void* incarnation, void* awareness, const void* up, const void* member,
+                          void* know, void* learn_tick, void* sends_left, const void* r_active,
+                          void* r_kind, const void* r_subject, void* r_inc, void* r_start,
                           int64_t N, int U, int amax, int tick, int tick16, int limit,
-                          void* incarnation_out, void* awareness_out, void* know_out,
-                          void* learn_out, void* sends_out, void* r_kind_out,
-                          void* r_inc_out, void* r_start_out, void* stream) {
+                          void* scratch, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || amax < 0 || amax > 127 ||
-      (amax > 0 && (!awareness || !awareness_out))) {
+      (amax > 0 && !awareness)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RefuteArgs a;
-  a.incarnation = static_cast<const int32_t*>(incarnation);
-  a.awareness = static_cast<const int8_t*>(awareness);
+  a.incarnation = static_cast<int32_t*>(incarnation);
+  a.awareness = static_cast<int8_t*>(awareness);
   a.up = static_cast<const uint8_t*>(up);
   a.member = static_cast<const uint8_t*>(member);
-  a.know = static_cast<const uint8_t*>(know);
-  a.learn_tick = static_cast<const int16_t*>(learn_tick);
-  a.sends_left = static_cast<const int8_t*>(sends_left);
+  a.know = static_cast<uint8_t*>(know);
+  a.learn_tick = static_cast<int16_t*>(learn_tick);
+  a.sends_left = static_cast<int8_t*>(sends_left);
   a.r_active = static_cast<const uint8_t*>(r_active);
-  a.r_kind = static_cast<const int8_t*>(r_kind);
+  a.r_kind = static_cast<int8_t*>(r_kind);
   a.r_subject = static_cast<const int32_t*>(r_subject);
-  a.r_inc = static_cast<const int32_t*>(r_inc);
-  a.r_start = static_cast<const int32_t*>(r_start);
+  a.r_inc = static_cast<int32_t*>(r_inc);
+  a.r_start = static_cast<int32_t*>(r_start);
   a.N = N;
   a.U = U;
   a.amax = amax;
   a.tick = tick;
   a.tick16 = tick16;
   a.limit = limit;
-  a.incarnation_out = static_cast<int32_t*>(incarnation_out);
-  a.awareness_out = static_cast<int8_t*>(awareness_out);
-  a.know_out = static_cast<uint8_t*>(know_out);
-  a.learn_out = static_cast<int16_t*>(learn_out);
-  a.sends_out = static_cast<int8_t*>(sends_out);
-  a.r_kind_out = static_cast<int8_t*>(r_kind_out);
-  a.r_inc_out = static_cast<int32_t*>(r_inc_out);
-  a.r_start_out = static_cast<int32_t*>(r_start_out);
+  a.scratch = static_cast<u64*>(scratch);
   static int per_card = 0;
   const int blocks = persistent_blocks(refutation_kernel, kThreads, N, 1 << 20, per_card);
   refutation_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: kCommitAlive + 1 u64, zeroed once (the count's last block resets
-// what it consumed).
-extern "C" int expire(const void* know, const void* sends_left, const void* up,
-                      const void* member, const void* committed_dead,
-                      const void* committed_left, const void* committed_inc,
-                      const void* r_active, const void* r_kind, const void* r_subject,
-                      const void* r_inc, const void* r_start, int64_t N, int U, int tick,
-                      int life_gossip, int life_suspect, void* scratch, void* know_out,
-                      void* sends_out, void* committed_dead_out, void* committed_left_out,
-                      void* committed_inc_out, void* r_active_out, void* r_coverage_out,
+// scratch: kRead + 1 u64, zeroed once (the totals' last reader resets
+// them).
+extern "C" int expire(void* know, void* sends_left, const void* up, const void* member,
+                      void* committed_dead, void* committed_left, void* committed_inc,
+                      void* r_active, const void* r_kind, const void* r_subject,
+                      const void* r_inc, const void* r_start, void* r_coverage, int64_t N,
+                      int U, int tick, int life_gossip, int life_suspect, void* scratch,
                       void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ExpireArgs a;
-  a.know = static_cast<const uint8_t*>(know);
-  a.sends_left = static_cast<const int8_t*>(sends_left);
+  a.know = static_cast<uint8_t*>(know);
+  a.sends_left = static_cast<int8_t*>(sends_left);
   a.up = static_cast<const uint8_t*>(up);
   a.member = static_cast<const uint8_t*>(member);
-  a.committed_dead = static_cast<const uint8_t*>(committed_dead);
-  a.committed_left = static_cast<const uint8_t*>(committed_left);
-  a.committed_inc = static_cast<const int32_t*>(committed_inc);
-  a.r_active = static_cast<const uint8_t*>(r_active);
+  a.committed_dead = static_cast<uint8_t*>(committed_dead);
+  a.committed_left = static_cast<uint8_t*>(committed_left);
+  a.committed_inc = static_cast<int32_t*>(committed_inc);
+  a.r_active = static_cast<uint8_t*>(r_active);
   a.r_kind = static_cast<const int8_t*>(r_kind);
   a.r_subject = static_cast<const int32_t*>(r_subject);
   a.r_inc = static_cast<const int32_t*>(r_inc);
   a.r_start = static_cast<const int32_t*>(r_start);
+  a.r_coverage = static_cast<float*>(r_coverage);
   a.N = N;
   a.U = U;
   a.tick = tick;
   a.life_gossip = life_gossip;
   a.life_suspect = life_suspect;
   a.scratch = static_cast<u64*>(scratch);
-  a.know_out = static_cast<uint8_t*>(know_out);
-  a.sends_out = static_cast<int8_t*>(sends_out);
-  a.committed_dead_out = static_cast<uint8_t*>(committed_dead_out);
-  a.committed_left_out = static_cast<uint8_t*>(committed_left_out);
-  a.committed_inc_out = static_cast<int32_t*>(committed_inc_out);
-  a.r_active_out = static_cast<uint8_t*>(r_active_out);
-  a.r_coverage_out = static_cast<float*>(r_coverage_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static int per_card[2] = {0, 0};
-  const int b1 = persistent_blocks(expire_count_kernel, kThreads, N, 1 << 20, per_card[0]);
-  expire_count_kernel<<<b1, kThreads, 0, s>>>(a);
-  const int b2 = persistent_blocks(expire_apply_kernel, kThreads, N, 1 << 20, per_card[1]);
-  expire_apply_kernel<<<b2, kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  static int per_card = 0;
+  const int blocks = persistent_blocks(expire_kernel, kThreads, N, 1 << 20, per_card);
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(expire_kernel), dim3(blocks), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -200,7 +200,7 @@ class SwimState:
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(SwimState)
                       if f.name not in ("tick", "bulk_live"))
 
-# the leaves K7, K8, K10 and K11 update in place on the card (K7 writes
+# the leaves K7, K8, K10, K11 and K12 update in place on the card (K7 writes
 # awareness only with Lifeguard's awareness_max > 0; the dense expiry's K8
 # call writes ORIGINATE_INPLACE besides K11's own leaves)
 PROBE_INPLACE = ("know", "learn_tick", "sends_left", "awareness", "sus_start",
@@ -213,6 +213,11 @@ EXPIRY_INPLACE = ("know", "learn_tick", "sends_left", "r_kind", "r_start")
 DENSE_INPLACE = ("learn_tick", "sends_left", "r_kind", "r_start",
                  "bulk_member", "bulk_heard", "bulk_cov", "sus_start",
                  "sus_confirm")
+# K12's refutation (awareness only with awareness_max > 0) and expire
+REFUTE_INPLACE = ("incarnation", "awareness", "know", "learn_tick",
+                  "sends_left", "r_kind", "r_inc", "r_start")
+FREE_INPLACE = ("know", "sends_left", "committed_dead", "committed_left",
+                "committed_inc", "r_active", "r_coverage")
 
 
 def _writable(s: SwimState, fields, what: str) -> None:
@@ -1040,30 +1045,21 @@ def _refutation_plain(params: SwimParams, s: SwimState) -> SwimState:
 
 
 def _refutation(params: SwimParams, s: SwimState) -> SwimState:
-    """_refutation_plain's result; on CUDA tensors one K12 launch writes it
-    into fresh tensors."""
+    """_refutation_plain's result.  On CUDA tensors one K12 launch consumes
+    s: it updates REFUTE_INPLACE in place (awareness only with
+    awareness_max > 0), and the state returned holds s's tensors."""
     if not s.know.is_cuda:
         return _refutation_plain(params, s)
     amax = params.awareness_max
-    e = torch.empty_like
-    out = dict(incarnation_out=e(s.incarnation),
-               awareness_out=e(s.awareness) if amax > 0 else None,
-               know_out=e(s.know), learn_out=e(s.learn_tick),
-               sends_out=e(s.sends_left), r_kind_out=e(s.r_kind),
-               r_inc_out=e(s.r_inc), r_start_out=e(s.r_start))
+    _writable(s, REFUTE_INPLACE if amax > 0 else
+              tuple(f for f in REFUTE_INPLACE if f != "awareness"), "K12")
     kernels.launch_refutation(
         incarnation=s.incarnation, awareness=s.awareness, up=s.up,
         member=s.member, know=s.know, learn_tick=s.learn_tick,
         sends_left=s.sends_left, r_active=s.r_active, r_kind=s.r_kind,
         r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start,
         awareness_max=amax, tick=s.tick, tick16=_t16(s.tick),
-        limit=params.retransmit_limit, **out)
-    s = s.replace(incarnation=out["incarnation_out"], know=out["know_out"],
-                  learn_tick=out["learn_out"], sends_left=out["sends_out"],
-                  r_kind=out["r_kind_out"], r_inc=out["r_inc_out"],
-                  r_start=out["r_start_out"])
-    if amax > 0:
-        s = s.replace(awareness=out["awareness_out"])
+        limit=params.retransmit_limit)
     return s
 
 
@@ -1209,30 +1205,22 @@ def _expire_plain(params: SwimParams, s: SwimState) -> SwimState:
 
 
 def _expire(params: SwimParams, s: SwimState) -> SwimState:
-    """_expire_plain's result; on CUDA tensors K12's expire (a count, then
-    an apply) writes it into fresh tensors (learn_tick is left as it
-    is)."""
+    """_expire_plain's result.  On CUDA tensors one K12 expire launch (a
+    cooperative count, decision and apply) consumes s: it updates
+    FREE_INPLACE in place, and the state returned holds s's tensors
+    (learn_tick is left as it is)."""
     if not s.know.is_cuda:
         return _expire_plain(params, s)
-    e = torch.empty_like
-    out = dict(know_out=e(s.know), sends_out=e(s.sends_left),
-               committed_dead_out=e(s.committed_dead),
-               committed_left_out=e(s.committed_left),
-               committed_inc_out=e(s.committed_inc),
-               r_active_out=e(s.r_active), r_coverage_out=e(s.r_coverage))
+    _writable(s, FREE_INPLACE, "K12 expire")
     kernels.launch_expire(
         know=s.know, sends_left=s.sends_left, up=s.up, member=s.member,
         committed_dead=s.committed_dead, committed_left=s.committed_left,
         committed_inc=s.committed_inc, r_active=s.r_active, r_kind=s.r_kind,
-        r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start, tick=s.tick,
+        r_subject=s.r_subject, r_inc=s.r_inc, r_start=s.r_start,
+        r_coverage=s.r_coverage, tick=s.tick,
         life_gossip=params.expiry_gossip_ticks,
-        life_suspect=params.expiry_suspect_ticks, **out)
-    return s.replace(know=out["know_out"], sends_left=out["sends_out"],
-                     committed_dead=out["committed_dead_out"],
-                     committed_left=out["committed_left_out"],
-                     committed_inc=out["committed_inc_out"],
-                     r_active=out["r_active_out"],
-                     r_coverage=out["r_coverage_out"])
+        life_suspect=params.expiry_suspect_ticks)
+    return s
 
 
 def _release(s: SwimState, done: torch.Tensor,
@@ -1272,7 +1260,7 @@ def _bulk_flag(bulk_member: torch.Tensor) -> bool:
 def step_with_obs(params: SwimParams, s: SwimState):
     """Advance the whole cluster one gossip tick (swim.py:1320-1354).
     Returns (state, obs); obs is None on ticks without a probe round.
-    On the card a probe tick consumes s: K7, K8, K10 and K11 update its
+    On the card a probe tick consumes s: K7, K8 and K10-K12 update its
     tensors in place, so a caller that reads s again steps s.clone()."""
     obs = None
     if s.tick % params.probe_period_ticks == 0:

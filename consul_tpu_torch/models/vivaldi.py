@@ -9,8 +9,9 @@ The algorithm follows the Vivaldi paper (Dabek et al., SIGCOMM'04) with
 serf's height vector, adaptive error, gravity and latency-adjustment
 window.  Units: seconds.  On a CUDA device `observe_ring` is one launch
 of kernel K13 (kernels/csrc/vivaldi.cu), which draws the spring
-directions of colocated nodes itself; on the CPU it runs its plain twin
-`observe_ring_plain`.  `observe` and the standalone solver are gathers
+directions of colocated nodes itself and updates the window and the
+adjustment of the state it is given in place; on the CPU it runs its
+plain twin `observe_ring_plain`.  `observe` and the standalone solver are gathers
 and elementwise work in plain torch, their normal draws K1's.
 
 The floats here pass through norms and the normal draw's erf_inv, whose
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from consul_tpu_torch import kernels
+from consul_tpu_torch.models import swim
 from consul_tpu_torch.ops import rolls
 from consul_tpu_torch.utils import devices, prng
 
@@ -60,6 +62,18 @@ class VivaldiState:
 
     def replace(self, **kw) -> "VivaldiState":
         return dataclasses.replace(self, **kw)
+
+    def clone(self) -> "VivaldiState":
+        """A copy whose every tensor is its own: what a caller keeps of a
+        state it passes to observe_ring on the card, which consumes it."""
+        return self.replace(**{f: getattr(self, f).clone() for f in (
+            "coords", "height", "error", "adj_window", "adjustment")})
+
+
+# the leaves K13 updates in place on the card: the window's column and the
+# adjustment (coordinates, height and error are fresh: row i reads them at
+# its ring peer)
+RING_INPLACE = ("adj_window", "adjustment")
 
 
 def init_state(params: VivaldiParams, device=None) -> VivaldiState:
@@ -208,18 +222,20 @@ def _ring_key(params: VivaldiParams, s: VivaldiState):
 
 def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
                  rtt_ms: torch.Tensor, mask: torch.Tensor) -> VivaldiState:
-    """observe_ring_plain's result; on CUDA tensors K13 writes it into
-    fresh tensors in one launch (`shift` a 0-d int32 on the device), the
-    colocated rows' normal draws made inside it."""
+    """observe_ring_plain's result.  On CUDA tensors one K13 launch (`shift`
+    a 0-d int32 on the device, the colocated rows' normal draws made
+    inside it) consumes s: it writes the window's column and the
+    adjustment into s's own tensors (RING_INPLACE), and the coordinates,
+    height and error into fresh ones."""
     if not s.coords.is_cuda:
         return observe_ring_plain(params, s, shift, rtt_ms, mask)
+    swim._writable(s, RING_INPLACE, "K13")
     n = s.coords.shape[0]
     w = s.adj_window.shape[1]
     lo, span = prng.normal_bounds()
     e = torch.empty_like
     out = dict(coords_out=e(s.coords), height_out=e(s.height),
-               error_out=e(s.error), window_out=e(s.adj_window),
-               adjustment_out=e(s.adjustment))
+               error_out=e(s.error))
     kernels.launch_vivaldi_ring(
         coords=s.coords, height=s.height, error=s.error, window=s.adj_window,
         rtt_ms=rtt_ms, acked=mask, shift=shift,
@@ -231,11 +247,10 @@ def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
         inv_rho=prng.f32(np.float32(1.0) / np.float32(params.gravity_rho)),
         # torch's CUDA mean: the sum times float32(N) / float32(N * W)
         mean_factor=prng.f32(np.float32(n) / np.float32(n * w)),
-        **out)
+        adjustment=s.adjustment, **out)
     return VivaldiState(coords=out["coords_out"], height=out["height_out"],
-                        error=out["error_out"], adj_window=out["window_out"],
-                        adj_index=s.adj_index + 1,
-                        adjustment=out["adjustment_out"])
+                        error=out["error_out"], adj_window=s.adj_window,
+                        adj_index=s.adj_index + 1, adjustment=s.adjustment)
 
 
 def raw_distance(s: VivaldiState, src: torch.Tensor,

@@ -6,6 +6,7 @@ the device's busy and idle share.
     python -m consul_tpu_torch.profile_tick [n_nodes] [ticks]
     python -m consul_tpu_torch.profile_tick kernels [n_nodes]
     python -m consul_tpu_torch.profile_tick draws [n_nodes]
+    python -m consul_tpu_torch.profile_tick k12k13 [n_nodes]
 
 Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
@@ -21,11 +22,18 @@ entry points, so it also counts an older tree's kernels when that tree's
 package comes first on PYTHONPATH.  The `draws` form times each random
 draw of the main path at its shape through the public `utils/prng.py`
 functions (device ms, call ms, device kernels per call), which an older
-tree has too.  Prints one JSON line; needs a CUDA device.
+tree has too.  The `k12k13` form times the refutation and expire (K12)
+and the ring observation (K13) on the inputs the bench run hands them at
+its first probe ticks after the kill that neither refute nor free a slot,
+that refute and that free one; it spies on the swim and vivaldi entry
+points through their module attributes, so it also times an older
+tree's passes when that tree's package comes first on PYTHONPATH.
+Prints one JSON line; needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -253,8 +261,8 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     two from one torch.profiler capture of `reps` calls; copies and
     memsets left out of both).  The passes that update the state in place
     on the card (K7 and K8 in `probe_round`, K10, K11 and K8 in the dense
-    expiry) get a clone of it a call, made before the fenced window and
-    outside the profiler's capture."""
+    expiry, K12, K13's window) get a clone of it a call, made before the
+    fenced window and outside the profiler's capture."""
     p, sw = params.swim, s.swim
     while sw.tick % p.probe_period_ticks:
         s = serf.step(params, s)
@@ -276,12 +284,13 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
         "maps_convert": lambda: swim._maps_convert(maps, sw, convert),
         "dense_suspicion_expiry": (sw.clone, lambda st: (
             swim._dense_suspicion_expiry(p, st, obs.shift, maps))),
-        "refutation": lambda: swim._refutation(p, sw),
-        "expire": lambda: swim._expire(p, sw),
+        "refutation": (sw.clone, lambda st: swim._refutation(p, st)),
+        "expire": (sw.clone, lambda st: swim._expire(p, st)),
         "bulk_flag_sync": lambda: swim._bulk_flag(sw.bulk_member),
         "disseminate": lambda: swim._disseminate(p, sw),
-        "vivaldi_observe_ring": lambda: vivaldi.observe_ring(
-            params.vivaldi, s.coords, obs.shift, obs.rtt_ms, obs.acked),
+        "vivaldi_observe_ring": (s.coords.clone, lambda c: (
+            vivaldi.observe_ring(params.vivaldi, c, obs.shift, obs.rtt_ms,
+                                 obs.acked))),
         "monitor": lambda: swim.believed_down_fraction(p, sw, VICTIM, out=out),
     }
     bp = correlated.bench_params(p.n_nodes)
@@ -347,6 +356,89 @@ def draw_times(n_nodes: int = 1_000_000) -> dict:
             "draws": out}
 
 
+def _copy(x):
+    """A swim or Vivaldi state with every tensor leaf its own."""
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
+
+
+def k12_k13_times(n_nodes: int = 1_000_000, ticks: int = 400) -> dict:
+    """K12's refutation and expire and K13's ring observation, each timed
+    on the inputs the bench run hands it at three probe ticks after the
+    kill: the first whose refutation and expire neither refute nor free a
+    slot ("quiet"), the first that refutes and the first that frees one.
+    Per call: device ms (kernel_ms: dispatch hidden, L2 evicted), call ms
+    (median_ms, dispatch included) and device kernels; every call takes a
+    copy of its input, made outside the timed window (the card's passes
+    consume it)."""
+    dev, params, s = _setup(n_nodes)
+    p = params.swim
+    real = {"refutation": swim._refutation, "expire": swim._expire,
+            "ring": vivaldi.observe_ring}
+    seen: dict = {}
+
+    def spy_refutation(pp, st):
+        x = _copy(st)
+        out = real["refutation"](pp, st)
+        seen["refutation"] = x
+        seen["refuted"] = int((out.r_kind != x.r_kind).sum())
+        return out
+
+    def spy_expire(pp, st):
+        x = _copy(st)
+        out = real["expire"](pp, st)
+        seen["expire"] = x
+        seen["freed"] = int((x.r_active & ~out.r_active).sum())
+        return out
+
+    def spy_ring(vp, c, shift, rtt_ms, mask):
+        seen["ring"] = (_copy(c), shift.clone(), rtt_ms.clone(), mask.clone())
+        return real["ring"](vp, c, shift, rtt_ms, mask)
+
+    picked: dict = {}
+    swim._refutation, swim._expire = spy_refutation, spy_expire
+    vivaldi.observe_ring = spy_ring
+    try:
+        for _ in range(ticks):
+            seen.clear()
+            s = serf.step(params, s)
+            if "ring" not in seen:
+                continue
+            for kind, hit in (("quiet", not seen["refuted"]
+                               and not seen["freed"]),
+                              ("refuting", seen["refuted"] > 0),
+                              ("freeing", seen["freed"] > 0)):
+                if hit and kind not in picked:
+                    picked[kind] = dict(seen, tick=s.swim.tick - 1)
+            if len(picked) == 3:
+                break
+    finally:
+        swim._refutation, swim._expire = real["refutation"], real["expire"]
+        vivaldi.observe_ring = real["ring"]
+    out = {}
+    for kind, got in picked.items():
+        c, shift, rtt_ms, mask = got["ring"]
+        calls = {
+            "refutation": (lambda x: swim._refutation(p, x),
+                           lambda g=got: _copy(g["refutation"])),
+            "expire": (lambda x: swim._expire(p, x),
+                       lambda g=got: _copy(g["expire"])),
+            "vivaldi_ring": (lambda x, a=(shift, rtt_ms, mask): (
+                vivaldi.observe_ring(params.vivaldi, x, *a)),
+                lambda c=c: _copy(c))}
+        out[kind] = {"tick": got["tick"], "refuted": got["refuted"],
+                     "freed": got["freed"]}
+        for name, (fn, make) in calls.items():
+            x = make()
+            out[kind][name] = {
+                "device_ms": kernel_ms(fn, make=make),
+                "call_ms": median_ms(fn, make=make),
+                "kernels": sum(kernels_of(lambda: fn(x)).values())}
+    return {"device": torch.cuda.get_device_name(dev), "n_nodes": n_nodes,
+            "at": out}
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -359,5 +451,7 @@ if __name__ == "__main__":
         print(json.dumps(count_main(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["draws"]:
         print(json.dumps(draw_times(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["k12k13"]:
+        print(json.dumps(k12_k13_times(*[int(a) for a in sys.argv[2:]])))
     else:
         print(json.dumps(main(*[int(a) for a in sys.argv[1:]])))

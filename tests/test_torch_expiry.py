@@ -35,7 +35,7 @@ from torch_parity import assert_leaves, jax_dict
 from consul_tpu import config as jconfig
 from consul_tpu.models import swim as jswim
 from consul_tpu_torch import config, convert, kernels
-from consul_tpu_torch.models import swim
+from consul_tpu_torch.models import swim, vivaldi
 
 _run = jax.jit(jswim.run, static_argnums=(0, 2, 3))
 _jmaps = jax.jit(jswim._maps, static_argnums=0)
@@ -738,8 +738,8 @@ def refutation_transcription(d, p, n, u):
 
 def expire_transcription(d, p, n, u):
     """refute.cu's expire: per-slot live counts of the (refuted) know, the
-    last block's done and commit masks, the apply's column clears and
-    per-node committed lookups."""
+    done and commit masks every block derives after the grid barrier, the
+    column clears and the committed leaves at the committing subjects."""
     live = d["up"] & d["member"]
     n_live = max(int(live.sum()), 1)
     tick = int(d["tick"])
@@ -987,27 +987,25 @@ def test_k11_ctypes_order(monkeypatch, chaos):
 
 @pytest.mark.parametrize("amax", (8, 0))
 def test_k12_ctypes_order(monkeypatch, amax):
+    """K12's entry points get the state's own leaves, which they update in
+    place: the states returned hold the input's tensors."""
     params, s, _, rec = _card_state(monkeypatch, amax=amax)
+    leaves = dict(_leaves(s), r_coverage=s.r_coverage)
     r = swim._refutation(params, s)
-    _assert_pointers(rec, "refutation", dict(
-        _leaves(s), incarnation_out=r.incarnation,
-        awareness_out=r.awareness if amax else None, know_out=r.know,
-        learn_out=r.learn_tick, sends_out=r.sends_left, r_kind_out=r.r_kind,
-        r_inc_out=r.r_inc, r_start_out=r.r_start),
-        dict(N=40, U=16, amax=amax, tick=s.tick, tick16=swim._t16(s.tick),
-             limit=params.retransmit_limit, stream=12345))
-    if not amax:
-        assert r.awareness is s.awareness
+    _assert_pointers(rec, "refutation", leaves,
+                     dict(N=40, U=16, amax=amax, tick=s.tick,
+                          tick16=swim._t16(s.tick),
+                          limit=params.retransmit_limit, stream=12345))
+    for f in swim.TENSOR_FIELDS:
+        assert getattr(r, f) is getattr(s, f), f
     e = swim._expire(params, s)
-    assert e.learn_tick is s.learn_tick
-    _assert_pointers(rec, "expire", dict(
-        _leaves(s), know_out=e.know, sends_out=e.sends_left,
-        committed_dead_out=e.committed_dead,
-        committed_left_out=e.committed_left,
-        committed_inc_out=e.committed_inc, r_active_out=e.r_active,
-        r_coverage_out=e.r_coverage),
-        dict(N=40, U=16, tick=s.tick, life_gossip=params.expiry_gossip_ticks,
-             life_suspect=params.expiry_suspect_ticks, stream=12345))
+    for f in swim.TENSOR_FIELDS:
+        assert getattr(e, f) is getattr(s, f), f
+    _assert_pointers(rec, "expire", leaves,
+                     dict(N=40, U=16, tick=s.tick,
+                          life_gossip=params.expiry_gossip_ticks,
+                          life_suspect=params.expiry_suspect_ticks,
+                          stream=12345))
 
 
 @pytest.mark.parametrize("call", ("maps", "map_add", "maps_convert",
@@ -1089,20 +1087,13 @@ def _args(n=40, u=16, a=8):
             **rows, **table, incarnation=z(n, dtype=i32),
             awareness=z(n, dtype=i8), up=z(n), member=z(n),
             r_inc=z(u, dtype=i32), r_start=z(u, dtype=i32), awareness_max=8,
-            tick=100, tick16=100, limit=12, incarnation_out=z(n, dtype=i32),
-            awareness_out=z(n, dtype=i8), know_out=z(n, u),
-            learn_out=z(n, u, dtype=i16), sends_out=z(n, u, dtype=i8),
-            r_kind_out=z(u, dtype=i8), r_inc_out=z(u, dtype=i32),
-            r_start_out=z(u, dtype=i32))),
+            tick=100, tick16=100, limit=12)),
         "expire": (kernels.launch_expire, dict(
             know=z(n, u), sends_left=z(n, u, dtype=i8), **table, up=z(n),
             member=z(n), committed_dead=z(n), committed_left=z(n),
             committed_inc=z(n, dtype=i32), r_inc=z(u, dtype=i32),
-            r_start=z(u, dtype=i32), tick=100, life_gossip=80,
-            life_suspect=800, know_out=z(n, u), sends_out=z(n, u, dtype=i8),
-            committed_dead_out=z(n), committed_left_out=z(n),
-            committed_inc_out=z(n, dtype=i32), r_active_out=z(u),
-            r_coverage_out=z(u, dtype=torch.float32))),
+            r_start=z(u, dtype=i32), r_coverage=z(u, dtype=torch.float32),
+            tick=100, life_gossip=80, life_suspect=800)),
     }
 
 
@@ -1147,14 +1138,14 @@ BAD = {
         r_subject=torch.zeros(8, dtype=torch.int32)), "r_subject"),
     "post slots dtype": ("dense_expiry_post", dict(
         slots=torch.zeros(8, dtype=torch.int64)), "slots"),
-    "refutation awareness_out without LHA": ("refutation", dict(
-        awareness_max=0), "awareness_out"),
+    "refutation awareness_max 128": ("refutation", dict(
+        awareness_max=128), "awareness_max"),
     "refutation inc dtype": ("refutation", dict(
         incarnation=torch.zeros(40, dtype=torch.int64)), "incarnation"),
     "expire sends shape": ("expire", dict(
-        sends_out=torch.zeros(40, 8, dtype=torch.int8)), "sends_out"),
+        sends_left=torch.zeros(40, 8, dtype=torch.int8)), "sends_left"),
     "expire coverage dtype": ("expire", dict(
-        r_coverage_out=torch.zeros(16, dtype=torch.float64)), "r_coverage_out"),
+        r_coverage=torch.zeros(16, dtype=torch.float64)), "r_coverage"),
     "expire not contiguous": ("expire", dict(
         know=torch.zeros(16, 40, dtype=torch.bool).t()), "know"),
 }
@@ -1162,6 +1153,7 @@ BAD = {
 
 # case: (wrapper, the state's edit, what the check names); the in-place
 # wrappers refuse a leaf they write that is strided or shares storage
+# (K13's edit is of the Vivaldi state it reads)
 UNWRITABLE = {
     "K10 sends_left shares know": (
         "suspicion_expiry",
@@ -1175,20 +1167,50 @@ UNWRITABLE = {
     "K11 sus_start strided": (
         "dense", lambda s: dict(sus_start=torch.stack(
             [s.sus_start, s.sus_start], 1)[:, 0]), "contiguous"),
+    "K12 refutation r_start shares r_inc": (
+        "refutation", lambda s: dict(r_start=s.r_inc), "share storage"),
+    "K12 refutation awareness strided": (
+        "refutation", lambda s: dict(awareness=torch.stack(
+            [s.awareness, s.awareness], 1)[:, 0]), "contiguous"),
+    "K12 expire committed_left shares committed_dead": (
+        "expire", lambda s: dict(committed_left=s.committed_dead),
+        "share storage"),
+    "K12 expire know strided": (
+        "expire", lambda s: dict(know=s.know.t().contiguous().t()),
+        "contiguous"),
+    "K13 adjustment shares adj_window": (
+        "ring", lambda c: dict(adjustment=c.adj_window.view(-1)[
+            :c.adjustment.numel()]), "share storage"),
+    "K13 adj_window strided": (
+        "ring", lambda c: dict(adj_window=c.adj_window.t().contiguous().t()),
+        "contiguous"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNWRITABLE))
 def test_inplace_wrappers_reject_unwritable_leaves(monkeypatch, case):
-    """On the card K10's and K11's wrappers check every leaf they write
-    before launching: a strided or shared one raises, with no launch and
-    no twin."""
+    """On the card K10's, K11's, K12's and K13's wrappers check every leaf
+    they write before launching: a strided or shared one raises, with no
+    launch and no twin."""
     params, s, maps, rec = _card_state(monkeypatch)
+    monkeypatch.setattr(vivaldi, "observe_ring_plain", lambda *a, **k:
+                        pytest.fail("a twin ran on a card tensor"))
     which, edit, match = UNWRITABLE[case]
-    s = s.replace(**edit(s))
+    vp = vivaldi.VivaldiParams(n_nodes=40)
+    c = vivaldi.init_state(vp, device="cpu")
+    if which == "ring":
+        c = c.replace(**edit(c))
+    else:
+        s = s.replace(**edit(s))
+    ones = torch.ones(40)
     calls = {"suspicion_expiry": lambda: swim._suspicion_expiry(params, s),
              "dense": lambda: swim._dense_suspicion_expiry(
-                 params, s, torch.tensor(3, dtype=torch.int32), maps)}
+                 params, s, torch.tensor(3, dtype=torch.int32), maps),
+             "refutation": lambda: swim._refutation(params, s),
+             "expire": lambda: swim._expire(params, s),
+             "ring": lambda: vivaldi.observe_ring(
+                 vp, c, torch.tensor(3, dtype=torch.int32), ones,
+                 ones.bool())}
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError, match=match):
         calls[which]()
@@ -1213,7 +1235,8 @@ def test_kernel_constants_match_the_sources():
     assert "kAny = 0, kRead = 1;" in expiry
     assert kernels.EXPIRY_SCRATCH == 2
     refute = (CSRC / "refute.cu").read_text()
-    assert "kCommitAlive = 69;" in refute and kernels.EXPIRE_SCRATCH == 70
+    assert "kDecided = 0;" in refute and kernels.REFUTE_SCRATCH == 1
+    assert "kRead = 65;" in refute and kernels.EXPIRE_SCRATCH == 66
     dense = (CSRC / "dense.cu").read_text()
     assert "u64 v[3]" in dense and "grid_sum<3>" in dense
     assert kernels.DENSE_COUNTS == 3

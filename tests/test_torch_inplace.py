@@ -1,12 +1,14 @@
-"""The in-place contract of K7, K8, K10 and K11, held on the CPU.
+"""The in-place contract of K7, K8 and K10-K13, held on the CPU.
 
 On the card `swim._probe_pass` (K7), `swim._originate` (K8),
-`swim._suspicion_expiry` (K10) and `swim._dense_suspicion_expiry` (K11
-around K8) update the state they are given in place, so every step or
-command that reaches them consumes its state.  The CPU runs their pure
-twins, which cannot show a caller that reads a state again after passing
-it on.  The `consuming` fixture makes the CPU behave as the card's worst
-case: after each call of the four wrappers it overwrites the input
+`swim._suspicion_expiry` (K10), `swim._dense_suspicion_expiry` (K11
+around K8), `swim._refutation` and `swim._expire` (K12) update the swim
+state they are given in place, and `vivaldi.observe_ring` (K13) the
+window and adjustment of its Vivaldi state, so every step or command
+that reaches them consumes its state.  The CPU runs their pure twins,
+which cannot show a caller that reads a state again after passing it
+on.  The `consuming` fixture makes the CPU behave as the card's worst
+case: after each call of the seven wrappers it overwrites the input
 state's in-place leaves with a sentinel, except a leaf the output still
 holds.  Each caller the port ships must give the same results under it
 as without it; a caller that reads a consumed state again (as
@@ -24,7 +26,7 @@ import torch_parity  # noqa: F401  (one intra-op thread)
 
 from consul_tpu_torch import (bench, chaos, config, correlated, f1,
                               leave_propagation, scenarios)
-from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.models import serf, swim, vivaldi
 from consul_tpu_torch.oracle import GossipOracle
 
 SENTINEL = {torch.bool: True, torch.int8: -77, torch.int16: -7777,
@@ -32,8 +34,10 @@ SENTINEL = {torch.bool: True, torch.int8: -77, torch.int16: -7777,
 
 
 def _storages(state) -> set:
-    return {getattr(state, f).untyped_storage().data_ptr()
-            for f in swim.TENSOR_FIELDS}
+    return {v.untyped_storage().data_ptr()
+            for v in (getattr(state, f.name)
+                      for f in dataclasses.fields(state))
+            if isinstance(v, torch.Tensor)}
 
 
 def _consume(before, after, fields) -> None:
@@ -47,13 +51,17 @@ def _consume(before, after, fields) -> None:
             t.fill_(SENTINEL[t.dtype])
 
 
-# each in-place wrapper: (the leaves it writes, where its output state is)
+# each in-place wrapper: (its module, the leaves it writes, where its
+# output state is)
 CONSUMERS = {
-    "_probe_pass": (swim.PROBE_INPLACE, lambda out: out[0]),
-    "_originate": (swim.ORIGINATE_INPLACE, lambda out: out[0]),
-    "_suspicion_expiry": (swim.EXPIRY_INPLACE, lambda out: out[0]),
-    "_dense_suspicion_expiry": (swim.DENSE_INPLACE + swim.ORIGINATE_INPLACE,
-                                lambda out: out),
+    "_probe_pass": (swim, swim.PROBE_INPLACE, lambda out: out[0]),
+    "_originate": (swim, swim.ORIGINATE_INPLACE, lambda out: out[0]),
+    "_suspicion_expiry": (swim, swim.EXPIRY_INPLACE, lambda out: out[0]),
+    "_dense_suspicion_expiry": (swim, swim.DENSE_INPLACE
+                                + swim.ORIGINATE_INPLACE, lambda out: out),
+    "_refutation": (swim, swim.REFUTE_INPLACE, lambda out: out),
+    "_expire": (swim, swim.FREE_INPLACE, lambda out: out),
+    "observe_ring": (vivaldi, vivaldi.RING_INPLACE, lambda out: out),
 }
 
 
@@ -69,9 +77,9 @@ def consuming(monkeypatch):
             return out
         return fn
 
-    for name, (fields, state_of) in CONSUMERS.items():
-        monkeypatch.setattr(swim, name, wrap(name, getattr(swim, name),
-                                             fields, state_of))
+    for name, (module, fields, state_of) in CONSUMERS.items():
+        monkeypatch.setattr(module, name, wrap(name, getattr(module, name),
+                                               fields, state_of))
     return calls
 
 
@@ -173,21 +181,28 @@ CALLERS = {
     "f1": _f1,
     "GossipOracle": _oracle,
 }
+# the callers that step the serf pool, whose probe ticks run K13
+SERF_CALLERS = {"bench.run_convergence", "wan.run", "GossipOracle"}
 
 
 @pytest.mark.parametrize("caller", sorted(CALLERS))
 def test_caller_never_reads_a_consumed_state(caller, request):
     """The caller gives the same results whether or not the states it
-    passes to K7, K8, K10 and K11 are consumed; the fixture was
-    exercised, a probe tick's K10 and K11 among it."""
+    passes to K7, K8 and K10-K13 are consumed; the fixture was exercised,
+    a probe tick's K10-K12 among it, and K13 by every caller that runs the
+    serf pool."""
     ref = CALLERS[caller]()
     calls = request.getfixturevalue("consuming")
     got = CALLERS[caller]()
     assert calls["_originate"] > 0
     assert calls["_suspicion_expiry"] > 0
     assert calls["_dense_suspicion_expiry"] > 0
+    assert calls["_refutation"] > 0
+    assert calls["_expire"] > 0
     if caller != "GossipOracle":
         assert calls["_probe_pass"] > 0
+    if caller in SERF_CALLERS:
+        assert calls["observe_ring"] > 0
     _same(got, ref)
 
 
@@ -215,7 +230,9 @@ def test_the_fixture_sees_a_caller_that_rereads_its_state(consuming):
     assert changed, "the fixture left a reread state intact"
     assert set(changed) <= {f"swim.{f}" for f in
                             swim.ORIGINATE_INPLACE + swim.PROBE_INPLACE
-                            + swim.EXPIRY_INPLACE + swim.DENSE_INPLACE}
+                            + swim.EXPIRY_INPLACE + swim.DENSE_INPLACE
+                            + swim.REFUTE_INPLACE + swim.FREE_INPLACE} \
+        | {f"coords.{f}" for f in vivaldi.RING_INPLACE}
 
 
 def test_writable_rejects_shared_or_strided_leaves():
@@ -228,6 +245,18 @@ def test_writable_rejects_shared_or_strided_leaves():
     swim._writable(s, swim.ORIGINATE_INPLACE, "K8")
     swim._writable(s, swim.EXPIRY_INPLACE, "K10")
     swim._writable(s, swim.DENSE_INPLACE, "K11")
+    swim._writable(s, swim.REFUTE_INPLACE, "K12")
+    swim._writable(s, swim.FREE_INPLACE, "K12 expire")
+    c = vivaldi.init_state(vivaldi.VivaldiParams(n_nodes=40), device="cpu")
+    swim._writable(c, vivaldi.RING_INPLACE, "K13")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(s.replace(r_start=s.r_inc), swim.REFUTE_INPLACE, "K12")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(s.replace(committed_left=s.committed_dead),
+                       swim.FREE_INPLACE, "K12 expire")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(c.replace(adjustment=c.adj_window.view(-1)[:40]),
+                       vivaldi.RING_INPLACE, "K13")
     with pytest.raises(ValueError, match="share storage"):
         swim._writable(s.replace(sends_left=s.know.view(torch.int8)),
                        swim.PROBE_INPLACE, "K7")
@@ -263,3 +292,8 @@ def test_clone_owns_every_tensor():
             else:
                 assert w == v
     _same(_leaves(c), _leaves(s))
+    v = s.coords.clone()      # what observe_ring's caller keeps (K13)
+    assert _storages(v).isdisjoint(_storages(s.coords))
+    for f in dataclasses.fields(v):
+        a, b = getattr(v, f.name), getattr(s.coords, f.name)
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b

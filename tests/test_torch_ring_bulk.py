@@ -348,6 +348,9 @@ def test_wrappers_hand_the_kernels_the_state(monkeypatch, chaos):
         swim._bulk_step(tp, ts)
     ring = seen["vivaldi_ring"]
     assert ring["coords"] is s.coords and ring["rtt_ms"] is rtt_ms
+    # the window's column and the adjustment are written in place
+    assert ring["window"] is s.adj_window
+    assert ring["adjustment"] is s.adjustment
     assert ring["col"] == 3 and ring["key"] == vivaldi._ring_key(p, s)
     assert ring["mean_factor"] == np.float32(1 / 20)
     assert ring["inv_rho"] == np.float32(1) / np.float32(150)
@@ -367,7 +370,7 @@ def _ring_args(n=16, d=8, w=20):
                 normal_lo=-1.0, normal_span=2.0, ce=0.25, cc=0.25,
                 error_max=1.5, height_min=1e-5, inv_rho=0.0066, mean_factor=0.05,
                 coords_out=f(n, d), height_out=f(n), error_out=f(n),
-                window_out=f(n, w), adjustment_out=f(n))
+                adjustment=f(n))
 
 
 def _bulk_args(n=16, g=3):
@@ -383,8 +386,7 @@ def _bulk_args(n=16, g=3):
 BAD = {
     "ring D > 16": ("ring", dict(coords=torch.zeros(16, 17),
                                  coords_out=torch.zeros(16, 17)), "D=17"),
-    "ring W > 32": ("ring", dict(window=torch.zeros(16, 33),
-                                 window_out=torch.zeros(16, 33)), "W=33"),
+    "ring W > 32": ("ring", dict(window=torch.zeros(16, 33)), "W=33"),
     "ring column": ("ring", dict(col=20), "column 20"),
     "ring coords dtype": ("ring", dict(coords=torch.zeros(16, 8,
                                                           dtype=torch.float64)),
@@ -392,8 +394,8 @@ BAD = {
     "ring acked dtype": ("ring", dict(acked=torch.zeros(16)), "acked"),
     "ring rtt shape": ("ring", dict(rtt_ms=torch.zeros(17)), "rtt_ms"),
     "ring shift int64": ("ring", dict(shift=torch.tensor(3)), "shift"),
-    "ring window_out shape": ("ring", dict(window_out=torch.zeros(16, 19)),
-                              "window_out"),
+    "ring window not contiguous": ("ring", dict(
+        window=torch.zeros(20, 16).t()), "window"),
     "bulk no offsets": ("bulk", dict(offs=torch.zeros(0, dtype=torch.int32)),
                         "ring offsets"),
     "bulk 17 offsets": ("bulk", dict(offs=torch.ones(17, dtype=torch.int32)),
