@@ -70,7 +70,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
      mode held bit-equal to its twin and timed (chaos_phase);
   7. correlated failures: consul_tpu_torch.correlated at N=1M, 1% killed
      (recall >= 0.999, no false positive, K5 once per tick, the bulk
-     channel run, K14 once per bulk tick), K5 held bit-equal at the
+     channel run, K14 once per bulk tick; a gossip-only bulk tick
+     launches K1 (its offsets), K2's two kernels and K14 once each: the
+     bulk step draws no K1 of its own), K5 held bit-equal at the
      replayed mid-drain and drain-end states and on random states and timed, host syncs per bulk tick, and the bench
      at N=4096 on the card and the CPU with equal curves
      (correlated_phase);
@@ -123,23 +125,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
      the correlated run's overflow tick and evicting state (stale maps),
      the 1M chaos states, the WAN pool and small pools on the card (U =
      64 among them) and random 1M states (dead rumors refuted, two slots
-     of one subject refuting, no LHA, wrapped int16 ages); the leaves
-     K10-K12 write are the input's own tensors, and none allocates an [N,
-     U] block; K12's expire captured in a CUDA graph and replayed; then
-     timed beside their bounds, the twins and, for K9, one
-     scatter_reduce, K12 also at the first probe ticks that refuted and
-     freed a slot (detector_phase);
+     of one subject refuting, no LHA, wrapped int16 ages); K9's map_add
+     and maps_convert, each on a copy of its maps, return the copy's own
+     tensors and allocate nothing; the leaves K10-K12 write are the
+     input's own tensors, and none allocates an [N, U] block; K12's
+     expire captured in a CUDA graph and replayed; then timed beside
+     their bounds, the twins and, for K9, the library's calls (four full
+     + scatter_reduce_ for the build, one scatter_reduce for map_add),
+     K12 also at the first probe ticks that refuted and freed a slot
+     (detector_phase);
  13. the Vivaldi ring observation and the bulk channel: K13 against
      observe_ring_plain, every leaf within K13_ULP_BOUND (0) ulp, on the
      main path's first probe tick (every row colocated, so the 0-ulp
      coordinates hold its fused normal draws to prng.normal's), at the
-     kill, mid-convergence, its end and on random 1M states; K14
-     against _bulk_step_plain (bool leaves equal, float leaves within
-     BULK_RTOL of scale, two launches bit-equal) on the correlated run's
-     overflow tick and the empty channel it starts from, mid-drain, the
-     first committing tick after it, the drain's end and random 1M states
-     in the main and chaos builds (revive clamps, an empty channel); then
-     both timed beside their bounds, twins and wrapper calls
+     kill, mid-convergence, its end and on random 1M states; K14 (one
+     cooperative launch, in place) against _bulk_step_plain (bool leaves
+     equal, float leaves within BULK_RTOL of scale, two launches on
+     clones bit-equal, the state returned the clone itself, no
+     allocation) on the correlated run's overflow tick and the empty
+     channel it starts from, mid-drain, the first committing tick after
+     it, the drain's end and random 1M states in the main and chaos
+     builds (revive clamps, an empty channel); K14 replayed from a CUDA
+     graph bit-equal to a launch, one device kernel and no K1 a call;
+     then both timed beside their bounds, twins and wrapper calls, K14
+     also on an empty channel and in the chaos build
      (vivaldi_bulk_phase).
 
 Prints, before the last line, one JSON object with every kernel's
@@ -1564,6 +1573,22 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
     bulk_ms = fenced_ms_per_tick(params, s)
     log(f"1M tick with the bulk channel active: {bulk_ms} ms (fenced, 50 "
         f"ticks from the drain's end)")
+    # launches a gossip-only bulk tick (the wrappers' own counts): the
+    # offsets' K1, K2's two and K14, no K1 for the bulk step
+    per_tick, st = [], _clone(s)
+    while len(per_tick) < 10:
+        gossip_only = st.tick % params.probe_period_ticks != 0
+        before = dict(kernels.LAUNCHES)
+        st = swim.step(params, st)
+        if gossip_only:
+            per_tick.append({k: kernels.LAUNCHES[k] - before[k]
+                             for k in ("threefry_draws", "gossip_pack",
+                                       "gossip_exchange", "bulk_step")})
+    log(f"launches a gossip-only bulk tick: {per_tick[0]} (10 ticks)")
+    require(all(x == {"threefry_draws": 1, "gossip_pack": 1,
+                      "gossip_exchange": 1, "bulk_step": 1}
+                for x in per_tick),
+            f"gossip-only bulk ticks launched {per_tick}")
 
     small = dict(CORRELATED, max_ticks=1024)
     card = correlated.run(nodes=4096, device=dev, **small)[0]
@@ -1587,6 +1612,7 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
     return entry, {"row": brief, "launches": launches, "k5_held": held,
                    "k5": t, "k5_states": states, "bulk_syncs": syncs,
                    "bulk_tick_ms": bulk_ms,
+                   "bulk_tick_launches": per_tick[0],
                    "n4096": {"conv_ticks_99": card["conv_ticks_99"],
                              "ticks_run": card["ticks_run"]}}
 
@@ -1877,7 +1903,8 @@ def _merge_bytes(m: int, k: int) -> int:
 def time_k6(params, s, up) -> tuple:
     """Both K6 launches at one replayed state: device ms (kernel_ms; the
     merge's three kernels apart from torch.profiler), wrapper call ms,
-    twin ms, library ms and bounds."""
+    twin ms, library ms (the diff's two searchsorted calls; one stable
+    sort for the merge) and bounds."""
     push, drop = antientropy.sync_masks(params, s, up)[2:]
     cols = (s.d_ids, s.d_ver, s.a_ids, s.a_ver)
     diff = lambda: reconcile.diff_sorted_kernel(*cols)  # noqa: E731
@@ -1890,8 +1917,10 @@ def time_k6(params, s, up) -> tuple:
               "call_ms": median_ms(diff),
               "plain_ms": median_ms(lambda: reconcile.diff_sorted_plain(*cols),
                                     reps=5),
-              "library_ms": median_ms(lambda: torch.searchsorted(s.a_ids,
-                                                                 s.d_ids)),
+              # the whole diff: a search each way (diff_sorted_plain's two)
+              "library_ms": median_ms(lambda: (
+                  torch.searchsorted(s.a_ids, s.d_ids),
+                  torch.searchsorted(s.d_ids, s.a_ids))),
               "bound_ms": db / HBM_BYTES_PER_S * 1000.0, "bound_bytes": db}
     phases = ("merge_count_kernel", "merge_scan_kernel",
               "merge_scatter_kernel")
@@ -2221,7 +2250,7 @@ def hold_probe(params, s, what: str, callers: bool = False) -> dict:
         hold_originate(params, s1, one, swim.LEFT, rows, f"{what} one wanter"),
         hold_originate(params, s1, torch.zeros_like(want), swim.SUSPECT, rows,
                        f"{what} no wanter")]
-    a = swim._probe_round(params, s.clone(), maps)
+    a = swim._probe_round(params, s.clone(), profile_tick.copy_maps(maps))
     b = swim._probe_round_plain(params, s, maps)
     _state(a[0], b[0], "K7+K8", what)
     for x, y, name in zip(a[2], b[2], ("suspect_of", "dead_of", "left_of",
@@ -2389,22 +2418,19 @@ K8_PHASES = ("select", "merge_decide", "barrier", "evict", "seed")
 
 
 @contextlib.contextmanager
-def _k8_instrumented():
-    """K8's entry point taken from originate.cu built alone with
-    -DORIGINATE_PHASE_TIMES while the block runs (the wrapper, its checks
-    and its count unchanged)."""
-    lib = ctypes.CDLL(str(build.variant("originate.cu",
-                                        "ORIGINATE_PHASE_TIMES")))
-    fn = lib.originate
-    fn.argtypes = kernels.SIGNATURES["originate"]
+def _instrumented(source: str, macro: str, entry: str):
+    """The kernel library's `entry` taken from csrc/`source` built alone
+    with -D`macro` while the block runs (the wrapper, its checks and its
+    count unchanged): K8's and K14's phase-time builds."""
+    lib = ctypes.CDLL(str(build.variant(source, macro)))
+    fn = getattr(lib, entry)
+    fn.argtypes = kernels.SIGNATURES[entry]
     fn.restype = ctypes.c_int
     base = kernels.library()
 
     class Swap:
-        originate = fn
-
         def __getattr__(self, name):
-            return getattr(base, name)
+            return fn if name == entry else getattr(base, name)
 
     kernels._lib = Swap()
     try:
@@ -2413,30 +2439,42 @@ def _k8_instrumented():
         kernels._lib = base
 
 
+def _phase_ms(scratch_key: str, first: int, phases, call, make,
+              reps: int) -> dict:
+    """Median ms of each phase from an instrumented build's %globaltimer
+    stamps, scratch words first .. first + len(phases) of the kernel's
+    scratch (zeroed before each call); a phase whose end was not stamped
+    (an early return) reads None."""
+    dev = torch.device("cuda", 0)
+    n = len(phases)
+    runs = []
+    for _ in range(reps + 1):
+        x = make()
+        call(x)                     # the scratch exists after one call
+        sc = kernels._scratch[(dev, scratch_key)]
+        x = make()
+        sc[first:first + n + 1].zero_()
+        torch.cuda.synchronize()
+        call(x)
+        torch.cuda.synchronize()
+        t = sc[first:first + n + 1].tolist()
+        runs.append([(t[k + 1] - t[k]) / 1e6 if t[k] and t[k + 1] else None
+                     for k in range(n)])
+    out = {}
+    for k, name in enumerate(phases):
+        col = [r[k] for r in runs[1:]]
+        out[name] = None if None in col else sorted(col)[len(col) // 2]
+    return out
+
+
 def k8_phase_ms(call, make, reps: int = 10) -> dict:
     """Median ms of each phase of K8 on make()'s input (clones), from its
     instrumented build's %globaltimer stamps: the select until its
     slowest block, the global merge and decision in the last block, the
     grid barrier, the eviction's coverage count, decision and barrier (0
     without one), the seed until its slowest block."""
-    dev = torch.device("cuda", 0)
-    runs = []
-    with _k8_instrumented():
-        for _ in range(reps + 1):
-            x = make()
-            call(x)                     # the scratch exists after one call
-            sc = kernels._scratch[(dev, "originate")]
-            x = make()
-            n = len(K8_PHASES)
-            sc[K8_STAMPS:K8_STAMPS + n + 1].zero_()
-            torch.cuda.synchronize()
-            call(x)
-            torch.cuda.synchronize()
-            t = sc[K8_STAMPS:K8_STAMPS + n + 1].tolist()
-            runs.append([(t[k + 1] - t[k]) / 1e6 for k in range(n)])
-    runs = runs[1:]
-    return {name: sorted(r[k] for r in runs)[len(runs) // 2]
-            for k, name in enumerate(K8_PHASES)}
+    with _instrumented("originate.cu", "ORIGINATE_PHASE_TIMES", "originate"):
+        return _phase_ms("originate", K8_STAMPS, K8_PHASES, call, make, reps)
 
 
 def time_probe(params, s, what: str) -> dict:
@@ -2681,12 +2719,14 @@ def hold_detector(params, s, what: str) -> dict:
     the tick: the maps (K9's build), the probe round's map_add of K8's
     allocation, the slot expiry (K10), maps_convert of its conversions,
     the dense expiry (K11 around K8; its twin with K8's twin), the
-    refutation and expire (K12); K12 also on s itself.  K10-K12 run
-    on a clone of their input, whose leaves they must write in place (the
-    state returned holds the clone's tensors).  Returns what the
-    tick exercised: among it the slots the probe round's origination
-    evicted and how many map entries differ from maps rebuilt from the
-    table (stale by design after an eviction)."""
+    refutation and expire (K12); K12 also on s itself.  K9's updates run
+    on a copy of their maps (the rows of one [4, N] block, as _maps
+    writes them) and K10-K12 on a clone of their input, whose maps or
+    leaves they must write in place (what they return is the copy's own
+    tensors), K9's updates with no allocation.  Returns what the tick
+    exercised: among it the slots the probe round's origination evicted
+    and how many map entries differ from maps rebuilt from the table
+    (stale by design after an eviction)."""
     ref = swim._maps_plain(params, s)
     maps = swim._maps(params, s)
     _maps_same(maps, ref, f"{what} maps")
@@ -2697,7 +2737,10 @@ def hold_detector(params, s, what: str) -> dict:
     evicted = int((s0.r_active & ((s1.r_subject != s0.r_subject)
                                   | (s1.r_kind != s0.r_kind)
                                   | ~s1.r_active)).sum())
-    added = swim._map_add(ref[0], *alloc)
+    grown = {}
+    kmap = ref[0].clone()
+    added = _peak_growth(grown, "map_add", lambda: swim._map_add(kmap, *alloc))
+    require(added is kmap, f"K9 {what}: map_add returned a new map")
     _same(added, swim._map_add_plain(ref[0], *alloc), f"{what} map_add",
           "K9")
     maps1 = (added, *ref[1:])
@@ -2707,9 +2750,15 @@ def hold_detector(params, s, what: str) -> dict:
     _state(s2, p2, "K10", what)
     _same_storage(x10, s2, swim.EXPIRY_INPLACE, "K10", what)
     _same(conv, pconv, f"{what} convert", "K10")
-    maps2 = swim._maps_convert(maps1, s2, conv)
+    kmaps = profile_tick.copy_maps(maps1)
+    maps2 = _peak_growth(grown, "maps_convert", lambda: swim._maps_convert(
+        kmaps, s2, conv))
+    require(all(a is b for a, b in zip(maps2, kmaps)),
+            f"K9 {what}: maps_convert returned new maps")
     _maps_same(maps2, swim._maps_convert_plain(maps1, s2, conv),
                f"{what} maps_convert")
+    require(not any(grown.values()),
+            f"K9 {what}: its updates allocated {grown} bytes")
     stale = sum(int((x != y).sum())
                 for x, y in zip(maps2, swim._maps_plain(params, s2)))
     x11 = s2.clone()
@@ -2752,7 +2801,8 @@ def no_expiry_allocation(params, s, what: str) -> dict:
     ptrs = {f: getattr(x, f).data_ptr() for f in swim.TENSOR_FIELDS}
     x, conv = _peak_growth(grown, "K10", lambda: swim._suspicion_expiry(
         params, x))
-    maps = swim._maps_convert(maps, x, conv)
+    maps = _peak_growth(grown, "K9 maps_convert", lambda: swim._maps_convert(
+        maps, x, conv))
     x = _peak_growth(grown, "K11+K8", lambda: swim._dense_suspicion_expiry(
         params, x, obs.shift, maps))
     x = _peak_growth(grown, "K12 refutation", lambda: swim._refutation(
@@ -2991,30 +3041,31 @@ def time_detector(params, s, only=None) -> dict:
     pass on its input of the probe tick from s (expire after the twin's
     refutation): device ms (torch.profiler's kernel records, L2 evicted;
     multi-kernel entries summed), the wrapper call and the twin (CUDA
-    events, dispatch included), the bound, and for subject_maps and
-    map_add one torch scatter_reduce: building one map, and adding the
-    origination's pairs to one.  K12's entries also give the slots that
-    refute and that are freed."""
+    events, dispatch included), the bound, and the library's calls for
+    subject_maps (a torch.full and a scatter_reduce_ for each of the four
+    maps) and map_add (one scatter_reduce of the origination's pairs).
+    K12's entries also give the slots that refute and that are freed."""
     maps = swim._maps(params, s)
     drawn = swim._probe_inputs(params, s)
     s1, want, rows, obs = swim._probe_pass(params, s.clone(), maps, drawn)
     s1, alloc = swim._originate(params, s1, want, swim.SUSPECT,
                                 s1.incarnation, rows)
     s2, conv = swim._suspicion_expiry(params, s1.clone())
-    maps2 = swim._maps_convert(maps, s2, conv)
+    maps2 = swim._maps_convert(profile_tick.copy_maps(maps), s2, conv)
     s3 = swim._dense_suspicion_expiry(params, s2.clone(), obs.shift, maps2)
     s4 = swim._refutation_plain(params, s3)
     calls = {
         "subject_maps": (lambda: swim._maps(params, s),
                          lambda: swim._maps_plain(params, s), s, ()),
-        "map_add": (lambda: swim._map_add(maps[0], *alloc),
+        # K9's updates, K10 and K11 (with K8 inside) update their input in
+        # place: a copy a call
+        "map_add": (lambda m: swim._map_add(m, *alloc),
                     lambda: swim._map_add_plain(maps[0], *alloc), s,
-                    (maps[0], alloc)),
-        "maps_convert": (lambda: swim._maps_convert(maps, s2, conv),
+                    (maps[0], alloc), maps[0].clone),
+        "maps_convert": (lambda m: swim._maps_convert(m, s2, conv),
                          lambda: swim._maps_convert_plain(maps, s2, conv),
-                         s2, (maps, conv)),
-        # K10 and K11 (with K8 inside) update their input in place: a
-        # clone a call
+                         s2, (maps, conv),
+                         lambda: profile_tick.copy_maps(maps)),
         "suspicion_expiry": (lambda st: swim._suspicion_expiry(params, st),
                              lambda: swim._suspicion_expiry_plain(params, s1),
                              s1, (), s1.clone),
@@ -3030,20 +3081,33 @@ def time_detector(params, s, only=None) -> dict:
                    s4.clone)}
     if only is not None:
         calls = {k: v for k, v in calls.items() if k in only}
-    mask = s.r_active & (s.r_kind == swim.DEAD)
-    subj = torch.where(mask, s.r_subject, 0).long()
-    val = torch.where(mask, torch.arange(params.rumor_slots, dtype=torch.int32,
-                                         device=s.device), -1)
-    base = torch.full((params.n_nodes,), -1, dtype=torch.int32,
-                      device=s.device)
+    # the library's build: per map a torch.full and a scatter_reduce_ of
+    # the masked table (index and value vectors made outside the timing)
+    u = params.rumor_slots
+    slots_u = torch.arange(u, dtype=torch.int32, device=s.device)
+    scatters = []
+    for kind, vals in ((swim.SUSPECT, slots_u), (swim.DEAD, slots_u),
+                       (swim.LEFT, slots_u),
+                       (swim.ALIVE, s.r_inc * u + slots_u)):
+        mask = s.r_active & (s.r_kind == kind)
+        scatters.append((torch.where(mask, s.r_subject, 0).long(),
+                         torch.where(mask, vals, -1)))
+
+    def library_maps():
+        return [torch.full((params.n_nodes,), -1, dtype=torch.int32,
+                           device=s.device).scatter_reduce_(0, i, v, "amax")
+                for i, v in scatters]
+
+    _maps_same(library_maps(), swim._maps_plain(params, s),
+               "subject_maps library calls")
     subjects, slots, ok = alloc
     pair_subj = torch.where(ok, subjects, 0).long()
     pair_val = torch.where(ok, slots, -1)
     library = {
-        "subject_maps": lambda: base.scatter_reduce(0, subj, val, "amax"),
+        "subject_maps": library_maps,
         "map_add": lambda: maps[0].scatter_reduce(0, pair_subj, pair_val,
                                                   "amax", include_self=True)}
-    _same(library["map_add"](), swim._map_add(maps[0], *alloc),
+    _same(library["map_add"](), swim._map_add(maps[0].clone(), *alloc),
           "map_add library call", "K9")
     out = {}
     for name, (call, plain, at, extra, *make) in calls.items():
@@ -3219,8 +3283,13 @@ BULK_RTOL = 1e-5
 # K13's tiled form (the serf pool's D = 8, W = 20; other widths run
 # vivaldi_ring_kernel)
 K13_KERNELS = ("vivaldi_tile_kernel",)
-K14_KERNELS = ("bulk_count_kernel", "bulk_supply_kernel",
-               "bulk_advance_kernel", "bulk_commit_kernel")
+K14_KERNELS = ("bulk_kernel",)
+# bulk.cu's kStamps (kResults * 2048): the phase stamps of its instrumented
+# build, and its phases: each pass until its slowest block, each barrier
+# with the totals every block reads after it
+K14_STAMPS = 5 * 2048
+K14_PHASES = ("count", "barrier1", "supply", "barrier2", "advance", "barrier3",
+              "commit")
 BULK_FLOATS = ("bulk_heard", "bulk_cov")
 BULK_BOOLS = ("bulk_member", "committed_dead")
 
@@ -3316,7 +3385,8 @@ def _bulk_tick(params, s) -> tuple:
     channel is idle; the state after the tick)."""
     seen = []
     real = swim._bulk_step
-    swim._bulk_step = lambda p, st: (seen.append(st), real(p, st))[1]
+    # K14 updates the state it is handed in place: keep a copy
+    swim._bulk_step = lambda p, st: (seen.append(st.clone()), real(p, st))[1]
     try:
         nxt = swim.step(params, s.clone())
     finally:
@@ -3333,17 +3403,26 @@ def _near_commit_bar(ref) -> int:
 
 
 def hold_bulk(params, s, what: str) -> dict:
-    """K14 against _bulk_step_plain on s: the bool leaves equal, the float
-    leaves within BULK_RTOL of scale, a second launch bit-equal to the
-    first, no other leaf touched."""
-    got = swim._bulk_step(params, s)
-    again = swim._bulk_step(params, s)
+    """K14 against _bulk_step_plain on s, each launch on a clone of s
+    (after a warm launch): the bool leaves equal, the float leaves within
+    BULK_RTOL of scale, a second launch bit-equal to the first, the state
+    returned the clone itself with every leaf its own tensor (in place),
+    no allocation."""
+    swim._bulk_step(params, s.clone())
+    x, y = s.clone(), s.clone()
+    grown = {}
+    got = _peak_growth(grown, "K14", lambda: swim._bulk_step(params, x))
+    again = swim._bulk_step(params, y)
     ref = swim._bulk_step_plain(params, s)
+    require(got is x, f"K14 {what}: returned a new state")
+    require(grown["K14"] == 0, f"K14 {what}: allocated {grown['K14']} bytes")
     for f in BULK_BOOLS:
         diff = int((getattr(got, f) != getattr(ref, f)).sum())
         require(diff == 0, f"K14 {what}: {f} differs from its twin at {diff} "
                 f"nodes ({_near_commit_bar(ref)} covers within 2 ulp of "
                 f"0.995; tick {s.tick})")
+        require(torch.equal(getattr(got, f), getattr(again, f)),
+                f"K14 {what}: two launches disagree on {f}")
     errs, ulps = {}, {}
     for f in BULK_FLOATS:
         a, b = getattr(got, f), getattr(ref, f)
@@ -3357,13 +3436,32 @@ def hold_bulk(params, s, what: str) -> dict:
                 f"K14 {what}: two launches disagree on {f}")
     for f in swim.TENSOR_FIELDS:
         if f not in BULK_FLOATS + BULK_BOOLS:
-            require(getattr(got, f) is getattr(s, f), f"K14 {what}: {f} moved")
+            _same(getattr(got, f), getattr(s, f), f"{what} {f}", "K14")
     v = int(s.bulk_member.sum())
     return {"tick": s.tick, "chaos": params.chaos, "members": v,
             "commits": int((ref.committed_dead & ~s.committed_dead).sum()),
             "heard_over_v": int((s.bulk_heard > max(v, 1)).sum()),
             "ulps": ulps, "max_abs_err": max(errs.values()),
-            "near_bar": _near_commit_bar(ref)}
+            "near_bar": _near_commit_bar(ref),
+            "peak_growth_bytes": grown["K14"]}
+
+
+def capture_bulk(params, s, what: str) -> dict:
+    """K14 (one cooperative launch) captured in a CUDA graph on a clone of
+    s and replayed: the replay's leaves bit-equal to an uncaptured launch
+    on another clone."""
+    swim._bulk_step(params, s.clone())    # its scratch is made before capture
+    x, y = s.clone(), s.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        swim._bulk_step(params, x)
+    graph.replay()
+    swim._bulk_step(params, y)
+    torch.cuda.synchronize()
+    _state(x, y, "K14", f"{what} graph replay")
+    log(f"K14 captured in a CUDA graph and replayed at tick {s.tick} "
+        f"({what}): bit-equal to an uncaptured launch")
+    return {"tick": s.tick, "members": int(s.bulk_member.sum())}
 
 
 def _random_bulk(dev, base, seed: int, members: float = 0.01,
@@ -3405,20 +3503,21 @@ def _ring_bytes(c, ref, n_colocated: int) -> tuple:
 
 
 def _bulk_bytes(params, s, out) -> tuple:
-    """K14's least bytes on s, given its result `out`: bulk_member, up,
-    member and bulk_heard read once, whole (the nemesis build's groups and
-    rates too), bulk_cov only in the sectors of members (cov' is 0
-    elsewhere), committed_dead not at all (an OR with done), the offsets;
-    the four outputs written in place (only the 32-byte sectors that
-    change, by _written).  And the same with the fresh copies: six leaves
-    read and four written whole, 22 bytes a node."""
+    """K14's least bytes on s, given its result `out`: on an empty channel
+    bulk_member alone; else bulk_member, up, member and bulk_heard read
+    once, whole (the nemesis build's groups and rates too), bulk_cov only
+    in the sectors of members (cov' is 0 elsewhere), committed_dead not at
+    all (an OR with done); the four outputs written in place (only the
+    32-byte sectors that change, by _written).  And the same with fresh
+    copies: six leaves read and four written whole, 22 bytes a node."""
     n = s.up.shape[0]
+    if not bool(s.bulk_member.any()):
+        return n, 12 * n + 10 * n
     chaos = 6 * n if params.chaos else 0
-    offs = 4 * params.gossip_nodes
-    least = 7 * n + _sector_bytes(s.bulk_member, 4) + chaos + offs \
+    least = 7 * n + _sector_bytes(s.bulk_member, 4) + chaos \
         + _written(*((getattr(s, f), getattr(out, f))
                      for f in BULK_FLOATS + BULK_BOOLS))
-    return least, 12 * n + chaos + 10 * n + offs
+    return least, 12 * n + chaos + 10 * n
 
 
 def time_ring(vp, c, shift, rtt_ms, acked) -> dict:
@@ -3445,20 +3544,32 @@ def time_ring(vp, c, shift, rtt_ms, acked) -> dict:
     return t
 
 
+def k14_phase_ms(params, s, reps: int = 10) -> dict:
+    """Median ms of each phase of K14 on clones of s, from its instrumented
+    build's %globaltimer stamps (None past the count on an empty
+    channel)."""
+    with _instrumented("bulk.cu", "BULK_PHASE_TIMES", "bulk_step"):
+        return _phase_ms("bulk_step", K14_STAMPS, K14_PHASES,
+                         lambda x: swim._bulk_step(params, x), s.clone, reps)
+
+
 def time_bulk(params, s) -> dict:
-    """K14 timed at one state: the four kernels' device ms (summed, and
-    each), the wrapper call (with K1's offsets draw) and the twin, the
-    bound."""
-    call = lambda: swim._bulk_step(params, s)  # noqa: E731
-    phases = device_ms(call, K14_KERNELS)
-    b, b_copy = _bulk_bytes(params, s, call())
-    t = {"ms": sum(phases.values()), "phase_ms": phases,
-         "event_ms": kernel_ms(call), "call_ms": median_ms(call),
+    """K14 timed at one state, each call on a clone of s made outside the
+    timed window (it updates the state in place): device ms
+    (torch.profiler, L2 evicted), the CUDA-event time with dispatch
+    hidden, the wrapper call and the twin (dispatch included), the bound,
+    and its phases from the instrumented build."""
+    call = lambda x: swim._bulk_step(params, x)  # noqa: E731
+    b, b_copy = _bulk_bytes(params, s, call(s.clone()))
+    t = {"ms": device_ms(call, K14_KERNELS, make=s.clone)[K14_KERNELS[0]],
+         "event_ms": kernel_ms(call, make=s.clone),
+         "call_ms": median_ms(call, make=s.clone),
          "plain_ms": median_ms(lambda: swim._bulk_step_plain(params, s),
                                reps=5),
          "bound_ms": b / HBM_BYTES_PER_S * 1000.0, "bound_bytes": b,
          "bound_with_copy_ms": b_copy / HBM_BYTES_PER_S * 1000.0,
-         "bound_with_copy_bytes": b_copy}
+         "bound_with_copy_bytes": b_copy, "members": int(s.bulk_member.sum()),
+         "phase_ms": k14_phase_ms(params, s)}
     t["share"] = t["bound_ms"] / t["ms"]
     return t
 
@@ -3476,8 +3587,8 @@ def vivaldi_bulk_phase(dev, main: dict, states: dict,
     whose dense expiry seeds the channel, and that tick's starting state,
     whose channel is empty), mid-drain, its first committing tick after
     that and the drain's end, and random 1M states in the main and chaos
-    builds (a revive clamp, an empty channel).  Returns (the kernels-line
-    entries, the record)."""
+    builds (a revive clamp, an empty channel); its graph replay and
+    kernels a call.  Returns (the kernels-line entries, the record)."""
     params = main["params"]
     vp = params.vivaldi
     t0 = time.perf_counter()
@@ -3564,10 +3675,24 @@ def vivaldi_bulk_phase(dev, main: dict, states: dict,
             "no hold clamped a heard count above V")
     require(any(h["chaos"] and h["commits"] for h in bulk.values()),
             "no chaos hold committed")
+    captured = {"mid-drain": capture_bulk(cp, timed_state, "mid-drain"),
+                "empty": capture_bulk(cp, before, "empty channel")}
+    # one device kernel a call: the clone a call takes is a copy, not a
+    # kernel, and K1 draws nothing for it
+    k1_0 = kernels.LAUNCHES["threefry_draws"]
+    per_call = profile_tick.kernels_of(lambda: swim._bulk_step(
+        cp, timed_state.clone()))
+    log(f"K14 device kernels a call: {per_call}")
+    require(list(per_call) == [k for k in per_call if K14_KERNELS[0] in k]
+            and sum(per_call.values()) == 1,
+            f"K14 ran {per_call}, want one {K14_KERNELS[0]}")
+    require(kernels.LAUNCHES["threefry_draws"] == k1_0,
+            "a K14 call launched K1")
 
     timed = {"vivaldi_ring": time_ring(vp, *timing_obs),
              "vivaldi_ring all colocated": time_ring(vp, *colocated_obs),
              "bulk_step": time_bulk(cp, timed_state),
+             "bulk_step empty": time_bulk(cp, before),
              "bulk_step chaos": time_bulk(chaos_p, _random_bulk(
                  dev, near_bar, seed=99, chaos=True))}
     for name, t in timed.items():
@@ -3597,9 +3722,14 @@ def vivaldi_bulk_phase(dev, main: dict, states: dict,
          "bound_by": "bytes", "library_ms": None,
          "bound_with_copy_ms": t14["bound_with_copy_ms"],
          "phase_ms": t14["phase_ms"],
+         "empty_ms": timed["bulk_step empty"]["ms"],
+         "empty_bound_ms": timed["bulk_step empty"]["bound_ms"],
          "chaos_ms": timed["bulk_step chaos"]["ms"],
+         "chaos_bound_ms": timed["bulk_step chaos"]["bound_ms"],
          "shape": [N, cp.gossip_nodes]}]
-    return entries, {"ring_held": ring, "bulk_held": bulk, "timed": timed}
+    return entries, {"ring_held": ring, "bulk_held": bulk, "timed": timed,
+                     "bulk_graph_capture": captured,
+                     "bulk_kernels_per_call": per_call}
 
 
 def main() -> int:

@@ -35,15 +35,16 @@ RECONCILE = ("reconcile_diff", "reconcile_merge")
 # both writing the state they are given in place
 PROBE = ("probe_round", "originate")
 # the rest of the probe tick's detector passes: the subject maps and their
-# updates (K9), suspicion expiry (K10: one cooperative launch), the dense
-# expiry's launches before and after its origination (K11), K10 and K11
+# updates (K9, the updates in place), suspicion expiry (K10: one
+# cooperative launch), the dense expiry's launches before and after its
+# origination (K11), K10 and K11
 # writing the state they are given in place, refutation and expire (K12,
 # in place; expire one cooperative launch)
 DETECTOR = ("subject_maps", "map_add", "maps_convert", "suspicion_expiry",
             "dense_expiry", "dense_expiry_post", "refutation", "expire")
 # the Vivaldi ring observation of every probe tick (K13, its window in
-# place), and the bulk death channel of a mass event (K14: four device
-# kernels behind one entry point, counted once)
+# place), and the bulk death channel of a mass event (K14: one cooperative
+# launch, in place, its ring offsets drawn inside it)
 VIVALDI_BULK = ("vivaldi_ring", "bulk_step")
 KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE + PROBE + DETECTOR \
     + VIVALDI_BULK
@@ -96,8 +97,8 @@ SIGNATURES = {
     + [_I] * 3 + [_P, _I] + [_P] * 5,
     "originate": [_P] * 18 + [_I64] + [_I] * 6 + [_P, _I] + [_P] * 4,
     "subject_maps": [_P] * 4 + [_I64, _I] + [_P] * 5,
-    "map_add": [_P] * 4 + [_I64, _I] + [_P] * 2,
-    "maps_convert": [_P] * 4 + [_I64, _I] + [_P] * 3,
+    "map_add": [_P] * 4 + [_I64, _I, _P],
+    "maps_convert": [_P] * 4 + [_I64, _I, _P],
     "suspicion_expiry": [_P] * 14 + [_I64] + [_I] * 4 + [_P] * 3,
     "dense_expiry": [_P] * 18 + [_I64] + [_I] * 5 + [_P, _I] + [_P] * 5,
     "dense_expiry_post": [_P] * 14 + [_I64] + [_I] * 5 + [_P] * 6,
@@ -105,7 +106,7 @@ SIGNATURES = {
     "expire": [_P] * 13 + [_I64] + [_I] * 4 + [_P] * 2,
     "vivaldi_ring": [_P] * 7 + [_I64, _I, _I, _I, _U32, _U32] + [_F32] * 8
     + [_P] * 5,
-    "bulk_step": [_P] * 9 + [_I64, _I, _F32, _F32, _P, _I] + [_P] * 5,
+    "bulk_step": [_P] * 9 + [_I64, _F32, _F32, _P, _I, _P, _P],
 }
 
 
@@ -164,8 +165,9 @@ def _ptr(t) -> Optional[int]:
 
 
 class DrawSpec(ctypes.Structure):
-    """One segment of a K1 launch, laid out as threefry.cu's DrawSpec
-    (tests/test_torch_isolation.py holds the fields to the source)."""
+    """One segment of a K1 launch, laid out as common.cuh's DrawSpec
+    (tests/test_torch_isolation.py holds the fields to the source); K14
+    takes a randint one with no output for its ring offsets."""
 
     _fields_ = [("out", _P), ("n", _I64), ("sched", _U32 * 16),
                 ("mode", ctypes.c_int32), ("lo", _F32), ("span", _F32),
@@ -221,6 +223,19 @@ def _spec(i: int, seg: Segment, device) -> DrawSpec:
     return DrawSpec(seg.out.data_ptr(), seg.n, (_U32 * 16)(*sched),
                     DRAW_MODES.index(seg.mode), seg.lo, seg.span,
                     seg.minval & 0xFFFFFFFF, seg.range, seg.mult & 0xFFFFFFFF)
+
+
+def randint_spec(keys, n: int, minval: int, range_: int,
+                 mult: int) -> DrawSpec:
+    """The DrawSpec of a randint draw of n elements whose kernel draws them
+    for itself (no output): K14's ring offsets.  keys are split(key)'s
+    two keys; minval, range_ and mult as a Segment's."""
+    if len(keys) != 2 or not 1 <= range_ < 2 ** 32 or not 1 <= n < 2 ** 40:
+        raise ValueError(f"randint_spec: {len(keys)} keys, range {range_}, "
+                         f"n {n}")
+    sched = _schedule(keys[0]) + _schedule(keys[1])
+    return DrawSpec(None, n, (_U32 * 16)(*sched), DRAW_MODES.index("randint"),
+                    0.0, 1.0, minval & 0xFFFFFFFF, range_, mult & 0xFFFFFFFF)
 
 
 def launch_draws(segments) -> None:
@@ -858,44 +873,41 @@ def launch_subject_maps(r_active, r_kind, r_subject, r_inc, suspect_of,
     LAUNCHES["subject_maps"] += 1
 
 
-def launch_map_add(map_n, subjects, slots, ok, out) -> None:
-    """K9's map_add: out [N] int32 = map_n with the [A] (subject, slot)
-    pairs under `ok` scatter-maxed in (the others -1 into index 0)."""
+def launch_map_add(map_n, subjects, slots, ok) -> None:
+    """K9's map_add, in place: the [A] (subject, slot) pairs under `ok`
+    scatter-maxed into map_n [N] int32 (the others -1 into index 0)."""
     dev = map_n.device if map_n is not None else None
     n = _node_count("map_add", map_n)
     a = subjects.shape[0] if subjects is not None and subjects.dim() == 1 \
         else 0
     if not 1 <= a <= 64:
         raise ValueError(f"map_add takes 1-64 pairs, got {a}")
-    _node_vectors("map_add", dev, n, (map_n, "map", _I32), (out, "out", _I32))
+    _node_vectors("map_add", dev, n, (map_n, "map", _I32))
     _node_vectors("map_add", dev, a, (subjects, "subjects", _I32),
-                (slots, "slots", _I32), (ok, "ok", _BOOL))
+                  (slots, "slots", _I32), (ok, "ok", _BOOL))
     rc = library().map_add(map_n.data_ptr(), subjects.data_ptr(),
                            slots.data_ptr(), ok.data_ptr(), n, a,
-                           out.data_ptr(), _stream(dev))
+                           _stream(dev))
     _check(rc, "map_add")
     LAUNCHES["map_add"] += 1
 
 
-def launch_maps_convert(suspect_of, dead_of, convert, r_subject, suspect_out,
-                        dead_out) -> None:
-    """K9's maps_convert: the converting [U] slots' subjects leave
-    suspect_of (a min with -1) and enter dead_of (a max with the slot)."""
+def launch_maps_convert(suspect_of, dead_of, convert, r_subject) -> None:
+    """K9's maps_convert, in place: the converting [U] slots' subjects
+    leave suspect_of (a min with -1) and enter dead_of (a max with the
+    slot)."""
     dev = suspect_of.device if suspect_of is not None else None
     n = _node_count("maps_convert", suspect_of)
     u = convert.shape[0] if convert is not None and convert.dim() == 1 else 0
     if not 1 <= u <= 64:
         raise ValueError(f"maps_convert takes 1-64 slots, got {u}")
     _node_vectors("maps_convert", dev, n, (suspect_of, "suspect_of", _I32),
-                  (dead_of, "dead_of", _I32),
-                  (suspect_out, "suspect_out", _I32),
-                  (dead_out, "dead_out", _I32))
+                  (dead_of, "dead_of", _I32))
     _node_vectors("maps_convert", dev, u, (convert, "convert", _BOOL),
-                (r_subject, "r_subject", _I32))
+                  (r_subject, "r_subject", _I32))
     rc = library().maps_convert(suspect_of.data_ptr(), dead_of.data_ptr(),
                                 convert.data_ptr(), r_subject.data_ptr(), n,
-                                u, suspect_out.data_ptr(), dead_out.data_ptr(),
-                                _stream(dev))
+                                u, _stream(dev))
     _check(rc, "maps_convert")
     LAUNCHES["maps_convert"] += 1
 
@@ -1132,7 +1144,7 @@ def launch_expire(*, know, sends_left, up, member, committed_dead,
 VIVALDI_MAX_DIMS = 16      # vivaldi.cu's kMaxD
 VIVALDI_MAX_WINDOW = 32    # vivaldi.cu's kMaxW
 BULK_MAX_VIEWS = 16        # bulk.cu's kMaxViews
-BULK_RESULTS = 5           # bulk.cu's kResults: the sums handed on
+BULK_RESULTS = 5           # bulk.cu's kResults: each block's partial sums
 
 
 def launch_vivaldi_ring(*, coords, height, error, window, rtt_ms, acked,
@@ -1184,45 +1196,50 @@ def launch_vivaldi_ring(*, coords, height, error, window, rtt_ms, acked,
     LAUNCHES["vivaldi_ring"] += 1
 
 
+def _bulk_carry(device: torch.device, n: int) -> torch.Tensor:
+    """K14's per-device float carry of at least n rows, made once and
+    grown with n (the kernel overwrites what it reads)."""
+    buf = _scratch.get((device, "bulk_step carry"))
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=_F, device=device)
+        _scratch[(device, "bulk_step carry")] = buf
+    return buf
+
+
 def launch_bulk_step(*, bulk_member, bulk_heard, bulk_cov, up, member,
-                     committed_dead, offs, group=None, node_ok=None,
-                     cap: float, p_ok: float, bulk_member_out,
-                     bulk_heard_out, bulk_cov_out,
-                     committed_dead_out) -> None:
-    """K14 (four device kernels, one count): the bulk death channel one
-    gossip tick along the [G] int32 ring offsets `offs` (on the device),
-    then its commit, into the four *_out [N] leaves, whole; with no bulk
-    member every output is its input.  The nemesis build passes group [N]
-    int16 and node_ok [N] float32 together.  The launches hand their sums
-    on in a per-device scratch, so two streams must not run it at once."""
+                     committed_dead, offsets: DrawSpec, group=None,
+                     node_ok=None, cap: float, p_ok: float) -> None:
+    """K14 (one cooperative launch): the bulk death channel one gossip
+    tick along the G ring offsets the kernel draws from `offsets` (a
+    randint DrawSpec with no output, n = G), then its commit, in place on
+    bulk_member, bulk_heard, bulk_cov and committed_dead [N], each only
+    where a value changes; with no bulk member nothing is written.  The
+    nemesis build passes group [N] int16 and node_ok [N] float32 together.
+    Its sums and the heard' carry live in per-device scratch, so two
+    streams must not run it at once."""
     dev = bulk_member.device if bulk_member is not None else None
     n = _node_count("bulk_step", bulk_member)
-    g = offs.shape[0] if offs is not None and offs.dim() == 1 else 0
-    if not 1 <= g <= BULK_MAX_VIEWS:
-        raise ValueError(f"bulk_step takes 1-{BULK_MAX_VIEWS} ring offsets, "
-                         f"got {g}")
+    if not isinstance(offsets, DrawSpec) \
+            or offsets.mode != DRAW_MODES.index("randint") \
+            or not 1 <= offsets.n <= BULK_MAX_VIEWS or offsets.range < 1:
+        g = getattr(offsets, "n", None)
+        raise ValueError(f"bulk_step takes a randint DrawSpec of 1-"
+                         f"{BULK_MAX_VIEWS} ring offsets, got {g}")
     _node_vectors("bulk_step", dev, n, (bulk_member, "bulk_member", _BOOL),
                   (bulk_heard, "bulk_heard", _F), (bulk_cov, "bulk_cov", _F),
                   (up, "up", _BOOL), (member, "member", _BOOL),
-                  (committed_dead, "committed_dead", _BOOL),
-                  (bulk_member_out, "bulk_member_out", _BOOL),
-                  (bulk_heard_out, "bulk_heard_out", _F),
-                  (bulk_cov_out, "bulk_cov_out", _F),
-                  (committed_dead_out, "committed_dead_out", _BOOL))
-    _require(offs, "bulk_step offs", _I32, dev, (g,))
+                  (committed_dead, "committed_dead", _BOOL))
     if (group is None) != (node_ok is None):
         raise ValueError("bulk_step: group and node_ok come together")
     if group is not None:
         _node_vectors("bulk_step", dev, n, (group, "group", _I16),
                       (node_ok, "node_ok", _F))
-    scratch = _scratch_words(dev, "bulk_step",
-                             BULK_RESULTS + 1 + 2 * SCRATCH_BLOCKS)
+    partials = _scratch_words(dev, "bulk_step", BULK_RESULTS * SCRATCH_BLOCKS)
+    carry = _bulk_carry(dev, n)
     rc = library().bulk_step(
         bulk_member.data_ptr(), bulk_heard.data_ptr(), bulk_cov.data_ptr(),
         up.data_ptr(), member.data_ptr(), committed_dead.data_ptr(),
-        offs.data_ptr(), _ptr(group), _ptr(node_ok), n, g, cap, p_ok,
-        scratch.data_ptr(), SCRATCH_BLOCKS, bulk_member_out.data_ptr(),
-        bulk_heard_out.data_ptr(), bulk_cov_out.data_ptr(),
-        committed_dead_out.data_ptr(), _stream(dev))
+        ctypes.addressof(offsets), _ptr(group), _ptr(node_ok), n, cap, p_ok,
+        partials.data_ptr(), SCRATCH_BLOCKS, carry.data_ptr(), _stream(dev))
     _check(rc, "bulk_step")
     LAUNCHES["bulk_step"] += 1

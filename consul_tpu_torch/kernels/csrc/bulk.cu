@@ -1,131 +1,134 @@
 // K14 bulk_step: the bulk death channel advanced one gossip tick, then its
-// rolling commit, on every tick of a mass event.
+// rolling commit, on every tick of a mass event, in place.
 //
 // Replaces: consul_tpu/models/swim.py _bulk_disseminate and _bulk_commit
 // under step_with_obs' lax.cond on any(bulk_member), which XLA and the
 // port's plain twin (models/swim.py:_bulk_step_plain) run as some forty
-// small [N] passes: the counts and sums, three ring pulls of the supply
-// (six more under the nemesis build), the per-view updates, the coverage
-// step and the commit.
+// small [N] passes: the ring offsets' randint, the counts and sums, three
+// ring pulls of the supply (six more under the nemesis build), the
+// per-view updates, the coverage step and the commit.
 //
-// Four launches on one stream, no host sync.  Each grid-wide sum is a
-// last-block result (common.cuh:grid_sum, in doubles: exact for the
-// counts, and for the float sums the exact sum of the float32 terms up to
-// 2^53, rounded once to float32 where it is used) that the next launch
-// reads from the scratch:
-//   1. count: V = sum(bulk_member), n_up = sum(up);
-//   2. supply: sum over up rows of min(bulk_heard, v), v = max(V, 1);
-//   3. advance, a row a thread: heard = min(bulk_heard[i], v), then for
-//      each of the G ring views in turn the peer j = (i + offs[g]) % N's
-//      old supply (up[j] ? min(bulk_heard[j], v) : 0; under the nemesis
-//      build 0 across groups, else (supply * ok[j]) * ok[i]), clamped to
-//      cap, adds supply * (1 - heard / v) * p_ok to a live receiver's
-//      heard (at most v), each view with the heard the one before left;
-//      sel = min((1 / max(mean_supply, 1)) * cap, 1) (the twin's cap /
-//      tensor is a reciprocal times cap), q = 1 - clip((cov * sel) * p_ok,
-//      0, 1), q^G by XLA's square-and-multiply (q * (q * q) for G = 3),
-//      cov' = clip(cov + (1 - cov) * (1 - q^G), 0, 1) at members, else 0;
-//      done = member & cov' >= 0.995.  heard and cov' go to the outputs;
-//      the grid sums removed = sum(done ? cov' : 0) and v_new =
-//      sum(member & !done);
-//   4. commit, a row a thread: heard = min(max(heard - removed, 0),
-//      v_new), cov' = 0 and member cleared where done, committed_dead |=
-//      done.
-// With V = 0 (the lax.cond's other branch) every output is its input.
-// Every float step is explicitly rounded in the twin's order; only the
-// two float sums differ from torch's summation order, in a fixed order of
-// their own (each block's partial in its own slot, added in block order).
+// One cooperative launch (cudaLaunchCooperativeKernel on the co-resident
+// grid of common.cuh:persistent_blocks), four phases split by grid
+// barriers.  Each block first draws the G ring offsets itself from the
+// randint spec the host passes by value (common.cuh:randint_lanes, K1's
+// RANDINT steps: the gossip tick's stream 4, as rolls.offsets draws them),
+// so no barrier waits on them.
+//   1. count: V = sum(bulk_member), 16 bytes a load.  After the barrier
+//      every block reads V; with V = 0 (the lax.cond's other branch) every
+//      block returns, the branch being uniform, and nothing is written.
+//   2. supply: n_up = sum(up) and the sum over up rows of min(bulk_heard,
+//      v), v = max(V, 1).  The same pass computes each row's heard' from
+//      the *old* bulk_heard: heard = min(bulk_heard[i], v), then for each
+//      of the G ring views in turn the peer j = (i + offs[g]) % N's supply
+//      (up[j] ? min(bulk_heard[j], v) : 0; under the nemesis build 0
+//      across groups, else (supply * ok[j]) * ok[i]), clamped to cap,
+//      adds supply * (1 - heard / v) * p_ok to a live receiver's heard (at
+//      most v), each view with the heard the one before left.  heard'
+//      goes to the carry.
+//   3. advance: sel = min((1 / max(mean_supply, 1)) * cap, 1) (the twin's
+//      cap / tensor is a reciprocal times cap), and at each member q = 1 -
+//      clip((cov * sel) * p_ok, 0, 1), q^G by XLA's square-and-multiply,
+//      cov' = clip(cov + (1 - cov) * (1 - q^G), 0, 1), done = cov' >=
+//      0.995; the sums removed = sum(done ? cov' : 0) and v_new =
+//      sum(member & !done).  Non-members have cov' = 0 and no sum term.
+//   4. commit, a row a thread: heard'' = min(max(heard' - removed, 0),
+//      v_new); cov'' = done ? 0 : cov' at members (cov' recomputed from the
+//      row's own bulk_cov, which only this thread writes, after its read),
+//      0 elsewhere; at a done member bulk_member cleared and
+//      committed_dead set.
+// In place, and only where a value changes: bulk_heard where heard''
+// differs from the input (bit for bit), bulk_cov where cov'' does (at
+// members, and wherever a non-member's input is not +0), bulk_member and
+// committed_dead only at done subjects.  Why it is race-free: every read
+// of bulk_heard at a peer happens in phase 2, every write of any leaf in
+// phase 4, after two more barriers; phases 3 and 4 read only the row
+// itself.
+//
+// The carry of heard' across barriers 2-3 is one per-device float scratch
+// of N (the host's, grown with N): a persistent grid holds a bounded
+// number of rows in registers, and one code path must serve every N.  At
+// N = 1M its 4 MB is written and reread within the 50 MB L2.  cov' is not
+// carried: phase 4 recomputes it from the same inputs, bit for bit.
+//
+// The sums are doubles (exact for the counts; for the float sums the exact
+// sum of the float32 terms up to 2^53, rounded once to float32 where it is
+// used).  Each block's partials go in its own slots of the scratch and,
+// after each barrier, every block adds them in the same fixed order
+// (common.cuh:block_partials/grid_totals), so every block, and two
+// launches on the same inputs, get the same bits; only the two float sums
+// differ from torch's summation order.  No slot needs a reset.  Every
+// float step is explicitly rounded in the twin's order.
+//
+// The grid: 1,024-thread blocks, two an SM (264 blocks on an H100), so the
+// barriers wait on few blocks and each block's totals read few partials; a
+// thread takes rows i, i + stride, ... in each phase.
 //
 // Bound on an H100: memory.  The least bytes read bulk_member, up, member
 // and bulk_heard once (7 bytes a node), bulk_cov only in the 32-byte
 // sectors of members (cov' is 0 elsewhere) and committed_dead not at all
-// (an OR with done), and write each output in place, only in the sectors
-// that change: at the correlated bench's mid-drain (1% of 1M nodes in the
-// channel, no commit) about 12 MB, ~0.0035 ms at 3.35 TB/s.  With the fresh
-// copies, six leaves read and four written whole, 22 bytes a node: 22 MB,
-// ~0.0066 ms; the nemesis build reads 6 more (groups and rates).  This
-// design reads bulk_member and up in launches 1-3, bulk_heard in 2 and 3
-// (and at the G peers, mostly from L2), and writes then rereads heard and
-// cov' between 3 and 4: ~53 MB.
+// (an OR with done), and write each output only in the sectors that
+// change: at the correlated bench's mid-drain (1% of 1M nodes in the
+// channel, no commit) about 12 MB, ~0.0035 ms at 3.35 TB/s.  On an empty
+// channel it reads bulk_member alone: 1 MB, ~0.0003 ms.  This design also
+// reads bulk_cov whole in phase 4 and moves the 4 MB carry through L2.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 using namespace consul_kernels;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+// Large blocks, few of them: after each barrier every block adds every
+// block's partials, so the grid's reads of them grow with its square.
+constexpr int kThreads = 1024;
+constexpr int kBlocksPerSm = 2;
 constexpr int kMaxViews = 16;
-// scratch: the results (doubles), then grid_sum's count and partials
+// each block's partial sums, in doubles: its slots kV .. kVNew of kResults
 enum Result : int { kV = 0, kUp = 1, kSupply = 2, kRemoved = 3, kVNew = 4, kResults = 5 };
 constexpr float kCommitBar = 0.995f;
 
+// Built with -DBULK_PHASE_TIMES (build.variant; chip_smoke.py's phase
+// split), the kernel stamps %globaltimer into partials words kStamps..
+// (free while the grid has at most 2,048 blocks; the caller zeroes them):
+// 0 block 0's start, then the latest block at 1 the end of its count, 2
+// its copy of V, 3 the end of its supply pass, 4 its copy of those sums, 5
+// the end of its advance pass, 6 its copy of those sums, 7 its end.
+constexpr int kStamps = kResults * 2048;
+#ifdef BULK_PHASE_TIMES
+__device__ __forceinline__ void stamp(double* partials, int k) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    u64 t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    atomicMax(reinterpret_cast<u64*>(partials) + kStamps + k, t);
+  }
+}
+#else
+__device__ __forceinline__ void stamp(double*, int) {}
+#endif
+
 struct BulkArgs {
-  const uint8_t* bulk_member;
-  const float* bulk_heard;
-  const float* bulk_cov;
+  uint8_t* bulk_member;        // updated in place
+  float* bulk_heard;           // updated in place
+  float* bulk_cov;             // updated in place
   const uint8_t* up;
   const uint8_t* member;
-  const uint8_t* committed_dead;
-  const int32_t* offs;      // [G] ring offsets, on the device
-  const int16_t* group;     // [N] or null (the nemesis build)
-  const float* node_ok;     // [N] or null
+  uint8_t* committed_dead;     // updated in place
+  const int16_t* group;        // [N] or null (the nemesis build)
+  const float* node_ok;        // [N] or null
   int64_t N;
-  int G;
   float cap, p_ok;
-  u64* scratch;
-  uint8_t* bulk_member_out;
-  float* bulk_heard_out;
-  float* bulk_cov_out;
-  uint8_t* committed_dead_out;
+  double* partials;            // kResults a block
+  float* carry;                // [N]: heard' across barriers 2-3
+  DrawSpec offs;               // the G = offs.n ring offsets' randint
 };
-
-__device__ __forceinline__ double result(const BulkArgs& a, int k) {
-  return __longlong_as_double(static_cast<long long>(__ldcg(&a.scratch[k])));
-}
-
-__device__ __forceinline__ void publish(const BulkArgs& a, int k, double v) {
-  a.scratch[k] = static_cast<u64>(__double_as_longlong(v));
-}
-
-__device__ __forceinline__ u64* sums(const BulkArgs& a) { return a.scratch + kResults; }
 
 // max(float(V), 1): the twin's bulk_member.sum().to(float32).clamp_min(1)
 __device__ __forceinline__ float v_of(double V) { return fmaxf(__double2float_rn(V), 1.0f); }
-
-__device__ __forceinline__ int64_t grid_start() {
-  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-}
-
-__device__ __forceinline__ int64_t grid_stride() {
-  return static_cast<int64_t>(gridDim.x) * blockDim.x;
-}
-
-__global__ void __launch_bounds__(kThreads) bulk_count_kernel(const __grid_constant__ BulkArgs a) {
-  double v[2] = {0.0, 0.0};
-  for (int64_t i = grid_start(); i < a.N; i += grid_stride()) {
-    v[0] += a.bulk_member[i] ? 1.0 : 0.0;
-    v[1] += a.up[i] ? 1.0 : 0.0;
-  }
-  double tot[2];
-  if (grid_sum<2>(v, sums(a), tot)) {
-    publish(a, kV, tot[0]);
-    publish(a, kUp, tot[1]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) bulk_supply_kernel(const __grid_constant__ BulkArgs a) {
-  const double V = result(a, kV);
-  const float vf = v_of(V);
-  double v[1] = {0.0};
-  if (V > 0.0) {
-    for (int64_t i = grid_start(); i < a.N; i += grid_stride()) {
-      if (a.up[i]) v[0] += static_cast<double>(fminf(a.bulk_heard[i], vf));
-    }
-  }
-  double tot[1];
-  if (grid_sum<1>(v, sums(a), tot)) publish(a, kSupply, tot[0]);
-}
 
 // x^y by XLA's integer_pow (models/swim.py:_integer_pow): square and
 // multiply from the low bit, each product rounded.
@@ -143,139 +146,171 @@ __device__ __forceinline__ float integer_pow(float x, int y) {
   return acc;
 }
 
-__global__ void __launch_bounds__(kThreads) bulk_advance_kernel(const __grid_constant__ BulkArgs a) {
+// A member's coverage after the tick: clip(cov + (1 - cov) * (1 - q^G),
+// 0, 1), q = 1 - clip((cov * sel) * p_ok, 0, 1).
+__device__ __forceinline__ float grown(float cov, float sel, float p_ok, int G) {
+  const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(cov, sel), p_ok), 0.0f), 1.0f);
+  const float p_learn = __fsub_rn(1.0f, integer_pow(__fsub_rn(1.0f, x), G));
+  return fminf(fmaxf(__fadd_rn(cov, __fmul_rn(__fsub_rn(1.0f, cov), p_learn)), 0.0f), 1.0f);
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+bulk_kernel(const __grid_constant__ BulkArgs a) {
   __shared__ int64_t s_offs[kMaxViews];
+  __shared__ double red1[1][32], red2[2][32];
+  cg::grid_group grid = cg::this_grid();
   const int64_t N = a.N;
-  if (threadIdx.x < a.G) {
-    const int64_t d = static_cast<int64_t>(a.offs[threadIdx.x]) % N;
+  const int G = static_cast<int>(a.offs.n);
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if (blockIdx.x == 0) stamp(a.partials, 0);
+  if (threadIdx.x < G) {  // element g of the offsets' randint draw
+    uint32_t v[1];
+    randint_lanes<1>(a.offs, 0u, threadIdx.x, v);
+    const int64_t d = static_cast<int64_t>(static_cast<int32_t>(v[0])) % N;
     s_offs[threadIdx.x] = d < 0 ? d + N : d;
   }
-  __syncthreads();
-  const double V = result(a, kV);
-  double v[2] = {0.0, 0.0};  // removed, v_new
-  if (V > 0.0) {
-    const float vf = v_of(V);
-    const float n_up = fmaxf(__double2float_rn(result(a, kUp)), 1.0f);
-    const float mean_supply = __fdiv_rn(__double2float_rn(result(a, kSupply)), n_up);
-    const float sel = fminf(__fmul_rn(__frcp_rn(fmaxf(mean_supply, 1.0f)), a.cap), 1.0f);
-    const bool chaos = a.group != nullptr;
-    for (int64_t i = grid_start(); i < N; i += grid_stride()) {
-      const bool recv = a.up[i] && a.member[i];
-      float heard = fminf(a.bulk_heard[i], vf);
-      for (int g = 0; g < a.G; ++g) {
+
+  // 1. count
+  double c[1] = {0.0};
+  int64_t done_rows = 0;
+  if (aligned16(a.bulk_member)) {
+    const int64_t vecs = N / 16;
+    const uint4* bm = reinterpret_cast<const uint4*>(a.bulk_member);
+    for (int64_t k = tid; k < vecs; k += stride) {
+      const uint4 w = bm[k];
+      c[0] += __popc(nonzero_bytes(w.x)) + __popc(nonzero_bytes(w.y)) +
+              __popc(nonzero_bytes(w.z)) + __popc(nonzero_bytes(w.w));
+    }
+    done_rows = vecs * 16;
+  }
+  for (int64_t i = done_rows + tid; i < N; i += stride) c[0] += a.bulk_member[i] ? 1.0 : 0.0;
+  block_partials<1>(c, red1, a.partials + kV, kResults);
+  stamp(a.partials, 1);
+  grid.sync();
+  double t1[1];
+  grid_totals<1>(a.partials + kV, kResults, red1, t1);
+  stamp(a.partials, 2);
+  const double V = t1[0];
+  if (V == 0.0) {  // grid-uniform: the channel is empty
+    stamp(a.partials, 7);
+    return;
+  }
+
+  // 2. supply, and heard' from the old bulk_heard (read-only until phase
+  // 4, so its loads take the non-coherent path)
+  const float vf = v_of(V);
+  const bool chaos = a.group != nullptr;
+  double p2[2] = {0.0, 0.0};  // n_up, supply
+  for (int64_t i = tid; i < N; i += stride) {
+    const bool up = __ldg(&a.up[i]);
+    float heard = fminf(__ldg(&a.bulk_heard[i]), vf);
+    if (up) {
+      p2[0] += 1.0;
+      p2[1] += static_cast<double>(heard);
+    }
+    if (up && __ldg(&a.member[i])) {  // a live receiver
+      for (int g = 0; g < G; ++g) {    // each view with the heard the one before left
         const int64_t j = i + s_offs[g] >= N ? i + s_offs[g] - N : i + s_offs[g];
-        float view = a.up[j] ? fminf(a.bulk_heard[j], vf) : 0.0f;
+        float view = __ldg(&a.up[j]) ? fminf(__ldg(&a.bulk_heard[j]), vf) : 0.0f;
         if (chaos) {
-          view = a.group[j] == a.group[i]
-                     ? __fmul_rn(__fmul_rn(view, a.node_ok[j]), a.node_ok[i])
+          view = __ldg(&a.group[j]) == __ldg(&a.group[i])
+                     ? __fmul_rn(__fmul_rn(view, __ldg(&a.node_ok[j])), __ldg(&a.node_ok[i]))
                      : 0.0f;
         }
         const float supply = fminf(view, a.cap);
         const float novelty = __fsub_rn(1.0f, __fdiv_rn(heard, vf));
-        if (recv) {
-          heard = fminf(__fadd_rn(heard, __fmul_rn(__fmul_rn(supply, novelty), a.p_ok)), vf);
-        }
+        heard = fminf(__fadd_rn(heard, __fmul_rn(__fmul_rn(supply, novelty), a.p_ok)), vf);
       }
-      const float cov = a.bulk_cov[i];
-      const bool member = a.bulk_member[i];
-      const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(cov, sel), a.p_ok), 0.0f), 1.0f);
-      const float p_learn = __fsub_rn(1.0f, integer_pow(__fsub_rn(1.0f, x), a.G));
-      const float grown =
-          fminf(fmaxf(__fadd_rn(cov, __fmul_rn(__fsub_rn(1.0f, cov), p_learn)), 0.0f), 1.0f);
-      const float cov_new = member ? grown : 0.0f;
-      const bool done = member && cov_new >= kCommitBar;
-      a.bulk_heard_out[i] = heard;
-      a.bulk_cov_out[i] = cov_new;
-      v[0] += done ? static_cast<double>(cov_new) : 0.0;
-      v[1] += member && !done ? 1.0 : 0.0;
     }
-  } else {
-    for (int64_t i = grid_start(); i < N; i += grid_stride()) {
-      a.bulk_heard_out[i] = a.bulk_heard[i];
-      a.bulk_cov_out[i] = a.bulk_cov[i];
-    }
+    a.carry[i] = heard;
   }
-  double tot[2];
-  if (grid_sum<2>(v, sums(a), tot)) {
-    publish(a, kRemoved, tot[0]);
-    publish(a, kVNew, tot[1]);
-  }
-}
+  block_partials<2>(p2, red2, a.partials + kUp, kResults);
+  stamp(a.partials, 3);
+  grid.sync();
+  double t2[2];
+  grid_totals<2>(a.partials + kUp, kResults, red2, t2);
+  stamp(a.partials, 4);
 
-__global__ void __launch_bounds__(kThreads) bulk_commit_kernel(const __grid_constant__ BulkArgs a) {
-  const bool live = result(a, kV) > 0.0;
-  const float removed = __double2float_rn(result(a, kRemoved));
-  const float v_new = __double2float_rn(result(a, kVNew));
-  for (int64_t i = grid_start(); i < a.N; i += grid_stride()) {
-    const bool member = a.bulk_member[i];
-    if (!live) {
-      a.bulk_member_out[i] = member;
-      a.committed_dead_out[i] = a.committed_dead[i];
-      continue;
-    }
-    const float cov = a.bulk_cov_out[i];
-    const bool done = member && cov >= kCommitBar;
-    a.bulk_heard_out[i] = fminf(fmaxf(__fsub_rn(a.bulk_heard_out[i], removed), 0.0f), v_new);
-    if (done) a.bulk_cov_out[i] = 0.0f;
-    a.bulk_member_out[i] = member && !done;
-    a.committed_dead_out[i] = a.committed_dead[i] || done;
+  // 3. advance: the members' coverage, and what the commit removes
+  const float n_up = fmaxf(__double2float_rn(t2[0]), 1.0f);
+  const float mean_supply = __fdiv_rn(__double2float_rn(t2[1]), n_up);
+  const float sel = fminf(__fmul_rn(__frcp_rn(fmaxf(mean_supply, 1.0f)), a.cap), 1.0f);
+  double p3[2] = {0.0, 0.0};  // removed, v_new
+  for (int64_t i = tid; i < N; i += stride) {
+    if (!__ldg(&a.bulk_member[i])) continue;
+    const float cov = grown(__ldg(&a.bulk_cov[i]), sel, a.p_ok, G);
+    if (cov >= kCommitBar) p3[0] += static_cast<double>(cov);
+    else p3[1] += 1.0;
   }
+  block_partials<2>(p3, red2, a.partials + kRemoved, kResults);
+  stamp(a.partials, 5);
+  grid.sync();
+  double t3[2];
+  grid_totals<2>(a.partials + kRemoved, kResults, red2, t3);
+  stamp(a.partials, 6);
+
+  // 4. commit, in place where a value changes: a row's leaves are read and
+  // written by its own thread alone; the carry was written before the
+  // barriers
+  const float removed = __double2float_rn(t3[0]);
+  const float v_new = __double2float_rn(t3[1]);
+  for (int64_t i = tid; i < N; i += stride) {
+    const float old_heard = a.bulk_heard[i];
+    const float heard = fminf(fmaxf(__fsub_rn(__ldcg(&a.carry[i]), removed), 0.0f), v_new);
+    if (__float_as_uint(heard) != __float_as_uint(old_heard)) a.bulk_heard[i] = heard;
+    const float old_cov = a.bulk_cov[i];
+    float cov = 0.0f;
+    if (a.bulk_member[i]) {
+      cov = grown(old_cov, sel, a.p_ok, G);
+      if (cov >= kCommitBar) {
+        cov = 0.0f;
+        a.bulk_member[i] = 0;
+        if (!a.committed_dead[i]) a.committed_dead[i] = 1;
+      }
+    }
+    if (__float_as_uint(cov) != __float_as_uint(old_cov)) a.bulk_cov[i] = cov;
+  }
+  stamp(a.partials, 7);
 }
 
 }  // namespace
 
-// One bulk step: the four launches above into the four *_out leaves.
-// offs: [G] int32 on the device, 1 <= G <= 16; group and node_ok both
-// given (the nemesis build) or both null; scratch: kResults + 1 + 2 *
-// scratch_blocks u64, its count zeroed once (grid_sum resets it).
-extern "C" int bulk_step(const void* bulk_member, const void* bulk_heard, const void* bulk_cov,
-                         const void* up, const void* member, const void* committed_dead,
-                         const void* offs, const void* group, const void* node_ok, int64_t N,
-                         int G, float cap, float p_ok, void* scratch, int scratch_blocks,
-                         void* bulk_member_out, void* bulk_heard_out, void* bulk_cov_out,
-                         void* committed_dead_out, void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || G < 1 || G > kMaxViews || scratch_blocks < 1 ||
-      (group == nullptr) != (node_ok == nullptr)) {
+// One bulk step, in place on the four leaves.  offsets: a host pointer to
+// the ring offsets' randint DrawSpec (mode RANDINT, n = G with 1 <= G <=
+// 16, range >= 1; its out is not used); group and node_ok both given (the
+// nemesis build) or both null; partials: kResults * scratch_blocks
+// doubles; carry: N floats.  Neither scratch needs a reset.
+extern "C" int bulk_step(void* bulk_member, void* bulk_heard, void* bulk_cov, const void* up,
+                         const void* member, void* committed_dead, const void* offsets,
+                         const void* group, const void* node_ok, int64_t N, float cap,
+                         float p_ok, void* partials, int scratch_blocks, void* carry,
+                         void* stream) {
+  if (offsets == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const DrawSpec& offs = *static_cast<const DrawSpec*>(offsets);
+  if (N < 1 || N >= (int64_t{1} << 31) || offs.n < 1 || offs.n > kMaxViews ||
+      offs.range == 0 || scratch_blocks < 1 || (group == nullptr) != (node_ok == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BulkArgs a;
-  a.bulk_member = static_cast<const uint8_t*>(bulk_member);
-  a.bulk_heard = static_cast<const float*>(bulk_heard);
-  a.bulk_cov = static_cast<const float*>(bulk_cov);
+  a.bulk_member = static_cast<uint8_t*>(bulk_member);
+  a.bulk_heard = static_cast<float*>(bulk_heard);
+  a.bulk_cov = static_cast<float*>(bulk_cov);
   a.up = static_cast<const uint8_t*>(up);
   a.member = static_cast<const uint8_t*>(member);
-  a.committed_dead = static_cast<const uint8_t*>(committed_dead);
-  a.offs = static_cast<const int32_t*>(offs);
+  a.committed_dead = static_cast<uint8_t*>(committed_dead);
   a.group = static_cast<const int16_t*>(group);
   a.node_ok = static_cast<const float*>(node_ok);
   a.N = N;
-  a.G = G;
   a.cap = cap;
   a.p_ok = p_ok;
-  a.scratch = static_cast<u64*>(scratch);
-  a.bulk_member_out = static_cast<uint8_t*>(bulk_member_out);
-  a.bulk_heard_out = static_cast<float*>(bulk_heard_out);
-  a.bulk_cov_out = static_cast<float*>(bulk_cov_out);
-  a.committed_dead_out = static_cast<uint8_t*>(committed_dead_out);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static int count_card = 0, supply_card = 0, advance_card = 0, commit_card = 0;
-  bulk_count_kernel<<<persistent_blocks(bulk_count_kernel, kThreads, N, scratch_blocks,
-                                        count_card),
-                      kThreads, 0, s>>>(a);
-  cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  bulk_supply_kernel<<<persistent_blocks(bulk_supply_kernel, kThreads, N, scratch_blocks,
-                                         supply_card),
-                       kThreads, 0, s>>>(a);
-  rc = cudaGetLastError();
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  bulk_advance_kernel<<<persistent_blocks(bulk_advance_kernel, kThreads, N, scratch_blocks,
-                                          advance_card),
-                        kThreads, 0, s>>>(a);
-  rc = cudaGetLastError();
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  bulk_commit_kernel<<<persistent_blocks(bulk_commit_kernel, kThreads, N, 1 << 20,
-                                         commit_card),
-                       kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.partials = static_cast<double*>(partials);
+  a.carry = static_cast<float*>(carry);
+  a.offs = offs;
+  static int per_card = 0;
+  const int blocks = persistent_blocks(bulk_kernel, kThreads, N, scratch_blocks, per_card);
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(bulk_kernel), dim3(blocks), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream)));
 }

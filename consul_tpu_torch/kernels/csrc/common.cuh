@@ -123,6 +123,39 @@ __device__ bool grid_sum(const T (&v)[K], u64* scratch, T (&tot)[K]) {
   return true;
 }
 
+// Sums of K per-thread values over a cooperative grid, in two halves
+// around the caller's grid barrier.  block_partials writes each block's
+// sums into its own slots, part[blockIdx.x * stride + k]; after the
+// barrier grid_totals gives every block the same totals: thread t adds the
+// partials of blocks t, t + blockDim.x, ... in that order, then the block
+// adds its threads' sums in block_sum's fixed shuffle order, so every
+// block, and every launch of the same grid, gets the same bits.  No slot
+// needs a reset (each launch overwrites its own).  Every thread of every
+// block must call both.  (K14's float sums, in doubles: every block reads
+// every block's partials, so the reads grow with the grid's square.)
+template <int K, typename T>
+__device__ void block_partials(const T (&v)[K], T (&red)[K][32], T* part, int stride) {
+  block_sum<K>(v, red);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) part[static_cast<int64_t>(blockIdx.x) * stride + k] = red[k][0];
+  }
+}
+
+template <int K, typename T>
+__device__ void grid_totals(const T* part, int stride, T (&red)[K][32], T (&tot)[K]) {
+  T mine[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) mine[k] = 0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) mine[k] += __ldcg(&part[static_cast<int64_t>(b) * stride + k]);
+  }
+  block_sum<K>(mine, red);
+#pragma unroll
+  for (int k = 0; k < K; ++k) tot[k] = red[k][0];
+}
+
 // --- random bits -----------------------------------------------------------
 
 // The key schedule of threefry2x32 for key (k0, k1), as the host also
@@ -240,6 +273,46 @@ __device__ __forceinline__ float scaled(float u, float lo, float span) {
 __device__ __forceinline__ float normal_float(float u, float lo, float span) {
   return __fmul_rn(__uint_as_float(0x3fb504f3u),   // float32(sqrt(2))
                    erf_inv(scaled(u, lo, span)));
+}
+
+// One draw of a K1 launch as the host fills it (kernels/__init__.py:
+// DrawSpec): its output and element count, the key schedules (the stream,
+// then randint's second), the mode (threefry.cu's Mode) and the constants
+// that finish an element.  K14 takes a randint spec with no output and
+// draws its ring offsets itself.
+struct DrawSpec {
+  void* out;
+  int64_t n;
+  uint32_t sched[16];   // key schedules: the stream, then randint's second
+  int32_t mode;
+  float lo;
+  float span;
+  uint32_t minval;
+  uint32_t range;
+  uint32_t mult;
+};
+static_assert(sizeof(DrawSpec) == 104, "DrawSpec layout changed: update kernels/__init__.py");
+
+// jax.random.randint's elements hi * 2^32 + lo + j (j < L) of the randint
+// spec d: b1 and b2 the elements' bits of split(key)'s two streams (d's
+// two key schedules), ((b1 % range) * mult + b2 % range) % range + minval
+// in 32-bit wrapping arithmetic, mult = (2^16 % range)^2 mod 2^32 % range
+// from the host (0 for ranges above 2^16, as jax computes it).  K1's
+// RANDINT mode and K14's ring offsets.
+template <int L>
+__device__ __forceinline__ void randint_lanes(const DrawSpec& d, uint32_t hi, uint32_t lo,
+                                              uint32_t (&v)[L]) {
+  ThreefryKey key;
+  uint32_t b1[L], b2[L];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) key.k[j] = d.sched[j];
+  threefry_lanes<L>(key, hi, lo, b1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) key.k[j] = d.sched[8 + j];
+  threefry_lanes<L>(key, hi, lo, b2);
+  const uint32_t span = d.range, mult = d.mult;
+#pragma unroll
+  for (int j = 0; j < L; ++j) v[j] = ((b1[j] % span) * mult + b2[j] % span) % span + d.minval;
 }
 
 // --- slot rows -------------------------------------------------------------

@@ -8,19 +8,36 @@
 // _maps_convert): slots outside the mask scatter -1 (max) or 1 << 30 (min)
 // into index 0.
 //
-// One launch each, a thread per node over a grid-stride loop.  The <= 64
-// table entries (or <= A allocated pairs) sit in shared memory, and node i
-// scans the ones whose subject is i and takes their max (min): the same
-// value as the scatter, with no atomics.  The masked entries' write into
-// index 0 is applied by node 0 as the scatter applies it.  The maps are
+// subject_maps, one launch: block b owns the contiguous nodes [b * kRange,
+// (b + 1) * kRange), kRange a multiple of 4.  In its prelude warp 0 reads
+// the <= 64-entry table once (a lane a slot, two ballots) and lists in
+// shared memory the active entries whose subject falls in the block's
+// range, with their kind and value (the slot, or for an alive rumor
+// r_inc * U + slot, wrapping as lax's int32 arithmetic).  At N = 1M and U =
+// 32 nearly every block's list is empty.  Then each thread writes 4
+// consecutive nodes of each of the four maps as one 16-byte store: -1, or
+// the largest value among its list entries of that kind and node (the
+// scatter's max; the masked entries' -1 into index 0 changes nothing in a
+// map that starts at -1).  A group that is not 16-byte aligned (a map at
+// an odd offset, as the rows of a [4, N] block with N % 4 != 0 are) or
+// that runs past N (the ragged tail) is stored element by element.  No
+// node scans the table.
+//
+// map_add and maps_convert update their maps in place, one warp each:
+// map_add applies atomicMax(&map[subject], slot) for each pair under ok,
+// and atomicMax(&map[0], -1) when any pair is masked; maps_convert applies
+// atomicMin(&suspect_of[subject], -1) and atomicMax(&dead_of[subject], u)
+// for each converting slot u, and atomicMin(&suspect_of[0], 1 << 30),
+// atomicMax(&dead_of[0], -1) when not every slot converts.  That is the
+// reference's scatter, entry by entry; max and min do not depend on the
+// order, so the atomics give the same map on every run.  The maps are
 // never rebuilt from the table by the updates: after an eviction they are
 // stale by design (swim.py:_maps), and map_add/maps_convert keep them so.
 //
 // Bound on an H100: memory.  subject_maps writes 4 x 4 bytes a node (16 MB
-// at N = 1M, ~0.005 ms at 3.35 TB/s).  map_add and maps_convert, updating
-// in place, need only their <= 64 entries and the 32-byte map sectors at
-// their subjects (a few KB, ~0): these kernels read and write whole maps
-// (8 and 16 MB) because their outputs are fresh.
+// at N = 1M, ~0.005 ms at 3.35 TB/s).  map_add and maps_convert need only
+// their <= 64 entries and the 32-byte map sectors at their subjects (a few
+// KB, ~0): launch latency.
 
 #include "common.cuh"
 
@@ -29,8 +46,22 @@ using namespace consul_kernels;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int64_t kRange = 4 * kThreads;  // nodes a block owns
 constexpr int kAlive = 0, kSuspect = 1, kDead = 2, kLeft = 3;
 constexpr int32_t kBig = 1 << 30;
+
+// The 4 nodes i0 .. i0 + 3 of one map: a 16-byte store where they lie in
+// [0, N) and the address is 16-byte aligned, else one store a node.
+__device__ __forceinline__ void store4(int32_t* map, int64_t i0, int64_t N, const int32_t (&v)[4]) {
+  int32_t* p = map + i0;
+  if (i0 + 4 <= N && aligned16(p)) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (i0 + j < N) p[j] = v[j];
+}
 
 __global__ void __launch_bounds__(kThreads)
 subject_maps_kernel(const uint8_t* __restrict__ r_active, const int8_t* __restrict__ r_kind,
@@ -38,118 +69,104 @@ subject_maps_kernel(const uint8_t* __restrict__ r_active, const int8_t* __restri
                     int64_t N, int U, int32_t* __restrict__ suspect_of,
                     int32_t* __restrict__ dead_of, int32_t* __restrict__ left_of,
                     int32_t* __restrict__ alive_val) {
+  // the block's list: subject, kind (the map it goes to) and value
   __shared__ int32_t s_subj[64], s_val[64];
-  __shared__ int8_t s_kind[64];
-  __shared__ uint64_t s_active;
+  __shared__ int8_t s_map[64];
+  __shared__ int s_count;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * kRange;
   if (threadIdx.x < 32) {
-    const uint64_t m = warp_slot_mask(r_active, U);
-    if (threadIdx.x == 0) s_active = m;
-  }
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    const int kind = r_kind[u];
-    s_subj[u] = r_subject[u];
-    s_kind[u] = static_cast<int8_t>(kind);
-    s_val[u] = kind == kAlive ? wrap_add(wrap_mul(r_inc[u], U), u) : u;
+    const int lane = threadIdx.x;
+    int base = 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int u = lane + 32 * half;
+      bool in = false;
+      int32_t subj = 0, val = 0;
+      int kind = -1;
+      if (u < U && r_active[u]) {
+        kind = r_kind[u];
+        subj = r_subject[u];
+        in = kind >= kAlive && kind <= kLeft && subj >= lo && subj < lo + kRange;
+        val = kind == kAlive ? wrap_add(wrap_mul(r_inc[u], U), u) : u;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const int at = base + __popc(m & ((1u << lane) - 1u));
+        s_subj[at] = subj;
+        s_val[at] = val;
+        s_map[at] = static_cast<int8_t>(kind);
+      }
+      base += __popc(m);
+    }
+    if (lane == 0) s_count = base;
   }
   __syncthreads();
-  const uint64_t active = s_active;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
-    int32_t sus = -1, dead = -1, left = -1, alive = -1;
-    for (uint64_t m = active; m; m &= m - 1) {
-      const int u = __ffsll(m) - 1;
-      if (s_subj[u] != i) continue;
-      const int32_t v = s_val[u];
-      switch (s_kind[u]) {
-        case kSuspect: sus = v > sus ? v : sus; break;
-        case kDead: dead = v > dead ? v : dead; break;
-        case kLeft: left = v > left ? v : left; break;
-        case kAlive: alive = v > alive ? v : alive; break;
-        default: break;
-      }
+  const int count = s_count;
+  const int64_t i0 = lo + 4 * static_cast<int64_t>(threadIdx.x);
+  if (i0 >= N) return;
+  int32_t sus[4], dead[4], left[4], alive[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sus[j] = dead[j] = left[j] = alive[j] = -1;
+  for (int k = 0; k < count; ++k) {
+    const int64_t at = s_subj[k] - i0;
+    if (at < 0 || at >= 4) continue;
+    const int32_t v = s_val[k];
+    const int kind = s_map[k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (at != j) continue;
+      if (kind == kSuspect) sus[j] = max(sus[j], v);
+      else if (kind == kDead) dead[j] = max(dead[j], v);
+      else if (kind == kLeft) left[j] = max(left[j], v);
+      else alive[j] = max(alive[j], v);
     }
-    suspect_of[i] = sus;
-    dead_of[i] = dead;
-    left_of[i] = left;
-    alive_val[i] = alive;
   }
+  store4(suspect_of, i0, N, sus);
+  store4(dead_of, i0, N, dead);
+  store4(left_of, i0, N, left);
+  store4(alive_val, i0, N, alive);
 }
 
-// map.at[where(ok, subjects, 0)].max(where(ok, slots, -1))
-__global__ void __launch_bounds__(kThreads)
-map_add_kernel(const int32_t* __restrict__ map, const int32_t* __restrict__ subjects,
+// map.at[where(ok, subjects, 0)].max(where(ok, slots, -1)), in place
+__global__ void __launch_bounds__(32)
+map_add_kernel(int32_t* __restrict__ map, const int32_t* __restrict__ subjects,
                const int32_t* __restrict__ slots, const uint8_t* __restrict__ ok, int64_t N,
-               int A, int32_t* __restrict__ out) {
-  __shared__ int32_t s_subj[64], s_slot[64];
-  __shared__ int s_pairs, s_masked;
-  if (threadIdx.x == 0) {
-    int n = 0;
-    bool masked = false;
-    for (int k = 0; k < A; ++k) {
-      if (ok[k]) {
-        s_subj[n] = subjects[k];
-        s_slot[n++] = slots[k];
-      } else {
-        masked = true;
-      }
+               int A) {
+  const int lane = threadIdx.x;
+  bool masked = false;
+  for (int k = lane; k < A; k += 32) {
+    if (!ok[k]) {
+      masked = true;
+      continue;
     }
-    s_pairs = n;
-    s_masked = masked;
+    const int32_t subj = subjects[k];
+    if (subj >= 0 && subj < N) atomicMax(&map[subj], slots[k]);
   }
-  __syncthreads();
-  const int pairs = s_pairs;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
-    int32_t v = map[i];
-    for (int k = 0; k < pairs; ++k) {
-      if (s_subj[k] == i && s_slot[k] > v) v = s_slot[k];
-    }
-    if (i == 0 && s_masked && v < -1) v = -1;
-    out[i] = v;
-  }
+  if (__any_sync(0xffffffffu, masked) && lane == 0) atomicMax(&map[0], -1);
 }
 
 // suspect_of.at[where(convert, subject, 0)].min(where(convert, -1, 1 << 30))
-// dead_of.at[where(convert, subject, 0)].max(where(convert, slot, -1))
-__global__ void __launch_bounds__(kThreads)
-maps_convert_kernel(const int32_t* __restrict__ suspect_of, const int32_t* __restrict__ dead_of,
+// dead_of.at[where(convert, subject, 0)].max(where(convert, slot, -1)),
+// both in place
+__global__ void __launch_bounds__(32)
+maps_convert_kernel(int32_t* __restrict__ suspect_of, int32_t* __restrict__ dead_of,
                     const uint8_t* __restrict__ convert, const int32_t* __restrict__ r_subject,
-                    int64_t N, int U, int32_t* __restrict__ suspect_out,
-                    int32_t* __restrict__ dead_out) {
-  __shared__ int32_t s_subj[64];
-  __shared__ uint64_t s_convert;
-  if (threadIdx.x < 32) {
-    const uint64_t m = warp_slot_mask(convert, U);
-    if (threadIdx.x == 0) s_convert = m;
+                    int64_t N, int U) {
+  const int lane = threadIdx.x;
+  const uint64_t conv = warp_slot_mask(convert, U);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int u = lane + 32 * half;
+    if (!((conv >> u) & 1ull)) continue;
+    const int32_t subj = r_subject[u];
+    if (subj < 0 || subj >= N) continue;
+    atomicMin(&suspect_of[subj], -1);
+    atomicMax(&dead_of[subj], u);
   }
-  for (int u = threadIdx.x; u < U; u += blockDim.x) s_subj[u] = r_subject[u];
-  __syncthreads();
-  const uint64_t conv = s_convert;
-  const bool masked = conv != all_slots(U);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
-    int32_t sus = suspect_of[i], dead = dead_of[i];
-    for (uint64_t m = conv; m; m &= m - 1) {
-      const int u = __ffsll(m) - 1;
-      if (s_subj[u] != i) continue;
-      sus = sus < -1 ? sus : -1;
-      dead = dead > u ? dead : u;
-    }
-    if (i == 0 && masked) {
-      sus = sus < kBig ? sus : kBig;
-      dead = dead > -1 ? dead : -1;
-    }
-    suspect_out[i] = sus;
-    dead_out[i] = dead;
+  if (conv != all_slots(U) && lane == 0) {
+    atomicMin(&suspect_of[0], kBig);
+    atomicMax(&dead_of[0], -1);
   }
-}
-
-int node_blocks(int64_t N) {
-  const int64_t need = (N + kThreads - 1) / kThreads;
-  return static_cast<int>(need < 2048 ? need : 2048);
 }
 
 }  // namespace
@@ -160,7 +177,9 @@ extern "C" int subject_maps(const void* r_active, const void* r_kind, const void
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  subject_maps_kernel<<<node_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t blocks = (N + kRange - 1) / kRange;
+  subject_maps_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(r_active), static_cast<const int8_t*>(r_kind),
       static_cast<const int32_t*>(r_subject), static_cast<const int32_t*>(r_inc), N, U,
       static_cast<int32_t*>(suspect_of), static_cast<int32_t*>(dead_of),
@@ -168,27 +187,26 @@ extern "C" int subject_maps(const void* r_active, const void* r_kind, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int map_add(const void* map, const void* subjects, const void* slots,
-                       const void* ok, int64_t N, int A, void* out, void* stream) {
+// map: [N] int32, updated in place.
+extern "C" int map_add(void* map, const void* subjects, const void* slots, const void* ok,
+                       int64_t N, int A, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || A < 1 || A > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  map_add_kernel<<<node_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(map), static_cast<const int32_t*>(subjects),
-      static_cast<const int32_t*>(slots), static_cast<const uint8_t*>(ok), N, A,
-      static_cast<int32_t*>(out));
+  map_add_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(map), static_cast<const int32_t*>(subjects),
+      static_cast<const int32_t*>(slots), static_cast<const uint8_t*>(ok), N, A);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int maps_convert(const void* suspect_of, const void* dead_of, const void* convert,
-                            const void* r_subject, int64_t N, int U, void* suspect_out,
-                            void* dead_out, void* stream) {
+// suspect_of, dead_of: [N] int32, updated in place.
+extern "C" int maps_convert(void* suspect_of, void* dead_of, const void* convert,
+                            const void* r_subject, int64_t N, int U, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  maps_convert_kernel<<<node_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(suspect_of), static_cast<const int32_t*>(dead_of),
-      static_cast<const uint8_t*>(convert), static_cast<const int32_t*>(r_subject), N, U,
-      static_cast<int32_t*>(suspect_out), static_cast<int32_t*>(dead_out));
+  maps_convert_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(suspect_of), static_cast<int32_t*>(dead_of),
+      static_cast<const uint8_t*>(convert), static_cast<const int32_t*>(r_subject), N, U);
   return static_cast<int>(cudaGetLastError());
 }

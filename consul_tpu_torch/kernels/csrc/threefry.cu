@@ -20,7 +20,9 @@
 //   RANDINT      two streams (the host passes split(key)'s two schedules):
 //                ((hi % span) * mult + lo % span) % span + minval in 32-bit
 //                wrapping arithmetic, mult = (2^16 % span)^2 mod 2^32 % span
-//                from the host (0 for spans above 2^16, as jax computes it).
+//                from the host (0 for spans above 2^16, as jax computes it;
+//                common.cuh:randint_lanes, which K14 shares for its ring
+//                offsets).
 //
 // Float steps are explicitly rounded (__fmul_rn, __fadd_rn), so nvcc does
 // not contract a multiply and an add into an FMA: the plain twin on the
@@ -56,19 +58,8 @@ constexpr int kThreads = 256;
 constexpr int kPer = 4;                       // elements a thread
 constexpr int64_t kTile = kThreads * kPer;    // elements a block
 
-// One segment as the host fills it (kernels/__init__.py:DrawSpec).
-struct DrawSpec {
-  void* out;
-  int64_t n;
-  uint32_t sched[16];   // key schedules: the stream, then randint's second
-  int32_t mode;
-  float lo;
-  float span;
-  uint32_t minval;
-  uint32_t range;
-  uint32_t mult;
-};
-static_assert(sizeof(DrawSpec) == 104, "DrawSpec layout changed: update kernels/__init__.py");
+// A segment is a common.cuh:DrawSpec, as the host fills it
+// (kernels/__init__.py:DrawSpec).
 
 struct DrawTable {
   int first_tile[kMaxSegments];   // unused entries hold the total tile count
@@ -80,28 +71,23 @@ struct DrawTable {
 // 16-byte aligned, else (kTail) element by element.
 template <int M, bool kTail>
 __device__ __forceinline__ void draw4(const DrawSpec& d, int64_t i) {
-  ThreefryKey key;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) key.k[j] = d.sched[j];
   const uint32_t hi = static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32);
   const uint32_t lo = static_cast<uint32_t>(i);
-  uint32_t b[kPer], v[kPer];
-  threefry_lanes<kPer>(key, hi, lo, b);
+  uint32_t v[kPer];
   if (M == kRandint) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) key.k[j] = d.sched[8 + j];
-    uint32_t b2[kPer];
-    threefry_lanes<kPer>(key, hi, lo, b2);
-    const uint32_t span = d.range, mult = d.mult;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      v[j] = ((b[j] % span) * mult + b2[j] % span) % span + d.minval;
-  } else if (M == kBits) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) v[j] = b[j];
+    randint_lanes<kPer>(d, hi, lo, v);   // common.cuh, shared with K14
   } else {
+    ThreefryKey key;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) key.k[j] = d.sched[j];
+    uint32_t b[kPer];
+    threefry_lanes<kPer>(key, hi, lo, b);
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
+      if (M == kBits) {
+        v[j] = b[j];
+        continue;
+      }
       const float u = unit_float(b[j]);
       float f;
       if (M == kUniform) f = scaled(u, d.lo, d.span);

@@ -200,9 +200,9 @@ class SwimState:
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(SwimState)
                       if f.name not in ("tick", "bulk_live"))
 
-# the leaves K7, K8, K10, K11 and K12 update in place on the card (K7 writes
-# awareness only with Lifeguard's awareness_max > 0; the dense expiry's K8
-# call writes ORIGINATE_INPLACE besides K11's own leaves)
+# the leaves K7, K8, K10, K11, K12 and K14 update in place on the card (K7
+# writes awareness only with Lifeguard's awareness_max > 0; the dense
+# expiry's K8 call writes ORIGINATE_INPLACE besides K11's own leaves)
 PROBE_INPLACE = ("know", "learn_tick", "sends_left", "awareness", "sus_start",
                  "sus_confirm", "sus_count", "r_confirm", "ctr")
 ORIGINATE_INPLACE = ("know", "learn_tick", "sends_left", "committed_dead",
@@ -218,6 +218,8 @@ REFUTE_INPLACE = ("incarnation", "awareness", "know", "learn_tick",
                   "sends_left", "r_kind", "r_inc", "r_start")
 FREE_INPLACE = ("know", "sends_left", "committed_dead", "committed_left",
                 "committed_inc", "r_active", "r_coverage")
+# K14's bulk step, on every tick while the bulk channel is live
+BULK_INPLACE = ("bulk_member", "bulk_heard", "bulk_cov", "committed_dead")
 
 
 def _writable(s: SwimState, fields, what: str) -> None:
@@ -234,6 +236,24 @@ def _writable(s: SwimState, fields, what: str) -> None:
             raise ValueError(f"{what} writes {f} and {seen[at]} in place: "
                              f"they share storage")
         seen[at] = f
+
+
+def _writable_maps(maps: dict, what: str) -> None:
+    """Raise unless each [N] map a K9 update writes in place is contiguous
+    and overlaps no other map it writes (the rows of _maps' [4, N] block
+    share one storage, not bytes)."""
+    spans = []
+    for name, t in maps.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what} writes {name} in place: it must be "
+                             f"contiguous")
+        lo = t.data_ptr()
+        hi = lo + t.numel() * t.element_size()
+        for other, a, b in spans:
+            if lo < b and a < hi:
+                raise ValueError(f"{what} writes {name} and {other} in "
+                                 f"place: they share storage")
+        spans.append((name, lo, hi))
 
 
 def init_state(params: SwimParams, key=None, n_initial: int = 0,
@@ -369,14 +389,14 @@ def _maps_plain(params: SwimParams, s: SwimState):
 
 def _maps(params: SwimParams, s: SwimState):
     """The four [N] int32 subject maps (suspect_of, dead_of, left_of,
-    alive_val), built once a probe tick; on CUDA tensors one K9 launch."""
+    alive_val), built once a probe tick; on CUDA tensors one K9 launch
+    writes them as the rows of one [4, N] block."""
     if not s.know.is_cuda:
         return _maps_plain(params, s)
-    maps = tuple(torch.empty(params.n_nodes, dtype=I32, device=s.device)
-                 for _ in range(4))
+    maps = torch.empty((4, params.n_nodes), dtype=I32, device=s.device)
     kernels.launch_subject_maps(s.r_active, s.r_kind, s.r_subject, s.r_inc,
                                 *maps)
-    return maps
+    return tuple(maps)
 
 
 def _map_add_plain(map_n, subjects, slots, ok):
@@ -388,12 +408,13 @@ def _map_add_plain(map_n, subjects, slots, ok):
 def _map_add(map_n, subjects, slots, ok):
     """map_n with an origination's (subject, slot) pairs under `ok` added
     (not rebuilt from the table: after an eviction the maps stay stale by
-    design); on CUDA tensors one K9 launch."""
+    design).  On CUDA tensors one K9 launch consumes map_n: it updates it
+    in place and returns map_n itself."""
     if not map_n.is_cuda:
         return _map_add_plain(map_n, subjects, slots, ok)
-    out = torch.empty_like(map_n)
-    kernels.launch_map_add(map_n, subjects, slots, ok, out)
-    return out
+    _writable_maps({"map": map_n}, "K9 map_add")
+    kernels.launch_map_add(map_n, subjects, slots, ok)
+    return map_n
 
 
 def _maps_convert_plain(maps, s: SwimState, convert: torch.Tensor):
@@ -410,15 +431,16 @@ def _maps_convert_plain(maps, s: SwimState, convert: torch.Tensor):
 
 def _maps_convert(maps, s: SwimState, convert: torch.Tensor):
     """The maps with the converting [U] slots' subjects moved from
-    suspect_of to dead_of; on CUDA tensors one K9 launch (left_of and
-    alive_val pass through)."""
+    suspect_of to dead_of (left_of and alive_val pass through).  On CUDA
+    tensors one K9 launch consumes the maps: it updates suspect_of and
+    dead_of in place and returns the maps it was given."""
     if not s.know.is_cuda:
         return _maps_convert_plain(maps, s, convert)
     suspect_of, dead_of, left_of, alive_val = maps
-    sus, dead = torch.empty_like(suspect_of), torch.empty_like(dead_of)
-    kernels.launch_maps_convert(suspect_of, dead_of, convert, s.r_subject,
-                                sus, dead)
-    return sus, dead, left_of, alive_val
+    _writable_maps({"suspect_of": suspect_of, "dead_of": dead_of},
+                   "K9 maps_convert")
+    kernels.launch_maps_convert(suspect_of, dead_of, convert, s.r_subject)
+    return suspect_of, dead_of, left_of, alive_val
 
 
 def _onehot(cols: torch.Tensor, u: int) -> torch.Tensor:
@@ -1161,32 +1183,30 @@ def _bulk_step_plain(params: SwimParams, s: SwimState) -> SwimState:
 
 
 def _bulk_step(params: SwimParams, s: SwimState) -> SwimState:
-    """_bulk_step_plain's result; on CUDA tensors K14 (after K1's draw of
-    the ring offsets) writes it into fresh tensors with no host sync, its
-    float sums in an order of its own (bulk_heard and bulk_cov within
-    ulps of the twin's)."""
+    """_bulk_step_plain's result.  On CUDA tensors one K14 launch (a
+    cooperative count, supply, advance and commit, its ring offsets drawn
+    inside it from the same randint spec as rolls.offsets') consumes s:
+    it updates BULK_INPLACE in place where values change, with no host
+    sync, and the state returned holds s's tensors.  Its float sums run in
+    an order of its own (bulk_heard and bulk_cov within ulps of the
+    twin's)."""
     global bulk_steps
     bulk_steps += 1
     if not s.know.is_cuda:
         return _bulk_step_plain(params, s)
-    offs = rolls.offsets(prng.tick_key(params.seed, s.tick, 4),
-                         params.n_nodes, params.gossip_nodes, s.device)
-    e = torch.empty_like
-    out = dict(bulk_member_out=e(s.bulk_member),
-               bulk_heard_out=e(s.bulk_heard), bulk_cov_out=e(s.bulk_cov),
-               committed_dead_out=e(s.committed_dead))
+    _writable(s, BULK_INPLACE, "K14")
+    offsets = prng.randint_spec(rolls.offsets_draw(
+        prng.tick_key(params.seed, s.tick, 4), params.n_nodes,
+        params.gossip_nodes))
     kernels.launch_bulk_step(
         bulk_member=s.bulk_member, bulk_heard=s.bulk_heard,
         bulk_cov=s.bulk_cov, up=s.up, member=s.member,
-        committed_dead=s.committed_dead, offs=offs,
+        committed_dead=s.committed_dead, offsets=offsets,
         group=s.chaos_grp if params.chaos else None,
         node_ok=s.chaos_ok if params.chaos else None,
         cap=float(np.float32(params.packet_msgs)),
-        p_ok=float(np.float32(1.0 - params.p_loss)), **out)
-    return s.replace(committed_dead=out["committed_dead_out"],
-                     bulk_member=out["bulk_member_out"],
-                     bulk_heard=out["bulk_heard_out"],
-                     bulk_cov=out["bulk_cov_out"])
+        p_ok=float(np.float32(1.0 - params.p_loss)))
+    return s
 
 
 def _expire_plain(params: SwimParams, s: SwimState) -> SwimState:
@@ -1261,7 +1281,10 @@ def step_with_obs(params: SwimParams, s: SwimState):
     """Advance the whole cluster one gossip tick (swim.py:1320-1354).
     Returns (state, obs); obs is None on ticks without a probe round.
     On the card a probe tick consumes s: K7, K8 and K10-K12 update its
-    tensors in place, so a caller that reads s again steps s.clone()."""
+    tensors in place (and K9 the tick's own maps).  So does every tick
+    with the bulk channel live, gossip-only ticks included: K14 updates
+    BULK_INPLACE in place.  A caller that reads s again steps
+    s.clone()."""
     obs = None
     if s.tick % params.probe_period_ticks == 0:
         maps = _maps(params, s)
@@ -1279,7 +1302,8 @@ def step_with_obs(params: SwimParams, s: SwimState):
 
 
 def step(params: SwimParams, s: SwimState) -> SwimState:
-    """step_with_obs's state (on the card it consumes s on a probe tick)."""
+    """step_with_obs's state (on the card it consumes s on a probe tick
+    and on every tick with the bulk channel live)."""
     return step_with_obs(params, s)[0]
 
 

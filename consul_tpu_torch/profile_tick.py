@@ -7,6 +7,7 @@ the device's busy and idle share.
     python -m consul_tpu_torch.profile_tick kernels [n_nodes]
     python -m consul_tpu_torch.profile_tick draws [n_nodes]
     python -m consul_tpu_torch.profile_tick k12k13 [n_nodes]
+    python -m consul_tpu_torch.profile_tick k9k14 [n_nodes]
 
 Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
@@ -27,8 +28,12 @@ and the ring observation (K13) on the inputs the bench run hands them at
 its first probe ticks after the kill that neither refute nor free a slot,
 that refute and that free one; it spies on the swim and vivaldi entry
 points through their module attributes, so it also times an older
-tree's passes when that tree's package comes first on PYTHONPATH.
-Prints one JSON line; needs a CUDA device.
+tree's passes when that tree's package comes first on PYTHONPATH.  The
+`k9k14` form does the same for the subject maps' build and updates (K9)
+at the bench run's first probe ticks after the kill that convert no
+suspect slot and that convert one, and for the bulk step (K14) at the
+correlated bench's mid-drain and on the empty channel of the tick
+before its overflow.  Prints one JSON line; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -261,7 +266,8 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     two from one torch.profiler capture of `reps` calls; copies and
     memsets left out of both).  The passes that update the state in place
     on the card (K7 and K8 in `probe_round`, K10, K11 and K8 in the dense
-    expiry, K12, K13's window) get a clone of it a call, made before the
+    expiry, K12, K13's window, K14) or the maps (K9's updates,
+    `probe_round`'s map_add) get a clone of it a call, made before the
     fenced window and outside the profiler's capture."""
     p, sw = params.swim, s.swim
     while sw.tick % p.probe_period_ticks:
@@ -277,11 +283,13 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fns = {
         "maps": lambda: swim._maps(p, sw),
-        "probe_round": (sw.clone, lambda st: swim._probe_round(p, st, maps)),
-        "map_add": lambda: swim._map_add(maps[0], *alloc),
+        "probe_round": (lambda: (sw.clone(), copy_maps(maps)),
+                        lambda a: swim._probe_round(p, a[0], a[1])),
+        "map_add": (maps[0].clone, lambda m: swim._map_add(m, *alloc)),
         "suspicion_expiry": (sw.clone,
                              lambda st: swim._suspicion_expiry(p, st)),
-        "maps_convert": lambda: swim._maps_convert(maps, sw, convert),
+        "maps_convert": (lambda: copy_maps(maps),
+                         lambda m: swim._maps_convert(m, sw, convert)),
         "dense_suspicion_expiry": (sw.clone, lambda st: (
             swim._dense_suspicion_expiry(p, st, obs.shift, maps))),
         "refutation": (sw.clone, lambda st: swim._refutation(p, st)),
@@ -295,8 +303,15 @@ def _pass_times(params, s, dev, reps: int = 5) -> dict:
     }
     bp = correlated.bench_params(p.n_nodes)
     bs = correlated.mid_drain(bp, dev)
-    fns["bulk_step"] = lambda: swim._bulk_step(bp, bs)
+    fns["bulk_step"] = (bs.clone, lambda st: swim._bulk_step(bp, st))
     return _time_passes(fns, dev, reps)
+
+
+def copy_maps(maps) -> tuple:
+    """The four subject maps copied into the rows of one [4, N] block, as
+    swim._maps writes them: what a caller keeps of maps it hands to K9's
+    updates, which consume them on the card."""
+    return tuple(torch.stack(maps))
 
 
 def _time_passes(fns: dict, dev, reps: int) -> dict:
@@ -439,6 +454,88 @@ def k12_k13_times(n_nodes: int = 1_000_000, ticks: int = 400) -> dict:
             "at": out}
 
 
+def k9_k14_times(n_nodes: int = 1_000_000, ticks: int = 400) -> dict:
+    """K9's build, map_add and maps_convert, each timed on the inputs the
+    bench run hands it at two probe ticks after the kill: the first whose
+    suspicion expiry converts no slot ("quiet") and the first that
+    converts one; and K14 at the correlated bench's mid-drain and on the
+    empty channel of the probe tick before its overflow.  Per call: device
+    ms (kernel_ms), call ms (median_ms) and device kernels; every call
+    takes a copy of its input, made outside the timed window (the card's
+    updates consume it)."""
+    dev, params, s = _setup(n_nodes)
+    p = params.swim
+    real = {"maps": swim._maps, "map_add": swim._map_add,
+            "maps_convert": swim._maps_convert}
+    seen: dict = {}
+
+    def spy_maps(pp, st):
+        seen["maps"] = _copy(st)
+        return real["maps"](pp, st)
+
+    def spy_add(m, *pairs):
+        seen["map_add"] = (m.clone(), tuple(x.clone() for x in pairs))
+        return real["map_add"](m, *pairs)
+
+    def spy_convert(maps, st, conv):
+        seen["maps_convert"] = (copy_maps(maps), _copy(st), conv.clone())
+        seen["converted"] = int(conv.sum())
+        return real["maps_convert"](maps, st, conv)
+
+    picked: dict = {}
+    swim._maps, swim._map_add = spy_maps, spy_add
+    swim._maps_convert = spy_convert
+    try:
+        for _ in range(ticks):
+            seen.clear()
+            s = serf.step(params, s)
+            if "maps_convert" not in seen:
+                continue
+            kind = "converting" if seen["converted"] else "quiet"
+            picked.setdefault(kind, dict(seen, tick=s.swim.tick - 1))
+            if len(picked) == 2:
+                break
+    finally:
+        swim._maps, swim._map_add = real["maps"], real["map_add"]
+        swim._maps_convert = real["maps_convert"]
+    out = {}
+    for kind, got in picked.items():
+        m, pairs = got["map_add"]
+        cmaps, cst, conv = got["maps_convert"]
+        calls = {
+            "subject_maps": (lambda x: swim._maps(p, x),
+                             lambda g=got: g["maps"]),
+            "map_add": (lambda x, a=pairs: swim._map_add(x, *a), m.clone),
+            "maps_convert": (lambda x, st=cst, c=conv: swim._maps_convert(
+                x, st, c), lambda c=cmaps: copy_maps(c))}
+        out[kind] = {"tick": got["tick"], "converted": got["converted"],
+                     "pairs": int(pairs[2].sum())}
+        for name, (fn, make) in calls.items():
+            x = make()
+            out[kind][name] = {
+                "device_ms": kernel_ms(fn, make=make),
+                "call_ms": median_ms(fn, make=make),
+                "kernels": sum(kernels_of(lambda: fn(x)).values())}
+    bp = correlated.bench_params(n_nodes)
+    bulk = {"mid-drain": correlated.mid_drain(bp, dev)}
+    s, mask = correlated.start(bp, correlated.FRACTION, correlated.SEED, dev)
+    for _ in range(4096):
+        before = _copy(s)
+        s, _, _ = correlated.run_chunk(bp, s, 1, mask)
+        if bool(s.bulk_member.any()):
+            bulk["empty"] = before
+            break
+    for kind, st in bulk.items():
+        fn = lambda x: swim._bulk_step(bp, x)  # noqa: E731
+        out[f"bulk_step {kind}"] = {
+            "tick": st.tick, "members": int(st.bulk_member.sum()),
+            "device_ms": kernel_ms(fn, make=st.clone),
+            "call_ms": median_ms(fn, make=st.clone),
+            "kernels": sum(kernels_of(lambda: fn(st.clone())).values())}
+    return {"device": torch.cuda.get_device_name(dev), "n_nodes": n_nodes,
+            "at": out}
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -453,5 +550,7 @@ if __name__ == "__main__":
         print(json.dumps(draw_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k12k13"]:
         print(json.dumps(k12_k13_times(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["k9k14"]:
+        print(json.dumps(k9_k14_times(*[int(a) for a in sys.argv[2:]])))
     else:
         print(json.dumps(main(*[int(a) for a in sys.argv[1:]])))

@@ -254,6 +254,16 @@ def _segment(d: Draw, out: torch.Tensor) -> kernels.Segment:
                            span=span)
 
 
+def randint_spec(d: Draw) -> kernels.DrawSpec:
+    """K1's table entry for a randint Draw that a kernel draws for itself,
+    with no output: K14's ring offsets (rolls.offsets' draw)."""
+    if d.kind != "randint":
+        raise ValueError(f"randint_spec takes a randint draw, got {d.kind!r}")
+    span, mult = _randint_span(d.minval, d.maxval)
+    return kernels.randint_spec(tuple(split(d.key, 2)), _numel(d.shape),
+                                int(d.minval), span, mult)
+
+
 def draw_segments(draws, device):
     """K1's inputs for these draws on a CUDA device: each draw's output,
     allocated, and the kernels.Segment of each non-empty one."""

@@ -11,11 +11,12 @@ warp (N = 15 at U = 16 and N = 6 at U = 8); chaos (the overflow off),
 subject and maps left stale by an eviction are edits of those states.
 Int/bool leaves bit-equal, float leaves within rtol 1e-6 (the swim
 tests' tolerance).  Then the kernels' decompositions, transcribed in
-numpy and held to the twins under hypothesis: K9's per-node lookup, K10's
-column or then apply, K11's writes of want[j] from thread i and its
-overflow count, K12's refutation and its coverage counted over the
-refuted columns.  Last, the ctypes side: argument order parsed from the
-C signatures, rejected tensors, no twin on a card-flagged tensor.
+numpy and held to the twins under hypothesis: K9's block-range build
+and its atomic patches in any order, K10's column or then apply, K11's
+writes of want[j] from thread i and its overflow count, K12's
+refutation and its coverage counted over the refuted columns.  Last,
+the ctypes side: argument order parsed from the C signatures, rejected
+tensors, no twin on a card-flagged tensor.
 """
 
 import dataclasses
@@ -340,84 +341,143 @@ def _np(s):
             for k, v in convert.swim_state_to_numpy(s).items()}
 
 
-def maps_transcription(d, n, u):
-    """subject_maps_kernel: node i scans the active slots whose subject is
-    i and keeps the largest value of each kind (-1 when none)."""
+MAP_RANGE = 1024      # maps.cu's kRange: the nodes a block owns
+
+
+def maps_transcription(d, n, u, block_range=MAP_RANGE, offsets=(0, 0, 0, 0)):
+    """subject_maps_kernel: block b owns the nodes [b * R, (b + 1) * R);
+    its warp lists the active entries of kinds 0-3 whose subject falls in
+    that range, in lane order (slots 0-31, then 32-63); thread t writes
+    the 4 nodes from lo + 4t of each map: -1, or the largest listed value
+    of that kind and node.  A map at element offset `offsets[m]` from a
+    16-byte boundary (a row of a [4, N] block) takes one int4 store where
+    the group is aligned and whole, else one store a node.  Returns the
+    maps and the (vector, scalar) store counts."""
     out = np.full((4, n), -1, np.int64)
-    for i in range(n):
+    stores = [0, 0]
+    row_of = {swim.SUSPECT: 0, swim.DEAD: 1, swim.LEFT: 2, swim.ALIVE: 3}
+    for lo in range(0, n, block_range):
+        listed = []
         for k in range(u):
-            if not d["r_active"][k] or d["r_subject"][k] != i:
-                continue
             kind = int(d["r_kind"][k])
-            if kind not in (0, 1, 2, 3):
-                continue
-            row = {swim.SUSPECT: 0, swim.DEAD: 1, swim.LEFT: 2,
-                   swim.ALIVE: 3}[kind]
-            v = _i32(int(d["r_inc"][k]) * u + k) if kind == swim.ALIVE else k
-            out[row, i] = max(out[row, i], v)
-    return out.astype(np.int32)
+            subj = int(d["r_subject"][k])
+            if d["r_active"][k] and kind in row_of \
+                    and lo <= subj < lo + block_range:
+                v = _i32(int(d["r_inc"][k]) * u + k) if kind == swim.ALIVE \
+                    else k
+                listed.append((subj, row_of[kind], v))
+        for i0 in range(lo, min(lo + block_range, n), 4):
+            group = np.full((4, 4), -1, np.int64)
+            for subj, row, v in listed:
+                if 0 <= subj - i0 < 4:
+                    group[row, subj - i0] = max(group[row, subj - i0], v)
+            for row in range(4):
+                if i0 + 4 <= n and (offsets[row] + i0) % 4 == 0:
+                    out[row, i0:i0 + 4] = group[row]
+                    stores[0] += 1
+                else:
+                    for j in range(4):
+                        if i0 + j < n:
+                            out[row, i0 + j] = group[row, j]
+                            stores[1] += 1
+    return out.astype(np.int32), stores
 
 
-def map_add_transcription(m, subj, slots, ok):
+def map_add_transcription(m, subj, slots, ok, order):
+    """map_add_kernel: atomicMax(&map[subject], slot) for each pair under
+    ok, in `order` (the warp's atomics land in any order), and
+    atomicMax(&map[0], -1) when a pair is masked."""
     out = m.copy()
-    for i in range(len(m)):
-        v = int(m[i])
-        for k in range(len(subj)):
-            if ok[k] and subj[k] == i:
-                v = max(v, int(slots[k]))
-        if i == 0 and not ok.all():
-            v = max(v, -1)
-        out[i] = v
+    for k in order:
+        if ok[k] and 0 <= subj[k] < len(m):
+            out[subj[k]] = max(out[subj[k]], slots[k])
+    if not ok.all():
+        out[0] = max(out[0], -1)
     return out
 
 
-def maps_convert_transcription(sus, dead, conv, subject):
+def maps_convert_transcription(sus, dead, conv, subject, order):
+    """maps_convert_kernel: atomicMin(&suspect_of[subject], -1) and
+    atomicMax(&dead_of[subject], u) for each converting slot u, in
+    `order`; atomicMin(&suspect_of[0], 1 << 30) and atomicMax(&dead_of[0],
+    -1) when not every slot converts."""
     s2, d2 = sus.copy(), dead.copy()
-    for i in range(len(sus)):
-        a, b = int(sus[i]), int(dead[i])
-        for k in range(len(conv)):
-            if conv[k] and subject[k] == i:
-                a, b = min(a, -1), max(b, k)
-        if i == 0 and not conv.all():
-            a, b = min(a, 1 << 30), max(b, -1)
-        s2[i], d2[i] = a, b
+    for k in order:
+        if conv[k] and 0 <= subject[k] < len(sus):
+            s2[subject[k]] = min(s2[subject[k]], -1)
+            d2[subject[k]] = max(d2[subject[k]], k)
+    if not conv.all():
+        s2[0], d2[0] = min(s2[0], 1 << 30), max(d2[0], -1)
     return s2, d2
 
 
 @settings(max_examples=40, deadline=None)
 @given(seed=st.integers(0, 2 ** 16), n=st.integers(1, 40),
-       u=st.sampled_from((1, 3, 8, 16, 33)))
-def test_k9_per_node_lookup_matches_the_scatters(seed, n, u):
-    """maps.cu's three kernels, node by node, against the scatter twins:
-    duplicate subjects, negative and wrapping alive values, masked
-    entries into index 0."""
+       u=st.sampled_from((1, 3, 8, 16, 33, 64)),
+       block_range=st.sampled_from((4, 8, 12, MAP_RANGE)),
+       layout=st.sampled_from(("random", "block boundaries", "one block")),
+       offset=st.integers(0, 3))
+def test_k9_per_node_lookup_matches_the_scatters(seed, n, u, block_range,
+                                                 layout, offset):
+    """maps.cu's build, block by block, against _maps_plain: block ranges
+    (a few nodes, so a small pool spans several), int4 groups and their
+    element-wise fallback (a map off a 16-byte boundary, as the rows of
+    the [4, N] block are when N % 4 != 0), a ragged tail, subjects on
+    either side of a block boundary, every entry in one block, duplicate
+    subjects, negative and wrapping alive values."""
     s = _random_state(seed, n, u)
     rng = np.random.default_rng(seed)
-    r_inc = s.r_inc.clone()
-    r_inc[0] = -7 if u > 0 else r_inc[0]
-    s = s.replace(r_inc=r_inc)
     d = _np(s)
+    d["r_inc"][0] = -7
+    if layout == "block boundaries":
+        edges = [x for b in range(block_range, n, block_range)
+                 for x in (b - 1, b)] or [0, n - 1]
+        d["r_subject"][:] = np.asarray(edges)[rng.integers(0, len(edges), u)]
+    elif layout == "one block":
+        lo = int(rng.integers(0, n)) // block_range * block_range
+        d["r_subject"][:] = rng.integers(lo, min(lo + block_range, n), u)
+    s = convert.swim_state_from_numpy(dict(d, tick=np.int32(s.tick)),
+                                      device="cpu")
     p = _params_for(n, u)
-    got = maps_transcription(d, n, u)
+    offsets = tuple((offset + m * n) % 4 for m in range(4))
+    got, stores = maps_transcription(d, n, u, block_range, offsets)
     for row, m in zip(got, swim._maps_plain(p, s)):
         np.testing.assert_array_equal(row, m.numpy())
+    if n % 4:
+        assert stores[1] > 0      # the ragged tail
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2 ** 16), n=st.integers(1, 40),
+       u=st.sampled_from((1, 3, 8, 16, 33, 64)), a=st.integers(1, 64))
+def test_k9_atomic_patches_match_the_scatters(seed, n, u, a):
+    """map_add's and maps_convert's atomics, applied in place in two
+    shuffled orders, give the same maps, and those of the scatter twins:
+    duplicate subjects, masked pairs and non-converting slots into index
+    0."""
+    s = _random_state(seed, n, u)
+    rng = np.random.default_rng(seed)
+    d = _np(s)
+    p = _params_for(n, u)
     maps = swim._maps_plain(p, s)
-    a = int(rng.integers(1, 9))
     subj = rng.integers(0, n, a).astype(np.int32)
-    slots = rng.integers(0, u, a).astype(np.int32)
-    ok = rng.random(a) < 0.5
-    np.testing.assert_array_equal(
-        map_add_transcription(maps[1].numpy(), subj, slots, ok),
-        swim._map_add_plain(maps[1], torch.from_numpy(subj),
-                            torch.from_numpy(slots),
-                            torch.from_numpy(ok)).numpy())
-    conv = rng.random(u) < 0.5
-    got_s, got_d = maps_convert_transcription(maps[0].numpy(),
-                                              maps[1].numpy(), conv,
-                                              d["r_subject"])
+    subj[rng.random(a) < 0.3] = subj[0]
+    slots = rng.integers(-1, u, a).astype(np.int32)
+    ok = rng.random(a) < rng.choice((0.5, 1.0))
+    ref = swim._map_add_plain(maps[1], torch.from_numpy(subj),
+                              torch.from_numpy(slots),
+                              torch.from_numpy(ok)).numpy()
+    for order in (rng.permutation(a), rng.permutation(a)):
+        np.testing.assert_array_equal(
+            map_add_transcription(maps[1].numpy(), subj, slots, ok, order),
+            ref)
+    conv = rng.random(u) < rng.choice((0.5, 1.0))
     ref = swim._maps_convert_plain(maps, s, torch.from_numpy(conv))
-    np.testing.assert_array_equal(got_s, ref[0].numpy())
-    np.testing.assert_array_equal(got_d, ref[1].numpy())
+    for order in (rng.permutation(u), rng.permutation(u)):
+        got_s, got_d = maps_convert_transcription(
+            maps[0].numpy(), maps[1].numpy(), conv, d["r_subject"], order)
+        np.testing.assert_array_equal(got_s, ref[0].numpy())
+        np.testing.assert_array_equal(got_d, ref[1].numpy())
 
 
 def _expiry_prelude(d, p, n, u):
@@ -885,8 +945,15 @@ def _leaves(s):
 
 
 def test_k9_ctypes_order(monkeypatch):
+    """The build writes the four rows of one [4, N] block; map_add and
+    maps_convert update the maps they are given in place and return
+    them."""
     params, s, maps, rec = _card_state(monkeypatch)
     out = swim._maps(params, s)
+    assert out[0].untyped_storage().data_ptr() == \
+        out[3].untyped_storage().data_ptr()
+    assert [m.data_ptr() - out[0].data_ptr() for m in out] == \
+        [4 * 40 * k for k in range(4)]
     _assert_pointers(rec, "subject_maps", dict(
         _leaves(s), **dict(zip(("suspect_of", "dead_of", "left_of",
                                 "alive_val"), out))),
@@ -895,17 +962,16 @@ def test_k9_ctypes_order(monkeypatch):
              torch.tensor([1, 2], dtype=torch.int32),
              torch.tensor([True, False]))
     added = swim._map_add(maps[1], *pairs)
+    assert added is maps[1]
     _assert_pointers(rec, "map_add", dict(map=maps[1], subjects=pairs[0],
-                                          slots=pairs[1], ok=pairs[2],
-                                          out=added),
+                                          slots=pairs[1], ok=pairs[2]),
                      dict(N=40, A=2, stream=12345))
     conv = torch.zeros(16, dtype=torch.bool)
-    got = swim._maps_convert(maps, s, conv)
-    assert got[2] is maps[2] and got[3] is maps[3]   # passed through
+    got = swim._maps_convert(out, s, conv)
+    assert all(g is m for g, m in zip(got, out))   # in place, passed through
     _assert_pointers(rec, "maps_convert", dict(
-        suspect_of=maps[0], dead_of=maps[1], convert=conv,
-        r_subject=s.r_subject, suspect_out=got[0], dead_out=got[1]),
-        dict(N=40, U=16, stream=12345))
+        suspect_of=out[0], dead_of=out[1], convert=conv,
+        r_subject=s.r_subject), dict(N=40, U=16, stream=12345))
 
 
 def test_k10_ctypes_order(monkeypatch):
@@ -1052,11 +1118,10 @@ def _args(n=40, u=16, a=8):
             alive_val=z(n, dtype=i32))),
         "map_add": (kernels.launch_map_add, dict(
             map_n=z(n, dtype=i32), subjects=z(a, dtype=i32),
-            slots=z(a, dtype=i32), ok=z(a), out=z(n, dtype=i32))),
+            slots=z(a, dtype=i32), ok=z(a))),
         "maps_convert": (kernels.launch_maps_convert, dict(
             suspect_of=z(n, dtype=i32), dead_of=z(n, dtype=i32), convert=z(u),
-            r_subject=z(u, dtype=i32), suspect_out=z(n, dtype=i32),
-            dead_out=z(n, dtype=i32))),
+            r_subject=z(u, dtype=i32))),
         "suspicion_expiry": (kernels.launch_suspicion_expiry, dict(
             **rows, **table, up=z(n), member=z(n), committed_dead=z(n),
             committed_inc=z(n, dtype=i32), r_inc=z(u, dtype=i32),
@@ -1114,6 +1179,8 @@ BAD = {
         subjects=torch.zeros(65, dtype=torch.int32)), "pairs"),
     "convert shape": ("maps_convert", dict(
         r_subject=torch.zeros(8, dtype=torch.int32)), "r_subject"),
+    "convert dead_of shape": ("maps_convert", dict(
+        dead_of=torch.zeros(41, dtype=torch.int32)), "dead_of"),
     "expiry timeouts int32": ("suspicion_expiry", dict(
         timeouts=torch.zeros(65, dtype=torch.int32)), "timeout"),
     "expiry learn shape": ("suspicion_expiry", dict(
@@ -1184,14 +1251,26 @@ UNWRITABLE = {
     "K13 adj_window strided": (
         "ring", lambda c: dict(adj_window=c.adj_window.t().contiguous().t()),
         "contiguous"),
+    # K9's updates write the maps they are given
+    "K9 map_add map strided": (
+        "map_add", lambda m: (torch.stack([m[0], m[0]], 1)[:, 0], *m[1:]),
+        "contiguous"),
+    "K9 maps_convert dead_of is suspect_of": (
+        "maps_convert", lambda m: (m[0], m[0], *m[2:]), "share storage"),
+    "K9 maps_convert dead_of overlaps suspect_of": (
+        "maps_convert", lambda m: (lambda b: (b[:40], b[3:43], *m[2:]))(
+            torch.zeros(80, dtype=torch.int32)), "share storage"),
+    "K9 maps_convert suspect_of strided": (
+        "maps_convert", lambda m: (torch.stack([m[0], m[0]], 1)[:, 1],
+                                   *m[1:]), "contiguous"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNWRITABLE))
 def test_inplace_wrappers_reject_unwritable_leaves(monkeypatch, case):
-    """On the card K10's, K11's, K12's and K13's wrappers check every leaf
-    they write before launching: a strided or shared one raises, with no
-    launch and no twin."""
+    """On the card K9's updates and K10's, K11's, K12's and K13's wrappers
+    check every leaf or map they write before launching: a strided or
+    shared one raises, with no launch and no twin."""
     params, s, maps, rec = _card_state(monkeypatch)
     monkeypatch.setattr(vivaldi, "observe_ring_plain", lambda *a, **k:
                         pytest.fail("a twin ran on a card tensor"))
@@ -1200,6 +1279,8 @@ def test_inplace_wrappers_reject_unwritable_leaves(monkeypatch, case):
     c = vivaldi.init_state(vp, device="cpu")
     if which == "ring":
         c = c.replace(**edit(c))
+    elif which in ("map_add", "maps_convert"):
+        maps = edit(maps)
     else:
         s = s.replace(**edit(s))
     ones = torch.ones(40)
@@ -1210,7 +1291,12 @@ def test_inplace_wrappers_reject_unwritable_leaves(monkeypatch, case):
              "expire": lambda: swim._expire(params, s),
              "ring": lambda: vivaldi.observe_ring(
                  vp, c, torch.tensor(3, dtype=torch.int32), ones,
-                 ones.bool())}
+                 ones.bool()),
+             "map_add": lambda: swim._map_add(
+                 maps[0], torch.tensor([3], dtype=torch.int32),
+                 torch.tensor([1], dtype=torch.int32), torch.tensor([True])),
+             "maps_convert": lambda: swim._maps_convert(
+                 maps, s, torch.ones(16, dtype=torch.bool))}
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError, match=match):
         calls[which]()
@@ -1231,6 +1317,9 @@ def test_detector_wrappers_reject(monkeypatch, case):
 
 
 def test_kernel_constants_match_the_sources():
+    maps = (CSRC / "maps.cu").read_text()
+    assert "kThreads = 256;" in maps and "kRange = 4 * kThreads;" in maps
+    assert MAP_RANGE == 4 * 256
     expiry = (CSRC / "expiry.cu").read_text()
     assert "kAny = 0, kRead = 1;" in expiry
     assert kernels.EXPIRY_SCRATCH == 2

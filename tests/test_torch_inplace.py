@@ -1,19 +1,21 @@
-"""The in-place contract of K7, K8 and K10-K13, held on the CPU.
+"""The in-place contract of K7-K14, held on the CPU.
 
 On the card `swim._probe_pass` (K7), `swim._originate` (K8),
 `swim._suspicion_expiry` (K10), `swim._dense_suspicion_expiry` (K11
-around K8), `swim._refutation` and `swim._expire` (K12) update the swim
-state they are given in place, and `vivaldi.observe_ring` (K13) the
-window and adjustment of its Vivaldi state, so every step or command
-that reaches them consumes its state.  The CPU runs their pure twins,
-which cannot show a caller that reads a state again after passing it
-on.  The `consuming` fixture makes the CPU behave as the card's worst
-case: after each call of the seven wrappers it overwrites the input
-state's in-place leaves with a sentinel, except a leaf the output still
-holds.  Each caller the port ships must give the same results under it
-as without it; a caller that reads a consumed state again (as
-`GossipOracle.warmup` did when it ran its commands on the live pool)
-gives other results.
+around K8), `swim._refutation` and `swim._expire` (K12) and
+`swim._bulk_step` (K14) update the swim state they are given in place,
+`vivaldi.observe_ring` (K13) the window and adjustment of its Vivaldi
+state, and `swim._map_add` and `swim._maps_convert` (K9) the subject
+maps they are given, so every step or command that reaches them consumes
+its state (a tick with the bulk channel live, gossip-only or not,
+included).  The CPU runs their pure twins, which cannot show a caller
+that reads a state or a map again after passing it on.  The `consuming`
+fixture makes the CPU behave as the card's worst case: after each call
+of the ten wrappers it overwrites the input's in-place leaves or maps
+with a sentinel, except one the output still holds.  Each caller the
+port ships must give the same results under it as without it; a
+caller that reads a consumed state again (as `GossipOracle.warmup` did
+when it ran its commands on the live pool) gives other results.
 """
 
 import dataclasses
@@ -62,12 +64,20 @@ CONSUMERS = {
     "_refutation": (swim, swim.REFUTE_INPLACE, lambda out: out),
     "_expire": (swim, swim.FREE_INPLACE, lambda out: out),
     "observe_ring": (vivaldi, vivaldi.RING_INPLACE, lambda out: out),
+    "_bulk_step": (swim, swim.BULK_INPLACE, lambda out: out),
+}
+# K9's updates: (the maps a call consumes of its arguments, the maps its
+# output holds)
+MAP_CONSUMERS = {
+    "_map_add": (lambda args: [args[0]], lambda out: [out]),
+    "_maps_convert": (lambda args: list(args[0][:2]),
+                      lambda out: list(out[:2])),
 }
 
 
 @pytest.fixture
 def consuming(monkeypatch):
-    calls = {name: 0 for name in CONSUMERS}
+    calls = {name: 0 for name in (*CONSUMERS, *MAP_CONSUMERS)}
 
     def wrap(name, real, fields, state_of):
         def fn(params, s, *args):
@@ -77,9 +87,23 @@ def consuming(monkeypatch):
             return out
         return fn
 
+    def wrap_maps(name, real, taken, kept):
+        def fn(*args):
+            out = real(*args)
+            held = {m.untyped_storage().data_ptr() for m in kept(out)}
+            for m in taken(args):
+                if m.untyped_storage().data_ptr() not in held:
+                    m.fill_(SENTINEL[m.dtype])
+            calls[name] += 1
+            return out
+        return fn
+
     for name, (module, fields, state_of) in CONSUMERS.items():
         monkeypatch.setattr(module, name, wrap(name, getattr(module, name),
                                                fields, state_of))
+    for name, (taken, kept) in MAP_CONSUMERS.items():
+        monkeypatch.setattr(swim, name, wrap_maps(name, getattr(swim, name),
+                                                  taken, kept))
     return calls
 
 
@@ -129,6 +153,14 @@ def _correlated():
     return {k: v for k, v in row.items() if k != "wall_seconds"}
 
 
+def _correlated_bulk():
+    """A row whose kills overflow 8 rumor slots into the bulk channel."""
+    row = correlated.run(nodes=2048, fractions=[0.03], rumor_slots=[8],
+                         max_ticks=256, chunk=128, seed=7, device="cpu")[0]
+    assert row["bulk_ticks"] > 0
+    return {k: v for k, v in row.items() if k != "wall_seconds"}
+
+
 def _scenario(name):
     def run():
         violations, detail = chaos.SCENARIOS[name](7, n=128, device="cpu")
@@ -175,6 +207,7 @@ def _oracle():
 CALLERS = {
     "bench.run_convergence": _convergence,
     "correlated.run": _correlated,
+    "correlated.run (bulk channel)": _correlated_bulk,
     **{f"chaos {name}": _scenario(name) for name in sorted(chaos.SCENARIOS)},
     "wan.run": _wan,
     "leave_propagation": _leave,
@@ -183,14 +216,17 @@ CALLERS = {
 }
 # the callers that step the serf pool, whose probe ticks run K13
 SERF_CALLERS = {"bench.run_convergence", "wan.run", "GossipOracle"}
+# the callers whose runs fill the bulk channel (K14)
+BULK_CALLERS = {"correlated.run (bulk channel)"}
 
 
 @pytest.mark.parametrize("caller", sorted(CALLERS))
 def test_caller_never_reads_a_consumed_state(caller, request):
     """The caller gives the same results whether or not the states it
-    passes to K7, K8 and K10-K13 are consumed; the fixture was exercised,
-    a probe tick's K10-K12 among it, and K13 by every caller that runs the
-    serf pool."""
+    passes to K7, K8 and K10-K14 and the maps it passes to K9's updates
+    are consumed; the fixture was exercised, a probe tick's K9-K12 among
+    it, K13 by every caller that runs the serf pool and K14 by every
+    caller that fills the bulk channel."""
     ref = CALLERS[caller]()
     calls = request.getfixturevalue("consuming")
     got = CALLERS[caller]()
@@ -199,6 +235,9 @@ def test_caller_never_reads_a_consumed_state(caller, request):
     assert calls["_dense_suspicion_expiry"] > 0
     assert calls["_refutation"] > 0
     assert calls["_expire"] > 0
+    assert calls["_map_add"] > 0 and calls["_maps_convert"] > 0
+    if caller in BULK_CALLERS:
+        assert calls["_bulk_step"] > 0
     if caller != "GossipOracle":
         assert calls["_probe_pass"] > 0
     if caller in SERF_CALLERS:
@@ -231,7 +270,8 @@ def test_the_fixture_sees_a_caller_that_rereads_its_state(consuming):
     assert set(changed) <= {f"swim.{f}" for f in
                             swim.ORIGINATE_INPLACE + swim.PROBE_INPLACE
                             + swim.EXPIRY_INPLACE + swim.DENSE_INPLACE
-                            + swim.REFUTE_INPLACE + swim.FREE_INPLACE} \
+                            + swim.REFUTE_INPLACE + swim.FREE_INPLACE
+                            + swim.BULK_INPLACE} \
         | {f"coords.{f}" for f in vivaldi.RING_INPLACE}
 
 
@@ -247,6 +287,7 @@ def test_writable_rejects_shared_or_strided_leaves():
     swim._writable(s, swim.DENSE_INPLACE, "K11")
     swim._writable(s, swim.REFUTE_INPLACE, "K12")
     swim._writable(s, swim.FREE_INPLACE, "K12 expire")
+    swim._writable(s, swim.BULK_INPLACE, "K14")
     c = vivaldi.init_state(vivaldi.VivaldiParams(n_nodes=40), device="cpu")
     swim._writable(c, vivaldi.RING_INPLACE, "K13")
     with pytest.raises(ValueError, match="share storage"):
@@ -269,6 +310,13 @@ def test_writable_rejects_shared_or_strided_leaves():
     with pytest.raises(ValueError, match="share storage"):
         swim._writable(s.replace(bulk_cov=s.bulk_heard), swim.DENSE_INPLACE,
                        "K11")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable(s.replace(committed_dead=s.bulk_member),
+                       swim.BULK_INPLACE, "K14")
+    with pytest.raises(ValueError, match="contiguous"):
+        swim._writable(s.replace(bulk_heard=torch.stack(
+            [s.bulk_heard, s.bulk_heard], 1)[:, 0]), swim.BULK_INPLACE,
+            "K14")
     with pytest.raises(ValueError, match="contiguous"):
         swim._writable(s.replace(know=s.know.t().contiguous().t()),
                        swim.ORIGINATE_INPLACE, "K8")
@@ -297,3 +345,21 @@ def test_clone_owns_every_tensor():
     for f in dataclasses.fields(v):
         a, b = getattr(v, f.name), getattr(s.coords, f.name)
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_writable_maps_takes_the_rows_of_one_block():
+    """K9's check before an update in place: the rows of _maps' [4, N]
+    block share a storage but no bytes, so they pass; a map written twice
+    or overlapping another, or a strided one, raises."""
+    block = torch.zeros((4, 40), dtype=torch.int32)
+    swim._writable_maps({"suspect_of": block[0], "dead_of": block[1]}, "K9")
+    swim._writable_maps({"map": block[3]}, "K9")
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable_maps({"suspect_of": block[0], "dead_of": block[0]},
+                            "K9")
+    flat = block.view(-1)
+    with pytest.raises(ValueError, match="share storage"):
+        swim._writable_maps({"suspect_of": flat[:40], "dead_of": flat[39:79]},
+                            "K9")
+    with pytest.raises(ValueError, match="contiguous"):
+        swim._writable_maps({"map": block[:, 0]}, "K9")

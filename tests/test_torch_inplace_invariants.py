@@ -1,8 +1,9 @@
-"""What the in-place designs of K12 and K13 rest on, held on the JAX
-reference on the CPU, under hypothesis.
+"""What the in-place designs of K9's updates and K12-K14 rest on, held on
+the JAX reference on the CPU, under hypothesis.
 
-On the card K12's refutation and expire and K13's ring observation write
-only the cells that can change (refute.cu, vivaldi.cu).  Those kernels
+On the card K9's map_add and maps_convert, K12's refutation and expire,
+K13's ring observation and K14's bulk step write only the cells that can
+change (maps.cu, refute.cu, vivaldi.cu, bulk.cu).  Those kernels
 are right only if the reference itself changes nothing else, so each
 property draws a state with numpy from a seed, converts it with
 `convert.py` into the port's state and from there into the JAX one, runs
@@ -17,7 +18,13 @@ the JAX pass, and holds the change it made to those cells:
   subjects and node 0, know and sends_left only in the done columns, and
   learn_tick nowhere;
 - `observe_ring` changes adj_window only in column adj_index % W, and
-  only on acked rows.
+  only on acked rows;
+- `_bulk_commit(_bulk_disseminate(s))` changes bulk_cov only at members
+  and where the input is not 0, and bulk_member and committed_dead only
+  at the subjects it commits (members whose coverage reached the bar);
+- `_map_add` changes its map only at the subjects of its ok pairs and at
+  index 0, `_maps_convert` suspect_of and dead_of only at the converting
+  slots' subjects and at index 0.
 
 Each also holds the port's twin to the JAX result (int and bool leaves
 bit-equal; floats within the tolerances of test_torch_expiry.py and
@@ -40,6 +47,7 @@ from consul_tpu_torch import config, convert
 from consul_tpu_torch.models import swim, vivaldi
 
 SCALE_RTOL = 1e-5     # test_torch_ring_bulk.py's bound for the ring floats
+BULK_RTOL = 1e-5      # and for the bulk channel's
 
 
 def _swim_dict(seed: int, n: int, u: int, amax: int) -> dict:
@@ -202,3 +210,85 @@ def test_reference_ring_changes_one_window_column_on_acked_rows(
         ref, mine = np.asarray(getattr(out, f)), getattr(got, f).numpy()
         err = np.abs(mine.astype(np.float64) - ref).max()
         assert err <= SCALE_RTOL * max(np.abs(ref).max(), 1e-30), f
+
+
+@settings(max_examples=25, deadline=None)
+@given(seed=st.integers(0, 2 ** 16), n=st.sampled_from((1, 7, 40, 300)),
+       members=st.sampled_from((0.02, 0.3, 1.0)),
+       near_bar=st.sampled_from((0.0, 0.5, 1.0)), chaos=st.booleans())
+def test_reference_bulk_step_changes_only_what_k14_writes(seed, n, members,
+                                                          near_bar, chaos):
+    rng = np.random.default_rng(seed)
+    d = _swim_dict(seed, n, 8, 8)
+    bm = rng.random(n) < members
+    bm[0] |= not bm.any()
+    cov = rng.random(n).astype(np.float32)
+    close = rng.random(n) < near_bar
+    cov[close] = np.float32(0.993) + np.float32(0.007) * rng.random(
+        close.sum()).astype(np.float32)
+    cov[~bm & (rng.random(n) < 0.5)] = 0.0      # some non-members at 0
+    d.update(bulk_member=bm, bulk_cov=cov,
+             bulk_heard=(rng.random(n) * bm.sum() * 1.5).astype(np.float32))
+    if chaos:
+        d.update(chaos_grp=(rng.random(n) < 0.25).astype(np.int16),
+                 chaos_ok=np.where(rng.random(n) < 0.1, 0.55, 1.0).astype(
+                     np.float32))
+    jp, tp = _params(n, 8, 8)
+    jp = dataclasses.replace(jp, chaos=chaos)
+    tp = dataclasses.replace(tp, chaos=chaos)
+    js, ts = _pair(d)
+    out = jax_dict(jswim._bulk_commit(jp, jswim._bulk_disseminate(jp, js)))
+    before = jax_dict(js)
+    member = before["bulk_member"]
+    cov_moved = _changed(before["bulk_cov"].view(np.int32),
+                         out["bulk_cov"].view(np.int32))
+    assert not (cov_moved & ~member & (before["bulk_cov"] == 0)).any()
+    done = member & ~out["bulk_member"]
+    assert not (_changed(before["bulk_member"], out["bulk_member"])
+                & ~done).any()
+    assert not (_changed(before["committed_dead"], out["committed_dead"])
+                & ~done).any()
+    assert (out["committed_dead"][done]).all()
+    for f in before:
+        if f not in swim.BULK_INPLACE:
+            np.testing.assert_array_equal(out[f], before[f], err_msg=f)
+    got = convert.swim_state_to_numpy(swim._bulk_step_plain(tp, ts))
+    for f in ("bulk_member", "committed_dead"):
+        np.testing.assert_array_equal(got[f], out[f], err_msg=f)
+    for f in ("bulk_heard", "bulk_cov"):
+        err = np.abs(got[f].astype(np.float64) - out[f]).max()
+        assert err <= BULK_RTOL * max(np.abs(out[f]).max(), 1e-30), f
+
+
+@settings(max_examples=25, deadline=None)
+@given(seed=st.integers(0, 2 ** 16), shape=SHAPES, a=st.integers(1, 64))
+def test_reference_map_updates_change_only_what_k9_writes(seed, shape, a):
+    n, u = shape
+    rng = np.random.default_rng(seed)
+    d = _swim_dict(seed, n, u, 8)
+    jp, tp = _params(n, u, 8)
+    js, ts = _pair(d)
+    maps = jswim._maps(jp, js)
+    subj = rng.integers(0, n, a).astype(np.int32)
+    slots = rng.integers(-1, u, a).astype(np.int32)
+    ok = rng.random(a) < rng.choice((0.5, 1.0))
+    added = np.asarray(jswim._map_add(maps[2], jnp.asarray(subj),
+                                      jnp.asarray(slots), jnp.asarray(ok)))
+    moved = set(np.flatnonzero(_changed(maps[2], added)).tolist())
+    assert moved <= set(subj[ok].tolist()) | ({0} if not ok.all() else set())
+    np.testing.assert_array_equal(added, swim._map_add_plain(
+        torch.from_numpy(np.array(maps[2])), torch.from_numpy(subj),
+        torch.from_numpy(slots), torch.from_numpy(ok)).numpy())
+    conv = rng.random(u) < rng.choice((0.3, 1.0))
+    out = jswim._maps_convert(maps, js, jnp.asarray(conv))
+    nodes = set(d["r_subject"][conv].tolist()) \
+        | ({0} if not conv.all() else set())
+    for k in (0, 1):
+        moved = set(np.flatnonzero(_changed(maps[k], out[k])).tolist())
+        assert moved <= nodes, k
+    for k in (2, 3):
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(maps[k]))
+    tmaps = tuple(torch.from_numpy(np.array(m)) for m in maps)
+    got = swim._maps_convert_plain(tmaps, ts, torch.from_numpy(conv))
+    for k in range(4):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(out[k]))

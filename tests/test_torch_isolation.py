@@ -256,12 +256,15 @@ def test_draws_wrapper_rejects(case):
 
 
 def test_draw_spec_matches_the_kernel_source():
-    """kernels.DrawSpec has threefry.cu's DrawSpec fields, in order, with
-    their C types and the size the source asserts; the segment limit,
-    elements per thread and mode numbers are the source's; the key
-    schedule is the one common.cuh's threefry_key builds."""
-    text = (Path(kernels.__file__).parent / "csrc" / "threefry.cu").read_text()
-    body = re.search(r"struct DrawSpec \{(.*?)\};", text, re.S).group(1)
+    """kernels.DrawSpec has common.cuh's DrawSpec fields (K1's segment,
+    K14's ring offsets), in order, with their C types and the size the
+    source asserts; the segment limit, elements per thread and mode
+    numbers are threefry.cu's; the key schedule is the one common.cuh's
+    threefry_key builds."""
+    csrc = Path(kernels.__file__).parent / "csrc"
+    common = (csrc / "common.cuh").read_text()
+    text = (csrc / "threefry.cu").read_text()
+    body = re.search(r"struct DrawSpec \{(.*?)\};", common, re.S).group(1)
     c_types = {"void*": ctypes.c_void_p, "int64_t": ctypes.c_int64,
                "int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32,
                "float": ctypes.c_float}
@@ -277,7 +280,7 @@ def test_draw_spec_matches_the_kernel_source():
             for n, t in fields] == \
         [(n, ctypes.sizeof(t), getattr(t, "_type_", t))
          for n, t in kernels.DrawSpec._fields_]
-    size = int(re.search(r"sizeof\(DrawSpec\) == (\d+)", text).group(1))
+    size = int(re.search(r"sizeof\(DrawSpec\) == (\d+)", common).group(1))
     assert ctypes.sizeof(kernels.DrawSpec) == size
     assert int(re.search(r"kMaxSegments = (\d+);", text).group(1)) == \
         kernels.MAX_SEGMENTS

@@ -21,6 +21,13 @@ sum `removed`, summed in XLA's and torch's own orders, from every heard
 count, so an ulp of that sum is an absolute error on a heard count near
 0.
 
+K14's decomposition, transcribed in numpy and held to the twin under
+hypothesis: its ring offsets drawn from the randint spec its wrapper
+passes (rolls.offsets' draw, element by element), and its one launch's
+phase order (count, supply, advance, commit): every peer's old
+bulk_heard read before any leaf is written, only changed values written,
+and nothing written on an empty channel.
+
 On the CPU both wrappers take their twins (`serf.step` included); on a
 CUDA tensor they launch or raise, and raise when the kernel library
 cannot be loaded.
@@ -43,6 +50,8 @@ from consul_tpu.models import swim as jswim
 from consul_tpu.models import vivaldi as jviv
 from consul_tpu_torch import config, convert, kernels
 from consul_tpu_torch.models import serf, swim, vivaldi
+from consul_tpu_torch.ops import rolls
+from consul_tpu_torch.utils import prng
 
 SCALE_RTOL = 1e-5
 BULK_RTOL = 1e-5
@@ -275,6 +284,190 @@ def test_bulk_step_plain_property(n, seed, members, heard_over, near_bar,
 
 
 # ---------------------------------------------------------------------------
+# K14's decomposition: its offsets draw and its phase order
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+ROUNDS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def randint_transcription(spec, i: int) -> int:
+    """common.cuh:randint_lanes for element i of a randint DrawSpec: the
+    threefry2x32 rounds of threefry_lanes from each key schedule, folded
+    with the spec's range, multiplier and minval (int32)."""
+    def bits(k):
+        x0, x1 = (i >> 32) + k[0] & M32, (i & M32) + k[1] & M32
+        inject = ((k[1], k[3]), (k[2], k[4]), (k[0], k[5]), (k[1], k[6]),
+                  (k[2], k[7]))
+        for group, (a, b) in enumerate(inject):
+            for r in ROUNDS[group % 2]:
+                x0 = (x0 + x1) & M32
+                x1 = (((x1 << r) | (x1 >> (32 - r))) & M32) ^ x0
+            x0, x1 = (x0 + a) & M32, (x1 + b) & M32
+        return x0 ^ x1
+    sched = list(spec.sched)
+    b1, b2 = bits(sched[:8]), bits(sched[8:])
+    span = spec.range
+    v = (((b1 % span) * spec.mult + b2 % span) % span + spec.minval) & M32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+@settings(max_examples=30, deadline=None)
+@given(seed=st.integers(-2 ** 31, 2 ** 31 - 1), tick=st.integers(0, 2 ** 20),
+       n=st.sampled_from((2, 3, 15, 1000, 65_537, 1_000_000, 2 ** 31 - 1)),
+       g=st.integers(1, 16))
+def test_k14_draws_the_ring_offsets_of_rolls_offsets(seed, tick, n, g):
+    """The spec _bulk_step hands K14 (stream 4 of the tick, as the twin's
+    rolls.offsets) gives, element by element through the kernel's randint
+    steps, the offsets rolls.offsets draws."""
+    key = prng.tick_key(seed, tick, 4)
+    spec = prng.randint_spec(rolls.offsets_draw(key, n, g))
+    assert spec.n == g and spec.mode == kernels.DRAW_MODES.index("randint")
+    assert not spec.out
+    want = rolls.offsets(key, n, g, "cpu").tolist()
+    assert [randint_transcription(spec, i) for i in range(g)] == want
+
+
+def _grown(cov, sel, p_ok, g):
+    """bulk.cu:grown, each float32 step rounded (integer_pow's square and
+    multiply from the low bit)."""
+    f = np.float32
+    x = min(max(f(f(cov * sel) * p_ok), f(0)), f(1))
+    q, acc, y = f(1) - x, None, g
+    while y > 0:
+        if y & 1:
+            acc = q if acc is None else f(acc * q)
+        y >>= 1
+        if y > 0:
+            q = f(q * q)
+    p_learn = f(1) - acc
+    return min(max(f(cov + f(f(1) - cov) * p_learn), f(0)), f(1))
+
+
+def bulk_transcription(leaves, offs, cap, p_ok, chaos, threads):
+    """bulk.cu's launch on numpy leaves, `threads` grid threads taking
+    rows i, i + threads, ...: the count; with V = 0 nothing more.  Phases
+    1-3 read the leaves it updates as read-only arrays (a write raises),
+    so every peer's bulk_heard is read old; phase 4 writes a row's leaves
+    only where a value's bits change.  Sums in float64, each thread's in
+    its row order.  Returns (the four leaves after it, {leaf: rows
+    written})."""
+    f = np.float32
+    names = ("bulk_member", "bulk_heard", "bulk_cov", "committed_dead")
+    out = {k: leaves[k].copy() for k in names}
+    for a in out.values():
+        a.setflags(write=False)
+    bm, heard_in, cov_in, cd = (out[k] for k in names)
+    up, member = leaves["up"], leaves["member"]
+    n = len(bm)
+    rows = [range(t, n, threads) for t in range(threads)]
+    written = {k: set() for k in names}
+
+    def total(fn):
+        return sum(sum(fn(i) for i in r) for r in rows)
+
+    V = total(lambda i: float(bool(bm[i])))
+    if V == 0.0:
+        return out, written
+    vf = max(f(V), f(1))
+    carry = np.empty(n, np.float32)
+    for r in rows:                                  # 2. supply, heard'
+        for i in r:
+            heard = min(heard_in[i], vf)
+            if up[i] and member[i]:
+                for d in offs:
+                    j = (i + d) % n
+                    view = min(heard_in[j], vf) if up[j] else f(0)
+                    if chaos:
+                        view = f(f(view * leaves["chaos_ok"][j])
+                                 * leaves["chaos_ok"][i]) \
+                            if leaves["chaos_grp"][j] == \
+                            leaves["chaos_grp"][i] else f(0)
+                    supply = min(view, f(cap))
+                    novelty = f(1) - f(heard / vf)
+                    heard = min(f(heard + f(f(supply * novelty) * p_ok)), vf)
+            carry[i] = heard
+    n_up = max(f(total(lambda i: float(bool(up[i])))), f(1))
+    supply = f(total(lambda i: float(min(heard_in[i], vf)) if up[i]
+                     else 0.0))
+    sel = min(f(f(f(1) / max(f(supply / n_up), f(1))) * f(cap)), f(1))
+    g = len(offs)
+
+    def cov_of(i):                                  # 3. advance
+        return _grown(cov_in[i], sel, f(p_ok), g)
+
+    removed = f(total(lambda i: float(cov_of(i)) if bm[i]
+                      and cov_of(i) >= f(0.995) else 0.0))
+    v_new = f(total(lambda i: 1.0 if bm[i] and cov_of(i) < f(0.995)
+                    else 0.0))
+    for a in out.values():                          # 4. commit
+        a.setflags(write=True)
+
+    def put(name, i, v):
+        if out[name][i].tobytes() != np.asarray(
+                v, out[name].dtype).tobytes():
+            out[name][i] = v
+            written[name].add(i)
+
+    for r in rows:
+        for i in r:
+            put("bulk_heard", i, min(max(f(carry[i] - removed), f(0)), v_new))
+            cov = f(0)
+            if bm[i]:
+                cov = cov_of(i)
+                if cov >= f(0.995):
+                    cov = f(0)
+                    put("bulk_member", i, False)
+                    put("committed_dead", i, True)
+            put("bulk_cov", i, cov)
+    return out, written
+
+
+@settings(max_examples=40, deadline=None)
+@given(n=st.integers(5, 200), seed=st.integers(0, 2 ** 16),
+       members=st.sampled_from([0.0, 0.02, 0.3, 0.9]),
+       heard_over=st.sampled_from([0.0, 0.5, 1.0, 2.0]),
+       near_bar=st.sampled_from([0.0, 0.5, 1.0]), chaos=st.booleans(),
+       p_loss=st.sampled_from([0.0, 0.01, 0.3]),
+       threads=st.sampled_from([1, 7, 64]))
+def test_k14_phase_order_matches_the_twin(n, seed, members, heard_over,
+                                          near_bar, chaos, p_loss, threads):
+    """bulk.cu's one launch, phase by phase, against _bulk_step_plain:
+    bools equal, floats within BULK_RTOL of scale.  It writes bulk_member
+    and committed_dead only at the subjects the twin commits, bulk_cov
+    only at members and where a non-member's input is not +0, bulk_heard
+    only where the value changes, and nothing on an empty channel."""
+    jp, tp = _bulk_params(n, p_loss=p_loss, chaos=chaos, seed=seed % 97)
+    d = _bulk_leaves(n, seed, members, heard_over, near_bar, chaos)
+    ts = convert.swim_state_from_numpy(jax_dict(jswim.init_state(jp).replace(
+        **{k: jnp.asarray(v) for k, v in d.items()})), device="cpu")
+    leaves = convert.swim_state_to_numpy(ts)
+    offs = rolls.offsets(prng.tick_key(tp.seed, ts.tick, 4), n,
+                         tp.gossip_nodes, "cpu").tolist()
+    got, written = bulk_transcription(
+        leaves, offs, np.float32(tp.packet_msgs), np.float32(1 - tp.p_loss),
+        chaos, threads)
+    ref = convert.swim_state_to_numpy(swim._bulk_step_plain(tp, ts))
+    for name in ("bulk_member", "committed_dead"):
+        np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
+    for name in ("bulk_heard", "bulk_cov"):
+        _close(ref[name], got[name], name, rtol=BULK_RTOL)
+    bm = leaves["bulk_member"]
+    if not bm.any():
+        assert not any(written.values())
+        return
+    done = set(np.flatnonzero(bm & ~ref["bulk_member"]).tolist())
+    assert written["bulk_member"] == done
+    assert written["committed_dead"] <= done
+    cov_bits = leaves["bulk_cov"].view(np.int32)
+    assert written["bulk_cov"] <= set(np.flatnonzero(bm | (cov_bits != 0))
+                                      .tolist())
+    assert written["bulk_heard"] == set(np.flatnonzero(
+        got["bulk_heard"].view(np.int32)
+        != leaves["bulk_heard"].view(np.int32)).tolist())
+
+
+# ---------------------------------------------------------------------------
 # the wrappers: the twin on the CPU only; on a card the kernel or a raise
 # ---------------------------------------------------------------------------
 
@@ -324,8 +517,9 @@ def test_wrappers_raise_on_a_card_when_the_library_fails_to_load(
 @pytest.mark.parametrize("chaos", [False, True])
 def test_wrappers_hand_the_kernels_the_state(monkeypatch, chaos):
     """On a card tensor the wrappers call K13 and K14 with the state's
-    leaves (the nemesis build's groups and rates only under chaos), and
-    the bulk step draws its offsets from stream 4 of the tick."""
+    leaves (the nemesis build's groups and rates only under chaos), both
+    writing in place; the bulk step hands K14 the randint spec of stream
+    4 of the tick and draws no offsets itself."""
     seen = {}
 
     def record(name):
@@ -338,9 +532,10 @@ def test_wrappers_hand_the_kernels_the_state(monkeypatch, chaos):
     monkeypatch.setattr(kernels, "launch_bulk_step", record("bulk_step"))
     p, s, shift, rtt_ms, acked = _ring_call()
     tp, ts = _bulk_call(chaos)
-    offs = swim.rolls.offsets(swim.prng.tick_key(tp.seed, ts.tick, 4),
-                              tp.n_nodes, tp.gossip_nodes, "cpu")
-    monkeypatch.setattr(swim.rolls, "offsets", lambda *a: offs)
+    spec = prng.randint_spec(rolls.offsets_draw(
+        prng.tick_key(tp.seed, ts.tick, 4), tp.n_nodes, tp.gossip_nodes))
+    monkeypatch.setattr(swim.rolls, "offsets", lambda *a: pytest.fail(
+        "the bulk step drew its offsets with K1"))
     _on_card(monkeypatch)
     with pytest.raises(RuntimeError, match="vivaldi_ring launch failed"):
         vivaldi.observe_ring(p, s, shift, rtt_ms, acked)
@@ -355,7 +550,10 @@ def test_wrappers_hand_the_kernels_the_state(monkeypatch, chaos):
     assert ring["mean_factor"] == np.float32(1 / 20)
     assert ring["inv_rho"] == np.float32(1) / np.float32(150)
     bulk = seen["bulk_step"]
-    assert bulk["bulk_member"] is ts.bulk_member and bulk["offs"] is offs
+    for f in swim.BULK_INPLACE + ("up", "member"):
+        assert bulk[f] is getattr(ts, f), f
+    assert not any(k.endswith("_out") for k in bulk)
+    assert bytes(bulk["offsets"]) == bytes(spec)
     assert (bulk["group"] is ts.chaos_grp) == chaos
     assert (bulk["node_ok"] is None) != chaos
     assert bulk["cap"] == np.float32(tp.packet_msgs)
@@ -373,14 +571,18 @@ def _ring_args(n=16, d=8, w=20):
                 adjustment=f(n))
 
 
+def _spec(g=3, mode="randint", range_=15):
+    spec = kernels.randint_spec(((1, 2), (3, 4)), 1, 1, range_, 0)
+    spec.n, spec.mode = g, kernels.DRAW_MODES.index(mode)
+    return spec
+
+
 def _bulk_args(n=16, g=3):
     b = lambda: torch.zeros(n, dtype=torch.bool)  # noqa: E731
     f = lambda: torch.zeros(n)  # noqa: E731
     return dict(bulk_member=b(), bulk_heard=f(), bulk_cov=f(), up=b(),
-                member=b(), committed_dead=b(),
-                offs=torch.arange(1, g + 1, dtype=torch.int32), cap=30.0,
-                p_ok=0.99, bulk_member_out=b(), bulk_heard_out=f(),
-                bulk_cov_out=f(), committed_dead_out=b())
+                member=b(), committed_dead=b(), offsets=_spec(g), cap=30.0,
+                p_ok=0.99)
 
 
 BAD = {
@@ -396,10 +598,12 @@ BAD = {
     "ring shift int64": ("ring", dict(shift=torch.tensor(3)), "shift"),
     "ring window not contiguous": ("ring", dict(
         window=torch.zeros(20, 16).t()), "window"),
-    "bulk no offsets": ("bulk", dict(offs=torch.zeros(0, dtype=torch.int32)),
-                        "ring offsets"),
-    "bulk 17 offsets": ("bulk", dict(offs=torch.ones(17, dtype=torch.int32)),
-                        "ring offsets"),
+    "bulk no offsets": ("bulk", dict(offsets=_spec(0)), "ring offsets"),
+    "bulk 17 offsets": ("bulk", dict(offsets=_spec(17)), "ring offsets"),
+    "bulk offsets not randint": ("bulk", dict(offsets=_spec(3, "bits")),
+                                 "ring offsets"),
+    "bulk offsets a tensor": ("bulk", dict(offsets=torch.arange(
+        1, 4, dtype=torch.int32)), "ring offsets"),
     "bulk heard dtype": ("bulk", dict(bulk_heard=torch.zeros(16,
                                                              dtype=torch.float64)),
                          "bulk_heard"),
