@@ -92,11 +92,16 @@ Phases, each of which raises on failure (so the script exits non-zero):
      the full push, 660 churn ticks with 1,000 agents down for 300 of
      them, a final step): in_sync_fraction 1.0, the catalog's live count
      the desired live count, K6 twice a step and once an in_sync read,
-     its twins never; K6 bit-equal to its twins on the replayed states
-     and on random tables (M != K, all or none pushed, all INVALID, every
-     pushed id in the catalog, overflow, 2^21 rows), timed; the workload
-     at 4,096 services on the card and the CPU with the same digest
-     (ae_phase);
+     its twins never; K6 bit-equal to its twins (the diff in its plain
+     and step forms, the merge in step's and apply_push's) on the
+     replayed states and on random tables (M != K, all or none pushed,
+     all INVALID, every pushed id in the catalog, overflow, 2^21 rows)
+     and boundary tables (interleaved equal ids, one desired row over a
+     full catalog, M = 1, K = 1, odd sizes); the merge one device kernel
+     and three allocations (its outputs) a call; both timed with the
+     library's calls beside them (library_times) and the merge's phases
+     from its instrumented build; the workload at 4,096 services on the
+     card and the CPU with the same digest (ae_phase);
  10. Vivaldi: the standalone solver at 100,000 nodes, 8 dimensions, 400
      ticks (scenarios.vivaldi_converge): the median relative error under
      0.15 and under a third of the initial; the error curve, ms a tick,
@@ -359,6 +364,52 @@ def device_ms(fn, names, reps: int = 20, tries: int = 3,
         log(f"profile {attempt + 1} of {tries} saw {sorted(out)} of {names}")
     raise AssertionError(f"torch.profiler recorded none of {names} in "
                          f"{tries} profiles")
+
+
+_FLUSH_KEYS: set = set()
+
+
+def device_total_ms(fn, reps: int = 20, tries: int = 3) -> float:
+    """Mean device ms of one call of fn: every device record
+    torch.profiler takes of the call (kernels, copies, memsets) summed,
+    with kernel_ms's L2-evicting read before each call and its own
+    records left out.  For the library calls timed beside the kernels,
+    whose kernels have no names to ask device_ms for."""
+    flush = profile_tick._flush()
+    if not _FLUSH_KEYS:
+        flush.max()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            flush.max()
+            torch.cuda.synchronize()
+        _FLUSH_KEYS.update(profile_tick._device_times(prof))
+    for _ in range(3):
+        fn()
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.max()
+                fn()
+            torch.cuda.synchronize()
+        us = [t for k, (t, _) in profile_tick._device_times(prof).items()
+              if k not in _FLUSH_KEYS]
+        if us:
+            return sum(us) / reps / 1000.0
+        log(f"profile {attempt + 1} of {tries} saw no device record")
+    raise AssertionError(f"torch.profiler recorded no device work in "
+                         f"{tries} profiles")
+
+
+def library_times(fn) -> dict:
+    """A library call timed as the kernels are: library_ms (kernel_ms:
+    dispatch hidden, L2 evicted), library_device_ms (the profiler's
+    records of the call), and library_call_ms (median_ms: dispatch
+    included, L2 warm; the one figure PRs 1-13 gave)."""
+    return {"library_ms": kernel_ms(fn), "library_device_ms": device_total_ms(fn),
+            "library_call_ms": median_ms(fn)}
 
 
 # K1's draws at N = 1M: (mode, the draw, the JAX draw it replaces).
@@ -1097,7 +1148,7 @@ def check_members(dev, o) -> tuple:
 
 def time_members(dev, o, launches: dict) -> list:
     """Each K4 launch at the oracle's state: device ms (kernel_ms), the
-    plain twin's and the library call's ms, and the bound."""
+    plain twin's ms, the library call's (library_times) and the bound."""
     params = o.params.swim
     s, prov = o._state.swim, o._prov_dev
     n, u = s.member.shape[0], s.r_active.shape[0]
@@ -1161,7 +1212,8 @@ def time_members(dev, o, launches: dict) -> list:
     timed = {}
     for name, r in rows.items():
         t = {"ms": kernel_ms(r["fn"]), "plain_ms": median_ms(r["plain"]),
-             "library_ms": median_ms(r["library"]) if r["library"] else None,
+             **(library_times(r["library"]) if r["library"] else
+                {"library_ms": None}),
              "bound_ms": bound(r["bytes"]), "bound_bytes": r["bytes"]}
         timed[name] = t
         log(f"K4 {name}: " + json.dumps(t))
@@ -1184,7 +1236,9 @@ def time_members(dev, o, launches: dict) -> list:
              "replaces": rows[name]["replaces"], "launches": launches[name],
              "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": t["bound_ms"], "bound_by": "bytes",
-             "library_ms": t["library_ms"], "shape": [n, u]}
+             "library_ms": t["library_ms"],
+             "library_device_ms": t.get("library_device_ms"),
+             "library_call_ms": t.get("library_call_ms"), "shape": [n, u]}
         if name == "members_scan":
             e["delta"] = timed["members_scan (delta)"]
         entries.append(e)
@@ -1813,15 +1867,21 @@ def _twin_calls():
             setattr(reconcile, name, fn)
 
 
-def _hold_k6(d_ids, d_ver, d_node, a_ids, a_ver, a_node, push, drop,
+def _hold_k6(d_ids, d_ver, d_node, a_ids, a_ver, a_node, push, drop, due,
              what: str) -> dict:
     """K6 against its twin on one table pair, every output leaf and row:
-    the diff, the merge in step's form (node columns, drop) and in
+    the diff in its plain form and in the step's (masked by `due` at the
+    rows' owners), the merge in step's form (node columns, drop) and in
     apply_push's (neither)."""
     dk = reconcile.diff_sorted_kernel(d_ids, d_ver, a_ids, a_ver)
     dp = reconcile.diff_sorted_plain(d_ids, d_ver, a_ids, a_ver)
     _same(dk.push, dp.push, f"diff push ({what})", "K6")
     _same(dk.drop, dp.drop, f"diff drop ({what})", "K6")
+    step = (due, d_node, a_node)
+    sk = reconcile.diff_sorted_kernel(d_ids, d_ver, a_ids, a_ver, *step)
+    sp = reconcile.diff_sorted_plain(d_ids, d_ver, a_ids, a_ver, *step)
+    _same(sk.push, sp.push, f"step diff push ({what})", "K6")
+    _same(sk.drop, sp.drop, f"step diff drop ({what})", "K6")
     for form, args in (("step", (d_node, a_node, drop)),
                        ("apply_push", (None, None, None))):
         dn, an, dr = args
@@ -1840,13 +1900,15 @@ def _hold_k6(d_ids, d_ver, d_node, a_ids, a_ver, a_node, push, drop,
             "valid_catalog": int((a_ids != inv).sum()),
             "pushed": int((push & (d_ids != inv)).sum()),
             "dropped": int(drop.sum()) if drop is not None else 0,
-            "diff_push": int(dp.push.sum()), "diff_drop": int(dp.drop.sum())}
+            "diff_push": int(dp.push.sum()), "diff_drop": int(dp.drop.sum()),
+            "step_push": int(sp.push.sum()), "step_drop": int(sp.drop.sum())}
 
 
 def _k6_tables(dev, m, k, vd, va, shared, p_push, p_drop, seed):
     """Random sorted tables: vd valid desired ids, va catalog ids of which
     a `shared` part are desired ids, INVALID tails, random payloads on
-    every row (tails included), random masks."""
+    every row (tails included; the nodes are owners in [0, AE agents)),
+    random masks, and a random `due` over the agents."""
     rng = np.random.default_rng(seed)
     d_valid = np.sort(rng.choice(2 ** 30, vd, replace=False)) if vd else \
         np.empty(0, np.int64)
@@ -1856,22 +1918,28 @@ def _k6_tables(dev, m, k, vd, va, shared, p_push, p_drop, seed):
     fresh = np.setdiff1d(rng.choice(2 ** 30, 2 * (va - n_shared) + 16,
                                     replace=False), d_valid)
     a_valid = np.sort(np.concatenate([take, rng.permutation(fresh)[:va - n_shared]]))
+    agents = AE_CHURN.n_agents
 
     def table(rows, valid):
         ids = np.full(rows, reconcile.INVALID_ID, np.int32)
         ids[:len(valid)] = valid
         return [torch.from_numpy(x).to(dev) for x in (
             ids, rng.integers(0, 9, rows).astype(np.int32),
-            rng.integers(0, 100_000, rows).astype(np.int32))]
+            rng.integers(0, agents, rows).astype(np.int32))]
 
     d, a = table(m, d_valid), table(k, a_valid)
     push = torch.from_numpy(rng.random(m) < p_push).to(dev)
     drop = torch.from_numpy(rng.random(k) < p_drop).to(dev)
-    return d, a, push, drop
+    due = torch.from_numpy(rng.random(agents) < 0.7).to(dev)
+    return d, a, push, drop, due
 
 
 M20, M21 = 1 << 20, 1 << 21
-# (M, K, valid desired, valid catalog, shared part, push rate, drop rate)
+# (M, K, valid desired, valid catalog, shared part, push rate, drop rate);
+# the boundary tables put equal ids at every split a tile can make:
+# "interleaved" holds one id set in both tables (the merge alternates
+# desired and catalog rows of equal ids), then a lone desired row over a
+# catalog with no INVALID row, one row on either side, and odd sizes
 K6_RANDOM = {
     "M != K": (700_001, M20, 600_000, 900_000, 0.5, 0.5, 0.3),
     "every row pushed": (M20, M20, 900_000, 800_000, 0.5, 1.0, 0.0),
@@ -1882,6 +1950,12 @@ K6_RANDOM = {
     "overflow (valid rows > K)": (M20, M20 // 2, 1_000_000, 500_000, 0.1,
                                   1.0, 0.0),
     "2^21 rows": (M21, M21, 1_900_000, 1_800_000, 0.7, 0.5, 0.1),
+    "interleaved": (M20, M20, 1_000_000, 1_000_000, 1.0, 0.5, 0.3),
+    "one desired over a full catalog": (M20, M20, 1, M20, 1.0, 1.0, 0.3),
+    "M = 1": (1, M20, 1, 900_000, 1.0, 1.0, 0.3),
+    "K = 1": (M20, 1, 900_000, 1, 1.0, 0.5, 0.0),
+    "M = 1,000,003, K = 999,983": (1_000_003, 999_983, 950_000, 900_000,
+                                   0.7, 0.5, 0.2),
 }
 
 
@@ -1894,42 +1968,124 @@ def _diff_bytes(d_ids, d_ver, a_ids, a_ver) -> int:
     return 4 * (m + k) + 8 * hits + (m + k)
 
 
+def _step_diff_bytes(d_ids, d_ver, a_ids, a_ver, due, d_node, a_node) -> int:
+    """Least bytes of the diff in the step's form: the plain form's, the
+    owner of every row the plain masks set, and the due flags of those
+    owners."""
+    dp = reconcile.diff_sorted_plain(d_ids, d_ver, a_ids, a_ver)
+    owners = torch.cat([d_node[dp.push], a_node[dp.drop]])
+    return (_diff_bytes(d_ids, d_ver, a_ids, a_ver) + 4 * owners.numel()
+            + torch.unique(owners).numel())
+
+
 def _merge_bytes(m: int, k: int) -> int:
     """Least bytes of the merge in step's form: every id and mask, the
     version and node of the K rows that land in the output, the output."""
     return 5 * (m + k) + 8 * k + 12 * k
 
 
+K6_PHASES = ("classify", "barrier", "scatter")
+
+
+def k6_phase_ms(merge, reps: int = 10) -> dict:
+    """Median ms of each phase of the merge, from its instrumented build's
+    %globaltimer stamps: phase 1 until its slowest block, the grid barrier
+    and the totals' read, phase 2 until its slowest block."""
+    with _instrumented("reconcile.cu", "MERGE_PHASE_TIMES", "reconcile_merge"):
+        return _phase_ms("reconcile_merge", kernels.MERGE_STAMP_AT, K6_PHASES,
+                         lambda _: merge(), lambda: None, reps)
+
+
+def merge_kernels(merge, reps: int = 10, tries: int = 3) -> dict:
+    """{kernel: launches per call} of the merge, from torch.profiler's
+    records of `reps` calls (copies and memsets left out; in a long run
+    on this card a capture of one call has recorded nothing, and one of
+    ten calls six of the ten launches), taken again when a capture
+    records no device activity at all."""
+    merge()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                merge()
+            torch.cuda.synchronize()
+        kinds = {k: v / reps for k, v in profile_tick._device_ops(prof).items()
+                 if not k.startswith(("Memcpy", "Memset"))}
+        if kinds:
+            return kinds
+        log(f"profile {attempt + 1} of {tries} of the merge recorded nothing")
+    return {}
+
+
+def merge_allocations(merge) -> int:
+    """Allocations the caching allocator made during one call of merge
+    (its outputs count; its scratch, kept per device, is made by an
+    earlier call)."""
+    merge()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    merge()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
 def time_k6(params, s, up) -> tuple:
-    """Both K6 launches at one replayed state: device ms (kernel_ms; the
-    merge's three kernels apart from torch.profiler), wrapper call ms,
-    twin ms, library ms (the diff's two searchsorted calls; one stable
-    sort for the merge) and bounds."""
-    push, drop = antientropy.sync_masks(params, s, up)[2:]
+    """Both K6 launches at one replayed state (the diff in both forms):
+    device ms (kernel_ms: dispatch hidden, L2 evicted; device_ms: the
+    profiler's records), the merge's device kernels and allocations a
+    call and its phases, wrapper call ms, twin ms, the library's calls
+    (library_times: the diff's two searchsorted calls; one stable sort
+    for the merge) and bounds."""
+    _, due, push, drop = antientropy.sync_masks(params, s, up)
     cols = (s.d_ids, s.d_ver, s.a_ids, s.a_ver)
+    step_cols = (*cols, due, s.d_node, s.a_node)
     diff = lambda: reconcile.diff_sorted_kernel(*cols)  # noqa: E731
+    diff_step = lambda: reconcile.diff_sorted_kernel(*step_cols)  # noqa: E731
     merge = lambda: reconcile.merge_kernel(  # noqa: E731
         s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver, s.a_node, push, drop)
     m, k = s.d_ids.numel(), s.a_ids.numel()
-    db, mb = _diff_bytes(*cols), _merge_bytes(m, k)
+    db, sb = _diff_bytes(*cols), _step_diff_bytes(*step_cols)
+    mb = _merge_bytes(m, k)
     t_diff = {"ms": kernel_ms(diff),
-              "kernel_ms": device_ms(diff, ("diff_kernel",))["diff_kernel"],
+              "device_ms": device_ms(diff, ("diff_kernel",))["diff_kernel"],
               "call_ms": median_ms(diff),
               "plain_ms": median_ms(lambda: reconcile.diff_sorted_plain(*cols),
                                     reps=5),
               # the whole diff: a search each way (diff_sorted_plain's two)
-              "library_ms": median_ms(lambda: (
+              **library_times(lambda: (
                   torch.searchsorted(s.a_ids, s.d_ids),
                   torch.searchsorted(s.d_ids, s.a_ids))),
-              "bound_ms": db / HBM_BYTES_PER_S * 1000.0, "bound_bytes": db}
-    phases = ("merge_count_kernel", "merge_scan_kernel",
-              "merge_scatter_kernel")
-    t_merge = {"ms": kernel_ms(merge), "phase_ms": device_ms(merge, phases),
+              "bound_ms": db / HBM_BYTES_PER_S * 1000.0, "bound_bytes": db,
+              "step": {
+                  "ms": kernel_ms(diff_step),
+                  "device_ms": device_ms(diff_step,
+                                         ("diff_kernel",))["diff_kernel"],
+                  "call_ms": median_ms(diff_step),
+                  "plain_ms": median_ms(lambda: reconcile.diff_sorted_plain(
+                      *step_cols), reps=5),
+                  "bound_ms": sb / HBM_BYTES_PER_S * 1000.0,
+                  "bound_bytes": sb}}
+    kinds = merge_kernels(merge)
+    allocs = merge_allocations(merge)
+    log(f"K6 merge: device kernels a call {kinds}, {allocs} allocations")
+    # one device kernel a call: the captures hold the merge's kernel and
+    # nothing else, never more than once a call (the profiler has dropped
+    # some of a cooperative kernel's records in a long run, never added one)
+    require(len(kinds) == 1 and "merge_kernel" in next(iter(kinds))
+            and 0 < sum(kinds.values()) <= 1,
+            f"K6 merge ran {kinds}: want one device kernel a call")
+    require(allocs == 3, f"K6 merge allocated {allocs} times in a call: "
+            f"want its three outputs alone")
+    t_merge = {"ms": kernel_ms(merge),
+               "device_ms": device_ms(merge, ("merge_kernel",))["merge_kernel"],
+               "kernels": kinds, "allocations": allocs,
+               "phase_ms": k6_phase_ms(merge),
                "call_ms": median_ms(merge),
                "plain_ms": median_ms(lambda: reconcile.merge_plain(
                    s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver, s.a_node,
                    push, drop), reps=5),
-               "library_ms": median_ms(lambda: torch.sort(
+               **library_times(lambda: torch.sort(
                    torch.cat([s.d_ids, s.a_ids]), stable=True)),
                "bound_ms": mb / HBM_BYTES_PER_S * 1000.0, "bound_bytes": mb}
     return t_diff, t_merge
@@ -1997,23 +2153,30 @@ def ae_phase(dev) -> tuple:
             f"K1 launches {launches['threefry_draws']}: want one a step and "
             f"the stagger")
 
-    held = {name: _hold_k6(s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver,
-                           s.a_node, *antientropy.sync_masks(params, s, up)[2:],
-                           f"replayed {name}")
-            for name, (s, up) in held_states.items()}
+    held = {}
+    for name, (s, up) in held_states.items():
+        _, due, push, drop = antientropy.sync_masks(params, s, up)
+        held[name] = _hold_k6(s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver,
+                              s.a_node, push, drop, due, f"replayed {name}")
     for i, (name, shape) in enumerate(sorted(K6_RANDOM.items())):
-        d, a, push, drop = _k6_tables(dev, *shape, seed=100 + i)
-        held[name] = _hold_k6(*d, *a, push, drop, name)
+        d, a, push, drop, due = _k6_tables(dev, *shape, seed=100 + i)
+        held[name] = _hold_k6(*d, *a, push, drop, due, name)
         if name == "M != K":      # the step's own masks on these tables
             diff = reconcile.diff_sorted_plain(d[0], d[1], a[0], a[1])
             held["M != K, the diff's masks"] = _hold_k6(
-                *d, *a, diff.push, diff.drop, "M != K, the diff's masks")
+                *d, *a, diff.push, diff.drop, due,
+                "M != K, the diff's masks")
     log(f"K6 held bit-equal: {json.dumps(held)}")
 
     s, up = held_states["mid_churn"]
     t_diff, t_merge = time_k6(params, s, up)
     log(f"K6 reconcile_diff: {json.dumps(t_diff)}")
     log(f"K6 reconcile_merge: {json.dumps(t_merge)}")
+    log(f"K6 device ms against the bound: diff {t_diff['device_ms']} / "
+        f"{t_diff['bound_ms']} (step form {t_diff['step']['device_ms']} / "
+        f"{t_diff['step']['bound_ms']}; the two searchsorted calls "
+        f"{t_diff['library_device_ms']}), merge {t_merge['device_ms']} / "
+        f"{t_merge['bound_ms']} (phases {t_merge['phase_ms']})")
 
     card = workloads.ae_churn(AE_SMALL, dev, digest=True)
     cpu = workloads.ae_churn(AE_SMALL, torch.device("cpu"), digest=True)
@@ -2032,10 +2195,15 @@ def ae_phase(dev) -> tuple:
                         "source": "consul_tpu_torch/kernels/csrc/reconcile.cu",
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": 0.0, "ms": t["ms"],
+                        "device_ms": t["device_ms"],
                         "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": "bytes",
                         "library_ms": t["library_ms"],
+                        "library_device_ms": t["library_device_ms"],
+                        "library_call_ms": t["library_call_ms"],
                         "shape": [s.d_ids.numel(), s.a_ids.numel()]})
+    entries[0]["step_form"] = t_diff["step"]
+    entries[1]["phase_ms"] = t_merge["phase_ms"]
     return entries, {"run": brief, "wall_s": wall, "launches": launches,
                      "twin_calls": twins, "peak_mem_bytes": peak,
                      "times": times, "k6_held": held, "k6_diff": t_diff,
@@ -2480,8 +2648,9 @@ def k8_phase_ms(call, make, reps: int = 10) -> dict:
 def time_probe(params, s, what: str) -> dict:
     """K7 and K8 timed at one state: device ms (torch.profiler's kernel
     records, L2 evicted), the wrapper call, the twins, the bounds, and
-    torch.topk of the wants beside K8's select.  Each kernel call gets a
-    clone of its input, made outside the timed window."""
+    torch.topk of the wants beside K8's select (library_times).  Each
+    kernel call gets a clone of its input, made outside the timed
+    window."""
     maps = swim._maps(params, s)
     drawn = swim._probe_inputs(params, s)
     ref7 = swim._probe_pass_plain(params, s, maps, drawn)
@@ -2508,8 +2677,8 @@ def time_probe(params, s, what: str) -> dict:
          "k8_bound_ms": b8 / HBM_BYTES_PER_S * 1000.0, "k8_bound_bytes": b8,
          "k8_phase_ms": k8_phase_ms(k8, s1.clone),
          "k8_evicting": evicting, "k8_released": released,
-         "topk_ms": kernel_ms(lambda: torch.topk(want, params.alloc_cap)),
-         "topk_call_ms": median_ms(lambda: torch.topk(want, params.alloc_cap))}
+         **{k.replace("library", "topk"): v for k, v in library_times(
+             lambda: torch.topk(want, params.alloc_cap)).items()}}
     log(f"K7/K8 timed at {what}: " + json.dumps(t))
     return t
 
@@ -2641,7 +2810,9 @@ def probe_phase(dev, main: dict, states: dict) -> tuple:
          "ms": t["k8_ms"], "call_ms": t["k8_call_ms"],
          "plain_ms": t["k8_plain_ms"], "bound_ms": t["k8_bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "topk_ms": t["topk_ms"], "evicting_ms": timed["evicting"]["k8_ms"],
+         "topk_ms": t["topk_ms"], "topk_device_ms": t["topk_device_ms"],
+         "topk_call_ms": t["topk_call_ms"],
+         "evicting_ms": timed["evicting"]["k8_ms"],
          "evicting_bound_ms": timed["evicting"]["k8_bound_ms"],
          "shape": [p.n_nodes, p.rumor_slots, p.alloc_cap]}]
     return entries, {"held": held, "timed": timed, "fenced_main_ticks": ticks,
@@ -3122,8 +3293,8 @@ def time_detector(params, s, only=None) -> dict:
             "call_ms": median_ms(call, make=make),
             "plain_ms": median_ms(plain, reps=5),
             "bound_ms": b / HBM_BYTES_PER_S * 1000.0, "bound_bytes": b,
-            "library_ms": kernel_ms(library[name]) if name in library
-            else None}
+            **(library_times(library[name]) if name in library
+               else {"library_ms": None})}
         if name == "refutation":
             out[name]["refuted"] = _refuting(s3, s4)[0]
         if name == "expire":
@@ -3253,6 +3424,8 @@ def detector_phase(dev, main: dict, states: dict) -> tuple:
             "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": t["library_ms"],
+            "library_device_ms": t.get("library_device_ms"),
+            "library_call_ms": t.get("library_call_ms"),
             "shape": [p.n_nodes, p.rumor_slots]})
         for event, at in at_event.items():
             if name in at:

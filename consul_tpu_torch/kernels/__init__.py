@@ -28,8 +28,8 @@ MEMBERS = ("members_scan", "members_emit", "members_page")
 # the nemesis build and the mass-event path: K2's exchange in its chaos
 # mode (counted apart from the non-chaos exchange) and K5
 CHAOS = ("gossip_exchange_chaos", "mass_detect")
-# anti-entropy's set reconciliation (K6): the diff, and the compaction +
-# merge (three device kernels behind one entry point, counted once)
+# anti-entropy's set reconciliation (K6): the diff (its step's form masked
+# by the due agents), and the compaction + merge (one cooperative launch)
 RECONCILE = ("reconcile_diff", "reconcile_merge")
 # the probe round (K7) and rumor origination (K8: one cooperative launch),
 # both writing the state they are given in place
@@ -91,7 +91,7 @@ SIGNATURES = {
     "members_page": [_P, _I64] + [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P,
                                              _P],
     "mass_detect": [_P] * 11 + [_I64, _I, _P, _P, _P, _P],
-    "reconcile_diff": [_P] * 4 + [_I64, _I64, _P, _P, _P],
+    "reconcile_diff": [_P] * 4 + [_I64, _I64, _P, _P, _P, _I64, _P, _P, _P],
     "reconcile_merge": [_P] * 8 + [_I64, _I64, _P, _I64, _P, _P, _P, _P],
     "probe_round": [_P] * 34 + [_I64] + [_I] * 6 + [_U32] + [_F32] * 5
     + [_I] * 3 + [_P, _I] + [_P] * 5,
@@ -567,16 +567,13 @@ def launch_mass_detect(know, up, member, committed_dead, committed_left,
     LAUNCHES["mass_detect"] += 1
 
 
-RECONCILE_TILE = 256    # reconcile.cu's kTile: rows a block
+MERGE_CLASSES = 4             # reconcile.cu's kClasses: counts a block
+MERGE_STAMPS = 4              # its instrumented build's phase stamps
+# reconcile_merge's per-device scratch in int64 words (reconcile.cu:
+# reconcile_merge): the blocks' 32-bit class counts, then the stamps
+MERGE_STAMP_AT = MERGE_CLASSES * SCRATCH_BLOCKS // 2
+MERGE_SCRATCH = MERGE_STAMP_AT + MERGE_STAMPS
 _I32_MAX = 2 ** 31 - 1
-
-
-def merge_scratch_bytes(m: int, k: int) -> int:
-    """reconcile_merge's scratch for M desired and K catalog rows: per-row
-    ranks and per-tile totals and offsets (int32), the totals, and a flag
-    byte per desired row (reconcile.cu: reconcile_merge)."""
-    bm, bk = -(-m // RECONCILE_TILE), -(-k // RECONCILE_TILE)
-    return 4 * (m + k + 3 * bm + 2 * bk + 4) + m
 
 
 def _tables(name: str, src_ids, dst_ids) -> tuple:
@@ -588,36 +585,52 @@ def _tables(name: str, src_ids, dst_ids) -> tuple:
     return m, k
 
 
-def launch_reconcile_diff(src_ids, src_ver, dst_ids, dst_ver, push,
-                          drop) -> None:
+def launch_reconcile_diff(src_ids, src_ver, dst_ids, dst_ver, push, drop,
+                          due=None, d_node=None, a_node=None) -> None:
     """K6's diff: push [M] bool and drop [K] bool of diff_sorted from the
     id-sorted int32 tables (src_ids, src_ver) [M] and (dst_ids, dst_ver)
-    [K]."""
+    [K].  The step's form passes due [N] bool with the owning agents
+    d_node [M] and a_node [K] (int32, in [0, N)) and gets push &
+    due[d_node] and drop & due[a_node]."""
     dev = src_ids.device if src_ids is not None else None
     m, k = _tables("reconcile_diff", src_ids, dst_ids)
-    for t, what, dt, n in ((src_ids, "src_ids", torch.int32, m),
-                           (src_ver, "src_ver", torch.int32, m),
-                           (dst_ids, "dst_ids", torch.int32, k),
-                           (dst_ver, "dst_ver", torch.int32, k),
-                           (push, "push", torch.bool, m),
-                           (drop, "drop", torch.bool, k)):
+    named = [(src_ids, "src_ids", torch.int32, m),
+             (src_ver, "src_ver", torch.int32, m),
+             (dst_ids, "dst_ids", torch.int32, k),
+             (dst_ver, "dst_ver", torch.int32, k),
+             (push, "push", torch.bool, m), (drop, "drop", torch.bool, k)]
+    step = (due, d_node, a_node)
+    if any(t is None for t in step) and any(t is not None for t in step):
+        raise ValueError("reconcile_diff: due, d_node and a_node come "
+                         "together")
+    n_due = 0
+    if due is not None:
+        n_due = due.shape[0] if due.dim() == 1 else 0
+        if n_due < 1:
+            raise ValueError(f"reconcile_diff: due must be [agents], got "
+                             f"{tuple(due.shape)}")
+        named += [(due, "due", torch.bool, n_due),
+                  (d_node, "d_node", torch.int32, m),
+                  (a_node, "a_node", torch.int32, k)]
+    for t, what, dt, n in named:
         _require(t, "reconcile_diff " + what, dt, dev, (n,))
-    rc = library().reconcile_diff(src_ids.data_ptr(), src_ver.data_ptr(),
-                                  dst_ids.data_ptr(), dst_ver.data_ptr(), m,
-                                  k, push.data_ptr(), drop.data_ptr(),
-                                  _stream(dev))
+    rc = library().reconcile_diff(
+        src_ids.data_ptr(), src_ver.data_ptr(), dst_ids.data_ptr(),
+        dst_ver.data_ptr(), m, k, _ptr(due), _ptr(d_node), _ptr(a_node),
+        n_due, push.data_ptr(), drop.data_ptr(), _stream(dev))
     _check(rc, "reconcile_diff")
     LAUNCHES["reconcile_diff"] += 1
 
 
 def launch_reconcile_merge(d_ids, d_ver, d_node, push, a_ids, a_ver, a_node,
                            drop, out_ids, out_ver, out_node) -> None:
-    """K6's merge: the catalog (a_ids, a_ver, a_node) [K] with the rows
-    under `drop` [K] compacted out (drop may be None), merged with the
-    desired rows (d_ids, d_ver, d_node) [M] under `push` [M], into
-    out_ids/out_ver/out_node [K]; the node columns come together or are
-    all None.  int32 columns, bool masks; its scratch is allocated here,
-    per call."""
+    """K6's merge (one cooperative launch): the catalog (a_ids, a_ver,
+    a_node) [K] with the rows under `drop` [K] compacted out (drop may be
+    None), merged with the desired rows (d_ids, d_ver, d_node) [M] under
+    `push` [M], into out_ids/out_ver/out_node [K]; the node columns come
+    together or are all None.  int32 columns, bool masks.  Its per-block
+    counts live in per-device scratch, so two streams must not run it at
+    once."""
     dev = d_ids.device if d_ids is not None else None
     m, k = _tables("reconcile_merge", d_ids, a_ids)
     nodes = (d_node, a_node, out_node)
@@ -637,13 +650,12 @@ def launch_reconcile_merge(d_ids, d_ver, d_node, push, a_ids, a_ver, a_node,
         named.append((drop, "drop", torch.bool, k))
     for t, what, dt, n in named:
         _require(t, "reconcile_merge " + what, dt, dev, (n,))
-    size = merge_scratch_bytes(m, k)
-    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    scratch = _scratch_words(dev, "reconcile_merge", MERGE_SCRATCH)
     rc = library().reconcile_merge(
         d_ids.data_ptr(), d_ver.data_ptr(), _ptr(d_node), push.data_ptr(),
         a_ids.data_ptr(), a_ver.data_ptr(), _ptr(a_node), _ptr(drop), m, k,
-        scratch.data_ptr(), size, out_ids.data_ptr(), out_ver.data_ptr(),
-        _ptr(out_node), _stream(dev))
+        scratch.data_ptr(), SCRATCH_BLOCKS, out_ids.data_ptr(),
+        out_ver.data_ptr(), _ptr(out_node), _stream(dev))
     _check(rc, "reconcile_merge")
     LAUNCHES["reconcile_merge"] += 1
 

@@ -53,6 +53,26 @@ inline int persistent_blocks(F kernel, int threads, int64_t n, int cap,
   return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
+// --- copies ----------------------------------------------------------------
+
+// 16 bytes from device memory into shared memory without a register
+// (both 16-byte aligned); the copies since the last commit form a group.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` committed groups (the newest) are still in
+// flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
 // --- counters --------------------------------------------------------------
 
 template <typename T>

@@ -237,22 +237,6 @@ __device__ __forceinline__ void observe(const RingArgs& a, int D, int W, int64_t
 
 // --- the tiled form (D, W multiples of 4) -----------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` committed groups (the newest) are still in
-// flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
 template <int kD, int kW>
 struct Tile {
   float own[kTile * kD];   // the tile's coordinate rows, then its new ones

@@ -10,10 +10,11 @@ interval doubles for every doubling of cluster size past 128 nodes
 
 Desired and actual are id-sorted columnar tables (service id -> owning
 agent, version; ops/reconcile.py's preconditions hold for both).  One
-`step` syncs every due agent's rows at once: the diff is one K6 launch
-(`reconcile_diff`) and the drop compaction and the merge of the pushed
-rows another (`reconcile_merge`) on the card; the timer jitter is one K1
-randint.  `register_desired` and `deregister_desired` are host commands
+`step` syncs every due agent's rows at once: the diff, masked by the due
+agents, is one K6 launch (`reconcile_diff` in its step's form) and the
+drop compaction and the merge of the pushed rows another
+(`reconcile_merge`, one cooperative launch) on the card; the timer
+jitter is one K1 randint.  `register_desired` and `deregister_desired` are host commands
 whose ids arrive unsorted, so they stay plain torch on either device.
 The tick is a host mirror of the int32 tick.
 """
@@ -152,14 +153,14 @@ def sync_masks(params: AEParams, s: AEState, up: torch.Tensor):
     """What `step` syncs: (due_full [N], due [N], push [S], drop [S]) —
     the live agents whose full-sync timer fired, those plus the live
     agents with dirty rows or pending deletes (the edge triggers), and
-    the diff's pushed and dropped rows of the due agents (one K6 diff on
-    the card)."""
+    the diff's pushed and dropped rows of the due agents (one K6 diff in
+    its step's form on the card, the masks inside it)."""
     due_full = (s.next_full <= s.tick) & up
     due = (due_full | s.n_dirty | _mark(params.n_agents, s.d_node, s.d_dirty)) \
         & up
-    diff = reconcile.diff_sorted(s.d_ids, s.d_ver, s.a_ids, s.a_ver)
-    return (due_full, due, diff.push & due[s.d_node.to(torch.int64)],
-            diff.drop & due[s.a_node.to(torch.int64)])
+    diff = reconcile.diff_sorted(s.d_ids, s.d_ver, s.a_ids, s.a_ver, due,
+                                 s.d_node, s.a_node)
+    return due_full, due, diff.push, diff.drop
 
 
 def step(params: AEParams, s: AEState, up: torch.Tensor) -> AEState:

@@ -17,7 +17,8 @@ pay for the check.
 Each public function launches K6 (kernels/csrc/reconcile.cu) on CUDA
 tensors and runs its plain twin (`*_plain`, the JAX code transcribed:
 searchsorted joins, a lexsort as two stable sorts, stable partitions) on
-CPU tensors.
+CPU tensors.  On the card the diff is one launch, in the step's form
+masked by the due agents too, and the merge one cooperative launch.
 """
 
 from __future__ import annotations
@@ -72,8 +73,11 @@ def invalid_last(ids: torch.Tensor) -> torch.Tensor:
 # plain twins
 # ---------------------------------------------------------------------------
 
-def diff_sorted_plain(src_ids, src_ver, dst_ids, dst_ver) -> DiffResult:
-    """reconcile.py:28-47 in torch ops (left-sided searchsorted, clipped)."""
+def diff_sorted_plain(src_ids, src_ver, dst_ids, dst_ver, due=None,
+                      d_node=None, a_node=None) -> DiffResult:
+    """reconcile.py:28-47 in torch ops (left-sided searchsorted, clipped);
+    with `due` (the step's form), the masks as antientropy.step takes
+    them (antientropy.py:133-134): push & due[d_node], drop & due[a_node]."""
     check_sorted(src_ids, "src_ids")
     check_sorted(dst_ids, "dst_ids")
     k, m = dst_ids.shape[0], src_ids.shape[0]
@@ -84,6 +88,9 @@ def diff_sorted_plain(src_ids, src_ver, dst_ids, dst_ver) -> DiffResult:
     rpos = torch.searchsorted(src_ids, dst_ids).clamp(0, m - 1)
     rhit = (src_ids[rpos] == dst_ids) & (dst_ids != INVALID_ID)
     drop = (dst_ids != INVALID_ID) & ~rhit
+    if due is not None:
+        push = push & due[d_node.to(torch.int64)]
+        drop = drop & due[a_node.to(torch.int64)]
     return DiffResult(push=push, drop=drop)
 
 
@@ -122,11 +129,12 @@ def merge_plain(d_ids, d_ver, d_node, a_ids, a_ver, a_node, push,
 # the card path
 # ---------------------------------------------------------------------------
 
-def diff_sorted_kernel(src_ids, src_ver, dst_ids, dst_ver) -> DiffResult:
+def diff_sorted_kernel(src_ids, src_ver, dst_ids, dst_ver, due=None,
+                       d_node=None, a_node=None) -> DiffResult:
     push = torch.empty(src_ids.shape, dtype=torch.bool, device=src_ids.device)
     drop = torch.empty(dst_ids.shape, dtype=torch.bool, device=dst_ids.device)
     kernels.launch_reconcile_diff(src_ids, src_ver, dst_ids, dst_ver, push,
-                                  drop)
+                                  drop, due, d_node, a_node)
     return DiffResult(push=push, drop=drop)
 
 
@@ -144,13 +152,17 @@ def merge_kernel(d_ids, d_ver, d_node, a_ids, a_ver, a_node, push,
 # ---------------------------------------------------------------------------
 
 def diff_sorted(src_ids: torch.Tensor, src_ver: torch.Tensor,
-                dst_ids: torch.Tensor, dst_ver: torch.Tensor) -> DiffResult:
+                dst_ids: torch.Tensor, dst_ver: torch.Tensor, due=None,
+                d_node=None, a_node=None) -> DiffResult:
     """Reconcile desired (src, [M]) against actual (dst, [K]), both int32
     and id-ascending with INVALID_ID tails: a src row is pushed when its
     id is absent from dst or present at another version (versions stand
-    in for content hashes); a dst row is dropped when its id left src."""
+    in for content hashes); a dst row is dropped when its id left src.
+    The step's form also takes due ([N] bool) and the rows' owning agents
+    d_node [M] and a_node [K] (int32 in [0, N)), which come together, and
+    keeps only the rows whose owner is due."""
     fn = diff_sorted_kernel if src_ids.is_cuda else diff_sorted_plain
-    return fn(src_ids, src_ver, dst_ids, dst_ver)
+    return fn(src_ids, src_ver, dst_ids, dst_ver, due, d_node, a_node)
 
 
 def merge(d_ids, d_ver, d_node, a_ids, a_ver, a_node, push,

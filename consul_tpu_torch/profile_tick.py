@@ -8,6 +8,7 @@ the device's busy and idle share.
     python -m consul_tpu_torch.profile_tick draws [n_nodes]
     python -m consul_tpu_torch.profile_tick k12k13 [n_nodes]
     python -m consul_tpu_torch.profile_tick k9k14 [n_nodes]
+    python -m consul_tpu_torch.profile_tick k6 [tick]
 
 Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
@@ -33,12 +34,15 @@ tree's passes when that tree's package comes first on PYTHONPATH.  The
 at the bench run's first probe ticks after the kill that convert no
 suspect slot and that convert one, and for the bulk step (K14) at the
 correlated bench's mid-drain and on the empty channel of the tick
-before its overflow.  Prints one JSON line; needs a CUDA device.
+before its overflow.  The `k6` form times K6's diff (both forms), its
+merge and one whole anti-entropy step at the churn's mid-churn state
+(older trees too).  Prints one JSON line; needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import statistics
 import sys
@@ -47,10 +51,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from consul_tpu_torch import correlated, kernels
+from consul_tpu_torch import correlated, kernels, scenarios
 from consul_tpu_torch.bench import CHUNK, VICTIM
 from consul_tpu_torch.config import GossipConfig, SimConfig
-from consul_tpu_torch.models import serf, swim, vivaldi
+from consul_tpu_torch.models import antientropy, serf, swim, vivaldi
+from consul_tpu_torch.ops import reconcile
 from consul_tpu_torch.utils import prng
 
 
@@ -536,6 +541,85 @@ def k9_k14_times(n_nodes: int = 1_000_000, ticks: int = 400) -> dict:
             "at": out}
 
 
+class _Picked(Exception):
+    """Ends a churn run once its state is kept."""
+
+
+def k6_times(tick: int = 50, reps: int = 20) -> dict:
+    """K6 at the anti-entropy churn's mid-churn state (scenarios.ae_churn
+    at 1M services over 100,000 agents, the state before the step of churn
+    tick `tick`): the diff in its plain form and in the step's (masked by
+    the due agents; an older tree without that form runs its diff and the
+    masks as its sync_masks did), the merge, sync_masks and one whole
+    antientropy.step.  Per call: device ms (kernel_ms: dispatch hidden,
+    L2 evicted), call ms (median_ms), and from _time_passes the fenced
+    wall, the profiler's device ms (L2 warm) and the device kernels.  It
+    uses nothing but the antientropy and reconcile entry points, so it
+    also times an older tree when that tree's package comes first on
+    PYTHONPATH."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_tick needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = scenarios.Churn(n_agents=100_000, capacity=1 << 20,
+                          services=1_000_000)
+    params = cfg.params
+    kept = {}
+
+    def keep(label, st, up):
+        if label == tick:
+            kept["at"] = (st, up)
+            raise _Picked
+
+    try:
+        scenarios.ae_churn(cfg, dev, keep=keep)
+    except _Picked:
+        pass
+    s, up = kept["at"]
+    _, due, push, drop = antientropy.sync_masks(params, s, up)
+    cols = (s.d_ids, s.d_ver, s.a_ids, s.a_ver)
+    step_form = "due" in inspect.signature(
+        reconcile.diff_sorted_kernel).parameters
+
+    def diff_step():
+        if step_form:
+            return reconcile.diff_sorted_kernel(*cols, due, s.d_node,
+                                                s.a_node)
+        d = reconcile.diff_sorted_kernel(*cols)
+        return (d.push & due[s.d_node.to(torch.int64)],
+                d.drop & due[s.a_node.to(torch.int64)])
+
+    calls = {
+        "diff": lambda: reconcile.diff_sorted_kernel(*cols),
+        "diff_step": diff_step,
+        "merge": lambda: reconcile.merge_kernel(
+            s.d_ids, s.d_ver, s.d_node, s.a_ids, s.a_ver, s.a_node, push,
+            drop),
+        "sync_masks": lambda: antientropy.sync_masks(params, s, up),
+        "step": lambda: antientropy.step(params, s, up)}
+    passes = _time_passes(calls, dev, reps)
+    out = {}
+    for name, fn in calls.items():
+        out[name] = {"device_ms": kernel_ms(fn), "call_ms": median_ms(fn),
+                     "fenced_ms": passes[name]["wall_ms"],
+                     "profiler_ms": passes[name]["device_ms"],
+                     "kernels": passes[name]["kernels"]}
+    walls = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        antientropy.step(params, s, up)
+        torch.cuda.synchronize(dev)
+        walls.append(1000.0 * (time.perf_counter() - t0))
+    walls = sorted(walls[1:])
+    out["step"]["fenced_p10_p90_ms"] = [walls[len(walls) // 10],
+                                        walls[(9 * len(walls)) // 10]]
+    return {"device": torch.cuda.get_device_name(dev), "tick": tick,
+            "step_form": step_form,
+            "rows": [s.d_ids.numel(), s.a_ids.numel()],
+            "live": int((s.d_ids != antientropy.INVALID_ID).sum()),
+            "at": out}
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -552,5 +636,7 @@ if __name__ == "__main__":
         print(json.dumps(k12_k13_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k9k14"]:
         print(json.dumps(k9_k14_times(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["k6"]:
+        print(json.dumps(k6_times(*[int(a) for a in sys.argv[2:]])))
     else:
         print(json.dumps(main(*[int(a) for a in sys.argv[1:]])))

@@ -5,11 +5,14 @@ registered, re-registered at bumped versions and deregistered every few
 ticks and a set of agents held down for a stretch; every leaf (all int32
 and bool) equal after every tick, the tick mirror included.
 `in_sync_fraction` is equal at every tick (float32, same integer counts,
-same division).  P4: tests/test_antientropy.py's six tests on the port.
+same division).  `sync_masks` (the diff in its step form) against the
+masks JAX's step takes, tick by tick.  P4: tests/test_antientropy.py's
+six tests on the port.
 """
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from torch_parity import assert_leaves, jax_dict
@@ -76,6 +79,52 @@ def test_step_trajectory_matches_reference():
         assert a.dtype == b.dtype and a == b, (t, a, b)
     assert float(b) == 1.0
     assert int((ts.a_ids != INV).sum()) == len(live)
+
+
+@jax.jit
+def _jax_sync_masks(s, up):
+    """antientropy.step's due agents and the diff's masks (:122-134)."""
+    due_full = (s.tick >= s.next_full) & up
+    row_dirt_owner = jax.numpy.zeros_like(up).at[
+        jax.numpy.where(s.d_dirty, s.d_node, 0)].max(s.d_dirty)
+    due = (due_full | s.n_dirty | row_dirt_owner) & up
+    diff = jrec.diff_sorted(s.d_ids, s.d_ver, s.a_ids, s.a_ver)
+    return due_full, due, diff.push & due[s.d_node], diff.drop & due[s.a_node]
+
+
+@pytest.mark.parametrize("seed", [5, 17])
+def test_sync_masks_match_reference_step_masks(seed):
+    """sync_masks (the diff in its step form, masked by the due agents at
+    the rows' owners) against the masks JAX's step takes, along a churn
+    run with agents down and deregistrations (drops) in flight."""
+    params = dict(n_agents=40, capacity=384, sync_interval_ticks=5, seed=seed)
+    jp, tp = jae.AEParams(**params), ae.AEParams(**params)
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(5_000, 300, replace=False).astype(np.int32)
+    owner = np.zeros(5_000, np.int64)
+    owner[ids] = rng.integers(0, 40, 300)
+    ver = np.zeros(5_000, np.int64)
+    ver[ids] = 1
+    js = jae.register_desired(jae.init_state(jp), ids,
+                              owner[ids].astype(np.int32),
+                              ver[ids].astype(np.int32))
+    ts = convert.ae_state_from_numpy(jax_dict(js), "cpu")
+    live = set(int(i) for i in ids)
+    step = jax.jit(jae.step, static_argnums=0)
+    for t in range(24):
+        if t % 2 == 1:
+            reg, dereg = _churn(rng, live, ver, owner, 10, 4)
+            js = jae.deregister_desired(jae.register_desired(js, *reg), dereg)
+            ts = ae.deregister_desired(ae.register_desired(ts, *reg), dereg)
+        up = rng.random(40) < (0.7 if 6 <= t < 16 else 1.0)
+        ref = _jax_sync_masks(js, up)
+        got = ae.sync_masks(tp, ts, torch.from_numpy(up))
+        for name, r, g in zip(("due_full", "due", "push", "drop"), ref, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                          err_msg=f"tick {t} {name}")
+        js = step(jp, js, up)
+        ts = ae.step(tp, ts, torch.from_numpy(up))
+    assert_leaves(jax_dict(js), convert.ae_state_to_numpy(ts), where="end: ")
 
 
 # ---------------------------------------------------------------------------

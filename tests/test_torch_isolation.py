@@ -543,7 +543,8 @@ def _reconcile_args(m=12, k=10, nodes=True):
                  out_ids=z(k), out_ver=z(k), out_node=z(k) if nodes else None)
     diff = dict(src_ids=z(m), src_ver=z(m), dst_ids=z(k), dst_ver=z(k),
                 push=z(m, torch.bool), drop=z(k, torch.bool))
-    return {"diff": diff, "merge": merge}
+    step = dict(diff, due=z(7, torch.bool), d_node=z(m), a_node=z(k))
+    return {"diff": diff, "merge": merge, "step": step}
 
 
 RECONCILE_BAD = {
@@ -572,6 +573,17 @@ RECONCILE_BAD = {
     "merge node without output": ("merge", dict(out_node=None), "together"),
     "merge a_node device": ("merge", dict(a_node=torch.zeros(10, dtype=torch.int32,
                                                              device=META)), "a_node"),
+    "step due without nodes": ("step", dict(d_node=None, a_node=None),
+                               "together"),
+    "step nodes without due": ("step", dict(due=None), "together"),
+    "step due dtype": ("step", dict(due=torch.zeros(7, dtype=torch.uint8)),
+                       "due"),
+    "step due empty": ("step", dict(due=torch.zeros(0, dtype=torch.bool)),
+                       "agents"),
+    "step d_node shape": ("step", dict(d_node=torch.zeros(11, dtype=torch.int32)),
+                          "d_node"),
+    "step a_node dtype": ("step", dict(a_node=torch.zeros(10, dtype=torch.int64)),
+                          "a_node"),
 }
 
 
@@ -581,6 +593,7 @@ def test_reconcile_wrappers_reject(case):
     args = _reconcile_args()[launch]
     args.update(edit)
     fn = {"diff": kernels.launch_reconcile_diff,
+          "step": kernels.launch_reconcile_diff,
           "merge": kernels.launch_reconcile_merge}[launch]
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError, match=match):
@@ -589,17 +602,18 @@ def test_reconcile_wrappers_reject(case):
 
 
 def test_reconcile_tile_matches_the_kernel_source():
-    """kernels.RECONCILE_TILE is reconcile.cu's kTile, the unit of the
-    scratch layout kernels.merge_scratch_bytes sizes; both entry points
-    are bound."""
+    """kernels.MERGE_CLASSES is reconcile.cu's kClasses, and
+    kernels.MERGE_SCRATCH sizes the merge's per-device scratch as the
+    source lays it out: 32-bit class counts for SCRATCH_BLOCKS blocks,
+    then the phase stamps; both entry points are bound."""
     text = (Path(kernels.__file__).parent / "csrc" / "reconcile.cu").read_text()
-    assert int(re.search(r"constexpr int kTile = (\d+);", text).group(1)) == \
-        kernels.RECONCILE_TILE
-    assert re.search(r"4 \* words \+ M", text)
-    m, k = 1000, 3000
-    bm, bk = -(-m // 256), -(-k // 256)
-    assert kernels.merge_scratch_bytes(m, k) == 4 * (m + k + 3 * bm + 2 * bk
-                                                     + 4) + m
+    assert int(re.search(r"constexpr int kClasses = (\d+);", text).group(1)) \
+        == kernels.MERGE_CLASSES
+    assert re.search(r"a\.stamps = static_cast<u64\*>\(scratch\) \+ 2 \* "
+                     r"scratch_blocks;", text)
+    assert kernels.MERGE_STAMP_AT == kernels.MERGE_CLASSES * 4 \
+        * kernels.SCRATCH_BLOCKS // 8
+    assert kernels.MERGE_SCRATCH == kernels.MERGE_STAMP_AT + kernels.MERGE_STAMPS
     assert set(kernels.RECONCILE) <= set(kernels.SIGNATURES)
 
 
