@@ -56,10 +56,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
      statuses, coordinate, rtt, sort_by_rtt over 1,000 names and
      publish_sim_metrics; K4's three launches must have run.  Then K4
      against its plain twins on the card, bit-equal, on the oracle's
-     state and on random states (U = 32 and 64, k = 8, 256, 4096 and N,
-     changed counts below and above k), each launch timed against its
-     bound, its twin and the library call that computes the same, and
-     the median wall time of each oracle read;
+     state and on random states (U = 32 and 64, and U = 64 with every
+     dead subject on an edge of K4's tiles; k = 8, 256, 4096 and N,
+     changed counts below and above k), a members_summary read gated at
+     one device kernel and a members_delta read at two (scan, emit),
+     each launch timed against its bound, its twin and the library call
+     that computes the same, and the median wall time of each oracle
+     read;
   6. nemesis: the chaos build through consul_tpu_torch.chaos's
      SwimChaosHarness — asym_degradation, loss_burst and crash_restart at
      N=1M (launch counts zeroed before each; crash_restart must
@@ -73,7 +76,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
      channel run, K14 once per bulk tick; a gossip-only bulk tick
      launches K1 (its offsets), K2's two kernels and K14 once each: the
      bulk step draws no K1 of its own), K5 held bit-equal at the
-     replayed mid-drain and drain-end states and on random states and timed, host syncs per bulk tick, and the bench
+     replayed mid-drain and drain-end states and on random states (U =
+     16, 32, 64 and 100,003 x 40, no victims, all live, no live rows,
+     column counts at and just below the 0.99 bar), one device kernel
+     and no allocation a call, timed (kernel_ms, device_ms, and its
+     instrumented build's stream and tail), host syncs per bulk tick,
+     and the bench
      at N=4096 on the card and the CPU with equal curves
      (correlated_phase);
   8. federation: consul_tpu_torch.models.wan at 3 DCs x 50,000 nodes x 5
@@ -181,7 +189,8 @@ from consul_tpu_torch import (bench, chaos, correlated, host, kernels,
                               profile_tick, scenarios as workloads)
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.oracle import GossipOracle
-from consul_tpu_torch.profile_tick import kernel_ms, median_ms
+from consul_tpu_torch.profile_tick import (kernel_ms, kernels_a_call,
+                                           median_ms, wall_ms)
 from consul_tpu_torch.kernels import build
 from consul_tpu_torch.models import (antientropy, events, serf, swim,
                                      vivaldi, wan)
@@ -938,20 +947,6 @@ def _advance_until(o, cond, what: str, step: int = 25,
     return ticks
 
 
-def wall_ms(fn, reps: int = 20) -> float:
-    """Median host wall ms of one call of fn, ended by a synchronize."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1000.0)
-    return sorted(times)[len(times) // 2]
-
-
 def oracle_path(dev) -> tuple:
     """The oracle driven as a user drives it, K4's counts zeroed just
     before.  Returns (the oracle, the phase's record)."""
@@ -1075,6 +1070,27 @@ def _random_members(dev, base, u: int, seed: int):
     return s, rnd(n) < 0.99
 
 
+def _tile_edges(dev, base, seed: int):
+    """_random_members at U = 64 with every slot an active dead rumor
+    whose subject sits on an edge of K4's tiles (0, tile - 1, tile,
+    2 tile - 1, ..., N - 1), some named twice.  (No subject outside
+    [0, N): the plain twin's scatter, as torch's, would index out of
+    bounds.)"""
+    s, prov = _random_members(dev, base, 64, seed)
+    n, tile = base.member.shape[0], kernels.MEMBER_TILE
+    edges = [0, tile - 1, tile, 2 * tile - 1, 2 * tile, n - 1, n - tile,
+             (n // tile) * tile, (n // tile) * tile - 1, n // 2 - 1, n // 2]
+    edges += [e + tile * j for j in range(3, 40, 7) for e in (0, tile - 1)]
+    edges = [e for e in edges if 0 <= e < n][:56]
+    subj = edges + edges[:8]
+    subj += [edges[-1]] * (64 - len(subj))
+    u = len(subj)
+    return s.replace(
+        r_active=torch.ones(u, dtype=torch.bool, device=dev),
+        r_kind=torch.full((u,), swim.DEAD, dtype=torch.int8, device=dev),
+        r_subject=torch.tensor(subj, dtype=torch.int32, device=dev)), prov
+
+
 def _prev(st: torch.Tensor, flips: int, seed: int) -> torch.Tensor:
     """st with `flips` random entries moved to another status."""
     gen = torch.Generator(device=st.device)
@@ -1112,6 +1128,7 @@ def check_members(dev, o) -> tuple:
     cases = {"oracle": (sw, prov)}
     for u in (32, 64):
         cases[f"random U={u}"] = _random_members(dev, sw, u, 40 + u)
+    cases["random tile edges"] = _tile_edges(dev, sw, 41)
     held = []
     for name, (s, pv) in cases.items():
         st = swim.status_vector(params, s)
@@ -1165,7 +1182,8 @@ def time_members(dev, o, launches: dict) -> list:
     kernels.launch_members_scan(*nodes, *table, prov, prev, st, counts, blocks)
     changed = (st != prev) & prov
     n_changed = int(changed.sum())
-    tiles_read = int((blocks > 0).sum())      # every rank < k here
+    per_tile = torch.diff(blocks, prepend=blocks.new_zeros(1))
+    tiles_read = int((per_tile > 0).sum())    # every rank < k here
     page_ids = torch.arange(N // 2, N // 2 + 128, dtype=torch.int32,
                             device=dev)
     pk = page_ids.shape[0]
@@ -1245,13 +1263,41 @@ def time_members(dev, o, launches: dict) -> list:
     return entries, timed
 
 
+def read_kernels(o) -> dict:
+    """Device kernels a call of each oracle read (kernels_a_call): a
+    summary must be K4's scan alone, a delta (its checkpoint set) the scan
+    and the emit."""
+    got = {"members_summary": kernels_a_call(o.members_summary),
+           "members_delta(256)": kernels_a_call(lambda: o.members_delta(256)),
+           "members(limit=100)": kernels_a_call(
+               lambda: o.members(limit=100, offset=N // 2))}
+    log("device kernels an oracle read: " + json.dumps(got))
+    # the profiler has dropped records in a long run, never added one: each
+    # kernel at most once a call, and nothing else
+    summary, delta = got["members_summary"], got["members_delta(256)"]
+    require(_only(summary, ("members_scan",)),
+            f"a members_summary read ran {summary}")
+    require(_only(delta, ("members_scan", "members_emit")),
+            f"a members_delta read ran {delta}")
+    return got
+
+
+def _only(kinds: dict, names) -> bool:
+    """kinds (kernels_a_call's) holds each named kernel, at most once a
+    call, and no other kernel."""
+    return len(kinds) == len(names) and all(
+        any(n in k for n in names) and 0 < v <= 1 for k, v in kinds.items())
+
+
 def oracle_phase(dev) -> tuple:
     """Phase 5: (K4's kernels-line entries, the phase's record)."""
     o, path = oracle_path(dev)
     held = check_members(dev, o)
+    per_read = read_kernels(o)
     entries, timed = time_members(dev, o, path["launches"])
     o.stop()
-    return entries, {"path": path, "k4_held": held, "k4": timed}
+    return entries, {"path": path, "k4_held": held, "k4": timed,
+                     "kernels_a_read": per_read}
 
 
 
@@ -1473,20 +1519,26 @@ JAX_CONV_TICKS_99 = 634
 
 
 def _random_mass_state(dev, base, n: int, u: int, seed: int,
-                       victims: bool = True):
+                       victims: bool = True, live: str = "random"):
     """Random K5 inputs of [n, u]: every subject of the rumor table drawn
     from 8 nodes (duplicates across slots), a third of the slots dead or
     left, columns known by 98.5-100% of the rows (around the 0.99 bar),
-    a bulk channel with coverage around 0.99; ~1% victims, or none."""
+    a bulk channel with coverage around 0.99; ~1% victims, or none.
+    `live`: "random" (~98.5% of the rows live), "all" (every row up and
+    a member) or "none" (every row down: n_live is clamped to 1)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
     subjects = (rnd(8) * n).to(torch.int32)
     col_p = 0.985 + 0.015 * rnd(u)
     bulk = rnd(n) < 0.01
+    know = rnd(n, u) < col_p[None, :]
+    up, member = rnd(n) < 0.99, rnd(n) < 0.995
+    if live != "random":
+        up = torch.full_like(up, live == "all")
+        member = member | up
     s = base.replace(
-        know=rnd(n, u) < col_p[None, :],
-        up=rnd(n) < 0.99, member=rnd(n) < 0.995,
+        know=know, up=up, member=member,
         committed_dead=rnd(n) < 0.001, committed_left=rnd(n) < 0.0005,
         bulk_member=bulk,
         bulk_cov=torch.where(bulk, 0.985 + 0.01 * rnd(n), 0.0),
@@ -1495,6 +1547,36 @@ def _random_mass_state(dev, base, n: int, u: int, seed: int,
     mask = (rnd(n) < 0.01) if victims else torch.zeros(n, dtype=torch.bool,
                                                        device=dev)
     return s, mask
+
+
+def _at_bar_state(dev, base, seed: int):
+    """Every row of `base` live (n_live = N = 1M) and two dead slots whose
+    columns hold exactly c = 990,000 rows (float32(c) / float32(n_live)
+    == 0.99f: at the bar, detected) and c - 1 (just below it), naming two
+    victims; the other slots as _random_mass_state's."""
+    n = base.member.shape[0]
+    s, mask = _random_mass_state(dev, base, n, base.know.shape[1], seed,
+                                 live="all")
+    c = (99 * n) // 100
+    require(np.float32(c) / np.float32(n) == np.float32(0.99)
+            and np.float32(c - 1) / np.float32(n) < np.float32(0.99),
+            f"K5 at the bar: {c} / {n} is not the bar")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    know, kind, subj = s.know.clone(), s.r_kind.clone(), s.r_subject.clone()
+    for slot, holders in ((0, c), (1, c - 1)):
+        perm = torch.randperm(n, generator=gen, device=dev)
+        col = torch.zeros(n, dtype=torch.bool, device=dev)
+        col[perm[:holders]] = True
+        know[:, slot] = col
+    victims = mask.nonzero().flatten()
+    kind[:2] = swim.DEAD
+    subj[0] = victims[0].to(torch.int32)
+    subj[1] = victims[1].to(torch.int32)
+    active = s.r_active.clone()
+    active[:2] = True
+    return s.replace(know=know, r_kind=kind, r_subject=subj,
+                     r_active=active), mask
 
 
 def _hold_mass(params, s, mask, what: str) -> tuple:
@@ -1578,16 +1660,26 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
                          "correlated drain_end": (params, s)})
     held = {"near_bar": _hold_mass(params, at_bar, mask, "near the bar"),
             "drain_end": _hold_mass(params, s, mask, "at the drain's end")}
-    for name, n, u, victims in (("random U=32", N, 32, True),
-                                ("random no victims", N, 32, False),
-                                ("random U=64", N, 64, True),
-                                ("random 100003x40", 100_003, 40, True)):
+    for name, n, u, victims, live in (
+            ("random U=32", N, 32, True, "random"),
+            ("random no victims", N, 32, False, "random"),
+            ("random U=64", N, 64, True, "random"),
+            ("random 100003x40", 100_003, 40, True, "random"),
+            ("random U=16", N, 16, True, "random"),
+            ("random all live", N, 32, True, "all"),
+            ("random no live rows", N, 32, True, "none")):
         cut = s if n == N else s.replace(
             **{f: getattr(s, f)[:n] for f in swim.TENSOR_FIELDS
                if getattr(s, f).shape[:1] == (N,)})
         rs, rm = _random_mass_state(dev, cut, n, u, seed=len(held),
-                                    victims=victims)
+                                    victims=victims, live=live)
         held[name] = _hold_mass(params, rs, rm, name)
+    bs, bm = _at_bar_state(dev, s, seed=len(held))
+    held["counts at the bar"] = _hold_mass(params, bs, bm, "at the bar")
+    live_b = bs.up & bs.member
+    cov_b = (bs.know[:, :2] & live_b[:, None]).sum(0).tolist()
+    require(cov_b == [990_000, 989_999] and int(live_b.sum()) == N,
+            f"K5 at the bar: columns {cov_b}")
     require(held["random no victims"][0] == 0.0,
             f"K5 with no victims read recall {held['random no victims'][0]}")
     log(f"K5 held bit-equal: {held}; replayed states: {states}")
@@ -1604,6 +1696,12 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
     out = (torch.empty(1, dtype=torch.float32, device=dev),
            torch.empty(1, dtype=torch.int32, device=dev))
     call = lambda: swim.mass_detection_stats(params, s, mask, out=out)  # noqa: E731
+    k5_kernels = kernels_a_call(call)
+    k5_allocs = allocations(call)
+    log(f"K5 a call: device kernels {k5_kernels}, allocations {k5_allocs}")
+    require(_only(k5_kernels, ("mass_detect_kernel",)),
+            f"K5 ran {k5_kernels} a call, not one kernel")
+    require(k5_allocs == 0, f"K5 allocated {k5_allocs} times a call")
     t = {"call_ms": kernel_ms(call),
          "ms": device_ms(call, ("mass_detect_kernel",))["mass_detect_kernel"],
          "wrapper_ms": median_ms(call),
@@ -1611,6 +1709,7 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
              params, s, mask)),
          "bound_ms": bytes_ / HBM_BYTES_PER_S * 1000.0, "bound_bytes": bytes_,
          "bulk_cov_sectors": cov_sectors}
+    t["phases"] = k5_phase_ms(params, s, mask)
     log("K5 mass_detect: " + json.dumps(t))
     rec = torch.empty(10, dtype=torch.float32, device=dev)
     fps = torch.empty(10, dtype=torch.int32, device=dev)
@@ -1662,13 +1761,27 @@ def correlated_phase(dev, for_phase_11: dict) -> tuple:
              "ms": t["ms"], "call_ms": t["call_ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": "bytes", "library_ms": None,
-             "shape": [N, u]}
+             "phases": t["phases"], "shape": [N, u]}
     return entry, {"row": brief, "launches": launches, "k5_held": held,
                    "k5": t, "k5_states": states, "bulk_syncs": syncs,
+                   "k5_kernels": k5_kernels, "k5_allocations": k5_allocs,
                    "bulk_tick_ms": bulk_ms,
                    "bulk_tick_launches": per_tick[0],
                    "n4096": {"conv_ticks_99": card["conv_ticks_99"],
                              "ticks_run": card["ticks_run"]}}
+
+
+K5_PHASES = ("stream", "tail")
+
+
+def k5_phase_ms(params, s, mask, reps: int = 10) -> dict:
+    """Median ms of each phase of K5 at one state, from its instrumented
+    build's %globaltimer stamps: the stream until the last block arrives,
+    then the last block's tail."""
+    with _instrumented("detect.cu", "DETECT_PHASE_TIMES", "mass_detect"):
+        return _phase_ms("mass_detect", kernels.MASS_STAMP_AT, K5_PHASES,
+                         lambda _: swim.mass_detection_stats(params, s, mask),
+                         lambda: None, reps)
 
 
 # ---------------------------------------------------------------------------
@@ -1996,36 +2109,14 @@ def k6_phase_ms(merge, reps: int = 10) -> dict:
                          lambda _: merge(), lambda: None, reps)
 
 
-def merge_kernels(merge, reps: int = 10, tries: int = 3) -> dict:
-    """{kernel: launches per call} of the merge, from torch.profiler's
-    records of `reps` calls (copies and memsets left out; in a long run
-    on this card a capture of one call has recorded nothing, and one of
-    ten calls six of the ten launches), taken again when a capture
-    records no device activity at all."""
-    merge()
-    torch.cuda.synchronize()
-    for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                merge()
-            torch.cuda.synchronize()
-        kinds = {k: v / reps for k, v in profile_tick._device_ops(prof).items()
-                 if not k.startswith(("Memcpy", "Memset"))}
-        if kinds:
-            return kinds
-        log(f"profile {attempt + 1} of {tries} of the merge recorded nothing")
-    return {}
-
-
-def merge_allocations(merge) -> int:
-    """Allocations the caching allocator made during one call of merge
-    (its outputs count; its scratch, kept per device, is made by an
-    earlier call)."""
-    merge()
+def allocations(fn) -> int:
+    """Allocations the caching allocator made during one call of fn
+    (its outputs count; a scratch kept per device is made by an earlier
+    call)."""
+    fn()
     torch.cuda.synchronize()
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    merge()
+    fn()
     torch.cuda.synchronize()
     return torch.cuda.memory_stats()["allocation.all.allocated"] - before
 
@@ -2066,8 +2157,8 @@ def time_k6(params, s, up) -> tuple:
                       *step_cols), reps=5),
                   "bound_ms": sb / HBM_BYTES_PER_S * 1000.0,
                   "bound_bytes": sb}}
-    kinds = merge_kernels(merge)
-    allocs = merge_allocations(merge)
+    kinds = kernels_a_call(merge)
+    allocs = allocations(merge)
     log(f"K6 merge: device kernels a call {kinds}, {allocs} allocations")
     # one device kernel a call: the captures hold the merge's kernel and
     # nothing else, never more than once a call (the profiler has dropped

@@ -86,7 +86,7 @@ SIGNATURES = {
                         _U32, _I, _F32, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                         _I, _P, _P, _P, _I, _P],
     "believed_down": [_P] * 15 + [_I64, _I, _I64, _I, _I, _P, _I, _P, _P],
-    "members_scan": [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P, _P],
+    "members_scan": [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P, _P, _P],
     "members_emit": [_P] * 4 + [_I64, _I64, _P, _P, _P],
     "members_page": [_P, _I64] + [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P,
                                              _P],
@@ -403,8 +403,11 @@ def launch_believed_down(know, learn_tick, up, member, r_active, r_kind,
 
 # members.cu's tile: the nodes of one block of members_scan and
 # members_emit (kThreads * kPer), the unit of the per-block changed counts
-MEMBER_TILE = 1024
+MEMBER_TILE = 4096
 MEMBER_COUNTS = 5    # alive, failed, left, provisioned, changed
+# members_scan's per-device scratch: a word a total (its blocks' shares
+# above bit 40, the count below)
+MEMBER_SCRATCH = MEMBER_COUNTS
 
 
 def member_tiles(n: int) -> int:
@@ -430,11 +433,13 @@ def _node_vectors(name: str, dev, n: int, *named) -> None:
 def launch_members_scan(member, committed_dead, committed_left, r_active,
                         r_kind, r_subject, provisioned, prev, status,
                         counts, block_changed) -> None:
-    """K4's scan: status [N] int8 (when given), counts [5] int32 += alive,
+    """K4's scan: status [N] int8 (when given), counts [5] int32 = alive,
     failed, left, provisioned and changed-against-prev over provisioned
-    nodes (all nodes when provisioned is None; counts must start at 0),
-    block_changed [member_tiles(N)] int32 = each tile's changed count.
-    With prev, status and block_changed are required."""
+    nodes (all nodes when provisioned is None), block_changed
+    [member_tiles(N)] int32 = the changed count of tiles 0..b (an
+    inclusive prefix, members_emit's input).  With prev, status and
+    block_changed are required.  One launch; its scratch is kept per
+    device, so two streams must not run it at once."""
     dev = member.device
     n = member.shape[0] if member.dim() == 1 else -1
     if not 1 <= n < 2 ** 31:
@@ -462,7 +467,9 @@ def launch_members_scan(member, committed_dead, committed_left, r_active,
         member.data_ptr(), committed_dead.data_ptr(),
         committed_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
         r_subject.data_ptr(), u, _ptr(provisioned), _ptr(prev), n,
-        _ptr(status), counts.data_ptr(), _ptr(block_changed), _stream(dev))
+        _ptr(status), counts.data_ptr(), _ptr(block_changed),
+        _scratch_words(dev, "members_scan", MEMBER_SCRATCH).data_ptr(),
+        _stream(dev))
     _check(rc, "members_scan")
     LAUNCHES["members_scan"] += 1
 
@@ -471,7 +478,8 @@ def launch_members_emit(status, prev, provisioned, block_changed, k: int,
                         idx, state) -> None:
     """K4's emit: idx [k] int32 and state [k] int8 = the ascending first k
     provisioned nodes whose status differs from prev, then -1 and
-    status[0] (block_changed is members_scan's, from the same status)."""
+    status[0] (block_changed is members_scan's prefix, from the same
+    status)."""
     dev = status.device
     n = status.shape[0] if status.dim() == 1 else -1
     if not 1 <= n < 2 ** 31 or not 1 <= k < 2 ** 31:
@@ -524,6 +532,10 @@ def launch_members_page(ids, member, committed_dead, committed_left,
 
 MASS_COUNTERS = 4    # detect.cu's kCounters: live, victims, and the base
 #                      believed-down counts over victims and over live rows
+MASS_STAMPS = 3      # its instrumented build's phase stamps
+# detect.cu's kStampAt: the done count, the counters and 64 slot counts
+MASS_STAMP_AT = 1 + MASS_COUNTERS + 64
+MASS_SCRATCH = MASS_STAMP_AT + MASS_STAMPS
 
 
 def launch_mass_detect(know, up, member, committed_dead, committed_left,
@@ -532,7 +544,8 @@ def launch_mass_detect(know, up, member, committed_dead, committed_left,
     """K5: recall (float32) into recall_out[0] and false positives (int32)
     into fp_out[0] of a correlated-failure experiment, from the [N, U]
     knowledge matrix, the [N] leaves and the raw [U] rumor table, in one
-    launch (its scratch allocated here, per call)."""
+    launch (its scratch kept per device and left zeroed by each launch,
+    so two streams must not run it at once)."""
     dev = know.device
     if know.dim() != 2:
         raise ValueError("mass_detect: know must be [N, U]")
@@ -554,8 +567,7 @@ def launch_mass_detect(know, up, member, committed_dead, committed_left,
                          f"{r_active.shape[0]} slots, know {u}")
     _require(recall_out, "mass_detect recall_out", torch.float32, dev, (1,))
     _require(fp_out, "mass_detect fp_out", torch.int32, dev, (1,))
-    scratch = torch.zeros(1 + MASS_COUNTERS + u, dtype=torch.int64,
-                          device=dev)
+    scratch = _scratch_words(dev, "mass_detect", MASS_SCRATCH)
     rc = library().mass_detect(
         know.data_ptr(), up.data_ptr(), member.data_ptr(),
         committed_dead.data_ptr(), committed_left.data_ptr(),

@@ -1525,12 +1525,12 @@ def membership_delta_plain(params: SwimParams, s: SwimState,
 
 
 def _scan(s: SwimState, provisioned=None, prev=None, want_status=False):
-    """K4's scan: (status or None, counts [5] int32, per-tile changed
-    counts or None)."""
+    """K4's scan, one device kernel: (status or None, counts [5] int32,
+    the tiles' prefix of changed counts or None)."""
     n, dev = s.member.shape[0], s.device
     status = torch.empty(n, dtype=I8, device=dev) \
         if want_status or prev is not None else None
-    counts = torch.zeros(kernels.MEMBER_COUNTS, dtype=I32, device=dev)
+    counts = torch.empty(kernels.MEMBER_COUNTS, dtype=I32, device=dev)
     tiles = torch.empty(kernels.member_tiles(n), dtype=I32, device=dev) \
         if prev is not None else None
     kernels.launch_members_scan(s.member, s.committed_dead, s.committed_left,

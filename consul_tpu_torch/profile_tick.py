@@ -9,6 +9,7 @@ the device's busy and idle share.
     python -m consul_tpu_torch.profile_tick k12k13 [n_nodes]
     python -m consul_tpu_torch.profile_tick k9k14 [n_nodes]
     python -m consul_tpu_torch.profile_tick k6 [tick]
+    python -m consul_tpu_torch.profile_tick k5k4 [n_nodes]
 
 Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
@@ -36,7 +37,10 @@ suspect slot and that convert one, and for the bulk step (K14) at the
 correlated bench's mid-drain and on the empty channel of the tick
 before its overflow.  The `k6` form times K6's diff (both forms), its
 merge and one whole anti-entropy step at the churn's mid-churn state
-(older trees too).  Prints one JSON line; needs a CUDA device.
+(older trees too).  The `k5k4` form times the correlated bench's tick
+and K5 at its mid-drain state, and the oracle's summary, delta and page
+reads at its 1M state, with their device kernels (older trees too).
+Prints one JSON line; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -147,6 +151,29 @@ def kernels_of(fn) -> dict:
         torch.cuda.synchronize()
     return {k: v for k, v in _device_ops(prof).items()
             if not k.startswith(("Memcpy", "Memset"))}
+
+
+def kernels_a_call(fn, reps: int = 10, tries: int = 3) -> dict:
+    """{kernel: launches per call} of fn, from torch.profiler's records of
+    `reps` calls (copies and memsets left out; in a long run on the card
+    a capture of one call has recorded nothing, and one of ten calls six
+    of the ten launches), taken again when a capture records no device
+    activity at all."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kinds = {k: v / reps for k, v in _device_ops(prof).items()
+                 if not k.startswith(("Memcpy", "Memset"))}
+        if kinds:
+            return kinds
+        print(f"profile {attempt + 1} of {tries} of {reps} calls recorded "
+              f"nothing", file=sys.stderr)
+    return {}
 
 
 def _device_ops(prof) -> dict:
@@ -620,6 +647,82 @@ def k6_times(tick: int = 50, reps: int = 20) -> dict:
             "at": out}
 
 
+def wall_ms(fn, reps: int = 20) -> float:
+    """Median host wall ms of one call of fn, ended by a synchronize."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    return sorted(times)[len(times) // 2]
+
+
+def k5_k4_times(n_nodes: int = 1_000_000, reps: int = 20) -> dict:
+    """K5 and K4 where their callers run them.  The correlated bench's
+    tick (`swim.step`, then K5 into the tick's slots) from its mid-drain
+    state (correlated.mid_drain): fenced ms a tick over `reps` ticks,
+    device kernels of each of 10 ticks, and K5 alone (device ms with
+    kernel_ms, call ms, device kernels a call over 10 calls).  The
+    oracle's membership reads at its 1M state (N - 1,000 joined, three
+    members killed and advanced 50 ticks): members_summary,
+    members_delta(256) (a checkpoint already set) and members(limit=100),
+    each its wall ms and device kernels a read (over 10 reads).  Nothing
+    but public entry points, so an older tree's
+    package first on PYTHONPATH is measured the same way."""
+    from consul_tpu_torch.oracle import GossipOracle
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_tick needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    bp = correlated.bench_params(n_nodes)
+    _, mask = correlated.start(bp, correlated.FRACTION, correlated.SEED, dev)
+    s = correlated.mid_drain(bp, dev)
+    out = (torch.empty(1, dtype=torch.float32, device=dev),
+           torch.empty(1, dtype=torch.int32, device=dev))
+    k5 = lambda: swim.mass_detection_stats(bp, s, mask, out=out)  # noqa: E731
+    res = {"k5": {"tick": s.tick, "device_ms": kernel_ms(k5),
+                  "call_ms": median_ms(k5),
+                  "kernels": sum(kernels_a_call(k5).values())}}
+    held = {"s": s}
+
+    def tick():
+        held["s"] = swim.step(bp, held["s"])
+        swim.mass_detection_stats(bp, held["s"], mask, out=out)
+
+    per_tick = [sum(kernels_of(tick).values()) for _ in range(10)]
+    walls = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize(dev)
+        walls.append(1000.0 * (time.perf_counter() - t0))
+    res["correlated_tick"] = {"fenced_ms": statistics.median(walls[1:]),
+                              "kernels_per_tick": per_tick}
+    o = GossipOracle(GossipConfig.lan(), SimConfig(
+        n_nodes=n_nodes, rumor_slots=32, alloc_cap=8, p_loss=0.01, seed=7,
+        n_initial=n_nodes - 1000), device=dev)
+    o.warmup()
+    o.advance(1)
+    o.members_delta()
+    for v in (1000, n_nodes // 2, n_nodes - 1001):
+        o.kill(f"node{v}")
+    o.advance(50)
+    reads = {"members_summary": o.members_summary,
+             "members_delta(256)": lambda: o.members_delta(256),
+             "members(limit=100)": lambda: o.members(limit=100,
+                                                      offset=n_nodes // 2)}
+    for name, fn in reads.items():
+        res[name] = {"wall_ms": wall_ms(fn, reps),
+                     "kernels": kernels_a_call(fn)}
+    o.stop()
+    return {"device": torch.cuda.get_device_name(dev), "n_nodes": n_nodes,
+            "at": res}
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -638,5 +741,7 @@ if __name__ == "__main__":
         print(json.dumps(k9_k14_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k6"]:
         print(json.dumps(k6_times(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["k5k4"]:
+        print(json.dumps(k5_k4_times(*[int(a) for a in sys.argv[2:]])))
     else:
         print(json.dumps(main(*[int(a) for a in sys.argv[1:]])))

@@ -415,6 +415,19 @@ def test_members_tile_matches_the_kernel_source():
     assert set(kernels.MEMBERS) <= set(kernels.SIGNATURES)
 
 
+def test_mass_scratch_matches_the_kernel_source():
+    """kernels.MASS_COUNTERS and MASS_STAMP_AT are detect.cu's kCounters
+    and kStampAt (the done count, the counters, kSlots slot counts): the
+    scratch the wrapper keeps and the stamps chip_smoke reads."""
+    text = (Path(kernels.__file__).parent / "csrc" / "detect.cu").read_text()
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    assert const["kCounters"] == kernels.MASS_COUNTERS
+    assert 1 + const["kCounters"] + const["kSlots"] == kernels.MASS_STAMP_AT
+    assert "constexpr int kStampAt = kCol0 + kSlots;" in text
+    assert "constexpr int kCol0 = 1 + kCounters;" in text
+
+
 def test_membership_reads_on_a_card_tensor_never_take_the_plain_twin(
         monkeypatch):
     """On a CUDA tensor the K4 wrappers launch or raise: with the launch

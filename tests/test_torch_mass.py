@@ -191,6 +191,10 @@ def _edge(case, u=16):
         d["committed_dead"][v[:10]] = True
         d["committed_left"][v[10:12]] = True
         rumor(0, jswim.DEAD, v[0], n_live)        # already counted
+    elif case == "no_live_rows":                  # n_live clamps to 1
+        rumor(0, jswim.DEAD, v[3], n_live)        # every row knows, none live
+        d["up"][:] = False
+        d["committed_dead"][v[:3]] = True
     else:
         raise ValueError(case)
     js = js.replace(**{k: jnp.asarray(x) for k, x in d.items() if k != "tick"})
@@ -198,7 +202,8 @@ def _edge(case, u=16):
 
 
 EDGES = ("duplicate_subjects", "left_slot", "just_below_bar", "live_subject",
-         "bulk_at_bar", "masked_slot_to_node_0", "no_victims", "committed")
+         "bulk_at_bar", "masked_slot_to_node_0", "no_victims", "committed",
+         "no_live_rows")
 
 
 @pytest.mark.parametrize("u", (16, 64))
@@ -224,7 +229,9 @@ def test_mass_detection_stats_edges(case, u):
               "bulk_at_bar": lambda r, f: r == np.float32(2) / 30,
               "masked_slot_to_node_0": lambda r, f: f == 0,
               "no_victims": lambda r, f: r == 0.0 and f == 0,
-              "committed": lambda r, f: r == np.float32(12) / 30}[case]
+              "committed": lambda r, f: r == np.float32(12) / 30,
+              "no_live_rows": lambda r, f: r == np.float32(3) / 30 and f == 0,
+              }[case]
     assert expect(np.float32(tr), int(tf)), (case, float(tr), int(tf))
 
 
@@ -239,6 +246,148 @@ def test_mass_detection_stats_out_slots():
     want = swim.mass_detection_stats_plain(tp, ts, torch.from_numpy(mask))
     assert rec.tolist() == [-1.0, -1.0, float(want[0]), -1.0]
     assert fp.tolist() == [-1, -1, int(want[1]), -1]
+
+
+# ---------------------------------------------------------------------------
+# K5's tile walk (detect.cu), transcribed in numpy
+# ---------------------------------------------------------------------------
+
+def _k5_walk(d, victim, tile, threads, flush):
+    """mass_detect's walk over numpy leaves `d` (know [N, U] and the [N]
+    and [U] leaves of a state): tiles of `tile` rows, `threads` threads a
+    block (a multiple of 32), W-byte chunks (W the widest of 16, 8, 4, 2,
+    1 dividing U), byte lanes of uint8 flushed every `flush` rows, the
+    warp sums in 16-bit halves where U / W is a power of two, the leaf
+    counters with bulk_cov read only at an uncommitted bulk member, then
+    the one-warp tail: float32 coverage, __match_any_sync's
+    de-duplication in two passes of 32 slots, the subjects' base mask.
+    Returns (recall float32, false positives int)."""
+    know = d["know"].astype(np.uint8)
+    n, u = know.shape
+    up, member = d["up"], d["member"]
+    cdead, cleft = d["committed_dead"], d["committed_left"]
+    bulk, bulk_cov = d["bulk_member"], d["bulk_cov"]
+    w = 16
+    while w > 1 and u % w:
+        w //= 2
+    cpr = u // w
+    rows_it = threads // cpr
+    cnt = np.zeros(4, np.int64)
+    cols = np.zeros(64, np.int64)
+    for base in range(0, n, tile):
+        rows = min(tile, n - base)
+        at = slice(base, base + rows)
+        live = member[at] & up[at]
+        vic = member[at] & victim[at]
+        down = cdead[at] | cleft[at]
+        cov = np.where(bulk[at] & ~down, bulk_cov[at], np.float32(0))
+        down = down | (cov >= np.float32(0.99))
+        cnt += [live.sum(), vic.sum(), (down & vic).sum(), (down & live).sum()]
+        acc = np.zeros((threads, w), np.uint8)      # byte lanes
+        tile_cols = np.zeros(64, np.int64)
+        for t in range(rows_it * cpr):
+            q, since = t % cpr, 0
+            for r in range(t // cpr, rows, rows_it):
+                row = know[base + r, q * w:(q + 1) * w]
+                lanes = acc[t].astype(np.int64) + row * live[r]
+                assert lanes.max() <= 255, "a byte lane overflowed"
+                acc[t] = lanes
+                since += 1
+                if since == flush:
+                    tile_cols[q * w:(q + 1) * w] += acc[t]
+                    acc[t] = 0
+                    since = 0
+        if cpr & (cpr - 1) == 0 and cpr <= 32 and w >= 4:
+            for warp in range(threads // 32):
+                for q in range(cpr):
+                    lanes = [32 * warp + l for l in range(q, 32, cpr)]
+                    half = acc[lanes].astype(np.int64).sum(0)
+                    assert half.max() < 1 << 16, "a 16-bit half overflowed"
+                    tile_cols[q * w:(q + 1) * w] += half
+        else:
+            for t in range(rows_it * cpr):
+                q = t % cpr
+                tile_cols[q * w:(q + 1) * w] += acc[t]
+        cols += tile_cols
+    live_f = np.float32(max(cnt[0], 1))
+    subj = np.zeros(64, np.int64)
+    subj[:u] = d["r_subject"]
+    det = np.zeros(64, bool)
+    for s in range(u):
+        kind = d["r_kind"][s]
+        det[s] = d["r_active"][s] and kind in (jswim.DEAD, jswim.LEFT) \
+            and np.float32(cols[s]) / live_f >= np.float32(0.99)
+    keep = np.zeros(64, bool)
+    for lane in range(32):                      # pass 0: a match over lanes
+        same = [l for l in range(32) if det[l] and subj[l] == subj[lane]]
+        keep[lane] = det[lane] and min(same) == lane
+    for lane in range(32):                      # pass 1: lanes, then pass 0
+        s = 32 + lane
+        same = [l for l in range(32)
+                if det[32 + l] and subj[32 + l] == subj[s]]
+        dup = min(same, default=lane) < lane or any(
+            det[l] and subj[l] == subj[s] for l in range(32))
+        keep[s] = det[s] and not dup
+    found, fp = int(cnt[2]), int(cnt[3])
+    for s in np.flatnonzero(keep):
+        i = subj[s]
+        if not 0 <= i < n:
+            continue
+        base_down = cdead[i] or cleft[i] or (
+            bulk[i] and bulk_cov[i] >= np.float32(0.99))
+        found += bool(not base_down and member[i] and victim[i])
+        fp += bool(not base_down and member[i] and up[i])
+    return np.float32(found) / np.float32(max(int(cnt[1]), 1)), fp
+
+
+def _random_mass(u, seed, n=300):
+    """A seeded random state of [n, u] around the 0.99 bar: subjects from
+    8 nodes (duplicates), ~1% bulk members near their own bar, ~5%
+    victims; (jax params, port params, jax state, numpy leaves, mask)."""
+    jp, tp = _params(n=n, u=u)
+    rng = np.random.default_rng(seed)
+    js = jswim.init_state(jp)
+    d = jax_dict(js)
+    bulk = rng.random(n) < 0.05
+    d.update(know=rng.random((n, u)) < 0.985 + 0.015 * rng.random(u),
+             up=rng.random(n) < 0.97, member=rng.random(n) < 0.99,
+             committed_dead=rng.random(n) < 0.01,
+             committed_left=rng.random(n) < 0.005, bulk_member=bulk,
+             bulk_cov=np.where(bulk, 0.985 + 0.01 * rng.random(n), 0.0)
+             .astype(np.float32),
+             r_active=rng.random(u) < 0.9,
+             r_kind=rng.integers(0, 4, u).astype(np.int8),
+             r_subject=rng.choice(n, 8)[rng.integers(0, 8, u)]
+             .astype(np.int32))
+    js = js.replace(**{k: jnp.asarray(x) for k, x in d.items() if k != "tick"})
+    return jp, tp, js, d, rng.random(n) < 0.05
+
+
+K5_WALKS = ((1, 32, 3), (3, 32, 3), (16, 64, 255), (7, 64, 3))
+
+
+@pytest.mark.parametrize("walk", K5_WALKS)
+@pytest.mark.parametrize("state", [f"{c} U={u}" for c in EDGES
+                                   for u in (16, 64)]
+                         + [f"random U={u}" for u in (16, 32, 40, 64)])
+def test_k5_tile_walk_matches_the_twin_and_jax(state, walk):
+    """The transcription of K5's walk (tiles of 1-16 rows, small flush
+    intervals, the warp tail's de-duplication) gives the plain twin's and
+    the JAX function's recall bits and false positives."""
+    case, u = state.split(" U=")
+    if case == "random":
+        jp, tp, js, d, mask = _random_mass(int(u), seed=int(u))
+    else:
+        jp, tp, js, _, mask = _edge(case, int(u))
+        d = jax_dict(js)
+    jr, jf = _mass(jp, js, jnp.asarray(mask))
+    pr, pf = swim.mass_detection_stats_plain(
+        tp, convert.swim_state_from_numpy(d, device="cpu"),
+        torch.from_numpy(mask))
+    wr, wf = _k5_walk(d, mask, *walk)
+    bits = np.asarray(jr).view(np.int32)
+    assert np.float32(wr).view(np.int32) == bits == pr.numpy().view(np.int32)
+    assert wf == int(jf) == int(pf)
 
 
 # ---------------------------------------------------------------------------

@@ -162,6 +162,147 @@ def test_membership_delta(case):
         assert (np.asarray(got[2])[n_changed:] == -1).all()
 
 
+# ---------------------------------------------------------------------------
+# K4's scan and emit (members.cu), transcribed in numpy
+# ---------------------------------------------------------------------------
+
+ONES = np.uint32(0x01010101)
+
+
+def _words(x):
+    """A uint8 vector padded with zero bytes to whole words, as uint32."""
+    x = np.asarray(x).astype(np.uint8)
+    return np.concatenate([x, np.zeros(-len(x) % 4, np.uint8)]).view(np.uint32)
+
+
+def _bytes(w, n):
+    return w.view(np.uint8)[:n]
+
+
+def _ne4(a, b):
+    """__vcmpne4: 0xff in each byte where a's and b's differ."""
+    ne = _bytes(a, 4 * len(a)) != _bytes(b, 4 * len(b))
+    return _words(np.where(ne, 0xff, 0))
+
+
+def _popc(w):
+    return int(np.unpackbits(w.view(np.uint8)).sum())
+
+
+def _k4_scan(d, prov, prev, tile, per):
+    """members_scan over numpy leaves `d`: a block a tile of `tile` nodes
+    (`tile // per` threads of `per` nodes), the tile's dead subjects as a
+    bitmap (active dead slots whose subject lies in the tile), statuses
+    from the bytes (SWAR on words), counts by popcounts over provisioned
+    nodes, each tile's changed count, then the completing block's
+    inclusive prefix.  Returns (status int8, counts [5], prefix)."""
+    n = len(d["member"])
+    dead = np.zeros(n, bool)
+    for base in range(0, n, tile):
+        bitmap = np.zeros(tile, bool)
+        for s in range(len(d["r_active"])):
+            off = int(d["r_subject"][s]) - base
+            if d["r_active"][s] and d["r_kind"][s] == jswim.DEAD \
+                    and int(d["r_subject"][s]) >= 0 and 0 <= off < tile:
+                bitmap[off] = True
+        dead[base:base + tile] = bitmap[:min(tile, n - base)]
+    mem, cd, cl = (_words(d[k]) for k in ("member", "committed_dead",
+                                          "committed_left"))
+    left = (cl | (mem ^ ONES)) & ONES
+    failed = (cd | _words(dead)) & ~left & ONES
+    st = (left << 1) | failed
+    pv, pr = _words(prov), _words(prev.view(np.uint8))
+    changed = _ne4(st, pr) & pv & ONES
+    counts = [_popc(~(failed | left) & pv & ONES), _popc(failed & pv),
+              _popc(left & pv), _popc(pv & ONES), _popc(changed)]
+    ch = _bytes(changed, n).astype(np.int64)
+    tiles = [int(ch[b:b + tile].sum()) for b in range(0, n, tile)]
+    return (_bytes(st, n).view(np.int8).copy(), np.array(counts, np.int32),
+            np.cumsum(tiles).astype(np.int32), ch)
+
+
+def _k4_emit(status, changed, prefix, k, tile, per):
+    """members_emit: block b reads prefix[b - 1], prefix[b] and the total,
+    writes its share of the pad rows (idx -1, state status[0]) and, when
+    its tile holds a changed node and the prefix before it is below k,
+    ranks the tile's changed nodes thread by thread (an exclusive scan of
+    the threads' counts) and writes those of rank < k."""
+    n = len(status)
+    idx = np.full(k, 12345, np.int32)
+    state = np.full(k, 99, np.int8)
+    total = int(prefix[-1])
+    idx[total:] = -1
+    state[total:] = status[0]
+    for b, base in enumerate(range(0, n, tile)):
+        before = int(prefix[b - 1]) if b else 0
+        if prefix[b] == before or before >= k:
+            continue
+        mine = [changed[i:min(i + per, n)].sum()
+                for i in range(base, base + tile, per)]
+        rank = before + np.concatenate([[0], np.cumsum(mine)[:-1]])
+        for j, i0 in enumerate(range(base, base + tile, per)):
+            r = int(rank[j])
+            for i in range(i0, min(i0 + per, n)):
+                if changed[i] and r < k:
+                    idx[r], state[r] = i, status[i]
+                if changed[i]:
+                    r += 1
+    return idx, state
+
+
+def _edged(name):
+    """A state of _states() with its dead subjects on the tiles' edges of
+    the transcription (0, tile - 1, tile, N - 1 for tiles of 4, 8 and
+    16), some named twice, beside the run's own rumors."""
+    js, prov = _states()[name]
+    d = jax_dict(js.swim)
+    edges = [0, 3, 4, 7, 8, 15, 16, N - 1, 3, N - 1]
+    for k in ("r_active", "r_kind", "r_subject"):
+        d[k] = d[k].copy()
+    d["r_active"][:len(edges)] = True
+    d["r_kind"][:len(edges)] = jswim.DEAD
+    d["r_subject"][:len(edges)] = edges
+    sw = js.swim.replace(**{k: jnp.asarray(d[k]) for k in
+                            ("r_active", "r_kind", "r_subject")})
+    return js.replace(swim=sw), prov, d
+
+
+K4_TILES = ((1, 1), (4, 2), (8, 4), (16, 4), (12, 3))
+
+
+@pytest.mark.parametrize("tile", K4_TILES)
+@pytest.mark.parametrize("case", ["committed", "rejoined", "mass",
+                                  "mass, edges", "rejoined, edges"])
+@pytest.mark.parametrize("k", (4, 64, 512))
+def test_k4_scan_and_emit_transcription(case, tile, k):
+    """The transcription of K4's tile bitmap, the scan's completing-block
+    prefix and the emit's ranks (tiles of 1-16 nodes) gives the plain
+    twin's and the JAX membership_delta's outputs, with k below and above
+    n_changed."""
+    name = case.split(",")[0]
+    if case.endswith("edges"):
+        js, prov, d = _edged(name)
+    else:
+        js, prov = _states()[name]
+        d = jax_dict(js.swim)
+    since = {"committed": None, "rejoined": "committed", "mass": "rejoined"}
+    prev = np.full(N, -1, np.int8) if since[name] is None else \
+        np.asarray(_status(JP, _states()[since[name]][0]))
+    want = _delta(JP, js, jnp.asarray(prev), jnp.asarray(prov), k)
+    plain = swim.membership_delta_plain(
+        TP.swim, _port(js).swim, _t(prev), _t(prov), k)
+    st, counts, prefix, changed = _k4_scan(d, prov, prev, *tile)
+    idx, state = _k4_emit(st, changed, prefix, k, *tile)
+    for a, b, what in ((st, want[0], "status"),
+                       (counts[4], want[1], "n_changed"),
+                       (idx, want[2], "idx"), (state, want[3], "state")):
+        _eq(b, a, f"{case} {tile} k={k}: {what}")
+    for a, b, what in zip(want, plain,
+                          ("status", "n_changed", "idx", "state")):
+        _eq(a, b, f"{case} plain {what}")
+    _eq(_counts(JP, js, jnp.asarray(prov)), counts[:4], f"{case} counts")
+
+
 @pytest.mark.parametrize("name", ["committed", "mass"])
 def test_rtt_order_estimate_and_coord_row(name):
     js, _ = _states()[name]
