@@ -10,7 +10,10 @@ scan and the kill (before the clock starts) and at each scan's single
 readback of its fractions.
 
 Run on the card: `python -m consul_tpu_torch.bench` (prints one JSON
-line); tests call `run_convergence(..., device="cpu")` at small N.
+line, stamped with the topology it ran on and the number of times the
+process loaded the kernel library, which must be one: the counterpart of
+the JAX bench's `compiles`); tests call `run_convergence(...,
+device="cpu")` at small N.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from consul_tpu_torch import kernels
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.parallel.kernel_audit import topology_stamp
 from consul_tpu_torch.utils import devices
 
 N = 1_000_000
@@ -101,6 +105,11 @@ def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
             "launches": launches, "timed_ticks_run": timed_ticks_run,
             "fracs": fracs,
             "host_syncs": syncs,
+            "topology": topology_stamp(device),
+            # kernel builds in this process: one on the card, none on the
+            # CPU (the twins need no library)
+            "library_loads": kernels.LIBRARY_LOADS
+            if device.type == "cuda" else None,
             "device": {"type": device.type,
                        "name": torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"}}
@@ -108,13 +117,16 @@ def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
 
 def main() -> None:
     r = run_convergence()
+    assert r["library_loads"] == 1, \
+        f"the kernel library was loaded {r['library_loads']} times"
     print(json.dumps({
         "metric": "serf_1M_node_crash_convergence_wallclock",
         "value": r["wall"], "unit": "s", "ticks": r["ticks"],
         "converged": r["converged"], "f1": r["f1"],
         "false_commits": r["false_commits"], "launches": r["launches"],
         "host_syncs_per_tick": r["host_syncs"] / max(r["timed_ticks_run"], 1),
-        "sim_counters": r["sim_counters"], "device": r["device"]}))
+        "sim_counters": r["sim_counters"], "topology": r["topology"],
+        "library_loads": r["library_loads"], "device": r["device"]}))
 
 
 if __name__ == "__main__":

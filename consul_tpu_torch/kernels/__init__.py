@@ -57,6 +57,9 @@ MAX_SEGMENTS = 8
 DRAW_ELEMENTS_PER_THREAD = 4      # threefry.cu's kPer
 
 _lib = None
+# times this process built and loaded the library: once (kernel_audit's
+# one-build rule and the bench's row hold it to that)
+LIBRARY_LOADS = 0
 # per-(device, kernel) counter scratch: one u64 block count, then each
 # block's partial counters (the last block of a launch sums them and
 # resets the count)
@@ -112,7 +115,7 @@ SIGNATURES = {
 
 def library():
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, LIBRARY_LOADS
     if _lib is None:
         lib = ctypes.CDLL(str(build.build()))
         for name, argtypes in SIGNATURES.items():
@@ -120,6 +123,7 @@ def library():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
+        LIBRARY_LOADS += 1
     return _lib
 
 

@@ -53,6 +53,15 @@ inline int persistent_blocks(F kernel, int threads, int64_t n, int cap,
   return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
+// --- subjects --------------------------------------------------------------
+
+// A rumor's subject as JAX's scatter takes an index into [N]: one in
+// [-N, 0) wraps once to subject + N; the caller drops any result outside
+// [0, N).
+__device__ __forceinline__ int64_t wrapped(int32_t subject, int64_t N) {
+  return subject < 0 ? subject + N : static_cast<int64_t>(subject);
+}
+
 // --- copies ----------------------------------------------------------------
 
 // 16 bytes from device memory into shared memory without a register

@@ -46,7 +46,8 @@
 //     division as jnp computes it, a ballot the detected (active dead or
 //     left) slots at the 0.99 bar; __match_any_sync drops a slot whose
 //     subject a lower detected slot names (a masked slot names none; a
-//     subject outside [0, N) counts nowhere); each lane loads the base
+//     subject in [-N, 0) names subject + N, as JAX's scatter wraps it, and
+//     one outside [-N, N) counts nowhere); each lane loads the base
 //     mask's leaves, member, victim and up at its subjects at once, warp
 //     sums add the subjects the base mask did not already count, and lane
 //     0 writes recall = float32(detected victims) / float32(max(victims,
@@ -328,7 +329,8 @@ __global__ void __launch_bounds__(kThreads) mass_detect_kernel(Args a) {
     subj[p] = 0;
     if (u < a.U) {
       const int kind = a.r_kind[u];
-      subj[p] = a.r_subject[u];
+      const int64_t w = wrapped(a.r_subject[u], a.N);
+      subj[p] = w >= 0 && w < a.N ? static_cast<int32_t>(w) : -1;
       const float cov = __fdiv_rn(__ull2float_rn(__ldcg(&a.scratch[kCol0 + u])), live_f);
       det[p] = a.r_active[u] && (kind == kDead || kind == kLeft) && cov >= 0.99f;
     }

@@ -12,7 +12,9 @@
 // A node's int8 status comes from member, committed_dead and
 // committed_left and the subjects of the [U] table's active dead rumors:
 // left wins over failed, and a node that is not a member is left; a dead
-// rumor's subject outside [0, N) marks nothing.
+// rumor's subject in [-N, 0) marks node subject + N and one outside
+// [-N, N) marks nothing (JAX's scatter wraps a negative index once and
+// drops the rest).
 //
 // Three launches:
 //   members_scan   a block per tile of kTile nodes.  The first warp reads
@@ -152,8 +154,8 @@ __global__ void __launch_bounds__(kThreads) members_scan_kernel(ScanArgs a) {
       if (u < a.U) {  // the three loads together, no short circuit between
         const bool active = a.r_active[u];
         const int8_t kind = a.r_kind[u];
-        const int32_t s = a.r_subject[u];
-        subj[p] = active && kind == kDead ? s : -1;
+        const int64_t s = wrapped(a.r_subject[u], a.N);
+        subj[p] = active && kind == kDead && s >= 0 && s < a.N ? static_cast<int32_t>(s) : -1;
       }
     }
   }
@@ -330,8 +332,9 @@ __global__ void __launch_bounds__(kThreads) members_page_kernel(
       if (u < U) {  // the three loads together, no short circuit between
         const bool active = r_active[u];
         const int8_t kind = r_kind[u];
-        s = r_subject[u];
-        dead = active && kind == kDead;
+        const int64_t w = wrapped(r_subject[u], N);
+        dead = active && kind == kDead && w >= 0 && w < N;
+        s = static_cast<int32_t>(w);
       }
       const unsigned m = __ballot_sync(0xffffffffu, dead);
       if (dead) s_subj[n + __popc(m & ((1u << t) - 1u))] = s;

@@ -302,13 +302,20 @@ def _t16(tick: int) -> int:
 
 def _scatter(base: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
              reduce: str) -> torch.Tensor:
-    """base.at[idx].max/min(val) — out of place, include_self."""
+    """base.at[idx].max/min(val) — out of place, include_self.  As JAX
+    scatters, an index in [-N, 0) wraps once and any other index outside
+    [0, N) is dropped: it lands in a spare row cut off after."""
+    n = base.shape[0]
+    idx = idx.to(I64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    wide = torch.cat([base, base[:1]])
     if base.dtype == torch.bool:
-        out = base.to(I32).scatter_reduce(0, idx.to(I64), val.to(I32), reduce,
+        out = wide.to(I32).scatter_reduce(0, idx, val.to(I32), reduce,
                                           include_self=True)
-        return out.bool()
-    return base.scatter_reduce(0, idx.to(I64), val.to(base.dtype), reduce,
-                               include_self=True)
+        return out[:n].bool()
+    return wide.scatter_reduce(0, idx, val.to(base.dtype), reduce,
+                               include_self=True)[:n]
 
 
 def _set_drop(table: torch.Tensor, idx: torch.Tensor,

@@ -10,6 +10,8 @@ the device's busy and idle share.
     python -m consul_tpu_torch.profile_tick k9k14 [n_nodes]
     python -m consul_tpu_torch.profile_tick k6 [tick]
     python -m consul_tpu_torch.profile_tick k5k4 [n_nodes]
+    python -m consul_tpu_torch.profile_tick wan [reps]
+    python -m consul_tpu_torch.profile_tick vivaldi [reps]
 
 Builds the bench configuration, runs the warm scan and the kill as the
 bench does, then times `ticks` fenced ticks, counts the device kernels of
@@ -40,6 +42,10 @@ merge and one whole anti-entropy step at the churn's mid-churn state
 (older trees too).  The `k5k4` form times the correlated bench's tick
 and K5 at its mid-drain state, and the oracle's summary, delta and page
 reads at its 1M state, with their device kernels (older trees too).
+The `wan` and `vivaldi` forms time the registry's `wan.run` (3 DCs x
+50,000 nodes: a gossip-only and a probe tick) and `vivaldi.sim_step`
+(100,000 nodes) entries as parallel/kernel_audit.py builds them: fenced
+ms and device kernels a tick.
 Prints one JSON line; needs a CUDA device.
 """
 
@@ -153,19 +159,23 @@ def kernels_of(fn) -> dict:
             if not k.startswith(("Memcpy", "Memset"))}
 
 
-def kernels_a_call(fn, reps: int = 10, tries: int = 3) -> dict:
+def kernels_a_call(fn, reps: int = 10, tries: int = 3, make=None) -> dict:
     """{kernel: launches per call} of fn, from torch.profiler's records of
     `reps` calls (copies and memsets left out; in a long run on the card
     a capture of one call has recorded nothing, and one of ten calls six
     of the ten launches), taken again when a capture records no device
-    activity at all."""
-    fn()
+    activity at all.  With `make`, fn takes an input make() builds before
+    the capture (a clone of a state fn consumes)."""
+    call, make = _calls(fn, make)
+    call(make())
     torch.cuda.synchronize()
     for attempt in range(tries):
+        inputs = [make() for _ in range(reps)]
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            for x in inputs:
+                call(x)
             torch.cuda.synchronize()
         kinds = {k: v / reps for k, v in _device_ops(prof).items()
                  if not k.startswith(("Memcpy", "Memset"))}
@@ -723,6 +733,41 @@ def k5_k4_times(n_nodes: int = 1_000_000, reps: int = 20) -> dict:
             "at": res}
 
 
+def registry_times(name: str, reps: int = 20) -> dict:
+    """One entry of the program-contract registry on the card, built by
+    its build function (parallel/kernel_audit.py) at full width: each form's
+    fenced ms (median, p10 and p90 of `reps` calls, each on an input made
+    before its fence) and device kernels a call
+    (kernel_audit.profiled_kernels)."""
+    from consul_tpu_torch.parallel import kernel_audit
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_tick needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    spec = next(s for s in kernel_audit.REGISTRY if s.name == name)
+    prog = spec.build(dev, 1)
+    forms = {}
+    for form, call in prog.forms.items():
+        for _ in range(2):
+            call.fn(call.make())
+        walls = []
+        for _ in range(reps):
+            x = call.make()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            call.fn(x)
+            torch.cuda.synchronize(dev)
+            walls.append(1000.0 * (time.perf_counter() - t0))
+        walls.sort()
+        kinds = kernel_audit.profiled_kernels(call.fn, call.make)
+        forms[form] = {"fenced_ms": statistics.median(walls),
+                       "fenced_p10_p90_ms": [walls[len(walls) // 10],
+                                             walls[(9 * len(walls)) // 10]],
+                       "kernels": sum(kinds.values()),
+                       "names": {k[:120]: v for k, v in kinds.items()}}
+    return {"device": torch.cuda.get_device_name(dev), "entry": name,
+            "n_nodes": prog.n_nodes, "forms": forms}
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -743,5 +788,11 @@ if __name__ == "__main__":
         print(json.dumps(k6_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k5k4"]:
         print(json.dumps(k5_k4_times(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["wan"]:
+        print(json.dumps(registry_times("wan.run",
+                                        *[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["vivaldi"]:
+        print(json.dumps(registry_times("vivaldi.sim_step",
+                                        *[int(a) for a in sys.argv[2:]])))
     else:
         print(json.dumps(main(*[int(a) for a in sys.argv[1:]])))

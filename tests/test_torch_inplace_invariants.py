@@ -36,7 +36,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
 from torch_parity import assert_leaves, jax_dict
 
@@ -177,6 +177,9 @@ def test_reference_expire_changes_only_what_k12_writes(seed, shape):
 @settings(max_examples=25, deadline=None)
 @given(seed=st.integers(0, 2 ** 16), n=st.sampled_from((1, 15, 64)),
        adj_index=st.integers(0, 200), w=st.sampled_from((1, 7, 20)))
+# a one-row pool whose window's 20 values (~1e-4) cancel to a mean of
+# ~5e-8: XLA sums them in order, torch pairwise, 1.5e-12 apart
+@example(seed=101, n=1, adj_index=0, w=20)
 def test_reference_ring_changes_one_window_column_on_acked_rows(
         seed, n, adj_index, w):
     rng = np.random.default_rng(seed)
@@ -209,7 +212,11 @@ def test_reference_ring_changes_one_window_column_on_acked_rows(
     for f in ("coords", "height", "error", "adj_window", "adjustment"):
         ref, mine = np.asarray(getattr(out, f)), getattr(got, f).numpy()
         err = np.abs(mine.astype(np.float64) - ref).max()
-        assert err <= SCALE_RTOL * max(np.abs(ref).max(), 1e-30), f
+        # the adjustment is the mean of the window's W values: its rounding
+        # follows the order of their sum, so it is held to their scale
+        scale = np.abs(np.asarray(out.adj_window) if f == "adjustment"
+                       else ref).max()
+        assert err <= SCALE_RTOL * max(scale, 1e-30), f
 
 
 @settings(max_examples=25, deadline=None)

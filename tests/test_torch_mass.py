@@ -191,6 +191,13 @@ def _edge(case, u=16):
         d["committed_dead"][v[:10]] = True
         d["committed_left"][v[10:12]] = True
         rumor(0, jswim.DEAD, v[0], n_live)        # already counted
+    elif case == "out_of_range_subjects":         # JAX wraps [-N, 0) once
+        n = len(d["up"])
+        rumor(0, jswim.DEAD, v[0] - n, n_live)    # names v[0]
+        rumor(1, jswim.DEAD, n + 1, n_live)       # names nobody
+        rumor(2, jswim.LEFT, -1, n_live)          # names n - 1
+        rumor(3, jswim.DEAD, -n - 1, n_live)      # names nobody
+        rumor(4, jswim.DEAD, n, n_live)           # names nobody
     elif case == "no_live_rows":                  # n_live clamps to 1
         rumor(0, jswim.DEAD, v[3], n_live)        # every row knows, none live
         d["up"][:] = False
@@ -203,7 +210,7 @@ def _edge(case, u=16):
 
 EDGES = ("duplicate_subjects", "left_slot", "just_below_bar", "live_subject",
          "bulk_at_bar", "masked_slot_to_node_0", "no_victims", "committed",
-         "no_live_rows")
+         "no_live_rows", "out_of_range_subjects")
 
 
 @pytest.mark.parametrize("u", (16, 64))
@@ -231,6 +238,8 @@ def test_mass_detection_stats_edges(case, u):
               "no_victims": lambda r, f: r == 0.0 and f == 0,
               "committed": lambda r, f: r == np.float32(12) / 30,
               "no_live_rows": lambda r, f: r == np.float32(3) / 30 and f == 0,
+              "out_of_range_subjects": lambda r, f: r == np.float32(1) / 30
+              and f == 1,
               }[case]
     assert expect(np.float32(tr), int(tf)), (case, float(tr), int(tf))
 
@@ -312,6 +321,8 @@ def _k5_walk(d, victim, tile, threads, flush):
     live_f = np.float32(max(cnt[0], 1))
     subj = np.zeros(64, np.int64)
     subj[:u] = d["r_subject"]
+    subj = np.where(subj < 0, subj + n, subj)       # [-N, 0) wraps once
+    subj = np.where((subj >= 0) & (subj < n), subj, -1)
     det = np.zeros(64, bool)
     for s in range(u):
         kind = d["r_kind"][s]

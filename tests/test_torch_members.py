@@ -201,9 +201,11 @@ def _k4_scan(d, prov, prev, tile, per):
     for base in range(0, n, tile):
         bitmap = np.zeros(tile, bool)
         for s in range(len(d["r_active"])):
-            off = int(d["r_subject"][s]) - base
+            subject = int(d["r_subject"][s])
+            subject += n if subject < 0 else 0      # [-N, 0) wraps once
+            off = subject - base
             if d["r_active"][s] and d["r_kind"][s] == jswim.DEAD \
-                    and int(d["r_subject"][s]) >= 0 and 0 <= off < tile:
+                    and 0 <= subject < n and 0 <= off < tile:
                 bitmap[off] = True
         dead[base:base + tile] = bitmap[:min(tile, n - base)]
     mem, cd, cl = (_words(d[k]) for k in ("member", "committed_dead",
@@ -250,13 +252,18 @@ def _k4_emit(status, changed, prefix, k, tile, per):
     return idx, state
 
 
-def _edged(name):
+# dead subjects outside [0, N): JAX's scatter wraps [-N, 0) once (-1 marks
+# N - 1, 5 - N marks 5, -N marks 0) and drops the rest (N, N + 1, -N - 1)
+OUT_OF_RANGE = [-1, N + 1, 5 - N, -N, N, -N - 1]
+
+
+def _edged(name, edges=(0, 3, 4, 7, 8, 15, 16, N - 1, 3, N - 1)):
     """A state of _states() with its dead subjects on the tiles' edges of
     the transcription (0, tile - 1, tile, N - 1 for tiles of 4, 8 and
-    16), some named twice, beside the run's own rumors."""
+    16), some named twice, beside the run's own rumors; or at `edges`."""
     js, prov = _states()[name]
     d = jax_dict(js.swim)
-    edges = [0, 3, 4, 7, 8, 15, 16, N - 1, 3, N - 1]
+    edges = list(edges)
     for k in ("r_active", "r_kind", "r_subject"):
         d[k] = d[k].copy()
     d["r_active"][:len(edges)] = True
@@ -272,7 +279,8 @@ K4_TILES = ((1, 1), (4, 2), (8, 4), (16, 4), (12, 3))
 
 @pytest.mark.parametrize("tile", K4_TILES)
 @pytest.mark.parametrize("case", ["committed", "rejoined", "mass",
-                                  "mass, edges", "rejoined, edges"])
+                                  "mass, edges", "rejoined, edges",
+                                  "mass, out of range"])
 @pytest.mark.parametrize("k", (4, 64, 512))
 def test_k4_scan_and_emit_transcription(case, tile, k):
     """The transcription of K4's tile bitmap, the scan's completing-block
@@ -282,6 +290,8 @@ def test_k4_scan_and_emit_transcription(case, tile, k):
     name = case.split(",")[0]
     if case.endswith("edges"):
         js, prov, d = _edged(name)
+    elif case.endswith("out of range"):
+        js, prov, d = _edged(name, OUT_OF_RANGE)
     else:
         js, prov = _states()[name]
         d = jax_dict(js.swim)
@@ -301,6 +311,31 @@ def test_k4_scan_and_emit_transcription(case, tile, k):
                           ("status", "n_changed", "idx", "state")):
         _eq(a, b, f"{case} plain {what}")
     _eq(_counts(JP, js, jnp.asarray(prov)), counts[:4], f"{case} counts")
+
+
+@pytest.mark.parametrize("name", ["committed", "rejoined", "mass"])
+def test_reads_with_dead_subjects_out_of_range(name):
+    """Active dead rumors about subjects outside [0, N) (-1, N + 1 and
+    the other edges of OUT_OF_RANGE): the status, counts, page and delta
+    agree with JAX, which wraps [-N, 0) once and drops the rest."""
+    js, prov, _ = _edged(name, OUT_OF_RANGE)
+    ts = _port(js)
+    status = np.asarray(_status(JP, js))
+    assert status[N - 1] == 1 or not np.asarray(js.swim.member)[N - 1] \
+        or np.asarray(js.swim.committed_left)[N - 1]
+    _eq(status, serf.status_vector(TP, ts), f"{name} status")
+    _eq(_counts(JP, js, jnp.asarray(prov)),
+        serf.membership_counts(TP, ts, _t(prov)), f"{name} counts")
+    ids = np.array([0, 5, N - 1, 1, N + 1, -1], np.int32)
+    for a, b, what in zip(_page(JP, js, jnp.asarray(ids)),
+                          serf.membership_page(TP, ts, _t(ids)),
+                          ("status", "incarnation", "up")):
+        _eq(a, b, f"{name} page {what}")
+    prev = np.asarray(_status(JP, _states()[name][0]))
+    want = _delta(JP, js, jnp.asarray(prev), jnp.asarray(prov), 16)
+    got = serf.membership_delta(TP, ts, _t(prev), _t(prov), 16)
+    for a, b, what in zip(want, got, ("status", "n_changed", "idx", "state")):
+        _eq(a, b, f"{name} delta {what}")
 
 
 @pytest.mark.parametrize("name", ["committed", "mass"])
@@ -355,6 +390,7 @@ def test_serf_run_at_four_shard_blocks_matches_reference():
     jp = jserf.make_params(jconfig.GossipConfig.lan(), jconfig.SimConfig(**kw))
     tp = serf.make_params(config.GossipConfig.lan(), config.SimConfig(**kw))
     assert tp.swim.shard_blocks == 4
+    kernels.reset_launches()    # what other tests' stub launches counted
     js, ts = jserf.init_state(jp), serf.init_state(tp, device="cpu")
     step = jax.jit(jserf.step, static_argnums=0)
     for t in range(120):
