@@ -1162,7 +1162,7 @@ def time_members(dev, o, launches: dict) -> list:
             replaces="consul_tpu/models/swim.py:1487"),
         "members_emit": dict(
             fn=lambda: kernels.launch_members_emit(st, prev, prov, blocks, k,
-                                                   idx, state),
+                                                   idx, state, counts),
             plain=lambda: swim._top_k(changed.to(torch.int32), k),
             library=lambda: torch.nonzero(changed)[:k],
             bytes=4 * tiles + 3 * kernels.MEMBER_TILE * tiles_read + 5 * k,
@@ -3923,6 +3923,602 @@ def contracts_phase(dev) -> dict:
     return {**summary, "records": r["records"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the node-sharded pool, K2-K4 over block tables
+# ---------------------------------------------------------------------------
+
+# 2^20 nodes: L = N / B stays a multiple of K4's 4,096-node tiles for B
+# up to 256 (the ragged case is held at N = 1,000,000 below)
+SHARD_N = 1 << 20
+SHARD_BLOCKS = 4
+SHARD_SCALING = (1, 2, 4)
+SHARD_SIM = SimConfig(n_nodes=SHARD_N, rumor_slots=32, alloc_cap=8,
+                      p_loss=0.01, seed=7, shard_blocks=SHARD_BLOCKS)
+SHARD_VICTIM = 123_457
+SHARD_FIRE_TICK = 31      # a gossip tick (LAN probe period 5)
+
+
+def _shard_mesh(devs):
+    from consul_tpu_torch.parallel import mesh as meshlib
+    return meshlib.make_mesh(devs)
+
+
+def _gossip_tick_pool(dev, chaos_build: bool = False):
+    """The unsharded port at full width to a gossip tick with rumors in
+    flight: 20 ticks, a kill, ticks to SHARD_FIRE_TICK, then (serf) a user
+    event fired.  (params, state): serf params and ClusterState, or with
+    `chaos_build` swim params (chaos=True) and a SwimState whose pool is
+    cut into two partition groups with a degraded tenth."""
+    import dataclasses as dc
+    if chaos_build:
+        p = swim.make_params(GossipConfig.lan(),
+                             dc.replace(SHARD_SIM, chaos=True))
+        s = swim.run(p, swim.init_state(p, device=dev), 20)[0]
+        s = swim.kill(s, SHARD_VICTIM)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(17)
+        r = torch.rand(SHARD_N, generator=gen, device=dev)
+        s = s.replace(chaos_grp=(r < 0.25).to(torch.int16),
+                      chaos_ok=torch.where(r > 0.9, 0.6, 1.0).to(
+                          torch.float32))
+        s = swim.run(p, s, SHARD_FIRE_TICK - s.tick)[0]
+        return p, s
+    p = serf.make_params(GossipConfig.lan(), SHARD_SIM)
+    s, _ = serf.run(p, serf.init_state(p, device=dev), 20)
+    s = s.replace(swim=swim.kill(s.swim, SHARD_VICTIM))
+    s, _ = serf.run(p, s, SHARD_FIRE_TICK - s.swim.tick, SHARD_VICTIM)
+    s = serf.fire_event(p, s, 5, 1)
+    return p, s
+
+
+def _flat(x):
+    """A sharded leaf (or state) back on one device, for comparing only."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    return meshlib.unshard_state(x)
+
+
+def _same_state(a, b, what: str) -> None:
+    """Two states (serf or swim, unsharded) bit-equal in every leaf."""
+    if isinstance(a, serf.ClusterState):
+        diff = _leaves_equal(a, b)
+    else:
+        diff = [f for f in swim.TENSOR_FIELDS
+                if not torch.equal(getattr(a, f).reshape(-1).view(torch.uint8),
+                                   getattr(b, f).reshape(-1).view(torch.uint8))]
+        if not diff:
+            diff = a.tick == b.tick and a.bulk_live == b.bulk_live or ["tick"]
+    require(diff is True, f"{what}: leaves differ: {diff}")
+
+
+def _blocks_equal(a, b, what: str) -> None:
+    from consul_tpu_torch.parallel.mesh import Blocks
+    require((a is None) == (b is None), f"{what}: presence")
+    if a is None:
+        return
+    if isinstance(a, Blocks):
+        for i, (x, y) in enumerate(zip(a.parts, b.parts)):
+            _same(x, y, f"{what} block {i}", "sharded")
+    else:
+        _same(a, b, what, "sharded")
+
+
+def _sharded_gossip_call(sw_params, s, chaos_mode: bool = False) -> dict:
+    """The swim caller's K2 arguments at a sharded state."""
+    return dict(
+        offs=swim.tick_offsets(prng.tick_key(sw_params.seed, s.tick, 2),
+                               sw_params.n_nodes, sw_params.gossip_nodes,
+                               s.up),
+        know=s.know, sends_left=s.sends_left, sender_ok=s.up,
+        receiver_ok=swim._both(s.up, s.member), slot_active=s.r_active,
+        retransmit_limit=sw_params.retransmit_limit,
+        p_loss=sw_params.p_loss, key=prng.tick_key(sw_params.seed, s.tick, 5),
+        learn_tick=s.learn_tick, tick16=swim._t16(s.tick), ctr=s.ctr,
+        want_newly=False,
+        group=s.chaos_grp if chaos_mode else None,
+        node_ok=s.chaos_ok if chaos_mode else None)
+
+
+def _sharded_events_call(params, ev, up, member) -> dict:
+    p = params.events
+    return dict(
+        offs=swim.tick_offsets(prng.tick_key(p.seed, ev.tick, 3), p.n_nodes,
+                               p.gossip_nodes, ev.know),
+        know=ev.know, sends_left=ev.sends_left, sender_ok=up,
+        receiver_ok=swim._both(up, member), slot_active=ev.e_active,
+        retransmit_limit=min(p.retransmit_limit, 127), p_loss=p.p_loss,
+        key=prng.tick_key(p.seed, ev.tick, 6))
+
+
+def _hold_sharded_gossip(call: dict, what: str) -> dict:
+    got = gossip.disseminate_blocks_kernel(**call)
+    want = gossip.disseminate_blocks_plain(**call)
+    for name in ("know", "sends_left", "newly", "learn_tick"):
+        _blocks_equal(getattr(got, name), getattr(want, name),
+                      f"gossip {what} {name}")
+    if want.ctr is not None:
+        _same(got.ctr.home, want.ctr.home, f"gossip {what} ctr", "sharded")
+    for name in ("delivered", "served", "lost"):
+        a, b = float(getattr(got, name)), float(getattr(want, name))
+        require(a == b, f"sharded gossip {what}: {name} {a} != plain {b}")
+    return {"delivered": float(want.delivered), "served": float(want.served),
+            "lost": float(want.lost)}
+
+
+def _random_sharded_call(dev, m, n: int, slots: int, seed: int) -> dict:
+    """_random_gossip_call's rows cut into the mesh's blocks, with a chaos
+    partition and rate."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    call = _random_gossip_call(dev, n, slots, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    r = torch.rand(n, generator=gen, device=dev)
+    call["group"] = (r < 0.3).to(torch.int16)
+    call["node_ok"] = torch.where(r > 0.8, 0.7, 1.0).to(torch.float32)
+    out = {}
+    for k, v in call.items():
+        if isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == n:
+            out[k] = meshlib.shard_state(v, m, n)
+        elif isinstance(v, torch.Tensor):
+            out[k] = meshlib.Replicated.of(v, m.distinct)
+        else:
+            out[k] = v
+    return out
+
+
+def _sharded_oracles(dev, params, state, m):
+    """Two oracles over one pool: the unsharded port and the sharded one
+    (GossipOracle(mesh=m)), both holding `state` (N - 1,000 provisioned)
+    and a delta checkpoint with 5,000 members moved to another status."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    sim = dataclasses.replace(SHARD_SIM, n_initial=SHARD_N - 1000)
+    prov = torch.arange(SHARD_N, device=dev) < SHARD_N - 1000
+    ref = GossipOracle(sim=sim, device=dev)
+    ref._state = state.clone()
+    ref._provisioned = prov.cpu().numpy()
+    ref._prov_dev = prov.clone()
+    ref._status_ckpt = _prev(serf.status_vector(params, state), 5000, 9)
+    sh = GossipOracle(sim=sim, mesh=m)
+    sh._state = meshlib.shard_state(state.clone(), m)
+    sh._provisioned = prov.cpu().numpy()
+    sh._prov_dev = meshlib.shard_state(prov, m, SHARD_N)
+    sh._status_ckpt = meshlib.shard_state(ref._status_ckpt, m, SHARD_N)
+    return ref, sh
+
+
+def _oracle_reads(o) -> dict:
+    """Every read the sharded oracle answers, each as its host value."""
+    names = [f"node{i}" for i in range(0, SHARD_N - 1000, 997)][:1000]
+    return {
+        "members": o.members(limit=100),
+        "members_offset": o.members(limit=64, offset=SHARD_N // 2 - 7),
+        "summary": o.members_summary(),
+        "status": [o.status(f"node{i}") for i in (0, SHARD_VICTIM,
+                                                  SHARD_N // 2,
+                                                  SHARD_N - 1001)],
+        "delta": o.members_delta(256),
+        "delta_again": o.members_delta(256),
+        "coordinate": [o.coordinate(f"node{i}") for i in (3, SHARD_N - 1001)],
+        "sort_by_rtt": o.sort_by_rtt("node11", names),
+        "shard_metrics": o.shard_metrics(),
+        "believed_down": o.believed_down_fraction(f"node{SHARD_VICTIM}"),
+    }
+
+
+def _random_k4_state(dev, sw, seed: int):
+    """The state's rumor table and committed leaves drawn at random (dead
+    subjects in and outside [0, N), a tenth committed dead, left or not a
+    member) for K4's holds."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    n, u = sw.member.shape[0], sw.r_active.shape[0]
+    subj = (rnd(u) * 2.2 * n - 0.6 * n).to(torch.int32)
+    return sw.replace(
+        member=rnd(n) > 0.05, committed_dead=rnd(n) < 0.05,
+        committed_left=rnd(n) < 0.03,
+        r_active=rnd(u) < 0.8, r_kind=(rnd(u) * 4).to(torch.int8),
+        r_subject=subj, incarnation=(rnd(n) * 9).to(torch.int32))
+
+
+def _hold_sharded_reads(params, sw, m, prov, seed: int, what: str) -> int:
+    """K4 (scan, combine, emit, page) and K3 over the blocks of sw against
+    the per-block twins and the unsharded kernels, bit-equal.  Returns the
+    deltas held."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    n = sw.member.shape[0]
+    sh = meshlib.shard_state(sw, m)
+    bprov = meshlib.shard_state(prov, m, n)
+    st = swim.status_vector(params, sw)
+    _same(_flat(swim.status_vector(params, sh)), st, f"{what} status",
+          "sharded K4")
+    _same(_flat(swim.status_vector_blocks_plain(params, sh)), st,
+          f"{what} status twin", "sharded K4")
+    counts = swim.membership_counts(params, sw, prov)
+    _same(swim.membership_counts(params, sh, bprov), counts, f"{what} counts",
+          "sharded K4")
+    _same(swim.membership_counts_blocks_plain(params, sh, bprov), counts,
+          f"{what} counts twin", "sharded K4")
+    gen = torch.Generator(device=sw.member.device)
+    gen.manual_seed(seed)
+    ids = torch.cat([torch.randint(0, n, (4093,), generator=gen,
+                                   device=sw.member.device).to(torch.int32),
+                     torch.tensor([-1, n + 7, -n - 3, n - 1, 0],
+                                  dtype=torch.int32,
+                                  device=sw.member.device)])
+    want = swim.membership_page(params, sw, ids)
+    for got in (swim.membership_page(params, sh, ids),
+                swim.membership_page_blocks_plain(params, sh, ids)):
+        for a, b, f in zip(got, want, ("status", "incarnation", "up")):
+            _same(a, b, f"{what} page {f}", "sharded K4")
+    held = 0
+    for pname, prev in (("first", torch.full_like(st, -1)),
+                        ("100 flips", _prev(st, 100, seed)),
+                        ("50000 flips", _prev(st, 50_000, seed + 1))):
+        bprev = meshlib.shard_state(prev, m, n)
+        for k in (8, 256, 4096):
+            want = swim.membership_delta(params, sw, prev, prov, k)
+            for got in (swim.membership_delta(params, sh, bprev, bprov, k),
+                        swim.membership_delta_blocks_plain(params, sh, bprev,
+                                                           bprov, k)):
+                _same(_flat(got[0]), want[0], f"{what} {pname} k={k} status",
+                      "sharded K4")
+                for a, b, f in zip(got[1:], want[1:],
+                                   ("n_changed", "idx", "state")):
+                    _same(a, b, f"{what} {pname} k={k} {f}", "sharded K4")
+            held += 1
+    return held
+
+
+def _hold_sharded_monitor(params, sw, m, subjects, what: str) -> None:
+    from consul_tpu_torch.parallel import mesh as meshlib
+    sh = meshlib.shard_state(sw, m)
+    for subject in subjects:
+        want = swim.believed_down_fraction(params, sw, subject)
+        for got in (swim.believed_down_fraction(params, sh, subject),
+                    swim.believed_down_fraction_blocks_plain(params, sh,
+                                                             subject)):
+            _same(got.reshape(1), want.reshape(1),
+                  f"{what} subject {subject}", "sharded K3")
+
+
+def _shard_tick_ms(params, state, blocks: int, dev) -> dict:
+    """One gossip tick (serf.step, a user event in flight) on the pool
+    node-sharded into `blocks` blocks on one card (unsharded with
+    blocks=0): the call's ms between CUDA events, host dispatch included
+    (median_ms), the window with the dispatch hidden behind a 2 ms sleep
+    (kernel_ms: still host-bound when the dispatch outlasts the sleep),
+    and the device ms of its kernels alone (device_total_ms)."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    sh = meshlib.shard_state(state, _shard_mesh([dev] * blocks)) \
+        if blocks else state
+    return {"call_ms": median_ms(lambda: serf.step(params, sh)),
+            "window_ms": kernel_ms(lambda: serf.step(params, sh)),
+            "device_ms": device_total_ms(lambda: serf.step(params, sh))}
+
+
+def _bytes_ms(b: float) -> float:
+    return b / HBM_BYTES_PER_S * 1000.0
+
+
+def _sharded_entry(name, source, replaces, launches, t, bound, plain_ms,
+                   library_ms=None, **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": 0.0,
+            "ms": t, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": library_ms, **extra}
+
+
+def sharded_phase(dev) -> tuple:
+    """Phase 15: the pool node-sharded into SHARD_BLOCKS blocks (one card,
+    or one block a card where there are that many) at N = 2^20, U = 32:
+    gossip ticks with a rumor and a user event in flight bit-equal to the
+    unsharded port's, the probe tick refused with nothing launched, K2
+    (pack, exchange, chaos mode), K3 and K4 over block tables bit-equal to
+    their per-block twins, the sharded oracle's reads equal to the
+    unsharded oracle's with O(k) bytes moved, the gather law, and the
+    times.  Returns (the kernels-line entries, the record)."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    devs = [torch.device("cuda", i) for i in range(SHARD_BLOCKS)] \
+        if cards >= SHARD_BLOCKS else [dev] * SHARD_BLOCKS
+    m = _shard_mesh(devs)
+    params, pool = _gossip_tick_pool(dev)
+    period = params.swim.probe_period_ticks
+    ticks = period - pool.swim.tick % period
+    require(ticks >= 2 and bool(pool.swim.r_active.any())
+            and bool((pool.swim.sends_left > 0).any())
+            and any(pool.events.active_host),
+            f"phase 15: no rumor or event in flight at tick {pool.swim.tick}")
+    record = {"mesh": [str(d) for d in m.devices], "n_nodes": SHARD_N,
+              "blocks": SHARD_BLOCKS, "start_tick": pool.swim.tick,
+              "ticks": ticks}
+
+    # the main path: the sharded pool's gossip ticks with the monitor
+    ref = pool.clone()
+    sh = meshlib.shard_state(pool.clone(), m)
+    meshlib.assert_node_sharded(sh.swim.know, SHARD_BLOCKS, "knowledge")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with kernel_audit.RowCensus(m.devices) as census:
+        sh, fr_sh = serf.run(params, sh, ticks, SHARD_VICTIM)
+        for d in m.distinct:
+            torch.cuda.synchronize(d)
+    launches = dict(kernels.LAUNCHES)
+    ref, fr_ref = serf.run(params, ref, ticks, SHARD_VICTIM)
+    _same(fr_sh, fr_ref, "monitor fractions", "sharded tick")
+    _same_state(_flat(sh), ref, "sharded gossip ticks")
+    law = kernel_audit.gather_law(census.rows, SHARD_N)
+    record.update(path_launches={k: v for k, v in launches.items() if v},
+                  gather=law, peak_bytes=census.peaks,
+                  fractions=fr_ref.cpu().tolist())
+    log(f"sharded path: {ticks} gossip ticks from tick {pool.swim.tick} at "
+        f"B={SHARD_BLOCKS} on {record['mesh']}: every leaf bit-equal to the "
+        f"unsharded port's; launches {record['path_launches']}; gather law "
+        f"{law}; per-device peak bytes {census.peaks}")
+    require(law["ok"], f"gather law broken: {law}")
+    b = SHARD_BLOCKS
+    for name, want in (("gossip_pack_blocks", 2 * b * ticks),
+                       ("gossip_exchange_blocks", 2 * b * ticks),
+                       ("gossip_combine", 2 * ticks),
+                       ("believed_down_blocks", b * ticks),
+                       ("believed_down_combine", ticks)):
+        require(launches[name] == want, f"sharded path: {name} launched "
+                f"{launches[name]} times, want {want}")
+    for name in kernels.MAIN_PATH[1:] + kernels.MEMBERS:
+        require(launches[name] == 0, f"sharded path launched the unsharded "
+                f"{name}")
+
+    # the probe tick: refused before anything runs
+    before = dict(kernels.LAUNCHES)
+    with kernel_audit.RowCensus(m.devices) as census:
+        try:
+            serf.step(params, sh)
+            refused = False
+        except NotImplementedError as e:
+            refused = str(e)
+    require(refused and "3b" in refused and dict(kernels.LAUNCHES) == before
+            and not census.rows, f"the sharded probe tick ran: {refused}")
+    record["probe_tick_refused"] = refused
+    log(f"sharded probe tick refused, nothing launched or made: {refused}")
+
+    # the chaos build's gossip ticks, sharded (K2's chaos mode)
+    cp, cpool = _gossip_tick_pool(dev, chaos_build=True)
+    cref, csh = cpool.clone(), meshlib.shard_state(cpool.clone(), m)
+    cticks = period - cpool.tick % period
+    kernels.reset_launches()
+    for _ in range(cticks):
+        csh = swim.step(cp, csh)
+    chaos_launches = dict(kernels.LAUNCHES)
+    for _ in range(cticks):
+        cref = swim.step(cp, cref)
+    _same_state(_flat(csh), cref, "sharded chaos gossip ticks")
+    require(chaos_launches["gossip_exchange_chaos_blocks"] == b * cticks,
+            f"chaos path: {chaos_launches}")
+    record["chaos_launches"] = {k: v for k, v in chaos_launches.items() if v}
+    log(f"sharded chaos path: {cticks} ticks bit-equal; launches "
+        f"{record['chaos_launches']}")
+
+    # K2, K3, K4 against their per-block twins on the card
+    held = {"swim": _hold_sharded_gossip(
+        _sharded_gossip_call(params.swim, meshlib.shard_state(pool.swim, m)),
+        "swim")}
+    spool = meshlib.shard_state(pool, m)
+    held["events"] = _hold_sharded_gossip(
+        _sharded_events_call(params, spool.events, spool.swim.up,
+                             spool.swim.member), "events")
+    held["chaos"] = _hold_sharded_gossip(_sharded_gossip_call(
+        cp, meshlib.shard_state(cpool, m), chaos_mode=True), "chaos")
+    for n, slots, blocks in ((SHARD_N, 16, 8), (SHARD_N, 64, 2),
+                             (100_000, 40, 4), (1024, 8, 8)):
+        rm = _shard_mesh([dev] * blocks)
+        held[f"random {n}x{slots} B={blocks}"] = _hold_sharded_gossip(
+            _random_sharded_call(dev, rm, n, slots, 7 + slots), "random")
+    log(f"sharded K2 bit-equal to its per-block twin: {held}")
+    _hold_sharded_monitor(params.swim, pool.swim, m,
+                          (SHARD_VICTIM, 0, SHARD_N - 1, 3 * SHARD_N // 4 + 5),
+                          "pool")
+    rnd = _random_swim_state(dev, pool.swim, SHARD_VICTIM, SHARD_N, 32)
+    _hold_sharded_monitor(params.swim, rnd, m, (SHARD_VICTIM, SHARD_N - 2),
+                          "random")
+    prov = torch.arange(SHARD_N, device=dev) < SHARD_N - 1000
+    deltas = _hold_sharded_reads(params.swim, pool.swim, m, prov, 3, "pool")
+    deltas += _hold_sharded_reads(params.swim,
+                                  _random_k4_state(dev, pool.swim, 4), m,
+                                  prov, 5, "random")
+    # N = 1,000,000 in 4 blocks: L = 250,000, a ragged last tile a block
+    rp = swim.make_params(GossipConfig.lan(), SimConfig(n_nodes=N,
+                                                        rumor_slots=32))
+    rag = _random_k4_state(dev, swim.init_state(rp, device=dev), 6)
+    deltas += _hold_sharded_reads(rp, rag, _shard_mesh([dev] * 4),
+                                  torch.ones(N, dtype=torch.bool, device=dev),
+                                  7, "ragged 1,000,000")
+    log(f"sharded K3 and K4 bit-equal to their per-block twins and the "
+        f"unsharded kernels ({deltas} deltas)")
+
+    # the sharded oracle's reads: equal to the unsharded oracle's, O(k)
+    o_ref, o_sh = _sharded_oracles(dev, params, pool, m)
+    want = _oracle_reads(o_ref)
+    import consul_tpu_torch.oracle as oracle_mod
+    moved = []
+    real = oracle_mod._to_host
+
+    def spy(x):
+        a = real(x)
+        moved.append(a.nbytes)
+        return a
+
+    oracle_mod._to_host = spy
+    try:
+        kernels.reset_launches()
+        with kernel_audit.RowCensus(m.devices) as census:
+            got = _oracle_reads(o_sh)
+        read_launches = dict(kernels.LAUNCHES)
+    finally:
+        oracle_mod._to_host = real
+    require(got == want, "sharded oracle reads differ: " + json.dumps(
+        {k: [got[k], want[k]] for k in want if got[k] != want[k]},
+        default=str)[:2000])
+    law_reads = kernel_audit.gather_law(census.rows, SHARD_N)
+    require(law_reads["ok"], f"gather law broken by the reads: {law_reads}")
+    require(sum(moved) < SHARD_N, f"reads moved {sum(moved)} B")
+    for name in ("members_scan_blocks", "members_combine",
+                 "members_emit_blocks", "members_page_blocks",
+                 "believed_down_blocks", "believed_down_combine"):
+        require(read_launches[name] > 0, f"oracle reads never launched "
+                f"{name}")
+    record.update(oracle_bytes=sum(moved), oracle_transfers=len(moved),
+                  read_launches={k: v for k, v in read_launches.items() if v},
+                  reads_gather=law_reads, reads_peak_bytes=census.peaks)
+    log(f"sharded oracle: {len(want)} reads equal to the unsharded oracle's, "
+        f"{sum(moved)} B in {len(moved)} transfers; launches "
+        f"{record['read_launches']}; gather law {law_reads}")
+
+    # peer access: the same ticks over cards
+    if cards >= 2:
+        pm = _shard_mesh([torch.device("cuda", i)
+                          for i in range(min(cards, SHARD_BLOCKS))])
+        kernels.enable_peer_access(pm.devices)
+        psh = meshlib.shard_state(pool.clone(), pm)
+        psh, pfr = serf.run(params, psh, ticks, SHARD_VICTIM)
+        _same(pfr.to(dev), fr_ref, "monitor over cards", "sharded tick")
+        _same_state(_flat(psh), ref, "sharded gossip ticks over cards")
+        record["peer_access"] = f"held over {len(pm.devices)} cards"
+    else:
+        record["peer_access"] = "not run: 1 card"
+    log(json.dumps({"peer_access": record["peer_access"]}))
+
+    # times: the tick at B = 1, 2, 4 on one card against the unsharded
+    # port's, then each sharded kernel and its twin
+    tick = {"unsharded": _shard_tick_ms(params, pool, 0, dev)}
+    for blocks in SHARD_SCALING:
+        tick[f"B={blocks}"] = _shard_tick_ms(params, pool, blocks, dev)
+    record["tick_ms"] = tick
+    log(f"sharded gossip tick (serf.step, event in flight) on one card: "
+        + json.dumps(tick))
+    spool = meshlib.shard_state(pool, _shard_mesh([dev] * SHARD_BLOCKS))
+    sw = spool.swim
+    scall = _sharded_gossip_call(params.swim, sw)
+    ccall = _sharded_gossip_call(cp, meshlib.shard_state(
+        cpool, _shard_mesh([dev] * SHARD_BLOCKS)), chaos_mode=True)
+    k2 = device_ms(lambda: gossip.disseminate_blocks_kernel(**scall),
+                   ("gossip_pack_kernel", "gossip_exchange_kernel",
+                    "gossip_combine_kernel"))
+    k2c = device_ms(lambda: gossip.disseminate_blocks_kernel(**ccall),
+                    ("gossip_exchange_kernel",))
+    k2_plain = median_ms(lambda: gossip.disseminate_blocks_plain(**scall),
+                         reps=5)
+    k2c_plain = median_ms(lambda: gossip.disseminate_blocks_plain(**ccall),
+                          reps=5)
+    ucall = _swim_gossip_call(params.swim, pool.swim)
+    gb = _gossip_bounds(ucall)
+    cb = _gossip_bounds(_chaos_gossip_call(cp, cpool))
+    out1 = torch.empty(1, dtype=torch.float32, device=dev)
+    k3 = device_ms(lambda: swim.believed_down_fraction(
+        params.swim, sw, SHARD_VICTIM, out=out1),
+        ("believed_down_kernel", "believed_down_combine_kernel"))
+    k3_plain = median_ms(lambda: swim.believed_down_fraction_blocks_plain(
+        params.swim, sw, SHARD_VICTIM), reps=5)
+    k3_bound = _monitor_bound(params.swim, pool.swim, SHARD_VICTIM)[0]
+    bprov = meshlib.shard_state(prov, _shard_mesh([dev] * SHARD_BLOCKS),
+                                SHARD_N)
+    st = swim.status_vector(params.swim, pool.swim)
+    prev = _prev(st, 100, 11)
+    bprev = meshlib.shard_state(prev, _shard_mesh([dev] * SHARD_BLOCKS),
+                                SHARD_N)
+    page_ids = torch.arange(SHARD_N // 2, SHARD_N // 2 + 128,
+                            dtype=torch.int32, device=dev)
+    k4 = device_ms(lambda: swim.membership_delta(params.swim, sw, bprev,
+                                                 bprov, 256),
+                   ("members_scan_kernel", "members_combine_kernel",
+                    "members_emit_kernel"))
+    k4p = device_ms(lambda: swim.membership_page(params.swim, sw, page_ids),
+                    ("members_page_kernel",))
+    delta_plain = median_ms(lambda: swim.membership_delta_blocks_plain(
+        params.swim, sw, bprev, bprov, 256), reps=5)
+    page_plain = median_ms(lambda: swim.membership_page_blocks_plain(
+        params.swim, sw, page_ids), reps=5)
+    counts_plain = median_ms(lambda: swim.membership_counts_blocks_plain(
+        params.swim, sw, bprov), reps=5)
+    changed = (st != prev) & prov
+    tiles_read = int(sum(
+        int((changed[i * kernels.MEMBER_TILE:(i + 1) * kernels.MEMBER_TILE]
+             .any())) for i in range(kernels.member_tiles(SHARD_N))))
+    u = params.swim.rumor_slots
+    g = params.swim.gossip_nodes
+    bb = SHARD_BLOCKS
+    pk = page_ids.shape[0]
+    lib_scan = library_times(lambda: torch.bincount(
+        st[prov].to(torch.int64), minlength=3))["library_ms"]
+    path = launches
+    reads = read_launches
+    gsrc = "consul_tpu_torch/kernels/csrc/gossip.cu"
+    msrc = "consul_tpu_torch/kernels/csrc/monitor.cu"
+    ksrc = "consul_tpu_torch/kernels/csrc/members.cu"
+    shape = [SHARD_N, u, bb]
+    entries = [
+        _sharded_entry("gossip_pack_blocks", gsrc, "consul_tpu/ops/rolls.py:53",
+                       path["gossip_pack_blocks"],
+                       k2["gossip_pack_kernel"] * bb, gb["pack"][0], k2_plain,
+                       ms_per_block=k2["gossip_pack_kernel"], shape=shape),
+        _sharded_entry("gossip_exchange_blocks", gsrc,
+                       "consul_tpu/ops/rolls.py:53",
+                       path["gossip_exchange_blocks"],
+                       k2["gossip_exchange_kernel"] * bb, gb["exchange"][0],
+                       k2_plain, ms_per_block=k2["gossip_exchange_kernel"],
+                       shape=shape),
+        _sharded_entry("gossip_exchange_chaos_blocks", gsrc,
+                       "consul_tpu/ops/gossip.py:82",
+                       chaos_launches["gossip_exchange_chaos_blocks"],
+                       k2c["gossip_exchange_kernel"] * bb, cb["exchange"][0],
+                       k2c_plain, ms_per_block=k2c["gossip_exchange_kernel"],
+                       launches_path="phase 15 chaos ticks", shape=shape),
+        _sharded_entry("gossip_combine", gsrc, "consul_tpu/ops/gossip.py:122",
+                       path["gossip_combine"], k2["gossip_combine_kernel"],
+                       _bytes_ms(24 * bb + 12 + 8 * swim.CTR_N), k2_plain),
+        _sharded_entry("believed_down_blocks", msrc,
+                       "consul_tpu/models/swim.py:533",
+                       path["believed_down_blocks"],
+                       k3["believed_down_kernel"] * bb, k3_bound, k3_plain,
+                       ms_per_block=k3["believed_down_kernel"], shape=shape),
+        _sharded_entry("believed_down_combine", msrc,
+                       "consul_tpu/models/swim.py:556",
+                       path["believed_down_combine"],
+                       k3["believed_down_combine_kernel"],
+                       _bytes_ms(16 * bb + 5 + 4), k3_plain),
+        _sharded_entry("members_scan_blocks", ksrc,
+                       "consul_tpu/models/swim.py:1502",
+                       reads["members_scan_blocks"],
+                       k4["members_scan_kernel"] * bb,
+                       _bytes_ms(6 * SHARD_N + 6 * u * bb
+                                 + 4 * kernels.member_tiles(SHARD_N)
+                                 + 20 * bb), counts_plain, lib_scan,
+                       ms_per_block=k4["members_scan_kernel"], shape=shape),
+        _sharded_entry("members_combine", ksrc,
+                       "consul_tpu/models/swim.py:1507",
+                       reads["members_combine"], k4["members_combine_kernel"],
+                       _bytes_ms(20 * bb + 20), counts_plain),
+        _sharded_entry("members_emit_blocks", ksrc,
+                       "consul_tpu/models/swim.py:569",
+                       reads["members_emit_blocks"],
+                       k4["members_emit_kernel"] * bb,
+                       _bytes_ms(4 * kernels.member_tiles(SHARD_N) + 20 * bb
+                                 + 3 * kernels.MEMBER_TILE * tiles_read
+                                 + 5 * 256), delta_plain,
+                       ms_per_block=k4["members_emit_kernel"], shape=shape),
+        _sharded_entry("members_page_blocks", ksrc,
+                       "consul_tpu/models/swim.py:1517",
+                       reads["members_page_blocks"],
+                       k4p["members_page_kernel"],
+                       _bytes_ms(pk * (4 + 3 + 4 + 1) + 6 * u + pk * 6),
+                       page_plain, shape=shape + [pk]),
+    ]
+    for e in entries:
+        log(f"sharded {e['name']}: " + json.dumps(e))
+    record["seconds"] = time.perf_counter() - t0
+    return entries, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3955,6 +4551,8 @@ def main() -> int:
         dev, r, states, records["correlated"]["launches"]["bulk_step"])
     results += k78 + k912 + k1314
     contracts = contracts_phase(dev)
+    k15, sharded_record = sharded_phase(dev)
+    results += k15
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
@@ -3963,6 +4561,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "kernels": results, **records,
               "probe": probe_record, "detector": detector_record,
               "vivaldi_bulk": ring_bulk_record, "contracts": contracts,
+              "sharded": sharded_record,
               "twin_calls": twins,
               "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],

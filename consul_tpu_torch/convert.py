@@ -17,6 +17,7 @@ import torch
 
 from consul_tpu_torch import oracle
 from consul_tpu_torch.models import antientropy, events, serf, swim, vivaldi, wan
+from consul_tpu_torch.parallel import mesh as meshlib
 from consul_tpu_torch.utils import devices
 
 
@@ -135,17 +136,20 @@ def wan_state_to_numpy(s: wan.WanState) -> dict:
 
 
 def oracle_from_numpy(gossip, sim, state: dict, provisioned, device=None,
-                      hooks=None):
+                      hooks=None, mesh=None):
     """A port GossipOracle for (gossip, sim) that holds the ClusterState
     `state` (a cluster_state dict as above) and the provisioned mask
     `provisioned` ([N] bool): a JAX oracle's pool carried across
-    mid-run, so both can be asked the same reads."""
-    o = oracle.GossipOracle(gossip, sim, device=device, hooks=hooks)
+    mid-run, so both can be asked the same reads.  With `mesh` the pool
+    is node-sharded over it."""
+    o = oracle.GossipOracle(gossip, sim, device=device, hooks=hooks,
+                            mesh=mesh)
     prov = np.array(provisioned, dtype=bool, copy=True)
     if prov.shape != (sim.n_nodes,):
         raise ValueError(f"provisioned has shape {prov.shape}, want "
                          f"({sim.n_nodes},)")
-    o._state = cluster_state_from_numpy(state, o.device)
+    st = cluster_state_from_numpy(state, o.device)
+    o._state = st if mesh is None else meshlib.shard_state(st, mesh)
     o._provisioned = prov
-    o._prov_dev = torch.tensor(prov, device=o.device)
+    o._prov_dev = o._node_vector(torch.tensor(prov))
     return o

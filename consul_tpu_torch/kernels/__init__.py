@@ -13,6 +13,7 @@ twin live beside the twin: `utils/prng.py` (K1), `ops/gossip.py` (K2),
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from typing import Optional
@@ -46,9 +47,21 @@ DETECTOR = ("subject_maps", "map_add", "maps_convert", "suspicion_expiry",
 # place), and the bulk death channel of a mass event (K14: one cooperative
 # launch, in place, its ring offsets drawn inside it)
 VIVALDI_BULK = ("vivaldi_ring", "bulk_step")
+# the node-sharded pool's launches (parallel/mesh.py): K2's pack and
+# exchange (and its chaos mode), K3 and K4's scan, emit and page, each
+# counted once a block, and the one launch a call that adds the blocks'
+# partials (K2's counters, K3's fraction, K4's counts)
+SHARDED = ("gossip_pack_blocks", "gossip_exchange_blocks",
+           "gossip_exchange_chaos_blocks", "gossip_combine",
+           "believed_down_blocks", "believed_down_combine",
+           "members_scan_blocks", "members_emit_blocks", "members_page_blocks",
+           "members_combine")
 KERNELS = MAIN_PATH + MEMBERS + CHAOS + RECONCILE + PROBE + DETECTOR \
-    + VIVALDI_BULK
+    + VIVALDI_BULK + SHARDED
 LAUNCHES = {name: 0 for name in KERNELS}
+# entry points of the library that launch no kernel: peer access between
+# the cards of a mesh
+HELPERS = ("enable_peer_access",)
 # K1's modes, in the order of threefry.cu's Mode, and the launches of K1
 # that carried a segment of each
 DRAW_MODES = ("bits", "uniform", "exponential", "normal", "randint")
@@ -85,14 +98,21 @@ def reset_launches() -> None:
 SIGNATURES = {
     "threefry_draws": [_P, _I, _P],
     "gossip_pack": [_P, _P, _P, _I64, _I, _I, _P, _P, _P],
-    "gossip_exchange": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _I, _U32,
-                        _U32, _I, _F32, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                        _I, _P, _P, _P, _I, _P],
-    "believed_down": [_P] * 15 + [_I64, _I, _I64, _I, _I, _P, _I, _P, _P],
-    "members_scan": [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P, _P, _P],
-    "members_emit": [_P] * 4 + [_I64, _I64, _P, _P, _P],
-    "members_page": [_P, _I64] + [_P] * 6 + [_I, _P, _P, _I64, _P, _P, _P,
-                                             _P],
+    "gossip_exchange": [_P, _P, _I, _I64, _I64, _I64, _P, _I, _P, _P, _P,
+                        _P, _I, _I, _U32, _U32, _I, _F32, _P, _P, _I, _I,
+                        _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+    "gossip_combine": [_P, _I, _I, _P, _P, _P, _I, _P],
+    "enable_peer_access": [_I, _I],
+    "believed_down": [_P] * 15 + [_I64, _I, _I64, _I64, _I, _I, _P, _I, _P,
+                                  _P, _P],
+    "believed_down_combine": [_P, _I, _P, _P, _P, _P],
+    "members_scan": [_P] * 6 + [_I, _P, _P, _I64, _I64, _I64, _P, _P, _P,
+                                _P, _P],
+    "members_emit": [_P] * 5 + [_I, _I, _I64, _P, _I, _I64, _I64, _P, _P,
+                                _P],
+    "members_combine": [_P, _I, _P, _P],
+    "members_page": [_P, _I64] + [_P] * 6 + [_I, _P, _P, _I, _I64, _P, _P,
+                                             _P, _P],
     "mass_detect": [_P] * 11 + [_I64, _I, _P, _P, _P, _P],
     "reconcile_diff": [_P] * 4 + [_I64, _I64, _P, _P, _P, _I64, _P, _P, _P],
     "reconcile_merge": [_P] * 8 + [_I64, _I64, _P, _I64, _P, _P, _P, _P],
@@ -129,6 +149,15 @@ def library():
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _on(device: torch.device):
+    """The device a launch runs on made current for it (a CUDA launch goes
+    to a stream of the current device): the blocks of a mesh over several
+    cards launch on each card in turn."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _check(rc: int, name: str) -> None:
@@ -251,12 +280,81 @@ def launch_draws(segments) -> None:
     dev = segments[0].out.device
     specs = (DrawSpec * len(segments))(
         *[_spec(i, seg, dev) for i, seg in enumerate(segments)])
-    rc = library().threefry_draws(ctypes.addressof(specs), len(segments),
-                                  _stream(dev))
+    with _on(dev):
+        rc = library().threefry_draws(ctypes.addressof(specs), len(segments),
+                                      _stream(dev))
     _check(rc, "threefry_draws")
     LAUNCHES["threefry_draws"] += 1
     for mode in {seg.mode for seg in segments}:
         DRAW_LAUNCHES[mode] += 1
+
+
+def _table(parts) -> ctypes.Array:
+    """A host array of block base pointers (a kernel's BlockRows); kept
+    alive by the caller until the launch returns."""
+    return (_P * len(parts))(*[p.data_ptr() for p in parts])
+
+
+def _no_table(parts) -> Optional[ctypes.Array]:
+    return None if parts is None else _table(parts)
+
+
+def _gossip_checks(n: int, s: int, g: int, limit: int, tick16: int,
+                   dev, rows: dict, word, key, learn, newly, ctr,
+                   group, node_ok) -> int:
+    """K2's argument checks for one block of `n` rows on `dev` (the whole
+    pool for one device); returns the counter vector's length C."""
+    if not 1 <= s <= 64 or not 1 <= g <= 16:
+        raise ValueError(f"gossip takes 1-64 slots and 1-16 contacts, got "
+                         f"{s} slots and {g} contacts")
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"gossip: N={n} outside [1, 2^31)")
+    if not 0 <= limit <= 127 or not -2 ** 15 <= tick16 < 2 ** 15:
+        raise ValueError(f"gossip: limit {limit} or tick16 {tick16} out of "
+                         f"range")
+    shapes = {"know": (torch.bool, (n, s)), "sends_left": (torch.int8, (n, s)),
+              "offsets": (torch.int32, (g,)),
+              "sender_ok": (torch.bool, (n,)),
+              "receiver_ok": (torch.bool, (n,)),
+              "slot_active": (torch.bool, (s,)),
+              "new_know": (torch.bool, (n, s)),
+              "new_sends": (torch.int8, (n, s)), "kword": (word, (n,)),
+              "qword": (word, (n,))}
+    for name, (dt, shape) in shapes.items():
+        _require(rows[name], "gossip " + name, dt, dev, shape)
+    learn_tick, new_learn = learn
+    if (learn_tick is None) != (new_learn is None):
+        raise ValueError("gossip: learn_tick and new_learn come together")
+    if learn_tick is not None:
+        _require(learn_tick, "gossip learn_tick", torch.int16, dev, (n, s))
+        _require(new_learn, "gossip new_learn", torch.int16, dev, (n, s))
+    if newly is not None:
+        _require(newly, "gossip newly", torch.bool, dev, (n, s))
+    ctr_in, ctr_out = ctr
+    if (ctr_in is None) != (ctr_out is None):
+        raise ValueError("gossip: ctr and ctr_out come together")
+    c = 0
+    if ctr_in is not None:
+        c = ctr_in.numel()
+        _require(ctr_in, "gossip ctr", torch.float32, ctr_in.device, (c,))
+        _require(ctr_out, "gossip ctr_out", torch.float32, ctr_in.device,
+                 (c,))
+        if c < 3:
+            raise ValueError(f"gossip: ctr has {c} entries, want at least 3")
+    if (group is not None or node_ok is not None) and key is None:
+        raise ValueError("gossip: the chaos mode (group/node_ok) needs a key")
+    if group is not None:
+        _require(group, "gossip group", torch.int16, dev, (n,))
+    if node_ok is not None:
+        _require(node_ok, "gossip node_ok", torch.float32, dev, (n,))
+    return c
+
+
+def _vec(s: int, rows) -> int:
+    """K2's lanes-per-row vectors for S = 16, 32, 64 on aligned rows, else a
+    thread a row."""
+    return int(s in (16, 32, 64)
+               and all(t.data_ptr() % 16 == 0 for t in rows if t is not None))
 
 
 def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
@@ -276,62 +374,28 @@ def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
     stream is < p_ok.  Chaos mode (with `key`): `group` [N] int16 and/or
     `node_ok` [N] float32 make contact (i, g), sender j, exist only where
     group[i] == group[j] and deliver below (p_ok * node_ok[i]) *
-    node_ok[j]; its exchange counts as `gossip_exchange_chaos`."""
+    node_ok[j]; its exchange counts as `gossip_exchange_chaos`.  The
+    exchange reads the words (and group, node_ok) through one-block
+    tables: the B = 1 form of launch_gossip_blocks."""
     dev = know.device
     if know.dim() != 2 or offsets.dim() != 1:
         raise ValueError("gossip: know must be [N, S] and offsets [G]")
     n, s = know.shape
     g = offsets.shape[0]
-    if not 1 <= s <= 64 or not 1 <= g <= 16:
-        raise ValueError(f"gossip takes 1-64 slots and 1-16 contacts, got "
-                         f"{s} slots and {g} contacts")
-    if not 1 <= n < 2 ** 31:
-        raise ValueError(f"gossip: N={n} outside [1, 2^31)")
-    if not 0 <= limit <= 127 or not -2 ** 15 <= tick16 < 2 ** 15:
-        raise ValueError(f"gossip: limit {limit} or tick16 {tick16} out of "
-                         f"range")
     word = torch.int32 if s <= 32 else torch.int64
-    for t, name, dt, shape in (
-            (know, "know", torch.bool, (n, s)),
-            (sends_left, "sends_left", torch.int8, (n, s)),
-            (offsets, "offsets", torch.int32, (g,)),
-            (sender_ok, "sender_ok", torch.bool, (n,)),
-            (receiver_ok, "receiver_ok", torch.bool, (n,)),
-            (slot_active, "slot_active", torch.bool, (s,)),
-            (new_know, "new_know", torch.bool, (n, s)),
-            (new_sends, "new_sends", torch.int8, (n, s)),
-            (kword, "kword", word, (n,)),
-            (qword, "qword", word, (n,)),
-            (counters, "counters", torch.float32, (3,))):
-        _require(t, "gossip " + name, dt, dev, shape)
-    if (learn_tick is None) != (new_learn is None):
-        raise ValueError("gossip: learn_tick and new_learn come together")
-    if learn_tick is not None:
-        _require(learn_tick, "gossip learn_tick", torch.int16, dev, (n, s))
-        _require(new_learn, "gossip new_learn", torch.int16, dev, (n, s))
-    if newly is not None:
-        _require(newly, "gossip newly", torch.bool, dev, (n, s))
-    if (ctr is None) != (ctr_out is None):
-        raise ValueError("gossip: ctr and ctr_out come together")
-    c = 0
+    c = _gossip_checks(n, s, g, limit, tick16, dev, dict(
+        know=know, sends_left=sends_left, offsets=offsets,
+        sender_ok=sender_ok, receiver_ok=receiver_ok,
+        slot_active=slot_active, new_know=new_know, new_sends=new_sends,
+        kword=kword, qword=qword), word, key, (learn_tick, new_learn), newly,
+        (ctr, ctr_out), group, node_ok)
+    _require(counters, "gossip counters", torch.float32, dev, (3,))
     if ctr is not None:
-        c = ctr.numel()
         _require(ctr, "gossip ctr", torch.float32, dev, (c,))
         _require(ctr_out, "gossip ctr_out", torch.float32, dev, (c,))
-        if c < 3:
-            raise ValueError(f"gossip: ctr has {c} entries, want at least 3")
     chaos = group is not None or node_ok is not None
-    if chaos and key is None:
-        raise ValueError("gossip: the chaos mode (group/node_ok) needs a key")
-    if group is not None:
-        _require(group, "gossip group", torch.int16, dev, (n,))
-    if node_ok is not None:
-        _require(node_ok, "gossip node_ok", torch.float32, dev, (n,))
-    rows = [t for t in (know, sends_left, new_know, new_sends, learn_tick,
-                        new_learn, newly) if t is not None]
-    # lanes-per-row vectors for S = 16, 32, 64 on aligned rows, else a
-    # thread a row
-    vec = int(s in (16, 32, 64) and all(t.data_ptr() % 16 == 0 for t in rows))
+    vec = _vec(s, (know, sends_left, new_know, new_sends, learn_tick,
+                   new_learn, newly))
     lib = library()
     stream = _stream(dev)
     rc = lib.gossip_pack(know.data_ptr(), sends_left.data_ptr(),
@@ -340,18 +404,155 @@ def launch_gossip(know, sends_left, offsets, sender_ok, receiver_ok,
     _check(rc, "gossip_pack")
     LAUNCHES["gossip_pack"] += 1
     k0, k1 = key if key is not None else (0, 0)
+    kw, qw = _table([kword]), _table([qword])
+    grp = _no_table(None if group is None else [group])
+    ok = _no_table(None if node_ok is None else [node_ok])
     rc = lib.gossip_exchange(
-        kword.data_ptr(), qword.data_ptr(), offsets.data_ptr(), g,
-        receiver_ok.data_ptr(), slot_active.data_ptr(), sends_left.data_ptr(),
-        _ptr(learn_tick), n, s, vec, k0, k1, int(key is not None), p_ok,
-        _ptr(group), _ptr(node_ok), limit, tick16, new_know.data_ptr(),
-        new_sends.data_ptr(),
-        _ptr(new_learn), _ptr(newly),
-        _counter_scratch(dev, "gossip_exchange", 3).data_ptr(),
+        kw, qw, 1, n, 0, n, offsets.data_ptr(), g, receiver_ok.data_ptr(),
+        slot_active.data_ptr(), sends_left.data_ptr(), _ptr(learn_tick), s,
+        vec, k0, k1, int(key is not None), p_ok, grp, ok, limit, tick16,
+        new_know.data_ptr(), new_sends.data_ptr(), _ptr(new_learn),
+        _ptr(newly), _counter_scratch(dev, "gossip_exchange", 3).data_ptr(),
         SCRATCH_BLOCKS, counters.data_ptr(), _ptr(ctr), _ptr(ctr_out), c,
-        stream)
+        None, stream)
     _check(rc, "gossip_exchange")
     LAUNCHES["gossip_exchange_chaos" if chaos else "gossip_exchange"] += 1
+
+
+_PEERS: set = set()
+
+
+def enable_peer_access(devices) -> None:
+    """Let every pair of distinct cards among `devices` read each other's
+    memory (cudaDeviceCanAccessPeer, cudaDeviceEnablePeerAccess), once a
+    pair a process; raises for a pair that cannot reach each other."""
+    cards = sorted({d.index for d in devices if d.type == "cuda"})
+    for a in cards:
+        for b in cards:
+            if a == b or (a, b) in _PEERS:
+                continue
+            rc = library().enable_peer_access(a, b)
+            if rc != 0:
+                raise RuntimeError(f"card {a} cannot read card {b}'s memory "
+                                   f"(peer access: CUDA error {rc}); a mesh "
+                                   f"over them needs peer access")
+            _PEERS.add((a, b))
+
+
+def _parts(x, n_blocks: int, name: str):
+    parts = getattr(x, "parts", None)
+    if parts is None or len(parts) != n_blocks:
+        raise ValueError(f"{name}: want Blocks of {n_blocks} blocks")
+    return parts
+
+
+def _copy_on(x, dev, name: str):
+    if isinstance(x, torch.Tensor):
+        return x
+    on = getattr(x, "on", None)
+    if on is None:
+        raise ValueError(f"{name}: want a tensor or a Replicated leaf")
+    return on(dev)
+
+
+def launch_gossip_blocks(know, sends_left, offsets, sender_ok, receiver_ok,
+                         slot_active, limit: int, new_know, new_sends, kword,
+                         qword, counters, *, key=None, p_ok: float = 1.0,
+                         learn_tick=None, new_learn=None, tick16: int = 0,
+                         newly=None, ctr=None, ctr_out=None, group=None,
+                         node_ok=None) -> None:
+    """K2 over a node-sharded pool (parallel/mesh.py): the [N, S] and [N]
+    arguments are Blocks of B blocks of L rows, offsets and slot_active
+    Replicated (or tensors on one device), counters [3] and ctr/ctr_out on
+    the first block's device, all else as launch_gossip.  Every block's
+    pack, then every block's exchange over rows [bL, (b + 1)L) reading
+    the peers' words through B-block tables, each counted once a block
+    (`gossip_pack_blocks`, `gossip_exchange_blocks` or its chaos form),
+    then one gossip_combine of the blocks' partials.  Blocks on one card
+    launch one after another on that card's current stream (sharing its
+    per-device scratch in turn); across cards no exchange starts before
+    every pack has finished and the combine waits for every exchange
+    (mesh.join), with peer access enabled between the cards."""
+    from consul_tpu_torch.parallel import mesh
+    b_count = know.n_blocks
+    ell = know.rows
+    n = b_count * ell
+    if not 1 <= b_count <= 16:
+        raise ValueError(f"gossip: {b_count} blocks, want 1-16")
+    devs = know.devices
+    home = devs[0]
+    s = know.shape[1] if len(know.shape) == 2 else -1
+    word = torch.int32 if s <= 32 else torch.int64
+    named = dict(know=know, sends_left=sends_left, sender_ok=sender_ok,
+                 receiver_ok=receiver_ok, new_know=new_know,
+                 new_sends=new_sends, kword=kword, qword=qword,
+                 learn_tick=learn_tick, new_learn=new_learn, newly=newly,
+                 group=group, node_ok=node_ok)
+    parts = {k: None if v is None else _parts(v, b_count, "gossip " + k)
+             for k, v in named.items()}
+    offs = [_copy_on(offsets, d, "gossip offsets") for d in devs]
+    active = [_copy_on(slot_active, d, "gossip slot_active") for d in devs]
+    g = offs[0].shape[0] if offs[0].dim() == 1 else -1
+    c = 0
+    for b, d in enumerate(devs):
+        at = {k: None if v is None else v[b] for k, v in parts.items()}
+        c = _gossip_checks(ell, s, g, limit, tick16, d, dict(
+            at, offsets=offs[b], slot_active=active[b]), word, key,
+            (at["learn_tick"], at["new_learn"]), at["newly"], (ctr, ctr_out),
+            at["group"], at["node_ok"])
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"gossip: N={n} outside [1, 2^31)")
+    _require(counters, "gossip counters", torch.float32, home, (3,))
+    if ctr is not None:
+        _require(ctr, "gossip ctr", torch.float32, home, (c,))
+    chaos = group is not None or node_ok is not None
+    enable_peer_access(devs)
+    lib = library()
+    vecs = []
+    for b, d in enumerate(devs):
+        vec = _vec(s, [parts[k][b] for k in ("know", "sends_left", "new_know",
+                                             "new_sends", "learn_tick",
+                                             "new_learn", "newly")
+                       if parts[k] is not None])
+        vecs.append(vec)
+        with _on(d):
+            rc = lib.gossip_pack(parts["know"][b].data_ptr(),
+                                 parts["sends_left"][b].data_ptr(),
+                                 parts["sender_ok"][b].data_ptr(), ell, s, vec,
+                                 parts["kword"][b].data_ptr(),
+                                 parts["qword"][b].data_ptr(), _stream(d))
+        _check(rc, "gossip_pack")
+        LAUNCHES["gossip_pack_blocks"] += 1
+    mesh.join(devs)
+    k0, k1 = key if key is not None else (0, 0)
+    kw, qw = _table(parts["kword"]), _table(parts["qword"])
+    grp, ok = _no_table(parts["group"]), _no_table(parts["node_ok"])
+    partials = torch.empty(3 * b_count, dtype=torch.int64, device=home)
+    for b, d in enumerate(devs):
+        opt = {k: None if parts[k] is None else parts[k][b]
+               for k in ("learn_tick", "new_learn", "newly")}
+        with _on(d):
+            rc = lib.gossip_exchange(
+                kw, qw, b_count, ell, b * ell, ell, offs[b].data_ptr(), g,
+                parts["receiver_ok"][b].data_ptr(), active[b].data_ptr(),
+                parts["sends_left"][b].data_ptr(), _ptr(opt["learn_tick"]), s,
+                vecs[b], k0, k1, int(key is not None), p_ok, grp, ok, limit,
+                tick16, parts["new_know"][b].data_ptr(),
+                parts["new_sends"][b].data_ptr(), _ptr(opt["new_learn"]),
+                _ptr(opt["newly"]),
+                _counter_scratch(d, "gossip_exchange", 3).data_ptr(),
+                SCRATCH_BLOCKS, None, None, None, 0,
+                partials.data_ptr() + 24 * b, _stream(d))
+        _check(rc, "gossip_exchange")
+        LAUNCHES["gossip_exchange_chaos_blocks" if chaos
+                 else "gossip_exchange_blocks"] += 1
+    mesh.join(devs)
+    with _on(home):
+        rc = lib.gossip_combine(partials.data_ptr(), b_count, g,
+                                counters.data_ptr(), _ptr(ctr), _ptr(ctr_out),
+                                c, _stream(home))
+    _check(rc, "gossip_combine")
+    LAUNCHES["gossip_combine"] += 1
 
 
 TIMEOUTS = 65   # Lifeguard timeout table entries: confirmations 0..64
@@ -391,18 +592,102 @@ def launch_believed_down(know, learn_tick, up, member, r_active, r_kind,
             (bulk_cov, "bulk_cov", torch.float32, (n,)),
             (out, "out", torch.float32, (1,))):
         _require(t, "believed_down " + name, dt, dev, shape)
+    at = [t.data_ptr() + subject * t.element_size()
+          for t in (committed_dead, committed_left, committed_inc,
+                    bulk_member, bulk_cov)]
     rc = library().believed_down(
         know.data_ptr(), learn_tick.data_ptr(), up.data_ptr(),
         member.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
         r_subject.data_ptr(), r_inc.data_ptr(), r_confirm.data_ptr(),
-        timeouts.data_ptr(), committed_dead.data_ptr(),
-        committed_left.data_ptr(), committed_inc.data_ptr(),
-        bulk_member.data_ptr(), bulk_cov.data_ptr(), subject, tick16, n, u,
+        timeouts.data_ptr(), *at, subject, tick16, 0, n, u,
         int(u in (16, 32, 64) and know.data_ptr() % 16 == 0),
         _counter_scratch(dev, "believed_down", 2).data_ptr(), SCRATCH_BLOCKS,
-        out.data_ptr(), _stream(dev))
+        out.data_ptr(), None, _stream(dev))
     _check(rc, "believed_down")
     LAUNCHES["believed_down"] += 1
+
+
+def launch_believed_down_blocks(know, learn_tick, up, member, r_active,
+                                r_kind, r_subject, r_inc, r_confirm,
+                                timeouts, committed_dead, committed_left,
+                                committed_inc, bulk_member, bulk_cov,
+                                subject: int, tick16: int, out) -> None:
+    """K3 over a node-sharded pool: the [N, U] and [N] leaves Blocks, the
+    [U] tables and the timeout table Replicated (or tensors on one
+    device), out [1] float32 on the first block's device.  One launch a
+    block over its rows (`believed_down_blocks`), each writing its two
+    counts to its own slot, then one believed_down_combine that adds them
+    in block order, divides and floors by the subject's bulk coverage
+    (read in the subject's block).  Blocks on one card launch one after
+    another on its current stream; across cards the combine waits for
+    every block (mesh.join)."""
+    from consul_tpu_torch.parallel import mesh
+    b_count, ell = know.n_blocks, know.rows
+    n = b_count * ell
+    devs = know.devices
+    home = devs[0]
+    u = know.shape[1] if len(know.shape) == 2 else -1
+    if not 1 <= u <= 64:
+        raise ValueError(f"believed_down takes 1-64 slots, got {u}")
+    if not 0 <= subject < n:
+        raise ValueError(f"believed_down: subject {subject} outside [0, {n})")
+    if not -2 ** 15 <= tick16 < 2 ** 15:
+        raise ValueError(f"believed_down: tick16 {tick16} out of range")
+    rows = {name: _parts(x, b_count, "believed_down " + name) for name, x in (
+        ("know", know), ("learn_tick", learn_tick), ("up", up),
+        ("member", member), ("committed_dead", committed_dead),
+        ("committed_left", committed_left), ("committed_inc", committed_inc),
+        ("bulk_member", bulk_member), ("bulk_cov", bulk_cov))}
+    kinds = {"know": (torch.bool, (ell, u)),
+             "learn_tick": (torch.int16, (ell, u)), "up": (torch.bool, (ell,)),
+             "member": (torch.bool, (ell,)),
+             "committed_dead": (torch.bool, (ell,)),
+             "committed_left": (torch.bool, (ell,)),
+             "committed_inc": (torch.int32, (ell,)),
+             "bulk_member": (torch.bool, (ell,)),
+             "bulk_cov": (torch.float32, (ell,))}
+    tables = {}
+    for name, x, dt, shape in (
+            ("r_active", r_active, torch.bool, (u,)),
+            ("r_kind", r_kind, torch.int8, (u,)),
+            ("r_subject", r_subject, torch.int32, (u,)),
+            ("r_inc", r_inc, torch.int32, (u,)),
+            ("r_confirm", r_confirm, torch.int8, (u,)),
+            ("timeouts", timeouts, torch.int16, (TIMEOUTS,))):
+        tables[name] = [_copy_on(x, d, "believed_down " + name) for d in devs]
+        for t, d in zip(tables[name], devs):
+            _require(t, "believed_down " + name, dt, d, shape)
+    for b, d in enumerate(devs):
+        for name, (dt, shape) in kinds.items():
+            _require(rows[name][b], "believed_down " + name, dt, d, shape)
+    _require(out, "believed_down out", torch.float32, home, (1,))
+    sb, si = divmod(subject, ell)
+    at = [rows[k][sb].data_ptr() + si * rows[k][sb].element_size()
+          for k in ("committed_dead", "committed_left", "committed_inc",
+                    "bulk_member", "bulk_cov")]
+    enable_peer_access(devs)
+    lib = library()
+    partials = torch.empty(2 * b_count, dtype=torch.int64, device=home)
+    for b, d in enumerate(devs):
+        know_b = rows["know"][b]
+        with _on(d):
+            rc = lib.believed_down(
+                know_b.data_ptr(), rows["learn_tick"][b].data_ptr(),
+                rows["up"][b].data_ptr(), rows["member"][b].data_ptr(),
+                *[tables[k][b].data_ptr() for k in (
+                    "r_active", "r_kind", "r_subject", "r_inc", "r_confirm",
+                    "timeouts")], *at, subject, tick16, b * ell, ell, u,
+                int(u in (16, 32, 64) and know_b.data_ptr() % 16 == 0),
+                _counter_scratch(d, "believed_down", 2).data_ptr(),
+                SCRATCH_BLOCKS, None, partials.data_ptr() + 16 * b, _stream(d))
+        _check(rc, "believed_down")
+        LAUNCHES["believed_down_blocks"] += 1
+    mesh.join(devs)
+    with _on(home):
+        rc = lib.believed_down_combine(partials.data_ptr(), b_count, at[3],
+                                       at[4], out.data_ptr(), _stream(home))
+    _check(rc, "believed_down_combine")
+    LAUNCHES["believed_down_combine"] += 1
 
 
 # members.cu's tile: the nodes of one block of members_scan and
@@ -470,7 +755,7 @@ def launch_members_scan(member, committed_dead, committed_left, r_active,
     rc = library().members_scan(
         member.data_ptr(), committed_dead.data_ptr(),
         committed_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
-        r_subject.data_ptr(), u, _ptr(provisioned), _ptr(prev), n,
+        r_subject.data_ptr(), u, _ptr(provisioned), _ptr(prev), n, 0, n,
         _ptr(status), counts.data_ptr(), _ptr(block_changed),
         _scratch_words(dev, "members_scan", MEMBER_SCRATCH).data_ptr(),
         _stream(dev))
@@ -479,11 +764,11 @@ def launch_members_scan(member, committed_dead, committed_left, r_active,
 
 
 def launch_members_emit(status, prev, provisioned, block_changed, k: int,
-                        idx, state) -> None:
+                        idx, state, counts=None) -> None:
     """K4's emit: idx [k] int32 and state [k] int8 = the ascending first k
     provisioned nodes whose status differs from prev, then -1 and
-    status[0] (block_changed is members_scan's prefix, from the same
-    status)."""
+    status[0] (block_changed and counts [5] are members_scan's prefix and
+    counts, from the same status)."""
     dev = status.device
     n = status.shape[0] if status.dim() == 1 else -1
     if not 1 <= n < 2 ** 31 or not 1 <= k < 2 ** 31:
@@ -496,9 +781,12 @@ def launch_members_emit(status, prev, provisioned, block_changed, k: int,
              (member_tiles(n),))
     _require(idx, "members_emit idx", torch.int32, dev, (k,))
     _require(state, "members_emit state", torch.int8, dev, (k,))
+    _require(counts, "members_emit counts", torch.int32, dev,
+             (MEMBER_COUNTS,))
     rc = library().members_emit(status.data_ptr(), prev.data_ptr(),
                                 provisioned.data_ptr(),
-                                block_changed.data_ptr(), n, k,
+                                block_changed.data_ptr(), counts.data_ptr(),
+                                1, 0, 0, status.data_ptr(), 1, n, k,
                                 idx.data_ptr(), state.data_ptr(), _stream(dev))
     _check(rc, "members_emit")
     LAUNCHES["members_emit"] += 1
@@ -525,13 +813,186 @@ def launch_members_page(ids, member, committed_dead, committed_left,
     _require(st_out, "members_page st_out", torch.int8, dev, (kk,))
     _require(inc_out, "members_page inc_out", torch.int32, dev, (kk,))
     _require(up_out, "members_page up_out", torch.bool, dev, (kk,))
+    tabs = [_table([t]) for t in (member, committed_dead, committed_left)]
     rc = library().members_page(
-        ids.data_ptr(), kk, member.data_ptr(), committed_dead.data_ptr(),
-        committed_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
-        r_subject.data_ptr(), u, incarnation.data_ptr(), up.data_ptr(), n,
+        ids.data_ptr(), kk, *tabs, r_active.data_ptr(), r_kind.data_ptr(),
+        r_subject.data_ptr(), u, _table([incarnation]), _table([up]), 1, n,
         st_out.data_ptr(), inc_out.data_ptr(), up_out.data_ptr(), _stream(dev))
     _check(rc, "members_page")
     LAUNCHES["members_page"] += 1
+
+
+def _member_blocks(name: str, b_count: int, ell: int, devs, *named) -> list:
+    out = []
+    for x, what, dt in named:
+        parts = _parts(x, b_count, f"{name} {what}")
+        for p, d in zip(parts, devs):
+            _require(p, f"{name} {what}", dt, d, (ell,))
+        out.append(parts)
+    return out
+
+
+def _member_table(name: str, devs, r_active, r_kind, r_subject) -> tuple:
+    cols = [[_copy_on(x, d, f"{name} {what}") for d in devs]
+            for x, what in ((r_active, "r_active"), (r_kind, "r_kind"),
+                            (r_subject, "r_subject"))]
+    u = -1
+    for b, d in enumerate(devs):
+        u = _rumor_table(cols[0][b], cols[1][b], cols[2][b], d, name)
+    return u, cols
+
+
+def launch_members_scan_blocks(member, committed_dead, committed_left,
+                               r_active, r_kind, r_subject, provisioned,
+                               prev, status, blk_counts,
+                               block_changed) -> None:
+    """K4's scan over a node-sharded pool: the [N] leaves (and provisioned,
+    prev, status when given) Blocks, the [U] table Replicated (or tensors
+    on one device), blk_counts [B * 5] int32 on the first block's device
+    (block b's counts at 5b), block_changed Blocks of [member_tiles(L)]
+    int32 (each block's tile prefix).  One launch a block over its L
+    nodes (`members_scan_blocks`); members_combine adds the counts."""
+    b_count, ell = member.n_blocks, member.rows
+    n = b_count * ell
+    devs = member.devices
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"members_scan: N={n} outside [1, 2^31)")
+    u, cols = _member_table("members_scan", devs, r_active, r_kind,
+                            r_subject)
+    mem, cd, cl = _member_blocks(
+        "members_scan", b_count, ell, devs, (member, "member", torch.bool),
+        (committed_dead, "committed_dead", torch.bool),
+        (committed_left, "committed_left", torch.bool))
+    opt = {}
+    for x, what, dt in ((provisioned, "provisioned", torch.bool),
+                        (prev, "prev", torch.int8),
+                        (status, "status", torch.int8)):
+        opt[what] = None if x is None else _member_blocks(
+            "members_scan", b_count, ell, devs, (x, what, dt))[0]
+    if prev is not None and (status is None or block_changed is None):
+        raise ValueError("members_scan: prev needs status and block_changed")
+    tiles = None
+    if block_changed is not None:
+        tiles = _parts(block_changed, b_count, "members_scan block_changed")
+        for t, d in zip(tiles, devs):
+            _require(t, "members_scan block_changed", torch.int32, d,
+                     (member_tiles(ell),))
+    _require(blk_counts, "members_scan blk_counts", torch.int32, devs[0],
+             (MEMBER_COUNTS * b_count,))
+    enable_peer_access(devs)
+    lib = library()
+    for b, d in enumerate(devs):
+        pick = {k: None if v is None else v[b] for k, v in opt.items()}
+        with _on(d):
+            rc = lib.members_scan(
+                mem[b].data_ptr(), cd[b].data_ptr(), cl[b].data_ptr(),
+                cols[0][b].data_ptr(), cols[1][b].data_ptr(),
+                cols[2][b].data_ptr(), u, _ptr(pick["provisioned"]),
+                _ptr(pick["prev"]), ell, b * ell, n, _ptr(pick["status"]),
+                blk_counts.data_ptr() + 4 * MEMBER_COUNTS * b,
+                None if tiles is None else tiles[b].data_ptr(),
+                _scratch_words(d, "members_scan", MEMBER_SCRATCH).data_ptr(),
+                _stream(d))
+        _check(rc, "members_scan")
+        LAUNCHES["members_scan_blocks"] += 1
+
+
+def launch_members_combine(blk_counts, b_count: int, counts) -> None:
+    """counts [5] int32 = the blocks' [B * 5] scan counts added in block
+    order, one launch on their device (after every block's scan: the
+    caller joins the mesh's streams first)."""
+    dev = blk_counts.device
+    _require(blk_counts, "members_combine blk_counts", torch.int32, dev,
+             (MEMBER_COUNTS * b_count,))
+    _require(counts, "members_combine counts", torch.int32, dev,
+             (MEMBER_COUNTS,))
+    with _on(dev):
+        rc = library().members_combine(blk_counts.data_ptr(), b_count,
+                                       counts.data_ptr(), _stream(dev))
+    _check(rc, "members_combine")
+    LAUNCHES["members_combine"] += 1
+
+
+def launch_members_emit_blocks(status, prev, provisioned, block_changed,
+                               blk_counts, k: int, idx, state) -> None:
+    """K4's emit over a node-sharded pool: status, prev and provisioned
+    Blocks, block_changed and blk_counts as launch_members_scan_blocks
+    left them, idx [k] int32 and state [k] int8 on the first block's
+    device.  One launch a block (`members_emit_blocks`): block b ranks its
+    changed nodes after the earlier blocks' and writes those below k;
+    the first block's launch writes the pad rows."""
+    from consul_tpu_torch.parallel import mesh
+    b_count, ell = status.n_blocks, status.rows
+    n = b_count * ell
+    devs = status.devices
+    home = devs[0]
+    if not 1 <= n < 2 ** 31 or not 1 <= k < 2 ** 31:
+        raise ValueError(f"members_emit: N={n} and k={k} must lie in "
+                         f"[1, 2^31)")
+    st, pv, prov = _member_blocks(
+        "members_emit", b_count, ell, devs, (status, "status", torch.int8),
+        (prev, "prev", torch.int8), (provisioned, "provisioned", torch.bool))
+    tiles = _parts(block_changed, b_count, "members_emit block_changed")
+    for t, d in zip(tiles, devs):
+        _require(t, "members_emit block_changed", torch.int32, d,
+                 (member_tiles(ell),))
+    _require(blk_counts, "members_emit blk_counts", torch.int32, home,
+             (MEMBER_COUNTS * b_count,))
+    _require(idx, "members_emit idx", torch.int32, home, (k,))
+    _require(state, "members_emit state", torch.int8, home, (k,))
+    enable_peer_access(devs)
+    lib = library()
+    mesh.join(devs)
+    for b, d in enumerate(devs):
+        with _on(d):
+            rc = lib.members_emit(
+                st[b].data_ptr(), pv[b].data_ptr(), prov[b].data_ptr(),
+                tiles[b].data_ptr(), blk_counts.data_ptr(), b_count, b,
+                b * ell, st[0].data_ptr(), int(b == 0), ell, k,
+                idx.data_ptr(), state.data_ptr(), _stream(d))
+        _check(rc, "members_emit")
+        LAUNCHES["members_emit_blocks"] += 1
+    mesh.join(devs)
+
+
+def launch_members_page_blocks(ids, member, committed_dead, committed_left,
+                               r_active, r_kind, r_subject, incarnation, up,
+                               st_out, inc_out, up_out) -> None:
+    """K4's page over a node-sharded pool: one launch on the first block's
+    device (`members_page_blocks`) reading the five leaves through block
+    tables, the [K] ids and outputs there too."""
+    from consul_tpu_torch.parallel import mesh
+    b_count, ell = member.n_blocks, member.rows
+    n = b_count * ell
+    devs = member.devices
+    home = devs[0]
+    kk = ids.shape[0] if ids.dim() == 1 else 0
+    if not 1 <= n < 2 ** 31 or kk < 1 or b_count > 16:
+        raise ValueError(f"members_page: N={n} must lie in [1, 2^31), ids "
+                         f"must be [K], K >= 1, and 1-16 blocks")
+    u, cols = _member_table("members_page", [home], r_active, r_kind,
+                            r_subject)
+    leaves = _member_blocks(
+        "members_page", b_count, ell, devs, (member, "member", torch.bool),
+        (committed_dead, "committed_dead", torch.bool),
+        (committed_left, "committed_left", torch.bool),
+        (incarnation, "incarnation", torch.int32), (up, "up", torch.bool))
+    _require(ids, "members_page ids", torch.int32, home, (kk,))
+    _require(st_out, "members_page st_out", torch.int8, home, (kk,))
+    _require(inc_out, "members_page inc_out", torch.int32, home, (kk,))
+    _require(up_out, "members_page up_out", torch.bool, home, (kk,))
+    enable_peer_access(devs)
+    mesh.join(devs)
+    tabs = [_table(parts) for parts in leaves]
+    with _on(home):
+        rc = library().members_page(
+            ids.data_ptr(), kk, tabs[0], tabs[1], tabs[2],
+            cols[0][0].data_ptr(), cols[1][0].data_ptr(),
+            cols[2][0].data_ptr(), u, tabs[3], tabs[4], b_count, ell,
+            st_out.data_ptr(), inc_out.data_ptr(), up_out.data_ptr(),
+            _stream(home))
+    _check(rc, "members_page")
+    LAUNCHES["members_page_blocks"] += 1
 
 
 MASS_COUNTERS = 4    # detect.cu's kCounters: live, victims, and the base

@@ -307,7 +307,7 @@ extern "C" int bulk_step(void* bulk_member, void* bulk_heard, void* bulk_cov, co
   a.partials = static_cast<double*>(partials);
   a.carry = static_cast<float*>(carry);
   a.offs = offs;
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(bulk_kernel, kThreads, N, scratch_blocks, per_card);
   void* args[] = {&a};
   return static_cast<int>(cudaLaunchCooperativeKernel(

@@ -30,15 +30,33 @@ using u64 = unsigned long long;
 
 // --- grids -----------------------------------------------------------------
 
+// The SM count times a kernel's blocks per SM, asked once per card: a
+// launch site keeps one `static PerCard` and reads its entry for the
+// current device, so one process can drive the cards of a mesh.
+constexpr int kMaxCards = 64;
+struct PerCard {
+  int blocks[kMaxCards] = {};
+  // the current card's entry (0 until asked); a card past kMaxCards gets
+  // a scratch entry that is asked again at every launch
+  int& here() {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= 0 && dev < kMaxCards) return blocks[dev];
+    thread_local int spare;
+    spare = 0;
+    return spare;
+  }
+};
+
 // Blocks of `threads` for a persistent grid of `kernel` over n rows: all
 // the blocks the SMs hold at once (with `smem` bytes of dynamic shared
 // memory each), no more than the rows need and no more than `cap` (the
 // per-block slots of the counter scratch).  The SM count and the kernel's
-// blocks per SM are asked once and kept in `per_card` (the process drives
-// one card).
+// blocks per SM are asked once per card and kept in `per_card`.
 template <typename F>
 inline int persistent_blocks(F kernel, int threads, int64_t n, int cap,
-                             int& per_card, size_t smem = 0) {
+                             PerCard& cache, size_t smem = 0) {
+  int& per_card = cache.here();
   if (per_card == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
@@ -51,6 +69,47 @@ inline int persistent_blocks(F kernel, int threads, int64_t n, int cap,
   if (blocks > need) blocks = need;
   if (blocks > cap) blocks = cap;
   return blocks < 1 ? 1 : static_cast<int>(blocks);
+}
+
+// --- block tables ----------------------------------------------------------
+
+// A node-axis leaf cut into B blocks of L rows (parallel/mesh.py): block
+// b holds rows [bL, (b + 1)L) at base[b], on any card whose memory the
+// launching card can reach (its own, or a peer's over NVLink).  A kernel
+// takes it by value (__grid_constant__) and reads row i at at(i); a leaf
+// on one device is the B = 1 table.  N = B * L < 2^31.
+constexpr int kMaxBlocks = 16;
+
+template <typename T>
+struct BlockRows {
+  const T* base[kMaxBlocks];
+  int64_t L;
+  int B;
+
+  // kOne: the caller knows B == 1 (a kernel compiled for one block
+  // keeps no division in its loop)
+  template <bool kOne = false>
+  __device__ __forceinline__ const T* row(int64_t i) const {
+    if (kOne || B == 1) return base[0] + i;
+    const uint32_t b = static_cast<uint32_t>(i) / static_cast<uint32_t>(L);
+    return base[b] + (i - static_cast<int64_t>(b) * L);
+  }
+  template <bool kOne = false>
+  __device__ __forceinline__ T at(int64_t i) const { return *row<kOne>(i); }
+};
+
+// The table of B host-side base pointers (a host array, null for a leaf
+// the caller does not pass: then base[0] is null).
+template <typename T>
+inline BlockRows<T> block_rows(const void* bases, int B, int64_t L) {
+  BlockRows<T> t{};
+  t.L = L;
+  t.B = B;
+  const void* const* p = static_cast<const void* const*>(bases);
+  for (int b = 0; b < B && b < kMaxBlocks; ++b) {
+    t.base[b] = p != nullptr ? static_cast<const T*>(p[b]) : nullptr;
+  }
+  return t;
 }
 
 // --- subjects --------------------------------------------------------------

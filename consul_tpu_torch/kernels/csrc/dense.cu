@@ -376,7 +376,7 @@ extern "C" int dense_expiry(const void* sus_start, const void* sus_confirm, cons
   a.want_out = static_cast<int32_t*>(want_out);
   a.row_subject_out = static_cast<int32_t*>(row_subject_out);
   a.counts_out = static_cast<int64_t*>(counts_out);
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(dense_pre_kernel, kThreads, N, scratch_blocks, per_card);
   dense_pre_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

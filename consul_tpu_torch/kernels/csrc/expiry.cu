@@ -297,7 +297,7 @@ extern "C" int suspicion_expiry(void* know, void* learn_tick, void* sends_left,
   a.limit = limit;
   a.scratch = static_cast<u64*>(scratch);
   a.convert_out = static_cast<uint8_t*>(convert_out);
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(expiry_kernel, kThreads, N, 1 << 20, per_card);
   void* args[] = {&a};
   return static_cast<int>(cudaLaunchCooperativeKernel(

@@ -46,6 +46,19 @@
 // draws them in [1, N).  Outputs go to fresh buffers: callers hold the
 // old state across ticks.
 //
+// Blocks (a node-sharded pool, parallel/mesh.py): the pack runs per block
+// over its L rows, as on one device.  The exchange runs per block over
+// rows [row0, row0 + rows) and reads every peer's word (and, in chaos
+// mode, group and rate) through block tables (common.cuh:BlockRows), so a
+// peer row may sit in another block, on this card or on a peer card; the
+// one-device launch is the B = 1 table.  Row indices stay global: the
+// loss draw's element is i*G + g for the global row i, so a sharded
+// round draws what the unsharded one draws.  A per-block launch writes
+// its integer totals to its own [3] slot of `partial`; gossip_combine
+// then adds the B slots in block order and publishes them as the
+// one-device launch does, so the counters are the same integers whatever
+// B is and their float32 values the same bits.
+//
 // Chaos mode (the nemesis build, consul_tpu/ops/gossip.py:82-100): with a
 // partition group [N] int16 and/or a per-node delivery rate [N] float32,
 // contact (i, g) with sender j = (i + off_g) % N exists only where
@@ -156,20 +169,44 @@ __global__ void __launch_bounds__(kThreads) gossip_pack_kernel(
   }
 }
 
-template <typename W>
+// The three totals as the plain twin rounds them: each integer converted
+// once, served times G, each added to ctr once (no FMA).
+__device__ __forceinline__ void publish(const u64 (&tot)[3], int G, float* counters,
+                                        const float* ctr, float* ctr_out, int C) {
+  const float out[3] = {__ull2float_rn(tot[0]),
+                        __fmul_rn(__ull2float_rn(tot[1]), static_cast<float>(G)),
+                        __ull2float_rn(tot[2])};
+  counters[0] = out[0];
+  counters[1] = out[1];
+  counters[2] = out[2];
+  if (ctr_out != nullptr) {
+    for (int k = 0; k < C; ++k) {
+      const int j = k - (C - 3);
+      ctr_out[k] = __fadd_rn(ctr[k], (j >= 0 && j < 3) ? out[j] : 0.0f);
+    }
+  }
+}
+
+// kOne: compiled for the one-device launch (B = 1), whose table reads are
+// plain indexed loads
+template <typename W, bool kOne>
 __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
-    const W* __restrict__ kword, const W* __restrict__ qword,
+    const __grid_constant__ BlockRows<W> kword,
+    const __grid_constant__ BlockRows<W> qword,
+    int64_t row0, int64_t rows,
     const int32_t* __restrict__ offsets, int G,
     const uint8_t* __restrict__ receiver_ok,
     const uint8_t* __restrict__ slot_active, const int8_t* __restrict__ sends,
     const int16_t* __restrict__ learn, int64_t N, int S, int vec,
     uint32_t k0, uint32_t k1, int lossy, float p_ok,
-    const int16_t* __restrict__ group, const float* __restrict__ node_ok,
+    const __grid_constant__ BlockRows<int16_t> group,
+    const __grid_constant__ BlockRows<float> node_ok,
     int limit, int tick16,
     uint8_t* __restrict__ new_know, int8_t* __restrict__ new_sends,
     int16_t* __restrict__ new_learn, uint8_t* __restrict__ newly,
     u64* __restrict__ scratch, float* __restrict__ counters,
-    const float* __restrict__ ctr, float* __restrict__ ctr_out, int C) {
+    const float* __restrict__ ctr, float* __restrict__ ctr_out, int C,
+    u64* __restrict__ partial) {
   __shared__ int32_t s_off[kMaxFanout];
   __shared__ uint64_t s_active;
   if (threadIdx.x < G) {
@@ -183,21 +220,29 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
   }
   __syncthreads();
   const W active = static_cast<W>(s_active);
+  const bool grouped = group.base[0] != nullptr;
+  const bool rated = node_ok.base[0] != nullptr;
 
   u64 v[3] = {0, 0, 0};  // delivered cells, own queued cells, lost cells
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  // the peers' queued cells reaching row i over contacts g0, g0 + step, ..
+  // the peers' queued cells reaching global row i over contacts g0,
+  // g0 + step, ..
   auto gather = [&](int64_t i, int g0, int step) -> W {
     W got = 0;
     for (int g = g0; g < G; g += step) {
       int64_t src = i + s_off[g];
       if (src >= N) src -= N;
-      const W w = qword[src];
+      const W w = qword.template at<kOne>(src);
       if (w == 0) continue;  // nothing carried: the draw cannot matter
-      if (group != nullptr && group[i] != group[src]) continue;  // severed
+      if (grouped && group.template at<kOne>(i) != group.template at<kOne>(src)) {
+        continue;  // severed
+      }
       float p = p_ok;
-      if (node_ok != nullptr) p = __fmul_rn(__fmul_rn(p_ok, node_ok[i]), node_ok[src]);
+      if (rated) {
+        p = __fmul_rn(__fmul_rn(p_ok, node_ok.template at<kOne>(i)),
+                      node_ok.template at<kOne>(src));
+      }
       const bool ok = !lossy || unit_float(threefry_xor(
           k0, k1, static_cast<uint64_t>(i) * G + g)) < p;
       if (ok) {
@@ -210,13 +255,14 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
   };
 
   if (!vec) {
-    for (int64_t i = tid; i < N; i += stride) {
+    for (int64_t r = tid; r < rows; r += stride) {
+      const int64_t i = row0 + r;
       const W got = gather(i, 0, 1);
-      const W kw = kword[i], qw = qword[i];
-      const W nw = receiver_ok[i] ? (got & active & ~kw) : W(0);
+      const W kw = kword.template at<kOne>(i), qw = qword.template at<kOne>(i);
+      const W nw = receiver_ok[r] ? (got & active & ~kw) : W(0);
       v[0] += popc(nw);
       v[1] += popc(qw);
-      const int64_t base = i * S;
+      const int64_t base = r * S;
       for (int u = 0; u < S; ++u) {
         const bool learned = (nw >> u) & 1u;
         const int b = sends[base + u];
@@ -231,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
     }
   } else {
     const int lanes = S / 8, shift = log2_lanes(lanes);
-    const int64_t items = N << shift;  // (row, 8-slot chunk) pairs
+    const int64_t items = rows << shift;  // (row, 8-slot chunk) pairs
     const int lane = threadIdx.x & 31;
     const unsigned gsub = 0x01010101u * static_cast<unsigned>(G);
     const unsigned lim4 = 0x01010101u * static_cast<unsigned>(limit & 0xff);
@@ -239,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
     for (int64_t item0 = tid - lane; item0 < items; item0 += stride) {
       const int64_t item = item0 + lane;
       const bool live = item < items;
-      const int64_t row = item >> shift;
+      const int64_t row = item >> shift;  // the block's row; row0 + row global
       const int chunk = static_cast<int>(item & (lanes - 1));
       const int64_t off = row * S + 8 * chunk;
       uint2 b = make_uint2(0u, 0u);
@@ -249,10 +295,10 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
       if (live) {  // the row streams first, so their loads overlap the gather
         b = __ldcs(reinterpret_cast<const uint2*>(sends + off));
         if (new_learn != nullptr) lt = __ldcs(reinterpret_cast<const uint4*>(learn + off));
-        kw = kword[row];
-        qw = qword[row];
+        kw = kword.template at<kOne>(row0 + row);
+        qw = qword.template at<kOne>(row0 + row);
         recv = receiver_ok[row] != 0;
-        got = gather(row, chunk, lanes);
+        got = gather(row0 + row, chunk, lanes);
       }
       for (int o = 1; o < lanes; o <<= 1) got = or_lanes(got, o);
       if (!live) continue;  // warp-uniform trips: only the shuffles need all lanes
@@ -286,28 +332,34 @@ __global__ void __launch_bounds__(kThreads) gossip_exchange_kernel(
   }
   u64 tot[3];
   if (grid_sum<3>(v, scratch, tot)) {
-    // float32 exactly as the plain twin rounds: each integer total
-    // converted once, served times G, each added to ctr once (no FMA)
-    const float out[3] = {__ull2float_rn(tot[0]),
-                          __fmul_rn(__ull2float_rn(tot[1]), static_cast<float>(G)),
-                          __ull2float_rn(tot[2])};
-    counters[0] = out[0];
-    counters[1] = out[1];
-    counters[2] = out[2];
-    if (ctr_out != nullptr) {
-      for (int k = 0; k < C; ++k) {
-        const int j = k - (C - 3);
-        ctr_out[k] = __fadd_rn(ctr[k], (j >= 0 && j < 3) ? out[j] : 0.0f);
-      }
+    if (partial != nullptr) {  // one block of a sharded round: its own slot
+      partial[0] = tot[0];
+      partial[1] = tot[1];
+      partial[2] = tot[2];
+    } else {
+      publish(tot, G, counters, ctr, ctr_out, C);
     }
   }
+}
+
+// The B blocks' [3] partials added in block order, then published.
+__global__ void gossip_combine_kernel(const u64* __restrict__ partials, int B, int G,
+                                      float* __restrict__ counters,
+                                      const float* __restrict__ ctr,
+                                      float* __restrict__ ctr_out, int C) {
+  if (threadIdx.x != 0) return;
+  u64 tot[3] = {0, 0, 0};
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < 3; ++k) tot[k] += partials[3 * b + k];
+  }
+  publish(tot, G, counters, ctr, ctr_out, C);
 }
 
 template <typename W>
 int pack(const void* know, const void* sends, const void* sender_ok,
          int64_t N, int S, int vec, void* kword, void* qword,
          cudaStream_t stream) {
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(gossip_pack_kernel<W>, kThreads,
                                        vec ? N * (S / 16) : N, 1 << 20, per_card);
   gossip_pack_kernel<W><<<blocks, kThreads, 0, stream>>>(
@@ -317,32 +369,56 @@ int pack(const void* know, const void* sends, const void* sender_ok,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename W>
-int exchange(const void* kword, const void* qword, const void* offsets, int G,
+template <typename W, bool kOne>
+int exchange(const void* kword, const void* qword, int B, int64_t L,
+             int64_t row0, int64_t rows, const void* offsets, int G,
              const void* receiver_ok, const void* slot_active,
-             const void* sends, const void* learn, int64_t N, int S, int vec,
+             const void* sends, const void* learn, int S, int vec,
              uint32_t k0, uint32_t k1, int lossy, float p_ok,
              const void* group, const void* node_ok, int limit,
              int tick16, void* new_know, void* new_sends, void* new_learn,
              void* newly, void* scratch, int scratch_blocks, void* counters,
-             const void* ctr, void* ctr_out, int C, cudaStream_t stream) {
-  static int per_card = 0;
-  const int blocks = persistent_blocks(gossip_exchange_kernel<W>, kThreads,
-                                       vec ? N * (S / 8) : N, scratch_blocks,
+             const void* ctr, void* ctr_out, int C, void* partial,
+             cudaStream_t stream) {
+  static PerCard per_card;
+  const int blocks = persistent_blocks(gossip_exchange_kernel<W, kOne>, kThreads,
+                                       vec ? rows * (S / 8) : rows, scratch_blocks,
                                        per_card);
-  gossip_exchange_kernel<W><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const W*>(kword), static_cast<const W*>(qword),
+  gossip_exchange_kernel<W, kOne><<<blocks, kThreads, 0, stream>>>(
+      block_rows<W>(kword, B, L), block_rows<W>(qword, B, L), row0, rows,
       static_cast<const int32_t*>(offsets), G,
       static_cast<const uint8_t*>(receiver_ok),
       static_cast<const uint8_t*>(slot_active),
-      static_cast<const int8_t*>(sends), static_cast<const int16_t*>(learn), N,
-      S, vec, k0, k1, lossy, p_ok, static_cast<const int16_t*>(group),
-      static_cast<const float*>(node_ok), limit, tick16,
+      static_cast<const int8_t*>(sends), static_cast<const int16_t*>(learn),
+      static_cast<int64_t>(B) * L, S, vec, k0, k1, lossy, p_ok,
+      block_rows<int16_t>(group, B, L), block_rows<float>(node_ok, B, L),
+      limit, tick16,
       static_cast<uint8_t*>(new_know), static_cast<int8_t*>(new_sends),
       static_cast<int16_t*>(new_learn), static_cast<uint8_t*>(newly),
       static_cast<u64*>(scratch), static_cast<float*>(counters),
-      static_cast<const float*>(ctr), static_cast<float*>(ctr_out), C);
+      static_cast<const float*>(ctr), static_cast<float*>(ctr_out), C,
+      static_cast<u64*>(partial));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The word width and the table form: B = 1 takes the kernel compiled for
+// one block.
+template <typename W>
+int exchange_any(int B, const void* kword, const void* qword, int64_t L,
+                 int64_t row0, int64_t rows, const void* offsets, int G,
+                 const void* receiver_ok, const void* slot_active,
+                 const void* sends, const void* learn, int S, int vec,
+                 uint32_t k0, uint32_t k1, int lossy, float p_ok,
+                 const void* group, const void* node_ok, int limit,
+                 int tick16, void* new_know, void* new_sends, void* new_learn,
+                 void* newly, void* scratch, int scratch_blocks, void* counters,
+                 const void* ctr, void* ctr_out, int C, void* partial,
+                 cudaStream_t stream) {
+  auto run = B == 1 ? exchange<W, true> : exchange<W, false>;
+  return run(kword, qword, B, L, row0, rows, offsets, G, receiver_ok, slot_active,
+             sends, learn, S, vec, k0, k1, lossy, p_ok, group, node_ok, limit,
+             tick16, new_know, new_sends, new_learn, newly, scratch,
+             scratch_blocks, counters, ctr, ctr_out, C, partial, stream);
 }
 
 bool valid(int64_t N, int S, int G) {
@@ -365,11 +441,18 @@ extern "C" int gossip_pack(const void* know, const void* sends,
                  : pack<uint64_t>(know, sends, sender_ok, N, S, vec, kword, qword, st);
 }
 
-extern "C" int gossip_exchange(const void* kword, const void* qword,
+// kword, qword, group and node_ok are host arrays of B block base pointers
+// (group and node_ok null outside chaos mode), L rows a block; the launch
+// covers rows [row0, row0 + rows) of the N = B * L, whose own buffers
+// (receiver_ok, sends, learn and the outputs) start at that block's row 0.
+// With `partial` (3 u64) the launch writes its totals there and leaves
+// counters and ctr_out to gossip_combine.
+extern "C" int gossip_exchange(const void* kword, const void* qword, int B,
+                               int64_t L, int64_t row0, int64_t rows,
                                const void* offsets, int G,
                                const void* receiver_ok,
                                const void* slot_active, const void* sends,
-                               const void* learn, int64_t N, int S, int vec,
+                               const void* learn, int S, int vec,
                                uint32_t k0, uint32_t k1, int lossy,
                                float p_ok, const void* group,
                                const void* node_ok, int limit, int tick16,
@@ -377,21 +460,53 @@ extern "C" int gossip_exchange(const void* kword, const void* qword,
                                void* new_learn, void* newly, void* scratch,
                                int scratch_blocks, void* counters,
                                const void* ctr, void* ctr_out, int C,
-                               void* stream) {
-  if (!valid(N, S, G) || scratch_blocks < 1 ||
+                               void* partial, void* stream) {
+  const int64_t N = static_cast<int64_t>(B) * L;
+  if (!valid(N, S, G) || B < 1 || B > kMaxBlocks || scratch_blocks < 1 ||
+      row0 < 0 || rows < 1 || row0 + rows > N ||
+      (partial == nullptr && counters == nullptr) ||
       (vec && S != 16 && S != 32 && S != 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  return S <= 32
-      ? exchange<uint32_t>(kword, qword, offsets, G, receiver_ok, slot_active,
-                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, group,
-                           node_ok, limit,
-                           tick16, new_know, new_sends, new_learn, newly,
-                           scratch, scratch_blocks, counters, ctr, ctr_out, C, st)
-      : exchange<uint64_t>(kword, qword, offsets, G, receiver_ok, slot_active,
-                           sends, learn, N, S, vec, k0, k1, lossy, p_ok, group,
-                           node_ok, limit,
-                           tick16, new_know, new_sends, new_learn, newly,
-                           scratch, scratch_blocks, counters, ctr, ctr_out, C, st);
+  auto run = S <= 32 ? exchange_any<uint32_t> : exchange_any<uint64_t>;
+  return run(B, kword, qword, L, row0, rows, offsets, G, receiver_ok, slot_active,
+             sends, learn, S, vec, k0, k1, lossy, p_ok, group, node_ok, limit,
+             tick16, new_know, new_sends, new_learn, newly, scratch,
+             scratch_blocks, counters, ctr, ctr_out, C, partial, st);
+}
+
+// The sharded round's totals: partials [B * 3] u64 in block order into
+// counters [3] and ctr_out = ctr + them (ctr null: no counter vector).
+extern "C" int gossip_combine(const void* partials, int B, int G,
+                              void* counters, const void* ctr, void* ctr_out,
+                              int C, void* stream) {
+  if (B < 1 || G < 1 || G > kMaxFanout || partials == nullptr || counters == nullptr ||
+      (ctr == nullptr) != (ctr_out == nullptr) || (ctr != nullptr && C < 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  gossip_combine_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(partials), B, G, static_cast<float*>(counters),
+      static_cast<const float*>(ctr), static_cast<float*>(ctr_out), C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Peer access from card a to card b (both indices of this process's
+// devices): 0 when a can reach b's memory (enabled now or before), else
+// the CUDA error, cudaErrorPeerAccessUnsupported when the pair cannot.
+extern "C" int enable_peer_access(int a, int b) {
+  int can = 0;
+  cudaError_t rc = cudaDeviceCanAccessPeer(&can, a, b);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  int was = 0;
+  cudaGetDevice(&was);
+  cudaSetDevice(a);
+  rc = cudaDeviceEnablePeerAccess(b, 0);
+  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the error the call left behind
+    rc = cudaSuccess;
+  }
+  cudaSetDevice(was);
+  return static_cast<int>(rc);
 }

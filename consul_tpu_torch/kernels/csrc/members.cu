@@ -57,6 +57,17 @@
 //                  wrapped once when negative and clamped into [0, N) as
 //                  a JAX gather does.
 //
+// Blocks (a node-sharded pool, parallel/mesh.py): the scan and the emit
+// run per block over its L rows (L a multiple of kTile at full width),
+// the dead subjects and the emitted ids global (row0 the block's first
+// row).  Each block's scan writes its own [5] counts, which
+// members_combine adds in block order; each block's emit reads every
+// block's changed count to rank its rows after the earlier blocks', so
+// the blocks' emits together write the ascending first k, the order
+// swim._top_k_sharded keeps.  The page reads the five node leaves
+// through block tables (common.cuh:BlockRows).  The one-device launches
+// are B = 1.
+//
 // Bound on an H100: memory, and at N = 1M launch cost.  The scan must read
 // member, committed_dead, committed_left and provisioned (4 bytes a node),
 // plus prev and the status write for a delta (6); the emit reads status,
@@ -127,7 +138,9 @@ struct ScanArgs {
   int U;
   const uint8_t* prov;   // null: every node
   const uint8_t* prev;   // null: no changed count
-  int64_t N;
+  int64_t N;             // the launch's nodes, from global row row0
+  int64_t row0;
+  int64_t Ng;            // the pool's nodes (the dead subjects' range)
   int aligned;           // every [N] vector 16-byte aligned
   uint8_t* status;       // null: not written
   int32_t* counts;
@@ -154,8 +167,8 @@ __global__ void __launch_bounds__(kThreads) members_scan_kernel(ScanArgs a) {
       if (u < a.U) {  // the three loads together, no short circuit between
         const bool active = a.r_active[u];
         const int8_t kind = a.r_kind[u];
-        const int64_t s = wrapped(a.r_subject[u], a.N);
-        subj[p] = active && kind == kDead && s >= 0 && s < a.N ? static_cast<int32_t>(s) : -1;
+        const int64_t s = wrapped(a.r_subject[u], a.Ng);
+        subj[p] = active && kind == kDead && s >= 0 && s < a.Ng ? static_cast<int32_t>(s) : -1;
       }
     }
   }
@@ -180,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) members_scan_kernel(ScanArgs a) {
   if (t < 32) {
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      const int64_t off = static_cast<int64_t>(subj[p]) - base;
+      const int64_t off = static_cast<int64_t>(subj[p]) - (a.row0 + base);
       if (subj[p] >= 0 && off >= 0 && off < kTile) {
         atomicOr(&s_dead[off >> 5], 1u << (off & 31));
       }
@@ -258,17 +271,25 @@ __global__ void __launch_bounds__(kThreads) members_scan_kernel(ScanArgs a) {
 __global__ void __launch_bounds__(kThreads) members_emit_kernel(
     const uint8_t* __restrict__ status, const uint8_t* __restrict__ prev,
     const uint8_t* __restrict__ prov, const int32_t* __restrict__ prefix,
+    const int32_t* __restrict__ blk_counts, int n_blk, int blk, int64_t row0,
+    const uint8_t* __restrict__ pad_status, int pads,
     int64_t N, int64_t k, int aligned, int32_t* __restrict__ idx,
     int8_t* __restrict__ state) {
   __shared__ int32_t warp_total[kThreads / 32];
   const int t = threadIdx.x;
   const int64_t b = blockIdx.x, B = gridDim.x;
-  const int64_t before = b > 0 ? prefix[b - 1] : 0;
-  const int64_t upto = prefix[b];
-  const int64_t total = prefix[B - 1];
-  const int8_t pad_state = static_cast<int8_t>(status[0]);  // with the prefix's loads
-  // the pad rows, spread over the grid
-  if (total + b * kThreads < k) {
+  // the changed rows of the earlier blocks of the pool, and of all of them
+  int64_t earlier = 0, total = 0;
+  for (int c = 0; c < n_blk; ++c) {
+    const int64_t x = blk_counts[c * kCounts + 4];
+    earlier += c < blk ? x : 0;
+    total += x;
+  }
+  const int64_t before = earlier + (b > 0 ? prefix[b - 1] : 0);
+  const int64_t upto = earlier + prefix[b];
+  const int8_t pad_state = static_cast<int8_t>(*pad_status);  // with the prefix's loads
+  // the pad rows, spread over the grid of the launch that writes them
+  if (pads && total + b * kThreads < k) {
     for (int64_t r = total + b * kThreads + t; r < k; r += B * kThreads) {
       idx[r] = -1;
       state[r] = pad_state;
@@ -302,19 +323,32 @@ __global__ void __launch_bounds__(kThreads) members_emit_kernel(
   for (int w = 0; w < 4; ++w) {
     for (uint32_t m = ch[w]; m != 0 && rank < k; m &= m - 1, ++rank) {
       const int byte = (__ffs(m) - 1) >> 3;
-      idx[rank] = static_cast<int32_t>(i0 + 4 * w + byte);
+      idx[rank] = static_cast<int32_t>(row0 + i0 + 4 * w + byte);
       state[rank] = static_cast<int8_t>(st[w] >> (8 * byte));
     }
   }
 }
 
+// The B blocks' [5] counts added in block order.
+__global__ void members_combine_kernel(const int32_t* __restrict__ blk_counts, int B,
+                                       int32_t* __restrict__ counts) {
+  const int t = threadIdx.x;
+  if (t >= kCounts) return;
+  int32_t sum = 0;
+  for (int b = 0; b < B; ++b) sum += blk_counts[b * kCounts + t];
+  counts[t] = sum;
+}
+
 __global__ void __launch_bounds__(kThreads) members_page_kernel(
     const int32_t* __restrict__ ids, int64_t K,
-    const uint8_t* __restrict__ member, const uint8_t* __restrict__ cdead,
-    const uint8_t* __restrict__ cleft, const uint8_t* __restrict__ r_active,
+    const __grid_constant__ BlockRows<uint8_t> member,
+    const __grid_constant__ BlockRows<uint8_t> cdead,
+    const __grid_constant__ BlockRows<uint8_t> cleft,
+    const uint8_t* __restrict__ r_active,
     const int8_t* __restrict__ r_kind, const int32_t* __restrict__ r_subject,
-    int U, const int32_t* __restrict__ incarnation,
-    const uint8_t* __restrict__ up, int64_t N, int8_t* __restrict__ st_out,
+    int U, const __grid_constant__ BlockRows<int32_t> incarnation,
+    const __grid_constant__ BlockRows<uint8_t> up, int64_t N,
+    int8_t* __restrict__ st_out,
     int32_t* __restrict__ inc_out, uint8_t* __restrict__ up_out) {
   __shared__ int32_t s_subj[64];
   __shared__ int s_n;
@@ -348,9 +382,9 @@ __global__ void __launch_bounds__(kThreads) members_page_kernel(
     int64_t i = id;
     if (i < 0) i += N;
     i = i < 0 ? 0 : (i >= N ? N - 1 : i);
-    const bool mem = member[i] != 0, cd = cdead[i] != 0, cl = cleft[i] != 0;
-    const int32_t inc = incarnation[i];
-    const uint8_t u = up[i];
+    const bool mem = member.at(i) != 0, cd = cdead.at(i) != 0, cl = cleft.at(i) != 0;
+    const int32_t inc = incarnation.at(i);
+    const uint8_t u = up.at(i);
     bool dead = false;
     for (int d = 0; d < n_dead; ++d) dead |= s_subj[d] == i;
     st_out[j] = cl || !mem ? 2 : (cd || dead ? 1 : 0);
@@ -371,15 +405,18 @@ inline bool aligned_or_null(const void* p) {
 // scratch: kCounts zeroed u64, a word a total (the block that completes a
 // total zeroes its word again).  With prev, status and block_changed are
 // required; block_changed [tiles(N)] comes back as the tiles' inclusive
-// prefix of changed counts, members_emit's input.
+// prefix of changed counts, members_emit's input.  The launch covers the N
+// nodes from global row row0 of a pool of Ng (a block of a sharded pool,
+// or row0 = 0 and Ng = N); counts are that span's.
 extern "C" int members_scan(const void* member, const void* committed_dead,
                             const void* committed_left, const void* r_active,
                             const void* r_kind, const void* r_subject, int U,
                             const void* provisioned, const void* prev,
-                            int64_t N, void* status, void* counts,
-                            void* block_changed, void* scratch, void* stream) {
-  if (N < 1 || N >= (1ll << 31) || U < 1 || U > 64 || counts == nullptr ||
-      scratch == nullptr ||
+                            int64_t N, int64_t row0, int64_t Ng, void* status,
+                            void* counts, void* block_changed, void* scratch,
+                            void* stream) {
+  if (N < 1 || Ng >= (1ll << 31) || row0 < 0 || row0 + N > Ng || U < 1 || U > 64 ||
+      counts == nullptr || scratch == nullptr ||
       (prev != nullptr && (status == nullptr || block_changed == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -393,7 +430,7 @@ extern "C" int members_scan(const void* member, const void* committed_dead,
                    static_cast<const int8_t*>(r_kind),
                    static_cast<const int32_t*>(r_subject), U,
                    static_cast<const uint8_t*>(provisioned),
-                   static_cast<const uint8_t*>(prev), N, aligned,
+                   static_cast<const uint8_t*>(prev), N, row0, Ng, aligned,
                    static_cast<uint8_t*>(status), static_cast<int32_t*>(counts),
                    static_cast<int32_t*>(block_changed), static_cast<u64*>(scratch)};
   members_scan_kernel<<<static_cast<unsigned>(tiles(N)), kThreads, 0,
@@ -401,11 +438,20 @@ extern "C" int members_scan(const void* member, const void* committed_dead,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The emit of the N nodes from global row row0: block_changed is their
+// scan's prefix, blk_counts the [n_blk * 5] counts of every block of the
+// pool (this span's at blk; one device: the scan's counts, n_blk = 1),
+// pad_status the status of node 0 (the pad rows' state), and the launch
+// with pads != 0 writes the pad rows.
 extern "C" int members_emit(const void* status, const void* prev,
                             const void* provisioned, const void* block_changed,
+                            const void* blk_counts, int n_blk, int blk,
+                            int64_t row0, const void* pad_status, int pads,
                             int64_t N, int64_t k, void* idx, void* state,
                             void* stream) {
-  if (N < 1 || N >= (1ll << 31) || k < 1 || k >= (1ll << 31)) {
+  if (N < 1 || N >= (1ll << 31) || k < 1 || k >= (1ll << 31) || n_blk < 1 ||
+      blk < 0 || blk >= n_blk || row0 < 0 || blk_counts == nullptr ||
+      pad_status == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int aligned = aligned_or_null(status) && aligned_or_null(prev) && aligned_or_null(provisioned);
@@ -413,31 +459,48 @@ extern "C" int members_emit(const void* status, const void* prev,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(status), static_cast<const uint8_t*>(prev),
       static_cast<const uint8_t*>(provisioned),
-      static_cast<const int32_t*>(block_changed), N, k, aligned,
+      static_cast<const int32_t*>(block_changed),
+      static_cast<const int32_t*>(blk_counts), n_blk, blk, row0,
+      static_cast<const uint8_t*>(pad_status), pads, N, k, aligned,
       static_cast<int32_t*>(idx), static_cast<int8_t*>(state));
   return static_cast<int>(cudaGetLastError());
 }
 
+// counts [5] = the [B * 5] block counts added in block order.
+extern "C" int members_combine(const void* blk_counts, int B, void* counts,
+                               void* stream) {
+  if (B < 1 || blk_counts == nullptr || counts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  members_combine_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(blk_counts), B, static_cast<int32_t*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// member, committed_dead, committed_left, incarnation and up are host
+// arrays of B block base pointers, L nodes a block (one device: B = 1).
 extern "C" int members_page(const void* ids, int64_t K, const void* member,
                             const void* committed_dead,
                             const void* committed_left, const void* r_active,
                             const void* r_kind, const void* r_subject, int U,
-                            const void* incarnation, const void* up, int64_t N,
-                            void* st_out, void* inc_out, void* up_out,
-                            void* stream) {
-  if (N < 1 || N >= (1ll << 31) || K < 1 || U < 1 || U > 64) {
+                            const void* incarnation, const void* up, int B,
+                            int64_t L, void* st_out, void* inc_out,
+                            void* up_out, void* stream) {
+  const int64_t N = static_cast<int64_t>(B) * L;
+  if (B < 1 || B > kMaxBlocks || L < 1 || N >= (1ll << 31) || K < 1 || U < 1 ||
+      U > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int64_t blocks = (K + kThreads - 1) / kThreads;
   if (blocks > 1024) blocks = 1024;
   members_page_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ids), K, static_cast<const uint8_t*>(member),
-      static_cast<const uint8_t*>(committed_dead),
-      static_cast<const uint8_t*>(committed_left),
+      static_cast<const int32_t*>(ids), K, block_rows<uint8_t>(member, B, L),
+      block_rows<uint8_t>(committed_dead, B, L),
+      block_rows<uint8_t>(committed_left, B, L),
       static_cast<const uint8_t*>(r_active), static_cast<const int8_t*>(r_kind),
       static_cast<const int32_t*>(r_subject), U,
-      static_cast<const int32_t*>(incarnation), static_cast<const uint8_t*>(up),
+      block_rows<int32_t>(incarnation, B, L), block_rows<uint8_t>(up, B, L),
       N, static_cast<int8_t*>(st_out), static_cast<int32_t*>(inc_out),
       static_cast<uint8_t*>(up_out));
   return static_cast<int>(cudaGetLastError());

@@ -685,7 +685,7 @@ extern "C" int originate(const void* want, const void* row_subject,
   a.subjects_out = static_cast<int32_t*>(subjects_out);
   a.slots_out = static_cast<int32_t*>(slots_out);
   a.ok_out = static_cast<uint8_t*>(ok_out);
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(originate_kernel, kThreads, N, list_blocks,
                                        per_card);
   void* args[] = {&a};

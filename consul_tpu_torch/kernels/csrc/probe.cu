@@ -421,7 +421,7 @@ extern "C" int probe_round(
   a.row_subject_out = static_cast<int32_t*>(row_subject_out);
   a.rtt_out = static_cast<float*>(rtt_out);
   a.acked_out = static_cast<uint8_t*>(acked_out);
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(probe_round_kernel, kThreads, N,
                                        scratch_blocks, per_card);
   probe_round_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);

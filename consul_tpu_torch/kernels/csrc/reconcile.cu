@@ -804,8 +804,8 @@ extern "C" int reconcile_merge(const void* d_ids, const void* d_ver,
   a.out_ids = static_cast<int32_t*>(out_ids);
   a.out_ver = static_cast<int32_t*>(out_ver);
   a.out_node = static_cast<int32_t*>(out_node);
-  static int per_card = 0;
-  if (per_card == 0) {
+  static PerCard per_card;
+  if (per_card.here() == 0) {  // the attribute is the current card's
     const int rc = static_cast<int>(cudaFuncSetAttribute(
         merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMergeSmem)));

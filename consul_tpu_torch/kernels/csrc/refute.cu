@@ -423,7 +423,7 @@ extern "C" int refutation(void* incarnation, void* awareness, const void* up, co
   a.tick16 = tick16;
   a.limit = limit;
   a.scratch = static_cast<u64*>(scratch);
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(refutation_kernel, kThreads, N, 1 << 20, per_card);
   refutation_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -460,7 +460,7 @@ extern "C" int expire(void* know, void* sends_left, const void* up, const void* 
   a.life_gossip = life_gossip;
   a.life_suspect = life_suspect;
   a.scratch = static_cast<u64*>(scratch);
-  static int per_card = 0;
+  static PerCard per_card;
   const int blocks = persistent_blocks(expire_kernel, kThreads, N, 1 << 20, per_card);
   void* args[] = {&a};
   return static_cast<int>(cudaLaunchCooperativeKernel(

@@ -460,15 +460,17 @@ extern "C" int vivaldi_ring(const void* coords, const void* height, const void* 
   const auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
   if (D == 8 && W == 20 && a16(coords) && a16(window) && a16(coords_out)) {
     constexpr size_t bytes = kStages * sizeof(Tile<8, 20>);
-    static const cudaError_t sized = cudaFuncSetAttribute(
-        vivaldi_tile_kernel<8, 20>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (sized != cudaSuccess) return static_cast<int>(sized);
-    static int per_card = 0;
+    static PerCard per_card;
+    if (per_card.here() == 0) {  // the attribute is the current card's
+      const cudaError_t sized = cudaFuncSetAttribute(
+          vivaldi_tile_kernel<8, 20>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (sized != cudaSuccess) return static_cast<int>(sized);
+    }
     const int blocks =
         persistent_blocks(vivaldi_tile_kernel<8, 20>, kTile, N, 1 << 20, per_card, bytes);
     vivaldi_tile_kernel<8, 20><<<blocks, kTile, bytes, s>>>(a);
   } else {
-    static int per_card = 0;
+    static PerCard per_card;
     const int blocks = persistent_blocks(vivaldi_ring_kernel, kThreads, N, 1 << 20, per_card);
     vivaldi_ring_kernel<<<blocks, kThreads, 0, s>>>(a);
   }

@@ -20,6 +20,7 @@ import torch
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.ops import gossip as gossip_ops
 from consul_tpu_torch.ops import rolls
+from consul_tpu_torch.parallel.mesh import Blocks
 from consul_tpu_torch.utils import devices, prng
 
 I8, I32 = torch.int8, torch.int32
@@ -140,6 +141,8 @@ def step(params: EventParams, s: EventState, up: torch.Tensor,
     the tick moves when no event is in flight."""
     if not any(s.active_host):
         return s.replace(tick=s.tick + 1)
+    if isinstance(s.know, Blocks):
+        return _step_blocks(params, s, up, member)
     n = params.n_nodes
     dev = s.know.device
     offs = rolls.offsets(prng.tick_key(params.seed, s.tick, 3), n,
@@ -164,6 +167,45 @@ def step(params: EventParams, s: EventState, up: torch.Tensor,
         know=res.know & ~done[None, :],
         deliver_tick=deliver_tick,
         sends_left=torch.where(done[None, :], 0, res.sends_left).to(I8),
+        active_host=tuple(a and not d for a, d in zip(s.active_host,
+                                                      done_host)))
+
+
+def _step_blocks(params: EventParams, s: EventState, up: Blocks,
+                 member: Blocks) -> EventState:
+    """step on a node-sharded pool (parallel/mesh.py): K2 over the blocks,
+    then its row-local passes block by block, the [E] table copy by
+    copy."""
+    from consul_tpu_torch.models.swim import tick_offsets
+    offs = tick_offsets(prng.tick_key(params.seed, s.tick, 3),
+                        params.n_nodes, params.gossip_nodes, s.know)
+    res = gossip_ops.disseminate(offs, s.know, s.sends_left,
+                                 sender_ok=up,
+                                 receiver_ok=up.map(torch.logical_and, member),
+                                 slot_active=s.e_active,
+                                 retransmit_limit=min(params.retransmit_limit,
+                                                      127),
+                                 p_loss=params.p_loss,
+                                 key=prng.tick_key(params.seed, s.tick, 6))
+    tick = s.tick
+    done = s.e_active.map(lambda a, st: a & (tick - st >= params.expiry_ticks),
+                          s.e_start)
+    done_host = tuple(a and tick - t >= params.expiry_ticks
+                      for a, t in zip(s.active_host, s.start_host))
+
+    def lamport(lam, newly, ltime):
+        seen = torch.where(newly, ltime[None, :], 0)
+        return torch.maximum(lam, seen.amax(1))
+
+    return s.replace(
+        tick=tick + 1,
+        lamport=s.lamport.map(lamport, res.newly, s.e_ltime),
+        e_active=s.e_active.map(lambda a, d: a & ~d, done),
+        know=res.know.map(lambda k, d: k & ~d[None, :], done),
+        deliver_tick=s.deliver_tick.map(
+            lambda dt, newly: torch.where(newly, tick, dt), res.newly),
+        sends_left=res.sends_left.map(
+            lambda sl, d: torch.where(d[None, :], 0, sl).to(I8), done),
         active_host=tuple(a and not d for a, d in zip(s.active_host,
                                                       done_host)))
 

@@ -18,6 +18,7 @@ import torch
 
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import events, swim, vivaldi
+from consul_tpu_torch.parallel.mesh import Blocks, Replicated
 from consul_tpu_torch.utils import devices
 
 
@@ -65,7 +66,7 @@ class ClusterState:
 def _cloned(x):
     return dataclasses.replace(x, **{
         f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)
-        if isinstance(getattr(x, f.name), torch.Tensor)})
+        if isinstance(getattr(x, f.name), (torch.Tensor, Blocks, Replicated))})
 
 
 def init_state(params: SerfParams, key=None, n_initial: int = 0,
@@ -81,7 +82,9 @@ def init_state(params: SerfParams, key=None, n_initial: int = 0,
 
 def step(params: SerfParams, s: ClusterState) -> ClusterState:
     """One gossip tick of the full serf pool.  On the card a probe tick
-    consumes s (swim.step_with_obs): keep s.clone() to read it again."""
+    consumes s (swim.step_with_obs): keep s.clone() to read it again.  A
+    node-sharded pool (parallel/mesh.shard_state) runs its gossip-only
+    ticks and raises NotImplementedError at a probe tick."""
     sw, obs = swim.step_with_obs(params.swim, s.swim)
     coords = s.coords
     if obs is not None:
@@ -146,10 +149,15 @@ def rtt_order(params: SerfParams, s: ClusterState, origin,
     every node so a node-sharded mesh never gathers a row; one device
     computes the K query rows alone, with the same arithmetic per row."""
     c = s.coords
-    o = torch.as_tensor(origin, dtype=torch.int64, device=c.coords.device)
+    o = torch.as_tensor(origin, dtype=torch.int64, device=ids.device)
     at = ids.to(torch.int64)
-    d = vivaldi._norm(c.coords[at] - c.coords[o]) + c.height[at] + c.height[o]
-    adjusted = d + c.adjustment[at] + c.adjustment[o]
+    if isinstance(c.coords, Blocks):    # the K rows read block by block
+        rows = lambda x, i: swim._gather_rows(x, i.reshape(-1))  # noqa: E731
+    else:
+        rows = lambda x, i: x[i]  # noqa: E731
+    d = vivaldi._norm(rows(c.coords, at) - rows(c.coords, o)) \
+        + rows(c.height, at) + rows(c.height, o)
+    adjusted = d + rows(c.adjustment, at) + rows(c.adjustment, o)
     dist = torch.where(adjusted > 0.0, adjusted, d)
     dist = torch.where(valid, dist, torch.inf)
     return torch.sort(dist, stable=True).indices.to(torch.int32)

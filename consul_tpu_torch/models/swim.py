@@ -56,6 +56,8 @@ from consul_tpu_torch import kernels
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.ops import gossip as gossip_ops
 from consul_tpu_torch.ops import rolls
+from consul_tpu_torch.parallel import mesh as meshlib
+from consul_tpu_torch.parallel.mesh import Blocks, Replicated
 from consul_tpu_torch.utils import devices, prng
 
 ALIVE = 0
@@ -194,7 +196,15 @@ class SwimState:
 
     @property
     def device(self) -> torch.device:
+        """The state's device; for a node-sharded state the mesh's first
+        device, where its counters, pages and monitor vectors land."""
         return self.up.device
+
+    @property
+    def mesh(self) -> Optional[meshlib.Mesh]:
+        """The mesh of a node-sharded state (parallel/mesh.py), else None."""
+        return meshlib.mesh_of(self.up) if isinstance(self.up, Blocks) \
+            else None
 
 
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(SwimState)
@@ -222,20 +232,30 @@ FREE_INPLACE = ("know", "sends_left", "committed_dead", "committed_left",
 BULK_INPLACE = ("bulk_member", "bulk_heard", "bulk_cov", "committed_dead")
 
 
+def _pieces(t) -> tuple:
+    """A leaf's tensors: its blocks, its copies, or itself."""
+    if isinstance(t, Blocks):
+        return t.parts
+    if isinstance(t, Replicated):
+        return t.copies
+    return (t,)
+
+
 def _writable(s: SwimState, fields, what: str) -> None:
     """Raise unless each leaf a kernel writes in place is contiguous and
-    shares no storage with another leaf it writes."""
+    shares no storage with another leaf it writes (on a node-sharded
+    state: every block and every copy, each of its own)."""
     seen = {}
     for f in fields:
-        t = getattr(s, f)
-        if not t.is_contiguous():
-            raise ValueError(f"{what} writes {f} in place: it must be "
-                             f"contiguous")
-        at = t.untyped_storage().data_ptr()
-        if at in seen:
-            raise ValueError(f"{what} writes {f} and {seen[at]} in place: "
-                             f"they share storage")
-        seen[at] = f
+        for t in _pieces(getattr(s, f)):
+            if not t.is_contiguous():
+                raise ValueError(f"{what} writes {f} in place: it must be "
+                                 f"contiguous")
+            at = (t.device, t.untyped_storage().data_ptr())
+            if at in seen:
+                raise ValueError(f"{what} writes {f} and {seen[at]} in "
+                                 f"place: they share storage")
+            seen[at] = f
 
 
 def _writable_maps(maps: dict, what: str) -> None:
@@ -333,6 +353,26 @@ def _top_k(x: torch.Tensor, k: int):
     (swim.py:569-602), so one device needs no block argument."""
     vals, idx = torch.sort(x, descending=True, stable=True)
     return vals[:k], idx[:k].to(I32)
+
+
+def _top_k_sharded(x, k: int):
+    """lax.top_k over a node-sharded vector without a gather
+    (swim.py:569-602): each block's top k (its first max first among
+    equals), then the top k of the [B*k] candidates, emitted block-major so
+    that among equal values the earlier global index wins, as the flat
+    top-k picks it.  When k > L every block gives all its L values, the
+    flat form.  A tensor takes _top_k."""
+    if not isinstance(x, Blocks):
+        return _top_k(x, k)
+    ell, home = x.rows, x.device
+    kk = min(k, ell)
+    vals, idx = [], []
+    for b, part in enumerate(x.parts):
+        v, i = _top_k(part, kk)
+        vals.append(v.to(home))
+        idx.append(i.to(home, I64) + b * ell)
+    v2, j = _top_k(torch.cat(vals), k)
+    return v2, torch.cat(idx)[j.to(I64)].to(I32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -496,29 +536,44 @@ def _believes_down_shift(params: SwimParams, s: SwimState, maps,
     return down | rolls.pull(s.bulk_member, shift)
 
 
-def _monitor_slots(params: SwimParams, s: SwimState, subject: int):
-    """The per-slot [U] vectors of the monitor for one subject."""
-    subj = s.r_active & (s.r_subject == subject)
-    is_dl = subj & ((s.r_kind == DEAD) | (s.r_kind == LEFT))
-    is_s = subj & (s.r_kind == SUSPECT)
-    is_a = subj & (s.r_kind == ALIVE)
-    timeout16 = _timeouts(params, s.r_confirm).to(I16)
+def _monitor_slots(params: SwimParams, s, subject: int, device=None):
+    """The per-slot [U] vectors of the monitor for one subject (from the
+    table's copy on `device` on a node-sharded state)."""
+    t = {f: getattr(s, f) for f in ("r_active", "r_subject", "r_kind",
+                                    "r_confirm")}
+    if device is not None:
+        t = {f: v.on(device) for f, v in t.items()}
+    subj = t["r_active"] & (t["r_subject"] == subject)
+    is_dl = subj & ((t["r_kind"] == DEAD) | (t["r_kind"] == LEFT))
+    is_s = subj & (t["r_kind"] == SUSPECT)
+    is_a = subj & (t["r_kind"] == ALIVE)
+    timeout16 = _timeouts(params, t["r_confirm"]).to(I16)
     return is_dl, is_s, is_a, timeout16
+
+
+def _believers(slots, r_inc, know, learn_tick, tick: int, down, cinc):
+    """[rows] bool: the rows that believe the subject down: a known
+    dead/left rumor of it, its committed death or leave (`down`), or a
+    known suspect rumor past its timeout that no known alive rumor of a
+    higher incarnation, nor the committed incarnation `cinc`, refutes."""
+    is_dl, is_s, is_a, timeout16 = slots
+    down_i = (know & is_dl[None, :]).any(1) | down
+    age_ok = (_t16(tick) - learn_tick) >= timeout16[None, :]
+    a_inc_known = torch.where(is_a[None, :] & know, r_inc[None, :],
+                              -1).amax(1)
+    refuted = (a_inc_known[:, None] > r_inc[None, :]) \
+        | (r_inc[None, :] < cinc)
+    return down_i | (know & is_s[None, :] & age_ok & ~refuted).any(1)
 
 
 def believed_down_fraction_plain(params: SwimParams, s: SwimState,
                                  subject: int) -> torch.Tensor:
     """The plain PyTorch version of K3 (swim.py:533-562), a 0-d float32."""
     n = s.up.shape[0]
-    is_dl, is_s, is_a, timeout16 = _monitor_slots(params, s, subject)
-    down = s.committed_dead[subject] | s.committed_left[subject]
-    down_i = (s.know & is_dl[None, :]).any(1) | down
-    age_ok = (_t16(s.tick) - s.learn_tick) >= timeout16[None, :]
-    a_inc_known = torch.where(is_a[None, :] & s.know, s.r_inc[None, :],
-                              -1).amax(1)
-    refuted = (a_inc_known[:, None] > s.r_inc[None, :]) \
-        | (s.r_inc[None, :] < s.committed_inc[subject])
-    down_i = down_i | (s.know & is_s[None, :] & age_ok & ~refuted).any(1)
+    down_i = _believers(_monitor_slots(params, s, subject), s.r_inc, s.know,
+                        s.learn_tick, s.tick,
+                        s.committed_dead[subject] | s.committed_left[subject],
+                        s.committed_inc[subject])
     observer = s.up & s.member & (torch.arange(n, device=s.device) != subject)
     frac = (down_i & observer).sum().to(F32) \
         / observer.sum().clamp_min(1).to(F32)
@@ -527,21 +582,68 @@ def believed_down_fraction_plain(params: SwimParams, s: SwimState,
     return torch.maximum(frac, bulk)
 
 
+def _cell(x: Blocks, i: int) -> torch.Tensor:
+    """Node i's 0-d cell of a node-sharded leaf (in the block holding it)."""
+    b, r = divmod(i, x.rows)
+    return x.parts[b][r]
+
+
+def believed_down_fraction_blocks_plain(params: SwimParams, s: SwimState,
+                                        subject: int) -> torch.Tensor:
+    """believed_down_fraction_plain over a node-sharded state, block by
+    block: each block's believers and observers as integers, added in
+    block order and divided once (the unsharded quotient's bits)."""
+    home = s.device
+    ell = s.up.rows
+    cdead = _cell(s.committed_dead, subject) | _cell(s.committed_left,
+                                                     subject)
+    cinc = _cell(s.committed_inc, subject)
+    believers = torch.zeros((), dtype=I64, device=home)
+    observers = torch.zeros((), dtype=I64, device=home)
+    for b, know in enumerate(s.know.parts):
+        dev = know.device
+        down_i = _believers(_monitor_slots(params, s, subject, dev),
+                            s.r_inc.on(dev), know, s.learn_tick.parts[b],
+                            s.tick, cdead.to(dev), cinc.to(dev))
+        rows = torch.arange(b * ell, (b + 1) * ell, device=dev)
+        observer = s.up.parts[b] & s.member.parts[b] & (rows != subject)
+        believers = believers + (down_i & observer).sum().to(home)
+        observers = observers + observer.sum().to(home)
+    frac = believers.to(F32) / observers.clamp_min(1).to(F32)
+    bulk = torch.where(_cell(s.bulk_member, subject),
+                       _cell(s.bulk_cov, subject),
+                       torch.zeros((), dtype=F32, device=home))
+    return torch.maximum(frac, bulk.to(home))
+
+
 def believed_down_fraction(params: SwimParams, s: SwimState, subject: int,
                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fraction of live members (excluding the subject) that believe
     `subject` is down — the north-star convergence metric.  On CUDA
     tensors it launches K3, which reads the raw rumor table and the cached
     int16 timeout table itself, writing into `out` (one float32, e.g. a
-    slot of a per-scan vector) when given."""
+    slot of a per-scan vector) when given.  On a node-sharded state K3
+    runs one launch a block and one combine (the twin block by block),
+    `out` on the mesh's first device."""
+    sharded = isinstance(s.know, Blocks)
     if not s.know.is_cuda:
-        frac = believed_down_fraction_plain(params, s, subject)
+        frac = (believed_down_fraction_blocks_plain if sharded
+                else believed_down_fraction_plain)(params, s, subject)
         if out is not None:
             out.copy_(frac.reshape(out.shape))
             return out
         return frac
     if out is None:
         out = torch.empty(1, dtype=F32, device=s.device)
+    if sharded:
+        kernels.launch_believed_down_blocks(
+            s.know, s.learn_tick, s.up, s.member, s.r_active, s.r_kind,
+            s.r_subject, s.r_inc, s.r_confirm,
+            Replicated(_table(params, c.device, I16)
+                       for c in s.r_active.copies),
+            s.committed_dead, s.committed_left, s.committed_inc,
+            s.bulk_member, s.bulk_cov, subject, _t16(s.tick), out)
+        return out
     kernels.launch_believed_down(
         s.know, s.learn_tick, s.up, s.member, s.r_active, s.r_kind,
         s.r_subject, s.r_inc, s.r_confirm, _table(params, s.device, I16),
@@ -1092,15 +1194,31 @@ def _refutation(params: SwimParams, s: SwimState) -> SwimState:
     return s
 
 
+def _both(a, b):
+    """a & b of two [N] bool leaves, block by block on a sharded state."""
+    return a.map(torch.logical_and, b) if isinstance(a, Blocks) else a & b
+
+
+def tick_offsets(key, n: int, k: int, like) -> torch.Tensor:
+    """rolls.offsets on the device of `like`; for a node-sharded leaf one
+    draw on each distinct device of its mesh (every device draws alike),
+    Replicated."""
+    if isinstance(like, Blocks):
+        return Replicated(rolls.offsets(key, n, k, d)
+                          for d in dict.fromkeys(like.devices))
+    return rolls.offsets(key, n, k, like.device)
+
+
 def _disseminate(params: SwimParams, s: SwimState) -> SwimState:
     """Piggyback gossip over the rumor table (swim.py:1152-1181): K2, with
-    the learn-tick stamp and the gossip counters folded in."""
+    the learn-tick stamp and the gossip counters folded in (on a sharded
+    state over its blocks)."""
     tick = s.tick
-    offs = rolls.offsets(prng.tick_key(params.seed, tick, 2), params.n_nodes,
-                         params.gossip_nodes, s.device)
+    offs = tick_offsets(prng.tick_key(params.seed, tick, 2), params.n_nodes,
+                        params.gossip_nodes, s.up)
     res = gossip_ops.disseminate(offs, s.know, s.sends_left,
                                  sender_ok=s.up,
-                                 receiver_ok=s.up & s.member,
+                                 receiver_ok=_both(s.up, s.member),
                                  slot_active=s.r_active,
                                  retransmit_limit=params.retransmit_limit,
                                  p_loss=params.p_loss,
@@ -1291,8 +1409,18 @@ def step_with_obs(params: SwimParams, s: SwimState):
     tensors in place (and K9 the tick's own maps).  So does every tick
     with the bulk channel live, gossip-only ticks included: K14 updates
     BULK_INPLACE in place.  A caller that reads s again steps
-    s.clone()."""
+    s.clone().  A node-sharded state (parallel/mesh.py) runs gossip-only
+    ticks over its blocks, each leaf fresh; a probe tick or a live bulk
+    channel raises NotImplementedError before anything runs, gathering
+    nothing."""
     obs = None
+    if isinstance(s.up, Blocks):
+        if s.tick % params.probe_period_ticks == 0 or s.bulk_live:
+            what = "the bulk channel is live" if s.bulk_live \
+                else "a probe tick"
+            raise NotImplementedError(f"tick {s.tick} ({what}): "
+                                      + meshlib.NOT_YET)
+        return _disseminate(params, s).replace(tick=s.tick + 1), None
     if s.tick % params.probe_period_ticks == 0:
         maps = _maps(params, s)
         s, obs, maps = _probe_round(params, s, maps)
@@ -1345,7 +1473,10 @@ METRIC_NAMES = (
 
 def metrics_vector(params: SwimParams, s: SwimState) -> torch.Tensor:
     """One [len(METRIC_NAMES)] float32 vector of sim telemetry
-    (swim.py:1393-1435), read back only at sync checkpoints."""
+    (swim.py:1393-1435), read back only at sync checkpoints.  Not yet on a
+    node-sharded state (ROADMAP queue A item 3b)."""
+    if isinstance(s.up, Blocks):
+        raise NotImplementedError("metrics_vector: " + meshlib.NOT_YET)
     live = s.up & s.member
     n_live = live.sum().clamp_min(1).to(F32)
     active = s.r_active
@@ -1453,6 +1584,9 @@ def shard_metrics(params: SwimParams, s: SwimState,
                   n_blocks: int) -> torch.Tensor:
     """[n_blocks, len(SHARD_METRIC_NAMES)] float32 per-shard gauges
     (swim.py:1449-1469)."""
+    if isinstance(s.up, Blocks):
+        return _shard_metrics_blocks(s, n_blocks)
+
     def blk(x):
         return x.reshape(n_blocks, -1)
 
@@ -1464,6 +1598,25 @@ def shard_metrics(params: SwimParams, s: SwimState,
     aware = blk(torch.where(live, s.awareness.to(I32), 0)).sum(1).to(F32) \
         / n_live
     return torch.stack([alive, failed, left, aware], dim=1)
+
+
+def _shard_metrics_blocks(s: SwimState, n_blocks: int) -> torch.Tensor:
+    """shard_metrics of a node-sharded state, a row a block (the same
+    integer sums a row as the unsharded reshape's)."""
+    if n_blocks != s.up.n_blocks:
+        raise ValueError(f"shard_metrics: {n_blocks} gauges' blocks of a "
+                         f"state in {s.up.n_blocks} blocks")
+    home = s.device
+    rows = []
+    for b in range(n_blocks):
+        live = s.up.parts[b] & s.member.parts[b]
+        alive = live.sum().to(F32)
+        aware = torch.where(live, s.awareness.parts[b].to(I32), 0).sum() \
+            .to(F32) / alive.clamp_min(1.0)
+        rows.append(torch.stack([
+            alive, s.committed_dead.parts[b].sum().to(F32),
+            s.committed_left.parts[b].sum().to(F32), aware]).to(home))
+    return torch.stack(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1480,15 +1633,11 @@ def status_vector_plain(params: SwimParams, s: SwimState) -> torch.Tensor:
     or an active dead rumor, left = committed left or not a member; left
     wins.  The dead rumors scatter to their subjects, masked slots to
     index 0 with False."""
-    is_dead = s.r_active & (s.r_kind == DEAD)
-    dead_rumor = _scatter(torch.zeros_like(s.committed_dead),
-                          torch.where(is_dead, s.r_subject, 0), is_dead,
-                          "amax")
-    failed = s.committed_dead | dead_rumor
-    left = s.committed_left | ~s.member
-    return torch.where(left, STATUS_LEFT,
-                       torch.where(failed, STATUS_FAILED,
-                                   STATUS_ALIVE)).to(I8)
+    n = s.member.shape[0]
+    subj = _dead_rumors(s, n, s.member.device)
+    dead = _scatter(torch.zeros_like(s.member), torch.where(subj >= 0, subj, n),
+                    subj >= 0, "amax")
+    return _status(s.member, s.committed_dead, s.committed_left, dead)
 
 
 def _clamped(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -1546,9 +1695,131 @@ def _scan(s: SwimState, provisioned=None, prev=None, want_status=False):
     return status, counts, tiles
 
 
+def _scan_blocks(s: SwimState, provisioned=None, prev=None,
+                 want_status=False):
+    """K4's scan over a node-sharded state, a launch a block, then the
+    combine: (status Blocks or None, counts [5] int32, the blocks' [B * 5]
+    counts, each block's tile prefix as Blocks or None)."""
+    home, nb, ell = s.device, s.member.n_blocks, s.member.rows
+    status = s.member.map(lambda m: torch.empty(ell, dtype=I8,
+                                                device=m.device)) \
+        if want_status or prev is not None else None
+    blk_counts = torch.empty(nb * kernels.MEMBER_COUNTS, dtype=I32,
+                             device=home)
+    tiles = s.member.map(lambda m: torch.empty(
+        kernels.member_tiles(ell), dtype=I32, device=m.device)) \
+        if prev is not None else None
+    kernels.launch_members_scan_blocks(
+        s.member, s.committed_dead, s.committed_left, s.r_active, s.r_kind,
+        s.r_subject, provisioned, prev, status, blk_counts, tiles)
+    meshlib.join(s.member.devices)
+    counts = torch.empty(kernels.MEMBER_COUNTS, dtype=I32, device=home)
+    kernels.launch_members_combine(blk_counts, nb, counts)
+    return status, counts, blk_counts, tiles
+
+
+def _dead_rumors(s: SwimState, n: int, device):
+    """The [U] table's dead subjects as JAX's scatter takes them: (each
+    slot's index into [0, N) or -1 for none)."""
+    table = {f: getattr(s, f) for f in ("r_active", "r_kind", "r_subject")}
+    if isinstance(s.r_active, Replicated):
+        table = {f: v.on(device) for f, v in table.items()}
+    is_dead = table["r_active"] & (table["r_kind"] == DEAD)
+    subj = table["r_subject"].to(I64)
+    subj = torch.where(subj < 0, subj + n, subj)
+    return torch.where(is_dead & (subj >= 0) & (subj < n), subj, -1)
+
+
+def _status(member, cdead, cleft, dead) -> torch.Tensor:
+    left = cleft | ~member
+    failed = cdead | dead
+    return torch.where(left, STATUS_LEFT,
+                       torch.where(failed, STATUS_FAILED, STATUS_ALIVE)).to(I8)
+
+
+def status_vector_blocks_plain(params: SwimParams, s: SwimState) -> Blocks:
+    """status_vector_plain of a node-sharded state, block by block."""
+    n, ell = params.n_nodes, s.member.rows
+    out = []
+    for b, member in enumerate(s.member.parts):
+        dev = member.device
+        local = _dead_rumors(s, n, dev) - b * ell
+        hit = (local >= 0) & (local < ell)
+        dead = _scatter(torch.zeros_like(member), torch.where(hit, local, ell),
+                        hit, "amax")
+        out.append(_status(member, s.committed_dead.parts[b],
+                           s.committed_left.parts[b], dead))
+    return Blocks(out)
+
+
+def _gather_rows(x: Blocks, at: torch.Tensor) -> torch.Tensor:
+    """x at the [K] int64 node ids `at` (in [0, N), on x's first device),
+    block by block with selects: O(K * B), no [N] buffer, no sync."""
+    home, ell = x.device, x.rows
+    out = None
+    for b, part in enumerate(x.parts):
+        local = (at - b * ell).to(part.device)
+        mine = (local >= 0) & (local < ell)
+        got = part.index_select(0, torch.where(mine, local, 0)).to(home)
+        mine = mine.to(home).reshape((-1,) + (1,) * (part.dim() - 1))
+        out = got if out is None else torch.where(mine, got, out)
+    return out
+
+
+def _blocks_sum(x: Blocks, fn) -> torch.Tensor:
+    """sum over blocks of fn(block b, b) (0-d integer tensors), in block
+    order, on the first block's device."""
+    home = x.device
+    tot = None
+    for b, part in enumerate(x.parts):
+        v = fn(part, b).to(home)
+        tot = v if tot is None else tot + v
+    return tot
+
+
+def membership_counts_blocks_plain(params, s, provisioned: Blocks):
+    st = status_vector_blocks_plain(params, s)
+    sums = [_blocks_sum(st, lambda part, b, c=c: (
+        provisioned.parts[b] & (part == c)).sum())
+        for c in (STATUS_ALIVE, STATUS_FAILED, STATUS_LEFT)]
+    sums.append(_blocks_sum(provisioned, lambda part, b: part.sum()))
+    return torch.stack(sums).to(I32)
+
+
+def membership_page_blocks_plain(params, s, ids: torch.Tensor):
+    n = params.n_nodes
+    at = _clamped(ids, n)
+    dead = (_dead_rumors(s, n, ids.device)[None, :] == at[:, None]).any(1)
+    st = _status(_gather_rows(s.member, at), _gather_rows(s.committed_dead, at),
+                 _gather_rows(s.committed_left, at), dead)
+    return st, _gather_rows(s.incarnation, at), _gather_rows(s.up, at)
+
+
+def membership_delta_blocks_plain(params, s, prev_status: Blocks,
+                                  provisioned: Blocks, k: int):
+    """membership_delta_plain of a node-sharded state: the blocks'
+    statuses, their changed masks, and the first k changed rows by
+    _top_k_sharded (no [N] vector on any device)."""
+    st = status_vector_blocks_plain(params, s)
+    changed = st.map(lambda a, p, v: (a != p) & v, prev_status, provisioned)
+    n = params.n_nodes
+    kk = min(k, n)
+    vals, idx = _top_k_sharded(changed.map(lambda c: c.to(I32)), kk)
+    idx = torch.where(vals > 0, idx, -1)
+    if kk < k:
+        idx = torch.cat([idx, torch.full((k - kk,), -1, dtype=I32,
+                                         device=idx.device)])
+    n_changed = _blocks_sum(changed, lambda part, b: part.sum()).to(I32)
+    return st, n_changed, idx, _gather_rows(st, idx.clamp_min(0).to(I64))
+
+
 def status_vector(params: SwimParams, s: SwimState) -> torch.Tensor:
     """[N] int8 member status (STATUS_*), staying on the device: K4's scan
-    on CUDA tensors."""
+    on CUDA tensors.  A node-sharded state gives Blocks."""
+    if isinstance(s.member, Blocks):
+        if not s.member.is_cuda:
+            return status_vector_blocks_plain(params, s)
+        return _scan_blocks(s, want_status=True)[0]
     if not s.member.is_cuda:
         return status_vector_plain(params, s)
     return _scan(s, want_status=True)[0]
@@ -1557,7 +1828,13 @@ def status_vector(params: SwimParams, s: SwimState) -> torch.Tensor:
 def membership_counts(params: SwimParams, s: SwimState,
                       provisioned: torch.Tensor) -> torch.Tensor:
     """[4] int32 (alive, failed, left, total) over provisioned nodes:
-    16 bytes to read back whatever N is (K4's scan on CUDA tensors)."""
+    16 bytes to read back whatever N is (K4's scan on CUDA tensors; on a
+    node-sharded state a scan a block and the combine, `provisioned`
+    Blocks)."""
+    if isinstance(s.member, Blocks):
+        if not s.member.is_cuda:
+            return membership_counts_blocks_plain(params, s, provisioned)
+        return _scan_blocks(s, provisioned=provisioned)[1][:4]
     if not s.member.is_cuda:
         return membership_counts_plain(params, s, provisioned)
     return _scan(s, provisioned=provisioned)[1][:4]
@@ -1565,16 +1842,25 @@ def membership_counts(params: SwimParams, s: SwimState,
 
 def membership_page(params: SwimParams, s: SwimState, ids: torch.Tensor):
     """(status [K] int8, incarnation [K] int32, up [K] bool) at the [K]
-    int32 ids (K4's page on CUDA tensors: no [N] status is built)."""
-    if not s.member.is_cuda:
-        return membership_page_plain(params, s, ids)
+    int32 ids (K4's page on CUDA tensors: no [N] status is built; on a
+    node-sharded state one launch reading the blocks through tables, the
+    ids on the mesh's first device)."""
     k, dev = ids.shape[0], s.device
+    sharded = isinstance(s.member, Blocks)
+    if not s.member.is_cuda:
+        return (membership_page_blocks_plain if sharded
+                else membership_page_plain)(params, s, ids)
     st = torch.empty(k, dtype=I8, device=dev)
     inc = torch.empty(k, dtype=I32, device=dev)
     up = torch.empty(k, dtype=torch.bool, device=dev)
-    kernels.launch_members_page(ids, s.member, s.committed_dead,
-                                s.committed_left, s.r_active, s.r_kind,
-                                s.r_subject, s.incarnation, s.up, st, inc, up)
+    if sharded:
+        kernels.launch_members_page_blocks(
+            ids, s.member, s.committed_dead, s.committed_left, s.r_active,
+            s.r_kind, s.r_subject, s.incarnation, s.up, st, inc, up)
+    else:
+        kernels.launch_members_page(
+            ids, s.member, s.committed_dead, s.committed_left, s.r_active,
+            s.r_kind, s.r_subject, s.incarnation, s.up, st, inc, up)
     return st, inc, up
 
 
@@ -1584,15 +1870,28 @@ def membership_delta(params: SwimParams, s: SwimState,
     """Changed provisioned members since a status checkpoint: (new status
     [N] int8, n_changed 0-d int32, idx [k] int32 ascending then -1, state
     [k] int8 = status at max(idx, 0)).  On CUDA tensors, K4's scan then its
-    emit: no sort of [N]."""
+    emit: no sort of [N].  On a node-sharded state the status, checkpoint
+    and provisioned mask are Blocks: a scan and an emit a block, the
+    combine between them."""
+    dev = s.device
+    if isinstance(s.member, Blocks):
+        if not s.member.is_cuda:
+            return membership_delta_blocks_plain(params, s, prev_status,
+                                                 provisioned, k)
+        st, counts, blk_counts, tiles = _scan_blocks(
+            s, provisioned=provisioned, prev=prev_status)
+        idx = torch.empty(k, dtype=I32, device=dev)
+        state = torch.empty(k, dtype=I8, device=dev)
+        kernels.launch_members_emit_blocks(st, prev_status, provisioned,
+                                           tiles, blk_counts, k, idx, state)
+        return st, counts[4], idx, state
     if not s.member.is_cuda:
         return membership_delta_plain(params, s, prev_status, provisioned, k)
     st, counts, tiles = _scan(s, provisioned=provisioned, prev=prev_status)
-    dev = s.device
     idx = torch.empty(k, dtype=I32, device=dev)
     state = torch.empty(k, dtype=I8, device=dev)
     kernels.launch_members_emit(st, prev_status, provisioned, tiles, k, idx,
-                                state)
+                                state, counts)
     return st, counts[4], idx, state
 
 

@@ -18,7 +18,12 @@ events layer).
 
 `disseminate` launches kernel K2 (kernels/csrc/gossip.cu: a pack launch
 and an exchange launch) on CUDA tensors and runs `disseminate_plain` on
-CPU tensors.
+CPU tensors.  On a node-sharded pool (parallel/mesh.py: the [N, S] and
+[N] leaves Blocks, the offsets, slot mask and counters Replicated) it
+launches K2 over block tables (`kernels.launch_gossip_blocks`: a pack
+and an exchange a block, one combine) on the card and runs
+`disseminate_blocks_plain`, the same pass block by block, on the CPU;
+both give Blocks whose concatenation is the unsharded pass's.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from consul_tpu_torch import kernels
 from consul_tpu_torch.ops import rolls
+from consul_tpu_torch.parallel.mesh import Blocks, Replicated
 from consul_tpu_torch.utils import prng
 
 
@@ -167,16 +173,163 @@ def disseminate_kernel(offs: torch.Tensor, know: torch.Tensor,
                         lost=counters[2], learn_tick=new_learn, ctr=new_ctr)
 
 
-def disseminate(offs: torch.Tensor, know: torch.Tensor,
-                sends_left: torch.Tensor, sender_ok: torch.Tensor,
-                receiver_ok: torch.Tensor, slot_active: torch.Tensor,
+def _home(x):
+    return x.home if isinstance(x, Replicated) else x
+
+
+def _stack_views(views, b: int) -> torch.Tensor:
+    """[L, G] of block b of G Blocks views."""
+    return torch.stack([v.parts[b] for v in views], dim=1)
+
+
+def disseminate_blocks_plain(offs, know: Blocks, sends_left: Blocks,
+                             sender_ok: Blocks, receiver_ok: Blocks,
+                             slot_active, retransmit_limit: int,
+                             p_loss: float = 0.0, key=None,
+                             learn_tick: Optional[Blocks] = None,
+                             tick16: int = 0, ctr=None,
+                             want_newly: bool = True,
+                             group: Optional[Blocks] = None,
+                             node_ok: Optional[Blocks] = None) -> GossipResult:
+    """disseminate_plain over a node-sharded pool, block by block: the ring
+    views through rolls' block rotations (no [N] buffer), each block's
+    loss draws as its rows' elements i*G + g of the stream, the counters
+    as the blocks' integer totals added in block order (so their float32
+    values are the unsharded pass's).  Returns Blocks, the counters on
+    the first block's device and ctr Replicated."""
+    offs_home = _home(offs)
+    fanout = offs_home.shape[0]
+    nb, ell = know.n_blocks, know.rows
+    home = know.device
+    chaotic = (group is not None or node_ok is not None) and key is not None
+    serve = know.map(lambda k, sl, so: k & (sl > 0) & so[:, None],
+                     sends_left, sender_ok)
+    views = rolls.pull_multi(serve, offs_home)
+    cells = serve.map(lambda v: v.sum(1))
+    lossy = chaotic or (p_loss > 0.0 and key is not None)
+    carried = rolls.pull_multi(cells, offs_home) if lossy else None
+    senders = rolls.pull_multi(node_ok, offs_home) \
+        if chaotic and node_ok is not None else None
+    groups = rolls.pull_multi(group, offs_home) \
+        if chaotic and group is not None else None
+    p_ok = prng.f32(1.0 - p_loss)
+    parts = {k: [] for k in ("know", "sends", "learn", "newly")}
+    tot = [torch.zeros((), dtype=torch.int64, device=home) for _ in range(3)]
+    for b in range(nb):
+        dev = know.parts[b].device
+        got = None
+        ok = None
+        if lossy:
+            # element i*G + g of the stream for the block's global rows i,
+            # a column a contact (no flat [L*G] buffer)
+            u = torch.stack([prng.unit_floats(prng.threefry_bits_plain(
+                key, ell, dev, start=b * ell * fanout + g, step=fanout))
+                for g in range(fanout)], dim=1)
+            if chaotic:
+                thr = torch.full((ell, fanout), p_ok, dtype=torch.float32,
+                                 device=dev)
+                if node_ok is not None:
+                    thr = thr * node_ok.parts[b][:, None] \
+                        * _stack_views(senders, b)
+                ok = u < thr
+                exists = None
+                if group is not None:
+                    exists = _stack_views(groups, b) == group.parts[b][:, None]
+                    ok = ok & exists
+            else:
+                ok = u < p_ok
+                exists = None
+            carry = _stack_views(carried, b)
+            if exists is not None:  # a severed link is a partition, not loss
+                carry = torch.where(exists, carry, 0)
+            tot[2] = tot[2] + torch.where(ok, 0, carry).sum().to(home)
+        for g, v in enumerate(views):
+            vb = v.parts[b] & ok[:, g:g + 1] if ok is not None else v.parts[b]
+            got = vb if got is None else got | vb
+        active = slot_active.on(dev) if isinstance(slot_active, Replicated) \
+            else slot_active
+        kb, sb = know.parts[b], sends_left.parts[b]
+        received = got & receiver_ok.parts[b][:, None] & active[None, :]
+        newly = received & ~kb
+        budget = torch.clamp_min(sb - fanout, 0).to(torch.int8)
+        parts["know"].append(kb | newly)
+        parts["sends"].append(torch.where(
+            newly, retransmit_limit, torch.where(serve.parts[b], budget, sb)))
+        parts["newly"].append(newly)
+        if learn_tick is not None:
+            parts["learn"].append(torch.where(newly, tick16,
+                                              learn_tick.parts[b]))
+        tot[0] = tot[0] + newly.sum().to(home)
+        tot[1] = tot[1] + cells.parts[b].sum().to(home)
+    delivered = tot[0].to(torch.float32)
+    served = tot[1].to(torch.float32) * fanout
+    lost = tot[2].to(torch.float32)
+    new_ctr = None
+    if ctr is not None:
+        def add(c):
+            incr = torch.zeros_like(c)
+            incr[-3:] = torch.stack([delivered, served, lost]).to(c.device)
+            return c + incr
+        new_ctr = ctr.map(add) if isinstance(ctr, Replicated) else add(ctr)
+    return GossipResult(
+        know=Blocks(parts["know"]), sends_left=Blocks(parts["sends"]),
+        newly=Blocks(parts["newly"]) if want_newly else None,
+        delivered=delivered, served=served, lost=lost,
+        learn_tick=Blocks(parts["learn"]) if learn_tick is not None else None,
+        ctr=new_ctr)
+
+
+def disseminate_blocks_kernel(offs, know: Blocks, sends_left: Blocks,
+                              sender_ok: Blocks, receiver_ok: Blocks,
+                              slot_active, retransmit_limit: int,
+                              p_loss: float = 0.0, key=None,
+                              learn_tick: Optional[Blocks] = None,
+                              tick16: int = 0, ctr=None,
+                              want_newly: bool = True,
+                              group: Optional[Blocks] = None,
+                              node_ok: Optional[Blocks] = None) -> GossipResult:
+    """K2 over block tables on the card: a pack and an exchange a block
+    and one combine (kernels.launch_gossip_blocks), fresh Blocks out; the
+    counter vector's new copies are the combine's output on the first
+    block's device and copies of it on the others."""
+    s = know.shape[1]
+    word = torch.int32 if s <= 32 else torch.int64
+    empty = torch.empty_like
+    new_know, new_sends = know.map(empty), sends_left.map(empty)
+    new_learn = learn_tick.map(empty) if learn_tick is not None else None
+    newly = know.map(empty) if want_newly else None
+    words = [know.map(lambda k: torch.empty(k.shape[0], dtype=word,
+                                            device=k.device))
+             for _ in range(2)]
+    home = know.device
+    counters = torch.empty(3, dtype=torch.float32, device=home)
+    ctr_home = _home(ctr) if ctr is not None else None
+    ctr_out = torch.empty_like(ctr_home) if ctr is not None else None
+    chaotic = (group is not None or node_ok is not None) and key is not None
+    lossy = chaotic or (p_loss > 0.0 and key is not None)
+    kernels.launch_gossip_blocks(
+        know, sends_left, offs, sender_ok, receiver_ok, slot_active,
+        retransmit_limit, new_know, new_sends, words[0], words[1], counters,
+        key=key if lossy else None, p_ok=prng.f32(1.0 - p_loss),
+        learn_tick=learn_tick, new_learn=new_learn, tick16=tick16,
+        newly=newly, ctr=ctr_home, ctr_out=ctr_out,
+        group=group if chaotic else None, node_ok=node_ok if chaotic else None)
+    new_ctr = None
+    if ctr is not None:
+        new_ctr = Replicated([ctr_out] + [ctr_out.to(c.device) for c in
+                                          ctr.copies[1:]]) \
+            if isinstance(ctr, Replicated) else ctr_out
+    return GossipResult(know=new_know, sends_left=new_sends, newly=newly,
+                        delivered=counters[0], served=counters[1],
+                        lost=counters[2], learn_tick=new_learn, ctr=new_ctr)
+
+
+def disseminate(offs, know, sends_left, sender_ok, receiver_ok, slot_active,
                 retransmit_limit: int, p_loss: float = 0.0,
                 key=None, blocks: int = 1, *,
-                learn_tick: Optional[torch.Tensor] = None, tick16: int = 0,
-                ctr: Optional[torch.Tensor] = None,
-                want_newly: bool = True,
-                group: Optional[torch.Tensor] = None,
-                node_ok: Optional[torch.Tensor] = None) -> GossipResult:
+                learn_tick=None, tick16: int = 0, ctr=None,
+                want_newly: bool = True, group=None,
+                node_ok=None) -> GossipResult:
     """One fanout round.
 
     offs: [G] int32 ring offsets on the device (node i pulls from
@@ -191,8 +344,13 @@ def disseminate(offs: torch.Tensor, know: torch.Tensor,
     between same-group endpoints, and a severed one is not counted lost)
     and `node_ok` [N] float32 delivery rates (a contact between i and j
     delivers at (1 - p_loss) * ok_i * ok_j).  `blocks`, the JAX package's
-    shard-count lowering hint, changes nothing on one device."""
-    fn = disseminate_kernel if know.is_cuda else disseminate_plain
+    shard-count lowering hint, changes nothing; a node-sharded pool
+    (Blocks leaves) runs the sharded pass."""
+    if isinstance(know, Blocks):
+        fn = disseminate_blocks_kernel if know.is_cuda \
+            else disseminate_blocks_plain
+    else:
+        fn = disseminate_kernel if know.is_cuda else disseminate_plain
     return fn(offs, know, sends_left, sender_ok, receiver_ok, slot_active,
               retransmit_limit, p_loss, key, learn_tick, tick16, ctr,
               want_newly, group, node_ok)

@@ -14,13 +14,17 @@ sparsely populated.
 Every read answers against the current state with a bounded transfer:
 the membership reads run kernel K4 on the card (status, counts, page and
 the changed rows of a delta), and every device-to-host copy goes through
-the one `_to_host` seam.  Host services (flight recorder, profiler,
+the one `_to_host` seam.  With `mesh=` (parallel/mesh.py) the pool's node
+axis is cut into one block a mesh device and every read answers against
+the sharded state, moving O(k) bytes, never O(N); advancing it and the
+commands wait for the sharded probe tick (ROADMAP queue A item 3b).  Host services (flight recorder, profiler,
 telemetry registry) come from the caller as `host.Hooks`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 import time
 from typing import Dict, List, Optional
@@ -32,6 +36,7 @@ from consul_tpu_torch import host, kernels
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import events as events_model
 from consul_tpu_torch.models import serf, swim, vivaldi
+from consul_tpu_torch.parallel import mesh as meshlib
 from consul_tpu_torch.utils import devices
 
 
@@ -60,27 +65,43 @@ def _coord_row(c: vivaldi.VivaldiState, i: int):
     """One node's Vivaldi row: (vec [D], error, adjustment, height).  The
     JAX package sums the row out of a one-hot mask so a sharded mesh
     never gathers (oracle.py:55-69); the sum adds zeros, which turns -0.0
-    into 0.0 and changes nothing else, and `+ 0.0` does the same here."""
-    return (c.coords[i] + 0.0, c.error[i] + 0.0, c.adjustment[i] + 0.0,
-            c.height[i] + 0.0)
+    into 0.0 and changes nothing else, and `+ 0.0` does the same here.  A
+    node-sharded state gives the row from the block that holds it."""
+    if isinstance(c.coords, meshlib.Blocks):
+        pick = lambda x: swim._cell(x, i)  # noqa: E731
+    else:
+        pick = lambda x: x[i]  # noqa: E731
+    return (pick(c.coords) + 0.0, pick(c.error) + 0.0,
+            pick(c.adjustment) + 0.0, pick(c.height) + 0.0)
 
 
 class GossipOracle:
     """Host handle on one serf pool on `device` (the card unless the
-    caller names another), with `hooks` for the host services."""
+    caller names another), with `hooks` for the host services.  With
+    `mesh` (parallel/mesh.make_mesh) the pool is node-sharded over the
+    mesh's devices: shard_blocks is set to the mesh's size and the first
+    mesh device is the oracle's device (oracle.py:72-104)."""
 
     def __init__(self, gossip: Optional[GossipConfig] = None,
                  sim: Optional[SimConfig] = None,
                  node_prefix: str = "node", device=None,
-                 hooks: Optional[host.Hooks] = None):
+                 hooks: Optional[host.Hooks] = None, mesh=None):
         self.gossip = gossip or GossipConfig.lan()
         self.sim = sim or SimConfig(n_nodes=64, rumor_slots=16)
+        self.mesh = mesh
+        if mesh is not None:
+            if self.sim.shard_blocks != mesh.size:
+                self.sim = dataclasses.replace(self.sim,
+                                               shard_blocks=mesh.size)
+            device = mesh.home
         self.device = devices.resolve(device)
         self.hooks = hooks or host.Hooks()
         self.params = serf.make_params(self.gossip, self.sim)
         self._state = serf.init_state(self.params,
                                       n_initial=self.sim.n_initial,
                                       device=self.device)
+        if mesh is not None:
+            self._state = meshlib.shard_state(self._state, mesh)
         # Readers take the lock and read the current self._state.  On the
         # card a probe tick or a command updates the state's tensors in
         # place (K7, K8), so nothing keeps a state past the lock unless it
@@ -96,7 +117,7 @@ class GossipOracle:
         self._provisioned = np.arange(self.sim.n_nodes) < n_init
         # the device mirror the counts and deltas reduce against: uploaded
         # whole only here, then one element written per spawn
-        self._prov_dev = torch.tensor(self._provisioned, device=self.device)
+        self._prov_dev = self._node_vector(torch.tensor(self._provisioned))
         # one status checkpoint per delta consumer: members_delta() and
         # the flap journal each own one, so neither eats the other's
         # changes; None until that consumer's first call
@@ -111,6 +132,29 @@ class GossipOracle:
         self._primary_key: Optional[str] = None
         self._thread: Optional[threading.Thread] = None
         self._running = False
+
+    def _node_vector(self, x: torch.Tensor):
+        """An [N] host-made vector where the pool's leaves live: on the
+        device, or cut into the mesh's blocks."""
+        if self.mesh is None:
+            return x.to(self.device)
+        return meshlib.shard_state(x, self.mesh, self.sim.n_nodes)
+
+    def _node_fill(self, value, dtype):
+        """An [N] vector of `value` made where the pool's leaves live (on a
+        mesh block by block: no [N] buffer anywhere)."""
+        if self.mesh is None:
+            return torch.full((self.sim.n_nodes,), value, dtype=dtype,
+                              device=self.device)
+        ell = self.sim.n_nodes // self.mesh.size
+        return meshlib.Blocks(torch.full((ell,), value, dtype=dtype, device=d)
+                              for d in self.mesh.devices)
+
+    def _unsharded(self, what: str) -> None:
+        """Raise for a command or a tick on a node-sharded pool."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"GossipOracle.{what}: "
+                                      + meshlib.NOT_YET)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -149,6 +193,7 @@ class GossipOracle:
             self._thread = None
 
     def advance(self, n_ticks: int = 1) -> None:
+        self._unsharded("advance")
         t0 = time.perf_counter()
         with self._lock:
             s = self._state
@@ -164,6 +209,7 @@ class GossipOracle:
         so a delegate client's first request never pays the kernels' first
         build (nvcc, tens of seconds) inside its timeout.  They run on a
         clone: on the card a command or a step consumes its state."""
+        self._unsharded("warmup")
         if self.device.type == "cuda":
             kernels.library()
         with self._lock:
@@ -249,8 +295,7 @@ class GossipOracle:
             first = prev is None
             if first:
                 # no checkpoint yet: everything differs from status -1
-                prev = torch.full((self.sim.n_nodes,), -1, dtype=torch.int8,
-                                  device=self.device)
+                prev = self._node_fill(-1, torch.int8)
             st, n_changed, idx, states = serf.membership_delta(
                 self.params, self._state, prev, self._prov_dev, k)
             setattr(self, ckpt_attr, st)
@@ -284,6 +329,7 @@ class GossipOracle:
         return float(_to_host(frac).reshape(-1)[0])
 
     def kill(self, name: str) -> None:
+        self._unsharded("kill")
         with self._lock:
             self._state = self._state.replace(
                 swim=swim.kill(self._state.swim, self.node_id(name)))
@@ -291,12 +337,14 @@ class GossipOracle:
     def revive(self, name: str) -> None:
         """Restart and rejoin: heals even a committed death (a higher
         incarnation refutes it, as memberlist's rejoin does)."""
+        self._unsharded("revive")
         with self._lock:
             self._state = self._state.replace(
                 swim=swim.rejoin(self.params.swim, self._state.swim,
                                  self.node_id(name)))
 
     def leave(self, name: str) -> None:
+        self._unsharded("leave")
         with self._lock:
             self._state = self._state.replace(
                 swim=swim.leave(self.params.swim, self._state.swim,
@@ -306,6 +354,7 @@ class GossipOracle:
         """Elastic join of a new node into the first unprovisioned slot
         (or the slot whose default name is `name`), optionally renamed;
         RuntimeError when the pool is full, ValueError for a name in use."""
+        self._unsharded("spawn")
         with self._lock:
             i = None
             if name is not None and name in self._ids:
@@ -353,6 +402,7 @@ class GossipOracle:
 
     def rtt(self, a: str, b: str) -> float:
         """Estimated RTT seconds (consul rtt, lib/rtt.go:13)."""
+        self._unsharded("rtt")
         ia, ib = self.node_id(a), self.node_id(b)
         at = torch.tensor([ia, ib], dtype=torch.int32, device=self.device)
         with self._lock:
@@ -386,6 +436,7 @@ class GossipOracle:
         ring, the device disseminates the id.  Ids come from a monotonic
         counter, never the ring length, so since-cursor consumers keep
         seeing new events after the ring trims."""
+        self._unsharded("fire_event")
         with self._lock:
             self._event_seq += 1
             eid = self._event_seq
@@ -410,6 +461,7 @@ class GossipOracle:
             return list(self._events)
 
     def event_coverage(self, event_id: int) -> float:
+        self._unsharded("event_coverage")
         with self._lock:
             st = self._state
             hit = np.nonzero(_to_host(st.events.e_id) == event_id)[0]
@@ -457,6 +509,7 @@ class GossipOracle:
     def sim_metrics(self) -> Dict[str, float]:
         """Device-side sim telemetry as {name: value} (swim.METRIC_NAMES):
         one reduction over the state, one small transfer."""
+        self._unsharded("sim_metrics")
         with self.hooks.span("oracle.metrics"):
             with self._lock:
                 vec = serf.metrics_vector(self.params, self._state)

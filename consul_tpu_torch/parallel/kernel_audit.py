@@ -44,7 +44,15 @@ the entry on the card:
                       second measured call launches and allocates what
                       the first did (no build or first-use scratch inside
                       a measured call);
-  * permute scaling — not applicable on one card (`judge_scaling`).
+  * gather law      — the counterpart of full_gather_ops: in a call on a
+                      node-sharded pool (parallel/mesh.py) no device makes
+                      a tensor with N or more along any axis (RowCensus,
+                      read through the dispatcher; the per-device peak
+                      bytes are kept beside it);
+  * block scaling   — the counterpart of the permute law (`judge_scaling`):
+                      a sharded entry measured at B = 1, 2 and 4 blocks
+                      keeps its per-block launches and its largest tensor
+                      times B from growing with B.
 
 Every record carries a topology stamp; a budget from another backend or
 card refuses to judge (verdict "topology").  The measurement side
@@ -71,29 +79,37 @@ from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import antientropy, serf, swim, vivaldi, wan
 from consul_tpu_torch.ops import reconcile
 from consul_tpu_torch.oracle import _coord_row
+from consul_tpu_torch.parallel import mesh as meshlib
 from consul_tpu_torch.utils import prng
 
 # ---------------------------------------------------------------- rules
 
-TOPOLOGY_KEYS = ("backend", "devices", "arch", "mesh_shape")
+TOPOLOGY_KEYS = ("backend", "devices", "arch", "mesh_shape", "mesh_devices")
 
 
-def topology_stamp(device) -> dict:
-    """What a record was measured on: the backend, one device, the card's
-    architecture (None on the CPU) and no mesh (the port runs unsharded)."""
+def topology_stamp(device, mesh=None) -> dict:
+    """What a record was measured on: the backend, its devices, the card's
+    architecture (None on the CPU) and, for a node-sharded entry, the
+    mesh's block count and devices (None for one device)."""
     device = torch.device(device)
     arch = None
     if device.type == "cuda":
         major, minor = torch.cuda.get_device_capability(device)
         arch = f"sm_{major}{minor}"
-    return {"backend": device.type, "devices": 1, "arch": arch,
-            "mesh_shape": None}
+    stamp = {"backend": device.type, "devices": 1, "arch": arch,
+             "mesh_shape": None}
+    if mesh is not None:
+        stamp.update(devices=len(mesh.distinct),
+                     mesh_shape={meshlib.NODE_AXIS: mesh.size},
+                     mesh_devices=[str(d) for d in mesh.devices])
+    return stamp
 
 
 def tensors(x):
     """The tensors of a state: dataclass fields, tuples, lists and dicts
-    walked in order."""
-    if isinstance(x, torch.Tensor):
+    walked in order; a node-sharded leaf (parallel/mesh.py) as one value,
+    Blocks or Replicated."""
+    if isinstance(x, (torch.Tensor, meshlib.Blocks, meshlib.Replicated)):
         yield x
     elif dataclasses.is_dataclass(x):
         for f in dataclasses.fields(x):
@@ -110,8 +126,16 @@ def bytes_per_slot(state, slots: int) -> int:
     """Dtype-width ledger: the bytes of every tensor of the state with a
     `slots` axis, per slot (hlo_audit.bytes_per_slot on the port's
     tensors)."""
-    return sum(t.numel() * t.element_size() // slots
-               for t in tensors(state) if slots in t.shape)
+    total = 0
+    for t in tensors(state):
+        if isinstance(t, meshlib.Blocks):    # the whole leaf, every block
+            size = sum(p.numel() * p.element_size() for p in t.parts)
+        else:                                # a tensor, or one copy
+            t = t.home if isinstance(t, meshlib.Replicated) else t
+            size = t.numel() * t.element_size()
+        if slots in t.shape:
+            total += size // slots
+    return total
 
 
 def leaf(x, path: str):
@@ -123,7 +147,7 @@ def leaf(x, path: str):
 
 def page_elements(out) -> int:
     """Elements of the outputs a caller copies to the host."""
-    return sum(t.numel() for t in tensors(out))
+    return sum(math.prod(t.shape) for t in tensors(out))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -164,6 +188,65 @@ def profiled_kernels(fn, make, reps: int = 5) -> dict:
     return {k: math.ceil(v - 1e-9) for k, v in sorted(counts.items())}
 
 
+class RowCensus:
+    """The gather law's measurement (the counterpart of
+    parallel/mesh.py:full_gather_ops): every tensor an op makes inside
+    the block, as the dispatcher hands it back, with its largest extent
+    kept per device (`rows`); with `devices` only tensors on those.  The
+    allocator's peak cannot tell B blocks on one card from one gathered
+    leaf, so the law reads each made tensor's shape; the per-device peak
+    bytes are recorded beside it (`peaks`, on the card)."""
+
+    def __init__(self, devices=None):
+        self.devices = None if devices is None else {
+            str(torch.device(d)) for d in devices}
+        self.rows: Dict[str, int] = {}
+        self.peaks: Dict[str, int] = {}
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        census = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in torch.utils._pytree.tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and t.dim() > 0:
+                        dev = str(t.device)
+                        if census.devices is None or dev in census.devices:
+                            census.rows[dev] = max(census.rows.get(dev, 0),
+                                                   max(t.shape))
+                return out
+
+        self._cards = sorted({d for d in (self.devices or ())
+                              if d.startswith("cuda")})
+        self._base = {}
+        for d in self._cards:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+            self._base[d] = torch.cuda.memory_allocated(d)
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        for d in self._cards:
+            torch.cuda.synchronize(d)
+            self.peaks[d] = torch.cuda.max_memory_allocated(d) - self._base[d]
+        return False
+
+
+def gather_law(rows: Dict[str, int], n_nodes: int) -> dict:
+    """In a sharded call no device makes a tensor with n_nodes or more
+    along any axis (a gathered [N] / [N, U] leaf, or a doubled [2N]
+    ring buffer); the [U] tables, [B * k] candidates and pages stay far
+    below it."""
+    bad = {d: r for d, r in sorted(rows.items()) if r >= max(n_nodes, 2)}
+    return {"ok": not bad, "rule": "gather", "n_nodes": n_nodes,
+            "max_rows": dict(sorted(rows.items())), "gathered": bad}
+
+
 # ------------------------------------------------------------- registry
 
 @dataclasses.dataclass
@@ -191,6 +274,7 @@ class Program:
     state: Any
     slots: int
     page: Optional[Callable[[Any], Any]] = None
+    mesh: Any = None          # a node-sharded entry's mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +287,9 @@ class EntrySpec:
     name: str
     build: Callable[[torch.device, int], Program]
     covers: Tuple[Tuple[str, str, str], ...]
+    # a node-sharded entry: build(dev, scale, blocks) takes the block
+    # count too, measured at SHARD_BLOCKS and at each of SCALING_BLOCKS
+    sharded: bool = False
 
 
 TOPOLOGIES = ("cpu", "cuda")
@@ -213,6 +300,12 @@ _U = 16
 _N_CARD = 1_000_000
 _U_CARD = 32
 _SEED = 7
+# the sharded entries: N = 2^20 on the card (chip_smoke.py phase 15), its
+# blocks (one card, or one block a card where there are that many), and
+# the block counts the scaling law compares
+_N_SHARDED_CARD = 1 << 20
+SHARD_BLOCKS = 4
+SCALING_BLOCKS = (1, 2, 4)
 
 # K2 replaces these swim leaves with fresh tensors every tick
 # (ops/gossip.disseminate_kernel); every other leaf a probe tick's
@@ -519,6 +612,98 @@ def _build_vivaldi(dev: torch.device, scale: int) -> Program:
         n_nodes=n, state=s, slots=n)
 
 
+def _shard_mesh(dev: torch.device, blocks: int):
+    """`blocks` blocks on the card (one a card where there are that many),
+    or on the CPU."""
+    if _card(dev) and torch.cuda.device_count() >= blocks > 1:
+        return meshlib.make_mesh([torch.device("cuda", i)
+                                  for i in range(blocks)])
+    return meshlib.make_mesh([dev] * blocks)
+
+
+def _sharded_pool(dev: torch.device, scale: int, chaos_build: bool = False):
+    """chip_smoke.py phase 15's pool, unsharded: N = 2^20, U = 32 on the
+    card (256 and 16 on the CPU), LAN gossip, 1% loss, seed 7; 20 ticks, a
+    kill, ticks to 31 (a gossip tick) and a user event fired; with
+    `chaos_build` the swim pool of the nemesis build, its groups and rates
+    set at tick 20.  (params, state, victim)."""
+    card = _card(dev)
+    n = (_N_SHARDED_CARD if card else _N) * scale
+    sim = SimConfig(n_nodes=n, rumor_slots=_U_CARD if card else _U,
+                    alloc_cap=8, p_loss=0.01, seed=_SEED, chaos=chaos_build,
+                    shard_blocks=SHARD_BLOCKS)
+    victim = 123_457 % n if card else 3
+    if chaos_build:
+        p = swim.make_params(GossipConfig.lan(), sim)
+        s = swim.run(p, swim.init_state(p, device=dev), 20)[0]
+        s = swim.kill(s, victim)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(17)
+        r = torch.rand(n, generator=gen, device=dev)
+        s = s.replace(chaos_grp=(r < 0.25).to(torch.int16),
+                      chaos_ok=torch.where(r > 0.9, 0.6, 1.0).to(
+                          torch.float32))
+        return p, swim.run(p, s, 11)[0], victim
+    p = serf.make_params(GossipConfig.lan(), sim)
+    s, _ = serf.run(p, serf.init_state(p, device=dev), 20)
+    s = s.replace(swim=swim.kill(s.swim, victim))
+    s, _ = serf.run(p, s, 11)
+    return p, serf.fire_event(p, s, 5, 1), victim
+
+
+def _build_step_sharded(dev: torch.device, scale: int,
+                        blocks: int = SHARD_BLOCKS) -> Program:
+    """serf.step on the node-sharded pool (a gossip tick with a rumor and a
+    user event in flight, the victim's monitor after it: K2 and K3 over
+    block tables), and swim.step of the nemesis build's pool (K2's chaos
+    mode).  A gossip tick leaves its input as it was, so every call takes
+    the same state."""
+    m = _shard_mesh(dev, blocks)
+    params, s, victim = _sharded_pool(dev, scale)
+    cp, cs, _ = _sharded_pool(dev, scale, chaos_build=True)
+    sh = meshlib.shard_state(s, m)
+    csh = meshlib.shard_state(cs, m)
+    return Program(forms={
+        "gossip": Call(make=lambda: sh,
+                       fn=lambda x: serf.run(params, x, 1, victim),
+                       state_of=lambda out: out[0]),
+        "chaos": Call(make=lambda: csh, fn=lambda x: swim.step(cp, x))},
+        n_nodes=params.n_nodes, state=sh, slots=params.n_nodes, mesh=m)
+
+
+def _build_reads_sharded(dev: torch.device, scale: int,
+                         blocks: int = SHARD_BLOCKS) -> Program:
+    """The sharded oracle's reads (GossipOracle(mesh=...)): the summary,
+    a delta against a checkpoint with members moved, a page; K4's scan,
+    combine, emit and page over block tables."""
+    m = _shard_mesh(dev, blocks)
+    params, s, _ = _sharded_pool(dev, scale)
+    n = params.n_nodes
+    card = _card(dev)
+    prov = torch.arange(n, device=dev) < n - (1000 if card else 16)
+    st = serf.status_vector(params, s)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(_SEED)
+    flip = torch.rand(n, generator=gen, device=dev) < 0.01
+    prev = torch.where(flip, (st + 1) % 3, st).to(torch.int8)
+    sh = meshlib.shard_state(s, m)
+    bprov, bprev = (meshlib.shard_state(x, m, n) for x in (prov, prev))
+    # k well below L: the [B * k] candidates of the twin's top-k stay
+    # below N at the CPU's 256 nodes in 4 blocks too
+    k = 256 if card else 32
+    ids = torch.arange(n // 2, n // 2 + (128 if card else 32),
+                       dtype=torch.int32, device=dev)
+    sp = params.swim
+    return Program(forms={
+        "summary": Call(make=lambda: sh, fn=lambda x: swim.membership_counts(
+            sp, x.swim, bprov)),
+        "delta": Call(make=lambda: sh, fn=lambda x: swim.membership_delta(
+            sp, x.swim, bprev, bprov, k)[1:]),
+        "page": Call(make=lambda: sh, fn=lambda x: swim.membership_page(
+            sp, x.swim, ids))},
+        n_nodes=n, state=sh, slots=n, page=lambda out: out, mesh=m)
+
+
 _SWIM = "consul_tpu_torch/models/swim.py"
 _DRAW = ("consul_tpu_torch/utils/prng.py", "draw", "launch_draws")
 _GOSSIP = ("consul_tpu_torch/ops/gossip.py", "disseminate_kernel",
@@ -591,6 +776,20 @@ REGISTRY: Tuple[EntrySpec, ...] = (
               covers=()),
     EntrySpec("vivaldi.sim_step", _build_vivaldi,
               covers=(_DRAW,)),
+    EntrySpec("serf.step.sharded", _build_step_sharded,
+              covers=(("consul_tpu_torch/ops/gossip.py",
+                       "disseminate_blocks_kernel", "launch_gossip_blocks"),
+                      (_SWIM, "believed_down_fraction",
+                       "launch_believed_down_blocks")),
+              sharded=True),
+    EntrySpec("oracle.reads.sharded", _build_reads_sharded,
+              covers=((_SWIM, "_scan_blocks", "launch_members_scan_blocks"),
+                      (_SWIM, "_scan_blocks", "launch_members_combine"),
+                      (_SWIM, "membership_delta",
+                       "launch_members_emit_blocks"),
+                      (_SWIM, "membership_page",
+                       "launch_members_page_blocks")),
+              sharded=True),
 )
 
 # kernel launch sites under consul_tpu_torch/ that no registry entry
@@ -631,9 +830,11 @@ def _fence(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _one_call(call: Call, dev: torch.device) -> dict:
+def _one_call(call: Call, dev: torch.device, mesh=None) -> dict:
     """One measured call: its launches, flag reads, and on the card its
-    synchronizing calls, allocations, peak bytes and in-place leaves."""
+    synchronizing calls, allocations, peak bytes and in-place leaves; on a
+    sharded entry's mesh also the largest tensor it made on each device
+    (the gather law's `max_rows`) and each card's peak bytes."""
     card = _card(dev)
     x = call.make()
     ptrs = {p: leaf(x, p).data_ptr() for p in call.inplace}
@@ -641,13 +842,16 @@ def _one_call(call: Call, dev: torch.device) -> dict:
     launches0, flags0 = launch_counts(), flag_syncs()
     rec: Dict[str, Any] = {"syncs": None, "allocations": None,
                            "peak_bytes": None, "inplace": None}
+    census = RowCensus(mesh.devices) if mesh is not None \
+        else contextlib.nullcontext()
     if card:
         allocs0 = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
         torch.cuda.reset_peak_memory_stats(dev)
         mem0 = torch.cuda.memory_allocated(dev)
         box: dict = {}
         with counting_syncs(box):
-            out = call.fn(x)
+            with census:
+                out = call.fn(x)
         torch.cuda.synchronize(dev)
         state = call.state_of(out)
         rec.update(
@@ -659,7 +863,11 @@ def _one_call(call: Call, dev: torch.device) -> dict:
                 p for p, ptr in ptrs.items()
                 if leaf(state, p).data_ptr() != ptr)})
     else:
-        out = call.fn(x)
+        with census:
+            out = call.fn(x)
+    if mesh is not None:
+        rec["max_rows"] = dict(sorted(census.rows.items()))
+        rec["device_peak_bytes"] = census.peaks or None
     after = launch_counts()
     rec["launches"] = {k: v - launches0[k] for k, v in after.items()
                        if v != launches0[k]}
@@ -668,7 +876,8 @@ def _one_call(call: Call, dev: torch.device) -> dict:
     return rec
 
 
-def measure_call(call: Call, dev: torch.device, reps: int = 5) -> dict:
+def measure_call(call: Call, dev: torch.device, reps: int = 5,
+                 mesh=None) -> dict:
     """Two warm calls (the library's build, the kernels' per-device
     scratch, first-use allocations), two measured calls one after the
     other on the current stream, then on the card the profiler's census
@@ -676,8 +885,8 @@ def measure_call(call: Call, dev: torch.device, reps: int = 5) -> dict:
     for _ in range(2):
         call.fn(call.make())
     _fence(dev)
-    first = _one_call(call, dev)
-    second = _one_call(call, dev)
+    first = _one_call(call, dev, mesh)
+    second = _one_call(call, dev, mesh)
     first["repeat_same"] = all(first[k] == second[k] for k in (
         "launches", "allocations", "flag_syncs"))
     first["kernels"] = profiled_kernels(call.fn, call.make, reps) \
@@ -693,9 +902,10 @@ def measure_entry(spec: EntrySpec, device, reps: int = 5) -> dict:
     entry its outputs' size at N and at 2N."""
     dev = torch.device(device)
     prog = spec.build(dev, 1)
-    record = {"topology": topology_stamp(dev), "n_nodes": prog.n_nodes,
+    record = {"topology": topology_stamp(dev, prog.mesh),
+              "n_nodes": prog.n_nodes,
               "bytes_per_slot": bytes_per_slot(prog.state, prog.slots),
-              "forms": {form: measure_call(call, dev, reps)
+              "forms": {form: measure_call(call, dev, reps, prog.mesh)
                         for form, call in prog.forms.items()},
               "page_elements": None}
     if prog.page is not None:
@@ -705,12 +915,33 @@ def measure_entry(spec: EntrySpec, device, reps: int = 5) -> dict:
             sizes.append(page_elements(p.page(call.fn(call.make()))))
         record["page_elements"] = sizes
     record["library_loads"] = kernels.LIBRARY_LOADS if _card(dev) else None
+    if spec.sharded:
+        record["scaling"] = measure_scaling(spec, dev)
     return record
+
+
+def measure_scaling(spec: EntrySpec, dev: torch.device) -> dict:
+    """A sharded entry's first form at each of SCALING_BLOCKS blocks (one
+    warm call, one measured): {B: its hand-written launches, the largest
+    tensor it made and the pool's N}, judge_scaling's input."""
+    out = {}
+    for blocks in SCALING_BLOCKS:
+        prog = spec.build(dev, 1, blocks)
+        call = next(iter(prog.forms.values()))
+        call.fn(call.make())
+        _fence(dev)
+        rec = _one_call(call, dev, prog.mesh)
+        out[str(blocks)] = {"launches": rec["launches"],
+                            "max_rows": max(rec["max_rows"].values(),
+                                            default=0),
+                            "n_nodes": prog.n_nodes}
+    return out
 
 
 # ---------------------------------------------------------------- judge
 
-def _judge_form(form: str, run: dict, base: dict, tolerance: float, fail):
+def _judge_form(form: str, run: dict, base: dict, tolerance: float, fail,
+                n_nodes: Optional[int] = None):
     got, want = run.get("launches") or {}, base.get("launches") or {}
     if got != want:
         diff = {k: [got.get(k, 0), want.get(k, 0)]
@@ -730,6 +961,12 @@ def _judge_form(form: str, run: dict, base: dict, tolerance: float, fail):
         rv, bv = run.get(key), base.get(key)
         if rv is not None and bv is not None and rv > bv:
             fail("host-sync", f"{form}: {key} {rv} > budget {bv}")
+    rows = run.get("max_rows")
+    if rows is not None and n_nodes is not None:
+        law = gather_law(rows, n_nodes)
+        if not law["ok"]:
+            fail("gather", f"{form}: made a tensor of {law['gathered']} "
+                 f"rows of an N = {n_nodes} pool on a sharded call")
     moved = (run.get("inplace") or {}).get("moved")
     if moved:
         fail("in-place", f"{form}: leaves not updated in place: {moved}")
@@ -776,15 +1013,45 @@ def judge_record(run: dict, base: dict, tolerance: float) -> dict:
         if form not in base_forms:
             fail("form", f"{form}: no budget for this form")
             continue
-        _judge_form(form, rec, base_forms[form], tolerance, fail)
+        _judge_form(form, rec, base_forms[form], tolerance, fail,
+                    run.get("n_nodes"))
     return {"ok": not fails, "verdict": "ok" if not fails else "violation",
             "failures": fails}
 
 
-def judge_scaling(records_by_topology: Dict[str, dict],
+def judge_scaling(records_by_blocks: Dict[str, dict],
                   tolerance: float) -> dict:
-    """The reference's permute law across sharded topologies of one entry.
-    The port runs on one card: there is no sharded topology to compare
-    until the node axis is sharded over several cards."""
-    return {"ok": True, "rule": "permute-scaling", "ratios": {},
-            "note": "needs >=2 sharded topologies"}
+    """The block-scaling law across one sharded entry's records at B = 1,
+    2, 4 (measure_scaling), the counterpart of the reference's permute
+    law.  Each block runs its own launches of each kernel, so the
+    per-block kernels' launches over B must not grow with B (a rotation
+    regressing to O(B^2) launches would): one-sided against the smallest
+    B, shrinking is never a violation.  And no tensor the call makes may
+    outgrow one block: its largest extent times B over N stays within
+    1 + tolerance at every B (a gathered [N] leaf makes it B).  Fewer
+    than two block counts: nothing to judge."""
+    ratios: Dict[str, Dict[str, float]] = {"launches_per_block": {},
+                                           "rows_times_blocks": {}}
+    for b, rec in (records_by_blocks or {}).items():
+        if not str(b).isdigit():
+            continue
+        blocks = int(b)
+        per_block = sum(v for k, v in (rec.get("launches") or {}).items()
+                        if k.endswith("_blocks"))
+        ratios["launches_per_block"][str(blocks)] = per_block / blocks
+        ratios["rows_times_blocks"][str(blocks)] = \
+            rec.get("max_rows", 0) * blocks / max(rec.get("n_nodes", 1), 1)
+    if len(ratios["launches_per_block"]) < 2:
+        return {"ok": True, "rule": "block-scaling", "ratios": {},
+                "note": "needs >=2 sharded topologies"}
+    by_b = ratios["launches_per_block"]
+    ref = by_b[min(by_b, key=int)]
+    growth = max(by_b.values()) / max(ref, 1e-9) if ref else \
+        (0.0 if not max(by_b.values()) else math.inf)
+    widest = max(ratios["rows_times_blocks"].values())
+    ok = growth <= 1.0 + tolerance and widest <= 1.0 + tolerance
+    return {"ok": ok, "rule": "block-scaling",
+            "ratios": {k: {b: round(r, 4) for b, r in v.items()}
+                       for k, v in ratios.items()},
+            "launch_growth": round(growth, 3),
+            "widest_block_share": round(widest, 4)}

@@ -10,8 +10,10 @@ called on the device — the card at full width by default, `--device cpu`
 at N = 256 — and judged against its topology-stamped record in the
 committed manifest KERNELBUDGET_r01.json: kernel census, host syncs and
 O(page) reads, in place honored, bytes per slot, peak bytes and
-allocations within budget, one build.  On the card every hand-written
-kernel (kernels.KERNELS) must be launched by some entry.
+allocations within budget, one build; a node-sharded entry also the
+gather law and the block-scaling law over its records at B = 1, 2, 4.
+On the card every hand-written kernel (kernels.KERNELS) must be launched
+by some entry.
 
 The rules, the registry and the judge are pure and live in
 kernel_audit.py; this file owns the filesystem side: manifest I/O, the
@@ -142,7 +144,11 @@ def judge_all(records: Dict[str, dict], manifest: dict,
         elif not v["ok"]:
             violations.append({"entry": name, "failures": v["failures"]})
         verdicts[name]["scaling"] = kernel_audit.judge_scaling(
-            {backend: rec}, tolerance)
+            rec.get("scaling") or {}, tolerance)
+        if not verdicts[name]["scaling"]["ok"]:
+            violations.append({"entry": name, "failures": [
+                {"rule": "block-scaling",
+                 "detail": str(verdicts[name]["scaling"])}]})
     return {"violations": violations, "refused": refused,
             "verdicts": verdicts}
 

@@ -9,6 +9,7 @@ the device's busy and idle share.
     python -m consul_tpu_torch.profile_tick k12k13 [n_nodes]
     python -m consul_tpu_torch.profile_tick k9k14 [n_nodes]
     python -m consul_tpu_torch.profile_tick k6 [tick]
+    python -m consul_tpu_torch.profile_tick k2 [n_nodes] [reps]
     python -m consul_tpu_torch.profile_tick k5k4 [n_nodes]
     python -m consul_tpu_torch.profile_tick wan [reps]
     python -m consul_tpu_torch.profile_tick vivaldi [reps]
@@ -42,6 +43,8 @@ merge and one whole anti-entropy step at the churn's mid-churn state
 (older trees too).  The `k5k4` form times the correlated bench's tick
 and K5 at its mid-drain state, and the oracle's summary, delta and page
 reads at its 1M state, with their device kernels (older trees too).
+The `k2` form times K2's pack and exchange alone on the swim caller's
+inputs at the bench run's kill (older trees too).
 The `wan` and `vivaldi` forms time the registry's `wan.run` (3 DCs x
 50,000 nodes: a gossip-only and a probe tick) and `vivaldi.sim_step`
 (100,000 nodes) entries as parallel/kernel_audit.py builds them: fenced
@@ -768,6 +771,43 @@ def registry_times(name: str, reps: int = 20) -> dict:
             "n_nodes": prog.n_nodes, "forms": forms}
 
 
+def k2_times(n_nodes: int = 1_000_000, reps: int = 50) -> dict:
+    """K2's pack and exchange alone on the swim caller's inputs at the
+    bench run's kill (the offsets, loss key, stamp and counters its next
+    tick hands them): each kernel's device ms a launch by torch.profiler
+    over `reps` calls, a 96 MB read evicting the L2 before each.  Only
+    `ops.gossip.disseminate_kernel`, so an older tree is timed the same
+    way."""
+    from consul_tpu_torch.ops import gossip, rolls
+    dev, params, s = _setup(n_nodes)
+    p, sw = params.swim, s.swim
+    call = dict(offs=rolls.offsets(prng.tick_key(p.seed, sw.tick, 2),
+                                   p.n_nodes, p.gossip_nodes, dev),
+                know=sw.know, sends_left=sw.sends_left, sender_ok=sw.up,
+                receiver_ok=sw.up & sw.member, slot_active=sw.r_active,
+                retransmit_limit=p.retransmit_limit, p_loss=p.p_loss,
+                key=prng.tick_key(p.seed, sw.tick, 5),
+                learn_tick=sw.learn_tick, tick16=swim._t16(sw.tick),
+                ctr=sw.ctr, want_newly=False)
+    flush = _flush()
+    for _ in range(5):
+        gossip.disseminate_kernel(**call)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.max()
+            gossip.disseminate_kernel(**call)
+        torch.cuda.synchronize(dev)
+    out = {"device": torch.cuda.get_device_name(dev), "n_nodes": n_nodes,
+           "tick": sw.tick}
+    for key, (us, calls) in _device_times(prof).items():
+        for name in ("gossip_pack_kernel", "gossip_exchange_kernel"):
+            if name in key:
+                out[f"{name}_ms"] = us / calls / 1000.0
+    return out
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -786,6 +826,8 @@ if __name__ == "__main__":
         print(json.dumps(k9_k14_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k6"]:
         print(json.dumps(k6_times(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["k2"]:
+        print(json.dumps(k2_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k5k4"]:
         print(json.dumps(k5_k4_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["wan"]:

@@ -81,12 +81,14 @@ def tick_key(seed: int, tick: int, stream: int):
 # the threefry hash in torch ops (the plain twin of K1's bits)
 # ---------------------------------------------------------------------------
 
-def threefry_bits_plain(key, n: int, device) -> torch.Tensor:
-    """[n] int32 bit patterns of the xor-folded threefry2x32 stream, in
-    int64 torch arithmetic masked to 32 bits."""
+def threefry_bits_plain(key, n: int, device, start: int = 0,
+                        step: int = 1) -> torch.Tensor:
+    """[n] int32 bit patterns of elements start, start + step, ... of the
+    xor-folded threefry2x32 stream, in int64 torch arithmetic masked to 32
+    bits."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    i = start + step * torch.arange(n, dtype=torch.int64, device=device)
     x0 = ((i >> 32) + ks[0]) & M32
     x1 = ((i & M32) + ks[1]) & M32
     for rnd in range(5):

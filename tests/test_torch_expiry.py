@@ -1330,6 +1330,6 @@ def test_kernel_constants_match_the_sources():
     assert "u64 v[3]" in dense and "grid_sum<3>" in dense
     assert kernels.DENSE_COUNTS == 3
     assert set(kernels.DETECTOR) <= set(kernels.SIGNATURES) <= set(
-        kernels.KERNELS) | {"threefry_draws"}
+        kernels.KERNELS) | {"threefry_draws"} | set(kernels.HELPERS)
     for name in kernels.DETECTOR:
         assert len(_c_params(name)) == len(kernels.SIGNATURES[name])

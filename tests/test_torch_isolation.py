@@ -671,3 +671,122 @@ def test_reconcile_on_a_card_tensor_never_takes_the_plain_twin(monkeypatch):
     with pytest.raises(RuntimeError, match="reconcile_merge launch failed"):
         pae.step(params, s, torch.ones(8, dtype=torch.bool))
     assert seen == ["diff", "merge", "diff", "diff", "merge"]
+
+
+def test_no_kernel_keeps_one_occupancy_cache_for_every_card():
+    """The persistent grids' occupancy caches are per card (common.cuh's
+    PerCard, read at the current device), so one process can drive the
+    cards of a mesh: no `static int per_card` remains in the sources."""
+    csrc = Path(kernels.__file__).parent / "csrc"
+    for src in [*csrc.glob("*.cu"), *csrc.glob("*.cuh")]:
+        assert "static int per_card" not in src.read_text(), src.name
+    caches = sum(src.read_text().count("static PerCard per_card")
+                 for src in csrc.glob("*.cu"))
+    assert caches == 13
+    common = (csrc / "common.cuh").read_text()
+    assert "struct PerCard" in common and "cudaGetDevice" in common
+    assert "struct BlockRows" in common
+
+
+def _sharded_state(monkeypatch, blocks=4):
+    """A CPU pool cut into blocks, flagged as on the card."""
+    from consul_tpu_torch.models import swim as pswim
+    from consul_tpu_torch.parallel import mesh
+    params = pswim.make_params(config.GossipConfig.lan(), config.SimConfig(
+        n_nodes=64, rumor_slots=8, shard_blocks=blocks))
+    s = pswim.init_state(params, device="cpu").replace(tick=1)
+    sh = mesh.shard_state(s, mesh.make_mesh(["cpu"] * blocks))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    return pswim, params, sh
+
+
+def test_sharded_passes_on_a_card_tensor_never_take_the_plain_twins(
+        monkeypatch):
+    """On CUDA blocks the sharded gossip pass, monitor and reads launch
+    their block kernels or raise; none answers from its per-block twin."""
+    from consul_tpu_torch.ops import gossip as pgossip
+    from consul_tpu_torch.parallel import mesh
+    pswim, params, sh = _sharded_state(monkeypatch)
+    seen = []
+
+    def refuse(name):
+        def launch(*a, **k):
+            seen.append(name)
+            raise RuntimeError(f"{name} launch failed: CUDA error 1")
+        return launch
+
+    for name in ("gossip_blocks", "believed_down_blocks",
+                 "members_scan_blocks", "members_page_blocks"):
+        monkeypatch.setattr(kernels, f"launch_{name}", refuse(name))
+    monkeypatch.setattr(pgossip, "disseminate_blocks_plain",
+                        lambda *a, **k: pytest.fail("took the plain twin"))
+    for twin in ("believed_down_fraction_blocks_plain",
+                 "status_vector_blocks_plain",
+                 "membership_counts_blocks_plain",
+                 "membership_page_blocks_plain",
+                 "membership_delta_blocks_plain"):
+        monkeypatch.setattr(pswim, twin,
+                            lambda *a, **k: pytest.fail("took the plain twin"))
+    monkeypatch.setattr(pswim, "tick_offsets", lambda key, n, k, like:
+                        mesh.Replicated([torch.ones(k, dtype=torch.int32)]))
+    prov = mesh.shard_state(torch.ones(64, dtype=torch.bool),
+                            mesh.make_mesh(["cpu"] * 4), 64)
+    ids = torch.zeros(8, dtype=torch.int32)
+    for call, name in (
+            (lambda: pswim.step(params, sh), "gossip_blocks"),
+            (lambda: pswim.believed_down_fraction(params, sh, 3),
+             "believed_down_blocks"),
+            (lambda: pswim.status_vector(params, sh), "members_scan_blocks"),
+            (lambda: pswim.membership_counts(params, sh, prov),
+             "members_scan_blocks"),
+            (lambda: pswim.membership_delta(params, sh, prov, prov, 8),
+             "members_scan_blocks"),
+            (lambda: pswim.membership_page(params, sh, ids),
+             "members_page_blocks")):
+        with pytest.raises(RuntimeError, match=f"{name} launch failed"):
+            call()
+        assert seen[-1] == name
+
+
+def test_block_wrappers_reject_bad_blocks_before_launching():
+    from consul_tpu_torch.parallel import mesh
+    m = mesh.make_mesh(["cpu"] * 4)
+    before = dict(kernels.LAUNCHES)
+    args = {k: (mesh.shard_state(v, m, 16) if isinstance(v, torch.Tensor)
+                and v.dim() >= 1 and v.shape[0] == 16 else v)
+            for k, v in _gossip_args().items()}
+    bad = dict(args, sends_left=mesh.shard_state(
+        torch.zeros(16, 8, dtype=torch.int16), m, 16))
+    with pytest.raises(ValueError, match="sends_left"):
+        kernels.launch_gossip_blocks(**bad)
+    bad = dict(args, sender_ok=mesh.shard_state(
+        torch.ones(16, dtype=torch.bool), mesh.make_mesh(["cpu"] * 2), 16))
+    with pytest.raises(ValueError, match="sender_ok"):
+        kernels.launch_gossip_blocks(**bad)
+    bad = dict(args, know=mesh.Blocks([torch.zeros(1, 8, dtype=torch.bool)]
+                                      * 17))
+    with pytest.raises(ValueError, match="blocks"):
+        kernels.launch_gossip_blocks(**bad)
+    mon = {k: (mesh.shard_state(v, m, 16) if isinstance(v, torch.Tensor)
+               and v.dim() >= 1 and v.shape[0] == 16 else v)
+           for k, v in _monitor_args().items()}
+    with pytest.raises(ValueError, match="subject"):
+        kernels.launch_believed_down_blocks(**dict(mon, subject=16))
+    with pytest.raises(ValueError, match="learn_tick"):
+        kernels.launch_believed_down_blocks(**dict(mon, learn_tick=(
+            mesh.shard_state(torch.zeros(16, 8, dtype=torch.int32), m, 16))))
+    margs = _members_args()
+    scan = {k: (mesh.shard_state(v, m, 16) if isinstance(v, torch.Tensor)
+                and v.dim() == 1 and v.shape[0] == 16 else v)
+            for k, v in margs["scan"].items()}
+    scan["blk_counts"] = torch.zeros(20, dtype=torch.int32)
+    scan["block_changed"] = mesh.Blocks([torch.zeros(1, dtype=torch.int32)]
+                                        * 4)
+    scan.pop("counts")
+    with pytest.raises(ValueError, match="blk_counts"):
+        kernels.launch_members_scan_blocks(**dict(
+            scan, blk_counts=torch.zeros(5, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="member"):
+        kernels.launch_members_scan_blocks(**dict(scan, member=mesh.shard_state(
+            torch.zeros(16, dtype=torch.int8), m, 16)))
+    assert kernels.LAUNCHES == before      # a refused launch is not counted

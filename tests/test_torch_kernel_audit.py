@@ -25,6 +25,7 @@ import torch
 from consul_tpu_torch import bench, kernels
 from consul_tpu_torch.parallel import kernel_audit as ka
 from consul_tpu_torch.parallel import kernel_lint as kl
+from consul_tpu_torch.parallel import mesh as meshlib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -33,7 +34,17 @@ SPECS = {spec.name: spec for spec in ka.REGISTRY}
 # the entries whose outputs a caller copies to the host
 READS = ["serf.metrics", "serf.shard_metrics", "oracle.membership_counts",
          "oracle.membership_delta", "oracle.membership_page",
-         "oracle.rtt_order", "oracle.coord_row"]
+         "oracle.rtt_order", "oracle.coord_row", "oracle.reads.sharded"]
+SHARDED = [spec.name for spec in ka.REGISTRY if spec.sharded]
+
+
+def stamp(name, device="cpu"):
+    """The topology stamp an entry's record carries: a sharded entry's
+    names its mesh of SHARD_BLOCKS blocks."""
+    if not SPECS[name].sharded:
+        return ka.topology_stamp(device)
+    return ka.topology_stamp(device, meshlib.make_mesh(
+        [device] * ka.SHARD_BLOCKS))
 
 # a clean fabricated card record and its budget twin: each judge test
 # perturbs exactly one field
@@ -175,6 +186,80 @@ def test_scaling_needs_sharded_topologies():
     assert v["ok"] and "needs >=2 sharded" in v["note"]
 
 
+def _scaling(per_block, rows, n=1 << 20):
+    """Hand-made records at B = 1, 2, 4: `per_block(b)` launches of the
+    per-block kernels and `rows(b)` the largest tensor a call made."""
+    return {str(b): {"launches": {"gossip_pack_blocks": per_block(b),
+                                  "gossip_combine": 2},
+                     "max_rows": rows(b), "n_nodes": n} for b in (1, 2, 4)}
+
+
+def test_scaling_holds_a_launch_a_block_and_no_tensor_past_a_block():
+    n = 1 << 20
+    v = ka.judge_scaling(_scaling(lambda b: 2 * b, lambda b: n // b), 0.25)
+    assert v["ok"] and v["launch_growth"] == 1.0
+    assert v["ratios"]["launches_per_block"] == {"1": 2.0, "2": 2.0, "4": 2.0}
+    # small tensors (pages, counts) are far inside a block at any B
+    assert ka.judge_scaling(_scaling(lambda b: b, lambda b: 20), 0.25)["ok"]
+    # a rotation that launched once per peer pair: O(B^2) launches
+    v = ka.judge_scaling(_scaling(lambda b: b * b, lambda b: n // b), 0.25)
+    assert not v["ok"] and v["launch_growth"] == 4.0
+    # a gathered [N] leaf at B = 4
+    v = ka.judge_scaling(_scaling(lambda b: b, lambda b: n), 0.25)
+    assert not v["ok"] and v["widest_block_share"] == 4.0
+    # fewer launches a block as B grows is never a violation
+    assert ka.judge_scaling(_scaling(lambda b: 4, lambda b: n // b),
+                            0.25)["ok"]
+
+
+def test_gather_law_fires_on_a_deliberate_full_n_allocation():
+    """The rule reads every tensor an op makes: a sharded call that makes
+    an [N] buffer fails it, block-sized work passes."""
+    n = 256
+    x = meshlib.shard_state(torch.arange(n), meshlib.make_mesh(["cpu"] * 4),
+                            n)
+    with ka.RowCensus(["cpu"]) as census:
+        x.map(lambda p: p * 2)
+    assert ka.gather_law(census.rows, n)["ok"]
+    with ka.RowCensus(["cpu"]) as census:
+        x.map(lambda p: p * 2)
+        torch.zeros(n, dtype=torch.int8)          # the deliberate gather
+    law = ka.gather_law(census.rows, n)
+    assert not law["ok"] and law["gathered"] == {"cpu": n}
+    # as a judged record: the form's max_rows fires the rule
+    rec = copy.deepcopy(BASE)
+    rec["forms"]["probe"]["max_rows"] = dict(census.rows)
+    rec["n_nodes"] = n
+    assert "gather" in rules_fired(ka.judge_record(rec, BASE, 0.25))
+    rec["forms"]["probe"]["max_rows"] = {"cpu": n // 4}
+    assert ka.judge_record(rec, BASE, 0.25)["ok"]
+
+
+def test_committed_sharded_records_hold_the_gather_and_scaling_laws():
+    manifest = kl.load_baseline(kl.DEFAULT_BASELINE)
+    for name in SHARDED:
+        for backend, rec in manifest["entries"][name].items():
+            for form, f in rec["forms"].items():
+                assert ka.gather_law(f["max_rows"], rec["n_nodes"])["ok"], \
+                    (name, backend, form)
+            v = ka.judge_scaling(rec["scaling"], manifest["tolerance"])
+            assert v["ok"] and set(v["ratios"]["launches_per_block"]) == \
+                {"1", "2", "4"}, (name, backend, v)
+    card = manifest["entries"]["serf.step.sharded"]["cuda"]
+    assert card["topology"]["mesh_shape"] == {"nodes": ka.SHARD_BLOCKS}
+    gossip = card["forms"]["gossip"]["launches"]
+    b = ka.SHARD_BLOCKS
+    assert {k: gossip[k] for k in ("gossip_pack_blocks",
+                                   "gossip_exchange_blocks",
+                                   "believed_down_blocks", "gossip_combine",
+                                   "believed_down_combine")} == {
+        "gossip_pack_blocks": 2 * b, "gossip_exchange_blocks": 2 * b,
+        "believed_down_blocks": b, "gossip_combine": 2,
+        "believed_down_combine": 1}
+    assert not any(k in gossip for k in ("gossip_pack", "gossip_exchange",
+                                         "believed_down"))
+
+
 def test_launch_coverage_names_the_kernels_no_entry_launched():
     every = {name: 1 for name in kernels.KERNELS}
     assert ka.launch_coverage({"a": {"forms": {"f": {"launches": every}}}})[
@@ -200,6 +285,8 @@ def test_bytes_per_slot_counts_node_axis_tensors():
 
 
 def test_registry_holds_the_seventeen_entries():
+    """The seventeen entries of one device, then the two of a node-sharded
+    pool."""
     assert NAMES == [
         "serf.scan", "serf.step", "serf.metrics", "serf.status_vector",
         "serf.shard_metrics", "oracle.membership_counts",
@@ -207,7 +294,8 @@ def test_registry_holds_the_seventeen_entries():
         "oracle.rtt_order", "oracle.coord_row", "chaos.swim_run",
         "correlated.tick", "wan.run", "antientropy.step",
         "antientropy.register_desired", "antientropy.deregister_desired",
-        "vivaldi.sim_step"]
+        "vivaldi.sim_step", "serf.step.sharded", "oracle.reads.sharded"]
+    assert SHARDED == ["serf.step.sharded", "oracle.reads.sharded"]
     assert ka.TOPOLOGIES == ("cpu", "cuda")
 
 
@@ -259,7 +347,7 @@ def test_measure_judge_roundtrip_on_the_cpu(name):
     the READS have a page."""
     rec = ka.measure_entry(SPECS[name], "cpu")
     assert (rec["page_elements"] is not None) == (name in READS)
-    assert rec["topology"] == ka.topology_stamp("cpu")
+    assert rec["topology"] == stamp(name)
     assert rec["library_loads"] is None
     for form in rec["forms"].values():
         assert form["kernels"] is None and form["inplace"] is None
@@ -301,7 +389,7 @@ def test_committed_manifest_covers_every_entry_on_both_topologies(name):
     by_backend = manifest["entries"][name]
     assert set(by_backend) == {"cpu", "cuda"}
     cpu, card = by_backend["cpu"], by_backend["cuda"]
-    assert cpu["topology"] == ka.topology_stamp("cpu")
+    assert cpu["topology"] == stamp(name)
     assert card["topology"]["backend"] == "cuda"
     assert card["topology"]["arch"] == "sm_90"
     assert card["library_loads"] == 1
