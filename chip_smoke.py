@@ -3135,7 +3135,14 @@ def _detector_bytes(params, s, which: str, out, *extra) -> int:
     each live row that knows a suspect slot, and gathers committed_inc.
     dense_expiry (its pre and post launches; K8 apart) reads the timers,
     up/member, committed dead/left, bulk_member, bulk_heard and the three
-    maps (26 bytes a node), and know where a slot converts.  refutation
+    maps (26 bytes a node), and know where a slot converts.  Each launch
+    alone (the sharded entries): dense_pre reads the timers, up/member,
+    committed_dead, bulk_member and the three maps (21 bytes a node) and
+    know where a slot converts, writes want and row_subject whole (8) and
+    the stamps; dense_post reads want, the dead and left maps, up/member,
+    committed dead/left, the bulk leaves' member and heard and the timers
+    (26 bytes a node) and K8's pairs, and writes the sectors of the timers
+    and bulk leaves that change.  refutation
     gathers know, up, member, incarnation and awareness at the refutable
     slots' subjects and reads every node's score (with Lifeguard's
     awareness_max > 0: the clamp covers every node).  expire reads know
@@ -3161,15 +3168,20 @@ def _detector_bytes(params, s, which: str, out, *extra) -> int:
             + u + _written((s.know, o.know), (s.learn_tick, o.learn_tick),
                            (s.sends_left, o.sends_left), (s.r_kind, o.r_kind),
                            (s.r_start, o.r_start))
-    if which == "dense_expiry":
+    if which in ("dense_expiry", "dense_pre", "dense_post"):
         exp_u, sel = _dense_stamps(params, s, extra[0])
         stamped = _sector_bytes(sel & (s.learn_tick != swim._t16(s.tick)), 2) \
             + _sector_bytes(sel & (s.sends_left != params.retransmit_limit), 1)
-        return 26 * n + (u * n if bool(exp_u.any()) else 0) + table + u \
-            + stamped + _written(
-                (s.sus_start, out.sus_start), (s.sus_confirm, out.sus_confirm),
-                (s.bulk_member, out.bulk_member),
-                (s.bulk_heard, out.bulk_heard), (s.bulk_cov, out.bulk_cov))
+        know = u * n if bool(exp_u.any()) else 0
+        post = _written(
+            (s.sus_start, out.sus_start), (s.sus_confirm, out.sus_confirm),
+            (s.bulk_member, out.bulk_member),
+            (s.bulk_heard, out.bulk_heard), (s.bulk_cov, out.bulk_cov))
+        if which == "dense_pre":
+            return 29 * n + know + table + u + stamped
+        if which == "dense_post":
+            return 26 * n + 9 * params.alloc_cap + 5 * u + post
+        return 26 * n + know + table + u + stamped + post
     if which == "refutation":
         refutable = s.r_active & ((s.r_kind == swim.SUSPECT)
                                   | (s.r_kind == swim.DEAD))
@@ -3280,6 +3292,12 @@ def time_detector(params, s, only=None) -> dict:
                else {"library_ms": None})}
         if name == "refutation":
             out[name]["refuted"] = _refuting(s3, s4)[0]
+        if name == "dense_expiry":
+            # each launch alone, for the sharded entries
+            for part in ("pre", "post"):
+                out[name][f"{part}_bound_ms"] = _detector_bytes(
+                    params, at, f"dense_{part}", call(make()), *extra) \
+                    / HBM_BYTES_PER_S * 1000.0
         if name == "expire":
             out[name]["freed"] = int((s4.r_active
                                       & ~swim._expire_plain(params, s4)
@@ -4212,7 +4230,8 @@ def sharded_phase(dev) -> tuple:
     """Phase 15: the pool node-sharded into SHARD_BLOCKS blocks (one card,
     or one block a card where there are that many) at N = 2^20, U = 32:
     gossip ticks with a rumor and a user event in flight bit-equal to the
-    unsharded port's, the probe tick refused with nothing launched, K2
+    unsharded port's, the probe tick they reach bit-equal too, a tick
+    with the bulk channel live refused with nothing launched, K2
     (pack, exchange, chaos mode), K3 and K4 over block tables bit-equal to
     their per-block twins, the sharded oracle's reads equal to the
     unsharded oracle's with O(k) bytes moved, the gather law, and the
@@ -4269,18 +4288,29 @@ def sharded_phase(dev) -> tuple:
         require(launches[name] == 0, f"sharded path launched the unsharded "
                 f"{name}")
 
-    # the probe tick: refused before anything runs
+    # the probe tick the gossip ticks reached runs (phase 16 holds it at
+    # length); a tick with the bulk channel live refuses before anything
+    # runs (ROADMAP queue A item 3b-ii)
+    require(sh.swim.tick % period == 0, f"phase 15 ended at tick "
+            f"{sh.swim.tick}, not a probe tick")
+    probe_sh = serf.step(params, sh.clone())
+    _same_state(_flat(probe_sh), serf.step(params, ref.clone()),
+                "sharded probe tick")
+    record["probe_tick"] = f"tick {sh.swim.tick} bit-equal"
+    live = sh.replace(swim=sh.swim.replace(bulk_live=True))
     before = dict(kernels.LAUNCHES)
     with kernel_audit.RowCensus(m.devices) as census:
         try:
-            serf.step(params, sh)
-            refused = False
-        except NotImplementedError as e:
-            refused = str(e)
-    require(refused and "3b" in refused and dict(kernels.LAUNCHES) == before
-            and not census.rows, f"the sharded probe tick ran: {refused}")
-    record["probe_tick_refused"] = refused
-    log(f"sharded probe tick refused, nothing launched or made: {refused}")
+            serf.step(params, live)
+            refused, kept = False, None
+        except meshlib.BulkChannelLive as e:
+            refused, kept = str(e), e.state.swim
+    require(refused and "3b-ii" in refused and kept is live.swim
+            and dict(kernels.LAUNCHES) == before and not census.rows,
+            f"a sharded tick with the bulk channel live ran: {refused}")
+    record["bulk_tick_refused"] = refused
+    log(f"sharded probe tick at {sh.swim.tick} bit-equal; a tick with the "
+        f"bulk channel live refused, nothing launched or made: {refused}")
 
     # the chaos build's gossip ticks, sharded (K2's chaos mode)
     cp, cpool = _gossip_tick_pool(dev, chaos_build=True)
@@ -4519,6 +4549,724 @@ def sharded_phase(dev) -> tuple:
     return entries, record
 
 
+# ------------------------------------------------------------------ phase 16
+
+PROBE_SHARD_BLOCKS = 4
+# the block forms on the kernels line: (its source, the JAX function it
+# replaces, its blocks' kernel as the profiler names it, its combine's
+# LAUNCHES name and profiler name, or None)
+BLOCK_ENTRIES = {
+    "threefry_draws_blocks": ("threefry.cu", "consul_tpu/models/swim.py:725",
+                              "threefry_draws_kernel", None),
+    "subject_maps_blocks": ("maps.cu", "consul_tpu/models/swim.py:392",
+                            "subject_maps_kernel", None),
+    "map_add_blocks": ("maps.cu", "consul_tpu/models/swim.py:414",
+                       "map_add_kernel", None),
+    "maps_convert_blocks": ("maps.cu", "consul_tpu/models/swim.py:422",
+                            "maps_convert_kernel", None),
+    "probe_round_blocks": ("probe.cu", "consul_tpu/models/swim.py:698",
+                           "probe_round_kernel<false>",
+                           ("probe_combine", "probe_combine_kernel")),
+    "originate_blocks": ("originate.cu", "consul_tpu/models/swim.py:605",
+                         "originate_kernel<false>",
+                         ("originate_combine", "originate_kernel<true>")),
+    "suspicion_expiry_blocks": ("expiry.cu", "consul_tpu/models/swim.py:900",
+                                "expiry_kernel<false>",
+                                ("suspicion_expiry_combine",
+                                 "expiry_kernel<true>")),
+    "dense_expiry_blocks": ("dense.cu", "consul_tpu/models/swim.py:965",
+                            "dense_pre_kernel<false>",
+                            ("dense_expiry_combine", "dense_combine_kernel")),
+    "dense_expiry_post_blocks": ("dense.cu", "consul_tpu/models/swim.py:1030",
+                                 "dense_post_kernel<false>", None),
+    "refutation_blocks": ("refute.cu", "consul_tpu/models/swim.py:1086",
+                          "refutation_kernel<false>",
+                          ("refutation_combine", "refutation_kernel<true>")),
+    "expire_blocks": ("refute.cu", "consul_tpu/models/swim.py:1267",
+                      "expire_kernel<false>",
+                      ("expire_combine", "expire_kernel<true>")),
+    "vivaldi_ring_blocks": ("vivaldi.cu", "consul_tpu/models/vivaldi.py:162",
+                            "vivaldi_tile_kernel", None),
+}
+# a combine's partial words a block (what its bound reads)
+COMBINE_PART = {"probe_combine": kernels.PROBE_PART,
+                "originate_combine": kernels.ORIGINATE_PART,
+                "suspicion_expiry_combine": 1,
+                "dense_expiry_combine": kernels.DENSE_COUNTS,
+                "refutation_combine": 0,
+                "expire_combine": kernels.EXPIRE_PART}
+
+
+def device_call_ms(fn, make, reps: int = 10) -> float:
+    """Mean device ms of one call of fn on make()'s input: every device
+    record of the call summed (the L2-evicting read and the inputs, made
+    before the capture, left out)."""
+    flush = profile_tick._flush()
+    if not _FLUSH_KEYS:
+        flush.max()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            flush.max()
+            torch.cuda.synchronize()
+        _FLUSH_KEYS.update(profile_tick._device_times(prof))
+    for _ in range(2):
+        fn(make())
+    inputs = [make() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in inputs:
+            flush.max()
+            fn(x)
+        torch.cuda.synchronize()
+    us = [t for k, (t, _) in profile_tick._device_times(prof).items()
+          if k not in _FLUSH_KEYS]
+    return sum(us) / reps / 1000.0
+
+
+def _to_probe_tick(params, st):
+    """A clone of swim state st stepped (unsharded) to its next probe
+    tick."""
+    return profile_tick.next_probe_tick(lambda x: swim.step(params, x),
+                                        params.probe_period_ticks, st)
+
+
+def _held3(unsharded, kernel, twin, what: str) -> None:
+    """A pass's outputs three ways: the unsharded kernel's, the block
+    form's and the per-block twin's (states, maps, Blocks or tensors),
+    every leaf bit-equal."""
+    from consul_tpu_torch.parallel.mesh import Blocks, Replicated
+
+    def flat(x):
+        if isinstance(x, Replicated):
+            return x.home
+        return _flat(x) if isinstance(x, Blocks) else x
+
+    if isinstance(unsharded, (swim.SwimState, vivaldi.VivaldiState)):
+        for other, who in ((kernel, "block form"), (twin, "twin")):
+            o = _flat(other)
+            fields = swim.TENSOR_FIELDS if isinstance(o, swim.SwimState) \
+                else VIVALDI_FIELDS
+            for f in fields:
+                _same(getattr(o, f), getattr(unsharded, f),
+                      f"{what} {f} ({who})", "sharded")
+        return
+    if isinstance(unsharded, (tuple, list)):
+        for i, (a, b, c) in enumerate(zip(unsharded, kernel, twin)):
+            _held3(a, b, c, f"{what}[{i}]")
+        return
+    _same(flat(kernel), unsharded, f"{what} (block form)", "sharded")
+    _same(flat(twin), unsharded, f"{what} (twin)", "sharded")
+
+
+def hold_block_passes(params, st, m, what: str, census=None) -> dict:
+    """Every probe-tick pass at the probe-tick state st three ways (the
+    unsharded kernels on clones, the block forms on the mesh m, the
+    per-block twins on the card), each pass from the unsharded chain's
+    input, held bit-equal: K9's build, K1's block draws, K7, K8, K9's
+    map_add, K10, K9's maps_convert, K11 with K8, K12's refutation and
+    expire.  Returns what the state exercised (converted, refuted and
+    freed slots, eviction)."""
+    from consul_tpu_torch.models import swim_blocks
+    from consul_tpu_torch.parallel import mesh as meshlib
+    P = params
+    cm = census if census is not None else contextlib.nullcontext()
+
+    def sh(x):
+        return meshlib.shard_state(x.clone(), m)
+
+    mu = swim._maps(P, st)
+    x0 = sh(st)
+    with cm:
+        mk = swim_blocks.maps(P, x0)
+    _held3(mu, mk, swim_blocks.maps_plain(P, sh(st)), f"{what} K9 build")
+    du = swim._probe_inputs(P, st)
+    with cm:
+        dk = swim_blocks.probe_inputs(P, x0)
+    want_draws = swim._probe_draws(P, st.tick)
+    for name, d in want_draws.items():
+        if d.shape[0] != P.n_nodes:
+            _same(dk[name].home, du[name], f"{what} K1 {name}", "sharded")
+            continue
+        ell = dk[name].rows
+        per = int(np.prod(d.shape[1:])) if len(d.shape) > 1 else 1
+        twin = [prng.draw_plain([dataclasses.replace(
+            d, shape=(ell,) + tuple(d.shape[1:]))], part.device,
+            b * ell * per)[0] for b, part in enumerate(dk[name].parts)]
+        _held3(du[name], dk[name], meshlib.Blocks(twin), f"{what} K1 {name}")
+    a = swim._probe_pass(P, st.clone(), mu, du)
+    x0 = sh(st)
+    with cm:
+        b = swim_blocks.probe_pass(P, x0, mk, dk)
+    c = swim_blocks.probe_pass_plain(P, sh(st), mk, dk)
+    _held3(a[:3], b[:3], c[:3], f"{what} K7")
+    _held3((a[3].rtt_ms, a[3].acked), (b[3].rtt_ms, b[3].acked),
+           (c[3].rtt_ms, c[3].acked), f"{what} K7 obs")
+    s1 = a[0]
+    x = s1.clone()
+    a8 = swim._originate(P, x, a[1], swim.SUSPECT, x.incarnation, a[2])
+    outs = []
+    for fn in (swim_blocks.originate, swim_blocks.originate_plain):
+        y = sh(s1)
+        with (cm if fn is swim_blocks.originate else
+              contextlib.nullcontext()):
+            outs.append(fn(P, y, b[1], swim.SUSPECT, y.incarnation, b[2]))
+
+    _held3(a8, *outs, f"{what} K8")
+    evicting = _eviction(s1, a[1])[0]
+    s2 = a8[0]
+    mu2 = swim._map_add(profile_tick.copy_maps(mu)[0], *a8[1])
+    x0 = mk[0].clone()
+    with cm:
+        mk2 = swim_blocks.map_add(x0, *outs[0][1])
+    _held3(mu2, mk2, swim_blocks.map_add_plain(mk[0], *outs[0][1]),
+           f"{what} K9 map_add")
+    mu = (mu2, *mu[1:])
+    mk = (mk2, *mk[1:])
+    a10 = swim._suspicion_expiry(P, s2.clone())
+    x0 = sh(s2)
+    with cm:
+        b10 = swim_blocks.suspicion_expiry(P, x0)
+    _held3(a10, b10, swim_blocks.suspicion_expiry_plain(P, sh(s2)),
+           f"{what} K10")
+    s3, conv = a10
+    mu3 = swim._maps_convert(profile_tick.copy_maps(mu), s3, conv)
+    mkc = tuple(x.clone() for x in mk)
+    x0 = sh(s3)
+    with cm:
+        mk3 = swim_blocks.maps_convert(mkc, x0, conv)
+    _held3(mu3, mk3, swim_blocks.maps_convert_plain(mk, sh(s3), conv),
+           f"{what} K9 maps_convert")
+    a11 = swim._dense_suspicion_expiry(P, s3.clone(), a[3].shift,
+                                       profile_tick.copy_maps(mu3))
+    x0, mkd = sh(s3), tuple(x.clone() for x in mk3)
+    with cm:
+        b11 = swim_blocks.dense_expiry(P, x0, b[3].shift, mkd)
+    _held3(a11, b11, swim_blocks.dense_expiry_plain(
+        P, sh(s3), b[3].shift, tuple(x.clone() for x in mk3)), f"{what} K11")
+    a12 = swim._refutation(P, a11.clone())
+    x0 = sh(a11)
+    with cm:
+        b12 = swim_blocks.refutation(P, x0)
+    _held3(a12, b12, swim_blocks.refutation_plain(P, sh(a11)),
+           f"{what} K12 refutation")
+    a13 = swim._expire(P, a12.clone())
+    x0 = sh(a12)
+    with cm:
+        b13 = swim_blocks.expire(P, x0)
+    _held3(a13, b13, swim_blocks.expire_plain(P, sh(a12)),
+           f"{what} K12 expire")
+    return {"converted": int(conv.sum()), "evicting": bool(evicting),
+            "refuted": _refuting(a11, a12)[0],
+            "freed": int((a12.r_active & ~a13.r_active).sum()),
+            "tick": st.tick}
+
+
+def hold_expire_frees(params, st, m, census=None) -> int:
+    """K12's expire (and its refutation before it) three ways at a state
+    whose first half of the slots are dead, left and alive rumors every
+    live row knows, past their windows: the slots are freed and their
+    beliefs committed.  Returns the slots freed."""
+    from consul_tpu_torch.models import swim_blocks
+    from consul_tpu_torch.parallel import mesh as meshlib
+    u, dev = params.rumor_slots, st.device
+    half = torch.arange(u, device=dev) < u // 2
+    x = st.replace(r_active=half | st.r_active,
+                   r_kind=torch.where(half, (torch.arange(
+                       u, device=dev) % 3 * 2 % 4).to(torch.int8),
+                       st.r_kind),
+                   r_subject=torch.where(half, ((torch.arange(
+                       u, device=dev) * 7919 + 3) % st.up.shape[0]).to(
+                           torch.int32), st.r_subject),
+                   r_start=torch.where(half, st.tick - 1000, st.r_start),
+                   know=st.know | half[None, :])
+    for name, fn in (("refutation", swim._refutation),
+                     ("expire", swim._expire)):
+        want = fn(params, x.clone())
+        y = meshlib.shard_state(x.clone(), m)
+        with (census if census is not None else contextlib.nullcontext()):
+            got = getattr(swim_blocks, name)(params, y)
+        _held3(want, got, getattr(swim_blocks, f"{name}_plain")(
+            params, meshlib.shard_state(x.clone(), m)), f"freeing {name}")
+        if name == "expire":
+            freed = int((x.r_active & ~want.r_active).sum())
+    require(freed > 0, "the freeing state freed no slot")
+    return freed
+
+
+def hold_ring_blocks(vp, c, shift, rtt_ms, acked, m, what: str) -> None:
+    """K13's block form against its per-block twin and the unsharded
+    kernel at one observation (the window written in place: clones)."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    n = c.coords.shape[0]
+    want = vivaldi.observe_ring(vp, c.clone(), shift, rtt_ms, acked)
+    sc = lambda: meshlib.shard_state(c.clone(), m, n)  # noqa: E731
+    br = meshlib.shard_state(rtt_ms, m, n)
+    ba = meshlib.shard_state(acked, m, n)
+    _held3(want, vivaldi.observe_ring(vp, sc(), shift, br, ba),
+           vivaldi.observe_ring_blocks_plain(vp, sc(), shift, br, ba),
+           f"{what} K13")
+
+
+def hold_sentinels(dev, blocks: int) -> None:
+    """The index-0 sentinels on the card: a pool whose every block's row 0
+    holds a value a masked lane's scatter into index 0 would change, with
+    no rumor subject in block 0 (tests/test_torch_sharded_probe.py's
+    state at N = 4096): expire's committed_inc, refutation's incarnation,
+    map_add's and maps_convert's maps changed at global row 0 alone,
+    block form, twin and unsharded kernel alike."""
+    from consul_tpu_torch.models import swim_blocks
+    from consul_tpu_torch.parallel import mesh as meshlib
+    n, u = 4096, 16
+    ell = n // blocks
+    p = swim.make_params(GossipConfig.lan(), SimConfig(
+        n_nodes=n, rumor_slots=u, shard_blocks=blocks))
+    s = swim.init_state(p, device=dev)
+    firsts = torch.arange(0, n, ell, device=dev)
+    inc = torch.zeros(n, dtype=torch.int32, device=dev)
+    inc[firsts] = -5
+    subj = torch.tensor([ell + 1 + k % (ell - 1) for k in range(u)],
+                        dtype=torch.int32, device=dev)
+    s = s.replace(committed_inc=inc.clone(), incarnation=inc.clone(),
+                  r_active=torch.ones(u, dtype=torch.bool, device=dev),
+                  r_kind=torch.tensor([swim.ALIVE] * (u // 2) + [swim.SUSPECT]
+                                      * (u - u // 2), dtype=torch.int8,
+                                      device=dev),
+                  r_subject=subj, r_inc=torch.full((u,), 3, dtype=torch.int32,
+                                                   device=dev),
+                  r_start=torch.zeros(u, dtype=torch.int32, device=dev),
+                  know=torch.ones((n, u), dtype=torch.bool, device=dev),
+                  tick=10 ** 4)
+    m = _shard_mesh([dev] * blocks)
+    sh = lambda: meshlib.shard_state(s.clone(), m)  # noqa: E731
+    a = swim._expire(p, s.clone())
+    _held3(a, swim_blocks.expire(p, sh()), swim_blocks.expire_plain(p, sh()),
+           "sentinel expire")
+    require(int(a.committed_inc[0]) == 0
+            and bool((a.committed_inc[firsts[1:]] == -5).all()),
+            "sentinel expire: the masked lanes did not land on node 0 alone")
+    a = swim._refutation(p, s.clone())
+    _held3(a, swim_blocks.refutation(p, sh()),
+           swim_blocks.refutation_plain(p, sh()), "sentinel refutation")
+    require(int(a.incarnation[0]) == -1
+            and bool((a.incarnation[firsts[1:]] == -5).all()),
+            "sentinel refutation: the masked lanes did not land on node 0")
+    mp = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    mp[firsts] = -7
+    pairs = (torch.tensor([n - 1, 0], dtype=torch.int32, device=dev),
+             torch.tensor([2, 5], dtype=torch.int32, device=dev),
+             torch.tensor([True, False], device=dev))
+    bm = lambda: meshlib.shard_state(mp.clone(), m, n)  # noqa: E731
+    want = swim._map_add(mp.clone(), *pairs)
+    _held3(want, swim_blocks.map_add(bm(), *pairs),
+           swim_blocks.map_add_plain(bm(), *pairs), "sentinel map_add")
+    require(int(want[0]) == -1 and bool((want[firsts[1:]] == -7).all()),
+            "sentinel map_add: not at node 0 alone")
+    conv = torch.zeros(u, dtype=torch.bool, device=dev)
+    conv[u - 1] = True
+    maps = lambda: (mp.clone(), mp.clone(), mp.clone(), mp.clone())  # noqa: E731
+    bmaps = lambda: tuple(meshlib.shard_state(x, m, n) for x in maps())  # noqa: E731
+    _held3(swim._maps_convert(tuple(torch.stack(maps())), s, conv),
+           swim_blocks.maps_convert(bmaps(), sh(), conv),
+           swim_blocks.maps_convert_plain(bmaps(), sh(), conv),
+           "sentinel maps_convert")
+
+
+def _peak_bytes(devs) -> dict:
+    return {str(d): torch.cuda.max_memory_allocated(d) for d in devs}
+
+
+def time_block_forms(params, vp, st, c, m) -> dict:
+    """The block forms timed at the probe-tick state st (serf coords c) on
+    the mesh m: each launch kind's device ms (device_ms: the blocks'
+    kernel and the combine's, each by its own name) times its launches a
+    call, the call (CUDA events, dispatch included), the per-block twin
+    (K11's in its pre and post parts, one a launch), the per-device peak
+    bytes of the call."""
+    from consul_tpu_torch.models import swim_blocks
+    from consul_tpu_torch.parallel import mesh as meshlib
+    P = params
+    n = P.n_nodes
+    bb = m.size
+    sh = meshlib.shard_state(st, m)
+    mk = swim_blocks.maps(P, sh)
+    dk = swim_blocks.probe_inputs(P, sh)
+    s1k, wantk, rowsk, obsk = swim_blocks.probe_pass(P, sh.clone(), mk, dk)
+    s2k, allock = swim_blocks.originate(P, s1k.clone(), wantk, swim.SUSPECT,
+                                        s1k.incarnation, rowsk)
+    s3k, convk = swim_blocks.suspicion_expiry(P, s2k.clone())
+    mk3 = swim_blocks.maps_convert(tuple(x.clone() for x in mk), s3k, convk)
+    s4k = swim_blocks.dense_expiry(P, s3k.clone(), obsk.shift,
+                                   tuple(x.clone() for x in mk3))
+    s5k = swim_blocks.refutation(P, s4k.clone())
+    # the post launch's twin on the inputs the pre launch and K8 give it
+    s3p, wantp, rowp, convp = swim_blocks.dense_pre_plain(
+        P, s3k.clone(), obsk.shift, tuple(x.clone() for x in mk3))
+    s3p, allocp = swim_blocks.originate(P, s3p, wantp, swim.DEAD,
+                                        s3p.incarnation, rowp)
+    cm = meshlib.shard_state(c, m, n)
+    draws = list(swim._probe_draws(P, st.tick).values())
+    cmaps = lambda: tuple(x.clone() for x in mk)  # noqa: E731
+    cmaps3 = lambda: tuple(x.clone() for x in mk3)  # noqa: E731
+    def draws_plain():
+        ell, out = sh.up.rows, []
+        for d in draws:
+            if d.shape[0] != n:
+                out.append(prng.draw_plain([d], st.device)[0])
+                continue
+            per = int(np.prod(d.shape[1:])) if len(d.shape) > 1 else 1
+            out.append([prng.draw_plain([dataclasses.replace(
+                d, shape=(ell,) + tuple(d.shape[1:]))], part.device,
+                b * ell * per)[0] for b, part in enumerate(sh.up.parts)])
+        return out
+
+    calls = {
+        "threefry_draws_blocks": (lambda _: prng.draw_blocks(draws, sh.up),
+                                  lambda: None, draws_plain),
+        "subject_maps_blocks": (lambda _: swim_blocks.maps(P, sh),
+                                lambda: None,
+                                lambda: swim_blocks.maps_plain(P, sh)),
+        "map_add_blocks": (lambda x: swim_blocks.map_add(x, *allock),
+                           lambda: mk[0].clone(),
+                           lambda: swim_blocks.map_add_plain(mk[0],
+                                                             *allock)),
+        "maps_convert_blocks": (
+            lambda x: swim_blocks.maps_convert(x, s3k, convk), cmaps,
+            lambda: swim_blocks.maps_convert_plain(mk, s3k, convk)),
+        "probe_round_blocks": (
+            lambda x: swim_blocks.probe_pass(P, x, mk, dk), sh.clone,
+            lambda: swim_blocks.probe_pass_plain(P, sh, mk, dk)),
+        "originate_blocks": (
+            lambda x: swim_blocks.originate(P, x, wantk, swim.SUSPECT,
+                                            x.incarnation, rowsk),
+            s1k.clone, lambda: swim_blocks.originate_plain(
+                P, s1k, wantk, swim.SUSPECT, s1k.incarnation, rowsk)),
+        "suspicion_expiry_blocks": (
+            lambda x: swim_blocks.suspicion_expiry(P, x), s2k.clone,
+            lambda: swim_blocks.suspicion_expiry_plain(P, s2k)),
+        # K11's twin in its two parts, each timed against its launch
+        "dense_expiry_blocks": (
+            lambda x: swim_blocks.dense_expiry(P, x[0], obsk.shift, x[1]),
+            lambda: (s3k.clone(), cmaps3()),
+            lambda: swim_blocks.dense_pre_plain(P, s3k, obsk.shift,
+                                                cmaps3())),
+        "refutation_blocks": (lambda x: swim_blocks.refutation(P, x),
+                              s4k.clone,
+                              lambda: swim_blocks.refutation_plain(P, s4k)),
+        "expire_blocks": (lambda x: swim_blocks.expire(P, x), s5k.clone,
+                          lambda: swim_blocks.expire_plain(P, s5k)),
+        "vivaldi_ring_blocks": (
+            lambda x: vivaldi.observe_ring(vp, x, obsk.shift, obsk.rtt_ms,
+                                           obsk.acked), cm.clone,
+            lambda: vivaldi.observe_ring_blocks_plain(
+                vp, cm, obsk.shift, obsk.rtt_ms, obsk.acked)),
+    }
+    out = {}
+    for name, (fn, make, plain) in calls.items():
+        kern, comb = BLOCK_ENTRIES[name][2], BLOCK_ENTRIES[name][3]
+        names = [kern] + ([comb[1]] if comb else [])
+        if name == "dense_expiry_blocks":
+            names.append(BLOCK_ENTRIES["dense_expiry_post_blocks"][2])
+        before = dict(kernels.LAUNCHES)
+        for d in m.distinct:
+            torch.cuda.reset_peak_memory_stats(d)
+        fn(make())
+        torch.cuda.synchronize()
+        peaks = _peak_bytes(m.distinct)
+        per_call = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+        # each launch kind's mean by its name, times its launches a call
+        # (a profile that drops a record leaves the means as they are)
+        means = device_ms(fn, tuple(names), make=make)
+        out[name] = {"launches_per_call": per_call,
+                     "per_launch_ms": means,
+                     "ms": means[kern] * per_call[name],
+                     "combine_ms": means[comb[1]] * per_call[comb[0]]
+                     if comb else None,
+                     "call_ms": median_ms(fn, make=make),
+                     "plain_ms": median_ms(plain, reps=5),
+                     "peak_bytes": peaks}
+        if name == "dense_expiry_blocks":
+            post = BLOCK_ENTRIES["dense_expiry_post_blocks"][2]
+            out["dense_expiry_post_blocks"] = dict(
+                out[name], ms=means[post] * per_call["dense_expiry_post_blocks"],
+                combine_ms=None, plain_ms=median_ms(
+                    lambda: swim_blocks.dense_post_plain(
+                        P, s3p, obsk.shift, wantp, convp, allocp), reps=5))
+        log(f"{name} timed at tick {st.tick} on {bb} blocks: "
+            + json.dumps(out[name]))
+    return out
+
+
+def _scaling_tick_ms(params, st, blocks: int, dev) -> dict:
+    """One probe tick of the serf pool (serf.step and the monitor) node-
+    sharded into `blocks` blocks on one card (unsharded with blocks=0):
+    the call (CUDA events, dispatch included), its device work (every
+    device record), each on a clone."""
+    from consul_tpu_torch.parallel import mesh as meshlib
+    s = meshlib.shard_state(st, _shard_mesh([dev] * blocks)) if blocks \
+        else st
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+
+    def tick(x):
+        y = serf.step(params, x)
+        swim.believed_down_fraction(params.swim, y.swim, bench.VICTIM,
+                                    out=out)
+        return y
+
+    return {"call_ms": median_ms(tick, make=s.clone),
+            "device_ms": device_call_ms(tick, s.clone)}
+
+
+def sharded_probe_phase(dev, states: dict) -> tuple:
+    """Phase 16: the node-sharded probe tick.  The main path sharded from
+    init_state (bench.run_convergence at N = 1,000,000, U = 32, B = 4 on
+    one card, or a block a card where there are four) held to the
+    unsharded run (ticks, F1, false commits, every leaf of the final
+    state, the bulk channel empty); the nemesis build's swim.run over two
+    probe periods at N = 2^20 bit-equal; every pass's block form against
+    its per-block twin and the unsharded kernel at replayed probe-tick
+    states (phases 2-10's) and random ones that refute, free, evict and
+    convert; K13's and K1's block forms; the index-0 sentinels; the
+    gather law; the times.  Returns (the kernels-line entries, the
+    record)."""
+    from consul_tpu_torch.models import swim_blocks
+    from consul_tpu_torch.parallel import mesh as meshlib
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    bb = PROBE_SHARD_BLOCKS
+    devs = [torch.device("cuda", i) for i in range(bb)] if cards >= bb \
+        else [dev] * bb
+    m = _shard_mesh(devs)
+    record = {"mesh": [str(d) for d in m.devices], "blocks": bb}
+
+    # the main path, sharded from init_state, held to the unsharded run
+    ref = bench.run_convergence(n_nodes=N, device=dev)
+    bulk0 = swim.bulk_steps
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    syncs0 = swim.host_syncs
+    got = bench.run_convergence(n_nodes=N, mesh=m)
+    for d in m.distinct:
+        torch.cuda.synchronize(d)
+    path = dict(kernels.LAUNCHES)
+    flag_reads = swim.host_syncs - syncs0
+    log(f"sharded main path (B={bb} on {record['mesh']}): converged="
+        f"{got['converged']} ticks={got['ticks']} (unsharded {ref['ticks']}, "
+        f"JAX {REFERENCE_TICKS}) f1={got['f1']} false_commits="
+        f"{got['false_commits']} wall_s={got['wall']} (unsharded "
+        f"{ref['wall']}) flag reads {flag_reads} in {got['state'].swim.tick}"
+        f" ticks; launches {{k: v for k, v in path.items() if v}}".replace(
+            "{k: v for k, v in path.items() if v}",
+            json.dumps({k: v for k, v in path.items() if v})))
+    require(got["converged"] and got["ticks"] == ref["ticks"]
+            == REFERENCE_TICKS, f"sharded main path: {got['ticks']} ticks, "
+            f"unsharded {ref['ticks']}")
+    require(got["f1"] == 1.0 and got["false_commits"] == 0,
+            f"sharded main path: f1 {got['f1']}, false commits "
+            f"{got['false_commits']}")
+    require(got["fracs"] == ref["fracs"], "sharded monitor fractions differ")
+    require(got["sim_counters"] == ref["sim_counters"],
+            "sharded metrics vector differs")
+    require(got["host_syncs"] == ref["host_syncs"],
+            f"host syncs {got['host_syncs']} != {ref['host_syncs']}")
+    _same_state(_flat(got["state"]), ref["state"], "sharded main path")
+    meshlib.assert_node_sharded(got["state"].swim.know, bb, "main path")
+    require(swim.bulk_steps == bulk0 and not bool(
+        swim_blocks._any(got["state"].swim.bulk_member)),
+        "the sharded main path opened the bulk channel")
+    period = ref["params"].swim.probe_period_ticks
+    probe_ticks = -(-got["state"].swim.tick // period)
+    require(flag_reads == probe_ticks, f"{flag_reads} flag reads in "
+            f"{probe_ticks} probe ticks")
+    for name, entry in BLOCK_ENTRIES.items():
+        for launched in (name,) + ((entry[3][0],) if entry[3] else ()):
+            require(path[launched] > 0, f"{launched} never launched on the "
+                    f"sharded path")
+    for name in kernels.PROBE + kernels.DETECTOR + ("vivaldi_ring",
+                                                    "believed_down"):
+        require(path[name] == 0, f"the sharded path launched the unsharded "
+                f"{name}")
+    record.update(main_path={
+        "ticks": got["ticks"], "wall_s": got["wall"],
+        "unsharded_wall_s": ref["wall"], "f1": got["f1"],
+        "false_commits": got["false_commits"], "flag_reads": flag_reads,
+        "probe_ticks": probe_ticks, "host_syncs": got["host_syncs"],
+        "launches": {k: v for k, v in path.items() if v}})
+
+    # the gather law over a 10-tick chunk crossing two probe ticks, and
+    # the per-device peak bytes of it
+    chunk_from = got["state"]
+    for d in m.distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    with kernel_audit.RowCensus(m.devices) as census:
+        chunk, _ = serf.run(ref["params"], chunk_from.clone(), 10,
+                            bench.VICTIM)
+        for d in m.distinct:
+            torch.cuda.synchronize(d)
+    law = kernel_audit.gather_law(census.rows, N)
+    require(law["ok"], f"gather law broken by the sharded chunk: {law}")
+    unchunk, _ = serf.run(ref["params"], ref["state"].clone(), 10,
+                          bench.VICTIM)
+    _same_state(_flat(chunk), unchunk, "sharded 10-tick chunk")
+    record.update(chunk_gather=law, chunk_peak_bytes=census.peaks,
+                  chunk_device_peak=_peak_bytes(m.distinct))
+    log(f"sharded chunk: 10 ticks bit-equal; gather law {law}; per-device "
+        f"peak bytes {census.peaks}")
+
+    # the nemesis build over two probe periods at N = 2^20
+    cp, cpool = _gossip_tick_pool(dev, chaos_build=True)
+    cpool = _to_probe_tick(cp, cpool)
+    cref, csh = cpool.clone(), meshlib.shard_state(cpool.clone(), m)
+    kernels.reset_launches()
+    with kernel_audit.RowCensus(m.devices) as ccensus:
+        csh = swim.run(cp, csh, 2 * period)[0]
+    claunch = dict(kernels.LAUNCHES)
+    cref = swim.run(cp, cref, 2 * period)[0]
+    _same_state(_flat(csh), cref, "sharded chaos build")
+    claw = kernel_audit.gather_law(ccensus.rows, SHARD_N)
+    require(claw["ok"], f"gather law broken by the chaos run: {claw}")
+    require(claunch["probe_round_blocks"] == 2 * bb, f"chaos: {claunch}")
+    record["chaos"] = {"ticks": 2 * period, "from_tick": cpool.tick,
+                       "launches": {k: v for k, v in claunch.items() if v},
+                       "gather": claw}
+    log(f"sharded chaos build: {2 * period} ticks from {cpool.tick} "
+        f"bit-equal; gather law {claw}")
+
+    # every pass's block form against its twin and the unsharded kernel
+    held = {}
+    hcensus = kernel_audit.RowCensus(m.devices)
+    for name, (hp, st) in states.items():
+        if not isinstance(st, swim.SwimState) or st.up.shape[0] % bb \
+                or st.up.shape[0] < 1024:
+            continue
+        held[name] = hold_block_passes(hp, _to_probe_tick(hp, st), m, name,
+                                       census=hcensus)
+    p0 = states["mid"][0]
+    base = _to_probe_tick(p0, states["mid"][1])
+    for seed in (21, 22):
+        rnd = _to_probe_tick(p0, _random_detector_state(dev, p0, base, seed))
+        held[f"random {seed}"] = hold_block_passes(
+            p0, rnd.replace(tick=base.tick), m, f"random {seed}",
+            census=hcensus)
+    ev = base.clone()
+    u = p0.rumor_slots
+    ev = ev.replace(r_active=torch.ones(u, dtype=torch.bool, device=dev),
+                    r_kind=(torch.arange(u, device=dev) % 4).to(torch.int8),
+                    r_subject=(torch.arange(u, device=dev) * 997 + 11).to(
+                        torch.int32),
+                    know=torch.ones_like(ev.know))
+    held["all slots covered"] = hold_block_passes(p0, ev, m,
+                                                  "all slots covered",
+                                                  census=hcensus)
+    held["freed (crafted)"] = {"freed": hold_expire_frees(p0, base, m,
+                                                          census=hcensus),
+                               "evicting": False, "refuted": 0,
+                               "converted": 0}
+    hlaw = kernel_audit.gather_law(hcensus.rows, N)
+    require(hlaw["ok"], f"gather law broken by a block form: {hlaw}")
+    require(any(h["evicting"] for h in held.values())
+            and any(h["refuted"] for h in held.values())
+            and any(h["freed"] for h in held.values())
+            and any(h["converted"] for h in held.values()),
+            f"the held states never evicted, refuted, freed or converted: "
+            f"{held}")
+    record["held"] = held
+    log(f"block forms of K1, K7-K12 bit-equal to their per-block twins and "
+        f"the unsharded kernels at {len(held)} states: {json.dumps(held)}")
+    sp, spool = states["serf mid"]
+    sst = _to_probe_tick(sp.swim, spool.swim)
+    shift = swim._probe_inputs(sp.swim, sst)["offs"][0]
+    _, _, _, obs = swim._probe_pass_plain(sp.swim, sst, swim._maps(sp.swim,
+                                                                  sst),
+                                          swim._probe_inputs(sp.swim, sst))
+    hold_ring_blocks(sp.vivaldi, spool.coords, obs.shift, obs.rtt_ms,
+                     obs.acked, m, "serf mid")
+    hold_ring_blocks(sp.vivaldi, *_random_ring(dev, 23), m, "random ring")
+    for blocks in (2, 4, 8):
+        hold_sentinels(dev, blocks)
+    log("sharded K13 bit-equal (serf mid, random ring); index-0 sentinels "
+        "held at B = 2, 4, 8")
+    del shift
+
+    # peer access: the chunk over cards
+    if cards >= 2:
+        pm = _shard_mesh([torch.device("cuda", i)
+                          for i in range(min(cards, bb))])
+        kernels.enable_peer_access(pm.devices)
+        pch, _ = serf.run(ref["params"], meshlib.shard_state(
+            _flat(chunk_from), pm), 10, bench.VICTIM)
+        _same_state(_flat(pch), unchunk, "sharded chunk over cards")
+        record["peer_access"] = f"held over {len(pm.devices)} cards"
+    else:
+        record["peer_access"] = "not run: 1 card"
+    log(json.dumps({"peer_access": record["peer_access"]}))
+
+    # times: the probe tick at B = 1, 2, 4 on one card against the
+    # unsharded tick, then each block form
+    sp_probe = spool.replace(swim=sst)
+    ticks = {"unsharded": _scaling_tick_ms(sp, sp_probe, 0, dev)}
+    for blocks in SHARD_SCALING:
+        ticks[f"B={blocks}"] = _scaling_tick_ms(sp, sp_probe, blocks, dev)
+    record["probe_tick_ms"] = ticks
+    log("sharded probe tick (serf.step and the monitor) at tick "
+        f"{sst.tick} on one card: " + json.dumps(ticks))
+    one = _shard_mesh([dev] * bb)
+    times = time_block_forms(sp.swim, sp.vivaldi, sst, spool.coords, one)
+    unsharded = {**time_detector(sp.swim, sst), "probe": time_probe(
+        sp.swim, sst, "serf mid")}
+    ring = time_ring(sp.vivaldi, spool.coords, obs.shift, obs.rtt_ms,
+                     obs.acked)
+    d_ms, d_by = _draw_bound(list(swim._probe_draws(sp.swim,
+                                                    sst.tick).values()),
+                             SASS_PER_ELEMENT)
+    bounds = {"threefry_draws_blocks": (d_ms, d_by, None, None),
+              "probe_round_blocks": (unsharded["probe"]["k7_bound_ms"],
+                                     "bytes", unsharded["probe"]["k7_ms"],
+                                     None),
+              "originate_blocks": (unsharded["probe"]["k8_bound_ms"],
+                                   "bytes", unsharded["probe"]["k8_ms"],
+                                   unsharded["probe"]["topk_ms"]),
+              "vivaldi_ring_blocks": (ring["bound_ms"], ring["bound_by"],
+                                      ring["ms"], None)}
+    for name in ("subject_maps", "map_add", "maps_convert",
+                 "suspicion_expiry", "refutation", "expire"):
+        t = unsharded[name]
+        bounds[f"{name}_blocks"] = (t["bound_ms"], "bytes", t["ms"],
+                                    t["library_ms"])
+    # K11's two launches, each against its own bytes
+    dense = unsharded["dense_expiry"]
+    for part, name in (("pre", "dense_expiry_blocks"),
+                       ("post", "dense_expiry_post_blocks")):
+        bounds[name] = (dense[f"{part}_bound_ms"], "bytes",
+                        (dense["phase_ms"] or {}).get(f"dense_{part}_kernel"),
+                        None)
+    entries = []
+    u_bytes = 14 * p0.rumor_slots
+    for name, (src, replaces, _, comb) in BLOCK_ENTRIES.items():
+        t = times[name]
+        bound, by, one_ms, lib = bounds[name]
+        entries.append(_sharded_entry(
+            name, "consul_tpu_torch/kernels/csrc/" + src, replaces,
+            path[name], t["ms"], bound, t["plain_ms"], library_ms=lib,
+            bound_by=by, ms_per_block=t["ms"] / bb, unsharded_ms=one_ms,
+            call_ms=t["call_ms"], peak_bytes=t["peak_bytes"],
+            shape=[N, p0.rumor_slots, bb]))
+        if comb:
+            # a combine reads the blocks' partials and writes the [U]
+            # table and the small outputs: its bound is those bytes
+            cbound = _bytes_ms(8 * COMBINE_PART[comb[0]] * bb + 2 * u_bytes)
+            entries.append(_sharded_entry(
+                comb[0], "consul_tpu_torch/kernels/csrc/" + src, replaces,
+                path[comb[0]], t["combine_ms"], cbound, t["plain_ms"],
+                library_ms=None, closes=name))
+    record["times"] = times
+    record["seconds"] = time.perf_counter() - t0
+    log(f"phase 16: {record['seconds']:.1f} s")
+    return entries, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4553,6 +5301,8 @@ def main() -> int:
     contracts = contracts_phase(dev)
     k15, sharded_record = sharded_phase(dev)
     results += k15
+    k16, sharded_probe_record = sharded_probe_phase(dev, states)
+    results += k16
     for k in results:
         log(f"kernel {k['name']}: ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches="
@@ -4562,6 +5312,7 @@ def main() -> int:
               "probe": probe_record, "detector": detector_record,
               "vivaldi_bulk": ring_bulk_record, "contracts": contracts,
               "sharded": sharded_record,
+              "sharded_probe": sharded_probe_record,
               "twin_calls": twins,
               "sass_per_element": SASS_PER_ELEMENT,
               "main_path": {"ticks": r["ticks"], "wall_s": r["wall"],

@@ -13,7 +13,11 @@ Run on the card: `python -m consul_tpu_torch.bench` (prints one JSON
 line, stamped with the topology it ran on and the number of times the
 process loaded the kernel library, which must be one: the counterpart of
 the JAX bench's `compiles`); tests call `run_convergence(...,
-device="cpu")` at small N.
+device="cpu")` at small N.  With `mesh=` (parallel/mesh.make_mesh) the
+pool is node-sharded from its first tick, as the JAX bench's `mesh=`
+(bench.py:55-77): shard_blocks is the mesh's size, the state stays
+sharded through the drain (asserted), and the accuracy accounting adds
+the blocks' integer counts.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 from consul_tpu_torch import kernels
 from consul_tpu_torch.config import GossipConfig, SimConfig
-from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.models import serf, swim, swim_blocks
+from consul_tpu_torch.parallel import mesh as meshlib
 from consul_tpu_torch.parallel.kernel_audit import topology_stamp
 from consul_tpu_torch.utils import devices
 
@@ -35,37 +40,54 @@ CHUNK = 200
 VICTIM = 123_456
 
 
-def fence(device: torch.device) -> None:
-    """Wait for the card's queued work (nothing on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def fence(device: torch.device, mesh=None) -> None:
+    """Wait for the card's queued work, every card of a mesh (nothing on
+    the CPU)."""
+    for d in (mesh.distinct if mesh is not None else (device,)):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def prepare(n_nodes: int = N, chunk: int = CHUNK, victim: int = VICTIM,
-            seed: int = 7, device=None):
+            seed: int = 7, device=None, mesh=None):
     """The bench pool after its warm scan and the kill, fenced:
-    (params, state, warm-scan seconds)."""
-    device = devices.resolve(device)
+    (params, state, warm-scan seconds).  With `mesh` the pool is made on
+    the mesh's first device and node-sharded before its first tick."""
+    device = mesh.home if mesh is not None else devices.resolve(device)
     params = serf.make_params(GossipConfig.lan(),
                               SimConfig(n_nodes=n_nodes, rumor_slots=32,
-                                        alloc_cap=8, p_loss=0.01, seed=seed))
+                                        alloc_cap=8, p_loss=0.01, seed=seed,
+                                        shard_blocks=mesh.size
+                                        if mesh is not None else 1))
     s = serf.init_state(params, device=device)
+    if mesh is not None:
+        s = meshlib.shard_state(s, mesh)
     t_warm = time.perf_counter()
     s, _ = serf.run(params, s, chunk, victim)
-    fence(device)
+    fence(device, mesh)
     warm_s = time.perf_counter() - t_warm
     s = s.replace(swim=swim.kill(s.swim, victim))
-    fence(device)
+    fence(device, mesh)
     return params, s, warm_s
+
+
+def _false_commits(sw) -> int:
+    """Live nodes with a committed death (on a sharded pool the blocks'
+    counts added)."""
+    if isinstance(sw.up, meshlib.Blocks):
+        return int(swim_blocks._count(
+            sw.committed_dead.map(torch.logical_and, sw.up)))
+    return int((sw.committed_dead & sw.up).sum())
 
 
 def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
                     victim: int = VICTIM, max_ticks: int = 1200,
-                    seed: int = 7, device=None) -> dict:
+                    seed: int = 7, device=None, mesh=None) -> dict:
     """The north-star pipeline, parameterized by pool size.  `fracs` holds
-    the victim's believed-down fraction after every timed tick."""
-    device = devices.resolve(device)
-    params, s, warm_s = prepare(n_nodes, chunk, victim, seed, device)
+    the victim's believed-down fraction after every timed tick.  `mesh`
+    node-shards the pool over a parallel/mesh.Mesh (prepare)."""
+    device = mesh.home if mesh is not None else devices.resolve(device)
+    params, s, warm_s = prepare(n_nodes, chunk, victim, seed, device, mesh)
     launches0 = dict(kernels.LAUNCHES)
     syncs0 = swim.host_syncs
     t0 = time.time()
@@ -89,11 +111,12 @@ def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
     launches = {k: v - launches0[k] for k, v in kernels.LAUNCHES.items()}
     timed_ticks_run = s.swim.tick - chunk
     syncs = swim.host_syncs - syncs0 + timed_ticks_run // chunk
+    if mesh is not None:
+        meshlib.assert_node_sharded(s.swim.know, mesh.size,
+                                    "knowledge matrix after drain")
 
     ok = frac > 0.999
-    up = s.swim.up.cpu().numpy()
-    committed = s.swim.committed_dead.cpu().numpy()
-    false_commits = int((committed & up).sum())
+    false_commits = _false_commits(s.swim)
     tp = 1 if ok else 0
     precision = tp / max(tp + false_commits, 1)
     f1 = 2 * precision * tp / max(precision + tp, 1e-9)
@@ -105,7 +128,7 @@ def run_convergence(n_nodes: int = N, chunk: int = CHUNK,
             "launches": launches, "timed_ticks_run": timed_ticks_run,
             "fracs": fracs,
             "host_syncs": syncs,
-            "topology": topology_stamp(device),
+            "topology": topology_stamp(device, mesh),
             # kernel builds in this process: one on the card, none on the
             # CPU (the twins need no library)
             "library_loads": kernels.LIBRARY_LOADS

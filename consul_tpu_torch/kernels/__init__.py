@@ -117,18 +117,25 @@ SIGNATURES = {
     "reconcile_diff": [_P] * 4 + [_I64, _I64, _P, _P, _P, _I64, _P, _P, _P],
     "reconcile_merge": [_P] * 8 + [_I64, _I64, _P, _I64, _P, _P, _P, _P],
     "probe_round": [_P] * 34 + [_I64] + [_I] * 6 + [_U32] + [_F32] * 5
-    + [_I] * 3 + [_P, _I] + [_P] * 5,
-    "originate": [_P] * 18 + [_I64] + [_I] * 6 + [_P, _I] + [_P] * 4,
-    "subject_maps": [_P] * 4 + [_I64, _I] + [_P] * 5,
-    "map_add": [_P] * 4 + [_I64, _I, _P],
-    "maps_convert": [_P] * 4 + [_I64, _I, _P],
-    "suspicion_expiry": [_P] * 14 + [_I64] + [_I] * 4 + [_P] * 3,
-    "dense_expiry": [_P] * 18 + [_I64] + [_I] * 5 + [_P, _I] + [_P] * 5,
-    "dense_expiry_post": [_P] * 14 + [_I64] + [_I] * 5 + [_P] * 6,
-    "refutation": [_P] * 12 + [_I64] + [_I] * 5 + [_P] * 2,
-    "expire": [_P] * 13 + [_I64] + [_I] * 4 + [_P] * 2,
+    + [_I] * 3 + [_P, _I] + [_P] * 4 + [_I64, _I64, _P, _I, _I64, _P, _P],
+    "probe_combine": [_P, _I, _I, _I, _P, _P, _P],
+    "originate": [_P] * 18 + [_I64] + [_I] * 6 + [_P, _I] + [_P] * 3
+    + [_I, _I64, _I64, _P, _I, _I64, _I, _P, _P, _P],
+    "subject_maps": [_P] * 4 + [_I64, _I, _I64, _I64] + [_P] * 5,
+    "map_add": [_P] * 4 + [_I64, _I, _I64, _I64, _P],
+    "maps_convert": [_P] * 4 + [_I64, _I, _I64, _I64, _P],
+    "suspicion_expiry": [_P] * 14 + [_I64] + [_I] * 4 + [_P] * 2
+    + [_I, _I64, _I64, _P, _I, _I64, _P, _P, _P],
+    "dense_expiry": [_P] * 18 + [_I64] + [_I] * 5 + [_P, _I] + [_P] * 4
+    + [_I, _I64, _I64, _P, _I, _I64, _P, _P],
+    "dense_expiry_post": [_P] * 14 + [_I64] + [_I] * 5 + [_P] * 5
+    + [_I64, _I64, _P, _I, _I64, _P],
+    "refutation": [_P] * 12 + [_I64] + [_I] * 5 + [_P]
+    + [_I, _I64, _I64, _P, _I, _I64, _P],
+    "expire": [_P] * 13 + [_I64] + [_I] * 4 + [_P]
+    + [_I, _I64, _I64, _P, _I, _I64, _P, _P, _P],
     "vivaldi_ring": [_P] * 7 + [_I64, _I, _I, _I, _U32, _U32] + [_F32] * 8
-    + [_P] * 5,
+    + [_P] * 4 + [_I64, _I64, _P, _I, _I64, _P],
     "bulk_step": [_P] * 9 + [_I64, _F32, _F32, _P, _I, _P, _P],
 }
 
@@ -204,7 +211,8 @@ class DrawSpec(ctypes.Structure):
 
     _fields_ = [("out", _P), ("n", _I64), ("sched", _U32 * 16),
                 ("mode", ctypes.c_int32), ("lo", _F32), ("span", _F32),
-                ("minval", _U32), ("range", _U32), ("mult", _U32)]
+                ("minval", _U32), ("range", _U32), ("mult", _U32),
+                ("first", _I64)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +221,8 @@ class Segment:
     key, two for randint: split(key)'s pair) into the n elements of the
     contiguous `out` (int32 for bits and randint, float32 otherwise).
     uniform and normal scale the unit float as max(lo, u * span + lo);
-    randint adds minval to ((hi % range) * mult + lo % range) % range."""
+    randint adds minval to ((hi % range) * mult + lo % range) % range.
+    out[0] is element `first` of the stream (a block of a draw's rows)."""
 
     mode: str
     keys: tuple
@@ -224,6 +233,7 @@ class Segment:
     minval: int = 0
     range: int = 1
     mult: int = 0
+    first: int = 0
 
 
 def _schedule(key) -> list:
@@ -251,11 +261,14 @@ def _spec(i: int, seg: Segment, device) -> DrawSpec:
     if seg.mode == "randint" and not 1 <= seg.range < 2 ** 32:
         raise ValueError(f"{name}: randint range {seg.range} outside "
                          f"[1, 2^32)")
+    if not 0 <= seg.first or seg.first + seg.n >= 2 ** 40:
+        raise ValueError(f"{name}: first element {seg.first} out of range")
     sched = _schedule(seg.keys[0]) + (_schedule(seg.keys[1])
                                       if len(seg.keys) == 2 else [0] * 8)
     return DrawSpec(seg.out.data_ptr(), seg.n, (_U32 * 16)(*sched),
                     DRAW_MODES.index(seg.mode), seg.lo, seg.span,
-                    seg.minval & 0xFFFFFFFF, seg.range, seg.mult & 0xFFFFFFFF)
+                    seg.minval & 0xFFFFFFFF, seg.range, seg.mult & 0xFFFFFFFF,
+                    seg.first)
 
 
 def randint_spec(keys, n: int, minval: int, range_: int,
@@ -268,12 +281,15 @@ def randint_spec(keys, n: int, minval: int, range_: int,
                          f"n {n}")
     sched = _schedule(keys[0]) + _schedule(keys[1])
     return DrawSpec(None, n, (_U32 * 16)(*sched), DRAW_MODES.index("randint"),
-                    0.0, 1.0, minval & 0xFFFFFFFF, range_, mult & 0xFFFFFFFF)
+                    0.0, 1.0, minval & 0xFFFFFFFF, range_, mult & 0xFFFFFFFF,
+                    0)
 
 
-def launch_draws(segments) -> None:
+def launch_draws(segments, blocks: bool = False) -> None:
     """K1: one launch writes every segment's draw, finished (at most
-    MAX_SEGMENTS segments, all on one device)."""
+    MAX_SEGMENTS segments, all on one device).  With `blocks` (a batch of
+    a node-sharded pool's draws, prng.draw_blocks) it counts as
+    `threefry_draws_blocks`."""
     if not 1 <= len(segments) <= MAX_SEGMENTS:
         raise ValueError(f"threefry_draws takes 1-{MAX_SEGMENTS} segments, "
                          f"got {len(segments)}")
@@ -284,7 +300,7 @@ def launch_draws(segments) -> None:
         rc = library().threefry_draws(ctypes.addressof(specs), len(segments),
                                       _stream(dev))
     _check(rc, "threefry_draws")
-    LAUNCHES["threefry_draws"] += 1
+    LAUNCHES["threefry_draws_blocks" if blocks else "threefry_draws"] += 1
     for mode in {seg.mode for seg in segments}:
         DRAW_LAUNCHES[mode] += 1
 
@@ -297,6 +313,13 @@ def _table(parts) -> ctypes.Array:
 
 def _no_table(parts) -> Optional[ctypes.Array]:
     return None if parts is None else _table(parts)
+
+
+def _one_table(*leaves) -> ctypes.Array:
+    """The block tables of a one-device launch of a kernel with a block
+    form: each leaf's own pointer (null for None), a table of one block
+    each."""
+    return (_P * len(leaves))(*[_ptr(t) for t in leaves])
 
 
 def _gossip_checks(n: int, s: int, g: int, limit: int, tick16: int,
@@ -1242,6 +1265,10 @@ def launch_probe_round(*, up, member, awareness, coords, committed_dead,
         if k > 0:
             _require(t, "probe_round " + what, _F, dev, (n, k))
     scratch = _counter_scratch(dev, "probe_round", PROBE_COUNTERS, extra=64)
+    tables = _one_table(up, member, committed_dead, committed_left,
+                        committed_inc, bulk_member, suspect_of, dead_of,
+                        left_of, alive_val, coords, chaos_grp, chaos_ok,
+                        sus_start, sus_confirm, sus_count, want_out)
     rc = library().probe_round(
         up.data_ptr(), member.data_ptr(), awareness.data_ptr(),
         coords.data_ptr(), committed_dead.data_ptr(),
@@ -1259,7 +1286,7 @@ def launch_probe_round(*, up, member, awareness, coords, committed_dead,
         ok_good, ok_bad, degraded_frac, probe_timeout_ms, rtt_base_ms, tick,
         tick16, limit, scratch.data_ptr(), SCRATCH_BLOCKS,
         want_out.data_ptr(), row_subject_out.data_ptr(), rtt_out.data_ptr(),
-        acked_out.data_ptr(), _stream(dev))
+        acked_out.data_ptr(), 0, n, tables, 1, n, None, _stream(dev))
     _check(rc, "probe_round")
     LAUNCHES["probe_round"] += 1
 
@@ -1314,7 +1341,8 @@ def launch_originate(*, want, row_subject, inc_of_subject, up, member, know,
         r_confirm.data_ptr(), r_coverage.data_ptr(), n, u, alloc, kind, tick,
         tick16, limit, scratch.data_ptr(), ORIGINATE_LIST_BLOCKS,
         subjects_out.data_ptr(), slots_out.data_ptr(), ok_out.data_ptr(),
-        _stream(dev))
+        0, 0, n, _one_table(inc_of_subject, committed_dead, committed_left,
+                            committed_inc), 1, n, 0, None, None, _stream(dev))
     _check(rc, "originate")
     LAUNCHES["originate"] += 1
 
@@ -1356,7 +1384,7 @@ def launch_subject_maps(r_active, r_kind, r_subject, r_inc, suspect_of,
                   (alive_val, "alive_val", _I32))
     rc = library().subject_maps(
         r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(),
-        r_inc.data_ptr(), n, u, suspect_of.data_ptr(), dead_of.data_ptr(),
+        r_inc.data_ptr(), n, u, 0, n, suspect_of.data_ptr(), dead_of.data_ptr(),
         left_of.data_ptr(), alive_val.data_ptr(), _stream(dev))
     _check(rc, "subject_maps")
     LAUNCHES["subject_maps"] += 1
@@ -1375,7 +1403,7 @@ def launch_map_add(map_n, subjects, slots, ok) -> None:
     _node_vectors("map_add", dev, a, (subjects, "subjects", _I32),
                   (slots, "slots", _I32), (ok, "ok", _BOOL))
     rc = library().map_add(map_n.data_ptr(), subjects.data_ptr(),
-                           slots.data_ptr(), ok.data_ptr(), n, a,
+                           slots.data_ptr(), ok.data_ptr(), n, a, 0, n,
                            _stream(dev))
     _check(rc, "map_add")
     LAUNCHES["map_add"] += 1
@@ -1396,7 +1424,7 @@ def launch_maps_convert(suspect_of, dead_of, convert, r_subject) -> None:
                   (r_subject, "r_subject", _I32))
     rc = library().maps_convert(suspect_of.data_ptr(), dead_of.data_ptr(),
                                 convert.data_ptr(), r_subject.data_ptr(), n,
-                                u, _stream(dev))
+                                u, 0, n, _stream(dev))
     _check(rc, "maps_convert")
     LAUNCHES["maps_convert"] += 1
 
@@ -1433,7 +1461,9 @@ def launch_suspicion_expiry(*, know, learn_tick, sends_left, up, member,
         committed_inc.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
         r_subject.data_ptr(), r_inc.data_ptr(), r_start.data_ptr(),
         r_confirm.data_ptr(), timeouts.data_ptr(), n, u, tick, tick16, limit,
-        scratch.data_ptr(), convert_out.data_ptr(), _stream(dev))
+        scratch.data_ptr(), convert_out.data_ptr(), 0, 0, n,
+        _one_table(committed_inc, committed_dead), 1, n, None, None,
+        _stream(dev))
     _check(rc, "suspicion_expiry")
     LAUNCHES["suspicion_expiry"] += 1
 
@@ -1489,7 +1519,10 @@ def launch_dense_expiry(*, sus_start, sus_confirm, up, member, committed_dead,
         r_start.data_ptr(), timeouts.data_ptr(), shift.data_ptr(), n, u,
         tick, tick16, limit, period, scratch.data_ptr(), SCRATCH_BLOCKS,
         exp_out.data_ptr(), want_out.data_ptr(), row_subject_out.data_ptr(),
-        counts_out.data_ptr(), _stream(dev))
+        counts_out.data_ptr(), 0, 0, n,
+        _one_table(up, member, committed_dead, bulk_member, left_of, sus_start,
+                   sus_confirm, suspect_of, dead_of, want_out), 1, n, None,
+        _stream(dev))
     _check(rc, "dense_expiry")
     LAUNCHES["dense_expiry"] += 1
 
@@ -1543,7 +1576,7 @@ def launch_dense_expiry_post(*, want, dead_of, left_of, exp, r_subject,
         counts.data_ptr(), shift.data_ptr(), n, u, a, tick, period,
         int(chaos), bulk_member.data_ptr(), bulk_heard.data_ptr(),
         bulk_cov.data_ptr(), sus_start.data_ptr(), sus_confirm.data_ptr(),
-        _stream(dev))
+        0, n, _one_table(want, dead_of), 1, n, _stream(dev))
     _check(rc, "dense_expiry_post")
     LAUNCHES["dense_expiry_post"] += 1
 
@@ -1577,7 +1610,8 @@ def launch_refutation(*, incarnation, awareness, up, member, know, learn_tick,
         member.data_ptr(), know.data_ptr(), learn_tick.data_ptr(),
         sends_left.data_ptr(), r_active.data_ptr(), r_kind.data_ptr(),
         r_subject.data_ptr(), r_inc.data_ptr(), r_start.data_ptr(), n, u,
-        awareness_max, tick, tick16, limit, scratch.data_ptr(), _stream(dev))
+        awareness_max, tick, tick16, limit, scratch.data_ptr(), 0, 0, n,
+        _one_table(know, up, member, incarnation), 1, n, _stream(dev))
     _check(rc, "refutation")
     LAUNCHES["refutation"] += 1
 
@@ -1625,7 +1659,9 @@ def launch_expire(*, know, sends_left, up, member, committed_dead,
         committed_left.data_ptr(), committed_inc.data_ptr(),
         r_active.data_ptr(), r_kind.data_ptr(), r_subject.data_ptr(),
         r_inc.data_ptr(), r_start.data_ptr(), r_coverage.data_ptr(), n, u,
-        tick, life_gossip, life_suspect, scratch.data_ptr(), _stream(dev))
+        tick, life_gossip, life_suspect, scratch.data_ptr(), 0, 0, n,
+        _one_table(committed_dead, committed_left, committed_inc), 1, n, None,
+        None, _stream(dev))
     _check(rc, "expire")
     LAUNCHES["expire"] += 1
 
@@ -1680,7 +1716,8 @@ def launch_vivaldi_ring(*, coords, height, error, window, rtt_ms, acked,
         shift.data_ptr(), n, d, w, col, k0, k1, normal_lo, normal_span, ce,
         cc, error_max, height_min, inv_rho, mean_factor,
         coords_out.data_ptr(), height_out.data_ptr(), error_out.data_ptr(),
-        adjustment.data_ptr(), _stream(dev))
+        adjustment.data_ptr(), 0, n, _one_table(coords, height, error), 1, n,
+        _stream(dev))
     _check(rc, "vivaldi_ring")
     LAUNCHES["vivaldi_ring"] += 1
 
@@ -1732,3 +1769,625 @@ def launch_bulk_step(*, bulk_member, bulk_heard, bulk_cov, up, member,
         partials.data_ptr(), SCRATCH_BLOCKS, carry.data_ptr(), _stream(dev))
     _check(rc, "bulk_step")
     LAUNCHES["bulk_step"] += 1
+
+
+# --------------------------------------------------------------------------
+# the block forms of the probe tick's kernels (K7-K13) over a node-sharded
+# pool: a launch a block over its rows on its device, the leaves read or
+# written at another row through block tables, and a combine launch on
+# the mesh's first device where the one-device kernel has a grid-wide
+# step.  [N] and [N, W] leaves are parallel/mesh.Blocks, the [U] table,
+# the timeout table and the counters Replicated (the combine writes the
+# first device's copy; the others are copied from it), the small outputs
+# on the first device.
+
+MAX_BLOCKS = 16                  # common.cuh's kMaxBlocks
+PROBE_PART = PROBE_COUNTERS + 1  # probe.cu's kPart
+ORIGINATE_PART = 130             # originate.cu's kPartWords
+ORIGINATE_PLAN_WORDS = 66        # originate.cu's kPlanWords
+EXPIRE_PART = 65                 # refute.cu's kExpirePart
+# the modes of the kernels with a block form (the csrc enums)
+_ORIG = {"select": 1, "cover": 2, "combine": 3, "seed": 4}
+_EXPIRY = {"scan": 1, "combine": 2, "apply": 3}
+_DENSE = {"block": 1, "combine": 2}
+_REFUTE = {"block": 1, "combine": 2}
+_EXPIRE = {"combine": 2, "count": 3, "clear": 4}
+# the block forms' launches (each counted once a launch)
+BLOCK_FORMS = ("subject_maps_blocks", "map_add_blocks", "maps_convert_blocks",
+               "probe_round_blocks", "probe_combine", "originate_blocks",
+               "originate_combine", "suspicion_expiry_blocks",
+               "suspicion_expiry_combine", "dense_expiry_blocks",
+               "dense_expiry_combine", "dense_expiry_post_blocks",
+               "refutation_blocks", "refutation_combine", "expire_blocks",
+               "expire_combine", "vivaldi_ring_blocks",
+               "threefry_draws_blocks")
+KERNELS = KERNELS + BLOCK_FORMS
+for _name in BLOCK_FORMS:
+    LAUNCHES[_name] = 0
+
+
+class _Blocked:
+    """The blocks of one block-form call: B blocks of L rows of an N-node
+    pool on `devs`, the first the home of the combine and the outputs."""
+
+    def __init__(self, name: str, like):
+        self.name = name
+        if getattr(like, "parts", None) is None:
+            raise ValueError(f"{name}: want a parallel/mesh.Blocks leaf")
+        self.nb, self.ell = like.n_blocks, like.rows
+        self.n = self.nb * self.ell
+        if not 1 <= self.nb <= MAX_BLOCKS or not 1 <= self.n < 2 ** 31:
+            raise ValueError(f"{name}: {self.nb} blocks of {self.ell} rows, "
+                             f"want 1-{MAX_BLOCKS} blocks and N < 2^31")
+        self.devs = like.devices
+        self.home = self.devs[0]
+        enable_peer_access(self.devs)
+
+    def rows(self, x, what: str, dtype, width=None, optional=False):
+        """x's B blocks, each [L] (or [L, width]) of dtype on its device."""
+        if x is None and optional:
+            return [None] * self.nb
+        parts = _parts(x, self.nb, f"{self.name} {what}")
+        shape = (self.ell,) if width is None else (self.ell, width)
+        for p, d in zip(parts, self.devs):
+            _require(p, f"{self.name} {what}", dtype, d, shape)
+        return parts
+
+    def copies(self, x, what: str, dtype, shape):
+        """x's copy on each block's device (a Replicated leaf or a tensor
+        on the first device)."""
+        out = [_copy_on(x, d, f"{self.name} {what}") for d in self.devs]
+        for c, d in zip(out, self.devs):
+            if isinstance(x, torch.Tensor):
+                d = self.home
+            _require(c, f"{self.name} {what}", dtype, d, shape)
+        return out
+
+    def home_copy(self, x):
+        return x if isinstance(x, torch.Tensor) else x.on(self.home)
+
+    def tables(self, *leaves) -> ctypes.Array:
+        """The host table array: each leaf's B block pointers in turn (a
+        None leaf: B nulls)."""
+        ptrs = []
+        for parts in leaves:
+            ptrs.extend([_ptr(p) for p in parts] if parts is not None
+                        else [None] * self.nb)
+        return (_P * len(ptrs))(*ptrs)
+
+    def each(self, kernel: str, count: str, call) -> None:
+        """call(b, device, stream) for every block, each on its device."""
+        fn = getattr(library(), kernel)
+        for b, d in enumerate(self.devs):
+            with _on(d):
+                rc = fn(*call(b, d), _stream(d))
+            _check(rc, kernel)
+            LAUNCHES[count] += 1
+
+    def once(self, kernel: str, count: str, args) -> None:
+        """One launch on the first device."""
+        with _on(self.home):
+            rc = getattr(library(), kernel)(*args, _stream(self.home))
+        _check(rc, kernel)
+        LAUNCHES[count] += 1
+
+    def join(self) -> None:
+        from consul_tpu_torch.parallel import mesh
+        mesh.join(self.devs)
+
+    def spread(self, *leaves) -> None:
+        """The first device's copy of each Replicated leaf copied into its
+        other copies (after a combine wrote it)."""
+        self.join()
+        for x in leaves:
+            for c in getattr(x, "copies", ())[1:]:
+                c.copy_(x.copies[0])
+        self.join()
+
+
+def launch_subject_maps_blocks(r_active, r_kind, r_subject, r_inc,
+                               maps) -> None:
+    """K9's build over blocks: maps is the four [N] int32 maps as Blocks
+    (suspect_of, dead_of, left_of, alive_val), each block's rows written
+    whole by a launch on its device from its copy of the table."""
+    m = _Blocked("subject_maps", maps[0])
+    rows = [m.rows(x, f"map {i}", _I32) for i, x in enumerate(maps)]
+    u = r_active.shape[0]
+    tab = [m.copies(x, w, dt, (u,)) for x, w, dt in (
+        (r_active, "r_active", _BOOL), (r_kind, "r_kind", _I8),
+        (r_subject, "r_subject", _I32), (r_inc, "r_inc", _I32))]
+    m.each("subject_maps", "subject_maps_blocks", lambda b, d: (
+        *[t[b].data_ptr() for t in tab], m.n, u, b * m.ell, m.ell,
+        *[r[b].data_ptr() for r in rows]))
+
+
+def launch_map_add_blocks(map_n, subjects, slots, ok) -> None:
+    """K9's map_add over blocks, in place: each block applies the pairs
+    whose subject it holds (the masked pairs' -1: block 0's row 0).  The
+    pairs are [A] tensors on the first device."""
+    m = _Blocked("map_add", map_n)
+    rows = m.rows(map_n, "map", _I32)
+    a = subjects.shape[0]
+    for t, w, dt in ((subjects, "subjects", _I32), (slots, "slots", _I32),
+                     (ok, "ok", _BOOL)):
+        _require(t, "map_add " + w, dt, m.home, (a,))
+    m.each("map_add", "map_add_blocks", lambda b, d: (
+        rows[b].data_ptr(), subjects.data_ptr(), slots.data_ptr(),
+        ok.data_ptr(), m.n, a, b * m.ell, m.ell))
+
+
+def launch_maps_convert_blocks(suspect_of, dead_of, convert,
+                               r_subject) -> None:
+    """K9's maps_convert over blocks, in place (convert [U] on the first
+    device)."""
+    m = _Blocked("maps_convert", suspect_of)
+    sus = m.rows(suspect_of, "suspect_of", _I32)
+    dead = m.rows(dead_of, "dead_of", _I32)
+    u = convert.shape[0]
+    _require(convert, "maps_convert convert", _BOOL, m.home, (u,))
+    subj = m.home_copy(r_subject)
+    m.each("maps_convert", "maps_convert_blocks", lambda b, d: (
+        sus[b].data_ptr(), dead[b].data_ptr(), convert.data_ptr(),
+        subj.data_ptr(), m.n, u, b * m.ell, m.ell))
+
+
+def launch_probe_round_blocks(*, up, member, awareness, coords,
+                              committed_dead, committed_left, committed_inc,
+                              bulk_member, know, learn_tick, sends_left,
+                              sus_start, sus_confirm, sus_count, chaos_grp,
+                              chaos_ok, r_active, r_kind, r_subject, r_inc,
+                              r_confirm, timeouts, suspect_of, dead_of,
+                              left_of, alive_val, ctr, offs, rtt_draw, direct,
+                              lha, leg_a, leg_b, leg_c, awareness_max: int,
+                              degraded: bool, seed: int, ok_good: float,
+                              ok_bad: float, degraded_frac: float,
+                              probe_timeout_ms: float, rtt_base_ms: float,
+                              tick: int, tick16: int, limit: int, want_out,
+                              row_subject_out, rtt_out, acked_out) -> None:
+    """K7 over blocks (launch_probe_round's arguments, the [N] and [N, W]
+    ones Blocks, the tables, offs and ctr Replicated): a probe_round
+    launch a block over its rows, the targets' and relays' leaves read and
+    the targets' timers and want written through block tables, each
+    launch's counters and slot marks into its own partial slot; then one
+    probe_combine on the first device (r_confirm and ctr), copied to the
+    other devices."""
+    m = _Blocked("probe_round", know)
+    u = know.shape[1]
+    k = offs.shape[0] - 1
+    if not 0 <= k <= PROBE_MAX_RELAYS or not 0 <= awareness_max <= 127:
+        raise ValueError(f"probe_round: {k} relays, awareness_max "
+                         f"{awareness_max}")
+    _ticks("probe_round", tick, tick16, limit)
+    c = ctr.shape[0]
+    if not PROBE_COUNTERS <= c <= 16:
+        raise ValueError("probe_round: ctr must be [C], 4 <= C <= 16")
+    r = {w: m.rows(x, w, dt, width, opt) for w, x, dt, width, opt in (
+        ("up", up, _BOOL, None, False), ("member", member, _BOOL, None, False),
+        ("awareness", awareness, _I8, None, False),
+        ("coords", coords, _F, 2, False),
+        ("committed_dead", committed_dead, _BOOL, None, False),
+        ("committed_left", committed_left, _BOOL, None, False),
+        ("committed_inc", committed_inc, _I32, None, False),
+        ("bulk_member", bulk_member, _BOOL, None, False),
+        ("know", know, _BOOL, u, False), ("learn_tick", learn_tick, _I16, u,
+                                          False),
+        ("sends_left", sends_left, _I8, u, False),
+        ("sus_start", sus_start, _I32, None, False),
+        ("sus_confirm", sus_confirm, _I8, None, False),
+        ("sus_count", sus_count, _I32, None, False),
+        ("chaos_grp", chaos_grp, _I16, None, True),
+        ("chaos_ok", chaos_ok, _F, None, True),
+        ("suspect_of", suspect_of, _I32, None, False),
+        ("dead_of", dead_of, _I32, None, False),
+        ("left_of", left_of, _I32, None, False),
+        ("alive_val", alive_val, _I32, None, False),
+        ("rtt_draw", rtt_draw, _F, None, False),
+        ("direct", direct, _F, None, False), ("lha", lha, _F, None, True),
+        ("leg_a", leg_a, _F, k, True), ("leg_b", leg_b, _F, k, True),
+        ("leg_c", leg_c, _F, k, True),
+        ("want_out", want_out, _I32, None, False),
+        ("row_subject_out", row_subject_out, _I32, None, False),
+        ("rtt_out", rtt_out, _F, None, False),
+        ("acked_out", acked_out, _BOOL, None, False))}
+    if (chaos_grp is None) != (chaos_ok is None) \
+            or (awareness_max > 0) != (lha is not None) \
+            or any((x is None) != (k == 0) for x in (leg_a, leg_b, leg_c)):
+        raise ValueError("probe_round: chaos_grp/chaos_ok, lha and the legs "
+                         "come as the one-device launch takes them")
+    tab = {w: m.copies(x, w, dt, shape) for w, x, dt, shape in (
+        ("r_active", r_active, _BOOL, (u,)), ("r_kind", r_kind, _I8, (u,)),
+        ("r_subject", r_subject, _I32, (u,)), ("r_inc", r_inc, _I32, (u,)),
+        ("r_confirm", r_confirm, _I8, (u,)),
+        ("timeouts", timeouts, _I16, (TIMEOUTS,)),
+        ("offs", offs, _I32, (k + 1,)), ("ctr", ctr, _F, (c,)))}
+    tables = m.tables(*[r[w] for w in (
+        "up", "member", "committed_dead", "committed_left", "committed_inc",
+        "bulk_member", "suspect_of", "dead_of", "left_of", "alive_val",
+        "coords")], r["chaos_grp"] if chaos_grp is not None else None,
+        r["chaos_ok"] if chaos_ok is not None else None,
+        r["sus_start"], r["sus_confirm"], r["sus_count"], r["want_out"])
+    part = torch.empty(PROBE_PART * m.nb, dtype=torch.int64, device=m.home)
+    chaos = int(chaos_grp is not None)
+
+    def call(b, d):
+        p = {w: _ptr(v[b]) for w, v in r.items()}
+        t = {w: v[b].data_ptr() for w, v in tab.items()}
+        return (p["up"], p["member"], p["awareness"], p["coords"],
+                p["committed_dead"], p["committed_left"], p["committed_inc"],
+                p["bulk_member"], p["know"], p["learn_tick"], p["sends_left"],
+                p["sus_start"], p["sus_confirm"], p["sus_count"],
+                p["chaos_grp"], p["chaos_ok"], t["r_active"], t["r_kind"],
+                t["r_subject"], t["r_inc"], t["r_confirm"], t["timeouts"],
+                p["suspect_of"], p["dead_of"], p["left_of"], p["alive_val"],
+                t["ctr"], t["offs"], p["rtt_draw"], p["direct"], p["lha"],
+                p["leg_a"], p["leg_b"], p["leg_c"], m.n, u, k, awareness_max,
+                chaos, int(degraded), c, seed & 0xFFFFFFFF, ok_good, ok_bad,
+                degraded_frac, probe_timeout_ms, rtt_base_ms, tick, tick16,
+                limit,
+                _counter_scratch(d, "probe_round", PROBE_COUNTERS,
+                                 extra=64).data_ptr(),
+                SCRATCH_BLOCKS, p["want_out"], p["row_subject_out"],
+                p["rtt_out"], p["acked_out"], b * m.ell, m.ell, tables,
+                m.nb, m.ell, part.data_ptr() + 8 * PROBE_PART * b)
+
+    m.each("probe_round", "probe_round_blocks", call)
+    m.join()
+    m.once("probe_combine", "probe_combine", (
+        part.data_ptr(), m.nb, u, c, m.home_copy(r_confirm).data_ptr(),
+        m.home_copy(ctr).data_ptr()))
+    m.spread(r_confirm, ctr)
+
+
+def launch_originate_blocks(*, want, row_subject, inc_of_subject, up, member,
+                            know, learn_tick, sends_left, committed_dead,
+                            committed_left, committed_inc, r_active, r_kind,
+                            r_subject, r_inc, r_start, r_confirm, r_coverage,
+                            alloc: int, kind: int, tick: int, tick16: int,
+                            limit: int, subjects_out, slots_out,
+                            ok_out) -> None:
+    """K8 over blocks (launch_originate's arguments, the [N] and [N, U]
+    ones Blocks, the table Replicated, the outputs on the first device): a
+    select launch a block (its top `alloc` wants and demand into its
+    slot), a cover launch a block (its live counts, only when the blocks'
+    demand exceeds the free slots), one combine on the first device (the
+    top of the blocks' candidates, the decision, the table and the
+    committed cells through tables, the plan), the table copied to the
+    other devices, and a seed launch a block."""
+    m = _Blocked("originate", know)
+    u = know.shape[1]
+    if not 1 <= alloc <= min(u, m.n):
+        raise ValueError(f"originate: alloc {alloc} outside [1, min(U, N)]")
+    if not 0 <= kind <= 3:
+        raise ValueError(f"originate: kind {kind}")
+    _ticks("originate", tick, tick16, limit)
+    r = {w: m.rows(x, w, dt, width) for w, x, dt, width in (
+        ("want", want, _I32, None), ("row_subject", row_subject, _I32, None),
+        ("inc_of_subject", inc_of_subject, _I32, None),
+        ("up", up, _BOOL, None), ("member", member, _BOOL, None),
+        ("know", know, _BOOL, u), ("learn_tick", learn_tick, _I16, u),
+        ("sends_left", sends_left, _I8, u),
+        ("committed_dead", committed_dead, _BOOL, None),
+        ("committed_left", committed_left, _BOOL, None),
+        ("committed_inc", committed_inc, _I32, None))}
+    names = ("r_active", "r_kind", "r_subject", "r_inc", "r_start",
+             "r_confirm", "r_coverage")
+    leaves = (r_active, r_kind, r_subject, r_inc, r_start, r_confirm,
+              r_coverage)
+    tab = {w: m.copies(x, w, dt, (u,)) for w, x, dt in zip(
+        names, leaves, (_BOOL, _I8, _I32, _I32, _I32, _I8, _F))}
+    for t, w, dt in ((subjects_out, "subjects_out", _I32),
+                     (slots_out, "slots_out", _I32), (ok_out, "ok_out", _BOOL)):
+        _require(t, "originate " + w, dt, m.home, (alloc,))
+    tables = m.tables(r["inc_of_subject"], r["committed_dead"],
+                      r["committed_left"], r["committed_inc"])
+    buf = torch.empty(ORIGINATE_PART * m.nb + ORIGINATE_PLAN_WORDS,
+                      dtype=torch.int64, device=m.home)
+    plan = buf.data_ptr() + 8 * ORIGINATE_PART * m.nb
+
+    def args(b, d, mode):
+        p = {w: v[b].data_ptr() for w, v in r.items()}
+        t = {w: v[b].data_ptr() for w, v in tab.items()}
+        return (p["want"], p["row_subject"], p["inc_of_subject"], p["up"],
+                p["member"], p["know"], p["learn_tick"], p["sends_left"],
+                p["committed_dead"], p["committed_left"], p["committed_inc"],
+                *[t[w] for w in names], m.n, u, alloc, kind, tick, tick16,
+                limit,
+                _scratch_words(d, "originate", ORIGINATE_PLAN
+                               + 64 * ORIGINATE_LIST_BLOCKS).data_ptr(),
+                ORIGINATE_LIST_BLOCKS, subjects_out.data_ptr(),
+                slots_out.data_ptr(), ok_out.data_ptr(), _ORIG[mode],
+                b * m.ell, m.ell, tables, m.nb, m.ell, b, buf.data_ptr(),
+                plan)
+
+    m.each("originate", "originate_blocks", lambda b, d: args(b, d, "select"))
+    m.join()
+    m.each("originate", "originate_blocks", lambda b, d: args(b, d, "cover"))
+    m.join()
+    m.once("originate", "originate_combine", args(0, m.home, "combine"))
+    m.spread(*leaves)
+    m.each("originate", "originate_blocks", lambda b, d: args(b, d, "seed"))
+
+
+def launch_suspicion_expiry_blocks(*, know, learn_tick, sends_left, up,
+                                   member, committed_dead, committed_inc,
+                                   r_active, r_kind, r_subject, r_inc, r_start,
+                                   r_confirm, timeouts, tick: int, tick16: int,
+                                   limit: int, convert_out) -> None:
+    """K10 over blocks: a scan launch a block (its expired-slot word), one
+    combine on the first device (the decision: convert_out, the
+    converted slots' kind and start, the plan word; the subjects'
+    committed cells through tables), the table copied, an apply launch a
+    block."""
+    m = _Blocked("suspicion_expiry", know)
+    u = know.shape[1]
+    _ticks("suspicion_expiry", tick, tick16, limit)
+    r = {w: m.rows(x, w, dt, width) for w, x, dt, width in (
+        ("know", know, _BOOL, u), ("learn_tick", learn_tick, _I16, u),
+        ("sends_left", sends_left, _I8, u), ("up", up, _BOOL, None),
+        ("member", member, _BOOL, None),
+        ("committed_dead", committed_dead, _BOOL, None),
+        ("committed_inc", committed_inc, _I32, None))}
+    names = ("r_active", "r_kind", "r_subject", "r_inc", "r_start",
+             "r_confirm", "timeouts")
+    tab = {w: m.copies(x, w, dt, shape) for w, x, dt, shape in zip(
+        names, (r_active, r_kind, r_subject, r_inc, r_start, r_confirm,
+                timeouts), (_BOOL, _I8, _I32, _I32, _I32, _I8, _I16),
+        ((u,),) * 6 + ((TIMEOUTS,),))}
+    _require(convert_out, "suspicion_expiry convert_out", _BOOL, m.home, (u,))
+    tables = m.tables(r["committed_inc"], r["committed_dead"])
+    buf = torch.empty(m.nb + 1, dtype=torch.int64, device=m.home)
+
+    def args(b, d, mode):
+        p = {w: v[b].data_ptr() for w, v in r.items()}
+        t = {w: v[b].data_ptr() for w, v in tab.items()}
+        return (p["know"], p["learn_tick"], p["sends_left"], p["up"],
+                p["member"], p["committed_dead"], p["committed_inc"],
+                *[t[w] for w in names], m.n, u, tick, tick16, limit,
+                _scratch_words(d, "suspicion_expiry",
+                               EXPIRY_SCRATCH).data_ptr(),
+                convert_out.data_ptr(), _EXPIRY[mode], b * m.ell, m.ell,
+                tables, m.nb, m.ell,
+                buf.data_ptr() + (0 if mode == "combine" else 8 * b),
+                buf.data_ptr() + 8 * m.nb)
+
+    m.each("suspicion_expiry", "suspicion_expiry_blocks",
+           lambda b, d: args(b, d, "scan"))
+    m.join()
+    m.once("suspicion_expiry", "suspicion_expiry_combine",
+           args(0, m.home, "combine"))
+    m.spread(r_kind, r_start)
+    m.each("suspicion_expiry", "suspicion_expiry_blocks",
+           lambda b, d: args(b, d, "apply"))
+
+
+def launch_dense_expiry_blocks(*, sus_start, sus_confirm, up, member,
+                               committed_dead, bulk_member, suspect_of,
+                               dead_of, left_of, know, learn_tick, sends_left,
+                               r_active, r_kind, r_subject, r_start, timeouts,
+                               shift, tick: int, tick16: int, limit: int,
+                               period: int, exp_out, want_out,
+                               row_subject_out, counts_out) -> None:
+    """K11's pre over blocks: a launch a block (the wants at each prober's
+    target written through a table, the learn-tick stamps of its rows, its
+    sums into its slot), then one dense combine on the first device (the
+    sums added in block order into counts_out, exp_out, the converted
+    slots' kind and start), the table copied.  shift, exp_out and
+    counts_out on the first device."""
+    m = _Blocked("dense_expiry", know)
+    u = know.shape[1]
+    _ticks("dense_expiry", tick, tick16, limit)
+    r = {w: m.rows(x, w, dt, width) for w, x, dt, width in (
+        ("sus_start", sus_start, _I32, None),
+        ("sus_confirm", sus_confirm, _I8, None), ("up", up, _BOOL, None),
+        ("member", member, _BOOL, None),
+        ("committed_dead", committed_dead, _BOOL, None),
+        ("bulk_member", bulk_member, _BOOL, None),
+        ("suspect_of", suspect_of, _I32, None),
+        ("dead_of", dead_of, _I32, None), ("left_of", left_of, _I32, None),
+        ("know", know, _BOOL, u), ("learn_tick", learn_tick, _I16, u),
+        ("sends_left", sends_left, _I8, u),
+        ("want_out", want_out, _I32, None),
+        ("row_subject_out", row_subject_out, _I32, None))}
+    names = ("r_active", "r_kind", "r_subject", "r_start", "timeouts")
+    tab = {w: m.copies(x, w, dt, shape) for w, x, dt, shape in zip(
+        names, (r_active, r_kind, r_subject, r_start, timeouts),
+        (_BOOL, _I8, _I32, _I32, _I32), ((u,),) * 4 + ((TIMEOUTS,),))}
+    _shift("dense_expiry", shift, m.home)
+    _require(exp_out, "dense_expiry exp_out", _BOOL, m.home, (u,))
+    _require(counts_out, "dense_expiry counts_out", torch.int64, m.home,
+             (DENSE_COUNTS,))
+    tables = m.tables(*[r[w] for w in (
+        "up", "member", "committed_dead", "bulk_member", "left_of",
+        "sus_start", "sus_confirm", "suspect_of", "dead_of", "want_out")])
+    part = torch.empty(DENSE_COUNTS * m.nb, dtype=torch.int64, device=m.home)
+
+    def args(b, d, mode):
+        p = {w: v[b].data_ptr() for w, v in r.items()}
+        t = {w: v[b].data_ptr() for w, v in tab.items()}
+        return (p["sus_start"], p["sus_confirm"], p["up"], p["member"],
+                p["committed_dead"], p["bulk_member"], p["suspect_of"],
+                p["dead_of"], p["left_of"], p["know"], p["learn_tick"],
+                p["sends_left"], t["r_active"], t["r_kind"], t["r_subject"],
+                t["r_start"], t["timeouts"], shift.data_ptr(), m.n, u, tick,
+                tick16, limit, period,
+                _counter_scratch(d, "dense_expiry",
+                                 DENSE_COUNTS).data_ptr(),
+                SCRATCH_BLOCKS, exp_out.data_ptr(), p["want_out"],
+                p["row_subject_out"], counts_out.data_ptr(), _DENSE[mode],
+                b * m.ell, m.ell, tables, m.nb, m.ell,
+                part.data_ptr() + (0 if mode == "combine"
+                                   else 8 * DENSE_COUNTS * b))
+
+    m.each("dense_expiry", "dense_expiry_blocks",
+           lambda b, d: args(b, d, "block"))
+    m.join()
+    m.once("dense_expiry", "dense_expiry_combine", args(0, m.home, "combine"))
+    m.spread(r_kind, r_start)
+
+
+def launch_dense_expiry_post_blocks(*, want, dead_of, left_of, exp,
+                                    r_subject, subjects, slots, ok, up,
+                                    member, committed_dead, committed_left,
+                                    counts, shift, tick: int, period: int,
+                                    chaos: bool, bulk_member, bulk_heard,
+                                    bulk_cov, sus_start,
+                                    sus_confirm) -> None:
+    """K11's post over blocks: a launch a block, want and dead_of at the
+    ring peer read through tables; exp, r_subject, the origination's
+    pairs, counts and shift on the first device."""
+    m = _Blocked("dense_expiry_post", want)
+    u, a = exp.shape[0], subjects.shape[0]
+    r = {w: m.rows(x, w, dt) for w, x, dt in (
+        ("want", want, _I32), ("dead_of", dead_of, _I32),
+        ("left_of", left_of, _I32), ("up", up, _BOOL),
+        ("member", member, _BOOL), ("committed_dead", committed_dead, _BOOL),
+        ("committed_left", committed_left, _BOOL),
+        ("bulk_member", bulk_member, _BOOL), ("bulk_heard", bulk_heard, _F),
+        ("bulk_cov", bulk_cov, _F), ("sus_start", sus_start, _I32),
+        ("sus_confirm", sus_confirm, _I8))}
+    for t, w, dt, shape in ((exp, "exp", _BOOL, (u,)),
+                            (r_subject, "r_subject", _I32, (u,)),
+                            (subjects, "subjects", _I32, (a,)),
+                            (slots, "slots", _I32, (a,)), (ok, "ok", _BOOL, (a,)),
+                            (counts, "counts", torch.int64, (DENSE_COUNTS,))):
+        _require(t, "dense_expiry_post " + w, dt, m.home, shape)
+    _shift("dense_expiry_post", shift, m.home)
+    tables = m.tables(r["want"], r["dead_of"])
+
+    def call(b, d):
+        p = {w: v[b].data_ptr() for w, v in r.items()}
+        return (p["want"], p["dead_of"], p["left_of"], exp.data_ptr(),
+                r_subject.data_ptr(), subjects.data_ptr(), slots.data_ptr(),
+                ok.data_ptr(), p["up"], p["member"], p["committed_dead"],
+                p["committed_left"], counts.data_ptr(), shift.data_ptr(), m.n,
+                u, a, tick, period, int(chaos), p["bulk_member"],
+                p["bulk_heard"], p["bulk_cov"], p["sus_start"],
+                p["sus_confirm"], b * m.ell, m.ell, tables, m.nb, m.ell)
+
+    m.each("dense_expiry_post", "dense_expiry_post_blocks", call)
+
+
+def launch_refutation_blocks(*, incarnation, awareness, up, member, know,
+                             learn_tick, sends_left, r_active, r_kind,
+                             r_subject, r_inc, r_start, awareness_max: int,
+                             tick: int, tick16: int, limit: int) -> None:
+    """K12's refutation over blocks: a launch a block (the decision from
+    the subjects' cells through tables, its rows' scores and needing
+    columns), then one refutation combine on the first device (the table
+    and the subjects' incarnations through a writable table), the table
+    copied."""
+    m = _Blocked("refutation", know)
+    u = know.shape[1]
+    _ticks("refutation", tick, tick16, limit)
+    if not 0 <= awareness_max <= 127:
+        raise ValueError(f"refutation: awareness_max {awareness_max}")
+    r = {w: m.rows(x, w, dt, width) for w, x, dt, width in (
+        ("incarnation", incarnation, _I32, None),
+        ("awareness", awareness, _I8, None), ("up", up, _BOOL, None),
+        ("member", member, _BOOL, None), ("know", know, _BOOL, u),
+        ("learn_tick", learn_tick, _I16, u),
+        ("sends_left", sends_left, _I8, u))}
+    names = ("r_active", "r_kind", "r_subject", "r_inc", "r_start")
+    tab = {w: m.copies(x, w, dt, (u,)) for w, x, dt in zip(
+        names, (r_active, r_kind, r_subject, r_inc, r_start),
+        (_BOOL, _I8, _I32, _I32, _I32))}
+    tables = m.tables(r["know"], r["up"], r["member"], r["incarnation"])
+
+    def args(b, d, mode):
+        p = {w: v[b].data_ptr() for w, v in r.items()}
+        t = {w: v[b].data_ptr() for w, v in tab.items()}
+        return (p["incarnation"], p["awareness"], p["up"], p["member"],
+                p["know"], p["learn_tick"], p["sends_left"],
+                *[t[w] for w in names], m.n, u, awareness_max, tick, tick16,
+                limit,
+                _scratch_words(d, "refutation", REFUTE_SCRATCH).data_ptr(),
+                _REFUTE[mode], b * m.ell, m.ell, tables, m.nb, m.ell)
+
+    m.each("refutation", "refutation_blocks", lambda b, d: args(b, d, "block"))
+    m.join()
+    m.once("refutation", "refutation_combine", args(0, m.home, "combine"))
+    m.spread(r_kind, r_inc, r_start)
+
+
+def launch_expire_blocks(*, know, sends_left, up, member, committed_dead,
+                         committed_left, committed_inc, r_active, r_kind,
+                         r_subject, r_inc, r_start, r_coverage, tick: int,
+                         life_gossip: int, life_suspect: int) -> None:
+    """K12's expire over blocks: a count launch a block (its live rows and
+    per-slot live counts into its slot), one combine on the first device
+    (the decision, the table, the committed cells through writable
+    tables, the done word), the table copied, a clear launch a block."""
+    m = _Blocked("expire", know)
+    u = know.shape[1]
+    _ticks("expire", tick)
+    r = {w: m.rows(x, w, dt, width) for w, x, dt, width in (
+        ("know", know, _BOOL, u), ("sends_left", sends_left, _I8, u),
+        ("up", up, _BOOL, None), ("member", member, _BOOL, None),
+        ("committed_dead", committed_dead, _BOOL, None),
+        ("committed_left", committed_left, _BOOL, None),
+        ("committed_inc", committed_inc, _I32, None))}
+    names = ("r_active", "r_kind", "r_subject", "r_inc", "r_start",
+             "r_coverage")
+    tab = {w: m.copies(x, w, dt, (u,)) for w, x, dt in zip(
+        names, (r_active, r_kind, r_subject, r_inc, r_start, r_coverage),
+        (_BOOL, _I8, _I32, _I32, _I32, _F))}
+    tables = m.tables(r["committed_dead"], r["committed_left"],
+                      r["committed_inc"])
+    buf = torch.empty(EXPIRE_PART * m.nb + 1, dtype=torch.int64,
+                      device=m.home)
+
+    def args(b, d, mode):
+        p = {w: v[b].data_ptr() for w, v in r.items()}
+        t = {w: v[b].data_ptr() for w, v in tab.items()}
+        return (p["know"], p["sends_left"], p["up"], p["member"],
+                p["committed_dead"], p["committed_left"], p["committed_inc"],
+                *[t[w] for w in names], m.n, u, tick, life_gossip,
+                life_suspect,
+                _scratch_words(d, "expire", EXPIRE_SCRATCH).data_ptr(),
+                _EXPIRE[mode], b * m.ell, m.ell, tables, m.nb, m.ell,
+                buf.data_ptr() + (0 if mode == "combine"
+                                  else 8 * EXPIRE_PART * b),
+                buf.data_ptr() + 8 * EXPIRE_PART * m.nb)
+
+    m.each("expire", "expire_blocks", lambda b, d: args(b, d, "count"))
+    m.join()
+    m.once("expire", "expire_combine", args(0, m.home, "combine"))
+    m.spread(r_active, r_coverage)
+    m.each("expire", "expire_blocks", lambda b, d: args(b, d, "clear"))
+
+
+def launch_vivaldi_ring_blocks(*, coords, height, error, window, rtt_ms,
+                               acked, shift, col: int, key, normal_lo: float,
+                               normal_span: float, ce: float, cc: float,
+                               error_max: float, height_min: float,
+                               inv_rho: float, mean_factor: float,
+                               coords_out, height_out, error_out,
+                               adjustment) -> None:
+    """K13 over blocks: a vivaldi_ring launch a block over its rows, the
+    peers' coordinates, height and error read through block tables (shift
+    on the first device; mean_factor the pool's float(N) / float(N * W))."""
+    m = _Blocked("vivaldi_ring", height)
+    d = coords.shape[1] if len(coords.shape) == 2 else 0
+    w = window.shape[1] if len(window.shape) == 2 else 0
+    if not 1 <= d <= VIVALDI_MAX_DIMS or not 1 <= w <= VIVALDI_MAX_WINDOW \
+            or not 0 <= col < w:
+        raise ValueError(f"vivaldi_ring: D={d}, W={w}, column {col}")
+    r = {nm: m.rows(x, nm, _F, width) for nm, x, width in (
+        ("coords", coords, d), ("height", height, None),
+        ("error", error, None), ("window", window, w),
+        ("rtt_ms", rtt_ms, None), ("coords_out", coords_out, d),
+        ("height_out", height_out, None), ("error_out", error_out, None),
+        ("adjustment", adjustment, None))}
+    r["acked"] = m.rows(acked, "acked", _BOOL)
+    _shift("vivaldi_ring", shift, m.home)
+    tables = m.tables(r["coords"], r["height"], r["error"])
+    k0, k1 = (int(x) & 0xFFFFFFFF for x in key)
+    m.each("vivaldi_ring", "vivaldi_ring_blocks", lambda b, dev: (
+        r["coords"][b].data_ptr(), r["height"][b].data_ptr(),
+        r["error"][b].data_ptr(), r["window"][b].data_ptr(),
+        r["rtt_ms"][b].data_ptr(), r["acked"][b].data_ptr(),
+        shift.data_ptr(), m.n, d, w, col, k0, k1, normal_lo, normal_span, ce,
+        cc, error_max, height_min, inv_rho, mean_factor,
+        r["coords_out"][b].data_ptr(), r["height_out"][b].data_ptr(),
+        r["error_out"][b].data_ptr(), r["adjustment"][b].data_ptr(),
+        b * m.ell, m.ell, tables, m.nb, m.ell))

@@ -112,6 +112,47 @@ inline BlockRows<T> block_rows(const void* bases, int B, int64_t L) {
   return t;
 }
 
+// A writable table: the same rows for the kernels that write a cell of
+// another block (a probe's target, a subject's committed leaves), and
+// width-W rows of an [N, W] leaf (row i's first element at row(i, W)).
+template <typename T>
+struct MutRows {
+  T* base[kMaxBlocks];
+  int64_t L;
+  int B;
+
+  template <bool kOne = false>
+  __device__ __forceinline__ T* row(int64_t i, int64_t width = 1) const {
+    if (kOne || B == 1) return base[0] + i * width;
+    const uint32_t b = static_cast<uint32_t>(i) / static_cast<uint32_t>(L);
+    return base[b] + (i - static_cast<int64_t>(b) * L) * width;
+  }
+  template <bool kOne = false>
+  __device__ __forceinline__ T at(int64_t i) const { return *row<kOne>(i); }
+};
+
+// Table t of a block form's host table array: `tables` holds T tables of
+// B base pointers each, table t at tables[t * B].
+template <typename T>
+inline MutRows<T> mut_rows(const void* tables, int t, int B, int64_t L) {
+  MutRows<T> m{};
+  m.L = L;
+  m.B = B;
+  const void* const* p = static_cast<const void* const*>(tables);
+  for (int b = 0; b < B && b < kMaxBlocks; ++b) {
+    m.base[b] = p != nullptr ? static_cast<T*>(const_cast<void*>(p[t * B + b])) : nullptr;
+  }
+  return m;
+}
+
+// A block form's pointer to its own leaf (global rows [row0, row0 + L)),
+// shifted so that global row i reads local row i - row0 (host side); a
+// one-device launch is row0 = 0.
+template <typename T>
+inline T* shifted(void* p, int64_t row0, int64_t width = 1) {
+  return p == nullptr ? nullptr : static_cast<T*>(p) - row0 * width;
+}
+
 // --- subjects --------------------------------------------------------------
 
 // A rumor's subject as JAX's scatter takes an index into [N]: one in
@@ -366,8 +407,9 @@ __device__ __forceinline__ float normal_float(float u, float lo, float span) {
 // One draw of a K1 launch as the host fills it (kernels/__init__.py:
 // DrawSpec): its output and element count, the key schedules (the stream,
 // then randint's second), the mode (threefry.cu's Mode) and the constants
-// that finish an element.  K14 takes a randint spec with no output and
-// draws its ring offsets itself.
+// that finish an element; out[0] is element `first` of the stream (a
+// block of a node-sharded draw's rows).  K14 takes a randint spec with no
+// output and draws its ring offsets itself.
 struct DrawSpec {
   void* out;
   int64_t n;
@@ -378,8 +420,9 @@ struct DrawSpec {
   uint32_t minval;
   uint32_t range;
   uint32_t mult;
+  int64_t first;
 };
-static_assert(sizeof(DrawSpec) == 104, "DrawSpec layout changed: update kernels/__init__.py");
+static_assert(sizeof(DrawSpec) == 112, "DrawSpec layout changed: update kernels/__init__.py");
 
 // jax.random.randint's elements hi * 2^32 + lo + j (j < L) of the randint
 // spec d: b1 and b2 the elements' bits of split(key)'s two streams (d's

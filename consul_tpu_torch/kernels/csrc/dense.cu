@@ -60,6 +60,17 @@
 // which the launch does not write, and the converted slots and pairs come
 // from shared memory.  So neither launch needs an atomic on the state.
 //
+// Block form (a node-sharded pool, parallel/mesh.py): pre runs a launch
+// a block over its rows [row0, row_end), reading every leaf at a target
+// j and at a slot's subject through block tables and writing want[j]
+// through a writable one; its last CUDA block writes the launch's three
+// sums into the block's slot of a [B, 3] partial buffer, and
+// dense_combine (one block, the mesh's first device) adds them in block
+// order into `counts`, then writes exp and the converted slots' kind and
+// start.  post runs a launch a block, want and dead_of at the ring peer
+// read through tables.  The one-device launches are the kOne
+// instantiations, the same code as before the block form.
+//
 // Bound on an H100: memory.  The function must read the timers, up /
 // member, the committed and bulk leaves the result depends on and the
 // three maps once (26 bytes a node, 26 MB at N = 1M, ~0.008 ms at 3.35
@@ -80,6 +91,13 @@ constexpr int kThreads = 256;
 constexpr int kSuspect = 1, kDead = 2;
 constexpr int kTimeouts = 65;  // confirmations 0..64
 constexpr int32_t kBig = 1 << 30;
+constexpr int kSums = 3;  // bulk members, live rows, wants
+// pre's modes: the one-device launch, a block of the block form, its
+// combine
+enum Mode { kOneDevice = 0, kBlock = 1, kCombine = 2 };
+// pre's block tables, in the host's order
+enum Table { kUp, kMember, kCDead, kBulk, kLeftOf, kSusStart, kSusConfirm, kSuspectOf,
+             kDeadOf, kWant, kTables };
 
 struct DenseArgs {
   // the state's leaves (learn_tick, sends_left, r_kind and r_start
@@ -110,6 +128,14 @@ struct DenseArgs {
   int32_t* want_out;
   int32_t* row_subject_out;
   int64_t* counts_out;  // bulk members, live rows, wants
+  // the block form: mode, B, rows, the partial sums (the launch's slot,
+  // or all B for the combine), the tables
+  int mode, B;
+  int64_t row0, row_end;
+  u64* part;
+  MutRows<uint8_t> t_up, t_member, t_cdead, t_bulk;
+  MutRows<int32_t> t_left_of, t_sus_start, t_suspect_of, t_dead_of, t_want;
+  MutRows<int8_t> t_sus_confirm;
 };
 
 __device__ __forceinline__ int64_t ring_shift(const int32_t* shift, int64_t N) {
@@ -135,8 +161,56 @@ __device__ __forceinline__ bool timer_expired(int32_t start, int8_t confirm, boo
   return wrap_sub(tick, start) >= timeouts[timeout_index(confirm)];
 }
 
+// The slots whose dense timer expired at their subject (exp_u), a lane a
+// slot of warps 0 and 1, the subjects' cells read through the tables.
+__device__ u64 expiring_slots(const DenseArgs& a, unsigned (&s_words)[2]) {
+  if (threadIdx.x < 64) {  // warps 0 and 1, whole: a lane a slot
+    const int u = threadIdx.x;
+    bool e = false;
+    if (u < a.U && a.r_active[u] && a.r_kind[u] == kSuspect) {
+      const int32_t subj = a.r_subject[u];
+      e = subj >= 0 && subj < a.N &&
+          timer_expired(a.t_sus_start.at(subj), a.t_sus_confirm.at(subj), a.t_up.at(subj),
+                        a.t_member.at(subj), a.timeouts, a.tick, a.period) &&
+          a.t_dead_of.at(subj) < 0 && !a.t_cdead.at(subj);
+    }
+    const unsigned w = __ballot_sync(0xffffffffu, e);
+    if ((u & 31) == 0) s_words[u >> 5] = w;
+  }
+  __syncthreads();
+  return static_cast<u64>(s_words[0]) | (static_cast<u64>(s_words[1]) << 32);
+}
+
+// The last step of pre: the sums, exp and the converted slots (one thread).
+__device__ void pre_finish(const DenseArgs& a, u64 exp, const u64 (&tot)[kSums]) {
+  for (int k = 0; k < kSums; ++k) a.counts_out[k] = static_cast<int64_t>(tot[k]);
+  for (int u = 0; u < a.U; ++u) {
+    const bool e = (exp >> u) & 1ull;
+    a.exp_out[u] = e;
+    if (e) {
+      a.r_kind[u] = static_cast<int8_t>(kDead);
+      a.r_start[u] = a.tick;
+    }
+  }
+}
+
+// The block form's combine, one block: the B launches' sums added in
+// block order, then pre_finish.
+__global__ void __launch_bounds__(kThreads)
+dense_combine_kernel(const __grid_constant__ DenseArgs a) {
+  __shared__ unsigned s_words[2];
+  const u64 exp = expiring_slots(a, s_words);
+  if (threadIdx.x != 0) return;
+  u64 tot[kSums] = {0, 0, 0};
+  for (int b = 0; b < a.B; ++b) {
+    for (int k = 0; k < kSums; ++k) tot[k] += a.part[b * kSums + k];
+  }
+  pre_finish(a, exp, tot);
+}
+
 // At least six blocks an SM (at most 40 registers): the stamps' vectors
 // must not cost the common tick, which converts no slot, its occupancy.
+template <bool kOne>
 __global__ void __launch_bounds__(kThreads, 6)
 dense_pre_kernel(const __grid_constant__ DenseArgs a) {
   __shared__ int32_t s_subj[64];
@@ -146,35 +220,21 @@ dense_pre_kernel(const __grid_constant__ DenseArgs a) {
   const int64_t N = a.N;
   for (int u = threadIdx.x; u < U; u += blockDim.x) s_subj[u] = a.r_subject[u];
   for (int t = threadIdx.x; t < kTimeouts; t += blockDim.x) s_timeout[t] = a.timeouts[t];
-  if (threadIdx.x < 64) {  // warps 0 and 1, whole: a lane a slot
-    const int u = threadIdx.x;
-    bool e = false;
-    if (u < U && a.r_active[u] && a.r_kind[u] == kSuspect) {
-      const int32_t subj = a.r_subject[u];
-      e = subj >= 0 && subj < N &&
-          timer_expired(a.sus_start[subj], a.sus_confirm[subj], a.up[subj], a.member[subj],
-                        a.timeouts, a.tick, a.period) &&
-          a.dead_of[subj] < 0 && !a.committed_dead[subj];
-    }
-    const unsigned w = __ballot_sync(0xffffffffu, e);
-    if ((u & 31) == 0) s_words[u >> 5] = w;
-  }
-  __syncthreads();
-  const u64 exp = static_cast<u64>(s_words[0]) | (static_cast<u64>(s_words[1]) << 32);
+  const u64 exp = expiring_slots(a, s_words);
   const bool masked = exp != all_slots(U);
   const int64_t d = ring_shift(a.shift, N);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   u64 v[3] = {0, 0, 0};  // bulk members, live rows, wants
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
+  for (int64_t i = a.row0 + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < a.row_end; i += stride) {
     const int64_t j = ring(i, d, N);
     const bool live = (a.up[i] != 0) & (a.member[i] != 0);
     const bool bulk_i = a.bulk_member[i];
-    const bool cd_j = a.committed_dead[j], bulk_j = a.bulk_member[j];
-    const bool up_j = a.up[j], member_j = a.member[j];
-    const int32_t left = a.left_of[j], start = a.sus_start[j];
-    const int8_t confirm = a.sus_confirm[j];
-    int32_t sus = a.suspect_of[j], dead = a.dead_of[j];
+    const bool cd_j = a.t_cdead.at<kOne>(j), bulk_j = a.t_bulk.at<kOne>(j);
+    const bool up_j = a.t_up.at<kOne>(j), member_j = a.t_member.at<kOne>(j);
+    const int32_t left = a.t_left_of.at<kOne>(j), start = a.t_sus_start.at<kOne>(j);
+    const int8_t confirm = a.t_sus_confirm.at<kOne>(j);
+    int32_t sus = a.t_suspect_of.at<kOne>(j), dead = a.t_dead_of.at<kOne>(j);
     bool want = false;
     if (live && !cd_j && !bulk_j && left < 0 &&
         timer_expired(start, confirm, up_j, member_j, s_timeout, a.tick, a.period)) {
@@ -190,7 +250,7 @@ dense_pre_kernel(const __grid_constant__ DenseArgs a) {
       }
       want = sus < 0 && dead < 0;
     }
-    a.want_out[j] = want ? 1 : 0;
+    *a.t_want.row<kOne>(j) = want ? 1 : 0;
     a.row_subject_out[i] = want ? static_cast<int32_t>(j) : -1;
     v[0] += bulk_i;
     v[1] += live;
@@ -201,16 +261,12 @@ dense_pre_kernel(const __grid_constant__ DenseArgs a) {
       row_write<int8_t>(a.sends_left + i * U, U, m, m, static_cast<int8_t>(a.limit));
     }
   }
-  u64 tot[3];
+  u64 tot[kSums];
   if (grid_sum<3>(v, a.scratch, tot)) {  // thread 0 of the last block
-    for (int k = 0; k < 3; ++k) a.counts_out[k] = static_cast<int64_t>(tot[k]);
-    for (int u = 0; u < U; ++u) {
-      const bool e = (exp >> u) & 1ull;
-      a.exp_out[u] = e;
-      if (e) {
-        a.r_kind[u] = static_cast<int8_t>(kDead);
-        a.r_start[u] = a.tick;
-      }
+    if (a.mode == kBlock) {
+      for (int k = 0; k < kSums; ++k) a.part[k] = tot[k];
+    } else {
+      pre_finish(a, exp, tot);
     }
   }
 }
@@ -232,6 +288,8 @@ struct PostArgs {
   const int32_t* shift;
   int64_t N;
   int U, A, tick, period, chaos;
+  int64_t row0, row_end;
+  MutRows<int32_t> t_want, t_dead_of;  // read at the ring peer
   // the state's leaves, updated in place
   uint8_t* bulk_member;
   float* bulk_heard;
@@ -252,10 +310,9 @@ struct DeadUpdates {
 
 // dead_of[j] after maps_convert by the converted slots and map_add of the
 // ok pairs: both scatter-max, so node j takes the max over the entries
-// whose subject is j, as dense_pre_kernel applies the conversion.
-__device__ __forceinline__ int32_t dead_after(const PostArgs& a, const DeadUpdates& d,
-                                              int64_t j) {
-  int32_t dead = a.dead_of[j];
+// whose subject is j, as dense_pre_kernel applies the conversion.  `dead`
+// is the map's value at j.
+__device__ __forceinline__ int32_t dead_after(const DeadUpdates& d, int64_t j, int32_t dead) {
   for (u64 m = d.conv; m; m &= m - 1) {
     const int u = __ffsll(m) - 1;
     if (d.conv_subj[u] == j && u > dead) dead = u;
@@ -267,11 +324,13 @@ __device__ __forceinline__ int32_t dead_after(const PostArgs& a, const DeadUpdat
   return dead;
 }
 
+template <bool kOne>
 __device__ __forceinline__ bool overflow_at(const PostArgs& a, const DeadUpdates& d,
                                             int64_t j) {
-  return !a.chaos && a.want[j] > 0 && dead_after(a, d, j) < 0;
+  return !a.chaos && a.t_want.at<kOne>(j) > 0 && dead_after(d, j, a.t_dead_of.at<kOne>(j)) < 0;
 }
 
+template <bool kOne>
 __global__ void __launch_bounds__(kThreads)
 dense_post_kernel(const __grid_constant__ PostArgs a) {
   __shared__ DeadUpdates d;
@@ -304,8 +363,8 @@ dense_post_kernel(const __grid_constant__ PostArgs a) {
   const int64_t N = a.N;
   const int64_t shift = ring_shift(a.shift, N);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
+  for (int64_t i = a.row0 + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < a.row_end; i += stride) {
     const bool was = a.bulk_member[i];
     const float heard = a.bulk_heard[i];
     const int32_t start = a.sus_start[i];
@@ -314,10 +373,10 @@ dense_post_kernel(const __grid_constant__ PostArgs a) {
     const bool live = (a.up[i] != 0) & member;
     const bool committed = (a.committed_dead[i] != 0) | (a.committed_left[i] != 0);
     const bool left = a.left_of[i] >= 0;
-    const int32_t dead = dead_after(a, d, i);
+    const int32_t dead = dead_after(d, i, a.dead_of[i]);
     const bool over = !a.chaos && a.want[i] > 0 && dead < 0;
     const bool bulk = was || over;
-    const bool seeded = overflow_at(a, d, ring(i, shift, N));
+    const bool seeded = overflow_at<kOne>(a, d, ring(i, shift, N));
     if (bulk && !was) a.bulk_member[i] = 1;
     const float h =
         fminf(__fadd_rn(fminf(heard, v_prev_f), seeded ? 1.0f : 0.0f), v_new_f);
@@ -342,23 +401,27 @@ extern "C" int dense_expiry(const void* sus_start, const void* sus_confirm, cons
                             const void* timeouts, const void* shift, int64_t N, int U,
                             int tick, int tick16, int limit, int period, void* scratch,
                             int scratch_blocks, void* exp_out, void* want_out,
-                            void* row_subject_out, void* counts_out, void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || scratch_blocks < 1) {
+                            void* row_subject_out, void* counts_out, int mode,
+                            int64_t row0, int64_t rows, const void* tables, int B,
+                            int64_t L, void* part, void* stream) {
+  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || scratch_blocks < 1 ||
+      mode < kOneDevice || mode > kCombine || row0 < 0 || rows < 1 || row0 + rows > N ||
+      B < 1 || B > kMaxBlocks || !tables || (mode != kOneDevice && !part)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DenseArgs a;
-  a.sus_start = static_cast<const int32_t*>(sus_start);
-  a.sus_confirm = static_cast<const int8_t*>(sus_confirm);
-  a.up = static_cast<const uint8_t*>(up);
-  a.member = static_cast<const uint8_t*>(member);
-  a.committed_dead = static_cast<const uint8_t*>(committed_dead);
-  a.bulk_member = static_cast<const uint8_t*>(bulk_member);
-  a.suspect_of = static_cast<const int32_t*>(suspect_of);
-  a.dead_of = static_cast<const int32_t*>(dead_of);
-  a.left_of = static_cast<const int32_t*>(left_of);
-  a.know = static_cast<const uint8_t*>(know);
-  a.learn_tick = static_cast<int16_t*>(learn_tick);
-  a.sends_left = static_cast<int8_t*>(sends_left);
+  a.sus_start = shifted<const int32_t>(const_cast<void*>(sus_start), row0);
+  a.sus_confirm = shifted<const int8_t>(const_cast<void*>(sus_confirm), row0);
+  a.up = shifted<const uint8_t>(const_cast<void*>(up), row0);
+  a.member = shifted<const uint8_t>(const_cast<void*>(member), row0);
+  a.committed_dead = shifted<const uint8_t>(const_cast<void*>(committed_dead), row0);
+  a.bulk_member = shifted<const uint8_t>(const_cast<void*>(bulk_member), row0);
+  a.suspect_of = shifted<const int32_t>(const_cast<void*>(suspect_of), row0);
+  a.dead_of = shifted<const int32_t>(const_cast<void*>(dead_of), row0);
+  a.left_of = shifted<const int32_t>(const_cast<void*>(left_of), row0);
+  a.know = shifted<const uint8_t>(const_cast<void*>(know), row0, U);
+  a.learn_tick = shifted<int16_t>(learn_tick, row0, U);
+  a.sends_left = shifted<int8_t>(sends_left, row0, U);
   a.r_active = static_cast<const uint8_t*>(r_active);
   a.r_kind = static_cast<int8_t*>(r_kind);
   a.r_subject = static_cast<const int32_t*>(r_subject);
@@ -373,12 +436,38 @@ extern "C" int dense_expiry(const void* sus_start, const void* sus_confirm, cons
   a.period = period;
   a.scratch = static_cast<u64*>(scratch);
   a.exp_out = static_cast<uint8_t*>(exp_out);
-  a.want_out = static_cast<int32_t*>(want_out);
-  a.row_subject_out = static_cast<int32_t*>(row_subject_out);
+  a.want_out = shifted<int32_t>(want_out, row0);
+  a.row_subject_out = shifted<int32_t>(row_subject_out, row0);
   a.counts_out = static_cast<int64_t*>(counts_out);
-  static PerCard per_card;
-  const int blocks = persistent_blocks(dense_pre_kernel, kThreads, N, scratch_blocks, per_card);
-  dense_pre_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  a.mode = mode;
+  a.B = B;
+  a.row0 = row0;
+  a.row_end = row0 + rows;
+  a.part = static_cast<u64*>(part);
+  a.t_up = mut_rows<uint8_t>(tables, kUp, B, L);
+  a.t_member = mut_rows<uint8_t>(tables, kMember, B, L);
+  a.t_cdead = mut_rows<uint8_t>(tables, kCDead, B, L);
+  a.t_bulk = mut_rows<uint8_t>(tables, kBulk, B, L);
+  a.t_left_of = mut_rows<int32_t>(tables, kLeftOf, B, L);
+  a.t_sus_start = mut_rows<int32_t>(tables, kSusStart, B, L);
+  a.t_sus_confirm = mut_rows<int8_t>(tables, kSusConfirm, B, L);
+  a.t_suspect_of = mut_rows<int32_t>(tables, kSuspectOf, B, L);
+  a.t_dead_of = mut_rows<int32_t>(tables, kDeadOf, B, L);
+  a.t_want = mut_rows<int32_t>(tables, kWant, B, L);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == kCombine) {
+    dense_combine_kernel<<<1, kThreads, 0, s>>>(a);
+  } else if (mode == kOneDevice) {
+    static PerCard per_card;
+    const int blocks = persistent_blocks(dense_pre_kernel<true>, kThreads, rows,
+                                         scratch_blocks, per_card);
+    dense_pre_kernel<true><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    static PerCard per_card;
+    const int blocks = persistent_blocks(dense_pre_kernel<false>, kThreads, rows,
+                                         scratch_blocks, per_card);
+    dense_pre_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -390,23 +479,25 @@ extern "C" int dense_expiry_post(const void* want, const void* dead_of, const vo
                                  const void* counts, const void* shift, int64_t N, int U,
                                  int A, int tick, int period, int chaos, void* bulk_member,
                                  void* bulk_heard, void* bulk_cov, void* sus_start,
-                                 void* sus_confirm, void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || A < 1 || A > 64) {
+                                 void* sus_confirm, int64_t row0, int64_t rows,
+                                 const void* tables, int B, int64_t L, void* stream) {
+  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || A < 1 || A > 64 ||
+      row0 < 0 || rows < 1 || row0 + rows > N || B < 1 || B > kMaxBlocks || !tables) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PostArgs a;
-  a.want = static_cast<const int32_t*>(want);
-  a.dead_of = static_cast<const int32_t*>(dead_of);
-  a.left_of = static_cast<const int32_t*>(left_of);
+  a.want = shifted<const int32_t>(const_cast<void*>(want), row0);
+  a.dead_of = shifted<const int32_t>(const_cast<void*>(dead_of), row0);
+  a.left_of = shifted<const int32_t>(const_cast<void*>(left_of), row0);
   a.exp = static_cast<const uint8_t*>(exp);
   a.r_subject = static_cast<const int32_t*>(r_subject);
   a.subjects = static_cast<const int32_t*>(subjects);
   a.slots = static_cast<const int32_t*>(slots);
   a.ok = static_cast<const uint8_t*>(ok);
-  a.up = static_cast<const uint8_t*>(up);
-  a.member = static_cast<const uint8_t*>(member);
-  a.committed_dead = static_cast<const uint8_t*>(committed_dead);
-  a.committed_left = static_cast<const uint8_t*>(committed_left);
+  a.up = shifted<const uint8_t>(const_cast<void*>(up), row0);
+  a.member = shifted<const uint8_t>(const_cast<void*>(member), row0);
+  a.committed_dead = shifted<const uint8_t>(const_cast<void*>(committed_dead), row0);
+  a.committed_left = shifted<const uint8_t>(const_cast<void*>(committed_left), row0);
   a.counts = static_cast<const int64_t*>(counts);
   a.shift = static_cast<const int32_t*>(shift);
   a.N = N;
@@ -415,13 +506,22 @@ extern "C" int dense_expiry_post(const void* want, const void* dead_of, const vo
   a.tick = tick;
   a.period = period;
   a.chaos = chaos;
-  a.bulk_member = static_cast<uint8_t*>(bulk_member);
-  a.bulk_heard = static_cast<float*>(bulk_heard);
-  a.bulk_cov = static_cast<float*>(bulk_cov);
-  a.sus_start = static_cast<int32_t*>(sus_start);
-  a.sus_confirm = static_cast<int8_t*>(sus_confirm);
-  const int64_t need = (N + kThreads - 1) / kThreads;
+  a.bulk_member = shifted<uint8_t>(bulk_member, row0);
+  a.bulk_heard = shifted<float>(bulk_heard, row0);
+  a.bulk_cov = shifted<float>(bulk_cov, row0);
+  a.sus_start = shifted<int32_t>(sus_start, row0);
+  a.sus_confirm = shifted<int8_t>(sus_confirm, row0);
+  a.row0 = row0;
+  a.row_end = row0 + rows;
+  a.t_want = mut_rows<int32_t>(tables, 0, B, L);
+  a.t_dead_of = mut_rows<int32_t>(tables, 1, B, L);
+  const int64_t need = (rows + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(need < 2048 ? need : 2048);
-  dense_post_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 1) {
+    dense_post_kernel<true><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    dense_post_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,16 @@
 // it (a count of readers, each read fenced before its count), so the next
 // launch finds it zero without a memset.
 //
+// Block form (a node-sharded pool, parallel/mesh.py), three launches in
+// turn: scan, a launch a block over its rows [row0, row_end), whose last
+// CUDA block writes the launch's expired-slot word into the block's slot
+// of a [B] partial buffer; combine, one block on the mesh's first device:
+// the prelude (the subjects' committed cells read through block tables),
+// the or of the B words, the decision, convert_out, the converted slots'
+// kind and start, and the convert word into the plan; apply, a launch a
+// block, its rows' converted columns rewritten from the plan's word.  The
+// one-device launch is mode 0, the cooperative kernel as before.
+//
 // Bound on an H100: memory.  The function must read know for the live rows
 // (U bytes a row), up and member, the 32-byte learn_tick sector of each
 // live row that knows a suspect slot and the table with its committed
@@ -71,6 +81,8 @@ constexpr int kBatches = 4;  // 32-row steps whose loads a warp issues together
 constexpr int kAlive = 0, kSuspect = 1, kDead = 2;
 // scratch layout, in u64 words: the grid's expired slots, its readers
 constexpr int kAny = 0, kRead = 1;
+// launch modes: the one-device cooperative launch, the block form's
+enum Mode { kOneDevice = 0, kScan = 1, kCombine = 2, kApply = 3 };
 
 struct ExpiryArgs {
   // the state's leaves (know, learn_tick, sends_left, r_kind and r_start
@@ -93,6 +105,14 @@ struct ExpiryArgs {
   int U, tick, tick16, limit;
   u64* scratch;
   uint8_t* convert_out;  // fresh
+  // the block form: mode, rows, the partial words (the launch's own for
+  // scan, all B for combine), the plan word, the subjects' cells' tables
+  int mode, B;
+  int64_t row0, row_end;
+  u64* part;
+  u64* plan;
+  MutRows<int32_t> t_cinc;
+  MutRows<uint8_t> t_cdead;
 };
 
 // The [U] prelude, in shared memory (every thread calls it).
@@ -133,8 +153,8 @@ __device__ void prelude(const ExpiryArgs& a, Prelude& p) {
       p.a_slot[u] = static_cast<int8_t>(av >= 0 ? av % U : 0);
       refutable = av >= 0 && av / U > inc;
       if (subj >= 0 && subj < a.N) {
-        stale = inc < a.committed_inc[subj];
-        cd = a.committed_dead[subj];
+        stale = inc < a.t_cinc.at(subj);
+        cd = a.t_cdead.at(subj);
       }
       p.timeout[u] = a.timeouts[timeout_index(a.r_confirm[u])];
     }
@@ -181,23 +201,58 @@ __device__ __forceinline__ uint64_t expired_bits(const ExpiryArgs& a, const Prel
   return exp;
 }
 
+// kCombineLaunch: the block form's combine, an instantiation of its own (so a
+// profile tells it from the blocks' launches)
+template <bool kCombineLaunch>
 __global__ void __launch_bounds__(kThreads)
 expiry_kernel(const __grid_constant__ ExpiryArgs a) {
   __shared__ Prelude p;
   __shared__ u64 s_any, s_convert;
-  cg::grid_group grid = cg::this_grid();
   const int U = a.U;
-  const int64_t N = a.N;
+  const int64_t N = a.row_end;  // the launch's rows end (N for one device)
   const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) s_any = 0;
   prelude(a, p);
+  if (kCombineLaunch) {
+    if (threadIdx.x == 0) {
+      u64 any = 0;
+      for (int b = 0; b < a.B; ++b) any |= a.part[b];
+      s_convert = any & ~p.dead_exists & ~p.committed;
+      a.plan[0] = s_convert;
+    }
+    __syncthreads();
+    for (int u = threadIdx.x; u < U; u += blockDim.x) {
+      const bool c = (s_convert >> u) & 1ull;
+      a.convert_out[u] = c;
+      if (c) {
+        a.r_kind[u] = static_cast<int8_t>(kDead);
+        a.r_start[u] = a.tick;
+      }
+    }
+    return;
+  }
+  if (a.mode == kApply) {
+    const uint64_t convert = __ldcg(a.plan);
+    if (!convert) return;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = a.row0 + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < N; i += stride) {
+      const uint64_t m = row_mask(a.know + i * U, U);
+      const bool live = (a.up[i] != 0) & (a.member[i] != 0);
+      const uint64_t e = live ? expired_bits(a, p, i, m, m & convert) : 0;
+      row_write<uint8_t>(a.know + i * U, U, m & convert, e, 1);
+      row_write<int8_t>(a.sends_left + i * U, U, convert, e, static_cast<int8_t>(a.limit));
+      row_write<int16_t>(a.learn_tick + i * U, U, e, e, static_cast<int16_t>(a.tick16));
+    }
+    return;
+  }
 
   // 2. scan
   uint64_t any = 0;
   if (p.suspect) {  // block-uniform
     const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
     const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-    for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32 * kBatches) {
+    for (int64_t i0 = a.row0 + gwarp * 32; i0 < N; i0 += warps * 32 * kBatches) {
       bool live[kBatches];
 #pragma unroll
       for (int r = 0; r < kBatches; ++r) {
@@ -221,6 +276,18 @@ expiry_kernel(const __grid_constant__ ExpiryArgs a) {
   __syncthreads();
   if (threadIdx.x == 0 && s_any) atomicOr(&a.scratch[kAny], s_any);
   __threadfence();
+  if (a.mode == kScan) {
+    // the launch's word into its slot, by its last block
+    if (threadIdx.x == 0 &&
+        atomicAdd(&a.scratch[kRead], 1ull) == static_cast<u64>(gridDim.x) - 1) {
+      __threadfence();
+      *a.part = __ldcg(&a.scratch[kAny]);
+      a.scratch[kAny] = 0;
+      a.scratch[kRead] = 0;
+    }
+    return;
+  }
+  cg::grid_group grid = cg::this_grid();
   grid.sync();
 
   // 3. decision, from the scratch word and this block's prelude
@@ -248,8 +315,8 @@ expiry_kernel(const __grid_constant__ ExpiryArgs a) {
 
   // apply: thread i rewrites the converted columns of row i
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
+  for (int64_t i = a.row0 + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < N; i += stride) {
     const uint64_t m = row_mask(a.know + i * U, U);
     const bool live = (a.up[i] != 0) & (a.member[i] != 0);
     const uint64_t e = live ? expired_bits(a, p, i, m, m & convert) : 0;
@@ -264,6 +331,12 @@ expiry_kernel(const __grid_constant__ ExpiryArgs a) {
 }  // namespace
 
 // scratch: 2 u64, zeroed once (the launch's last reader resets them).
+// mode: 0 the one-device cooperative launch (row0 = 0, rows = N, B = 1
+// tables of committed_dead and committed_inc); the block form's scan
+// (part: the block's word) and apply (plan: the convert word) over global
+// rows [row0, row0 + rows), know ... member local to the block, and its
+// combine (part: the B words; one block).  tables: committed_inc then
+// committed_dead, B base pointers each, L rows a block.
 extern "C" int suspicion_expiry(void* know, void* learn_tick, void* sends_left,
                                 const void* up, const void* member,
                                 const void* committed_dead, const void* committed_inc,
@@ -271,16 +344,20 @@ extern "C" int suspicion_expiry(void* know, void* learn_tick, void* sends_left,
                                 const void* r_inc, void* r_start, const void* r_confirm,
                                 const void* timeouts, int64_t N, int U, int tick,
                                 int tick16, int limit, void* scratch, void* convert_out,
-                                void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64) {
+                                int mode, int64_t row0, int64_t rows, const void* tables,
+                                int B, int64_t L, void* part, void* plan, void* stream) {
+  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || mode < kOneDevice ||
+      mode > kApply || row0 < 0 || rows < 1 || row0 + rows > N || B < 1 ||
+      B > kMaxBlocks || !tables || (mode == kScan && !part) ||
+      (mode == kCombine && (!part || !plan)) || (mode == kApply && !plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ExpiryArgs a;
-  a.know = static_cast<uint8_t*>(know);
-  a.learn_tick = static_cast<int16_t*>(learn_tick);
-  a.sends_left = static_cast<int8_t*>(sends_left);
-  a.up = static_cast<const uint8_t*>(up);
-  a.member = static_cast<const uint8_t*>(member);
+  a.know = shifted<uint8_t>(know, row0, U);
+  a.learn_tick = shifted<int16_t>(learn_tick, row0, U);
+  a.sends_left = shifted<int8_t>(sends_left, row0, U);
+  a.up = shifted<const uint8_t>(const_cast<void*>(up), row0);
+  a.member = shifted<const uint8_t>(const_cast<void*>(member), row0);
   a.committed_dead = static_cast<const uint8_t*>(committed_dead);
   a.committed_inc = static_cast<const int32_t*>(committed_inc);
   a.r_active = static_cast<const uint8_t*>(r_active);
@@ -297,10 +374,28 @@ extern "C" int suspicion_expiry(void* know, void* learn_tick, void* sends_left,
   a.limit = limit;
   a.scratch = static_cast<u64*>(scratch);
   a.convert_out = static_cast<uint8_t*>(convert_out);
+  a.mode = mode;
+  a.B = B;
+  a.row0 = row0;
+  a.row_end = row0 + rows;
+  a.part = static_cast<u64*>(part);
+  a.plan = static_cast<u64*>(plan);
+  a.t_cinc = mut_rows<int32_t>(tables, 0, B, L);
+  a.t_cdead = mut_rows<uint8_t>(tables, 1, B, L);
   static PerCard per_card;
-  const int blocks = persistent_blocks(expiry_kernel, kThreads, N, 1 << 20, per_card);
+  const int blocks =
+      persistent_blocks(expiry_kernel<false>, kThreads, rows, 1 << 20, per_card);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == kCombine) {
+    expiry_kernel<true><<<1, kThreads, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (mode != kOneDevice) {
+    expiry_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   void* args[] = {&a};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(expiry_kernel), dim3(blocks), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream)));
+      reinterpret_cast<const void*>(expiry_kernel<false>), dim3(blocks), dim3(kThreads),
+      args, 0, s));
 }

@@ -34,6 +34,14 @@
 // never rebuilt from the table by the updates: after an eviction they are
 // stale by design (swim.py:_maps), and map_add/maps_convert keep them so.
 //
+// Block form (a node-sharded pool, parallel/mesh.py): each entry point
+// takes the global rows [row0, row0 + rows) its maps hold.  subject_maps
+// fills those rows alone (its blocks own ranges from row0); map_add and
+// maps_convert apply only the entries whose subject falls in them, and
+// the masked entries' scatter into index 0 only where row0 = 0: a launch
+// a block gives each atomic to the block that owns its subject, and the
+// sentinel to global row 0.  A one-device launch is row0 = 0, rows = N.
+//
 // Bound on an H100: memory.  subject_maps writes 4 x 4 bytes a node (16 MB
 // at N = 1M, ~0.005 ms at 3.35 TB/s).  map_add and maps_convert need only
 // their <= 64 entries and the 32-byte map sectors at their subjects (a few
@@ -50,8 +58,9 @@ constexpr int64_t kRange = 4 * kThreads;  // nodes a block owns
 constexpr int kAlive = 0, kSuspect = 1, kDead = 2, kLeft = 3;
 constexpr int32_t kBig = 1 << 30;
 
-// The 4 nodes i0 .. i0 + 3 of one map: a 16-byte store where they lie in
-// [0, N) and the address is 16-byte aligned, else one store a node.
+// The 4 local rows i0 .. i0 + 3 of one map: a 16-byte store where they
+// lie in [0, N) (the launch's rows) and the address is 16-byte aligned,
+// else one store a node.
 __device__ __forceinline__ void store4(int32_t* map, int64_t i0, int64_t N, const int32_t (&v)[4]) {
   int32_t* p = map + i0;
   if (i0 + 4 <= N && aligned16(p)) {
@@ -66,14 +75,14 @@ __device__ __forceinline__ void store4(int32_t* map, int64_t i0, int64_t N, cons
 __global__ void __launch_bounds__(kThreads)
 subject_maps_kernel(const uint8_t* __restrict__ r_active, const int8_t* __restrict__ r_kind,
                     const int32_t* __restrict__ r_subject, const int32_t* __restrict__ r_inc,
-                    int64_t N, int U, int32_t* __restrict__ suspect_of,
+                    int64_t row0, int64_t rows, int U, int32_t* __restrict__ suspect_of,
                     int32_t* __restrict__ dead_of, int32_t* __restrict__ left_of,
                     int32_t* __restrict__ alive_val) {
   // the block's list: subject, kind (the map it goes to) and value
   __shared__ int32_t s_subj[64], s_val[64];
   __shared__ int8_t s_map[64];
   __shared__ int s_count;
-  const int64_t lo = static_cast<int64_t>(blockIdx.x) * kRange;
+  const int64_t lo = row0 + static_cast<int64_t>(blockIdx.x) * kRange;
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     int base = 0;
@@ -103,7 +112,7 @@ subject_maps_kernel(const uint8_t* __restrict__ r_active, const int8_t* __restri
   __syncthreads();
   const int count = s_count;
   const int64_t i0 = lo + 4 * static_cast<int64_t>(threadIdx.x);
-  if (i0 >= N) return;
+  if (i0 >= row0 + rows) return;
   int32_t sus[4], dead[4], left[4], alive[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) sus[j] = dead[j] = left[j] = alive[j] = -1;
@@ -121,17 +130,17 @@ subject_maps_kernel(const uint8_t* __restrict__ r_active, const int8_t* __restri
       else alive[j] = max(alive[j], v);
     }
   }
-  store4(suspect_of, i0, N, sus);
-  store4(dead_of, i0, N, dead);
-  store4(left_of, i0, N, left);
-  store4(alive_val, i0, N, alive);
+  store4(suspect_of, i0 - row0, rows, sus);
+  store4(dead_of, i0 - row0, rows, dead);
+  store4(left_of, i0 - row0, rows, left);
+  store4(alive_val, i0 - row0, rows, alive);
 }
 
 // map.at[where(ok, subjects, 0)].max(where(ok, slots, -1)), in place
 __global__ void __launch_bounds__(32)
 map_add_kernel(int32_t* __restrict__ map, const int32_t* __restrict__ subjects,
-               const int32_t* __restrict__ slots, const uint8_t* __restrict__ ok, int64_t N,
-               int A) {
+               const int32_t* __restrict__ slots, const uint8_t* __restrict__ ok, int64_t row0,
+               int64_t rows, int A) {
   const int lane = threadIdx.x;
   bool masked = false;
   for (int k = lane; k < A; k += 32) {
@@ -139,10 +148,10 @@ map_add_kernel(int32_t* __restrict__ map, const int32_t* __restrict__ subjects,
       masked = true;
       continue;
     }
-    const int32_t subj = subjects[k];
-    if (subj >= 0 && subj < N) atomicMax(&map[subj], slots[k]);
+    const int64_t at = static_cast<int64_t>(subjects[k]) - row0;
+    if (subjects[k] >= 0 && at >= 0 && at < rows) atomicMax(&map[at], slots[k]);
   }
-  if (__any_sync(0xffffffffu, masked) && lane == 0) atomicMax(&map[0], -1);
+  if (__any_sync(0xffffffffu, masked) && lane == 0 && row0 == 0) atomicMax(&map[0], -1);
 }
 
 // suspect_of.at[where(convert, subject, 0)].min(where(convert, -1, 1 << 30))
@@ -151,19 +160,19 @@ map_add_kernel(int32_t* __restrict__ map, const int32_t* __restrict__ subjects,
 __global__ void __launch_bounds__(32)
 maps_convert_kernel(int32_t* __restrict__ suspect_of, int32_t* __restrict__ dead_of,
                     const uint8_t* __restrict__ convert, const int32_t* __restrict__ r_subject,
-                    int64_t N, int U) {
+                    int64_t row0, int64_t rows, int U) {
   const int lane = threadIdx.x;
   const uint64_t conv = warp_slot_mask(convert, U);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int u = lane + 32 * half;
     if (!((conv >> u) & 1ull)) continue;
-    const int32_t subj = r_subject[u];
-    if (subj < 0 || subj >= N) continue;
-    atomicMin(&suspect_of[subj], -1);
-    atomicMax(&dead_of[subj], u);
+    const int64_t at = static_cast<int64_t>(r_subject[u]) - row0;
+    if (r_subject[u] < 0 || at < 0 || at >= rows) continue;
+    atomicMin(&suspect_of[at], -1);
+    atomicMax(&dead_of[at], u);
   }
-  if (conv != all_slots(U) && lane == 0) {
+  if (conv != all_slots(U) && lane == 0 && row0 == 0) {
     atomicMin(&suspect_of[0], kBig);
     atomicMax(&dead_of[0], -1);
   }
@@ -171,42 +180,51 @@ maps_convert_kernel(int32_t* __restrict__ suspect_of, int32_t* __restrict__ dead
 
 }  // namespace
 
+// The maps hold global rows [row0, row0 + rows) of N.
 extern "C" int subject_maps(const void* r_active, const void* r_kind, const void* r_subject,
-                            const void* r_inc, int64_t N, int U, void* suspect_of,
-                            void* dead_of, void* left_of, void* alive_val, void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64) {
+                            const void* r_inc, int64_t N, int U, int64_t row0, int64_t rows,
+                            void* suspect_of, void* dead_of, void* left_of, void* alive_val,
+                            void* stream) {
+  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || row0 < 0 || rows < 1 ||
+      row0 + rows > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t blocks = (N + kRange - 1) / kRange;
+  const int64_t blocks = (rows + kRange - 1) / kRange;
   subject_maps_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(r_active), static_cast<const int8_t*>(r_kind),
-      static_cast<const int32_t*>(r_subject), static_cast<const int32_t*>(r_inc), N, U,
-      static_cast<int32_t*>(suspect_of), static_cast<int32_t*>(dead_of),
+      static_cast<const int32_t*>(r_subject), static_cast<const int32_t*>(r_inc), row0, rows,
+      U, static_cast<int32_t*>(suspect_of), static_cast<int32_t*>(dead_of),
       static_cast<int32_t*>(left_of), static_cast<int32_t*>(alive_val));
   return static_cast<int>(cudaGetLastError());
 }
 
-// map: [N] int32, updated in place.
+// map: global rows [row0, row0 + rows) of an [N] int32 map, updated in
+// place.
 extern "C" int map_add(void* map, const void* subjects, const void* slots, const void* ok,
-                       int64_t N, int A, void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || A < 1 || A > 64) {
+                       int64_t N, int A, int64_t row0, int64_t rows, void* stream) {
+  if (N < 1 || N >= (int64_t{1} << 31) || A < 1 || A > 64 || row0 < 0 || rows < 1 ||
+      row0 + rows > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   map_add_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(map), static_cast<const int32_t*>(subjects),
-      static_cast<const int32_t*>(slots), static_cast<const uint8_t*>(ok), N, A);
+      static_cast<const int32_t*>(slots), static_cast<const uint8_t*>(ok), row0, rows, A);
   return static_cast<int>(cudaGetLastError());
 }
 
-// suspect_of, dead_of: [N] int32, updated in place.
+// suspect_of, dead_of: global rows [row0, row0 + rows) of [N] int32 maps,
+// updated in place.
 extern "C" int maps_convert(void* suspect_of, void* dead_of, const void* convert,
-                            const void* r_subject, int64_t N, int U, void* stream) {
-  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64) {
+                            const void* r_subject, int64_t N, int U, int64_t row0,
+                            int64_t rows, void* stream) {
+  if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || row0 < 0 || rows < 1 ||
+      row0 + rows > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   maps_convert_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(suspect_of), static_cast<int32_t*>(dead_of),
-      static_cast<const uint8_t*>(convert), static_cast<const int32_t*>(r_subject), N, U);
+      static_cast<const uint8_t*>(convert), static_cast<const int32_t*>(r_subject), row0, rows,
+      U);
   return static_cast<int>(cudaGetLastError());
 }

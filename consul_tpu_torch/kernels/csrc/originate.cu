@@ -57,6 +57,26 @@
 // The scratch counters are reset by the block that consumed them, so a
 // call needs no memset.
 //
+// Block form (a node-sharded pool, parallel/mesh.py), launches in turn:
+//   select, a launch a block over its rows [row0, row_end): phase 1 over
+//     the block's rows, its last CUDA block merging the launch's lists and
+//     writing the block's top A keys (global indices) and its demand into
+//     the block's slot of a [B, kPartWords] partial buffer;
+//   cover, a launch a block: each decides `evicting` from the blocks'
+//     demands and the free slots, and only then counts its live rows and
+//     per-slot live knowers (phase 2) into its slot;
+//   combine, one block on the mesh's first device: the top A of the B * A
+//     candidates (the same merge, so among equal wants the earlier global
+//     index wins, and with A > L every block gave all its rows), the
+//     demand and counts added in block order, then the decision itself
+//     (decide, unchanged): the table, the outputs, and the committed
+//     scatters at the subjects' cells through writable tables; it writes
+//     the plan (pairs, the kept slots, evicting) for the seeds;
+//   seed, a launch a block: the evicted columns cleared and the rows
+//     seeded over its rows (phase 3's walk).
+// The one-device launch is mode 0, the cooperative kernel as before (its
+// tables of one block are its own pointers).
+//
 // Bound on an H100: memory.  The function must read want and row_subject
 // (8 bytes a row) and write the seeded cells and the [U] table; with an
 // eviction, also read know and up/member (U + 2 bytes a row) and clear
@@ -78,6 +98,14 @@ constexpr int kSuspect = 1;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBatches = 4;  // 32-row steps whose loads a warp issues together
 constexpr int kSeedRows = 512;  // rows with a row_subject a block keeps
+
+// launch modes: the one-device cooperative launch, then the block form's
+enum Mode { kOneDevice = 0, kSelect = 1, kCover = 2, kCombine = 3, kSeed = 4 };
+// a block's partial slot, in u64 words: demand, live rows, 64 per-slot
+// live counts, A top keys; the plan after the B slots: A pairs, the kept
+// slots, evicting
+constexpr int kPDemand = 0, kPLive = 1, kPCols = 2, kPTops = 66, kPartWords = 130;
+constexpr int kPlanKeep = 64, kPlanEvicting = 65, kPlanWords = 66;
 
 // scratch layout, in u64 words
 constexpr int kSelectDone = 0, kCoverDone = 1, kDemand = 2, kLive = 3;
@@ -133,6 +161,16 @@ struct OriginateArgs {
   int32_t* subjects_out;
   int32_t* slots_out;
   uint8_t* ok_out;
+  // the block form: the launch's mode and rows, the pool's B, the [B,
+  // kPartWords] partials (this launch's slot at part_b) and the plan, and
+  // the tables of the leaves read or written at a subject
+  int mode;
+  int64_t row0, row_end;
+  int B, part_b;
+  u64* part;
+  u64* plan;
+  MutRows<int32_t> t_inc_of, t_cinc;
+  MutRows<uint8_t> t_cdead, t_cleft;
 };
 
 // (want, index) as one key: larger key = larger want, then smaller index.
@@ -207,21 +245,18 @@ __device__ void block_top(WarpTop& t, int A, u64* lists, int lane, int warp) {
   }
 }
 
-// Phase 1's last block: every block's list merged into the global top A
-// (kept in the scratch); returns the eviction flag (block-uniform).
-__device__ bool select_finish(const OriginateArgs& a, u64* lists, int lane, int warp) {
-  __shared__ bool s_evicting;
-  u64* sc = a.scratch;
-  // the free slots, loaded before the merge so the load overlaps it
-  const uint64_t active = warp == 0 ? warp_slot_mask(a.r_active, a.U) : 0;
-  WarpTop g;
-  const int64_t total = static_cast<int64_t>(gridDim.x) * a.A;
+// The keys of `lists` lists of A entries (list l's entry e at
+// src[l * stride + e]) merged into warp 0's top A, g (every thread of the
+// block calls it; the other warps' g is scratch).
+__device__ void merge_lists(const OriginateArgs& a, const u64* src, int64_t lists_n,
+                            int64_t stride, u64* lists, int lane, int warp, WarpTop& g) {
+  const int64_t total = lists_n * a.A;
   const int64_t step = kWarps * 32 * kBatches;
   auto load = [&](u64 (&keys)[kBatches], int64_t c0) {
 #pragma unroll
     for (int r = 0; r < kBatches; ++r) {
       const int64_t c = c0 + r * kWarps * 32 + lane;
-      keys[r] = c < total ? __ldcg(&sc[kLists + c]) : 0ull;
+      keys[r] = c < total ? __ldcg(&src[(c / a.A) * stride + c % a.A]) : 0ull;
     }
   };
   u64 next[kBatches];  // the next group's keys load while this one is offered
@@ -235,13 +270,32 @@ __device__ bool select_finish(const OriginateArgs& a, u64* lists, int lane, int 
     for (int r = 0; r < kBatches; ++r) top_offer(g, keys[r], a.A, lane);
   }
   block_top(g, a.A, lists, lane, warp);
+}
+
+// Phase 1's last block: every block's list merged into the global top A
+// (kept in the scratch); returns the eviction flag (block-uniform).  In
+// the block form (kSelect) the launch's top A and demand go to its slot.
+__device__ bool select_finish(const OriginateArgs& a, u64* lists, int lane, int warp) {
+  __shared__ bool s_evicting;
+  u64* sc = a.scratch;
+  // the free slots, loaded before the merge so the load overlaps it
+  const uint64_t active = warp == 0 ? warp_slot_mask(a.r_active, a.U) : 0;
+  WarpTop g;
+  merge_lists(a, sc + kLists, gridDim.x, a.A, lists, lane, warp, g);
   if (warp == 0) {
-    if (lane < a.A) sc[kTop + lane] = g.lo;
-    if (lane + 32 < a.A) sc[kTop + 32 + lane] = g.hi;
+    u64* top = a.mode == kSelect ? a.part + a.part_b * kPartWords + kPTops : sc + kTop;
+    if (lane < a.A) top[lane] = g.lo;
+    if (lane + 32 < a.A) top[32 + lane] = g.hi;
     if (lane == 0) {
-      const u64 free_slots = static_cast<u64>(a.U - __popcll(active));
-      s_evicting = __ldcg(&sc[kDemand]) > free_slots;
-      sc[kEvicting] = s_evicting ? 1 : 0;
+      const u64 demand = __ldcg(&sc[kDemand]);
+      if (a.mode == kSelect) {
+        a.part[a.part_b * kPartWords + kPDemand] = demand;
+        s_evicting = false;
+      } else {
+        const u64 free_slots = static_cast<u64>(a.U - __popcll(active));
+        s_evicting = demand > free_slots;
+        sc[kEvicting] = s_evicting ? 1 : 0;
+      }
       sc[kDemand] = 0;
       sc[kSelectDone] = 0;
     }
@@ -309,11 +363,11 @@ __device__ void decide(const OriginateArgs& a, bool evicting, const SlotRow& row
     s_score[t - 64] = key_value(key);
   }
   if (t == 128) {
-    s_ci0 = a.committed_inc[0];
+    s_ci0 = a.t_cinc.at(0);
     s_live = evicting ? __ldcg(&sc[kLive]) : 0;
   }
   __syncthreads();
-  if (t >= 64 && t < 64 + A) s_newinc[t - 64] = a.inc_of_subject[s_subj[t - 64]];
+  if (t >= 64 && t < 64 + A) s_newinc[t - 64] = a.t_inc_of.at(s_subj[t - 64]);
 
   // per slot (warps 0 and 1): coverage, done, the commit masks
   if (warp < 2) {
@@ -357,11 +411,11 @@ __device__ void decide(const OriginateArgs& a, bool evicting, const SlotRow& row
     const uint64_t slots = all_slots(U);
     for (uint64_t m = mask(1); m; m &= m - 1) {
       const int32_t x = s_subject[__ffsll(m) - 1];
-      if (x >= 0 && x < a.N && !a.committed_dead[x]) a.committed_dead[x] = 1;
+      if (x >= 0 && x < a.N && !a.t_cdead.at(x)) *a.t_cdead.row(x) = 1;
     }
     for (uint64_t m = mask(2); m; m &= m - 1) {
       const int32_t x = s_subject[__ffsll(m) - 1];
-      if (x >= 0 && x < a.N && !a.committed_left[x]) a.committed_left[x] = 1;
+      if (x >= 0 && x < a.N && !a.t_cleft.at(x)) *a.t_cleft.row(x) = 1;
     }
     const uint64_t c_alive = mask(3);
     int32_t ci0 = s_ci0;  // node 0's committed inc as the scatters leave it
@@ -369,13 +423,13 @@ __device__ void decide(const OriginateArgs& a, bool evicting, const SlotRow& row
       const int u = __ffsll(m) - 1;
       const int32_t x = s_subject[u];
       if (x < 0 || x >= a.N) continue;
-      const int32_t old = x == 0 ? ci0 : a.committed_inc[x];
+      const int32_t old = x == 0 ? ci0 : a.t_cinc.at(x);
       if (s_inc[u] > old) {
-        a.committed_inc[x] = s_inc[u];
+        *a.t_cinc.row(x) = s_inc[u];
         if (x == 0) ci0 = s_inc[u];
       }
     }
-    if ((c_alive & slots) != slots && ci0 < 0) a.committed_inc[0] = 0;
+    if ((c_alive & slots) != slots && ci0 < 0) *a.t_cinc.row(0) = 0;
     sc[kKeep] = ~mask(0);
     sc[kLive] = 0;
     sc[kCoverDone] = 0;
@@ -456,139 +510,142 @@ __device__ __forceinline__ void warp_clear_rows(uint8_t* d, int64_t bytes, int U
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-originate_kernel(const __grid_constant__ OriginateArgs a) {
-  __shared__ u64 lists[kWarps * 64];
+// Phase 1 over the launch's rows (see the header); in mode 0 its last
+// block decides at once when there is no eviction.
+__device__ void select_phase(const OriginateArgs& a, u64* lists, int32_t* s_row,
+                             int32_t* s_rsubj, int& s_nrows, int lane, int warp) {
   __shared__ u64 red[1][32];
   __shared__ bool last;
-  __shared__ int32_t s_match[64], s_slot[64];
-  // the block's rows of phase 1 that name a row_subject (a seed can take
-  // no other row), kept for phase 3 unless there are more than kSeedRows
-  __shared__ int32_t s_row[kSeedRows], s_rsubj[kSeedRows];
-  __shared__ int s_nrows;
-  cg::grid_group grid = cg::this_grid();
   u64* sc = a.scratch;
-  const int U = a.U, A = a.A;
-  const int64_t N = a.N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (blockIdx.x == 0) stamp(sc, 0);
-
-  if (threadIdx.x == 0) s_nrows = 0;
+  const int A = a.A;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  WarpTop t;
+  u64 demand[1] = {0};
+  for (int64_t i0 = a.row0 + gwarp * 32; i0 < a.row_end; i0 += warps * 32 * kBatches) {
+    u64 keys[kBatches];  // the warp's next batches, offered in row order
+    int32_t rs[kBatches];
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) {
+      const int64_t i = i0 + r * warps * 32 + lane;
+      keys[r] = 0;
+      rs[r] = -1;
+      if (i < a.row_end) {
+        const int32_t w = a.want[i];
+        rs[r] = a.row_subject[i];
+        demand[0] += w > 0;
+        keys[r] = make_key(w, i);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) {
+      top_offer(t, keys[r], A, lane);
+      if (rs[r] >= 0 && a.mode == kOneDevice) {
+        const int at = atomicAdd(&s_nrows, 1);
+        if (at < kSeedRows) {
+          s_row[at] = static_cast<int32_t>(i0 + r * warps * 32 + lane);
+          s_rsubj[at] = rs[r];
+        }
+      }
+    }
+  }
+  block_top(t, A, lists, lane, warp);
+  if (warp == 0) {
+    u64* mine = sc + kLists + static_cast<int64_t>(blockIdx.x) * A;
+    if (lane < A) mine[lane] = t.lo;
+    if (lane + 32 < A) mine[lane + 32] = t.hi;
+  }
+  block_sum<1>(demand, red);
+  if (threadIdx.x == 0 && red[0][0]) atomicAdd(&sc[kDemand], red[0][0]);
+  stamp(sc, 1);
+  __threadfence();
   __syncthreads();
-
-  // 1. select
-  {
-    const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-    const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-    WarpTop t;
-    u64 demand[1] = {0};
-    for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32 * kBatches) {
-      u64 keys[kBatches];  // the warp's next batches, offered in row order
-      int32_t rs[kBatches];
-#pragma unroll
-      for (int r = 0; r < kBatches; ++r) {
-        const int64_t i = i0 + r * warps * 32 + lane;
-        keys[r] = 0;
-        rs[r] = -1;
-        if (i < N) {
-          const int32_t w = a.want[i];
-          rs[r] = a.row_subject[i];
-          demand[0] += w > 0;
-          keys[r] = make_key(w, i);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kBatches; ++r) {
-        top_offer(t, keys[r], A, lane);
-        if (rs[r] >= 0) {
-          const int at = atomicAdd(&s_nrows, 1);
-          if (at < kSeedRows) {
-            s_row[at] = static_cast<int32_t>(i0 + r * warps * 32 + lane);
-            s_rsubj[at] = rs[r];
-          }
-        }
-      }
-    }
-    block_top(t, A, lists, lane, warp);
-    if (warp == 0) {
-      u64* mine = sc + kLists + static_cast<int64_t>(blockIdx.x) * A;
-      if (lane < A) mine[lane] = t.lo;
-      if (lane + 32 < A) mine[lane + 32] = t.hi;
-    }
-    block_sum<1>(demand, red);
-    if (threadIdx.x == 0 && red[0][0]) atomicAdd(&sc[kDemand], red[0][0]);
-    stamp(sc, 1);
+  if (threadIdx.x == 0) last = atomicAdd(&sc[kSelectDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
+  __syncthreads();
+  if (last) {
     __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(&sc[kSelectDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
-    __syncthreads();
-    if (last) {
-      __threadfence();
-      const SlotRow row = load_row(a, threadIdx.x);
-      if (!select_finish(a, lists, lane, warp)) decide(a, false, row);
-      stamp(sc, 2);
+    const SlotRow row = load_row(a, threadIdx.x);
+    if (!select_finish(a, lists, lane, warp) && a.mode == kOneDevice) decide(a, false, row);
+    stamp(sc, 2);
+  }
+}
+
+// Phase 2 over the launch's rows: the live rows and per-slot live
+// knowers; the last block decides (mode 0) or writes the launch's counts
+// into its slot (kCover).
+__device__ void cover_phase(const OriginateArgs& a, int lane) {
+  __shared__ uint32_t s_col[64];
+  __shared__ u64 red[1][32];
+  __shared__ bool last;
+  u64* sc = a.scratch;
+  const int U = a.U;
+  if (threadIdx.x < 64) s_col[threadIdx.x] = 0;
+  __syncthreads();
+  u64 live[1] = {0};
+  uint32_t cnt[2] = {0, 0};
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int64_t i0 = a.row0 + tid - lane; i0 < a.row_end; i0 += stride * kBatches) {
+    uint64_t m[kBatches];  // the rows' loads issued together
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) {
+      const int64_t i = i0 + r * stride + lane;
+      bool is_live = false;
+      uint64_t k = 0;
+      if (i < a.row_end) {
+        is_live = (a.up[i] != 0) & (a.member[i] != 0);
+        k = row_mask(a.know + i * U, U);
+      }
+      live[0] += is_live;
+      m[r] = is_live ? k : 0;
     }
+#pragma unroll
+    for (int r = 0; r < kBatches; ++r) warp_column_counts(m[r], U, cnt);
+  }
+  atomicAdd(&s_col[lane], cnt[0]);
+  if (U > 32) atomicAdd(&s_col[lane + 32], cnt[1]);
+  block_sum<1>(live, red);  // its syncs also publish s_col
+  if (threadIdx.x == 0) atomicAdd(&sc[kLive], red[0][0]);
+  if (threadIdx.x < U && s_col[threadIdx.x]) {
+    atomicAdd(&sc[kCols + threadIdx.x], static_cast<u64>(s_col[threadIdx.x]));
   }
   __threadfence();
-  grid.sync();
-  stamp(sc, 3);
-
-  // 2. the live coverage, only when evicting
-  const bool evicting = __ldcg(&sc[kEvicting]) != 0;  // grid-uniform
-  if (evicting) {
-    __shared__ uint32_t s_col[64];
-    if (threadIdx.x < 64) s_col[threadIdx.x] = 0;
-    __syncthreads();
-    u64 live[1] = {0};
-    uint32_t cnt[2] = {0, 0};
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    for (int64_t i0 = tid - lane; i0 < N; i0 += stride * kBatches) {
-      uint64_t m[kBatches];  // the rows' loads issued together
-#pragma unroll
-      for (int r = 0; r < kBatches; ++r) {
-        const int64_t i = i0 + r * stride + lane;
-        bool is_live = false;
-        uint64_t k = 0;
-        if (i < N) {
-          is_live = (a.up[i] != 0) & (a.member[i] != 0);
-          k = row_mask(a.know + i * U, U);
-        }
-        live[0] += is_live;
-        m[r] = is_live ? k : 0;
-      }
-#pragma unroll
-      for (int r = 0; r < kBatches; ++r) warp_column_counts(m[r], U, cnt);
-    }
-    atomicAdd(&s_col[lane], cnt[0]);
-    if (U > 32) atomicAdd(&s_col[lane + 32], cnt[1]);
-    block_sum<1>(live, red);  // its syncs also publish s_col
-    if (threadIdx.x == 0) atomicAdd(&sc[kLive], red[0][0]);
-    if (threadIdx.x < U && s_col[threadIdx.x]) {
-      atomicAdd(&sc[kCols + threadIdx.x], static_cast<u64>(s_col[threadIdx.x]));
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(&sc[kCoverDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
-    __syncthreads();
-    if (last) {
-      __threadfence();
-      decide(a, true, load_row(a, threadIdx.x));
-    }
-    __threadfence();
-    grid.sync();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&sc[kCoverDone], 1ull) == static_cast<u64>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (a.mode == kOneDevice) {
+    decide(a, true, load_row(a, threadIdx.x));
+    return;
   }
+  u64* mine = a.part + a.part_b * kPartWords;
+  for (int u = threadIdx.x; u < 64; u += blockDim.x) {
+    mine[kPCols + u] = u < U ? __ldcg(&sc[kCols + u]) : 0;
+    sc[kCols + u] = 0;
+  }
+  if (threadIdx.x == 0) {
+    mine[kPLive] = __ldcg(&sc[kLive]);
+    sc[kLive] = 0;
+    sc[kCoverDone] = 0;
+  }
+}
 
-  // 3. seed: a warp takes 32 consecutive rows a step, kBatches steps'
-  // row_subject loaded together
-  stamp(sc, 4);
+// Phase 3 over the launch's rows: the evicted columns cleared (when
+// `evicted`) and the rows naming an allocated subject seeded, from the
+// (subject, slot) pairs `pairs`.
+__device__ void seed_phase(const OriginateArgs& a, const u64* pairs, uint64_t evicted,
+                           const int32_t* s_row, const int32_t* s_rsubj, int s_nrows,
+                           int lane, int warp) {
+  __shared__ int32_t s_match[64], s_slot[64];
+  u64* sc = a.scratch;
+  const int U = a.U, A = a.A;
   for (int k = threadIdx.x; k < A; k += blockDim.x) {
-    const u64 p = __ldcg(&sc[kPairs + k]);
+    const u64 p = __ldcg(&pairs[k]);
     s_match[k] = static_cast<int32_t>(p >> 32);
     s_slot[k] = static_cast<int32_t>(static_cast<uint32_t>(p));
   }
   __syncthreads();
-  const uint64_t evicted = evicting ? ~__ldcg(&sc[kKeep]) & all_slots(U) : 0;
   auto seed = [&](int64_t row, int32_t rs) {
     int slot = -1;
     for (int k = 0; k < A; ++k) {
@@ -601,7 +658,7 @@ originate_kernel(const __grid_constant__ OriginateArgs a) {
       a.sends_left[cell] = static_cast<int8_t>(a.limit);
     }
   };
-  if (!evicted && s_nrows <= kSeedRows) {
+  if (a.mode == kOneDevice && !evicted && s_nrows <= kSeedRows) {
     // no column to clear: the rows phase 1 kept are all a seed can take
     for (int e = threadIdx.x; e < s_nrows; e += blockDim.x) seed(s_row[e], s_rsubj[e]);
     __syncthreads();
@@ -610,36 +667,144 @@ originate_kernel(const __grid_constant__ OriginateArgs a) {
   }
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
   const int64_t gwarp = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  for (int64_t i0 = gwarp * 32; i0 < N; i0 += warps * 32 * kBatches) {
+  const int64_t end = a.row_end;
+  for (int64_t i0 = a.row0 + gwarp * 32; i0 < end; i0 += warps * 32 * kBatches) {
     int32_t rs[kBatches];
 #pragma unroll
     for (int r = 0; r < kBatches; ++r) {
       const int64_t i = i0 + r * warps * 32 + lane;
-      rs[r] = i < N ? a.row_subject[i] : -1;
+      rs[r] = i < end ? a.row_subject[i] : -1;
     }
 #pragma unroll
     for (int r = 0; r < kBatches; ++r) {
       const int64_t b0 = i0 + r * warps * 32;  // warp-uniform
-      if (b0 >= N) break;
+      if (b0 >= end) break;
       if (evicted) {
         // _release's column clears (know & keep, the freed slots' budgets)
-        const int64_t bytes = (N - b0 < 32 ? N - b0 : 32) * U;
+        const int64_t bytes = (end - b0 < 32 ? end - b0 : 32) * U;
         warp_clear_rows(a.know + b0 * U, bytes, U, evicted, lane);
         warp_clear_rows(reinterpret_cast<uint8_t*>(a.sends_left) + b0 * U, bytes, U,
                         evicted, lane);
         __syncwarp();  // a cleared cell a lane's seed may take again
       }
-      seed(b0 + lane, rs[r]);
+      if (b0 + lane < end) seed(b0 + lane, rs[r]);
     }
   }
   __syncthreads();
   stamp(sc, 5);
 }
 
+// The block form's combine, one block: the B blocks' top A keys merged,
+// their demands and counts added in block order, the decision, the plan.
+__device__ void combine(const OriginateArgs& a, u64* lists, int lane, int warp) {
+  __shared__ bool s_evicting;
+  u64* sc = a.scratch;
+  const int U = a.U, A = a.A;
+  const uint64_t active = warp == 0 ? warp_slot_mask(a.r_active, U) : 0;
+  WarpTop g;
+  merge_lists(a, a.part + kPTops, a.B, kPartWords, lists, lane, warp, g);
+  if (warp == 0) {
+    if (lane < A) sc[kTop + lane] = g.lo;
+    if (lane + 32 < A) sc[kTop + 32 + lane] = g.hi;
+    if (lane == 0) {
+      u64 demand = 0;
+      for (int b = 0; b < a.B; ++b) demand += a.part[b * kPartWords + kPDemand];
+      s_evicting = demand > static_cast<u64>(U - __popcll(active));
+    }
+  }
+  __syncthreads();
+  const bool evicting = s_evicting;
+  if (evicting) {
+    for (int u = threadIdx.x; u <= U; u += blockDim.x) {
+      const int w = u < U ? kPCols + u : kPLive;
+      u64 t = 0;
+      for (int b = 0; b < a.B; ++b) t += a.part[b * kPartWords + w];
+      sc[u < U ? kCols + u : kLive] = t;
+    }
+  }
+  __threadfence_block();
+  __syncthreads();
+  decide(a, evicting, load_row(a, threadIdx.x));
+  __syncthreads();
+  for (int k = threadIdx.x; k < A; k += blockDim.x) a.plan[k] = sc[kPairs + k];
+  if (threadIdx.x == 0) {
+    a.plan[kPlanKeep] = evicting ? sc[kKeep] : ~0ull;
+    a.plan[kPlanEvicting] = evicting;
+  }
+}
+
+// kCombineLaunch: the block form's combine, an instantiation of its own (so a
+// profile tells it from the blocks' launches)
+template <bool kCombineLaunch>
+__global__ void __launch_bounds__(kThreads)
+originate_kernel(const __grid_constant__ OriginateArgs a) {
+  __shared__ u64 lists[kWarps * 64];
+  // the block's rows of phase 1 that name a row_subject (a seed can take
+  // no other row), kept for phase 3 unless there are more than kSeedRows
+  __shared__ int32_t s_row[kSeedRows], s_rsubj[kSeedRows];
+  __shared__ int s_nrows;
+  __shared__ bool s_evicting;
+  u64* sc = a.scratch;
+  const int U = a.U;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (kCombineLaunch) {
+    combine(a, lists, lane, warp);
+    return;
+  }
+  if (a.mode == kSeed) {
+    const uint64_t evicted = a.plan[kPlanEvicting] ? ~a.plan[kPlanKeep] & all_slots(U) : 0;
+    seed_phase(a, a.plan, evicted, s_row, s_rsubj, 0, lane, warp);
+    return;
+  }
+  if (a.mode == kCover) {
+    const uint64_t active = warp == 0 ? warp_slot_mask(a.r_active, U) : 0;
+    if (threadIdx.x == 0) {
+      u64 demand = 0;
+      for (int b = 0; b < a.B; ++b) demand += a.part[b * kPartWords + kPDemand];
+      s_evicting = demand > static_cast<u64>(U - __popcll(active));
+    }
+    __syncthreads();
+    if (s_evicting) cover_phase(a, lane);
+    return;
+  }
+  cg::grid_group grid = cg::this_grid();
+  if (blockIdx.x == 0) stamp(sc, 0);
+  if (threadIdx.x == 0) s_nrows = 0;
+  __syncthreads();
+
+  // 1. select
+  select_phase(a, lists, s_row, s_rsubj, s_nrows, lane, warp);
+  if (a.mode == kSelect) return;
+  __threadfence();
+  grid.sync();
+  stamp(sc, 3);
+
+  // 2. the live coverage, only when evicting
+  const bool evicting = __ldcg(&sc[kEvicting]) != 0;  // grid-uniform
+  if (evicting) {
+    cover_phase(a, lane);
+    __threadfence();
+    grid.sync();
+  }
+
+  // 3. seed
+  stamp(sc, 4);
+  const uint64_t evicted = evicting ? ~__ldcg(&sc[kKeep]) & all_slots(U) : 0;
+  seed_phase(a, sc + kPairs, evicted, s_row, s_rsubj, s_nrows, lane, warp);
+}
+
 }  // namespace
 
 // scratch: kLists + A * list_blocks u64, zeroed once (each phase resets
-// what it consumed).
+// what it consumed).  `mode` is Mode: 0 the one-device cooperative launch
+// (rows = N, row0 = 0, B = 1 tables of its own pointers, part and plan
+// null); the block form's select, cover and seed over global rows [row0,
+// row0 + rows) with the leaves read at a row (want, row_subject, up,
+// member, know, learn_tick, sends_left) local to the block, and its
+// combine (one block, the first device).  tables: 4 tables of B base
+// pointers (inc_of_subject, committed_dead, committed_left,
+// committed_inc), L rows a block; part: [B, kPartWords] u64 (the launch's
+// slot at part_b); plan: [kPlanWords] u64.
 extern "C" int originate(const void* want, const void* row_subject,
                          const void* inc_of_subject, const void* up,
                          const void* member, void* know, void* learn_tick,
@@ -650,20 +815,24 @@ extern "C" int originate(const void* want, const void* row_subject,
                          void* r_coverage, int64_t N, int U, int A, int kind,
                          int tick, int tick16, int limit, void* scratch,
                          int list_blocks, void* subjects_out, void* slots_out,
-                         void* ok_out, void* stream) {
+                         void* ok_out, int mode, int64_t row0, int64_t rows,
+                         const void* tables, int B, int64_t L, int part_b,
+                         void* part, void* plan, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || A < 1 ||
-      A > U || A > N || list_blocks < 1) {
+      A > U || A > N || list_blocks < 1 || mode < kOneDevice || mode > kSeed ||
+      row0 < 0 || rows < 1 || row0 + rows > N || B < 1 || B > kMaxBlocks || !tables ||
+      (mode != kOneDevice && (!part || !plan || part_b < 0 || part_b >= B))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OriginateArgs a;
-  a.want = static_cast<const int32_t*>(want);
-  a.row_subject = static_cast<const int32_t*>(row_subject);
+  a.want = shifted<const int32_t>(const_cast<void*>(want), row0);
+  a.row_subject = shifted<const int32_t>(const_cast<void*>(row_subject), row0);
   a.inc_of_subject = static_cast<const int32_t*>(inc_of_subject);
-  a.up = static_cast<const uint8_t*>(up);
-  a.member = static_cast<const uint8_t*>(member);
-  a.know = static_cast<uint8_t*>(know);
-  a.learn_tick = static_cast<int16_t*>(learn_tick);
-  a.sends_left = static_cast<int8_t*>(sends_left);
+  a.up = shifted<const uint8_t>(const_cast<void*>(up), row0);
+  a.member = shifted<const uint8_t>(const_cast<void*>(member), row0);
+  a.know = shifted<uint8_t>(know, row0, U);
+  a.learn_tick = shifted<int16_t>(learn_tick, row0, U);
+  a.sends_left = shifted<int8_t>(sends_left, row0, U);
   a.committed_dead = static_cast<uint8_t*>(committed_dead);
   a.committed_left = static_cast<uint8_t*>(committed_left);
   a.committed_inc = static_cast<int32_t*>(committed_inc);
@@ -685,11 +854,31 @@ extern "C" int originate(const void* want, const void* row_subject,
   a.subjects_out = static_cast<int32_t*>(subjects_out);
   a.slots_out = static_cast<int32_t*>(slots_out);
   a.ok_out = static_cast<uint8_t*>(ok_out);
+  a.mode = mode;
+  a.row0 = row0;
+  a.row_end = row0 + rows;
+  a.B = B;
+  a.part_b = part_b;
+  a.part = static_cast<u64*>(part);
+  a.plan = static_cast<u64*>(plan);
+  a.t_inc_of = mut_rows<int32_t>(tables, 0, B, L);
+  a.t_cdead = mut_rows<uint8_t>(tables, 1, B, L);
+  a.t_cleft = mut_rows<uint8_t>(tables, 2, B, L);
+  a.t_cinc = mut_rows<int32_t>(tables, 3, B, L);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   static PerCard per_card;
-  const int blocks = persistent_blocks(originate_kernel, kThreads, N, list_blocks,
-                                       per_card);
+  const int blocks = persistent_blocks(originate_kernel<false>, kThreads, rows,
+                                       list_blocks, per_card);
+  if (mode == kCombine) {
+    originate_kernel<true><<<1, kThreads, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (mode != kOneDevice) {
+    originate_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   void* args[] = {&a};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(originate_kernel), dim3(blocks), dim3(kThreads),
-      args, 0, static_cast<cudaStream_t>(stream)));
+      reinterpret_cast<const void*>(originate_kernel<false>), dim3(blocks),
+      dim3(kThreads), args, 0, s));
 }

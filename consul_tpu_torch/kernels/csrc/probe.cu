@@ -45,6 +45,20 @@
 // here is the int32 difference t16(tick) - learn (JAX's _row_gather sums
 // the int16 cell with jnp.sum, which promotes): no int16 wrap.
 //
+// Block form (a node-sharded pool, parallel/mesh.py): a launch a block
+// over its rows [row0, row_end), its own leaves at shifted pointers, every
+// read at the target j or a relay r through a block table (up, member,
+// the committed, bulk, map, coordinate and chaos leaves) and the target's
+// timers and want written through writable tables (MutRows): i -> j
+// stays a bijection over the pool, so no two launches write one cell.
+// The last block of a launch writes the launch's four counters and its
+// slot marks (an or of 64 bits) into its own slot of a [B, 5] partial
+// buffer instead of applying them; probe_combine, one launch on the
+// mesh's first device, adds the blocks' counters in block order, ors
+// their marks and applies the confirmation update and the counters.  The
+// one-device launch is the kOne instantiation (a table's row is its base
+// plus i), the same code as before the block form.
+//
 // Bound on an H100: memory.  The function must read, per prober, its
 // know row (U bytes), its draws (rtt, direct, lha and 3k relay legs: 4(3
 // + 3k) bytes), coords at i (8 bytes; at j they are the same array
@@ -67,6 +81,12 @@ constexpr int kSuspect = 1;
 constexpr int kTimeouts = 65;  // confirmations 0..64
 constexpr int kMaxRelays = 16;
 constexpr int kCtrMax = 16;
+constexpr int kPart = kCounters + 1;  // a block's partial: counters, marks
+
+// the block tables of a probe round, in the host's order
+enum Table { kUp, kMember, kCDead, kCLeft, kCInc, kBulk, kSuspectOf, kDeadOf, kLeftOf,
+             kAliveVal, kCoords, kGrp, kOk, kSusStart, kSusConfirm, kSusCount, kWant,
+             kTables };
 
 struct ProbeArgs {
   // the state's leaves (know ... ctr updated in place)
@@ -117,6 +137,17 @@ struct ProbeArgs {
   int32_t* row_subject_out;
   float* rtt_out;
   uint8_t* acked_out;
+  // the rows of this launch, and the block form's tables and partial slot
+  // (null for the one-device launch)
+  int64_t row0, row_end;
+  u64* part;
+  MutRows<uint8_t> t_up, t_member, t_cdead, t_cleft, t_bulk;
+  MutRows<int32_t> t_cinc, t_suspect_of, t_dead_of, t_left_of, t_alive_val;
+  MutRows<float2> t_coords;
+  MutRows<int16_t> t_grp;
+  MutRows<float> t_ok;
+  MutRows<int32_t> t_sus_start, t_sus_count, t_want;
+  MutRows<int8_t> t_sus_confirm;
 };
 
 __device__ __forceinline__ int64_t ring(int64_t i, int64_t d, int64_t N) {
@@ -130,6 +161,7 @@ __device__ __forceinline__ bool bit(uint64_t m, int u) {
 
 // at most 64 registers, so four blocks of 256 share an SM (latency hiding
 // for a thread's ~30 independent row and target loads)
+template <bool kOne>
 __global__ void __launch_bounds__(kThreads, 4)
 probe_round_kernel(const __grid_constant__ ProbeArgs a) {
   __shared__ int32_t s_subject[64], s_inc[64];
@@ -175,14 +207,14 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
       const uint32_t h = static_cast<uint32_t>(x) * 2654435761u + a.seed32;
       if (__fdiv_rn(__uint2float_rn(h), 4294967296.0f) < a.degraded_frac) o = a.ok_bad;
     }
-    if (a.chaos) o = __fmul_rn(o, a.chaos_ok[x]);
+    if (a.chaos) o = __fmul_rn(o, a.t_ok.at<kOne>(x));
     return o;
   };
 
   u64 v[kCounters] = {0, 0, 0, 0};
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
+  for (int64_t i = a.row0 + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < a.row_end; i += stride) {
     const int64_t j = ring(i, d, N);
     const int64_t row = i * U;
     const bool live_i = a.up[i] && a.member[i];
@@ -199,8 +231,9 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
 
     // does prober i already believe its target j is down?
     const uint64_t km = row_mask(a.know + row, U);
-    const bool cd_j = a.committed_dead[j], cl_j = a.committed_left[j];
-    const int32_t dj = a.dead_of[j], lj = a.left_of[j], ss = a.suspect_of[j];
+    const bool cd_j = a.t_cdead.at<kOne>(j), cl_j = a.t_cleft.at<kOne>(j);
+    const int32_t dj = a.t_dead_of.at<kOne>(j), lj = a.t_left_of.at<kOne>(j);
+    const int32_t ss = a.t_suspect_of.at<kOne>(j);
     bool down = cd_j || cl_j || bit(km, dj) || bit(km, lj);
     const bool in_s = ss >= 0 && ss < U;
     const bool know_s = in_s && bit(km, ss);
@@ -208,23 +241,23 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
     int conf = in_s ? s_confirm[ss] : 0;
     conf = conf < 0 ? 0 : (conf >= kTimeouts ? kTimeouts - 1 : conf);
     const bool expired = know_s && (a.tick16 - learn) >= s_timeout[conf];
-    const int32_t av = a.alive_val[j];
+    const int32_t av = a.t_alive_val.at<kOne>(j);
     const int32_t inc_s = in_s ? s_inc[ss] : 0;
     bool refuted = av >= 0 && av / U > inc_s && bit(km, av % U);
-    refuted = refuted || inc_s < a.committed_inc[j];
-    down = down || (expired && !refuted) || a.bulk_member[j];
+    refuted = refuted || inc_s < a.t_cinc.at<kOne>(j);
+    down = down || (expired && !refuted) || a.t_bulk.at<kOne>(j);
     const bool skip = down;
 
     // the direct leg
-    const bool t_member = a.member[j];
-    const bool t_up = a.up[j] && t_member;
+    const bool t_member = a.t_member.at<kOne>(j);
+    const bool t_up = a.t_up.at<kOne>(j) && t_member;
     const float ok_i = ok_of(i), ok_t = ok_of(j);
     int g_i = 0, g_j = 0;
     if (a.chaos) {
       g_i = a.chaos_grp[i];
-      g_j = a.chaos_grp[j];
+      g_j = a.t_grp.at<kOne>(j);
     }
-    const float2 ci = a.coords[i], cj = a.coords[j];
+    const float2 ci = a.coords[i], cj = a.t_coords.at<kOne>(j);
     const float dx = __fsub_rn(ci.x, cj.x), dy = __fsub_rn(ci.y, cj.y);
     const float sq = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
     float rtt = __fadd_rn(__fsqrt_rn(sq), a.rtt_base_ms);
@@ -246,12 +279,12 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
       bool l23 = a.leg_b[at] < __fmul_rn(m_rt, m_rt);
       bool l4 = a.leg_c[at] < fminf(ok_r, ok_i);
       if (a.chaos) {
-        const int g_r = a.chaos_grp[r];
+        const int g_r = a.t_grp.at<kOne>(r);
         l1 = l1 && g_r == g_i;
         l4 = l4 && g_r == g_i;
         l23 = l23 && g_r == g_j;
       }
-      const bool relay_ok = a.up[r] && a.member[r];
+      const bool relay_ok = a.t_up.at<kOne>(r) && a.t_member.at<kOne>(r);
       const bool reach = t_up && l23;
       ind_ack = ind_ack || (relay_ok && l1 && reach && l4);
       nacks += relay_ok && l1 && !reach && l4;
@@ -275,15 +308,18 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
     }
     // the subject's timers, written where they change, and its want
     if (failed) {
-      const int32_t start = a.sus_start[j];
+      int32_t* start_j = a.t_sus_start.row<kOne>(j);
+      const int32_t start = *start_j;
       const bool start_new = start < 0 && !cd_j && !cl_j;
       if (start_new) {
-        a.sus_start[j] = a.tick;
-        a.sus_count[j] = a.sus_count[j] + 1;
+        *start_j = a.tick;
+        int32_t* count_j = a.t_sus_count.row<kOne>(j);
+        *count_j = *count_j + 1;
       }
-      const int sc = a.sus_confirm[j];
+      int8_t* confirm_j = a.t_sus_confirm.row<kOne>(j);
+      const int sc = *confirm_j;
       const int next = start_new ? 1 : (start >= 0 ? (sc + 1 > 64 ? 64 : sc + 1) : sc);
-      if (next != sc) a.sus_confirm[j] = static_cast<int8_t>(next);
+      if (next != sc) *confirm_j = static_cast<int8_t>(next);
       v[3] += start_new;
       for (uint64_t m = suspect_slots; m; m &= m - 1) {
         const int u = __ffsll(m) - 1;
@@ -291,7 +327,7 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
       }
     }
     const bool want = failed && ss < 0 && dj < 0 && lj < 0 && !cd_j && !cl_j;
-    a.want_out[j] = want ? 1 : 0;
+    *a.t_want.row<kOne>(j) = want ? 1 : 0;
     a.row_subject_out[i] = failed ? static_cast<int32_t>(j) : -1;
     a.rtt_out[i] = __fmul_rn(2.0f, rtt);
     a.acked_out[i] = prober && !skip && direct_ack;
@@ -319,6 +355,21 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
     for (int c = 0; c < kCounters; ++c) mine[c] += __ldcg(&partials[b * kCounters + c]);
   }
   block_sum<kCounters>(mine, red);
+  if (a.part != nullptr) {
+    // the block form: this launch's totals and marks into its slot
+    if (threadIdx.x == 0) {
+      u64 m = 0;
+      for (int u = 0; u < U; ++u) {
+        if (__ldcg(&marks[u])) m |= 1ull << u;
+        marks[u] = 0;
+      }
+#pragma unroll
+      for (int c = 0; c < kCounters; ++c) a.part[c] = red[c][0];
+      a.part[kCounters] = m;
+      *a.scratch = 0;
+    }
+    return;
+  }
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
     if ((suspect_slots >> u) & 1ull) {
       const u64 cnt = __ldcg(&marks[u]);
@@ -337,10 +388,49 @@ probe_round_kernel(const __grid_constant__ ProbeArgs a) {
   if (threadIdx.x == 0) *a.scratch = 0;  // ready for the next launch
 }
 
+// The blocks' partials: counters added in block order, marks or-ed; the
+// confirmation update and the counters applied as the one-device
+// launch's last block applies them.  One block.
+__global__ void __launch_bounds__(64)
+probe_combine_kernel(const u64* __restrict__ part, int B, int U, int C,
+                     int8_t* __restrict__ r_confirm, float* __restrict__ ctr) {
+  __shared__ u64 tot[kCounters], marks;
+  if (threadIdx.x < kCounters) {
+    u64 t = 0;
+    for (int b = 0; b < B; ++b) t += part[b * kPart + threadIdx.x];
+    tot[threadIdx.x] = t;
+  }
+  if (threadIdx.x == kCounters) {
+    u64 m = 0;
+    for (int b = 0; b < B; ++b) m |= part[b * kPart + kCounters];
+    marks = m;
+  }
+  __syncthreads();
+  for (int u = threadIdx.x; u < U; u += blockDim.x) {
+    if ((marks >> u) & 1ull) {
+      const int old = r_confirm[u];
+      const int c = old + 1 > 64 ? 64 : old + 1;
+      if (c != old) r_confirm[u] = static_cast<int8_t>(c);
+    }
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const float old = ctr[c];
+    const float add = c < kCounters ? __ull2float_rn(tot[c]) : 0.0f;
+    const float now = __fadd_rn(old, add);
+    if (__float_as_uint(now) != __float_as_uint(old)) ctr[c] = now;
+  }
+}
+
 }  // namespace
 
 // scratch: 1 + 64 + kCounters * scratch_blocks u64, zeroed once (the last
-// block clears the count and the marks it used).
+// block clears the count and the marks it used).  The block form: rows
+// [row0, row0 + rows) of N, the leaves at row i (up ... acked_out: every
+// [N] pointer of the signature) local to the block (row0 the first), the
+// host's `tables` array (kTables tables of B base pointers: the leaves
+// read at a target or a relay and the timers and want written there) and
+// `part` the block's [5] u64 partial slot; the one-device launch passes
+// row0 = 0, rows = N, B = 1 tables of its own pointers and part = null.
 extern "C" int probe_round(
     const void* up, const void* member, void* awareness, const void* coords,
     const void* committed_dead, const void* committed_left,
@@ -357,8 +447,11 @@ extern "C" int probe_round(
     float ok_bad, float degraded_frac, float probe_timeout_ms,
     float rtt_base_ms, int tick, int tick16, int limit, void* scratch,
     int scratch_blocks, void* want_out, void* row_subject_out, void* rtt_out,
-    void* acked_out, void* stream) {
+    void* acked_out, int64_t row0, int64_t rows, const void* tables, int B,
+    int64_t L, void* part, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || U < 1 || U > 64 || k < 0 ||
+      row0 < 0 || rows < 1 || row0 + rows > N || B < 1 || B > kMaxBlocks || !tables ||
+      (B > 1 && !part) ||
       k > kMaxRelays || amax < 0 || amax > 127 || C < kCounters ||
       C > kCtrMax || scratch_blocks < 1 || (amax > 0 && !lha) ||
       (k > 0 && (!leg_a || !leg_b || !leg_c)) || (chaos && (!chaos_grp || !chaos_ok)) ||
@@ -366,22 +459,22 @@ extern "C" int probe_round(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ProbeArgs a;
-  a.up = static_cast<const uint8_t*>(up);
-  a.member = static_cast<const uint8_t*>(member);
-  a.awareness = static_cast<int8_t*>(awareness);
-  a.coords = static_cast<const float2*>(coords);
+  a.up = shifted<const uint8_t>(const_cast<void*>(up), row0);
+  a.member = shifted<const uint8_t>(const_cast<void*>(member), row0);
+  a.awareness = shifted<int8_t>(awareness, row0);
+  a.coords = shifted<const float2>(const_cast<void*>(coords), row0);
   a.committed_dead = static_cast<const uint8_t*>(committed_dead);
   a.committed_left = static_cast<const uint8_t*>(committed_left);
   a.committed_inc = static_cast<const int32_t*>(committed_inc);
   a.bulk_member = static_cast<const uint8_t*>(bulk_member);
-  a.know = static_cast<uint8_t*>(know);
-  a.learn_tick = static_cast<int16_t*>(learn_tick);
-  a.sends_left = static_cast<int8_t*>(sends_left);
-  a.sus_start = static_cast<int32_t*>(sus_start);
-  a.sus_confirm = static_cast<int8_t*>(sus_confirm);
-  a.sus_count = static_cast<int32_t*>(sus_count);
-  a.chaos_grp = static_cast<const int16_t*>(chaos_grp);
-  a.chaos_ok = static_cast<const float*>(chaos_ok);
+  a.know = shifted<uint8_t>(know, row0, U);
+  a.learn_tick = shifted<int16_t>(learn_tick, row0, U);
+  a.sends_left = shifted<int8_t>(sends_left, row0, U);
+  a.sus_start = shifted<int32_t>(sus_start, row0);
+  a.sus_confirm = shifted<int8_t>(sus_confirm, row0);
+  a.sus_count = shifted<int32_t>(sus_count, row0);
+  a.chaos_grp = shifted<const int16_t>(const_cast<void*>(chaos_grp), row0);
+  a.chaos_ok = shifted<const float>(const_cast<void*>(chaos_ok), row0);
   a.r_active = static_cast<const uint8_t*>(r_active);
   a.r_kind = static_cast<const int8_t*>(r_kind);
   a.r_subject = static_cast<const int32_t*>(r_subject);
@@ -394,12 +487,12 @@ extern "C" int probe_round(
   a.alive_val = static_cast<const int32_t*>(alive_val);
   a.ctr = static_cast<float*>(ctr);
   a.offs = static_cast<const int32_t*>(offs);
-  a.rtt_draw = static_cast<const float*>(rtt_draw);
-  a.direct = static_cast<const float*>(direct);
-  a.lha = static_cast<const float*>(lha);
-  a.leg_a = static_cast<const float*>(leg_a);
-  a.leg_b = static_cast<const float*>(leg_b);
-  a.leg_c = static_cast<const float*>(leg_c);
+  a.rtt_draw = shifted<const float>(const_cast<void*>(rtt_draw), row0);
+  a.direct = shifted<const float>(const_cast<void*>(direct), row0);
+  a.lha = shifted<const float>(const_cast<void*>(lha), row0);
+  a.leg_a = shifted<const float>(const_cast<void*>(leg_a), row0, k);
+  a.leg_b = shifted<const float>(const_cast<void*>(leg_b), row0, k);
+  a.leg_c = shifted<const float>(const_cast<void*>(leg_c), row0, k);
   a.N = N;
   a.U = U;
   a.k = k;
@@ -417,13 +510,54 @@ extern "C" int probe_round(
   a.tick16 = tick16;
   a.limit = limit;
   a.scratch = static_cast<u64*>(scratch);
-  a.want_out = static_cast<int32_t*>(want_out);
-  a.row_subject_out = static_cast<int32_t*>(row_subject_out);
-  a.rtt_out = static_cast<float*>(rtt_out);
-  a.acked_out = static_cast<uint8_t*>(acked_out);
-  static PerCard per_card;
-  const int blocks = persistent_blocks(probe_round_kernel, kThreads, N,
-                                       scratch_blocks, per_card);
-  probe_round_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  a.want_out = shifted<int32_t>(want_out, row0);
+  a.row_subject_out = shifted<int32_t>(row_subject_out, row0);
+  a.rtt_out = shifted<float>(rtt_out, row0);
+  a.acked_out = shifted<uint8_t>(acked_out, row0);
+  a.row0 = row0;
+  a.row_end = row0 + rows;
+  a.part = static_cast<u64*>(part);
+  a.t_up = mut_rows<uint8_t>(tables, kUp, B, L);
+  a.t_member = mut_rows<uint8_t>(tables, kMember, B, L);
+  a.t_cdead = mut_rows<uint8_t>(tables, kCDead, B, L);
+  a.t_cleft = mut_rows<uint8_t>(tables, kCLeft, B, L);
+  a.t_cinc = mut_rows<int32_t>(tables, kCInc, B, L);
+  a.t_bulk = mut_rows<uint8_t>(tables, kBulk, B, L);
+  a.t_suspect_of = mut_rows<int32_t>(tables, kSuspectOf, B, L);
+  a.t_dead_of = mut_rows<int32_t>(tables, kDeadOf, B, L);
+  a.t_left_of = mut_rows<int32_t>(tables, kLeftOf, B, L);
+  a.t_alive_val = mut_rows<int32_t>(tables, kAliveVal, B, L);
+  a.t_coords = mut_rows<float2>(tables, kCoords, B, L);
+  a.t_grp = mut_rows<int16_t>(tables, kGrp, B, L);
+  a.t_ok = mut_rows<float>(tables, kOk, B, L);
+  a.t_sus_start = mut_rows<int32_t>(tables, kSusStart, B, L);
+  a.t_sus_confirm = mut_rows<int8_t>(tables, kSusConfirm, B, L);
+  a.t_sus_count = mut_rows<int32_t>(tables, kSusCount, B, L);
+  a.t_want = mut_rows<int32_t>(tables, kWant, B, L);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 1 && part == nullptr) {
+    static PerCard per_card;
+    const int blocks = persistent_blocks(probe_round_kernel<true>, kThreads, rows,
+                                         scratch_blocks, per_card);
+    probe_round_kernel<true><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    static PerCard per_card;
+    const int blocks = persistent_blocks(probe_round_kernel<false>, kThreads, rows,
+                                         scratch_blocks, per_card);
+    probe_round_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// part: B blocks' [5] u64 partials (a probe_round block form each);
+// r_confirm [U] and ctr [C] updated in place.
+extern "C" int probe_combine(const void* part, int B, int U, int C, void* r_confirm,
+                             void* ctr, void* stream) {
+  if (B < 1 || B > kMaxBlocks || U < 1 || U > 64 || C < kCounters || C > kCtrMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  probe_combine_kernel<<<1, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(part), B, U, C, static_cast<int8_t*>(r_confirm),
+      static_cast<float*>(ctr));
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,6 +58,23 @@ constexpr int kThreads = 256;
 constexpr int kPer = 4;                       // elements a thread
 constexpr int64_t kTile = kThreads * kPer;    // elements a block
 
+// The raw bits of elements e .. e + L - 1 of d's stream (no carry from
+// the low word into the high one within the L): randint's fold of its two
+// streams, or the stream's bits.
+template <int M, int L>
+__device__ __forceinline__ void bits4_lanes(const DrawSpec& d, uint64_t e, uint32_t (&v)[L]) {
+  const uint32_t hi = static_cast<uint32_t>(e >> 32);
+  const uint32_t lo = static_cast<uint32_t>(e);
+  if (M == kRandint) {
+    randint_lanes<L>(d, hi, lo, v);   // common.cuh, shared with K14
+    return;
+  }
+  ThreefryKey key;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) key.k[j] = d.sched[j];
+  threefry_lanes<L>(key, hi, lo, v);
+}
+
 // A segment is a common.cuh:DrawSpec, as the host fills it
 // (kernels/__init__.py:DrawSpec).
 
@@ -66,29 +83,38 @@ struct DrawTable {
   DrawSpec seg[kMaxSegments];
 };
 
-// Element i .. i + 3 of segment d (i a multiple of 4, i < d.n), finished
-// and stored: one 16-byte store where the four fit and the output is
-// 16-byte aligned, else (kTail) element by element.
-template <int M, bool kTail>
-__device__ __forceinline__ void draw4(const DrawSpec& d, int64_t i) {
-  const uint32_t hi = static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32);
-  const uint32_t lo = static_cast<uint32_t>(i);
-  uint32_t v[kPer];
-  if (M == kRandint) {
-    randint_lanes<kPer>(d, hi, lo, v);   // common.cuh, shared with K14
-  } else {
-    ThreefryKey key;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) key.k[j] = d.sched[j];
-    uint32_t b[kPer];
-    threefry_lanes<kPer>(key, hi, lo, b);
+// The bits of elements e .. e + 3 of d's stream: four interleaved lanes,
+// or one lane each where the four straddle a 2^32 boundary (a block's
+// draw starts at any element, prng.draw_blocks).
+template <int M>
+__device__ __forceinline__ void bits4(const DrawSpec& d, uint64_t e, uint32_t (&v)[kPer]) {
+#ifndef THREEFRY_CENSUS_MODE
+  if (static_cast<uint32_t>(e) > 0xFFFFFFFFu - (kPer - 1)) {
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      if (M == kBits) {
-        v[j] = b[j];
-        continue;
-      }
-      const float u = unit_float(b[j]);
+      uint32_t one[1];
+      bits4_lanes<M, 1>(d, e + j, one);
+      v[j] = one[0];
+    }
+    return;
+  }
+#endif
+  bits4_lanes<M, kPer>(d, e, v);
+}
+
+// Element i .. i + 3 of segment d (i a multiple of 4, i < d.n; elements
+// first + i .. of its stream), finished and stored: one 16-byte store
+// where the four fit and the output is 16-byte aligned, else (kTail)
+// element by element.
+template <int M, bool kTail>
+__device__ __forceinline__ void draw4(const DrawSpec& d, int64_t i) {
+  uint32_t v[kPer];
+  bits4<M>(d, static_cast<uint64_t>(d.first + i), v);
+  if (M != kRandint) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (M == kBits) continue;
+      const float u = unit_float(v[j]);
       float f;
       if (M == kUniform) f = scaled(u, d.lo, d.span);
       else if (M == kExponential) f = -log1pf(-u);

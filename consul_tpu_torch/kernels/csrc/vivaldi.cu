@@ -64,6 +64,16 @@
 // thread a row, that loads its rows element by element.  Both keep N
 // smaller than a tile working (the WAN pool has 15 nodes).
 //
+// Block form (a node-sharded pool, parallel/mesh.py): a launch a block
+// over its rows [row0, row_end), its own leaves at shifted pointers, the
+// peer's coordinate row, height and error read through block tables (a
+// tile's peer rows split where they wrap past N and, per row, where they
+// cross a block: each 16-byte copy finds its row's block).  The
+// reductions run row by row as before, so a block's rows get the bits
+// the one-device launch gives them (with the mean's factor float(N) /
+// float(N * W) of the pool, passed by the host).  The one-device launch
+// is the kOne instantiation.
+//
 // Bound on an H100: memory.  The function reads coords, height and error
 // once (the peer reads are the same rows), rtt_ms, acked and the window,
 // and writes coords, height, error and adjustment whole and, in place, the
@@ -103,6 +113,9 @@ struct RingArgs {
   float* height_out;      // [N], fresh
   float* error_out;       // [N], fresh
   float* adjustment;      // [N], written whole
+  // the launch's rows and the peers' tables (coords rows of D floats)
+  int64_t row0, row_end;
+  MutRows<float> t_coords, t_height, t_error;
 };
 
 __device__ __forceinline__ int64_t ring_shift(const int32_t* shift, int64_t N) {
@@ -250,14 +263,15 @@ struct RowIn {
   bool m;
 };
 
+template <bool kOne>
 __device__ __forceinline__ RowIn load_row_in(const RingArgs& a, int64_t i, int64_t d) {
   RowIn r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, false};
-  if (i < a.N) {
+  if (i < a.row_end) {
     const int64_t j = i + d >= a.N ? i + d - a.N : i + d;
     r.hi = a.height[i];
     r.ei = a.error[i];
-    r.hj = a.height[j];
-    r.ej = a.error[j];
+    r.hj = a.t_height.at<kOne>(j);
+    r.ej = a.t_error.at<kOne>(j);
     r.rtt_ms = a.rtt_ms[i];
     r.m = a.acked[i];
   }
@@ -269,17 +283,17 @@ __device__ __forceinline__ int tile_rows(int64_t i0, int64_t N) {
 }
 
 // The block's cp.async copies of the tile from row i0 into t.
-template <int kD, int kW>
+template <int kD, int kW, bool kOne>
 __device__ __forceinline__ void stage(Tile<kD, kW>& t, const RingArgs& a, int64_t i0, int64_t d) {
   constexpr int cD = kD / 4, cW = kW / 4;  // 16-byte chunks a row
   const int64_t N = a.N;
-  const int rows = tile_rows(i0, N);
+  const int rows = tile_rows(i0, a.row_end);
   const int64_t j0 = i0 + d >= N ? i0 + d - N : i0 + d;
   for (int c = threadIdx.x; c < rows * cD; c += blockDim.x) {
     const int r = c / cD;
     const int64_t j = j0 + r >= N ? j0 + r - N : j0 + r;
     cp_async16(&t.own[4 * c], a.coords + i0 * kD + 4 * c);
-    cp_async16(&t.peer[4 * c], a.coords + j * kD + 4 * (c - r * cD));
+    cp_async16(&t.peer[4 * c], a.t_coords.row<kOne>(j, kD) + 4 * (c - r * cD));
   }
   for (int c = threadIdx.x; c < rows * cW; c += blockDim.x) {
     cp_async16(&t.win[4 * c], a.window + i0 * kW + 4 * c);
@@ -298,7 +312,7 @@ __device__ __forceinline__ void shared_row(float (&x)[n], const float* s) {
   }
 }
 
-template <int kD, int kW>
+template <int kD, int kW, bool kOne>
 __global__ void __launch_bounds__(kTile)
 vivaldi_tile_kernel(const __grid_constant__ RingArgs a) {
   static_assert(kD % 4 == 0 && kW % 4 == 0 && kW >= 8 && kTile * kW % 8 == 0,
@@ -307,7 +321,7 @@ vivaldi_tile_kernel(const __grid_constant__ RingArgs a) {
   Tile<kD, kW>* buf = reinterpret_cast<Tile<kD, kW>*>(smem);  // kStages tiles
   const int64_t N = a.N;
   const int64_t d = ring_shift(a.shift, N);
-  const int64_t tiles = (N + kTile - 1) / kTile;
+  const int64_t tiles = (a.row_end - a.row0 + kTile - 1) / kTile;
   const int64_t G = gridDim.x;
   int64_t t = blockIdx.x;
   if (t >= tiles) return;  // block-uniform
@@ -315,23 +329,26 @@ vivaldi_tile_kernel(const __grid_constant__ RingArgs a) {
   // each (empty past the last tile)
 #pragma unroll
   for (int k = 0; k < kStages - 1; ++k) {
-    if (t + k * G < tiles) stage(buf[k], a, (t + k * G) * kTile, d);
+    if (t + k * G < tiles) stage<kD, kW, kOne>(buf[k], a, a.row0 + (t + k * G) * kTile, d);
     cp_async_commit();
   }
-  RowIn cur = load_row_in(a, t * kTile + threadIdx.x, d);
+  RowIn cur = load_row_in<kOne>(a, a.row0 + t * kTile + threadIdx.x, d);
   int b = 0;
   for (; t < tiles; t += G) {
     // the tile kStages - 1 ahead, into the buffer the last tile freed
     const int64_t ahead = t + (kStages - 1) * G;
-    if (ahead < tiles) stage(buf[b == 0 ? kStages - 1 : b - 1], a, ahead * kTile, d);
+    if (ahead < tiles) {
+      stage<kD, kW, kOne>(buf[b == 0 ? kStages - 1 : b - 1], a, a.row0 + ahead * kTile, d);
+    }
     cp_async_commit();
-    const RowIn nxt = t + G < tiles ? load_row_in(a, (t + G) * kTile + threadIdx.x, d) : cur;
+    const RowIn nxt =
+        t + G < tiles ? load_row_in<kOne>(a, a.row0 + (t + G) * kTile + threadIdx.x, d) : cur;
     cp_async_wait<kStages - 1>();
     __syncthreads();  // this tile's copies, every thread's, have landed
 
     Tile<kD, kW>& tb = buf[b];
-    const int64_t i0 = t * kTile;
-    const int rows = tile_rows(i0, N);
+    const int64_t i0 = a.row0 + t * kTile;
+    const int rows = tile_rows(i0, a.row_end);
     const int r = threadIdx.x;
     if (r < rows) {
       const int64_t i = i0 + r;
@@ -382,27 +399,30 @@ vivaldi_tile_kernel(const __grid_constant__ RingArgs a) {
 
 // --- the plain form (any width up to kMaxD, kMaxW) ------------------------
 
+template <bool kOne>
 __global__ void __launch_bounds__(kThreads)
 vivaldi_ring_kernel(const __grid_constant__ RingArgs a) {
   const int64_t N = a.N;
   const int D = a.D, W = a.W;
   const int64_t d = ring_shift(a.shift, N);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
+  for (int64_t i = a.row0 + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < a.row_end; i += stride) {
     const int64_t j = i + d >= N ? i + d - N : i + d;
+    const float* crow_j = a.t_coords.row<kOne>(j, D);
     float ci[kMaxD], cj[kMaxD], win[kMaxW], c[kMaxD];
 #pragma unroll
     for (int k = 0; k < kMaxD; ++k) {
       ci[k] = k < D ? a.coords[i * D + k] : 0.0f;
-      cj[k] = k < D ? a.coords[j * D + k] : 0.0f;
+      cj[k] = k < D ? crow_j[k] : 0.0f;
     }
 #pragma unroll
     for (int k = 0; k < kMaxW; ++k) win[k] = k < W ? a.window[i * W + k] : 0.0f;
     const bool m = a.acked[i];
     float h, e, adj, sample;
-    observe<kMaxD, kMaxW>(a, D, W, i, ci, cj, a.height[i], a.error[i], a.height[j],
-                          a.error[j], a.rtt_ms[i], m, win, c, h, e, adj, sample);
+    observe<kMaxD, kMaxW>(a, D, W, i, ci, cj, a.height[i], a.error[i],
+                          a.t_height.at<kOne>(j), a.t_error.at<kOne>(j), a.rtt_ms[i], m, win,
+                          c, h, e, adj, sample);
 #pragma unroll
     for (int k = 0; k < kMaxD; ++k) {
       if (k < D) a.coords_out[i * D + k] = c[k];
@@ -418,25 +438,31 @@ vivaldi_ring_kernel(const __grid_constant__ RingArgs a) {
 
 // One observe_ring of the pool: coords_out, height_out, error_out and
 // adjustment written whole, the window's column `col` on acked rows.
-// 1 <= D <= 16, 1 <= W <= 32, 0 <= col < W.
+// 1 <= D <= 16, 1 <= W <= 32, 0 <= col < W.  The block form: global rows
+// [row0, row0 + rows) of N with every leaf of the signature the block's
+// own and `tables` the peers' coords, height and error (3 tables of B
+// base pointers, L rows a block); the one-device launch passes row0 = 0,
+// rows = N and B = 1 tables of its own leaves.
 extern "C" int vivaldi_ring(const void* coords, const void* height, const void* error,
                             void* window, const void* rtt_ms, const void* acked,
                             const void* shift, int64_t N, int D, int W, int col, uint32_t k0,
                             uint32_t k1, float normal_lo, float normal_span, float ce,
                             float cc, float error_max, float height_min, float inv_rho,
                             float mean_factor, void* coords_out, void* height_out,
-                            void* error_out, void* adjustment, void* stream) {
+                            void* error_out, void* adjustment, int64_t row0, int64_t rows,
+                            const void* tables, int B, int64_t L, void* stream) {
   if (N < 1 || N >= (int64_t{1} << 31) || D < 1 || D > kMaxD || W < 1 || W > kMaxW ||
-      col < 0 || col >= W) {
+      col < 0 || col >= W || row0 < 0 || rows < 1 || row0 + rows > N || B < 1 ||
+      B > kMaxBlocks || !tables) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RingArgs a;
-  a.coords = static_cast<const float*>(coords);
-  a.height = static_cast<const float*>(height);
-  a.error = static_cast<const float*>(error);
-  a.window = static_cast<float*>(window);
-  a.rtt_ms = static_cast<const float*>(rtt_ms);
-  a.acked = static_cast<const uint8_t*>(acked);
+  a.coords = shifted<const float>(const_cast<void*>(coords), row0, D);
+  a.height = shifted<const float>(const_cast<void*>(height), row0);
+  a.error = shifted<const float>(const_cast<void*>(error), row0);
+  a.window = shifted<float>(window, row0, W);
+  a.rtt_ms = shifted<const float>(const_cast<void*>(rtt_ms), row0);
+  a.acked = shifted<const uint8_t>(const_cast<void*>(acked), row0);
   a.shift = static_cast<const int32_t*>(shift);
   a.N = N;
   a.D = D;
@@ -452,27 +478,54 @@ extern "C" int vivaldi_ring(const void* coords, const void* height, const void* 
   a.height_min = height_min;
   a.inv_rho = inv_rho;
   a.mean_factor = mean_factor;
-  a.coords_out = static_cast<float*>(coords_out);
-  a.height_out = static_cast<float*>(height_out);
-  a.error_out = static_cast<float*>(error_out);
-  a.adjustment = static_cast<float*>(adjustment);
+  a.coords_out = shifted<float>(coords_out, row0, D);
+  a.height_out = shifted<float>(height_out, row0);
+  a.error_out = shifted<float>(error_out, row0);
+  a.adjustment = shifted<float>(adjustment, row0);
+  a.row0 = row0;
+  a.row_end = row0 + rows;
+  a.t_coords = mut_rows<float>(tables, 0, B, L);
+  a.t_height = mut_rows<float>(tables, 1, B, L);
+  a.t_error = mut_rows<float>(tables, 2, B, L);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
-  if (D == 8 && W == 20 && a16(coords) && a16(window) && a16(coords_out)) {
+  bool peers16 = true;
+  for (int b = 0; b < B; ++b) peers16 = peers16 && a16(a.t_coords.base[b]);
+  if (D == 8 && W == 20 && a16(coords) && a16(window) && a16(coords_out) && peers16) {
     constexpr size_t bytes = kStages * sizeof(Tile<8, 20>);
-    static PerCard per_card;
-    if (per_card.here() == 0) {  // the attribute is the current card's
-      const cudaError_t sized = cudaFuncSetAttribute(
-          vivaldi_tile_kernel<8, 20>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (sized != cudaSuccess) return static_cast<int>(sized);
+    if (B == 1) {
+      static PerCard per_card;
+      if (per_card.here() == 0) {  // the attribute is the current card's
+        const cudaError_t sized = cudaFuncSetAttribute(
+            vivaldi_tile_kernel<8, 20, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            bytes);
+        if (sized != cudaSuccess) return static_cast<int>(sized);
+      }
+      const int blocks = persistent_blocks(vivaldi_tile_kernel<8, 20, true>, kTile, rows,
+                                           1 << 20, per_card, bytes);
+      vivaldi_tile_kernel<8, 20, true><<<blocks, kTile, bytes, s>>>(a);
+    } else {
+      static PerCard per_card;
+      if (per_card.here() == 0) {
+        const cudaError_t sized = cudaFuncSetAttribute(
+            vivaldi_tile_kernel<8, 20, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            bytes);
+        if (sized != cudaSuccess) return static_cast<int>(sized);
+      }
+      const int blocks = persistent_blocks(vivaldi_tile_kernel<8, 20, false>, kTile, rows,
+                                           1 << 20, per_card, bytes);
+      vivaldi_tile_kernel<8, 20, false><<<blocks, kTile, bytes, s>>>(a);
     }
+  } else if (B == 1) {
+    static PerCard per_card;
     const int blocks =
-        persistent_blocks(vivaldi_tile_kernel<8, 20>, kTile, N, 1 << 20, per_card, bytes);
-    vivaldi_tile_kernel<8, 20><<<blocks, kTile, bytes, s>>>(a);
+        persistent_blocks(vivaldi_ring_kernel<true>, kThreads, rows, 1 << 20, per_card);
+    vivaldi_ring_kernel<true><<<blocks, kThreads, 0, s>>>(a);
   } else {
     static PerCard per_card;
-    const int blocks = persistent_blocks(vivaldi_ring_kernel, kThreads, N, 1 << 20, per_card);
-    vivaldi_ring_kernel<<<blocks, kThreads, 0, s>>>(a);
+    const int blocks =
+        persistent_blocks(vivaldi_ring_kernel<false>, kThreads, rows, 1 << 20, per_card);
+    vivaldi_ring_kernel<false><<<blocks, kThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

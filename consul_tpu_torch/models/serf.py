@@ -18,7 +18,7 @@ import torch
 
 from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import events, swim, vivaldi
-from consul_tpu_torch.parallel.mesh import Blocks, Replicated
+from consul_tpu_torch.parallel.mesh import Blocks, BulkChannelLive, Replicated
 from consul_tpu_torch.utils import devices
 
 
@@ -83,9 +83,14 @@ def init_state(params: SerfParams, key=None, n_initial: int = 0,
 def step(params: SerfParams, s: ClusterState) -> ClusterState:
     """One gossip tick of the full serf pool.  On the card a probe tick
     consumes s (swim.step_with_obs): keep s.clone() to read it again.  A
-    node-sharded pool (parallel/mesh.shard_state) runs its gossip-only
-    ticks and raises NotImplementedError at a probe tick."""
-    sw, obs = swim.step_with_obs(params.swim, s.swim)
+    node-sharded pool (parallel/mesh.shard_state) runs every tick until
+    its bulk channel goes live; then BulkChannelLive carries the
+    pool the refusal leaves (swim.step_with_obs)."""
+    try:
+        sw, obs = swim.step_with_obs(params.swim, s.swim)
+    except BulkChannelLive as e:
+        raise BulkChannelLive(str(e), ClusterState(
+            swim=e.state, coords=s.coords, events=s.events)) from None
     coords = s.coords
     if obs is not None:
         coords = vivaldi.observe_ring(params.vivaldi, coords, obs.shift,

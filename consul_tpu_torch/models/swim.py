@@ -1409,18 +1409,28 @@ def step_with_obs(params: SwimParams, s: SwimState):
     tensors in place (and K9 the tick's own maps).  So does every tick
     with the bulk channel live, gossip-only ticks included: K14 updates
     BULK_INPLACE in place.  A caller that reads s again steps
-    s.clone().  A node-sharded state (parallel/mesh.py) runs gossip-only
-    ticks over its blocks, each leaf fresh; a probe tick or a live bulk
-    channel raises NotImplementedError before anything runs, gathering
-    nothing."""
+    s.clone().  A node-sharded state (parallel/mesh.py) runs every tick
+    over its blocks (models/swim_blocks.py: each probe-tick pass block by
+    block, one host read of the bulk flag a probe tick whatever B is).
+    Its bulk channel is ROADMAP queue A item 3b-ii: a tick that starts
+    with the channel live raises meshlib.BulkChannelLive before anything
+    runs, gathering nothing, and so does a probe tick whose dense expiry
+    puts members into it, after its passes: the error carries the state
+    those passes left (on the card the state given is consumed), whose
+    bulk_live refuses every later tick."""
     obs = None
     if isinstance(s.up, Blocks):
-        if s.tick % params.probe_period_ticks == 0 or s.bulk_live:
-            what = "the bulk channel is live" if s.bulk_live \
-                else "a probe tick"
-            raise NotImplementedError(f"tick {s.tick} ({what}): "
-                                      + meshlib.NOT_YET)
-        return _disseminate(params, s).replace(tick=s.tick + 1), None
+        if s.bulk_live:
+            raise meshlib.BulkChannelLive(
+                f"tick {s.tick} (the bulk channel is live): "
+                + meshlib.NOT_YET, s)
+        if s.tick % params.probe_period_ticks == 0:
+            s, obs = swim_blocks.probe_tick(params, s)
+            if s.bulk_live:
+                raise meshlib.BulkChannelLive(
+                    f"tick {s.tick} (the probe tick's dense expiry put "
+                    f"members into the bulk channel): " + meshlib.NOT_YET, s)
+        return _disseminate(params, s).replace(tick=s.tick + 1), obs
     if s.tick % params.probe_period_ticks == 0:
         maps = _maps(params, s)
         s, obs, maps = _probe_round(params, s, maps)
@@ -1473,10 +1483,11 @@ METRIC_NAMES = (
 
 def metrics_vector(params: SwimParams, s: SwimState) -> torch.Tensor:
     """One [len(METRIC_NAMES)] float32 vector of sim telemetry
-    (swim.py:1393-1435), read back only at sync checkpoints.  Not yet on a
-    node-sharded state (ROADMAP queue A item 3b)."""
+    (swim.py:1393-1435), read back only at sync checkpoints.  On a
+    node-sharded state from the blocks' integer totals
+    (swim_blocks.metrics_vector)."""
     if isinstance(s.up, Blocks):
-        raise NotImplementedError("metrics_vector: " + meshlib.NOT_YET)
+        return swim_blocks.metrics_vector(params, s)
     live = s.up & s.member
     n_live = live.sum().clamp_min(1).to(F32)
     active = s.r_active
@@ -1508,7 +1519,10 @@ def metrics_vector(params: SwimParams, s: SwimState) -> torch.Tensor:
 
 
 def kill(s: SwimState, node: int) -> SwimState:
-    """Crash a node (fail-stop).  The detector must discover this."""
+    """Crash a node (fail-stop).  The detector must discover this.  On a
+    node-sharded state only the node's block is copied."""
+    if isinstance(s.up, Blocks):
+        return swim_blocks.kill(s, node)
     up = s.up.clone()
     up[node] = False
     return s.replace(up=up)
@@ -1923,7 +1937,10 @@ def rejoin(params: SwimParams, s: SwimState, node: int) -> SwimState:
     bumped incarnation, committed dead/left cleared, the node's stale
     dead/left/suspect rumors withdrawn with their knowledge cells, and an
     alive rumor originated from the node itself.  On the card it consumes
-    s (K8 updates tensors it shares in place)."""
+    s (K8 updates tensors it shares in place).  A node-sharded state runs
+    swim_blocks.rejoin."""
+    if isinstance(s.up, Blocks):
+        return swim_blocks.rejoin(params, s, node)
     n, dev = params.n_nodes, s.device
     inc = s.incarnation.clone()
     inc[node] += 1
@@ -1993,3 +2010,7 @@ def leave(params: SwimParams, s: SwimState, node: int) -> SwimState:
     s, _ = _originate(params, s, _one(n, node, dev), LEFT, s.incarnation,
                       _own_row(n, node, dev))
     return s.replace(member=_set(s.member, node, False))
+
+
+# the probe tick, metrics and commands of a node-sharded pool
+from consul_tpu_torch.models import swim_blocks  # noqa: E402

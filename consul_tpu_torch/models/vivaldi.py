@@ -31,6 +31,7 @@ import torch
 from consul_tpu_torch import kernels
 from consul_tpu_torch.models import swim
 from consul_tpu_torch.ops import rolls
+from consul_tpu_torch.parallel.mesh import Blocks
 from consul_tpu_torch.utils import devices, prng
 
 F32 = torch.float32
@@ -215,6 +216,61 @@ def observe_ring_plain(params: VivaldiParams, s: VivaldiState,
                         adjustment=adjustment)
 
 
+def observe_ring_blocks_plain(params: VivaldiParams, s: VivaldiState,
+                              shift: torch.Tensor, rtt_ms, mask) -> VivaldiState:
+    """observe_ring_plain over a node-sharded pool (parallel/mesh.Blocks
+    leaves, rtt_ms and mask Blocks): the peers' rows pulled by rolls'
+    block rotations, the colocated rows' normal draws by global element
+    (prng.draw_blocks), every other step row by row in each block, as the
+    one-device twin does it."""
+    n, w = params.n_nodes, params.adjustment_window
+    cj_b = rolls.pull(s.coords, shift)
+    hj_b = rolls.pull(s.height, shift)
+    ej_b = rolls.pull(s.error, shift)
+    rand_b = prng.draw_blocks([prng.Draw("normal", _ring_key(params, s),
+                                         (n, params.dims))], s.coords)[0]
+    col = s.adj_index % w
+    ce = params.vivaldi_ce
+    out = {f: [] for f in ("coords", "height", "error", "adj_window",
+                           "adjustment")}
+    for b, ci in enumerate(s.coords.parts):
+        hi, ei = s.height.parts[b], s.error.parts[b]
+        cj, hj, ej = cj_b.parts[b], hj_b.parts[b], ej_b.parts[b]
+        r = rtt_ms.parts[b]
+        rtt = torch.clamp_min(r / torch.full_like(r, 1000.0), 1.0e-6)
+        diff = ci - cj
+        norm = _norm(diff)
+        dist = norm + hi + hj
+        wgt = ei / torch.clamp_min(ei + ej, 1.0e-9)
+        err_sample = torch.abs(dist - rtt) / rtt
+        new_err = err_sample * ce * wgt + ei * (1.0 - ce * wgt)
+        new_err = torch.clamp(new_err, 1.0e-6, params.vivaldi_error_max)
+        rand_dir = rand_b.parts[b]
+        unit = torch.where((norm > 1.0e-9)[:, None],
+                           diff / torch.clamp_min(norm, 1.0e-9)[:, None],
+                           rand_dir / _norm(rand_dir, keepdim=True))
+        force = params.vivaldi_cc * wgt * (rtt - dist)
+        new_ci = ci + unit * force[:, None]
+        new_hi = torch.clamp_min(
+            hi + (hi / torch.clamp_min(dist, 1.0e-9)) * force,
+            params.height_min)
+        m = mask.parts[b]
+        coords = torch.where(m[:, None], new_ci, ci)
+        norms = _norm(coords, keepdim=True)
+        q = norms / params.gravity_rho
+        out["coords"].append(coords * torch.clamp_min(1.0 - q * q, 0.0))
+        out["height"].append(torch.where(m, new_hi, hi))
+        out["error"].append(torch.where(m, new_err, ei))
+        win = s.adj_window.parts[b]
+        new_col = torch.where(m, (rtt - dist) / 2.0, win[:, col])
+        win = win.clone()
+        win[:, col] = new_col
+        out["adj_window"].append(win)
+        out["adjustment"].append(win.mean(1))
+    return VivaldiState(adj_index=s.adj_index + 1,
+                        **{f: Blocks(v) for f, v in out.items()})
+
+
 def _ring_key(params: VivaldiParams, s: VivaldiState):
     """The key of the colocated rows' spring directions (stream 7)."""
     return prng.tick_key(params.seed, s.adj_index, 7)
@@ -227,9 +283,13 @@ def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
     inside it) consumes s: it writes the window's column and the
     adjustment into s's own tensors (RING_INPLACE), and the coordinates,
     height and error into fresh ones."""
+    sharded = isinstance(s.coords, Blocks)
     if not s.coords.is_cuda:
-        return observe_ring_plain(params, s, shift, rtt_ms, mask)
+        return (observe_ring_blocks_plain if sharded else
+                observe_ring_plain)(params, s, shift, rtt_ms, mask)
     swim._writable(s, RING_INPLACE, "K13")
+    if sharded:
+        return _observe_ring_blocks(params, s, shift, rtt_ms, mask)
     n = s.coords.shape[0]
     w = s.adj_window.shape[1]
     lo, span = prng.normal_bounds()
@@ -250,6 +310,32 @@ def observe_ring(params: VivaldiParams, s: VivaldiState, shift: torch.Tensor,
         adjustment=s.adjustment, **out)
     return VivaldiState(coords=out["coords_out"], height=out["height_out"],
                         error=out["error_out"], adj_window=s.adj_window,
+                        adj_index=s.adj_index + 1, adjustment=s.adjustment)
+
+
+def _observe_ring_blocks(params: VivaldiParams, s: VivaldiState, shift,
+                         rtt_ms, mask) -> VivaldiState:
+    """observe_ring's block form on the cards: a K13 launch a block over
+    its rows, the peers' rows read through block tables, the window's
+    column and the adjustment written into s's blocks, the coordinates,
+    height and error into fresh blocks (RING_INPLACE, as one device)."""
+    n, w = params.n_nodes, params.adjustment_window
+    lo, span = prng.normal_bounds()
+    fresh = {f: Blocks(torch.empty_like(p) for p in getattr(s, f).parts)
+             for f in ("coords", "height", "error")}
+    kernels.launch_vivaldi_ring_blocks(
+        coords=s.coords, height=s.height, error=s.error, window=s.adj_window,
+        rtt_ms=rtt_ms, acked=mask,
+        shift=torch.as_tensor(shift, dtype=torch.int32, device=s.height.device),
+        col=s.adj_index % w, key=_ring_key(params, s), normal_lo=lo,
+        normal_span=span, ce=params.vivaldi_ce, cc=params.vivaldi_cc,
+        error_max=params.vivaldi_error_max, height_min=params.height_min,
+        inv_rho=prng.f32(np.float32(1.0) / np.float32(params.gravity_rho)),
+        mean_factor=prng.f32(np.float32(n) / np.float32(n * w)),
+        coords_out=fresh["coords"], height_out=fresh["height"],
+        error_out=fresh["error"], adjustment=s.adjustment)
+    return VivaldiState(coords=fresh["coords"], height=fresh["height"],
+                        error=fresh["error"], adj_window=s.adj_window,
                         adj_index=s.adj_index + 1, adjustment=s.adjustment)
 
 

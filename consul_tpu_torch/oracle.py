@@ -16,9 +16,14 @@ the membership reads run kernel K4 on the card (status, counts, page and
 the changed rows of a delta), and every device-to-host copy goes through
 the one `_to_host` seam.  With `mesh=` (parallel/mesh.py) the pool's node
 axis is cut into one block a mesh device and every read answers against
-the sharded state, moving O(k) bytes, never O(N); advancing it and the
-commands wait for the sharded probe tick (ROADMAP queue A item 3b).  Host services (flight recorder, profiler,
-telemetry registry) come from the caller as `host.Hooks`.
+the sharded state, moving O(k) bytes, never O(N); it advances (every
+tick over the blocks, models/swim_blocks.py), warms up, kills, revives
+and reads its sim metrics there too, while leave, spawn, fire_event, rtt
+and event_coverage on a mesh are ROADMAP queue A item 3b-ii, as is a
+live bulk channel: the advance that fills it raises, keeping the pool
+its probe passes left, and every later advance raises.  Host
+services (flight recorder, profiler, telemetry registry) come from the
+caller as `host.Hooks`.
 """
 
 from __future__ import annotations
@@ -193,12 +198,17 @@ class GossipOracle:
             self._thread = None
 
     def advance(self, n_ticks: int = 1) -> None:
-        self._unsharded("advance")
         t0 = time.perf_counter()
         with self._lock:
             s = self._state
-            for _ in range(n_ticks):
-                s = serf.step(self.params, s)
+            try:
+                for _ in range(n_ticks):
+                    s = serf.step(self.params, s)
+            except meshlib.BulkChannelLive as e:
+                # the step consumed s: keep the pool it left, which every
+                # later tick refuses, and tell the caller
+                self._state = e.state
+                raise
             self._state = s
         self.hooks.observe("oracle.advance",
                            (time.perf_counter() - t0) / max(1, n_ticks))
@@ -208,19 +218,22 @@ class GossipOracle:
         metrics read once at the current pool shape, discarding results,
         so a delegate client's first request never pays the kernels' first
         build (nvcc, tens of seconds) inside its timeout.  They run on a
-        clone: on the card a command or a step consumes its state."""
-        self._unsharded("warmup")
+        clone: on the card a command or a step consumes its state.  On a
+        mesh the commands it runs are the ones a mesh takes (no leave)."""
         if self.device.type == "cuda":
             kernels.library()
         with self._lock:
             s = self._state.clone()
             swim.rejoin(self.params.swim, s.swim.clone(), 0)
-            swim.leave(self.params.swim, s.swim.clone(), 0)
+            if self.mesh is None:
+                swim.leave(self.params.swim, s.swim.clone(), 0)
             swim.kill(s.swim, 0)
             serf.metrics_vector(self.params, s)
             serf.step(self.params, s)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for d in (self.mesh.distinct if self.mesh is not None
+                      else (self.device,)):
+                torch.cuda.synchronize(d)
         # the paged read and the summary are every client's first reads
         try:
             self.members(limit=1)
@@ -329,7 +342,6 @@ class GossipOracle:
         return float(_to_host(frac).reshape(-1)[0])
 
     def kill(self, name: str) -> None:
-        self._unsharded("kill")
         with self._lock:
             self._state = self._state.replace(
                 swim=swim.kill(self._state.swim, self.node_id(name)))
@@ -337,7 +349,6 @@ class GossipOracle:
     def revive(self, name: str) -> None:
         """Restart and rejoin: heals even a committed death (a higher
         incarnation refutes it, as memberlist's rejoin does)."""
-        self._unsharded("revive")
         with self._lock:
             self._state = self._state.replace(
                 swim=swim.rejoin(self.params.swim, self._state.swim,
@@ -508,8 +519,8 @@ class GossipOracle:
 
     def sim_metrics(self) -> Dict[str, float]:
         """Device-side sim telemetry as {name: value} (swim.METRIC_NAMES):
-        one reduction over the state, one small transfer."""
-        self._unsharded("sim_metrics")
+        one reduction over the state, one small transfer (on a mesh the
+        blocks' totals, swim_blocks.metrics_vector)."""
         with self.hooks.span("oracle.metrics"):
             with self._lock:
                 vec = serf.metrics_vector(self.params, self._state)

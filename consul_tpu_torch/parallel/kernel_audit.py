@@ -653,20 +653,32 @@ def _sharded_pool(dev: torch.device, scale: int, chaos_build: bool = False):
 
 def _build_step_sharded(dev: torch.device, scale: int,
                         blocks: int = SHARD_BLOCKS) -> Program:
-    """serf.step on the node-sharded pool (a gossip tick with a rumor and a
-    user event in flight, the victim's monitor after it: K2 and K3 over
-    block tables), and swim.step of the nemesis build's pool (K2's chaos
-    mode).  A gossip tick leaves its input as it was, so every call takes
-    the same state."""
+    """serf.step on the node-sharded pool: a probe tick with the victim's
+    monitor after it (every probe pass's block form, K13's, K1's block
+    draws, K2 and K3 over block tables), a gossip tick with a rumor and a
+    user event in flight; swim.step of the nemesis build's pool at a
+    probe tick and a gossip tick (K7's and K2's chaos modes).  A probe
+    tick consumes its input on the card, so its calls take clones; a
+    gossip tick leaves its input as it was.  The probe tick comes first:
+    the block-scaling law measures it."""
     m = _shard_mesh(dev, blocks)
     params, s, victim = _sharded_pool(dev, scale)
     cp, cs, _ = _sharded_pool(dev, scale, chaos_build=True)
-    sh = meshlib.shard_state(s, m)
-    csh = meshlib.shard_state(cs, m)
+    from consul_tpu_torch.profile_tick import next_probe_tick
+    period = params.swim.probe_period_ticks
+    ps = next_probe_tick(lambda x: serf.step(params, x), period, s)
+    cps = next_probe_tick(lambda x: swim.step(cp, x), period, cs)
+    sh, csh, psh, cpsh = (meshlib.shard_state(x, m)
+                          for x in (s, cs, ps, cps))
     return Program(forms={
+        "probe": Call(make=psh.clone,
+                      fn=lambda x: serf.run(params, x, 1, victim),
+                      state_of=lambda out: out[0], inplace=_serf_inplace()),
         "gossip": Call(make=lambda: sh,
                        fn=lambda x: serf.run(params, x, 1, victim),
                        state_of=lambda out: out[0]),
+        "chaos_probe": Call(make=cpsh.clone, fn=lambda x: swim.step(cp, x),
+                            inplace=PROBE_TICK_INPLACE),
         "chaos": Call(make=lambda: csh, fn=lambda x: swim.step(cp, x))},
         n_nodes=params.n_nodes, state=sh, slots=params.n_nodes, mesh=m)
 
@@ -719,6 +731,14 @@ _PROBE_SITES = tuple((_SWIM, fn, f"launch_{k}") for fn, k in (
     ("_dense_suspicion_expiry", "dense_expiry_post"),
     ("_refutation", "refutation"), ("_expire", "expire")))
 _SWIM_TICK = (_DRAW, _GOSSIP) + _PROBE_SITES
+# the launch sites of a sharded probe tick's swim passes (their block forms)
+_BLOCK_SITES = tuple(("consul_tpu_torch/models/swim_blocks.py",
+                      f"kernel_{fn}", f"launch_{k}_blocks") for fn, k in (
+    ("maps", "subject_maps"), ("map_add", "map_add"),
+    ("maps_convert", "maps_convert"), ("probe_pass", "probe_round"),
+    ("originate", "originate"), ("suspicion_expiry", "suspicion_expiry"),
+    ("dense_expiry", "dense_expiry"), ("dense_expiry", "dense_expiry_post"),
+    ("refutation", "refutation"), ("expire", "expire")))
 _SERF_TICK = _SWIM_TICK + (_RING,)
 _MONITOR = (_SWIM, "believed_down_fraction", "launch_believed_down")
 _SCAN = (_SWIM, "_scan", "launch_members_scan")
@@ -780,7 +800,12 @@ REGISTRY: Tuple[EntrySpec, ...] = (
               covers=(("consul_tpu_torch/ops/gossip.py",
                        "disseminate_blocks_kernel", "launch_gossip_blocks"),
                       (_SWIM, "believed_down_fraction",
-                       "launch_believed_down_blocks")),
+                       "launch_believed_down_blocks"),
+                      ("consul_tpu_torch/utils/prng.py", "draw_blocks",
+                       "launch_draws"),
+                      ("consul_tpu_torch/models/vivaldi.py",
+                       "_observe_ring_blocks", "launch_vivaldi_ring_blocks"))
+              + _BLOCK_SITES,
               sharded=True),
     EntrySpec("oracle.reads.sharded", _build_reads_sharded,
               covers=((_SWIM, "_scan_blocks", "launch_members_scan_blocks"),
@@ -830,6 +855,11 @@ def _fence(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _pointers(x) -> tuple:
+    """A leaf's data pointers: its blocks', its copies', or its own."""
+    return tuple(t.data_ptr() for t in swim._pieces(x))
+
+
 def _one_call(call: Call, dev: torch.device, mesh=None) -> dict:
     """One measured call: its launches, flag reads, and on the card its
     synchronizing calls, allocations, peak bytes and in-place leaves; on a
@@ -837,7 +867,7 @@ def _one_call(call: Call, dev: torch.device, mesh=None) -> dict:
     (the gather law's `max_rows`) and each card's peak bytes."""
     card = _card(dev)
     x = call.make()
-    ptrs = {p: leaf(x, p).data_ptr() for p in call.inplace}
+    ptrs = {p: _pointers(leaf(x, p)) for p in call.inplace}
     _fence(dev)
     launches0, flags0 = launch_counts(), flag_syncs()
     rec: Dict[str, Any] = {"syncs": None, "allocations": None,
@@ -861,7 +891,7 @@ def _one_call(call: Call, dev: torch.device, mesh=None) -> dict:
             peak_bytes=torch.cuda.max_memory_allocated(dev) - mem0,
             inplace={"leaves": len(ptrs), "moved": sorted(
                 p for p, ptr in ptrs.items()
-                if leaf(state, p).data_ptr() != ptr)})
+                if _pointers(leaf(state, p)) != ptr)})
     else:
         with census:
             out = call.fn(x)

@@ -31,10 +31,25 @@ import torch
 NODE_AXIS = "nodes"
 DC_AXIS = "dc"
 
-# queue A item 3b of ROADMAP.md: the sharded probe tick
-NOT_YET = ("on a sharded state only the gossip tick and the reads run: "
-           "the probe tick, the bulk channel and the commands over block "
-           "tables are ROADMAP queue A item 3b")
+# queue A item 3b-ii of ROADMAP.md: what a sharded pool does not run yet
+NOT_YET = ("on a sharded state the ticks, the reads, kill, revive and the "
+           "metrics run; the bulk channel (K14), mass-event detection (K5), "
+           "the correlated bench and the oracle's leave, spawn, fire_event, "
+           "rtt and event_coverage are ROADMAP queue A item 3b-ii")
+
+
+class BulkChannelLive(NotImplementedError):
+    """A tick of a sharded pool whose bulk channel is live (NOT_YET).
+    `state` is the pool as the refusal leaves it, for the caller to keep
+    in place of the state it passed (which a probe tick consumes on the
+    card): the state it was given when the tick starts with the channel
+    live, or the state after the probe passes of the tick that filled it
+    (its tick not advanced, bulk_live set), which every later tick
+    refuses before anything runs."""
+
+    def __init__(self, message: str, state):
+        super().__init__(message)
+        self.state = state
 
 
 @dataclasses.dataclass(frozen=True)

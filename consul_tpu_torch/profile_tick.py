@@ -44,7 +44,11 @@ merge and one whole anti-entropy step at the churn's mid-churn state
 and K5 at its mid-drain state, and the oracle's summary, delta and page
 reads at its 1M state, with their device kernels (older trees too).
 The `k2` form times K2's pack and exchange alone on the swim caller's
-inputs at the bench run's kill (older trees too).
+inputs at the bench run's kill (older trees too).  The `probe` form
+times one probe tick of the bench run (serf.step and the monitor, on
+clones of the state at its first probe tick after the kill): every
+device record of a call summed over two captures of 20 calls, and each
+pass's device ms (`_pass_times`); older trees too.
 The `wan` and `vivaldi` forms time the registry's `wan.run` (3 DCs x
 50,000 nodes: a gossip-only and a probe tick) and `vivaldi.sim_step`
 (100,000 nodes) entries as parallel/kernel_audit.py builds them: fenced
@@ -70,6 +74,15 @@ from consul_tpu_torch.config import GossipConfig, SimConfig
 from consul_tpu_torch.models import antientropy, serf, swim, vivaldi
 from consul_tpu_torch.ops import reconcile
 from consul_tpu_torch.utils import prng
+
+
+def next_probe_tick(step, period: int, s):
+    """A clone of s (a swim or a serf state) stepped by `step` to its next
+    probe tick."""
+    s = s.clone()
+    while getattr(s, "swim", s).tick % period:
+        s = step(s)
+    return s
 
 
 def _setup(n_nodes: int):
@@ -808,6 +821,41 @@ def k2_times(n_nodes: int = 1_000_000, reps: int = 50) -> dict:
     return out
 
 
+def probe_times(n_nodes: int = 1_000_000, reps: int = 20) -> dict:
+    """One probe tick of the bench run (serf.step and the victim's
+    monitor) on clones of its first probe-tick state after the kill:
+    the device ms of a call, every device record summed, in each of two
+    torch.profiler captures of `reps` calls; and each pass's device ms
+    (_pass_times).  Only public entry points and the passes
+    _pass_times names, so an older tree is timed the same way."""
+    dev, params, s = _setup(n_nodes)
+    s = next_probe_tick(lambda x: serf.step(params, x),
+                        params.swim.probe_period_ticks, s)
+    out1 = torch.empty(1, dtype=torch.float32, device=dev)
+
+    def tick(x):
+        y = serf.step(params, x)
+        swim.believed_down_fraction(params.swim, y.swim, VICTIM, out=out1)
+
+    for _ in range(3):
+        tick(s.clone())
+    res = {"device": torch.cuda.get_device_name(dev), "n_nodes": n_nodes,
+           "tick": s.swim.tick, "probe_tick_device_ms": []}
+    for _ in range(2):
+        inputs = [s.clone() for _ in range(reps)]
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for x in inputs:
+                tick(x)
+            torch.cuda.synchronize(dev)
+        res["probe_tick_device_ms"].append(
+            sum(us for us, _ in _device_times(prof).values()) / reps / 1000.0)
+    res["pass_device_ms"] = {k: v["device_ms"] for k, v in
+                             _pass_times(params, s, dev).items()}
+    return res
+
+
 def count_main(n_nodes: int = 1_000_000) -> dict:
     dev, params, s = _setup(n_nodes)
     _, per_tick = kernels_per_tick(params, s)
@@ -828,6 +876,8 @@ if __name__ == "__main__":
         print(json.dumps(k6_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k2"]:
         print(json.dumps(k2_times(*[int(a) for a in sys.argv[2:]])))
+    elif sys.argv[1:2] == ["probe"]:
+        print(json.dumps(probe_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["k5k4"]:
         print(json.dumps(k5_k4_times(*[int(a) for a in sys.argv[2:]])))
     elif sys.argv[1:2] == ["wan"]:

@@ -86,9 +86,15 @@ def threefry_bits_plain(key, n: int, device, start: int = 0,
     """[n] int32 bit patterns of elements start, start + step, ... of the
     xor-folded threefry2x32 stream, in int64 torch arithmetic masked to 32
     bits."""
+    return _bits_at(key, start + step * torch.arange(n, dtype=torch.int64,
+                                                     device=device))
+
+
+def _bits_at(key, i: torch.Tensor) -> torch.Tensor:
+    """The xor-folded threefry2x32 bits of the int64 element indices i, in
+    i's shape."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    i = start + step * torch.arange(n, dtype=torch.int64, device=device)
     x0 = ((i >> 32) + ks[0]) & M32
     x1 = ((i & M32) + ks[1]) & M32
     for rnd in range(5):
@@ -166,39 +172,55 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 # plain twins of K1's modes (the CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
 
-def bits_plain(key, shape, device) -> torch.Tensor:
-    return threefry_bits_plain(key, _numel(shape), device).reshape(shape)
+def _element_index(shape, device, start: int) -> torch.Tensor:
+    """start + the row-major flat index of each element of `shape`, made
+    in that shape (a block's draw makes no flat [rows * width] vector)."""
+    idx = torch.full((1,) * len(shape), start, dtype=torch.int64,
+                     device=device)
+    stride = 1
+    for ax in reversed(range(len(shape))):
+        at = torch.arange(shape[ax], dtype=torch.int64, device=device)
+        idx = idx + (at * stride).reshape(
+            (1,) * ax + (shape[ax],) + (1,) * (len(shape) - 1 - ax))
+        stride *= shape[ax]
+    return idx.expand(tuple(shape))
+
+
+def bits_plain(key, shape, device, start: int = 0) -> torch.Tensor:
+    """Elements start, start + 1, ... of the draw's stream in `shape`: a
+    whole draw from 0, or a block of its rows (draw_blocks)."""
+    return _bits_at(key, _element_index(tuple(shape), device, start))
 
 
 def uniform_plain(key, shape, device, minval: float = 0.0,
-                  maxval: float = 1.0) -> torch.Tensor:
+                  maxval: float = 1.0, start: int = 0) -> torch.Tensor:
     """jax.random.uniform float32 (random.py:435-477)."""
-    floats = unit_floats(bits_plain(key, shape, device))
+    floats = unit_floats(bits_plain(key, shape, device, start))
     if minval == 0.0 and maxval == 1.0:
         return floats           # u * 1 + 0, floored at 0, is u itself
     lo, span = _uniform_bounds(minval, maxval)
     return torch.clamp_min(floats * span + lo, lo)
 
 
-def exponential_plain(key, shape, device) -> torch.Tensor:
+def exponential_plain(key, shape, device, start: int = 0) -> torch.Tensor:
     """jax.random.exponential (random.py:1291): -log1p(-u)."""
-    return -torch.log1p(-uniform_plain(key, shape, device))
+    return -torch.log1p(-uniform_plain(key, shape, device, start=start))
 
 
-def normal_plain(key, shape, device) -> torch.Tensor:
+def normal_plain(key, shape, device, start: int = 0) -> torch.Tensor:
     """jax.random.normal float32 (random.py:867): sqrt(2) * erf_inv(u) with
     u uniform on (nextafter(-1, 0), 1)."""
-    u = uniform_plain(key, shape, device, _NORMAL_LO, 1.0)
+    u = uniform_plain(key, shape, device, _NORMAL_LO, 1.0, start)
     return f32(np.sqrt(2)) * erf_inv(u)
 
 
 def randint_plain(key, shape, minval: int, maxval: int,
-                  device) -> torch.Tensor:
+                  device, start: int = 0) -> torch.Tensor:
     """jax.random.randint int32 for host-int bounds (random.py:581-646):
     two 32-bit draws from split(key), folded with the multiplier."""
     k1, k2 = split(key, 2)
-    hi = _u32(bits_plain(k1, shape, device))
-    lo = _u32(bits_plain(k2, shape, device))
+    hi = _u32(bits_plain(k1, shape, device, start))
+    lo = _u32(bits_plain(k2, shape, device, start))
     span, mult = _randint_span(minval, maxval)
     off = (((hi % span) * mult + lo % span) & M32) % span
     return (off + minval).to(torch.int32)
@@ -221,15 +243,18 @@ class Draw:
     maxval: float = 1.0
 
 
-def draw_plain(draws, device) -> list:
-    """The plain twin of `draw`: each Draw's tensor from its mode's twin."""
-    twins = {"bits": lambda d: bits_plain(d.key, d.shape, device),
+def draw_plain(draws, device, start: int = 0) -> list:
+    """The plain twin of `draw`: each Draw's tensor from its mode's twin,
+    its elements from `start` of the draw's stream (a block of a larger
+    draw's rows, draw_blocks)."""
+    twins = {"bits": lambda d: bits_plain(d.key, d.shape, device, start),
              "uniform": lambda d: uniform_plain(d.key, d.shape, device,
-                                                d.minval, d.maxval),
-             "exponential": lambda d: exponential_plain(d.key, d.shape, device),
-             "normal": lambda d: normal_plain(d.key, d.shape, device),
+                                                d.minval, d.maxval, start),
+             "exponential": lambda d: exponential_plain(d.key, d.shape,
+                                                        device, start),
+             "normal": lambda d: normal_plain(d.key, d.shape, device, start),
              "randint": lambda d: randint_plain(d.key, d.shape, d.minval,
-                                                d.maxval, device)}
+                                                d.maxval, device, start)}
     for d in draws:
         if d.kind not in twins:
             raise ValueError(f"unknown draw kind {d.kind!r}")
@@ -241,19 +266,21 @@ def normal_bounds():
     return _uniform_bounds(_NORMAL_LO, 1.0)
 
 
-def _segment(d: Draw, out: torch.Tensor) -> kernels.Segment:
+def _segment(d: Draw, out: torch.Tensor, first: int = 0) -> kernels.Segment:
+    """K1's segment of draw d into out, out[0] being element `first` of
+    the draw's stream."""
     if d.kind == "randint":
         span, mult = _randint_span(d.minval, d.maxval)
         return kernels.Segment("randint", tuple(split(d.key, 2)), out,
                                out.numel(), minval=int(d.minval), range=span,
-                               mult=mult)
+                               mult=mult, first=first)
     lo, span = 0.0, 1.0
     if d.kind == "uniform":
         lo, span = _uniform_bounds(d.minval, d.maxval)
     elif d.kind == "normal":
         lo, span = normal_bounds()
     return kernels.Segment(d.kind, (d.key,), out, out.numel(), lo=lo,
-                           span=span)
+                           span=span, first=first)
 
 
 def randint_spec(d: Draw) -> kernels.DrawSpec:
@@ -269,8 +296,7 @@ def randint_spec(d: Draw) -> kernels.DrawSpec:
 def draw_segments(draws, device):
     """K1's inputs for these draws on a CUDA device: each draw's output,
     allocated, and the kernels.Segment of each non-empty one."""
-    outs = [torch.empty(d.shape, device=device, dtype=torch.int32
-                        if d.kind in ("bits", "randint") else torch.float32)
+    outs = [torch.empty(d.shape, device=device, dtype=_dtype(d))
             for d in draws]
     return outs, [_segment(d, out) for d, out in zip(draws, outs)
                   if out.numel()]
@@ -287,6 +313,63 @@ def draw(draws, device) -> list:
     for i in range(0, len(segs), kernels.MAX_SEGMENTS):
         kernels.launch_draws(segs[i:i + kernels.MAX_SEGMENTS])
     return outs
+
+
+def _dtype(d: Draw) -> torch.dtype:
+    return torch.int32 if d.kind in ("bits", "randint") else torch.float32
+
+
+def draw_blocks(draws, like) -> list:
+    """Each Draw's value on a node-sharded pool cut as `like` (a
+    parallel/mesh.Blocks of B blocks of L rows): a draw whose shape leads
+    with N = B * L comes back as Blocks, block b holding rows [bL, (b +
+    1)L) of the whole draw (elements bL * r .. of its stream, r elements a
+    row: jax_threefry_partitionable makes an element depend on its index
+    alone); any other draw comes back Replicated, drawn once on each
+    distinct device.  On the cards one K1 batch a distinct device, a
+    segment a block (`threefry_draws_blocks`); on the CPU the plain twins
+    from each block's first element."""
+    from consul_tpu_torch.parallel.mesh import Blocks, Replicated
+    ell, devs = like.rows, like.devices
+    n = like.n_blocks * ell
+    distinct = tuple(dict.fromkeys(devs))
+
+    def rows(d):
+        return _numel(d.shape[1:]) if d.shape and d.shape[0] == n else None
+
+    def block(d):
+        return dataclasses.replace(d, shape=(ell,) + tuple(d.shape[1:]))
+
+    if not like.is_cuda:
+        return [Blocks(draw_plain([block(d)], dev, b * ell * rows(d))[0]
+                       for b, dev in enumerate(devs))
+                if rows(d) is not None else
+                Replicated(draw_plain([d], dev)[0] for dev in distinct)
+                for d in draws]
+    parts = [[None] * len(devs) for _ in draws]
+    copies = [{} for _ in draws]
+    for dev in distinct:
+        segs = []
+        for j, d in enumerate(draws):
+            if rows(d) is None:
+                out = torch.empty(d.shape, dtype=_dtype(d), device=dev)
+                copies[j][dev] = out
+                if out.numel():
+                    segs.append(_segment(d, out))
+                continue
+            for b, at in enumerate(devs):
+                if at != dev:
+                    continue
+                out = torch.empty(block(d).shape, dtype=_dtype(d), device=dev)
+                parts[j][b] = out
+                if out.numel():
+                    segs.append(_segment(d, out, b * ell * rows(d)))
+        for i in range(0, len(segs), kernels.MAX_SEGMENTS):
+            kernels.launch_draws(segs[i:i + kernels.MAX_SEGMENTS],
+                                 blocks=True)
+    return [Blocks(parts[j]) if rows(d) is not None else
+            Replicated(copies[j][dev] for dev in distinct)
+            for j, d in enumerate(draws)]
 
 
 def bits(key, shape, device) -> torch.Tensor:

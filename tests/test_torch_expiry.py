@@ -918,7 +918,13 @@ def _card_state(monkeypatch, n=40, u=16, amax=8, chaos=False):
 def _assert_pointers(rec, name, named: dict, scalars: dict, unchecked=()):
     """Each C parameter of `name` got the tensor the wrapper means by that
     name (its data pointer, or NULL) or the stated scalar; the `unchecked`
-    ones are the wrapper's temporaries."""
+    ones are the wrapper's temporaries.  The block-form parameters take
+    their one-device values (rows [0, N), one block of N rows, mode 0, no
+    partials or plan); `tables`, the one-block table array, is checked by
+    the card runs."""
+    scalars = dict(dict(row0=0, rows=scalars["N"], B=1, L=scalars["N"],
+                        mode=0, part=None, plan=None), **scalars)
+    unchecked = tuple(unchecked) + ("tables",)
     names = _c_params(name)
     args = rec.calls[name]
     assert len(names) == len(args) == len(kernels.SIGNATURES[name])

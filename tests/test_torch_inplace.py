@@ -8,11 +8,14 @@ around K8), `swim._refutation` and `swim._expire` (K12) and
 state, and `swim._map_add` and `swim._maps_convert` (K9) the subject
 maps they are given, so every step or command that reaches them consumes
 its state (a tick with the bulk channel live, gossip-only or not,
-included).  The CPU runs their pure twins, which cannot show a caller
-that reads a state or a map again after passing it on.  The `consuming`
-fixture makes the CPU behave as the card's worst case: after each call
-of the ten wrappers it overwrites the input's in-place leaves or maps
-with a sentinel, except one the output still holds.  Each caller the
+included).  A node-sharded pool's passes (models/swim_blocks.py: their
+block forms on the card) consume their blocks the same way.  The CPU
+runs their pure twins, which cannot show a caller that reads a state or
+a map again after passing it on.  The `consuming` fixture makes the CPU
+behave as the card's worst case: after each call of the ten wrappers, or
+of the sharded passes, it overwrites the input's in-place leaves or maps
+(every block and copy) with a sentinel, except one the output still
+holds.  Each caller the
 port ships must give the same results under it as without it; a
 caller that reads a consumed state again (as `GossipOracle.warmup` did
 when it ran its commands on the live pool) gives other results.
@@ -28,29 +31,37 @@ import torch_parity  # noqa: F401  (one intra-op thread)
 
 from consul_tpu_torch import (bench, chaos, config, correlated, f1,
                               leave_propagation, scenarios)
-from consul_tpu_torch.models import serf, swim, vivaldi
+from consul_tpu_torch.models import serf, swim, swim_blocks, vivaldi
 from consul_tpu_torch.oracle import GossipOracle
+from consul_tpu_torch.parallel import mesh
 
 SENTINEL = {torch.bool: True, torch.int8: -77, torch.int16: -7777,
             torch.int32: -777777, torch.float32: float("nan")}
 
 
+def _pieces(v) -> tuple:
+    """A leaf's tensors: its blocks, its copies, or itself (none for a
+    host field)."""
+    if isinstance(v, (mesh.Blocks, mesh.Replicated)):
+        return swim._pieces(v)
+    return (v,) if isinstance(v, torch.Tensor) else ()
+
+
 def _storages(state) -> set:
-    return {v.untyped_storage().data_ptr()
-            for v in (getattr(state, f.name)
-                      for f in dataclasses.fields(state))
-            if isinstance(v, torch.Tensor)}
+    return {t.untyped_storage().data_ptr()
+            for f in dataclasses.fields(state)
+            for t in _pieces(getattr(state, f.name))}
 
 
 def _consume(before, after, fields) -> None:
     """What the card leaves of `before` once a kernel has written `after`
-    in place: every leaf in `fields` that `after` does not hold becomes
-    garbage."""
+    in place: every leaf in `fields` (each block or copy) that `after`
+    does not hold becomes garbage."""
     kept = _storages(after)
     for f in fields:
-        t = getattr(before, f)
-        if t.untyped_storage().data_ptr() not in kept:
-            t.fill_(SENTINEL[t.dtype])
+        for t in _pieces(getattr(before, f)):
+            if t.untyped_storage().data_ptr() not in kept:
+                t.fill_(SENTINEL[t.dtype])
 
 
 # each in-place wrapper: (its module, the leaves it writes, where its
@@ -65,6 +76,15 @@ CONSUMERS = {
     "_expire": (swim, swim.FREE_INPLACE, lambda out: out),
     "observe_ring": (vivaldi, vivaldi.RING_INPLACE, lambda out: out),
     "_bulk_step": (swim, swim.BULK_INPLACE, lambda out: out),
+}
+# the sharded passes that consume their state as the wrappers above do,
+# counted under the wrapper's name
+BLOCK_CONSUMERS = {
+    "probe_pass": "_probe_pass", "originate": "_originate",
+    "suspicion_expiry": "_suspicion_expiry",
+    "dense_expiry": "_dense_suspicion_expiry", "refutation": "_refutation",
+    "expire": "_expire", "map_add": "_map_add",
+    "maps_convert": "_maps_convert",
 }
 # K9's updates: (the maps a call consumes of its arguments, the maps its
 # output holds)
@@ -90,10 +110,12 @@ def consuming(monkeypatch):
     def wrap_maps(name, real, taken, kept):
         def fn(*args):
             out = real(*args)
-            held = {m.untyped_storage().data_ptr() for m in kept(out)}
+            held = {t.untyped_storage().data_ptr() for m in kept(out)
+                    for t in _pieces(m)}
             for m in taken(args):
-                if m.untyped_storage().data_ptr() not in held:
-                    m.fill_(SENTINEL[m.dtype])
+                for t in _pieces(m):
+                    if t.untyped_storage().data_ptr() not in held:
+                        t.fill_(SENTINEL[t.dtype])
             calls[name] += 1
             return out
         return fn
@@ -104,12 +126,20 @@ def consuming(monkeypatch):
     for name, (taken, kept) in MAP_CONSUMERS.items():
         monkeypatch.setattr(swim, name, wrap_maps(name, getattr(swim, name),
                                                   taken, kept))
+    for block, name in BLOCK_CONSUMERS.items():
+        real = getattr(swim_blocks, block)
+        if name in MAP_CONSUMERS:
+            fn = wrap_maps(name, real, *MAP_CONSUMERS[name])
+        else:
+            fn = wrap(name, real, *CONSUMERS[name][1:])
+        monkeypatch.setattr(swim_blocks, block, fn)
     return calls
 
 
 def _leaves(state) -> dict:
-    """Every tensor leaf and host mirror of a swim or serf state, as numpy
-    and plain values."""
+    """Every tensor leaf and host mirror of a swim or serf state (a
+    sharded one gathered), as numpy and plain values."""
+    state = mesh.unshard_state(state)
     parts = ({"swim": state} if isinstance(state, swim.SwimState) else
              {"swim": state.swim, "coords": state.coords,
               "events": state.events})
@@ -142,6 +172,14 @@ def _same(a, b) -> None:
 
 def _convergence():
     r = bench.run_convergence(n_nodes=1024, victim=341, device="cpu")
+    keep = ("ticks", "frac", "converged", "f1", "false_commits",
+            "sim_counters", "fracs", "timed_ticks_run")
+    return dict({k: r[k] for k in keep}, state=_leaves(r["state"]))
+
+
+def _convergence_sharded():
+    r = bench.run_convergence(n_nodes=1024, victim=341,
+                              mesh=mesh.make_mesh(["cpu"] * 4))
     keep = ("ticks", "frac", "converged", "f1", "false_commits",
             "sim_counters", "fracs", "timed_ticks_run")
     return dict({k: r[k] for k in keep}, state=_leaves(r["state"]))
@@ -204,8 +242,26 @@ def _oracle():
             "state": _leaves(o._state)}
 
 
+def _oracle_sharded():
+    """The sharded oracle's commands (parallel/mesh.py: 4 blocks)."""
+    o = GossipOracle(config.GossipConfig.lan(), _oracle_sim(), device="cpu",
+                     mesh=mesh.make_mesh(["cpu"] * 4))
+    o.warmup()
+    o.advance(12)
+    o.kill("node7")
+    o.advance(40)
+    o.revive("node7")
+    o.advance(30)
+    return {"summary": o.members_summary(), "members": o.members(limit=300),
+            "delta": o.members_delta(), "status": [o.status(f"node{i}")
+                                                   for i in (3, 7, 9, 239)],
+            "metrics": o.sim_metrics(), "state": _leaves(o._state)}
+
+
 CALLERS = {
     "bench.run_convergence": _convergence,
+    "bench.run_convergence (mesh)": _convergence_sharded,
+    "GossipOracle (mesh)": _oracle_sharded,
     "correlated.run": _correlated,
     "correlated.run (bulk channel)": _correlated_bulk,
     **{f"chaos {name}": _scenario(name) for name in sorted(chaos.SCENARIOS)},
@@ -215,7 +271,8 @@ CALLERS = {
     "GossipOracle": _oracle,
 }
 # the callers that step the serf pool, whose probe ticks run K13
-SERF_CALLERS = {"bench.run_convergence", "wan.run", "GossipOracle"}
+SERF_CALLERS = {"bench.run_convergence", "wan.run", "GossipOracle",
+                "bench.run_convergence (mesh)", "GossipOracle (mesh)"}
 # the callers whose runs fill the bulk channel (K14)
 BULK_CALLERS = {"correlated.run (bulk channel)"}
 
@@ -242,6 +299,46 @@ def test_caller_never_reads_a_consumed_state(caller, request):
         assert calls["_probe_pass"] > 0
     if caller in SERF_CALLERS:
         assert calls["observe_ring"] > 0
+    _same(got, ref)
+
+
+def _oracle_bulk_overflow():
+    """A sharded oracle (4 blocks) whose kills fill the bulk channel at a
+    probe tick (13 of 64 nodes, alloc_cap 1): the advance that fills it
+    and the next raise; then its reads."""
+    sim = config.SimConfig(n_nodes=64, rumor_slots=8, alloc_cap=1,
+                           p_loss=0.01, seed=3)
+    o = GossipOracle(config.GossipConfig.lan(), sim, device="cpu",
+                     mesh=mesh.make_mesh(["cpu"] * 4))
+    o.advance(5)
+    for i in range(3, 64, 5):
+        o.kill(f"node{i}")
+    refused = []
+    for _ in range(100):
+        try:
+            o.advance(1)
+        except mesh.BulkChannelLive as e:
+            refused.append((o.tick, str(e)))
+            if len(refused) == 2:
+                break
+    return {"refused": refused, "summary": o.members_summary(),
+            "members": o.members(limit=100), "metrics": o.sim_metrics(),
+            "state": _leaves(o._state)}
+
+
+def test_sharded_oracle_keeps_the_pool_its_bulk_refusal_leaves(request):
+    """The sharded oracle's advance that fills the bulk channel raises and
+    keeps the pool the probe passes left, so its reads answer the same
+    whether or not the passes consume the state they are given, and the
+    next advance refuses at the same tick with nothing run."""
+    ref = _oracle_bulk_overflow()
+    calls = request.getfixturevalue("consuming")
+    got = _oracle_bulk_overflow()
+    assert calls["_dense_suspicion_expiry"] > 0
+    (tick, first), (tick2, second) = ref["refused"]
+    assert tick == tick2 and "dense expiry" in first \
+        and "is live" in second
+    assert ref["state"]["swim.bulk_live"]
     _same(got, ref)
 
 

@@ -682,7 +682,9 @@ def test_no_kernel_keeps_one_occupancy_cache_for_every_card():
         assert "static int per_card" not in src.read_text(), src.name
     caches = sum(src.read_text().count("static PerCard per_card")
                  for src in csrc.glob("*.cu"))
-    assert caches == 13
+    # the 13 persistent grids, and the block forms' own instantiations:
+    # K7's and K11 pre's (kOne or not), K13's two forms, each twice
+    assert caches == 17
     common = (csrc / "common.cuh").read_text()
     assert "struct PerCard" in common and "cudaGetDevice" in common
     assert "struct BlockRows" in common
@@ -790,3 +792,154 @@ def test_block_wrappers_reject_bad_blocks_before_launching():
         kernels.launch_members_scan_blocks(**dict(scan, member=mesh.shard_state(
             torch.zeros(16, dtype=torch.int8), m, 16)))
     assert kernels.LAUNCHES == before      # a refused launch is not counted
+
+
+def test_sharded_probe_passes_on_a_card_tensor_never_take_the_plain_twins(
+        monkeypatch):
+    """On CUDA blocks every pass of the sharded probe tick (K1's block
+    draws, K7-K12's block forms) and K13's launches its block kernel or
+    raises; none answers from its per-block twin."""
+    from consul_tpu_torch.models import swim_blocks, vivaldi
+    from consul_tpu_torch.parallel import mesh
+    from consul_tpu_torch.utils import prng
+    pswim, params, sh = _sharded_state(monkeypatch)
+    sh = sh.replace(tick=0)
+    seen = []
+
+    def refuse(name):
+        def launch(*a, **k):
+            seen.append(name)
+            raise RuntimeError(f"{name} launch failed: CUDA error 1")
+        return launch
+
+    names = ("draws", "subject_maps_blocks", "map_add_blocks",
+             "maps_convert_blocks", "probe_round_blocks", "originate_blocks",
+             "suspicion_expiry_blocks", "dense_expiry_blocks",
+             "refutation_blocks", "expire_blocks", "vivaldi_ring_blocks")
+    for name in names:
+        monkeypatch.setattr(kernels, f"launch_{name}", refuse(name))
+    for twin in ("maps_plain", "map_add_plain", "maps_convert_plain",
+                 "probe_pass_plain", "originate_plain",
+                 "suspicion_expiry_plain", "dense_expiry_plain",
+                 "refutation_plain", "expire_plain"):
+        monkeypatch.setattr(swim_blocks, twin,
+                            lambda *a, **k: pytest.fail("took the twin"))
+    monkeypatch.setattr(vivaldi, "observe_ring_blocks_plain",
+                        lambda *a, **k: pytest.fail("took the twin"))
+    monkeypatch.setattr(prng, "draw_plain",
+                        lambda *a, **k: pytest.fail("took the twin"))
+    n, ell = 64, 16
+    maps = tuple(mesh.Blocks(torch.full((ell,), -1, dtype=torch.int32)
+                             for _ in range(4)) for _ in range(4))
+    rows = mesh.Blocks(torch.zeros(ell, dtype=torch.int32) for _ in range(4))
+    pairs = (torch.tensor([3], dtype=torch.int32),
+             torch.tensor([1], dtype=torch.int32), torch.tensor([True]))
+    conv = torch.zeros(8, dtype=torch.bool)
+    shift = torch.tensor(3, dtype=torch.int32)
+    vp = vivaldi.VivaldiParams(n_nodes=n, dims=8, seed=7)
+    vs = mesh.shard_state(vivaldi.init_state(vp, device="cpu"),
+                          mesh.make_mesh(["cpu"] * 4), n)
+    flags = mesh.Blocks(torch.ones(ell, dtype=torch.bool) for _ in range(4))
+    rtt = mesh.Blocks(torch.ones(ell) for _ in range(4))
+    k = params.indirect_checks
+    drawn = dict(offs=mesh.Replicated([torch.arange(1, k + 2,
+                                                    dtype=torch.int32)]),
+                 rtt=rtt, direct=rtt, lha=rtt,
+                 **{leg: mesh.Blocks(torch.ones(ell, k) for _ in range(4))
+                    for leg in ("uA", "uB", "uC")})
+    for call, name in (
+            (lambda: swim_blocks.probe_inputs(params, sh), "draws"),
+            (lambda: swim_blocks.maps(params, sh), "subject_maps_blocks"),
+            (lambda: swim_blocks.map_add(maps[0], *pairs), "map_add_blocks"),
+            (lambda: swim_blocks.maps_convert(maps, sh, conv),
+             "maps_convert_blocks"),
+            (lambda: swim_blocks.probe_pass(params, sh, maps, drawn),
+             "probe_round_blocks"),
+            (lambda: swim_blocks.originate(params, sh, rows, 1,
+                                           sh.incarnation, rows),
+             "originate_blocks"),
+            (lambda: swim_blocks.suspicion_expiry(params, sh),
+             "suspicion_expiry_blocks"),
+            (lambda: swim_blocks.dense_expiry(params, sh, shift, maps),
+             "dense_expiry_blocks"),
+            (lambda: swim_blocks.refutation(params, sh), "refutation_blocks"),
+            (lambda: swim_blocks.expire(params, sh), "expire_blocks"),
+            (lambda: vivaldi.observe_ring(vp, vs, shift, rtt, flags),
+             "vivaldi_ring_blocks"),
+            (lambda: pswim.step(params, sh), "subject_maps_blocks")):
+        with pytest.raises(RuntimeError, match=f"{name} launch failed"):
+            call()
+        assert seen[-1] == name
+
+
+class _AllCalls:
+    """A stand-in kernel library that records every call of each entry
+    point, in order."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.setdefault(name, []).append(args)
+            return 0
+        return fn
+
+
+def _named(source: str, name: str, args) -> dict:
+    """An entry point's recorded arguments by their C parameter names."""
+    text = (Path(kernels.__file__).parent / "csrc" / source).read_text()
+    m = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)', text)
+    names = [a.replace("*", " ").split()[-1] for a in m.group(1).split(",")]
+    assert len(names) == len(args)
+    return dict(zip(names, args))
+
+
+@pytest.mark.parametrize("blocks", (2, 4))
+def test_block_forms_launch_a_block_at_a_time_with_its_tables(monkeypatch,
+                                                              blocks):
+    """The block wrappers' launches, read through the C parameter names:
+    each block's launch covers rows [bL, (b + 1)L) with its own leaves,
+    the tables list every block's base pointer in block order, each
+    partial slot is the block's own, and the combine runs once, after
+    the blocks, with every slot.  K8 runs select, cover, combine, seed;
+    K10 scan, combine, apply; K12's expire count, combine, clear."""
+    from consul_tpu_torch.models import swim as pswim
+    from consul_tpu_torch.models import swim_blocks
+    from consul_tpu_torch.parallel import mesh
+    rec = _AllCalls()
+    monkeypatch.setattr(kernels, "library", lambda: rec)
+    monkeypatch.setattr(kernels, "_stream", lambda dev: 12345)
+    monkeypatch.setattr(kernels, "enable_peer_access", lambda devs: None)
+    n = 64
+    ell = n // blocks
+    params = pswim.make_params(config.GossipConfig.lan(), config.SimConfig(
+        n_nodes=n, rumor_slots=8, shard_blocks=blocks))
+    s = pswim.init_state(params, device="cpu")
+    sh = mesh.shard_state(s, mesh.make_mesh(["cpu"] * blocks))
+    want = mesh.Blocks(torch.zeros(ell, dtype=torch.int32)
+                       for _ in range(blocks))
+    swim_blocks.kernel_originate(params, sh, want, 1, sh.incarnation, want)
+    swim_blocks.kernel_suspicion_expiry(params, sh)
+    swim_blocks.kernel_expire(params, sh)
+    modes = {"originate": [1] * blocks + [2] * blocks + [3] + [4] * blocks,
+             "suspicion_expiry": [1] * blocks + [2] + [3] * blocks,
+             "expire": [3] * blocks + [2] + [4] * blocks}
+    sources = {"originate": "originate.cu", "suspicion_expiry": "expiry.cu",
+               "expire": "refute.cu"}
+    for name, want_modes in modes.items():
+        calls = [_named(sources[name], name, a) for a in rec.calls[name]]
+        assert [c["mode"] for c in calls] == want_modes, name
+        per_block = [c for c in calls if c["mode"] != 2 + (name == "originate")]
+        for i, c in enumerate(per_block):
+            b = i % blocks
+            assert (c["row0"], c["rows"], c["B"], c["L"], c["N"]) == \
+                (b * ell, ell, blocks, ell, n), (name, i)
+            assert c["know"] == sh.know.parts[b].data_ptr()
+            assert c["stream"] == 12345
+        table = list(calls[0]["tables"])
+        parts = {"originate": sh.committed_dead, "suspicion_expiry":
+                 sh.committed_dead, "expire": sh.committed_dead}[name]
+        at = {"originate": 1, "suspicion_expiry": 1, "expire": 0}[name]
+        assert table[at * blocks:(at + 1) * blocks] == \
+            [p.data_ptr() for p in parts.parts], name

@@ -556,6 +556,14 @@ def _originate_args(n=40, u=16, a=8):
         ok_out=z(a))
 
 
+def _one_device(n):
+    """The block-form parameters of a one-device launch: rows [0, N), one
+    block of N rows, mode 0, no partials or plan (`tables`, the one-block
+    table array, is checked by the card runs)."""
+    return dict(row0=0, rows=n, B=1, L=n, mode=0, part=None, plan=None,
+                part_b=0)
+
+
 def _check_call(args, names, kwargs, scalars):
     """Each C parameter got the wrapper's tensor of the same name (or
     NULL for an absent one) or the stated scalar."""
@@ -588,9 +596,10 @@ def test_probe_round_ctypes_order(monkeypatch, amax, k, chaos):
                    degraded=1, C=7, seed32=7, ok_good=0.99, ok_bad=0.7,
                    degraded_frac=0.1, probe_timeout_ms=500.0, rtt_base_ms=0.5,
                    tick=41, tick16=41, limit=12,
-                   scratch_blocks=kernels.SCRATCH_BLOCKS, stream=12345)
+                   scratch_blocks=kernels.SCRATCH_BLOCKS, stream=12345,
+                   **_one_device(40))
     _check_call(rec.calls["probe_round"], names, args, scalars)
-    assert set(names) - set(scalars) - {"scratch"} <= set(args)
+    assert set(names) - set(scalars) - {"scratch", "tables"} <= set(args)
 
 
 def test_originate_ctypes_order(monkeypatch):
@@ -603,9 +612,10 @@ def test_originate_ctypes_order(monkeypatch):
     assert len(names) == len(kernels.SIGNATURES["originate"])
     scalars = dict(N=40, U=16, A=8, kind=swim.SUSPECT, tick=70000,
                    tick16=swim._t16(70000), limit=12,
-                   list_blocks=kernels.ORIGINATE_LIST_BLOCKS, stream=12345)
+                   list_blocks=kernels.ORIGINATE_LIST_BLOCKS, stream=12345,
+                   **_one_device(40))
     _check_call(rec.calls["originate"], names, args, scalars)
-    assert set(names) - set(scalars) - {"scratch"} <= set(args)
+    assert set(names) - set(scalars) - {"scratch", "tables"} <= set(args)
 
 
 def test_kernel_constants_match_the_sources():

@@ -318,34 +318,42 @@ def test_sharded_oracle_reads_equal_unsharded_and_move_under_n_bytes(
 
 
 def test_sharded_probe_tick_raises_before_anything_runs():
+    """A sharded probe tick runs now (tests/test_torch_sharded_probe.py).
+    What still raises before anything runs is a tick that starts with the
+    bulk channel live, a probe tick included (ROADMAP queue A item 3b-ii),
+    gathering nothing and leaving the blocks as they were."""
     start, _, _ = _jax_ticks(64, "plain")
     tp = _port_params(64, "plain", 4)
     s = mesh.shard_state(convert.cluster_state_from_numpy(start, "cpu"),
                          _cpu_mesh(4))
     while s.swim.tick % tp.swim.probe_period_ticks:
         s = serf.step(tp, s)
+    live = s.replace(swim=s.swim.replace(bulk_live=True))
     know = [p.clone() for p in s.swim.know.parts]
-    for fn in (lambda: serf.step(tp, s), lambda: swim.step(tp.swim, s.swim),
-               lambda: serf.run(tp, s, 3)):
-        with pytest.raises(NotImplementedError, match="3b"):
+    for fn in (lambda: serf.step(tp, live),
+               lambda: swim.step(tp.swim, live.swim),
+               lambda: serf.run(tp, live, 3)):
+        with pytest.raises(NotImplementedError, match="3b-ii"):
             fn()
     assert all(torch.equal(a, b) for a, b in zip(know, s.swim.know.parts))
-    live = s.replace(swim=s.swim.replace(tick=s.swim.tick + 1,
-                                         bulk_live=True))
+    gossip = live.replace(swim=live.swim.replace(tick=live.swim.tick + 1))
     with pytest.raises(NotImplementedError, match="bulk channel"):
-        serf.step(tp, live)
-    with pytest.raises(NotImplementedError, match="3b"):
-        swim.metrics_vector(tp.swim, s.swim)
+        serf.step(tp, gossip)
+    assert swim.metrics_vector(tp.swim, s.swim).shape == (
+        len(swim.METRIC_NAMES),)
 
 
 def test_sharded_oracle_refuses_ticks_and_commands():
+    """The sharded oracle advances, warms up, kills, revives and reads its
+    metrics now (tests/test_torch_sharded_probe.py); the commands of
+    ROADMAP queue A item 3b-ii still raise, before anything runs."""
     o = poracle.GossipOracle(sim=config.SimConfig(n_nodes=64, rumor_slots=8),
                              device="cpu", mesh=_cpu_mesh(4))
     assert o.members_summary()["alive"] == 64
-    for call in (lambda: o.advance(1), lambda: o.kill("node1"),
-                 lambda: o.leave("node1"), lambda: o.revive("node1"),
-                 lambda: o.fire_event("e", b"", "node1"), o.warmup,
-                 lambda: o.rtt("node1", "node2"), o.sim_metrics):
-        with pytest.raises(NotImplementedError, match="3b"):
+    for call in (lambda: o.leave("node1"), lambda: o.spawn(),
+                 lambda: o.fire_event("e", b"", "node1"),
+                 lambda: o.rtt("node1", "node2"),
+                 lambda: o.event_coverage(0)):
+        with pytest.raises(NotImplementedError, match="3b-ii"):
             call()
     assert o.tick == 0
